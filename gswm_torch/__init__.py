@@ -1,0 +1,23 @@
+"""gswm_torch — Gaussian Shading watermarking in PyTorch, with hand-written
+CUDA kernels for Hopper (H100).
+
+The port of the JAX package ``gswm``, which stays beside it as the
+reference.  This package imports torch, numpy and scipy, never jax.  Its
+first slice is the extraction path: embed -> VAE encode -> DDIM inversion ->
+decode, on the layout of ``gswm``:
+
+  core/        ChaCha20 keystream (CUDA kernel), bit diffusion, embed, decode
+  models/      UNet2DCondition, VAE encoder, CLIP text encoder, presets,
+               the weight bridge from the JAX package's flax trees
+  ops/         self-attention kernels (CUDA) and their plain versions
+  schedulers/  DDIM plans and step
+  pipelines/   InversablePipeline
+  csrc/        the CUDA sources; ``native`` builds them at first use
+"""
+
+__version__ = "0.1.0"
+
+from gswm_torch.config import GSConfig  # noqa: F401
+from gswm_torch.core.decode import decode_latents, recover_message_bits  # noqa: F401
+from gswm_torch.core.embed import embed_latents  # noqa: F401
+from gswm_torch.eval.metrics import calculate_bit_accuracy  # noqa: F401

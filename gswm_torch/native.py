@@ -1,0 +1,118 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` (Hopper) into ONE
+shared library with a plain C interface, at first use, into
+``build/gswm_torch_kernels/`` at the root of the checkout; ``ctypes`` loads
+it.  The library's file name carries a hash of the sources and flags, so an
+edited source builds anew and an unchanged one is reused.  Nothing here runs
+at import: the CPU tests import every module on machines without nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "gswm_torch_kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_VP = ctypes.c_void_p
+_I = ctypes.c_int
+# name -> argtypes; every entry returns the cudaError_t of its launches.
+_SIGNATURES = {
+    # words12 (host uint32[12]), out, n_blocks, stream
+    "gswm_chacha20_words": [_VP, _VP, _I, _VP],
+    # q, k, v, out, B, S, H, stream
+    "gswm_flash_attn": [_VP, _VP, _VP, _VP, _I, _I, _I, _VP],
+    # x, wq, wk, wv, q, k, v, out, B, S, C, H, stream
+    "gswm_fused_qkv_attn": [_VP] * 8 + [_I, _I, _I, _I, _VP],
+}
+
+
+class Library:
+    """The loaded kernels plus how they were built."""
+
+    def __init__(self, lib: ctypes.CDLL, path: Path, build_seconds: float,
+                 log: str):
+        self.lib = lib
+        self.path = path
+        self.build_seconds = build_seconds  # 0.0 when a cached build was loaded
+        self.log = log  # nvcc's output, -Xptxas -v register/smem report
+
+    def call(self, name: str, *args) -> None:
+        """Call a C entry point; raise if it reports a CUDA error."""
+        err = getattr(self.lib, name)(*args)
+        if err != 0:
+            raise RuntimeError(f"{name}: CUDA error {err}")
+
+
+_LIBRARY: Library | None = None
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME:
+        cand = Path(CUDA_HOME) / "bin" / "nvcc"
+        if cand.exists():
+            return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> tuple[Path, float, str]:
+    """Compile csrc/*.cu into the build directory unless already there.
+    Returns (library path, seconds spent compiling, nvcc output)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = BUILD_DIR / f"libgswm_kernels_{_digest()}.so"
+    if out.exists():
+        return out, 0.0, ""
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = res.stdout + res.stderr
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
+    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    return out, seconds, log
+
+
+def library() -> Library:
+    """The kernel library, built on first call."""
+    global _LIBRARY
+    if _LIBRARY is None:
+        path, seconds, log = build()
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _LIBRARY = Library(lib, path, seconds, log)
+    return _LIBRARY
+
+
+def stream_handle(device) -> int:
+    """The current PyTorch CUDA stream of ``device`` as a raw handle."""
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,123 @@
+"""PyTorch port vs the JAX package: self-attention kernels' plain versions.
+
+On the CPU the port's wrappers run their plain PyTorch versions; these must
+match the JAX package's fused-qkv Pallas kernel (interpret mode) and its
+plain attention at fp32 tolerance.  The CUDA kernels themselves run only on
+the card: tests/test_torch_gpu.py compares them with the plain versions
+there.
+
+Softmax semantics: the port computes exact softmax (the TPU kernels'
+``use_max`` branch).  The TPU bf16 path clamps logits at 60 and drops the
+running max; the two agree while |logit| < 60 and differ above it, which
+``test_exact_softmax_differs_from_clamped_xla_flash_above_60`` pins.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gswm.ops.attention import (
+    flash_attention_fused_qkv,
+    reference_attention,
+    xla_flash_attention,
+)
+from gswm_torch.models.layers import Attention
+from gswm_torch.ops import attention as attn
+
+torch.set_num_threads(2)
+
+
+def _rand(shape, seed, scale=1.0):
+    return (np.random.default_rng(seed).standard_normal(shape) * scale).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("b,s,c,h,d", [
+    # pinned ragged shapes of tests/test_fused_qkv_attention.py:26-35
+    (1, 640, 96, 3, 64),
+    (1, 2304, 128, 2, 64),
+])
+def test_fused_qkv_reference_matches_jax_kernel(b, s, c, h, d):
+    x = _rand((b, s, c), 0)
+    wq, wk, wv = (_rand((c, h * d), i, 0.1) for i in (1, 2, 3))
+    want = np.asarray(flash_attention_fused_qkv(
+        jnp.asarray(x), jnp.asarray(wq), jnp.asarray(wk), jnp.asarray(wv), h, d,
+        interpret=True))
+    before = attn.fused_qkv_attention.launches
+    # the port takes torch.nn.Linear's (out, in) weight layout
+    got = attn.fused_qkv_attention(
+        torch.from_numpy(x), *(torch.from_numpy(w.T.copy()) for w in (wq, wk, wv)),
+        h)
+    assert attn.fused_qkv_attention.launches == before  # CPU: plain version
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
+
+
+@pytest.mark.parametrize("b,s,h", [(2, 300, 2), (1, 513, 3), (1, 2305, 1)])
+def test_flash_reference_matches_jax_reference(b, s, h):
+    d = 64
+    q, k, v = (_rand((b, s, h * d), i) for i in range(3))
+    want = np.asarray(reference_attention(
+        *(jnp.asarray(t).reshape(b, s, h, d) for t in (q, k, v)))).reshape(
+            b, s, h * d)
+    before = attn.flash_attention.launches
+    got = attn.flash_attention(*(torch.from_numpy(t) for t in (q, k, v)), h)
+    assert attn.flash_attention.launches == before
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
+    np.testing.assert_allclose(
+        got.numpy(),
+        np.asarray(xla_flash_attention(*(jnp.asarray(t) for t in (q, k, v)),
+                                       h, d)), atol=2e-5)
+
+
+def test_exact_softmax_differs_from_clamped_xla_flash_above_60():
+    """bf16, one query row with logits 80 and 70: exact softmax puts ~all
+    weight on the 80 key; the TPU no-max path clamps both to 60 and splits
+    the weight.  Every other row (|logit| < 60) agrees within bf16 rounding."""
+    s, d = 128, 64
+    q = _rand((1, s, d), 0)
+    k = _rand((1, s, d), 1, 0.1)
+    v = _rand((1, s, d), 2)
+    q[0, 0] = 0.0
+    q[0, 0, 0], q[0, 0, 1] = 80.0, 70.0
+    k[0, 5], k[0, 9] = 0.0, 0.0
+    k[0, 5, 0], k[0, 9, 1] = 8.0, 8.0  # logits 80 and 70 after the 1/8 scale
+    v[0, 5], v[0, 9] = 1.0, -1.0
+    tq, tk, tv = (torch.from_numpy(t).bfloat16() for t in (q, k, v))
+    ours = attn.flash_attention(tq, tk, tv, 1).float().numpy()
+    clamped = np.asarray(xla_flash_attention(
+        *(jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in (tq, tk, tv)),
+        1, d)).astype(np.float32)
+    np.testing.assert_allclose(ours[0, 0], 1.0, atol=1e-2)
+    assert np.abs(ours[0, 0] - clamped[0, 0]).min() > 0.5
+    np.testing.assert_allclose(ours[0, 1:], clamped[0, 1:], atol=4e-2)
+
+
+@pytest.mark.parametrize("seq,route", [
+    (64, "plain"), (77, "plain"), (255, "plain"), (256, "fused_qkv"),
+    (1024, "fused_qkv"), (2304, "fused_qkv"), (2305, "flash"), (4096, "flash")])
+def test_routing_window(seq, route):
+    assert attn.route_self_attention(seq) == route
+
+
+@pytest.mark.parametrize("seq", [64, 256, 2305])
+def test_attention_module_routes_match_plain(seq):
+    """The module's three self-attention routes give the same fp32 result."""
+    torch.manual_seed(0)
+    mod = Attention(128, 128, 2, 64)
+    x = torch.randn(1, seq, 128)
+    want = attn.fused_qkv_attention_reference(
+        x, mod.to_q.weight, mod.to_k.weight, mod.to_v.weight, 2)
+    with torch.no_grad():
+        got = mod(x)
+        want = mod.to_out(want)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_wrappers_reject_other_devices():
+    t = torch.empty((1, 256, 64), device="meta")
+    w = torch.empty((64, 64), device="meta")
+    with pytest.raises(ValueError):
+        attn.flash_attention(t, t, t, 1)
+    with pytest.raises(ValueError):
+        attn.fused_qkv_attention(t, w, w, w, 1)

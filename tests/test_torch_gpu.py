@@ -1,0 +1,126 @@
+"""The PyTorch port's CUDA kernels against their plain versions, on the card.
+
+Every test here needs a CUDA card and skips without one.  This file imports
+neither jax nor the JAX package, so it runs where jax is not installed; run
+it there without the repo's conftest (which configures jax):
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
+
+Bound: 0.02 absolute between the bf16 kernel and the fp32 plain version at
+unit-scale inputs (bf16 rounding of q/k/v, p and the output).
+"""
+
+import pytest
+import torch
+
+from gswm_torch.core import chacha
+from gswm_torch.ops import attention as attn
+
+pytestmark = pytest.mark.gpu
+BOUND = 0.02
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("n_blocks,counter0", [
+    (1, 0), (32, 7), (1000, 2**32 - 3), (4099, 2**64 - 2**31)])
+def test_keystream_kernel_bit_exact(cuda, n_blocks, counter0):
+    key = bytes(range(32))
+    nonce = counter0.to_bytes(8, "little") + bytes(range(40, 48))
+    before = chacha.keystream_words.launches
+    got = chacha.keystream_words(key, nonce, n_blocks, cuda)
+    assert chacha.keystream_words.launches == before + 1
+    want = chacha.keystream_words_reference(key, nonce, n_blocks, "cpu")
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("b,s,h", [(1, 1, 1), (1, 65, 1), (2, 300, 2),
+                                   (1, 2305, 3), (2, 4096, 5)])
+def test_flash_kernel_matches_plain(cuda, b, s, h):
+    g = torch.Generator(device=cuda).manual_seed(s)
+    q, k, v = (torch.randn((b, s, h * 64), generator=g, device=cuda).bfloat16()
+               for _ in range(3))
+    before = attn.flash_attention.launches
+    got = attn.flash_attention(q, k, v, h)
+    assert attn.flash_attention.launches == before + 1
+    want = attn.flash_attention_reference(q.float(), k.float(), v.float(), h)
+    torch.testing.assert_close(got.float(), want, rtol=0, atol=BOUND)
+
+
+@pytest.mark.parametrize("b,s,c,h", [(1, 300, 128, 2), (1, 256, 1280, 20),
+                                     (2, 1024, 640, 10), (1, 2304, 640, 10)])
+def test_fused_qkv_kernel_matches_plain(cuda, b, s, c, h):
+    g = torch.Generator(device=cuda).manual_seed(s + c)
+    x = torch.randn((b, s, c), generator=g, device=cuda).bfloat16()
+    ws = [(torch.randn((h * 64, c), generator=g, device=cuda) * c**-0.5).bfloat16()
+          for _ in range(3)]
+    before = attn.fused_qkv_attention.launches
+    got = attn.fused_qkv_attention(x, *ws, h)
+    assert attn.fused_qkv_attention.launches == before + 1
+    want = attn.fused_qkv_attention_reference(x.float(), *(w.float() for w in ws), h)
+    torch.testing.assert_close(got.float(), want, rtol=0, atol=BOUND)
+
+
+def test_flash_kernel_is_exact_softmax_above_60(cuda):
+    """Logits 80 and 70 in one row: the kernel keeps exact softmax (weight
+    ~1 on the 80 key), where the TPU no-max path would clamp both to 60."""
+    s, d = 128, 64
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn((1, s, d), generator=g, device=cuda)
+    k = torch.randn((1, s, d), generator=g, device=cuda) * 0.1
+    v = torch.randn((1, s, d), generator=g, device=cuda)
+    q[0, 0] = 0.0
+    q[0, 0, 0], q[0, 0, 1] = 80.0, 70.0
+    k[0, 5], k[0, 9] = 0.0, 0.0
+    k[0, 5, 0], k[0, 9, 1] = 8.0, 8.0
+    v[0, 5], v[0, 9] = 1.0, -1.0
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    got = attn.flash_attention(q, k, v, 1).float()
+    want = attn.flash_attention_reference(q.float(), k.float(), v.float(), 1)
+    torch.testing.assert_close(got, want, rtol=0, atol=BOUND)
+    torch.testing.assert_close(got[0, 0], torch.ones(d, device=cuda), rtol=0,
+                               atol=1e-2)
+
+
+def test_kernel_wrappers_reject_what_they_do_not_take(cuda):
+    x = torch.randn((1, 256, 128), device=cuda)
+    w = torch.randn((128, 128), device=cuda)
+    with pytest.raises(TypeError):
+        attn.fused_qkv_attention(x, w, w, w, 2)  # fp32
+    xb, wb = x.bfloat16(), w.bfloat16()
+    with pytest.raises(ValueError):
+        attn.fused_qkv_attention(xb[:, :, :96], wb[:, :96], wb[:, :96],
+                                 wb[:, :96], 2)  # not contiguous
+    with pytest.raises(ValueError):
+        attn.fused_qkv_attention(xb[:, :, :96].contiguous(), wb[:96, :96].contiguous(),
+                                 wb[:96, :96].contiguous(), wb[:96, :96].contiguous(),
+                                 2)  # 96 channels: not a multiple of 64
+    with pytest.raises(ValueError):
+        attn.flash_attention(xb, xb, xb, 3)  # 128 != 3 x 64
+
+
+def test_tiny_pipeline_closed_loop_on_card(cuda):
+    """The pipeline on the card in bf16 (tiny preset: every attention is
+    below the kernels' window, so only the keystream kernel runs)."""
+    from gswm_torch import GSConfig, embed_latents, recover_message_bits
+    from gswm_torch.pipelines import InversablePipeline
+
+    pipe = InversablePipeline("tiny", device=cuda, dtype=torch.bfloat16)
+    cfg = GSConfig(key_hex="22" * 32, nonce_hex="33" * 16, message="lthero",
+                   width=64, height=64, message_bits=32)
+    before = chacha.keystream_words.launches
+    zt, msg = embed_latents(cfg, generator=torch.Generator(cuda).manual_seed(1),
+                            batch=2, device=cuda)
+    z = pipe.invert(latents=pipe.generate(zt, num_steps=8), num_steps=8)
+    bits = recover_message_bits(z, cfg)
+    assert chacha.keystream_words.launches == before + 2
+    want = torch.tensor(list(msg), dtype=torch.uint8)
+    want = ((want[:, None] >> torch.arange(7, -1, -1)) & 1).flatten().to(cuda)
+    assert (bits == want).float().mean().item() >= 0.99

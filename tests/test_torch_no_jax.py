@@ -1,0 +1,38 @@
+"""The PyTorch port runs where jax is not installed: importing it and driving
+its tiny pipeline must load none of jax, flax, transformers or
+cryptography."""
+
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+FORBIDDEN = ("jax", "jaxlib", "flax", "transformers", "cryptography")
+
+
+def test_port_imports_no_jax():
+    code = textwrap.dedent(f"""
+        import sys
+        import torch
+        torch.set_num_threads(1)
+        import gswm_torch
+        from gswm_torch import GSConfig, embed_latents, recover_message_bits
+        from gswm_torch.models import bridge  # noqa: F401
+        from gswm_torch.ops import attention  # noqa: F401
+        from gswm_torch.pipelines import InversablePipeline
+        cfg = GSConfig(key_hex="22" * 32, nonce_hex="33" * 16, message="x",
+                       width=64, height=64, message_bits=32)
+        zt, _ = embed_latents(cfg, generator=torch.Generator().manual_seed(0))
+        pipe = InversablePipeline("tiny", device="cpu", dtype=torch.float32)
+        z = pipe.invert(latents=pipe.generate(zt, num_steps=2), num_steps=2)
+        recover_message_bits(z, cfg)
+        loaded = sorted(m for m in sys.modules
+                        if m.split(".")[0] in {FORBIDDEN!r})
+        print("LOADED", loaded)
+        assert not loaded, loaded
+    """)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         cwd=Path(__file__).resolve().parents[1])
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "LOADED []" in res.stdout

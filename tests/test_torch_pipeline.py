@@ -1,0 +1,108 @@
+"""PyTorch port vs the JAX package: the tiny-preset extraction pipeline.
+
+The JAX ``InversablePipeline("tiny", dtype=float32)`` is built once per
+module (its construction is the slow part); the port's pipeline gets its
+weights through ``gswm_torch.models.bridge``.  Both run the same chain on the
+same numpy inputs: embed(u) -> 8-step DDIM generate -> 8-step inversion ->
+decode.  The voted bits must be equal; z_T agrees to fp32 tolerance (the two
+frameworks accumulate convolutions and matmuls in different orders, and the
+difference compounds over 16 UNet evaluations).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gswm.config import GSConfig as JGSConfig
+from gswm.core.decode import recover_message_bits as j_recover
+from gswm.core.embed import embed_latents as j_embed
+from gswm.pipelines import InversablePipeline as JPipeline
+from gswm_torch.config import GSConfig
+from gswm_torch.core.decode import recover_message_bits
+from gswm_torch.core.embed import embed_latents
+from gswm_torch.models.bridge import load_pipeline_params_
+from gswm_torch.pipelines import InversablePipeline
+
+torch.set_num_threads(2)
+
+STEPS = 8
+BASE = dict(key_hex="22" * 32, nonce_hex="33" * 16, message="lthero",
+            width=64, height=64, message_bits=32)
+
+
+@pytest.fixture(scope="module")
+def pipes():
+    jpipe = JPipeline("tiny", dtype=jnp.float32)
+    pipe = InversablePipeline("tiny", device="cpu", dtype=torch.float32)
+    load_pipeline_params_(pipe, jpipe.unet_params, jpipe.vae_params,
+                          jpipe.text_params)
+    return jpipe, pipe
+
+
+def test_empty_context_matches(pipes):
+    jpipe, pipe = pipes
+    want = np.asarray(jpipe.empty_context(2))
+    got = pipe.empty_context(2)
+    assert got.shape == want.shape == (2, 77, 32)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
+
+
+def test_closed_loop_bits_equal_jax(pipes):
+    """embed(u) -> generate -> invert -> decode: equal voted bits."""
+    jpipe, pipe = pipes
+    cfg, jcfg = GSConfig(**BASE), JGSConfig(**BASE)
+    u = np.random.default_rng(5).random((2, cfg.total_elements), dtype=np.float32)
+    zt, msg = embed_latents(cfg, batch=2, u=u)
+    jzt, jmsg = j_embed(jcfg, batch=2, u=jnp.asarray(u))
+    assert msg == jmsg
+
+    x0 = pipe.generate(zt, num_steps=STEPS)
+    jx0 = jpipe.generate(jzt, guidance_scale=1.0, num_steps=STEPS, decode=False)
+    np.testing.assert_allclose(x0.numpy(), np.asarray(jx0), rtol=1e-3, atol=1e-4)
+
+    z_back = pipe.invert(latents=x0, num_steps=STEPS)
+    jz_back = jpipe.invert(latents=jx0, num_steps=STEPS)
+    np.testing.assert_allclose(z_back.numpy(), np.asarray(jz_back), rtol=1e-3,
+                               atol=1e-4)
+
+    bits = recover_message_bits(z_back, cfg).numpy()
+    jbits = np.asarray(j_recover(jz_back, jcfg))
+    np.testing.assert_array_equal(bits, jbits)
+    want = np.unpackbits(np.frombuffer(msg, np.uint8))
+    assert (bits == want).all()
+
+
+def test_image_to_latents_matches_jax(pipes):
+    jpipe, pipe = pipes
+    img = np.random.default_rng(9).random((3, 3, 16, 16), dtype=np.float32)
+    want = np.asarray(jpipe.image_to_latents(jnp.asarray(img)))
+    got = pipe.image_to_latents(torch.from_numpy(img))
+    assert got.shape == want.shape == (3, 4, 8, 8)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
+
+
+def test_extract_bits_is_invert_plus_decode(pipes):
+    """Image in: VAE encode -> inversion -> decode in one call, equal to the
+    split path and to the JAX package's fused extraction."""
+    jpipe, pipe = pipes
+    kw = dict(BASE, width=16, height=16, vae_scale=2)
+    cfg, jcfg = GSConfig(**kw), JGSConfig(**kw)
+    img = np.random.default_rng(11).random((2, 3, 16, 16), dtype=np.float32)
+    bits, z_t = pipe.extract_bits(cfg, images=torch.from_numpy(img), num_steps=4)
+    z_split = pipe.invert(images=torch.from_numpy(img), num_steps=4)
+    torch.testing.assert_close(z_t, z_split, rtol=0, atol=0)
+    assert torch.equal(bits, recover_message_bits(z_split, cfg))
+    jbits, jz = jpipe.extract_bits(jcfg, images=jnp.asarray(img), num_steps=4)
+    np.testing.assert_allclose(z_t.numpy(), np.asarray(jz), rtol=1e-3, atol=1e-4)
+    np.testing.assert_array_equal(bits.numpy(), np.asarray(jbits))
+    assert bits.shape == (2, 32) and bits.dtype == torch.uint8
+
+
+def test_unported_options_raise(pipes):
+    _, pipe = pipes
+    zt = torch.zeros((1, 4, 8, 8))
+    with pytest.raises(NotImplementedError):
+        pipe.generate(zt, num_steps=2, decode=True)
+    with pytest.raises(NotImplementedError):
+        InversablePipeline("sdxl-base", device="meta")
