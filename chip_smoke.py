@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's extraction path once on one NVIDIA GPU (H100).
+"""Drive the PyTorch port's paths once on one NVIDIA GPU (H100).
 
 Run from the root of a checkout:
 
@@ -7,17 +7,32 @@ Run from the root of a checkout:
 Phases, each printing its own line(s); any failure raises and exits nonzero:
   0. card     — refuse to run without CUDA; print the card's name and power
                 limit (nvidia-smi).
-  1. build    — compile gswm_torch/csrc/*.cu with nvcc (sm_90a).
+  1. build    — compile gswm_torch/csrc/*.cu with nvcc (sm_90a), one nvcc
+                process per source, all started together.
   2. kernels  — each kernel against its plain PyTorch version on the card at
-                the main path's shapes, with the stated bound; CUDA-event
-                times of both.
-  3. main path, sd-2-1-base at 512x512, batch 4, random weights from a seed:
+                every shape the paths below give it, with the stated bounds;
+                CUDA-event times of both.  The JSON line's ms and plain_ms
+                sum a kernel's shapes; its max_abs_err is their maximum.
+  3. extraction path, sd-2-1-base at 512x512, batch 4 (full batch; the time
+     limit does not need a smaller one), random weights from a seed:
        (a) latent closed loop: embed -> 30-step DDIM generate -> 30-step
            inversion -> decode; voted bit accuracy >= 0.99 on every image;
        (b) the extraction chain (bench.py:173-177) on random images: embed +
            VAE encode + 30-step inversion + decode; finite, shaped, timed.
-     Every kernel's launch counter must have risen during (a) and (b).
-  4. summary  — a JSON line of the kernels, then the JSON result line.
+     K1, K2 and K3 must launch (K1/K2 exactly 10/5 per UNet forward); K4
+     must not (the VAE attention's 4096 tokens keep the plain path).
+  4. generation path, sd-2-1 (v-prediction) at 768x768, batch 2, random
+     weights from a seed:
+       (a) latent closed loop with DDIM at guidance 1.0, and (b) with DPM++:
+           bit accuracy >= 0.99 on every image;
+       (c) the watermark chain: embed -> seeded prompt ids -> 30-step DDIM at
+           guidance 7.5 -> VAE decode -> VAE encode -> 30-step inversion ->
+           decode; finite images in [0, 1], generation and extraction
+           images/s (second pass).
+     K4 must launch once per VAE chunk of (c): 2 decoder and 1 encoder
+     launches at batch 2; K1, K2 and K3 must launch too.
+  5. summary  — a JSON line of the kernels, then the JSON result line.
+Each path's launch counts are set to 0 just before it and read just after.
 """
 
 from __future__ import annotations
@@ -36,12 +51,21 @@ CARRY_NONCE_HEX = (2**32 - 5).to_bytes(8, "little").hex() + "44" * 8
 
 BATCH = 4
 RES = 512
+BATCH_768 = 2
+RES_768 = 768
 STEPS = 30
 MIN_BIT_ACC = 0.99
 # bf16 kernel vs fp32 plain version at unit-scale inputs: tightened from the
 # 0.06 of tests/test_fused_qkv_attention.py:51-64; the kernels measured
 # <= 0.006 at these shapes on an H100
 ATTN_BOUND = 0.02
+# and relative to the largest output entry: over thousands of keys a typical
+# entry is ~0.02, so the absolute bound alone would pass an error of a few
+# percent; bf16 rounding of p and of the output is ~0.4% of it
+ATTN_REL_BOUND = 0.02
+# gswm/pipelines/inversable.py:330-348: VAE calls take vae_chunk images at
+# 512x512, fewer in proportion to the pixels, and 8x fewer when decoding
+VAE_CHUNK = 32
 
 
 def phase_card() -> str:
@@ -101,54 +125,73 @@ def phase_kernels() -> dict:
     dev = "cuda"
     key, nonce = bytes.fromhex(KEY_HEX), bytes.fromhex(NONCE_HEX)
     carry = bytes.fromhex(CARRY_NONCE_HEX)
-    for n_blocks in (32, 2**20):
+    # 32 and 72 blocks: one 64x64x4 and one 96x96x4 latent of bits
+    ks_ms, ks_plain = 0.0, 0.0
+    for n_blocks in (32, 72, 2**20):
         for nn in (nonce, carry):
             _check_keystream(key, nn, n_blocks)
-    ks_ms = _time_ms(lambda: chacha.keystream_words(key, nonce, 32, dev), 200)
-    ks_plain = _time_ms(
-        lambda: chacha.keystream_words_reference(key, nonce, 32, dev), 20)
-    big_ms = _time_ms(lambda: chacha.keystream_words(key, nonce, 2**20, dev), 20)
-    big_plain = _time_ms(
-        lambda: chacha.keystream_words_reference(key, nonce, 2**20, dev), 5)
-    print(f"K3 chacha20: bit-exact at 32 and 2^20 blocks incl. counter carry; "
-          f"32 blocks {ks_ms:.4f} ms (plain {ks_plain:.4f}); "
-          f"2^20 blocks {big_ms:.4f} ms (plain {big_plain:.4f})", flush=True)
+        ms = _time_ms(lambda: chacha.keystream_words(key, nonce, n_blocks, dev), 50)
+        plain = _time_ms(
+            lambda: chacha.keystream_words_reference(key, nonce, n_blocks, dev), 5)
+        print(f"K3 chacha20 ({n_blocks} blocks): bit-exact incl. counter carry; "
+              f"{ms:.4f} ms (plain {plain:.4f})", flush=True)
+        ks_ms, ks_plain = ks_ms + ms, ks_plain + plain
     records = {"chacha20": dict(max_abs_err=0.0, ms=ks_ms, plain_ms=ks_plain)}
 
     g = torch.Generator(device=dev).manual_seed(1234)
-    k1_err, k1_ms, k1_plain = 0.0, 0.0, 0.0
-    for b, s, c, h in ((2, 1024, 640, 10), (2, 256, 1280, 20)):
-        x = torch.randn((b, s, c), generator=g, device=dev).bfloat16()
-        ws = [(torch.randn((h * 64, c), generator=g, device=dev) * c**-0.5)
-              .bfloat16() for _ in range(3)]
-        got = attn.fused_qkv_attention(x, *ws, h).float()
-        want = attn.fused_qkv_attention_reference(
-            x.float(), *(w.float() for w in ws), h)
-        err = (got - want).abs().max().item()
-        ms = _time_ms(lambda: attn.fused_qkv_attention(x, *ws, h), 20)
-        plain = _time_ms(lambda: attn.fused_qkv_attention_reference(x, *ws, h), 10)
-        print(f"K1 fused_qkv (B={b}, S={s}, C={c}, H={h}): max|err| {err:.5f} "
-              f"(bound {ATTN_BOUND}); {ms:.4f} ms (plain {plain:.4f})", flush=True)
-        if not err <= ATTN_BOUND:
-            raise AssertionError(f"K1 error {err} above {ATTN_BOUND}")
-        k1_err = max(k1_err, err)
-        k1_ms, k1_plain = k1_ms + ms, k1_plain + plain
-    records["fused_qkv_attention"] = dict(max_abs_err=k1_err, ms=k1_ms,
-                                          plain_ms=k1_plain)
 
-    b, s, h = 2, 4096, 5
-    q, k, v = (torch.randn((b, s, h * 64), generator=g, device=dev).bfloat16()
-               for _ in range(3))
-    got = attn.flash_attention(q, k, v, h).float()
-    want = attn.flash_attention_reference(q.float(), k.float(), v.float(), h)
-    err = (got - want).abs().max().item()
-    ms = _time_ms(lambda: attn.flash_attention(q, k, v, h), 20)
-    plain = _time_ms(lambda: attn.flash_attention_reference(q, k, v, h), 5)
-    print(f"K2 flash (B={b}, S={s}, H={h}): max|err| {err:.5f} "
-          f"(bound {ATTN_BOUND}); {ms:.4f} ms (plain {plain:.4f})", flush=True)
-    if not err <= ATTN_BOUND:
-        raise AssertionError(f"K2 error {err} above {ATTN_BOUND}")
-    records["flash_attention"] = dict(max_abs_err=err, ms=ms, plain_ms=plain)
+    def rand(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).bfloat16()
+
+    # (label, kernel, plain version, inputs, iterations); batch 4 is the
+    # UNet's under guidance and in the 512x512 path, batch 2 without
+    cases = []
+    # K1: UNet levels 1 and 2 at 512x512 (1024, 256 tokens) and 768x768
+    # (2304, 576 tokens)
+    for b, s, c, h in ((2, 1024, 640, 10), (2, 256, 1280, 20),
+                       (4, 2304, 640, 10), (4, 576, 1280, 20)):
+        x = rand(b, s, c)
+        ws = [rand(h * 64, c, scale=c**-0.5) for _ in range(3)]
+        cases.append((f"K1 fused_qkv (B={b}, S={s}, C={c}, H={h})",
+                      "fused_qkv_attention",
+                      lambda x=x, ws=ws, h=h: attn.fused_qkv_attention(x, *ws, h),
+                      lambda x=x, ws=ws, h=h: attn.fused_qkv_attention_reference(
+                          x.float(), *(w.float() for w in ws), h), 20))
+    # K2: UNet level 0 at 512x512 (4096 tokens) and 768x768 (9216 tokens)
+    for b, s, h in ((2, 4096, 5), (2, 9216, 5), (4, 9216, 5)):
+        q, k, v = (rand(b, s, h * 64) for _ in range(3))
+        cases.append((f"K2 flash (B={b}, S={s}, H={h})", "flash_attention",
+                      lambda q=q, k=k, v=v, h=h: attn.flash_attention(q, k, v, h),
+                      lambda q=q, k=k, v=v, h=h: attn.flash_attention_reference(
+                          q.float(), k.float(), v.float(), h), 10))
+    # K4: the VAE mid attention at 768x768 (one head, D = 512, 9216 tokens;
+    # the decoder takes one image a call, the encoder two), and a ragged
+    # multi-head D = 64 shape
+    for b, s, h, d in ((1, 9216, 1, 512), (2, 9216, 1, 512), (2, 1000, 10, 64)):
+        q, k, v = (rand(b, s, h, d) for _ in range(3))
+        cases.append((f"K4 flash_split (B={b}, S={s}, H={h}, D={d})",
+                      "flash_attention_split",
+                      lambda q=q, k=k, v=v: attn.flash_attention_split(q, k, v),
+                      lambda q=q, k=k, v=v: attn.flash_attention_split_reference(
+                          q.float(), k.float(), v.float()), 10))
+    for label, name, kernel, plain_fn, iters in cases:
+        got = kernel().float()
+        want = plain_fn()
+        err = (got - want).abs().max().item()
+        top = want.abs().max().item()
+        ms = _time_ms(kernel, iters)
+        plain = _time_ms(plain_fn, 3)
+        print(f"{label}: max|err| {err:.5f} (bound {ATTN_BOUND}), max|want| "
+              f"{top:.5f}, err/max|want| {err / top:.5f} (bound {ATTN_REL_BOUND}); "
+              f"{ms:.4f} ms (plain {plain:.4f})", flush=True)
+        if not (err <= ATTN_BOUND and err <= ATTN_REL_BOUND * top):
+            raise AssertionError(f"{label}: error {err} above {ATTN_BOUND} or "
+                                 f"{ATTN_REL_BOUND} x {top}")
+        rec = records.setdefault(name, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0))
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        rec["ms"] += ms
+        rec["plain_ms"] += plain
+        del got, want
     return records
 
 
@@ -158,7 +201,8 @@ def _counters() -> dict:
 
     return {"chacha20": chacha.keystream_words.launches,
             "fused_qkv_attention": attn.fused_qkv_attention.launches,
-            "flash_attention": attn.flash_attention.launches}
+            "flash_attention": attn.flash_attention.launches,
+            "flash_attention_split": attn.flash_attention_split.launches}
 
 
 def _reset_counters() -> None:
@@ -166,13 +210,28 @@ def _reset_counters() -> None:
     from gswm_torch.ops import attention as attn
 
     for fn in (chacha.keystream_words, attn.fused_qkv_attention,
-               attn.flash_attention):
+               attn.flash_attention, attn.flash_attention_split):
         fn.launches = 0
 
 
-def phase_main_path(card: str) -> dict:
-    from gswm_torch import GSConfig, embed_latents, recover_message_bits
+def _check_unet_launches(counts: dict, forwards: int) -> None:
+    """Every UNet forward at 512x512 and 768x768 has 5 level-1 + 5 level-2
+    self-attention sites (K1) and 5 level-0 sites (K2)."""
+    if counts["fused_qkv_attention"] != 10 * forwards or \
+            counts["flash_attention"] != 5 * forwards:
+        raise AssertionError(f"unexpected attention launch counts {counts} "
+                             f"for {forwards} UNet forwards")
+
+
+def _bit_accuracy(bits, msg: bytes, dev) -> list:
     from gswm_torch.core import bits as bitops
+
+    want = torch.from_numpy(bitops.bytes_to_bits(msg)).to(dev)
+    return (bits == want).float().mean(dim=1).tolist()
+
+
+def phase_extraction_512(card: str) -> dict:
+    from gswm_torch import GSConfig, embed_latents, recover_message_bits
     from gswm_torch.pipelines import InversablePipeline
 
     dev = "cuda"
@@ -193,13 +252,12 @@ def phase_main_path(card: str) -> dict:
     zt, msg = embed_latents(cfg, generator=torch.Generator(device=dev).manual_seed(5),
                             batch=BATCH, device=dev)
     c_embed = _counters()
-    x0 = pipe.generate(zt, num_steps=STEPS)
+    x0 = pipe.generate(zt, guidance_scale=1.0, num_steps=STEPS, decode=False)
     z_back = pipe.invert(latents=x0, num_steps=STEPS)
     c_inv = _counters()
     bits = recover_message_bits(z_back, cfg)
     c_dec = _counters()
-    want = torch.from_numpy(bitops.bytes_to_bits(msg)).to(dev)
-    acc = (bits == want).float().mean(dim=1).tolist()
+    acc = _bit_accuracy(bits, msg, dev)
     sign = ((z_back > 0) == (zt > 0)).float().mean().item()
     print(f"(a) closed loop, batch {BATCH}, {STEPS}+{STEPS} steps: bit accuracy "
           f"{acc}, element sign agreement {sign:.4f}", flush=True)
@@ -236,17 +294,114 @@ def phase_main_path(card: str) -> dict:
     print(f"(b) extraction chain, batch {BATCH}, {RES}x{RES}, {STEPS} steps: "
           f"wall {walls[1]:.4f} s ({BATCH / walls[1]:.4f} images/s; first pass "
           f"{walls[0]:.4f} s) on {card}", flush=True)
-    print(f"launches on the main path: {counts}", flush=True)
-    for name, n in counts.items():
-        if n < 1:
-            raise AssertionError(f"kernel {name} never launched on the main path")
-    # (a) generate + invert, (b) two inversions: 4 x STEPS UNet forwards, each
-    # with 5 level-1 + 5 level-2 sites (K1) and 5 level-0 sites (K2)
-    forwards = 4 * STEPS
-    if counts["fused_qkv_attention"] != 10 * forwards or \
-            counts["flash_attention"] != 5 * forwards:
-        raise AssertionError(f"unexpected attention launch counts {counts} "
-                             f"for {forwards} UNet forwards")
+    print(f"launches on the 512x512 extraction path: {counts}", flush=True)
+    for name in ("chacha20", "fused_qkv_attention", "flash_attention"):
+        if counts[name] < 1:
+            raise AssertionError(f"kernel {name} never launched on the 512 path")
+    if counts["flash_attention_split"]:
+        raise AssertionError("K4 launched at 512x512, where the VAE attention "
+                             "keeps the plain path")
+    # (a) generate + invert, (b) two inversions: 4 x STEPS UNet forwards
+    _check_unet_launches(counts, 4 * STEPS)
+    return counts
+
+
+def phase_generation_768(card: str) -> dict:
+    import numpy as np
+
+    from gswm_torch import GSConfig, embed_latents, recover_message_bits
+    from gswm_torch.pipelines import InversablePipeline
+
+    dev = "cuda"
+    b = BATCH_768
+    t0 = time.perf_counter()
+    pipe = InversablePipeline(
+        "sd-2-1", device=dev, dtype=torch.bfloat16,
+        generator=torch.Generator(device=dev).manual_seed(1))
+    torch.cuda.synchronize()
+    print(f"pipeline: sd-2-1 ({pipe.schedule.prediction_type}), built in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    if pipe.schedule.prediction_type != "v_prediction":
+        raise AssertionError("sd-2-1 must run the v-prediction schedule")
+    cfg = GSConfig(key_hex=KEY_HEX, nonce_hex=NONCE_HEX, message="gswm_torch 768",
+                   width=RES_768, height=RES_768, message_bits=256)
+    prompt_ids = np.random.default_rng(2024).integers(
+        0, pipe.preset.text.vocab_size - 2, (b, pipe.preset.text.max_length))
+
+    def embed(seed):
+        return embed_latents(cfg, generator=torch.Generator(device=dev).manual_seed(seed),
+                             batch=b, device=dev)
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    forwards = 0
+    # (a), (b): latent closed loops, guidance 1.0
+    for scheduler in ("DDIM", "DPMs"):
+        zt, msg = embed(11)
+        x0 = pipe.generate(zt, guidance_scale=1.0, num_steps=STEPS,
+                           scheduler=scheduler, decode=False)
+        z_back = pipe.invert(latents=x0, num_steps=STEPS, scheduler=scheduler)
+        acc = _bit_accuracy(recover_message_bits(z_back, cfg), msg, dev)
+        forwards += 2 * STEPS
+        print(f"({'a' if scheduler == 'DDIM' else 'b'}) 768 closed loop, "
+              f"{scheduler}, batch {b}, {STEPS}+{STEPS} steps: bit accuracy {acc}",
+              flush=True)
+        if min(acc) < MIN_BIT_ACC:
+            raise AssertionError(f"{scheduler} closed-loop bit accuracy {acc} "
+                                 f"below {MIN_BIT_ACC}")
+
+    # (c): the watermark chain, twice (the second pass is timed).  One K4
+    # launch per VAE chunk: at 768x768 the decoder takes 1 image a call and
+    # the encoder 14
+    pixels = max(1.0, RES_768 * RES_768 / (512 * 512))
+    dec_want = -(-b // max(1, int(VAE_CHUNK / (8 * pixels))))
+    enc_want = -(-b // max(1, int(VAE_CHUNK / pixels)))
+    for attempt in (1, 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        zt, msg = embed(20 + attempt)
+        k4_0 = _counters()["flash_attention_split"]
+        images = pipe.generate(zt, prompt_ids=prompt_ids, guidance_scale=7.5,
+                               num_steps=STEPS)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        k4_dec = _counters()["flash_attention_split"] - k4_0
+        bits, z_t = pipe.extract_bits(cfg, images=images, num_steps=STEPS)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        k4_enc = _counters()["flash_attention_split"] - k4_0 - k4_dec
+        forwards += 2 * STEPS
+        if attempt == 1:
+            first = (t1 - t0, t2 - t1)
+            if (k4_dec, k4_enc) != (dec_want, enc_want):
+                raise AssertionError(
+                    f"K4 launches: decoder {k4_dec}, encoder {k4_enc}; the chunk "
+                    f"rule gives {dec_want} and {enc_want}")
+    if tuple(images.shape) != (b, 3, RES_768, RES_768):
+        raise AssertionError(f"images shape {tuple(images.shape)}")
+    if not torch.isfinite(images).all() or images.min() < 0 or images.max() > 1:
+        raise AssertionError("images not finite in [0, 1]")
+    if tuple(bits.shape) != (b, 256) or not torch.isfinite(z_t).all():
+        raise AssertionError(f"bits shape {tuple(bits.shape)} or non-finite z_T")
+    counts = _counters()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    acc = _bit_accuracy(bits, msg, dev)
+    print(f"(c) 768 watermark chain, batch {b}: bit accuracy {acc} (no limit: a "
+          f"random-weight VAE is not an autoencoder, so this says nothing about "
+          f"the watermark)", flush=True)
+    print(f"(c) generation (prompt, 30-step DDIM at guidance 7.5, VAE decode) "
+          f"{t1 - t0:.4f} s = {b / (t1 - t0):.4f} images/s; extraction (VAE "
+          f"encode, 30-step inversion, decode) {t2 - t1:.4f} s = "
+          f"{b / (t2 - t1):.4f} images/s; first pass {first[0]:.4f} + "
+          f"{first[1]:.4f} s; peak device memory {peak:.2f} GiB; on {card}",
+          flush=True)
+    print(f"launches on the 768x768 generation path: {counts}; K4 per chain: "
+          f"decoder {k4_dec}, encoder {k4_enc}", flush=True)
+    for name in ("chacha20", "fused_qkv_attention", "flash_attention",
+                 "flash_attention_split"):
+        if counts[name] < 1:
+            raise AssertionError(f"kernel {name} never launched on the 768 path")
+    _check_unet_launches(counts, forwards)
     return counts
 
 
@@ -254,14 +409,19 @@ def main() -> None:
     card = phase_card()
     phase_build()
     records = phase_kernels()
-    counts = phase_main_path(card)
+    counts_512 = phase_extraction_512(card)
+    torch.cuda.empty_cache()
+    counts_768 = phase_generation_768(card)
+    counts = {name: counts_512[name] + counts_768[name] for name in counts_512}
     sources = {
         "chacha20": ("gswm_torch/csrc/chacha20.cu",
                      "gswm/core/chacha.py:158"),
         "fused_qkv_attention": ("gswm_torch/csrc/fused_qkv.cu",
                                 "gswm/ops/attention.py:689"),
-        "flash_attention": ("gswm_torch/csrc/flash_attn.cu",
+        "flash_attention": ("gswm_torch/csrc/flash_split.cu",
                             "gswm/ops/attention.py:1211"),
+        "flash_attention_split": ("gswm_torch/csrc/flash_split.cu",
+                                  "gswm/ops/attention.py:414"),
     }
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=counts[name], **records[name])

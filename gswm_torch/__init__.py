@@ -2,15 +2,16 @@
 CUDA kernels for Hopper (H100).
 
 The port of the JAX package ``gswm``, which stays beside it as the
-reference.  This package imports torch, numpy and scipy, never jax.  Its
-first slice is the extraction path: embed -> VAE encode -> DDIM inversion ->
-decode, on the layout of ``gswm``:
+reference.  This package imports torch, numpy and scipy, never jax.  It
+covers watermarked generation (embed -> prompt-guided DDIM or DPM++ -> VAE
+decode) and extraction (VAE encode -> inversion -> decode) for the SD 1.x/2.x
+presets, on the layout of ``gswm``:
 
   core/        ChaCha20 keystream (CUDA kernel), bit diffusion, embed, decode
-  models/      UNet2DCondition, VAE encoder, CLIP text encoder, presets,
-               the weight bridge from the JAX package's flax trees
-  ops/         self-attention kernels (CUDA) and their plain versions
-  schedulers/  DDIM plans and step
+  models/      UNet2DCondition, VAE encoder and decoder, CLIP text encoder,
+               presets, the weight bridge from the JAX package's flax trees
+  ops/         attention kernels (CUDA) and their plain versions
+  schedulers/  DDIM and DPM++ plans and steps
   pipelines/   InversablePipeline
   csrc/        the CUDA sources; ``native`` builds them at first use
 """

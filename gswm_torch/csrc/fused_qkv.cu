@@ -1,5 +1,5 @@
 // Fused-qkv self-attention: q/k/v projections in a hand-written GEMM, then
-// the flash core of flash_attn.cu.
+// the split flash-attention kernel of flash_split.cu at D = 64.
 //
 // Replaces the Pallas TPU kernel gswm/ops/attention.py:
 // flash_attention_fused_qkv (body _fused_qkv_kernel, softmax core
@@ -135,7 +135,7 @@ extern "C" int gswm_fused_qkv_attn(const void* x, const void* wq, const void* wk
       N);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(gswm_launch_flash(
+  return static_cast<int>(gswm_launch_flash_split(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), B, S, H, st));
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), B, S, S, H, 64, st));
 }

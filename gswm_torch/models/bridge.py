@@ -95,23 +95,11 @@ def load_tree_(module: nn.Module, tree) -> nn.Module:
     return module
 
 
-# Top-level entries of the JAX VAE tree that the port does not hold yet.
-_VAE_NOT_PORTED = ("decoder", "post_quant_conv")
-
-
-def load_vae_tree_(vae: nn.Module, tree) -> nn.Module:
-    """The JAX AutoencoderKL tree into the port's encoder-only VAE: the
-    decoder entries are set aside by name, everything else must match."""
-    if "params" in tree and len(tree) == 1:
-        tree = tree["params"]
-    return load_tree_(vae, {k: v for k, v in tree.items()
-                            if k not in _VAE_NOT_PORTED})
-
-
 def load_pipeline_params_(pipe, unet_params, vae_params, text_params):
-    """Load the JAX pipeline's unet/vae/text trees into a port pipeline."""
+    """Load the JAX pipeline's unet/vae/text trees into a port pipeline
+    (the whole VAE: encoder, decoder and both quant convs)."""
     load_tree_(pipe.unet, unet_params)
-    load_vae_tree_(pipe.vae, vae_params)
+    load_tree_(pipe.vae, vae_params)
     load_tree_(pipe.text, text_params)
     pipe.reset_caches()
     return pipe

@@ -9,7 +9,8 @@ Port of ``gswm.models.layers``.  Numerics kept from the JAX package:
     reshape: NCHW is permuted to NHWC before flattening.
 Self-attention routes by sequence length (``ops.attention``): the fused-qkv
 kernel at 256..2304 tokens, the natural-layout flash kernel from 2305 up,
-plain matmul + fp32 softmax below and for cross-attention.
+plain matmul + fp32 softmax below and for cross-attention.  The VAE mid-block
+attention takes the split flash kernel above ``VAE_FLASH_MIN_TOKENS``.
 
 Module and parameter names follow diffusers' state-dict layout
 (``down_blocks.0.resnets.1.conv1.weight``, ``to_out.0``, ``ff.net.2``), so
@@ -27,9 +28,15 @@ from torch import nn
 
 from gswm_torch.ops.attention import (
     flash_attention,
+    flash_attention_split,
     fused_qkv_attention,
     route_self_attention,
 )
+
+# gswm/models/layers.py:667: the VAE mid attention keeps the plain path up to
+# this many tokens (512x512 images) and takes the split flash kernel above
+# (768x768: 9216 tokens, whose fp32 logits are 340 MB per image).
+VAE_FLASH_MIN_TOKENS = 4096
 
 
 class GroupNorm32(nn.GroupNorm):
@@ -249,9 +256,10 @@ class Upsample(nn.Module):
 
 
 class VAEAttention(nn.Module):
-    """Single-head spatial self-attention of the VAE mid block (plain
-    matmul + fp32 softmax: the JAX package's einsum branch, which it takes up
-    to 4096 tokens, i.e. up to 512x512 images)."""
+    """Single-head spatial self-attention of the VAE mid block: plain
+    matmul + fp32 softmax (the JAX package's einsum branch) up to
+    ``VAE_FLASH_MIN_TOKENS`` tokens, the split flash kernel with one head of
+    d = C above, as gswm/models/layers.py:692-725."""
 
     def __init__(self, channels: int, norm_groups: int = 32):
         super().__init__()
@@ -266,7 +274,12 @@ class VAEAttention(nn.Module):
         b, c, h, w = x.shape
         residual = x
         x = self.group_norm(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
-        out = plain_attention(self.to_q(x), self.to_k(x), self.to_v(x), 1)
+        q, k, v = self.to_q(x), self.to_k(x), self.to_v(x)
+        if h * w > VAE_FLASH_MIN_TOKENS:
+            out = flash_attention_split(q[:, :, None], k[:, :, None],
+                                        v[:, :, None])[:, :, 0]
+        else:
+            out = plain_attention(q, k, v, 1)
         out = self.to_out(out)
         return out.reshape(b, h, w, c).permute(0, 3, 1, 2) + residual
 

@@ -1,9 +1,10 @@
-"""AutoencoderKL encoder (PyTorch, NCHW) — port of ``gswm.models.vae``'s
-encoder half.  The decoder waits for a later slice.
+"""AutoencoderKL — VAE encoder and decoder (PyTorch, NCHW); port of
+``gswm.models.vae``.
 
 The extraction path needs only the encoder's *posterior mean*: the reference
 uses ``posterior.mean * 0.18215``, never a sample (extract.py:39-43).
-``encode_moments`` returns (mean, logvar); ``encode`` the scaled mean.
+``encode_moments`` returns (mean, logvar); ``encode`` the scaled mean;
+``decode`` maps scaled latents back to images in [-1, 1].
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from gswm_torch.models.layers import (
     Downsample,
     GroupNorm32,
     ResnetBlock,
+    Upsample,
     VAEAttention,
 )
 
@@ -39,6 +41,25 @@ class EncoderBlock(nn.Module):
             x = resnet(x)
         for down in self.downsamplers:
             x = down(x)
+        return x
+
+
+class DecoderBlock(nn.Module):
+    def __init__(self, in_channels: int, out_channels: int, layers: int,
+                 norm_groups: int, add_upsample: bool):
+        super().__init__()
+        self.resnets = nn.ModuleList(
+            ResnetBlock(in_channels if i == 0 else out_channels, out_channels,
+                        norm_groups, norm_eps=1e-6)
+            for i in range(layers))
+        self.upsamplers = nn.ModuleList(
+            [Upsample(out_channels)] if add_upsample else [])
+
+    def forward(self, x):
+        for resnet in self.resnets:
+            x = resnet(x)
+        for up in self.upsamplers:
+            x = up(x)
         return x
 
 
@@ -77,15 +98,39 @@ class Encoder(nn.Module):
         return self.conv_out(F.silu(self.conv_norm_out(x)))
 
 
+class Decoder(nn.Module):
+    def __init__(self, cfg: VAEConfig):
+        super().__init__()
+        rev = tuple(reversed(cfg.block_out_channels))
+        self.conv_in = nn.Conv2d(cfg.latent_channels, rev[0], 3, padding=1)
+        self.mid_block = VAEMid(rev[0], cfg.norm_groups)
+        self.up_blocks = nn.ModuleList(
+            DecoderBlock(rev[max(i - 1, 0)], ch, cfg.layers_per_block + 1,
+                         cfg.norm_groups, add_upsample=i < len(rev) - 1)
+            for i, ch in enumerate(rev))
+        self.conv_norm_out = GroupNorm32(cfg.norm_groups, rev[-1], eps=1e-6)
+        self.conv_out = nn.Conv2d(rev[-1], cfg.in_channels, 3, padding=1)
+
+    def forward(self, z):
+        x = self.mid_block(self.conv_in(z))
+        for block in self.up_blocks:
+            x = block(x)
+        return self.conv_out(F.silu(self.conv_norm_out(x)))
+
+
 class AutoencoderKL(nn.Module):
-    """The encoder half of SD's KL autoencoder plus ``quant_conv``."""
+    """SD's KL autoencoder: encoder + ``quant_conv``, ``post_quant_conv`` +
+    decoder."""
 
     def __init__(self, config: VAEConfig):
         super().__init__()
         self.config = config
         self.encoder = Encoder(config)
+        self.decoder = Decoder(config)
         self.quant_conv = nn.Conv2d(2 * config.latent_channels,
                                     2 * config.latent_channels, 1)
+        self.post_quant_conv = nn.Conv2d(config.latent_channels,
+                                         config.latent_channels, 1)
 
     def encode_moments(self, images: torch.Tensor):
         """images (B, 3, H, W) in [-1, 1] -> (mean, logvar), each float32
@@ -99,3 +144,10 @@ class AutoencoderKL(nn.Module):
         """Posterior MEAN scaled by the SD factor (extract.py:42 parity)."""
         mean, _ = self.encode_moments(images)
         return mean * self.config.scaling_factor
+
+    def decode(self, latents: torch.Tensor) -> torch.Tensor:
+        """Scaled latents (B, latent_channels, h, w) -> float32 images
+        (B, 3, f*h, f*w), f = 2 ** (levels - 1), in [-1, 1]
+        (gswm/models/vae.py:169-175)."""
+        z = (latents / self.config.scaling_factor).to(self.quant_conv.weight.dtype)
+        return self.decoder(self.post_quant_conv(z)).to(torch.float32)

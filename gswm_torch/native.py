@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` (Hopper) into ONE
-shared library with a plain C interface, at first use, into
+Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` (Hopper), one
+``nvcc`` process per source, all started together, and the objects are
+linked into ONE shared library with a plain C interface, at first use, in
 ``build/gswm_torch_kernels/`` at the root of the checkout; ``ctypes`` loads
 it.  The library's file name carries a hash of the sources and flags, so an
 edited source builds anew and an unchanged one is reused.  Nothing here runs
@@ -21,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "gswm_torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -29,10 +30,10 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # words12 (host uint32[12]), out, n_blocks, stream
     "gswm_chacha20_words": [_VP, _VP, _I, _VP],
-    # q, k, v, out, B, S, H, stream
-    "gswm_flash_attn": [_VP, _VP, _VP, _VP, _I, _I, _I, _VP],
     # x, wq, wk, wv, q, k, v, out, B, S, C, H, stream
     "gswm_fused_qkv_attn": [_VP] * 8 + [_I, _I, _I, _I, _VP],
+    # q, k, v, out, B, Sq, Sk, H, D, stream
+    "gswm_flash_split": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
 }
 
 
@@ -81,20 +82,38 @@ def build() -> tuple[Path, float, str]:
     """Compile csrc/*.cu into the build directory unless already there.
     Returns (library path, seconds spent compiling, nvcc output)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = BUILD_DIR / f"libgswm_kernels_{_digest()}.so"
+    digest = _digest()
+    out = BUILD_DIR / f"libgswm_kernels_{digest}.so"
     if out.exists():
         return out, 0.0, ""
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
+    tag = f"{digest}.{os.getpid()}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = res.stdout + res.stderr
-    if res.returncode != 0:
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        jobs.append((obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs = [(obj, proc.communicate()[0], proc.returncode) for obj, proc in jobs]
+    log = "".join(text for _, text, _ in logs)
+    objs = [obj for obj, _, _ in logs]
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    try:
+        failed = [obj.name for obj, _, rc in logs if rc != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        res = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                             capture_output=True, text=True)
+        log += res.stdout + res.stderr
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{log}")
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
-    return out, seconds, log
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return out, time.perf_counter() - t0, log
 
 
 def library() -> Library:

@@ -1,21 +1,23 @@
-"""InversablePipeline — Z_T -> final latents, and image -> Z_T (PyTorch).
+"""InversablePipeline — Z_T -> image, and image -> Z_T (PyTorch).
 
-Port of ``gswm.pipelines.inversable`` for the extraction path:
-  * ``generate(decode=False)``: DDIM denoising of a caller-given Z_T on the
-    empty prompt at guidance 1.0;
+Port of ``gswm.pipelines.inversable``:
+  * ``generate``: DDIM or DPM++ denoising of a caller-given Z_T on a prompt
+    (token ids or a context), with classifier-free guidance (one UNet call
+    on the cond/uncond pair), then the VAE decoder, chunked over the batch;
   * ``image_to_latents``: 2x-1, then the VAE posterior mean x 0.18215,
     chunked over the batch;
-  * ``invert``: exact DDIM inversion with the empty-prompt context and
-    guidance 1.0 (the reference's extraction setting, extract.py:66-69);
+  * ``invert``: inversion with the empty-prompt context and guidance 1.0
+    (the reference's extraction setting, extract.py:66-69), DDIM or DPM++,
+    with optional fixed-point refinement of each step;
   * ``extract_bits``: inversion + quantize / decrypt / vote.
 The JAX scan becomes a Python loop over steps.  The scheduler state, the
 alphas and ``to_eps`` stay float32 whatever the UNet's compute dtype.  Not
-ported yet: classifier-free guidance, DPM++, the VAE decoder, refinement,
-SDXL.
+ported yet: SDXL.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -28,12 +30,9 @@ from gswm_torch.models.layers import init_random_
 from gswm_torch.models.text import TextEncoder
 from gswm_torch.models.unet import UNet2DCondition
 from gswm_torch.models.vae import AutoencoderKL
-from gswm_torch.schedulers.ddim import (
-    ddim_inverse_plan,
-    ddim_plan,
-    ddim_step,
-    to_eps,
-)
+from gswm_torch.schedulers import SCHEDULERS
+from gswm_torch.schedulers.ddim import ddim_step, to_eps
+from gswm_torch.schedulers.dpm import dpm_init_carry, dpm_step
 from gswm_torch.schedulers.schedule import sd_schedule
 
 
@@ -46,12 +45,24 @@ def _build(cls, cfg, generator: torch.Generator):
     return module.eval().requires_grad_(False)
 
 
+@dataclasses.dataclass
+class PipelineOutput:
+    """Generation result carrying the init noise (gswm/pipelines/inversable.py:
+    PipelineOutput, the reference's ModifiedStableDiffusionPipelineOutput)."""
+
+    images: torch.Tensor  # (B, 3, H, W) in [0, 1]
+    nsfw_content_detected: list
+    init_latents: torch.Tensor  # the Z_T that seeded generation
+
+
 class InversablePipeline:
     """One weight set; generate and invert on one device."""
 
-    # VAE activations at 512x512 are the memory peak of the extraction path;
-    # the encode runs over batch chunks of this many 512x512 images, scaled
-    # down inversely with pixel count (the JAX package's rule).
+    # VAE activations are the memory peak outside the step loop: encode and
+    # decode run over batch chunks of this many 512x512 images, scaled down
+    # inversely with pixel count and, for decode, by 8 more (the JAX
+    # package's rule, gswm/pipelines/inversable.py:330-348).  Chunking does
+    # not change results.
     vae_chunk: int = 32
 
     def __init__(self, preset: ModelPreset | str = "sd-2-1-base", device="cpu",
@@ -99,53 +110,119 @@ class InversablePipeline:
     # -- the step loop -------------------------------------------------------
 
     @torch.inference_mode()
-    def _run(self, latents, context, num_steps: int, invert: bool) -> torch.Tensor:
-        plan = (ddim_inverse_plan if invert else ddim_plan)(self.schedule, num_steps)
+    def _run(self, latents, context, num_steps: int, invert: bool,
+             scheduler: str = "DDIM", uncond_context=None,
+             guidance_scale: float = 1.0, refine: int = 0) -> torch.Tensor:
+        """The denoise (or inversion) loop.  With ``uncond_context`` each
+        step runs the UNet once on the (uncond, cond) pair and combines
+        out_u + g (out_c - out_u) on its float32 output before ``to_eps``.
+        ``refine`` (inversion only) re-takes each step from the same
+        pre-step state with eps re-evaluated on the current estimate."""
+        plan = SCHEDULERS[scheduler][1 if invert else 0](self.schedule, num_steps)
         alphas = torch.from_numpy(np.stack(
             [plan.alpha_eval, plan.alpha_from, plan.alpha_to])).to(self.device)
         x = torch.as_tensor(latents).to(self.device, torch.float32)
-        b = x.shape[0]
         pred_type = self.schedule.prediction_type
+        use_dpm = scheduler == "DPMs"
+        guided = uncond_context is not None
+        ctx = torch.cat([uncond_context, context]) if guided else context
+
+        def eval_eps(x, t, a_eval):
+            if guided:
+                out_u, out_c = self.unet(torch.cat([x, x]), t, ctx).chunk(2)
+                out = out_u + guidance_scale * (out_c - out_u)
+            else:
+                out = self.unet(x, t, ctx)
+            return to_eps(x, out, a_eval, pred_type)
+
+        def step(x, eps, a_from, a_to, carry, first):
+            if use_dpm:
+                return dpm_step(x, eps, a_from, a_to, carry, first)
+            return ddim_step(x, eps, a_from, a_to), carry
+
+        carry = dpm_init_carry(x.shape, self.device) if use_dpm else None
+        first_order = plan.extras.get("first_order")
         for i, t in enumerate(plan.t_model.tolist()):
             a_eval, a_from, a_to = alphas[0, i], alphas[1, i], alphas[2, i]
-            ts = torch.full((b,), t, dtype=torch.int32, device=self.device)
-            eps = to_eps(x, self.unet(x, ts, context), a_eval, pred_type)
-            x = ddim_step(x, eps, a_from, a_to)
+            first = bool(first_order[i]) if use_dpm else False
+            ts = torch.full((), t, dtype=torch.int32, device=self.device)
+            x_next, new_carry = step(x, eval_eps(x, ts, a_eval), a_from, a_to,
+                                     carry, first)
+            for _ in range(refine if invert else 0):
+                x_next, new_carry = step(x, eval_eps(x_next, ts, a_eval), a_from,
+                                         a_to, carry, first)
+            x, carry = x_next, new_carry
         return x
 
     # -- public API ----------------------------------------------------------
 
-    def generate(self, latents, num_steps: int = 50,
-                 decode: bool = False) -> torch.Tensor:
-        """Watermarked Z_T -> final latents (float32): DDIM on the empty
-        prompt at guidance 1.0."""
-        if decode:
-            raise NotImplementedError("the VAE decoder is not ported yet")
-        return self._run(latents, self.empty_context(latents.shape[0]), num_steps,
-                         invert=False)
+    def generate(self, latents, context=None, prompt_ids=None,
+                 guidance_scale: float = 7.5, num_steps: int = 50,
+                 scheduler: str = "DDIM", decode: bool = True) -> torch.Tensor:
+        """Watermarked Z_T -> images (B, 3, H, W) in [0, 1], float32, or the
+        final latents with ``decode=False``.  The prompt is ``context`` or
+        ``prompt_ids`` (B, 77) token ids, else the empty prompt; guidance
+        1.0 (or None) runs the UNet on the prompt alone."""
+        b = latents.shape[0]
+        if context is None:
+            context = (self.encode_prompt_ids(prompt_ids) if prompt_ids is not None
+                       else self.empty_context(b))
+        guided = guidance_scale is not None and guidance_scale != 1.0
+        out = self._run(latents, context, num_steps, invert=False,
+                        scheduler=scheduler,
+                        uncond_context=self.empty_context(b) if guided else None,
+                        guidance_scale=guidance_scale if guided else 1.0)
+        return self._vae_chunked(out, self.decode_image) if decode else out
 
-    def _vae_chunk_for(self, images) -> int:
-        scale = max(1.0, images.shape[-2] * images.shape[-1] / (512 * 512))
+    def generate_with_init(self, latents, **kw) -> PipelineOutput:
+        """``generate`` that also returns the init latents."""
+        images = self.generate(latents, **kw)
+        return PipelineOutput(images=images,
+                              nsfw_content_detected=[False] * images.shape[0],
+                              init_latents=torch.as_tensor(latents))
+
+    @torch.inference_mode()
+    def decode_image(self, latents) -> torch.Tensor:
+        """Scaled latents -> float32 images in [0, 1], one VAE call."""
+        x = torch.as_tensor(latents).to(self.device, torch.float32)
+        return torch.clamp(self.vae.decode(x) * 0.5 + 0.5, 0.0, 1.0)
+
+    def _vae_chunk_for(self, x) -> int:
+        hw = x.shape[-2] * x.shape[-1]
+        decode = x.shape[1] == self.preset.vae.latent_channels
+        if decode:  # activations grow to image size at the decoder's output
+            f = 2 ** (len(self.preset.vae.block_out_channels) - 1)
+            hw *= f * f
+        scale = max(1.0, hw / (512 * 512))
+        if decode:
+            scale *= 8.0
         return max(1, int(self.vae_chunk / scale))
 
     @torch.inference_mode()
+    def _vae_chunked(self, x, method) -> torch.Tensor:
+        return torch.cat([method(ch) for ch in x.split(self._vae_chunk_for(x))])
+
     def image_to_latents(self, images) -> torch.Tensor:
         """images (B,3,H,W) in [0,1] -> scaled posterior-MEAN latents, float32
         (extract.py:39-43 parity, including the 2x-1 normalization)."""
         x = 2.0 * torch.as_tensor(images).to(self.device, torch.float32) - 1.0
-        c = self._vae_chunk_for(x)
-        return torch.cat([self.vae.encode(ch) for ch in x.split(c)])
+        return self._vae_chunked(x, self.vae.encode)
 
-    def invert(self, images=None, latents=None, num_steps: int = 50) -> torch.Tensor:
-        """image (or its latents) -> recovered Z_T, empty prompt, guidance 1."""
+    def invert(self, images=None, latents=None, num_steps: int = 50,
+               scheduler: str = "DDIM", refine: int = 0) -> torch.Tensor:
+        """image (or its latents) -> recovered Z_T, empty prompt, guidance 1;
+        ``refine`` adds fixed-point iterations per step."""
         if latents is None:
             latents = self.image_to_latents(images)
         ctx = self.empty_context(latents.shape[0])
-        return self._run(latents, ctx, num_steps, invert=True)
+        return self._run(latents, ctx, num_steps, invert=True,
+                         scheduler=scheduler, refine=refine)
 
     def extract_bits(self, cfg: GSConfig, images=None, latents=None,
-                     num_steps: int = 50):
+                     num_steps: int = 50, scheduler: str = "DDIM",
+                     refine: int = 0):
         """Inversion + quantize/decrypt/vote.  Returns ``(bits, z_T)``: voted
         message bits (B, message_bits) uint8 and the recovered init noise."""
-        z_t = self.invert(images=images, latents=latents, num_steps=num_steps)
+        z_t = self.invert(images=images, latents=latents, num_steps=num_steps,
+                          scheduler=scheduler, refine=refine)
         return recover_message_bits(z_t, cfg), z_t

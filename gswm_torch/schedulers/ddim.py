@@ -24,12 +24,14 @@ class StepPlan:
 
     t_model/alpha_eval: where the UNet is evaluated.
     alpha_from/alpha_to: the state transition.
+    extras: scheduler-specific per-step arrays (DPM's first-order flags).
     """
 
     t_model: np.ndarray  # (N,) int32
     alpha_eval: np.ndarray  # (N,) float32
     alpha_from: np.ndarray  # (N,) float32
     alpha_to: np.ndarray  # (N,) float32
+    extras: dict = dataclasses.field(default_factory=dict)
 
 
 def to_eps(x, model_out, alpha_eval, prediction_type: str = "epsilon"):

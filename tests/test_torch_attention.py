@@ -1,8 +1,8 @@
 """PyTorch port vs the JAX package: self-attention kernels' plain versions.
 
 On the CPU the port's wrappers run their plain PyTorch versions; these must
-match the JAX package's fused-qkv Pallas kernel (interpret mode) and its
-plain attention at fp32 tolerance.  The CUDA kernels themselves run only on
+match the JAX package's Pallas kernels (fused-qkv, split flash and cres, in
+interpret mode) and its plain attention at fp32 tolerance.  The CUDA kernels themselves run only on
 the card: tests/test_torch_gpu.py compares them with the plain versions
 there.
 
@@ -18,6 +18,8 @@ import pytest
 import torch
 
 from gswm.ops.attention import (
+    flash_attention as j_flash_attention,
+    flash_attention_cres,
     flash_attention_fused_qkv,
     reference_attention,
     xla_flash_attention,
@@ -121,3 +123,78 @@ def test_wrappers_reject_other_devices():
         attn.flash_attention(t, t, t, 1)
     with pytest.raises(ValueError):
         attn.fused_qkv_attention(t, w, w, w, 1)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,d", [
+    (1, 1024, 1024, 1, 512),  # the VAE mid shape of tests/test_ops_attention.py:78-88
+    (2, 700, 700, 3, 64),  # ragged, several heads
+    (1, 300, 77, 2, 64),  # 77 keys: the einsum branch on both sides
+])
+def test_split_matches_jax_flash_attention(b, sq, sk, h, d):
+    """fp32, atol/rtol 3e-5 (the bound of tests/test_ops_attention.py:87)."""
+    q = _rand((b, sq, h, d), 0)
+    k, v = _rand((b, sk, h, d), 1), _rand((b, sk, h, d), 2)
+    want = np.asarray(j_flash_attention(
+        *(jnp.asarray(t) for t in (q, k, v)), interpret=True))
+    before = attn.flash_attention_split.launches
+    got = attn.flash_attention_split(*(torch.from_numpy(t) for t in (q, k, v)))
+    assert attn.flash_attention_split.launches == before  # CPU: plain version
+    assert got.shape == (b, sq, h, d)
+    np.testing.assert_allclose(got.numpy(), want, atol=3e-5, rtol=3e-5)
+    if sk >= attn.SPLIT_MIN_KEYS:
+        torch.testing.assert_close(
+            got, attn.flash_attention_split_reference(
+                *(torch.from_numpy(t) for t in (q, k, v))), rtol=0, atol=0)
+
+
+def test_split_exact_softmax_differs_from_clamped_jax_flash_above_60():
+    """bf16 at 512 keys (the blockwise path on both sides), one query row
+    with logits 80 and 70: the port's exact softmax puts ~all weight on the
+    80 key; the TPU no-max path clamps both to 60 and splits the weight.
+    Rows with |logit| < 60 agree within bf16 rounding."""
+    s, d = 512, 64
+    q = _rand((1, s, 1, d), 0)
+    k = _rand((1, s, 1, d), 1, 0.1)
+    v = _rand((1, s, 1, d), 2)
+    q[0, 0, 0] = 0.0
+    q[0, 0, 0, 0], q[0, 0, 0, 1] = 80.0, 70.0
+    k[0, 5, 0], k[0, 9, 0] = 0.0, 0.0
+    k[0, 5, 0, 0], k[0, 9, 0, 1] = 8.0, 8.0  # logits 80 and 70 after 1/8
+    v[0, 5, 0], v[0, 9, 0] = 1.0, -1.0
+    tq, tk, tv = (torch.from_numpy(t).bfloat16() for t in (q, k, v))
+    ours = attn.flash_attention_split(tq, tk, tv).float().numpy()
+    clamped = np.asarray(j_flash_attention(
+        *(jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in (tq, tk, tv)),
+        interpret=True)).astype(np.float32)
+    np.testing.assert_allclose(ours[0, 0, 0], 1.0, atol=1e-2)
+    assert np.abs(ours[0, 0, 0] - clamped[0, 0, 0]).min() > 0.5
+    np.testing.assert_allclose(ours[0, 1:], clamped[0, 1:], atol=4e-2)
+
+
+@pytest.mark.parametrize("b,s,h", [(1, 300, 1), (2, 1000, 3)])
+def test_cres_is_served_by_the_flash_plain_version(b, s, h):
+    """The Pallas ``flash_attention_cres`` (K/V channels zero-padded to a
+    multiple of 128, ragged S) computes what the port's natural-layout
+    flash kernel's plain version does: fp32, atol 2e-5 as the K2 parity
+    test above."""
+    d = 64
+    q, k, v = (_rand((b, s, h * d), i) for i in range(3))
+    pad = (-(h * d)) % 128
+    kp, vp = (np.pad(t, ((0, 0), (0, 0), (0, pad))) for t in (k, v))
+    want = np.asarray(flash_attention_cres(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), h, d, interpret=True))
+    got = attn.flash_attention_reference(*(torch.from_numpy(t) for t in (q, k, v)), h)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
+
+
+def test_split_rejects_mismatched_shapes():
+    q = torch.zeros((1, 600, 2, 64))
+    with pytest.raises(ValueError):
+        attn.flash_attention_split(q, q[:, :, :1], q[:, :, :1])  # heads differ
+    with pytest.raises(ValueError):
+        attn.flash_attention_split(q, q, q[:, :500])  # k and v lengths differ
+    with pytest.raises(ValueError):
+        attn.flash_attention_split(q[0], q[0], q[0])  # not 4-d
+    t = torch.empty((1, 600, 1, 64), device="meta")
+    with pytest.raises(ValueError):
+        attn.flash_attention_split(t, t, t)  # neither CPU nor CUDA

@@ -112,12 +112,55 @@ def test_vae_encoder():
     mean, logvar = jax.jit(lambda p, x: jmod.apply(
         p, x, method=JVAE.encode_moments))(params, img)
     mod = AutoencoderKL(TINY.vae)
-    bridge.load_vae_tree_(mod, params)
+    bridge.load_tree_(mod, params)
     with torch.no_grad():
         got_mean, got_logvar = mod.encode_moments(torch.from_numpy(img))
         _close(got_mean, mean)
         _close(got_logvar, logvar)
         _close(mod.encode(torch.from_numpy(img)), np.asarray(mean) * 0.18215)
+
+
+def test_vae_decoder():
+    """The tiny VAE decoder on bridged weights against JAX decode."""
+    jmod = JVAE(TINY.vae)
+    params = jmod.init(jax.random.key(4), jnp.zeros((1, 3, 16, 16)))
+    lat = _rand((2, 4, 8, 8), 7)
+    want = jax.jit(lambda p, z: jmod.apply(p, z, method=JVAE.decode))(params, lat)
+    mod = AutoencoderKL(TINY.vae)
+    bridge.load_tree_(mod, params)
+    with torch.no_grad():
+        got = mod.decode(torch.from_numpy(lat))
+    assert got.dtype == torch.float32 and got.shape == (2, 3, 16, 16)
+    _close(got, want)
+
+
+def test_vae_attention_split_route(monkeypatch):
+    """Above the token threshold (patched to 512; 32x32 = 1024 tokens) the
+    port's VAEAttention takes ``flash_attention_split`` with one head of
+    d = C, as the JAX module takes its Pallas flash kernel (GSWM_FORCE_FLASH,
+    tests/test_ops_attention.py:91-104); fp32, atol/rtol 3e-5."""
+    x = _rand((1, 32, 32, 64), 8)
+    jmod = jlayers.VAEAttention(dtype=jnp.float32)
+    params = jmod.init(jax.random.key(9), x)
+    monkeypatch.setenv("GSWM_FORCE_FLASH", "1")
+    monkeypatch.setattr(jlayers, "_VAE_FLASH_MIN_TOKENS", 512)
+    want = np.asarray(jmod.apply(params, x)).transpose(0, 3, 1, 2)
+
+    calls = []
+    real_split = layers.flash_attention_split
+
+    def split(q, k, v):
+        calls.append(tuple(q.shape))
+        return real_split(q, k, v)
+
+    monkeypatch.setattr(layers, "VAE_FLASH_MIN_TOKENS", 512)
+    monkeypatch.setattr(layers, "flash_attention_split", split)
+    mod = layers.VAEAttention(64)
+    bridge.load_tree_(mod, params)
+    with torch.no_grad():
+        got = mod(_nchw(x))
+    assert calls == [(1, 1024, 1, 64)]
+    np.testing.assert_allclose(got.numpy(), want, rtol=3e-5, atol=3e-5)
 
 
 @pytest.mark.parametrize("act,penultimate", [("quick_gelu", False), ("gelu", True)])
@@ -170,3 +213,20 @@ def test_bridge_names_follow_diffusers():
     assert sd["conv_in.weight"].shape == (8, 4, 3, 3)
     assert sd["down_blocks.0.attentions.1.transformer_blocks.0.ff.net.2.weight"] \
         .shape == (4, 6)
+
+
+@pytest.mark.parametrize("edit", ["missing", "extra"])
+def test_bridge_loads_the_whole_vae_and_raises_on_decoder_keys(edit):
+    """The whole JAX VAE tree loads, decoder included; a decoder key left
+    over on either side raises."""
+    jmod = JVAE(TINY.vae)
+    params = jax.tree.map(np.asarray, jmod.init(
+        jax.random.key(3), jnp.zeros((1, 3, 16, 16))))["params"]
+    bridge.load_tree_(AutoencoderKL(TINY.vae), params)
+    dec = dict(params["decoder"])
+    if edit == "missing":
+        dec.pop("conv_norm_out")
+    else:
+        dec["conv_extra"] = {"kernel": np.zeros((3, 3, 16, 16)), "bias": np.zeros(16)}
+    with pytest.raises(ValueError, match="unexpected" if edit == "extra" else "missing"):
+        bridge.load_tree_(AutoencoderKL(TINY.vae), dict(params, decoder=dec))

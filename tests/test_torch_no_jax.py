@@ -1,13 +1,15 @@
 """The PyTorch port runs where jax is not installed: importing it and driving
-its tiny pipeline must load none of jax, flax, transformers or
-cryptography."""
+its tiny pipeline (prompt -> guided DPM++ generation -> VAE decode -> encode
+-> inversion -> decode) must load none of jax, flax, transformers,
+cryptography or safetensors."""
 
 import subprocess
 import sys
 import textwrap
 from pathlib import Path
 
-FORBIDDEN = ("jax", "jaxlib", "flax", "transformers", "cryptography")
+FORBIDDEN = ("jax", "jaxlib", "flax", "transformers", "cryptography",
+             "safetensors")
 
 
 def test_port_imports_no_jax():
@@ -20,12 +22,15 @@ def test_port_imports_no_jax():
         from gswm_torch.models import bridge  # noqa: F401
         from gswm_torch.ops import attention  # noqa: F401
         from gswm_torch.pipelines import InversablePipeline
+        from gswm_torch.schedulers import dpm  # noqa: F401
         cfg = GSConfig(key_hex="22" * 32, nonce_hex="33" * 16, message="x",
                        width=64, height=64, message_bits=32)
         zt, _ = embed_latents(cfg, generator=torch.Generator().manual_seed(0))
         pipe = InversablePipeline("tiny", device="cpu", dtype=torch.float32)
-        z = pipe.invert(latents=pipe.generate(zt, num_steps=2), num_steps=2)
-        recover_message_bits(z, cfg)
+        ids = torch.randint(0, 1000, (1, 77), generator=torch.Generator().manual_seed(1))
+        images = pipe.generate(zt, prompt_ids=ids, num_steps=2, scheduler="DPMs")
+        bits, _ = pipe.extract_bits(cfg, images=images, num_steps=2,
+                                    scheduler="DPMs", refine=1)
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in {FORBIDDEN!r})
         print("LOADED", loaded)

@@ -1,13 +1,16 @@
-"""PyTorch port vs the JAX package: the tiny-preset extraction pipeline.
+"""PyTorch port vs the JAX package: the tiny-preset pipeline.
 
 The JAX ``InversablePipeline("tiny", dtype=float32)`` is built once per
 module (its construction is the slow part); the port's pipeline gets its
-weights through ``gswm_torch.models.bridge``.  Both run the same chain on the
-same numpy inputs: embed(u) -> 8-step DDIM generate -> 8-step inversion ->
-decode.  The voted bits must be equal; z_T agrees to fp32 tolerance (the two
-frameworks accumulate convolutions and matmuls in different orders, and the
-difference compounds over 16 UNet evaluations).
+weights through ``gswm_torch.models.bridge``.  Both run the same chains on
+the same numpy inputs: embed(u) -> 8-step generate (DDIM or DPM++, with or
+without guidance and the VAE decoder) -> 8-step inversion -> decode.  The
+voted bits must be equal; latents, z_T and images agree to rtol 1e-3 /
+atol 1e-4 (the two frameworks accumulate convolutions and matmuls in
+different orders, and the difference compounds over 16 UNet evaluations).
 """
+
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,12 +20,15 @@ import torch
 from gswm.config import GSConfig as JGSConfig
 from gswm.core.decode import recover_message_bits as j_recover
 from gswm.core.embed import embed_latents as j_embed
+from gswm.models.configs import TINY as J_TINY
 from gswm.pipelines import InversablePipeline as JPipeline
 from gswm_torch.config import GSConfig
 from gswm_torch.core.decode import recover_message_bits
 from gswm_torch.core.embed import embed_latents
 from gswm_torch.models.bridge import load_pipeline_params_
+from gswm_torch.models.configs import TINY
 from gswm_torch.pipelines import InversablePipeline
+from gswm_torch.pipelines.inversable import PipelineOutput
 
 torch.set_num_threads(2)
 
@@ -57,7 +63,7 @@ def test_closed_loop_bits_equal_jax(pipes):
     jzt, jmsg = j_embed(jcfg, batch=2, u=jnp.asarray(u))
     assert msg == jmsg
 
-    x0 = pipe.generate(zt, num_steps=STEPS)
+    x0 = pipe.generate(zt, guidance_scale=1.0, num_steps=STEPS, decode=False)
     jx0 = jpipe.generate(jzt, guidance_scale=1.0, num_steps=STEPS, decode=False)
     np.testing.assert_allclose(x0.numpy(), np.asarray(jx0), rtol=1e-3, atol=1e-4)
 
@@ -99,10 +105,118 @@ def test_extract_bits_is_invert_plus_decode(pipes):
     assert bits.shape == (2, 32) and bits.dtype == torch.uint8
 
 
-def test_unported_options_raise(pipes):
-    _, pipe = pipes
-    zt = torch.zeros((1, 4, 8, 8))
-    with pytest.raises(NotImplementedError):
-        pipe.generate(zt, num_steps=2, decode=True)
+def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         InversablePipeline("sdxl-base", device="meta")
+
+
+def _embedded(seed=5):
+    cfg, jcfg = GSConfig(**BASE), JGSConfig(**BASE)
+    u = np.random.default_rng(seed).random((2, cfg.total_elements), dtype=np.float32)
+    zt, msg = embed_latents(cfg, batch=2, u=u)
+    jzt, _ = j_embed(jcfg, batch=2, u=jnp.asarray(u))
+    return cfg, jcfg, zt, jzt, msg
+
+
+@pytest.fixture(scope="module")
+def generated(pipes):
+    """Prompt token ids -> 8-step DDIM at guidance 7.5 -> VAE decode, on
+    both sides."""
+    jpipe, pipe = pipes
+    _, _, zt, jzt, _ = _embedded()
+    ids = np.random.default_rng(21).integers(0, TINY.text.vocab_size, (2, 77))
+    out = pipe.generate_with_init(zt, prompt_ids=ids, guidance_scale=7.5,
+                                  num_steps=STEPS)
+    jimages = jpipe.generate(jzt, prompt_ids=jnp.asarray(ids), guidance_scale=7.5,
+                             num_steps=STEPS)
+    return out, zt, np.asarray(jimages)
+
+
+def test_generate_guided_decoded_matches_jax(generated):
+    out, zt, jimages = generated
+    assert isinstance(out, PipelineOutput)
+    assert out.nsfw_content_detected == [False, False]
+    assert torch.equal(out.init_latents, zt)
+    images = out.images
+    assert images.shape == jimages.shape == (2, 3, 16, 16)
+    assert images.dtype == torch.float32
+    assert 0.0 <= images.min().item() and images.max().item() <= 1.0
+    np.testing.assert_allclose(images.numpy(), jimages, rtol=1e-3, atol=1e-4)
+
+
+def test_extract_bits_from_generated_images_equal_jax(pipes, generated):
+    """The generated images through VAE encode -> inversion -> decode on
+    both sides: equal voted bits."""
+    jpipe, pipe = pipes
+    out, _, _ = generated
+    cfg, jcfg = GSConfig(**BASE), JGSConfig(**BASE)
+    bits, z_t = pipe.extract_bits(cfg, images=out.images, num_steps=STEPS)
+    jbits, jz = jpipe.extract_bits(jcfg, images=jnp.asarray(out.images.numpy()),
+                                   num_steps=STEPS)
+    np.testing.assert_allclose(z_t.numpy(), np.asarray(jz), rtol=1e-3, atol=1e-4)
+    np.testing.assert_array_equal(bits.numpy(), np.asarray(jbits))
+    assert bits.shape == (2, 32)
+
+
+def test_decode_image_matches_generate_decoder(pipes, generated):
+    """``decode_image`` (one VAE call) equals the chunked decode of
+    ``generate`` up to fp32 rounding (atol 1e-6: the CPU convolutions round
+    differently at batch 1 and batch 2); and matches the JAX package's."""
+    jpipe, pipe = pipes
+    _, _, zt, _, _ = _embedded()
+    lat = pipe.generate(zt, guidance_scale=1.0, num_steps=2, decode=False)
+    images = pipe.decode_image(lat)
+    pipe.vae_chunk = 1  # one image per chunk at any size
+    try:
+        chunked = pipe.generate(zt, guidance_scale=1.0, num_steps=2)
+    finally:
+        del pipe.vae_chunk
+    torch.testing.assert_close(chunked, images, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(
+        images.numpy(), np.asarray(jpipe.decode_image(jnp.asarray(lat.numpy()))),
+        rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("refine", [0, 1])
+def test_dpm_closed_loop_matches_jax(pipes, refine):
+    """DPM++ both ways (and one refinement iteration per inversion step):
+    z_T close to JAX's, equal voted bits."""
+    jpipe, pipe = pipes
+    cfg, jcfg, zt, jzt, msg = _embedded()
+    x0 = pipe.generate(zt, guidance_scale=1.0, num_steps=STEPS, scheduler="DPMs",
+                       decode=False)
+    jx0 = jpipe.generate(jzt, guidance_scale=1.0, num_steps=STEPS,
+                         scheduler="DPMs", decode=False)
+    np.testing.assert_allclose(x0.numpy(), np.asarray(jx0), rtol=1e-3, atol=1e-4)
+    z_back = pipe.invert(latents=x0, num_steps=STEPS, scheduler="DPMs",
+                         refine=refine)
+    jz_back = jpipe.invert(latents=jx0, num_steps=STEPS, scheduler="DPMs",
+                           refine=refine)
+    np.testing.assert_allclose(z_back.numpy(), np.asarray(jz_back), rtol=1e-3,
+                               atol=1e-4)
+    bits = recover_message_bits(z_back, cfg).numpy()
+    np.testing.assert_array_equal(bits, np.asarray(j_recover(jz_back, jcfg)))
+    assert (bits == np.unpackbits(np.frombuffer(msg, np.uint8))).all()
+
+
+def test_v_prediction_closed_loop_matches_jax(pipes):
+    """The tiny preset with v-prediction (the 768 presets' schedule), the
+    same weights: DDIM closed loop, equal voted bits."""
+    jpipe, _ = pipes
+    jv = JPipeline(dataclasses.replace(J_TINY, prediction_type="v_prediction"),
+                   dtype=jnp.float32)
+    v = InversablePipeline(dataclasses.replace(TINY, prediction_type="v_prediction"),
+                           device="cpu", dtype=torch.float32)
+    load_pipeline_params_(v, jpipe.unet_params, jpipe.vae_params, jpipe.text_params)
+    jv.unet_params, jv.vae_params = jpipe.unet_params, jpipe.vae_params
+    assert v.schedule.prediction_type == jv.schedule.prediction_type == "v_prediction"
+    cfg, jcfg, zt, jzt, msg = _embedded(7)
+    z_back = v.invert(latents=v.generate(zt, guidance_scale=1.0, num_steps=STEPS,
+                                         decode=False), num_steps=STEPS)
+    jz_back = jv.invert(latents=jv.generate(jzt, guidance_scale=1.0,
+                                            num_steps=STEPS, decode=False),
+                        num_steps=STEPS)
+    np.testing.assert_allclose(z_back.numpy(), np.asarray(jz_back), rtol=1e-3,
+                               atol=1e-4)
+    bits = recover_message_bits(z_back, cfg).numpy()
+    np.testing.assert_array_equal(bits, np.asarray(j_recover(jz_back, jcfg)))
