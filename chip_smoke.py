@@ -12,7 +12,11 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
   2. kernels  — each kernel against its plain PyTorch version on the card at
                 every shape the paths below give it, with the stated bounds;
                 CUDA-event times of both.  The JSON line's ms and plain_ms
-                sum a kernel's shapes; its max_abs_err is their maximum.
+                sum a kernel's shapes; its max_abs_err is their maximum.  K8
+                (fused GroupNorm) at every distinct (shape, eps, act) of the
+                768x768 path's GroupNorms, collected by forward hooks during
+                one UNet forward at batch 2 and at 4, one VAE decode of one
+                image and one encode of two.
   3. extraction path, sd-2-1-base at 512x512, batch 4 (full batch; the time
      limit does not need a smaller one), random weights from a seed:
        (a) latent closed loop: embed -> 30-step DDIM generate -> 30-step
@@ -31,13 +35,29 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
            images/s (second pass).
      K4 must launch once per VAE chunk of (c): 2 decoder and 1 encoder
      launches at batch 2; K1, K2 and K3 must launch too.
-  5. summary  — a JSON line of the kernels, then the JSON result line.
+  5. attention tiers, sd-2-1 at 768x768, batch 2: under each of the JAX
+     package's switch sets in turn (the environment restored after each) —
+       (a) GSWM_XF_ATTN=0: cres, K2 at level 0;
+       (b) GSWM_XF_ATTN=0 GSWM_CRES_ATTN=0 GSWM_PACKED_ATTN=1: K6;
+       (c) GSWM_XF_ATTN=0 GSWM_CRES_ATTN=0 GSWM_TRANSPOSED_ATTN=1: K7;
+       (d) GSWM_FUSED_QKV_MODE=seqhead: K1, which serves the seqhead K5;
+       (e) GSWM_FUSED_QKV=0: K4 at level 1, plain attention at level 2 —
+     one UNet forward on the same latents, timestep and context as the
+     default route, within TIER_REL_BOUND of it, with exact launch counts;
+     its ms (CUDA events); and the latent closed loop (embed -> 30-step DDIM
+     -> 30-step inversion -> decode) at bit accuracy >= 0.99 on every image.
+  6. GroupNorm op — K8 on the inputs of every GroupNorm of one UNet forward
+     (batch 2), one decode and one encode at 768x768, each against the
+     model's own GroupNorm output; one launch per GroupNorm.
+  7. summary  — a JSON line of the kernels, then the JSON result line.
 Each path's launch counts are set to 0 just before it and read just after.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -63,6 +83,31 @@ ATTN_BOUND = 0.02
 # entry is ~0.02, so the absolute bound alone would pass an error of a few
 # percent; bf16 rounding of p and of the output is ~0.4% of it
 ATTN_REL_BOUND = 0.02
+# K8 against its fp32 plain version: bf16 rounding of outputs below 8 is at
+# most 2^-6 / 2 = 0.0078 (GroupNorm outputs of unit-scale affine stay below
+# ~6 at these sizes), and 1% of the largest output entry
+GN_BOUND = 0.02
+GN_REL_BOUND = 0.01
+# a tier's UNet output against the default route's, relative to the largest
+# entry: the routes compute one function in bf16 and differ by rounding at
+# different points (projection GEMM shapes, padded to_out), which the
+# 16 transformer blocks carry through; a wrong head or layout moves the
+# output by O(1)
+TIER_REL_BOUND = 0.05
+# (label, switches, attention launches per UNet forward at 768x768; every
+# other attention counter must stay 0)
+TIER_SETS = (
+    ("a", {"GSWM_XF_ATTN": "0"}, {"flash_attention": 5, "fused_qkv_attention": 10}),
+    ("b", {"GSWM_XF_ATTN": "0", "GSWM_CRES_ATTN": "0", "GSWM_PACKED_ATTN": "1"},
+     {"flash_attention_packed": 5, "fused_qkv_attention": 10}),
+    ("c", {"GSWM_XF_ATTN": "0", "GSWM_CRES_ATTN": "0", "GSWM_TRANSPOSED_ATTN": "1"},
+     {"flash_attention_transposed": 5, "fused_qkv_attention": 10}),
+    ("d", {"GSWM_FUSED_QKV_MODE": "seqhead"},
+     {"flash_attention": 5, "fused_qkv_attention": 10}),
+    ("e", {"GSWM_FUSED_QKV": "0"}, {"flash_attention": 5, "flash_attention_split": 5}),
+)
+ATTENTION_COUNTERS = ("fused_qkv_attention", "flash_attention", "flash_attention_split",
+                      "flash_attention_packed", "flash_attention_transposed")
 # gswm/pipelines/inversable.py:330-348: VAE calls take vae_chunk images at
 # 512x512, fewer in proportion to the pixels, and 8x fewer when decoding
 VAE_CHUNK = 32
@@ -117,10 +162,12 @@ def _check_keystream(key: bytes, nonce: bytes, n_blocks: int) -> None:
                              f"nonce {nonce.hex()}: blocks {bad}")
 
 
-def phase_kernels() -> dict:
-    """Each kernel vs its plain version; returns per-kernel records."""
+def phase_kernels(gn_cases) -> dict:
+    """Each kernel vs its plain version; returns per-kernel records.
+    ``gn_cases``: the (shape, eps, act) of K8's calls."""
     from gswm_torch.core import chacha
     from gswm_torch.ops import attention as attn
+    from gswm_torch.ops import groupnorm as gn
 
     dev = "cuda"
     key, nonce = bytes.fromhex(KEY_HEX), bytes.fromhex(NONCE_HEX)
@@ -174,6 +221,25 @@ def phase_kernels() -> dict:
                       lambda q=q, k=k, v=v: attn.flash_attention_split(q, k, v),
                       lambda q=q, k=k, v=v: attn.flash_attention_split_reference(
                           q.float(), k.float(), v.float()), 10))
+    # K6 and K7: UNet level 0 under their switches (5 heads: 3 pairs, the
+    # last half a zero pad head), at 768x768 (batch 2, and 4 under guidance)
+    # and 512x512, and a ragged shape (3 heads, 1000 tokens)
+    for b, s, h in ((2, 9216, 5), (4, 9216, 5), (2, 4096, 5), (1, 1000, 3)):
+        pairs = -(-h // 2)
+        qkv = rand(b, s, 3 * pairs * 128)
+        for i in range(3):  # the pad head's projection rows are zero
+            qkv[..., i * pairs * 128 + h * 64:(i + 1) * pairs * 128] = 0
+        cases.append((f"K6 flash_packed (B={b}, S={s}, H={h}, P={pairs})",
+                      "flash_attention_packed",
+                      lambda qkv=qkv: attn.flash_attention_packed(qkv),
+                      lambda qkv=qkv: attn.flash_attention_packed_reference(
+                          qkv.float()), 10))
+        qkv_t = rand(3 * h * 64, b, s)
+        cases.append((f"K7 flash_transposed (B={b}, S={s}, H={h})",
+                      "flash_attention_transposed",
+                      lambda qkv_t=qkv_t, h=h: attn.flash_attention_transposed(qkv_t, h),
+                      lambda qkv_t=qkv_t, h=h: attn.flash_attention_transposed_reference(
+                          qkv_t.float(), h), 10))
     for label, name, kernel, plain_fn, iters in cases:
         got = kernel().float()
         want = plain_fn()
@@ -192,33 +258,57 @@ def phase_kernels() -> dict:
         rec["ms"] += ms
         rec["plain_ms"] += plain
         del got, want
+    # K8: unit-scale inputs with an offset, near-unit affine
+    rec = records.setdefault("fused_group_norm", dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0))
+    for shape, eps, act in gn_cases:
+        x = (torch.randn(shape, generator=g, device=dev) * 2 + 0.5).bfloat16()
+        w = 1 + 0.05 * torch.randn(shape[1], generator=g, device=dev)
+        bias = 0.05 * torch.randn(shape[1], generator=g, device=dev)
+        got = gn.fused_group_norm(x, w, bias, 32, eps, act).float()
+        want = gn.fused_group_norm_reference(x.float(), w, bias, 32, eps, act)
+        err = (got - want).abs().max().item()
+        top = want.abs().max().item()
+        ms = _time_ms(lambda: gn.fused_group_norm(x, w, bias, 32, eps, act), 10)
+        plain = _time_ms(lambda: gn.fused_group_norm_reference(x, w, bias, 32, eps, act), 3)
+        print(f"K8 group_norm {shape} eps {eps} act {act}: max|err| {err:.5f} (bound "
+              f"{GN_BOUND}), err/max|want| {err / top:.5f} (bound {GN_REL_BOUND}); "
+              f"{ms:.4f} ms (plain {plain:.4f})", flush=True)
+        if not (err <= GN_BOUND and err <= GN_REL_BOUND * top):
+            raise AssertionError(f"K8 at {shape}: error {err} above {GN_BOUND} or "
+                                 f"{GN_REL_BOUND} x {top}")
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        rec["ms"] += ms
+        rec["plain_ms"] += plain
+        del x, got, want
     return records
 
 
-def _counters() -> dict:
+def _wrappers() -> dict:
     from gswm_torch.core import chacha
     from gswm_torch.ops import attention as attn
+    from gswm_torch.ops import groupnorm as gn
 
-    return {"chacha20": chacha.keystream_words.launches,
-            "fused_qkv_attention": attn.fused_qkv_attention.launches,
-            "flash_attention": attn.flash_attention.launches,
-            "flash_attention_split": attn.flash_attention_split.launches}
+    return {"chacha20": chacha.keystream_words,
+            **{name: getattr(attn, name) for name in ATTENTION_COUNTERS},
+            "fused_group_norm": gn.fused_group_norm}
+
+
+def _counters() -> dict:
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def _reset_counters() -> None:
-    from gswm_torch.core import chacha
-    from gswm_torch.ops import attention as attn
-
-    for fn in (chacha.keystream_words, attn.fused_qkv_attention,
-               attn.flash_attention, attn.flash_attention_split):
+    for fn in _wrappers().values():
         fn.launches = 0
 
 
 def _check_unet_launches(counts: dict, forwards: int) -> None:
     """Every UNet forward at 512x512 and 768x768 has 5 level-1 + 5 level-2
-    self-attention sites (K1) and 5 level-0 sites (K2)."""
+    self-attention sites (K1) and 5 level-0 sites (K2); with no switch set
+    the packed and transposed tiers (K6, K7) never run."""
     if counts["fused_qkv_attention"] != 10 * forwards or \
-            counts["flash_attention"] != 5 * forwards:
+            counts["flash_attention"] != 5 * forwards or \
+            counts["flash_attention_packed"] or counts["flash_attention_transposed"]:
         raise AssertionError(f"unexpected attention launch counts {counts} "
                              f"for {forwards} UNet forwards")
 
@@ -306,14 +396,10 @@ def phase_extraction_512(card: str) -> dict:
     return counts
 
 
-def phase_generation_768(card: str) -> dict:
-    import numpy as np
-
-    from gswm_torch import GSConfig, embed_latents, recover_message_bits
+def build_pipeline_768():
     from gswm_torch.pipelines import InversablePipeline
 
     dev = "cuda"
-    b = BATCH_768
     t0 = time.perf_counter()
     pipe = InversablePipeline(
         "sd-2-1", device=dev, dtype=torch.bfloat16,
@@ -323,6 +409,80 @@ def phase_generation_768(card: str) -> dict:
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     if pipe.schedule.prediction_type != "v_prediction":
         raise AssertionError("sd-2-1 must run the v-prediction schedule")
+    return pipe
+
+
+def _unet_inputs(pipe, b: int):
+    """Seeded latents (B, 4, 96, 96), timestep 500 and a seeded prompt's
+    context: the one UNet input of phases 2, 5 and 6."""
+    import numpy as np
+
+    g = torch.Generator(device="cuda").manual_seed(77)
+    lat = torch.randn((b, 4, RES_768 // 8, RES_768 // 8), generator=g, device="cuda")
+    ids = np.random.default_rng(7).integers(
+        0, pipe.preset.text.vocab_size - 2, (b, pipe.preset.text.max_length))
+    return lat, torch.full((b,), 500, device="cuda"), pipe.encode_prompt_ids(ids)
+
+
+def _groupnorm_act(name: str):
+    """The activation after a GroupNorm: SiLU after every ResnetBlock norm
+    and the final norms (layers.py, unet.py, vae.py), none elsewhere."""
+    return "silu" if name.endswith(("norm1", "norm2", "conv_norm_out")) else None
+
+
+@contextlib.contextmanager
+def _groupnorm_hooks(pipe, hook):
+    """``hook(name, module, x, y)`` after every GroupNorm32 of the UNet and
+    the VAE."""
+    from gswm_torch.models.layers import GroupNorm32
+
+    handles = [
+        m.register_forward_hook(lambda m, args, y, name=name: hook(name, m, args[0], y))
+        for model in (pipe.unet, pipe.vae) for name, m in model.named_modules()
+        if isinstance(m, GroupNorm32)]
+    try:
+        yield
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def _drive_groupnorm_sites(pipe) -> None:
+    """One UNet forward at batch 2 and at 4 (guidance), one VAE decode of
+    one image and one encode of two, at 768x768."""
+    with torch.inference_mode():
+        for b in (BATCH_768, 2 * BATCH_768):
+            pipe.unet(*_unet_inputs(pipe, b))
+        g = torch.Generator(device="cuda").manual_seed(3)
+        pipe.vae.decode(torch.randn((1, 4, RES_768 // 8, RES_768 // 8), generator=g,
+                                    device="cuda", dtype=torch.bfloat16))
+        pipe.vae.encode(torch.rand((BATCH_768, 3, RES_768, RES_768), generator=g,
+                                   device="cuda", dtype=torch.bfloat16) * 2 - 1)
+    torch.cuda.synchronize()
+
+
+def groupnorm_cases(pipe) -> list:
+    """Every distinct (shape, eps, act) of the 768x768 path's GroupNorms."""
+    cases = []
+
+    def hook(name, m, x, y):
+        case = (tuple(x.shape), m.eps, _groupnorm_act(name))
+        if case not in cases:
+            cases.append(case)
+
+    with _groupnorm_hooks(pipe, hook):
+        _drive_groupnorm_sites(pipe)
+    print(f"GroupNorm cases of the 768x768 path: {len(cases)}", flush=True)
+    return cases
+
+
+def phase_generation_768(card: str, pipe) -> dict:
+    import numpy as np
+
+    from gswm_torch import GSConfig, embed_latents, recover_message_bits
+
+    dev = "cuda"
+    b = BATCH_768
     cfg = GSConfig(key_hex=KEY_HEX, nonce_hex=NONCE_HEX, message="gswm_torch 768",
                    width=RES_768, height=RES_768, message_bits=256)
     prompt_ids = np.random.default_rng(2024).integers(
@@ -405,14 +565,127 @@ def phase_generation_768(card: str) -> dict:
     return counts
 
 
+@contextlib.contextmanager
+def _switches(switches: dict):
+    """The route switches set to ``switches`` alone; restored afterwards."""
+    from gswm_torch.ops.attention import ROUTE_SWITCHES
+
+    saved = {name: os.environ.pop(name) for name in ROUTE_SWITCHES if name in os.environ}
+    os.environ.update(switches)
+    try:
+        yield
+    finally:
+        for name in ROUTE_SWITCHES:
+            os.environ.pop(name, None)
+        os.environ.update(saved)
+
+
+def phase_tiers(card: str, pipe) -> dict:
+    from gswm_torch import GSConfig, embed_latents, recover_message_bits
+
+    dev = "cuda"
+    b = BATCH_768
+    cfg = GSConfig(key_hex=KEY_HEX, nonce_hex=NONCE_HEX, message="gswm_torch tiers",
+                   width=RES_768, height=RES_768, message_bits=256)
+    inputs = _unet_inputs(pipe, b)
+
+    def forward():
+        with torch.inference_mode():
+            return pipe.unet(*inputs)
+
+    with _switches({}):
+        default = forward()
+        default_ms = _time_ms(forward, 10)
+    top = default.abs().max().item()
+    print(f"5. default route: UNet forward {default_ms:.4f} ms at batch {b}, "
+          f"max|out| {top:.4f}; on {card}", flush=True)
+    total = {name: 0 for name in _counters()}
+    for label, switches, per_forward in TIER_SETS:
+        with _switches(switches):
+            _reset_counters()
+            out = forward()
+            torch.cuda.synchronize()
+            one = _counters()
+            ms = _time_ms(forward, 10)
+            _reset_counters()
+            zt, msg = embed_latents(
+                cfg, generator=torch.Generator(device=dev).manual_seed(31), batch=b,
+                device=dev)
+            x0 = pipe.generate(zt, guidance_scale=1.0, num_steps=STEPS, decode=False)
+            z_back = pipe.invert(latents=x0, num_steps=STEPS)
+            acc = _bit_accuracy(recover_message_bits(z_back, cfg), msg, dev)
+            loop = _counters()
+        diff = (out - default).abs().max().item()
+        env = " ".join(f"{k}={v}" for k, v in switches.items())
+        print(f"({label}) {env}: max|out - default| {diff:.5f}, relative "
+              f"{diff / top:.5f} (bound {TIER_REL_BOUND}); UNet forward {ms:.4f} ms; "
+              f"closed loop {STEPS}+{STEPS} steps bit accuracy {acc}; launches per "
+              f"forward {({k: v for k, v in one.items() if v})}", flush=True)
+        want = {name: per_forward.get(name, 0) for name in ATTENTION_COUNTERS}
+        if {name: one[name] for name in ATTENTION_COUNTERS} != want:
+            raise AssertionError(f"({label}) launches per forward {one}, want {want}")
+        if {name: loop[name] for name in ATTENTION_COUNTERS} != \
+                {name: n * 2 * STEPS for name, n in want.items()}:
+            raise AssertionError(f"({label}) launches over the closed loop {loop}")
+        if loop["chacha20"] < 2:
+            raise AssertionError(f"({label}) K3 did not launch in embed and decode")
+        if not diff <= TIER_REL_BOUND * top:
+            raise AssertionError(f"({label}) UNet output {diff} from the default "
+                                 f"route's, above {TIER_REL_BOUND} x {top}")
+        if min(acc) < MIN_BIT_ACC:
+            raise AssertionError(f"({label}) closed-loop bit accuracy {acc} below "
+                                 f"{MIN_BIT_ACC}")
+        for name in total:
+            total[name] += loop[name]
+    return total
+
+
+def phase_groupnorm_op(pipe) -> dict:
+    """K8 on the real inputs of the 768x768 path's GroupNorms, held against
+    each module's own output (F.group_norm in fp32, rounded to bf16): within
+    GN_REL_BOUND of max |want| — two bf16 roundings of fp32 values that
+    differ in the last places may land one bf16 step apart, at most 2^-7 of
+    the entry; the absolute bound of phase 2 assumes outputs below 8, which
+    real activations need not keep."""
+    from gswm_torch.ops import groupnorm as gn
+
+    worst = [0.0, 0]
+
+    def hook(name, m, x, y):
+        got = gn.fused_group_norm(x.contiguous(), m.weight, m.bias, m.num_groups, m.eps)
+        err = (got.float() - y.float()).abs().max().item()
+        top = y.float().abs().max().item()
+        if not err <= GN_REL_BOUND * top:
+            raise AssertionError(f"K8 at {name} {tuple(x.shape)}: error {err} above "
+                                 f"{GN_REL_BOUND} x {top}")
+        worst[0] = max(worst[0], err / top)
+        worst[1] += 1
+
+    _reset_counters()
+    with _groupnorm_hooks(pipe, hook):
+        _drive_groupnorm_sites(pipe)
+    counts = _counters()
+    print(f"6. K8 on {worst[1]} GroupNorm inputs of the 768x768 path: max "
+          f"|err| / max|want| {worst[0]:.5f} (bound {GN_REL_BOUND}); launches "
+          f"{counts['fused_group_norm']}", flush=True)
+    if counts["fused_group_norm"] != worst[1] or worst[1] < 1:
+        raise AssertionError(f"K8 launched {counts['fused_group_norm']} times for "
+                             f"{worst[1]} GroupNorms")
+    return counts
+
+
 def main() -> None:
     card = phase_card()
     phase_build()
-    records = phase_kernels()
+    pipe_768 = build_pipeline_768()
+    records = phase_kernels(groupnorm_cases(pipe_768))
     counts_512 = phase_extraction_512(card)
     torch.cuda.empty_cache()
-    counts_768 = phase_generation_768(card)
-    counts = {name: counts_512[name] + counts_768[name] for name in counts_512}
+    counts_768 = phase_generation_768(card, pipe_768)
+    counts_tiers = phase_tiers(card, pipe_768)
+    counts_gn = phase_groupnorm_op(pipe_768)
+    counts = {name: counts_512[name] + counts_768[name] + counts_tiers[name]
+              + counts_gn[name] for name in counts_512}
     sources = {
         "chacha20": ("gswm_torch/csrc/chacha20.cu",
                      "gswm/core/chacha.py:158"),
@@ -422,6 +695,12 @@ def main() -> None:
                             "gswm/ops/attention.py:1211"),
         "flash_attention_split": ("gswm_torch/csrc/flash_split.cu",
                                   "gswm/ops/attention.py:414"),
+        "flash_attention_packed": ("gswm_torch/csrc/flash_split.cu",
+                                   "gswm/ops/attention.py:959"),
+        "flash_attention_transposed": ("gswm_torch/csrc/flash_transposed.cu",
+                                       "gswm/ops/attention.py:1428"),
+        "fused_group_norm": ("gswm_torch/csrc/group_norm.cu",
+                             "gswm/ops/groupnorm.py:185"),
     }
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=counts[name], **records[name])

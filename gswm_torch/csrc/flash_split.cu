@@ -19,6 +19,15 @@
 // GSWM_XF_ATTN=0).  It is also the attention core of the fused-qkv kernel
 // (fused_qkv.cu), through gswm_launch_flash_split (flash_core.cuh).
 //
+// And it replaces the Pallas flash_attention_packed (gswm/ops/attention.py
+// :959; tiers _flash_kernel_pair :801, _pair_kvres :836, _pair_streamk :860,
+// VMEM-fit choices again), routed under GSWM_PACKED_ATTN=1: one (B, S,
+// 3 * P * 128) qkv array holds two d = 64 heads per 128 columns, q, k and v
+// in three column groups.  That is three strided (B, S, 2P, 64) views, so
+// gswm_flash_packed runs this kernel with a row pitch of 3 * P * 128 and a
+// base pointer per operand; rows stay 16-byte aligned.  A zero pad head
+// (odd head counts) has zero logits and zero v, so its output is zero.
+//
 // Semantics: the `use_max` branch of the TPU kernels' recurrence
 // (_attend_kv_loop / _flash_kernel_streamk): q scaled by D^-0.5 in fp32 and
 // rounded to bf16, fp32 logits, an exact running row max, p = exp(s - m)
@@ -62,17 +71,7 @@
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
-constexpr int BQ = 32;          // query rows per block
-constexpr int BK = 64;          // keys per tile
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int LDS = BK + 4;     // fp32 logits row pitch
-constexpr int LDP = BK + 8;     // bf16 p row pitch
-constexpr int ROWS_PER_WARP = BQ / WARPS;  // softmax rows of one warp
-
-static_assert(BQ == 2 * 16 && BK == 4 * 16, "8 warps = 2 x 4 tiles of 16 x 16 logits");
+using namespace gswm_flash;
 
 template <int D>
 struct Tile {
@@ -86,64 +85,6 @@ struct Tile {
   static_assert(D % 64 == 0 && D <= 512, "D is a multiple of 64 up to 512");
   static_assert(SMEM <= 232448, "above the 227 KiB a block may opt into");
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; zero-filled when !valid (src is then not read).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c (16 x 8 fp32) += a (16 x 16 bf16, row) * b (16 x 8 bf16, col).
-// Fragment layout (PTX ISA, mma.m16n8k16), g = lane / 4, t = lane % 4:
-//   a: {A[g][2t..], A[g+8][2t..], A[g][2t+8..], A[g+8][2t+8..]}
-//   b: {B[2t..][g], B[2t+8..][g]}
-//   c: {C[g][2t], C[g][2t+1], C[g+8][2t], C[g+8][2t+1]}
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 // Rows [row0, row0 + rows) of one head (D columns, `pitch` elements between
 // rows) into shared memory; rows at or past S are zero.
@@ -165,7 +106,7 @@ template <int D>
 __global__ void __launch_bounds__(THREADS)
 flash_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, bf16* __restrict__ out, int Sq,
-                   int Sk, int H, float scale) {
+                   int Sk, int ld_q, int ld_kv, int ld_o, float scale) {
   constexpr int LDH = Tile<D>::LDH;
   constexpr int DS = Tile<D>::DS;
   constexpr int NT = Tile<D>::NT;
@@ -187,13 +128,12 @@ flash_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int pitch = H * D;
-  const bf16* qh = q + (size_t)b * Sq * pitch + (size_t)h * D;
-  const bf16* kh = k + (size_t)b * Sk * pitch + (size_t)h * D;
-  const bf16* vh = v + (size_t)b * Sk * pitch + (size_t)h * D;
-  bf16* oh = out + (size_t)b * Sq * pitch + (size_t)h * D;
+  const bf16* qh = q + (size_t)b * Sq * ld_q + (size_t)h * D;
+  const bf16* kh = k + (size_t)b * Sk * ld_kv + (size_t)h * D;
+  const bf16* vh = v + (size_t)b * Sk * ld_kv + (size_t)h * D;
+  bf16* oh = out + (size_t)b * Sq * ld_o + (size_t)h * D;
 
-  load_tile_async<D>(qs, qh, q0, BQ, Sq, pitch, tid);
+  load_tile_async<D>(qs, qh, q0, BQ, Sq, ld_q, tid);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -230,9 +170,9 @@ flash_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   for (int k0 = 0; k0 < Sk; k0 += BK) {
     __syncthreads();  // the previous tile's k, v, p and alpha are consumed
-    load_tile_async<D>(ks, kh, k0, BK, Sk, pitch, tid);
+    load_tile_async<D>(ks, kh, k0, BK, Sk, ld_kv, tid);
     cp_async_commit();
-    load_tile_async<D>(vs, vh, k0, BK, Sk, pitch, tid);
+    load_tile_async<D>(vs, vh, k0, BK, Sk, ld_kv, tid);
     cp_async_commit();
     cp_async_wait<1>();  // this thread's k copies have landed
     __syncthreads();
@@ -249,36 +189,11 @@ flash_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         mma_bf16(s0, a, bb[0], bb[1]);
         mma_bf16(s1, a, bb[2], bb[3]);
       }
-      float* srow = ss + (wr * 16 + g) * LDS + wc * 16 + 2 * t4;
-      srow[0] = s0[0];
-      srow[1] = s0[1];
-      srow[8 * LDS] = s0[2];
-      srow[8 * LDS + 1] = s0[3];
-      srow[8] = s1[0];
-      srow[9] = s1[1];
-      srow[8 * LDS + 8] = s1[2];
-      srow[8 * LDS + 9] = s1[3];
+      store_logits(ss, s0, s1, wr, wc, g, t4);
     }
     __syncthreads();
 
-    // online softmax over this tile; lane owns keys `lane` and `lane + 32`
-    const int valid = min(BK, Sk - k0);
-#pragma unroll
-    for (int r = 0; r < ROWS_PER_WARP; ++r) {
-      const int row = warp * ROWS_PER_WARP + r;
-      const float x0 = lane < valid ? ss[row * LDS + lane] : -INFINITY;
-      const float x1 = lane + 32 < valid ? ss[row * LDS + lane + 32] : -INFINITY;
-      const float m_new = fmaxf(m_r[r], warp_max(fmaxf(x0, x1)));
-      const bf16 p0 = __float2bfloat16(expf(x0 - m_new));
-      const bf16 p1 = __float2bfloat16(expf(x1 - m_new));
-      ps[row * LDP + lane] = p0;
-      ps[row * LDP + lane + 32] = p1;
-      const float psum = warp_sum(__bfloat162float(p0) + __bfloat162float(p1));
-      const float alpha = expf(m_r[r] - m_new);
-      l_r[r] = l_r[r] * alpha + psum;
-      m_r[r] = m_new;
-      if (lane == 0) alpha_s[row] = alpha;
-    }
+    online_softmax_tile(ss, ps, alpha_s, m_r, l_r, min(BK, Sk - k0), warp, lane);
     cp_async_wait<0>();  // this thread's v copies have landed
     __syncthreads();
 
@@ -321,25 +236,28 @@ flash_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int j = 0; j < NT; ++j) {
     const int col = wc * DS + j * 8 + 2 * t4;
     if (r_lo < Sq)
-      *reinterpret_cast<__nv_bfloat162*>(oh + (size_t)r_lo * pitch + col) =
+      *reinterpret_cast<__nv_bfloat162*>(oh + (size_t)r_lo * ld_o + col) =
           __floats2bfloat162_rn(acc[j][0] / l_lo, acc[j][1] / l_lo);
     if (r_hi < Sq)
-      *reinterpret_cast<__nv_bfloat162*>(oh + (size_t)r_hi * pitch + col) =
+      *reinterpret_cast<__nv_bfloat162*>(oh + (size_t)r_hi * ld_o + col) =
           __floats2bfloat162_rn(acc[j][2] / l_hi, acc[j][3] / l_hi);
   }
 }
 
+// ld_q, ld_kv, ld_o: elements between rows of q, of k and v, and of out; head
+// h starts at column h * D of each.
 template <int D>
 cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* out, int B,
-                   int Sq, int Sk, int H, cudaStream_t stream) {
+                   int Sq, int Sk, int H, int ld_q, int ld_kv, int ld_o,
+                   cudaStream_t stream) {
   constexpr int smem = Tile<D>::SMEM;
   // above the 48 KiB a launch gets without asking from D = 128 up
   cudaError_t e = cudaFuncSetAttribute(
       flash_split_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_split_kernel<D><<<grid, THREADS, smem, stream>>>(q, k, v, out, Sq, Sk, H,
-                                                         1.0f / sqrtf((float)D));
+  flash_split_kernel<D><<<grid, THREADS, smem, stream>>>(
+      q, k, v, out, Sq, Sk, ld_q, ld_kv, ld_o, 1.0f / sqrtf((float)D));
   return cudaGetLastError();
 }
 
@@ -349,15 +267,16 @@ cudaError_t gswm_launch_flash_split(const bf16* q, const bf16* k, const bf16* v,
                                     bf16* out, int B, int Sq, int Sk, int H, int D,
                                     cudaStream_t stream) {
   if (Sq < 1 || Sk < 1) return cudaErrorInvalidValue;
+  const int ld = H * D;  // natural layout: q, k, v and out share one row pitch
   switch (D) {
-    case 64: return launch<64>(q, k, v, out, B, Sq, Sk, H, stream);
-    case 128: return launch<128>(q, k, v, out, B, Sq, Sk, H, stream);
-    case 192: return launch<192>(q, k, v, out, B, Sq, Sk, H, stream);
-    case 256: return launch<256>(q, k, v, out, B, Sq, Sk, H, stream);
-    case 320: return launch<320>(q, k, v, out, B, Sq, Sk, H, stream);
-    case 384: return launch<384>(q, k, v, out, B, Sq, Sk, H, stream);
-    case 448: return launch<448>(q, k, v, out, B, Sq, Sk, H, stream);
-    case 512: return launch<512>(q, k, v, out, B, Sq, Sk, H, stream);
+    case 64: return launch<64>(q, k, v, out, B, Sq, Sk, H, ld, ld, ld, stream);
+    case 128: return launch<128>(q, k, v, out, B, Sq, Sk, H, ld, ld, ld, stream);
+    case 192: return launch<192>(q, k, v, out, B, Sq, Sk, H, ld, ld, ld, stream);
+    case 256: return launch<256>(q, k, v, out, B, Sq, Sk, H, ld, ld, ld, stream);
+    case 320: return launch<320>(q, k, v, out, B, Sq, Sk, H, ld, ld, ld, stream);
+    case 384: return launch<384>(q, k, v, out, B, Sq, Sk, H, ld, ld, ld, stream);
+    case 448: return launch<448>(q, k, v, out, B, Sq, Sk, H, ld, ld, ld, stream);
+    case 512: return launch<512>(q, k, v, out, B, Sq, Sk, H, ld, ld, ld, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -370,4 +289,18 @@ extern "C" int gswm_flash_split(const void* q, const void* k, const void* v, voi
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), B, Sq, Sk, H, D,
       static_cast<cudaStream_t>(stream)));
+}
+
+// Pair-packed self-attention: qkv (B, S, 3 * P * 128) with q, k and v at
+// columns [0, P * 128), [P * 128, 2 * P * 128) and [2 * P * 128, 3 * P * 128),
+// each 2 * P heads of 64; out (B, S, P * 128).  The split kernel at D = 64
+// with row pitch 3 * P * 128 for q, k and v and a base pointer per operand.
+extern "C" int gswm_flash_packed(const void* qkv, void* out, int B, int S, int P,
+                                 void* stream) {
+  if (S < 1 || P < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const bf16* q = static_cast<const bf16*>(qkv);
+  const int width = P * 128;
+  return static_cast<int>(launch<64>(q, q + width, q + 2 * width, static_cast<bf16*>(out),
+                                     B, S, S, 2 * P, 3 * width, 3 * width, width,
+                                     static_cast<cudaStream_t>(stream)));
 }

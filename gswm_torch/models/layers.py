@@ -7,10 +7,13 @@ Port of ``gswm.models.layers``.  Numerics kept from the JAX package:
     the UNet's pads 1 on every side.
   * Attention tokens are (h, w) row-major, as in the JAX package's NHWC
     reshape: NCHW is permuted to NHWC before flattening.
-Self-attention routes by sequence length (``ops.attention``): the fused-qkv
-kernel at 256..2304 tokens, the natural-layout flash kernel from 2305 up,
-plain matmul + fp32 softmax below and for cross-attention.  The VAE mid-block
-attention takes the split flash kernel above ``VAE_FLASH_MIN_TOKENS``.
+Self-attention routes as the JAX package's does, by sequence length and the
+same ``GSWM_*`` switches (``ops.attention.route_self_attention``): by
+default the fused-qkv kernel at 256..2304 tokens, the natural-layout flash
+kernel from 2305 up, plain matmul + fp32 softmax below; under the switches
+the packed, transposed or split kernels.  Cross-attention is plain.  The VAE
+mid-block attention takes the split flash kernel above
+``VAE_FLASH_MIN_TOKENS``.
 
 Module and parameter names follow diffusers' state-dict layout
 (``down_blocks.0.resnets.1.conv1.weight``, ``to_out.0``, ``ff.net.2``), so
@@ -28,7 +31,9 @@ from torch import nn
 
 from gswm_torch.ops.attention import (
     flash_attention,
+    flash_attention_packed,
     flash_attention_split,
+    flash_attention_transposed,
     fused_qkv_attention,
     route_self_attention,
 )
@@ -125,27 +130,59 @@ class Attention(nn.Module):
         super().__init__()
         inner = heads * head_dim
         self.heads = heads
+        self.head_dim = head_dim
         self.to_q = nn.Linear(query_dim, inner, bias=False)
         self.to_k = nn.Linear(context_dim, inner, bias=False)
         self.to_v = nn.Linear(context_dim, inner, bias=False)
         self.to_out = nn.Sequential(nn.Linear(inner, inner))  # diffusers' to_out.0
 
     def forward(self, x, context=None):
-        if context is None:
-            route = route_self_attention(x.shape[1])
-            wq, wk, wv = self.to_q.weight, self.to_k.weight, self.to_v.weight
-            if route == "fused_qkv":
-                out = fused_qkv_attention(x, wq, wk, wv, self.heads)
-            elif route == "flash":
-                out = flash_attention(F.linear(x, wq), F.linear(x, wk),
-                                      F.linear(x, wv), self.heads)
-            else:
-                out = plain_attention(F.linear(x, wq), F.linear(x, wk),
-                                      F.linear(x, wv), self.heads)
+        if context is not None:
+            return self.to_out(plain_attention(self.to_q(x), self.to_k(context),
+                                               self.to_v(context), self.heads))
+        route = route_self_attention(x.shape[1], self.head_dim)
+        wq, wk, wv = self.to_q.weight, self.to_k.weight, self.to_v.weight
+        if route == "packed":
+            return self._packed(x, wq, wk, wv)
+        if route == "transposed":
+            return self._transposed(x, wq, wk, wv)
+        if route == "fused_qkv":
+            return self.to_out(fused_qkv_attention(x, wq, wk, wv, self.heads))
+        q, k, v = F.linear(x, wq), F.linear(x, wk), F.linear(x, wv)
+        if route in ("xf", "cres"):
+            out = flash_attention(q, k, v, self.heads)
+        elif route == "split":
+            b, s, inner = q.shape
+            out = flash_attention_split(
+                *(t.view(b, s, self.heads, self.head_dim) for t in (q, k, v))
+            ).reshape(b, s, inner)
         else:
-            out = plain_attention(self.to_q(x), self.to_k(context),
-                                  self.to_v(context), self.heads)
+            out = plain_attention(q, k, v, self.heads)
         return self.to_out(out)
+
+    def _packed(self, x, wq, wk, wv):
+        """gswm/models/layers.py:437-464: one matmul into the pair-packed
+        (B, S, 3*P*128) layout (weight rows zero-padded to P*128 per
+        projection for odd head counts), the packed kernel, then to_out with
+        zero weight columns under the pad head."""
+        pad = -(-self.heads // 2) * 128 - self.heads * self.head_dim
+        wqkv = torch.cat([F.pad(w, (0, 0, 0, pad)) for w in (wq, wk, wv)])
+        out = flash_attention_packed(F.linear(x, wqkv))
+        wo, bo = self.to_out[0].weight, self.to_out[0].bias
+        return F.linear(out, F.pad(wo, (0, pad)), bo)
+
+    def _transposed(self, x, wq, wk, wv):
+        """gswm/models/layers.py:465-482: one ('nc,bsc->nbs') matmul into
+        (3*inner, B, S) — torch's (out, in) weights are the JAX package's
+        transposed qkv weight as they are — the transposed kernel, then
+        to_out contracting dim 0 of its (inner, B, S) output."""
+        b, s, c = x.shape
+        wqkv = torch.cat([wq, wk, wv])  # (3 * inner, C)
+        qkv_t = torch.matmul(wqkv, x.reshape(b * s, c).t()).view(-1, b, s)
+        out_t = flash_attention_transposed(qkv_t, self.heads)
+        out = F.linear(out_t.view(out_t.shape[0], b * s).t(), self.to_out[0].weight,
+                       self.to_out[0].bias)
+        return out.view(b, s, -1)
 
 
 class GEGLU(nn.Module):

@@ -26,6 +26,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # name -> argtypes; every entry returns the cudaError_t of its launches.
 _SIGNATURES = {
     # words12 (host uint32[12]), out, n_blocks, stream
@@ -34,6 +35,12 @@ _SIGNATURES = {
     "gswm_fused_qkv_attn": [_VP] * 8 + [_I, _I, _I, _I, _VP],
     # q, k, v, out, B, Sq, Sk, H, D, stream
     "gswm_flash_split": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
+    # qkv, out, B, S, P (head pairs), stream
+    "gswm_flash_packed": [_VP, _VP, _I, _I, _I, _VP],
+    # qkv_t, out_t, B, S, H, stream
+    "gswm_flash_transposed": [_VP, _VP, _I, _I, _I, _VP],
+    # x, weight, bias, out, partials, B, C, HW, G, chunk, eps, act, stream
+    "gswm_group_norm": [_VP] * 5 + [_I] * 5 + [_F, _I, _VP],
 }
 
 

@@ -1,26 +1,35 @@
 """Self-attention kernels of the PyTorch port, with their plain versions.
 
-Two kernels, hand-written CUDA for Hopper (``gswm_torch/csrc``), behind
-three wrappers:
+Three kernels, hand-written CUDA for Hopper (``gswm_torch/csrc``), behind
+five wrappers; ``route_self_attention`` picks the UNet's tier as the JAX
+package does:
 
   * ``flash_attention_split`` (csrc/flash_split.cu) — split-layout flash
     attention on (B, S, H, D) q/k/v, D a multiple of 64 up to 512.  Port of
     the Pallas ``gswm.ops.attention.flash_attention``; serves the VAE
-    mid-block attention above 4096 tokens (one head, D = 512).
+    mid-block attention above 4096 tokens (one head, D = 512) and the
+    UNet's ``split`` route.
   * ``flash_attention`` — the same kernel at D = 64 on natural-layout
     (B, S, H*64) q/k/v, which is (B, S, H, 64) memory.  Serves the UNet's
-    self-attention above the fused-qkv window (level 0: 4096 tokens at
-    512x512, 9216 at 768x768), where the TPU path runs
-    ``gswm.ops.attention.xla_flash_attention`` (or the Pallas
-    ``flash_attention_cres`` it displaced).
+    ``xf`` and ``cres`` routes (level 0: 4096 tokens at 512x512, 9216 at
+    768x768), where the TPU path runs ``gswm.ops.attention.
+    xla_flash_attention`` or the Pallas ``flash_attention_cres``.
+  * ``flash_attention_packed`` — the same kernel reading q, k and v as
+    strided views of one pair-packed (B, S, 3*P*128) qkv array.  Port of
+    the Pallas ``flash_attention_packed``; the ``packed`` route.
+  * ``flash_attention_transposed`` (csrc/flash_transposed.cu) — flash
+    attention on the (3*H*64, B, S) transposed projection output.  Port of
+    the Pallas ``flash_attention_transposed``; the ``transposed`` route.
   * ``fused_qkv_attention`` (csrc/fused_qkv.cu, then the split kernel) —
     the bias-free q/k/v projections in a hand-written GEMM, then attention.
-    Port of the Pallas ``flash_attention_fused_qkv``; serves 256..2304
-    tokens (levels 1 and 2).
+    Port of the Pallas ``flash_attention_fused_qkv`` in both its layouts
+    (all heads, and the sequential-head ``_fused_qkv_kernel_seqhead``);
+    serves 256..2304 tokens (levels 1 and 2).
 
 All compute exact softmax (the TPU kernels' ``use_max`` recurrence).  The
-TPU bf16 path drops the running max and clamps logits at 60
-(``_NOMAX_CLAMP``); the two agree within bf16 rounding while |logit| < 60.
+TPU bf16 paths (and the transposed kernel on every dtype) drop the running
+max and clamp logits at 60 (``_NOMAX_CLAMP``); the two agree within
+rounding while |logit| < 60.
 
 On a CPU tensor each wrapper runs its plain PyTorch version; on a CUDA
 tensor it launches its kernel or raises.  Each wrapper counts its launches
@@ -31,26 +40,95 @@ Weights are in ``torch.nn.Linear``'s (out, in) layout: q = x @ wq.T.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from gswm_torch import native
 
 HEAD_DIM = 64  # the kernels' head dim (SD 2.x and SDXL fix it at 64)
 
-# Routing window (gswm/models/layers.py:234-289): fused-qkv for
-# 256 <= S <= 2304, natural-layout flash from 2305 tokens up, plain
-# matmul + softmax below.
+# The JAX package's routing defaults (gswm/models/layers.py:224-386): the
+# xf, cres, packed and transposed tiers start at 2305 tokens, fused-qkv
+# covers 256..2304, the split flash kernel takes what is left from
+# ``flash_min_seq`` (1024) up, plain matmul + softmax below.
+TIER_MIN_SEQ = 2305
 FUSED_QKV_MIN_SEQ = 256
 FUSED_QKV_MAX_SEQ = 2304
-FLASH_MIN_SEQ = FUSED_QKV_MAX_SEQ + 1
+FLASH_MIN_SEQ = 1024
+# every switch route_self_attention reads
+ROUTE_SWITCHES = (
+    "GSWM_XF_ATTN", "GSWM_XF_ATTN_MIN_SEQ", "GSWM_CRES_ATTN", "GSWM_CRES_ATTN_MIN_SEQ",
+    "GSWM_PACKED_ATTN", "GSWM_PACKED_ATTN_MIN_SEQ", "GSWM_PACKED_ATTN_MAX_SEQ",
+    "GSWM_TRANSPOSED_ATTN", "GSWM_TRANSPOSED_ATTN_MIN_SEQ", "GSWM_FUSED_QKV",
+    "GSWM_FUSED_QKV_MAX_SEQ", "GSWM_FUSED_QKV_MODE", "GSWM_FLASH_MIN_SEQ")
 
 
-def route_self_attention(seq: int) -> str:
-    """'fused_qkv', 'flash' or 'plain' for a self-attention of ``seq`` tokens."""
-    if FUSED_QKV_MIN_SEQ <= seq <= FUSED_QKV_MAX_SEQ:
+def _seq_switch(name: str, default: int) -> int:
+    return int(os.environ.get(name, default))
+
+
+def route_self_attention(seq: int, head_dim: int = HEAD_DIM) -> str:
+    """The self-attention tier for ``seq`` tokens of ``head_dim``-wide heads,
+    in the JAX package's order (``gswm.models.layers.Attention``,
+    layers.py:388-535): xf -> cres -> packed -> transposed -> fused_qkv ->
+    split -> plain.  Switches are read from the environment at call time,
+    under the JAX names and defaults:
+
+      xf          GSWM_XF_ATTN (on), S >= GSWM_XF_ATTN_MIN_SEQ (2305)
+      cres        GSWM_CRES_ATTN (on), S >= GSWM_CRES_ATTN_MIN_SEQ (2305)
+      packed      GSWM_PACKED_ATTN=1, head_dim 64,
+                  S >= GSWM_PACKED_ATTN_MIN_SEQ (2305)
+      transposed  GSWM_TRANSPOSED_ATTN=1, head_dim 64 (the kernel's),
+                  S >= GSWM_TRANSPOSED_ATTN_MIN_SEQ (2305)
+      fused_qkv   GSWM_FUSED_QKV not 0, 256 <= S <= GSWM_FUSED_QKV_MAX_SEQ
+                  (2304)
+      split       S >= GSWM_FLASH_MIN_SEQ (1024)
+      plain       otherwise
+
+    xf and cres both run ``flash_attention`` (K2): the port has one kernel
+    for the natural-layout function.  The JAX gates that hold a TPU's memory
+    and tiling, not what a tier computes, are dropped, since every tier
+    computes the same function and the Hopper kernels have no 16 MB VMEM
+    ceiling.  So the port's route differs from the JAX package's where:
+
+      * ``cres_attention_fits`` fails (9216 tokens at 768x768): the JAX
+        package falls through, the port takes cres;
+      * ``packed_attention_fits`` fails (16384 tokens): likewise for packed.
+        GSWM_PACKED_ATTN_MAX_SEQ only widens that gate, so it changes no
+        route here;
+      * ``transposed_attention_fits`` fails: always below a batch of 8 (the
+        TPU's 8-sublane DMA), so at every batch SD runs; and the JAX
+        package admits any head_dim % 8 == 0, the port only 64;
+      * ``fused_qkv_attention_fits`` fails (576 tokens at 1280 channels,
+        768x768 level 2): the JAX package takes the split or plain path,
+        the port K1.
+
+    The JAX package's other gates have no counterpart: ``on_device`` (the
+    port's wrappers pick kernel or plain version by the tensor's device),
+    the tp/sp mesh checks (no mesh) and the bias check (the port's q/k/v
+    projections are bias-free).  Ignored, because they change only the TPU
+    tiling or pick a variant that is no parity target: GSWM_FUSED_QKV_MODE
+    (all-heads K1 or seqhead K5, one function, which K1 serves),
+    GSWM_PACKED_TIER, GSWM_SELF_PROJ, GSWM_ATTN_USE_MAX, GSWM_XF_BF16_EXP,
+    GSWM_ATTN_EXP2 and GSWM_ATTN_PV_CHUNKS."""
+    if os.environ.get("GSWM_XF_ATTN", "1") == "1" and \
+            seq >= _seq_switch("GSWM_XF_ATTN_MIN_SEQ", TIER_MIN_SEQ):
+        return "xf"
+    if os.environ.get("GSWM_CRES_ATTN", "1") == "1" and \
+            seq >= _seq_switch("GSWM_CRES_ATTN_MIN_SEQ", TIER_MIN_SEQ):
+        return "cres"
+    if os.environ.get("GSWM_PACKED_ATTN", "0") == "1" and head_dim == HEAD_DIM and \
+            seq >= _seq_switch("GSWM_PACKED_ATTN_MIN_SEQ", TIER_MIN_SEQ):
+        return "packed"
+    if os.environ.get("GSWM_TRANSPOSED_ATTN", "0") == "1" and head_dim == HEAD_DIM and \
+            seq >= _seq_switch("GSWM_TRANSPOSED_ATTN_MIN_SEQ", TIER_MIN_SEQ):
+        return "transposed"
+    if os.environ.get("GSWM_FUSED_QKV", "1") != "0" and FUSED_QKV_MIN_SEQ <= seq <= \
+            _seq_switch("GSWM_FUSED_QKV_MAX_SEQ", FUSED_QKV_MAX_SEQ):
         return "fused_qkv"
-    if seq >= FLASH_MIN_SEQ:
-        return "flash"
+    if seq >= _seq_switch("GSWM_FLASH_MIN_SEQ", FLASH_MIN_SEQ):
+        return "split"
     return "plain"
 
 
@@ -214,3 +292,89 @@ def flash_attention_split(q: torch.Tensor, k: torch.Tensor,
 
 
 flash_attention_split.launches = 0
+
+
+def flash_attention_packed_reference(qkv: torch.Tensor) -> torch.Tensor:
+    """Plain version: (B, S, 3*P*128) pair-packed qkv -> (B, S, P*128).  q, k
+    and v are the lane groups [0, P*128), [P*128, 2P*128) and [2P*128,
+    3P*128), each (B, S, 2P, 64) heads; ``flash_attention_split_reference``
+    on those views.  A zero pad head gives zero output."""
+    b, s, c3 = qkv.shape
+    pc = c3 // 3
+    q, k, v = (t.reshape(b, s, pc // HEAD_DIM, HEAD_DIM) for t in qkv.split(pc, dim=-1))
+    return flash_attention_split_reference(q, k, v).reshape(b, s, pc)
+
+
+def flash_attention_packed(qkv: torch.Tensor) -> torch.Tensor:
+    """(B, S, 3*P*128) pair-packed qkv -> (B, S, P*128) self-attention output:
+    the counterpart of ``gswm.ops.attention.flash_attention_packed`` at
+    head_dim 64, whose lane layout is two d = 64 heads per 128 columns (odd
+    head counts zero-pad the projection weights).
+
+    CPU: ``flash_attention_packed_reference``.  CUDA: the split kernel of
+    csrc/flash_split.cu reading q, k and v as strided (B, S, 2P, 64) views of
+    the one array (bf16, any S)."""
+    if qkv.dim() != 3 or qkv.shape[-1] % (3 * 128):
+        raise ValueError(f"flash_attention_packed: qkv {tuple(qkv.shape)} is not "
+                         "(B, S, 3 * P * 128)")
+    if qkv.device.type == "cpu":
+        return flash_attention_packed_reference(qkv)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"flash_attention_packed: unsupported device {qkv.device}")
+    _check_cuda_bf16("flash_attention_packed", qkv)
+    b, s, c3 = qkv.shape
+    pairs = c3 // (3 * 128)
+    out = qkv.new_empty((b, s, pairs * 128))
+    lib = native.library()
+    with torch.cuda.device(qkv.device):
+        lib.call("gswm_flash_packed", qkv.data_ptr(), out.data_ptr(), b, s, pairs,
+                 native.stream_handle(qkv.device))
+    flash_attention_packed.launches += 1
+    return out
+
+
+flash_attention_packed.launches = 0
+
+
+def flash_attention_transposed_reference(qkv_t: torch.Tensor,
+                                         heads: int) -> torch.Tensor:
+    """Plain version: (3*H*D, B, S) transposed qkv -> (H*D, B, S); q, k and v
+    are the row bands [0, H*D), [H*D, 2H*D) and [2H*D, 3H*D), head h at rows
+    h*D..h*D+D of its band.  ``flash_attention_split_reference`` on the
+    (B, S, H, D) views."""
+    n3, b, s = qkv_t.shape
+    d = n3 // (3 * heads)
+    q, k, v = qkv_t.reshape(3, heads, d, b, s).permute(0, 3, 4, 1, 2)
+    out = flash_attention_split_reference(q, k, v)  # (B, S, H, D)
+    return out.permute(2, 3, 0, 1).reshape(heads * d, b, s)
+
+
+def flash_attention_transposed(qkv_t: torch.Tensor, heads: int) -> torch.Tensor:
+    """(3*H*D, B, S) qkv, the native output of the ('nc,bsc->nbs') projection,
+    -> (H*D, B, S), which ``to_out`` contracts over dim 0: the counterpart of
+    ``gswm.ops.attention.flash_attention_transposed``.
+
+    CPU: ``flash_attention_transposed_reference`` (any D).  CUDA: the kernel
+    of csrc/flash_transposed.cu (bf16, D = 64, any B and S)."""
+    if qkv_t.dim() != 3 or qkv_t.shape[0] % (3 * heads):
+        raise ValueError(f"flash_attention_transposed: qkv_t {tuple(qkv_t.shape)} "
+                         f"is not (3 * {heads} * D, B, S)")
+    if qkv_t.device.type == "cpu":
+        return flash_attention_transposed_reference(qkv_t, heads)
+    if qkv_t.device.type != "cuda":
+        raise ValueError(f"flash_attention_transposed: unsupported device {qkv_t.device}")
+    _check_cuda_bf16("flash_attention_transposed", qkv_t)
+    n3, b, s = qkv_t.shape
+    if n3 != 3 * heads * HEAD_DIM:
+        raise ValueError(f"flash_attention_transposed: the kernel takes head dim "
+                         f"{HEAD_DIM}, got {n3 // (3 * heads)}")
+    out = qkv_t.new_empty((heads * HEAD_DIM, b, s))
+    lib = native.library()
+    with torch.cuda.device(qkv_t.device):
+        lib.call("gswm_flash_transposed", qkv_t.data_ptr(), out.data_ptr(), b, s,
+                 heads, native.stream_handle(qkv_t.device))
+    flash_attention_transposed.launches += 1
+    return out
+
+
+flash_attention_transposed.launches = 0

@@ -97,8 +97,9 @@ def test_exact_softmax_differs_from_clamped_xla_flash_above_60():
 
 @pytest.mark.parametrize("seq,route", [
     (64, "plain"), (77, "plain"), (255, "plain"), (256, "fused_qkv"),
-    (1024, "fused_qkv"), (2304, "fused_qkv"), (2305, "flash"), (4096, "flash")])
+    (1024, "fused_qkv"), (2304, "fused_qkv"), (2305, "xf"), (4096, "xf")])
 def test_routing_window(seq, route):
+    """With no switch set: the JAX package's default window."""
     assert attn.route_self_attention(seq) == route
 
 

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from gswm_torch.core import chacha
 from gswm_torch.ops import attention as attn
+from gswm_torch.ops import groupnorm as gn
 
 pytestmark = pytest.mark.gpu
 BOUND = 0.02
@@ -200,6 +201,121 @@ def test_kernel_wrappers_reject_what_they_do_not_take(cuda):
     odd = flat[1:].view(1, 600, 1, 128)  # 2-byte offset: not 16-byte aligned
     with pytest.raises(ValueError):
         attn.flash_attention_split(odd, odd, odd)
+
+
+@pytest.mark.parametrize("s", [1, 65, 300, 1000])
+@pytest.mark.parametrize("b,pairs", [(1, 1), (2, 3)])
+def test_packed_kernel_matches_plain(cuda, b, pairs, s):
+    """K6 at ragged lengths; the last head of each pair group zeroed, as the
+    odd-head pad of the packed layout, must give zero output."""
+    g = torch.Generator(device=cuda).manual_seed(s + pairs)
+    qkv = torch.randn((b, s, 3 * pairs * 128), generator=g, device=cuda).bfloat16()
+    for i in range(3):
+        qkv[..., (i + 1) * pairs * 128 - 64:(i + 1) * pairs * 128] = 0
+    before = attn.flash_attention_packed.launches
+    got = attn.flash_attention_packed(qkv)
+    assert attn.flash_attention_packed.launches == before + 1
+    assert_attention_close(got, attn.flash_attention_packed_reference(qkv.float()))
+    assert torch.equal(got[..., -64:], torch.zeros_like(got[..., -64:]))
+
+
+@pytest.mark.parametrize("s", [1, 65, 300, 1000, 1024])
+@pytest.mark.parametrize("b,h", [(1, 1), (2, 5)])
+def test_transposed_kernel_matches_plain(cuda, b, h, s):
+    """K7 at ragged lengths: S = 1, 65, 300 and 1000 are not multiples of 8,
+    so their rows are not 16-byte aligned (the element-wise instance)."""
+    g = torch.Generator(device=cuda).manual_seed(s + h)
+    qkv_t = torch.randn((3 * h * 64, b, s), generator=g, device=cuda).bfloat16()
+    before = attn.flash_attention_transposed.launches
+    got = attn.flash_attention_transposed(qkv_t, h)
+    assert attn.flash_attention_transposed.launches == before + 1
+    assert_attention_close(got, attn.flash_attention_transposed_reference(
+        qkv_t.float(), h))
+
+
+def test_transposed_kernel_is_exact_softmax_above_60(cuda):
+    """K7 with logits 80 and 70 in one row: exact softmax, where the TPU
+    transposed kernel clamps both to 60 on every dtype."""
+    s, d = 300, 64
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q = torch.randn((1, s, 1, d), generator=g, device=cuda)
+    k = torch.randn((1, s, 1, d), generator=g, device=cuda) * 0.1
+    v = torch.randn((1, s, 1, d), generator=g, device=cuda)
+    q[0, 0, 0] = 0.0
+    q[0, 0, 0, 0], q[0, 0, 0, 1] = 80.0, 70.0
+    k[0, 5, 0], k[0, 9, 0] = 0.0, 0.0
+    k[0, 5, 0, 0], k[0, 9, 0, 1] = 8.0, 8.0
+    v[0, 5, 0], v[0, 9, 0] = 1.0, -1.0
+    qkv_t = torch.cat([t.permute(2, 3, 0, 1).reshape(d, 1, s) for t in (q, k, v)])
+    qkv_t = qkv_t.bfloat16().contiguous()
+    got = attn.flash_attention_transposed(qkv_t, 1).float()
+    want = attn.flash_attention_transposed_reference(qkv_t.float(), 1)
+    torch.testing.assert_close(got, want, rtol=0, atol=BOUND)
+    torch.testing.assert_close(got[:, 0, 0], torch.ones(d, device=cuda), rtol=0,
+                               atol=1e-2)
+
+
+@pytest.mark.parametrize("shape,eps,act", [
+    ((2, 64, 1, 1), 1e-5, None), ((2, 64, 65, 1), 1e-6, "silu"),
+    ((1, 320, 300, 1), 1e-5, "silu"), ((1, 128, 1000, 1), 1e-6, None),
+    ((2, 640, 48, 48), 1e-5, "silu"), ((1, 128, 384, 384), 1e-6, "silu")])
+def test_group_norm_kernel_matches_plain(cuda, shape, eps, act):
+    """K8 against its fp32 plain version: 0.02 and 1% of max |want| (one
+    bf16 rounding of outputs below 8 is 2^-6 / 2)."""
+    g = torch.Generator(device=cuda).manual_seed(shape[1] + shape[2])
+    x = (torch.randn(shape, generator=g, device=cuda) * 2 + 0.5).bfloat16()
+    w = 1 + 0.05 * torch.randn(shape[1], generator=g, device=cuda)
+    b = 0.05 * torch.randn(shape[1], generator=g, device=cuda)
+    before = gn.fused_group_norm.launches
+    got = gn.fused_group_norm(x, w, b, 32, eps, act)
+    assert gn.fused_group_norm.launches == before + 1
+    want = gn.fused_group_norm_reference(x.float(), w, b, 32, eps, act)
+    err = (got.float() - want).abs().max().item()
+    assert err <= 0.02 and err <= 0.01 * want.abs().max().item()
+
+
+def test_new_kernel_wrappers_reject_what_they_do_not_take(cuda):
+    with pytest.raises(TypeError):
+        attn.flash_attention_packed(torch.zeros((1, 8, 384), device=cuda))  # fp32
+    with pytest.raises(ValueError):  # D = 32: the kernel takes 64
+        attn.flash_attention_transposed(
+            torch.zeros((192, 1, 8), device=cuda, dtype=torch.bfloat16), 2)
+    with pytest.raises(TypeError):
+        gn.fused_group_norm(torch.zeros((1, 64, 4, 4), device=cuda),
+                            torch.ones(64, device=cuda), torch.zeros(64, device=cuda))
+    xb = torch.zeros((1, 64, 4, 8), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # not contiguous
+        gn.fused_group_norm(xb[..., :4], torch.ones(64, device=cuda),
+                            torch.zeros(64, device=cuda))
+
+
+@pytest.mark.parametrize("switches,wrapper", [
+    ({"GSWM_XF_ATTN": "0"}, "flash_attention"),
+    ({"GSWM_XF_ATTN": "0", "GSWM_CRES_ATTN": "0", "GSWM_PACKED_ATTN": "1"},
+     "flash_attention_packed"),
+    ({"GSWM_XF_ATTN": "0", "GSWM_CRES_ATTN": "0", "GSWM_TRANSPOSED_ATTN": "1"},
+     "flash_attention_transposed"),
+    ({"GSWM_FUSED_QKV": "0", "GSWM_XF_ATTN_MIN_SEQ": "99999",
+      "GSWM_CRES_ATTN_MIN_SEQ": "99999"}, "flash_attention_split")])
+def test_attention_tiers_agree_on_card(cuda, monkeypatch, switches, wrapper):
+    """The UNet's level-0 self-attention (2, 2400 tokens, 320 channels, 5
+    heads) under each switch set launches its tier's kernel once and gives
+    the default route's output within 0.02 of |out| <= ~1 (bf16 rounding
+    at different points of the projections)."""
+    from gswm_torch.models import layers
+
+    torch.manual_seed(0)
+    mod = layers.Attention(320, 320, 5, 64).to(cuda, torch.bfloat16)
+    x = torch.randn((2, 2400, 320), device=cuda).bfloat16()
+    with torch.no_grad():
+        want = mod(x).float()
+        for name, value in switches.items():
+            monkeypatch.setenv(name, value)
+        fn = getattr(attn, wrapper)
+        before = fn.launches
+        got = mod(x).float()
+    assert fn.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=0, atol=BOUND)
 
 
 def test_tiny_pipeline_closed_loop_on_card(cuda):

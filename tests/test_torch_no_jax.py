@@ -20,7 +20,7 @@ def test_port_imports_no_jax():
         import gswm_torch
         from gswm_torch import GSConfig, embed_latents, recover_message_bits
         from gswm_torch.models import bridge  # noqa: F401
-        from gswm_torch.ops import attention  # noqa: F401
+        from gswm_torch.ops import attention, groupnorm  # noqa: F401
         from gswm_torch.pipelines import InversablePipeline
         from gswm_torch.schedulers import dpm  # noqa: F401
         cfg = GSConfig(key_hex="22" * 32, nonce_hex="33" * 16, message="x",
