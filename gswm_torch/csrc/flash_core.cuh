@@ -1,7 +1,8 @@
-// Shared pieces of the flash-attention kernels: the declaration of the split
-// kernel's launcher (flash_split.cu), which the fused-qkv kernel
-// (fused_qkv.cu) launches after its projections, and the device helpers that
-// flash_split.cu and flash_transposed.cu both use.
+// Shared pieces of the flash-attention kernels: the declarations of the split
+// launcher (flash_split.cu), which the fused-qkv kernel (fused_qkv.cu)
+// launches after its projections, and of the D = 64 launcher
+// (flash_hopper.cu) it dispatches to; and the device helpers that
+// flash_split.cu (D = 128 ... 512) and flash_transposed.cu both use.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -16,6 +17,14 @@ cudaError_t gswm_launch_flash_split(const __nv_bfloat16* q, const __nv_bfloat16*
                                     const __nv_bfloat16* v, __nv_bfloat16* out,
                                     int B, int Sq, int Sk, int H, int D,
                                     cudaStream_t stream);
+
+// The same function at D = 64 with a base pointer per operand and ld_q,
+// ld_kv, ld_o elements (multiples of 8) between rows of q, of k and v, and
+// of out; head h starts at column h * 64 of each.
+cudaError_t gswm_launch_flash_hopper(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                                     const __nv_bfloat16* v, __nv_bfloat16* out,
+                                     int B, int Sq, int Sk, int H, int ld_q, int ld_kv,
+                                     int ld_o, cudaStream_t stream);
 
 namespace gswm_flash {
 

@@ -1,5 +1,6 @@
 // Split flash attention on (B, S, H, D) bf16 q/k/v, D a multiple of 64 up
-// to 512, any Sq and Sk.
+// to 512, any Sq and Sk.  D = 64 goes to the wgmma kernel of flash_hopper.cu;
+// the kernel in this file runs D = 128 ... 512.
 //
 // Replaces gswm/ops/attention.py:414 flash_attention -> _flash_bhsd (:250),
 // whose three Pallas tiers (_flash_kernel :212 head-resident,
@@ -10,23 +11,6 @@
 // (gswm/models/layers.py:692-725).  The JAX wrapper transposes to
 // (B*H, S, D) and pads to its blocks; here q/k/v are read strided in their
 // natural layout, ragged keys are masked and ragged query rows skipped.
-//
-// The same kernel at D = 64 serves the UNet's self-attention from 2305
-// tokens up (level 0: 4096 tokens at 512x512, 9216 at 768x768; 5 heads),
-// since a (B, S, H * 64) tensor is a (B, S, H, 64) one: there the TPU path
-// runs xla_flash_attention (plain XLA, gswm/ops/attention.py:1540) or the
-// Pallas flash_attention_cres it displaced (:1211, reachable with
-// GSWM_XF_ATTN=0).  It is also the attention core of the fused-qkv kernel
-// (fused_qkv.cu), through gswm_launch_flash_split (flash_core.cuh).
-//
-// And it replaces the Pallas flash_attention_packed (gswm/ops/attention.py
-// :959; tiers _flash_kernel_pair :801, _pair_kvres :836, _pair_streamk :860,
-// VMEM-fit choices again), routed under GSWM_PACKED_ATTN=1: one (B, S,
-// 3 * P * 128) qkv array holds two d = 64 heads per 128 columns, q, k and v
-// in three column groups.  That is three strided (B, S, 2P, 64) views, so
-// gswm_flash_packed runs this kernel with a row pitch of 3 * P * 128 and a
-// base pointer per operand; rows stay 16-byte aligned.  A zero pad head
-// (odd head counts) has zero logits and zero v, so its output is zero.
 //
 // Semantics: the `use_max` branch of the TPU kernels' recurrence
 // (_attend_kv_loop / _flash_kernel_streamk): q scaled by D^-0.5 in fp32 and
@@ -48,7 +32,7 @@
 // 64-key tiles:
 //   * shared memory holds the q tile, one k and one v tile (bf16, row pitch
 //     D + 8 so ldmatrix rows fall in distinct banks), the 32 x 64 fp32 logits
-//     and the bf16 p tile: 176 KiB at D = 512, 37 KiB at D = 64;
+//     and the bf16 p tile: 176 KiB at D = 512;
 //   * S = q k^T: each warp computes one 16 x 16 tile of logits over the
 //     whole of D with mma.sync m16n8k16 (bf16 in, fp32 accumulate);
 //   * the online softmax: each warp owns 4 rows, lanes split the 64 keys,
@@ -60,7 +44,8 @@
 //     thread which two rows it holds, so the rescale needs no shared memory.
 // k and v tiles arrive by cp.async in two groups, so the logits and the
 // softmax of a tile overlap the v tile's copy.  No TMA, no wgmma, no
-// multi-stage pipeline yet: this is the simple first kernel.
+// multi-stage pipeline here: this is the simple first kernel, still to be
+// redesigned for the card as the D = 64 one was.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -82,7 +67,7 @@ struct Tile {
                               BQ * LDS * (int)sizeof(float) +
                               BQ * LDP * (int)sizeof(bf16) +
                               2 * BQ * (int)sizeof(float);
-  static_assert(D % 64 == 0 && D <= 512, "D is a multiple of 64 up to 512");
+  static_assert(D % 64 == 0 && D >= 128 && D <= 512, "D is a multiple of 64, 128 to 512");
   static_assert(SMEM <= 232448, "above the 227 KiB a block may opt into");
 };
 
@@ -106,7 +91,7 @@ template <int D>
 __global__ void __launch_bounds__(THREADS)
 flash_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, bf16* __restrict__ out, int Sq,
-                   int Sk, int ld_q, int ld_kv, int ld_o, float scale) {
+                   int Sk, int ld, float scale) {
   constexpr int LDH = Tile<D>::LDH;
   constexpr int DS = Tile<D>::DS;
   constexpr int NT = Tile<D>::NT;
@@ -128,12 +113,12 @@ flash_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const bf16* qh = q + (size_t)b * Sq * ld_q + (size_t)h * D;
-  const bf16* kh = k + (size_t)b * Sk * ld_kv + (size_t)h * D;
-  const bf16* vh = v + (size_t)b * Sk * ld_kv + (size_t)h * D;
-  bf16* oh = out + (size_t)b * Sq * ld_o + (size_t)h * D;
+  const bf16* qh = q + (size_t)b * Sq * ld + (size_t)h * D;
+  const bf16* kh = k + (size_t)b * Sk * ld + (size_t)h * D;
+  const bf16* vh = v + (size_t)b * Sk * ld + (size_t)h * D;
+  bf16* oh = out + (size_t)b * Sq * ld + (size_t)h * D;
 
-  load_tile_async<D>(qs, qh, q0, BQ, Sq, ld_q, tid);
+  load_tile_async<D>(qs, qh, q0, BQ, Sq, ld, tid);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -170,9 +155,9 @@ flash_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   for (int k0 = 0; k0 < Sk; k0 += BK) {
     __syncthreads();  // the previous tile's k, v, p and alpha are consumed
-    load_tile_async<D>(ks, kh, k0, BK, Sk, ld_kv, tid);
+    load_tile_async<D>(ks, kh, k0, BK, Sk, ld, tid);
     cp_async_commit();
-    load_tile_async<D>(vs, vh, k0, BK, Sk, ld_kv, tid);
+    load_tile_async<D>(vs, vh, k0, BK, Sk, ld, tid);
     cp_async_commit();
     cp_async_wait<1>();  // this thread's k copies have landed
     __syncthreads();
@@ -236,28 +221,27 @@ flash_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int j = 0; j < NT; ++j) {
     const int col = wc * DS + j * 8 + 2 * t4;
     if (r_lo < Sq)
-      *reinterpret_cast<__nv_bfloat162*>(oh + (size_t)r_lo * ld_o + col) =
+      *reinterpret_cast<__nv_bfloat162*>(oh + (size_t)r_lo * ld + col) =
           __floats2bfloat162_rn(acc[j][0] / l_lo, acc[j][1] / l_lo);
     if (r_hi < Sq)
-      *reinterpret_cast<__nv_bfloat162*>(oh + (size_t)r_hi * ld_o + col) =
+      *reinterpret_cast<__nv_bfloat162*>(oh + (size_t)r_hi * ld + col) =
           __floats2bfloat162_rn(acc[j][2] / l_hi, acc[j][3] / l_hi);
   }
 }
 
-// ld_q, ld_kv, ld_o: elements between rows of q, of k and v, and of out; head
-// h starts at column h * D of each.
+// ld: elements between rows of q, k, v and out; head h starts at column
+// h * D of each.
 template <int D>
 cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* out, int B,
-                   int Sq, int Sk, int H, int ld_q, int ld_kv, int ld_o,
-                   cudaStream_t stream) {
+                   int Sq, int Sk, int H, int ld, cudaStream_t stream) {
   constexpr int smem = Tile<D>::SMEM;
-  // above the 48 KiB a launch gets without asking from D = 128 up
+  // above the 48 KiB a launch gets without asking
   cudaError_t e = cudaFuncSetAttribute(
       flash_split_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
   flash_split_kernel<D><<<grid, THREADS, smem, stream>>>(
-      q, k, v, out, Sq, Sk, ld_q, ld_kv, ld_o, 1.0f / sqrtf((float)D));
+      q, k, v, out, Sq, Sk, ld, 1.0f / sqrtf((float)D));
   return cudaGetLastError();
 }
 
@@ -269,14 +253,15 @@ cudaError_t gswm_launch_flash_split(const bf16* q, const bf16* k, const bf16* v,
   if (Sq < 1 || Sk < 1) return cudaErrorInvalidValue;
   const int ld = H * D;  // natural layout: q, k, v and out share one row pitch
   switch (D) {
-    case 64: return launch<64>(q, k, v, out, B, Sq, Sk, H, ld, ld, ld, stream);
-    case 128: return launch<128>(q, k, v, out, B, Sq, Sk, H, ld, ld, ld, stream);
-    case 192: return launch<192>(q, k, v, out, B, Sq, Sk, H, ld, ld, ld, stream);
-    case 256: return launch<256>(q, k, v, out, B, Sq, Sk, H, ld, ld, ld, stream);
-    case 320: return launch<320>(q, k, v, out, B, Sq, Sk, H, ld, ld, ld, stream);
-    case 384: return launch<384>(q, k, v, out, B, Sq, Sk, H, ld, ld, ld, stream);
-    case 448: return launch<448>(q, k, v, out, B, Sq, Sk, H, ld, ld, ld, stream);
-    case 512: return launch<512>(q, k, v, out, B, Sq, Sk, H, ld, ld, ld, stream);
+    case 64:
+      return gswm_launch_flash_hopper(q, k, v, out, B, Sq, Sk, H, ld, ld, ld, stream);
+    case 128: return launch<128>(q, k, v, out, B, Sq, Sk, H, ld, stream);
+    case 192: return launch<192>(q, k, v, out, B, Sq, Sk, H, ld, stream);
+    case 256: return launch<256>(q, k, v, out, B, Sq, Sk, H, ld, stream);
+    case 320: return launch<320>(q, k, v, out, B, Sq, Sk, H, ld, stream);
+    case 384: return launch<384>(q, k, v, out, B, Sq, Sk, H, ld, stream);
+    case 448: return launch<448>(q, k, v, out, B, Sq, Sk, H, ld, stream);
+    case 512: return launch<512>(q, k, v, out, B, Sq, Sk, H, ld, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -289,18 +274,4 @@ extern "C" int gswm_flash_split(const void* q, const void* k, const void* v, voi
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), B, Sq, Sk, H, D,
       static_cast<cudaStream_t>(stream)));
-}
-
-// Pair-packed self-attention: qkv (B, S, 3 * P * 128) with q, k and v at
-// columns [0, P * 128), [P * 128, 2 * P * 128) and [2 * P * 128, 3 * P * 128),
-// each 2 * P heads of 64; out (B, S, P * 128).  The split kernel at D = 64
-// with row pitch 3 * P * 128 for q, k and v and a base pointer per operand.
-extern "C" int gswm_flash_packed(const void* qkv, void* out, int B, int S, int P,
-                                 void* stream) {
-  if (S < 1 || P < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const bf16* q = static_cast<const bf16*>(qkv);
-  const int width = P * 128;
-  return static_cast<int>(launch<64>(q, q + width, q + 2 * width, static_cast<bf16*>(out),
-                                     B, S, S, 2 * P, 3 * width, 3 * width, width,
-                                     static_cast<cudaStream_t>(stream)));
 }

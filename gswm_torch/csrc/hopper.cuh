@@ -1,0 +1,296 @@
+// Hopper (sm_90a) building blocks shared by the projection GEMM
+// (fused_qkv.cu) and the D = 64 flash attention (flash_hopper.cu): the TMA
+// tensor-map encoder on the host; mbarrier, TMA load/store, wgmma and
+// setmaxnreg wrappers on the device.
+//
+// One shared-memory layout serves every tile here: rows of exactly 128 bytes
+// (64 bf16), written by TMA with the 128-byte swizzle, tile bases aligned to
+// 1024 bytes (the swizzle repeats every 8 rows).  smem_desc_sw128 describes
+// such a tile to wgmma, for a K-major operand (the reduction dimension runs
+// along the row: q, k, x, w) and for an MN-major one (the reduction
+// dimension runs down the rows: v) alike; the two differ in the
+// instruction's transpose bit and in how a 16-deep step moves the start
+// address: 32 bytes along the row, or 16 rows = 2048 bytes down.
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums; libcuda itself is not linked
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <dlfcn.h>
+#include <stdint.h>
+#include <stdio.h>
+
+namespace gswm_hopper {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int ROW_BYTES = 128;         // one tile row: 64 bf16
+constexpr int ROW_ELEMS = 64;
+constexpr int SWIZZLE_SPAN = 1024;     // 8 rows: the swizzle's period and tile alignment
+constexpr int DESC_K_STEP = 32 >> 4;   // K-major: 16 elements along the row
+constexpr int DESC_MN_STEP = (16 * ROW_BYTES) >> 4;  // MN-major: 16 rows down
+
+// ---------------------------------------------------------------- host ----
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled lives in libcuda, which this library does not link:
+// it is looked up, once, in the libcuda.so.1 the process (PyTorch) has already
+// loaded.  The handle is kept for the life of the process on purpose: the
+// function pointer must stay valid for as long.
+static inline EncodeTiledFn encode_tiled_fn() {
+  static EncodeTiledFn fn = []() -> EncodeTiledFn {
+    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
+    if (h == nullptr) {
+      fprintf(stderr, "gswm_torch: dlopen(libcuda.so.1) failed: %s\n", dlerror());
+      return nullptr;
+    }
+    void* sym = dlsym(h, "cuTensorMapEncodeTiled");
+    if (sym == nullptr)
+      fprintf(stderr, "gswm_torch: libcuda.so.1 has no cuTensorMapEncodeTiled (%s): "
+                      "this libcuda predates CUDA 12\n", dlerror());
+    return reinterpret_cast<EncodeTiledFn>(sym);
+  }();
+  return fn;
+}
+
+// A tensor map over bf16 data of `rank` dimensions, innermost first:
+// dims[0] contiguous elements, strides[i] BYTES between steps of dimension
+// i + 1 (each a multiple of 16), box the tile one copy moves (box[0] = 64:
+// one 128-byte swizzled row).  What a box reads past a dimension arrives as
+// zeros; what it would write there is dropped.
+static inline cudaError_t encode_map(CUtensorMap* map, const void* base, int rank,
+                                     const cuuint64_t* dims, const cuuint64_t* strides,
+                                     const cuuint32_t* box) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
+                        const_cast<void*>(base), dims, strides, box, ones,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r == CUDA_SUCCESS) return cudaSuccess;
+  fprintf(stderr, "gswm_torch: cuTensorMapEncodeTiled failed with CUresult %d: base %p, "
+                  "rank %d, innermost dims %llu x %llu, first stride %llu bytes, box %u x %u\n",
+          (int)r, base, rank, (unsigned long long)dims[0], (unsigned long long)dims[1],
+          (unsigned long long)strides[0], box[0], box[1]);
+  return cudaErrorInvalidValue;
+}
+
+// -------------------------------------------------------------- device ----
+
+static __device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The first 1024-byte aligned address of the block's dynamic shared memory.
+static __device__ __forceinline__ unsigned char* align_smem(unsigned char* raw) {
+  return raw + ((SWIZZLE_SPAN - (smem_u32(raw) & (SWIZZLE_SPAN - 1))) & (SWIZZLE_SPAN - 1));
+}
+
+// mbarrier: `count` arrivals (and all bytes announced by expect_tx) complete
+// a phase.  A wait on `parity` returns once the phase of that parity is over:
+// a fresh barrier passes a wait on 1 at once and blocks a wait on 0.
+static __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+static __device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+static __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+static __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+static __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (done == 0);
+}
+
+// One tile, global -> shared, issued by one thread; its bytes complete on
+// `bar`.  Coordinates are innermost first, in elements.
+static __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                                   uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+static __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                                   uint64_t* bar, int c0, int c1, int c2,
+                                                   int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+// One tile, shared -> global; then tma_store_wait before the tile is reused
+// or the thread leaves.
+static __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src,
+                                                    int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
+      "cp.async.bulk.commit_group;\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+static __device__ __forceinline__ void tma_store_wait() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Shared-memory writes of ordinary stores made visible to TMA and wgmma.
+static __device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Barrier `id` (1..15; 0 is __syncthreads) over `threads` threads.
+static __device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// setmaxnreg moves registers between the warpgroups of a block; every warp
+// of the warpgroup runs it.
+template <int R>
+static __device__ __forceinline__ void reg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+template <int R>
+static __device__ __forceinline__ void reg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// The wgmma descriptor of a tile in the layout above; add DESC_K_STEP or
+// DESC_MN_STEP per 16-deep step.
+static __device__ __forceinline__ uint64_t smem_desc_sw128(const void* tile) {
+  uint64_t d = (uint64_t)((smem_u32(tile) & 0x3FFFFu) >> 4);  // start address
+  d |= (uint64_t)1 << 16;                    // leading offset: unused, one atom across
+  d |= (uint64_t)(SWIZZLE_SPAN >> 4) << 32;  // stride between 8-row groups
+  d |= (uint64_t)1 << 62;                    // 128-byte swizzle
+  return d;
+}
+
+static __device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+static __device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+static __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from reading or moving accumulator registers across an
+// asynchronous wgmma: call after wgmma_wait, before the values are used.
+template <int N>
+static __device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 128 fp32) = a (64 x 16 bf16, shared, K-major) * b^T (128 x 16
+// bf16, shared, K-major) + (accumulate ? d : 0), one warpgroup.
+// Accumulator layout (PTX ISA, wgmma D fragment): warp w of the warpgroup
+// holds rows 16w..16w+15; with g = lane / 4, t = lane % 4, d[4j], d[4j+1]
+// are row 16w+g, columns 8j+2t, 8j+2t+1, and d[4j+2], d[4j+3] row 16w+g+8.
+static __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t desc_a,
+                                                           uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d (64 x 64 fp32) += a (64 x 16 bf16, registers) * b (16 x 64 bf16, shared,
+// MN-major: row = reduction index), one warpgroup.  The A fragment is
+// mma.sync m16n8k16's, per warp: a[0] = A[g][2t..2t+1], a[1] = A[g+8][2t..],
+// a[2] = A[g][2t+8..], a[3] = A[g+8][2t+8..], low half = lower column; two
+// neighbouring 8-column groups of the accumulator layout above, rounded to
+// bf16, are exactly that.
+static __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                                          const uint32_t (&a)[4],
+                                                          uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+}  // namespace gswm_hopper

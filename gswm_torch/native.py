@@ -31,6 +31,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # words12 (host uint32[12]), out, n_blocks, stream
     "gswm_chacha20_words": [_VP, _VP, _I, _VP],
+    # x, wq, wk, wv, q, k, v, M, C, N, stream
+    "gswm_qkv_proj": [_VP] * 7 + [_I, _I, _I, _VP],
     # x, wq, wk, wv, q, k, v, out, B, S, C, H, stream
     "gswm_fused_qkv_attn": [_VP] * 8 + [_I, _I, _I, _I, _VP],
     # q, k, v, out, B, Sq, Sk, H, D, stream

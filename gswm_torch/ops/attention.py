@@ -1,30 +1,33 @@
 """Self-attention kernels of the PyTorch port, with their plain versions.
 
-Three kernels, hand-written CUDA for Hopper (``gswm_torch/csrc``), behind
-five wrappers; ``route_self_attention`` picks the UNet's tier as the JAX
-package does:
+Four kernels, hand-written CUDA for Hopper (``gswm_torch/csrc``), behind
+six wrappers; ``route_self_attention`` picks the UNet's tier as the JAX
+package does.  Every D = 64 attention in the natural, split and packed
+layouts runs the one wgmma + TMA kernel of csrc/flash_hopper.cu:
 
-  * ``flash_attention_split`` (csrc/flash_split.cu) — split-layout flash
-    attention on (B, S, H, D) q/k/v, D a multiple of 64 up to 512.  Port of
-    the Pallas ``gswm.ops.attention.flash_attention``; serves the VAE
-    mid-block attention above 4096 tokens (one head, D = 512) and the
-    UNet's ``split`` route.
-  * ``flash_attention`` — the same kernel at D = 64 on natural-layout
-    (B, S, H*64) q/k/v, which is (B, S, H, 64) memory.  Serves the UNet's
-    ``xf`` and ``cres`` routes (level 0: 4096 tokens at 512x512, 9216 at
-    768x768), where the TPU path runs ``gswm.ops.attention.
-    xla_flash_attention`` or the Pallas ``flash_attention_cres``.
-  * ``flash_attention_packed`` — the same kernel reading q, k and v as
+  * ``flash_attention_split`` — split-layout flash attention on
+    (B, S, H, D) q/k/v, D a multiple of 64 up to 512: csrc/flash_hopper.cu
+    at D = 64, csrc/flash_split.cu (mma.sync) from 128 up.  Port of the
+    Pallas ``gswm.ops.attention.flash_attention``; serves the VAE mid-block
+    attention above 4096 tokens (one head, D = 512) and the UNet's
+    ``split`` route.
+  * ``flash_attention`` — the D = 64 kernel on natural-layout (B, S, H*64)
+    q/k/v, which is (B, S, H, 64) memory.  Serves the UNet's ``xf`` and
+    ``cres`` routes (level 0: 4096 tokens at 512x512, 9216 at 768x768),
+    where the TPU path runs ``gswm.ops.attention.xla_flash_attention`` or
+    the Pallas ``flash_attention_cres``.
+  * ``flash_attention_packed`` — the D = 64 kernel reading q, k and v as
     strided views of one pair-packed (B, S, 3*P*128) qkv array.  Port of
     the Pallas ``flash_attention_packed``; the ``packed`` route.
   * ``flash_attention_transposed`` (csrc/flash_transposed.cu) — flash
     attention on the (3*H*64, B, S) transposed projection output.  Port of
     the Pallas ``flash_attention_transposed``; the ``transposed`` route.
-  * ``fused_qkv_attention`` (csrc/fused_qkv.cu, then the split kernel) —
-    the bias-free q/k/v projections in a hand-written GEMM, then attention.
-    Port of the Pallas ``flash_attention_fused_qkv`` in both its layouts
-    (all heads, and the sequential-head ``_fused_qkv_kernel_seqhead``);
-    serves 256..2304 tokens (levels 1 and 2).
+  * ``fused_qkv_attention`` (csrc/fused_qkv.cu, then the D = 64 kernel) —
+    the bias-free q/k/v projections in a hand-written wgmma + TMA GEMM,
+    then attention.  Port of the Pallas ``flash_attention_fused_qkv`` in
+    both its layouts (all heads, and the sequential-head
+    ``_fused_qkv_kernel_seqhead``); serves 256..2304 tokens (levels 1 and
+    2).  ``qkv_projection`` is its GEMM alone.
 
 All compute exact softmax (the TPU kernels' ``use_max`` recurrence).  The
 TPU bf16 paths (and the transposed kernel on every dtype) drop the running
@@ -178,7 +181,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(B, S, H*64) q/k/v -> (B, S, H*64) self-attention output.
 
     CPU: ``flash_attention_reference``.  CUDA: the kernel of
-    csrc/flash_split.cu on the (B, S, H, 64) view (bf16, any S)."""
+    csrc/flash_hopper.cu on the (B, S, H, 64) view (bf16, any S)."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, heads)
     if q.device.type != "cuda":
@@ -203,27 +206,69 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention.launches = 0
 
 
+def _check_projection(name: str, x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
+                      wv: torch.Tensor, inner: int) -> tuple[int, int, int]:
+    """What the projection GEMM takes: CUDA bf16 (B, S, C) x and (inner, C)
+    weights, C and inner multiples of 64.  Returns (B, S, C)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    _check_cuda_bf16(name, x, wq, wk, wv)
+    if x.dim() != 3:
+        raise ValueError(f"{name}: x must be (B, S, C), got {tuple(x.shape)}")
+    b, s, c = x.shape
+    for w in (wq, wk, wv):
+        if tuple(w.shape) != (inner, c):
+            raise ValueError(f"{name}: weight {tuple(w.shape)} != ({inner}, {c})")
+    if c % 64 or inner % 64:
+        raise ValueError(f"{name}: channels {c} and width {inner} must be "
+                         "multiples of 64")
+    return b, s, c
+
+
+def qkv_projection_reference(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
+                             wv: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Plain version: (B, S, C) x and (N, C) weights -> q, k, v (B, S, N),
+    x @ w.T in fp32, cast back to x's dtype."""
+    xf = x.to(torch.float32)
+    return tuple(torch.matmul(xf, w.to(torch.float32).t()).to(x.dtype)
+                 for w in (wq, wk, wv))
+
+
+def qkv_projection(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
+                   wv: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """(B, S, C) x and bias-free (N, C) q/k/v weights -> q, k, v (B, S, N):
+    the projection step of ``fused_qkv_attention`` on its own.
+
+    CPU: ``qkv_projection_reference``.  CUDA: the GEMM of csrc/fused_qkv.cu
+    (bf16, C % 64 == 0, N % 64 == 0, fp32 accumulation, any B * S)."""
+    if x.device.type == "cpu":
+        return qkv_projection_reference(x, wq, wk, wv)
+    inner = wq.shape[0]
+    b, s, c = _check_projection("qkv_projection", x, wq, wk, wv, inner)
+    q, k, v = (x.new_empty((b, s, inner)) for _ in range(3))
+    lib = native.library()
+    with torch.cuda.device(x.device):
+        lib.call("gswm_qkv_proj", x.data_ptr(), wq.data_ptr(), wk.data_ptr(),
+                 wv.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), b * s, c,
+                 inner, native.stream_handle(x.device))
+    qkv_projection.launches += 1
+    return q, k, v
+
+
+qkv_projection.launches = 0
+
+
 def fused_qkv_attention(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
                         wv: torch.Tensor, heads: int) -> torch.Tensor:
     """(B, S, C) x and bias-free (H*64, C) q/k/v weights -> (B, S, H*64).
 
     CPU: ``fused_qkv_attention_reference``.  CUDA: the projection GEMM of
-    csrc/fused_qkv.cu, then the split kernel (bf16, C % 64 == 0)."""
+    csrc/fused_qkv.cu, then the kernel of csrc/flash_hopper.cu (bf16,
+    C % 64 == 0)."""
     if x.device.type == "cpu":
         return fused_qkv_attention_reference(x, wq, wk, wv, heads)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_qkv_attention: unsupported device {x.device}")
-    _check_cuda_bf16("fused_qkv_attention", x, wq, wk, wv)
-    if x.dim() != 3:
-        raise ValueError(f"fused_qkv_attention: x must be (B, S, C), got {tuple(x.shape)}")
-    b, s, c = x.shape
     inner = heads * HEAD_DIM
-    for w in (wq, wk, wv):
-        if tuple(w.shape) != (inner, c):
-            raise ValueError(f"fused_qkv_attention: weight {tuple(w.shape)} != "
-                             f"({inner}, {c})")
-    if c % 64:
-        raise ValueError(f"fused_qkv_attention: channels {c} not a multiple of 64")
+    b, s, c = _check_projection("fused_qkv_attention", x, wq, wk, wv, inner)
     q, k, v, out = (x.new_empty((b, s, inner)) for _ in range(4))
     lib = native.library()
     with torch.cuda.device(x.device):
@@ -261,8 +306,8 @@ def flash_attention_split(q: torch.Tensor, k: torch.Tensor,
     ``flash_attention`` is the natural-layout wrapper).  Below
     ``SPLIT_MIN_KEYS`` keys: the reference's einsum path (matmul in the input dtype, softmax in
     fp32, probabilities cast back).  Otherwise CPU: the plain version; CUDA:
-    the kernel of csrc/flash_split.cu (bf16, D a multiple of 64 up to 512,
-    any Sq and Sk)."""
+    the kernel of csrc/flash_hopper.cu at D = 64 and of csrc/flash_split.cu
+    from 128 up (bf16, D a multiple of 64 up to 512, any Sq and Sk)."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape or \
             q.shape[0] != k.shape[0] or q.shape[2:] != k.shape[2:]:
         raise ValueError(f"flash_attention_split: q {tuple(q.shape)}, k "
@@ -288,10 +333,13 @@ def flash_attention_split(q: torch.Tensor, k: torch.Tensor,
         lib.call("gswm_flash_split", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  out.data_ptr(), b, sq, sk, h, d, native.stream_handle(q.device))
     flash_attention_split.launches += 1
+    flash_attention_split.launches_d64 += d == 64
     return out
 
 
 flash_attention_split.launches = 0
+# of those, the launches at D = 64, which csrc/flash_hopper.cu runs
+flash_attention_split.launches_d64 = 0
 
 
 def flash_attention_packed_reference(qkv: torch.Tensor) -> torch.Tensor:
@@ -311,9 +359,9 @@ def flash_attention_packed(qkv: torch.Tensor) -> torch.Tensor:
     head_dim 64, whose lane layout is two d = 64 heads per 128 columns (odd
     head counts zero-pad the projection weights).
 
-    CPU: ``flash_attention_packed_reference``.  CUDA: the split kernel of
-    csrc/flash_split.cu reading q, k and v as strided (B, S, 2P, 64) views of
-    the one array (bf16, any S)."""
+    CPU: ``flash_attention_packed_reference``.  CUDA: the kernel of
+    csrc/flash_hopper.cu reading q, k and v as strided (B, S, 2P, 64) views
+    of the one array (bf16, any S)."""
     if qkv.dim() != 3 or qkv.shape[-1] % (3 * 128):
         raise ValueError(f"flash_attention_packed: qkv {tuple(qkv.shape)} is not "
                          "(B, S, 3 * P * 128)")

@@ -1,0 +1,67 @@
+"""The least time one NVIDIA H100 (SXM) could take for a kernel's work.
+
+A kernel's bound is the larger of two times: the bytes the function must
+move (each input read once, each output written once, whatever the kernel
+reads again) over the card's memory rate, and the operations it does over
+the card's peak rate for their type.  Counts come from shapes alone, so
+they can be checked by hand; times on the card are measured elsewhere
+(``chip_smoke.py``, ``gswm_torch/tools``) and divided by these.
+
+Peaks are NVIDIA's published dense rates at the full 700 W power limit.
+"""
+
+from __future__ import annotations
+
+import math
+
+PEAK_BYTES = 3.35e12      # HBM3, bytes/s
+PEAK_BF16 = 989e12        # tensor cores, bf16 in, fp32 accumulate, FLOP/s
+PEAK_FP32 = 67e12         # outside the tensor cores, FLOP/s (an FMA is 2)
+# 32-bit integer adds, xors and rotates issue at most as fast as fp32
+# instructions (half the FLOP rate, since an FMA counts twice)
+PEAK_INT32 = PEAK_FP32 / 2
+BF16 = 2                  # bytes
+
+
+def bound_ms(ops: float, nbytes: float, peak_ops: float) -> tuple[float, str]:
+    """(least milliseconds, which roof gives it: "operations" or "bytes")."""
+    t_ops = ops / peak_ops
+    t_bytes = nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def attention_cost(b: int, sq: int, sk: int, h: int, d: int) -> tuple[int, int]:
+    """(FLOP, bytes) of softmax(q k^T) v on bf16 (B, Sq, H, D) q and
+    (B, Sk, H, D) k/v: two products of 2 * Sq * Sk * D each per head, q and
+    out of Sq rows, k and v of Sk."""
+    return 4 * b * h * sq * sk * d, BF16 * b * h * d * (2 * sq + 2 * sk)
+
+
+def projection_cost(m: int, c: int, n: int) -> tuple[int, int]:
+    """(FLOP, bytes) of the three bf16 projections q, k, v (M, N) = x (M, C)
+    @ w (N, C)^T."""
+    return 2 * m * c * 3 * n, BF16 * (m * c + 3 * n * c + 3 * m * n)
+
+
+def fused_qkv_cost(b: int, s: int, c: int, h: int, d: int = 64) -> tuple[int, int]:
+    """(FLOP, bytes) of fused-qkv self-attention: projections plus
+    attention; x and the weights are read, only the output is written (q, k
+    and v are no output of the function)."""
+    n = h * d
+    proj, _ = projection_cost(b * s, c, n)
+    attn, _ = attention_cost(b, s, s, h, d)
+    return proj + attn, BF16 * (b * s * c + 3 * n * c + b * s * n)
+
+
+def group_norm_cost(shape: tuple[int, ...]) -> tuple[int, int]:
+    """(FLOP, bytes) of GroupNorm (+ SiLU) on a bf16 NCHW tensor: one read
+    and one write, and some 8 fp32 operations an element (two moments,
+    normalise, affine, activation)."""
+    n = math.prod(shape)
+    return 8 * n, 2 * BF16 * n
+
+
+def chacha_cost(n_blocks: int) -> tuple[int, int]:
+    """(32-bit integer operations, bytes) of ``n_blocks`` ChaCha20 blocks:
+    80 quarter-rounds of 12 operations plus 16 final adds, 64 bytes out."""
+    return n_blocks * (80 * 12 + 16), 64 * n_blocks

@@ -1,0 +1,115 @@
+"""The paths and kernel shapes that ``chip_smoke.py`` drives and that the
+measurement scripts here time and profile: one definition, so a profile is
+of the smoke's chain and a kernel comparison is at the smoke's shapes.
+
+Two paths, random weights from a seed, bf16, on one card:
+
+  * sd-2-1-base at 512x512, batch 4: the extraction chain (embed + VAE
+    encode + 30-step inversion + decode) on random images;
+  * sd-2-1 (v-prediction) at 768x768, batch 2: the watermark chain (embed ->
+    seeded prompt ids -> 30-step DDIM at guidance 7.5 -> VAE decode, then
+    ``pipe.extract_bits``: VAE encode -> 30-step inversion -> decode).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+KEY_HEX = "22" * 32
+NONCE_HEX = "33" * 16
+STEPS = 30
+BATCH_512, RES_512 = 4, 512
+BATCH_768, RES_768 = 2, 768
+# seeds of the random weights
+PIPELINE_SEEDS = {"sd-2-1-base": 0, "sd-2-1": 1}
+
+# Kernel shapes of the two paths.  Batch 4 is the UNet's under guidance and
+# in the 512x512 path, batch 2 without.
+# K1 (B, S, C, H): UNet levels 1 and 2 at 512x512 (1024, 256 tokens) and
+# 768x768 (2304, 576 tokens)
+K1_SHAPES = ((2, 1024, 640, 10), (2, 256, 1280, 20),
+             (4, 2304, 640, 10), (4, 576, 1280, 20))
+# K2 (B, S, H): UNet level 0 at 512x512 (4096 tokens) and 768x768 (9216)
+K2_SHAPES = ((2, 4096, 5), (2, 9216, 5), (4, 9216, 5))
+# K4 (B, S, H, D): the VAE mid attention at 768x768 (one head, D = 512, 9216
+# tokens; the decoder takes one image a call, the encoder two), and a ragged
+# multi-head D = 64 shape
+K4_SHAPES = ((1, 9216, 1, 512), (2, 9216, 1, 512), (2, 1000, 10, 64))
+# K6 and K7 (B, S, H): UNet level 0 under their switches, at 768x768 (batch
+# 2, and 4 under guidance) and 512x512, and a ragged shape
+LEVEL0_SHAPES = ((2, 9216, 5), (4, 9216, 5), (2, 4096, 5), (1, 1000, 3))
+
+
+def pairs_of(heads: int) -> int:
+    """Head pairs of the pair-packed layout: the last half pair of an odd
+    head count is a zero pad head."""
+    return -(-heads // 2)
+
+
+def config(res: int, message: str):
+    from gswm_torch import GSConfig
+
+    return GSConfig(key_hex=KEY_HEX, nonce_hex=NONCE_HEX, message=message,
+                    width=res, height=res, message_bits=256)
+
+
+def build_pipeline(preset: str, dev="cuda"):
+    from gswm_torch.pipelines import InversablePipeline
+
+    return InversablePipeline(
+        preset, device=dev, dtype=torch.bfloat16,
+        generator=torch.Generator(device=dev).manual_seed(PIPELINE_SEEDS[preset]))
+
+
+def embed(cfg, batch: int, seed: int, dev="cuda"):
+    """(watermarked z_T, message bytes) from a seeded generator."""
+    from gswm_torch import embed_latents
+
+    return embed_latents(cfg, generator=torch.Generator(device=dev).manual_seed(seed),
+                         batch=batch, device=dev)
+
+
+def prompt_ids(pipe, batch: int, seed: int = 2024) -> np.ndarray:
+    """Seeded (B, 77) token ids: a prompt of random words."""
+    return np.random.default_rng(seed).integers(
+        0, pipe.preset.text.vocab_size - 2, (batch, pipe.preset.text.max_length))
+
+
+def unet_inputs(pipe, batch: int, dev="cuda"):
+    """Seeded latents (B, 4, 96, 96), timestep 500 and a seeded prompt's
+    context: one UNet input at 768x768."""
+    g = torch.Generator(device=dev).manual_seed(77)
+    lat = torch.randn((batch, 4, RES_768 // 8, RES_768 // 8), generator=g, device=dev)
+    return (lat, torch.full((batch,), 500, device=dev),
+            pipe.encode_prompt_ids(prompt_ids(pipe, batch, seed=7)))
+
+
+def generate_768(pipe, cfg, ids, seed: int):
+    """First half of the watermark chain: embed, then guided generation and
+    VAE decode.  Returns (images, message bytes)."""
+    zt, msg = embed(cfg, BATCH_768, seed)
+    images = pipe.generate(zt, prompt_ids=ids, guidance_scale=7.5, num_steps=STEPS)
+    return images, msg
+
+
+def chain_768(pipe, cfg, ids, seed: int):
+    """The whole watermark chain.  Returns (images, message bytes, bits, z_T)."""
+    images, msg = generate_768(pipe, cfg, ids, seed)
+    bits, z_t = pipe.extract_bits(cfg, images=images, num_steps=STEPS)
+    return images, msg, bits, z_t
+
+
+def random_images_512(dev="cuda") -> torch.Tensor:
+    return torch.rand((BATCH_512, 3, RES_512, RES_512),
+                      generator=torch.Generator(device=dev).manual_seed(99), device=dev)
+
+
+def extraction_chain_512(pipe, cfg, images, seed: int):
+    """Embed + VAE encode + 30-step inversion + decode.  Returns (bits,
+    recovered z_T, embedded z_T)."""
+    from gswm_torch import recover_message_bits
+
+    zt, _ = embed(cfg, BATCH_512, seed)
+    z = pipe.invert(latents=pipe.image_to_latents(images), num_steps=STEPS)
+    return recover_message_bits(z, cfg), z, zt

@@ -1,0 +1,142 @@
+"""Where the device time of the port's paths goes, from ``torch.profiler``.
+
+    python -m gswm_torch.tools.profile_paths [--out FILE.json] [--top 25]
+
+On one card, random weights from a seed, bf16:
+
+  * sd-2-1 at 768x768, batch 2: one UNet forward (device time, and the
+    share and launches of each kernel), then the watermark chain of
+    ``chip_smoke.py`` phase 4c (embed -> prompt ids -> 30-step DDIM at
+    guidance 7.5 -> VAE decode -> VAE encode -> 30-step inversion -> decode)
+    once unprofiled for its wall time and once under the profiler;
+  * sd-2-1-base at 512x512, batch 4: the extraction chain of phase 3b
+    (embed + VAE encode + 30-step inversion + decode), likewise.
+Both chains, their inputs and seeds are ``gswm_torch/tools/paths.py``'s, as
+``chip_smoke.py``'s are.
+
+For each profiled run: wall time, device-busy time (the sum of kernel and
+copy durations: the port runs one stream), the idle share 1 - busy / wall
+(inflated by the profiler's own host cost; the unprofiled wall stands
+beside it), and the kernels by device time.  Prints lines and, last, one
+JSON object; ``--out`` also writes it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+from gswm_torch.tools import paths
+
+
+def profiled(fn, top: int) -> dict:
+    """Run ``fn`` under the profiler; wall, busy, idle share, top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
+    busy = sum(ms for _, ms, _ in rows)
+    if busy <= 0:
+        raise RuntimeError("the profiler saw no device time")
+    rows.sort(key=lambda r: -r[1])
+    return dict(wall_s=wall, busy_s=busy / 1e3, idle_share=1 - busy / 1e3 / wall,
+                kernels=[dict(name=k[:120], ms=ms, share=ms / busy, launches=n)
+                         for k, ms, n in rows[:top]])
+
+
+def report(title: str, res: dict) -> None:
+    print(f"{title}: wall {res['wall_s']:.4f} s, device busy {res['busy_s']:.4f} s, "
+          f"idle share {res['idle_share']:.4f}", flush=True)
+    for k in res["kernels"]:
+        print(f"  {k['share'] * 100:6.2f}%  {k['ms']:10.3f} ms  x{k['launches']:<6d} "
+              f"{k['name']}", flush=True)
+
+
+def wall_of(fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", type=Path)
+    ap.add_argument("--top", type=int, default=25)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_paths: no CUDA device")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(card, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    result = {"card": card}
+
+    # ---- sd-2-1, 768x768, batch 2
+    pipe = paths.build_pipeline("sd-2-1")
+    cfg = paths.config(paths.RES_768, "gswm_torch 768")
+    ids = paths.prompt_ids(pipe, paths.BATCH_768)
+    unet_in = paths.unet_inputs(pipe, paths.BATCH_768)
+
+    def forward():
+        with torch.inference_mode():
+            for _ in range(3):
+                pipe.unet(*unet_in)
+
+    def chain_768(seed=21):
+        paths.chain_768(pipe, cfg, ids, seed)
+
+    forward()
+    res_f = profiled(forward, args.top)
+    res_f["forwards"] = 3
+    report("768x768 UNet forward x3, batch 2", res_f)
+    print(f"  device time per forward {res_f['busy_s'] / 3 * 1e3:.3f} ms", flush=True)
+    result["unet_forward_768"] = res_f
+    chain_768(20)
+    result["chain_768_wall_s"] = wall_of(chain_768)
+    print(f"768x768 chain, batch 2, unprofiled: wall {result['chain_768_wall_s']:.4f} s",
+          flush=True)
+    result["chain_768"] = profiled(chain_768, args.top)
+    report("768x768 chain, batch 2, profiled", result["chain_768"])
+    del pipe
+    torch.cuda.empty_cache()
+
+    # ---- sd-2-1-base, 512x512, batch 4
+    pipe = paths.build_pipeline("sd-2-1-base")
+    cfg = paths.config(paths.RES_512, "gswm_torch")
+    images = paths.random_images_512()
+
+    def chain_512(seed=2):
+        paths.extraction_chain_512(pipe, cfg, images, seed)
+
+    chain_512(1)
+    result["chain_512_wall_s"] = [wall_of(chain_512) for _ in range(3)]
+    print(f"512x512 extraction chain, batch 4, unprofiled: wall "
+          f"{result['chain_512_wall_s']} s", flush=True)
+    result["chain_512"] = profiled(chain_512, args.top)
+    report("512x512 extraction chain, batch 4, profiled", result["chain_512"])
+    print(json.dumps(result))
+    if args.out:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps(result, indent=1))
+
+
+if __name__ == "__main__":
+    main()
+    sys.exit(0)

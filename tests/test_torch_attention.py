@@ -199,3 +199,28 @@ def test_split_rejects_mismatched_shapes():
     t = torch.empty((1, 600, 1, 64), device="meta")
     with pytest.raises(ValueError):
         attn.flash_attention_split(t, t, t)  # neither CPU nor CUDA
+
+
+@pytest.mark.parametrize("b,s,c,h", [(1, 300, 128, 2), (2, 77, 64, 3)])
+def test_qkv_projection_then_flash_matches_jax_fused_kernel(b, s, c, h):
+    """K1 is its projection GEMM followed by the D = 64 flash kernel: the
+    two wrappers' plain versions, chained, give the Pallas fused-qkv
+    kernel's output (interpret mode), and the projection alone gives
+    x @ w as jax computes it."""
+    d = 64
+    x = _rand((b, s, c), 10)
+    wq, wk, wv = (_rand((c, h * d), i, 0.1) for i in (11, 12, 13))
+    before = attn.qkv_projection.launches
+    q, k, v = attn.qkv_projection(
+        torch.from_numpy(x), *(torch.from_numpy(w.T.copy()) for w in (wq, wk, wv)))
+    assert attn.qkv_projection.launches == before  # CPU: plain version
+    for got, w in zip((q, k, v), (wq, wk, wv)):
+        assert tuple(got.shape) == (b, s, h * d)
+        np.testing.assert_allclose(
+            got.numpy(), np.asarray(jnp.einsum("bsc,cn->bsn", jnp.asarray(x),
+                                               jnp.asarray(w))), atol=2e-5)
+    want = np.asarray(flash_attention_fused_qkv(
+        jnp.asarray(x), jnp.asarray(wq), jnp.asarray(wk), jnp.asarray(wv), h, d,
+        interpret=True))
+    np.testing.assert_allclose(attn.flash_attention(q, k, v, h).numpy(), want,
+                               atol=2e-5)

@@ -1,0 +1,110 @@
+"""The work counts behind every kernel's ``bound_ms`` (gswm_torch/roofline.py)
+against values worked out by hand, and the rule that the port calls no
+library attention: its kernels are its own."""
+
+import re
+from pathlib import Path
+
+import pytest
+
+from gswm_torch import roofline
+
+PORT = Path(__file__).resolve().parents[1] / "gswm_torch"
+
+
+@pytest.mark.parametrize("shape,gflop", [
+    ((2, 4096, 4096, 5, 64), 42.9),      # K2, UNet level 0 at 512x512
+    ((2, 9216, 9216, 5, 64), 217.4),     # K2 at 768x768
+    ((4, 9216, 9216, 5, 64), 434.9),     # K2 under guidance
+    ((2, 9216, 9216, 1, 512), 347.9),    # K4, the VAE mid attention
+    ((2, 65, 577, 3, 64), 0.0576),       # Sq != Sk
+])
+def test_attention_flops_match_hand_values(shape, gflop):
+    flops, _ = roofline.attention_cost(*shape)
+    assert flops / 1e9 == pytest.approx(gflop, rel=2e-3)
+
+
+def test_attention_bytes_read_inputs_once_and_write_the_output_once():
+    b, sq, sk, h, d = 2, 300, 1000, 3, 64
+    _, nbytes = roofline.attention_cost(b, sq, sk, h, d)
+    q = out = b * sq * h * d * 2
+    k = v = b * sk * h * d * 2
+    assert nbytes == q + k + v + out
+    # (2, 9216, 5, 64): four (2, 9216, 320) bf16 arrays
+    assert roofline.attention_cost(2, 9216, 9216, 5, 64)[1] == 4 * 2 * 9216 * 320 * 2
+
+
+@pytest.mark.parametrize("b,s,c,h,gflop", [
+    (4, 2304, 640, 10, 22.6), (2, 2304, 640, 10, 11.3),
+    (2, 1024, 640, 10, 5.03), (2, 256, 1280, 20, 5.03)])
+def test_projection_flops_match_hand_values(b, s, c, h, gflop):
+    flops, nbytes = roofline.projection_cost(b * s, c, h * 64)
+    assert flops / 1e9 == pytest.approx(gflop, rel=3e-3)
+    m, n = b * s, h * 64
+    assert nbytes == 2 * (m * c + 3 * n * c + 3 * m * n)
+
+
+def test_fused_qkv_cost_is_projection_plus_attention_without_qkv_traffic():
+    b, s, c, h = 4, 2304, 640, 10
+    flops, nbytes = roofline.fused_qkv_cost(b, s, c, h)
+    assert flops == roofline.projection_cost(b * s, c, h * 64)[0] + \
+        roofline.attention_cost(b, s, s, h, 64)[0]
+    assert nbytes == 2 * (b * s * c + 3 * h * 64 * c + b * s * h * 64)
+
+
+@pytest.mark.parametrize("shape,ms", [
+    ((2, 4096, 4096, 5, 64), 0.0434), ((2, 9216, 9216, 5, 64), 0.2198),
+    ((4, 9216, 9216, 5, 64), 0.4397), ((2, 9216, 9216, 1, 512), 0.352)])
+def test_attention_bound_is_the_tensor_core_time(shape, ms):
+    bound, by = roofline.bound_ms(*roofline.attention_cost(*shape), roofline.PEAK_BF16)
+    assert by == "operations"
+    assert bound == pytest.approx(ms, rel=2e-3)
+
+
+def test_bound_takes_the_larger_roof():
+    # 1 GFLOP over 1 GB: 1e9 / 989e12 s against 1e9 / 3.35e12 s
+    bound, by = roofline.bound_ms(1e9, 1e9, roofline.PEAK_BF16)
+    assert by == "bytes" and bound == pytest.approx(1e3 * 1e9 / 3.35e12)
+    bound, by = roofline.bound_ms(1e12, 1e6, roofline.PEAK_BF16)
+    assert by == "operations" and bound == pytest.approx(1e3 * 1e12 / 989e12)
+
+
+def test_group_norm_and_chacha_bounds():
+    # the largest GroupNorm of the 768x768 path: one read and one write of
+    # 75.5 M bf16 values, bound by bytes
+    shape = (1, 128, 768, 768)
+    ops, nbytes = roofline.group_norm_cost(shape)
+    assert nbytes == 2 * 2 * 128 * 768 * 768
+    bound, by = roofline.bound_ms(ops, nbytes, roofline.PEAK_FP32)
+    assert by == "bytes" and bound == pytest.approx(0.0901, rel=2e-3)
+    # 2^20 ChaCha20 blocks: 976 integer operations and 64 bytes a block
+    ops, nbytes = roofline.chacha_cost(2**20)
+    assert (ops, nbytes) == (2**20 * 976, 2**26)
+    assert roofline.bound_ms(ops, nbytes, roofline.PEAK_INT32)[1] == "operations"
+
+
+@pytest.mark.parametrize("pattern", [
+    r"scaled_dot_product_attention", r"torch\.compile", r"cudnn[\w.]*attention",
+    r"sdpa_kernel", r"flash_attn"])
+def test_port_calls_no_library_attention(pattern):
+    """Every attention on the port's path is a kernel of gswm_torch/csrc or
+    its plain matmul + softmax version; a library's fused attention or a
+    compiled plain version is neither."""
+    hits = [f"{path.relative_to(PORT)}:{n}"
+            for path in sorted(PORT.rglob("*")) if path.suffix in (".py", ".cu", ".cuh")
+            for n, line in enumerate(path.read_text().splitlines(), 1)
+            if re.search(pattern, line, re.IGNORECASE)]
+    assert not hits, hits
+
+
+def test_one_head_dim_64_flash_kernel_and_no_switch_picks_another():
+    """flash_split.cu no longer instantiates D = 64: the split, natural and
+    packed layouts all reach flash_hopper.cu's launcher."""
+    split = (PORT / "csrc" / "flash_split.cu").read_text()
+    assert "launch<64>" not in split
+    assert "case 64:\n      return gswm_launch_flash_hopper(" in split
+    hopper = (PORT / "csrc" / "flash_hopper.cu").read_text()
+    assert "wgmma_m64n128k16_ss" in hopper and "tma_load_4d" in hopper
+    assert hopper.count('extern "C"') == 1 and "gswm_flash_packed" in hopper
+    for src in (PORT / "csrc").glob("*.cu*"):
+        assert "getenv" not in src.read_text(), src.name

@@ -53,8 +53,8 @@ def test_keystream_kernel_bit_exact(cuda, n_blocks, counter0):
 
 
 @pytest.mark.parametrize("b,s,h", [(1, 1, 1), (1, 65, 1), (2, 300, 2),
-                                   (1, 2305, 3), (2, 4096, 5), (2, 9216, 5),
-                                   (4, 9216, 5)])
+                                   (2, 256, 20), (1, 2305, 3), (2, 4096, 5),
+                                   (2, 9216, 5), (4, 9216, 5)])
 def test_flash_kernel_matches_plain(cuda, b, s, h):
     g = torch.Generator(device=cuda).manual_seed(s)
     q, k, v = (torch.randn((b, s, h * 64), generator=g, device=cuda).bfloat16()
@@ -98,6 +98,88 @@ def test_split_kernel_matches_plain(cuda, sq, sk, h, d):
     assert attn.flash_attention_split.launches == before + 1
     want = attn.flash_attention_split_reference(q.float(), k.float(), v.float())
     assert_attention_close(got, want)
+
+
+def test_flash_kernel_tiles_do_not_cross_the_batch(cuda):
+    """1000 tokens are not a multiple of the 128-key tile or the 64-row
+    query tile, so the last tile of batch 0 reaches past its end.  With
+    batch 1's k and v 100x batch 0's, a tile that read on into batch 1 would
+    move batch 0's output by O(1) of its own scale."""
+    b, s, h = 2, 1000, 3
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v = (torch.randn((b, s, h * 64), generator=g, device=cuda) for _ in range(3))
+    k[1] *= 100
+    v[1] *= 100
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    got = attn.flash_attention(q, k, v, h).float()
+    want = attn.flash_attention_reference(q.float(), k.float(), v.float(), h)
+    assert_attention_close(got[0], want[0])  # batch 0 on its own scale (|out| < 1)
+    err = (got[1] - want[1]).abs().max().item()
+    assert err <= REL_BOUND * want[1].abs().max().item()
+
+
+@pytest.mark.parametrize("sq,sk,h", [(130, 577, 5), (1, 577, 1), (64, 577, 2)])
+def test_flash_kernel_masks_ragged_keys_at_head_dim_64(cuda, sq, sk, h):
+    """Sq != Sk at D = 64: 577 keys leave 65 real keys in the last 128-key
+    tile; the rows TMA zero-fills past Sk must be masked, not attended to
+    with logit 0.  v = 1 everywhere makes every output exactly 1 whatever the
+    weights, unless zero-filled keys took some."""
+    g = torch.Generator(device=cuda).manual_seed(sq + sk)
+    q = torch.randn((2, sq, h, 64), generator=g, device=cuda).bfloat16()
+    k = torch.randn((2, sk, h, 64), generator=g, device=cuda).bfloat16()
+    v = torch.randn((2, sk, h, 64), generator=g, device=cuda).bfloat16()
+    got = attn.flash_attention_split(q, k, v)
+    want = attn.flash_attention_split_reference(q.float(), k.float(), v.float())
+    assert_attention_close(got, want)
+    ones = attn.flash_attention_split(q, k, torch.ones_like(v)).float()
+    torch.testing.assert_close(ones, torch.ones_like(ones), rtol=0, atol=2**-7)
+
+
+@pytest.mark.parametrize("b,s,h", [
+    (2, 256, 20), (1, 1, 1), (1, 65, 1), (1, 8320, 2),
+    (2, 8448, 1), (4, 256, 20), (2, 1024, 10),
+    # as many 128-row blocks as the card has SMs, and one fewer: the two
+    # sides of the launcher's choice on whatever card this is
+    (1, "sms", 1), (1, "sms - 1", 1)])
+def test_flash_kernel_block_variants(cuda, b, s, h):
+    """The launcher takes 128-row blocks unless fewer of them than the card
+    has SMs would leave some idle, then 64-row blocks: shapes on both sides
+    of that choice (on an H100's 132 SMs the first four take 64-row blocks,
+    the next three 128-row ones), each against the plain version."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    if isinstance(s, str):
+        s = 128 * (sms if s == "sms" else sms - 1)
+    g = torch.Generator(device=cuda).manual_seed(b * s + h)
+    q, k, v = (torch.randn((b, s, h * 64), generator=g, device=cuda).bfloat16()
+               for _ in range(3))
+    got = attn.flash_attention(q, k, v, h)
+    want = attn.flash_attention_reference(q.float(), k.float(), v.float(), h)
+    assert_attention_close(got, want)
+
+
+@pytest.mark.parametrize("b,s,c,n", [(1, 300, 128, 128), (3, 100, 640, 640),
+                                     (1, 1, 64, 64), (2, 1024, 640, 640),
+                                     (1, 77, 1280, 320), (4, 576, 1280, 1280)])
+def test_projection_gemm_matches_plain(cuda, b, s, c, n):
+    """K1's projection GEMM alone against x @ W^T in fp32: ragged M (B * S =
+    300 is not a multiple of the 128-row tile), N below and off the 128-column
+    tile, and the UNet's shapes.  Outputs are ~N(0, 1): one bf16 rounding
+    below 8 is at most 2^-6; the rest is fp32 accumulation order."""
+    g = torch.Generator(device=cuda).manual_seed(s + c + n)
+    x = torch.randn((b, s, c), generator=g, device=cuda).bfloat16()
+    ws = [(torch.randn((n, c), generator=g, device=cuda) * c**-0.5).bfloat16()
+          for _ in range(3)]
+    before = attn.qkv_projection.launches
+    got = attn.qkv_projection(x, *ws)
+    assert attn.qkv_projection.launches == before + 1
+    for y, w in zip(got, ws):
+        want = x.float() @ w.float().t()
+        assert y.shape == want.shape and y.dtype == torch.bfloat16
+        err = (y.float() - want).abs().max().item()
+        assert err <= BOUND and err <= 0.01 * max(want.abs().max().item(), 1.0)
+    plain = attn.qkv_projection_reference(x, *ws)
+    for y, w in zip(got, plain):  # two bf16 roundings of nearly equal fp32 sums
+        torch.testing.assert_close(y.float(), w.float(), rtol=0, atol=2**-5)
 
 
 def test_split_kernel_takes_different_query_and_key_lengths(cuda):
