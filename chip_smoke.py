@@ -22,7 +22,9 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
                 also alone,
                 against x @ W^T in fp32.  The JSON line's ms, plain_ms,
                 bound_ms and library_ms sum a kernel's shapes; its
-                max_abs_err is their maximum.  K8
+                max_abs_err is their maximum.  K4 (csrc/flash_split.cu)
+                also at D = 128 and 192 beside the VAE's 512, K7 also at an
+                S % 8 != 0 shape, which its masked kernel serves.  K8
                 (fused GroupNorm) at every distinct (shape, eps, act) of the
                 768x768 path's GroupNorms, collected by forward hooks during
                 one UNet forward at batch 2 and at 4, one VAE decode of one
@@ -67,7 +69,6 @@ from __future__ import annotations
 
 import contextlib
 import json
-import os
 import subprocess
 import sys
 import time
@@ -108,18 +109,15 @@ GN_REL_BOUND = 0.01
 # 16 transformer blocks carry through; a wrong head or layout moves the
 # output by O(1)
 TIER_REL_BOUND = 0.05
-# (label, switches, attention launches per UNet forward at 768x768; every
-# other attention counter must stay 0)
-TIER_SETS = (
-    ("a", {"GSWM_XF_ATTN": "0"}, {"flash_attention": 5, "fused_qkv_attention": 10}),
-    ("b", {"GSWM_XF_ATTN": "0", "GSWM_CRES_ATTN": "0", "GSWM_PACKED_ATTN": "1"},
-     {"flash_attention_packed": 5, "fused_qkv_attention": 10}),
-    ("c", {"GSWM_XF_ATTN": "0", "GSWM_CRES_ATTN": "0", "GSWM_TRANSPOSED_ATTN": "1"},
-     {"flash_attention_transposed": 5, "fused_qkv_attention": 10}),
-    ("d", {"GSWM_FUSED_QKV_MODE": "seqhead"},
-     {"flash_attention": 5, "fused_qkv_attention": 10}),
-    ("e", {"GSWM_FUSED_QKV": "0"}, {"flash_attention": 5, "flash_attention_split": 5}),
-)
+# attention launches per UNet forward at 768x768 under each switch set of
+# paths.TIER_SWITCHES; every other attention counter must stay 0
+TIER_LAUNCHES = {
+    "a": {"flash_attention": 5, "fused_qkv_attention": 10},
+    "b": {"flash_attention_packed": 5, "fused_qkv_attention": 10},
+    "c": {"flash_attention_transposed": 5, "fused_qkv_attention": 10},
+    "d": {"flash_attention": 5, "fused_qkv_attention": 10},
+    "e": {"flash_attention": 5, "flash_attention_split": 5},
+}
 ATTENTION_COUNTERS = ("fused_qkv_attention", "flash_attention", "flash_attention_split",
                       "flash_attention_packed", "flash_attention_transposed")
 # gswm/pipelines/inversable.py:330-348: VAE calls take vae_chunk images at
@@ -319,7 +317,8 @@ def phase_kernels(gn_cases) -> dict:
                       lambda sdpa, q=q, k=k, v=v, b=b, s=s, h=h: sdpa(
                           *(_heads_view(t, b, s, h) for t in (q, k, v))),
                       roofline.attention_cost(b, s, s, h, 64), 10))
-    # K4: the split wrapper runs csrc/flash_split.cu from D = 128 up and
+    # K4: the split wrapper runs csrc/flash_split.cu from D = 128 up (512 in
+    # the VAE; 128 and 192, an odd panel count, beside it) and
     # csrc/flash_hopper.cu at D = 64: a record for each
     for b, s, h, d in paths.K4_SHAPES:
         q, k, v = (rand(b, s, h, d) for _ in range(3))
@@ -350,6 +349,9 @@ def phase_kernels(gn_cases) -> dict:
                           *(t.unflatten(-1, (2 * pairs, 64)).transpose(1, 2)
                             for t in qkv.split(pairs * 128, dim=-1))),
                       roofline.attention_cost(b, s, s, h, 64), 10))
+    # K7's last shape (S % 8 != 0) takes its masked kernel, the rest the
+    # wgmma + TMA one
+    for b, s, h in paths.K7_SHAPES:
         qkv_t = rand(3 * h * 64, b, s)
         cases.append((f"K7 flash_transposed (B={b}, S={s}, H={h})",
                       "flash_attention_transposed",
@@ -655,21 +657,6 @@ def phase_generation_768(card: str, pipe) -> dict:
     return counts
 
 
-@contextlib.contextmanager
-def _switches(switches: dict):
-    """The route switches set to ``switches`` alone; restored afterwards."""
-    from gswm_torch.ops.attention import ROUTE_SWITCHES
-
-    saved = {name: os.environ.pop(name) for name in ROUTE_SWITCHES if name in os.environ}
-    os.environ.update(switches)
-    try:
-        yield
-    finally:
-        for name in ROUTE_SWITCHES:
-            os.environ.pop(name, None)
-        os.environ.update(saved)
-
-
 def phase_tiers(card: str, pipe) -> dict:
     from gswm_torch import recover_message_bits
 
@@ -682,15 +669,16 @@ def phase_tiers(card: str, pipe) -> dict:
         with torch.inference_mode():
             return pipe.unet(*inputs)
 
-    with _switches({}):
+    with paths.route_switches({}):
         default = forward()
         default_ms = _time_ms(forward, 10)
     top = default.abs().max().item()
     print(f"5. default route: UNet forward {default_ms:.4f} ms at batch {b}, "
           f"max|out| {top:.4f}; on {card}", flush=True)
     total = {name: 0 for name in _counters()}
-    for label, switches, per_forward in TIER_SETS:
-        with _switches(switches):
+    for label, switches in paths.TIER_SWITCHES.items():
+        per_forward = TIER_LAUNCHES[label]
+        with paths.route_switches(switches):
             _reset_counters()
             out = forward()
             torch.cuda.synchronize()

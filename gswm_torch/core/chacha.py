@@ -59,7 +59,7 @@ def _quarter_round(x: list, a: int, b: int, c: int, d: int) -> None:
 
 
 def keystream_words_reference(key: bytes, nonce16: bytes, n_blocks: int,
-                              device="cpu") -> torch.Tensor:
+                              device="cuda") -> torch.Tensor:
     """Plain version: (n_blocks, 16) int32 words (the uint32 bit pattern)."""
     key_words, counter0, nonce_words = key_nonce_to_words(key, nonce16)
     idx = torch.arange(n_blocks, dtype=torch.int64, device=device)
@@ -89,7 +89,7 @@ def keystream_words_reference(key: bytes, nonce16: bytes, n_blocks: int,
 
 
 def keystream_words(key: bytes, nonce16: bytes, n_blocks: int,
-                    device="cpu") -> torch.Tensor:
+                    device="cuda") -> torch.Tensor:
     """Keystream as (n_blocks, 16) int32 words on ``device`` (bit pattern of
     the uint32 words).  CPU: the plain version.  CUDA: the kernel."""
     device = torch.device(device)
@@ -130,7 +130,7 @@ def words_to_bits(words: torch.Tensor) -> torch.Tensor:
 
 
 def keystream_bits(key: bytes, nonce16: bytes, n_bits: int,
-                   device="cpu") -> torch.Tensor:
+                   device="cuda") -> torch.Tensor:
     """First ``n_bits`` keystream bits, stream order, on ``device``."""
     n_blocks = -(-n_bits // BLOCK_BITS)
     return words_to_bits(keystream_words(key, nonce16, n_blocks, device))[:n_bits]

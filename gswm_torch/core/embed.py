@@ -41,7 +41,7 @@ def _bits_to_latent(cipher_bits: torch.Tensor, u: torch.Tensor, l: int,
 
 
 def encrypted_payload_bits(cfg: GSConfig, message_bytes: bytes,
-                           device="cpu") -> torch.Tensor:
+                           device="cuda") -> torch.Tensor:
     """Diffused payload XOR keystream: (capacity_bits,) uint8 on ``device``.
 
     Equivalent to ChaCha20-encrypting the tiled message byte-stream
@@ -63,12 +63,13 @@ def embed_latents(
     message_bytes: Optional[bytes] = None,
     u=None,
     replicate: Optional[bool] = None,
-    device="cpu",
+    device="cuda",
 ) -> tuple[torch.Tensor, bytes]:
     """Synthesize watermarked init noise Z_T.
 
     Returns ``(latents, message_bytes)`` with latents of shape
     (batch, channels, H/8, W/8), float32 on ``device``, marginally N(0,1).
+    ``device`` defaults to the card; the CPU is asked for by name.
 
     - ``generator``: torch.Generator (on ``device``) for the per-element
       uniforms.  Defaults to one seeded with ``cfg.seed``, or fresh entropy

@@ -93,32 +93,6 @@ struct Smem {
   uint64_t empty[STAGES];  // every consumer warp is done with the stage's k and v
 };
 
-static __device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Two fp32 -> one register of two bf16 (lo in the low half), and back.
-static __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&p);
-}
-
-static __device__ __forceinline__ float packed_sum(uint32_t p) {
-  return __uint_as_float(p << 16) + __uint_as_float(p & 0xffff0000u);
-}
-
-static __device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-static __device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
 // Grid (query blocks, H, B).  exp_scale = D^-0.5 * log2(e).
 template <int NWG>
 __global__ void __launch_bounds__((NWG + 1) * 128, NWG == 1 ? 2 : 1)
@@ -198,59 +172,12 @@ flash_hopper_kernel(const __grid_constant__ CUtensorMap map_q,
       wgmma_wait<0>();
       fence_regs(s);
 
-      if (t == tiles - 1 && (Sk & (BN - 1))) {
-        // zero-filled rows past Sk give logit 0, not -inf: mask them
-        const int valid = Sk - t * BN;
-#pragma unroll
-        for (int j = 0; j < BN / 8; ++j) {
-          const int c = j * 8 + 2 * t4;
-          if (c >= valid) s[4 * j] = s[4 * j + 2] = -INFINITY;
-          if (c + 1 >= valid) s[4 * j + 1] = s[4 * j + 3] = -INFINITY;
-        }
-      }
-
-      float mx_lo = -INFINITY, mx_hi = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        mx_lo = fmaxf(mx_lo, fmaxf(s[4 * j], s[4 * j + 1]));
-        mx_hi = fmaxf(mx_hi, fmaxf(s[4 * j + 2], s[4 * j + 3]));
-      }
-      // every tile holds at least one real key, so the new max is finite
-      const float n_lo = fmaxf(m_lo, quad_max(mx_lo));
-      const float n_hi = fmaxf(m_hi, quad_max(mx_hi));
-      const float a_lo = exp2_approx((m_lo - n_lo) * exp_scale);  // 0 on the first tile
-      const float a_hi = exp2_approx((m_hi - n_hi) * exp_scale);
-      m_lo = n_lo;
-      m_hi = n_hi;
-      const float off_lo = -n_lo * exp_scale;
-      const float off_hi = -n_hi * exp_scale;
-
-      // p rounded to bf16, in wgmma's A layout: 16 keys = two 8-column groups
+      // p rounded to bf16, in wgmma's A layout; keys past Sk masked
       uint32_t p[BN / 16][4];
-      float sum_lo = 0.0f, sum_hi = 0.0f;
-#pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk) {
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int j = 2 * kk + half;
-          p[kk][2 * half] = pack_bf16(exp2_approx(fmaf(s[4 * j], exp_scale, off_lo)),
-                                      exp2_approx(fmaf(s[4 * j + 1], exp_scale, off_lo)));
-          p[kk][2 * half + 1] =
-              pack_bf16(exp2_approx(fmaf(s[4 * j + 2], exp_scale, off_hi)),
-                        exp2_approx(fmaf(s[4 * j + 3], exp_scale, off_hi)));
-          sum_lo += packed_sum(p[kk][2 * half]);
-          sum_hi += packed_sum(p[kk][2 * half + 1]);
-        }
-      }
-      l_lo = l_lo * a_lo + sum_lo;
-      l_hi = l_hi * a_hi + sum_hi;
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        o[4 * j] *= a_lo;
-        o[4 * j + 1] *= a_lo;
-        o[4 * j + 2] *= a_hi;
-        o[4 * j + 3] *= a_hi;
-      }
+      float a_lo, a_hi;
+      softmax_tile<BN / 8>(s, p, m_lo, m_hi, l_lo, l_hi, a_lo, a_hi, Sk - t * BN, exp_scale,
+                           t4);
+      scale_rows(o, a_lo, a_hi);
 
       mbar_wait(&sm.full_v[stage], phase);
       const uint64_t dv = smem_desc_sw128(sm.v[stage]);
@@ -268,20 +195,9 @@ flash_hopper_kernel(const __grid_constant__ CUtensorMap map_q,
       }
     }
 
-    // normalise, round, and lay the tile out as TMA's 128-byte swizzle wants
-    // it: the 16-byte chunk c of row r sits at chunk c ^ (r % 8)
-    const float inv_lo = 1.0f / quad_sum(l_lo);
-    const float inv_hi = 1.0f / quad_sum(l_hi);
-    unsigned char* tile = reinterpret_cast<unsigned char*>(sm.q[cw]);
-    const int r_lo = warp * 16 + g;  // r_lo % 8 == (r_lo + 8) % 8 == g
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const int at = ((j ^ g) << 4) + t4 * 4;
-      *reinterpret_cast<uint32_t*>(tile + r_lo * ROW_BYTES + at) =
-          pack_bf16(o[4 * j] * inv_lo, o[4 * j + 1] * inv_lo);
-      *reinterpret_cast<uint32_t*>(tile + (r_lo + 8) * ROW_BYTES + at) =
-          pack_bf16(o[4 * j + 2] * inv_hi, o[4 * j + 3] * inv_hi);
-    }
+    // normalised and rounded, through the warpgroup's own q tile
+    bf16* tile = sm.q[cw];
+    store_tile_sw128(tile, o, 1.0f / quad_sum(l_lo), 1.0f / quad_sum(l_hi), warp, g, t4);
     fence_async_smem();
     named_barrier(1 + cw, 128);
     if ((threadIdx.x & 127) == 0) {
@@ -289,18 +205,6 @@ flash_hopper_kernel(const __grid_constant__ CUtensorMap map_q,
       tma_store_wait();
     }
   }
-}
-
-// A (64, H, S, B) map over head rows of 64 bf16: head h of row s of batch b
-// starts at base + (b * S + s) * pitch + h * 64 elements; boxes of `rows`
-// rows of one head.
-cudaError_t head_map(CUtensorMap* map, const bf16* base, int B, int S, int H, int pitch,
-                     int rows) {
-  const cuuint64_t dims[4] = {D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {D * sizeof(bf16), (cuuint64_t)pitch * sizeof(bf16),
-                                 (cuuint64_t)S * pitch * sizeof(bf16)};
-  const cuuint32_t box[4] = {D, 1, (cuuint32_t)rows, 1};
-  return encode_map(map, base, 4, dims, strides, box);
 }
 
 template <int NWG>

@@ -1,6 +1,6 @@
 // Split flash attention on (B, S, H, D) bf16 q/k/v, D a multiple of 64 up
-// to 512, any Sq and Sk.  D = 64 goes to the wgmma kernel of flash_hopper.cu;
-// the kernel in this file runs D = 128 ... 512.
+// to 512, any Sq and Sk.  D = 64 goes to the kernel of flash_hopper.cu; the
+// kernel in this file runs D = 128 ... 512 on wgmma, TMA and mbarriers.
 //
 // Replaces gswm/ops/attention.py:414 flash_attention -> _flash_bhsd (:250),
 // whose three Pallas tiers (_flash_kernel :212 head-resident,
@@ -10,7 +10,7 @@
 // D = C = 512 over 9216 tokens at 768x768, in the encoder and the decoder
 // (gswm/models/layers.py:692-725).  The JAX wrapper transposes to
 // (B*H, S, D) and pads to its blocks; here q/k/v are read strided in their
-// natural layout, ragged keys are masked and ragged query rows skipped.
+// natural layout, ragged keys are masked and ragged query rows dropped.
 //
 // Semantics: the `use_max` branch of the TPU kernels' recurrence
 // (_attend_kv_loop / _flash_kernel_streamk): q scaled by D^-0.5 in fp32 and
@@ -24,28 +24,47 @@
 // products are 2 * 2 * 9216^2 * 512 * 2 = 348 GFLOP against 4 * 2 * 9216 *
 // 512 * 2 = 75 MB of q/k/v/out, some 4,600 FLOP a byte: the tensor cores
 // bound it, and the 9216^2 logits (340 MB in fp32 per image, what the plain
-// version materializes) must never reach device memory.
+// version materializes) must never reach device memory.  Every block walks
+// all of k and v (18.9 MB at that shape), so what the blocks read from L2 is
+// the second roof: the more query rows a block takes, the less of it.
 //
-// Design.  At D = 512 a 64-row q tile, 64-key k and v tiles and a 64 x 512
-// fp32 accumulator in shared memory would be 320 KiB, above the 227 KiB a
-// block may have.  So one block of eight warps takes 32 query rows and walks
-// 64-key tiles:
-//   * shared memory holds the q tile, one k and one v tile (bf16, row pitch
-//     D + 8 so ldmatrix rows fall in distinct banks), the 32 x 64 fp32 logits
-//     and the bf16 p tile: 176 KiB at D = 512;
-//   * S = q k^T: each warp computes one 16 x 16 tile of logits over the
-//     whole of D with mma.sync m16n8k16 (bf16 in, fp32 accumulate);
-//   * the online softmax: each warp owns 4 rows, lanes split the 64 keys,
-//     warp shuffles reduce; the rescale factor of each row goes to shared
-//     memory;
-//   * O += p v: the 32 x D fp32 accumulator lives in registers, split by
-//     warps into 2 row groups x 4 slices of D (16 x D/4 each: 64 floats a
-//     thread at D = 512).  mma.sync's documented fragment layout tells each
-//     thread which two rows it holds, so the rescale needs no shared memory.
-// k and v tiles arrive by cp.async in two groups, so the logits and the
-// softmax of a tile overlap the v tile's copy.  No TMA, no wgmma, no
-// multi-stage pipeline here: this is the simple first kernel, still to be
-// redesigned for the card as the D = 64 one was.
+// Design.  The D = 64 kernel's design (flash_hopper.cu) with one change: a
+// 64 x 512 fp32 accumulator is 256 registers a thread for one warpgroup, so
+// D is split across the consumer warpgroups instead of the query rows.
+//   * A block is one producer warpgroup (one thread issues TMA) and two
+//     consumer warpgroups that share the same 64 query rows.  A D-wide row
+//     is D / 64 panels of 64 columns; consumer 0 owns the output columns of
+//     the first ceil(D / 128) panels, consumer 1 the rest (4 + 4 at D = 512:
+//     128 accumulator registers a thread; 2 + 1 at D = 192).
+//   * Tiles are sets of 64 x 64 panels in hopper.cuh's one layout (rows of
+//     128 bytes under the 128-byte swizzle), one TMA box each: the tensor
+//     maps fold the panel into the head coordinate, (64, H * D / 64, S, B),
+//     so a tile never crosses into the next batch and rows past S arrive as
+//     zeros.
+//   * The scale D^-0.5 is no power of two here, so the stated semantics are
+//     kept literally: once the q tile has landed, the consumers scale it in
+//     shared memory (fp32 multiply, rounded to bf16; the swizzle permutes
+//     16-byte chunks, an elementwise pass does not care).
+//   * S = q k^T reduces over all of D, so each consumer needs the whole
+//     64 x 64 logits tile: both compute it (D / 16 wgmma m64n64k16, q and k
+//     panels K-major from shared memory).  The product is done twice (1.5x
+//     the work in all), and in return the two warpgroups never synchronise
+//     inside a tile and the softmax runs in registers exactly as at D = 64
+//     (hopper.cuh softmax_tile); both hold the same p and the same row sums.
+//   * O += p v: p is wgmma's register A fragment; panel j of v (keys x 64)
+//     is the MN-major B operand of output columns [64 j, 64 j + 64): four
+//     wgmma m64n64k16 per owned panel per tile.
+//   * 64-key tiles of k and v go through a ring whose depth follows from D
+//     at compile time: 4 stages at D <= 192, 3 at 256, 2 at 320, and from 384
+//     up one k and one v buffer (q, k and v are 64 KB each at D = 512).  k
+//     and v have their own full and empty mbarriers, so with one buffer k of
+//     tile t + 1 loads under the softmax and p v of tile t, and v of tile
+//     t + 1 under the logits of tile t + 1.
+//   * The output goes, normalised and rounded, through the q tile's panels
+//     and one TMA store per panel, which drops rows at or past Sq.
+// Not done here: a cluster of two blocks along the query axis sharing each k
+// and v tile by multicast (halves the L2 traffic), and a split of the keys
+// across blocks for the second wave's tail at batch 1.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -53,195 +72,241 @@
 #include <stdint.h>
 
 #include "flash_core.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-using namespace gswm_flash;
+using namespace gswm_hopper;
+
+constexpr int BM = 64;  // query rows per block
+constexpr int BN = 64;  // keys per tile
+constexpr int PANEL = 64 * ROW_ELEMS;  // elements of one 64 x 64 panel (8 KB)
+constexpr int PANEL_BYTES = PANEL * (int)sizeof(bf16);
+constexpr int CONSUMERS = 2;
+constexpr int THREADS = (1 + CONSUMERS) * 128;
+constexpr int SMEM_LIMIT = 232448;  // the 227 KB a block may opt into
+constexpr int MAX_STAGES = 4;
 
 template <int D>
 struct Tile {
-  static constexpr int LDH = D + 8;     // bf16 row pitch of q, k, v tiles
-  static constexpr int DS = D / 4;      // D slice of one warp's accumulator
-  static constexpr int NT = DS / 8;     // n8 tiles in that slice
-  static constexpr int SMEM = (BQ + 2 * BK) * LDH * (int)sizeof(bf16) +
-                              BQ * LDS * (int)sizeof(float) +
-                              BQ * LDP * (int)sizeof(bf16) +
-                              2 * BQ * (int)sizeof(float);
   static_assert(D % 64 == 0 && D >= 128 && D <= 512, "D is a multiple of 64, 128 to 512");
-  static_assert(SMEM <= 232448, "above the 227 KiB a block may opt into");
+  static constexpr int NP = D / 64;          // panels of a row
+  static constexpr int NP0 = (NP + 1) / 2;   // consumer 0's; consumer 1 takes the rest
+  static constexpr int ELEMS = NP * PANEL;   // a 64-row tile of q, k or v
+  static constexpr int BYTES = ELEMS * (int)sizeof(bf16);
+  // the ring's depth: what fits beside the q tile, the barriers and the
+  // room to align
+  static constexpr int FIT = (SMEM_LIMIT - SWIZZLE_SPAN - 256 - BYTES) / (2 * BYTES);
+  static constexpr int STAGES = FIT > MAX_STAGES ? MAX_STAGES : FIT;
+  static_assert(STAGES >= 1, "q, one k and one v tile must fit");
 };
 
-// Rows [row0, row0 + rows) of one head (D columns, `pitch` elements between
-// rows) into shared memory; rows at or past S are zero.
 template <int D>
-__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* __restrict__ src,
-                                                int row0, int rows, int S, int pitch,
-                                                int tid) {
-  constexpr int CH = D / 8;  // 16-byte chunks per row
-  for (int i = tid; i < rows * CH; i += THREADS) {
-    const int r = i / CH;
-    const int c = (i % CH) * 8;
-    const int g = row0 + r;
-    const bool ok = g < S;
-    cp_async16(dst + r * Tile<D>::LDH + c, src + (size_t)(ok ? g : 0) * pitch + c, ok);
+struct Smem {
+  static constexpr int STAGES = Tile<D>::STAGES;
+  bf16 q[Tile<D>::ELEMS];  // scaled in place; later the output tile
+  bf16 k[STAGES][Tile<D>::ELEMS];
+  bf16 v[STAGES][Tile<D>::ELEMS];
+  uint64_t full_q;
+  uint64_t full_k[STAGES];
+  uint64_t full_v[STAGES];
+  uint64_t empty_k[STAGES];  // every consumer warp has its logits of the stage's k
+  uint64_t empty_v[STAGES];  // every consumer warp has added the stage's p v
+};
+
+// One consumer warpgroup: the logits and softmax of the block's 64 rows, and
+// the output columns of panels [P0, P0 + PN).
+template <int D, int P0, int PN>
+__device__ __forceinline__ void consume(Smem<D>& sm, const CUtensorMap* map_o, int Sk,
+                                        int row0, int h, int b, float scale) {
+  constexpr int NP = Tile<D>::NP;
+  constexpr int STAGES = Tile<D>::STAGES;
+  const int warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int tiles = (Sk + BN - 1) / BN;
+
+  // rows 16 * warp + g (lo) and + 8 (hi) of the block's 64
+  float o[PN][32];
+#pragma unroll
+  for (int j = 0; j < PN; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[j][i] = 0.0f;
+  float s[32];
+  float m_lo = -INFINITY, m_hi = -INFINITY;  // running max of the logits
+  float l_lo = 0.0f, l_hi = 0.0f;            // this thread's share of the row sums
+
+  // q scaled by D^-0.5 in fp32 and rounded to bf16, by both consumers
+  mbar_wait(&sm.full_q, 0);
+  {
+    uint4* qv = reinterpret_cast<uint4*>(sm.q);
+    for (int i = threadIdx.x - 128; i < Tile<D>::ELEMS / 8; i += CONSUMERS * 128) {
+      uint4 w = qv[i];
+      __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&w);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(h2[e]);
+        h2[e] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
+      }
+      qv[i] = w;
+    }
+  }
+  fence_async_smem();
+  named_barrier(1, CONSUMERS * 128);
+
+  const float log2e = 1.4426950408889634f;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int t = 0; t < tiles; ++t) {
+    mbar_wait(&sm.full_k[stage], phase);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < NP; ++j) {
+      const uint64_t dq = smem_desc_sw128(sm.q + j * PANEL);
+      const uint64_t dk = smem_desc_sw128(sm.k[stage] + j * PANEL);
+#pragma unroll
+      for (int kk = 0; kk < ROW_ELEMS / 16; ++kk)
+        wgmma_m64n64k16_ss<0, 0>(s, dq + kk * DESC_K_STEP, dk + kk * DESC_K_STEP,
+                                 j + kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    if (lane == 0) mbar_arrive(&sm.empty_k[stage]);
+
+    // p rounded to bf16, in wgmma's A layout; keys past Sk masked
+    uint32_t p[BN / 16][4];
+    float a_lo, a_hi;
+    softmax_tile<BN / 8>(s, p, m_lo, m_hi, l_lo, l_hi, a_lo, a_hi, Sk - t * BN, log2e, t4);
+#pragma unroll
+    for (int j = 0; j < PN; ++j) scale_rows(o[j], a_lo, a_hi);
+
+    mbar_wait(&sm.full_v[stage], phase);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < PN; ++j) {
+      const uint64_t dv = smem_desc_sw128(sm.v[stage] + (P0 + j) * PANEL);
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+        wgmma_m64n64k16_rs(o[j], p[kk], dv + kk * DESC_MN_STEP);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int j = 0; j < PN; ++j) fence_regs(o[j]);
+    if (lane == 0) mbar_arrive(&sm.empty_v[stage]);
+    if (++stage == STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+
+  // the other consumer may still read q for its last logits: wait for it,
+  // then the owned panels of the q tile take the output
+  named_barrier(1, CONSUMERS * 128);
+  const float inv_lo = 1.0f / quad_sum(l_lo);
+  const float inv_hi = 1.0f / quad_sum(l_hi);
+#pragma unroll
+  for (int j = 0; j < PN; ++j)
+    store_tile_sw128(sm.q + (P0 + j) * PANEL, o[j], inv_lo, inv_hi, warp, g, t4);
+  fence_async_smem();
+  named_barrier(2 + (P0 > 0), 128);
+  if ((threadIdx.x & 127) == 0) {
+#pragma unroll
+    for (int j = 0; j < PN; ++j)
+      tma_store_4d(map_o, sm.q + (P0 + j) * PANEL, 0, h * NP + P0 + j, row0, b);
+    tma_store_wait();
   }
 }
 
+// Grid (query blocks of 64 rows, H, B).  scale = D^-0.5.
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, bf16* __restrict__ out, int Sq,
-                   int Sk, int ld, float scale) {
-  constexpr int LDH = Tile<D>::LDH;
-  constexpr int DS = Tile<D>::DS;
-  constexpr int NT = Tile<D>::NT;
+__global__ void __launch_bounds__(THREADS, 1)
+flash_split_kernel(const __grid_constant__ CUtensorMap map_q,
+                   const __grid_constant__ CUtensorMap map_k,
+                   const __grid_constant__ CUtensorMap map_v,
+                   const __grid_constant__ CUtensorMap map_o, int Sk, float scale) {
+  constexpr int NP = Tile<D>::NP;
+  constexpr int NP0 = Tile<D>::NP0;
+  constexpr int STAGES = Tile<D>::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  Smem<D>& sm = *reinterpret_cast<Smem<D>*>(align_smem(smem_raw));
 
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* ks = qs + BQ * LDH;
-  bf16* vs = ks + BK * LDH;
-  float* ss = reinterpret_cast<float*>(vs + BK * LDH);
-  bf16* ps = reinterpret_cast<bf16*>(ss + BQ * LDS);
-  float* alpha_s = reinterpret_cast<float*>(ps + BQ * LDP);
-  float* l_s = alpha_s + BQ;
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  const int q0 = blockIdx.x * BQ;
+  const int group = threadIdx.x >> 7;  // 0: producer, 1, 2: consumers
+  const int row0 = blockIdx.x * BM;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const bf16* qh = q + (size_t)b * Sq * ld + (size_t)h * D;
-  const bf16* kh = k + (size_t)b * Sk * ld + (size_t)h * D;
-  const bf16* vh = v + (size_t)b * Sk * ld + (size_t)h * D;
-  bf16* oh = out + (size_t)b * Sq * ld + (size_t)h * D;
 
-  load_tile_async<D>(qs, qh, q0, BQ, Sq, ld, tid);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  // q is scaled by D^-0.5 in fp32 and rounded to bf16, as the TPU kernels do
-  for (int i = tid; i < BQ * (D / 2); i += THREADS) {
-    __nv_bfloat162* p =
-        reinterpret_cast<__nv_bfloat162*>(qs + (i / (D / 2)) * LDH) + (i % (D / 2));
-    const float2 f = __bfloat1622float2(*p);
-    *p = __floats2bfloat162_rn(f.x * scale, f.y * scale);
-  }
-
-  // logits tile of this warp: rows 16 * wr, keys 16 * wc
-  const int wr = warp >> 2;
-  const int wc = warp & 3;
-  // accumulator of this warp: rows 16 * wr, D columns DS * wc (same split)
-  float acc[NT][4];
-#pragma unroll
-  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
-  float m_r[ROWS_PER_WARP];
-  float l_r[ROWS_PER_WARP];
-#pragma unroll
-  for (int r = 0; r < ROWS_PER_WARP; ++r) {
-    m_r[r] = -INFINITY;
-    l_r[r] = 0.0f;
-  }
-
-  // ldmatrix row addresses (lane l feeds row l % 8 of 8x8 matrix l / 8)
-  const bf16* a_q = qs + (wr * 16 + (lane & 15)) * LDH + (lane >> 4) * 8;
-  const bf16* b_k = ks + (wc * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDH +
-                    ((lane >> 3) & 1) * 8;
-  const bf16* a_p = ps + (wr * 16 + (lane & 15)) * LDP + (lane >> 4) * 8;
-  const bf16* b_v = vs + ((lane & 7) + (((lane >> 3) & 1) << 3)) * LDH + wc * DS +
-                    (lane >> 4) * 8;
-
-  for (int k0 = 0; k0 < Sk; k0 += BK) {
-    __syncthreads();  // the previous tile's k, v, p and alpha are consumed
-    load_tile_async<D>(ks, kh, k0, BK, Sk, ld, tid);
-    cp_async_commit();
-    load_tile_async<D>(vs, vh, k0, BK, Sk, ld, tid);
-    cp_async_commit();
-    cp_async_wait<1>();  // this thread's k copies have landed
-    __syncthreads();
-
-    // S = q k^T for this warp's 16 x 16 tile (two n8 tiles of keys)
-    {
-      float s0[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      float s1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll 8
-      for (int kk = 0; kk < D; kk += 16) {
-        uint32_t a[4], bb[4];
-        ldmatrix_x4(a, a_q + kk);
-        ldmatrix_x4(bb, b_k + kk);
-        mma_bf16(s0, a, bb[0], bb[1]);
-        mma_bf16(s1, a, bb[2], bb[3]);
-      }
-      store_logits(ss, s0, s1, wr, wc, g, t4);
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.full_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&sm.full_k[s], 1);
+      mbar_init(&sm.full_v[s], 1);
+      mbar_init(&sm.empty_k[s], CONSUMERS * 4);
+      mbar_init(&sm.empty_v[s], CONSUMERS * 4);
     }
-    __syncthreads();
+    fence_mbar_init();
+  }
+  __syncthreads();
 
-    online_softmax_tile(ss, ps, alpha_s, m_r, l_r, min(BK, Sk - k0), warp, lane);
-    cp_async_wait<0>();  // this thread's v copies have landed
-    __syncthreads();
-
-    // acc = acc * alpha + p v over this warp's 16 rows and D slice
-    {
-      const float a_lo = alpha_s[wr * 16 + g];
-      const float a_hi = alpha_s[wr * 16 + g + 8];
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        acc[j][0] *= a_lo;
-        acc[j][1] *= a_lo;
-        acc[j][2] *= a_hi;
-        acc[j][3] *= a_hi;
-      }
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        uint32_t a[4];
-        ldmatrix_x4(a, a_p + kk);
-#pragma unroll
-        for (int j = 0; j < NT; j += 2) {
-          uint32_t bb[4];
-          ldmatrix_x4_trans(bb, b_v + kk * LDH + j * 8);
-          mma_bf16(acc[j], a, bb[0], bb[1]);
-          mma_bf16(acc[j + 1], a, bb[2], bb[3]);
+  if (group == 0) {
+    reg_dec<40>();
+    if (threadIdx.x == 0) {
+      const int tiles = (Sk + BN - 1) / BN;
+      mbar_expect_tx(&sm.full_q, Tile<D>::BYTES);
+      for (int j = 0; j < NP; ++j)
+        tma_load_4d(sm.q + j * PANEL, &map_q, &sm.full_q, 0, h * NP + j, row0, b);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = 0; t < tiles; ++t) {
+        mbar_wait(&sm.empty_k[stage], phase ^ 1);
+        mbar_expect_tx(&sm.full_k[stage], Tile<D>::BYTES);
+        for (int j = 0; j < NP; ++j)
+          tma_load_4d(sm.k[stage] + j * PANEL, &map_k, &sm.full_k[stage], 0, h * NP + j,
+                      t * BN, b);
+        mbar_wait(&sm.empty_v[stage], phase ^ 1);
+        mbar_expect_tx(&sm.full_v[stage], Tile<D>::BYTES);
+        for (int j = 0; j < NP; ++j)
+          tma_load_4d(sm.v[stage] + j * PANEL, &map_v, &sm.full_v[stage], 0, h * NP + j,
+                      t * BN, b);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
         }
       }
     }
-  }
-
-  if (lane == 0) {
-#pragma unroll
-    for (int r = 0; r < ROWS_PER_WARP; ++r) l_s[warp * ROWS_PER_WARP + r] = l_r[r];
-  }
-  __syncthreads();
-  const float l_lo = l_s[wr * 16 + g];
-  const float l_hi = l_s[wr * 16 + g + 8];
-  const int r_lo = q0 + wr * 16 + g;
-  const int r_hi = r_lo + 8;
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    const int col = wc * DS + j * 8 + 2 * t4;
-    if (r_lo < Sq)
-      *reinterpret_cast<__nv_bfloat162*>(oh + (size_t)r_lo * ld + col) =
-          __floats2bfloat162_rn(acc[j][0] / l_lo, acc[j][1] / l_lo);
-    if (r_hi < Sq)
-      *reinterpret_cast<__nv_bfloat162*>(oh + (size_t)r_hi * ld + col) =
-          __floats2bfloat162_rn(acc[j][2] / l_hi, acc[j][3] / l_hi);
+  } else {
+    reg_inc<232>();
+    if (group == 1)
+      consume<D, 0, NP0>(sm, &map_o, Sk, row0, h, b, scale);
+    else
+      consume<D, NP0, NP - NP0>(sm, &map_o, Sk, row0, h, b, scale);
   }
 }
 
-// ld: elements between rows of q, k, v and out; head h starts at column
-// h * D of each.
 template <int D>
-cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* out, int B,
-                   int Sq, int Sk, int H, int ld, cudaStream_t stream) {
-  constexpr int smem = Tile<D>::SMEM;
-  // above the 48 KiB a launch gets without asking
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_split_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* out, int B, int Sq,
+                   int Sk, int H, cudaStream_t stream) {
+  constexpr int NP = Tile<D>::NP;
+  constexpr int smem = (int)sizeof(Smem<D>) + SWIZZLE_SPAN;
+  static_assert(smem <= SMEM_LIMIT, "above the 227 KB a block may opt into");
+  static_assert(PANEL_BYTES % SWIZZLE_SPAN == 0, "panels keep the tiles' alignment");
+  // natural layout: q, k, v and out share one row pitch; the panels of all
+  // heads are the map's H * D / 64 "heads" of 64 columns
+  const int ld = H * D;
+  CUtensorMap mq, mk, mv, mo;
+  cudaError_t e = head_map(&mq, q, B, Sq, H * NP, ld, BM);
+  if (e == cudaSuccess) e = head_map(&mk, k, B, Sk, H * NP, ld, BN);
+  if (e == cudaSuccess) e = head_map(&mv, v, B, Sk, H * NP, ld, BN);
+  if (e == cudaSuccess) e = head_map(&mo, out, B, Sq, H * NP, ld, BM);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(flash_split_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_split_kernel<D><<<grid, THREADS, smem, stream>>>(
-      q, k, v, out, Sq, Sk, ld, 1.0f / sqrtf((float)D));
+  dim3 grid((Sq + BM - 1) / BM, H, B);
+  flash_split_kernel<D><<<grid, THREADS, smem, stream>>>(mq, mk, mv, mo, Sk,
+                                                         1.0f / sqrtf((float)D));
   return cudaGetLastError();
 }
 
@@ -250,18 +315,19 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* out, int B
 cudaError_t gswm_launch_flash_split(const bf16* q, const bf16* k, const bf16* v,
                                     bf16* out, int B, int Sq, int Sk, int H, int D,
                                     cudaStream_t stream) {
-  if (Sq < 1 || Sk < 1) return cudaErrorInvalidValue;
-  const int ld = H * D;  // natural layout: q, k, v and out share one row pitch
+  if (B < 1 || Sq < 1 || Sk < 1 || H < 1 || B > 65535 || H > 65535)
+    return cudaErrorInvalidValue;
   switch (D) {
     case 64:
-      return gswm_launch_flash_hopper(q, k, v, out, B, Sq, Sk, H, ld, ld, ld, stream);
-    case 128: return launch<128>(q, k, v, out, B, Sq, Sk, H, ld, stream);
-    case 192: return launch<192>(q, k, v, out, B, Sq, Sk, H, ld, stream);
-    case 256: return launch<256>(q, k, v, out, B, Sq, Sk, H, ld, stream);
-    case 320: return launch<320>(q, k, v, out, B, Sq, Sk, H, ld, stream);
-    case 384: return launch<384>(q, k, v, out, B, Sq, Sk, H, ld, stream);
-    case 448: return launch<448>(q, k, v, out, B, Sq, Sk, H, ld, stream);
-    case 512: return launch<512>(q, k, v, out, B, Sq, Sk, H, ld, stream);
+      return gswm_launch_flash_hopper(q, k, v, out, B, Sq, Sk, H, H * D, H * D, H * D,
+                                      stream);
+    case 128: return launch<128>(q, k, v, out, B, Sq, Sk, H, stream);
+    case 192: return launch<192>(q, k, v, out, B, Sq, Sk, H, stream);
+    case 256: return launch<256>(q, k, v, out, B, Sq, Sk, H, stream);
+    case 320: return launch<320>(q, k, v, out, B, Sq, Sk, H, stream);
+    case 384: return launch<384>(q, k, v, out, B, Sq, Sk, H, stream);
+    case 448: return launch<448>(q, k, v, out, B, Sq, Sk, H, stream);
+    case 512: return launch<512>(q, k, v, out, B, Sq, Sk, H, stream);
     default: return cudaErrorInvalidValue;
   }
 }

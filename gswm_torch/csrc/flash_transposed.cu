@@ -11,74 +11,387 @@
 // 2 * H * D; the output uses q's indexing.  D = 64.
 //
 // Semantics: exact softmax, the `use_max` recurrence of the TPU kernels, as
-// in flash_split.cu.  The TPU kernel drops the running max and clamps logits
+// in flash_hopper.cu (the scale 2^-3 folded with log2(e) into the exponent,
+// exact at D = 64).  The TPU kernel drops the running max and clamps logits
 // at 60 on every dtype (:1305-1307); the two agree within rounding below
 // that (tests/test_torch_tiers.py and tests/test_torch_gpu.py pin both
 // sides).
 //
-// What bounds it on an H100: the same products as the split kernel at
-// D = 64, 4 * B * H * S^2 * 64 FLOP over 8 * B * H * S * 64 bytes (S / 2
-// FLOP a byte, 4,600 at 9216 tokens): the tensor cores.  The layout only
-// changes how tiles arrive.
+// What bounds it on an H100: the same products as the D = 64 kernel of
+// flash_hopper.cu, 4 * B * H * S^2 * 64 FLOP over 8 * B * H * S * 64 bytes
+// (S / 2 FLOP a byte, 4,600 at 9216 tokens): the tensor cores, and the
+// exponentials beside them.  The layout only changes how tiles arrive and
+// which way round wgmma reads them.
 //
-// Design: flash_split.cu's tiling at D = 64 (one block of eight warps, 32
-// query rows, 64-key tiles, mma.sync m16n8k16, the fp32 accumulator in
-// registers, flash_core.cuh's online softmax), with the tiles D-major: q
-// is 64 rows of 32 contiguous tokens, k and v 64 rows of 64.  The products
-// read them as they lie: ldmatrix.trans turns the D-major q and k tiles into
-// the row-major A and column-major B fragments of S = q k^T, and plain
-// ldmatrix reads the D-major v tile as the column-major B fragment of O =
-// p v.  The output goes through shared memory (in q's tile) so each row d
-// is stored as contiguous tokens.  When S is a multiple of 8 every row of
-// 8 tokens is 16-byte aligned and tiles arrive by cp.async; otherwise (S =
-// 1000, say) a second instance loads and stores element by element, masked.
-// 37 KiB of static shared memory.
+// Two kernels, chosen by the shape alone.
+//
+// S % 8 == 0 (every UNet level-0 shape of a resolution that is a multiple of
+// 64): flash_transposed_kernel, flash_hopper.cu's design (one producer
+// thread, one or two consumer warpgroups of 64 query tokens chosen from the
+// card's SM count, 128-key tiles in a 2-stage ring with separate k and v
+// mbarriers, hopper.cuh's softmax in registers) on the operands as they lie:
+//   * A 3-D tensor map over (S, B, 3 * H * 64), tokens innermost, with a box
+//     of (64 tokens, 1, 64 rows) lands a head's tile as 64 rows (d) of 128
+//     bytes (64 tokens) in hopper.cuh's one layout; a 128-key tile is two
+//     such panels.  Tokens past S arrive as zeros and never from batch b + 1.
+//   * S = q k^T reduces over d, which runs down the rows of both tiles: q
+//     and k are both MN-major operands (wgmma's transpose-A bit exists only
+//     with A in shared memory, which q is), one wgmma m64n64k16 per 64-key
+//     panel and 16 rows of d; the two panels' logits are the two halves of
+//     the 64 x 128 fragment.
+//   * O += p v reduces over keys, which run along the rows of the v tile: a
+//     K-major B operand as it lies, p from registers.
+//   * The accumulator (tokens x d) goes transposed, normalised and rounded,
+//     into the warpgroup's q tile (d rows of 64 tokens under the swizzle)
+//     and out by one TMA store, which drops tokens at or past S.
+//
+// S % 8 != 0 (S = 1000, say): token rows are not 16-byte aligned, which TMA's
+// global strides (S * 2 and B * S * 2 bytes) must be, so these shapes cannot
+// go through a tensor map at all.  flash_transposed_masked_kernel serves
+// them: one block of eight warps, 32 query tokens, 64-key tiles loaded and
+// stored element by element, masked; mma.sync m16n8k16 on tiles read with
+// ldmatrix(.trans), logits and p through shared memory.  It is a second
+// hand-written kernel for shapes the first cannot address, not a fallback:
+// no shape the first takes ever reaches it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "flash_core.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-using namespace gswm_flash;
+using namespace gswm_hopper;
 
 constexpr int D = 64;
+
+// ------------------------------------------------ S % 8 == 0: wgmma + TMA ----
+
+constexpr int BM = 64;    // query tokens per consumer warpgroup
+constexpr int BN = 128;   // keys per tile: two 64-key panels
+constexpr int STAGES = 2;
+constexpr int PANEL = D * ROW_ELEMS;  // elements of a (64 d, 64 tokens) panel
+constexpr int PANEL_BYTES = PANEL * (int)sizeof(bf16);
+constexpr int KV_PANELS = BN / ROW_ELEMS;
+
+template <int NWG>
+struct Smem {
+  bf16 q[NWG][PANEL];  // later the output tile
+  bf16 k[STAGES][KV_PANELS * PANEL];
+  bf16 v[STAGES][KV_PANELS * PANEL];
+  uint64_t full_q;
+  uint64_t full_k[STAGES];
+  uint64_t full_v[STAGES];
+  uint64_t empty[STAGES];  // every consumer warp is done with the stage's k and v
+};
+
+// Grid (query blocks, H, B).  exp_scale = D^-0.5 * log2(e).
+template <int NWG>
+__global__ void __launch_bounds__((NWG + 1) * 128, NWG == 1 ? 2 : 1)
+flash_transposed_kernel(const __grid_constant__ CUtensorMap map_in,
+                        const __grid_constant__ CUtensorMap map_out, int S, int H,
+                        float exp_scale) {
+  extern __shared__ unsigned char smem_raw[];
+  Smem<NWG>& sm = *reinterpret_cast<Smem<NWG>*>(align_smem(smem_raw));
+
+  const int group = threadIdx.x >> 7;  // 0: producer, 1..NWG: consumers
+  const int tok0 = blockIdx.x * (NWG * BM);
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tiles = (S + BN - 1) / BN;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.full_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&sm.full_k[s], 1);
+      mbar_init(&sm.full_v[s], 1);
+      mbar_init(&sm.empty[s], NWG * 4);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (group == 0) {
+    reg_dec<NWG == 1 ? 24 : 40>();
+    if (threadIdx.x == 0) {
+      // rows of the bands: q at h * 64, k at (H + h) * 64, v at (2 H + h) * 64
+      mbar_expect_tx(&sm.full_q, NWG * PANEL_BYTES);
+      for (int w = 0; w < NWG; ++w)
+        tma_load_3d(sm.q[w], &map_in, &sm.full_q, tok0 + w * BM, b, h * D);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = 0; t < tiles; ++t) {
+        mbar_wait(&sm.empty[stage], phase ^ 1);
+        mbar_expect_tx(&sm.full_k[stage], KV_PANELS * PANEL_BYTES);
+        for (int pn = 0; pn < KV_PANELS; ++pn)
+          tma_load_3d(sm.k[stage] + pn * PANEL, &map_in, &sm.full_k[stage],
+                      t * BN + pn * ROW_ELEMS, b, (H + h) * D);
+        mbar_expect_tx(&sm.full_v[stage], KV_PANELS * PANEL_BYTES);
+        for (int pn = 0; pn < KV_PANELS; ++pn)
+          tma_load_3d(sm.v[stage] + pn * PANEL, &map_in, &sm.full_v[stage],
+                      t * BN + pn * ROW_ELEMS, b, (2 * H + h) * D);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    reg_inc<232>();
+    const int cw = group - 1;
+    const int warp = (threadIdx.x >> 5) & 3;
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2;
+    const int t4 = lane & 3;
+
+    // tokens 16 * warp + g (lo) and + 8 (hi) of this warpgroup's 64
+    float o[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] = 0.0f;
+    float s[64];  // keys 0-63 of the tile in s[0..31], keys 64-127 in s[32..63]
+    float m_lo = -INFINITY, m_hi = -INFINITY;  // running max of the raw logits
+    float l_lo = 0.0f, l_hi = 0.0f;            // this thread's share of the row sums
+
+    const uint64_t dq = smem_desc_sw128(sm.q[cw]);
+    mbar_wait(&sm.full_q, 0);
+
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int t = 0; t < tiles; ++t) {
+      mbar_wait(&sm.full_k[stage], phase);
+      wgmma_fence();
+#pragma unroll
+      for (int pn = 0; pn < KV_PANELS; ++pn) {
+        const uint64_t dk = smem_desc_sw128(sm.k[stage] + pn * PANEL);
+        float(&s_pn)[32] = *reinterpret_cast<float(*)[32]>(&s[32 * pn]);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_m64n64k16_ss<1, 1>(s_pn, dq + kk * DESC_MN_STEP, dk + kk * DESC_MN_STEP,
+                                   kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+
+      // p rounded to bf16, in wgmma's A layout; keys past S masked
+      uint32_t p[BN / 16][4];
+      float a_lo, a_hi;
+      softmax_tile<BN / 8>(s, p, m_lo, m_hi, l_lo, l_hi, a_lo, a_hi, S - t * BN, exp_scale,
+                           t4);
+      scale_rows(o, a_lo, a_hi);
+
+      mbar_wait(&sm.full_v[stage], phase);
+      wgmma_fence();
+#pragma unroll
+      for (int pn = 0; pn < KV_PANELS; ++pn) {
+        const uint64_t dv = smem_desc_sw128(sm.v[stage] + pn * PANEL);
+#pragma unroll
+        for (int kk = 0; kk < ROW_ELEMS / 16; ++kk)
+          wgmma_m64n64k16_rs<0>(o, p[pn * (ROW_ELEMS / 16) + kk], dv + kk * DESC_K_STEP);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+      if (lane == 0) mbar_arrive(&sm.empty[stage]);
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+    // normalised, rounded and transposed into the warpgroup's q tile: row d,
+    // token c at 16-byte chunk (c / 8) ^ (d % 8) of the row, as TMA's
+    // 128-byte swizzle wants it
+    const float inv_lo = 1.0f / quad_sum(l_lo);
+    const float inv_hi = 1.0f / quad_sum(l_hi);
+    unsigned char* tile = reinterpret_cast<unsigned char*>(sm.q[cw]);
+    const int c_lo = warp * 16 + g;  // c_lo % 8 == (c_lo + 8) % 8 == g
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = 8 * j + 2 * t4 + e;
+        unsigned char* row = tile + d * ROW_BYTES + g * 2;
+        *reinterpret_cast<bf16*>(row + ((((c_lo >> 3)) ^ (d & 7)) << 4)) =
+            __float2bfloat16(o[4 * j + e] * inv_lo);
+        *reinterpret_cast<bf16*>(row + ((((c_lo >> 3) + 1) ^ (d & 7)) << 4)) =
+            __float2bfloat16(o[4 * j + 2 + e] * inv_hi);
+      }
+    }
+    fence_async_smem();
+    named_barrier(1 + cw, 128);
+    if ((threadIdx.x & 127) == 0) {
+      tma_store_3d(&map_out, tile, tok0 + cw * BM, b, h * D);
+      tma_store_wait();
+    }
+  }
+}
+
+// A (S, B, rows) map over the (rows, B, S) array at `base`, tokens
+// innermost; boxes of 64 tokens of 64 rows of one batch.  S % 8 == 0.
+cudaError_t band_map(CUtensorMap* map, const bf16* base, int rows, int B, int S) {
+  const cuuint64_t dims[3] = {(cuuint64_t)S, (cuuint64_t)B, (cuuint64_t)rows};
+  const cuuint64_t strides[2] = {(cuuint64_t)S * sizeof(bf16),
+                                 (cuuint64_t)B * S * sizeof(bf16)};
+  const cuuint32_t box[3] = {ROW_ELEMS, 1, D};
+  return encode_map(map, base, 3, dims, strides, box);
+}
+
+template <int NWG>
+cudaError_t launch(const CUtensorMap& m_in, const CUtensorMap& m_out, int B, int S, int H,
+                   cudaStream_t stream) {
+  constexpr int smem = (int)sizeof(Smem<NWG>) + SWIZZLE_SPAN;
+  cudaError_t e = cudaFuncSetAttribute(flash_transposed_kernel<NWG>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((S + NWG * BM - 1) / (NWG * BM), H, B);
+  flash_transposed_kernel<NWG><<<grid, (NWG + 1) * 128, smem, stream>>>(
+      m_in, m_out, S, H, 0.125f * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_tma(const bf16* in, bf16* out, int B, int S, int H, cudaStream_t stream) {
+  CUtensorMap m_in, m_out;
+  cudaError_t e = band_map(&m_in, in, 3 * H * D, B, S);
+  if (e == cudaSuccess) e = band_map(&m_out, out, H * D, B, S);
+  if (e != cudaSuccess) return e;
+  // 128-token blocks unless they would leave SMs of this card without one
+  int dev = 0, sm_count = 0;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sm_count, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  const long blocks128 = (long)((S + 2 * BM - 1) / (2 * BM)) * H * B;
+  return blocks128 >= sm_count ? launch<2>(m_in, m_out, B, S, H, stream)
+                               : launch<1>(m_in, m_out, B, S, H, stream);
+}
+
+// ------------------------------------- S % 8 != 0: mma.sync, masked tiles ----
+
+namespace masked {
+
+// One block of eight warps takes BQ query tokens and walks BK-key tiles;
+// each warp computes a 16 x 16 tile of logits (2 row groups x 4 key groups)
+// and owns BQ / WARPS softmax rows.
+constexpr int BQ = 32;
+constexpr int BK = 64;
+constexpr int WARPS = 8;
+constexpr int THREADS = WARPS * 32;
+constexpr int LDS = BK + 4;  // fp32 logits row pitch
+constexpr int LDP = BK + 8;  // bf16 p row pitch
+constexpr int ROWS_PER_WARP = BQ / WARPS;
 constexpr int LQ = BQ + 8;  // bf16 row pitch of the D-major q (and output) tile
 constexpr int LK = BK + 8;  // bf16 row pitch of the D-major k and v tiles
 constexpr int DS = D / 4;   // D slice of one warp's accumulator
 constexpr int NT = DS / 8;  // n8 tiles in that slice
 
-// Tokens [t0, t0 + cols) of the D rows of one (band, head, batch) block
-// (`pitch` = B * S elements between rows) into a D x ld tile of shared
-// memory; tokens at or past S are zero.  ALIGNED: S % 8 == 0, so each run of
-// 8 tokens is one 16-byte copy, wholly in or out of range.
-template <bool ALIGNED, int COLS>
-__device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* __restrict__ src,
-                                          int t0, int S, size_t pitch, int tid) {
-  if (ALIGNED) {
-    constexpr int CH = COLS / 8;
-    for (int i = tid; i < D * CH; i += THREADS) {
-      const int d = i / CH;
-      const int c = (i % CH) * 8;
-      const bool ok = t0 + c < S;
-      cp_async16(dst + d * ld + c, src + d * pitch + (ok ? t0 + c : 0), ok);
-    }
-  } else {
-    for (int i = tid; i < D * COLS; i += THREADS) {
-      const int d = i / COLS;
-      const int c = i % COLS;
-      dst[d * ld + c] = t0 + c < S ? src[d * pitch + t0 + c] : __float2bfloat16(0.0f);
-    }
+static_assert(BQ == 2 * 16 && BK == 4 * 16, "8 warps = 2 x 4 tiles of 16 x 16 logits");
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// c (16 x 8 fp32) += a (16 x 16 bf16, row) * b (16 x 8 bf16, col).
+// Fragment layout (PTX ISA, mma.m16n8k16), g = lane / 4, t = lane % 4:
+//   a: {A[g][2t..], A[g+8][2t..], A[g][2t+8..], A[g+8][2t+8..]}
+//   b: {B[2t..][g], B[2t+8..][g]}
+//   c: {C[g][2t], C[g][2t+1], C[g+8][2t], C[g+8][2t+1]}
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// The two 16 x 8 logits fragments (s0: keys 0-7, s1: keys 8-15 of this
+// warp's 16 x 16 tile at rows 16 * wr, keys 16 * wc) into the fp32 logits
+// tile `ss`.
+__device__ __forceinline__ void store_logits(float* ss, const float (&s0)[4],
+                                             const float (&s1)[4], int wr, int wc, int g,
+                                             int t4) {
+  float* srow = ss + (wr * 16 + g) * LDS + wc * 16 + 2 * t4;
+  srow[0] = s0[0];
+  srow[1] = s0[1];
+  srow[8 * LDS] = s0[2];
+  srow[8 * LDS + 1] = s0[3];
+  srow[8] = s1[0];
+  srow[9] = s1[1];
+  srow[8 * LDS + 8] = s1[2];
+  srow[8 * LDS + 9] = s1[3];
+}
+
+// Online softmax over one BQ x BK logits tile of which the first `valid`
+// keys are real: the `use_max` recurrence of the TPU kernels
+// (_attend_kv_loop body_max).  Each warp owns ROWS_PER_WARP rows, lane owns
+// keys `lane` and `lane + 32`.  p = exp(s - m) is rounded to bf16 into `ps`
+// and the row sums add the rounded p; each row's rescale factor goes to
+// alpha_s for the PV step.
+__device__ __forceinline__ void online_softmax_tile(
+    const float* ss, bf16* ps, float* alpha_s, float (&m_r)[ROWS_PER_WARP],
+    float (&l_r)[ROWS_PER_WARP], int valid, int warp, int lane) {
+#pragma unroll
+  for (int r = 0; r < ROWS_PER_WARP; ++r) {
+    const int row = warp * ROWS_PER_WARP + r;
+    const float x0 = lane < valid ? ss[row * LDS + lane] : -INFINITY;
+    const float x1 = lane + 32 < valid ? ss[row * LDS + lane + 32] : -INFINITY;
+    const float m_new = fmaxf(m_r[r], warp_max(fmaxf(x0, x1)));
+    const bf16 p0 = __float2bfloat16(expf(x0 - m_new));
+    const bf16 p1 = __float2bfloat16(expf(x1 - m_new));
+    ps[row * LDP + lane] = p0;
+    ps[row * LDP + lane + 32] = p1;
+    const float psum = warp_sum(__bfloat162float(p0) + __bfloat162float(p1));
+    const float alpha = expf(m_r[r] - m_new);
+    l_r[r] = l_r[r] * alpha + psum;
+    m_r[r] = m_new;
+    if (lane == 0) alpha_s[row] = alpha;
   }
 }
 
-template <bool ALIGNED>
+// Tokens [t0, t0 + COLS) of the D rows of one (band, head, batch) block
+// (`pitch` = B * S elements between rows) into a D x ld tile of shared
+// memory, element by element; tokens at or past S are zero.
+template <int COLS>
+__device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* __restrict__ src,
+                                          int t0, int S, size_t pitch, int tid) {
+  for (int i = tid; i < D * COLS; i += THREADS) {
+    const int d = i / COLS;
+    const int c = i % COLS;
+    dst[d * ld + c] = t0 + c < S ? src[d * pitch + t0 + c] : __float2bfloat16(0.0f);
+  }
+}
+
+// Tiles are D-major: q is 64 rows of 32 tokens, k and v 64 rows of 64.
+// ldmatrix.trans turns the D-major q and k tiles into the row-major A and
+// column-major B fragments of S = q k^T, and plain ldmatrix reads the D-major
+// v tile as the column-major B fragment of O = p v.  The output goes through
+// shared memory (in q's tile).  37 KiB of static shared memory.
 __global__ void __launch_bounds__(THREADS)
-flash_transposed_kernel(const bf16* __restrict__ qkv_t, bf16* __restrict__ out_t, int B,
-                        int S, int H, float scale) {
+flash_transposed_masked_kernel(const bf16* __restrict__ qkv_t, bf16* __restrict__ out_t,
+                               int B, int S, int H, float scale) {
   __shared__ __align__(128) bf16 qs[D * LQ];
   __shared__ __align__(128) bf16 ks[D * LK];
   __shared__ __align__(128) bf16 vs[D * LK];
@@ -102,9 +415,7 @@ flash_transposed_kernel(const bf16* __restrict__ qkv_t, bf16* __restrict__ out_t
   const bf16* vh = kh + band;
   bf16* oh = out_t + (size_t)h * D * pitch + (size_t)b * S;
 
-  load_tile<ALIGNED, BQ>(qs, LQ, qh, q0, S, pitch, tid);
-  cp_async_commit();
-  cp_async_wait<0>();
+  load_tile<BQ>(qs, LQ, qh, q0, S, pitch, tid);
   __syncthreads();
   // q is scaled by D^-0.5 in fp32 and rounded to bf16, as the TPU kernels do
   for (int i = tid; i < D * (BQ / 2); i += THREADS) {
@@ -137,7 +448,7 @@ flash_transposed_kernel(const bf16* __restrict__ qkv_t, bf16* __restrict__ out_t
   // k (B of q k^T, D-major, .trans): b0, b1 of keys 0-7, then of keys 8-15
   const bf16* b_k = ks + ((lane & 7) + (((lane >> 3) & 1) << 3)) * LK + wc * 16 +
                     (lane >> 4) * 8;
-  // p (A of p v, row-major), as in flash_split.cu
+  // p (A of p v, row-major)
   const bf16* a_p = ps + (wr * 16 + (lane & 15)) * LDP + (lane >> 4) * 8;
   // v (B of p v, D-major = column-major B, plain ldmatrix): b0, b1 of d 0-7,
   // then of d 8-15
@@ -146,11 +457,8 @@ flash_transposed_kernel(const bf16* __restrict__ qkv_t, bf16* __restrict__ out_t
 
   for (int k0 = 0; k0 < S; k0 += BK) {
     __syncthreads();  // the previous tile's k, v, p and alpha are consumed
-    load_tile<ALIGNED, BK>(ks, LK, kh, k0, S, pitch, tid);
-    cp_async_commit();
-    load_tile<ALIGNED, BK>(vs, LK, vh, k0, S, pitch, tid);
-    cp_async_commit();
-    cp_async_wait<1>();  // this thread's k copies have landed
+    load_tile<BK>(ks, LK, kh, k0, S, pitch, tid);
+    load_tile<BK>(vs, LK, vh, k0, S, pitch, tid);
     __syncthreads();
 
     {
@@ -169,7 +477,6 @@ flash_transposed_kernel(const bf16* __restrict__ qkv_t, bf16* __restrict__ out_t
     __syncthreads();
 
     online_softmax_tile(ss, ps, alpha_s, m_r, l_r, min(BK, S - k0), warp, lane);
-    cp_async_wait<0>();  // this thread's v copies have landed
     __syncthreads();
 
     {
@@ -210,23 +517,14 @@ flash_transposed_kernel(const bf16* __restrict__ qkv_t, bf16* __restrict__ out_t
     qs[(d + 1) * LQ + r_lo + 8] = __float2bfloat16(acc[j][3] / l_hi);
   }
   __syncthreads();
-  if (ALIGNED) {
-    constexpr int CH = BQ / 8;
-    for (int i = tid; i < D * CH; i += THREADS) {
-      const int d = i / CH;
-      const int c = (i % CH) * 8;
-      if (q0 + c < S)
-        *reinterpret_cast<uint4*>(oh + d * pitch + q0 + c) =
-            *reinterpret_cast<const uint4*>(qs + d * LQ + c);
-    }
-  } else {
-    for (int i = tid; i < D * BQ; i += THREADS) {
-      const int d = i / BQ;
-      const int c = i % BQ;
-      if (q0 + c < S) oh[d * pitch + q0 + c] = qs[d * LQ + c];
-    }
+  for (int i = tid; i < D * BQ; i += THREADS) {
+    const int d = i / BQ;
+    const int c = i % BQ;
+    if (q0 + c < S) oh[d * pitch + q0 + c] = qs[d * LQ + c];
   }
 }
+
+}  // namespace masked
 
 }  // namespace
 
@@ -234,15 +532,14 @@ flash_transposed_kernel(const bf16* __restrict__ qkv_t, bf16* __restrict__ out_t
 // out = softmax(q k^T / 8) v per (batch, head) in the transposed layout.
 extern "C" int gswm_flash_transposed(const void* qkv_t, void* out_t, int B, int S, int H,
                                      void* stream) {
-  if (B < 1 || S < 1 || H < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((S + BQ - 1) / BQ, H, B);
+  if (B < 1 || S < 1 || H < 1 || B > 65535 || H > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   const bf16* in = static_cast<const bf16*>(qkv_t);
   bf16* out = static_cast<bf16*>(out_t);
-  const float scale = 1.0f / sqrtf((float)D);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (S % 8 == 0)
-    flash_transposed_kernel<true><<<grid, THREADS, 0, st>>>(in, out, B, S, H, scale);
-  else
-    flash_transposed_kernel<false><<<grid, THREADS, 0, st>>>(in, out, B, S, H, scale);
+  if (S % 8 == 0) return static_cast<int>(launch_tma(in, out, B, S, H, st));
+  const dim3 grid((S + masked::BQ - 1) / masked::BQ, H, B);
+  masked::flash_transposed_masked_kernel<<<grid, masked::THREADS, 0, st>>>(
+      in, out, B, S, H, 1.0f / sqrtf((float)D));
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the projection GEMM
-// (fused_qkv.cu) and the D = 64 flash attention (flash_hopper.cu): the TMA
-// tensor-map encoder on the host; mbarrier, TMA load/store, wgmma and
-// setmaxnreg wrappers on the device.
+// (fused_qkv.cu) and the flash attention kernels (flash_hopper.cu at D = 64,
+// flash_split.cu at D = 128 ... 512, flash_transposed.cu on the transposed
+// layout): the TMA tensor-map encoder on the host; mbarrier, TMA load/store,
+// wgmma and setmaxnreg wrappers on the device; and the flash kernels' common
+// steps on a warpgroup's accumulator fragment (online softmax, rescale,
+// store).
 //
 // One shared-memory layout serves every tile here: rows of exactly 128 bytes
 // (64 bf16), written by TMA with the 128-byte swizzle, tile bases aligned to
@@ -10,13 +13,16 @@
 // along the row: q, k, x, w) and for an MN-major one (the reduction
 // dimension runs down the rows: v) alike; the two differ in the
 // instruction's transpose bit and in how a 16-deep step moves the start
-// address: 32 bytes along the row, or 16 rows = 2048 bytes down.
+// address: 32 bytes along the row, or 16 rows = 2048 bytes down.  A tile is at
+// most 64 elements wide; a wider operand is several such panels, one wgmma
+// (or one TMA box) each.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; libcuda itself is not linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <dlfcn.h>
+#include <math.h>
 #include <stdint.h>
 #include <stdio.h>
 
@@ -82,6 +88,19 @@ static inline cudaError_t encode_map(CUtensorMap* map, const void* base, int ran
   return cudaErrorInvalidValue;
 }
 
+// A (64, H, S, B) map over head rows of 64 bf16: head h of row s of batch b
+// starts at base + (b * S + s) * pitch + h * 64 elements; boxes of `rows`
+// rows of one head.  A head wider than 64 is D / 64 such heads side by side
+// (H * D / 64 in all): one box per 64-column panel.
+static inline cudaError_t head_map(CUtensorMap* map, const bf16* base, int B, int S, int H,
+                                   int pitch, int rows) {
+  const cuuint64_t dims[4] = {ROW_ELEMS, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {ROW_BYTES, (cuuint64_t)pitch * sizeof(bf16),
+                                 (cuuint64_t)S * pitch * sizeof(bf16)};
+  const cuuint32_t box[4] = {ROW_ELEMS, 1, (cuuint32_t)rows, 1};
+  return encode_map(map, base, 4, dims, strides, box);
+}
+
 // -------------------------------------------------------------- device ----
 
 static __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -142,6 +161,15 @@ static __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap*
       : "memory");
 }
 
+static __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                                   uint64_t* bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 static __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
                                                    uint64_t* bar, int c0, int c1, int c2,
                                                    int c3) {
@@ -161,6 +189,15 @@ static __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, cons
       "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
       "cp.async.bulk.commit_group;\n" ::"l"(reinterpret_cast<uint64_t>(map)),
       "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+static __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src,
+                                                    int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n"
+      "cp.async.bulk.commit_group;\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -262,12 +299,45 @@ static __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint6
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
-// d (64 x 64 fp32) += a (64 x 16 bf16, registers) * b (16 x 64 bf16, shared,
-// MN-major: row = reduction index), one warpgroup.  The A fragment is
+// d (64 x 64 fp32) = a (64 x 16 bf16, shared) * b (16 x 64 bf16, shared) +
+// (accumulate ? d : 0), one warpgroup; the accumulator layout above with 8
+// column groups.  TRANS_A / TRANS_B = 0: the operand is K-major (q and k of
+// (rows, D) tiles); 1: MN-major (q and k of the transposed layout's (D,
+// tokens) tiles: the reduction over D runs down the rows).
+template <int TRANS_A, int TRANS_B>
+static __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
+                                                          uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_A), "n"(TRANS_B));
+}
+
+// d (64 x 64 fp32) += a (64 x 16 bf16, registers) * b (16 x 64 bf16, shared),
+// one warpgroup.  TRANS_B = 1: b is MN-major (row = reduction index: v of a
+// (keys, 64) tile); 0: K-major (v of the transposed layout's (64, keys)
+// tile).  The A fragment is
 // mma.sync m16n8k16's, per warp: a[0] = A[g][2t..2t+1], a[1] = A[g+8][2t..],
 // a[2] = A[g][2t+8..], a[3] = A[g+8][2t+8..], low half = lower column; two
 // neighbouring 8-column groups of the accumulator layout above, rounded to
 // bf16, are exactly that.
+template <int TRANS_B = 1>
 static __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
                                                           const uint32_t (&a)[4],
                                                           uint64_t desc_b) {
@@ -280,7 +350,7 @@ static __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -290,7 +360,126 @@ static __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(TRANS_B));
+}
+
+// ------------------------------------ flash attention on the fragment ----
+// The steps the flash kernels share.  A thread of a consumer warpgroup holds,
+// of its warp's 16 rows, row g = lane / 4 ("lo") and row g + 8 ("hi"), and of
+// every 8-column group j the columns 2 * t4 and 2 * t4 + 1 (t4 = lane % 4):
+// x[4j], x[4j+1] of the lo row, x[4j+2], x[4j+3] of the hi row.
+
+static __device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Two fp32 -> one register of two bf16 (lo in the low half), and back.
+static __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+static __device__ __forceinline__ float packed_sum(uint32_t p) {
+  return __uint_as_float(p << 16) + __uint_as_float(p & 0xffff0000u);
+}
+
+static __device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+static __device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// One key tile of the online softmax (the `use_max` recurrence) on the logits
+// fragment s of NG 8-key groups, of which the first `valid` keys are real
+// (at least one is): p = exp2(s * c - m * c) with the new running max m of
+// the raw logits, rounded to bf16 into wgmma's register A fragments (16 keys
+// = two neighbouring groups); m and this thread's share l of the row sums of
+// the rounded p are updated; a is the factor exp2((m_old - m) * c) the
+// accumulator's rows must be scaled by before p v is added (0 on the first
+// tile, where m_old = -inf).  Keys past `valid` arrive as zero rows from TMA
+// and would have logit 0, not -inf: they are masked here.  No logits, p or
+// factor touches shared memory: row max and row sum are two shuffles inside
+// the quad, and l stays per thread until the end.
+template <int NG>
+static __device__ __forceinline__ void softmax_tile(float (&s)[4 * NG],
+                                                    uint32_t (&p)[NG / 2][4], float& m_lo,
+                                                    float& m_hi, float& l_lo, float& l_hi,
+                                                    float& a_lo, float& a_hi, int valid,
+                                                    float c, int t4) {
+  if (valid < 8 * NG) {
+#pragma unroll
+    for (int j = 0; j < NG; ++j) {
+      const int col = j * 8 + 2 * t4;
+      if (col >= valid) s[4 * j] = s[4 * j + 2] = -INFINITY;
+      if (col + 1 >= valid) s[4 * j + 1] = s[4 * j + 3] = -INFINITY;
+    }
+  }
+  float mx_lo = -INFINITY, mx_hi = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < NG; ++j) {
+    mx_lo = fmaxf(mx_lo, fmaxf(s[4 * j], s[4 * j + 1]));
+    mx_hi = fmaxf(mx_hi, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+  }
+  const float n_lo = fmaxf(m_lo, quad_max(mx_lo));
+  const float n_hi = fmaxf(m_hi, quad_max(mx_hi));
+  a_lo = exp2_approx((m_lo - n_lo) * c);
+  a_hi = exp2_approx((m_hi - n_hi) * c);
+  m_lo = n_lo;
+  m_hi = n_hi;
+  const float off_lo = -n_lo * c;
+  const float off_hi = -n_hi * c;
+  float sum_lo = 0.0f, sum_hi = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < NG / 2; ++kk) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int j = 2 * kk + half;
+      p[kk][2 * half] = pack_bf16(exp2_approx(fmaf(s[4 * j], c, off_lo)),
+                                  exp2_approx(fmaf(s[4 * j + 1], c, off_lo)));
+      p[kk][2 * half + 1] = pack_bf16(exp2_approx(fmaf(s[4 * j + 2], c, off_hi)),
+                                      exp2_approx(fmaf(s[4 * j + 3], c, off_hi)));
+      sum_lo += packed_sum(p[kk][2 * half]);
+      sum_hi += packed_sum(p[kk][2 * half + 1]);
+    }
+  }
+  l_lo = l_lo * a_lo + sum_lo;
+  l_hi = l_hi * a_hi + sum_hi;
+}
+
+// The 64 x 64 accumulator fragment o with its lo rows times a_lo, hi rows
+// times a_hi.
+static __device__ __forceinline__ void scale_rows(float (&o)[32], float a_lo, float a_hi) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    o[4 * j] *= a_lo;
+    o[4 * j + 1] *= a_lo;
+    o[4 * j + 2] *= a_hi;
+    o[4 * j + 3] *= a_hi;
+  }
+}
+
+// The fragment o, rows scaled and rounded to bf16, into a 64 x 64 tile laid
+// out as TMA's 128-byte swizzle wants it: the 16-byte chunk c of row r sits
+// at chunk c ^ (r % 8).  `warp` is the warp's index in its warpgroup.
+static __device__ __forceinline__ void store_tile_sw128(void* tile_base, const float (&o)[32],
+                                                        float inv_lo, float inv_hi, int warp,
+                                                        int g, int t4) {
+  unsigned char* tile = static_cast<unsigned char*>(tile_base);
+  const int r_lo = warp * 16 + g;  // r_lo % 8 == (r_lo + 8) % 8 == g
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int at = ((j ^ g) << 4) + t4 * 4;
+    *reinterpret_cast<uint32_t*>(tile + r_lo * ROW_BYTES + at) =
+        pack_bf16(o[4 * j] * inv_lo, o[4 * j + 1] * inv_lo);
+    *reinterpret_cast<uint32_t*>(tile + (r_lo + 8) * ROW_BYTES + at) =
+        pack_bf16(o[4 * j + 2] * inv_hi, o[4 * j + 3] * inv_hi);
+  }
 }
 
 }  // namespace gswm_hopper

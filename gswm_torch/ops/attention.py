@@ -1,13 +1,14 @@
 """Self-attention kernels of the PyTorch port, with their plain versions.
 
-Four kernels, hand-written CUDA for Hopper (``gswm_torch/csrc``), behind
-six wrappers; ``route_self_attention`` picks the UNet's tier as the JAX
-package does.  Every D = 64 attention in the natural, split and packed
-layouts runs the one wgmma + TMA kernel of csrc/flash_hopper.cu:
+Four kernels, hand-written CUDA for Hopper (``gswm_torch/csrc``), all on
+wgmma + TMA, behind six wrappers; ``route_self_attention`` picks the UNet's
+tier as the JAX package does.  Every D = 64 attention in the natural, split
+and packed layouts runs the one kernel of csrc/flash_hopper.cu:
 
   * ``flash_attention_split`` — split-layout flash attention on
     (B, S, H, D) q/k/v, D a multiple of 64 up to 512: csrc/flash_hopper.cu
-    at D = 64, csrc/flash_split.cu (mma.sync) from 128 up.  Port of the
+    at D = 64, csrc/flash_split.cu (D split across two consumer
+    warpgroups) from 128 up.  Port of the
     Pallas ``gswm.ops.attention.flash_attention``; serves the VAE mid-block
     attention above 4096 tokens (one head, D = 512) and the UNet's
     ``split`` route.
@@ -20,8 +21,11 @@ layouts runs the one wgmma + TMA kernel of csrc/flash_hopper.cu:
     strided views of one pair-packed (B, S, 3*P*128) qkv array.  Port of
     the Pallas ``flash_attention_packed``; the ``packed`` route.
   * ``flash_attention_transposed`` (csrc/flash_transposed.cu) — flash
-    attention on the (3*H*64, B, S) transposed projection output.  Port of
-    the Pallas ``flash_attention_transposed``; the ``transposed`` route.
+    attention on the (3*H*64, B, S) transposed projection output, the
+    tiles read as they lie (MN-major q and k).  Port of the Pallas
+    ``flash_attention_transposed``; the ``transposed`` route.  Where S is
+    no multiple of 8 no tensor map can address the rows, and a second,
+    masked kernel (mma.sync) serves the shape.
   * ``fused_qkv_attention`` (csrc/fused_qkv.cu, then the D = 64 kernel) —
     the bias-free q/k/v projections in a hand-written wgmma + TMA GEMM,
     then attention.  Port of the Pallas ``flash_attention_fused_qkv`` in
@@ -402,8 +406,9 @@ def flash_attention_transposed(qkv_t: torch.Tensor, heads: int) -> torch.Tensor:
     -> (H*D, B, S), which ``to_out`` contracts over dim 0: the counterpart of
     ``gswm.ops.attention.flash_attention_transposed``.
 
-    CPU: ``flash_attention_transposed_reference`` (any D).  CUDA: the kernel
-    of csrc/flash_transposed.cu (bf16, D = 64, any B and S)."""
+    CPU: ``flash_attention_transposed_reference`` (any D).  CUDA: the kernels
+    of csrc/flash_transposed.cu (bf16, D = 64, any B and S: wgmma + TMA where
+    S % 8 == 0, the masked kernel elsewhere)."""
     if qkv_t.dim() != 3 or qkv_t.shape[0] % (3 * heads):
         raise ValueError(f"flash_attention_transposed: qkv_t {tuple(qkv_t.shape)} "
                          f"is not (3 * {heads} * D, B, S)")

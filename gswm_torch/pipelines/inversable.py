@@ -65,10 +65,11 @@ class InversablePipeline:
     # not change results.
     vae_chunk: int = 32
 
-    def __init__(self, preset: ModelPreset | str = "sd-2-1-base", device="cpu",
+    def __init__(self, preset: ModelPreset | str = "sd-2-1-base", device="cuda",
                  dtype: torch.dtype = torch.bfloat16,
                  generator: Optional[torch.Generator] = None):
-        """Random weights from ``generator`` (default: seed 0 on ``device``);
+        """On the card unless ``device`` names another (``"cpu"``).  Random
+        weights from ``generator`` (default: seed 0 on ``device``);
         ``models.bridge`` loads the JAX package's.  The UNet and the VAE
         compute in ``dtype``; the text encoder in float32."""
         if isinstance(preset, str):

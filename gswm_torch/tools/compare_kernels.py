@@ -1,5 +1,5 @@
-"""Time this checkout's D = 64 flash attention and projection GEMM against
-another checkout's, in turns, on one card.
+"""Time this checkout's attention kernels and projection GEMM against another
+checkout's, in turns, on one card.
 
     python -m gswm_torch.tools.compare_kernels --parent DIR [--out FILE.json]
 
@@ -8,8 +8,9 @@ the parent commit unpacked into a git-ignored directory).  Both kernel
 libraries are built (each in its own ``build/``) and called through their C
 entry points on the same tensors, so nothing but the kernels differs:
 
-  * flash attention at every D = 64 shape ``chip_smoke.py`` phase 2 gives it
+  * flash attention at every shape ``chip_smoke.py`` phase 2 gives it: D = 64
     (natural layout, K1's core, the split wrapper's ragged shape, packed),
+    the split layout from D = 128 up (K4), and the transposed layout (K7);
     CUDA-event times in the order parent, change, change, parent;
   * fused-qkv self-attention (GEMM + core) at K1's four shapes, likewise,
     and the device time of each side's ``qkv_proj_kernel`` alone from
@@ -36,14 +37,14 @@ from gswm_torch import native, roofline
 from gswm_torch.tools import paths
 
 ROUNDS = ("parent", "change", "change", "parent")
-# the D = 64 shapes of chip_smoke.py's phase 2 (gswm_torch/tools/paths.py)
-FLASH_SHAPES = (  # (label, B, Sq, Sk, H)
-    *((f"K2 ({b}, {s}, {h})", b, s, s, h) for b, s, h in paths.K2_SHAPES),
-    *((f"K4 ({b}, {s}, {h}, {d})", b, s, s, h) for b, s, h, d in paths.K4_SHAPES
-      if d == 64),
-    *((f"K1 core ({b}, {s}, {h})", b, s, s, h) for b, s, _, h in paths.K1_SHAPES))
+# the shapes of chip_smoke.py's phase 2 (gswm_torch/tools/paths.py)
+FLASH_SHAPES = (  # (label, B, Sq, Sk, H, D)
+    *((f"K2 ({b}, {s}, {h})", b, s, s, h, 64) for b, s, h in paths.K2_SHAPES),
+    *((f"K4 ({b}, {s}, {h}, {d})", b, s, s, h, d) for b, s, h, d in paths.K4_SHAPES),
+    *((f"K1 core ({b}, {s}, {h})", b, s, s, h, 64) for b, s, _, h in paths.K1_SHAPES))
 PACKED_SHAPES = tuple((b, s, paths.pairs_of(h))  # (B, S, P)
                       for b, s, h in paths.LEVEL0_SHAPES)
+TRANSPOSED_SHAPES = paths.K7_SHAPES  # (B, S, H)
 K1_SHAPES = paths.K1_SHAPES  # (B, S, C, H)
 
 
@@ -129,23 +130,23 @@ def main() -> None:
         return (torch.randn(shape, generator=g, device=dev) * scale).bfloat16()
 
     result = {"card": card, "rounds": list(ROUNDS), "flash": [], "packed": [],
-              "fused_qkv": [], "host_us": {}}
-    for label, b, sq, sk, h in FLASH_SHAPES:
-        q, k, v = rand(b, sq, h, 64), rand(b, sk, h, 64), rand(b, sk, h, 64)
+              "transposed": [], "fused_qkv": [], "host_us": {}}
+    for label, b, sq, sk, h, d in FLASH_SHAPES:
+        q, k, v = rand(b, sq, h, d), rand(b, sk, h, d), rand(b, sk, h, d)
         outs = {side: torch.empty_like(q) for side in libs}
         fns = {side: (lambda side=side: libs[side].call(
             "gswm_flash_split", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            outs[side].data_ptr(), b, sq, sk, h, 64, stream)) for side in libs}
+            outs[side].data_ptr(), b, sq, sk, h, d, stream)) for side in libs}
         t = in_turns(fns, args.iters)
         diff = (outs["parent"].float() - outs["change"].float()).abs().max().item()
-        bound, _ = roofline.bound_ms(*roofline.attention_cost(b, sq, sk, h, 64),
+        bound, _ = roofline.bound_ms(*roofline.attention_cost(b, sq, sk, h, d),
                                      roofline.PEAK_BF16)
         ratio = sum(t["parent"]) / sum(t["change"])
         print(f"flash {label}: parent {t['parent']} change {t['change']} ms, "
               f"{ratio:.2f}x, bound {bound:.4f} ms, max|parent - change| {diff:.5f}",
               flush=True)
-        result["flash"].append(dict(label=label, shape=[b, sq, sk, h], **t, ratio=ratio,
-                                    bound_ms=bound, max_abs_diff=diff))
+        result["flash"].append(dict(label=label, shape=[b, sq, sk, h, d], **t,
+                                    ratio=ratio, bound_ms=bound, max_abs_diff=diff))
     for b, s, pairs in PACKED_SHAPES:
         qkv = rand(b, s, 3 * pairs * 128)
         outs = {side: qkv.new_empty((b, s, pairs * 128)) for side in libs}
@@ -160,6 +161,22 @@ def main() -> None:
               flush=True)
         result["packed"].append(dict(shape=[b, s, pairs], **t, ratio=ratio,
                                      max_abs_diff=diff))
+    for b, s, h in TRANSPOSED_SHAPES:
+        qkv_t = rand(3 * h * 64, b, s)
+        outs = {side: qkv_t.new_empty((h * 64, b, s)) for side in libs}
+        fns = {side: (lambda side=side: libs[side].call(
+            "gswm_flash_transposed", qkv_t.data_ptr(), outs[side].data_ptr(), b, s, h,
+            stream)) for side in libs}
+        t = in_turns(fns, args.iters)
+        diff = (outs["parent"].float() - outs["change"].float()).abs().max().item()
+        bound, _ = roofline.bound_ms(*roofline.attention_cost(b, s, s, h, 64),
+                                     roofline.PEAK_BF16)
+        ratio = sum(t["parent"]) / sum(t["change"])
+        print(f"transposed (B={b}, S={s}, H={h}): parent {t['parent']} change "
+              f"{t['change']} ms, {ratio:.2f}x, bound {bound:.4f} ms, "
+              f"max|parent - change| {diff:.5f}", flush=True)
+        result["transposed"].append(dict(shape=[b, s, h], **t, ratio=ratio,
+                                         bound_ms=bound, max_abs_diff=diff))
     for b, s, c, h in K1_SHAPES:
         n = h * 64
         x = rand(b, s, c)

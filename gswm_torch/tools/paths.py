@@ -13,6 +13,9 @@ Two paths, random weights from a seed, bf16, on one card:
 
 from __future__ import annotations
 
+import contextlib
+import os
+
 import numpy as np
 import torch
 
@@ -33,12 +36,48 @@ K1_SHAPES = ((2, 1024, 640, 10), (2, 256, 1280, 20),
 # K2 (B, S, H): UNet level 0 at 512x512 (4096 tokens) and 768x768 (9216)
 K2_SHAPES = ((2, 4096, 5), (2, 9216, 5), (4, 9216, 5))
 # K4 (B, S, H, D): the VAE mid attention at 768x768 (one head, D = 512, 9216
-# tokens; the decoder takes one image a call, the encoder two), and a ragged
-# multi-head D = 64 shape
-K4_SHAPES = ((1, 9216, 1, 512), (2, 9216, 1, 512), (2, 1000, 10, 64))
+# tokens; the decoder takes one image a call, the encoder two), a ragged
+# multi-head D = 64 shape, and two ragged multi-head shapes of the widths
+# between: D = 128, and 192 whose three 64-column panels split 2 + 1
+K4_SHAPES = ((1, 9216, 1, 512), (2, 9216, 1, 512), (2, 1000, 10, 64),
+             (2, 1000, 3, 128), (1, 1000, 2, 192))
 # K6 and K7 (B, S, H): UNet level 0 under their switches, at 768x768 (batch
 # 2, and 4 under guidance) and 512x512, and a ragged shape
 LEVEL0_SHAPES = ((2, 9216, 5), (4, 9216, 5), (2, 4096, 5), (1, 1000, 3))
+# K7 also where S is no multiple of 8 (rows not 16-byte aligned): its masked
+# kernel; every shape above takes its wgmma + TMA kernel
+K7_SHAPES = (*LEVEL0_SHAPES, (1, 1001, 3))
+
+# K8 (NCHW shape, activation): the largest GroupNorm of the 768x768 path (VAE)
+# and the UNet's level-0 one, the two whose times the records quote
+K8_PROBE_CASES = (((1, 128, 768, 768), "silu"), ((2, 320, 96, 96), "silu"))
+
+# The JAX package's switch sets that move the UNet's level-0 and level-1/2
+# self-attention off the default route: (a) cres -> K2, (b) packed K6, (c)
+# transposed K7, (d) seqhead -> K1, (e) no fused qkv -> K4 at level 1
+TIER_SWITCHES = {
+    "a": {"GSWM_XF_ATTN": "0"},
+    "b": {"GSWM_XF_ATTN": "0", "GSWM_CRES_ATTN": "0", "GSWM_PACKED_ATTN": "1"},
+    "c": {"GSWM_XF_ATTN": "0", "GSWM_CRES_ATTN": "0", "GSWM_TRANSPOSED_ATTN": "1"},
+    "d": {"GSWM_FUSED_QKV_MODE": "seqhead"},
+    "e": {"GSWM_FUSED_QKV": "0"},
+}
+
+
+@contextlib.contextmanager
+def route_switches(switches: dict):
+    """The attention route's switches set to ``switches`` alone; the
+    environment restored afterwards."""
+    from gswm_torch.ops.attention import ROUTE_SWITCHES
+
+    saved = {name: os.environ.pop(name) for name in ROUTE_SWITCHES if name in os.environ}
+    os.environ.update(switches)
+    try:
+        yield
+    finally:
+        for name in ROUTE_SWITCHES:
+            os.environ.pop(name, None)
+        os.environ.update(saved)
 
 
 def pairs_of(heads: int) -> int:

@@ -5,12 +5,16 @@
 On one card, random weights from a seed, bf16:
 
   * sd-2-1 at 768x768, batch 2: one UNet forward (device time, and the
-    share and launches of each kernel), then the watermark chain of
+    share and launches of each kernel), the same forward's device time under
+    each attention switch set of ``paths.TIER_SWITCHES`` (``chip_smoke.py``
+    phase 5), then the watermark chain of
     ``chip_smoke.py`` phase 4c (embed -> prompt ids -> 30-step DDIM at
     guidance 7.5 -> VAE decode -> VAE encode -> 30-step inversion -> decode)
     once unprofiled for its wall time and once under the profiler;
   * sd-2-1-base at 512x512, batch 4: the extraction chain of phase 3b
     (embed + VAE encode + 30-step inversion + decode), likewise.
+  * the GroupNorm kernel (K8) at ``paths.K8_PROBE_CASES``: device time a call
+    beside the wrapper's CUDA-event time a call, which holds its host side.
 Both chains, their inputs and seeds are ``gswm_torch/tools/paths.py``'s, as
 ``chip_smoke.py``'s are.
 
@@ -33,6 +37,7 @@ from pathlib import Path
 import torch
 
 from gswm_torch.tools import paths
+from gswm_torch.tools.compare_kernels import device_ms, time_ms
 
 
 def profiled(fn, top: int) -> dict:
@@ -108,6 +113,16 @@ def main() -> None:
     report("768x768 UNet forward x3, batch 2", res_f)
     print(f"  device time per forward {res_f['busy_s'] / 3 * 1e3:.3f} ms", flush=True)
     result["unet_forward_768"] = res_f
+    result["unet_forward_768_tiers"] = {}
+    for label, switches in paths.TIER_SWITCHES.items():
+        with paths.route_switches(switches):
+            forward()
+            res_t = profiled(forward, 3)
+        env = " ".join(f"{k}={v}" for k, v in switches.items())
+        print(f"  ({label}) {env}: device time per forward "
+              f"{res_t['busy_s'] / 3 * 1e3:.3f} ms", flush=True)
+        result["unet_forward_768_tiers"][label] = dict(
+            device_ms_per_forward=res_t["busy_s"] / 3 * 1e3, top=res_t["kernels"])
     chain_768(20)
     result["chain_768_wall_s"] = wall_of(chain_768)
     print(f"768x768 chain, batch 2, unprofiled: wall {result['chain_768_wall_s']:.4f} s",
@@ -131,6 +146,28 @@ def main() -> None:
           f"{result['chain_512_wall_s']} s", flush=True)
     result["chain_512"] = profiled(chain_512, args.top)
     report("512x512 extraction chain, batch 4, profiled", result["chain_512"])
+    del pipe
+    torch.cuda.empty_cache()
+
+    # ---- K8 alone: the device's time against the wrapper's
+    from gswm_torch.ops import groupnorm as gn
+
+    result["group_norm"] = []
+    g = torch.Generator(device="cuda").manual_seed(8)
+    for shape, act in paths.K8_PROBE_CASES:
+        x = (torch.randn(shape, generator=g, device="cuda") * 2 + 0.5).bfloat16()
+        w, b = torch.ones(shape[1], device="cuda"), torch.zeros(shape[1], device="cuda")
+
+        def call():
+            gn.fused_group_norm(x, w, b, 32, 1e-5, act)
+
+        wrapper = time_ms(call, 50)
+        device = device_ms(call, 50, "gn_")
+        print(f"K8 {shape} {act}: wrapper {wrapper:.4f} ms a call (CUDA events), device "
+              f"{device:.4f} ms a call", flush=True)
+        result["group_norm"].append(dict(shape=list(shape), act=act, wrapper_ms=wrapper,
+                                         device_ms=device))
+        del x
     print(json.dumps(result))
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)

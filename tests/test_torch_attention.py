@@ -130,6 +130,10 @@ def test_wrappers_reject_other_devices():
     (1, 1024, 1024, 1, 512),  # the VAE mid shape of tests/test_ops_attention.py:78-88
     (2, 700, 700, 3, 64),  # ragged, several heads
     (1, 300, 77, 2, 64),  # 77 keys: the einsum branch on both sides
+    # the widths the CUDA kernel splits across its two consumer warpgroups
+    # (two panels of 64 columns, and three: 2 + 1), ragged, Sq != Sk
+    (2, 130, 577, 2, 128),
+    (1, 333, 1030, 2, 192),
 ])
 def test_split_matches_jax_flash_attention(b, sq, sk, h, d):
     """fp32, atol/rtol 3e-5 (the bound of tests/test_ops_attention.py:87)."""

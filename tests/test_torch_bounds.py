@@ -108,3 +108,71 @@ def test_one_head_dim_64_flash_kernel_and_no_switch_picks_another():
     assert hopper.count('extern "C"') == 1 and "gswm_flash_packed" in hopper
     for src in (PORT / "csrc").glob("*.cu*"):
         assert "getenv" not in src.read_text(), src.name
+
+
+def _code(name: str) -> str:
+    """A CUDA source without its // comments."""
+    text = (PORT / "csrc" / name).read_text()
+    return "\n".join(line.split("//")[0] for line in text.splitlines())
+
+
+def test_split_kernel_is_a_wgmma_and_tma_kernel():
+    """flash_split.cu (K4 from D = 128 up) runs both products on wgmma (the
+    logits from shared memory, p v with p from registers) and moves every tile
+    through TMA; it holds no mma.sync, ldmatrix or cp.async code."""
+    split = _code("flash_split.cu")
+    for used in ("wgmma_m64n64k16_ss<0, 0>", "wgmma_m64n64k16_rs(", "tma_load_4d(",
+                 "tma_store_4d(", "mbar_wait(", "reg_inc<", "softmax_tile<"):
+        assert used in split, used
+    for gone in ("mma_bf16", "mma.sync", "ldmatrix", "cp_async", "cp.async.cg",
+                 "__syncthreads();\n    load_tile"):
+        assert gone not in split, gone
+    for d in (128, 192, 256, 320, 384, 448, 512):  # every width stays instantiated
+        assert f"case {d}: return launch<{d}>(" in split
+
+
+def test_transposed_kernel_keeps_mma_sync_only_for_unaligned_rows():
+    """flash_transposed.cu: the wgmma + TMA kernel (both operands of the
+    logits MN-major, v K-major) for S % 8 == 0, and one mma.sync kernel, the
+    masked one, which the launcher takes only where S % 8 != 0; no cp.async
+    code."""
+    text = _code("flash_transposed.cu")
+    tma, masked = text.split("namespace masked {")
+    for used in ("wgmma_m64n64k16_ss<1, 1>", "wgmma_m64n64k16_rs<0>", "tma_load_3d(",
+                 "tma_store_3d(", "softmax_tile<"):
+        assert used in tma, used
+    assert "mma_bf16" not in tma and "ldmatrix" not in tma
+    assert "mma_bf16(" in masked and "flash_transposed_masked_kernel" in masked
+    assert "cp_async" not in text and "cp.async.cg" not in text
+    launcher = masked.split('extern "C"')[1]
+    assert "if (S % 8 == 0) return" in launcher
+    assert launcher.index("S % 8 == 0") < launcher.index("flash_transposed_masked_kernel")
+
+
+def test_mma_sync_survives_in_one_kernel_only():
+    """mma.sync, ldmatrix and cp.async are gone from csrc/ except in
+    flash_transposed.cu's masked kernel; the three flash kernels share one
+    softmax (hopper.cuh)."""
+    for src in sorted((PORT / "csrc").glob("*.cu*")):
+        code = _code(src.name)
+        if src.name != "flash_transposed.cu":
+            for gone in ("mma.sync", "mma_bf16", "ldmatrix", "cp.async.cg"):
+                assert gone not in code, (src.name, gone)
+        assert "getenv" not in code, src.name
+    for name in ("flash_hopper.cu", "flash_split.cu", "flash_transposed.cu"):
+        assert "softmax_tile<" in _code(name), name
+    assert _code("hopper.cuh").count("void softmax_tile(") == 1
+
+
+@pytest.mark.parametrize("pattern", [r"is_available", r"^\s*except\b"])
+def test_port_has_no_device_probe_and_no_fallback(pattern):
+    """Nothing in gswm_torch/ asks whether there is a card in order to choose
+    a device (the tools ask only to refuse to run without one), and no
+    wrapper catches a kernel's failure to run its plain version instead."""
+    allowed = {"tools/compare_kernels.py", "tools/profile_paths.py"}
+    hits = [f"{path.relative_to(PORT)}:{n}"
+            for path in sorted(PORT.rglob("*.py"))
+            if str(path.relative_to(PORT)) not in allowed
+            for n, line in enumerate(path.read_text().splitlines(), 1)
+            if re.search(pattern, line)]
+    assert not hits, hits

@@ -64,7 +64,7 @@ def test_keystream_cpu_uses_plain_version():
     key, nonce = bytes(32), bytes(16)
     got = chacha.keystream_words(key, nonce, 4, "cpu")
     assert chacha.keystream_words.launches == before
-    assert torch.equal(got, chacha.keystream_words_reference(key, nonce, 4))
+    assert torch.equal(got, chacha.keystream_words_reference(key, nonce, 4, "cpu"))
     assert got.dtype == torch.int32 and got.shape == (4, 16)
 
 
@@ -76,7 +76,7 @@ def test_keystream_rejects_other_devices():
 @pytest.mark.parametrize("n_bits", [512, 700, 16384])
 def test_keystream_bits_match_jax(n_bits):
     key, nonce = bytes(range(32)), CARRY_NONCE
-    ours = chacha.keystream_bits(key, nonce, n_bits).numpy()
+    ours = chacha.keystream_bits(key, nonce, n_bits, "cpu").numpy()
     want = np.asarray(jchacha.keystream_bits(key, nonce, n_bits, backend="xla"))
     np.testing.assert_array_equal(ours, want)
 
@@ -88,7 +88,8 @@ def test_embed_matches_jax(l, replicate, batch):
     n_draws = 1 if replicate else batch
     u = np.random.default_rng(l).random((n_draws, cfg.total_elements),
                                         dtype=np.float32)
-    lat, msg = embed.embed_latents(cfg, batch=batch, u=u, replicate=replicate)
+    lat, msg = embed.embed_latents(cfg, batch=batch, u=u, replicate=replicate,
+                                   device="cpu")
     jlat, jmsg = jembed.embed_latents(jcfg, batch=batch, u=jnp.asarray(u),
                                       replicate=replicate)
     assert msg == jmsg
@@ -105,7 +106,7 @@ def test_embed_matches_jax(l, replicate, batch):
 def test_encrypted_payload_bits_match_jax():
     cfg, jcfg = _cfgs(message_bits=64, message="payload!")
     msg = b"payload!"
-    ours = embed.encrypted_payload_bits(cfg.resolved(), msg).numpy()
+    ours = embed.encrypted_payload_bits(cfg.resolved(), msg, "cpu").numpy()
     want = np.asarray(jembed.encrypted_payload_bits(jcfg.resolved(), msg))
     np.testing.assert_array_equal(ours, want)
 
@@ -113,9 +114,9 @@ def test_encrypted_payload_bits_match_jax():
 def test_embed_with_generator_is_seeded_and_roundtrips():
     cfg, _ = _cfgs()
     a, msg = embed.embed_latents(cfg, generator=torch.Generator().manual_seed(3),
-                                 batch=2)
+                                 batch=2, device="cpu")
     b, _ = embed.embed_latents(cfg, generator=torch.Generator().manual_seed(3),
-                               batch=2)
+                               batch=2, device="cpu")
     assert torch.equal(a, b) and not torch.equal(a[0], a[1])
     voted = decode.recover_message_bits(a, cfg).numpy()
     want = np.unpackbits(np.frombuffer(msg, np.uint8))
@@ -130,7 +131,7 @@ def test_watermarked_latent_is_standard_normal(l):
 
     cfg, _ = _cfgs(width=512, height=512, message_bits=256, l=l)
     lat, _ = embed.embed_latents(cfg, generator=torch.Generator().manual_seed(l),
-                                 batch=2)
+                                 batch=2, device="cpu")
     assert stats.kstest(lat.flatten().numpy(), "norm").pvalue > 1e-3
 
 

@@ -83,10 +83,11 @@ def test_fused_qkv_kernel_matches_plain(cuda, b, s, c, h):
 
 @pytest.mark.parametrize("sq,sk", [(1, 577), (65, 1000), (300, 577),
                                    (1000, 1000), (9216, 9216)])
-@pytest.mark.parametrize("h,d", [(3, 64), (1, 512)])
+@pytest.mark.parametrize("h,d", [(3, 64), (1, 512), (2, 128), (2, 192)])
 def test_split_kernel_matches_plain(cuda, sq, sk, h, d):
-    """K4 at D = 64 and 512: short query lengths, ragged key tails (577 and
-    1000 keys are not multiples of the 64-key tile) and the VAE's 9216."""
+    """K4 at D = 64, 128, 192 (an odd panel count: the consumers own 2 + 1)
+    and 512: short query lengths, ragged key tails (577 and 1000 keys are not
+    multiples of the 64-key tile) and the VAE's 9216."""
     assert sk >= attn.SPLIT_MIN_KEYS  # the wrapper's kernel route
     b = 2
     g = torch.Generator(device=cuda).manual_seed(sq + sk + d)
@@ -116,6 +117,59 @@ def test_flash_kernel_tiles_do_not_cross_the_batch(cuda):
     assert_attention_close(got[0], want[0])  # batch 0 on its own scale (|out| < 1)
     err = (got[1] - want[1]).abs().max().item()
     assert err <= REL_BOUND * want[1].abs().max().item()
+
+
+@pytest.mark.parametrize("d", [128, 192, 256, 320, 384, 448, 512])
+def test_split_kernel_every_width(cuda, d):
+    """K4 at every width its launcher instantiates: the ring is 4 stages deep
+    at D <= 192, 3 at 256, 2 at 320 and a single k and v buffer from 384 up,
+    and the consumers own equal panel counts or one more and one fewer; 700
+    keys are 11 tiles, so every ring wraps, and the last tile is ragged."""
+    g = torch.Generator(device=cuda).manual_seed(d)
+    q = torch.randn((2, 130, 2, d), generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn((2, 700, 2, d), generator=g, device=cuda).bfloat16()
+            for _ in range(2))
+    got = attn.flash_attention_split(q, k, v)
+    want = attn.flash_attention_split_reference(q.float(), k.float(), v.float())
+    assert_attention_close(got, want)
+
+
+@pytest.mark.parametrize("d", [128, 192, 512])
+def test_split_kernel_tiles_do_not_cross_the_batch(cuda, d):
+    """K4 from D = 128 up: 1000 rows are not a multiple of the 64-row tiles,
+    so the last q, k and v tiles of batch 0 reach past its end; with batch
+    1's k and v 100x batch 0's, a tile that read on into batch 1 would move
+    batch 0's output by O(1) of its own scale.  Batch 1's q is 1/100, so its
+    own logits stay O(1): D^-0.5 is no power of two here, the kernel rounds
+    the scaled q to bf16 as the TPU kernels do, and logits of O(100) would
+    turn that rounding into another argmax than the plain version's."""
+    b, s, h = 2, 1000, 2
+    g = torch.Generator(device=cuda).manual_seed(d)
+    q, k, v = (torch.randn((b, s, h, d), generator=g, device=cuda) for _ in range(3))
+    q[1] /= 100
+    k[1] *= 100
+    v[1] *= 100
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    got = attn.flash_attention_split(q, k, v).float()
+    want = attn.flash_attention_split_reference(q.float(), k.float(), v.float())
+    assert_attention_close(got[0], want[0])  # batch 0 on its own scale (|out| < 1)
+    err = (got[1] - want[1]).abs().max().item()
+    assert err <= REL_BOUND * want[1].abs().max().item()
+
+
+@pytest.mark.parametrize("sq,h,d", [(130, 2, 128), (1, 1, 192), (64, 3, 192),
+                                    (130, 1, 512)])
+def test_split_kernel_masks_ragged_keys(cuda, sq, h, d):
+    """K4 from D = 128 up: 577 keys leave one real key in the last 64-key
+    tile; the rows TMA zero-fills past Sk must be masked, not attended to
+    with logit 0.  v = 1 everywhere makes every output exactly 1 whatever the
+    weights, unless zero-filled keys took some."""
+    sk = 577
+    g = torch.Generator(device=cuda).manual_seed(sq + d)
+    q = torch.randn((2, sq, h, d), generator=g, device=cuda).bfloat16()
+    k = torch.randn((2, sk, h, d), generator=g, device=cuda).bfloat16()
+    ones = attn.flash_attention_split(q, k, torch.ones_like(k)).float()
+    torch.testing.assert_close(ones, torch.ones_like(ones), rtol=0, atol=2**-7)
 
 
 @pytest.mark.parametrize("sq,sk,h", [(130, 577, 5), (1, 577, 1), (64, 577, 2)])
@@ -301,11 +355,15 @@ def test_packed_kernel_matches_plain(cuda, b, pairs, s):
     assert torch.equal(got[..., -64:], torch.zeros_like(got[..., -64:]))
 
 
-@pytest.mark.parametrize("s", [1, 65, 300, 1000, 1024])
+@pytest.mark.parametrize("s", [1, 65, 300, 1001, 8, 72, 1000, 1024, 2056, 2120, 4096])
 @pytest.mark.parametrize("b,h", [(1, 1), (2, 5)])
 def test_transposed_kernel_matches_plain(cuda, b, h, s):
-    """K7 at ragged lengths: S = 1, 65, 300 and 1000 are not multiples of 8,
-    so their rows are not 16-byte aligned (the element-wise instance)."""
+    """K7 at ragged lengths: S = 1, 65, 300 and 1001 are not multiples of 8,
+    so their rows are not 16-byte aligned and no tensor map can address them
+    (the masked element-wise kernel); the others go through the wgmma + TMA
+    kernel, with ragged last tiles of keys and of queries.  At (2, 5) and
+    2056 or 2120 tokens an H100 takes 128-token blocks, whose second
+    warpgroup's last tile lies wholly (2056) or partly (2120) past S."""
     g = torch.Generator(device=cuda).manual_seed(s + h)
     qkv_t = torch.randn((3 * h * 64, b, s), generator=g, device=cuda).bfloat16()
     before = attn.flash_attention_transposed.launches
@@ -313,6 +371,45 @@ def test_transposed_kernel_matches_plain(cuda, b, h, s):
     assert attn.flash_attention_transposed.launches == before + 1
     assert_attention_close(got, attn.flash_attention_transposed_reference(
         qkv_t.float(), h))
+
+
+@pytest.mark.parametrize("s", [136, 200])
+def test_transposed_kernel_attends_to_the_chosen_key(cuda, s):
+    """K7's 128-key tile is two 64-token panels, each its own wgmma operand:
+    a wrong panel offset would read the wrong keys without any fault.  Query
+    i is 4x the key (37 i + 5) % S, so its logits peak on that key alone
+    (~32 against N(0, 16) for the rest) and the output must be that key's v
+    row, within bf16 rounding of v (|v| < 8: 2^-6) and the rest's weight."""
+    h, d = 2, 64
+    g = torch.Generator(device=cuda).manual_seed(s)
+    k = torch.randn((1, s, h, d), generator=g, device=cuda).bfloat16()
+    v = torch.randn((1, s, h, d), generator=g, device=cuda).bfloat16()
+    chosen = (37 * torch.arange(s, device=cuda) + 5) % s
+    q = (4 * k[:, chosen].float()).bfloat16()
+    qkv_t = torch.cat([t.permute(2, 3, 0, 1).reshape(h * d, 1, s) for t in (q, k, v)])
+    qkv_t = qkv_t.contiguous()
+    got = attn.flash_attention_transposed(qkv_t, h)
+    assert_attention_close(got, attn.flash_attention_transposed_reference(
+        qkv_t.float(), h))
+    want = v[:, chosen].permute(2, 3, 0, 1).reshape(h * d, 1, s).float()
+    torch.testing.assert_close(got.float(), want, rtol=0, atol=2**-5)
+
+
+def test_transposed_kernel_tiles_do_not_cross_the_batch(cuda):
+    """K7 at 1000 tokens (the wgmma + TMA kernel; not a multiple of its
+    128-key or 64-token tiles): batch 1's k and v are 100x batch 0's, and in
+    this layout batch 1's tokens follow batch 0's in every row, so a tile
+    that read on would move batch 0's output by O(1) of its own scale."""
+    b, s, h = 2, 1000, 3
+    g = torch.Generator(device=cuda).manual_seed(13)
+    qkv_t = torch.randn((3 * h * 64, b, s), generator=g, device=cuda)
+    qkv_t[h * 64:, 1] *= 100
+    qkv_t = qkv_t.bfloat16()
+    got = attn.flash_attention_transposed(qkv_t, h).float()
+    want = attn.flash_attention_transposed_reference(qkv_t.float(), h)
+    assert_attention_close(got[:, 0], want[:, 0])
+    err = (got[:, 1] - want[:, 1]).abs().max().item()
+    assert err <= REL_BOUND * want[:, 1].abs().max().item()
 
 
 def test_transposed_kernel_is_exact_softmax_above_60(cuda):
@@ -398,6 +495,25 @@ def test_attention_tiers_agree_on_card(cuda, monkeypatch, switches, wrapper):
         got = mod(x).float()
     assert fn.launches == before + 1
     torch.testing.assert_close(got, want, rtol=0, atol=BOUND)
+
+
+def test_entry_points_default_to_the_card(cuda):
+    """With no ``device`` the pipeline is built on, and the embedding and the
+    keystream are returned on, the card."""
+    from gswm_torch import GSConfig, embed_latents
+    from gswm_torch.pipelines import InversablePipeline
+
+    pipe = InversablePipeline("tiny")
+    assert pipe.device.type == "cuda"
+    assert {p.device.type for p in pipe.unet.parameters()} == {"cuda"}
+    cfg = GSConfig(key_hex="22" * 32, nonce_hex="33" * 16, message="lthero",
+                   width=64, height=64, message_bits=32)
+    zt, _ = embed_latents(cfg)
+    assert zt.device.type == "cuda"
+    before = chacha.keystream_words.launches
+    bits = chacha.keystream_bits(bytes(range(32)), bytes(16), 700)
+    assert bits.device.type == "cuda" and bits.shape == (700,)
+    assert chacha.keystream_words.launches == before + 1
 
 
 def test_tiny_pipeline_closed_loop_on_card(cuda):

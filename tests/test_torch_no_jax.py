@@ -25,7 +25,8 @@ def test_port_imports_no_jax():
         from gswm_torch.schedulers import dpm  # noqa: F401
         cfg = GSConfig(key_hex="22" * 32, nonce_hex="33" * 16, message="x",
                        width=64, height=64, message_bits=32)
-        zt, _ = embed_latents(cfg, generator=torch.Generator().manual_seed(0))
+        zt, _ = embed_latents(cfg, generator=torch.Generator().manual_seed(0),
+                              device="cpu")
         pipe = InversablePipeline("tiny", device="cpu", dtype=torch.float32)
         ids = torch.randint(0, 1000, (1, 77), generator=torch.Generator().manual_seed(1))
         images = pipe.generate(zt, prompt_ids=ids, num_steps=2, scheduler="DPMs")

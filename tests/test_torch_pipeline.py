@@ -59,7 +59,7 @@ def test_closed_loop_bits_equal_jax(pipes):
     jpipe, pipe = pipes
     cfg, jcfg = GSConfig(**BASE), JGSConfig(**BASE)
     u = np.random.default_rng(5).random((2, cfg.total_elements), dtype=np.float32)
-    zt, msg = embed_latents(cfg, batch=2, u=u)
+    zt, msg = embed_latents(cfg, batch=2, u=u, device="cpu")
     jzt, jmsg = j_embed(jcfg, batch=2, u=jnp.asarray(u))
     assert msg == jmsg
 
@@ -113,7 +113,7 @@ def test_unported_options_raise():
 def _embedded(seed=5):
     cfg, jcfg = GSConfig(**BASE), JGSConfig(**BASE)
     u = np.random.default_rng(seed).random((2, cfg.total_elements), dtype=np.float32)
-    zt, msg = embed_latents(cfg, batch=2, u=u)
+    zt, msg = embed_latents(cfg, batch=2, u=u, device="cpu")
     jzt, _ = j_embed(jcfg, batch=2, u=jnp.asarray(u))
     return cfg, jcfg, zt, jzt, msg
 
