@@ -28,15 +28,23 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
                 (fused GroupNorm) at every distinct (shape, eps, act) of the
                 768x768 path's GroupNorms, collected by forward hooks during
                 one UNet forward at batch 2 and at 4, one VAE decode of one
-                image and one encode of two.
+                image and one encode of two; one call under the profiler
+                must be one kernel and allocate the output alone.  The batch
+                ChaCha20 kernel (K3 over a key table) bit-exact against its
+                plain version at (rows, blocks) = (4, 32), (4096, 32) and
+                (10000, 32), against the single-key kernel row by row, one
+                row's counter carrying into the high word; one
+                batch_keystream_bits call must be one kernel.
   3. extraction path, sd-2-1-base at 512x512, batch 4 (full batch; the time
      limit does not need a smaller one), random weights from a seed:
        (a) latent closed loop: embed -> 30-step DDIM generate -> 30-step
            inversion -> decode; voted bit accuracy >= 0.99 on every image;
        (b) the extraction chain (bench.py:173-177) on random images: embed +
            VAE encode + 30-step inversion + decode; finite, shaped, timed.
-     K1, K2 and K3 must launch (K1/K2 exactly 10/5 per UNet forward); K4
-     must not (the VAE attention's 4096 tokens keep the plain path).
+     K1 and K2 must launch exactly 10 and 5 times per UNet forward; K3
+     exactly once on the whole path (the first embed: every later embed and
+     decode takes the cached keystream); K4 must not (the VAE attention's
+     4096 tokens keep the plain path).
   4. generation path, sd-2-1 (v-prediction) at 768x768, batch 2, random
      weights from a seed:
        (a) latent closed loop with DDIM at guidance 1.0, and (b) with DPM++:
@@ -46,7 +54,7 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
            decode; finite images in [0, 1], generation and extraction
            images/s (second pass).
      K4 must launch once per VAE chunk of (c): 2 decoder and 1 encoder
-     launches at batch 2; K1, K2 and K3 must launch too.
+     launches at batch 2; K1 and K2 per forward as above; K3 exactly once.
   5. attention tiers, sd-2-1 at 768x768, batch 2: under each of the JAX
      package's switch sets in turn (the environment restored after each) —
        (a) GSWM_XF_ATTN=0: cres, K2 at level 0;
@@ -57,17 +65,31 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
      one UNet forward on the same latents, timestep and context as the
      default route, within TIER_REL_BOUND of it, with exact launch counts;
      its ms (CUDA events); and the latent closed loop (embed -> 30-step DDIM
-     -> 30-step inversion -> decode) at bit accuracy >= 0.99 on every image.
+     -> 30-step inversion -> decode) at bit accuracy >= 0.99 on every image;
+     K3 does not launch (phase 4 left the keystream of this key cached).
   6. GroupNorm op — K8 on the inputs of every GroupNorm of one UNet forward
      (batch 2), one decode and one encode at 768x768, each against the
      model's own GroupNorm output; one launch per GroupNorm.
-  7. summary  — a JSON line of the kernels, then the JSON result line.
+  7. per-user keys at config-5 scale (gswm_torch/tools/paths.py): 10,000
+     (key, nonce, message) records from a numpy seed, 512x512 geometry —
+       (a) every record embedded under its own key (2,500 rows a call) and
+           decoded back: 10,000 exact decodes; rows decoded under another
+           row's key near 0.5;
+       (b) find_source_device for 16 probes against the whole registry: 16
+           correct attributions at accuracy 1.0, three batch launches a probe;
+       (c) find_source (host loop) on a 256-record slice: the same accuracies
+           as (b) on that slice, exactly;
+       (d) per-user keys through the model: 4 images under 4 keys, sd-2-1-base
+           at 512x512, embed -> 30-step generate -> 30-step inversion ->
+           multikey decode >= 0.99 each, each recovered latent attributed to
+           its own record among the 10,000.
+     The batch kernel launches exactly once per batch_keystream_bits call.
+  8. summary  — a JSON line of the kernels, then the JSON result line.
 Each path's launch counts are set to 0 just before it and read just after.
 """
 
 from __future__ import annotations
 
-import contextlib
 import json
 import subprocess
 import sys
@@ -174,6 +196,90 @@ def _check_keystream(key: bytes, nonce: bytes, n_blocks: int) -> None:
                              f"nonce {nonce.hex()}: blocks {bad}")
 
 
+def _device_kernels(fn) -> list:
+    """Names of the device kernels (copies apart) one call of ``fn`` runs.
+    The call stands well inside the profiler's window: the device's clock is
+    mapped onto the host's, and an event that the mapping puts a moment
+    outside the window is dropped."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+    return [e.key for e in prof.key_averages() for _ in range(e.count)
+            if e.device_type.name == "CUDA" and e.self_device_time_total > 0
+            and "memcpy" not in e.key.lower() and "memset" not in e.key.lower()]
+
+
+def _check_batch_keystream(records: dict) -> None:
+    """K3 over a key table: bit-exact against its plain version (all rows),
+    against the single-key kernel (every row at 4 rows, 64 rows spread over
+    the table beyond), against numpy's unpackbits of the host keystream (the
+    bit order), with row 1's counter carrying at block 5; one kernel a call."""
+    import numpy as np
+
+    from gswm_torch import roofline
+    from gswm_torch.core import chacha
+
+    dev = "cuda"
+    for rows, n_blocks in paths.K3_BATCH_SHAPES:
+        n_bits = n_blocks * chacha.BLOCK_BITS
+        keys, nonces, _, _ = paths.multikey_material(rows, seed=rows)
+        nonces[1] = bytes.fromhex(CARRY_NONCE_HEX)
+        got = chacha.batch_keystream_bits(keys, nonces, n_bits, dev)
+        want = chacha.batch_keystream_bits_reference(keys, nonces, n_bits, dev)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            bad = (got != want).any(dim=1).nonzero()[:5].flatten().tolist()
+            raise AssertionError(f"K3 batch differs from its plain version at "
+                                 f"{rows} rows: rows {bad}")
+        del want
+        for r in sorted({0, 1, *range(0, rows, max(1, rows // 64))}):
+            if not torch.equal(got[r], chacha.keystream_bits(keys[r], nonces[r], n_bits, dev)):
+                raise AssertionError(f"K3 batch row {r} of {rows} differs from the "
+                                     "single-key kernel")
+        host = np.unpackbits(np.frombuffer(
+            chacha.keystream_bytes_host(keys[1], nonces[1], n_bits // 8), np.uint8))
+        if not np.array_equal(got[1].cpu().numpy(), host):
+            raise AssertionError("K3 batch: bit order differs from np.unpackbits")
+        names = _device_kernels(
+            lambda: chacha.batch_keystream_bits(keys, nonces, n_bits, dev))
+        if len(names) != 1 or "chacha20_batch_kernel" not in names[0]:
+            raise AssertionError(f"batch_keystream_bits ran {names}, not one kernel")
+        ms = _time_ms(lambda: chacha.batch_keystream_bits(keys, nonces, n_bits, dev), 10)
+        plain = _time_ms(lambda: chacha.batch_keystream_bits_reference(
+            keys, nonces, n_bits, dev), 2, warmup=1)
+        bound = roofline.bound_ms(*roofline.chacha_batch_cost(rows, n_bits),
+                                  roofline.PEAK_INT32)
+        print(f"K3 chacha20 batch ({rows} rows x {n_blocks} blocks): bit-exact vs plain, "
+              f"single-key kernel and unpackbits, one kernel a call; {ms:.4f} ms (plain "
+              f"{plain:.4f}, bound {bound[0]:.6f} by {bound[1]}, library none)", flush=True)
+        _record(records, "chacha20_batch", 0.0, ms, plain, bound, None)
+        del got
+
+
+def _check_group_norm_call(shape, act) -> None:
+    """One K8 call: one kernel, and one allocation, its output (no scratch,
+    no converted parameters)."""
+    from gswm_torch.ops import groupnorm as gn
+
+    x = torch.randn(shape, device="cuda").bfloat16()
+    w, b = torch.ones(shape[1], device="cuda"), torch.zeros(shape[1], device="cuda")
+    names = _device_kernels(lambda: gn.fused_group_norm(x, w, b, 32, 1e-5, act))
+    if len(names) != 1 or "gn_cluster_kernel" not in names[0]:
+        raise AssertionError(f"fused_group_norm at {shape} ran {names}, not one kernel")
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    out = gn.fused_group_norm(x, w, b, 32, 1e-5, act)
+    made = torch.cuda.memory_stats()["allocation.all.allocated"] - before
+    if made != 1:
+        raise AssertionError(f"fused_group_norm at {shape} made {made} allocations")
+    del out
+
+
 def _library_ms(fn, iters: int, what: str = "library call"):
     """Time of the PyTorch call ``fn``; None, with its message and the
     reasons PyTorch warns of, if it refuses these tensors."""
@@ -261,6 +367,8 @@ def phase_kernels(gn_cases) -> dict:
               f"{ms:.4f} ms (plain {plain:.4f}, bound {bound[0]:.6f} by {bound[1]}, "
               f"library none)", flush=True)
         _record(records, "chacha20", 0.0, ms, plain, bound, None)
+
+    _check_batch_keystream(records)
 
     g = torch.Generator(device=dev).manual_seed(1234)
 
@@ -408,6 +516,12 @@ def phase_kernels(gn_cases) -> dict:
                                  f"{GN_REL_BOUND} x {top}")
         _record(records, "fused_group_norm", err, ms, plain, bound, lib)
         del x, got, want
+    for shape, act in paths.K8_PROBE_CASES:
+        _check_group_norm_call(shape, act)
+    print(f"K8 group_norm: one kernel and one allocation a call at "
+          f"{[c[0] for c in paths.K8_PROBE_CASES]}; 50-shape sums above: "
+          f"{records['fused_group_norm']['ms']:.4f} ms against a bound of "
+          f"{records['fused_group_norm']['bound_ms']:.4f} ms", flush=True)
     for rec in records.values():  # the roof behind most of the summed bound
         rec["bound_by"] = max(rec["bound_by"], key=rec["bound_by"].get)
     return records
@@ -419,6 +533,7 @@ def _wrappers() -> dict:
     from gswm_torch.ops import groupnorm as gn
 
     return {"chacha20": chacha.keystream_words,
+            "chacha20_batch": chacha.batch_keystream_bits,
             **{name: getattr(attn, name) for name in ATTENTION_COUNTERS},
             "fused_group_norm": gn.fused_group_norm}
 
@@ -435,6 +550,13 @@ def _reset_counters() -> None:
     for fn in _wrappers().values():
         fn.launches = 0
     _wrappers()["flash_attention_split"].launches_d64 = 0
+
+
+def _clear_keystream_caches() -> None:
+    """A path that counts K3's launches starts with no keystream cached."""
+    from gswm_torch.core import embed
+
+    embed.clear_caches()
 
 
 def _check_unet_launches(counts: dict, forwards: int) -> None:
@@ -467,24 +589,23 @@ def phase_extraction_512(card: str) -> dict:
           f"built in {time.perf_counter() - t0:.2f} s", flush=True)
     cfg = paths.config(RES, "gswm_torch")
 
+    _clear_keystream_caches()
     _reset_counters()
     # (a) latent closed loop
-    c0 = _counters()
     zt, msg = paths.embed(cfg, BATCH, 5)
     c_embed = _counters()
     x0 = pipe.generate(zt, guidance_scale=1.0, num_steps=STEPS, decode=False)
     z_back = pipe.invert(latents=x0, num_steps=STEPS)
-    c_inv = _counters()
     bits = recover_message_bits(z_back, cfg)
-    c_dec = _counters()
     acc = _bit_accuracy(bits, msg, dev)
     sign = ((z_back > 0) == (zt > 0)).float().mean().item()
     print(f"(a) closed loop, batch {BATCH}, {STEPS}+{STEPS} steps: bit accuracy "
           f"{acc}, element sign agreement {sign:.4f}", flush=True)
     if min(acc) < MIN_BIT_ACC:
         raise AssertionError(f"closed-loop bit accuracy {acc} below {MIN_BIT_ACC}")
-    if c_embed["chacha20"] <= c0["chacha20"] or c_dec["chacha20"] <= c_inv["chacha20"]:
-        raise AssertionError("K3 did not launch in both embed and decode")
+    if c_embed["chacha20"] != 1:
+        raise AssertionError(f"K3 launched {c_embed['chacha20']} times in the first "
+                             "embed under a new key, not once")
 
     # (b) the extraction chain on random images, once to warm up, once timed
     images = paths.random_images_512()
@@ -507,12 +628,16 @@ def phase_extraction_512(card: str) -> dict:
     for name in ("chacha20", "fused_qkv_attention", "flash_attention"):
         if counts[name] < 1:
             raise AssertionError(f"kernel {name} never launched on the 512 path")
+    # one keystream for three embeds and three decodes under one key
+    if counts["chacha20"] != 1:
+        raise AssertionError(f"K3 launched {counts['chacha20']} times on the 512 path; "
+                             "the cached keystream makes it 1")
     if counts["flash_attention_split"]:
         raise AssertionError("K4 launched at 512x512, where the VAE attention "
                              "keeps the plain path")
     # (a) generate + invert, (b) two inversions: 4 x STEPS UNet forwards
     _check_unet_launches(counts, 4 * STEPS)
-    return counts
+    return counts, pipe
 
 
 def build_pipeline_768():
@@ -526,58 +651,6 @@ def build_pipeline_768():
     return pipe
 
 
-def _groupnorm_act(name: str):
-    """The activation after a GroupNorm: SiLU after every ResnetBlock norm
-    and the final norms (layers.py, unet.py, vae.py), none elsewhere."""
-    return "silu" if name.endswith(("norm1", "norm2", "conv_norm_out")) else None
-
-
-@contextlib.contextmanager
-def _groupnorm_hooks(pipe, hook):
-    """``hook(name, module, x, y)`` after every GroupNorm32 of the UNet and
-    the VAE."""
-    from gswm_torch.models.layers import GroupNorm32
-
-    handles = [
-        m.register_forward_hook(lambda m, args, y, name=name: hook(name, m, args[0], y))
-        for model in (pipe.unet, pipe.vae) for name, m in model.named_modules()
-        if isinstance(m, GroupNorm32)]
-    try:
-        yield
-    finally:
-        for h in handles:
-            h.remove()
-
-
-def _drive_groupnorm_sites(pipe) -> None:
-    """One UNet forward at batch 2 and at 4 (guidance), one VAE decode of
-    one image and one encode of two, at 768x768."""
-    with torch.inference_mode():
-        for b in (BATCH_768, 2 * BATCH_768):
-            pipe.unet(*paths.unet_inputs(pipe, b))
-        g = torch.Generator(device="cuda").manual_seed(3)
-        pipe.vae.decode(torch.randn((1, 4, RES_768 // 8, RES_768 // 8), generator=g,
-                                    device="cuda", dtype=torch.bfloat16))
-        pipe.vae.encode(torch.rand((BATCH_768, 3, RES_768, RES_768), generator=g,
-                                   device="cuda", dtype=torch.bfloat16) * 2 - 1)
-    torch.cuda.synchronize()
-
-
-def groupnorm_cases(pipe) -> list:
-    """Every distinct (shape, eps, act) of the 768x768 path's GroupNorms."""
-    cases = []
-
-    def hook(name, m, x, y):
-        case = (tuple(x.shape), m.eps, _groupnorm_act(name))
-        if case not in cases:
-            cases.append(case)
-
-    with _groupnorm_hooks(pipe, hook):
-        _drive_groupnorm_sites(pipe)
-    print(f"GroupNorm cases of the 768x768 path: {len(cases)}", flush=True)
-    return cases
-
-
 def phase_generation_768(card: str, pipe) -> dict:
     from gswm_torch import recover_message_bits
 
@@ -587,6 +660,7 @@ def phase_generation_768(card: str, pipe) -> dict:
     prompt_ids = paths.prompt_ids(pipe, b)
 
     torch.cuda.reset_peak_memory_stats()
+    _clear_keystream_caches()
     _reset_counters()
     forwards = 0
     # (a), (b): latent closed loops, guidance 1.0
@@ -653,6 +727,10 @@ def phase_generation_768(card: str, pipe) -> dict:
                  "flash_attention_split"):
         if counts[name] < 1:
             raise AssertionError(f"kernel {name} never launched on the 768 path")
+    # one keystream for four embeds and four decodes under one key
+    if counts["chacha20"] != 1:
+        raise AssertionError(f"K3 launched {counts['chacha20']} times on the 768 path; "
+                             "the cached keystream makes it 1")
     _check_unet_launches(counts, forwards)
     return counts
 
@@ -702,8 +780,9 @@ def phase_tiers(card: str, pipe) -> dict:
         if {name: loop[name] for name in ATTENTION_COUNTERS} != \
                 {name: n * 2 * STEPS for name, n in want.items()}:
             raise AssertionError(f"({label}) launches over the closed loop {loop}")
-        if loop["chacha20"] < 2:
-            raise AssertionError(f"({label}) K3 did not launch in embed and decode")
+        if loop["chacha20"]:
+            raise AssertionError(f"({label}) K3 launched {loop['chacha20']} times; phase "
+                                 "4 left this key's keystream cached")
         if not diff <= TIER_REL_BOUND * top:
             raise AssertionError(f"({label}) UNet output {diff} from the default "
                                  f"route's, above {TIER_REL_BOUND} x {top}")
@@ -737,8 +816,8 @@ def phase_groupnorm_op(pipe) -> dict:
         worst[1] += 1
 
     _reset_counters()
-    with _groupnorm_hooks(pipe, hook):
-        _drive_groupnorm_sites(pipe)
+    with paths.groupnorm_hooks(pipe, hook):
+        paths.drive_groupnorm_sites(pipe)
     counts = _counters()
     print(f"6. K8 on {worst[1]} GroupNorm inputs of the 768x768 path: max "
           f"|err| / max|want| {worst[0]:.5f} (bound {GN_REL_BOUND}); launches "
@@ -749,23 +828,141 @@ def phase_groupnorm_op(pipe) -> dict:
     return counts
 
 
+def phase_multikey(card: str, pipe) -> dict:
+    """Per-user keys at config-5 scale; ``pipe``: sd-2-1-base."""
+    import numpy as np
+
+    from gswm_torch.core.multikey import (embed_latents_multikey,
+                                          recover_message_bits_multikey)
+    from gswm_torch.eval import trace
+
+    dev = "cuda"
+    n = paths.MULTIKEY_RECORDS
+    per_call = paths.MULTIKEY_ROWS_PER_CALL
+    cfg = paths.multikey_config()
+    keys, nonces, messages, records = paths.multikey_material()
+    want = torch.from_numpy(np.unpackbits(
+        np.frombuffer(b"".join(messages), np.uint8)).reshape(n, 256)).to(dev)
+    _reset_counters()
+
+    # (a) embed and decode every record under its own key
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lat = paths.multikey_embed_all(cfg, keys, nonces, messages)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    voted = paths.multikey_decode_all(cfg, lat, keys, nonces)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    exact = int((voted == want).all(dim=1).sum())
+    m = paths.MULTIKEY_HOST_SLICE
+    wrong = recover_message_bits_multikey(lat[:m], cfg, keys[1:m + 1], nonces[1:m + 1])
+    wrong_acc = (wrong == want[:m]).float().mean(dim=1)
+    calls = 2 * -(-n // per_call) + 1
+    print(f"7. (a) {n} images under their own keys: embed {t1 - t0:.4f} s "
+          f"({n / (t1 - t0):.1f} images/s), decode {t2 - t1:.4f} s "
+          f"({n / (t2 - t1):.1f} images/s), {exact} of {n} exact; {m} rows under "
+          f"the next row's key: accuracy {wrong_acc.min().item():.4f} ... "
+          f"{wrong_acc.max().item():.4f}; latents {lat.numel() * 4 / 1e6:.0f} MB; "
+          f"on {card}", flush=True)
+    if tuple(lat.shape) != (n, 4, RES // 8, RES // 8) or not torch.isfinite(lat).all():
+        raise AssertionError(f"multikey latents {tuple(lat.shape)} or not finite")
+    if exact != n:
+        raise AssertionError(f"only {exact} of {n} multikey decodes are exact")
+    if wrong_acc.min() < 0.3 or wrong_acc.max() > 0.7:
+        raise AssertionError("a row decoded under another row's key is not near 0.5")
+    if _counters()["chacha20_batch"] != calls:
+        raise AssertionError(f"batch kernel launched {_counters()['chacha20_batch']} "
+                             f"times for {calls} batch_keystream_bits calls")
+
+    # (b) trace probes against the whole registry
+    probes = [int(i) for i in np.random.default_rng(7).choice(n, paths.MULTIKEY_PROBES,
+                                                              replace=False)]
+    probes[:2] = [5, m - 3]  # two inside the slice the host loop also scores
+    chunks = -(-n // 4096)
+    found = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in probes:
+        c0 = _counters()["chacha20_batch"]
+        found[i] = trace.find_source_device(lat[i], records)
+        if _counters()["chacha20_batch"] - c0 != chunks:
+            raise AssertionError(f"probe {i}: {_counters()['chacha20_batch'] - c0} "
+                                 f"batch launches, not {chunks}")
+    t_probe = (time.perf_counter() - t0) / len(probes)
+    right = sum(found[i][:2] == (i, 1.0) for i in probes)
+    runner_up = max(max(a for j, a in enumerate(found[i][2]) if j != i) for i in probes)
+    print(f"   (b) find_source_device, {len(probes)} probes x {n} records: {right} of "
+          f"{len(probes)} attributed at accuracy 1.0, best wrong record "
+          f"{runner_up:.4f}; {t_probe:.4f} s a probe "
+          f"({n / t_probe:.0f} candidates/s), {chunks} batch launches a probe",
+          flush=True)
+    if right != len(probes):
+        raise AssertionError(f"only {right} of {len(probes)} probes attributed")
+
+    # (c) the host loop on a slice: the same accuracies, exactly
+    t0 = time.perf_counter()
+    for i in probes[:2]:
+        best, acc, accs = trace.find_source(lat[i], records[:m])
+        if (best, acc) != (i, 1.0) or accs != found[i][2][:m]:
+            raise AssertionError(f"probe {i}: the host loop and the batched search "
+                                 "disagree on the slice")
+    t_host = (time.perf_counter() - t0) / 2
+    print(f"   (c) find_source (host loop), 2 probes x {m} records: accuracies equal "
+          f"to (b)'s on the slice; {t_host:.4f} s a probe "
+          f"({m / t_host:.0f} candidates/s)", flush=True)
+
+    # (d) per-user keys through the model
+    users = probes[2:2 + paths.MULTIKEY_MODEL_BATCH]
+    pick = lambda xs: [xs[i] for i in users]  # noqa: E731
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    zt, _ = embed_latents_multikey(cfg, pick(keys), pick(nonces), pick(messages),
+                                   generator=torch.Generator(device=dev).manual_seed(43))
+    x0 = pipe.generate(zt, guidance_scale=1.0, num_steps=STEPS, decode=False)
+    z_back = pipe.invert(latents=x0, num_steps=STEPS)
+    bits = recover_message_bits_multikey(z_back, cfg, pick(keys), pick(nonces))
+    acc = (bits == want[users]).float().mean(dim=1).tolist()
+    owners = [trace.find_source_device(z_back[j], records)[0] for j in range(len(users))]
+    torch.cuda.synchronize()
+    t_model = time.perf_counter() - t0
+    print(f"   (d) {len(users)} images under {len(users)} keys through sd-2-1-base, "
+          f"{STEPS}+{STEPS} steps: bit accuracy {acc}, attributed to {owners} (embedded "
+          f"as {users}); {t_model:.4f} s", flush=True)
+    if min(acc) < MIN_BIT_ACC:
+        raise AssertionError(f"multikey closed-loop bit accuracy {acc} below {MIN_BIT_ACC}")
+    if owners != users:
+        raise AssertionError(f"recovered latents attributed to {owners}, not {users}")
+    counts = _counters()
+    want_calls = calls + chunks * (len(probes) + len(users)) + 2
+    if counts["chacha20_batch"] != want_calls:
+        raise AssertionError(f"batch kernel launched {counts['chacha20_batch']} times "
+                             f"in phase 7; its calls make it {want_calls}")
+    _check_unet_launches(counts, 2 * STEPS)
+    return counts
+
+
 def main() -> None:
     card = phase_card()
     phase_build()
     pipe_768 = build_pipeline_768()
-    records = phase_kernels(groupnorm_cases(pipe_768))
-    counts_512 = phase_extraction_512(card)
-    torch.cuda.empty_cache()
+    records = phase_kernels(paths.groupnorm_cases(pipe_768))
+    counts_512, pipe_512 = phase_extraction_512(card)
     counts_768 = phase_generation_768(card, pipe_768)
     counts_tiers = phase_tiers(card, pipe_768)
     counts_gn = phase_groupnorm_op(pipe_768)
+    counts_mk = phase_multikey(card, pipe_512)
     counts = {name: counts_512[name] + counts_768[name] + counts_tiers[name]
-              + counts_gn[name] for name in counts_512}
+              + counts_gn[name] + counts_mk[name] for name in counts_512}
     # the split wrapper's count, less what flash_hopper.cu ran of it
     counts["flash_attention_split"] -= counts["flash_attention_split_d64"]
     sources = {
         "chacha20": ("gswm_torch/csrc/chacha20.cu",
                      "gswm/core/chacha.py:158"),
+        # the JAX package's many-key keystream is plain XLA over the same
+        # block function (gswm/core/multikey.py:29); the port gives it to K3
+        "chacha20_batch": ("gswm_torch/csrc/chacha20.cu",
+                           "gswm/core/chacha.py:158"),
         "fused_qkv_attention": ("gswm_torch/csrc/fused_qkv.cu",
                                 "gswm/ops/attention.py:689"),
         "flash_attention": ("gswm_torch/csrc/flash_hopper.cu",

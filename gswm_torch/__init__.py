@@ -4,10 +4,17 @@ CUDA kernels for Hopper (H100).
 The port of the JAX package ``gswm``, which stays beside it as the
 reference.  This package imports torch, numpy and scipy, never jax.  It
 covers watermarked generation (embed -> prompt-guided DDIM or DPM++ -> VAE
-decode) and extraction (VAE encode -> inversion -> decode) for the SD 1.x/2.x
-presets, on the layout of ``gswm``:
+decode) and extraction (VAE encode -> inversion -> decode) for the SD 2.x
+presets on the card in bfloat16, and for the SD 1.x presets on the CPU only
+(their head dims of 40, 80 and 160 have no kernel yet: ``InversablePipeline``
+refuses them on a CUDA device when it is built); per-user keys and
+traceability (``core.multikey``, ``eval.trace``, ``eval.registry``).  On the
+layout of ``gswm``:
 
-  core/        ChaCha20 keystream (CUDA kernel), bit diffusion, embed, decode
+  core/        ChaCha20 keystream (CUDA kernels: one key, and a table of
+               keys), bit diffusion, embed, decode, multikey
+  eval/        bit accuracy, the key registry, the trace search
+  utils/       json and jsonl IO
   models/      UNet2DCondition, VAE encoder and decoder, CLIP text encoder,
                presets, the weight bridge from the JAX package's flax trees
   ops/         attention kernels (CUDA) and their plain versions

@@ -19,8 +19,32 @@ def bytes_to_bits(data: bytes) -> np.ndarray:
     return np.unpackbits(np.frombuffer(data, dtype=np.uint8))
 
 
+def bits_to_bytes(bits: np.ndarray) -> bytes:
+    """uint8 bit array (len % 8 == 0) -> bytes, MSB-first per byte."""
+    return np.packbits(np.asarray(bits, dtype=np.uint8)).tobytes()
+
+
 def bits_to_bin_str(bits: np.ndarray) -> str:
     return "".join("1" if b else "0" for b in np.asarray(bits).astype(int))
+
+
+def bin_str_to_bits(s: str) -> np.ndarray:
+    return np.frombuffer(s.encode(), dtype=np.uint8) - ord("0")
+
+
+def bits_to_hex(bits: np.ndarray) -> str:
+    return bits_to_bytes(bits).hex()
+
+
+def hex_to_bits(h: str) -> np.ndarray:
+    """Hex string -> bits, zfill'ed to 4 bits per hex digit
+    (extract.py:104 semantics)."""
+    if not h:
+        return np.zeros(0, dtype=np.uint8)
+    # whole bytes unpack at once (a registry of 10,000 records is parsed for
+    # every probe); an odd digit count is padded in front and cut again
+    raw = bytes.fromhex(h if len(h) % 2 == 0 else "0" + h)
+    return np.unpackbits(np.frombuffer(raw, dtype=np.uint8))[-len(h) * 4:]
 
 
 def diffuse_payload(message_bits: np.ndarray, capacity_bits: int) -> np.ndarray:

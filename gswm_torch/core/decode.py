@@ -55,13 +55,14 @@ def recover_message_bits(latents: torch.Tensor, cfg: GSConfig,
                          keystream: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Full decode chain on the latents' device. latents: (B, C, h, w) or
     (C, h, w).  Returns voted message bits of shape (..., message_bits) as
-    uint8.  The keystream is generated anew unless given."""
+    uint8.  The keystream, unless given, is the cached one of (key, nonce,
+    capacity, device), shared with embed."""
     cfg = cfg.resolved()
     latents = torch.as_tensor(latents)
     if keystream is None:
         key, nonce = cfg.resolve_key_nonce()
-        keystream = chacha.keystream_bits(key, nonce, cfg.capacity_bits,
-                                          latents.device)
+        keystream = chacha.cached_keystream_bits(key, nonce, cfg.capacity_bits,
+                                                 latents.device)
     return _decode_chain(latents, keystream, cfg.l, cfg.resolved_message_bits)
 
 

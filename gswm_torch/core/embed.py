@@ -12,6 +12,7 @@ is uniform on [0,1), so z is exactly N(0,1): the paper's
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Optional
 
@@ -46,14 +47,29 @@ def encrypted_payload_bits(cfg: GSConfig, message_bytes: bytes,
 
     Equivalent to ChaCha20-encrypting the tiled message byte-stream
     (gs_insert.py:45-47): XOR in the bit domain commutes with the byte<->bit
-    packing because both use the same stream order.  Not cached, so every
-    embed runs the keystream (the TPU package caches it per key).
+    packing because both use the same stream order.  Kept per (key, nonce,
+    message, capacity, device), so repeated embeds run no keystream and copy
+    nothing to the device; the tensor is shared: read it, never write into it.
     """
     key, nonce = cfg.resolve_key_nonce()
-    payload = bitops.diffuse_payload(bitops.bytes_to_bits(message_bytes),
-                                     cfg.capacity_bits)
-    ks = chacha.keystream_bits(key, nonce, cfg.capacity_bits, device)
+    return _cached_payload_bits(key, nonce, message_bytes, cfg.capacity_bits,
+                                chacha.canonical_device(device))
+
+
+@functools.lru_cache(maxsize=32)
+def _cached_payload_bits(key: bytes, nonce: bytes, message_bytes: bytes,
+                         capacity_bits: int, device: torch.device) -> torch.Tensor:
+    """gswm/core/embed.py:61-71; the keystream comes from the cache that
+    decode shares."""
+    payload = bitops.diffuse_payload(bitops.bytes_to_bits(message_bytes), capacity_bits)
+    ks = chacha.cached_keystream_bits(key, nonce, capacity_bits, device)
     return torch.from_numpy(payload).to(device) ^ ks
+
+
+def clear_caches() -> None:
+    """Forget every cached payload and keystream."""
+    _cached_payload_bits.cache_clear()
+    chacha.clear_caches()
 
 
 def embed_latents(

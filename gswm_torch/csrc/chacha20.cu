@@ -20,6 +20,21 @@
 // registers and writes its 16 output words as four 16-byte stores.  The 12
 // key/counter/nonce words travel by value in the kernel's parameters, so the
 // launch needs no host-to-device copy.
+//
+// A second kernel, chacha20_batch_kernel, serves per-user keys
+// (gswm/core/multikey.py:29 _keystream_words_batch, which the JAX package
+// vmaps over rows in plain XLA, and :43 batch_keystream_bits): a device
+// table of R rows of the same 12 words, one thread per (row, block), and the
+// output is what every consumer wants, the bits themselves, one byte a bit
+// in stream order (bytes little-endian in a word, bits MSB-first in a byte):
+// 512 bytes a block.  One launch makes 10,000 keystreams of 16,384 bits:
+// 164 MB written against 0.31 M blocks of ~1,000 integer operations, so it is
+// bound by the store, 8x the bytes of the words.  A thread's 512 bytes are
+// contiguous but a warp's threads lie 512 bytes apart, so the block stages
+// its WORDS in shared memory (64 bytes a thread, rows padded to 17 words
+// against bank conflicts) and expands them on the way out, neighbouring
+// threads writing neighbouring 16 bytes: 16 KB a block of 256 threads, so
+// enough warps are resident to hide the rounds behind the stores.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -43,21 +58,12 @@ __device__ __forceinline__ uint32_t rotl32(uint32_t x, int n) {
   a += b; d = rotl32(d ^ a, 8);  \
   c += d; b = rotl32(b ^ c, 7);
 
-__global__ void chacha20_words_kernel(ChachaParams p, uint4* __restrict__ out,
-                                      int n_blocks) {
-  const int blk = blockIdx.x * blockDim.x + threadIdx.x;
-  if (blk >= n_blocks) return;
-  const uint32_t idx = static_cast<uint32_t>(blk);
-  const uint32_t lo = p.counter_lo + idx;
-  const uint32_t hi = p.counter_hi + (lo < idx ? 1u : 0u);  // carry
-
-  uint32_t init[16] = {0x61707865u, 0x3320646Eu, 0x79622D32u, 0x6B206574u,
-                       p.key[0], p.key[1], p.key[2], p.key[3],
-                       p.key[4], p.key[5], p.key[6], p.key[7],
-                       lo, hi, p.nonce[0], p.nonce[1]};
-  uint32_t x[16];
+// The 20 rounds and the feed-forward on x, whose entry values are the block's
+// initial state.
+__device__ __forceinline__ void chacha20_block(uint32_t (&x)[16]) {
+  uint32_t init[16];
 #pragma unroll
-  for (int i = 0; i < 16; ++i) x[i] = init[i];
+  for (int i = 0; i < 16; ++i) init[i] = x[i];
 #pragma unroll
   for (int r = 0; r < 10; ++r) {
     GSWM_QR(x[0], x[4], x[8], x[12]);
@@ -69,16 +75,90 @@ __global__ void chacha20_words_kernel(ChachaParams p, uint4* __restrict__ out,
     GSWM_QR(x[2], x[7], x[8], x[13]);
     GSWM_QR(x[3], x[4], x[9], x[14]);
   }
-  uint4* dst = out + static_cast<size_t>(blk) * 4;
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    dst[q] = make_uint4(x[4 * q] + init[4 * q], x[4 * q + 1] + init[4 * q + 1],
-                        x[4 * q + 2] + init[4 * q + 2],
-                        x[4 * q + 3] + init[4 * q + 3]);
-  }
+  for (int i = 0; i < 16; ++i) x[i] += init[i];
 }
 
 #undef GSWM_QR
+
+__global__ void chacha20_words_kernel(ChachaParams p, uint4* __restrict__ out,
+                                      int n_blocks) {
+  const int blk = blockIdx.x * blockDim.x + threadIdx.x;
+  if (blk >= n_blocks) return;
+  const uint32_t idx = static_cast<uint32_t>(blk);
+  const uint32_t lo = p.counter_lo + idx;
+  const uint32_t hi = p.counter_hi + (lo < idx ? 1u : 0u);  // carry
+
+  uint32_t x[16] = {0x61707865u, 0x3320646Eu, 0x79622D32u, 0x6B206574u,
+                    p.key[0], p.key[1], p.key[2], p.key[3],
+                    p.key[4], p.key[5], p.key[6], p.key[7],
+                    lo, hi, p.nonce[0], p.nonce[1]};
+  chacha20_block(x);
+  uint4* dst = out + static_cast<size_t>(blk) * 4;
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    dst[q] = make_uint4(x[4 * q], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]);
+}
+
+// The 4 bits of a nibble as 4 bytes of 0 or 1, most significant bit in the
+// lowest byte: the copies n, n << 9, n << 18, n << 27 do not overlap, and bits
+// 3, 11, 19, 27 of their sum are the nibble's bits 3, 2, 1, 0.
+__device__ __forceinline__ uint32_t nibble_bits(uint32_t nibble) {
+  return ((nibble * 0x08040201u) >> 3) & 0x01010101u;
+}
+
+constexpr int BATCH_THREADS = 256;  // ChaCha20 blocks a thread block makes
+constexpr int STAGE_PITCH = 17;     // words a staged block: 16 and one of padding
+
+// table: R rows of key[8], counter lo, counter hi, nonce[2].  out: (R, n_bits)
+// bytes.  Thread block b makes the flat (row, block) indices b * 256 ... + 255;
+// rows * n_blocks is below 2^31.
+template <bool VEC>
+__global__ void __launch_bounds__(BATCH_THREADS)
+chacha20_batch_kernel(const uint32_t* __restrict__ table, uint8_t* __restrict__ out,
+                      int rows, int n_blocks, int n_bits) {
+  __shared__ uint32_t stage[BATCH_THREADS * STAGE_PITCH];
+  const int t = threadIdx.x;
+  const uint32_t total = (uint32_t)rows * (uint32_t)n_blocks;
+  const uint32_t first = blockIdx.x * BATCH_THREADS;
+  const uint32_t flat = first + t;
+  if (flat < total) {
+    const uint32_t row = flat / n_blocks;
+    const uint32_t idx = flat - row * n_blocks;
+    const uint32_t* p = table + (size_t)row * 12;
+    const uint32_t lo = p[8] + idx;
+    const uint32_t hi = p[9] + (lo < idx ? 1u : 0u);  // carry
+    uint32_t x[16] = {0x61707865u, 0x3320646Eu, 0x79622D32u, 0x6B206574u,
+                      p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7],
+                      lo, hi, p[10], p[11]};
+    chacha20_block(x);
+#pragma unroll
+    for (int w = 0; w < 16; ++w) stage[t * STAGE_PITCH + w] = x[w];
+  }
+  __syncthreads();
+  // chunk g of this thread block: 16 bits, the half c % 2 of word c / 2 (c = g %
+  // 32) of the block that thread g / 32 staged; a warp writes 512 bytes in a row
+#pragma unroll 4
+  for (int g = t; g < BATCH_THREADS * 32; g += BATCH_THREADS) {
+    const int src = g >> 5, c = g & 31;
+    const uint32_t f = first + src;
+    if (f >= total) break;
+    const uint32_t row = f / n_blocks;
+    const int bit0 = (int)(f - row * n_blocks) * 512 + c * 16;  // first bit, in its row
+    if (bit0 >= n_bits) continue;
+    const uint32_t half = stage[src * STAGE_PITCH + (c >> 1)] >> (16 * (c & 1));
+    // two bytes in stream order; each byte's high nibble comes first
+    const uint4 v = make_uint4(nibble_bits((half >> 4) & 15u), nibble_bits(half & 15u),
+                               nibble_bits((half >> 12) & 15u), nibble_bits((half >> 8) & 15u));
+    uint8_t* dst = out + (size_t)row * n_bits + bit0;
+    if (VEC && bit0 + 16 <= n_bits) {
+      *reinterpret_cast<uint4*>(dst) = v;
+    } else {
+      const uint8_t* b = reinterpret_cast<const uint8_t*>(&v);
+      for (int i = 0; i < 16 && bit0 + i < n_bits; ++i) dst[i] = b[i];
+    }
+  }
+}
 
 }  // namespace
 
@@ -96,5 +176,26 @@ extern "C" int gswm_chacha20_words(const uint32_t* words12, void* out,
   const int grid = (n_blocks + threads - 1) / threads;
   chacha20_words_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       p, static_cast<uint4*>(out), n_blocks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// table: device array of rows * 12 32-bit words (key[8], counter_lo,
+// counter_hi, nonce[2] a row).  out: device buffer of rows * n_bits bytes, 16-byte
+// aligned; row r's first n_bits keystream bits, one byte each, in stream order.
+extern "C" int gswm_chacha20_batch(const void* table, void* out, int rows, int n_bits,
+                                   void* stream) {
+  if (rows < 1 || n_bits < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int n_blocks = (n_bits + 511) / 512;
+  const long long total = (long long)rows * n_blocks;
+  if (total >= (1ll << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned grid = (unsigned)((total + BATCH_THREADS - 1) / BATCH_THREADS);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint32_t* tab = static_cast<const uint32_t*>(table);
+  uint8_t* o = static_cast<uint8_t*>(out);
+  // rows start on 16-byte boundaries only when n_bits is a multiple of 16
+  if (n_bits % 16 == 0)
+    chacha20_batch_kernel<true><<<grid, BATCH_THREADS, 0, st>>>(tab, o, rows, n_blocks, n_bits);
+  else
+    chacha20_batch_kernel<false><<<grid, BATCH_THREADS, 0, st>>>(tab, o, rows, n_blocks, n_bits);
   return static_cast<int>(cudaGetLastError());
 }

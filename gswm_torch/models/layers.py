@@ -45,12 +45,43 @@ VAE_FLASH_MIN_TOKENS = 4096
 
 
 class GroupNorm32(nn.GroupNorm):
-    """GroupNorm computed in fp32, cast back to the input dtype."""
+    """GroupNorm computed in fp32, cast back to the input dtype.  Its scale
+    and bias stay float32 under a lower compute dtype (``to_compute_dtype_``),
+    as the JAX package's do (gswm/models/layers.py:75-100)."""
 
     def forward(self, x):
         y = F.group_norm(x.float(), self.num_groups, self.weight.float(),
                          self.bias.float(), self.eps)
         return y.to(x.dtype)
+
+
+class LayerNorm32(nn.LayerNorm):
+    """LayerNorm computed in fp32 with float32 scale and bias, cast back to
+    the input dtype: what flax's ``nn.LayerNorm(dtype=bf16)`` does with its
+    float32 parameters (gswm/models/layers.py:578-587)."""
+
+    def forward(self, x):
+        y = F.layer_norm(x.float(), self.normalized_shape, self.weight.float(),
+                         self.bias.float(), self.eps)
+        return y.to(x.dtype)
+
+
+def to_compute_dtype_(module: nn.Module, device, dtype: torch.dtype) -> nn.Module:
+    """Move ``module`` to ``device`` and cast it to ``dtype`` (in place);
+    the norms' scales and biases stay float32.  The JAX package keeps
+    float32 parameters under a bf16 compute dtype, which rounds every matmul
+    and convolution weight at its use but never a norm's parameters (they
+    enter float32 arithmetic as they are)."""
+    module.to(device)
+    for m in module.modules():
+        if isinstance(m, (GroupNorm32, LayerNorm32)):
+            continue  # never rounded, not even on the way
+        for p in m.parameters(recurse=False):
+            p.data = p.data.to(dtype)
+        for name, buf in m.named_buffers(recurse=False):
+            if buf.is_floating_point():
+                m._buffers[name] = buf.to(dtype)
+    return module
 
 
 def timestep_embedding(t: torch.Tensor, dim: int, flip_sin_to_cos: bool = True,
@@ -213,11 +244,11 @@ class FeedForward(nn.Module):
 class BasicTransformerBlock(nn.Module):
     def __init__(self, dim: int, context_dim: int, heads: int, head_dim: int):
         super().__init__()
-        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.norm1 = LayerNorm32(dim, eps=1e-5)
         self.attn1 = Attention(dim, dim, heads, head_dim)
-        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
+        self.norm2 = LayerNorm32(dim, eps=1e-5)
         self.attn2 = Attention(dim, context_dim, heads, head_dim)
-        self.norm3 = nn.LayerNorm(dim, eps=1e-5)
+        self.norm3 = LayerNorm32(dim, eps=1e-5)
         self.ff = FeedForward(dim)
 
     def forward(self, x, context):

@@ -31,6 +31,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # words12 (host uint32[12]), out, n_blocks, stream
     "gswm_chacha20_words": [_VP, _VP, _I, _VP],
+    # table (device uint32[rows][12]), out (device bytes), rows, n_bits, stream
+    "gswm_chacha20_batch": [_VP, _VP, _I, _I, _VP],
     # x, wq, wk, wv, q, k, v, M, C, N, stream
     "gswm_qkv_proj": [_VP] * 7 + [_I, _I, _I, _VP],
     # x, wq, wk, wv, q, k, v, out, B, S, C, H, stream
@@ -41,8 +43,8 @@ _SIGNATURES = {
     "gswm_flash_packed": [_VP, _VP, _I, _I, _I, _VP],
     # qkv_t, out_t, B, S, H, stream
     "gswm_flash_transposed": [_VP, _VP, _I, _I, _I, _VP],
-    # x, weight, bias, out, partials, B, C, HW, G, chunk, eps, act, stream
-    "gswm_group_norm": [_VP] * 5 + [_I] * 5 + [_F, _I, _VP],
+    # x, weight, bias, out, B, C, HW, G, eps, act, stream
+    "gswm_group_norm": [_VP] * 4 + [_I] * 4 + [_F, _I, _VP],
 }
 
 
@@ -137,6 +139,22 @@ def library() -> Library:
             fn.restype = ctypes.c_int
         _LIBRARY = Library(lib, path, seconds, log)
     return _LIBRARY
+
+
+def launch(device, name: str, *args) -> None:
+    """Call the C entry point ``name`` with ``args`` and, last, the raw
+    handle of PyTorch's current stream on the CUDA ``device``; raise if it
+    reports a CUDA error.  The wrappers whose host time counts go through
+    here: the handle comes straight from the runtime (no Stream object), and
+    the device is switched only when it is not the current one."""
+    import torch
+
+    lib = library()
+    if device.index == torch._C._cuda_getDevice():
+        lib.call(name, *args, torch._C._cuda_getCurrentRawStream(device.index))
+    else:
+        with torch.cuda.device(device):
+            lib.call(name, *args, torch._C._cuda_getCurrentRawStream(device.index))
 
 
 def stream_handle(device) -> int:

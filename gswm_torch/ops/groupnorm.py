@@ -13,17 +13,18 @@ optional SiLU, cast back to x's dtype.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises.  ``fused_group_norm.launches`` counts the
-launches.
+launches: one kernel a call, which reads x once (a thread block cluster a
+group keeps it in shared memory between the sums and the normalisation) and
+needs no scratch memory.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from gswm_torch import native
-
-# elements of one group a block of the kernel takes (a multiple of 8)
-CHUNK = 8192
 
 
 def _check_args(x: torch.Tensor, groups: int, act: str | None) -> None:
@@ -57,7 +58,7 @@ def fused_group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                      groups: int = 32, eps: float = 1e-5,
                      act: str | None = None) -> torch.Tensor:
     """GroupNorm (+ optional SiLU) over (B, C, ...) ``x``; weight and bias
-    (C,).  CPU: ``fused_group_norm_reference``.  CUDA: the two passes of
+    (C,).  CPU: ``fused_group_norm_reference``.  CUDA: the kernel of
     csrc/group_norm.cu (bf16 x, contiguous and 16-byte aligned; any C
     divisible by ``groups``, any spatial size)."""
     _check_args(x, groups, act)
@@ -71,22 +72,18 @@ def fused_group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
         raise ValueError("fused_group_norm: the CUDA kernel takes contiguous, "
                          "16-byte aligned x")
     b, c = x.shape[:2]
-    hw = x[0, 0].numel()
     if weight.shape != (c,) or bias.shape != (c,):
         raise ValueError(f"fused_group_norm: weight {tuple(weight.shape)} and bias "
                          f"{tuple(bias.shape)} are not ({c},)")
-    w = weight.to(device=x.device, dtype=torch.float32).contiguous()
-    bb = bias.to(device=x.device, dtype=torch.float32).contiguous()
-    n = (c // groups) * hw  # elements of one group
-    chunks = -(-n // CHUNK)
-    partials = torch.empty((b * groups * chunks, 2), device=x.device,
-                           dtype=torch.float32)
+    # fp32 parameters on x's device, as the models keep their norms, pass as
+    # they are: nothing is converted or copied
+    w, bb = (p if p.dtype == torch.float32 and p.device == x.device and p.is_contiguous()
+             else p.to(device=x.device, dtype=torch.float32).contiguous()
+             for p in (weight, bias))
     out = torch.empty_like(x)
-    lib = native.library()
-    with torch.cuda.device(x.device):
-        lib.call("gswm_group_norm", x.data_ptr(), w.data_ptr(), bb.data_ptr(),
-                 out.data_ptr(), partials.data_ptr(), b, c, hw, groups, CHUNK,
-                 float(eps), 1 if act == "silu" else 0, native.stream_handle(x.device))
+    native.launch(x.device, "gswm_group_norm", x.data_ptr(), w.data_ptr(),
+                  bb.data_ptr(), out.data_ptr(), b, c, math.prod(x.shape[2:]), groups,
+                  float(eps), 1 if act == "silu" else 0)
     fused_group_norm.launches += 1
     return out
 

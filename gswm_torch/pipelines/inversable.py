@@ -26,13 +26,14 @@ import torch
 from gswm_torch.config import GSConfig
 from gswm_torch.core.decode import recover_message_bits
 from gswm_torch.models.configs import PRESETS, ModelPreset
-from gswm_torch.models.layers import init_random_
+from gswm_torch.models.layers import init_random_, to_compute_dtype_
 from gswm_torch.models.text import TextEncoder
 from gswm_torch.models.unet import UNet2DCondition
 from gswm_torch.models.vae import AutoencoderKL
 from gswm_torch.schedulers import SCHEDULERS
 from gswm_torch.schedulers.ddim import ddim_step, to_eps
 from gswm_torch.schedulers.dpm import dpm_init_carry, dpm_step
+from gswm_torch.ops.attention import FUSED_QKV_MIN_SEQ, HEAD_DIM
 from gswm_torch.schedulers.schedule import sd_schedule
 
 
@@ -43,6 +44,34 @@ def _build(cls, cfg, generator: torch.Generator):
     module.to_empty(device=generator.device)
     init_random_(module, generator)
     return module.eval().requires_grad_(False)
+
+
+def _check_served_on_cuda(preset: ModelPreset, dtype: torch.dtype) -> None:
+    """Refuse, before anything is built, what the CUDA kernels do not serve.
+    At the preset's default resolution every UNet self-attention of
+    ``FUSED_QKV_MIN_SEQ`` tokens or more runs a kernel, which takes bfloat16
+    and heads of ``HEAD_DIM``; a preset that stays below (``tiny``) runs
+    plain attention in any dtype."""
+    unet = preset.unet
+    latent = preset.default_resolution // 8
+    channels = unet.block_out_channels
+    sites = [(level, ch) for level, ch in enumerate(channels)
+             if unet.cross_attn_levels[level]]
+    sites.append((len(channels) - 1, channels[-1]))  # the mid block
+    reached = [ch // unet.heads_for(ch) for level, ch in sites
+               if (latent >> level) ** 2 >= FUSED_QKV_MIN_SEQ]
+    if not reached:
+        return
+    other = sorted({d for d in reached if d != HEAD_DIM})
+    if other:
+        raise NotImplementedError(
+            f"{preset.name} on a CUDA device: its self-attention heads are {other} "
+            f"wide and the attention kernels take {HEAD_DIM} (SD 2.x); not ported "
+            'yet, run it with device="cpu"')
+    if dtype != torch.bfloat16:
+        raise NotImplementedError(
+            f"{preset.name} in {dtype} on a CUDA device: the attention kernels take "
+            'bfloat16 only; use dtype=torch.bfloat16, or device="cpu" for float32')
 
 
 @dataclasses.dataclass
@@ -71,7 +100,9 @@ class InversablePipeline:
         """On the card unless ``device`` names another (``"cpu"``).  Random
         weights from ``generator`` (default: seed 0 on ``device``);
         ``models.bridge`` loads the JAX package's.  The UNet and the VAE
-        compute in ``dtype``; the text encoder in float32."""
+        compute in ``dtype`` with their norms' parameters kept float32; the
+        text encoder in float32.  On a CUDA device only what the kernels
+        serve is built: SD 2.x head dims in bfloat16."""
         if isinstance(preset, str):
             preset = PRESETS[preset]
         if preset.text2 is not None or preset.unet.addition_embed_dim:
@@ -79,12 +110,14 @@ class InversablePipeline:
         self.preset = preset
         self.device = torch.device(device)
         self.dtype = dtype
+        if self.device.type == "cuda":
+            _check_served_on_cuda(preset, dtype)
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
-        self.unet = _build(UNet2DCondition, preset.unet, generator).to(
-            self.device, dtype)
-        self.vae = _build(AutoencoderKL, preset.vae, generator).to(
-            self.device, dtype)
+        self.unet = to_compute_dtype_(
+            _build(UNet2DCondition, preset.unet, generator), self.device, dtype)
+        self.vae = to_compute_dtype_(
+            _build(AutoencoderKL, preset.vae, generator), self.device, dtype)
         self.text = _build(TextEncoder, preset.text, generator).to(self.device)
         self.schedule = sd_schedule(prediction_type=preset.prediction_type)
         self._empty_ctx = None

@@ -65,3 +65,14 @@ def chacha_cost(n_blocks: int) -> tuple[int, int]:
     """(32-bit integer operations, bytes) of ``n_blocks`` ChaCha20 blocks:
     80 quarter-rounds of 12 operations plus 16 final adds, 64 bytes out."""
     return n_blocks * (80 * 12 + 16), 64 * n_blocks
+
+
+def chacha_batch_cost(rows: int, n_bits: int) -> tuple[int, int]:
+    """(32-bit integer operations, bytes) of ``rows`` keystreams of ``n_bits``
+    bits written as bits, one byte each (``batch_keystream_bits``): every row
+    computes ceil(n_bits / 512) whole blocks at ``chacha_cost``'s count, reads
+    its 48 bytes of key, counter and nonce and writes n_bits bytes.  The
+    words themselves are no output, so their 64 bytes a block are not
+    counted; the bytes, 8 for each byte of keystream, are the larger roof."""
+    ops, _ = chacha_cost(rows * -(-n_bits // 512))
+    return ops, rows * n_bits + rows * 48

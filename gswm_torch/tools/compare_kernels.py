@@ -1,7 +1,8 @@
-"""Time this checkout's attention kernels and projection GEMM against another
-checkout's, in turns, on one card.
+"""Time this checkout's kernels against another checkout's, in turns, on one
+card.
 
     python -m gswm_torch.tools.compare_kernels --parent DIR [--out FILE.json]
+        [--cases attention,k8,k3]
 
 DIR is a second checkout of the repository (for example ``git archive`` of
 the parent commit unpacked into a git-ignored directory).  Both kernel
@@ -16,7 +17,14 @@ entry points on the same tensors, so nothing but the kernels differs:
     and the device time of each side's ``qkv_proj_kernel`` alone from
     ``torch.profiler``;
   * the host time of one launcher call (tensor-map encoding included) on a
-    one-tile shape, where the device never holds the host back.
+    one-tile shape, where the device never holds the host back;
+  * GroupNorm (K8) and ChaCha20 (K3) through each side's own wrappers, host
+    side included (their C signatures may differ between the checkouts): K8
+    at every GroupNorm shape of the 768x768 path, summed, and at
+    ``paths.K8_PROBE_CASES`` with the device time beside; K3's single-key
+    keystream at 32 blocks and 2^20, and the many-key keystream bits at
+    ``paths.K3_BATCH_SHAPES``, where a side without ``batch_keystream_bits``
+    takes what its callers had: ``keystream_bits`` row by row.
 
 Prints a line per case and, last, one JSON object; ``--out`` also writes it.
 """
@@ -24,7 +32,7 @@ Prints a line per case and, last, one JSON object; ``--out`` also writes it.
 from __future__ import annotations
 
 import argparse
-import importlib.util
+import importlib
 import json
 import subprocess
 import sys
@@ -49,12 +57,27 @@ K1_SHAPES = paths.K1_SHAPES  # (B, S, C, H)
 
 
 def load_parent(root: Path):
-    """The other checkout's kernel library, through its own native.py."""
-    spec = importlib.util.spec_from_file_location(
-        "gswm_torch_parent_native", root / "gswm_torch" / "native.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.library()
+    """The other checkout's kernel library, through its own native.py, and
+    its ``ops.groupnorm`` and ``core.chacha`` modules: its package is
+    imported under the package's own name while this checkout's modules are
+    set aside, then the two are swapped back."""
+    def ours():
+        return [k for k in sys.modules if k == "gswm_torch" or k.startswith("gswm_torch.")]
+
+    mine = {k: sys.modules.pop(k) for k in ours()}
+    sys.path.insert(0, str(root))
+    try:
+        native_mod = importlib.import_module("gswm_torch.native")
+        gn = importlib.import_module("gswm_torch.ops.groupnorm")
+        chacha = importlib.import_module("gswm_torch.core.chacha")
+        if Path(native_mod.__file__).resolve().parent.parent != root:
+            raise RuntimeError(f"{root} holds no gswm_torch package")
+    finally:
+        sys.path.remove(str(root))
+        for k in ours():
+            del sys.modules[k]
+        sys.modules.update(mine)
+    return native_mod.library(), gn, chacha
 
 
 def time_ms(fn, iters: int) -> float:
@@ -79,20 +102,29 @@ def in_turns(fns: dict, iters: int) -> dict:
 
 
 def device_ms(fn, iters: int, name_part: str) -> float:
-    """Device time per call of the kernels whose name holds ``name_part``."""
+    """Device time per call of the kernels whose name holds ``name_part``.
+    The calls stand well inside the profiler's window, which drops a device
+    event that its clock mapping puts a moment outside."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type.name == "CUDA" and name_part in e.key)
-    if total <= 0:
+        time.sleep(0.05)
+    # per kernel name, its mean time by the events that were kept, times its
+    # launches a call: the profiler drops some events, so their count, not
+    # iters, divides the sum
+    events = [e for e in prof.key_averages()
+              if e.device_type.name == "CUDA" and name_part in e.key
+              and e.self_device_time_total > 0]
+    if not events:
         raise RuntimeError(f"the profiler saw no device time for {name_part}")
-    return total / 1e3 / iters
+    return sum(e.self_device_time_total / e.count * max(1, round(e.count / iters))
+               for e in events) / 1e3
 
 
 def host_us(fn, calls: int = 2000) -> float:
@@ -109,19 +141,142 @@ def host_us(fn, calls: int = 2000) -> float:
     return (t1 - t0) / calls * 1e6
 
 
+def _sides_ms(fns: dict, iters: int) -> dict:
+    t = in_turns(fns, iters)
+    t["ratio"] = sum(t["parent"]) / sum(t["change"])
+    return t
+
+
+def compare_group_norm(parent_gn, iters: int) -> dict:
+    """K8 through each side's wrapper, fp32 parameters on the card: every
+    GroupNorm shape of the 768x768 path (the sum is per round), then the
+    probe cases with each side's device time."""
+    from gswm_torch.ops import groupnorm as gn
+
+    sides = {"parent": parent_gn.fused_group_norm, "change": gn.fused_group_norm}
+    pipe = paths.build_pipeline("sd-2-1")
+    gn_cases = paths.groupnorm_cases(pipe)
+    del pipe
+    torch.cuda.empty_cache()
+    g = torch.Generator(device="cuda").manual_seed(8)
+    out = {"cases": [], "probes": []}
+    sums = {"parent": [0.0, 0.0], "change": [0.0, 0.0]}
+    bound_sum = 0.0
+    for shape, eps, act in gn_cases:
+        x = (torch.randn(shape, generator=g, device="cuda") * 2 + 0.5).bfloat16()
+        w = 1 + 0.05 * torch.randn(shape[1], generator=g, device="cuda")
+        b = 0.05 * torch.randn(shape[1], generator=g, device="cuda")
+        t = _sides_ms({side: (lambda fn=fn: fn(x, w, b, 32, eps, act))
+                       for side, fn in sides.items()}, iters)
+        diff = (sides["parent"](x, w, b, 32, eps, act).float()
+                - sides["change"](x, w, b, 32, eps, act).float()).abs().max().item()
+        bound, _ = roofline.bound_ms(*roofline.group_norm_cost(shape), roofline.PEAK_FP32)
+        bound_sum += bound
+        for side in sums:
+            sums[side] = [a + c for a, c in zip(sums[side], t[side])]
+        print(f"K8 {shape} {act}: parent {t['parent']} change {t['change']} ms, "
+              f"{t['ratio']:.2f}x, bound {bound:.4f} ms, max|parent - change| {diff:.5f}",
+              flush=True)
+        out["cases"].append(dict(shape=list(shape), eps=eps, act=act, **t,
+                                 bound_ms=bound, max_abs_diff=diff))
+        del x
+    out["sum"] = dict(**sums, ratio=sum(sums["parent"]) / sum(sums["change"]),
+                      bound_ms=bound_sum, shapes=len(gn_cases))
+    print(f"K8 {len(gn_cases)} shapes summed: parent {sums['parent']} change "
+          f"{sums['change']} ms, {out['sum']['ratio']:.2f}x, bound {bound_sum:.4f} ms",
+          flush=True)
+    for shape, act in paths.K8_PROBE_CASES:
+        x = (torch.randn(shape, generator=g, device="cuda") * 2 + 0.5).bfloat16()
+        w, b = torch.ones(shape[1], device="cuda"), torch.zeros(shape[1], device="cuda")
+        fns = {side: (lambda fn=fn: fn(x, w, b, 32, 1e-5, act))
+               for side, fn in sides.items()}
+        t = _sides_ms(fns, 50)
+        device = {side: [] for side in sides}
+        for side in ROUNDS:
+            device[side].append(device_ms(fns[side], 50, "gn_"))
+        bound, _ = roofline.bound_ms(*roofline.group_norm_cost(shape), roofline.PEAK_FP32)
+        # what a plain copy of x takes: the same bytes read and written
+        y = torch.empty_like(x)
+        copy = time_ms(lambda: y.copy_(x), 50)
+        print(f"K8 probe {shape} {act}: wrapper parent {t['parent']} change "
+              f"{t['change']} ms, {t['ratio']:.2f}x; device parent {device['parent']} "
+              f"change {device['change']} ms; bound {bound:.4f} ms; Tensor.copy_ of x "
+              f"{copy:.4f} ms", flush=True)
+        out["probes"].append(dict(shape=list(shape), act=act, **t, device_ms=device,
+                                  bound_ms=bound, copy_ms=copy))
+        del y
+        del x
+    return out
+
+
+def compare_chacha(parent_chacha, iters: int) -> dict:
+    """K3 through each side's wrappers: one key, and a table of keys."""
+    from gswm_torch.core import chacha
+
+    sides = {"parent": parent_chacha, "change": chacha}
+    key, nonce = bytes.fromhex(paths.KEY_HEX), bytes.fromhex(paths.NONCE_HEX)
+    out = {"single": [], "batch": []}
+    for n_blocks in (32, 2**20):
+        fns = {side: (lambda m=m: m.keystream_words(key, nonce, n_blocks, "cuda"))
+               for side, m in sides.items()}
+        t = _sides_ms(fns, iters)
+        bound, _ = roofline.bound_ms(*roofline.chacha_cost(n_blocks), roofline.PEAK_INT32)
+        print(f"K3 one key, {n_blocks} blocks: parent {t['parent']} change {t['change']} "
+              f"ms, {t['ratio']:.2f}x, bound {bound:.6f} ms", flush=True)
+        out["single"].append(dict(n_blocks=n_blocks, **t, bound_ms=bound))
+    for rows, n_blocks in paths.K3_BATCH_SHAPES:
+        n_bits = n_blocks * chacha.BLOCK_BITS
+        keys, nonces, _, _ = paths.multikey_material(rows, seed=rows)
+
+        def row_by_row(m):
+            return torch.stack([m.keystream_bits(k, n, n_bits, "cuda")
+                                for k, n in zip(keys, nonces)])
+
+        fns = {side: ((lambda m=m: m.batch_keystream_bits(keys, nonces, n_bits, "cuda"))
+                      if hasattr(m, "batch_keystream_bits") else (lambda m=m: row_by_row(m)))
+               for side, m in sides.items()}
+        how = {side: "one launch" if hasattr(m, "batch_keystream_bits") else "row by row"
+               for side, m in sides.items()}
+        same = torch.equal(fns["parent"](), fns["change"]())
+        # a side that loops over the rows takes seconds a call at 10,000 rows
+        t = _sides_ms(fns, iters if rows <= 64 else 2)
+        bound, _ = roofline.bound_ms(*roofline.chacha_batch_cost(rows, n_bits),
+                                     roofline.PEAK_INT32)
+        device = device_ms(fns["change"], 10, "chacha20_batch")
+        # what filling the output takes: the same bytes written
+        bits = torch.empty((rows, n_bits), dtype=torch.uint8, device="cuda")
+        fill = time_ms(lambda: bits.fill_(1), 50)
+        print(f"K3 {rows} keys x {n_blocks} blocks, bits out: parent ({how['parent']}) "
+              f"{t['parent']} change ({how['change']}) {t['change']} ms, "
+              f"{t['ratio']:.1f}x, on the device {device:.4f} ms, bound {bound:.6f} ms, "
+              f"Tensor.fill_ of the output {fill:.4f} ms, equal bits {same}", flush=True)
+        if not same:
+            raise AssertionError(f"K3 over {rows} keys: the two sides' bits differ")
+        out["batch"].append(dict(rows=rows, n_blocks=n_blocks, how=how, **t,
+                                 device_ms=device, bound_ms=bound, fill_ms=fill))
+        del bits
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True, type=Path)
     ap.add_argument("--out", type=Path)
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--cases", default="attention,k8,k3",
+                    help="which of attention, k8, k3 to time (comma-separated)")
     args = ap.parse_args()
+    cases = set(args.cases.split(","))
+    if not cases or cases - {"attention", "k8", "k3"}:
+        raise SystemExit(f"compare_kernels: unknown cases {args.cases!r}")
     if not torch.cuda.is_available():
         raise SystemExit("compare_kernels: no CUDA device")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(card, flush=True)
-    libs = {"parent": load_parent(args.parent.resolve()), "change": native.library()}
+    parent_lib, parent_gn, parent_chacha = load_parent(args.parent.resolve())
+    libs = {"parent": parent_lib, "change": native.library()}
     dev = torch.device("cuda")
     stream = native.stream_handle(dev)
     g = torch.Generator(device=dev).manual_seed(4)
@@ -129,15 +284,30 @@ def main() -> None:
     def rand(*shape, scale=1.0):
         return (torch.randn(shape, generator=g, device=dev) * scale).bfloat16()
 
-    result = {"card": card, "rounds": list(ROUNDS), "flash": [], "packed": [],
-              "transposed": [], "fused_qkv": [], "host_us": {}}
+    result = {"card": card, "rounds": list(ROUNDS)}
+    if "k8" in cases:
+        result["group_norm"] = compare_group_norm(parent_gn, args.iters)
+    if "k3" in cases:
+        result["chacha"] = compare_chacha(parent_chacha, args.iters)
+    if "attention" in cases:
+        result.update(compare_attention(libs, rand, stream, args.iters))
+    print(json.dumps(result))
+    if args.out:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps(result, indent=1))
+
+
+def compare_attention(libs: dict, rand, stream: int, iters: int) -> dict:
+    """The flash kernels and K1's GEMM through their C entry points."""
+    result = {"flash": [], "packed": [], "transposed": [], "fused_qkv": [],
+              "host_us": {}}
     for label, b, sq, sk, h, d in FLASH_SHAPES:
         q, k, v = rand(b, sq, h, d), rand(b, sk, h, d), rand(b, sk, h, d)
         outs = {side: torch.empty_like(q) for side in libs}
         fns = {side: (lambda side=side: libs[side].call(
             "gswm_flash_split", q.data_ptr(), k.data_ptr(), v.data_ptr(),
             outs[side].data_ptr(), b, sq, sk, h, d, stream)) for side in libs}
-        t = in_turns(fns, args.iters)
+        t = in_turns(fns, iters)
         diff = (outs["parent"].float() - outs["change"].float()).abs().max().item()
         bound, _ = roofline.bound_ms(*roofline.attention_cost(b, sq, sk, h, d),
                                      roofline.PEAK_BF16)
@@ -153,7 +323,7 @@ def main() -> None:
         fns = {side: (lambda side=side: libs[side].call(
             "gswm_flash_packed", qkv.data_ptr(), outs[side].data_ptr(), b, s, pairs,
             stream)) for side in libs}
-        t = in_turns(fns, args.iters)
+        t = in_turns(fns, iters)
         diff = (outs["parent"].float() - outs["change"].float()).abs().max().item()
         ratio = sum(t["parent"]) / sum(t["change"])
         print(f"packed (B={b}, S={s}, P={pairs}): parent {t['parent']} change "
@@ -167,7 +337,7 @@ def main() -> None:
         fns = {side: (lambda side=side: libs[side].call(
             "gswm_flash_transposed", qkv_t.data_ptr(), outs[side].data_ptr(), b, s, h,
             stream)) for side in libs}
-        t = in_turns(fns, args.iters)
+        t = in_turns(fns, iters)
         diff = (outs["parent"].float() - outs["change"].float()).abs().max().item()
         bound, _ = roofline.bound_ms(*roofline.attention_cost(b, s, s, h, 64),
                                      roofline.PEAK_BF16)
@@ -185,10 +355,10 @@ def main() -> None:
         fns = {side: (lambda side=side: libs[side].call(
             "gswm_fused_qkv_attn", x.data_ptr(), *(w.data_ptr() for w in ws),
             *(t.data_ptr() for t in bufs[side]), b, s, c, h, stream)) for side in libs}
-        t = in_turns(fns, args.iters)
+        t = in_turns(fns, iters)
         gemm = {side: [] for side in libs}
         for side in ROUNDS:
-            gemm[side].append(device_ms(fns[side], args.iters, "qkv_proj_kernel"))
+            gemm[side].append(device_ms(fns[side], iters, "qkv_proj_kernel"))
         diff = (bufs["parent"][3].float() - bufs["change"][3].float()).abs().max().item()
         bound, _ = roofline.bound_ms(*roofline.projection_cost(b * s, c, n),
                                      roofline.PEAK_BF16)
@@ -208,10 +378,7 @@ def main() -> None:
             1, 64, 64, 1, 64, stream))
         result["host_us"].setdefault(side, []).append(us)
     print(f"host time per flash launcher call, us: {result['host_us']}", flush=True)
-    print(json.dumps(result))
-    if args.out:
-        args.out.parent.mkdir(parents=True, exist_ok=True)
-        args.out.write_text(json.dumps(result, indent=1))
+    return result
 
 
 if __name__ == "__main__":

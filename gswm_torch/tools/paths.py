@@ -2,13 +2,18 @@
 measurement scripts here time and profile: one definition, so a profile is
 of the smoke's chain and a kernel comparison is at the smoke's shapes.
 
-Two paths, random weights from a seed, bf16, on one card:
+Three paths; the first two with random weights from a seed, bf16, on one card:
 
   * sd-2-1-base at 512x512, batch 4: the extraction chain (embed + VAE
     encode + 30-step inversion + decode) on random images;
   * sd-2-1 (v-prediction) at 768x768, batch 2: the watermark chain (embed ->
     seeded prompt ids -> 30-step DDIM at guidance 7.5 -> VAE decode, then
-    ``pipe.extract_bits``: VAE encode -> 30-step inversion -> decode).
+    ``pipe.extract_bits``: VAE encode -> 30-step inversion -> decode);
+  * per-user keys at the JAX package's config-5 scale (record shape in
+    benchmarks/config5_multikey_trace.jsonl): 10,000 (key, nonce, message)
+    records from a numpy seed at the 512x512 geometry (4x64x64 latents, l = 1,
+    256 message bits, 16,384 capacity bits), every record embedded and
+    decoded under its own key, 16 probes traced against the whole registry.
 """
 
 from __future__ import annotations
@@ -47,6 +52,20 @@ LEVEL0_SHAPES = ((2, 9216, 5), (4, 9216, 5), (2, 4096, 5), (1, 1000, 3))
 # K7 also where S is no multiple of 8 (rows not 16-byte aligned): its masked
 # kernel; every shape above takes its wgmma + TMA kernel
 K7_SHAPES = (*LEVEL0_SHAPES, (1, 1001, 3))
+
+# K3 over a key table (rows, ChaCha20 blocks a row): 32 blocks are the 16,384
+# bits of a 512x512 latent; 4 rows are phase 7d's batch, 4096 one chunk of the
+# trace search, 10,000 the whole registry
+K3_BATCH_SHAPES = ((4, 32), (4096, 32), (10000, 32))
+# per-user keys (config 5): the registry, the probes traced against it, the
+# records the host loop also scores, the images sent through the model, and
+# the rows embedded or decoded a call (164 MB of fp32 latents)
+MULTIKEY_RECORDS = 10000
+MULTIKEY_PROBES = 16
+MULTIKEY_HOST_SLICE = 256
+MULTIKEY_MODEL_BATCH = 4
+MULTIKEY_ROWS_PER_CALL = 2500
+MULTIKEY_SEED = 505
 
 # K8 (NCHW shape, activation): the largest GroupNorm of the 768x768 path (VAE)
 # and the UNet's level-0 one, the two whose times the records quote
@@ -152,3 +171,100 @@ def extraction_chain_512(pipe, cfg, images, seed: int):
     zt, _ = embed(cfg, BATCH_512, seed)
     z = pipe.invert(latents=pipe.image_to_latents(images), num_steps=STEPS)
     return recover_message_bits(z, cfg), z, zt
+
+
+def groupnorm_act(name: str):
+    """The activation after a GroupNorm: SiLU after every ResnetBlock norm
+    and the final norms (layers.py, unet.py, vae.py), none elsewhere."""
+    return "silu" if name.endswith(("norm1", "norm2", "conv_norm_out")) else None
+
+
+@contextlib.contextmanager
+def groupnorm_hooks(pipe, hook):
+    """``hook(name, module, x, y)`` after every GroupNorm32 of the UNet and
+    the VAE."""
+    from gswm_torch.models.layers import GroupNorm32
+
+    handles = [
+        m.register_forward_hook(lambda m, args, y, name=name: hook(name, m, args[0], y))
+        for model in (pipe.unet, pipe.vae) for name, m in model.named_modules()
+        if isinstance(m, GroupNorm32)]
+    try:
+        yield
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def drive_groupnorm_sites(pipe) -> None:
+    """One UNet forward at batch 2 and at 4 (guidance), one VAE decode of
+    one image and one encode of two, at 768x768."""
+    with torch.inference_mode():
+        for b in (BATCH_768, 2 * BATCH_768):
+            pipe.unet(*unet_inputs(pipe, b))
+        g = torch.Generator(device="cuda").manual_seed(3)
+        pipe.vae.decode(torch.randn((1, 4, RES_768 // 8, RES_768 // 8), generator=g,
+                                    device="cuda", dtype=torch.bfloat16))
+        pipe.vae.encode(torch.rand((BATCH_768, 3, RES_768, RES_768), generator=g,
+                                   device="cuda", dtype=torch.bfloat16) * 2 - 1)
+    torch.cuda.synchronize()
+
+
+def groupnorm_cases(pipe) -> list:
+    """Every distinct (shape, eps, act) of the 768x768 path's GroupNorms."""
+    cases = []
+
+    def hook(name, m, x, y):
+        case = (tuple(x.shape), m.eps, groupnorm_act(name))
+        if case not in cases:
+            cases.append(case)
+
+    with groupnorm_hooks(pipe, hook):
+        drive_groupnorm_sites(pipe)
+    print(f"GroupNorm cases of the 768x768 path: {len(cases)}", flush=True)
+    return cases
+
+
+def multikey_config():
+    """The shared geometry of the per-user-key path: 512x512, l = 1, 256
+    message bits (keys and nonces come with each record)."""
+    from gswm_torch import GSConfig
+
+    return GSConfig(width=RES_512, height=RES_512, message_bits=256)
+
+
+def multikey_material(n: int = MULTIKEY_RECORDS, seed: int = MULTIKEY_SEED):
+    """(keys, nonces, messages, records) of ``n`` users from a numpy seed;
+    records in the info_data.jsonl schema of ``eval.registry``."""
+    rng = np.random.default_rng(seed)
+    raw = rng.bytes(80 * n)
+    keys = [raw[80 * i:80 * i + 32] for i in range(n)]
+    nonces = [raw[80 * i + 32:80 * i + 48] for i in range(n)]
+    messages = [raw[80 * i + 48:80 * i + 80] for i in range(n)]
+    records = [{"key_hex": k.hex(), "nonce_hex": m.hex(), "message_hex": g.hex(),
+                "message_length": 256} for k, m, g in zip(keys, nonces, messages)]
+    return keys, nonces, messages, records
+
+
+def multikey_embed_all(cfg, keys, nonces, messages, dev="cuda", seed: int = 41):
+    """Every record embedded under its own key, ``MULTIKEY_ROWS_PER_CALL`` rows
+    a call: (n, 4, 64, 64) fp32 latents on ``dev``."""
+    from gswm_torch.core.multikey import embed_latents_multikey
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    step = MULTIKEY_ROWS_PER_CALL
+    return torch.cat([
+        embed_latents_multikey(cfg, keys[i:i + step], nonces[i:i + step],
+                               messages[i:i + step], generator=g, device=dev)[0]
+        for i in range(0, len(keys), step)])
+
+
+def multikey_decode_all(cfg, latents, keys, nonces) -> torch.Tensor:
+    """(n, 256) voted bits, each row under its own key."""
+    from gswm_torch.core.multikey import recover_message_bits_multikey
+
+    step = MULTIKEY_ROWS_PER_CALL
+    return torch.cat([
+        recover_message_bits_multikey(latents[i:i + step], cfg, keys[i:i + step],
+                                      nonces[i:i + step])
+        for i in range(0, len(keys), step)])

@@ -14,7 +14,8 @@ On one card, random weights from a seed, bf16:
   * sd-2-1-base at 512x512, batch 4: the extraction chain of phase 3b
     (embed + VAE encode + 30-step inversion + decode), likewise.
   * the GroupNorm kernel (K8) at ``paths.K8_PROBE_CASES``: device time a call
-    beside the wrapper's CUDA-event time a call, which holds its host side.
+    beside the wrapper's CUDA-event time a call, which holds its host side,
+    and its bound.
 Both chains, their inputs and seeds are ``gswm_torch/tools/paths.py``'s, as
 ``chip_smoke.py``'s are.
 
@@ -36,6 +37,7 @@ from pathlib import Path
 
 import torch
 
+from gswm_torch import roofline
 from gswm_torch.tools import paths
 from gswm_torch.tools.compare_kernels import device_ms, time_ms
 
@@ -163,10 +165,12 @@ def main() -> None:
 
         wrapper = time_ms(call, 50)
         device = device_ms(call, 50, "gn_")
+        bound, _ = roofline.bound_ms(*roofline.group_norm_cost(shape), roofline.PEAK_FP32)
         print(f"K8 {shape} {act}: wrapper {wrapper:.4f} ms a call (CUDA events), device "
-              f"{device:.4f} ms a call", flush=True)
+              f"{device:.4f} ms a call, bound {bound:.4f} ms ({bound / device * 100:.0f}% "
+              f"of the device's time)", flush=True)
         result["group_norm"].append(dict(shape=list(shape), act=act, wrapper_ms=wrapper,
-                                         device_ms=device))
+                                         device_ms=device, bound_ms=bound))
         del x
     print(json.dumps(result))
     if args.out:

@@ -83,6 +83,20 @@ def test_group_norm_and_chacha_bounds():
     assert roofline.bound_ms(ops, nbytes, roofline.PEAK_INT32)[1] == "operations"
 
 
+def test_chacha_batch_bound_is_the_bits_written():
+    """10,000 keystreams of 16,384 bits, a byte a bit: 32 blocks a row of 976
+    integer operations each, 163.84 MB of bits and 48 bytes a row of keys:
+    0.049 ms of stores against 0.009 ms of integer work."""
+    ops, nbytes = roofline.chacha_batch_cost(10000, 16384)
+    assert ops == 10000 * 32 * 976
+    assert nbytes == 10000 * 16384 + 10000 * 48
+    bound, by = roofline.bound_ms(ops, nbytes, roofline.PEAK_INT32)
+    assert by == "bytes" and bound == pytest.approx(0.04905, rel=1e-3)
+    assert 1e3 * ops / roofline.PEAK_INT32 == pytest.approx(0.0093, rel=1e-2)
+    # a ragged length still computes whole blocks
+    assert roofline.chacha_batch_cost(3, 700) == (3 * 2 * 976, 3 * 700 + 3 * 48)
+
+
 @pytest.mark.parametrize("pattern", [
     r"scaled_dot_product_attention", r"torch\.compile", r"cudnn[\w.]*attention",
     r"sdpa_kernel", r"flash_attn"])

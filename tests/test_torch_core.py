@@ -220,3 +220,86 @@ def test_ddim_step_matches_jax():
     np.testing.assert_allclose(
         v, np.asarray(jddim.to_eps(x, eps, a_to, "v_prediction")), rtol=1e-6,
         atol=1e-6)
+
+
+def _count_keystream_calls(monkeypatch):
+    """Count the calls that reach ``keystream_words`` (on a card: launches)."""
+    calls = []
+    real = chacha.keystream_words
+
+    def counted(key, nonce16, n_blocks, device="cuda"):
+        calls.append((key, nonce16, n_blocks, str(device)))
+        return real(key, nonce16, n_blocks, device)
+
+    monkeypatch.setattr(chacha, "keystream_words", counted)
+    return calls
+
+
+def test_keystream_and_payload_are_cached_per_key(monkeypatch):
+    """Two embeds and two decodes under one key make one keystream (the JAX
+    package's _cached_keystream / _cached_payload_bits), with the same bits
+    as the uncached function; another nonce, message, capacity or device is
+    another entry."""
+    embed.clear_caches()
+    calls = _count_keystream_calls(monkeypatch)
+    cfg, jcfg = _cfgs()
+    u = np.random.default_rng(3).random((1, cfg.total_elements), dtype=np.float32)
+    for _ in range(2):
+        lat, msg = embed.embed_latents(cfg, u=u, device="cpu")
+        voted = decode.recover_message_bits(lat, cfg)
+    assert len(calls) == 1
+    np.testing.assert_array_equal(voted[0].numpy(),
+                                  np.unpackbits(np.frombuffer(msg, np.uint8)))
+    key, nonce = cfg.resolve_key_nonce()
+    cached = chacha.cached_keystream_bits(key, nonce, cfg.capacity_bits, "cpu")
+    assert cached is chacha.cached_keystream_bits(key, nonce, cfg.capacity_bits, "cpu")
+    assert torch.equal(cached, chacha.keystream_bits(key, nonce, cfg.capacity_bits, "cpu"))
+    assert len(calls) == 2  # the uncached call just above
+    payload = embed.encrypted_payload_bits(cfg.resolved(), msg, "cpu")
+    assert payload is embed.encrypted_payload_bits(cfg.resolved(), msg, "cpu")
+    np.testing.assert_array_equal(
+        payload.numpy(), np.asarray(jembed.encrypted_payload_bits(jcfg.resolved(), msg)))
+    assert len(calls) == 2
+    # a different message: a new payload from the cached keystream
+    embed.encrypted_payload_bits(cfg.resolved(), b"abcd", "cpu")
+    assert len(calls) == 2
+    # a different nonce, capacity or device misses
+    other, _ = _cfgs(nonce_hex="44" * 16)
+    embed.embed_latents(other, u=u, device="cpu")
+    assert len(calls) == 3
+    wide, _ = _cfgs(width=128)
+    decode.recover_message_bits(torch.zeros((4, 8, 16)), wide)
+    assert len(calls) == 4
+    with pytest.raises(ValueError):  # the key holds the device
+        chacha.cached_keystream_bits(key, nonce, cfg.capacity_bits, "meta")
+    assert len(calls) == 5 and calls[-1][3] == "meta"
+    embed.clear_caches()
+    decode.recover_message_bits(lat, cfg)
+    assert len(calls) == 6
+
+
+def test_cache_is_bounded():
+    embed.clear_caches()
+    for i in range(40):
+        chacha.cached_keystream_bits(bytes([i]) * 32, bytes(16), 64, "cpu")
+    info = chacha._cached_keystream_bits.cache_info()
+    assert info.maxsize == 32 and info.currsize == 32
+
+
+def test_canonical_device_fills_in_the_index():
+    assert chacha.canonical_device("cpu") == torch.device("cpu")
+    assert chacha.canonical_device(torch.device("cuda", 1)) == torch.device("cuda:1")
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            chacha.canonical_device("cuda")
+
+
+def test_words_to_bits_keeps_leading_dims():
+    words = torch.from_numpy(np.random.default_rng(1).integers(
+        -2**31, 2**31, (3, 2, 16), dtype=np.int64).astype(np.int32))
+    bits = chacha.words_to_bits(words)
+    assert bits.shape == (3, 1024)
+    for r in range(3):
+        assert torch.equal(bits[r], chacha.words_to_bits(words[r]))
+        want = np.unpackbits(words[r].numpy().astype("<i4").view(np.uint8).ravel())
+        np.testing.assert_array_equal(bits[r].numpy(), want)

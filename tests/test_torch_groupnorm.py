@@ -81,3 +81,104 @@ def test_rejects_what_it_does_not_take():
         gn.fused_group_norm(x[:, :48], w[:48], w[:48], 32)  # 48 channels, 32 groups
     with pytest.raises(ValueError):
         gn.fused_group_norm(torch.empty((1, 64, 2, 2), device="meta"), w, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+def test_reference_takes_parameters_of_any_float_dtype(dtype):
+    """The plain version computes in fp32 whatever the parameters' dtype: the
+    models keep their norms' scales and biases fp32, a caller may not."""
+    x = torch.from_numpy(_rand((2, 64, 4, 8), 7, 1.5, 0.3))
+    w = torch.from_numpy(_rand((64,), 8, 0.2, 1.0)).to(dtype)
+    b = torch.from_numpy(_rand((64,), 9, 0.2)).to(dtype)
+    got = gn.fused_group_norm(x, w, b, 32, 1e-5, "silu")
+    want = gn.fused_group_norm_reference(x, w.float(), b.float(), 32, 1e-5, "silu")
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+
+
+def test_kernel_source_is_one_launch_that_keeps_the_group_on_chip():
+    """csrc/group_norm.cu: one cluster kernel (no stats / apply pair), the
+    sums exchanged through distributed shared memory under cluster barriers,
+    no scratch argument, no float atomics; native.py's signature agrees."""
+    from pathlib import Path
+
+    from gswm_torch import native
+
+    text = (Path(gn.__file__).resolve().parents[1] / "csrc" / "group_norm.cu").read_text()
+    code = "\n".join(line.split("//")[0] for line in text.splitlines())
+    for used in ("cudaLaunchKernelEx", "cudaLaunchAttributeClusterDimension",
+                 "cudaFuncAttributeNonPortableClusterSizeAllowed",
+                 "cudaFuncAttributeMaxDynamicSharedMemorySize", "map_shared_rank",
+                 "cluster.sync()", "barrier.cluster.arrive", "barrier.cluster.wait",
+                 "cp.async.bulk.shared::cluster.global"):
+        assert used in code, used
+    for gone in ("gn_stats_kernel", "gn_apply_kernel", "partials", "atomicAdd", "<<<"):
+        assert gone not in code, gone
+    assert code.count("cudaLaunchKernelEx(") == 1
+    # x, weight, bias, out; B, C, HW, G; eps, act, stream
+    sig = native._SIGNATURES["gswm_group_norm"]
+    assert len(sig) == 11 and sig.count(native._VP) == 5
+
+
+class _OnCard:
+    """Stands in for a tensor on a card, which this machine has not: the
+    wrapper's CUDA branch reads a tensor's metadata and address alone."""
+
+    device = torch.device("cuda", 0)
+    converted = 0
+
+    def __init__(self, shape, dtype, address):
+        self.shape, self.dtype, self.address = torch.Size(shape), dtype, address
+
+    def dim(self):
+        return len(self.shape)
+
+    def is_contiguous(self):
+        return True
+
+    def data_ptr(self):
+        return self.address
+
+    def to(self, device=None, dtype=None):
+        _OnCard.converted += 1
+        return _OnCard(self.shape, dtype, self.address + 4096)
+
+    def contiguous(self):
+        return self
+
+
+def test_wrapper_allocates_only_the_output_and_converts_nothing(monkeypatch):
+    """On a CUDA tensor: the argument checks touch no data, fp32 parameters
+    pass as they are, the one allocation is the output, and one call of the
+    C entry point is one launch on the counter."""
+    calls, made = [], []
+    monkeypatch.setattr(gn.native, "launch", lambda dev, name, *args: calls.append(
+        (dev, name, args)))
+
+    def empty_like(t):
+        made.append(t)
+        return _OnCard(t.shape, t.dtype, 0x7000)
+
+    monkeypatch.setattr(torch, "empty_like", empty_like)
+    monkeypatch.setattr(_OnCard, "converted", 0)
+    x = _OnCard((2, 64, 6, 8), torch.bfloat16, 0x1000)
+    w = _OnCard((64,), torch.float32, 0x2000)
+    b = _OnCard((64,), torch.float32, 0x3000)
+    before = gn.fused_group_norm.launches
+    out = gn.fused_group_norm(x, w, b, 32, 1e-6, "silu")
+    assert gn.fused_group_norm.launches == before + 1
+    assert out.address == 0x7000 and made == [x] and _OnCard.converted == 0
+    assert calls == [(x.device, "gswm_group_norm",
+                      (0x1000, 0x2000, 0x3000, 0x7000, 2, 64, 48, 32, 1e-6, 1))]
+    # parameters in another dtype are converted, one copy each
+    gn.fused_group_norm(x, _OnCard((64,), torch.bfloat16, 0x4000), b, 32, 1e-6)
+    assert _OnCard.converted == 1 and calls[-1][2][1] == 0x4000 + 4096
+    assert calls[-1][2][-1] == 0
+    # what the kernel does not take is refused before any launch
+    with pytest.raises(TypeError):
+        gn.fused_group_norm(_OnCard((2, 64, 6, 8), torch.float32, 0x1000), w, b)
+    with pytest.raises(ValueError):
+        gn.fused_group_norm(_OnCard((2, 64, 6, 8), torch.bfloat16, 0x1008), w, b)
+    with pytest.raises(ValueError):
+        gn.fused_group_norm(x, _OnCard((32,), torch.float32, 0x2000), b)
+    assert len(calls) == 2

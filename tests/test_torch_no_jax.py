@@ -1,7 +1,8 @@
 """The PyTorch port runs where jax is not installed: importing it and driving
 its tiny pipeline (prompt -> guided DPM++ generation -> VAE decode -> encode
--> inversion -> decode) must load none of jax, flax, transformers,
-cryptography or safetensors."""
+-> inversion -> decode) and its per-user-key path (multikey embed, both trace
+searches) must load none of jax, flax, transformers, cryptography or
+safetensors."""
 
 import subprocess
 import sys
@@ -23,6 +24,10 @@ def test_port_imports_no_jax():
         from gswm_torch.ops import attention, groupnorm  # noqa: F401
         from gswm_torch.pipelines import InversablePipeline
         from gswm_torch.schedulers import dpm  # noqa: F401
+        from gswm_torch.core import multikey
+        from gswm_torch.eval import registry, trace  # noqa: F401
+        from gswm_torch.utils import io  # noqa: F401
+        from gswm_torch.tools import paths  # noqa: F401
         cfg = GSConfig(key_hex="22" * 32, nonce_hex="33" * 16, message="x",
                        width=64, height=64, message_bits=32)
         zt, _ = embed_latents(cfg, generator=torch.Generator().manual_seed(0),
@@ -32,6 +37,15 @@ def test_port_imports_no_jax():
         images = pipe.generate(zt, prompt_ids=ids, num_steps=2, scheduler="DPMs")
         bits, _ = pipe.extract_bits(cfg, images=images, num_steps=2,
                                     scheduler="DPMs", refine=1)
+        keys, nonces, msgs = [bytes([i]) * 32 for i in (1, 2)], [bytes(16)] * 2, [b"ab", b"cd"]
+        mcfg = GSConfig(width=64, height=64, message_bits=16)
+        lat, msg = multikey.embed_latents_multikey(
+            mcfg, keys, nonces, msgs, generator=torch.Generator().manual_seed(2),
+            device="cpu")
+        records = [dict(key_hex=k.hex(), nonce_hex=n.hex(), message_hex=m.hex())
+                   for k, n, m in zip(keys, nonces, msg)]
+        assert trace.find_source(lat[1], records)[:2] == (1, 1.0)
+        assert trace.find_source_device(lat[0], records, device="cpu")[:2] == (0, 1.0)
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in {FORBIDDEN!r})
         print("LOADED", loaded)
