@@ -34,7 +34,11 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
                 plain version at (rows, blocks) = (4, 32), (4096, 32) and
                 (10000, 32), against the single-key kernel row by row, one
                 row's counter carrying into the high word; one
-                batch_keystream_bits call must be one kernel.
+                batch_keystream_bits call must be one kernel.  (Both
+                one-kernel checks stand at the head of the phase and read
+                one profiler trace of 8 calls: 8 launch records on the
+                host's side, and no kernel but the wrapper's on the
+                device's.)
   3. extraction path, sd-2-1-base at 512x512, batch 4 (full batch; the time
      limit does not need a smaller one), random weights from a seed:
        (a) latent closed loop: embed -> 30-step DDIM generate -> 30-step
@@ -64,8 +68,9 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
        (e) GSWM_FUSED_QKV=0: K4 at level 1, plain attention at level 2 —
      one UNet forward on the same latents, timestep and context as the
      default route, within TIER_REL_BOUND of it, with exact launch counts;
-     its ms (CUDA events); and the latent closed loop (embed -> 30-step DDIM
-     -> 30-step inversion -> decode) at bit accuracy >= 0.99 on every image;
+     its ms (CUDA events); and the latent closed loop (embed -> 10-step DDIM
+     -> 10-step inversion -> decode; phases 3 and 4 hold the 30-step loops)
+     at bit accuracy >= 0.99 on every image;
      K3 does not launch (phase 4 left the keystream of this key cached).
   6. GroupNorm op — K8 on the inputs of every GroupNorm of one UNet forward
      (batch 2), one decode and one encode at 768x768, each against the
@@ -84,15 +89,37 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
            multikey decode >= 0.99 each, each recovered latent attributed to
            its own record among the 10,000.
      The batch kernel launches exactly once per batch_keystream_bits call.
-  8. summary  — a JSON line of the kernels, then the JSON result line.
+  8. robustness bench, sd-2-1 at 768x768, batch 2 (gswm_torch/tools/paths.py):
+       (a) each of the 15 batched attacks (the DCT JPEG among them) at
+           relative strength 0.5 on (2, 3, 768, 768) float32 images from a
+           seed, and the cubic resize 768 -> 230 -> 768: the card's output
+           against the same function on the CPU with the same draws (max
+           |diff| <= 1e-4; flips, invert, erasing, randomcrop exact; the JPEG
+           on all but 0.1% of the pixels, mean |diff| <= 1e-4); ms a call;
+       (b) a short sweep: run_sweep over DEFAULT_ATTACKS at strength 0.5, 30
+           steps, device JPEG: 17 rows in order, the ``none`` row equal to
+           pipe.extract_bits on the same images, every accuracy finite in
+           [0, 1], the jsonl written and read back, and exact launch counts
+           from the rows: 30 forwards of generation, 17 rows of 30, and 50 +
+           50 for ``reversed`` at 0.5: 640 forwards (K1 10 and K2 5 each), K4
+           once a VAE encode of 2 images (17 rows and one inside
+           ``reversed``) and twice a decode of 2 (generation, ``reversed``),
+           K3 at most once, K6, K7, K8 never;
+       (c) the Tree-Ring loop on latents: a ring pattern injected into 2
+           latents, 30-step generate and invert beside 2 unmarked latents:
+           the marked pair's FFT distance below the unmarked's, its p-value
+           below 0.01 and below the unmarked's.
+  9. summary  — a JSON line of the kernels, then the JSON result line.
 Each path's launch counts are set to 0 just before it and read just after.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -107,6 +134,8 @@ BATCH, RES = paths.BATCH_512, paths.RES_512
 CARRY_NONCE_HEX = (2**32 - 5).to_bytes(8, "little").hex() + "44" * 8
 
 MIN_BIT_ACC = 0.99
+# calls in the profiler window of a one-kernel check
+ONE_KERNEL_CALLS = 8
 # bf16 kernel vs fp32 plain version at unit-scale inputs: tightened from the
 # 0.06 of tests/test_fused_qkv_attention.py:51-64; the kernels measured
 # <= 0.006 at these shapes on an H100
@@ -196,23 +225,43 @@ def _check_keystream(key: bytes, nonce: bytes, n_blocks: int) -> None:
                              f"nonce {nonce.hex()}: blocks {bad}")
 
 
-def _device_kernels(fn) -> list:
-    """Names of the device kernels (copies apart) one call of ``fn`` runs.
-    The call stands well inside the profiler's window: the device's clock is
-    mapped onto the host's, and an event that the mapping puts a moment
-    outside the window is dropped."""
+def _check_one_kernel(what: str, fn, kernel: str) -> None:
+    """One call of ``fn`` launches one device kernel, ``kernel``.
+    ONE_KERNEL_CALLS calls stand in one profiler window.  The count is read
+    from the host's side of the trace, the launch records of the CUDA API
+    (cudaLaunchKernel and its kin): exactly one a call.  The name is read from the device's side:
+    every kernel record there is ``kernel`` (copies apart), and there is at
+    least one.  The device's records alone cannot carry the count: the tracer
+    maps the card's clock onto the host's, late in a process that mapping
+    lags (its log warns "GPU op timestamp < runtime timestamp"), and it
+    drops as out of range the records that then fall before the window's
+    start: a lone kernel's always, a window's eight often
+    (gswm_torch/tools/profile_paths.py counts both sides).  The
+    host's launch records are stamped by the host's clock and are all there;
+    phase 2 makes these checks at its head, while the process is young and
+    the device's records are too."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        time.sleep(0.05)
-        fn()
+        time.sleep(0.3)
+        for _ in range(ONE_KERNEL_CALLS):
+            fn()
         torch.cuda.synchronize()
         time.sleep(0.05)
-    return [e.key for e in prof.key_averages() for _ in range(e.count)
-            if e.device_type.name == "CUDA" and e.self_device_time_total > 0
-            and "memcpy" not in e.key.lower() and "memset" not in e.key.lower()]
+    events = prof.events()
+    launches = [e.name for e in events
+                if e.device_type.name == "CPU" and "launch" in e.name.lower()]
+    kernels = [e.name for e in events if e.device_type.name == "CUDA"
+               and "memcpy" not in e.name.lower() and "memset" not in e.name.lower()]
+    if len(launches) != ONE_KERNEL_CALLS:
+        raise AssertionError(f"{what}: {ONE_KERNEL_CALLS} calls made {len(launches)} "
+                             f"launches {sorted(set(launches))}, not one a call")
+    if not kernels or len(kernels) > ONE_KERNEL_CALLS \
+            or any(kernel not in name for name in kernels):
+        raise AssertionError(f"{what}: {ONE_KERNEL_CALLS} calls ran {kernels}, not "
+                             f"{kernel} alone")
 
 
 def _check_batch_keystream(records: dict) -> None:
@@ -246,10 +295,10 @@ def _check_batch_keystream(records: dict) -> None:
             chacha.keystream_bytes_host(keys[1], nonces[1], n_bits // 8), np.uint8))
         if not np.array_equal(got[1].cpu().numpy(), host):
             raise AssertionError("K3 batch: bit order differs from np.unpackbits")
-        names = _device_kernels(
-            lambda: chacha.batch_keystream_bits(keys, nonces, n_bits, dev))
-        if len(names) != 1 or "chacha20_batch_kernel" not in names[0]:
-            raise AssertionError(f"batch_keystream_bits ran {names}, not one kernel")
+        _check_one_kernel(
+            f"batch_keystream_bits at {rows} rows",
+            lambda: chacha.batch_keystream_bits(keys, nonces, n_bits, dev),
+            "chacha20_batch_kernel")
         ms = _time_ms(lambda: chacha.batch_keystream_bits(keys, nonces, n_bits, dev), 10)
         plain = _time_ms(lambda: chacha.batch_keystream_bits_reference(
             keys, nonces, n_bits, dev), 2, warmup=1)
@@ -269,9 +318,9 @@ def _check_group_norm_call(shape, act) -> None:
 
     x = torch.randn(shape, device="cuda").bfloat16()
     w, b = torch.ones(shape[1], device="cuda"), torch.zeros(shape[1], device="cuda")
-    names = _device_kernels(lambda: gn.fused_group_norm(x, w, b, 32, 1e-5, act))
-    if len(names) != 1 or "gn_cluster_kernel" not in names[0]:
-        raise AssertionError(f"fused_group_norm at {shape} ran {names}, not one kernel")
+    _check_one_kernel(f"fused_group_norm at {shape}",
+                      lambda: gn.fused_group_norm(x, w, b, 32, 1e-5, act),
+                      "gn_cluster_kernel")
     before = torch.cuda.memory_stats()["allocation.all.allocated"]
     out = gn.fused_group_norm(x, w, b, 32, 1e-5, act)
     made = torch.cuda.memory_stats()["allocation.all.allocated"] - before
@@ -355,6 +404,10 @@ def phase_kernels(gn_cases) -> dict:
     records = {}
     key, nonce = bytes.fromhex(KEY_HEX), bytes.fromhex(NONCE_HEX)
     carry = bytes.fromhex(CARRY_NONCE_HEX)
+    for shape, act in paths.K8_PROBE_CASES:
+        _check_group_norm_call(shape, act)
+    print(f"K8 group_norm: one kernel and one allocation a call at "
+          f"{[c[0] for c in paths.K8_PROBE_CASES]}", flush=True)
     # 32 and 72 blocks: one 64x64x4 and one 96x96x4 latent of bits
     for n_blocks in (32, 72, 2**20):
         for nn in (nonce, carry):
@@ -516,10 +569,7 @@ def phase_kernels(gn_cases) -> dict:
                                  f"{GN_REL_BOUND} x {top}")
         _record(records, "fused_group_norm", err, ms, plain, bound, lib)
         del x, got, want
-    for shape, act in paths.K8_PROBE_CASES:
-        _check_group_norm_call(shape, act)
-    print(f"K8 group_norm: one kernel and one allocation a call at "
-          f"{[c[0] for c in paths.K8_PROBE_CASES]}; 50-shape sums above: "
+    print(f"K8 group_norm: 50-shape sums above: "
           f"{records['fused_group_norm']['ms']:.4f} ms against a bound of "
           f"{records['fused_group_norm']['bound_ms']:.4f} ms", flush=True)
     for rec in records.values():  # the roof behind most of the summed bound
@@ -742,6 +792,7 @@ def phase_tiers(card: str, pipe) -> dict:
     b = BATCH_768
     cfg = paths.config(RES_768, "gswm_torch tiers")
     inputs = paths.unet_inputs(pipe, b)
+    steps = paths.TIER_LOOP_STEPS
 
     def forward():
         with torch.inference_mode():
@@ -764,21 +815,21 @@ def phase_tiers(card: str, pipe) -> dict:
             ms = _time_ms(forward, 10)
             _reset_counters()
             zt, msg = paths.embed(cfg, b, 31)
-            x0 = pipe.generate(zt, guidance_scale=1.0, num_steps=STEPS, decode=False)
-            z_back = pipe.invert(latents=x0, num_steps=STEPS)
+            x0 = pipe.generate(zt, guidance_scale=1.0, num_steps=steps, decode=False)
+            z_back = pipe.invert(latents=x0, num_steps=steps)
             acc = _bit_accuracy(recover_message_bits(z_back, cfg), msg, dev)
             loop = _counters()
         diff = (out - default).abs().max().item()
         env = " ".join(f"{k}={v}" for k, v in switches.items())
         print(f"({label}) {env}: max|out - default| {diff:.5f}, relative "
               f"{diff / top:.5f} (bound {TIER_REL_BOUND}); UNet forward {ms:.4f} ms; "
-              f"closed loop {STEPS}+{STEPS} steps bit accuracy {acc}; launches per "
+              f"closed loop {steps}+{steps} steps bit accuracy {acc}; launches per "
               f"forward {({k: v for k, v in one.items() if v})}", flush=True)
         want = {name: per_forward.get(name, 0) for name in ATTENTION_COUNTERS}
         if {name: one[name] for name in ATTENTION_COUNTERS} != want:
             raise AssertionError(f"({label}) launches per forward {one}, want {want}")
         if {name: loop[name] for name in ATTENTION_COUNTERS} != \
-                {name: n * 2 * STEPS for name, n in want.items()}:
+                {name: n * 2 * steps for name, n in want.items()}:
             raise AssertionError(f"({label}) launches over the closed loop {loop}")
         if loop["chacha20"]:
             raise AssertionError(f"({label}) K3 launched {loop['chacha20']} times; phase "
@@ -942,6 +993,140 @@ def phase_multikey(card: str, pipe) -> dict:
     return counts
 
 
+def _check_attacks(card: str) -> float:
+    """8a.  Returns the summed ms of one call of each attack."""
+    from gswm_torch import roofline
+    from gswm_torch.distortions import device as attacks
+    from gswm_torch.distortions import relative_strength_to_absolute
+
+    cpu_images = paths.attack_images()
+    images = cpu_images.cuda()
+    # an elementwise attack reads the images once and writes them once
+    bound = roofline.bound_ms(0, 2 * images.numel() * 4, roofline.PEAK_FP32)[0]
+    total = 0.0
+    for name in paths.attack_names():
+        strength = relative_strength_to_absolute(paths.ATTACK_REL_STRENGTH, name)
+        draws = paths.attack_draws(name, cpu_images.shape)
+        on_card = paths.to_device(draws, "cuda")
+        got = attacks.apply(images, name, strength, draws=on_card)
+        want = attacks.apply(cpu_images, name, strength, draws=draws)
+        worst, share = paths.attack_disagreement(name, got.cpu(), want)
+        ms = _time_ms(lambda: attacks.apply(images, name, strength, draws=on_card), 5)
+        total += ms
+        print(f"   {name} at {strength:g}: card vs CPU max|diff| {worst:.2e}, share "
+              f"beyond {paths.ATTACK_ATOL:g}: {share:.2e}; {ms:.4f} ms a call (bytes "
+              f"bound of an elementwise pass {bound:.4f})", flush=True)
+        del got, want
+    size, via = (RES_768, RES_768), (paths.RESIZE_VIA, paths.RESIZE_VIA)
+
+    def round_trip(x):
+        return attacks.resize_cubic(attacks.resize_cubic(x, via), size)
+
+    worst, _ = paths.attack_disagreement("resize_cubic", round_trip(images).cpu(),
+                                         round_trip(cpu_images))
+    ms = _time_ms(lambda: round_trip(images), 5)
+    print(f"   resize_cubic {RES_768} -> {paths.RESIZE_VIA} -> {RES_768}: card vs CPU "
+          f"max|diff| {worst:.2e}; {ms:.4f} ms; 8. (a) 15 attacks summed {total:.4f} "
+          f"ms a call each, on {card}", flush=True)
+    return total
+
+
+def phase_bench(card: str, pipe) -> dict:
+    """The robustness bench on the 768x768 pipeline."""
+    from gswm_torch import treering
+    from gswm_torch.core import bits as bitops
+    from gswm_torch.distortions import relative_strength_to_absolute
+    from gswm_torch.eval import sweep
+    from gswm_torch.utils.io import load_jsonlines
+
+    dev = "cuda"
+    b = BATCH_768
+    attack_ms = _check_attacks(card)
+
+    # (b) the short sweep
+    cfg = paths.config(RES_768, "gswm_torch sweep")
+    strength = paths.ATTACK_REL_STRENGTH
+    regen = max(int(relative_strength_to_absolute(strength, "reversed")), 1)
+    rows_want = len(sweep.DEFAULT_ATTACKS)
+    forwards = STEPS + rows_want * STEPS + 2 * regen
+    pixels = max(1.0, RES_768 * RES_768 / (512 * 512))
+    enc_chunks = -(-b // max(1, int(VAE_CHUNK / pixels)))
+    dec_chunks = -(-b // max(1, int(VAE_CHUNK / (8 * pixels))))
+    k4_want = (rows_want + 1) * enc_chunks + 2 * dec_chunks
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "sweep.jsonl")
+        _reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = sweep.run_sweep(
+            pipe, cfg, batch=b, num_steps=STEPS, strengths=(strength,), jpeg="device",
+            extract_steps_rows=(), out_jsonl=out,
+            generator=torch.Generator(device=dev).manual_seed(paths.SWEEP_SEED))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counters()
+        records = load_jsonlines(out)
+    for r in rows:
+        print(f"   {r.attack} at {r.absolute_strength:g}: bit accuracy "
+              f"{r.bit_accuracies}", flush=True)
+    row_s = wall * STEPS / forwards  # a row of one inversion
+    print(f"   (b) sweep of {len(rows)} rows, batch {b}, {STEPS} steps, {forwards} UNet "
+          f"forwards: wall {wall:.4f} s, {len(rows) / wall:.4f} rows/s, "
+          f"{len(rows) * b / wall:.4f} images/s; a 30-forward row {row_s:.4f} s, of "
+          f"which its attack {attack_ms / 15 / 1e3 / row_s:.6f} on average; accuracies "
+          f"near 0.5 are the random-weight VAE's, not the watermark's; launches "
+          f"{({k: v for k, v in counts.items() if v})}; on {card}", flush=True)
+    if [r.attack for r in rows] != list(sweep.DEFAULT_ATTACKS):
+        raise AssertionError(f"sweep rows {[r.attack for r in rows]}")
+    fields = ["attack", "relative_strength", "absolute_strength", "bit_accuracy_mean",
+              "bit_accuracies", "tpr_at_1e6", "scheduler"]
+    if len(records) != rows_want or any(list(rec) != fields for rec in records) \
+            or records[1]["bit_accuracies"] != rows[1].bit_accuracies:
+        raise AssertionError("the sweep's jsonl does not read back as its rows")
+    for r in rows:
+        if len(r.bit_accuracies) != b or \
+                not all(0.0 <= a <= 1.0 for a in r.bit_accuracies):  # false for nan
+            raise AssertionError(f"row {r.attack}: accuracies {r.bit_accuracies}")
+    _check_unet_launches(counts, forwards)
+    if counts["flash_attention_split"] != k4_want or counts["flash_attention_split_d64"] \
+            or counts["chacha20"] > 1 or counts["chacha20_batch"] \
+            or counts["fused_group_norm"]:
+        raise AssertionError(f"sweep launches {counts}; K4 should be {k4_want}, K3 at "
+                             "most 1, the batch kernel and K8 0")
+    # the control row is the pipeline's own extraction of the same images
+    zt, msg = paths.embed(cfg, b, paths.SWEEP_SEED)
+    images = pipe.generate(zt, guidance_scale=1.0, num_steps=STEPS)
+    bits, _ = pipe.extract_bits(cfg, images=images, num_steps=STEPS)
+    want = bitops.bytes_to_bits(msg)
+    control = [float((v == want).mean()) for v in bits.cpu().numpy()]
+    if rows[0].bit_accuracies != control:
+        raise AssertionError(f"the none row {rows[0].bit_accuracies} is not "
+                             f"pipe.extract_bits' {control}")
+
+    # (c) the Tree-Ring loop on latents, marked and unmarked in one batch
+    mask, pattern, marked, unmarked = paths.treering_material()
+    _reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x0 = pipe.generate(torch.cat([marked, unmarked]), guidance_scale=1.0,
+                       num_steps=STEPS, decode=False)
+    z_back = pipe.invert(latents=x0, num_steps=STEPS)
+    dist = treering.eval_watermark(z_back, pattern.repeat(2, 1, 1, 1),
+                                   mask.repeat(2, 1, 1, 1)).tolist()
+    p_marked = treering.get_p_value(z_back[:b], pattern, mask)
+    p_unmarked = treering.get_p_value(z_back[b:], pattern, mask)
+    wall_tr = time.perf_counter() - t0
+    tr_counts = _counters()
+    print(f"   (c) Tree-Ring, {b} marked + {b} unmarked latents, {STEPS}+{STEPS} steps: "
+          f"FFT distance {dist[:b]} against {dist[b:]}, p-value {p_marked} against "
+          f"{p_unmarked}; {wall_tr:.4f} s", flush=True)
+    if not (max(dist[:b]) < min(dist[b:]) and max(p_marked) < 0.01
+            and max(p_marked) < min(p_unmarked)):
+        raise AssertionError("the Tree-Ring loop does not separate marked from unmarked")
+    _check_unet_launches(tr_counts, 2 * STEPS)
+    return {name: counts[name] + tr_counts[name] for name in counts}
+
+
 def main() -> None:
     card = phase_card()
     phase_build()
@@ -952,8 +1137,11 @@ def main() -> None:
     counts_tiers = phase_tiers(card, pipe_768)
     counts_gn = phase_groupnorm_op(pipe_768)
     counts_mk = phase_multikey(card, pipe_512)
+    del pipe_512
+    counts_bench = phase_bench(card, pipe_768)
     counts = {name: counts_512[name] + counts_768[name] + counts_tiers[name]
-              + counts_gn[name] + counts_mk[name] for name in counts_512}
+              + counts_gn[name] + counts_mk[name] + counts_bench[name]
+              for name in counts_512}
     # the split wrapper's count, less what flash_hopper.cu ran of it
     counts["flash_attention_split"] -= counts["flash_attention_split_d64"]
     sources = {

@@ -8,12 +8,18 @@ decode) and extraction (VAE encode -> inversion -> decode) for the SD 2.x
 presets on the card in bfloat16, and for the SD 1.x presets on the CPU only
 (their head dims of 40, 80 and 160 have no kernel yet: ``InversablePipeline``
 refuses them on a CUDA device when it is built); per-user keys and
-traceability (``core.multikey``, ``eval.trace``, ``eval.registry``).  On the
-layout of ``gswm``:
+traceability (``core.multikey``, ``eval.trace``, ``eval.registry``); the
+robustness bench (``distortions``, ``eval.sweep``) and the Tree-Ring toolkit
+(``treering``).  On the layout of ``gswm``:
 
   core/        ChaCha20 keystream (CUDA kernels: one key, and a table of
                keys), bit diffusion, embed, decode, multikey
-  eval/        bit accuracy, the key registry, the trace search
+  eval/        bit accuracy, the key registry, the trace search, the
+               robustness sweep, detection statistics, reports, prompt sets
+  distortions/ the 15 batched attacks on the card (plain PyTorch) and the 16
+               host attacks (PIL, imported when called)
+  treering/    the FFT-ring watermark for comparison experiments
+  cli/         gs_distort
   utils/       json and jsonl IO
   models/      UNet2DCondition, VAE encoder and decoder, CLIP text encoder,
                presets, the weight bridge from the JAX package's flax trees

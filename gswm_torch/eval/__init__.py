@@ -1,1 +1,3 @@
-"""Evaluation helpers of the PyTorch port."""
+"""Evaluation of the PyTorch port: bit accuracy, the key registry and the
+trace search, the robustness sweep, detection statistics, report writers and
+prompt sets."""

@@ -14,6 +14,14 @@ Three paths; the first two with random weights from a seed, bf16, on one card:
     records from a numpy seed at the 512x512 geometry (4x64x64 latents, l = 1,
     256 message bits, 16,384 capacity bits), every record embedded and
     decoded under its own key, 16 probes traced against the whole registry.
+
+A fourth path, on the 768x768 pipeline again, is the robustness bench: each
+batched attack at relative strength 0.5 on (2, 3, 768, 768) images from a
+seed, held against the same function on the CPU with the same draws; a short
+sweep (``eval.sweep.run_sweep``, every attack of ``DEFAULT_ATTACKS`` at 0.5:
+17 rows, each one attack, one VAE encode and one 30-step inversion, the
+``reversed`` row an inversion and a regeneration more); and the Tree-Ring loop
+on latents.
 """
 
 from __future__ import annotations
@@ -27,6 +35,8 @@ import torch
 KEY_HEX = "22" * 32
 NONCE_HEX = "33" * 16
 STEPS = 30
+# the closed loop under each attention switch set: a shorter loop, five times
+TIER_LOOP_STEPS = 10
 BATCH_512, RES_512 = 4, 512
 BATCH_768, RES_768 = 2, 768
 # seeds of the random weights
@@ -268,3 +278,94 @@ def multikey_decode_all(cfg, latents, keys, nonces) -> torch.Tensor:
         recover_message_bits_multikey(latents[i:i + step], cfg, keys[i:i + step],
                                       nonces[i:i + step])
         for i in range(0, len(keys), step)])
+
+
+# -- the robustness bench ------------------------------------------------------
+
+ATTACK_REL_STRENGTH = 0.5
+ATTACK_SEED = 808
+SWEEP_SEED = 8
+# the card's output against the CPU's, float32, the same draws: max |diff|
+ATTACK_ATOL = 1e-4
+# index arithmetic and masks alone: equal bit for bit
+EXACT_ATTACKS = ("horizontal_flip", "vertical_flip", "invert", "erasing", "randomcrop")
+# the DCT JPEG: the card and the CPU sum the 8x8 products in different orders,
+# so a coefficient within an ulp of k + 1/2 may quantise one step apart and
+# move its block by a quantisation step / 255; allowed on this share of the
+# pixels, with this mean |diff| over all
+JPEG_MAX_SHARE = 1e-3
+JPEG_MEAN = 1e-4
+# the round trip of the sweep's size-changing row: 768 -> int(768 * 0.3) -> 768
+RESIZE_VIA = 230
+TREERING_RADIUS = 10
+
+
+def attack_names() -> list:
+    """The 15 batched attacks, in the strength table's order."""
+    from gswm_torch.distortions import DISTORTION_STRENGTH_PARAS
+
+    return [name for name in DISTORTION_STRENGTH_PARAS if name != "reversed"]
+
+
+def attack_images() -> torch.Tensor:
+    """(2, 3, 768, 768) float32 images in [0, 1) from a seed, on the CPU."""
+    return torch.rand((BATCH_768, 3, RES_768, RES_768),
+                      generator=torch.Generator().manual_seed(ATTACK_SEED))
+
+
+def attack_draws(name: str, shape):
+    """One randomized attack's draws from a seed, on the CPU (so the card and
+    the CPU are given the same numbers); None for a deterministic attack."""
+    import zlib
+
+    g = torch.Generator().manual_seed(ATTACK_SEED + zlib.crc32(name.encode()))
+    if name == "noise":
+        return torch.randn(shape, generator=g)
+    if name in ("resizedcrop", "erasing", "randomcrop"):
+        u = torch.rand(2, generator=g)
+        return (u[0], u[1])
+    if name == "elastic":
+        u = torch.rand((2,) + tuple(shape[-2:]), generator=g)
+        return (u[0], u[1])
+    return None
+
+
+def to_device(draws, dev):
+    if draws is None:
+        return None
+    return draws.to(dev) if torch.is_tensor(draws) else tuple(d.to(dev) for d in draws)
+
+
+def attack_disagreement(name: str, got: torch.Tensor, want: torch.Tensor) -> tuple:
+    """(max |diff|, share of pixels beyond ATTACK_ATOL) of one attack's output
+    on the card (``got``, brought to the CPU) against the CPU's; raises where
+    the pair is outside what the attack is held to."""
+    if got.shape != want.shape or got.dtype != torch.float32:
+        raise AssertionError(f"{name}: {tuple(got.shape)} {got.dtype} on the card, "
+                             f"{tuple(want.shape)} on the CPU")
+    diff = (got - want).abs()
+    worst, share = diff.max().item(), (diff > ATTACK_ATOL).float().mean().item()
+    if name in EXACT_ATTACKS:
+        ok = worst == 0.0
+    elif name == "compression":
+        ok = share <= JPEG_MAX_SHARE and diff.mean().item() <= JPEG_MEAN
+    else:
+        ok = worst <= ATTACK_ATOL
+    if not ok or not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: the card and the CPU disagree: max |diff| "
+                             f"{worst}, share beyond {ATTACK_ATOL}: {share}")
+    return worst, share
+
+
+def treering_material(dev="cuda", seed: int = 606):
+    """(mask, ring pattern, marked and unmarked latents) for the Tree-Ring
+    loop: 2 + 2 latents of 4 x 96 x 96, the pattern in channel 0."""
+    from gswm_torch import treering
+
+    shape = (BATCH_768, 4, RES_768 // 8, RES_768 // 8)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mask = treering.get_watermarking_mask(shape, 0, TREERING_RADIUS, device=dev)
+    pattern = treering.get_watermarking_pattern(shape, "ring", TREERING_RADIUS,
+                                                generator=g, device=dev)
+    noise = torch.randn((2,) + shape, generator=g, device=dev)
+    return mask, pattern, treering.inject_watermark(noise[0], mask, pattern), noise[1]

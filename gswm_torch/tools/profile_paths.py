@@ -11,11 +11,22 @@ On one card, random weights from a seed, bf16:
     ``chip_smoke.py`` phase 4c (embed -> prompt ids -> 30-step DDIM at
     guidance 7.5 -> VAE decode -> VAE encode -> 30-step inversion -> decode)
     once unprofiled for its wall time and once under the profiler;
+  * one row of the robustness sweep at 768x768, batch 2 (``chip_smoke.py``
+    phase 8b; the ``compression`` row, whose attack is the slowest): the wall
+    of its parts (attack, VAE encode, 30-step inversion, decode of the bits),
+    then the whole row unprofiled and under the profiler;
   * sd-2-1-base at 512x512, batch 4: the extraction chain of phase 3b
     (embed + VAE encode + 30-step inversion + decode), likewise.
   * the GroupNorm kernel (K8) at ``paths.K8_PROBE_CASES``: device time a call
     beside the wrapper's CUDA-event time a call, which holds its host side,
     and its bound.
+  * the tracer itself, first and last in the run (a young and an old
+    process): windows of 1 and of 8 calls of K8, 0.05 s of margin before
+    the calls; a window's launch records on the host's side beside its
+    kernel records on the device's, which an old process loses (the tracer's
+    own log, ``KINETO_LOG_LEVEL=0``, counts them as out of range).
+    ``chip_smoke.py`` counts kernels a call from the host's records for that
+    reason.
 Both chains, their inputs and seeds are ``gswm_torch/tools/paths.py``'s, as
 ``chip_smoke.py``'s are.
 
@@ -72,6 +83,44 @@ def report(title: str, res: dict) -> None:
               f"{k['name']}", flush=True)
 
 
+def tracer_records(calls: int, windows: int = 5) -> list:
+    """``windows`` profiler windows of ``calls`` K8 calls each.  A window:
+    launch records on the host's side, kernel records on the device's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gswm_torch.ops import groupnorm as gn
+
+    shape, act = paths.K8_PROBE_CASES[-1]
+    x = torch.randn(shape, device="cuda").bfloat16()
+    w, b = torch.ones(shape[1], device="cuda"), torch.zeros(shape[1], device="cuda")
+    gn.fused_group_norm(x, w, b, 32, 1e-5, act)
+    out = []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.05)
+            for _ in range(calls):
+                gn.fused_group_norm(x, w, b, 32, 1e-5, act)
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+        events = prof.events()
+        out.append(dict(
+            calls=calls,
+            host_launches=sum(e.device_type.name == "CPU" and "launch" in e.name.lower()
+                              for e in events),
+            device_records=sum(e.device_type.name == "CUDA" for e in events)))
+    return out
+
+
+def report_tracer(age: str, t0: float) -> dict:
+    res = dict(process_age_s=time.perf_counter() - t0,
+               windows=tracer_records(1) + tracer_records(8))
+    print(f"tracer, {age} process ({res['process_age_s']:.0f} s into the run): (calls, "
+          f"launch records on the host's side, kernel records on the device's) "
+          f"{[tuple(w.values()) for w in res['windows']]}", flush=True)
+    return res
+
+
 def wall_of(fn) -> float:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -85,6 +134,7 @@ def main() -> None:
     ap.add_argument("--out", type=Path)
     ap.add_argument("--top", type=int, default=25)
     args = ap.parse_args()
+    started = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("profile_paths: no CUDA device")
     card = subprocess.run(
@@ -93,7 +143,7 @@ def main() -> None:
     print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    result = {"card": card}
+    result = {"card": card, "tracer_young": report_tracer("young", started)}
 
     # ---- sd-2-1, 768x768, batch 2
     pipe = paths.build_pipeline("sd-2-1")
@@ -131,7 +181,36 @@ def main() -> None:
           flush=True)
     result["chain_768"] = profiled(chain_768, args.top)
     report("768x768 chain, batch 2, profiled", result["chain_768"])
-    del pipe
+
+    # ---- one sweep row on that pipeline
+    from gswm_torch import recover_message_bits
+    from gswm_torch.distortions import device as attacks
+    from gswm_torch.distortions import relative_strength_to_absolute
+
+    images, _ = paths.generate_768(pipe, cfg, ids, 22)
+    quality = relative_strength_to_absolute(paths.ATTACK_REL_STRENGTH, "compression")
+    attacked = attacks.apply(images, "compression", quality)
+    latents = pipe.image_to_latents(attacked)
+    z_back = pipe.invert(latents=latents, num_steps=paths.STEPS)
+    parts = {
+        "attack": lambda: attacks.apply(images, "compression", quality),
+        "vae_encode": lambda: pipe.image_to_latents(attacked),
+        "inversion": lambda: pipe.invert(latents=latents, num_steps=paths.STEPS),
+        "decode": lambda: recover_message_bits(z_back, cfg).cpu(),
+    }
+    result["sweep_row_parts_s"] = {name: wall_of(fn) for name, fn in parts.items()}
+
+    def sweep_row():
+        for fn in parts.values():
+            fn()
+
+    result["sweep_row_wall_s"] = wall_of(sweep_row)
+    print(f"768x768 sweep row (compression at {quality:g}), batch 2, unprofiled: wall "
+          f"{result['sweep_row_wall_s']:.4f} s; parts {result['sweep_row_parts_s']}",
+          flush=True)
+    result["sweep_row"] = profiled(sweep_row, args.top)
+    report("768x768 sweep row, batch 2, profiled", result["sweep_row"])
+    del pipe, images, attacked, latents, z_back, parts
     torch.cuda.empty_cache()
 
     # ---- sd-2-1-base, 512x512, batch 4
@@ -172,6 +251,7 @@ def main() -> None:
         result["group_norm"].append(dict(shape=list(shape), act=act, wrapper_ms=wrapper,
                                          device_ms=device, bound_ms=bound))
         del x
+    result["tracer_old"] = report_tracer("old", started)
     print(json.dumps(result))
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)

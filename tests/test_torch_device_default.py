@@ -9,7 +9,10 @@ import torch
 
 from gswm_torch import GSConfig, embed_latents
 from gswm_torch.core import chacha, embed, multikey
+from gswm_torch.cli import gs_distort
 from gswm_torch.eval import trace
+from gswm_torch.tools import run_robustness_sweep
+from gswm_torch.treering import core as treering
 from gswm_torch.pipelines import InversablePipeline
 
 CFG = GSConfig(key_hex="22" * 32, nonce_hex="33" * 16, message="lthero",
@@ -21,7 +24,8 @@ CFG = GSConfig(key_hex="22" * 32, nonce_hex="33" * 16, message="lthero",
     chacha.keystream_words, chacha.keystream_bits, chacha.keystream_words_reference,
     chacha.cached_keystream_bits, chacha.batch_keystream_bits,
     chacha.batch_keystream_bits_reference, multikey.embed_latents_multikey,
-    trace.find_source_device],
+    trace.find_source_device, treering.get_watermarking_mask,
+    treering.get_watermarking_pattern, gs_distort.process_images_in_directory],
     ids=lambda fn: fn.__qualname__)
 def test_entry_point_defaults_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
@@ -61,6 +65,40 @@ def test_multikey_and_trace_without_device_raise_without_a_card(no_card):
     with pytest.raises((RuntimeError, AssertionError)):
         trace.find_source_device(torch.zeros((4, 8, 8)), [record])
     assert multikey.batch_keystream_bits(keys, nonces, 64, "cpu").device.type == "cpu"
+
+
+def test_bench_entry_points_without_device_raise_without_a_card(no_card, tmp_path):
+    shape = (1, 4, 8, 8)
+    with pytest.raises((RuntimeError, AssertionError)):
+        treering.get_watermarking_mask(shape)
+    with pytest.raises((RuntimeError, AssertionError)):
+        treering.get_watermarking_pattern(shape)
+    assert treering.get_watermarking_mask(shape, device="cpu").device.type == "cpu"
+    assert treering.get_watermarking_pattern(shape, device="cpu").device.type == "cpu"
+    with pytest.raises((RuntimeError, AssertionError)):  # --device defaults to cuda
+        run_robustness_sweep.main(["--batch", "1", "--steps", "1", "--attacks", "none",
+                                   "--out", str(tmp_path / "rows.jsonl")])
+    assert not (tmp_path / "rows.jsonl").exists()
+
+
+def test_distort_cli_without_device_raises_without_a_card(no_card, tmp_path):
+    """The batched attacks are the CLI's default and run on the card: with no
+    flag naming the CPU or the host it raises where there is none, for the
+    reference's bare ``--device`` too."""
+    import numpy as np
+    from PIL import Image
+
+    (tmp_path / "in").mkdir()
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(tmp_path / "in" / "a.png")
+    flags = ["--input_dir", str(tmp_path / "in"), "--output_dir_base",
+             str(tmp_path / "out"), "--distortion_type", "invert", "--strength", "0"]
+    for more in ([], ["--device"]):
+        with pytest.raises((RuntimeError, AssertionError)):
+            gs_distort.main(flags + more)
+    assert not list((tmp_path / "out").glob("*/*.png"))
+    gs_distort.main(flags + ["--device", "cpu"])
+    gs_distort.main(flags + ["--host"])
+    assert len(list((tmp_path / "out").glob("*/a.png"))) == 1
 
 
 class _NoAllocation:

@@ -19,8 +19,11 @@ import torch
 import torch.nn.functional as F
 
 from gswm_torch.core import chacha
+from gswm_torch.distortions import device as attacks
+from gswm_torch.distortions import relative_strength_to_absolute
 from gswm_torch.ops import attention as attn
 from gswm_torch.ops import groupnorm as gn
+from gswm_torch.tools import paths
 
 pytestmark = pytest.mark.gpu
 BOUND = 0.02
@@ -469,11 +472,34 @@ def test_group_norm_kernel_matches_plain(cuda, shape, eps, act):
     assert err <= 0.02 and err <= 0.01 * want.abs().max().item()
 
 
+def _assert_one_kernel_a_call(fn, kernel: str, calls: int = 8) -> None:
+    """``calls`` calls of ``fn`` in one profiler window: exactly one launch
+    record a call on the host's side of the trace, and on the device's no
+    kernel but ``kernel`` (copies apart), at least one.  The count comes from
+    the host's records: late in a process the tracer's mapping of the card's
+    clock lags the host's and it drops device records as out of range."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.3)
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+    events = prof.events()
+    launches = [e.name for e in events
+                if e.device_type.name == "CPU" and "launch" in e.name.lower()]
+    kernels = [e.name for e in events if e.device_type.name == "CUDA"
+               and "memcpy" not in e.name.lower() and "memset" not in e.name.lower()]
+    assert len(launches) == calls, launches
+    assert 0 < len(kernels) <= calls and all(kernel in k for k in kernels), kernels
+
+
 def test_group_norm_kernel_is_one_launch_without_scratch_and_repeats(cuda):
     """One kernel a call, one allocation (the output) when the parameters are
     fp32 on the card, and the same bits on every run (no atomics)."""
-    from torch.profiler import ProfilerActivity, profile
-
     x = (torch.randn((2, 640, 96, 96), device=cuda) * 2 + 0.5).bfloat16()
     w, b = torch.rand(640, device=cuda) + 0.5, torch.randn(640, device=cuda)
     first = gn.fused_group_norm(x, w, b, 32, 1e-5, "silu")
@@ -482,16 +508,8 @@ def test_group_norm_kernel_is_one_launch_without_scratch_and_repeats(cuda):
     again = gn.fused_group_norm(x, w, b, 32, 1e-5, "silu")
     assert torch.cuda.memory_stats()["allocation.all.allocated"] == allocs + 1
     assert torch.equal(first, again)
-    # the call stands well inside the window: the profiler drops a device
-    # event that its clock mapping puts a moment outside
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        time.sleep(0.05)
-        gn.fused_group_norm(x, w, b, 32, 1e-5, "silu")
-        torch.cuda.synchronize()
-        time.sleep(0.05)
-    kernels = [e.key for e in prof.key_averages()
-               if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
-    assert len(kernels) == 1 and "gn_cluster_kernel" in kernels[0], kernels
+    _assert_one_kernel_a_call(lambda: gn.fused_group_norm(x, w, b, 32, 1e-5, "silu"),
+                              "gn_cluster_kernel")
     # bf16 parameters are converted (two more allocations), with the same result
     allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
     ones = torch.ones(640, device=cuda)
@@ -531,7 +549,6 @@ def test_batch_keystream_is_one_kernel_and_no_wide_intermediate(cuda):
     """One kernel and one host-to-device copy a call; device memory grows by
     the bits and the 48-byte rows alone (no words, no int64 bits)."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     rng = np.random.default_rng(0)
     rows, n_bits = 4096, 16384
@@ -541,16 +558,12 @@ def test_batch_keystream_is_one_kernel_and_no_wide_intermediate(cuda):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        time.sleep(0.05)  # well inside the window, as above
-        bits = chacha.batch_keystream_bits(keys, nonces, n_bits, cuda)
-        torch.cuda.synchronize()
-        time.sleep(0.05)
+    bits = chacha.batch_keystream_bits(keys, nonces, n_bits, cuda)
+    torch.cuda.synchronize()
     grown = torch.cuda.max_memory_allocated() - base
     assert grown <= rows * n_bits + rows * 48 + 2**20, grown
-    kernels = [e.key for e in prof.key_averages() if e.device_type.name == "CUDA"
-               and e.self_device_time_total > 0 and "memcpy" not in e.key.lower()]
-    assert len(kernels) == 1 and "chacha20_batch_kernel" in kernels[0], kernels
+    _assert_one_kernel_a_call(lambda: chacha.batch_keystream_bits(keys, nonces, n_bits, cuda),
+                              "chacha20_batch_kernel")
     assert bits.shape == (rows, n_bits)
 
 
@@ -684,3 +697,72 @@ def test_tiny_pipeline_closed_loop_on_card(cuda):
     want = torch.tensor(list(msg), dtype=torch.uint8)
     want = ((want[:, None] >> torch.arange(7, -1, -1)) & 1).flatten().to(cuda)
     assert (bits == want).float().mean().item() >= 0.99
+
+
+@pytest.mark.parametrize("name", paths.attack_names())
+def test_attack_on_card_matches_cpu(cuda, name):
+    """Each batched attack at the 768x768 batch and relative strength 0.5: the
+    card's output against the CPU's with the same draws, under the bounds of
+    ``paths.attack_disagreement`` (1e-4; index-only attacks exact; the DCT JPEG
+    by the share of pixels a quantisation step apart)."""
+    x = paths.attack_images()
+    strength = relative_strength_to_absolute(paths.ATTACK_REL_STRENGTH, name)
+    draws = paths.attack_draws(name, x.shape)
+    got = attacks.apply(x.to(cuda), name, strength, draws=paths.to_device(draws, cuda))
+    assert got.device.type == "cuda"
+    paths.attack_disagreement(name, got.cpu(), attacks.apply(x, name, strength, draws=draws))
+    if name in attacks.RANDOMIZED:  # and from a generator on the card
+        g = torch.Generator(device=cuda).manual_seed(1)
+        drawn = attacks.apply(x.to(cuda), name, strength, generator=g)
+        assert drawn.device.type == "cuda" and not torch.equal(drawn, got)
+
+
+@pytest.mark.parametrize("via", [76, 230, 691, 1000])
+def test_resize_cubic_on_card_matches_cpu(cuda, via):
+    x = paths.attack_images()
+
+    def round_trip(t):
+        return attacks.resize_cubic(attacks.resize_cubic(t, (via, via + 3)), x.shape[-2:])
+
+    paths.attack_disagreement("resize_cubic", round_trip(x.to(cuda)).cpu(), round_trip(x))
+
+
+def test_tiny_sweep_and_treering_on_card(cuda):
+    """The sweep's rows on the card agree with the CPU's on the tiny preset in
+    float32 (below the kernels' window, so plain attention on both), and the
+    Tree-Ring functions agree across the devices."""
+    from gswm_torch import GSConfig, treering
+    from gswm_torch.eval.sweep import run_sweep
+    from gswm_torch.pipelines import InversablePipeline
+
+    # 16x16 images: 64 tokens, below the kernels' window
+    cfg = GSConfig(key_hex="22" * 32, nonce_hex="33" * 16, message="sweep", width=16,
+                   height=16, vae_scale=2, message_bits=32)
+    u = torch.rand((2, cfg.total_elements), generator=torch.Generator().manual_seed(3))
+    rows = {}
+    for dev in ("cpu", "cuda"):
+        pipe = InversablePipeline("tiny", device=dev, dtype=torch.float32,
+                                  generator=torch.Generator().manual_seed(0))
+        rows[dev] = run_sweep(pipe, cfg, batch=2, num_steps=4, strengths=(0.04,),
+                              draws={"u": u})
+    assert [r.attack for r in rows["cuda"]] == [r.attack for r in rows["cpu"]]
+    # a latent element within float32 rounding of 0 may turn a vote of 8
+    # copies: two bits of 32 an image at most
+    for got, want in zip(rows["cuda"], rows["cpu"]):
+        if got.attack not in attacks.RANDOMIZED:
+            assert max(abs(a - b) for a, b in zip(got.bit_accuracies,
+                                                  want.bit_accuracies)) <= 2 / 32
+    shape = (2, 4, 16, 16)
+    base = torch.randn(shape, generator=torch.Generator().manual_seed(5))
+    lat = torch.randn(shape, generator=torch.Generator().manual_seed(6))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        mask = treering.get_watermarking_mask(shape, 0, 4, device=dev)
+        pattern = treering.get_watermarking_pattern(shape, "ring", 4, base=base, device=dev)
+        marked = treering.inject_watermark(lat.to(dev), mask, pattern)
+        out[dev] = (marked.cpu(), treering.eval_watermark(marked, pattern, mask).cpu(),
+                    treering.get_p_value(marked, pattern, mask))
+        assert marked.device.type == dev
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=0, atol=1e-4)
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=0, atol=1e-4)
+    assert max(out["cuda"][2]) < 0.01

@@ -1,8 +1,10 @@
 """The PyTorch port runs where jax is not installed: importing it and driving
 its tiny pipeline (prompt -> guided DPM++ generation -> VAE decode -> encode
--> inversion -> decode) and its per-user-key path (multikey embed, both trace
-searches) must load none of jax, flax, transformers, cryptography or
-safetensors."""
+-> inversion -> decode), its per-user-key path (multikey embed, both trace
+searches) and its robustness bench (a short sweep, the Tree-Ring functions)
+must load none of jax, flax, transformers, cryptography or safetensors; and
+the bench must import, and run all but its host attacks, where there is no
+PIL."""
 
 import subprocess
 import sys
@@ -27,7 +29,11 @@ def test_port_imports_no_jax():
         from gswm_torch.core import multikey
         from gswm_torch.eval import registry, trace  # noqa: F401
         from gswm_torch.utils import io  # noqa: F401
-        from gswm_torch.tools import paths  # noqa: F401
+        from gswm_torch.tools import paths, run_robustness_sweep  # noqa: F401
+        from gswm_torch import distortions, treering
+        from gswm_torch.cli import gs_distort  # noqa: F401
+        from gswm_torch.eval import datasets, detection, report, sweep  # noqa: F401
+        from gswm_torch.treering import compat  # noqa: F401
         cfg = GSConfig(key_hex="22" * 32, nonce_hex="33" * 16, message="x",
                        width=64, height=64, message_bits=32)
         zt, _ = embed_latents(cfg, generator=torch.Generator().manual_seed(0),
@@ -46,6 +52,14 @@ def test_port_imports_no_jax():
                    for k, n, m in zip(keys, nonces, msg)]
         assert trace.find_source(lat[1], records)[:2] == (1, 1.0)
         assert trace.find_source_device(lat[0], records, device="cpu")[:2] == (0, 1.0)
+        rows = sweep.run_sweep(pipe, cfg, batch=1, num_steps=2, strengths=(0.5,),
+                               attacks=("none", "compression", "elastic", "scaling"))
+        assert [r.attack for r in rows] == ["none", "compression", "elastic", "scaling"]
+        x = distortions.device_attacks.apply(images, "rotation", 30.0)
+        mask = treering.get_watermarking_mask(zt.shape, device="cpu")
+        pattern = treering.get_watermarking_pattern(zt.shape, device="cpu")
+        marked = treering.inject_watermark(zt, mask, pattern)
+        assert treering.get_p_value(marked, pattern, mask)[0] < 0.01
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in {FORBIDDEN!r})
         print("LOADED", loaded)
@@ -56,3 +70,39 @@ def test_port_imports_no_jax():
                          cwd=Path(__file__).resolve().parents[1])
     assert res.returncode == 0, res.stdout + res.stderr
     assert "LOADED []" in res.stdout
+
+
+def test_bench_imports_and_runs_without_pil():
+    """The machine with the card has no PIL: with it made unimportable the
+    bench's modules import, the device sweep runs, and ``jpeg="host"`` (PIL's
+    libjpeg) raises ImportError itself, with no fallback to the device JPEG."""
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["PIL"] = None
+        import torch
+        torch.set_num_threads(1)
+        import gswm_torch.distortions, gswm_torch.eval.sweep, gswm_torch.treering
+        import gswm_torch.treering.compat, gswm_torch.cli.gs_distort  # noqa: F401
+        import gswm_torch.tools.run_robustness_sweep  # noqa: F401
+        from gswm_torch import GSConfig
+        from gswm_torch.distortions import relative_strength_to_absolute
+        from gswm_torch.eval.sweep import run_sweep
+        from gswm_torch.pipelines import InversablePipeline
+        assert relative_strength_to_absolute(0.3, "compression") == 70
+        cfg = GSConfig(key_hex="22" * 32, nonce_hex="33" * 16, message="x",
+                       width=32, height=32, vae_scale=2, message_bits=32)
+        pipe = InversablePipeline("tiny", device="cpu", dtype=torch.float32)
+        kw = dict(batch=1, num_steps=2, attacks=("compression",), strengths=(0.5,))
+        assert len(run_sweep(pipe, cfg, jpeg="device", **kw)) == 1
+        try:
+            run_sweep(pipe, cfg, jpeg="host", **kw)
+        except ImportError as e:
+            print("HOST JPEG RAISED", type(e).__name__)
+        assert not any(m == "PIL" or m.startswith("PIL.") for m in sys.modules
+                       if sys.modules[m] is not None)
+    """)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         cwd=Path(__file__).resolve().parents[1])
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "HOST JPEG RAISED" in res.stdout
