@@ -18,7 +18,10 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
                 yardstick the port never calls; the library's attention with
                 its fused backends and, where those refuse the tensors, with
                 its own choice, the backend printed; null where there is no
-                such call or it refuses the shape).  K1's projection GEMM
+                such call or it refuses the shape).  Every path's shapes,
+                SDXL's at 1024x1024 among them: K1 at 1024 tokens of 1280
+                channels, K2 at 4096 tokens of 10 heads, K4 at 16,384
+                tokens, K3 at 128 blocks.  K1's projection GEMM
                 also alone,
                 against x @ W^T in fp32.  The JSON line's ms, plain_ms,
                 bound_ms and library_ms sum a kernel's shapes; its
@@ -109,7 +112,21 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
            latents, 30-step generate and invert beside 2 unmarked latents:
            the marked pair's FFT distance below the unmarked's, its p-value
            below 0.01 and below the unmarked's.
-  9. summary  — a JSON line of the kernels, then the JSON result line.
+  9. SDXL, sdxl-base at 1024x1024, batch 2, bf16, random weights from a seed
+     (built after phase 8, the 768x768 pipeline freed first), nothing cut:
+       (a) latent closed loop: embed -> 30-step DDIM at guidance 1.0 ->
+           30-step inversion -> decode; bit accuracy >= 0.99 on every image;
+       (b) the watermark chain: embed -> seeded prompt ids through both text
+           encoders -> 30-step DDIM at guidance 7.5 (UNet batch 4) -> VAE
+           decode -> VAE encode -> 30-step inversion -> decode; finite images
+           in [0, 1], generation and extraction images/s (second pass);
+       (c) one UNet forward at batch 2 and at 4, ms (CUDA events).
+     K1 60 and K2 10 launches per UNet forward (level 2 and the mid block at
+     1024 tokens, depth 10; level 1 at 4096 tokens, depth 2; level 0 has no
+     attention), K6, K7, K8 and K4 at D = 64 never; K4 once a VAE encode of 2
+     images and twice a decode of 2; K3 exactly once (a new capacity, a new
+     cache entry).
+ 10. summary  — a JSON line of the kernels, then the JSON result line.
 Each path's launch counts are set to 0 just before it and read just after.
 """
 
@@ -171,6 +188,11 @@ TIER_LAUNCHES = {
 }
 ATTENTION_COUNTERS = ("fused_qkv_attention", "flash_attention", "flash_attention_split",
                       "flash_attention_packed", "flash_attention_transposed")
+# K1 and K2 launches per SDXL UNet forward at 1024x1024: level 2 (2 down +
+# 3 up transformers) and the mid block (1), depth 10, at 1024 tokens; level 1
+# (2 down + 3 up), depth 2, at 4096 tokens
+SDXL_K1 = (2 + 1 + 3) * 10
+SDXL_K2 = (2 + 3) * 2
 # gswm/pipelines/inversable.py:330-348: VAE calls take vae_chunk images at
 # 512x512, fewer in proportion to the pixels, and 8x fewer when decoding
 VAE_CHUNK = 32
@@ -408,8 +430,7 @@ def phase_kernels(gn_cases) -> dict:
         _check_group_norm_call(shape, act)
     print(f"K8 group_norm: one kernel and one allocation a call at "
           f"{[c[0] for c in paths.K8_PROBE_CASES]}", flush=True)
-    # 32 and 72 blocks: one 64x64x4 and one 96x96x4 latent of bits
-    for n_blocks in (32, 72, 2**20):
+    for n_blocks in paths.K3_BLOCKS:
         for nn in (nonce, carry):
             _check_keystream(key, nn, n_blocks)
         ms = _time_ms(lambda: chacha.keystream_words(key, nonce, n_blocks, dev), 50)
@@ -609,12 +630,13 @@ def _clear_keystream_caches() -> None:
     embed.clear_caches()
 
 
-def _check_unet_launches(counts: dict, forwards: int) -> None:
-    """Every UNet forward at 512x512 and 768x768 has 5 level-1 + 5 level-2
-    self-attention sites (K1) and 5 level-0 sites (K2); with no switch set
-    the packed and transposed tiers (K6, K7) never run."""
-    if counts["fused_qkv_attention"] != 10 * forwards or \
-            counts["flash_attention"] != 5 * forwards or \
+def _check_unet_launches(counts: dict, forwards: int, k1: int = 10, k2: int = 5) -> None:
+    """Every UNet forward of SD 2.x at 512x512 and 768x768 has 5 level-1 + 5
+    level-2 self-attention sites (K1) and 5 level-0 sites (K2); SDXL's at
+    1024x1024 ``k1`` = 60 and ``k2`` = 10; with no switch set the packed and
+    transposed tiers (K6, K7) never run."""
+    if counts["fused_qkv_attention"] != k1 * forwards or \
+            counts["flash_attention"] != k2 * forwards or \
             counts["flash_attention_packed"] or counts["flash_attention_transposed"]:
         raise AssertionError(f"unexpected attention launch counts {counts} "
                              f"for {forwards} UNet forwards")
@@ -738,7 +760,7 @@ def phase_generation_768(card: str, pipe) -> dict:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         k4_0 = _counters()["flash_attention_split"]
-        images, msg = paths.generate_768(pipe, cfg, prompt_ids, 20 + attempt)
+        images, msg = paths.generate_watermarked(pipe, cfg, prompt_ids, 20 + attempt)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         k4_dec = _counters()["flash_attention_split"] - k4_0
@@ -1127,6 +1149,111 @@ def phase_bench(card: str, pipe) -> dict:
     return {name: counts[name] + tr_counts[name] for name in counts}
 
 
+def phase_sdxl(card: str) -> dict:
+    """sdxl-base at 1024x1024, batch 2: the latent closed loop, the
+    watermark chain, the UNet forward's time."""
+    from gswm_torch import recover_message_bits
+
+    dev = "cuda"
+    b, res = paths.BATCH_1024, paths.RES_1024
+    t0 = time.perf_counter()
+    pipe = paths.build_pipeline("sdxl-base")
+    torch.cuda.synchronize()
+    n_unet = sum(p.numel() for p in pipe.unet.parameters())
+    n_text = sum(p.numel() for m in (pipe.text, pipe.text2) for p in m.parameters())
+    print(f"9. pipeline: sdxl-base, UNet {n_unet / 1e6:.1f}M params, text encoders "
+          f"{n_text / 1e6:.1f}M, built in {time.perf_counter() - t0:.2f} s", flush=True)
+    cfg = paths.config(res, "gswm_torch sdxl")
+    ids = paths.prompt_ids(pipe, b)
+    per_forward = {"fused_qkv_attention": SDXL_K1, "flash_attention": SDXL_K2}
+
+    torch.cuda.reset_peak_memory_stats()
+    # no cache cleared: the keystream of this capacity is not cached yet
+    _reset_counters()
+    # (a) the latent closed loop
+    zt, msg = paths.embed(cfg, b, 51)
+    x0 = pipe.generate(zt, guidance_scale=1.0, num_steps=STEPS, decode=False)
+    z_back = pipe.invert(latents=x0, num_steps=STEPS)
+    acc = _bit_accuracy(recover_message_bits(z_back, cfg), msg, dev)
+    sign = ((z_back > 0) == (zt > 0)).float().mean().item()
+    print(f"(a) SDXL closed loop, batch {b}, {res}x{res}, {STEPS}+{STEPS} steps: bit "
+          f"accuracy {acc}, element sign agreement {sign:.4f}", flush=True)
+    if min(acc) < MIN_BIT_ACC:
+        raise AssertionError(f"SDXL closed-loop bit accuracy {acc} below {MIN_BIT_ACC}")
+    forwards = 2 * STEPS
+
+    # (b) the watermark chain, twice (the second pass is timed)
+    pixels = max(1.0, res * res / (512 * 512))
+    dec_want = -(-b // max(1, int(VAE_CHUNK / (8 * pixels))))
+    enc_want = -(-b // max(1, int(VAE_CHUNK / pixels)))
+    for attempt in (1, 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        k4_0 = _counters()["flash_attention_split"]
+        images, msg = paths.generate_watermarked(pipe, cfg, ids, 60 + attempt, b)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        k4_dec = _counters()["flash_attention_split"] - k4_0
+        bits, z_t = pipe.extract_bits(cfg, images=images, num_steps=STEPS)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        k4_enc = _counters()["flash_attention_split"] - k4_0 - k4_dec
+        forwards += 2 * STEPS
+        if attempt == 1:
+            first = (t1 - t0, t2 - t1)
+        if (k4_dec, k4_enc) != (dec_want, enc_want):
+            raise AssertionError(f"SDXL K4 launches: decoder {k4_dec}, encoder {k4_enc}; "
+                                 f"the chunk rule gives {dec_want} and {enc_want}")
+    if tuple(images.shape) != (b, 3, res, res):
+        raise AssertionError(f"SDXL images shape {tuple(images.shape)}")
+    if not torch.isfinite(images).all() or images.min() < 0 or images.max() > 1:
+        raise AssertionError("SDXL images not finite in [0, 1]")
+    if tuple(bits.shape) != (b, 256) or not torch.isfinite(z_t).all():
+        raise AssertionError(f"SDXL bits shape {tuple(bits.shape)} or non-finite z_T")
+    counts = _counters()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"(b) SDXL watermark chain, batch {b}: bit accuracy "
+          f"{_bit_accuracy(bits, msg, dev)} (no limit: random VAE weights); generation "
+          f"(prompt through both encoders, {STEPS}-step DDIM at guidance 7.5, VAE "
+          f"decode) {t1 - t0:.4f} s = {b / (t1 - t0):.4f} images/s; extraction (VAE "
+          f"encode, {STEPS}-step inversion, decode) {t2 - t1:.4f} s = "
+          f"{b / (t2 - t1):.4f} images/s; first pass {first[0]:.4f} + {first[1]:.4f} s; "
+          f"peak device memory {peak:.2f} GiB; on {card}", flush=True)
+    print(f"launches on the SDXL path: {({k: v for k, v in counts.items() if v})}; K4 "
+          f"per chain: decoder {k4_dec}, encoder {k4_enc}", flush=True)
+    _check_unet_launches(counts, forwards, SDXL_K1, SDXL_K2)
+    if counts["chacha20"] != 1:
+        raise AssertionError(f"K3 launched {counts['chacha20']} times on the SDXL path; a "
+                             "new capacity makes it exactly 1")
+    if counts["flash_attention_split"] != 2 * (dec_want + enc_want) \
+            or counts["flash_attention_split_d64"] or counts["chacha20_batch"] \
+            or counts["fused_group_norm"]:
+        raise AssertionError(f"SDXL launches {counts}: K4 {2 * (dec_want + enc_want)}, "
+                             "K4 at D = 64, the batch kernel and K8 never")
+
+    # (c) one UNet forward, batch 2 and 4 (guidance), outside the counted run
+    for batch in (b, 2 * b):
+        inputs = paths.unet_inputs(pipe, batch, res=res)
+
+        def forward():
+            with torch.inference_mode():
+                return pipe.unet(*inputs)
+
+        _reset_counters()
+        out = forward()
+        torch.cuda.synchronize()
+        one = _counters()
+        if {k: one[k] for k in per_forward} != per_forward:
+            raise AssertionError(f"one SDXL forward launched {one}")
+        if not torch.isfinite(out).all():
+            raise AssertionError("SDXL UNet output not finite")
+        ms = _time_ms(forward, 5)
+        print(f"(c) SDXL UNet forward, batch {batch}, {res}x{res}: {ms:.4f} ms; on {card}",
+              flush=True)
+    del pipe
+    return counts
+
+
 def main() -> None:
     card = phase_card()
     phase_build()
@@ -1139,9 +1266,12 @@ def main() -> None:
     counts_mk = phase_multikey(card, pipe_512)
     del pipe_512
     counts_bench = phase_bench(card, pipe_768)
+    del pipe_768
+    torch.cuda.empty_cache()
+    counts_sdxl = phase_sdxl(card)
     counts = {name: counts_512[name] + counts_768[name] + counts_tiers[name]
               + counts_gn[name] + counts_mk[name] + counts_bench[name]
-              for name in counts_512}
+              + counts_sdxl[name] for name in counts_512}
     # the split wrapper's count, less what flash_hopper.cu ran of it
     counts["flash_attention_split"] -= counts["flash_attention_split_d64"]
     sources = {

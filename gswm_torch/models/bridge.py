@@ -14,6 +14,9 @@ Rules, applied per leaf:
   * ``scale`` (norms) -> ``weight``; ``embedding`` -> ``weight``.
 Every converted key must exist in the target model and every model key must
 be converted, with equal shapes: anything left over on either side raises.
+``convert_shapes`` applies the same rules to a tree of shapes alone (leaves
+with a ``.shape``, as ``jax.eval_shape`` gives them), so a full-size model's
+names and shapes can be held against the JAX package's without its arrays.
 """
 
 from __future__ import annotations
@@ -37,8 +40,8 @@ def _flatten(tree, prefix=()):
             yield prefix + (str(k),), v
 
 
-def _convert_leaf(path: tuple[str, ...], value) -> tuple[str, np.ndarray]:
-    arr = np.asarray(value, dtype=np.float32)
+def _convert_path(path: tuple[str, ...], ndim: int) -> tuple[str, tuple | None]:
+    """(torch name, axis permutation from the flax layout or None)."""
     *mods, leaf = path
     names = []
     for m in mods:
@@ -49,32 +52,51 @@ def _convert_leaf(path: tuple[str, ...], value) -> tuple[str, np.ndarray]:
             names += ["to_out", "0"]
         else:
             names.append(m)
+    perm = None
     if leaf == "kernel":
-        if arr.ndim == 4:
-            arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
-        elif arr.ndim == 2:
-            arr = arr.T  # (in, out) -> (out, in)
+        if ndim == 4:
+            perm = (3, 2, 0, 1)  # HWIO -> OIHW
+        elif ndim == 2:
+            perm = (1, 0)  # (in, out) -> (out, in)
         else:
-            raise ValueError(f"kernel of rank {arr.ndim} at {'/'.join(path)}")
+            raise ValueError(f"kernel of rank {ndim} at {'/'.join(path)}")
         leaf = "weight"
     elif leaf in ("scale", "embedding"):
         leaf = "weight"
     elif leaf != "bias":
         raise ValueError(f"unknown parameter {'/'.join(path)}")
-    return ".".join(names + [leaf]), np.array(arr, order="C")  # own copy
+    return ".".join(names + [leaf]), perm
 
 
-def convert_tree(tree) -> dict[str, torch.Tensor]:
-    """Flax tree -> flat {torch name: float32 tensor}."""
+def _convert(tree, leaf_fn) -> dict:
     if "params" in tree and len(tree) == 1:
         tree = tree["params"]
     out = {}
     for path, value in _flatten(tree):
-        name, arr = _convert_leaf(path, value)
+        shape = value.shape if hasattr(value, "shape") else np.shape(value)
+        name, perm = _convert_path(path, len(shape))
         if name in out:
             raise ValueError(f"two flax leaves map to {name}")
-        out[name] = torch.from_numpy(arr)
+        out[name] = leaf_fn(value, perm)
     return out
+
+
+def convert_tree(tree) -> dict[str, torch.Tensor]:
+    """Flax tree -> flat {torch name: float32 tensor}."""
+    def leaf(value, perm):
+        arr = np.asarray(value, dtype=np.float32)
+        if perm is not None:
+            arr = arr.transpose(perm)
+        return torch.from_numpy(np.array(arr, order="C"))  # own copy
+
+    return _convert(tree, leaf)
+
+
+def convert_shapes(tree) -> dict[str, tuple]:
+    """Flax tree of shapes (any leaf with ``.shape``) -> {torch name:
+    shape}, by ``convert_tree``'s rules."""
+    return _convert(tree, lambda value, perm: tuple(
+        value.shape[i] for i in (perm or range(len(value.shape)))))
 
 
 def load_tree_(module: nn.Module, tree) -> nn.Module:
@@ -95,11 +117,22 @@ def load_tree_(module: nn.Module, tree) -> nn.Module:
     return module
 
 
-def load_pipeline_params_(pipe, unet_params, vae_params, text_params):
+def load_pipeline_params_(pipe, unet_params, vae_params, text_params,
+                          text2_params=None, text2_projection=None):
     """Load the JAX pipeline's unet/vae/text trees into a port pipeline
-    (the whole VAE: encoder, decoder and both quant convs)."""
+    (the whole VAE: encoder, decoder and both quant convs); for SDXL also
+    its second encoder's tree (``jpipe.text2.params`` for random weights,
+    ``jpipe.text2_params`` for a checkpoint's) and the (in, out)
+    ``text2_projection`` array, or None."""
     load_tree_(pipe.unet, unet_params)
     load_tree_(pipe.vae, vae_params)
     load_tree_(pipe.text, text_params)
-    pipe.reset_caches()
+    if (pipe.text2 is None) != (text2_params is None):
+        raise ValueError("text2_params must be given exactly when the pipeline has "
+                         "a second text encoder")
+    if text2_params is not None:
+        load_tree_(pipe.text2, text2_params)
+    pipe.text2_projection = None if text2_projection is None else torch.from_numpy(
+        np.array(text2_projection, dtype=np.float32)).to(pipe.device)
+    pipe.weights_loaded_()
     return pipe

@@ -110,7 +110,9 @@ class TextEncoder(nn.Module):
         self.cfg = cfg
         self.text_model = CLIPTextTransformer(cfg)
 
-    def forward(self, input_ids) -> torch.Tensor:
+    def _hidden(self, input_ids, last: bool) -> tuple[torch.Tensor, torch.Tensor]:
+        """(ids on the encoder's device, final_layer_norm of the last hidden
+        state, or of the penultimate one unless ``last``)."""
         tm = self.text_model
         ids = torch.as_tensor(input_ids, dtype=torch.long,
                               device=tm.final_layer_norm.weight.device)
@@ -119,11 +121,28 @@ class TextEncoder(nn.Module):
         bias = torch.full((s, s), float("-inf"), device=x.device,
                           dtype=x.dtype).triu(1)  # causal
         layers = tm.encoder.layers
+        for layer in (layers if last else layers[:-1]):
+            x = layer(x, bias)
+        return ids, tm.final_layer_norm(x)
+
+    def forward(self, input_ids) -> torch.Tensor:
         # SD2.x-style clip skip: the penultimate hidden state, then the
         # final layer norm (diffusers semantics)
-        for layer in (layers[:-1] if self.cfg.penultimate else layers):
-            x = layer(x, bias)
-        return tm.final_layer_norm(x)
+        return self._hidden(input_ids, last=not self.cfg.penultimate)[1]
+
+    def pooled(self, input_ids, projection=None) -> torch.Tensor:
+        """(B, L) ids -> (B, hidden) pooled embedding (gswm/models/text.py:
+        71-85, transformers' CLIP pooling): the LAST layer's hidden state
+        after the final layer norm, even with ``penultimate``, at the first
+        EOS position (position 0 where there is none), then ``@ projection``
+        ((hidden, out), SDXL's text_projection) when one is given."""
+        ids, x = self._hidden(input_ids, last=True)
+        eos = min(EOS_ID, self.cfg.vocab_size - 1)
+        pos = (ids == eos).int().argmax(dim=-1)
+        out = x[torch.arange(x.shape[0], device=x.device), pos]
+        if projection is not None:
+            out = out @ torch.as_tensor(projection, dtype=out.dtype, device=out.device)
+        return out
 
     def empty_prompt_ids(self, batch: int = 1) -> np.ndarray:
         """Token ids for "" — BOS then EOS-padding (CLIP pads with EOS)."""

@@ -1,5 +1,5 @@
 """UNet2DCondition — the denoiser (PyTorch, NCHW).  Port of
-``gswm.models.unet`` without SDXL's addition embeddings (a later slice).
+``gswm.models.unet``, SDXL's addition embeddings included.
 
 Public convention as in the JAX package: latents NCHW (B, 4, H/8, W/8) in,
 float32 NCHW out; the compute dtype is the dtype of the module's weights.
@@ -49,13 +49,14 @@ class _Block(nn.Module):
 class UNet2DCondition(nn.Module):
     def __init__(self, config: UNetConfig):
         super().__init__()
-        if config.addition_embed_dim:
-            raise NotImplementedError("SDXL addition embeddings are not ported yet")
         cfg = self.config = config
         boc = cfg.block_out_channels
         n = len(boc)
         temb_dim = boc[0] * 4
         self.time_embedding = TimeEmbedding(boc[0], temb_dim)
+        # SDXL: (pooled text ++ 6 time_ids x 256 features) -> temb_dim
+        self.add_embedding = (TimeEmbedding(cfg.addition_embed_dim, temb_dim)
+                              if cfg.addition_embed_dim else None)
         self.conv_in = nn.Conv2d(cfg.sample_channels, boc[0], 3, padding=1)
 
         skip_channels = [boc[0]]
@@ -88,9 +89,11 @@ class UNet2DCondition(nn.Module):
         self.conv_norm_out = GroupNorm32(cfg.norm_groups, boc[0], eps=1e-5)
         self.conv_out = nn.Conv2d(boc[0], cfg.sample_channels, 3, padding=1)
 
-    def forward(self, latents: torch.Tensor, timesteps, context: torch.Tensor):
+    def forward(self, latents: torch.Tensor, timesteps, context: torch.Tensor,
+                added_cond: dict | None = None):
         """latents (B, C, h, w); timesteps (B,) or scalar; context
-        (B, seq, cross_attn_dim).  Returns float32 (B, C, h, w)."""
+        (B, seq, cross_attn_dim); added_cond (SDXL): ``text_embeds``
+        (B, pooled) and ``time_ids`` (B, 6).  Returns float32 (B, C, h, w)."""
         cfg = self.config
         dtype = self.conv_in.weight.dtype
         x = latents.to(dtype)
@@ -101,6 +104,9 @@ class UNet2DCondition(nn.Module):
         temb = timestep_embedding(t, cfg.block_out_channels[0], cfg.flip_sin_to_cos,
                                   cfg.freq_shift).to(dtype)
         temb = self.time_embedding(temb)
+        if self.add_embedding is not None:
+            temb = temb + self.add_embedding(self._added_features(added_cond, x.shape[0],
+                                                                  dtype))
 
         x = self.conv_in(x)
         skips = [x]
@@ -129,3 +135,16 @@ class UNet2DCondition(nn.Module):
 
         x = self.conv_out(F.silu(self.conv_norm_out(x)))
         return x.to(torch.float32)
+
+    def _added_features(self, added_cond, batch: int, dtype) -> torch.Tensor:
+        """SDXL micro-conditioning (gswm/models/unet.py:140-156): 256
+        sinusoidal features of each time_id in fp32, after the pooled text
+        embeds, cast to the compute dtype."""
+        if added_cond is None:
+            raise ValueError("SDXL config needs added_cond {text_embeds, time_ids}")
+        cfg = self.config
+        tid = torch.as_tensor(added_cond["time_ids"], device=self.conv_in.weight.device)
+        feats = timestep_embedding(tid.reshape(-1), 256, cfg.flip_sin_to_cos,
+                                   cfg.freq_shift).reshape(batch, -1)
+        text = torch.as_tensor(added_cond["text_embeds"], device=feats.device)
+        return torch.cat([text.to(torch.float32), feats], dim=-1).to(dtype)

@@ -10,9 +10,12 @@ Port of ``gswm.pipelines.inversable``:
     (the reference's extraction setting, extract.py:66-69), DDIM or DPM++,
     with optional fixed-point refinement of each step;
   * ``extract_bits``: inversion + quantize / decrypt / vote.
-The JAX scan becomes a Python loop over steps.  The scheduler state, the
-alphas and ``to_eps`` stay float32 whatever the UNet's compute dtype.  Not
-ported yet: SDXL.
+SDXL presets carry a second text encoder (contexts concatenated on the
+feature axis) and the addition embeddings' ``added_cond``: the second
+encoder's pooled output of the empty prompt and ``time_ids`` from the
+image size.  The JAX scan becomes a Python loop over steps.  The scheduler
+state, the alphas and ``to_eps`` stay float32 whatever the UNet's compute
+dtype.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch
 
 from gswm_torch.config import GSConfig
 from gswm_torch.core.decode import recover_message_bits
+from gswm_torch.models import loader
 from gswm_torch.models.configs import PRESETS, ModelPreset
 from gswm_torch.models.layers import init_random_, to_compute_dtype_
 from gswm_torch.models.text import TextEncoder
@@ -37,13 +41,23 @@ from gswm_torch.ops.attention import FUSED_QKV_MIN_SEQ, HEAD_DIM
 from gswm_torch.schedulers.schedule import sd_schedule
 
 
-def _build(cls, cfg, generator: torch.Generator):
-    """Construct without torch's default init, then fill from ``generator``."""
+def _build(cls, cfg, generator: Optional[torch.Generator]):
+    """Construct without torch's default init, then fill from ``generator``;
+    left on the meta device without one."""
     with torch.device("meta"):
         module = cls(cfg)
-    module.to_empty(device=generator.device)
-    init_random_(module, generator)
+    if generator is not None:
+        module.to_empty(device=generator.device)
+        init_random_(module, generator)
     return module.eval().requires_grad_(False)
+
+
+def _load(cls, cfg, state: dict, what: str):
+    """Construct on the meta device and take ``state``'s tensors by
+    assignment: nothing is filled that the checkpoint overwrites."""
+    with torch.device("meta"):
+        module = cls(cfg)
+    return loader.load_state_(module, state, what).eval().requires_grad_(False)
 
 
 def _check_served_on_cuda(preset: ModelPreset, dtype: torch.dtype) -> None:
@@ -96,42 +110,78 @@ class InversablePipeline:
 
     def __init__(self, preset: ModelPreset | str = "sd-2-1-base", device="cuda",
                  dtype: torch.dtype = torch.bfloat16,
-                 generator: Optional[torch.Generator] = None):
-        """On the card unless ``device`` names another (``"cpu"``).  Random
-        weights from ``generator`` (default: seed 0 on ``device``);
-        ``models.bridge`` loads the JAX package's.  The UNet and the VAE
-        compute in ``dtype`` with their norms' parameters kept float32; the
-        text encoder in float32.  On a CUDA device only what the kernels
-        serve is built: SD 2.x head dims in bfloat16."""
+                 generator: Optional[torch.Generator] = None,
+                 model_dir: Optional[str] = None,
+                 weights_dtype: Optional[torch.dtype] = None):
+        """On the card unless ``device`` names another (``"cpu"``; ``"meta"``
+        builds the modules and allocates nothing).  Weights from a local
+        diffusers-layout ``model_dir`` (``models.loader``), else random from
+        ``generator`` (default: seed 0 on ``device``); ``models.bridge``
+        loads the JAX package's.  The UNet and the VAE compute in ``dtype``
+        with their norms' parameters kept float32; the text encoders in
+        float32.  ``weights_dtype`` rounds every floating parameter of the
+        UNet and the VAE through that dtype, norms too, each held in its
+        compute dtype after (the JAX package's ``_cast_floating``).  On a
+        CUDA device only what the kernels serve is built: heads of 64 (SD
+        2.x, SDXL) in bfloat16."""
         if isinstance(preset, str):
             preset = PRESETS[preset]
-        if preset.text2 is not None or preset.unet.addition_embed_dim:
-            raise NotImplementedError(f"{preset.name}: SDXL is not ported yet")
         self.preset = preset
         self.device = torch.device(device)
         self.dtype = dtype
+        self.weights_dtype = weights_dtype
         if self.device.type == "cuda":
             _check_served_on_cuda(preset, dtype)
-        if generator is None:
-            generator = torch.Generator(device=self.device).manual_seed(0)
-        self.unet = to_compute_dtype_(
-            _build(UNet2DCondition, preset.unet, generator), self.device, dtype)
-        self.vae = to_compute_dtype_(
-            _build(AutoencoderKL, preset.vae, generator), self.device, dtype)
-        self.text = _build(TextEncoder, preset.text, generator).to(self.device)
+        parts = {"unet": (UNet2DCondition, preset.unet), "vae": (AutoencoderKL, preset.vae),
+                 "text": (TextEncoder, preset.text)}
+        if preset.text2 is not None:
+            parts["text2"] = (TextEncoder, preset.text2)
+        self.text2 = self.text2_projection = None
+        if model_dir is not None:
+            states = loader.load_pipeline_states(model_dir, sdxl=preset.text2 is not None)
+            projection = states.pop("text2_projection", None)
+            if projection is not None:
+                self.text2_projection = projection.to(self.device)
+            modules = {name: _load(cls, cfg, states[name], name)
+                       for name, (cls, cfg) in parts.items()}
+        else:
+            if generator is None and self.device.type != "meta":
+                generator = torch.Generator(device=self.device).manual_seed(0)
+            modules = {name: _build(cls, cfg, generator) for name, (cls, cfg) in parts.items()}
+        for name, module in modules.items():
+            if name in ("unet", "vae"):
+                module = to_compute_dtype_(module, self.device, dtype)
+            setattr(self, name, module.to(self.device))
         self.schedule = sd_schedule(prediction_type=preset.prediction_type)
-        self._empty_ctx = None
+        self.weights_loaded_()
+
+    def weights_loaded_(self) -> None:
+        """After new weights: round them through ``weights_dtype`` and drop
+        the cached empty-prompt context and pooled text."""
+        if self.weights_dtype is not None:
+            for module in (self.unet, self.vae):
+                for p in module.parameters():
+                    if p.is_floating_point():
+                        p.data = p.data.to(self.weights_dtype).to(p.dtype)
+        self.reset_caches()
 
     def reset_caches(self) -> None:
-        """Drop the cached empty-prompt context (after new weights)."""
+        """Drop the cached empty-prompt context and pooled text."""
         self._empty_ctx = None
+        self._empty_pooled = None
 
     # -- conditioning --------------------------------------------------------
 
-    def encode_prompt_ids(self, input_ids) -> torch.Tensor:
-        """(B, 77) token ids -> (B, 77, dim) float32 context."""
+    def encode_prompt_ids(self, input_ids, input_ids2=None) -> torch.Tensor:
+        """(B, 77) token ids -> (B, 77, dim) float32 context; with a second
+        encoder (SDXL) both contexts concatenated on the feature axis, the
+        second's ids ``input_ids2`` (default ``input_ids``)."""
         with torch.inference_mode():
-            return self.text(input_ids)
+            h = self.text(input_ids)
+            if self.text2 is not None:
+                h2 = self.text2(input_ids if input_ids2 is None else input_ids2)
+                h = torch.cat([h, h2], dim=-1)
+            return h
 
     def empty_context(self, batch: int = 1) -> torch.Tensor:
         """Context for the empty prompt, broadcast to ``batch`` rows: encoded
@@ -141,15 +191,51 @@ class InversablePipeline:
         c = self._empty_ctx
         return c.expand((batch,) + c.shape[1:])
 
+    def pooled_empty_text(self, batch: int = 1) -> torch.Tensor:
+        """SDXL's pooled conditioning of the empty prompt: the second
+        encoder's pooled output of "" (through ``text2_projection`` when a
+        checkpoint gave one), encoded once and broadcast to ``batch`` rows."""
+        if self._empty_pooled is None:
+            enc = self.text2 if self.text2 is not None else self.text
+            with torch.inference_mode():
+                self._empty_pooled = enc.pooled(enc.empty_prompt_ids(1),
+                                                projection=self.text2_projection)
+        p = self._empty_pooled
+        return p.expand((batch,) + p.shape[1:])
+
+    def default_added_cond(self, batch: int, height: int, width: int,
+                           pooled_text=None) -> Optional[dict]:
+        """SDXL micro-conditioning (None for other presets): ``time_ids`` =
+        (orig h, orig w, crop 0, 0, target h, target w) in float32, and
+        ``text_embeds`` the empty prompt's pooled output unless the caller
+        gives its own.  The JAX package conditions ``generate`` on the empty
+        prompt's pooled output even when prompt ids are given: kept."""
+        if not self.preset.unet.addition_embed_dim:
+            return None
+        if pooled_text is None:
+            pooled_text = self.pooled_empty_text(batch)
+        tid = torch.tensor([[height, width, 0, 0, height, width]], dtype=torch.float32,
+                           device=self.device)
+        return {"text_embeds": torch.as_tensor(pooled_text, device=self.device),
+                "time_ids": tid.expand(batch, 6)}
+
+    def _added_cond_for(self, latents) -> Optional[dict]:
+        """``default_added_cond`` at the image size of ``latents``."""
+        f = 2 ** (len(self.preset.vae.block_out_channels) - 1)
+        return self.default_added_cond(latents.shape[0], latents.shape[-2] * f,
+                                       latents.shape[-1] * f)
+
     # -- the step loop -------------------------------------------------------
 
     @torch.inference_mode()
     def _run(self, latents, context, num_steps: int, invert: bool,
              scheduler: str = "DDIM", uncond_context=None,
-             guidance_scale: float = 1.0, refine: int = 0) -> torch.Tensor:
+             guidance_scale: float = 1.0, refine: int = 0,
+             added_cond: Optional[dict] = None) -> torch.Tensor:
         """The denoise (or inversion) loop.  With ``uncond_context`` each
-        step runs the UNet once on the (uncond, cond) pair and combines
-        out_u + g (out_c - out_u) on its float32 output before ``to_eps``.
+        step runs the UNet once on the (uncond, cond) pair (``added_cond``
+        doubled with it) and combines out_u + g (out_c - out_u) on its
+        float32 output before ``to_eps``.
         ``refine`` (inversion only) re-takes each step from the same
         pre-step state with eps re-evaluated on the current estimate."""
         plan = SCHEDULERS[scheduler][1 if invert else 0](self.schedule, num_steps)
@@ -160,13 +246,16 @@ class InversablePipeline:
         use_dpm = scheduler == "DPMs"
         guided = uncond_context is not None
         ctx = torch.cat([uncond_context, context]) if guided else context
+        added = added_cond
+        if guided and added is not None:
+            added = {k: torch.cat([v, v]) for k, v in added.items()}
 
         def eval_eps(x, t, a_eval):
             if guided:
-                out_u, out_c = self.unet(torch.cat([x, x]), t, ctx).chunk(2)
+                out_u, out_c = self.unet(torch.cat([x, x]), t, ctx, added).chunk(2)
                 out = out_u + guidance_scale * (out_c - out_u)
             else:
-                out = self.unet(x, t, ctx)
+                out = self.unet(x, t, ctx, added)
             return to_eps(x, out, a_eval, pred_type)
 
         def step(x, eps, a_from, a_to, carry, first):
@@ -205,7 +294,8 @@ class InversablePipeline:
         out = self._run(latents, context, num_steps, invert=False,
                         scheduler=scheduler,
                         uncond_context=self.empty_context(b) if guided else None,
-                        guidance_scale=guidance_scale if guided else 1.0)
+                        guidance_scale=guidance_scale if guided else 1.0,
+                        added_cond=self._added_cond_for(latents))
         return self._vae_chunked(out, self.decode_image) if decode else out
 
     def generate_with_init(self, latents, **kw) -> PipelineOutput:
@@ -250,7 +340,8 @@ class InversablePipeline:
             latents = self.image_to_latents(images)
         ctx = self.empty_context(latents.shape[0])
         return self._run(latents, ctx, num_steps, invert=True,
-                         scheduler=scheduler, refine=refine)
+                         scheduler=scheduler, refine=refine,
+                         added_cond=self._added_cond_for(latents))
 
     def extract_bits(self, cfg: GSConfig, images=None, latents=None,
                      num_steps: int = 50, scheduler: str = "DDIM",

@@ -22,6 +22,11 @@ sweep (``eval.sweep.run_sweep``, every attack of ``DEFAULT_ATTACKS`` at 0.5:
 17 rows, each one attack, one VAE encode and one 30-step inversion, the
 ``reversed`` row an inversion and a regeneration more); and the Tree-Ring loop
 on latents.
+
+A fifth path is SDXL: sdxl-base at 1024x1024, batch 2, bf16, random weights
+from a seed: the latent closed loop and the watermark chain of the 768x768
+path (both text encoders, the pooled conditioning and ``time_ids`` in
+``added_cond``).
 """
 
 from __future__ import annotations
@@ -39,23 +44,32 @@ STEPS = 30
 TIER_LOOP_STEPS = 10
 BATCH_512, RES_512 = 4, 512
 BATCH_768, RES_768 = 2, 768
+BATCH_1024, RES_1024 = 2, 1024
 # seeds of the random weights
-PIPELINE_SEEDS = {"sd-2-1-base": 0, "sd-2-1": 1}
+PIPELINE_SEEDS = {"sd-2-1-base": 0, "sd-2-1": 1, "sdxl-base": 2}
 
-# Kernel shapes of the two paths.  Batch 4 is the UNet's under guidance and
+# Kernel shapes of the paths.  Batch 4 is the UNet's under guidance and
 # in the 512x512 path, batch 2 without.
 # K1 (B, S, C, H): UNet levels 1 and 2 at 512x512 (1024, 256 tokens) and
-# 768x768 (2304, 576 tokens)
+# 768x768 (2304, 576 tokens); SDXL's level 2 and mid block at 1024x1024
+# (1024 tokens, 1280 channels, 20 heads)
 K1_SHAPES = ((2, 1024, 640, 10), (2, 256, 1280, 20),
-             (4, 2304, 640, 10), (4, 576, 1280, 20))
-# K2 (B, S, H): UNet level 0 at 512x512 (4096 tokens) and 768x768 (9216)
-K2_SHAPES = ((2, 4096, 5), (2, 9216, 5), (4, 9216, 5))
+             (4, 2304, 640, 10), (4, 576, 1280, 20),
+             (2, 1024, 1280, 20), (4, 1024, 1280, 20))
+# K2 (B, S, H): UNet level 0 at 512x512 (4096 tokens) and 768x768 (9216);
+# SDXL's level 1 at 1024x1024 (4096 tokens, 10 heads)
+K2_SHAPES = ((2, 4096, 5), (2, 9216, 5), (4, 9216, 5), (2, 4096, 10), (4, 4096, 10))
 # K4 (B, S, H, D): the VAE mid attention at 768x768 (one head, D = 512, 9216
 # tokens; the decoder takes one image a call, the encoder two), a ragged
-# multi-head D = 64 shape, and two ragged multi-head shapes of the widths
-# between: D = 128, and 192 whose three 64-column panels split 2 + 1
+# multi-head D = 64 shape, two ragged multi-head shapes of the widths
+# between: D = 128, and 192 whose three 64-column panels split 2 + 1; and
+# the VAE mid attention at 1024x1024 (16,384 tokens)
 K4_SHAPES = ((1, 9216, 1, 512), (2, 9216, 1, 512), (2, 1000, 10, 64),
-             (2, 1000, 3, 128), (1, 1000, 2, 192))
+             (2, 1000, 3, 128), (1, 1000, 2, 192),
+             (1, 16384, 1, 512), (2, 16384, 1, 512))
+# K3 (ChaCha20 blocks of one key): one 64x64x4, 96x96x4 and 128x128x4
+# latent of bits (512x512, 768x768, 1024x1024), and 2^20 blocks
+K3_BLOCKS = (32, 72, 128, 2**20)
 # K6 and K7 (B, S, H): UNet level 0 under their switches, at 768x768 (batch
 # 2, and 4 under guidance) and 512x512, and a ragged shape
 LEVEL0_SHAPES = ((2, 9216, 5), (4, 9216, 5), (2, 4096, 5), (1, 1000, 3))
@@ -144,26 +158,29 @@ def prompt_ids(pipe, batch: int, seed: int = 2024) -> np.ndarray:
         0, pipe.preset.text.vocab_size - 2, (batch, pipe.preset.text.max_length))
 
 
-def unet_inputs(pipe, batch: int, dev="cuda"):
-    """Seeded latents (B, 4, 96, 96), timestep 500 and a seeded prompt's
-    context: one UNet input at 768x768."""
+def unet_inputs(pipe, batch: int, dev="cuda", res: int = RES_768):
+    """Seeded latents (B, 4, res/8, res/8), timestep 500 and a seeded
+    prompt's context: one UNet input at res x res; and SDXL's added_cond."""
     g = torch.Generator(device=dev).manual_seed(77)
-    lat = torch.randn((batch, 4, RES_768 // 8, RES_768 // 8), generator=g, device=dev)
-    return (lat, torch.full((batch,), 500, device=dev),
-            pipe.encode_prompt_ids(prompt_ids(pipe, batch, seed=7)))
+    lat = torch.randn((batch, 4, res // 8, res // 8), generator=g, device=dev)
+    inputs = (lat, torch.full((batch,), 500, device=dev),
+              pipe.encode_prompt_ids(prompt_ids(pipe, batch, seed=7)))
+    added = pipe.default_added_cond(batch, res, res)
+    return inputs if added is None else (*inputs, added)
 
 
-def generate_768(pipe, cfg, ids, seed: int):
-    """First half of the watermark chain: embed, then guided generation and
-    VAE decode.  Returns (images, message bytes)."""
-    zt, msg = embed(cfg, BATCH_768, seed)
+def generate_watermarked(pipe, cfg, ids, seed: int, batch: int = BATCH_768):
+    """First half of the watermark chain: embed, then guided generation (the
+    prompt ids through every text encoder; UNet batch 2 x ``batch``) and VAE
+    decode.  Returns (images, message bytes)."""
+    zt, msg = embed(cfg, batch, seed)
     images = pipe.generate(zt, prompt_ids=ids, guidance_scale=7.5, num_steps=STEPS)
     return images, msg
 
 
-def chain_768(pipe, cfg, ids, seed: int):
+def watermark_chain(pipe, cfg, ids, seed: int, batch: int = BATCH_768):
     """The whole watermark chain.  Returns (images, message bytes, bits, z_T)."""
-    images, msg = generate_768(pipe, cfg, ids, seed)
+    images, msg = generate_watermarked(pipe, cfg, ids, seed, batch)
     bits, z_t = pipe.extract_bits(cfg, images=images, num_steps=STEPS)
     return images, msg, bits, z_t
 

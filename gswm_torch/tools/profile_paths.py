@@ -17,6 +17,10 @@ On one card, random weights from a seed, bf16:
     then the whole row unprofiled and under the profiler;
   * sd-2-1-base at 512x512, batch 4: the extraction chain of phase 3b
     (embed + VAE encode + 30-step inversion + decode), likewise.
+  * sdxl-base at 1024x1024, batch 2: one UNet forward as the 768x768 one,
+    at batch 2 and at 4 (guidance), and the watermark chain of
+    ``chip_smoke.py`` phase 9b (both text encoders, guidance 7.5, VAE decode,
+    then VAE encode, 30-step inversion, decode), likewise.
   * the GroupNorm kernel (K8) at ``paths.K8_PROBE_CASES``: device time a call
     beside the wrapper's CUDA-event time a call, which holds its host side,
     and its bound.
@@ -33,7 +37,8 @@ Both chains, their inputs and seeds are ``gswm_torch/tools/paths.py``'s, as
 For each profiled run: wall time, device-busy time (the sum of kernel and
 copy durations: the port runs one stream), the idle share 1 - busy / wall
 (inflated by the profiler's own host cost; the unprofiled wall stands
-beside it), and the kernels by device time.  Prints lines and, last, one
+beside it), the device records (kernels and copies) it holds, and the
+kernels by device time.  Prints lines and, last, one
 JSON object; ``--out`` also writes it.
 """
 
@@ -71,13 +76,15 @@ def profiled(fn, top: int) -> dict:
         raise RuntimeError("the profiler saw no device time")
     rows.sort(key=lambda r: -r[1])
     return dict(wall_s=wall, busy_s=busy / 1e3, idle_share=1 - busy / 1e3 / wall,
+                device_records=sum(n for _, _, n in rows),
                 kernels=[dict(name=k[:120], ms=ms, share=ms / busy, launches=n)
                          for k, ms, n in rows[:top]])
 
 
 def report(title: str, res: dict) -> None:
     print(f"{title}: wall {res['wall_s']:.4f} s, device busy {res['busy_s']:.4f} s, "
-          f"idle share {res['idle_share']:.4f}", flush=True)
+          f"idle share {res['idle_share']:.4f}, {res['device_records']} device records",
+          flush=True)
     for k in res["kernels"]:
         print(f"  {k['share'] * 100:6.2f}%  {k['ms']:10.3f} ms  x{k['launches']:<6d} "
               f"{k['name']}", flush=True)
@@ -157,7 +164,7 @@ def main() -> None:
                 pipe.unet(*unet_in)
 
     def chain_768(seed=21):
-        paths.chain_768(pipe, cfg, ids, seed)
+        paths.watermark_chain(pipe, cfg, ids, seed)
 
     forward()
     res_f = profiled(forward, args.top)
@@ -187,7 +194,7 @@ def main() -> None:
     from gswm_torch.distortions import device as attacks
     from gswm_torch.distortions import relative_strength_to_absolute
 
-    images, _ = paths.generate_768(pipe, cfg, ids, 22)
+    images, _ = paths.generate_watermarked(pipe, cfg, ids, 22)
     quality = relative_strength_to_absolute(paths.ATTACK_REL_STRENGTH, "compression")
     attacked = attacks.apply(images, "compression", quality)
     latents = pipe.image_to_latents(attacked)
@@ -227,6 +234,39 @@ def main() -> None:
           f"{result['chain_512_wall_s']} s", flush=True)
     result["chain_512"] = profiled(chain_512, args.top)
     report("512x512 extraction chain, batch 4, profiled", result["chain_512"])
+    del pipe
+    torch.cuda.empty_cache()
+
+    # ---- sdxl-base, 1024x1024, batch 2
+    pipe = paths.build_pipeline("sdxl-base")
+    cfg = paths.config(paths.RES_1024, "gswm_torch sdxl")
+    ids = paths.prompt_ids(pipe, paths.BATCH_1024)
+    result["unet_forward_1024"] = {}
+    for batch in (paths.BATCH_1024, 2 * paths.BATCH_1024):
+        unet_in = paths.unet_inputs(pipe, batch, res=paths.RES_1024)
+
+        def forward_xl():
+            with torch.inference_mode():
+                for _ in range(3):
+                    pipe.unet(*unet_in)
+
+        forward_xl()
+        res_f = profiled(forward_xl, args.top)
+        report(f"1024x1024 SDXL UNet forward x3, batch {batch}", res_f)
+        print(f"  device time per forward {res_f['busy_s'] / 3 * 1e3:.3f} ms, "
+              f"{res_f['device_records'] / 3:.0f} device records a forward", flush=True)
+        result["unet_forward_1024"][batch] = res_f
+        del unet_in
+
+    def chain_1024(seed=61):
+        paths.watermark_chain(pipe, cfg, ids, seed, paths.BATCH_1024)
+
+    chain_1024(60)
+    result["chain_1024_wall_s"] = wall_of(chain_1024)
+    print(f"1024x1024 SDXL chain, batch 2, unprofiled: wall "
+          f"{result['chain_1024_wall_s']:.4f} s", flush=True)
+    result["chain_1024"] = profiled(chain_1024, args.top)
+    report("1024x1024 SDXL chain, batch 2, profiled", result["chain_1024"])
     del pipe
     torch.cuda.empty_cache()
 

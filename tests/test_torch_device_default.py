@@ -111,12 +111,13 @@ class _NoAllocation:
 @pytest.mark.parametrize("preset,dtype,why", [
     ("sd-1-4", torch.bfloat16, "heads are"),
     ("sd-2-1-base", torch.float32, "bfloat16 only"),
-    ("sd-2-1", torch.float16, "bfloat16 only")])
+    ("sd-2-1", torch.float16, "bfloat16 only"),
+    ("sdxl-base", torch.float32, "bfloat16 only")])
 def test_pipeline_refuses_at_construction_what_the_card_does_not_serve(
         monkeypatch, preset, dtype, why):
     """SD 1.x head dims (40, 80, 160) and any dtype but bfloat16 have no
     kernel: on a CUDA device the constructor says so, before it allocates
-    anything there (so also on a machine without a card); SDXL as before."""
+    anything there (so also on a machine without a card); SDXL likewise."""
     from gswm_torch.pipelines import inversable
 
     monkeypatch.setattr(inversable, "_build", _NoAllocation())
@@ -125,8 +126,6 @@ def test_pipeline_refuses_at_construction_what_the_card_does_not_serve(
                            generator=torch.Generator())
     with pytest.raises(NotImplementedError, match=why):
         InversablePipeline(preset, device="cuda:0", dtype=dtype)
-    with pytest.raises(NotImplementedError, match="SDXL"):
-        InversablePipeline("sdxl-base", device="cuda")
 
 
 def test_the_cpu_goes_on_running_what_the_card_refuses(monkeypatch):
@@ -146,3 +145,4 @@ def test_the_cpu_goes_on_running_what_the_card_refuses(monkeypatch):
             for blk in unet.down_blocks[:3]] == [40, 80, 160]
     inversable._check_served_on_cuda(PRESETS["tiny"], torch.float32)
     inversable._check_served_on_cuda(PRESETS["sd-2-1"], torch.bfloat16)
+    inversable._check_served_on_cuda(PRESETS["sdxl-base"], torch.bfloat16)

@@ -46,7 +46,8 @@ def assert_attention_close(got, want):
 
 
 @pytest.mark.parametrize("n_blocks,counter0", [
-    (1, 0), (32, 7), (72, 0), (1000, 2**32 - 3), (4099, 2**64 - 2**31)])
+    (1, 0), (32, 7), (72, 0), (128, 2**32 - 100), (1000, 2**32 - 3),
+    (4099, 2**64 - 2**31)])
 def test_keystream_kernel_bit_exact(cuda, n_blocks, counter0):
     key = bytes(range(32))
     nonce = counter0.to_bytes(8, "little") + bytes(range(40, 48))
@@ -59,7 +60,8 @@ def test_keystream_kernel_bit_exact(cuda, n_blocks, counter0):
 
 @pytest.mark.parametrize("b,s,h", [(1, 1, 1), (1, 65, 1), (2, 300, 2),
                                    (2, 256, 20), (1, 2305, 3), (2, 4096, 5),
-                                   (2, 9216, 5), (4, 9216, 5)])
+                                   (2, 9216, 5), (4, 9216, 5), (2, 4096, 10),
+                                   (4, 4096, 10)])
 def test_flash_kernel_matches_plain(cuda, b, s, h):
     g = torch.Generator(device=cuda).manual_seed(s)
     q, k, v = (torch.randn((b, s, h * 64), generator=g, device=cuda).bfloat16()
@@ -73,7 +75,8 @@ def test_flash_kernel_matches_plain(cuda, b, s, h):
 
 @pytest.mark.parametrize("b,s,c,h", [(1, 300, 128, 2), (1, 256, 1280, 20),
                                      (2, 1024, 640, 10), (1, 2304, 640, 10),
-                                     (4, 2304, 640, 10), (4, 576, 1280, 20)])
+                                     (4, 2304, 640, 10), (4, 576, 1280, 20),
+                                     (2, 1024, 1280, 20), (4, 1024, 1280, 20)])
 def test_fused_qkv_kernel_matches_plain(cuda, b, s, c, h):
     g = torch.Generator(device=cuda).manual_seed(s + c)
     x = torch.randn((b, s, c), generator=g, device=cuda).bfloat16()
@@ -272,24 +275,26 @@ def test_split_kernel_is_exact_softmax_above_60(cuda):
                                atol=1e-2)
 
 
-def test_vae_attention_takes_the_split_kernel_at_768(cuda):
-    """The VAE mid attention at 96x96 latents (768x768 images, 9216
-    tokens): one K4 launch, the same result as its plain path."""
+@pytest.mark.parametrize("side", [96, 128])
+def test_vae_attention_takes_the_split_kernel_at_768(cuda, side):
+    """The VAE mid attention at 96x96 latents (768x768 images, 9216 tokens)
+    and at SDXL's 128x128 (1024x1024, 16,384 tokens): one K4 launch, the
+    same result as its plain path."""
     from gswm_torch.models import layers
 
     mod = layers.VAEAttention(512).to(cuda, torch.bfloat16)
     g = torch.Generator(device=cuda).manual_seed(5)
-    x = torch.randn((1, 512, 96, 96), generator=g, device=cuda).bfloat16()
+    x = torch.randn((1, 512, side, side), generator=g, device=cuda).bfloat16()
     before = attn.flash_attention_split.launches
     with torch.no_grad():
         got = mod(x).float()
     assert attn.flash_attention_split.launches == before + 1
-    xn = mod.group_norm(x).permute(0, 2, 3, 1).reshape(1, 96 * 96, 512).float()
+    xn = mod.group_norm(x).permute(0, 2, 3, 1).reshape(1, side * side, 512).float()
     q, k, v = (F.linear(xn, m.weight.float(), m.bias.float())
                for m in (mod.to_q, mod.to_k, mod.to_v))
     plain = layers.plain_attention(q, k, v, 1)
     want = F.linear(plain, mod.to_out[0].weight.float(), mod.to_out[0].bias.float())
-    want = want.reshape(1, 96, 96, 512).permute(0, 3, 1, 2) + x.float()
+    want = want.reshape(1, side, side, 512).permute(0, 3, 1, 2) + x.float()
     torch.testing.assert_close(got, want, rtol=0, atol=0.1)
 
 
@@ -697,6 +702,50 @@ def test_tiny_pipeline_closed_loop_on_card(cuda):
     want = torch.tensor(list(msg), dtype=torch.uint8)
     want = ((want[:, None] >> torch.arange(7, -1, -1)) & 1).flatten().to(cuda)
     assert (bits == want).float().mean().item() >= 0.99
+
+
+def test_tiny_xl_pipeline_closed_loop_on_card(cuda):
+    """tiny-xl on the card in bf16: both text encoders and added_cond on
+    the device, the closed loop at 0.99 or more."""
+    from gswm_torch import GSConfig, embed_latents, recover_message_bits
+    from gswm_torch.pipelines import InversablePipeline
+
+    pipe = InversablePipeline("tiny-xl", device=cuda, dtype=torch.bfloat16)
+    assert pipe.pooled_empty_text(2).device.type == "cuda"
+    cfg = GSConfig(key_hex="22" * 32, nonce_hex="33" * 16, message="xl",
+                   width=64, height=64, message_bits=32)
+    zt, msg = embed_latents(cfg, generator=torch.Generator(cuda).manual_seed(1),
+                            batch=2, device=cuda)
+    ids = torch.randint(0, 999, (2, 77), generator=torch.Generator().manual_seed(2))
+    images = pipe.generate(zt, prompt_ids=ids, num_steps=4)
+    assert images.shape == (2, 3, 16, 16) and torch.isfinite(images).all()
+    z = pipe.invert(latents=pipe.generate(zt, guidance_scale=1.0, num_steps=8,
+                                          decode=False), num_steps=8)
+    want = torch.tensor(list(msg), dtype=torch.uint8)
+    want = ((want[:, None] >> torch.arange(7, -1, -1)) & 1).flatten().to(cuda)
+    assert (recover_message_bits(z, cfg) == want).float().mean().item() >= 0.99
+
+
+def test_sdxl_unet_forward_on_card(cuda):
+    """sdxl-base's UNet at 1024x1024, batch 1, random weights: 60 K1 and 10
+    K2 launches a forward, no other attention kernel, a finite output; fp32
+    is refused at construction."""
+    from gswm_torch.pipelines import InversablePipeline
+
+    with pytest.raises(NotImplementedError, match="bfloat16 only"):
+        InversablePipeline("sdxl-base", device=cuda, dtype=torch.float32)
+    pipe = paths.build_pipeline("sdxl-base")
+    inputs = paths.unet_inputs(pipe, 1, res=paths.RES_1024)
+    counters = ("fused_qkv_attention", "flash_attention", "flash_attention_split",
+                "flash_attention_packed", "flash_attention_transposed")
+    before = {n: getattr(attn, n).launches for n in counters}
+    with torch.inference_mode():
+        out = pipe.unet(*inputs)
+    made = {n: getattr(attn, n).launches - before[n] for n in counters}
+    assert made == {"fused_qkv_attention": 60, "flash_attention": 10,
+                    "flash_attention_split": 0, "flash_attention_packed": 0,
+                    "flash_attention_transposed": 0}
+    assert out.shape == (1, 4, 128, 128) and torch.isfinite(out).all()
 
 
 @pytest.mark.parametrize("name", paths.attack_names())

@@ -2,9 +2,10 @@
 its tiny pipeline (prompt -> guided DPM++ generation -> VAE decode -> encode
 -> inversion -> decode), its per-user-key path (multikey embed, both trace
 searches) and its robustness bench (a short sweep, the Tree-Ring functions)
-must load none of jax, flax, transformers, cryptography or safetensors; and
-the bench must import, and run all but its host attacks, where there is no
-PIL."""
+must load none of jax, flax, transformers, cryptography or safetensors; the
+checkpoint loader and cache must import and load a tiny-xl checkpoint
+directory with safetensors and transformers unimportable; and the bench must
+import, and run all but its host attacks, where there is no PIL."""
 
 import subprocess
 import sys
@@ -106,3 +107,54 @@ def test_bench_imports_and_runs_without_pil():
                          cwd=Path(__file__).resolve().parents[1])
     assert res.returncode == 0, res.stdout + res.stderr
     assert "HOST JPEG RAISED" in res.stdout
+
+
+def test_loader_and_cache_run_with_safetensors_and_transformers_blocked(tmp_path):
+    """A tiny-xl checkpoint directory (written here with safetensors) loads
+    through ``model_dir`` and goes through the cache in a process where
+    safetensors and transformers cannot be imported; SDXL's tiny pipeline
+    then generates from it."""
+    import numpy as np
+    import torch
+    from safetensors.numpy import save_file
+
+    from gswm_torch.pipelines import InversablePipeline
+
+    pipe = InversablePipeline("tiny-xl", device="cpu", dtype=torch.float32)
+    files = {"unet": ("unet", "diffusion_pytorch_model"),
+             "vae": ("vae", "diffusion_pytorch_model"),
+             "text": ("text_encoder", "model"), "text2": ("text_encoder_2", "model")}
+    for part, (sub, name) in files.items():
+        state = {k: v.float().numpy() for k, v in getattr(pipe, part).state_dict().items()}
+        if part == "text2":
+            state["text_projection.weight"] = np.eye(32, dtype=np.float32)
+        (tmp_path / sub).mkdir()
+        save_file(state, str(tmp_path / sub / f"{name}.safetensors"))
+    code = textwrap.dedent(f"""
+        import sys
+        sys.modules["safetensors"] = None
+        sys.modules["transformers"] = None
+        import torch
+        torch.set_num_threads(1)
+        from gswm_torch.models import cache, loader
+        from gswm_torch.pipelines import InversablePipeline
+        pipe = InversablePipeline("tiny-xl", device="cpu", dtype=torch.float32,
+                                  model_dir={str(tmp_path)!r})
+        assert torch.equal(pipe.text2_projection, torch.eye(32))
+        state = cache.load_or_convert({str(tmp_path / "cache")!r}, {str(tmp_path)!r},
+                                      "unet", lambda: loader.load_unet_state({str(tmp_path)!r}))
+        assert all(torch.equal(state[k], v.float()) for k, v in pipe.unet.state_dict().items())
+        zt = torch.randn((1, 4, 8, 8), generator=torch.Generator().manual_seed(0))
+        images = pipe.generate(zt, prompt_ids=torch.zeros((1, 77), dtype=torch.long),
+                               num_steps=2)
+        assert images.shape == (1, 3, 16, 16) and torch.isfinite(images).all()
+        loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
+                        and m.split(".")[0] in {FORBIDDEN!r})
+        print("LOADED", loaded)
+        assert not loaded, loaded
+    """)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         cwd=Path(__file__).resolve().parents[1])
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "LOADED []" in res.stdout

@@ -106,8 +106,16 @@ def test_extract_bits_is_invert_plus_decode(pipes):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        InversablePipeline("sdxl-base", device="meta")
+    """SDXL is ported: sdxl-base builds on the meta device (nothing
+    allocated) with both text encoders at full size; what is still refused
+    is refused on a CUDA device (tests/test_torch_device_default.py)."""
+    pipe = InversablePipeline("sdxl-base", device="meta")
+    assert pipe.text2 is not None and pipe.text2_projection is None
+    assert sum(p.numel() for p in pipe.unet.parameters()) == 2_567_463_684
+    assert pipe.unet.conv_in.weight.dtype == torch.bfloat16
+    assert pipe.text2.text_model.final_layer_norm.weight.device.type == "meta"
+    with pytest.raises(NotImplementedError, match="heads are"):
+        InversablePipeline("sd-1-4", device="cuda")
 
 
 def _embedded(seed=5):
