@@ -21,7 +21,13 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
                 such call or it refuses the shape).  Every path's shapes,
                 SDXL's at 1024x1024 among them: K1 at 1024 tokens of 1280
                 channels, K2 at 4096 tokens of 10 heads, K4 at 16,384
-                tokens, K3 at 128 blocks.  K1's projection GEMM
+                tokens, K3 at 128 blocks; SD 1.x's at 512x512: K2 at 4096
+                tokens of 8 heads of 40 (batch 4 and 8) and ragged (1, 1001,
+                3, 40), K1 at (4 and 8, 1024, 640, 8 heads of 80) and (4 and
+                8, 256, 1280, 8 of 160), K4 at (4, 1024, 8, 80), (1, 1000,
+                2, 160) and a width no SD model uses, (2, 1000, 3, 72); K1,
+                K2 and K4 are held to the bounds head by head, and their
+                bounds count the true head dim.  K1's projection GEMM
                 also alone,
                 against x @ W^T in fp32.  The JSON line's ms, plain_ms,
                 bound_ms and library_ms sum a kernel's shapes; its
@@ -126,7 +132,25 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
      attention), K6, K7, K8 and K4 at D = 64 never; K4 once a VAE encode of 2
      images and twice a decode of 2; K3 exactly once (a new capacity, a new
      cache entry).
- 10. summary  — a JSON line of the kernels, then the JSON result line.
+ 10. SD 1.x, sd-1-4 at 512x512, batch 4, bf16, random weights from a seed
+     (built after phase 9's pipeline is freed), nothing cut; 8 heads of 40,
+     80 and 160:
+       (a) latent closed loop: embed -> 30-step DDIM at guidance 1.0 ->
+           30-step inversion -> decode; bit accuracy >= 0.99 on every image;
+       (b) the watermark chain: embed -> seeded prompt ids through CLIP-L ->
+           30-step DDIM at guidance 7.5 (UNet batch 8) -> VAE decode ->
+           extract_bits (VAE encode, 30-step inversion, decode); finite
+           images in [0, 1], generation and extraction images/s (second
+           pass) beside sd-2-1-base's phase 3b rate;
+       (c) one UNet forward under switch sets (a) cres (K2 at d = 40), (c)
+           transposed (the split kernel at d = 40: the port's route) and (e)
+           GSWM_FUSED_QKV=0 (the split kernel at d = 80 at level 1, plain at
+           level 2), within TIER_REL_BOUND of the default route's;
+       (d) one UNet forward at batch 4 and at 8, ms (CUDA events).
+     Launches by head dim, exact: K1 5 at d = 80 and 5 at 160 a forward, K2
+     5 at 40; K4 on the default route, K6, K7, K8 and the batch kernel
+     never; K3 once after the keystream caches are cleared.
+ 11. summary  — a JSON line of the kernels, then the JSON result line.
 Each path's launch counts are set to 0 just before it and read just after.
 """
 
@@ -193,6 +217,21 @@ ATTENTION_COUNTERS = ("fused_qkv_attention", "flash_attention", "flash_attention
 # (2 down + 3 up), depth 2, at 4096 tokens
 SDXL_K1 = (2 + 1 + 3) * 10
 SDXL_K2 = (2 + 3) * 2
+# K1 and K2 launches per sd-1-4 UNet forward at 512x512, by head dim: 8 heads
+# of 80 at level 1 (1024 tokens) and of 160 at level 2 (256 tokens), of 40 at
+# level 0 (4096 tokens), 2 down + 3 up transformers each; the mid block's 64
+# tokens stay plain
+SD14_PER_FORWARD = {"fused_qkv_attention": {80: 5, 160: 5}, "flash_attention": {40: 5}}
+# the same under three switch sets of paths.TIER_SWITCHES: (a) cres, K2 at
+# level 0; (c) transposed with xf and cres off: the split kernel at d = 40 (the
+# transposed kernel takes 64 alone, so the port's route goes on to split, where
+# the reference's takes its transposed kernel at a batch of 8); (e) no fused
+# qkv: the split kernel at d = 80 at level 1, plain attention at level 2
+SD14_TIER_LAUNCHES = {
+    "a": {"flash_attention": {40: 5}, "fused_qkv_attention": {80: 5, 160: 5}},
+    "c": {"flash_attention_split": {40: 5}, "fused_qkv_attention": {80: 5, 160: 5}},
+    "e": {"flash_attention": {40: 5}, "flash_attention_split": {80: 5}},
+}
 # gswm/pipelines/inversable.py:330-348: VAE calls take vae_chunk images at
 # 512x512, fewer in proportion to the pixels, and 8x fewer when decoding
 VAE_CHUNK = 32
@@ -391,9 +430,21 @@ def _attention_library_ms(fn, iters: int):
     return ms, "none" if ms is None else "math"
 
 
-def _heads_view(t, b, s, h):
-    """(B, S, H*64) memory -> the (B, H, S, 64) view."""
-    return t.view(b, s, h, 64).transpose(1, 2)
+def _heads_view(t, b, s, h, d):
+    """(B, S, H*D) memory -> the (B, H, S, D) view."""
+    return t.view(b, s, h, d).transpose(1, 2)
+
+
+def _check_every_head(label: str, got, want) -> None:
+    """(B, S, H, D) outputs: each head within ATTN_BOUND and ATTN_REL_BOUND
+    of its own largest entry, so a head that a store past D overwrote, or
+    whose tiles were read from the next head, shows however the others do."""
+    err = (got - want).abs().amax(dim=(0, 1, 3))
+    top = want.abs().amax(dim=(0, 1, 3))
+    bad = ((err > ATTN_BOUND) | (err > ATTN_REL_BOUND * top)).nonzero().flatten().tolist()
+    if bad:
+        raise AssertionError(f"{label}: heads {bad} off their plain version: errors "
+                             f"{err[bad].tolist()} against max|want| {top[bad].tolist()}")
 
 
 def _record(records: dict, name: str, err: float, ms: float, plain: float,
@@ -449,69 +500,73 @@ def phase_kernels(gn_cases) -> dict:
     def rand(*shape, scale=1.0):
         return (torch.randn(shape, generator=g, device=dev) * scale).bfloat16()
 
-    # K1's projection GEMM alone, at K1's four shapes below
-    for b, s, c, h in paths.K1_SHAPES:
+    # K1's projection GEMM alone, at K1's shapes below
+    for b, s, c, h, d in paths.K1_SHAPES:
         x = rand(b, s, c)
-        ws = [rand(h * 64, c, scale=c**-0.5) for _ in range(3)]
+        ws = [rand(h * d, c, scale=c**-0.5) for _ in range(3)]
         w_cat = torch.cat(ws)
         got = attn.qkv_projection(x, *ws)
         want = [x.float() @ w.float().t() for w in ws]
         err = max((a.float() - w).abs().max().item() for a, w in zip(got, want))
         top = max(w.abs().max().item() for w in want)
         ms = _time_ms(lambda: attn.qkv_projection(x, *ws), 20)
-        bound = roofline.bound_ms(*roofline.projection_cost(b * s, c, h * 64),
+        bound = roofline.bound_ms(*roofline.projection_cost(b * s, c, h * d),
                                   roofline.PEAK_BF16)
         lib = _library_ms(lambda: F.linear(x, w_cat), 20)
-        print(f"K1 projection GEMM (B={b}, S={s}, C={c}, H={h}): max|err| {err:.5f} "
+        print(f"K1 projection GEMM (B={b}, S={s}, C={c}, H={h}, D={d}): max|err| {err:.5f} "
               f"(bound {PROJ_BOUND}), err/max|want| {err / top:.5f} (bound "
               f"{PROJ_REL_BOUND}); {ms:.4f} ms (bound {bound[0]:.4f} by {bound[1]}, "
               f"library {_fmt(lib)})", flush=True)
         if not (err <= PROJ_BOUND and err <= PROJ_REL_BOUND * top):
-            raise AssertionError(f"K1 projection GEMM at {(b, s, c, h)}: error {err} "
+            raise AssertionError(f"K1 projection GEMM at {(b, s, c, h, d)}: error {err} "
                                  f"above {PROJ_BOUND} or {PROJ_REL_BOUND} x {top}")
         del got, want
 
     # (label, record, kernel, plain version, library call given the attention
-    # function to use, (FLOP, bytes), iterations) at the shapes of
-    # gswm_torch/tools/paths.py
+    # function to use, (FLOP, bytes), iterations, the output's (B, S, H, D)
+    # view or None) at the shapes of gswm_torch/tools/paths.py.  Costs count
+    # the true head dim, not the panels the kernels pad it to
     cases = []
-    for b, s, c, h in paths.K1_SHAPES:
+    for b, s, c, h, d in paths.K1_SHAPES:
         x = rand(b, s, c)
-        ws = [rand(h * 64, c, scale=c**-0.5) for _ in range(3)]
+        ws = [rand(h * d, c, scale=c**-0.5) for _ in range(3)]
         w_cat = torch.cat(ws)
 
-        def k1_library(sdpa, x=x, w_cat=w_cat, b=b, s=s, h=h):
-            q, k, v = F.linear(x, w_cat).split(h * 64, dim=-1)
-            return sdpa(*(_heads_view(t, b, s, h) for t in (q, k, v)))
+        def k1_library(sdpa, x=x, w_cat=w_cat, b=b, s=s, h=h, d=d):
+            q, k, v = F.linear(x, w_cat).split(h * d, dim=-1)
+            return sdpa(*(_heads_view(t, b, s, h, d) for t in (q, k, v)))
 
-        cases.append((f"K1 fused_qkv (B={b}, S={s}, C={c}, H={h})",
+        cases.append((f"K1 fused_qkv (B={b}, S={s}, C={c}, H={h}, D={d})",
                       "fused_qkv_attention",
                       lambda x=x, ws=ws, h=h: attn.fused_qkv_attention(x, *ws, h),
                       lambda x=x, ws=ws, h=h: attn.fused_qkv_attention_reference(
                           x.float(), *(w.float() for w in ws), h),
-                      k1_library, roofline.fused_qkv_cost(b, s, c, h), 20))
-    for b, s, h in paths.K2_SHAPES:
-        q, k, v = (rand(b, s, h * 64) for _ in range(3))
-        cases.append((f"K2 flash (B={b}, S={s}, H={h})", "flash_attention",
+                      k1_library, roofline.fused_qkv_cost(b, s, c, h, d), 20,
+                      lambda t, b=b, s=s, h=h, d=d: t.view(b, s, h, d)))
+    for b, s, h, d in paths.K2_SHAPES:
+        q, k, v = (rand(b, s, h * d) for _ in range(3))
+        cases.append((f"K2 flash (B={b}, S={s}, H={h}, D={d})", "flash_attention",
                       lambda q=q, k=k, v=v, h=h: attn.flash_attention(q, k, v, h),
                       lambda q=q, k=k, v=v, h=h: attn.flash_attention_reference(
                           q.float(), k.float(), v.float(), h),
-                      lambda sdpa, q=q, k=k, v=v, b=b, s=s, h=h: sdpa(
-                          *(_heads_view(t, b, s, h) for t in (q, k, v))),
-                      roofline.attention_cost(b, s, s, h, 64), 10))
-    # K4: the split wrapper runs csrc/flash_split.cu from D = 128 up (512 in
-    # the VAE; 128 and 192, an odd panel count, beside it) and
-    # csrc/flash_hopper.cu at D = 64: a record for each
+                      lambda sdpa, q=q, k=k, v=v, b=b, s=s, h=h, d=d: sdpa(
+                          *(_heads_view(t, b, s, h, d) for t in (q, k, v))),
+                      roofline.attention_cost(b, s, s, h, d), 10,
+                      lambda t, b=b, s=s, h=h, d=d: t.view(b, s, h, d)))
+    # K4: the split wrapper runs csrc/flash_split.cu above D = 64 (512 in the
+    # VAE; 128 and 192, an odd panel count, beside it; SD 1.x's 80 and 160
+    # and 72 on padded panels) and csrc/flash_hopper.cu up to 64: a record
+    # for each
     for b, s, h, d in paths.K4_SHAPES:
         q, k, v = (rand(b, s, h, d) for _ in range(3))
         cases.append((f"K4 flash_split (B={b}, S={s}, H={h}, D={d})",
-                      "flash_attention_split_d64" if d == 64 else "flash_attention_split",
+                      "flash_attention_split_d64" if d <= 64 else "flash_attention_split",
                       lambda q=q, k=k, v=v: attn.flash_attention_split(q, k, v),
                       lambda q=q, k=k, v=v: attn.flash_attention_split_reference(
                           q.float(), k.float(), v.float()),
                       lambda sdpa, q=q, k=k, v=v: sdpa(
                           *(t.transpose(1, 2) for t in (q, k, v))),
-                      roofline.attention_cost(b, s, s, h, d), 10))
+                      roofline.attention_cost(b, s, s, h, d), 10, lambda t: t))
     # K6 and K7: UNet level 0 under their switches (5 heads: 3 pairs, the
     # last half a zero pad head).  The library call reads the kernel's own
     # layout through strided views (K6's with the pad head, K7's with a last
@@ -530,7 +585,7 @@ def phase_kernels(gn_cases) -> dict:
                       lambda sdpa, qkv=qkv, pairs=pairs: sdpa(
                           *(t.unflatten(-1, (2 * pairs, 64)).transpose(1, 2)
                             for t in qkv.split(pairs * 128, dim=-1))),
-                      roofline.attention_cost(b, s, s, h, 64), 10))
+                      roofline.attention_cost(b, s, s, h, 64), 10, None))
     # K7's last shape (S % 8 != 0) takes its masked kernel, the rest the
     # wgmma + TMA one
     for b, s, h in paths.K7_SHAPES:
@@ -542,12 +597,14 @@ def phase_kernels(gn_cases) -> dict:
                           qkv_t.float(), h),
                       lambda sdpa, qkv_t=qkv_t, b=b, s=s, h=h: sdpa(
                           *qkv_t.view(3, h, 64, b, s).permute(0, 3, 1, 4, 2)),
-                      roofline.attention_cost(b, s, s, h, 64), 10))
-    for label, name, kernel, plain_fn, library_fn, cost, iters in cases:
+                      roofline.attention_cost(b, s, s, h, 64), 10, None))
+    for label, name, kernel, plain_fn, library_fn, cost, iters, heads in cases:
         got = kernel().float()
         want = plain_fn()
         err = (got - want).abs().max().item()
         top = want.abs().max().item()
+        if heads is not None:  # every head on its own scale
+            _check_every_head(label, heads(got), heads(want))
         ms = _time_ms(kernel, iters)
         plain = _time_ms(plain_fn, 3)
         bound = roofline.bound_ms(*cost, roofline.PEAK_BF16)
@@ -611,16 +668,25 @@ def _wrappers() -> dict:
 
 def _counters() -> dict:
     """Each wrapper's launches; and, of the split wrapper's, those at
-    D = 64, which another kernel runs."""
+    D <= 64 (the record "flash_attention_split_d64"), which another kernel,
+    csrc/flash_hopper.cu, runs."""
     counts = {name: fn.launches for name, fn in _wrappers().items()}
-    counts["flash_attention_split_d64"] = _wrappers()["flash_attention_split"].launches_d64
+    counts["flash_attention_split_d64"] = sum(
+        n for d, n in _wrappers()["flash_attention_split"].launches_by_d.items() if d <= 64)
     return counts
 
 
+def _counters_by_d() -> dict:
+    """The attention wrappers' launches by head dim."""
+    return {name: dict(fn.launches_by_d) for name, fn in _wrappers().items()
+            if name in ATTENTION_COUNTERS}
+
+
 def _reset_counters() -> None:
-    for fn in _wrappers().values():
+    for name, fn in _wrappers().items():
         fn.launches = 0
-    _wrappers()["flash_attention_split"].launches_d64 = 0
+        if name in ATTENTION_COUNTERS:
+            fn.launches_by_d = {}
 
 
 def _clear_keystream_caches() -> None:
@@ -709,7 +775,7 @@ def phase_extraction_512(card: str) -> dict:
                              "keeps the plain path")
     # (a) generate + invert, (b) two inversions: 4 x STEPS UNet forwards
     _check_unet_launches(counts, 4 * STEPS)
-    return counts, pipe
+    return counts, pipe, BATCH / walls[1]
 
 
 def build_pipeline_768():
@@ -1254,12 +1320,139 @@ def phase_sdxl(card: str) -> dict:
     return counts
 
 
+def _by_d_since(before: dict) -> dict:
+    """The attention launches by head dim since ``before`` (_counters_by_d),
+    the wrappers that launched none left out."""
+    now = _counters_by_d()
+    made = {name: {d: n - before[name].get(d, 0) for d, n in per.items()
+                   if n != before[name].get(d, 0)} for name, per in now.items()}
+    return {name: per for name, per in made.items() if per}
+
+
+def phase_sd14(card: str, rate_3b: float) -> dict:
+    """sd-1-4 at 512x512, batch 4: the latent closed loop, the watermark
+    chain, one UNet forward under three switch sets, the forward's time."""
+    from gswm_torch import recover_message_bits
+    from gswm_torch.models.layers import Attention
+
+    dev = "cuda"
+    b, res = paths.BATCH_SD14, paths.RES_512
+    t0 = time.perf_counter()
+    pipe = paths.build_pipeline("sd-1-4")
+    torch.cuda.synchronize()
+    n_unet = sum(p.numel() for p in pipe.unet.parameters())
+    widths = sorted({m.head_dim for m in pipe.unet.modules() if isinstance(m, Attention)})
+    print(f"10. pipeline: sd-1-4, UNet {n_unet / 1e6:.1f}M params, heads {widths} wide, "
+          f"built in {time.perf_counter() - t0:.2f} s", flush=True)
+    cfg = paths.config(res, "gswm_torch sd14")
+    ids = paths.prompt_ids(pipe, b)
+
+    torch.cuda.reset_peak_memory_stats()
+    _clear_keystream_caches()
+    _reset_counters()
+    # (a) the latent closed loop
+    zt, msg = paths.embed(cfg, b, 71)
+    x0 = pipe.generate(zt, guidance_scale=1.0, num_steps=STEPS, decode=False)
+    z_back = pipe.invert(latents=x0, num_steps=STEPS)
+    acc = _bit_accuracy(recover_message_bits(z_back, cfg), msg, dev)
+    sign = ((z_back > 0) == (zt > 0)).float().mean().item()
+    print(f"(a) SD 1.x closed loop, batch {b}, {res}x{res}, {STEPS}+{STEPS} steps: bit "
+          f"accuracy {acc}, element sign agreement {sign:.4f}", flush=True)
+    if min(acc) < MIN_BIT_ACC:
+        raise AssertionError(f"SD 1.x closed-loop bit accuracy {acc} below {MIN_BIT_ACC}")
+    forwards = 2 * STEPS
+
+    # (b) the watermark chain, twice (the second pass is timed)
+    for attempt in (1, 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        images, msg = paths.generate_watermarked(pipe, cfg, ids, 80 + attempt, b)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        bits, z_t = pipe.extract_bits(cfg, images=images, num_steps=STEPS)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        forwards += 2 * STEPS
+        if attempt == 1:
+            first = (t1 - t0, t2 - t1)
+    if tuple(images.shape) != (b, 3, res, res):
+        raise AssertionError(f"SD 1.x images shape {tuple(images.shape)}")
+    if not torch.isfinite(images).all() or images.min() < 0 or images.max() > 1:
+        raise AssertionError("SD 1.x images not finite in [0, 1]")
+    if tuple(bits.shape) != (b, 256) or not torch.isfinite(z_t).all():
+        raise AssertionError(f"SD 1.x bits shape {tuple(bits.shape)} or non-finite z_T")
+    counts, by_d = _counters(), _counters_by_d()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"(b) SD 1.x watermark chain, batch {b}: bit accuracy "
+          f"{_bit_accuracy(bits, msg, dev)} (no limit: random VAE weights); generation "
+          f"(prompt through CLIP-L, {STEPS}-step DDIM at guidance 7.5, VAE decode) "
+          f"{t1 - t0:.4f} s = {b / (t1 - t0):.4f} images/s; extraction (VAE encode, "
+          f"{STEPS}-step inversion, decode) {t2 - t1:.4f} s = {b / (t2 - t1):.4f} images/s "
+          f"(sd-2-1-base's extraction chain in phase 3b: {rate_3b:.4f} images/s); first "
+          f"pass {first[0]:.4f} + {first[1]:.4f} s; peak device memory {peak:.2f} GiB; on "
+          f"{card}", flush=True)
+    print(f"launches on the SD 1.x path: {({k: v for k, v in counts.items() if v})}; by "
+          f"head dim {({k: v for k, v in by_d.items() if v})}", flush=True)
+    want = {name: {d: n * forwards for d, n in per.items()}
+            for name, per in SD14_PER_FORWARD.items()}
+    if {name: per for name, per in by_d.items() if per} != want:
+        raise AssertionError(f"SD 1.x launches by head dim {by_d} for {forwards} UNet "
+                             f"forwards, want {want}")
+    if counts["chacha20"] != 1 or counts["chacha20_batch"] or counts["fused_group_norm"]:
+        raise AssertionError(f"SD 1.x launches {counts}: K3 once after the caches were "
+                             "cleared, the batch kernel and K8 never")
+
+    # (c) one forward under three switch sets against the default route's
+    inputs = paths.unet_inputs(pipe, b, res=res)
+
+    def forward():
+        with torch.inference_mode():
+            return pipe.unet(*inputs)
+
+    with paths.route_switches({}):
+        before = _counters_by_d()
+        default = forward()
+        torch.cuda.synchronize()
+        made = _by_d_since(before)
+    top = default.abs().max().item()
+    if made != SD14_PER_FORWARD or not torch.isfinite(default).all():
+        raise AssertionError(f"one SD 1.x forward launched {made}, or its output is "
+                             "not finite")
+    for label, per_forward in SD14_TIER_LAUNCHES.items():
+        switches = paths.TIER_SWITCHES[label]
+        with paths.route_switches(switches):
+            before = _counters_by_d()
+            out = forward()
+            torch.cuda.synchronize()
+            made = _by_d_since(before)
+        diff = (out - default).abs().max().item()
+        env = " ".join(f"{k}={v}" for k, v in switches.items())
+        print(f"(c, {label}) {env}: max|out - default| {diff:.5f}, relative "
+              f"{diff / top:.5f} (bound {TIER_REL_BOUND}); launches by head dim {made}",
+              flush=True)
+        if made != per_forward:
+            raise AssertionError(f"({label}) SD 1.x launches {made}, want {per_forward}")
+        if not diff <= TIER_REL_BOUND * top:
+            raise AssertionError(f"({label}) SD 1.x UNet output {diff} from the default "
+                                 f"route's, above {TIER_REL_BOUND} x {top}")
+    counts = _counters()
+
+    # (d) one UNet forward, batch 4 and 8 (guidance), outside the counted run
+    for batch in (b, 2 * b):
+        inputs = paths.unet_inputs(pipe, batch, res=res)
+        ms = _time_ms(forward, 10)
+        print(f"(d) SD 1.x UNet forward, batch {batch}, {res}x{res}: {ms:.4f} ms; on "
+              f"{card}", flush=True)
+    del pipe
+    return counts
+
+
 def main() -> None:
     card = phase_card()
     phase_build()
     pipe_768 = build_pipeline_768()
     records = phase_kernels(paths.groupnorm_cases(pipe_768))
-    counts_512, pipe_512 = phase_extraction_512(card)
+    counts_512, pipe_512, rate_3b = phase_extraction_512(card)
     counts_768 = phase_generation_768(card, pipe_768)
     counts_tiers = phase_tiers(card, pipe_768)
     counts_gn = phase_groupnorm_op(pipe_768)
@@ -1269,9 +1462,11 @@ def main() -> None:
     del pipe_768
     torch.cuda.empty_cache()
     counts_sdxl = phase_sdxl(card)
+    torch.cuda.empty_cache()
+    counts_sd14 = phase_sd14(card, rate_3b)
     counts = {name: counts_512[name] + counts_768[name] + counts_tiers[name]
               + counts_gn[name] + counts_mk[name] + counts_bench[name]
-              + counts_sdxl[name] for name in counts_512}
+              + counts_sdxl[name] + counts_sd14[name] for name in counts_512}
     # the split wrapper's count, less what flash_hopper.cu ran of it
     counts["flash_attention_split"] -= counts["flash_attention_split_d64"]
     sources = {

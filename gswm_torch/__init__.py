@@ -4,10 +4,11 @@ CUDA kernels for Hopper (H100).
 The port of the JAX package ``gswm``, which stays beside it as the
 reference.  This package imports torch, numpy and scipy, never jax.  It
 covers watermarked generation (embed -> prompt-guided DDIM or DPM++ -> VAE
-decode) and extraction (VAE encode -> inversion -> decode) for the SD 2.x
-presets on the card in bfloat16, and for the SD 1.x presets on the CPU only
-(their head dims of 40, 80 and 160 have no kernel yet: ``InversablePipeline``
-refuses them on a CUDA device when it is built); per-user keys and
+decode) and extraction (VAE encode -> inversion -> decode) for the SD 1.x,
+SD 2.x and SDXL presets on the card in bfloat16 (the attention kernels take
+head dims d % 8 == 0 up to 512: SD 1.x's 40, 80 and 160, 64 elsewhere;
+``InversablePipeline`` refuses other dtypes and head dims on a CUDA device
+when it is built) and on the CPU in any dtype; per-user keys and
 traceability (``core.multikey``, ``eval.trace``, ``eval.registry``); the
 robustness bench (``distortions``, ``eval.sweep``) and the Tree-Ring toolkit
 (``treering``).  On the layout of ``gswm``:

@@ -1,17 +1,21 @@
-// Flash attention at head dim 64 for Hopper: wgmma, TMA and mbarriers.
-// q, out: (B, Sq, H, 64); k, v: (B, Sk, H, 64); bf16, any Sq and Sk, a row
-// pitch and a base pointer per operand.
+// Flash attention at head dims up to 64 for Hopper: wgmma, TMA and mbarriers.
+// q, out: (B, Sq, H, d); k, v: (B, Sk, H, d); bf16, d % 8 == 0, 8 <= d <= 64,
+// any Sq and Sk, a row pitch and a base pointer per operand.  The kernel
+// computes on one 64-column panel a head: its tensor maps are over the true
+// d (hopper.cuh head_map), so columns d ... 63 arrive as zeros and the
+// store drops them.
 //
-// Replaces, at D = 64, every TPU kernel the split kernel of flash_split.cu
+// Replaces, at d <= 64, every TPU kernel the split kernel of flash_split.cu
 // served there:
 //   * gswm/ops/attention.py:1211 flash_attention_cres (_flash_kernel_cres)
 //     and the default xla_flash_attention (:1540): the UNet's level-0
-//     self-attention, 4096 tokens at 512x512 and 9216 at 768x768, 5 heads
-//     (ops.attention.flash_attention, gswm_flash_split);
+//     self-attention, 4096 tokens at 512x512 and 9216 at 768x768, 5 heads of
+//     64 (SD 2.x), 8 heads of 40 (SD 1.x) (ops.attention.flash_attention,
+//     gswm_flash_split);
 //   * the attention core of gswm/ops/attention.py:689
 //     flash_attention_fused_qkv (_fused_qkv_kernel, _attend_kv_loop), after
 //     the projection GEMM of fused_qkv.cu;
-//   * gswm/ops/attention.py:414 flash_attention (_flash_bhsd) at D = 64;
+//   * gswm/ops/attention.py:414 flash_attention (_flash_bhsd) at d <= 64;
 //   * gswm/ops/attention.py:959 flash_attention_packed (_flash_kernel_pair,
 //     _pair_kvres, _pair_streamk): q, k and v are three strided
 //     (B, S, 2P, 64) views of one (B, S, 3 * P * 128) array, so
@@ -23,11 +27,16 @@
 // (_attend_kv_loop): q scaled by D^-0.5 in fp32 and rounded to bf16, fp32
 // logits, an exact running row max, p = exp(s - m) rounded to bf16 for the
 // PV product, fp32 row sums of the rounded p, an fp32 accumulator; keys at
-// or past Sk are masked, rows at or past Sq are never written.  At D = 64
+// or past Sk are masked, rows at or past Sq are never written.  At d = 64
 // the scale is 2^-3: scaling q and rounding to bf16 is exact, and so is
 // scaling the fp32 logits instead, which is what the kernel does, folded
 // with log2(e) into the exponent's one multiply-add (p = exp2(s * c - m * c),
-// the reference's GSWM_ATTN_EXP2 reparametrisation).
+// the reference's GSWM_ATTN_EXP2 reparametrisation).  At any other d, d^-0.5
+// is no power of two (d = 40: 0.158...): each consumer scales its q tile in
+// shared memory once it has landed (fp32 multiply, rounded to bf16, as
+// xla_flash_attention and flash_split.cu do) and the exponent folds log2(e)
+// alone.  That pass is a template switch, so the d = 64 kernel is what it
+// was.
 //
 // What bounds it on an H100: (B, S, H) = (2, 9216, 5) is 4 * B * H * S^2 *
 // 64 = 217 GFLOP over 47 MB of q, k, v and out, ~4,600 FLOP a byte: the
@@ -74,7 +83,7 @@ namespace {
 
 using namespace gswm_hopper;
 
-constexpr int D = 64;
+constexpr int D = 64;      // the panel: one head of d <= 64 columns, zero-padded
 constexpr int BM = 64;    // query rows per consumer warpgroup
 constexpr int BN = 128;   // keys per tile
 constexpr int STAGES = 2;
@@ -93,13 +102,16 @@ struct Smem {
   uint64_t empty[STAGES];  // every consumer warp is done with the stage's k and v
 };
 
-// Grid (query blocks, H, B).  exp_scale = D^-0.5 * log2(e).
-template <int NWG>
+// Grid (query blocks, H, B).  SCALE_Q: q is scaled by q_scale = d^-0.5 in
+// shared memory and exp_scale = log2(e); else (d = 64) exp_scale = 2^-3 *
+// log2(e) and q_scale is not read.
+template <int NWG, bool SCALE_Q>
 __global__ void __launch_bounds__((NWG + 1) * 128, NWG == 1 ? 2 : 1)
 flash_hopper_kernel(const __grid_constant__ CUtensorMap map_q,
                     const __grid_constant__ CUtensorMap map_k,
                     const __grid_constant__ CUtensorMap map_v,
-                    const __grid_constant__ CUtensorMap map_o, int Sk, float exp_scale) {
+                    const __grid_constant__ CUtensorMap map_o, int Sk, float exp_scale,
+                    float q_scale) {
   extern __shared__ unsigned char smem_raw[];
   Smem<NWG>& sm = *reinterpret_cast<Smem<NWG>*>(align_smem(smem_raw));
 
@@ -158,6 +170,11 @@ flash_hopper_kernel(const __grid_constant__ CUtensorMap map_q,
 
     const uint64_t dq = smem_desc_sw128(sm.q[cw]);
     mbar_wait(&sm.full_q, 0);
+    if constexpr (SCALE_Q) {  // this warpgroup's own q tile
+      scale_tile(sm.q[cw], BM * D, q_scale, threadIdx.x & 127, 128);
+      fence_async_smem();
+      named_barrier(1 + cw, 128);
+    }
 
     int stage = 0;
     uint32_t phase = 0;
@@ -207,32 +224,34 @@ flash_hopper_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-template <int NWG>
+template <int NWG, bool SCALE_Q>
 cudaError_t launch(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
-                   const CUtensorMap& mo, int B, int Sq, int Sk, int H,
+                   const CUtensorMap& mo, int B, int Sq, int Sk, int H, int d,
                    cudaStream_t stream) {
   constexpr int smem = (int)sizeof(Smem<NWG>) + SWIZZLE_SPAN;
-  cudaError_t e = cudaFuncSetAttribute(flash_hopper_kernel<NWG>,
+  cudaError_t e = cudaFuncSetAttribute(flash_hopper_kernel<NWG, SCALE_Q>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   dim3 grid((Sq + NWG * BM - 1) / (NWG * BM), H, B);
-  flash_hopper_kernel<NWG><<<grid, (NWG + 1) * 128, smem, stream>>>(
-      mq, mk, mv, mo, Sk, 0.125f * 1.4426950408889634f);
+  const float log2e = 1.4426950408889634f;
+  flash_hopper_kernel<NWG, SCALE_Q><<<grid, (NWG + 1) * 128, smem, stream>>>(
+      mq, mk, mv, mo, Sk, SCALE_Q ? log2e : 0.125f * log2e, 1.0f / sqrtf((float)d));
   return cudaGetLastError();
 }
 
 }  // namespace
 
 cudaError_t gswm_launch_flash_hopper(const bf16* q, const bf16* k, const bf16* v, bf16* out,
-                                     int B, int Sq, int Sk, int H, int ld_q, int ld_kv,
-                                     int ld_o, cudaStream_t stream) {
-  if (B < 1 || Sq < 1 || Sk < 1 || H < 1 || B > 65535 || H > 65535)
+                                     int B, int Sq, int Sk, int H, int d, int ld_q,
+                                     int ld_kv, int ld_o, cudaStream_t stream) {
+  if (B < 1 || Sq < 1 || Sk < 1 || H < 1 || B > 65535 || H > 65535 || d < 8 || d % 8 ||
+      d > D)
     return cudaErrorInvalidValue;
   CUtensorMap mq, mk, mv, mo;
-  cudaError_t e = head_map(&mq, q, B, Sq, H, ld_q, BM);
-  if (e == cudaSuccess) e = head_map(&mk, k, B, Sk, H, ld_kv, BN);
-  if (e == cudaSuccess) e = head_map(&mv, v, B, Sk, H, ld_kv, BN);
-  if (e == cudaSuccess) e = head_map(&mo, out, B, Sq, H, ld_o, BM);
+  cudaError_t e = head_map(&mq, q, B, Sq, H, d, ld_q, BM);
+  if (e == cudaSuccess) e = head_map(&mk, k, B, Sk, H, d, ld_kv, BN);
+  if (e == cudaSuccess) e = head_map(&mv, v, B, Sk, H, d, ld_kv, BN);
+  if (e == cudaSuccess) e = head_map(&mo, out, B, Sq, H, d, ld_o, BM);
   if (e != cudaSuccess) return e;
   // 128-row blocks unless they would leave SMs of this card without one
   int dev = 0, sm_count = 0;
@@ -241,8 +260,12 @@ cudaError_t gswm_launch_flash_hopper(const bf16* q, const bf16* k, const bf16* v
     e = cudaDeviceGetAttribute(&sm_count, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
   const long blocks128 = (long)((Sq + 2 * BM - 1) / (2 * BM)) * H * B;
-  return blocks128 >= sm_count ? launch<2>(mq, mk, mv, mo, B, Sq, Sk, H, stream)
-                               : launch<1>(mq, mk, mv, mo, B, Sq, Sk, H, stream);
+  const bool wide = blocks128 >= sm_count;
+  if (d == D)  // the 2^-3 scale folded into the exponent, exact
+    return wide ? launch<2, false>(mq, mk, mv, mo, B, Sq, Sk, H, d, stream)
+                : launch<1, false>(mq, mk, mv, mo, B, Sq, Sk, H, d, stream);
+  return wide ? launch<2, true>(mq, mk, mv, mo, B, Sq, Sk, H, d, stream)
+              : launch<1, true>(mq, mk, mv, mo, B, Sq, Sk, H, d, stream);
 }
 
 // Pair-packed self-attention: qkv (B, S, 3 * P * 128) with q, k and v at
@@ -254,6 +277,6 @@ extern "C" int gswm_flash_packed(const void* qkv, void* out, int B, int S, int P
   const bf16* q = static_cast<const bf16*>(qkv);
   const int width = P * 128;
   return static_cast<int>(gswm_launch_flash_hopper(
-      q, q + width, q + 2 * width, static_cast<bf16*>(out), B, S, S, 2 * P, 3 * width,
+      q, q + width, q + 2 * width, static_cast<bf16*>(out), B, S, S, 2 * P, D, 3 * width,
       3 * width, width, static_cast<cudaStream_t>(stream)));
 }

@@ -1,6 +1,9 @@
-// Split flash attention on (B, S, H, D) bf16 q/k/v, D a multiple of 64 up
-// to 512, any Sq and Sk.  D = 64 goes to the kernel of flash_hopper.cu; the
-// kernel in this file runs D = 128 ... 512 on wgmma, TMA and mbarriers.
+// Split flash attention on (B, S, H, d) bf16 q/k/v, any head dim d with
+// d % 8 == 0 up to 512, any Sq and Sk.  d <= 64 goes to the kernel of
+// flash_hopper.cu; the kernel in this file runs 64 < d <= 512 on wgmma, TMA
+// and mbarriers, instantiated at the panel widths D = 128 ... 512 (D = d
+// rounded up to a multiple of 64: d = 80 runs the 128-wide kernel, 160 the
+// 192-wide one).
 //
 // Replaces gswm/ops/attention.py:414 flash_attention -> _flash_bhsd (:250),
 // whose three Pallas tiers (_flash_kernel :212 head-resident,
@@ -8,12 +11,13 @@
 // streaming K/V) are VMEM-fit choices of one computation.  Its user on the
 // port's path is the VAE mid-block attention above 4096 tokens: one head with
 // D = C = 512 over 9216 tokens at 768x768, in the encoder and the decoder
-// (gswm/models/layers.py:692-725).  The JAX wrapper transposes to
+// (gswm/models/layers.py:692-725), and the core of SD 1.x's fused-qkv
+// self-attention (fused_qkv.cu) at d = 80 and 160.  The JAX wrapper transposes to
 // (B*H, S, D) and pads to its blocks; here q/k/v are read strided in their
 // natural layout, ragged keys are masked and ragged query rows dropped.
 //
 // Semantics: the `use_max` branch of the TPU kernels' recurrence
-// (_attend_kv_loop / _flash_kernel_streamk): q scaled by D^-0.5 in fp32 and
+// (_attend_kv_loop / _flash_kernel_streamk): q scaled by d^-0.5 in fp32 and
 // rounded to bf16, fp32 logits, an exact running row max, p = exp(s - m)
 // rounded to bf16 for the PV product, fp32 row sums of the rounded p and an
 // fp32 accumulator.  The TPU bf16 path drops the max and clamps logits at
@@ -38,13 +42,16 @@
 //     128 accumulator registers a thread; 2 + 1 at D = 192).
 //   * Tiles are sets of 64 x 64 panels in hopper.cuh's one layout (rows of
 //     128 bytes under the 128-byte swizzle), one TMA box each: the tensor
-//     maps fold the panel into the head coordinate, (64, H * D / 64, S, B),
-//     so a tile never crosses into the next batch and rows past S arrive as
-//     zeros.
-//   * The scale D^-0.5 is no power of two here, so the stated semantics are
-//     kept literally: once the q tile has landed, the consumers scale it in
-//     shared memory (fp32 multiply, rounded to bf16; the swizzle permutes
-//     16-byte chunks, an elementwise pass does not care).
+//     maps are (d, H, S, B) over the true head width and panel j is the box
+//     at x = 64 j, so a tile never crosses into the next batch or head, rows
+//     past S arrive as zeros, and so do the columns from d to D (the last
+//     panel of d = 80 holds 16 real columns, of d = 160 32).  Zero columns
+//     add nothing to the logits and give zero output columns, which the
+//     store drops.  A transaction still counts the whole box.
+//   * The scale d^-0.5 (the true d, not the panel width) is no power of two
+//     here, so the stated semantics are kept literally: once the q tile has
+//     landed, the consumers scale it in shared memory (hopper.cuh
+//     scale_tile: fp32 multiply, rounded to bf16).
 //   * S = q k^T reduces over all of D, so each consumer needs the whole
 //     64 x 64 logits tile: both compute it (D / 16 wgmma m64n64k16, q and k
 //     panels K-major from shared memory).  The product is done twice (1.5x
@@ -89,7 +96,8 @@ constexpr int MAX_STAGES = 4;
 
 template <int D>
 struct Tile {
-  static_assert(D % 64 == 0 && D >= 128 && D <= 512, "D is a multiple of 64, 128 to 512");
+  static_assert(D % 64 == 0 && D >= 128 && D <= 512,
+                "the panel width D is a multiple of 64, 128 to 512");
   static constexpr int NP = D / 64;          // panels of a row
   static constexpr int NP0 = (NP + 1) / 2;   // consumer 0's; consumer 1 takes the rest
   static constexpr int ELEMS = NP * PANEL;   // a 64-row tile of q, k or v
@@ -137,21 +145,9 @@ __device__ __forceinline__ void consume(Smem<D>& sm, const CUtensorMap* map_o, i
   float m_lo = -INFINITY, m_hi = -INFINITY;  // running max of the logits
   float l_lo = 0.0f, l_hi = 0.0f;            // this thread's share of the row sums
 
-  // q scaled by D^-0.5 in fp32 and rounded to bf16, by both consumers
+  // q scaled by d^-0.5 in fp32 and rounded to bf16, by both consumers
   mbar_wait(&sm.full_q, 0);
-  {
-    uint4* qv = reinterpret_cast<uint4*>(sm.q);
-    for (int i = threadIdx.x - 128; i < Tile<D>::ELEMS / 8; i += CONSUMERS * 128) {
-      uint4 w = qv[i];
-      __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&w);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 f = __bfloat1622float2(h2[e]);
-        h2[e] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
-      }
-      qv[i] = w;
-    }
-  }
+  scale_tile(sm.q, Tile<D>::ELEMS, scale, threadIdx.x - 128, CONSUMERS * 128);
   fence_async_smem();
   named_barrier(1, CONSUMERS * 128);
 
@@ -215,12 +211,12 @@ __device__ __forceinline__ void consume(Smem<D>& sm, const CUtensorMap* map_o, i
   if ((threadIdx.x & 127) == 0) {
 #pragma unroll
     for (int j = 0; j < PN; ++j)
-      tma_store_4d(map_o, sm.q + (P0 + j) * PANEL, 0, h * NP + P0 + j, row0, b);
+      tma_store_4d(map_o, sm.q + (P0 + j) * PANEL, (P0 + j) * ROW_ELEMS, h, row0, b);
     tma_store_wait();
   }
 }
 
-// Grid (query blocks of 64 rows, H, B).  scale = D^-0.5.
+// Grid (query blocks of 64 rows, H, B).  scale = d^-0.5 of the true d <= D.
 template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_split_kernel(const __grid_constant__ CUtensorMap map_q,
@@ -256,19 +252,19 @@ flash_split_kernel(const __grid_constant__ CUtensorMap map_q,
       const int tiles = (Sk + BN - 1) / BN;
       mbar_expect_tx(&sm.full_q, Tile<D>::BYTES);
       for (int j = 0; j < NP; ++j)
-        tma_load_4d(sm.q + j * PANEL, &map_q, &sm.full_q, 0, h * NP + j, row0, b);
+        tma_load_4d(sm.q + j * PANEL, &map_q, &sm.full_q, j * ROW_ELEMS, h, row0, b);
       int stage = 0;
       uint32_t phase = 0;
       for (int t = 0; t < tiles; ++t) {
         mbar_wait(&sm.empty_k[stage], phase ^ 1);
         mbar_expect_tx(&sm.full_k[stage], Tile<D>::BYTES);
         for (int j = 0; j < NP; ++j)
-          tma_load_4d(sm.k[stage] + j * PANEL, &map_k, &sm.full_k[stage], 0, h * NP + j,
+          tma_load_4d(sm.k[stage] + j * PANEL, &map_k, &sm.full_k[stage], j * ROW_ELEMS, h,
                       t * BN, b);
         mbar_wait(&sm.empty_v[stage], phase ^ 1);
         mbar_expect_tx(&sm.full_v[stage], Tile<D>::BYTES);
         for (int j = 0; j < NP; ++j)
-          tma_load_4d(sm.v[stage] + j * PANEL, &map_v, &sm.full_v[stage], 0, h * NP + j,
+          tma_load_4d(sm.v[stage] + j * PANEL, &map_v, &sm.full_v[stage], j * ROW_ELEMS, h,
                       t * BN, b);
         if (++stage == STAGES) {
           stage = 0;
@@ -285,28 +281,27 @@ flash_split_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
+// d, the true head dim: D - 64 < d <= D, d % 8 == 0.
 template <int D>
 cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* out, int B, int Sq,
-                   int Sk, int H, cudaStream_t stream) {
-  constexpr int NP = Tile<D>::NP;
+                   int Sk, int H, int d, cudaStream_t stream) {
   constexpr int smem = (int)sizeof(Smem<D>) + SWIZZLE_SPAN;
   static_assert(smem <= SMEM_LIMIT, "above the 227 KB a block may opt into");
   static_assert(PANEL_BYTES % SWIZZLE_SPAN == 0, "panels keep the tiles' alignment");
-  // natural layout: q, k, v and out share one row pitch; the panels of all
-  // heads are the map's H * D / 64 "heads" of 64 columns
-  const int ld = H * D;
+  // natural layout: q, k, v and out share one row pitch of H heads of d
+  const int ld = H * d;
   CUtensorMap mq, mk, mv, mo;
-  cudaError_t e = head_map(&mq, q, B, Sq, H * NP, ld, BM);
-  if (e == cudaSuccess) e = head_map(&mk, k, B, Sk, H * NP, ld, BN);
-  if (e == cudaSuccess) e = head_map(&mv, v, B, Sk, H * NP, ld, BN);
-  if (e == cudaSuccess) e = head_map(&mo, out, B, Sq, H * NP, ld, BM);
+  cudaError_t e = head_map(&mq, q, B, Sq, H, d, ld, BM);
+  if (e == cudaSuccess) e = head_map(&mk, k, B, Sk, H, d, ld, BN);
+  if (e == cudaSuccess) e = head_map(&mv, v, B, Sk, H, d, ld, BN);
+  if (e == cudaSuccess) e = head_map(&mo, out, B, Sq, H, d, ld, BM);
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(flash_split_kernel<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   dim3 grid((Sq + BM - 1) / BM, H, B);
   flash_split_kernel<D><<<grid, THREADS, smem, stream>>>(mq, mk, mv, mo, Sk,
-                                                         1.0f / sqrtf((float)D));
+                                                         1.0f / sqrtf((float)d));
   return cudaGetLastError();
 }
 
@@ -315,25 +310,28 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* out, int B
 cudaError_t gswm_launch_flash_split(const bf16* q, const bf16* k, const bf16* v,
                                     bf16* out, int B, int Sq, int Sk, int H, int D,
                                     cudaStream_t stream) {
-  if (B < 1 || Sq < 1 || Sk < 1 || H < 1 || B > 65535 || H > 65535)
+  if (B < 1 || Sq < 1 || Sk < 1 || H < 1 || B > 65535 || H > 65535 || D < 8 || D % 8 ||
+      D > 512)
     return cudaErrorInvalidValue;
-  switch (D) {
-    case 64:
-      return gswm_launch_flash_hopper(q, k, v, out, B, Sq, Sk, H, H * D, H * D, H * D,
-                                      stream);
-    case 128: return launch<128>(q, k, v, out, B, Sq, Sk, H, stream);
-    case 192: return launch<192>(q, k, v, out, B, Sq, Sk, H, stream);
-    case 256: return launch<256>(q, k, v, out, B, Sq, Sk, H, stream);
-    case 320: return launch<320>(q, k, v, out, B, Sq, Sk, H, stream);
-    case 384: return launch<384>(q, k, v, out, B, Sq, Sk, H, stream);
-    case 448: return launch<448>(q, k, v, out, B, Sq, Sk, H, stream);
-    case 512: return launch<512>(q, k, v, out, B, Sq, Sk, H, stream);
+  if (D <= ROW_ELEMS)
+    return gswm_launch_flash_hopper(q, k, v, out, B, Sq, Sk, H, D, H * D, H * D, H * D,
+                                    stream);
+  // the panel width: D rounded up to a multiple of 64
+  switch ((D + ROW_ELEMS - 1) / ROW_ELEMS * ROW_ELEMS) {
+    case 128: return launch<128>(q, k, v, out, B, Sq, Sk, H, D, stream);
+    case 192: return launch<192>(q, k, v, out, B, Sq, Sk, H, D, stream);
+    case 256: return launch<256>(q, k, v, out, B, Sq, Sk, H, D, stream);
+    case 320: return launch<320>(q, k, v, out, B, Sq, Sk, H, D, stream);
+    case 384: return launch<384>(q, k, v, out, B, Sq, Sk, H, D, stream);
+    case 448: return launch<448>(q, k, v, out, B, Sq, Sk, H, D, stream);
+    case 512: return launch<512>(q, k, v, out, B, Sq, Sk, H, D, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // q, out: (B, Sq, H, D); k, v: (B, Sk, H, D); bf16 device pointers, rows
-// 16-byte aligned.  out = softmax(q k^T / sqrt(D)) v per (batch, head).
+// 16-byte aligned; D % 8 == 0, 8 <= D <= 512.  out = softmax(q k^T /
+// sqrt(D)) v per (batch, head).
 extern "C" int gswm_flash_split(const void* q, const void* k, const void* v, void* out,
                                 int B, int Sq, int Sk, int H, int D, void* stream) {
   return static_cast<int>(gswm_launch_flash_split(

@@ -1,14 +1,16 @@
 // Fused-qkv self-attention: q/k/v projections in a hand-written GEMM, then
-// the D = 64 flash-attention kernel of flash_hopper.cu.
+// the flash-attention kernel of the head dim: flash_hopper.cu up to 64 (SD
+// 2.x and SDXL: 64), flash_split.cu above (SD 1.x: 80 and 160).
 //
 // Replaces the Pallas TPU kernel gswm/ops/attention.py:
 // flash_attention_fused_qkv (body _fused_qkv_kernel, softmax core
 // _attend_kv_loop), which the UNet routes its self-attention to at 256..2304
-// tokens: levels 1 (1024 tokens, C=640, 10 heads) and 2 (256 tokens,
-// C=1280, 20 heads) at 512x512.  The TPU kernel projects x inside its own
-// body to avoid relayout copies between the projection and the attention;
-// here the projection is a separate launch that writes q, k and v directly
-// in the (B, S, H*64) layout the core reads, so no relayout exists either.
+// tokens: levels 1 (1024 tokens, C=640, 10 heads of 64 in SD 2.x, 8 of 80
+// in SD 1.x) and 2 (256 tokens, C=1280, 20 heads of 64 or 8 of 160) at
+// 512x512.  The TPU kernel projects x inside its own body to avoid relayout
+// copies between the projection and the attention; here the projection is a
+// separate launch that writes q, k and v directly in the (B, S, H*D) layout
+// the core reads, so no relayout exists either.
 //
 // What bounds it on an H100: at level 1, batch 4, the projections are
 // 4096 x 640 x 1920 x 2 = 10 GFLOP over 5 MB of x and 2.5 MB of weights, and
@@ -184,19 +186,20 @@ extern "C" int gswm_qkv_proj(const void* x, const void* wq, const void* wk, cons
       static_cast<cudaStream_t>(stream)));
 }
 
-// x: (B, S, C) bf16; wq/wk/wv: (H*64, C) bf16; q/k/v: (B, S, H*64) bf16
-// scratch the caller allocates; out: (B, S, H*64) bf16.
+// x: (B, S, C) bf16; wq/wk/wv: (H*D, C) bf16; q/k/v: (B, S, H*D) bf16
+// scratch the caller allocates; out: (B, S, H*D) bf16.  C and H*D are
+// multiples of 64 (the GEMM's), D % 8 == 0 and 8 <= D <= 512 (the core's).
 extern "C" int gswm_fused_qkv_attn(const void* x, const void* wq, const void* wk,
                                    const void* wv, void* q, void* k, void* v,
-                                   void* out, int B, int S, int C, int H,
+                                   void* out, int B, int S, int C, int H, int D,
                                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e = launch_qkv_proj(
       static_cast<const bf16*>(x), static_cast<const bf16*>(wq),
       static_cast<const bf16*>(wk), static_cast<const bf16*>(wv), static_cast<bf16*>(q),
-      static_cast<bf16*>(k), static_cast<bf16*>(v), B * S, C, H * 64, st);
+      static_cast<bf16*>(k), static_cast<bf16*>(v), B * S, C, H * D, st);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(gswm_launch_flash_split(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), B, S, S, H, 64, st));
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), B, S, S, H, D, st));
 }

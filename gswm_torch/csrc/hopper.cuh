@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the projection GEMM
-// (fused_qkv.cu) and the flash attention kernels (flash_hopper.cu at D = 64,
-// flash_split.cu at D = 128 ... 512, flash_transposed.cu on the transposed
+// (fused_qkv.cu) and the flash attention kernels (flash_hopper.cu at d <= 64,
+// flash_split.cu from 72 to 512, flash_transposed.cu on the transposed
 // layout): the TMA tensor-map encoder on the host; mbarrier, TMA load/store,
 // wgmma and setmaxnreg wrappers on the device; and the flash kernels' common
 // steps on a warpgroup's accumulator fragment (online softmax, rescale,
@@ -88,14 +88,18 @@ static inline cudaError_t encode_map(CUtensorMap* map, const void* base, int ran
   return cudaErrorInvalidValue;
 }
 
-// A (64, H, S, B) map over head rows of 64 bf16: head h of row s of batch b
-// starts at base + (b * S + s) * pitch + h * 64 elements; boxes of `rows`
-// rows of one head.  A head wider than 64 is D / 64 such heads side by side
-// (H * D / 64 in all): one box per 64-column panel.
+// A (d, H, S, B) map over head rows of d bf16 (d % 8 == 0, so every stride
+// is a multiple of 16 bytes): head h of row s of batch b starts at base +
+// (b * S + s) * pitch + h * d elements; boxes of 64 columns by `rows` rows of
+// one head.  Panel j of a head is the box at x = 64 * j: columns from d to
+// the panel's end arrive as zeros on a load and are dropped on a store, so a
+// head of any width is padded to whole 64-column panels by the copy itself,
+// and no box reaches into the next head.
 static inline cudaError_t head_map(CUtensorMap* map, const bf16* base, int B, int S, int H,
-                                   int pitch, int rows) {
-  const cuuint64_t dims[4] = {ROW_ELEMS, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {ROW_BYTES, (cuuint64_t)pitch * sizeof(bf16),
+                                   int d, int pitch, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)d * sizeof(bf16),
+                                 (cuuint64_t)pitch * sizeof(bf16),
                                  (cuuint64_t)S * pitch * sizeof(bf16)};
   const cuuint32_t box[4] = {ROW_ELEMS, 1, (cuuint32_t)rows, 1};
   return encode_map(map, base, 4, dims, strides, box);
@@ -450,6 +454,27 @@ static __device__ __forceinline__ void softmax_tile(float (&s)[4 * NG],
   }
   l_lo = l_lo * a_lo + sum_lo;
   l_hi = l_hi * a_hi + sum_hi;
+}
+
+// The n bf16 of a shared tile (n % 8 == 0, 16-byte aligned) times `scale` in
+// fp32, each rounded back to bf16: q scaled by d^-0.5 as the TPU kernels
+// scale it.  Thread `first` of `step` takes every step-th 16-byte chunk; the
+// swizzle permutes chunks, so an elementwise pass does not care, and the
+// zeros TMA filled in stay zeros.  Make the writes visible to wgmma
+// (fence_async_smem) and wait for the other threads before the tile is used.
+static __device__ __forceinline__ void scale_tile(bf16* tile, int n, float scale, int first,
+                                                  int step) {
+  uint4* chunks = reinterpret_cast<uint4*>(tile);
+  for (int i = first; i < n / 8; i += step) {
+    uint4 w = chunks[i];
+    __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&w);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(h2[e]);
+      h2[e] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
+    }
+    chunks[i] = w;
+  }
 }
 
 // The 64 x 64 accumulator fragment o with its lo rows times a_lo, hi rows

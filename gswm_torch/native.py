@@ -35,8 +35,8 @@ _SIGNATURES = {
     "gswm_chacha20_batch": [_VP, _VP, _I, _I, _VP],
     # x, wq, wk, wv, q, k, v, M, C, N, stream
     "gswm_qkv_proj": [_VP] * 7 + [_I, _I, _I, _VP],
-    # x, wq, wk, wv, q, k, v, out, B, S, C, H, stream
-    "gswm_fused_qkv_attn": [_VP] * 8 + [_I, _I, _I, _I, _VP],
+    # x, wq, wk, wv, q, k, v, out, B, S, C, H, D (head dim), stream
+    "gswm_fused_qkv_attn": [_VP] * 8 + [_I, _I, _I, _I, _I, _VP],
     # q, k, v, out, B, Sq, Sk, H, D, stream
     "gswm_flash_split": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
     # qkv, out, B, S, P (head pairs), stream

@@ -2,18 +2,21 @@
 
 Four kernels, hand-written CUDA for Hopper (``gswm_torch/csrc``), all on
 wgmma + TMA, behind six wrappers; ``route_self_attention`` picks the UNet's
-tier as the JAX package does.  Every D = 64 attention in the natural, split
-and packed layouts runs the one kernel of csrc/flash_hopper.cu:
+tier as the JAX package does.  The natural, split and fused-qkv layouts take
+any head dim d with d % 8 == 0 up to 512 (``kernel_head_dim``): every
+d <= 64 runs the one kernel of csrc/flash_hopper.cu, every wider d the
+kernel of csrc/flash_split.cu at d rounded up to a multiple of 64; the
+kernels' tensor maps zero-fill the columns past d (SD 1.x: 40, 80, 160):
 
   * ``flash_attention_split`` — split-layout flash attention on
-    (B, S, H, D) q/k/v, D a multiple of 64 up to 512: csrc/flash_hopper.cu
-    at D = 64, csrc/flash_split.cu (D split across two consumer
-    warpgroups) from 128 up.  Port of the
+    (B, S, H, D) q/k/v: csrc/flash_hopper.cu up to D = 64,
+    csrc/flash_split.cu (D split across two consumer warpgroups) above.
+    Port of the
     Pallas ``gswm.ops.attention.flash_attention``; serves the VAE mid-block
     attention above 4096 tokens (one head, D = 512) and the UNet's
     ``split`` route.
-  * ``flash_attention`` — the D = 64 kernel on natural-layout (B, S, H*64)
-    q/k/v, which is (B, S, H, 64) memory.  Serves the UNet's ``xf`` and
+  * ``flash_attention`` — the same kernels on natural-layout (B, S, H*D)
+    q/k/v, which is (B, S, H, D) memory.  Serves the UNet's ``xf`` and
     ``cres`` routes (level 0: 4096 tokens at 512x512, 9216 at 768x768),
     where the TPU path runs ``gswm.ops.attention.xla_flash_attention`` or
     the Pallas ``flash_attention_cres``.
@@ -26,9 +29,9 @@ and packed layouts runs the one kernel of csrc/flash_hopper.cu:
     ``flash_attention_transposed``; the ``transposed`` route.  Where S is
     no multiple of 8 no tensor map can address the rows, and a second,
     masked kernel (mma.sync) serves the shape.
-  * ``fused_qkv_attention`` (csrc/fused_qkv.cu, then the D = 64 kernel) —
-    the bias-free q/k/v projections in a hand-written wgmma + TMA GEMM,
-    then attention.  Port of the Pallas ``flash_attention_fused_qkv`` in
+  * ``fused_qkv_attention`` (csrc/fused_qkv.cu, then the kernel of the
+    head dim) — the bias-free q/k/v projections in a hand-written wgmma +
+    TMA GEMM, then attention.  Port of the Pallas ``flash_attention_fused_qkv`` in
     both its layouts (all heads, and the sequential-head
     ``_fused_qkv_kernel_seqhead``); serves 256..2304 tokens (levels 1 and
     2).  ``qkv_projection`` is its GEMM alone.
@@ -40,7 +43,8 @@ rounding while |logit| < 60.
 
 On a CPU tensor each wrapper runs its plain PyTorch version; on a CUDA
 tensor it launches its kernel or raises.  Each wrapper counts its launches
-in a plain integer attribute, ``<wrapper>.launches``.
+in a plain integer attribute, ``<wrapper>.launches``, and by head dim in a
+dict, ``<wrapper>.launches_by_d``.
 
 Weights are in ``torch.nn.Linear``'s (out, in) layout: q = x @ wq.T.
 """
@@ -53,7 +57,10 @@ import torch
 
 from gswm_torch import native
 
-HEAD_DIM = 64  # the kernels' head dim (SD 2.x and SDXL fix it at 64)
+HEAD_DIM = 64  # the packed and transposed kernels' head dim (SD 2.x, SDXL)
+# the head dims the natural, split and fused-qkv kernels take: d % 8 == 0
+# (16-byte rows for the tensor maps), 8 <= d <= 512
+KERNEL_MAX_HEAD_DIM = 512
 
 # The JAX package's routing defaults (gswm/models/layers.py:224-386): the
 # xf, cres, packed and transposed tiers start at 2305 tokens, fused-qkv
@@ -73,6 +80,28 @@ ROUTE_SWITCHES = (
 
 def _seq_switch(name: str, default: int) -> int:
     return int(os.environ.get(name, default))
+
+
+def kernel_takes_head_dim(d: int) -> bool:
+    """Whether the natural, split and fused-qkv kernels take head dim ``d``:
+    d % 8 == 0 and 8 <= d <= 512."""
+    return 8 <= d <= KERNEL_MAX_HEAD_DIM and d % 8 == 0
+
+
+def kernel_head_dim(d: int) -> int:
+    """The panel width the CUDA kernels compute head dim ``d`` at: 64 for
+    d <= 64 (csrc/flash_hopper.cu), else d rounded up to a multiple of 64
+    (csrc/flash_split.cu's templates, 128 ... 512).  Raises ValueError for
+    a d the kernels do not take (``kernel_takes_head_dim``)."""
+    if not kernel_takes_head_dim(d):
+        raise ValueError(f"head dim {d}: the attention kernels take d % 8 == 0, "
+                         f"8 <= d <= {KERNEL_MAX_HEAD_DIM}")
+    return max(HEAD_DIM, -(-d // 64) * 64)
+
+
+def _count(wrapper, d: int) -> None:
+    wrapper.launches += 1
+    wrapper.launches_by_d[d] = wrapper.launches_by_d.get(d, 0) + 1
 
 
 def route_self_attention(seq: int, head_dim: int = HEAD_DIM) -> str:
@@ -182,10 +211,11 @@ def _check_cuda_bf16(name: str, *tensors: torch.Tensor) -> None:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     heads: int) -> torch.Tensor:
-    """(B, S, H*64) q/k/v -> (B, S, H*64) self-attention output.
+    """(B, S, H*D) q/k/v -> (B, S, H*D) self-attention output.
 
     CPU: ``flash_attention_reference``.  CUDA: the kernel of
-    csrc/flash_hopper.cu on the (B, S, H, 64) view (bf16, any S)."""
+    csrc/flash_hopper.cu (D <= 64) or csrc/flash_split.cu on the (B, S, H, D)
+    view (bf16, any S, D as ``kernel_head_dim`` takes it)."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, heads)
     if q.device.type != "cuda":
@@ -195,19 +225,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: q/k/v shapes {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)} must be equal (B, S, H*D)")
     b, s, inner = q.shape
-    if inner != heads * HEAD_DIM:
-        raise ValueError(f"flash_attention: inner {inner} != heads {heads} x {HEAD_DIM}")
+    if inner % heads:
+        raise ValueError(f"flash_attention: inner {inner} is not heads {heads} x D")
+    d = inner // heads
+    kernel_head_dim(d)
     out = torch.empty_like(q)
     lib = native.library()
     with torch.cuda.device(q.device):
         lib.call("gswm_flash_split", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 out.data_ptr(), b, s, s, heads, HEAD_DIM,
-                 native.stream_handle(q.device))
-    flash_attention.launches += 1
+                 out.data_ptr(), b, s, s, heads, d, native.stream_handle(q.device))
+    _count(flash_attention, d)
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_d = {}
 
 
 def _check_projection(name: str, x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
@@ -264,31 +296,36 @@ qkv_projection.launches = 0
 
 def fused_qkv_attention(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
                         wv: torch.Tensor, heads: int) -> torch.Tensor:
-    """(B, S, C) x and bias-free (H*64, C) q/k/v weights -> (B, S, H*64).
+    """(B, S, C) x and bias-free (H*D, C) q/k/v weights -> (B, S, H*D).
 
     CPU: ``fused_qkv_attention_reference``.  CUDA: the projection GEMM of
-    csrc/fused_qkv.cu, then the kernel of csrc/flash_hopper.cu (bf16,
-    C % 64 == 0)."""
+    csrc/fused_qkv.cu, then the kernel of csrc/flash_hopper.cu (D <= 64) or
+    csrc/flash_split.cu (bf16, C and H*D multiples of 64, D as
+    ``kernel_head_dim`` takes it)."""
     if x.device.type == "cpu":
         return fused_qkv_attention_reference(x, wq, wk, wv, heads)
-    inner = heads * HEAD_DIM
+    inner = wq.shape[0]
+    if inner % heads:
+        raise ValueError(f"fused_qkv_attention: width {inner} is not heads {heads} x D")
+    d = inner // heads
+    kernel_head_dim(d)
     b, s, c = _check_projection("fused_qkv_attention", x, wq, wk, wv, inner)
     q, k, v, out = (x.new_empty((b, s, inner)) for _ in range(4))
     lib = native.library()
     with torch.cuda.device(x.device):
         lib.call("gswm_fused_qkv_attn", x.data_ptr(), wq.data_ptr(), wk.data_ptr(),
                  wv.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 out.data_ptr(), b, s, c, heads, native.stream_handle(x.device))
-    fused_qkv_attention.launches += 1
+                 out.data_ptr(), b, s, c, heads, d, native.stream_handle(x.device))
+    _count(fused_qkv_attention, d)
     return out
 
 
 fused_qkv_attention.launches = 0
+fused_qkv_attention.launches_by_d = {}
 
 # gswm/ops/attention.py:443: fewer keys than this (cross-attention's 77) take
 # the einsum path; the blockwise kernel starts here.
 SPLIT_MIN_KEYS = 512
-SPLIT_MAX_HEAD_DIM = 512
 
 
 def flash_attention_split_reference(q: torch.Tensor, k: torch.Tensor,
@@ -310,8 +347,9 @@ def flash_attention_split(q: torch.Tensor, k: torch.Tensor,
     ``flash_attention`` is the natural-layout wrapper).  Below
     ``SPLIT_MIN_KEYS`` keys: the reference's einsum path (matmul in the input dtype, softmax in
     fp32, probabilities cast back).  Otherwise CPU: the plain version; CUDA:
-    the kernel of csrc/flash_hopper.cu at D = 64 and of csrc/flash_split.cu
-    from 128 up (bf16, D a multiple of 64 up to 512, any Sq and Sk)."""
+    the kernel of csrc/flash_hopper.cu up to D = 64 and of
+    csrc/flash_split.cu above (bf16, D as ``kernel_head_dim`` takes it, any
+    Sq and Sk)."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape or \
             q.shape[0] != k.shape[0] or q.shape[2:] != k.shape[2:]:
         raise ValueError(f"flash_attention_split: q {tuple(q.shape)}, k "
@@ -328,22 +366,18 @@ def flash_attention_split(q: torch.Tensor, k: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_split: unsupported device {q.device}")
     _check_cuda_bf16("flash_attention_split", q, k, v)
-    if d % 64 or d > SPLIT_MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention_split: head dim {d} is not a multiple "
-                         f"of 64 up to {SPLIT_MAX_HEAD_DIM}")
+    kernel_head_dim(d)
     out = torch.empty_like(q)
     lib = native.library()
     with torch.cuda.device(q.device):
         lib.call("gswm_flash_split", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  out.data_ptr(), b, sq, sk, h, d, native.stream_handle(q.device))
-    flash_attention_split.launches += 1
-    flash_attention_split.launches_d64 += d == 64
+    _count(flash_attention_split, d)
     return out
 
 
 flash_attention_split.launches = 0
-# of those, the launches at D = 64, which csrc/flash_hopper.cu runs
-flash_attention_split.launches_d64 = 0
+flash_attention_split.launches_by_d = {}
 
 
 def flash_attention_packed_reference(qkv: torch.Tensor) -> torch.Tensor:
@@ -381,11 +415,12 @@ def flash_attention_packed(qkv: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(qkv.device):
         lib.call("gswm_flash_packed", qkv.data_ptr(), out.data_ptr(), b, s, pairs,
                  native.stream_handle(qkv.device))
-    flash_attention_packed.launches += 1
+    _count(flash_attention_packed, HEAD_DIM)
     return out
 
 
 flash_attention_packed.launches = 0
+flash_attention_packed.launches_by_d = {}
 
 
 def flash_attention_transposed_reference(qkv_t: torch.Tensor,
@@ -426,8 +461,9 @@ def flash_attention_transposed(qkv_t: torch.Tensor, heads: int) -> torch.Tensor:
     with torch.cuda.device(qkv_t.device):
         lib.call("gswm_flash_transposed", qkv_t.data_ptr(), out.data_ptr(), b, s,
                  heads, native.stream_handle(qkv_t.device))
-    flash_attention_transposed.launches += 1
+    _count(flash_attention_transposed, HEAD_DIM)
     return out
 
 
 flash_attention_transposed.launches = 0
+flash_attention_transposed.launches_by_d = {}

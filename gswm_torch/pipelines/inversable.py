@@ -37,7 +37,8 @@ from gswm_torch.models.vae import AutoencoderKL
 from gswm_torch.schedulers import SCHEDULERS
 from gswm_torch.schedulers.ddim import ddim_step, to_eps
 from gswm_torch.schedulers.dpm import dpm_init_carry, dpm_step
-from gswm_torch.ops.attention import FUSED_QKV_MIN_SEQ, HEAD_DIM
+from gswm_torch.ops.attention import (FUSED_QKV_MAX_SEQ, FUSED_QKV_MIN_SEQ,
+                                      kernel_takes_head_dim)
 from gswm_torch.schedulers.schedule import sd_schedule
 
 
@@ -64,24 +65,33 @@ def _check_served_on_cuda(preset: ModelPreset, dtype: torch.dtype) -> None:
     """Refuse, before anything is built, what the CUDA kernels do not serve.
     At the preset's default resolution every UNet self-attention of
     ``FUSED_QKV_MIN_SEQ`` tokens or more runs a kernel, which takes bfloat16
-    and heads of ``HEAD_DIM``; a preset that stays below (``tiny``) runs
-    plain attention in any dtype."""
+    and the head dims ``kernel_takes_head_dim`` (d % 8 == 0, 8 <= d <= 512:
+    SD 1.x's 40, 80 and 160, SD 2.x's and SDXL's 64), and at the fused-qkv
+    sites' token counts a width the projection GEMM takes (a multiple of
+    64); a preset that stays below (``tiny``) runs plain attention in any
+    dtype."""
     unet = preset.unet
     latent = preset.default_resolution // 8
     channels = unet.block_out_channels
     sites = [(level, ch) for level, ch in enumerate(channels)
              if unet.cross_attn_levels[level]]
     sites.append((len(channels) - 1, channels[-1]))  # the mid block
-    reached = [ch // unet.heads_for(ch) for level, ch in sites
-               if (latent >> level) ** 2 >= FUSED_QKV_MIN_SEQ]
+    reached = [((latent >> level) ** 2, ch, ch // unet.heads_for(ch))
+               for level, ch in sites if (latent >> level) ** 2 >= FUSED_QKV_MIN_SEQ]
     if not reached:
         return
-    other = sorted({d for d in reached if d != HEAD_DIM})
-    if other:
+    refused = []
+    for tokens, ch, d in reached:
+        if not kernel_takes_head_dim(d):
+            refused.append(f"heads {d} wide")
+        if tokens <= FUSED_QKV_MAX_SEQ and ch % 64:
+            refused.append(f"a fused-qkv width of {ch}")
+    if refused:
         raise NotImplementedError(
-            f"{preset.name} on a CUDA device: its self-attention heads are {other} "
-            f"wide and the attention kernels take {HEAD_DIM} (SD 2.x); not ported "
-            'yet, run it with device="cpu"')
+            f"{preset.name} on a CUDA device: its self-attention has "
+            f"{', '.join(sorted(set(refused)))}, and the attention kernels take head "
+            "dims d % 8 == 0 up to 512 and fused-qkv widths that are multiples of 64; "
+            'run it with device="cpu"')
     if dtype != torch.bfloat16:
         raise NotImplementedError(
             f"{preset.name} in {dtype} on a CUDA device: the attention kernels take "
@@ -122,8 +132,9 @@ class InversablePipeline:
         float32.  ``weights_dtype`` rounds every floating parameter of the
         UNet and the VAE through that dtype, norms too, each held in its
         compute dtype after (the JAX package's ``_cast_floating``).  On a
-        CUDA device only what the kernels serve is built: heads of 64 (SD
-        2.x, SDXL) in bfloat16."""
+        CUDA device only what the kernels serve is built: bfloat16, and head
+        dims d % 8 == 0 up to 512 (SD 1.x's 40, 80, 160; SD 2.x's and SDXL's
+        64)."""
         if isinstance(preset, str):
             preset = PRESETS[preset]
         self.preset = preset

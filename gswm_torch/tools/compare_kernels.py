@@ -9,13 +9,17 @@ the parent commit unpacked into a git-ignored directory).  Both kernel
 libraries are built (each in its own ``build/``) and called through their C
 entry points on the same tensors, so nothing but the kernels differs:
 
-  * flash attention at every shape ``chip_smoke.py`` phase 2 gives it: D = 64
-    (natural layout, K1's core, the split wrapper's ragged shape, packed),
-    the split layout from D = 128 up (K4), and the transposed layout (K7);
-    CUDA-event times in the order parent, change, change, parent;
-  * fused-qkv self-attention (GEMM + core) at K1's four shapes, likewise,
-    and the device time of each side's ``qkv_proj_kernel`` alone from
-    ``torch.profiler``;
+  * flash attention at every shape ``chip_smoke.py`` phase 2 gives it whose
+    head dim is a multiple of 64 (the widths every checkout's kernels take):
+    D = 64 (natural layout, K1's core, the split wrapper's ragged shape,
+    packed), the split layout from D = 128 up (K4), and the transposed
+    layout (K7); CUDA-event times in the order parent, change, change,
+    parent;
+  * fused-qkv self-attention (GEMM + core) at K1's shapes of those widths,
+    likewise, and the device time of each side's ``qkv_proj_kernel`` alone
+    from ``torch.profiler``; each side's ``gswm_fused_qkv_attn`` is called
+    with the arguments its library declares (the head dim since SD 1.x's
+    kernels, none before: 64);
   * the host time of one launcher call (tensor-map encoding included) on a
     one-tile shape, where the device never holds the host back;
   * GroupNorm (K8) and ChaCha20 (K3) through each side's own wrappers, host
@@ -46,14 +50,15 @@ from gswm_torch.tools import paths
 
 ROUNDS = ("parent", "change", "change", "parent")
 # the shapes of chip_smoke.py's phase 2 (gswm_torch/tools/paths.py)
-FLASH_SHAPES = (  # (label, B, Sq, Sk, H, D)
-    *((f"K2 ({b}, {s}, {h})", b, s, s, h, 64) for b, s, h in paths.K2_SHAPES),
+FLASH_SHAPES = tuple(case for case in (  # (label, B, Sq, Sk, H, D)
+    *((f"K2 ({b}, {s}, {h}, {d})", b, s, s, h, d) for b, s, h, d in paths.K2_SHAPES),
     *((f"K4 ({b}, {s}, {h}, {d})", b, s, s, h, d) for b, s, h, d in paths.K4_SHAPES),
-    *((f"K1 core ({b}, {s}, {h})", b, s, s, h, 64) for b, s, _, h in paths.K1_SHAPES))
+    *((f"K1 core ({b}, {s}, {h}, {d})", b, s, s, h, d)
+      for b, s, _, h, d in paths.K1_SHAPES)) if case[-1] % 64 == 0)
 PACKED_SHAPES = tuple((b, s, paths.pairs_of(h))  # (B, S, P)
                       for b, s, h in paths.LEVEL0_SHAPES)
 TRANSPOSED_SHAPES = paths.K7_SHAPES  # (B, S, H)
-K1_SHAPES = paths.K1_SHAPES  # (B, S, C, H)
+K1_SHAPES = tuple(shape for shape in paths.K1_SHAPES if shape[-1] == 64)  # (B, S, C, H, D)
 
 
 def load_parent(root: Path):
@@ -347,14 +352,18 @@ def compare_attention(libs: dict, rand, stream: int, iters: int) -> dict:
               f"max|parent - change| {diff:.5f}", flush=True)
         result["transposed"].append(dict(shape=[b, s, h], **t, ratio=ratio,
                                          bound_ms=bound, max_abs_diff=diff))
-    for b, s, c, h in K1_SHAPES:
-        n = h * 64
+    for b, s, c, h, d in K1_SHAPES:
+        n = h * d
         x = rand(b, s, c)
         ws = [rand(n, c, scale=c**-0.5) for _ in range(3)]
         bufs = {side: [x.new_empty((b, s, n)) for _ in range(4)] for side in libs}
+        # (B, S, C, H[, D]): a library built before the head dim was an
+        # argument declares one int fewer
+        dims = {side: (b, s, c, h, d)[:len(libs[side].lib.gswm_fused_qkv_attn.argtypes) - 9]
+                for side in libs}
         fns = {side: (lambda side=side: libs[side].call(
             "gswm_fused_qkv_attn", x.data_ptr(), *(w.data_ptr() for w in ws),
-            *(t.data_ptr() for t in bufs[side]), b, s, c, h, stream)) for side in libs}
+            *(t.data_ptr() for t in bufs[side]), *dims[side], stream)) for side in libs}
         t = in_turns(fns, iters)
         gemm = {side: [] for side in libs}
         for side in ROUNDS:

@@ -27,6 +27,10 @@ A fifth path is SDXL: sdxl-base at 1024x1024, batch 2, bf16, random weights
 from a seed: the latent closed loop and the watermark chain of the 768x768
 path (both text encoders, the pooled conditioning and ``time_ids`` in
 ``added_cond``).
+
+A sixth path is SD 1.x: sd-1-4 at 512x512, batch 4, bf16, random weights from
+a seed, 8 heads of 40, 80 and 160: the latent closed loop, and the watermark
+chain (CLIP-L, guidance 7.5 at UNet batch 8, decode, then ``extract_bits``).
 """
 
 from __future__ import annotations
@@ -45,28 +49,37 @@ TIER_LOOP_STEPS = 10
 BATCH_512, RES_512 = 4, 512
 BATCH_768, RES_768 = 2, 768
 BATCH_1024, RES_1024 = 2, 1024
+BATCH_SD14 = 4  # at RES_512
 # seeds of the random weights
-PIPELINE_SEEDS = {"sd-2-1-base": 0, "sd-2-1": 1, "sdxl-base": 2}
+PIPELINE_SEEDS = {"sd-2-1-base": 0, "sd-2-1": 1, "sdxl-base": 2, "sd-1-4": 3}
 
 # Kernel shapes of the paths.  Batch 4 is the UNet's under guidance and
-# in the 512x512 path, batch 2 without.
-# K1 (B, S, C, H): UNet levels 1 and 2 at 512x512 (1024, 256 tokens) and
+# in the 512x512 path, batch 2 without; SD 1.x's 4, and 8 under guidance.
+# K1 (B, S, C, H, D): UNet levels 1 and 2 at 512x512 (1024, 256 tokens) and
 # 768x768 (2304, 576 tokens); SDXL's level 2 and mid block at 1024x1024
-# (1024 tokens, 1280 channels, 20 heads)
-K1_SHAPES = ((2, 1024, 640, 10), (2, 256, 1280, 20),
-             (4, 2304, 640, 10), (4, 576, 1280, 20),
-             (2, 1024, 1280, 20), (4, 1024, 1280, 20))
-# K2 (B, S, H): UNet level 0 at 512x512 (4096 tokens) and 768x768 (9216);
-# SDXL's level 1 at 1024x1024 (4096 tokens, 10 heads)
-K2_SHAPES = ((2, 4096, 5), (2, 9216, 5), (4, 9216, 5), (2, 4096, 10), (4, 4096, 10))
+# (1024 tokens, 1280 channels, 20 heads); SD 1.x's levels 1 and 2 at 512x512
+# (8 heads of 80 and of 160)
+K1_SHAPES = ((2, 1024, 640, 10, 64), (2, 256, 1280, 20, 64),
+             (4, 2304, 640, 10, 64), (4, 576, 1280, 20, 64),
+             (2, 1024, 1280, 20, 64), (4, 1024, 1280, 20, 64),
+             (4, 1024, 640, 8, 80), (8, 1024, 640, 8, 80),
+             (4, 256, 1280, 8, 160), (8, 256, 1280, 8, 160))
+# K2 (B, S, H, D): UNet level 0 at 512x512 (4096 tokens) and 768x768 (9216);
+# SDXL's level 1 at 1024x1024 (4096 tokens, 10 heads); SD 1.x's level 0 at
+# 512x512 (8 heads of 40) and a ragged shape of that width
+K2_SHAPES = ((2, 4096, 5, 64), (2, 9216, 5, 64), (4, 9216, 5, 64), (2, 4096, 10, 64),
+             (4, 4096, 10, 64), (4, 4096, 8, 40), (8, 4096, 8, 40), (1, 1001, 3, 40))
 # K4 (B, S, H, D): the VAE mid attention at 768x768 (one head, D = 512, 9216
 # tokens; the decoder takes one image a call, the encoder two), a ragged
 # multi-head D = 64 shape, two ragged multi-head shapes of the widths
-# between: D = 128, and 192 whose three 64-column panels split 2 + 1; and
-# the VAE mid attention at 1024x1024 (16,384 tokens)
+# between: D = 128, and 192 whose three 64-column panels split 2 + 1; the
+# VAE mid attention at 1024x1024 (16,384 tokens); SD 1.x's level 1 under
+# GSWM_FUSED_QKV=0 (8 heads of 80), a ragged 160 (the 192-wide kernel, its
+# third panel half zeros) and a width no SD model uses, 72
 K4_SHAPES = ((1, 9216, 1, 512), (2, 9216, 1, 512), (2, 1000, 10, 64),
              (2, 1000, 3, 128), (1, 1000, 2, 192),
-             (1, 16384, 1, 512), (2, 16384, 1, 512))
+             (1, 16384, 1, 512), (2, 16384, 1, 512),
+             (4, 1024, 8, 80), (1, 1000, 2, 160), (2, 1000, 3, 72))
 # K3 (ChaCha20 blocks of one key): one 64x64x4, 96x96x4 and 128x128x4
 # latent of bits (512x512, 768x768, 1024x1024), and 2^20 blocks
 K3_BLOCKS = (32, 72, 128, 2**20)

@@ -21,6 +21,10 @@ On one card, random weights from a seed, bf16:
     at batch 2 and at 4 (guidance), and the watermark chain of
     ``chip_smoke.py`` phase 9b (both text encoders, guidance 7.5, VAE decode,
     then VAE encode, 30-step inversion, decode), likewise.
+  * sd-1-4 at 512x512, batch 4 (8 heads of 40, 80 and 160): one UNet forward
+    at batch 4 and at 8 (guidance), and the watermark chain of
+    ``chip_smoke.py`` phase 10b, likewise; its extraction half beside the
+    512x512 chain of sd-2-1-base above.
   * the GroupNorm kernel (K8) at ``paths.K8_PROBE_CASES``: device time a call
     beside the wrapper's CUDA-event time a call, which holds its host side,
     and its bound.
@@ -267,6 +271,39 @@ def main() -> None:
           f"{result['chain_1024_wall_s']:.4f} s", flush=True)
     result["chain_1024"] = profiled(chain_1024, args.top)
     report("1024x1024 SDXL chain, batch 2, profiled", result["chain_1024"])
+    del pipe
+    torch.cuda.empty_cache()
+
+    # ---- sd-1-4, 512x512, batch 4
+    pipe = paths.build_pipeline("sd-1-4")
+    cfg = paths.config(paths.RES_512, "gswm_torch sd14")
+    ids = paths.prompt_ids(pipe, paths.BATCH_SD14)
+    result["unet_forward_sd14"] = {}
+    for batch in (paths.BATCH_SD14, 2 * paths.BATCH_SD14):
+        unet_in = paths.unet_inputs(pipe, batch, res=paths.RES_512)
+
+        def forward_sd14():
+            with torch.inference_mode():
+                for _ in range(3):
+                    pipe.unet(*unet_in)
+
+        forward_sd14()
+        res_f = profiled(forward_sd14, args.top)
+        report(f"512x512 SD 1.x UNet forward x3, batch {batch}", res_f)
+        print(f"  device time per forward {res_f['busy_s'] / 3 * 1e3:.3f} ms, "
+              f"{res_f['device_records'] / 3:.0f} device records a forward", flush=True)
+        result["unet_forward_sd14"][batch] = res_f
+        del unet_in
+
+    def chain_sd14(seed=81):
+        paths.watermark_chain(pipe, cfg, ids, seed, paths.BATCH_SD14)
+
+    chain_sd14(80)
+    result["chain_sd14_wall_s"] = wall_of(chain_sd14)
+    print(f"512x512 SD 1.x chain, batch 4, unprofiled: wall "
+          f"{result['chain_sd14_wall_s']:.4f} s", flush=True)
+    result["chain_sd14"] = profiled(chain_sd14, args.top)
+    report("512x512 SD 1.x chain, batch 4, profiled", result["chain_sd14"])
     del pipe
     torch.cuda.empty_cache()
 

@@ -55,6 +55,26 @@ def test_fused_qkv_reference_matches_jax_kernel(b, s, c, h, d):
     np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
 
 
+@pytest.mark.parametrize("c,d", [(640, 80), (1280, 160)])
+def test_fused_qkv_reference_matches_jax_kernel_at_sd14_head_dims(c, d):
+    """SD 1.x's levels 1 and 2 (256 tokens of 640 channels, 8 heads of 80;
+    of 1280, 8 heads of 160) in bf16, where the Pallas kernel's VMEM gate
+    admits them (fused_qkv_attention_fits), in interpret mode.  C^-0.5-scale
+    weights keep q, k and v ~N(0, 1) and the logits far below the TPU
+    path's clamp at 60; the kernel rounds q, k, v and p to bf16, the plain
+    version only its output: atol 4e-2, the bf16 bound of the tests below."""
+    b, s, h = 1, 256, 8
+    x = _rand((b, s, c), 30)
+    wq, wk, wv = (_rand((c, h * d), i, c**-0.5) for i in (31, 32, 33))
+    jx, jq, jk, jv = (jnp.asarray(t, jnp.bfloat16) for t in (x, wq, wk, wv))
+    want = np.asarray(flash_attention_fused_qkv(jx, jq, jk, jv, h, d, interpret=True))
+    got = attn.fused_qkv_attention(
+        *(torch.from_numpy(np.array(t.astype(jnp.float32))).bfloat16()
+          for t in (jx, jq.T, jk.T, jv.T)), h)
+    assert got.dtype == torch.bfloat16 and got.shape == (b, s, h * d)
+    np.testing.assert_allclose(got.float().numpy(), want.astype(np.float32), atol=4e-2)
+
+
 @pytest.mark.parametrize("b,s,h", [(2, 300, 2), (1, 513, 3), (1, 2305, 1)])
 def test_flash_reference_matches_jax_reference(b, s, h):
     d = 64
@@ -70,6 +90,34 @@ def test_flash_reference_matches_jax_reference(b, s, h):
         got.numpy(),
         np.asarray(xla_flash_attention(*(jnp.asarray(t) for t in (q, k, v)),
                                        h, d)), atol=2e-5)
+
+
+@pytest.mark.parametrize("b,s,h,d", [(2, 300, 8, 40), (1, 4096, 8, 40), (1, 1001, 3, 80),
+                                     (1, 513, 2, 160)])
+def test_flash_reference_matches_xla_flash_at_sd14_head_dims(b, s, h, d):
+    """The natural-layout plain version at SD 1.x's head dims (level 0: 8
+    heads of 40 at 4096 tokens) against ``xla_flash_attention``, fp32 with
+    unit-scale inputs (logits far below the TPU path's clamp at 60): atol
+    2e-5 as at 64."""
+    q, k, v = (_rand((b, s, h * d), 20 + i) for i in range(3))
+    want = np.asarray(xla_flash_attention(*(jnp.asarray(t) for t in (q, k, v)), h, d))
+    got = attn.flash_attention(*(torch.from_numpy(t) for t in (q, k, v)), h)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
+
+
+@pytest.mark.parametrize("d,width", [(8, 64), (16, 64), (40, 64), (56, 64), (64, 64),
+                                     (72, 128), (80, 128), (128, 128), (136, 192),
+                                     (160, 192), (320, 320), (504, 512), (512, 512)])
+def test_kernel_head_dim_takes_multiples_of_8_up_to_512(d, width):
+    """The panel width the kernels compute a head dim at: one 64-column
+    panel up to 64 (flash_hopper.cu), whole panels above (flash_split.cu)."""
+    assert attn.kernel_head_dim(d) == width
+
+
+@pytest.mark.parametrize("d", [0, 4, 12, 36, 100, 513, 520, 576, 1024])
+def test_kernel_head_dim_refuses_the_rest(d):
+    with pytest.raises(ValueError, match="d % 8 == 0"):
+        attn.kernel_head_dim(d)
 
 
 def test_exact_softmax_differs_from_clamped_xla_flash_above_60():
@@ -134,6 +182,10 @@ def test_wrappers_reject_other_devices():
     # (two panels of 64 columns, and three: 2 + 1), ragged, Sq != Sk
     (2, 130, 577, 2, 128),
     (1, 333, 1030, 2, 192),
+    # widths off the 64-column panels: SD 1.x's 80 and 160, and 72
+    (2, 130, 577, 2, 80),
+    (1, 70, 512, 2, 160),
+    (1, 100, 600, 3, 72),
 ])
 def test_split_matches_jax_flash_attention(b, sq, sk, h, d):
     """fp32, atol/rtol 3e-5 (the bound of tests/test_ops_attention.py:87)."""

@@ -18,6 +18,7 @@ PORT = Path(__file__).resolve().parents[1] / "gswm_torch"
     ((4, 9216, 9216, 5, 64), 434.9),     # K2 under guidance
     ((2, 9216, 9216, 1, 512), 347.9),    # K4, the VAE mid attention
     ((2, 65, 577, 3, 64), 0.0576),       # Sq != Sk
+    ((4, 4096, 4096, 8, 40), 85.9),      # K2, SD 1.x level 0, at the true d
 ])
 def test_attention_flops_match_hand_values(shape, gflop):
     flops, _ = roofline.attention_cost(*shape)
@@ -44,17 +45,20 @@ def test_projection_flops_match_hand_values(b, s, c, h, gflop):
     assert nbytes == 2 * (m * c + 3 * n * c + 3 * m * n)
 
 
-def test_fused_qkv_cost_is_projection_plus_attention_without_qkv_traffic():
-    b, s, c, h = 4, 2304, 640, 10
-    flops, nbytes = roofline.fused_qkv_cost(b, s, c, h)
-    assert flops == roofline.projection_cost(b * s, c, h * 64)[0] + \
-        roofline.attention_cost(b, s, s, h, 64)[0]
-    assert nbytes == 2 * (b * s * c + 3 * h * 64 * c + b * s * h * 64)
+@pytest.mark.parametrize("b,s,c,h,d", [(4, 2304, 640, 10, 64), (4, 1024, 640, 8, 80),
+                                     (4, 256, 1280, 8, 160)])
+def test_fused_qkv_cost_is_projection_plus_attention_without_qkv_traffic(b, s, c, h, d):
+    """At the true head dim: SD 1.x's 80 and 160 count no padded columns."""
+    flops, nbytes = roofline.fused_qkv_cost(b, s, c, h, d)
+    assert flops == roofline.projection_cost(b * s, c, h * d)[0] + \
+        roofline.attention_cost(b, s, s, h, d)[0]
+    assert nbytes == 2 * (b * s * c + 3 * h * d * c + b * s * h * d)
 
 
 @pytest.mark.parametrize("shape,ms", [
     ((2, 4096, 4096, 5, 64), 0.0434), ((2, 9216, 9216, 5, 64), 0.2198),
-    ((4, 9216, 9216, 5, 64), 0.4397), ((2, 9216, 9216, 1, 512), 0.352)])
+    ((4, 9216, 9216, 5, 64), 0.4397), ((2, 9216, 9216, 1, 512), 0.352),
+    ((4, 4096, 4096, 8, 40), 0.0869)])
 def test_attention_bound_is_the_tensor_core_time(shape, ms):
     bound, by = roofline.bound_ms(*roofline.attention_cost(*shape), roofline.PEAK_BF16)
     assert by == "operations"
@@ -112,11 +116,11 @@ def test_port_calls_no_library_attention(pattern):
 
 
 def test_one_head_dim_64_flash_kernel_and_no_switch_picks_another():
-    """flash_split.cu no longer instantiates D = 64: the split, natural and
-    packed layouts all reach flash_hopper.cu's launcher."""
+    """flash_split.cu instantiates no D = 64 kernel: the split, natural and
+    packed layouts reach flash_hopper.cu's launcher at every d <= 64."""
     split = (PORT / "csrc" / "flash_split.cu").read_text()
     assert "launch<64>" not in split
-    assert "case 64:\n      return gswm_launch_flash_hopper(" in split
+    assert "if (D <= ROW_ELEMS)\n    return gswm_launch_flash_hopper(" in split
     hopper = (PORT / "csrc" / "flash_hopper.cu").read_text()
     assert "wgmma_m64n128k16_ss" in hopper and "tma_load_4d" in hopper
     assert hopper.count('extern "C"') == 1 and "gswm_flash_packed" in hopper

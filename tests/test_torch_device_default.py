@@ -2,6 +2,7 @@
 device: ``device="cuda"`` is the default, and without a card the default
 raises, as PyTorch does, instead of running on the CPU without a word."""
 
+import dataclasses
 import inspect
 
 import pytest
@@ -108,18 +109,37 @@ class _NoAllocation:
         raise AssertionError("the pipeline built a module before refusing")
 
 
+def _heads_of(width: int):
+    """A test-local preset: sd-1-4 with self-attention heads ``width`` wide
+    at every level (8, 16 and 32 heads, or 1, 2 and 4 at 520)."""
+    from gswm_torch.models.configs import PRESETS
+
+    sd14 = PRESETS["sd-1-4"]
+    heads = 8 if width < 512 else 1
+    channels = tuple(heads * width * m for m in (1, 2, 4, 4))
+    unet = dataclasses.replace(sd14.unet, block_out_channels=channels, num_heads=None,
+                               head_dim=width)
+    return dataclasses.replace(sd14, name=f"sd-1-4, heads of {width}", unet=unet)
+
+
 @pytest.mark.parametrize("preset,dtype,why", [
-    ("sd-1-4", torch.bfloat16, "heads are"),
+    # d % 8 != 0: rows of no tensor map; d > 512: no kernel template
+    (36, torch.bfloat16, "heads 36 wide"),
+    (520, torch.bfloat16, "heads 520 wide"),
+    ("sd-1-4", torch.float32, "bfloat16 only"),
     ("sd-2-1-base", torch.float32, "bfloat16 only"),
     ("sd-2-1", torch.float16, "bfloat16 only"),
     ("sdxl-base", torch.float32, "bfloat16 only")])
 def test_pipeline_refuses_at_construction_what_the_card_does_not_serve(
         monkeypatch, preset, dtype, why):
-    """SD 1.x head dims (40, 80, 160) and any dtype but bfloat16 have no
-    kernel: on a CUDA device the constructor says so, before it allocates
-    anything there (so also on a machine without a card); SDXL likewise."""
+    """Head dims outside the kernels' domain (d % 8 != 0 or d > 512) and any
+    dtype but bfloat16 have no kernel: on a CUDA device the constructor says
+    so, before it allocates anything there (so also on a machine without a
+    card); SD 1.x and SDXL likewise."""
     from gswm_torch.pipelines import inversable
 
+    if isinstance(preset, int):
+        preset = _heads_of(preset)
     monkeypatch.setattr(inversable, "_build", _NoAllocation())
     with pytest.raises(NotImplementedError, match=why):
         InversablePipeline(preset, device=torch.device("cuda"), dtype=dtype,
@@ -130,8 +150,10 @@ def test_pipeline_refuses_at_construction_what_the_card_does_not_serve(
 
 def test_the_cpu_goes_on_running_what_the_card_refuses(monkeypatch):
     """sd-1-4 in float32 is not refused on the CPU (the constructor goes on
-    to build its modules), and the tiny preset, whose attention stays below
-    the kernels' window, passes the check for a CUDA device in any dtype."""
+    to build its modules), nor are heads 36 wide; the tiny preset, whose
+    attention stays below the kernels' window, passes the check for a CUDA
+    device in any dtype; sd-1-4's heads of 40, 80 and 160 pass it in
+    bfloat16."""
     from gswm_torch.models.configs import PRESETS
     from gswm_torch.models.unet import UNet2DCondition
     from gswm_torch.pipelines import inversable
@@ -139,6 +161,8 @@ def test_the_cpu_goes_on_running_what_the_card_refuses(monkeypatch):
     monkeypatch.setattr(inversable, "_build", _NoAllocation())
     with pytest.raises(AssertionError, match="built a module"):
         InversablePipeline("sd-1-4", device="cpu", dtype=torch.float32)
+    with pytest.raises(AssertionError, match="built a module"):
+        InversablePipeline(_heads_of(36), device="cpu", dtype=torch.float32)
     with torch.device("meta"):
         unet = UNet2DCondition(PRESETS["sd-1-4"].unet)
     assert [blk.attentions[0].transformer_blocks[0].attn1.head_dim
@@ -146,3 +170,4 @@ def test_the_cpu_goes_on_running_what_the_card_refuses(monkeypatch):
     inversable._check_served_on_cuda(PRESETS["tiny"], torch.float32)
     inversable._check_served_on_cuda(PRESETS["sd-2-1"], torch.bfloat16)
     inversable._check_served_on_cuda(PRESETS["sdxl-base"], torch.bfloat16)
+    inversable._check_served_on_cuda(PRESETS["sd-1-4"], torch.bfloat16)

@@ -340,13 +340,139 @@ def test_kernel_wrappers_reject_what_they_do_not_take(cuda):
     qb = q4.bfloat16()
     with pytest.raises(ValueError):
         attn.flash_attention_split(qb[..., :96], qb[..., :96], qb[..., :96])  # strided
-    q96 = qb[..., :96].contiguous()
-    with pytest.raises(ValueError):
-        attn.flash_attention_split(q96, q96, q96)  # D = 96: not a multiple of 64
+    for d in (36, 520):  # D % 8 != 0 (rows not 16-byte multiples), D > 512
+        qd = torch.zeros((1, 600, 1, d), device=cuda, dtype=torch.bfloat16)
+        with pytest.raises(ValueError):
+            attn.flash_attention_split(qd, qd, qd)
+    with pytest.raises(ValueError):  # 8 heads of 36
+        attn.flash_attention(*(torch.zeros((1, 300, 288), device=cuda,
+                                           dtype=torch.bfloat16),) * 3, 8)
     flat = torch.zeros(600 * 128 + 1, device=cuda, dtype=torch.bfloat16)
     odd = flat[1:].view(1, 600, 1, 128)  # 2-byte offset: not 16-byte aligned
     with pytest.raises(ValueError):
         attn.flash_attention_split(odd, odd, odd)
+
+
+# Head dims other than 64: flash_hopper.cu below (8, 40), flash_split.cu's
+# 128-wide kernel (72, 80: one whole panel and one of 8 or 16 real columns),
+# its 192-wide one (160: 2 + 1 panels, the third half zeros)
+HEAD_DIMS = (8, 40, 72, 80, 160)
+
+
+def assert_every_head_close(got, want):
+    """(B, S, H, D): each head on its own scale, so a head that a store past
+    D overwrote, or a tile read from the neighbouring head, cannot hide
+    behind the others."""
+    for h in range(got.shape[2]):
+        assert_attention_close(got[:, :, h], want[:, :, h])
+
+
+@pytest.mark.parametrize("s", [1001, 4096])
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_flash_kernel_any_head_dim(cuda, d, s):
+    """K2 on natural-layout (B, S, 8 * D) q/k/v: the tensor maps are over the
+    true D, so the kernel reads zeros past D and drops its own columns
+    there; SD 1.x's level 0 is (4096, 8 heads of 40); 1001 tokens leave
+    ragged key and query tiles."""
+    b, h = 2, 8
+    g = torch.Generator(device=cuda).manual_seed(s + d)
+    q, k, v = (torch.randn((b, s, h * d), generator=g, device=cuda).bfloat16()
+               for _ in range(3))
+    before = attn.flash_attention.launches_by_d.get(d, 0)
+    got = attn.flash_attention(q, k, v, h)
+    assert attn.flash_attention.launches_by_d[d] == before + 1
+    want = attn.flash_attention_reference(q.float(), k.float(), v.float(), h)
+    assert_every_head_close(got.view(b, s, h, d), want.view(b, s, h, d))
+
+
+@pytest.mark.parametrize("sq,sk", [(1001, 1001), (65, 577), (1024, 1024)])
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_split_kernel_any_head_dim(cuda, d, sq, sk):
+    """K4 at head dims off the 64-column panels, every head against the
+    plain version, ragged tiles of keys and queries; v = 1 shows the keys
+    TMA zero-fills past Sk are masked."""
+    b, h = 2, 3
+    g = torch.Generator(device=cuda).manual_seed(sq + sk + d)
+    q = torch.randn((b, sq, h, d), generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn((b, sk, h, d), generator=g, device=cuda).bfloat16()
+            for _ in range(2))
+    before = attn.flash_attention_split.launches_by_d.get(d, 0)
+    got = attn.flash_attention_split(q, k, v)
+    assert attn.flash_attention_split.launches_by_d[d] == before + 1
+    assert_every_head_close(got, attn.flash_attention_split_reference(
+        q.float(), k.float(), v.float()))
+    ones = attn.flash_attention_split(q, k, torch.ones_like(v)).float()
+    torch.testing.assert_close(ones, torch.ones_like(ones), rtol=0, atol=2**-7)
+
+
+@pytest.mark.parametrize("b,s,d", [(1, 1001, d) for d in HEAD_DIMS]
+                         + [(4, 1024, 80), (4, 256, 160), (8, 256, 160)])
+def test_fused_qkv_kernel_any_head_dim(cuda, b, s, d):
+    """K1 with 8 heads of D and C = 8 * D channels (SD 1.x: 640 at D = 80,
+    1280 at 160): the GEMM writes (B, S, 8 * D), the core reads it at the
+    true D; every head against the plain version."""
+    h = 8
+    c = h * d
+    g = torch.Generator(device=cuda).manual_seed(s + d)
+    x = torch.randn((b, s, c), generator=g, device=cuda).bfloat16()
+    ws = [(torch.randn((h * d, c), generator=g, device=cuda) * c**-0.5).bfloat16()
+          for _ in range(3)]
+    before = attn.fused_qkv_attention.launches_by_d.get(d, 0)
+    got = attn.fused_qkv_attention(x, *ws, h)
+    assert attn.fused_qkv_attention.launches_by_d[d] == before + 1
+    want = attn.fused_qkv_attention_reference(x.float(), *(w.float() for w in ws), h)
+    assert_every_head_close(got.view(b, s, h, d), want.view(b, s, h, d))
+
+
+@pytest.mark.parametrize("layout", ["natural", "split"])
+def test_kernels_are_exact_softmax_above_60_at_head_dim_40(cuda, layout):
+    """Logits 80 and 70 in one row at D = 40, where the scale 40^-0.5 is no
+    power of two and the kernel scales q in shared memory: exact softmax
+    (weight ~1 on the 80 key), where the TPU no-max path would clamp both
+    to 60."""
+    s, d = 640, 40
+    g = torch.Generator(device=cuda).manual_seed(40)
+    q = torch.randn((1, s, 1, d), generator=g, device=cuda)
+    k = torch.randn((1, s, 1, d), generator=g, device=cuda) * 0.1
+    v = torch.randn((1, s, 1, d), generator=g, device=cuda)
+    q[0, 0, 0] = 0.0
+    q[0, 0, 0, 0], q[0, 0, 0, 1] = 80.0, 70.0
+    k[0, 5, 0], k[0, 9, 0] = 0.0, 0.0
+    k[0, 5, 0, 0], k[0, 9, 0, 1] = d**0.5, d**0.5  # logits ~80 and ~70
+    v[0, 5, 0], v[0, 9, 0] = 1.0, -1.0
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    if layout == "natural":
+        got = attn.flash_attention(*(t.view(1, s, d) for t in (q, k, v)), 1)
+        got = got.view(1, s, 1, d).float()
+    else:
+        got = attn.flash_attention_split(q, k, v).float()
+    want = attn.flash_attention_split_reference(q.float(), k.float(), v.float())
+    torch.testing.assert_close(got, want, rtol=0, atol=BOUND)
+    torch.testing.assert_close(got[0, 0, 0], torch.ones(d, device=cuda), rtol=0,
+                               atol=1e-2)
+
+
+def test_sd14_unet_forward_on_card(cuda):
+    """sd-1-4's UNet at 512x512, batch 1, random weights: K1 5 launches at
+    D = 80 and 5 at 160, K2 5 at 40, no other attention kernel, a finite
+    output; fp32 is refused at construction."""
+    from gswm_torch.pipelines import InversablePipeline
+
+    with pytest.raises(NotImplementedError, match="bfloat16 only"):
+        InversablePipeline("sd-1-4", device=cuda, dtype=torch.float32)
+    pipe = paths.build_pipeline("sd-1-4")
+    inputs = paths.unet_inputs(pipe, 1, res=paths.RES_512)
+    counters = ("fused_qkv_attention", "flash_attention", "flash_attention_split",
+                "flash_attention_packed", "flash_attention_transposed")
+    before = {n: dict(getattr(attn, n).launches_by_d) for n in counters}
+    with torch.inference_mode():
+        out = pipe.unet(*inputs)
+    made = {n: {d: c - before[n].get(d, 0) for d, c in getattr(attn, n).launches_by_d.items()
+                if c != before[n].get(d, 0)} for n in counters}
+    assert made == {"fused_qkv_attention": {80: 5, 160: 5}, "flash_attention": {40: 5},
+                    "flash_attention_split": {}, "flash_attention_packed": {},
+                    "flash_attention_transposed": {}}
+    assert out.shape == (1, 4, 64, 64) and torch.isfinite(out).all()
 
 
 @pytest.mark.parametrize("s", [1, 65, 300, 1000])

@@ -59,17 +59,22 @@ def test_resnet_block(vae):
     _close(mod(_nchw(x), None if vae else torch.from_numpy(temb)), want)
 
 
-@pytest.mark.parametrize("hw,linear", [(8, False), (16, True), (49, True)],
-                         ids=["plain-conv", "fused-qkv-route", "flash-route"])
-def test_transformer2d(hw, linear):
+@pytest.mark.parametrize("hw,linear,heads,head_dim", [
+    (8, False, 2, 64), (16, True, 2, 64), (49, True, 2, 64),
+    # SD 1.x: 8 heads of 40 and of 80, conv proj_in
+    (16, False, 8, 40), (49, False, 8, 40), (16, False, 8, 80), (49, False, 8, 80)],
+    ids=["plain-conv", "fused-qkv-route", "flash-route", "sd14-d40-fused-qkv-route",
+         "sd14-d40-flash-route", "sd14-d80-fused-qkv-route", "sd14-d80-flash-route"])
+def test_transformer2d(hw, linear, heads, head_dim):
     """Tokens 64 / 256 / 2401 take the plain, fused-qkv and flash routes."""
-    x = _rand((1, hw, hw, 128), 2)
+    c = heads * head_dim
+    x = _rand((1, hw, hw, c), 2)
     ctx = _rand((1, 77, 32), 3)
-    jmod = jlayers.Transformer2D(heads=2, head_dim=64, depth=1,
+    jmod = jlayers.Transformer2D(heads=heads, head_dim=head_dim, depth=1,
                                  use_linear_projection=linear, norm_groups=8)
     params = jmod.init(jax.random.key(1), x, ctx)
     want = np.asarray(jax.jit(jmod.apply)(params, x, ctx)).transpose(0, 3, 1, 2)
-    mod = layers.Transformer2D(128, 2, 64, 32, depth=1,
+    mod = layers.Transformer2D(c, heads, head_dim, 32, depth=1,
                                use_linear_projection=linear, norm_groups=8)
     bridge.load_tree_(mod, params)
     with torch.no_grad():

@@ -1,5 +1,5 @@
-"""The PyTorch port runs where jax is not installed: importing it and driving
-its tiny pipeline (prompt -> guided DPM++ generation -> VAE decode -> encode
+"""The PyTorch port runs where jax is not installed: importing it (its tools
+and ``chip_smoke.py`` included) and driving its tiny pipeline (prompt -> guided DPM++ generation -> VAE decode -> encode
 -> inversion -> decode), its per-user-key path (multikey embed, both trace
 searches) and its robustness bench (a short sweep, the Tree-Ring functions)
 must load none of jax, flax, transformers, cryptography or safetensors; the
@@ -35,6 +35,13 @@ def test_port_imports_no_jax():
         from gswm_torch.cli import gs_distort  # noqa: F401
         from gswm_torch.eval import datasets, detection, report, sweep  # noqa: F401
         from gswm_torch.treering import compat  # noqa: F401
+        from gswm_torch.tools import compare_kernels, profile_paths  # noqa: F401
+        from gswm_torch.models.configs import PRESETS
+        from gswm_torch.pipelines import inversable
+        inversable._check_served_on_cuda(PRESETS["sd-1-4"], torch.bfloat16)
+        assert [attention.kernel_head_dim(d) for d in (40, 80, 160)] == [64, 128, 192]
+        import runpy
+        runpy.run_path("chip_smoke.py", run_name="not_main")  # its imports alone
         cfg = GSConfig(key_hex="22" * 32, nonce_hex="33" * 16, message="x",
                        width=64, height=64, message_bits=32)
         zt, _ = embed_latents(cfg, generator=torch.Generator().manual_seed(0),

@@ -107,15 +107,19 @@ def test_extract_bits_is_invert_plus_decode(pipes):
 
 def test_unported_options_raise():
     """SDXL is ported: sdxl-base builds on the meta device (nothing
-    allocated) with both text encoders at full size; what is still refused
-    is refused on a CUDA device (tests/test_torch_device_default.py)."""
+    allocated) with both text encoders at full size; SD 1.x passes the CUDA
+    check in bfloat16 and builds on the meta device; what is still refused
+    (other dtypes, head dims off the kernels' domain) is refused on a CUDA
+    device (tests/test_torch_device_default.py)."""
     pipe = InversablePipeline("sdxl-base", device="meta")
     assert pipe.text2 is not None and pipe.text2_projection is None
     assert sum(p.numel() for p in pipe.unet.parameters()) == 2_567_463_684
     assert pipe.unet.conv_in.weight.dtype == torch.bfloat16
     assert pipe.text2.text_model.final_layer_norm.weight.device.type == "meta"
-    with pytest.raises(NotImplementedError, match="heads are"):
-        InversablePipeline("sd-1-4", device="cuda")
+    sd14 = InversablePipeline("sd-1-4", device="meta")
+    assert sd14.unet.conv_in.weight.dtype == torch.bfloat16
+    with pytest.raises(NotImplementedError, match="bfloat16 only"):
+        InversablePipeline("sd-1-4", device="cuda", dtype=torch.float32)
 
 
 def _embedded(seed=5):

@@ -223,6 +223,32 @@ def test_route_matches_jax_predicates_on_sd21(name, monkeypatch):
     assert tier in seen
 
 
+# sd-1-4's self-attention sites at 512x512: (tokens, channels, heads), 8 heads
+# of 40, 80 and 160; the mid block's 64 tokens stay plain on both sides
+SD14_SITES = [(4096, 320, 8), (1024, 640, 8), (256, 1280, 8)]
+# (switch set, batch, tokens) -> (JAX route, port route): the JAX transposed
+# tier takes any head_dim % 8 == 0 at a batch of 8, the port's kernel 64 only
+SD14_DIVERGENCES = {("transposed", 8, 4096): ("transposed", "split")}
+
+
+@pytest.mark.parametrize("name", list(SWITCH_SETS))
+def test_route_matches_jax_predicates_on_sd14(name, monkeypatch):
+    """sd-1-4 at its batch 4 and 8 (guidance): level 0 takes xf (K2 at
+    d = 40), levels 1 and 2 fused_qkv (K1 at 80 and 160) by default, as the
+    JAX package's own predicates decide."""
+    _set_switches(monkeypatch, SWITCH_SETS[name])
+    for batch in (4, 8):
+        for s, c, h in SD14_SITES:
+            mod = JAttention(heads=h, head_dim=c // h, dtype=jnp.bfloat16)
+            want = _jax_route(mod, jax.ShapeDtypeStruct((batch, s, c), jnp.bfloat16))
+            got = attn.route_self_attention(s, c // h)
+            assert (want, got) == SD14_DIVERGENCES.get((name, batch, s), (want, want)), \
+                (name, batch, s, c, h)
+    if name == "default":
+        assert [attn.route_self_attention(s, c // h) for s, c, h in SD14_SITES] == \
+            ["xf", "fused_qkv", "fused_qkv"]
+
+
 def test_route_windows_follow_the_seq_switches(monkeypatch):
     _set_switches(monkeypatch, {"GSWM_XF_ATTN_MIN_SEQ": "5000",
                                 "GSWM_FUSED_QKV_MAX_SEQ": "1000",
