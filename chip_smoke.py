@@ -12,8 +12,10 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
   2. kernels  — each kernel against its plain PyTorch version on the card at
                 every shape the paths below give it, with the stated bounds;
                 CUDA-event times of both, the least time the card could take
-                (bound_ms, gswm_torch/roofline.py: FLOP over 989 TFLOP/s or
-                bytes over 3.35 TB/s) and the time of one PyTorch call for
+                (bound_ms, gswm_torch/roofline.py: FLOP over 989 TFLOP/s,
+                attention's exponentials over 3.865e12/s, or bytes over 3.35
+                TB/s; bound_by "operations" for either of the first two, the
+                one that binds in "roof") and the time of one PyTorch call for
                 the same function on the same tensors (library_ms: a
                 yardstick the port never calls; the library's attention with
                 its fused backends and, where those refuse the tensors, with
@@ -23,7 +25,9 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
                 channels, K2 at 4096 tokens of 10 heads, K4 at 16,384
                 tokens, K3 at 128 blocks; SD 1.x's at 512x512: K2 at 4096
                 tokens of 8 heads of 40 (batch 4 and 8) and ragged (1, 1001,
-                3, 40), K1 at (4 and 8, 1024, 640, 8 heads of 80) and (4 and
+                3, 40), beside it K2 at d = 8, 24 and 48 (flash_hopper.cu's
+                narrow kernel) and 56 (its d <= 64 kernel), K1 at (4 and 8,
+                1024, 640, 8 heads of 80) and (4 and
                 8, 256, 1280, 8 of 160), K4 at (4, 1024, 8, 80), (1, 1000,
                 2, 160) and a width no SD model uses, (2, 1000, 3, 72); K1,
                 K2 and K4 are held to the bounds head by head, and their
@@ -32,8 +36,13 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
                 against x @ W^T in fp32.  The JSON line's ms, plain_ms,
                 bound_ms and library_ms sum a kernel's shapes; its
                 max_abs_err is their maximum.  K4 (csrc/flash_split.cu)
-                also at D = 128 and 192 beside the VAE's 512, K7 also at an
-                S % 8 != 0 shape, which its masked kernel serves.  K8
+                also at D = 128 and 192 beside the VAE's 512.  K7 at the
+                level-0 shapes at D = 64, at SD 1.x's (4 and 8, 4096, 8
+                heads of 40) of switch set (c), at (4, 1024, 8, 80), (4,
+                256, 8, 160), (2, 1000, 3, 72) and (1, 1024, 1, 512) (its
+                split kernel), and at S % 8 != 0 shapes, which its masked
+                kernel serves: (1, 1001, 3, 64), (1, 1001, 3, 40) and (1,
+                1001, 2, 160); held head by head.  K8
                 (fused GroupNorm) at every distinct (shape, eps, act) of the
                 768x768 path's GroupNorms, collected by forward hooks during
                 one UNet forward at batch 2 and at 4, one VAE decode of one
@@ -143,13 +152,16 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
            images in [0, 1], generation and extraction images/s (second
            pass) beside sd-2-1-base's phase 3b rate;
        (c) one UNet forward under switch sets (a) cres (K2 at d = 40), (c)
-           transposed (the split kernel at d = 40: the port's route) and (e)
+           transposed (K7 at d = 40, 5 launches, the split kernel none: the
+           reference's own route at the guided batch of 8) and (e)
            GSWM_FUSED_QKV=0 (the split kernel at d = 80 at level 1, plain at
-           level 2), within TIER_REL_BOUND of the default route's;
+           level 2), within TIER_REL_BOUND of the default route's; (c)'s
+           difference from (a) printed beside;
        (d) one UNet forward at batch 4 and at 8, ms (CUDA events).
      Launches by head dim, exact: K1 5 at d = 80 and 5 at 160 a forward, K2
      5 at 40; K4 on the default route, K6, K7, K8 and the batch kernel
-     never; K3 once after the keystream caches are cleared.
+     never (K7 5 at d = 40 in (c)); K3 once after the keystream caches are
+     cleared.
  11. summary  — a JSON line of the kernels, then the JSON result line.
 Each path's launch counts are set to 0 just before it and read just after.
 """
@@ -223,13 +235,14 @@ SDXL_K2 = (2 + 3) * 2
 # tokens stay plain
 SD14_PER_FORWARD = {"fused_qkv_attention": {80: 5, 160: 5}, "flash_attention": {40: 5}}
 # the same under three switch sets of paths.TIER_SWITCHES: (a) cres, K2 at
-# level 0; (c) transposed with xf and cres off: the split kernel at d = 40 (the
-# transposed kernel takes 64 alone, so the port's route goes on to split, where
-# the reference's takes its transposed kernel at a batch of 8); (e) no fused
-# qkv: the split kernel at d = 80 at level 1, plain attention at level 2
+# level 0; (c) transposed with xf and cres off: K7 at d = 40 at level 0, the
+# split kernel never (the reference's route at its guided batch of 8, where
+# its batch % 8 gate passes; the port drops that gate, so batch 4 too); (e)
+# no fused qkv: the split kernel at d = 80 at level 1, plain attention at
+# level 2
 SD14_TIER_LAUNCHES = {
     "a": {"flash_attention": {40: 5}, "fused_qkv_attention": {80: 5, 160: 5}},
-    "c": {"flash_attention_split": {40: 5}, "fused_qkv_attention": {80: 5, 160: 5}},
+    "c": {"flash_attention_transposed": {40: 5}, "fused_qkv_attention": {80: 5, 160: 5}},
     "e": {"flash_attention": {40: 5}, "flash_attention_split": {80: 5}},
 }
 # gswm/pipelines/inversable.py:330-348: VAE calls take vae_chunk images at
@@ -450,12 +463,12 @@ def _check_every_head(label: str, got, want) -> None:
 def _record(records: dict, name: str, err: float, ms: float, plain: float,
             bound: tuple, library) -> None:
     rec = records.setdefault(name, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
-                                        bound_ms=0.0, bound_by={}, library_ms=0.0))
+                                        bound_ms=0.0, roof={}, library_ms=0.0))
     rec["max_abs_err"] = max(rec["max_abs_err"], err)
     rec["ms"] += ms
     rec["plain_ms"] += plain
     rec["bound_ms"] += bound[0]
-    rec["bound_by"][bound[1]] = rec["bound_by"].get(bound[1], 0.0) + bound[0]
+    rec["roof"][bound[1]] = rec["roof"].get(bound[1], 0.0) + bound[0]
     # one refused shape leaves the kernel's sum without a yardstick
     rec["library_ms"] = None if library is None or rec["library_ms"] is None \
         else rec["library_ms"] + library
@@ -523,9 +536,9 @@ def phase_kernels(gn_cases) -> dict:
         del got, want
 
     # (label, record, kernel, plain version, library call given the attention
-    # function to use, (FLOP, bytes), iterations, the output's (B, S, H, D)
-    # view or None) at the shapes of gswm_torch/tools/paths.py.  Costs count
-    # the true head dim, not the panels the kernels pad it to
+    # function to use, (FLOP, bytes, exponentials), iterations, the output's
+    # (B, S, H, D) view or None) at the shapes of gswm_torch/tools/paths.py.
+    # Costs count the true head dim, not the panels the kernels pad it to
     cases = []
     for b, s, c, h, d in paths.K1_SHAPES:
         x = rand(b, s, c)
@@ -586,18 +599,19 @@ def phase_kernels(gn_cases) -> dict:
                           *(t.unflatten(-1, (2 * pairs, 64)).transpose(1, 2)
                             for t in qkv.split(pairs * 128, dim=-1))),
                       roofline.attention_cost(b, s, s, h, 64), 10, None))
-    # K7's last shape (S % 8 != 0) takes its masked kernel, the rest the
-    # wgmma + TMA one
-    for b, s, h in paths.K7_SHAPES:
-        qkv_t = rand(3 * h * 64, b, s)
-        cases.append((f"K7 flash_transposed (B={b}, S={s}, H={h})",
+    # K7: S % 8 != 0 takes its masked kernel, the rest a wgmma + TMA one
+    # (d > 64: the split one); every head on its own scale
+    for b, s, h, d in paths.K7_SHAPES:
+        qkv_t = rand(3 * h * d, b, s)
+        cases.append((f"K7 flash_transposed (B={b}, S={s}, H={h}, D={d})",
                       "flash_attention_transposed",
                       lambda qkv_t=qkv_t, h=h: attn.flash_attention_transposed(qkv_t, h),
                       lambda qkv_t=qkv_t, h=h: attn.flash_attention_transposed_reference(
                           qkv_t.float(), h),
-                      lambda sdpa, qkv_t=qkv_t, b=b, s=s, h=h: sdpa(
-                          *qkv_t.view(3, h, 64, b, s).permute(0, 3, 1, 4, 2)),
-                      roofline.attention_cost(b, s, s, h, 64), 10, None))
+                      lambda sdpa, qkv_t=qkv_t, b=b, s=s, h=h, d=d: sdpa(
+                          *qkv_t.view(3, h, d, b, s).permute(0, 3, 1, 4, 2)),
+                      roofline.attention_cost(b, s, s, h, d), 10,
+                      lambda t, b=b, s=s, h=h, d=d: t.view(h, d, b, s).permute(2, 3, 0, 1)))
     for label, name, kernel, plain_fn, library_fn, cost, iters, heads in cases:
         got = kernel().float()
         want = plain_fn()
@@ -607,7 +621,7 @@ def phase_kernels(gn_cases) -> dict:
             _check_every_head(label, heads(got), heads(want))
         ms = _time_ms(kernel, iters)
         plain = _time_ms(plain_fn, 3)
-        bound = roofline.bound_ms(*cost, roofline.PEAK_BF16)
+        bound = roofline.attention_bound_ms(cost)
         lib, backend = _attention_library_ms(library_fn, iters)
         print(f"{label}: max|err| {err:.5f} (bound {ATTN_BOUND}), max|want| "
               f"{top:.5f}, err/max|want| {err / top:.5f} (bound {ATTN_REL_BOUND}); "
@@ -651,7 +665,8 @@ def phase_kernels(gn_cases) -> dict:
           f"{records['fused_group_norm']['ms']:.4f} ms against a bound of "
           f"{records['fused_group_norm']['bound_ms']:.4f} ms", flush=True)
     for rec in records.values():  # the roof behind most of the summed bound
-        rec["bound_by"] = max(rec["bound_by"], key=rec["bound_by"].get)
+        rec["roof"] = max(rec["roof"], key=rec["roof"].get)
+        rec["bound_by"] = "bytes" if rec["roof"] == "bytes" else "operations"
     return records
 
 
@@ -1418,11 +1433,12 @@ def phase_sd14(card: str, rate_3b: float) -> dict:
     if made != SD14_PER_FORWARD or not torch.isfinite(default).all():
         raise AssertionError(f"one SD 1.x forward launched {made}, or its output is "
                              "not finite")
+    outs = {}
     for label, per_forward in SD14_TIER_LAUNCHES.items():
         switches = paths.TIER_SWITCHES[label]
         with paths.route_switches(switches):
             before = _counters_by_d()
-            out = forward()
+            out = outs[label] = forward()
             torch.cuda.synchronize()
             made = _by_d_since(before)
         diff = (out - default).abs().max().item()
@@ -1435,6 +1451,10 @@ def phase_sd14(card: str, rate_3b: float) -> dict:
         if not diff <= TIER_REL_BOUND * top:
             raise AssertionError(f"({label}) SD 1.x UNet output {diff} from the default "
                                  f"route's, above {TIER_REL_BOUND} x {top}")
+    diff = (outs["c"] - outs["a"]).abs().max().item()
+    print(f"(c) against (a): max|out_c - out_a| {diff:.5f}, relative {diff / top:.5f} "
+          f"(K7 against K2 at d = 40)", flush=True)
+    del outs
     counts = _counters()
 
     # (d) one UNet forward, batch 4 and 8 (guidance), outside the counted run

@@ -67,9 +67,40 @@
 //   * The output goes, normalised and rounded, through the warpgroup's own q
 //     tile and one TMA store, which drops rows at or past Sq.
 // setmaxnreg hands the producer's registers to the consumers (64 logits +
-// 32 accumulator + 32 p registers a thread).  Not done here: overlapping one
-// warpgroup's softmax with the other's wgmma, which the exponentials' roof
-// above asks for.
+// 32 accumulator + 32 p registers a thread).  This kernel serves 48 < d <= 64:
+// at d = 64 the tensor cores and the exponentials are equal roofs.
+//
+// Narrow heads, d <= 48 (SD 1.x's 40): flash_narrow_kernel.  There the
+// exponentials are the higher roof: per logit the tensor cores need 4 * d
+// FLOP at 989 TFLOP/s, the SFUs one ex2 at 16 a clock an SM (132 x 16 x
+// 1.83 GHz = 3.865e12/s), equal at d = 64, so at d = 40 the exponentials
+// take 1.6x the tensor cores' time.  The kernel above waits for its logits
+// before each softmax and for its p v before the next tile, so a
+// warpgroup's exponentials never overlap its own products.  The narrow
+// kernel, same producer, tiles and maps:
+//   * issues tile t + 1's logits (q k^T) and tile t's p v together, then
+//     runs tile t + 1's exponentials while both are on the tensor cores
+//     (wgmma_wait<1> retires the logits, the older group); the exponentials
+//     are taken in place in fp32 and rounded into p only after p v of tile
+//     t is retired, and the accumulator takes tile t + 1's rescale then;
+//   * three consumer warpgroups (192 query rows a block, 160 registers a
+//     thread) issue their products in turns, on named barriers: a
+//     warpgroup's softmax runs while the others' products do;
+//   * the row sums of the rounded p are p times a column of ones on the
+//     tensor cores (wgmma m64n8k16 against a ones tile written once), not
+//     two integer and one fp32 instruction a logit in the softmax;
+//   * ceil(d / 16) k16 steps of logits (3 at d = 40; columns 40-47 arrive
+//     as zeros) and p v at N = 48: wgmma reads the first 48 columns of each
+//     128-byte swizzled v row in place (3% faster than N = 64);
+//   * 3 stages, separate empty barriers for k and v.
+// Measured and not kept (PERF.md, section 6): a fourth and fifth stage (no
+// change), two warpgroups (14% slower), the consumers not taking turns
+// (11% slower), a quarter of the exponentials on the FMA units by a degree-5
+// polynomial (no change: the SFUs are not what binds), row sums in the
+// softmax (11% slower), a tree for the row max (its array went to local
+// memory: 2x slower).
+// Its output differs from the kernel above's in the row sums' summation
+// order alone.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -224,6 +255,231 @@ flash_hopper_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
+// ------------------------------------------------- narrow heads, d <= 48 ----
+
+constexpr int NARROW_D = 48;   // the widest head the narrow kernel takes; its p v's N
+constexpr int NARROW_WGS = 3;  // consumer warpgroups where the grid fills the card
+constexpr int TURN_BAR = 4;    // named barriers 4 .. 4 + NARROW_WGS - 1: the turns
+
+template <int NWG>
+struct SmemNarrow {
+  static constexpr int STAGES = NWG == 1 ? 2 : 3;  // one consumer: two blocks an SM
+  bf16 q[NWG][BM * D];  // later the output tile
+  bf16 k[STAGES][BN * D];
+  bf16 v[STAGES][BN * D];
+  bf16 ones[BN * D];    // the row sums' B operand: 1.0 everywhere
+  uint64_t full_q;
+  uint64_t full_k[STAGES];
+  uint64_t full_v[STAGES];
+  uint64_t empty_k[STAGES];  // every consumer warp has the logits of the stage's k
+  uint64_t empty_v[STAGES];  // every consumer warp has added the stage's p v
+};
+
+// Grid (query blocks, H, B); KS = ceil(d / 16) k16 steps of logits.  q is
+// scaled by q_scale = d^-0.5 in shared memory; the exponent folds log2(e).
+template <int NWG, int KS>
+__global__ void __launch_bounds__((NWG + 1) * 128, NWG == 1 ? 2 : 1)
+flash_narrow_kernel(const __grid_constant__ CUtensorMap map_q,
+                    const __grid_constant__ CUtensorMap map_k,
+                    const __grid_constant__ CUtensorMap map_v,
+                    const __grid_constant__ CUtensorMap map_o, int Sk, float q_scale) {
+  static_assert(KS >= 1 && 16 * KS <= NARROW_D, "at most 3 k16 steps");
+  constexpr int STAGES = SmemNarrow<NWG>::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  SmemNarrow<NWG>& sm = *reinterpret_cast<SmemNarrow<NWG>*>(align_smem(smem_raw));
+
+  const int group = threadIdx.x >> 7;  // 0: producer, 1..NWG: consumers
+  const int row0 = blockIdx.x * (NWG * BM);
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tiles = (Sk + BN - 1) / BN;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.full_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&sm.full_k[s], 1);
+      mbar_init(&sm.full_v[s], 1);
+      mbar_init(&sm.empty_k[s], NWG * 4);
+      mbar_init(&sm.empty_v[s], NWG * 4);
+    }
+    fence_mbar_init();
+  }
+  {  // the ones, by every thread, seen by wgmma after the barrier
+    uint4* ones = reinterpret_cast<uint4*>(sm.ones);
+    const uint4 one8 = {0x3f803f80u, 0x3f803f80u, 0x3f803f80u, 0x3f803f80u};
+    for (int i = threadIdx.x; i < BN * D / 8; i += (NWG + 1) * 128) ones[i] = one8;
+    fence_async_smem();
+  }
+  __syncthreads();
+
+  if (group == 0) {
+    reg_dec<NWG == 2 ? 40 : 24>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(&sm.full_q, NWG * Q_BYTES);
+      for (int w = 0; w < NWG; ++w)
+        tma_load_4d(sm.q[w], &map_q, &sm.full_q, 0, h, row0 + w * BM, b);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = 0; t < tiles; ++t) {
+        mbar_wait(&sm.empty_k[stage], phase ^ 1);
+        mbar_expect_tx(&sm.full_k[stage], KV_BYTES);
+        tma_load_4d(sm.k[stage], &map_k, &sm.full_k[stage], 0, h, t * BN, b);
+        mbar_wait(&sm.empty_v[stage], phase ^ 1);
+        mbar_expect_tx(&sm.full_v[stage], KV_BYTES);
+        tma_load_4d(sm.v[stage], &map_v, &sm.full_v[stage], 0, h, t * BN, b);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+  reg_inc<NWG == 3 ? 160 : 232>();
+  const int cw = group - 1;
+  const int warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const float exp_scale = 1.4426950408889634f;
+
+  float o[NARROW_D / 2];  // rows 16 * warp + g (lo) and + 8 (hi), 48 columns
+  float l[4];  // their row sums of the rounded p: l[0], l[1] the lo row's, l[2], l[3] the hi's
+#pragma unroll
+  for (int i = 0; i < NARROW_D / 2; ++i) o[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) l[i] = 0.0f;
+  float s[64];
+  uint32_t p[BN / 16][4];
+  float m_lo = -INFINITY, m_hi = -INFINITY;
+  float a_lo, a_hi;
+
+  const uint64_t dq = smem_desc_sw128(sm.q[cw]);
+  const uint64_t d1 = smem_desc_sw128(sm.ones);
+  mbar_wait(&sm.full_q, 0);
+  scale_tile(sm.q[cw], BM * D, q_scale, threadIdx.x & 127, 128);
+  fence_async_smem();
+  named_barrier(1 + cw, 128);
+
+  auto logits = [&](int stage) {
+    const uint64_t dk = smem_desc_sw128(sm.k[stage]);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      wgmma_m64n128k16_ss(s, dq + kk * DESC_K_STEP, dk + kk * DESC_K_STEP, kk > 0);
+    wgmma_commit();
+  };
+  // p v, and p times a column of ones: the fp32 row sums of the rounded p
+  auto pv = [&](int stage) {
+    const uint64_t dv = smem_desc_sw128(sm.v[stage]);
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      wgmma_m64n48k16_rs(o, p[kk], dv + kk * DESC_MN_STEP);
+      wgmma_m64n8k16_rs(l, p[kk], d1 + kk * DESC_MN_STEP);
+    }
+    wgmma_commit();
+  };
+  // this warpgroup's turn to issue its products, and the next one's after it
+  constexpr bool TURNS = NWG > 1;
+  auto my_turn = [&] {
+    if constexpr (TURNS) named_barrier(TURN_BAR + cw, 2 * 128);
+  };
+  auto next_turn = [&] {
+    if constexpr (TURNS) named_barrier_arrive(TURN_BAR + (cw + 1) % NWG, 2 * 128);
+  };
+  if (TURNS && cw == NWG - 1) named_barrier_arrive(TURN_BAR, 2 * 128);  // 0 goes first
+
+  // tile 0's logits and softmax (the accumulators are still zero: no rescale)
+  mbar_wait(&sm.full_k[0], 0);
+  my_turn();
+  wgmma_fence();
+  logits(0);
+  next_turn();
+  wgmma_wait<0>();
+  fence_regs(s);
+  if (lane == 0) mbar_arrive(&sm.empty_k[0]);
+  softmax_exp<BN / 8>(s, m_lo, m_hi, a_lo, a_hi, Sk, exp_scale, t4);
+  softmax_pack<BN / 8>(s, p);
+
+  // tiles 0 .. tiles - 2: tile t + 1's logits and tile t's p v in flight
+  // together, tile t + 1's exponentials under both (no product is issued
+  // under a condition: ptxas serializes wgmma it cannot prove retired before
+  // its accumulator is read)
+  int stage = 0;  // tile t's
+  uint32_t phase = 0;
+  for (int t = 0; t + 1 < tiles; ++t) {
+    const int next = stage + 1 == STAGES ? 0 : stage + 1;
+    const uint32_t next_phase = next == 0 ? phase ^ 1 : phase;
+    mbar_wait(&sm.full_k[next], next_phase);
+    mbar_wait(&sm.full_v[stage], phase);
+    my_turn();
+    wgmma_fence();
+    logits(next);
+    pv(stage);
+    next_turn();
+    wgmma_wait<1>();  // the logits, the older group; p v still runs
+    fence_regs(s);
+    if (lane == 0) mbar_arrive(&sm.empty_k[next]);
+    softmax_exp<BN / 8>(s, m_lo, m_hi, a_lo, a_hi, Sk - (t + 1) * BN, exp_scale, t4);
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(l);
+    fence_regs(p);
+    if (lane == 0) mbar_arrive(&sm.empty_v[stage]);
+    scale_rows(o, a_lo, a_hi);
+    scale_rows(l, a_lo, a_hi);
+    softmax_pack<BN / 8>(s, p);
+    stage = next;
+    phase = next_phase;
+  }
+  // the last tile's p v
+  mbar_wait(&sm.full_v[stage], phase);
+  my_turn();
+  wgmma_fence();
+  pv(stage);
+  next_turn();
+  wgmma_wait<0>();
+  fence_regs(o);
+  fence_regs(l);
+  // the last warpgroup's last turn is over: its final arrival is taken
+  if (TURNS && cw == 0) named_barrier(TURN_BAR, 2 * 128);
+
+  // normalised and rounded, through the warpgroup's own q tile; columns 48
+  // and up keep q and are dropped by the store with the rest past d
+  bf16* tile = sm.q[cw];
+  store_tile_sw128(tile, o, 1.0f / l[0], 1.0f / l[2], warp, g, t4);
+  fence_async_smem();
+  named_barrier(1 + cw, 128);
+  if ((threadIdx.x & 127) == 0) {
+    tma_store_4d(&map_o, tile, 0, h, row0 + cw * BM, b);
+    tma_store_wait();
+  }
+}
+
+template <int NWG, int KS>
+cudaError_t launch_narrow(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
+                          const CUtensorMap& mo, int B, int Sq, int Sk, int H, int d,
+                          cudaStream_t stream) {
+  constexpr int smem = (int)sizeof(SmemNarrow<NWG>) + SWIZZLE_SPAN;
+  cudaError_t e = cudaFuncSetAttribute(flash_narrow_kernel<NWG, KS>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((Sq + NWG * BM - 1) / (NWG * BM), H, B);
+  flash_narrow_kernel<NWG, KS><<<grid, (NWG + 1) * 128, smem, stream>>>(
+      mq, mk, mv, mo, Sk, 1.0f / sqrtf((float)d));
+  return cudaGetLastError();
+}
+
+template <int NWG>
+cudaError_t launch_narrow_ks(const CUtensorMap& mq, const CUtensorMap& mk,
+                             const CUtensorMap& mv, const CUtensorMap& mo, int B, int Sq,
+                             int Sk, int H, int d, cudaStream_t stream) {
+  switch ((d + 15) / 16) {
+    case 1: return launch_narrow<NWG, 1>(mq, mk, mv, mo, B, Sq, Sk, H, d, stream);
+    case 2: return launch_narrow<NWG, 2>(mq, mk, mv, mo, B, Sq, Sk, H, d, stream);
+    default: return launch_narrow<NWG, 3>(mq, mk, mv, mo, B, Sq, Sk, H, d, stream);
+  }
+}
+
 template <int NWG, bool SCALE_Q>
 cudaError_t launch(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
                    const CUtensorMap& mo, int B, int Sq, int Sk, int H, int d,
@@ -259,6 +515,12 @@ cudaError_t gswm_launch_flash_hopper(const bf16* q, const bf16* k, const bf16* v
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sm_count, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
+  if (d <= NARROW_D) {  // NARROW_WGS warpgroups a block where that fills the card
+    const int rows = NARROW_WGS * BM;
+    return (long)((Sq + rows - 1) / rows) * H * B >= sm_count
+               ? launch_narrow_ks<NARROW_WGS>(mq, mk, mv, mo, B, Sq, Sk, H, d, stream)
+               : launch_narrow_ks<1>(mq, mk, mv, mo, B, Sq, Sk, H, d, stream);
+  }
   const long blocks128 = (long)((Sq + 2 * BM - 1) / (2 * BM)) * H * B;
   const bool wide = blocks128 >= sm_count;
   if (d == D)  // the 2^-3 scale folded into the exponent, exact

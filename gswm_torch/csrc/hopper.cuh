@@ -219,6 +219,12 @@ static __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// One arrival of the calling threads at barrier `id` of `threads`, without
+// waiting: the other side of a named_barrier that only one group waits on.
+static __device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // setmaxnreg moves registers between the warpgroups of a block; every warp
 // of the warpgroup runs it.
 template <int R>
@@ -260,6 +266,18 @@ template <int N>
 static __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The same for register A fragments: called after the wgmma_wait that
+// retires the product reading them, it keeps them alive until then, so the
+// compiler cannot hand their registers to new values while the tensor cores
+// still read them.
+template <int N>
+static __device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
 // d (64 x 128 fp32) = a (64 x 16 bf16, shared, K-major) * b^T (128 x 16
@@ -367,6 +385,46 @@ static __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(TRANS_B));
 }
 
+// d (64 x 48 fp32) += a (64 x 16 bf16, registers) * b (16 x 48 bf16, shared,
+// MN-major: v of a (keys, 64) tile, of which the first 48 columns are read),
+// one warpgroup; the accumulator layout above with 6 column groups.
+static __device__ __forceinline__ void wgmma_m64n48k16_rs(float (&d)[24],
+                                                          const uint32_t (&a)[4],
+                                                          uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %28, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d (64 x 8 fp32) += a (64 x 16 bf16, registers) * b (16 x 8 bf16, shared,
+// MN-major), one warpgroup: d[0], d[1] row 16w+g, d[2], d[3] row 16w+g+8.
+static __device__ __forceinline__ void wgmma_m64n8k16_rs(float (&d)[4], const uint32_t (&a)[4],
+                                                         uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 // ------------------------------------ flash attention on the fragment ----
 // The steps the flash kernels share.  A thread of a consumer warpgroup holds,
 // of its warp's 16 rows, row g = lane / 4 ("lo") and row g + 8 ("hi"), and of
@@ -399,23 +457,18 @@ static __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// One key tile of the online softmax (the `use_max` recurrence) on the logits
-// fragment s of NG 8-key groups, of which the first `valid` keys are real
-// (at least one is): p = exp2(s * c - m * c) with the new running max m of
-// the raw logits, rounded to bf16 into wgmma's register A fragments (16 keys
-// = two neighbouring groups); m and this thread's share l of the row sums of
-// the rounded p are updated; a is the factor exp2((m_old - m) * c) the
+// The running max of one key tile of the online softmax (the `use_max`
+// recurrence) on the logits fragment s of NG 8-key groups, of which the
+// first `valid` keys are real (at least one is): m becomes the new running
+// max of the raw logits, and a the factor exp2((m_old - m) * c) the
 // accumulator's rows must be scaled by before p v is added (0 on the first
 // tile, where m_old = -inf).  Keys past `valid` arrive as zero rows from TMA
-// and would have logit 0, not -inf: they are masked here.  No logits, p or
-// factor touches shared memory: row max and row sum are two shuffles inside
-// the quad, and l stays per thread until the end.
+// and would have logit 0, not -inf: they are masked here.  Row max is two
+// shuffles inside the quad.
 template <int NG>
-static __device__ __forceinline__ void softmax_tile(float (&s)[4 * NG],
-                                                    uint32_t (&p)[NG / 2][4], float& m_lo,
-                                                    float& m_hi, float& l_lo, float& l_hi,
-                                                    float& a_lo, float& a_hi, int valid,
-                                                    float c, int t4) {
+static __device__ __forceinline__ void softmax_max(float (&s)[4 * NG], float& m_lo,
+                                                   float& m_hi, float& a_lo, float& a_hi,
+                                                   int valid, float c, int t4) {
   if (valid < 8 * NG) {
 #pragma unroll
     for (int j = 0; j < NG; ++j) {
@@ -436,8 +489,22 @@ static __device__ __forceinline__ void softmax_tile(float (&s)[4 * NG],
   a_hi = exp2_approx((m_hi - n_hi) * c);
   m_lo = n_lo;
   m_hi = n_hi;
-  const float off_lo = -n_lo * c;
-  const float off_hi = -n_hi * c;
+}
+
+// One key tile of the online softmax: p = exp2(s * c - m * c) with the new
+// running max m (softmax_max), rounded to bf16 into wgmma's register A
+// fragments (16 keys = two neighbouring groups); this thread's share l of
+// the row sums of the rounded p is updated.  No logits, p or factor touches
+// shared memory, and l stays per thread until the end.
+template <int NG>
+static __device__ __forceinline__ void softmax_tile(float (&s)[4 * NG],
+                                                    uint32_t (&p)[NG / 2][4], float& m_lo,
+                                                    float& m_hi, float& l_lo, float& l_hi,
+                                                    float& a_lo, float& a_hi, int valid,
+                                                    float c, int t4) {
+  softmax_max<NG>(s, m_lo, m_hi, a_lo, a_hi, valid, c, t4);
+  const float off_lo = -m_lo * c;
+  const float off_hi = -m_hi * c;
   float sum_lo = 0.0f, sum_hi = 0.0f;
 #pragma unroll
   for (int kk = 0; kk < NG / 2; ++kk) {
@@ -454,6 +521,40 @@ static __device__ __forceinline__ void softmax_tile(float (&s)[4 * NG],
   }
   l_lo = l_lo * a_lo + sum_lo;
   l_hi = l_hi * a_hi + sum_hi;
+}
+
+// The same tile in two halves, for a kernel that runs other work between
+// them: s becomes p = exp2(s * c - m * c) in place, in fp32
+// (softmax_exp), then p is rounded to bf16 into its A fragments
+// (softmax_pack); the row sums are the caller's.
+template <int NG>
+static __device__ __forceinline__ void softmax_exp(float (&s)[4 * NG], float& m_lo,
+                                                   float& m_hi, float& a_lo, float& a_hi,
+                                                   int valid, float c, int t4) {
+  softmax_max<NG>(s, m_lo, m_hi, a_lo, a_hi, valid, c, t4);
+  const float off_lo = -m_lo * c;
+  const float off_hi = -m_hi * c;
+#pragma unroll
+  for (int j = 0; j < NG; ++j) {
+    s[4 * j] = exp2_approx(fmaf(s[4 * j], c, off_lo));
+    s[4 * j + 1] = exp2_approx(fmaf(s[4 * j + 1], c, off_lo));
+    s[4 * j + 2] = exp2_approx(fmaf(s[4 * j + 2], c, off_hi));
+    s[4 * j + 3] = exp2_approx(fmaf(s[4 * j + 3], c, off_hi));
+  }
+}
+
+template <int NG>
+static __device__ __forceinline__ void softmax_pack(const float (&s)[4 * NG],
+                                                    uint32_t (&p)[NG / 2][4]) {
+#pragma unroll
+  for (int kk = 0; kk < NG / 2; ++kk) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int j = 2 * kk + half;
+      p[kk][2 * half] = pack_bf16(s[4 * j], s[4 * j + 1]);
+      p[kk][2 * half + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
+    }
+  }
 }
 
 // The n bf16 of a shared tile (n % 8 == 0, 16-byte aligned) times `scale` in
@@ -477,11 +578,12 @@ static __device__ __forceinline__ void scale_tile(bf16* tile, int n, float scale
   }
 }
 
-// The 64 x 64 accumulator fragment o with its lo rows times a_lo, hi rows
-// times a_hi.
-static __device__ __forceinline__ void scale_rows(float (&o)[32], float a_lo, float a_hi) {
+// The 64 x (N / 4 * 8) accumulator fragment o with its lo rows times a_lo,
+// hi rows times a_hi.
+template <int N>
+static __device__ __forceinline__ void scale_rows(float (&o)[N], float a_lo, float a_hi) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < N / 4; ++j) {
     o[4 * j] *= a_lo;
     o[4 * j + 1] *= a_lo;
     o[4 * j + 2] *= a_hi;
@@ -489,16 +591,19 @@ static __device__ __forceinline__ void scale_rows(float (&o)[32], float a_lo, fl
   }
 }
 
-// The fragment o, rows scaled and rounded to bf16, into a 64 x 64 tile laid
-// out as TMA's 128-byte swizzle wants it: the 16-byte chunk c of row r sits
-// at chunk c ^ (r % 8).  `warp` is the warp's index in its warpgroup.
-static __device__ __forceinline__ void store_tile_sw128(void* tile_base, const float (&o)[32],
+// The fragment o of N / 4 column groups, rows scaled and rounded to bf16,
+// into a 64 x 64 tile laid out as TMA's 128-byte swizzle wants it: the
+// 16-byte chunk c of row r sits at chunk c ^ (r % 8); columns past the
+// fragment's keep what the tile held.  `warp` is the warp's index in its
+// warpgroup.
+template <int N>
+static __device__ __forceinline__ void store_tile_sw128(void* tile_base, const float (&o)[N],
                                                         float inv_lo, float inv_hi, int warp,
                                                         int g, int t4) {
   unsigned char* tile = static_cast<unsigned char*>(tile_base);
   const int r_lo = warp * 16 + g;  // r_lo % 8 == (r_lo + 8) % 8 == g
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < N / 4; ++j) {
     const int at = ((j ^ g) << 4) + t4 * 4;
     *reinterpret_cast<uint32_t*>(tile + r_lo * ROW_BYTES + at) =
         pack_bf16(o[4 * j] * inv_lo, o[4 * j + 1] * inv_lo);

@@ -41,8 +41,8 @@ _SIGNATURES = {
     "gswm_flash_split": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
     # qkv, out, B, S, P (head pairs), stream
     "gswm_flash_packed": [_VP, _VP, _I, _I, _I, _VP],
-    # qkv_t, out_t, B, S, H, stream
-    "gswm_flash_transposed": [_VP, _VP, _I, _I, _I, _VP],
+    # qkv_t, out_t, B, S, H, D (head dim), stream
+    "gswm_flash_transposed": [_VP, _VP, _I, _I, _I, _I, _VP],
     # x, weight, bias, out, B, C, HW, G, eps, act, stream
     "gswm_group_norm": [_VP] * 4 + [_I] * 4 + [_F, _I, _VP],
 }

@@ -2,11 +2,14 @@
 
 Four kernels, hand-written CUDA for Hopper (``gswm_torch/csrc``), all on
 wgmma + TMA, behind six wrappers; ``route_self_attention`` picks the UNet's
-tier as the JAX package does.  The natural, split and fused-qkv layouts take
-any head dim d with d % 8 == 0 up to 512 (``kernel_head_dim``): every
-d <= 64 runs the one kernel of csrc/flash_hopper.cu, every wider d the
-kernel of csrc/flash_split.cu at d rounded up to a multiple of 64; the
-kernels' tensor maps zero-fill the columns past d (SD 1.x: 40, 80, 160):
+tier as the JAX package does.  Every layout but the pair-packed one takes
+any head dim d with d % 8 == 0 up to 512 (``kernel_head_dim``): in the
+natural, split and fused-qkv layouts every d <= 64 runs the kernels of
+csrc/flash_hopper.cu (its narrow one at d <= 48), every wider d the kernel
+of csrc/flash_split.cu at d rounded up to a multiple of 64; the transposed
+layout has the same split at 64 in csrc/flash_transposed.cu; the kernels'
+tensor maps zero-fill the columns (transposed: rows) past d (SD 1.x: 40, 80,
+160):
 
   * ``flash_attention_split`` — split-layout flash attention on
     (B, S, H, D) q/k/v: csrc/flash_hopper.cu up to D = 64,
@@ -24,10 +27,11 @@ kernels' tensor maps zero-fill the columns past d (SD 1.x: 40, 80, 160):
     strided views of one pair-packed (B, S, 3*P*128) qkv array.  Port of
     the Pallas ``flash_attention_packed``; the ``packed`` route.
   * ``flash_attention_transposed`` (csrc/flash_transposed.cu) — flash
-    attention on the (3*H*64, B, S) transposed projection output, the
-    tiles read as they lie (MN-major q and k).  Port of the Pallas
+    attention on the (3*H*D, B, S) transposed projection output, the
+    tiles read as they lie (MN-major q and k); D split across two consumer
+    warpgroups above 64.  Port of the Pallas
     ``flash_attention_transposed``; the ``transposed`` route.  Where S is
-    no multiple of 8 no tensor map can address the rows, and a second,
+    no multiple of 8 no tensor map can address the rows, and a third,
     masked kernel (mma.sync) serves the shape.
   * ``fused_qkv_attention`` (csrc/fused_qkv.cu, then the kernel of the
     head dim) — the bias-free q/k/v projections in a hand-written wgmma +
@@ -57,9 +61,9 @@ import torch
 
 from gswm_torch import native
 
-HEAD_DIM = 64  # the packed and transposed kernels' head dim (SD 2.x, SDXL)
-# the head dims the natural, split and fused-qkv kernels take: d % 8 == 0
-# (16-byte rows for the tensor maps), 8 <= d <= 512
+HEAD_DIM = 64  # the packed kernel's head dim (SD 2.x, SDXL)
+# the head dims every other attention kernel takes: d % 8 == 0 (16-byte rows
+# for the tensor maps), 8 <= d <= 512
 KERNEL_MAX_HEAD_DIM = 512
 
 # The JAX package's routing defaults (gswm/models/layers.py:224-386): the
@@ -83,16 +87,18 @@ def _seq_switch(name: str, default: int) -> int:
 
 
 def kernel_takes_head_dim(d: int) -> bool:
-    """Whether the natural, split and fused-qkv kernels take head dim ``d``:
-    d % 8 == 0 and 8 <= d <= 512."""
+    """Whether the attention kernels (all but the pair-packed one) take head
+    dim ``d``: d % 8 == 0 and 8 <= d <= 512."""
     return 8 <= d <= KERNEL_MAX_HEAD_DIM and d % 8 == 0
 
 
 def kernel_head_dim(d: int) -> int:
     """The panel width the CUDA kernels compute head dim ``d`` at: 64 for
-    d <= 64 (csrc/flash_hopper.cu), else d rounded up to a multiple of 64
-    (csrc/flash_split.cu's templates, 128 ... 512).  Raises ValueError for
-    a d the kernels do not take (``kernel_takes_head_dim``)."""
+    d <= 64 (csrc/flash_hopper.cu; the transposed layout's first kernel),
+    else d rounded up to a multiple of 64 (the templates of
+    csrc/flash_split.cu and of the transposed layout's split kernel, 128
+    ... 512).  Raises ValueError for a d the kernels do not take
+    (``kernel_takes_head_dim``)."""
     if not kernel_takes_head_dim(d):
         raise ValueError(f"head dim {d}: the attention kernels take d % 8 == 0, "
                          f"8 <= d <= {KERNEL_MAX_HEAD_DIM}")
@@ -115,8 +121,8 @@ def route_self_attention(seq: int, head_dim: int = HEAD_DIM) -> str:
       cres        GSWM_CRES_ATTN (on), S >= GSWM_CRES_ATTN_MIN_SEQ (2305)
       packed      GSWM_PACKED_ATTN=1, head_dim 64,
                   S >= GSWM_PACKED_ATTN_MIN_SEQ (2305)
-      transposed  GSWM_TRANSPOSED_ATTN=1, head_dim 64 (the kernel's),
-                  S >= GSWM_TRANSPOSED_ATTN_MIN_SEQ (2305)
+      transposed  GSWM_TRANSPOSED_ATTN=1, head_dim as ``kernel_head_dim``
+                  takes it, S >= GSWM_TRANSPOSED_ATTN_MIN_SEQ (2305)
       fused_qkv   GSWM_FUSED_QKV not 0, 256 <= S <= GSWM_FUSED_QKV_MAX_SEQ
                   (2304)
       split       S >= GSWM_FLASH_MIN_SEQ (1024)
@@ -134,8 +140,10 @@ def route_self_attention(seq: int, head_dim: int = HEAD_DIM) -> str:
         GSWM_PACKED_ATTN_MAX_SEQ only widens that gate, so it changes no
         route here;
       * ``transposed_attention_fits`` fails: always below a batch of 8 (the
-        TPU's 8-sublane DMA), so at every batch SD runs; and the JAX
-        package admits any head_dim % 8 == 0, the port only 64;
+        TPU's 8-sublane DMA), so at every batch sd-2-1 runs, and at sd-1-4's
+        batch 4 (its batch 8 under guidance passes the gate, and both
+        packages take transposed there); the JAX package also refuses
+        head_dim % 8 != 0, and so does ``kernel_takes_head_dim``;
       * ``fused_qkv_attention_fits`` fails (576 tokens at 1280 channels,
         768x768 level 2): the JAX package takes the split or plain path,
         the port K1.
@@ -157,7 +165,8 @@ def route_self_attention(seq: int, head_dim: int = HEAD_DIM) -> str:
     if os.environ.get("GSWM_PACKED_ATTN", "0") == "1" and head_dim == HEAD_DIM and \
             seq >= _seq_switch("GSWM_PACKED_ATTN_MIN_SEQ", TIER_MIN_SEQ):
         return "packed"
-    if os.environ.get("GSWM_TRANSPOSED_ATTN", "0") == "1" and head_dim == HEAD_DIM and \
+    if os.environ.get("GSWM_TRANSPOSED_ATTN", "0") == "1" and \
+            kernel_takes_head_dim(head_dim) and \
             seq >= _seq_switch("GSWM_TRANSPOSED_ATTN_MIN_SEQ", TIER_MIN_SEQ):
         return "transposed"
     if os.environ.get("GSWM_FUSED_QKV", "1") != "0" and FUSED_QKV_MIN_SEQ <= seq <= \
@@ -442,8 +451,9 @@ def flash_attention_transposed(qkv_t: torch.Tensor, heads: int) -> torch.Tensor:
     ``gswm.ops.attention.flash_attention_transposed``.
 
     CPU: ``flash_attention_transposed_reference`` (any D).  CUDA: the kernels
-    of csrc/flash_transposed.cu (bf16, D = 64, any B and S: wgmma + TMA where
-    S % 8 == 0, the masked kernel elsewhere)."""
+    of csrc/flash_transposed.cu (bf16, D as ``kernel_head_dim`` takes it, any
+    B and S: wgmma + TMA where S % 8 == 0, D split across two warpgroups
+    above 64; the masked kernel elsewhere)."""
     if qkv_t.dim() != 3 or qkv_t.shape[0] % (3 * heads):
         raise ValueError(f"flash_attention_transposed: qkv_t {tuple(qkv_t.shape)} "
                          f"is not (3 * {heads} * D, B, S)")
@@ -453,15 +463,14 @@ def flash_attention_transposed(qkv_t: torch.Tensor, heads: int) -> torch.Tensor:
         raise ValueError(f"flash_attention_transposed: unsupported device {qkv_t.device}")
     _check_cuda_bf16("flash_attention_transposed", qkv_t)
     n3, b, s = qkv_t.shape
-    if n3 != 3 * heads * HEAD_DIM:
-        raise ValueError(f"flash_attention_transposed: the kernel takes head dim "
-                         f"{HEAD_DIM}, got {n3 // (3 * heads)}")
-    out = qkv_t.new_empty((heads * HEAD_DIM, b, s))
+    d = n3 // (3 * heads)
+    kernel_head_dim(d)
+    out = qkv_t.new_empty((heads * d, b, s))
     lib = native.library()
     with torch.cuda.device(qkv_t.device):
         lib.call("gswm_flash_transposed", qkv_t.data_ptr(), out.data_ptr(), b, s,
-                 heads, native.stream_handle(qkv_t.device))
-    _count(flash_attention_transposed, HEAD_DIM)
+                 heads, d, native.stream_handle(qkv_t.device))
+    _count(flash_attention_transposed, d)
     return out
 
 

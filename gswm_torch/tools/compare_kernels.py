@@ -2,7 +2,7 @@
 card.
 
     python -m gswm_torch.tools.compare_kernels --parent DIR [--out FILE.json]
-        [--cases attention,k8,k3]
+        [--cases attention,k8,k3] [--match TEXT]
 
 DIR is a second checkout of the repository (for example ``git archive`` of
 the parent commit unpacked into a git-ignored directory).  Both kernel
@@ -10,11 +10,13 @@ libraries are built (each in its own ``build/``) and called through their C
 entry points on the same tensors, so nothing but the kernels differs:
 
   * flash attention at every shape ``chip_smoke.py`` phase 2 gives it whose
-    head dim is a multiple of 64 (the widths every checkout's kernels take):
-    D = 64 (natural layout, K1's core, the split wrapper's ragged shape,
-    packed), the split layout from D = 128 up (K4), and the transposed
-    layout (K7); CUDA-event times in the order parent, change, change,
-    parent;
+    head dim is at most 64 or a multiple of 64: D <= 64 (natural layout, K2
+    at D = 40 and flash_hopper.cu's narrow kernel among them, K1's core, the
+    split wrapper's ragged shape, packed), the split layout from D = 128 up
+    (K4), and the transposed layout (K7), whose ``gswm_flash_transposed``
+    each side is called with the arguments its library declares (the head
+    dim since K7 takes any, none before: such a side is timed at D = 64
+    alone); CUDA-event times in the order parent, change, change, parent;
   * fused-qkv self-attention (GEMM + core) at K1's shapes of those widths,
     likewise, and the device time of each side's ``qkv_proj_kernel`` alone
     from ``torch.profiler``; each side's ``gswm_fused_qkv_attn`` is called
@@ -30,6 +32,8 @@ entry points on the same tensors, so nothing but the kernels differs:
     ``paths.K3_BATCH_SHAPES``, where a side without ``batch_keystream_bits``
     takes what its callers had: ``keystream_bits`` row by row.
 
+``--match`` keeps only the attention cases whose label holds TEXT (say
+``"K2 (4, 4096, 8, "`` for K2 at SD 1.x's level 0 and the narrow widths).
 Prints a line per case and, last, one JSON object; ``--out`` also writes it.
 """
 
@@ -54,10 +58,10 @@ FLASH_SHAPES = tuple(case for case in (  # (label, B, Sq, Sk, H, D)
     *((f"K2 ({b}, {s}, {h}, {d})", b, s, s, h, d) for b, s, h, d in paths.K2_SHAPES),
     *((f"K4 ({b}, {s}, {h}, {d})", b, s, s, h, d) for b, s, h, d in paths.K4_SHAPES),
     *((f"K1 core ({b}, {s}, {h}, {d})", b, s, s, h, d)
-      for b, s, _, h, d in paths.K1_SHAPES)) if case[-1] % 64 == 0)
+      for b, s, _, h, d in paths.K1_SHAPES)) if case[-1] <= 64 or case[-1] % 64 == 0)
 PACKED_SHAPES = tuple((b, s, paths.pairs_of(h))  # (B, S, P)
                       for b, s, h in paths.LEVEL0_SHAPES)
-TRANSPOSED_SHAPES = paths.K7_SHAPES  # (B, S, H)
+TRANSPOSED_SHAPES = paths.K7_SHAPES  # (B, S, H, D)
 K1_SHAPES = tuple(shape for shape in paths.K1_SHAPES if shape[-1] == 64)  # (B, S, C, H, D)
 
 
@@ -270,6 +274,8 @@ def main() -> None:
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--cases", default="attention,k8,k3",
                     help="which of attention, k8, k3 to time (comma-separated)")
+    ap.add_argument("--match", default="",
+                    help="time only the attention cases whose label holds this")
     args = ap.parse_args()
     cases = set(args.cases.split(","))
     if not cases or cases - {"attention", "k8", "k3"}:
@@ -295,18 +301,21 @@ def main() -> None:
     if "k3" in cases:
         result["chacha"] = compare_chacha(parent_chacha, args.iters)
     if "attention" in cases:
-        result.update(compare_attention(libs, rand, stream, args.iters))
+        result.update(compare_attention(libs, rand, stream, args.iters, args.match))
     print(json.dumps(result))
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(result, indent=1))
 
 
-def compare_attention(libs: dict, rand, stream: int, iters: int) -> dict:
-    """The flash kernels and K1's GEMM through their C entry points."""
+def compare_attention(libs: dict, rand, stream: int, iters: int, match: str = "") -> dict:
+    """The flash kernels and K1's GEMM through their C entry points; only
+    the cases whose label holds ``match``."""
     result = {"flash": [], "packed": [], "transposed": [], "fused_qkv": [],
               "host_us": {}}
     for label, b, sq, sk, h, d in FLASH_SHAPES:
+        if match not in label:
+            continue
         q, k, v = rand(b, sq, h, d), rand(b, sk, h, d), rand(b, sk, h, d)
         outs = {side: torch.empty_like(q) for side in libs}
         fns = {side: (lambda side=side: libs[side].call(
@@ -314,15 +323,17 @@ def compare_attention(libs: dict, rand, stream: int, iters: int) -> dict:
             outs[side].data_ptr(), b, sq, sk, h, d, stream)) for side in libs}
         t = in_turns(fns, iters)
         diff = (outs["parent"].float() - outs["change"].float()).abs().max().item()
-        bound, _ = roofline.bound_ms(*roofline.attention_cost(b, sq, sk, h, d),
-                                     roofline.PEAK_BF16)
+        bound, roof = roofline.attention_bound_ms(roofline.attention_cost(b, sq, sk, h, d))
         ratio = sum(t["parent"]) / sum(t["change"])
         print(f"flash {label}: parent {t['parent']} change {t['change']} ms, "
-              f"{ratio:.2f}x, bound {bound:.4f} ms, max|parent - change| {diff:.5f}",
-              flush=True)
+              f"{ratio:.2f}x, bound {bound:.4f} ms by {roof}, max|parent - change| "
+              f"{diff:.5f}", flush=True)
         result["flash"].append(dict(label=label, shape=[b, sq, sk, h, d], **t,
-                                    ratio=ratio, bound_ms=bound, max_abs_diff=diff))
+                                    ratio=ratio, bound_ms=bound, roof=roof,
+                                    max_abs_diff=diff))
     for b, s, pairs in PACKED_SHAPES:
+        if match not in f"packed (B={b}, S={s}, P={pairs})":
+            continue
         qkv = rand(b, s, 3 * pairs * 128)
         outs = {side: qkv.new_empty((b, s, pairs * 128)) for side in libs}
         fns = {side: (lambda side=side: libs[side].call(
@@ -336,23 +347,34 @@ def compare_attention(libs: dict, rand, stream: int, iters: int) -> dict:
               flush=True)
         result["packed"].append(dict(shape=[b, s, pairs], **t, ratio=ratio,
                                      max_abs_diff=diff))
-    for b, s, h in TRANSPOSED_SHAPES:
-        qkv_t = rand(3 * h * 64, b, s)
-        outs = {side: qkv_t.new_empty((h * 64, b, s)) for side in libs}
+    # (B, S, H[, D]): a library built before K7 took the head dim declares
+    # one int fewer and takes D = 64 alone
+    takes_d = {side: len(libs[side].lib.gswm_flash_transposed.argtypes) == 7
+               for side in libs}
+    for b, s, h, d in TRANSPOSED_SHAPES:
+        if match not in f"transposed (B={b}, S={s}, H={h}, D={d})":
+            continue
+        if d != 64 and not all(takes_d.values()):
+            print(f"transposed (B={b}, S={s}, H={h}, D={d}): skipped, a side takes "
+                  "D = 64 alone", flush=True)
+            continue
+        qkv_t = rand(3 * h * d, b, s)
+        outs = {side: qkv_t.new_empty((h * d, b, s)) for side in libs}
         fns = {side: (lambda side=side: libs[side].call(
             "gswm_flash_transposed", qkv_t.data_ptr(), outs[side].data_ptr(), b, s, h,
-            stream)) for side in libs}
+            *((d,) if takes_d[side] else ()), stream)) for side in libs}
         t = in_turns(fns, iters)
         diff = (outs["parent"].float() - outs["change"].float()).abs().max().item()
-        bound, _ = roofline.bound_ms(*roofline.attention_cost(b, s, s, h, 64),
-                                     roofline.PEAK_BF16)
+        bound, roof = roofline.attention_bound_ms(roofline.attention_cost(b, s, s, h, d))
         ratio = sum(t["parent"]) / sum(t["change"])
-        print(f"transposed (B={b}, S={s}, H={h}): parent {t['parent']} change "
-              f"{t['change']} ms, {ratio:.2f}x, bound {bound:.4f} ms, "
+        print(f"transposed (B={b}, S={s}, H={h}, D={d}): parent {t['parent']} change "
+              f"{t['change']} ms, {ratio:.2f}x, bound {bound:.4f} ms by {roof}, "
               f"max|parent - change| {diff:.5f}", flush=True)
-        result["transposed"].append(dict(shape=[b, s, h], **t, ratio=ratio,
-                                         bound_ms=bound, max_abs_diff=diff))
+        result["transposed"].append(dict(shape=[b, s, h, d], **t, ratio=ratio,
+                                         bound_ms=bound, roof=roof, max_abs_diff=diff))
     for b, s, c, h, d in K1_SHAPES:
+        if match not in f"fused_qkv (B={b}, S={s}, C={c}, H={h})":
+            continue
         n = h * d
         x = rand(b, s, c)
         ws = [rand(n, c, scale=c**-0.5) for _ in range(3)]

@@ -66,9 +66,12 @@ K1_SHAPES = ((2, 1024, 640, 10, 64), (2, 256, 1280, 20, 64),
              (4, 256, 1280, 8, 160), (8, 256, 1280, 8, 160))
 # K2 (B, S, H, D): UNet level 0 at 512x512 (4096 tokens) and 768x768 (9216);
 # SDXL's level 1 at 1024x1024 (4096 tokens, 10 heads); SD 1.x's level 0 at
-# 512x512 (8 heads of 40) and a ragged shape of that width
+# 512x512 (8 heads of 40) and a ragged shape of that width; the other widths
+# of flash_hopper.cu's narrow kernel (d <= 48: one, two and three k16 steps),
+# and 56, the first width its d <= 64 kernel keeps
 K2_SHAPES = ((2, 4096, 5, 64), (2, 9216, 5, 64), (4, 9216, 5, 64), (2, 4096, 10, 64),
-             (4, 4096, 10, 64), (4, 4096, 8, 40), (8, 4096, 8, 40), (1, 1001, 3, 40))
+             (4, 4096, 10, 64), (4, 4096, 8, 40), (8, 4096, 8, 40), (1, 1001, 3, 40),
+             (4, 4096, 8, 8), (4, 4096, 8, 24), (4, 4096, 8, 48), (4, 4096, 8, 56))
 # K4 (B, S, H, D): the VAE mid attention at 768x768 (one head, D = 512, 9216
 # tokens; the decoder takes one image a call, the encoder two), a ragged
 # multi-head D = 64 shape, two ragged multi-head shapes of the widths
@@ -86,9 +89,14 @@ K3_BLOCKS = (32, 72, 128, 2**20)
 # K6 and K7 (B, S, H): UNet level 0 under their switches, at 768x768 (batch
 # 2, and 4 under guidance) and 512x512, and a ragged shape
 LEVEL0_SHAPES = ((2, 9216, 5), (4, 9216, 5), (2, 4096, 5), (1, 1000, 3))
-# K7 also where S is no multiple of 8 (rows not 16-byte aligned): its masked
-# kernel; every shape above takes its wgmma + TMA kernel
-K7_SHAPES = (*LEVEL0_SHAPES, (1, 1001, 3))
+# K7 (B, S, H, D): those at D = 64; SD 1.x's level 0 at 512x512 under switch
+# set (c) (8 heads of 40, batch 4 and 8 under guidance) and its levels 1 and
+# 2's widths (80: 64 + 16 rows, 160: 2 + 1 panels), a width no SD model
+# uses (72) and the widest (512: 4 + 4 panels); where S is no multiple of 8
+# (rows not 16-byte aligned) the masked kernel, at 64, 40 and 160
+K7_SHAPES = (*((b, s, h, 64) for b, s, h in LEVEL0_SHAPES), (1, 1001, 3, 64),
+             (4, 4096, 8, 40), (8, 4096, 8, 40), (4, 1024, 8, 80), (4, 256, 8, 160),
+             (2, 1000, 3, 72), (1, 1024, 1, 512), (1, 1001, 3, 40), (1, 1001, 2, 160))
 
 # K3 over a key table (rows, ChaCha20 blocks a row): 32 blocks are the 16,384
 # bits of a 512x512 latent; 4 rows are phase 7d's batch, 4096 one chunk of the

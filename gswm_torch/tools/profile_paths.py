@@ -22,7 +22,9 @@ On one card, random weights from a seed, bf16:
     ``chip_smoke.py`` phase 9b (both text encoders, guidance 7.5, VAE decode,
     then VAE encode, 30-step inversion, decode), likewise.
   * sd-1-4 at 512x512, batch 4 (8 heads of 40, 80 and 160): one UNet forward
-    at batch 4 and at 8 (guidance), and the watermark chain of
+    at batch 4 and at 8 (guidance), on the default route and under switch
+    set (c) of ``paths.TIER_SWITCHES`` (K7 at d = 40 at level 0), and the
+    watermark chain of
     ``chip_smoke.py`` phase 10b, likewise; its extraction half beside the
     512x512 chain of sd-2-1-base above.
   * the GroupNorm kernel (K8) at ``paths.K8_PROBE_CASES``: device time a call
@@ -293,6 +295,12 @@ def main() -> None:
         print(f"  device time per forward {res_f['busy_s'] / 3 * 1e3:.3f} ms, "
               f"{res_f['device_records'] / 3:.0f} device records a forward", flush=True)
         result["unet_forward_sd14"][batch] = res_f
+        with paths.route_switches(paths.TIER_SWITCHES["c"]):
+            forward_sd14()
+            res_c = profiled(forward_sd14, args.top)
+        report(f"512x512 SD 1.x UNet forward x3, batch {batch}, switch set (c)", res_c)
+        print(f"  (c) device time per forward {res_c['busy_s'] / 3 * 1e3:.3f} ms", flush=True)
+        result["unet_forward_sd14"][f"{batch}c"] = res_c
         del unet_in
 
     def chain_sd14(seed=81):

@@ -21,13 +21,13 @@ PORT = Path(__file__).resolve().parents[1] / "gswm_torch"
     ((4, 4096, 4096, 8, 40), 85.9),      # K2, SD 1.x level 0, at the true d
 ])
 def test_attention_flops_match_hand_values(shape, gflop):
-    flops, _ = roofline.attention_cost(*shape)
+    flops, _, _ = roofline.attention_cost(*shape)
     assert flops / 1e9 == pytest.approx(gflop, rel=2e-3)
 
 
 def test_attention_bytes_read_inputs_once_and_write_the_output_once():
     b, sq, sk, h, d = 2, 300, 1000, 3, 64
-    _, nbytes = roofline.attention_cost(b, sq, sk, h, d)
+    _, nbytes, _ = roofline.attention_cost(b, sq, sk, h, d)
     q = out = b * sq * h * d * 2
     k = v = b * sk * h * d * 2
     assert nbytes == q + k + v + out
@@ -49,10 +49,11 @@ def test_projection_flops_match_hand_values(b, s, c, h, gflop):
                                      (4, 256, 1280, 8, 160)])
 def test_fused_qkv_cost_is_projection_plus_attention_without_qkv_traffic(b, s, c, h, d):
     """At the true head dim: SD 1.x's 80 and 160 count no padded columns."""
-    flops, nbytes = roofline.fused_qkv_cost(b, s, c, h, d)
+    flops, nbytes, exps = roofline.fused_qkv_cost(b, s, c, h, d)
     assert flops == roofline.projection_cost(b * s, c, h * d)[0] + \
         roofline.attention_cost(b, s, s, h, d)[0]
     assert nbytes == 2 * (b * s * c + 3 * h * d * c + b * s * h * d)
+    assert exps == b * h * s * s  # the attention's, one a logit
 
 
 @pytest.mark.parametrize("shape,ms", [
@@ -60,9 +61,42 @@ def test_fused_qkv_cost_is_projection_plus_attention_without_qkv_traffic(b, s, c
     ((4, 9216, 9216, 5, 64), 0.4397), ((2, 9216, 9216, 1, 512), 0.352),
     ((4, 4096, 4096, 8, 40), 0.0869)])
 def test_attention_bound_is_the_tensor_core_time(shape, ms):
-    bound, by = roofline.bound_ms(*roofline.attention_cost(*shape), roofline.PEAK_BF16)
+    """The tensor cores' roof alone (FLOP and bytes, no exponentials)."""
+    flops, nbytes, _ = roofline.attention_cost(*shape)
+    bound, by = roofline.bound_ms(flops, nbytes, roofline.PEAK_BF16)
     assert by == "operations"
     assert bound == pytest.approx(ms, rel=2e-3)
+
+
+def test_exponential_peak_is_the_sfu_rate():
+    """16 ex2 a clock an SM, 132 SMs, at the 1.83 GHz the bf16 peak implies
+    (989e12 / (132 x 4096 FLOP a clock))."""
+    assert roofline.PEAK_EXP2 == pytest.approx(3.865e12, rel=1e-3)
+    assert roofline.PEAK_EXP2 == pytest.approx(16 * roofline.PEAK_BF16 / 4096, rel=2e-3)
+
+
+@pytest.mark.parametrize("shape,ms,roof", [
+    # SD 1.x's level 0: B * H * S^2 = 537 M exponentials take 1.6x the
+    # tensor cores' 0.0869 ms
+    ((4, 4096, 4096, 8, 40), 0.1389, "exponentials"),
+    ((8, 4096, 4096, 8, 40), 0.2778, "exponentials"),
+    # d = 64: the two roofs are equal (0.0434 each), the tensor cores by a
+    # hair
+    ((2, 4096, 4096, 5, 64), 0.0434, "operations"),
+    # d = 512: the tensor cores, 8x the exponentials' time
+    ((1, 9216, 9216, 1, 512), 0.1759, "operations")])
+def test_attention_bound_counts_the_exponentials(shape, ms, roof):
+    cost = roofline.attention_cost(*shape)
+    b, sq, sk, h, _ = shape
+    assert cost[2] == b * h * sq * sk
+    bound, by = roofline.attention_bound_ms(cost)
+    assert (by, bound) == (roof, pytest.approx(ms, rel=2e-3))
+    tensor = roofline.bound_ms(cost[0], cost[1], roofline.PEAK_BF16)[0]
+    exps = 1e3 * cost[2] / roofline.PEAK_EXP2
+    assert bound == max(tensor, exps)
+    if shape[-1] == 64:  # both ways
+        assert tensor == pytest.approx(0.0434, rel=2e-3)
+        assert exps == pytest.approx(0.0434, rel=2e-3)
 
 
 def test_bound_takes_the_larger_roof():
@@ -150,21 +184,50 @@ def test_split_kernel_is_a_wgmma_and_tma_kernel():
 
 
 def test_transposed_kernel_keeps_mma_sync_only_for_unaligned_rows():
-    """flash_transposed.cu: the wgmma + TMA kernel (both operands of the
-    logits MN-major, v K-major) for S % 8 == 0, and one mma.sync kernel, the
-    masked one, which the launcher takes only where S % 8 != 0; no cp.async
-    code."""
+    """flash_transposed.cu: the wgmma + TMA kernels (both operands of the
+    logits MN-major, v K-major; 4-D maps over the true d; d split over two
+    warpgroups above 64, every panel width instantiated) for S % 8 == 0, and
+    one mma.sync kernel, the masked one, which the launcher takes only where
+    S % 8 != 0; no cp.async code."""
     text = _code("flash_transposed.cu")
     tma, masked = text.split("namespace masked {")
-    for used in ("wgmma_m64n64k16_ss<1, 1>", "wgmma_m64n64k16_rs<0>", "tma_load_3d(",
-                 "tma_store_3d(", "softmax_tile<"):
+    for used in ("wgmma_m64n64k16_ss<1, 1>", "wgmma_m64n64k16_rs<0>", "tma_load_4d(",
+                 "tma_store_4d(", "softmax_tile<", "flash_transposed_split_kernel",
+                 "scale_tile("):
         assert used in tma, used
+    for d in (128, 192, 256, 320, 384, 448, 512):
+        assert f"case {d}: return split::launch<{d}>(" in tma
     assert "mma_bf16" not in tma and "ldmatrix" not in tma
     assert "mma_bf16(" in masked and "flash_transposed_masked_kernel" in masked
     assert "cp_async" not in text and "cp.async.cg" not in text
     launcher = masked.split('extern "C"')[1]
     assert "if (S % 8 == 0) return" in launcher
     assert launcher.index("S % 8 == 0") < launcher.index("flash_transposed_masked_kernel")
+
+
+def test_narrow_kernel_overlaps_its_exponentials_with_the_tensor_cores():
+    """flash_hopper.cu's narrow kernel (d <= 48): tile t + 1's logits issued
+    with tile t's p v and retired alone (wgmma_wait<1>), the exponentials
+    taken between the two waits and rounded into p after the second, the
+    consumer warpgroups taking turns on named barriers, the row sums as p
+    times a ones tile on the tensor cores, ceil(d / 16) k16 steps of logits,
+    p v at N = 48; the d <= 64 kernel keeps its own loop and softmax, and the
+    launcher sends d <= 48 to the narrow one."""
+    hopper = _code("flash_hopper.cu")
+    narrow = hopper.split("flash_narrow_kernel(")[1].split("launch_narrow(")[0]
+    for used in ("wgmma_wait<1>()", "named_barrier_arrive(", "wgmma_m64n48k16_rs(",
+                 "wgmma_m64n8k16_rs(l,", "sm.ones", "kk < KS", "fence_regs(p)",
+                 "softmax_exp<", "softmax_pack<"):
+        assert used in narrow, used
+    assert narrow.index("wgmma_wait<1>()") < narrow.index("softmax_exp<BN / 8>(s, m_lo, m_hi, "
+                                                         "a_lo, a_hi, Sk - (t + 1)")
+    assert "softmax_tile<" not in narrow and "packed_sum" not in narrow
+    for ks in (1, 2, 3):
+        assert f"launch_narrow<NWG, {ks}>(" in hopper
+    wide = hopper.split("flash_hopper_kernel(")[1].split("flash_narrow_kernel")[0]
+    assert "softmax_tile<BN / 8>(" in wide and "wgmma_wait<1>" not in wide
+    launcher = hopper.split("cudaError_t gswm_launch_flash_hopper(")[1]
+    assert launcher.index("d <= NARROW_D") < launcher.index("if (d == D)")
 
 
 def test_mma_sync_survives_in_one_kernel_only():

@@ -570,6 +570,158 @@ def test_transposed_kernel_is_exact_softmax_above_60(cuda):
                                atol=1e-2)
 
 
+# K7's head dims off 64: below (8, 40: rows past d zero-filled by the tensor
+# map), the split kernel's 128-wide (72, 80), 192-wide (160: 2 + 1 panels)
+# and 512-wide (4 + 4 panels) templates
+K7_HEAD_DIMS = (8, 40, 72, 80, 160, 512)
+
+
+def _to_transposed(*ts):
+    """(B, S, H, D) q, k, v -> the (3 * H * D, B, S) stacked layout."""
+    b, s, h, d = ts[0].shape
+    return torch.cat([t.permute(2, 3, 0, 1).reshape(h * d, b, s) for t in ts]).contiguous()
+
+
+def _heads(out_t, h):
+    """(H * D, B, S) -> (B, S, H, D)."""
+    n, b, s = out_t.shape
+    return out_t.view(h, n // h, b, s).permute(2, 3, 0, 1)
+
+
+@pytest.mark.parametrize("s", [136, 1001, 4096])
+@pytest.mark.parametrize("d", K7_HEAD_DIMS)
+def test_transposed_kernel_any_head_dim(cuda, d, s):
+    """K7 at every kernel family: 136 and 4096 tokens through the wgmma +
+    TMA kernels (d <= 64 one, the split one above; 136 leaves a ragged key
+    and query tile), 1001 through the masked one, which walks d in 64-row
+    panels; every head against the plain version, launches counted at the
+    true d, and v = 1 shows the keys past S are masked."""
+    b, h = 2, 3
+    g = torch.Generator(device=cuda).manual_seed(s + d)
+    qkv_t = torch.randn((3 * h * d, b, s), generator=g, device=cuda).bfloat16()
+    before = attn.flash_attention_transposed.launches_by_d.get(d, 0)
+    got = attn.flash_attention_transposed(qkv_t, h)
+    assert attn.flash_attention_transposed.launches_by_d[d] == before + 1
+    assert got.shape == (h * d, b, s)
+    want = attn.flash_attention_transposed_reference(qkv_t.float(), h)
+    assert_every_head_close(_heads(got, h), _heads(want, h))
+    qkv_t[2 * h * d:] = 1
+    ones = attn.flash_attention_transposed(qkv_t, h).float()
+    torch.testing.assert_close(ones, torch.ones_like(ones), rtol=0, atol=2**-7)
+
+
+@pytest.mark.parametrize("d", [40, 160, 512])
+def test_transposed_kernel_any_head_dim_tiles_do_not_cross_the_batch(cuda, d):
+    """K7 off d = 64 at 1000 tokens (wgmma + TMA; ragged key and token
+    tiles): batch 1's v is 100x batch 0's and follows batch 0's tokens in
+    every row, so a tile that read on would move batch 0's output by O(1)
+    of its own scale.  (Not k as at d = 64: logits of ~100 in batch 1 would
+    turn the rounding of q d^-0.5 to bf16, exact only at d = 64, into
+    O(1) changes of the softmax's weights.)"""
+    b, s, h = 2, 1000, 2
+    g = torch.Generator(device=cuda).manual_seed(d)
+    qkv_t = torch.randn((3 * h * d, b, s), generator=g, device=cuda)
+    qkv_t[2 * h * d:, 1] *= 100
+    qkv_t = qkv_t.bfloat16()
+    got = _heads(attn.flash_attention_transposed(qkv_t, h).float(), h)
+    want = _heads(attn.flash_attention_transposed_reference(qkv_t.float(), h), h)
+    assert_every_head_close(got[:1], want[:1])
+    err = (got[1] - want[1]).abs().max().item()
+    assert err <= REL_BOUND * want[1].abs().max().item()
+
+
+@pytest.mark.parametrize("s", [136, 1001])
+@pytest.mark.parametrize("d", [40, 80, 160, 512])
+def test_transposed_kernel_any_head_dim_attends_to_the_chosen_key(cuda, d, s):
+    """Query i is 4x the key (37 i + 5) % S at d rows: a wrong row panel or
+    a head read from its neighbour's rows would pick other keys without any
+    fault.  Every key has norm d^0.5, so the logits peak on the chosen key
+    (4 d^0.5, 25 at d = 40, against N(0, 16) for the rest), and the output
+    is that key's v row within bf16 rounding."""
+    h = 2
+    g = torch.Generator(device=cuda).manual_seed(s + d)
+    k = torch.randn((1, s, h, d), generator=g, device=cuda)
+    k = (k * d**0.5 / k.norm(dim=-1, keepdim=True)).bfloat16()
+    v = torch.randn((1, s, h, d), generator=g, device=cuda).bfloat16()
+    chosen = (37 * torch.arange(s, device=cuda) + 5) % s
+    q = (4 * k[:, chosen].float()).bfloat16()
+    qkv_t = _to_transposed(q, k, v)
+    got = attn.flash_attention_transposed(qkv_t, h)
+    assert_attention_close(got, attn.flash_attention_transposed_reference(
+        qkv_t.float(), h))
+    torch.testing.assert_close(_heads(got, h).float(), v[:, chosen].float(), rtol=0,
+                               atol=2**-5)
+
+
+@pytest.mark.parametrize("s", [300, 1001])
+@pytest.mark.parametrize("d", [40, 160])
+def test_transposed_kernel_is_exact_softmax_above_60_at_any_head_dim(cuda, d, s):
+    """Logits 80 and 70 in one row at d != 64, where q is scaled by d^-0.5
+    in shared memory (300 tokens: wgmma + TMA) or by the masked kernel
+    (1001): exact softmax, where the TPU transposed kernel clamps both to 60
+    on every dtype."""
+    g = torch.Generator(device=cuda).manual_seed(d + s)
+    q = torch.randn((1, s, 1, d), generator=g, device=cuda)
+    k = torch.randn((1, s, 1, d), generator=g, device=cuda) * 0.1
+    v = torch.randn((1, s, 1, d), generator=g, device=cuda)
+    q[0, 0, 0] = 0.0
+    q[0, 0, 0, 0], q[0, 0, 0, 1] = 80.0, 70.0
+    k[0, 5, 0], k[0, 9, 0] = 0.0, 0.0
+    k[0, 5, 0, 0], k[0, 9, 0, 1] = d**0.5, d**0.5  # logits ~80 and ~70
+    v[0, 5, 0], v[0, 9, 0] = 1.0, -1.0
+    qkv_t = _to_transposed(q, k, v).bfloat16()
+    got = attn.flash_attention_transposed(qkv_t, 1).float()
+    want = attn.flash_attention_transposed_reference(qkv_t.float(), 1)
+    torch.testing.assert_close(got, want, rtol=0, atol=BOUND)
+    torch.testing.assert_close(got[:, 0, 0], torch.ones(d, device=cuda), rtol=0,
+                               atol=1e-2)
+
+
+# flash_hopper.cu's narrow kernel (d <= 48) at every width it takes, and 56,
+# the first the d <= 64 kernel keeps
+NARROW_HEAD_DIMS = (8, 16, 24, 32, 40, 48, 56)
+
+
+@pytest.mark.parametrize("s", [1, 65, 577, 1001])
+@pytest.mark.parametrize("d", NARROW_HEAD_DIMS)
+def test_flash_kernel_narrow_head_dims(cuda, d, s):
+    """K2 on natural-layout q/k/v at every narrow width: 1 token (one key,
+    one query row), 65 (a ragged 128-key tile), 577 and 1001 (several tiles,
+    the last ragged, which the pipelined kernel's last iteration takes
+    alone); every head against the plain version; v = 1 shows the keys TMA
+    zero-fills past S are masked."""
+    b, h = 2, 8
+    g = torch.Generator(device=cuda).manual_seed(s + d)
+    q, k, v = (torch.randn((b, s, h * d), generator=g, device=cuda).bfloat16()
+               for _ in range(3))
+    before = attn.flash_attention.launches_by_d.get(d, 0)
+    got = attn.flash_attention(q, k, v, h)
+    assert attn.flash_attention.launches_by_d[d] == before + 1
+    want = attn.flash_attention_reference(q.float(), k.float(), v.float(), h)
+    assert_every_head_close(got.view(b, s, h, d), want.view(b, s, h, d))
+    ones = attn.flash_attention(q, k, torch.ones_like(v), h).float()
+    torch.testing.assert_close(ones, torch.ones_like(ones), rtol=0, atol=2**-7)
+
+
+@pytest.mark.parametrize("sq,sk", [(1, 577), (65, 1001), (1001, 577)])
+@pytest.mark.parametrize("d", NARROW_HEAD_DIMS)
+def test_split_kernel_narrow_head_dims(cuda, d, sq, sk):
+    """The same kernels through the split wrapper, Sq != Sk (512 keys and up
+    take the kernel), with v = 1."""
+    b, h = 2, 3
+    g = torch.Generator(device=cuda).manual_seed(sq + sk + d)
+    q = torch.randn((b, sq, h, d), generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn((b, sk, h, d), generator=g, device=cuda).bfloat16()
+            for _ in range(2))
+    before = attn.flash_attention_split.launches_by_d.get(d, 0)
+    got = attn.flash_attention_split(q, k, v)
+    assert attn.flash_attention_split.launches_by_d[d] == before + 1
+    assert_every_head_close(got, attn.flash_attention_split_reference(
+        q.float(), k.float(), v.float()))
+    ones = attn.flash_attention_split(q, k, torch.ones_like(v)).float()
+    torch.testing.assert_close(ones, torch.ones_like(ones), rtol=0, atol=2**-7)
+
+
 @pytest.mark.parametrize("shape,eps,act", [
     ((2, 64, 1, 1), 1e-5, None), ((2, 64, 65, 1), 1e-6, "silu"),
     ((1, 320, 300, 1), 1e-5, "silu"), ((1, 128, 1000, 1), 1e-6, None),
@@ -745,9 +897,10 @@ def test_keystream_cache_launches_once_on_card(cuda):
 def test_new_kernel_wrappers_reject_what_they_do_not_take(cuda):
     with pytest.raises(TypeError):
         attn.flash_attention_packed(torch.zeros((1, 8, 384), device=cuda))  # fp32
-    with pytest.raises(ValueError):  # D = 32: the kernel takes 64
-        attn.flash_attention_transposed(
-            torch.zeros((192, 1, 8), device=cuda, dtype=torch.bfloat16), 2)
+    for d in (36, 520):  # D % 8 != 0, D > 512: K7 takes what the others take
+        with pytest.raises(ValueError):
+            attn.flash_attention_transposed(
+                torch.zeros((3 * 2 * d, 1, 8), device=cuda, dtype=torch.bfloat16), 2)
     with pytest.raises(TypeError):
         gn.fused_group_norm(torch.zeros((1, 64, 4, 4), device=cuda),
                             torch.ones(64, device=cuda), torch.zeros(64, device=cuda))

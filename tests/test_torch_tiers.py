@@ -1,8 +1,9 @@
 """PyTorch port vs the JAX package: the self-attention tiers behind the JAX
 package's ``GSWM_*`` switches.
 
-  * K6 (``flash_attention_packed``), K7 (``flash_attention_transposed``) and
-    K1 in the JAX package's seqhead layout (K5): the port's plain versions
+  * K6 (``flash_attention_packed``), K7 (``flash_attention_transposed``, at
+    d = 40, 64, 72, 80 and 160) and K1 in the JAX package's seqhead layout
+    (K5): the port's plain versions
     against the Pallas kernels in interpret mode, fp32, atol 2e-5 (the
     bound of tests/test_packed_attention.py and
     tests/test_transposed_attention.py).
@@ -82,20 +83,24 @@ def test_packed_reference_matches_jax_kernel(b, s, h):
     np.testing.assert_array_equal(got[:, :, h * 64:], 0.0)  # the pad head
 
 
-@pytest.mark.parametrize("b,s,h", [(2, 256, 2), (1, 640, 3), (1, 2304, 2)])
-def test_transposed_reference_matches_jax_kernel(b, s, h):
-    q, k, v = (_rand((b, s, h, 64), 10 + i) for i in range(3))
+@pytest.mark.parametrize("b,s,h,d", [
+    (2, 256, 2, 64), (1, 640, 3, 64), (1, 2304, 2, 64),
+    # SD 1.x's widths (40 at level 0 under switch set (c), at the JAX tier's
+    # batch of 8; 80, 160) and one no SD model uses
+    (8, 256, 2, 40), (2, 200, 1, 80), (1, 136, 1, 160), (1, 256, 2, 72)])
+def test_transposed_reference_matches_jax_kernel(b, s, h, d):
+    q, k, v = (_rand((b, s, h, d), 10 + i) for i in range(3))
     qkv_t = _to_t(q, k, v)
-    want = np.asarray(flash_attention_transposed(jnp.asarray(qkv_t), h, 64,
+    want = np.asarray(flash_attention_transposed(jnp.asarray(qkv_t), h, d,
                                                  interpret=True))
     before = attn.flash_attention_transposed.launches
     got = attn.flash_attention_transposed(torch.from_numpy(qkv_t), h).numpy()
     assert attn.flash_attention_transposed.launches == before
-    assert got.shape == (h * 64, b, s)
+    assert got.shape == (h * d, b, s)
     np.testing.assert_allclose(got, want, atol=2e-5)
     # and both are plain attention on the (B, S, H, D) views
     ref = np.asarray(reference_attention(q, k, v)).transpose(2, 3, 0, 1)
-    np.testing.assert_allclose(got, ref.reshape(h * 64, b, s), atol=2e-5)
+    np.testing.assert_allclose(got, ref.reshape(h * d, b, s), atol=2e-5)
 
 
 @pytest.mark.parametrize("b,s,c,h", [(1, 640, 96, 3), (2, 256, 128, 2)])
@@ -117,13 +122,14 @@ def test_fused_qkv_reference_matches_jax_seqhead_kernel(b, s, c, h, monkeypatch)
 
 
 def _logits_above_60(q, k, v, row_q, row_k):
-    """One query row with logits 80 and 70 (after the 1/8 scale) on keys 5
-    and 9, whose values are +1 and -1; q, k, v are (..., 64) slices."""
+    """One query row with logits 80 and 70 (after the d^-0.5 scale) on keys
+    5 and 9, whose values are +1 and -1; q, k, v are (..., d) slices."""
+    d = q.shape[-1]
     q[row_q] = 0.0
     q[row_q + (0,)], q[row_q + (1,)] = 80.0, 70.0
     for j, col in ((5, 0), (9, 1)):
         k[row_k(j)] = 0.0
-        k[row_k(j) + (col,)] = 8.0
+        k[row_k(j) + (col,)] = d**0.5
     v[row_k(5)], v[row_k(9)] = 1.0, -1.0
 
 
@@ -146,16 +152,18 @@ def test_packed_exact_softmax_differs_from_clamped_jax_kernel_above_60():
     np.testing.assert_allclose(ours[0, 0, 64:], clamped[0, 0, 64:], atol=4e-2)
 
 
-def test_transposed_exact_softmax_differs_from_clamped_jax_kernel_above_60():
+@pytest.mark.parametrize("d", [64, 40])
+def test_transposed_exact_softmax_differs_from_clamped_jax_kernel_above_60(d):
     """The same row in the transposed layout; the Pallas transposed kernel
-    clamps on every dtype (attention.py:1305-1307)."""
+    clamps on every dtype (attention.py:1305-1307); at d = 40 too, where the
+    scale is no power of two."""
     s = 512
-    q, k, v = _rand((1, s, 1, 64), 3), _rand((1, s, 1, 64), 4, 0.1), _rand((1, s, 1, 64), 5)
+    q, k, v = _rand((1, s, 1, d), 3), _rand((1, s, 1, d), 4, 0.1), _rand((1, s, 1, d), 5)
     _logits_above_60(q, k, v, (0, 0, 0), lambda j: (0, j, 0))
     qkv_t = torch.from_numpy(_to_t(q, k, v)).bfloat16()
-    ours = attn.flash_attention_transposed(qkv_t, 1).float().numpy()  # (64, 1, S)
+    ours = attn.flash_attention_transposed(qkv_t, 1).float().numpy()  # (d, 1, S)
     clamped = np.asarray(flash_attention_transposed(
-        jnp.asarray(qkv_t.float().numpy(), jnp.bfloat16), 1, 64,
+        jnp.asarray(qkv_t.float().numpy(), jnp.bfloat16), 1, d,
         interpret=True)).astype(np.float32)
     np.testing.assert_allclose(ours[:, 0, 0], 1.0, atol=1e-2)
     assert np.abs(ours[:, 0, 0] - clamped[:, 0, 0]).min() > 0.5
@@ -226,9 +234,12 @@ def test_route_matches_jax_predicates_on_sd21(name, monkeypatch):
 # sd-1-4's self-attention sites at 512x512: (tokens, channels, heads), 8 heads
 # of 40, 80 and 160; the mid block's 64 tokens stay plain on both sides
 SD14_SITES = [(4096, 320, 8), (1024, 640, 8), (256, 1280, 8)]
-# (switch set, batch, tokens) -> (JAX route, port route): the JAX transposed
-# tier takes any head_dim % 8 == 0 at a batch of 8, the port's kernel 64 only
-SD14_DIVERGENCES = {("transposed", 8, 4096): ("transposed", "split")}
+# (switch set, batch, tokens) -> (JAX route, port route): at a batch of 8
+# both take the transposed tier at d = 40; at batch 4 the JAX package's
+# ``batch % 8`` gate (the TPU's 8-sublane DMA) refuses it and falls through
+# to split, while the port, which drops that memory gate as on sd-2-1, takes
+# transposed
+SD14_DIVERGENCES = {("transposed", 4, 4096): ("split", "transposed")}
 
 
 @pytest.mark.parametrize("name", list(SWITCH_SETS))
@@ -303,6 +314,29 @@ def test_attention_layer_matches_jax_under_switches(name, extra, b, s, tier,
         flash_attention_fused_qkv._clear_cache()
     assert attn.route_self_attention(s, 64) == tier
     mod = Attention(c, c, h, 64)
+    bridge.load_tree_(mod, params)
+    with torch.no_grad():
+        got = mod(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=5e-5)
+
+
+def test_attention_layer_matches_jax_under_transposed_switch_at_head_dim_40(monkeypatch):
+    """sd-1-4's level-0 head layout (8 heads of 40, 320 channels) at the JAX
+    transposed tier's batch of 8, switch set (c): both packages take the
+    transposed tier, the JAX one its Pallas kernel in interpret mode; fp32,
+    atol 5e-5 and rtol 1e-4 as the test above."""
+    _set_switches(monkeypatch, {**SWITCH_SETS["transposed"],
+                                "GSWM_TRANSPOSED_ATTN_MIN_SEQ": "256"})
+    monkeypatch.setenv("GSWM_FORCE_FLASH", "1")
+    b, s, h, d = 8, 256, 8, 40
+    c = h * d
+    x = _rand((b, s, c), 31)
+    jmod = JAttention(heads=h, head_dim=d, dtype=jnp.float32)
+    params = jmod.init(jax.random.key(5), jnp.asarray(x))
+    assert _jax_route(jmod.bind(params), jnp.asarray(x)) == "transposed"
+    want = np.asarray(jmod.apply(params, jnp.asarray(x)))
+    assert attn.route_self_attention(s, d) == "transposed"
+    mod = Attention(c, c, h, d)
     bridge.load_tree_(mod, params)
     with torch.no_grad():
         got = mod(torch.from_numpy(x)).numpy()
