@@ -20,10 +20,11 @@ robustness bench (``distortions``, ``eval.sweep``) and the Tree-Ring toolkit
   distortions/ the 15 batched attacks on the card (plain PyTorch) and the 16
                host attacks (PIL, imported when called)
   treering/    the FFT-ring watermark for comparison experiments
-  cli/         gs_distort
-  utils/       json and jsonl IO
-  models/      UNet2DCondition, VAE encoder and decoder, CLIP text encoder,
-               presets, the weight bridge from the JAX package's flax trees
+  cli/         gs_embed, gs_extract, gs_trace, gs_distort
+  utils/       json and jsonl IO, the VAE fit, check_finite
+  models/      UNet2DCondition, VAE encoder and decoder, CLIP text encoder
+               and its BPE tokenizer, presets, the weight bridge from the
+               JAX package's flax trees
   ops/         attention kernels (CUDA) and their plain versions
   schedulers/  DDIM and DPM++ plans and steps
   pipelines/   InversablePipeline

@@ -13,7 +13,10 @@ default the fused-qkv kernel at 256..2304 tokens, the natural-layout flash
 kernel from 2305 up, plain matmul + fp32 softmax below; under the switches
 the packed, transposed or split kernels.  Cross-attention is plain.  The VAE
 mid-block attention takes the split flash kernel above
-``VAE_FLASH_MIN_TOKENS``.
+``VAE_FLASH_MIN_TOKENS``, unless ``GSWM_VAE_ATTN=chunked`` (read at call
+time, as the JAX package's switch) asks for exact attention a chunk of
+queries at a time in plain PyTorch, which autograd differentiates: the VAE
+fit's mode (``utils.fitting``).
 
 Module and parameter names follow diffusers' state-dict layout
 (``down_blocks.0.resnets.1.conv1.weight``, ``to_out.0``, ``ff.net.2``), so
@@ -23,6 +26,7 @@ Module and parameter names follow diffusers' state-dict layout
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import torch
@@ -42,6 +46,10 @@ from gswm_torch.ops.attention import (
 # this many tokens (512x512 images) and takes the split flash kernel above
 # (768x768: 9216 tokens, whose fp32 logits are 340 MB per image).
 VAE_FLASH_MIN_TOKENS = 4096
+# gswm/models/layers.py:706-708: GSWM_VAE_ATTN=chunked takes the VAE mid
+# attention above this many tokens, a chunk of this many queries at a time
+VAE_CHUNKED_MIN_TOKENS = 1024
+VAE_ATTN_CHUNK = 512
 
 
 class GroupNorm32(nn.GroupNorm):
@@ -323,11 +331,29 @@ class Upsample(nn.Module):
         return self.conv(F.interpolate(x, scale_factor=2, mode="nearest"))
 
 
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      chunk: int = VAE_ATTN_CHUNK) -> torch.Tensor:
+    """Single-head (B, S, C) attention, exact, ``chunk`` queries at a time:
+    logits in the input dtype, softmax in fp32, probabilities cast back
+    (gswm/models/layers.py:709-719).  Plain PyTorch, so autograd
+    differentiates it; each chunk's logits are (B, chunk, S)."""
+    scale = q.shape[-1] ** -0.5
+    outs = []
+    for qc in q.split(chunk, dim=1):
+        logits = torch.matmul(qc, k.transpose(-1, -2)) * scale
+        probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+        outs.append(torch.matmul(probs, v))
+    return torch.cat(outs, dim=1)
+
+
 class VAEAttention(nn.Module):
     """Single-head spatial self-attention of the VAE mid block: plain
     matmul + fp32 softmax (the JAX package's einsum branch) up to
     ``VAE_FLASH_MIN_TOKENS`` tokens, the split flash kernel with one head of
-    d = C above, as gswm/models/layers.py:692-725."""
+    d = C above, as gswm/models/layers.py:692-725.  ``GSWM_VAE_ATTN=chunked``
+    (read at each call) takes precedence above ``VAE_CHUNKED_MIN_TOKENS``:
+    ``chunked_attention``, which the fit differentiates and the kernel could
+    not be."""
 
     def __init__(self, channels: int, norm_groups: int = 32):
         super().__init__()
@@ -343,7 +369,9 @@ class VAEAttention(nn.Module):
         residual = x
         x = self.group_norm(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
         q, k, v = self.to_q(x), self.to_k(x), self.to_v(x)
-        if h * w > VAE_FLASH_MIN_TOKENS:
+        if os.environ.get("GSWM_VAE_ATTN") == "chunked" and h * w > VAE_CHUNKED_MIN_TOKENS:
+            out = chunked_attention(q, k, v)
+        elif h * w > VAE_FLASH_MIN_TOKENS:
             out = flash_attention_split(q[:, :, None], k[:, :, None],
                                         v[:, :, None])[:, :, 0]
         else:
@@ -352,16 +380,24 @@ class VAEAttention(nn.Module):
         return out.reshape(b, h, w, c).permute(0, 3, 1, 2) + residual
 
 
+# the standard deviation of N(0, 1) truncated to [-2, 2]: flax's
+# lecun-normal divides its scale by it so that the variance stays 1/fan_in
+TRUNC_NORMAL_STD = 0.87962566103423978
+
+
 def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Fill every parameter from ``generator`` (in place): weights of rank >= 2
-    (linear, conv, embedding) ~ N(0, 1/fan_in), as flax's lecun-normal
-    default; norm scales 1; biases 0.  Parameters must lie on the
-    generator's device."""
+    (linear, conv, embedding) as flax's lecun-normal default for Dense and
+    Conv, a normal truncated at two standard deviations with variance
+    1/fan_in; norm scales 1; biases 0.  Parameters must lie on the
+    generator's device.  (The JAX package's text encoder is transformers'
+    and initialises its own way; the port's takes the same rule.)"""
     for name, p in module.named_parameters():
         with torch.no_grad():
             if p.dim() >= 2:
-                fan_in = math.prod(p.shape[1:])
-                p.normal_(0.0, fan_in**-0.5, generator=generator)
+                std = math.prod(p.shape[1:]) ** -0.5 / TRUNC_NORMAL_STD
+                torch.nn.init.trunc_normal_(p, 0.0, std, -2.0 * std, 2.0 * std,
+                                            generator=generator)
             elif name.endswith("weight"):
                 p.fill_(1.0)
             else:

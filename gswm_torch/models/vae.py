@@ -5,13 +5,22 @@ The extraction path needs only the encoder's *posterior mean*: the reference
 uses ``posterior.mean * 0.18215``, never a sample (extract.py:39-43).
 ``encode_moments`` returns (mean, logvar); ``encode`` the scaled mean;
 ``decode`` maps scaled latents back to images in [-1, 1].
+
+``GSWM_VAE_REMAT=block`` (read at each call, as the JAX package's switch
+is read at trace time) checkpoints each encoder and decoder block under
+autograd: the backward stores block-boundary activations and recomputes one
+block's internals at a time (gswm/models/vae.py:81-92).  Parameter names do
+not change; without a gradient, or with the switch unset, nothing does.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from gswm_torch.models.configs import VAEConfig
 from gswm_torch.models.layers import (
@@ -21,6 +30,14 @@ from gswm_torch.models.layers import (
     Upsample,
     VAEAttention,
 )
+
+
+def _block(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``block(x)``, checkpointed under ``GSWM_VAE_REMAT=block`` when autograd
+    records."""
+    if os.environ.get("GSWM_VAE_REMAT") == "block" and torch.is_grad_enabled():
+        return checkpoint(block, x, use_reentrant=False)
+    return block(x)
 
 
 class EncoderBlock(nn.Module):
@@ -93,8 +110,8 @@ class Encoder(nn.Module):
     def forward(self, x):
         x = self.conv_in(x)
         for block in self.down_blocks:
-            x = block(x)
-        x = self.mid_block(x)
+            x = _block(block, x)
+        x = _block(self.mid_block, x)
         return self.conv_out(F.silu(self.conv_norm_out(x)))
 
 
@@ -112,9 +129,9 @@ class Decoder(nn.Module):
         self.conv_out = nn.Conv2d(rev[-1], cfg.in_channels, 3, padding=1)
 
     def forward(self, z):
-        x = self.mid_block(self.conv_in(z))
+        x = _block(self.mid_block, self.conv_in(z))
         for block in self.up_blocks:
-            x = block(x)
+            x = _block(block, x)
         return self.conv_out(F.silu(self.conv_norm_out(x)))
 
 

@@ -157,6 +157,23 @@ def launch(device, name: str, *args) -> None:
             lib.call(name, *args, torch._C._cuda_getCurrentRawStream(device.index))
 
 
+def refuse_grad(wrapper: str, *tensors) -> None:
+    """Raise RuntimeError when a kernel wrapper is called where autograd
+    would record it: grad mode on and any input that requires grad.  The
+    kernels write into tensors they allocate, so their outputs would carry
+    no path back to the inputs; neither package has a backward for them.
+    Called on the CUDA branch only, before anything is launched, and never
+    answered with a fall back to the plain version."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{wrapper}: called under a gradient, and neither gswm nor gswm_torch "
+            "has a backward for its kernel; run the forward under torch.no_grad() or "
+            "torch.inference_mode() (the VAE fit takes its mid attention as "
+            "GSWM_VAE_ATTN=chunked, plain PyTorch with autograd)")
+
+
 def stream_handle(device) -> int:
     """The current PyTorch CUDA stream of ``device`` as a raw handle."""
     import torch

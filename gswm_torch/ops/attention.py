@@ -46,9 +46,10 @@ max and clamp logits at 60 (``_NOMAX_CLAMP``); the two agree within
 rounding while |logit| < 60.
 
 On a CPU tensor each wrapper runs its plain PyTorch version; on a CUDA
-tensor it launches its kernel or raises.  Each wrapper counts its launches
-in a plain integer attribute, ``<wrapper>.launches``, and by head dim in a
-dict, ``<wrapper>.launches_by_d``.
+tensor it launches its kernel or raises, and it raises under a gradient
+(``native.refuse_grad``): no kernel has a backward.  Each wrapper counts
+its launches in a plain integer attribute, ``<wrapper>.launches``, and by
+head dim in a dict, ``<wrapper>.launches_by_d``.
 
 Weights are in ``torch.nn.Linear``'s (out, in) layout: q = x @ wq.T.
 """
@@ -229,6 +230,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_reference(q, k, v, heads)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    native.refuse_grad("flash_attention", q, k, v)
     _check_cuda_bf16("flash_attention", q, k, v)
     if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"flash_attention: q/k/v shapes {tuple(q.shape)}, "
@@ -257,6 +259,7 @@ def _check_projection(name: str, x: torch.Tensor, wq: torch.Tensor, wk: torch.Te
     weights, C and inner multiples of 64.  Returns (B, S, C)."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
+    native.refuse_grad(name, x, wq, wk, wv)
     _check_cuda_bf16(name, x, wq, wk, wv)
     if x.dim() != 3:
         raise ValueError(f"{name}: x must be (B, S, C), got {tuple(x.shape)}")
@@ -374,6 +377,7 @@ def flash_attention_split(q: torch.Tensor, k: torch.Tensor,
         return flash_attention_split_reference(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_split: unsupported device {q.device}")
+    native.refuse_grad("flash_attention_split", q, k, v)
     _check_cuda_bf16("flash_attention_split", q, k, v)
     kernel_head_dim(d)
     out = torch.empty_like(q)
@@ -416,6 +420,7 @@ def flash_attention_packed(qkv: torch.Tensor) -> torch.Tensor:
         return flash_attention_packed_reference(qkv)
     if qkv.device.type != "cuda":
         raise ValueError(f"flash_attention_packed: unsupported device {qkv.device}")
+    native.refuse_grad("flash_attention_packed", qkv)
     _check_cuda_bf16("flash_attention_packed", qkv)
     b, s, c3 = qkv.shape
     pairs = c3 // (3 * 128)
@@ -461,6 +466,7 @@ def flash_attention_transposed(qkv_t: torch.Tensor, heads: int) -> torch.Tensor:
         return flash_attention_transposed_reference(qkv_t, heads)
     if qkv_t.device.type != "cuda":
         raise ValueError(f"flash_attention_transposed: unsupported device {qkv_t.device}")
+    native.refuse_grad("flash_attention_transposed", qkv_t)
     _check_cuda_bf16("flash_attention_transposed", qkv_t)
     n3, b, s = qkv_t.shape
     d = n3 // (3 * heads)

@@ -12,10 +12,11 @@ a = rsqrt(var + eps) * weight and b = bias - mean * a, y = x * a + b,
 optional SiLU, cast back to x's dtype.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
-launches the kernel or raises.  ``fused_group_norm.launches`` counts the
-launches: one kernel a call, which reads x once (a thread block cluster a
-group keeps it in shared memory between the sums and the normalisation) and
-needs no scratch memory.
+launches the kernel or raises, and it raises under a gradient
+(``native.refuse_grad``): the kernel has no backward.
+``fused_group_norm.launches`` counts the launches: one kernel a call, which
+reads x once (a thread block cluster a group keeps it in shared memory
+between the sums and the normalisation) and needs no scratch memory.
 """
 
 from __future__ import annotations
@@ -66,6 +67,7 @@ def fused_group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
         return fused_group_norm_reference(x, weight, bias, groups, eps, act)
     if x.device.type != "cuda":
         raise ValueError(f"fused_group_norm: unsupported device {x.device}")
+    native.refuse_grad("fused_group_norm", x, weight, bias)
     if x.dtype != torch.bfloat16:
         raise TypeError(f"fused_group_norm: the CUDA kernel takes bfloat16, got {x.dtype}")
     if not x.is_contiguous() or x.data_ptr() % 16:

@@ -362,3 +362,63 @@ class InversablePipeline:
         z_t = self.invert(images=images, latents=latents, num_steps=num_steps,
                           scheduler=scheduler, refine=refine)
         return recover_message_bits(z_t, cfg), z_t
+
+    # -- reference-pyc API parity (gswm/pipelines/inversable.py:467-528) -----
+    # Thin aliases matching InversableStableDiffusionPipeline /
+    # ModifiedStableDiffusionPipeline method names, so reference-derived code
+    # ports by renaming imports only.  Nothing in the port calls
+    # get_text_embedding (nor eval.metrics.message_hex_to_bits): they are
+    # kept for that parity alone, and a simplicity pass may drop them
+    # together.
+
+    def get_random_latents(self, generator: Optional[torch.Generator] = None,
+                           batch: int = 1, height: int = 512,
+                           width: int = 512) -> torch.Tensor:
+        """N(0, 1) float32 latents (batch, latent_channels, height/f,
+        width/f) on the pipeline's device, from ``generator`` (default: seed
+        0 on that device; the reference's ``rng=`` default is key 0)."""
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        f = 2 ** (len(self.preset.vae.block_out_channels) - 1)
+        return torch.randn((batch, self.preset.vae.latent_channels, height // f,
+                            width // f), generator=generator, device=self.device)
+
+    def get_text_embedding(self, prompt_ids) -> torch.Tensor:
+        return self.encode_prompt_ids(prompt_ids)
+
+    @torch.inference_mode()
+    def get_image_latents(self, image, sample: bool = False,
+                          generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """VAE-encode images in [0, 1]; ``sample=False`` (default) is the
+        posterior MEAN the extraction path depends on (extract.py:39-43),
+        ``sample=True`` adds exp(logvar / 2) x N(0, 1) from ``generator``
+        (default: seed 0 on the pipeline's device)."""
+        x = 2.0 * torch.as_tensor(image).to(self.device, torch.float32) - 1.0
+        mean, logvar = self.vae.encode_moments(x)
+        if sample:
+            if generator is None:
+                generator = torch.Generator(device=self.device).manual_seed(0)
+            mean = mean + torch.exp(0.5 * logvar) * torch.randn(
+                mean.shape, generator=generator, device=mean.device)
+        return mean * self.preset.vae.scaling_factor
+
+    def backward_diffusion(self, latents, context=None, guidance_scale=1.0,
+                           num_inference_steps: int = 50,
+                           reverse_process: bool = False,
+                           scheduler: str = "DDIM") -> torch.Tensor:
+        """One name, both directions (the pyc's backward_diffusion had a
+        reverse_process flag): False = denoise, True = invert."""
+        if reverse_process:
+            return self.invert(latents=latents, num_steps=num_inference_steps,
+                               scheduler=scheduler)
+        return self.generate(latents, context=context, guidance_scale=guidance_scale,
+                             num_steps=num_inference_steps, scheduler=scheduler,
+                             decode=False)
+
+    @staticmethod
+    def torch_to_numpy(x) -> np.ndarray:
+        """Name parity; any tensor or array -> numpy."""
+        if isinstance(x, torch.Tensor):
+            x = x.detach().cpu()
+            return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+        return np.asarray(x)

@@ -31,6 +31,12 @@ path (both text encoders, the pooled conditioning and ``time_ids`` in
 A sixth path is SD 1.x: sd-1-4 at 512x512, batch 4, bf16, random weights from
 a seed, 8 heads of 40, 80 and 160: the latent closed loop, and the watermark
 chain (CLIP-L, guidance 7.5 at UNet batch 8, decode, then ``extract_bits``).
+
+A seventh is the VAE fit (``FIT_*``): sd-2-1-base's VAE from a seed, two
+stages of ``tools/fit_vae.py`` cut to a time share; and an eighth the
+command-line path (``CLI_*``): four keys through gs-embed-torch, their
+images generated as one batch at 512x512 and read back by gs-extract-torch
+and gs-trace-torch, on the fitted VAE.
 """
 
 from __future__ import annotations
@@ -407,3 +413,42 @@ def treering_material(dev="cuda", seed: int = 606):
                                                 generator=g, device=dev)
     noise = torch.randn((2,) + shape, generator=g, device=dev)
     return mask, pattern, treering.inject_watermark(noise[0], mask, pattern), noise[1]
+
+
+# The VAE fit (chip_smoke.py's fit phase): sd-2-1-base's VAE, which sd-2-1
+# shares (VAEConfig()), from a seed, in float32 master parameters; two of
+# tools/fit_vae.py's three stages, (latent side, steps, batch, lr), each cut
+# to the steps that fit its share of the phase on one H100: about 120 s of
+# the 16 stage's 1500 steps and 60 s of the 64 stage's 250 (the tool's
+# full stages: ``fit_vae.STAGES``); the 32 stage is left to the tool
+FIT_PRESET = "sd-2-1-base"
+FIT_SEED = 0
+FIT_STAGES = ((16, 720, 32, 1e-3), (64, 90, 8, 1e-4))
+# sign fidelity read before the fit, and after it (96: 768x768, forward
+# only, where the VAE mid attention takes K4)
+FIDELITY_BEFORE = (16, 64)
+FIDELITY_AFTER = (16, 64, 96)
+# the reference's rows of the robustness bench at 768x768 on its fitted VAE
+REFERENCE_SWEEP_768 = os.path.join("benchmarks", "robustness_sweep_sd21arch_768_tpu.jsonl")
+
+
+def reference_rows_768(strength: float = ATTACK_REL_STRENGTH) -> dict:
+    """{attack: bit_accuracy_mean} of the reference's 768x768 sweep at
+    relative ``strength`` (the ``none`` row at 0): accuracies, no time."""
+    import json
+
+    rows = {}
+    with open(REFERENCE_SWEEP_768) as f:
+        for line in f:
+            r = json.loads(line)
+            if r["attack"] == "none" or r["relative_strength"] == strength:
+                rows[r["attack"]] = r["bit_accuracy_mean"]
+    return rows
+
+
+# The command-line path (chip_smoke.py's cli phase): sd-2-1-base at 512x512
+# on the fitted VAE, four users, one gs-embed-torch call each
+CLI_KEYS = tuple(f"{0x51 + i:02x}" * 32 for i in range(4))
+CLI_NONCES = tuple(f"{0x61 + i:02x}" * 16 for i in range(4))
+CLI_SEED = 900
+CLI_MESSAGE_BITS = 256

@@ -9,15 +9,19 @@ port of tools/run_robustness_sweep.py, with ``--device`` in place of
 its rows written, unless ``--out`` names a file, under the git-ignored
 ``build/`` as ``robustness_sweep_{preset}[_{res}]_torch.jsonl``.
 
-CAVEAT (documented, deliberate): the weights are random, from a seed, and a
-random-weight VAE is no autoencoder, so every row that goes through an image
-sits near 0.5.  The run demonstrates the protocol and its plumbing and
-measures its time; accuracies need a fitted or a real VAE, which the
-repository does not hold (the reference's --fitted-vae file and its fit of
-the tiny VAE are not ported).
+The UNet's weights are random, from a seed; the VAE is fitted for
+encode-decode identity, so that a row through an image measures the
+watermark and not a random autoencoder: the tiny preset's VAE here, before
+its sweep (``utils.fitting.fit_vae_roundtrip``, 600 steps), a full-size
+preset's from ``--fitted-vae`` (``python -m gswm_torch.tools.fit_vae``
+writes it; without the file the rows sit near 0.5, and the run says so).
+Random UNet weights still make the absolute accuracies incomparable with
+real SD 2.1 curves: attacks that destroy geometric alignment drop to ~0.5
+without the real model's prior.
 
 Run on the card:
 
+  python -m gswm_torch.tools.fit_vae
   python -m gswm_torch.tools.run_robustness_sweep --preset sd-2-1 --res 768 \
       --batch 2
 
@@ -34,6 +38,7 @@ import torch
 from gswm_torch.config import GSConfig
 from gswm_torch.eval.sweep import DEFAULT_ATTACKS, run_sweep
 from gswm_torch.pipelines import InversablePipeline
+from gswm_torch.utils.fitting import fit_vae_roundtrip
 
 STRENGTHS = (0.1, 0.3, 0.5, 0.7, 0.9)
 
@@ -67,6 +72,11 @@ def main(argv=None):
                     action="store_false")
     # Attack subset (comma-separated) — e.g. --attacks none,compression,noise
     ap.add_argument("--attacks", default=None)
+    # the full-size VAE fitted for encode-decode identity (fit_vae.py)
+    ap.add_argument("--fitted-vae", default=os.path.join("build", "fitted_vae_sd21arch.pt"))
+    # round the UNet's and the VAE's weights through bf16 (the pipeline's
+    # weights_dtype)
+    ap.add_argument("--weights-dtype", choices=("fp32", "bf16"), default=None)
     args = ap.parse_args(argv)
 
     tiny = args.preset == "tiny"
@@ -76,14 +86,24 @@ def main(argv=None):
     pipe = InversablePipeline(
         args.preset, device=args.device,
         dtype=torch.float32 if tiny else torch.bfloat16,
-        generator=torch.Generator(device=args.device).manual_seed(0))
-    print("WARNING: random VAE weights put every row at the ~0.5 floor (no "
-          "fitted VAE is in the repository)", flush=True)
+        generator=torch.Generator(device=args.device).manual_seed(0),
+        weights_dtype=torch.bfloat16 if args.weights_dtype == "bf16" else None)
     if tiny:
+        print("fitting tiny VAE for image-roundtrip fidelity ...", flush=True)
+        fit_vae_roundtrip(pipe)
         cfg = GSConfig(key_hex="22" * 32, nonce_hex="33" * 16,
                        message="lthero", width=32, height=32, vae_scale=2,
                        message_bits=32)
     else:
+        if args.fitted_vae and os.path.exists(args.fitted_vae):
+            pipe.vae.load_state_dict(torch.load(args.fitted_vae, map_location=pipe.device,
+                                                weights_only=True))
+            pipe.weights_loaded_()
+            print(f"loaded fitted VAE params from {args.fitted_vae}", flush=True)
+        else:
+            print(f"WARNING: no fitted VAE at {args.fitted_vae!r} — random VAE weights "
+                  "put every row at the ~0.5 floor (run python -m "
+                  "gswm_torch.tools.fit_vae first)", flush=True)
         cfg = GSConfig(key_hex="22" * 32, nonce_hex="33" * 16,
                        message="lthero", width=args.res, height=args.res,
                        message_bits=256)

@@ -1094,3 +1094,42 @@ def test_tiny_sweep_and_treering_on_card(cuda):
     torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=0, atol=1e-4)
     torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=0, atol=1e-4)
     assert max(out["cuda"][2]) < 0.01
+
+
+def test_kernel_wrappers_refuse_a_gradient(cuda):
+    """Every wrapper that writes a kernel's output raises under a gradient
+    (no kernel has a backward; the VAE fit runs its attention chunked) and
+    launches nothing; under no_grad the same call runs its kernel."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=cuda).bfloat16()
+
+    x, w = rand(1, 256, 128), rand(128, 128) * 128**-0.5
+    cases = {
+        "flash_attention": (attn.flash_attention, lambda: (rand(1, 300, 128), rand(1, 300, 128),
+                                                           rand(1, 300, 128), 2)),
+        "flash_attention_split": (attn.flash_attention_split,
+                                  lambda: (rand(1, 600, 1, 512), rand(1, 600, 1, 512),
+                                           rand(1, 600, 1, 512))),
+        "flash_attention_packed": (attn.flash_attention_packed, lambda: (rand(1, 300, 384),)),
+        "flash_attention_transposed": (attn.flash_attention_transposed,
+                                       lambda: (rand(3 * 128, 1, 256), 2)),
+        "fused_qkv_attention": (attn.fused_qkv_attention, lambda: (x, w, w.clone(), w.clone(), 2)),
+        "qkv_projection": (attn.qkv_projection, lambda: (x, w, w.clone(), w.clone())),
+        "fused_group_norm": (gn.fused_group_norm,
+                             lambda: (rand(1, 64, 8, 8), torch.ones(64, device=cuda),
+                                      torch.zeros(64, device=cuda))),
+    }
+    for name, (fn, make) in cases.items():
+        args = make()
+        leaf = args[0].requires_grad_(True)
+        before = fn.launches
+        with pytest.raises(RuntimeError, match=f"{name}.*GSWM_VAE_ATTN=chunked"):
+            fn(*args)
+        assert fn.launches == before, name
+        with torch.no_grad():
+            fn(*args)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1, name
+        assert leaf.requires_grad

@@ -122,10 +122,12 @@ def test_kernel_source_is_one_launch_that_keeps_the_group_on_chip():
 
 class _OnCard:
     """Stands in for a tensor on a card, which this machine has not: the
-    wrapper's CUDA branch reads a tensor's metadata and address alone."""
+    wrapper's CUDA branch reads a tensor's metadata (its ``requires_grad``
+    too) and address alone."""
 
     device = torch.device("cuda", 0)
     converted = 0
+    requires_grad = False
 
     def __init__(self, shape, dtype, address):
         self.shape, self.dtype, self.address = torch.Size(shape), dtype, address
@@ -182,3 +184,25 @@ def test_wrapper_allocates_only_the_output_and_converts_nothing(monkeypatch):
     with pytest.raises(ValueError):
         gn.fused_group_norm(x, _OnCard((32,), torch.float32, 0x2000), b)
     assert len(calls) == 2
+
+
+def test_wrapper_refuses_a_gradient_before_any_launch(monkeypatch):
+    """On a CUDA tensor under grad mode, an input that requires grad raises
+    (the kernel has no backward) before anything is launched or allocated,
+    and nothing falls back to the plain version; under no_grad it launches."""
+    calls = []
+    monkeypatch.setattr(gn.native, "launch", lambda dev, name, *args: calls.append(name))
+    monkeypatch.setattr(torch, "empty_like", lambda t: _OnCard(t.shape, t.dtype, 0x7000))
+    monkeypatch.setattr(gn, "fused_group_norm_reference", None)  # no fallback
+    x = _OnCard((2, 64, 6, 8), torch.bfloat16, 0x1000)
+    w = _OnCard((64,), torch.float32, 0x2000)
+    w.requires_grad = True
+    b = _OnCard((64,), torch.float32, 0x3000)
+    before = gn.fused_group_norm.launches
+    with pytest.raises(RuntimeError, match="fused_group_norm.*no backward|fused_group_norm.*"
+                                           "neither gswm nor gswm_torch has a backward"):
+        gn.fused_group_norm(x, w, b, 32, 1e-6, "silu")
+    assert calls == [] and gn.fused_group_norm.launches == before
+    with torch.no_grad():
+        gn.fused_group_norm(x, w, b, 32, 1e-6, "silu")
+    assert calls == ["gswm_group_norm"]

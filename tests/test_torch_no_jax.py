@@ -165,3 +165,56 @@ def test_loader_and_cache_run_with_safetensors_and_transformers_blocked(tmp_path
                          cwd=Path(__file__).resolve().parents[1])
     assert res.returncode == 0, res.stdout + res.stderr
     assert "LOADED []" in res.stdout
+
+
+def test_fit_tokenizer_and_clis_import_and_run_without_their_reference_deps(tmp_path):
+    """The VAE fit, the CLIP BPE, the metrics, check_finite and the three
+    CLIs (and chip_smoke.py, which drives them) load none of jax, the JAX
+    package, transformers, PIL, regex or ftfy at import time; with PIL,
+    regex and ftfy made unimportable the fit takes steps, the tokenizer
+    encodes non-ASCII text and gs-embed-torch writes its records."""
+    vocab = tmp_path / "vocab"
+    vocab.mkdir()
+    code = textwrap.dedent(f"""
+        import json, sys
+        for name in ("PIL", "regex", "ftfy"):
+            sys.modules[name] = None
+        import torch
+        torch.set_num_threads(1)
+        from gswm_torch.cli import gs_embed, gs_extract, gs_trace  # noqa: F401
+        from gswm_torch.eval import metrics  # noqa: F401
+        from gswm_torch.models import tokenizer
+        from gswm_torch.tools import fit_vae
+        from gswm_torch.utils import debug, fitting  # noqa: F401
+        import runpy
+        runpy.run_path("chip_smoke.py", run_name="not_main")
+        loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
+                        and m.split(".")[0] in ("jax", "jaxlib", "flax", "gswm",
+                                                "transformers", "PIL", "regex", "ftfy"))
+        print("LOADED AT IMPORT", loaded)
+        assert not loaded, loaded
+        start = fit_vae.build_vae("tiny", "cpu").state_dict()
+        state = fitting.fit_vae_roundtrip(fit_vae.build_vae("tiny", "cpu"), steps=2, batch=2)
+        assert any(not torch.equal(state[k], start[k]) for k in state)
+        chars = list(tokenizer.bytes_to_unicode().values())
+        vocab = {{t: i for i, t in enumerate(chars + [c + "</w>" for c in chars]
+                                             + ["<|startoftext|>", "<|endoftext|>"])}}
+        open({str(vocab / "vocab.json")!r}, "w").write(json.dumps(vocab))
+        open({str(vocab / "merges.txt")!r}, "w").write("#version: 0.2\\n")
+        ids = tokenizer.load_tokenizer({str(vocab)!r})(["café 你好 x²"])
+        assert ids.shape == (1, 77) and ids[0, 0] == vocab["<|startoftext|>"]
+        gs_embed.main(["--key_hex", "22" * 32, "--seed", "1", "--width", "64",
+                       "--height", "64", "--outdir", {str(tmp_path / "emb")!r},
+                       "--device", "cpu"])
+        loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
+                        and m.split(".")[0] in ("jax", "jaxlib", "flax", "gswm",
+                                                "transformers", "PIL", "regex", "ftfy"))
+        print("LOADED", loaded)
+        assert not loaded, loaded
+    """)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         cwd=Path(__file__).resolve().parents[1])
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "LOADED []" in res.stdout
+    assert (tmp_path / "emb" / "info_data.jsonl").exists()
