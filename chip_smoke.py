@@ -70,6 +70,15 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
      exactly once on the whole path (the first embed: every later embed and
      decode takes the cached keystream); K4 must not (the VAE attention's
      4096 tokens keep the plain path).
+     The memory sweep (gswm_torch/utils/memory.py; here, after phase 4 on the
+     768x768 pipeline and after phase 9c on SDXL's): the extraction chain at
+     batches 32, 64 and 128 (16, 32, 64 at 768x768; 8, 16, 32 at 1024x1024:
+     at or above the VAE's chunk), 2 inversion steps, after one call at the
+     smallest to warm up; each batch's peak device memory (the pipeline's
+     weights and what the chain allocates, not the other pipelines resident)
+     beside the model's prediction, within MEMORY_REL_BOUND; at 512x512 the
+     peak at batch 32 with 30 steps beside 2, within 1%.  K1, K2 per
+     forward, K3 once, K4 once a VAE encode chunk above 512x512.
   4. generation path, sd-2-1 (v-prediction) at 768x768, batch 2, random
      weights from a seed:
        (a) latent closed loop with DDIM at guidance 1.0, and (b) with DPM++:
@@ -177,7 +186,7 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
      1024 tokens, depth 10; level 1 at 4096 tokens, depth 2; level 0 has no
      attention), K6, K7, K8 and K4 at D = 64 never; K4 once a VAE encode of 2
      images and twice a decode of 2; K3 exactly once (a new capacity, a new
-     cache entry).
+     cache entry).  Then the memory sweep at 1024x1024 (above).
  10. SD 1.x, sd-1-4 at 512x512, batch 4, bf16, random weights from a seed
      (built after phase 9's pipeline is freed), nothing cut; 8 heads of 40,
      80 and 160:
@@ -199,14 +208,48 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
      5 at 40; K4 on the default route, K6, K7, K8 and the batch kernel
      never (K7 5 at d = 40 in (c)); K3 once after the keystream caches are
      cleared.
- 11. summary  — a JSON line of the kernels, then the JSON result line.
+ 11. the host surfaces and the lossless check, on sd-2-1-base at 512x512
+     (run after phase 7, on its pipeline):
+       (a) the lossless artifact (gswm_torch/tools/run_quality_artifact.py)
+           at batch 8 a population, 30 steps, guidance 1.0: wm_indep's latent
+           KS p-values (one-sample against N(0, 1), two-sample against the
+           plain population) each >= 0.01; the pixel rows printed without a
+           limit (random weights); K1 10 and K2 5 a forward, K3 once a (key,
+           nonce, capacity): 9, the caches cleared first;
+       (b) measure_similarity at openai/clip-vit-large-patch14's widths
+           (tools/paths.py CLIP_VIT_L14; random weights from a seed, through
+           a checkpoint directory written into build/) on (a)'s wm_indep
+           images and 8 prompts: the card's scores within 1e-3 of the CPU's
+           on the same weights and inputs (TF32 off); ms a call, device
+           memory;
+       (c) the integrations on the card: GSLatent (batch 4, use_seed 1 and
+           0), gs_noise_batch (plain and use_repeat), the ComfyUI
+           common_ksampler under stub comfy / latent_preview modules (the GS
+           latent must be the noise handed to the sampler): every latent
+           decoded at 1.0, then 30-step generate at guidance 1.0 and 30-step
+           inversion at >= 0.99; K3 once a key (3); stage / stage_report /
+           device_stats around it, a torch.profiler trace of the embeds into
+           build/trace_phase11/.
+  suggested batch (last, every other pipeline freed): sd-2-1-base's
+     extraction chain at memory.suggest_batch(512) for this card, 2 steps,
+     on a pipeline built anew: its peak under 90% of the card's memory,
+     images/s printed.  The script runs under the allocator's expandable
+     segments (PYTORCH_CUDA_ALLOC_CONF, set at its top), which the policy's
+     batches need.  The seconds of this PR's phases are printed.
+ 12. summary  — a JSON line of the kernels, then the JSON result line.
 Each path's launch counts are set to 0 just before it and read just after.
 """
 
 from __future__ import annotations
 
-import json
 import os
+
+# the memory policy's batches are sized on allocated bytes, which the default
+# caching allocator fragments at those sizes (gswm_torch/utils/memory.py);
+# set before torch touches the card
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+
+import json
 import statistics
 import subprocess
 import sys
@@ -214,6 +257,7 @@ import tempfile
 import time
 import warnings
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -293,6 +337,17 @@ SD14_TIER_LAUNCHES = {
     "c": {"flash_attention_transposed": {40: 5}, "fused_qkv_attention": {80: 5, 160: 5}},
     "e": {"flash_attention": {40: 5}, "flash_attention_split": {80: 5}},
 }
+# the memory model (gswm_torch/utils/memory.py) against the measured peak at
+# every swept batch, relative; the peak at 30 inversion steps against 2
+MEMORY_REL_BOUND = 0.10
+STEPS_PEAK_BOUND = 0.01
+# CLIP's scores on the card against the CPU's, float32 with TF32 off: the
+# two sum in different orders (~1e-6 relative a layer through 24 + 12
+# layers), far below a score's scale of 1
+CLIP_CARD_BOUND = 1e-3
+CLIP_TIMED_CALLS = 5
+# phase 11c's profiler trace
+TRACE_DIR = os.path.join("build", "trace_phase11")
 # gswm/pipelines/inversable.py:330-348: VAE calls take vae_chunk images at
 # 512x512, fewer in proportion to the pixels, and 8x fewer when decoding
 VAE_CHUNK = 32
@@ -1444,9 +1499,10 @@ def phase_bench(card: str, pipe) -> dict:
     return {name: counts[name] + tr_counts[name] for name in counts}
 
 
-def phase_sdxl(card: str) -> dict:
+def phase_sdxl(card: str) -> tuple:
     """sdxl-base at 1024x1024, batch 2: the latent closed loop, the
-    watermark chain, the UNet forward's time."""
+    watermark chain, the UNet forward's time; then the memory sweep on the
+    same pipeline.  Returns (launch counts, the sweep's seconds)."""
     from gswm_torch import recover_message_bits
 
     dev = "cuda"
@@ -1545,8 +1601,10 @@ def phase_sdxl(card: str) -> dict:
         ms = _time_ms(forward, 5)
         print(f"(c) SDXL UNet forward, batch {batch}, {res}x{res}: {ms:.4f} ms; on {card}",
               flush=True)
+    t0 = time.perf_counter()
+    sweep = phase_memory_sweep(card, pipe, "sdxl-base", arch="sdxl")
     del pipe
-    return counts
+    return {name: counts[name] + sweep[name] for name in counts}, time.perf_counter() - t0
 
 
 def _by_d_since(before: dict) -> dict:
@@ -1681,16 +1739,310 @@ def phase_sd14(card: str, rate_3b: float) -> dict:
     return counts
 
 
+def phase_memory_sweep(card: str, pipe, preset: str, arch: str = "sd",
+                       check_steps: int = 0) -> dict:
+    """The memory model of gswm_torch/utils/memory.py against the card: the
+    extraction chain (embed, VAE encode, inversion, decode) at the batches of
+    ``paths.MEMORY_SWEEPS[preset]``, 2 inversion steps, each batch's
+    measured peak beside the model's; with ``check_steps``, the peak at the
+    smallest batch with that many steps beside the 2-step one."""
+    from gswm_torch.utils import memory
+
+    res, batches = paths.MEMORY_SWEEPS[preset]
+    steps = paths.MEMORY_STEPS
+    cfg = paths.config(res, "gswm_torch memory")
+    t0 = time.perf_counter()
+    memory.chain_peaks(pipe, cfg, min(batches), steps)  # the first call at these shapes
+    _clear_keystream_caches()
+    _reset_counters()
+    forwards, k4_want = 0, 0
+    for b in batches:
+        peaks = memory.chain_peaks(pipe, cfg, b, steps, seed=b)
+        forwards += steps
+        if res > RES:  # the VAE mid attention above 4096 tokens: K4 a chunk
+            k4_want += -(-b // pipe._vae_chunk_for(torch.empty((b, 3, res, res),
+                                                               device="meta")))
+        want = memory.predicted_peak_gib(res, b, arch)
+        print(f"memory {preset} {res}x{res} batch {b}: peak {peaks['chain']:.4f} GiB (encode "
+              f"{peaks['encode']:.4f}, inversion {peaks['invert']:.4f}), model {want:.4f} "
+              f"({want / peaks['chain'] - 1:+.2%}); {peaks['images_per_s']:.4f} images/s at "
+              f"{steps} steps; on {card}", flush=True)
+        if abs(want / peaks["chain"] - 1) > MEMORY_REL_BOUND:
+            raise AssertionError(f"memory model {want:.4f} GiB at {preset} batch {b} is off "
+                                 f"the measured {peaks['chain']:.4f} by more than "
+                                 f"{MEMORY_REL_BOUND:.0%}")
+    if check_steps:
+        b = min(batches)
+        long = memory.chain_peaks(pipe, cfg, b, check_steps, seed=b)["chain"]
+        short = memory.chain_peaks(pipe, cfg, b, steps, seed=b)["chain"]
+        forwards += check_steps + steps
+        print(f"memory {preset} batch {b}: peak {long:.4f} GiB at {check_steps} steps, "
+              f"{short:.4f} at {steps} ({long / short - 1:+.4%})", flush=True)
+        if abs(long / short - 1) > STEPS_PEAK_BOUND:
+            raise AssertionError(f"the peak moves with the step count: {long} against {short}")
+    counts = _counters()
+    per_forward = (SDXL_K1, SDXL_K2) if arch == "sdxl" else (10, 5)
+    _check_unet_launches(counts, forwards, *per_forward)
+    if counts["chacha20"] != 1 or counts["flash_attention_split"] != k4_want:
+        raise AssertionError(f"memory sweep launches {counts}: K3 once, K4 {k4_want}")
+    print(f"memory sweep {preset}: {time.perf_counter() - t0:.2f} s; launches "
+          f"{({k: v for k, v in counts.items() if v})}", flush=True)
+    return counts
+
+
+def phase_suggested_batch(card: str) -> dict:
+    """sd-2-1-base's extraction chain at ``suggest_batch(512)`` for this
+    card, 2 inversion steps, alone on the card (a pipeline built anew after
+    every other is freed): its peak under 90% of the card's memory."""
+    from gswm_torch.utils import memory
+
+    torch.cuda.empty_cache()
+    total = memory.card_gib()
+    b = memory.suggest_batch(RES)
+    pipe = paths.build_pipeline("sd-2-1-base")
+    cfg = paths.config(RES, "gswm_torch suggested")
+    _clear_keystream_caches()
+    _reset_counters()
+    peaks = memory.chain_peaks(pipe, cfg, b, paths.MEMORY_STEPS)
+    counts = _counters()
+    want = memory.predicted_peak_gib(RES, b)
+    print(f"suggested batch at {RES}x{RES} for {total:.4f} GiB: {b}; peak {peaks['chain']:.4f} "
+          f"GiB ({peaks['chain'] / total:.2%} of the card; model {want:.4f}), allocator "
+          f"reserved {peaks['reserved']:.4f} GiB; {peaks['images_per_s']:.4f} images/s at "
+          f"{paths.MEMORY_STEPS} steps (embed, VAE encode, inversion, decode); on {card}",
+          flush=True)
+    if peaks["chain"] >= 0.9 * total:
+        raise AssertionError(f"the suggested batch {b} peaks at {peaks['chain']:.4f} GiB, "
+                             f"over 90% of {total:.4f}")
+    _check_unet_launches(counts, paths.MEMORY_STEPS)
+    if counts["chacha20"] != 1:
+        raise AssertionError(f"K3 launched {counts['chacha20']} times at the suggested batch")
+    print(f"launches at the suggested batch {({k: v for k, v in counts.items() if v})}",
+          flush=True)
+    del pipe
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_quality(card: str, pipe) -> tuple:
+    """Phase 11 (a) and (b) on sd-2-1-base at 512x512: the lossless
+    artifact, then the CLIP score of its images on the card against the
+    CPU.  Returns (counts, the wm_indep images as numpy)."""
+    from gswm_torch.eval import quality
+    from gswm_torch.models import clip
+    from gswm_torch.tools import run_quality_artifact as artifact
+
+    b = paths.QUALITY_BATCH
+    t0 = time.perf_counter()
+    _clear_keystream_caches()
+    _reset_counters()
+    rows, (images, _, _) = artifact.run(pipe, RES, b, STEPS, seed=paths.QUALITY_SEED,
+                                        log=lambda s: print(f"(a) {s}", flush=True))
+    counts = _counters()
+    latent = next(r for r in rows if r["space"] == "latent" and r["population"] == "wm_indep")
+    (study,) = artifact.latent_seed_study(pipe, RES, b, [paths.QUALITY_SEED])
+    print(f"(a) the plain population against the exact N(0, 1): p "
+          f"{study['plain_ks1_normal_p']:.4f}", flush=True)
+    print(f"(a) lossless artifact, 3 x {b} images, {STEPS} steps, seed {paths.QUALITY_SEED}: "
+          f"{time.perf_counter() - t0:.2f} s; launches "
+          f"{({k: v for k, v in counts.items() if v})}; on {card}", flush=True)
+    for r in rows:
+        print(f"(a) row {json.dumps(r)}", flush=True)
+    if min(latent["ks1_normal_p"], latent["ks2_p"]) < paths.QUALITY_MIN_P:
+        raise AssertionError(f"wm_indep's latent KS p-values {latent['ks1_normal_p']}, "
+                             f"{latent['ks2_p']}: below {paths.QUALITY_MIN_P}")
+    if len(rows) != 4 or images.shape != (b, 3, RES, RES) or not np.isfinite(images).all():
+        raise AssertionError("the artifact's rows or images are malformed")
+    # three generations of 30 steps; one keystream a nonce: wm_fixed's and b
+    # of wm_indep's, the caches cleared first
+    _check_unet_launches(counts, 3 * STEPS)
+    if counts["chacha20"] != b + 1 or counts["flash_attention_split"]:
+        raise AssertionError(f"artifact launches {counts}: K3 {b + 1}, K4 none")
+
+    # (b) the CLIP score at ViT-L/14's widths, random weights from a seed,
+    # through a checkpoint directory written here: the card against the CPU
+    t0 = time.perf_counter()
+    model = clip.build_clip(paths.CLIP_VIT_L14, torch.Generator().manual_seed(paths.CLIP_SEED),
+                            device="cpu")
+    n_params = sum(p.numel() for p in model.parameters())
+    directory = paths.write_clip_dir(os.path.join("build", "clip_vit_l14_random"), model)
+    del model
+    prompts = list(paths.CLIP_PROMPTS)
+    want = quality.measure_similarity(images, prompts, directory, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = quality.measure_similarity(images, prompts, directory, device="cuda")
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    walls = []
+    for _ in range(CLIP_TIMED_CALLS):
+        t1 = time.perf_counter()
+        quality.measure_similarity(images, prompts, directory, device="cuda")
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+    err = float(np.abs(got - want).max())
+    print(f"(b) CLIP ViT-L/14 ({n_params / 1e6:.1f}M params, fp32, TF32 off) on {b} images "
+          f"and {len(prompts)} prompts: scores {np.round(got, 5).tolist()}; max |card - CPU| "
+          f"{err:.2e}; {statistics.median(walls) * 1e3:.2f} ms a call on the card (median of "
+          f"{CLIP_TIMED_CALLS}, host clock, processing included), device memory "
+          f"{peak:.4f} GiB above the resident at the first call (weights included); the "
+          f"checkpoint written and the CPU's call {cpu_s:.2f} s; on {card}", flush=True)
+    if err > CLIP_CARD_BOUND or got.shape != (b,) or not np.isfinite(got).all():
+        raise AssertionError(f"CLIP scores on the card off the CPU's by {err}")
+    quality._load_clip.cache_clear()
+    return counts, images
+
+
+def phase_integrations(card: str, pipe) -> dict:
+    """Phase 11 (c): the ComfyUI nodes, the A1111 noise and the ComfyUI
+    sampler's noise substitution on the card; each latent decoded (1.0),
+    then 30-step generate at guidance 1.0 and 30-step inversion (>= 0.99).
+    ``stage`` / ``stage_report`` / ``device_stats`` around it, a trace of
+    the embeds into build/."""
+    import contextlib
+    import types
+
+    from gswm_torch import GSConfig, recover_message_bits
+    from gswm_torch.config import prepare_message_bytes
+    from gswm_torch.integrations import a1111, comfyui
+    from gswm_torch.utils import profiling
+
+    dev = "cuda"
+    t0 = time.perf_counter()
+    keys = {name: f"{0x71 + i:02x}" * 32 for i, name in enumerate(("node", "a1111", "sampler"))}
+    nonce = "72" * 16
+    lats, cfgs, msgs = [], [], []
+
+    def add(lat, key, message, repeat=False):
+        lats.append(torch.as_tensor(lat).to(dev, torch.float32).reshape(-1, 4, RES // 8,
+                                                                        RES // 8))
+        cfg = GSConfig(key_hex=key, nonce_hex=nonce, message=message, width=RES,
+                       height=RES, message_bits=256, repeat4=repeat)
+        cfgs.extend([cfg] * lats[-1].shape[0])
+        msgs.extend([prepare_message_bytes(message, 32, repeat)] * lats[-1].shape[0])
+
+    calls = []
+    sample = types.SimpleNamespace(
+        prepare_noise=lambda *a: None,
+        sample=lambda model, noise, *a, **kw: calls.append(noise) or noise)
+    comfy = types.SimpleNamespace(sample=sample,
+                                  utils=types.SimpleNamespace(PROGRESS_BAR_ENABLED=False))
+    stubs = {"comfy": comfy, "comfy.sample": sample, "comfy.utils": comfy.utils,
+             "latent_preview": types.SimpleNamespace(prepare_callback=lambda m, s: None)}
+    trace_dir = os.path.abspath(TRACE_DIR)
+    _clear_keystream_caches()
+    _reset_counters()
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        with profiling.trace(trace_dir, device=dev), \
+                profiling.stage("11c embeds", device=dev):
+            node = comfyui.GSLatent()
+            for use_seed in (1, 0):
+                latent, preview = node.create_gs_latents(
+                    key=keys["node"], nonce=nonce, message="comfy node", batch_size=4,
+                    use_seed=use_seed, seed=31, width=RES, height=RES, message_length=256)
+                if latent["samples"].device.type != "cpu" or \
+                        latent["samples"].dtype != torch.float32 or \
+                        tuple(preview.shape) != (4, RES // 8, RES // 8, 3):
+                    raise AssertionError("GSLatent's LATENT is not float32 on the CPU")
+                if use_seed == 1 and not torch.equal(latent["samples"][0],
+                                                     latent["samples"][3]):
+                    raise AssertionError("GSLatent's seeded batch is not replicated")
+                add(latent["samples"], keys["node"], "comfy node")
+            for repeat in (False, True):
+                lat = a1111.gs_noise_batch("webui", keys["a1111"], nonce, seed=41,
+                                           use_random_seed=True, use_repeat=repeat)
+                if lat.device.type != "cuda" or tuple(lat.shape) != (4, RES // 8, RES // 8):
+                    raise AssertionError("gs_noise_batch's latent is not on the card")
+                add(lat, keys["a1111"], "webui", repeat)
+            (gs, _) = node.create_gs_latents(
+                key=keys["sampler"], nonce=nonce, message="sampler", batch_size=2,
+                use_seed=0, seed=0, width=RES, height=RES, message_length=256)
+            saved = {name: sys.modules.get(name) for name in stubs}
+            sys.modules.update(stubs)
+            try:
+                (out,) = comfyui.common_ksampler(
+                    None, 5, STEPS, 1.0, "ddim", "normal", [], [],
+                    {"samples": torch.zeros_like(gs["samples"])}, use_GS=True,
+                    GS_latent_noise=gs)
+            finally:
+                for name, mod in saved.items():
+                    if mod is None:
+                        sys.modules.pop(name, None)
+                    else:
+                        sys.modules[name] = mod
+            if len(calls) != 1 or calls[0] is not gs["samples"]:
+                raise AssertionError("common_ksampler did not hand the GS latent to the sampler")
+            add(out["samples"], keys["sampler"], "sampler")
+            torch.cuda.synchronize()
+        if not os.path.exists("info_data.txt"):
+            raise AssertionError("the integrations wrote no info_data.txt")
+        records = open("info_data.txt").read().count("key: ")
+    embed_counts = _counters()
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    # 1 + 4 node latents, 2 A1111 latents, 2 sampler latents: one record each
+    if records != 9:
+        raise AssertionError(f"{records} registry records, not 9")
+
+    z = torch.cat(lats)
+    with profiling.stage("11c decode", device=dev):
+        acc = [_bit_accuracy(recover_message_bits(z[i:i + 1], cfg), msg, dev)[0]
+               for i, (cfg, msg) in enumerate(zip(cfgs, msgs))]
+    if min(acc) != 1.0:
+        raise AssertionError(f"integration latents decode at {acc}, not 1.0")
+    with profiling.stage("11c closed loop", device=dev):
+        x0 = pipe.generate(z, guidance_scale=1.0, num_steps=STEPS, decode=False)
+        z_back = pipe.invert(latents=x0, num_steps=STEPS)
+    loop = [_bit_accuracy(recover_message_bits(z_back[i:i + 1], cfg), msg, dev)[0]
+            for i, (cfg, msg) in enumerate(zip(cfgs, msgs))]
+    report = profiling.stage_report(reset=True)
+    stats = profiling.device_stats()
+    counts = _counters()
+    print(f"(c) integrations: {z.shape[0]} latents (GSLatent seeded 4 and unseeded 4, "
+          f"gs_noise_batch plain and repeat, common_ksampler 2): decoded {min(acc)}; "
+          f"through {STEPS}-step generate and inversion at batch {z.shape[0]}: "
+          f"{[round(a, 4) for a in loop]}; {time.perf_counter() - t0:.2f} s; launches "
+          f"{({k: v for k, v in counts.items() if v})}", flush=True)
+    print(f"(c) stage_report {json.dumps(report)}; device_stats {json.dumps(stats)}; trace "
+          f"{trace_dir}/trace.json: {len(events)} events, {kernels} kernels on the device",
+          flush=True)
+    if min(loop) < MIN_BIT_ACC:
+        raise AssertionError(f"integration closed loop {loop} below {MIN_BIT_ACC}")
+    if set(report) != {"11c embeds", "11c decode", "11c closed loop"} or \
+            stats[0]["bytes_limit"] != torch.cuda.get_device_properties(0).total_memory:
+        raise AssertionError(f"stage_report {report} or device_stats {stats} malformed")
+    _check_unet_launches(counts, 2 * STEPS)
+    # one keystream a key (three keys, one nonce, one capacity), the caches
+    # cleared first: every later embed and decode takes it from the cache
+    if counts["chacha20"] != len(keys) or embed_counts["chacha20"] != len(keys):
+        raise AssertionError(f"K3 launched {counts['chacha20']} times for {len(keys)} keys")
+    return counts
+
+
 def main() -> None:
     card = phase_card()
     phase_build()
     pipe_768 = build_pipeline_768()
     records = phase_kernels(paths.groupnorm_cases(pipe_768))
     counts_512, pipe_512, rate_3b = phase_extraction_512(card)
+    t_new = time.perf_counter()
+    counts_new = [phase_memory_sweep(card, pipe_512, "sd-2-1-base", check_steps=STEPS)]
+    seconds_new = time.perf_counter() - t_new
     counts_768 = phase_generation_768(card, pipe_768)
+    t_new = time.perf_counter()
+    counts_new.append(phase_memory_sweep(card, pipe_768, "sd-2-1"))
+    seconds_new += time.perf_counter() - t_new
     counts_tiers = phase_tiers(card, pipe_768)
     counts_gn = phase_groupnorm_op(pipe_768)
     counts_mk = phase_multikey(card, pipe_512)
+    t_new = time.perf_counter()
+    print("11. the host surfaces and the lossless check, sd-2-1-base at 512x512", flush=True)
+    counts_quality, _ = phase_quality(card, pipe_512)
+    counts_new += [counts_quality, phase_integrations(card, pipe_512)]
+    seconds_new += time.perf_counter() - t_new
     del pipe_512
     torch.cuda.empty_cache()
     fitted, counts_fit = phase_fit(card)
@@ -1700,13 +2052,20 @@ def main() -> None:
     counts_bench = phase_bench(card, pipe_768)
     del pipe_768
     torch.cuda.empty_cache()
-    counts_sdxl = phase_sdxl(card)
+    counts_sdxl, seconds = phase_sdxl(card)
+    seconds_new += seconds
     torch.cuda.empty_cache()
     counts_sd14 = phase_sd14(card, rate_3b)
+    t_new = time.perf_counter()
+    counts_new.append(phase_suggested_batch(card))
+    seconds_new += time.perf_counter() - t_new
+    print(f"this PR's phases (memory sweeps, suggested batch, phase 11): {seconds_new:.2f} s",
+          flush=True)
     counts = {name: counts_512[name] + counts_768[name] + counts_tiers[name]
               + counts_gn[name] + counts_mk[name] + counts_fit[name] + counts_cli[name]
               + counts_bench[name]
-              + counts_sdxl[name] + counts_sd14[name] for name in counts_512}
+              + counts_sdxl[name] + counts_sd14[name]
+              + sum(c[name] for c in counts_new) for name in counts_512}
     # the split wrapper's count, less what flash_hopper.cu ran of it
     counts["flash_attention_split"] -= counts["flash_attention_split_d64"]
     sources = {

@@ -16,15 +16,21 @@ robustness bench (``distortions``, ``eval.sweep``) and the Tree-Ring toolkit
   core/        ChaCha20 keystream (CUDA kernels: one key, and a table of
                keys), bit diffusion, embed, decode, multikey
   eval/        bit accuracy, the key registry, the trace search, the
-               robustness sweep, detection statistics, reports, prompt sets
+               robustness sweep, detection statistics, reports, prompt sets,
+               the CLIP quality score
   distortions/ the 15 batched attacks on the card (plain PyTorch) and the 16
                host attacks (PIL, imported when called)
   treering/    the FFT-ring watermark for comparison experiments
   cli/         gs_embed, gs_extract, gs_trace, gs_distort
-  utils/       json and jsonl IO, the VAE fit, check_finite
+  integrations/ the ComfyUI node pair and the A1111 script, with the files
+               their hosts load
+  examples/    the roundtrip demo
+  compat/      the golden NumPy oracle of the CPU tests
+  utils/       json and jsonl IO, the VAE fit, check_finite, profiling
+               hooks, the device-memory batch policy
   models/      UNet2DCondition, VAE encoder and decoder, CLIP text encoder
-               and its BPE tokenizer, presets, the weight bridge from the
-               JAX package's flax trees
+               and its BPE tokenizer, the CLIP towers of the quality score,
+               presets, the weight bridge from the JAX package's flax trees
   ops/         attention kernels (CUDA) and their plain versions
   schedulers/  DDIM and DPM++ plans and steps
   pipelines/   InversablePipeline

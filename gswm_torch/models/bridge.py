@@ -136,3 +136,36 @@ def load_pipeline_params_(pipe, unet_params, vae_params, text_params,
         np.array(text2_projection, dtype=np.float32)).to(pipe.device)
     pipe.weights_loaded_()
     return pipe
+
+
+# CLIP's leaves outside the rules above: the vision tower's class embedding
+# (a bare vector) and the scalar logit scale keep their names
+_CLIP_BARE_LEAVES = {("vision_model", "embeddings", "class_embedding"):
+                     "vision_model.embeddings.class_embedding",
+                     ("logit_scale",): "logit_scale"}
+
+
+def clip_from_flax(params, config):
+    """``FlaxCLIPModel``'s parameter tree (nested dicts of arrays, numpy or
+    anything ``np.asarray`` takes) -> a float32 ``models.clip.ClipModel`` of
+    ``config`` (a ``ClipConfig`` or a transformers config.json dict) on the
+    CPU; raises on keys left over on either side or on a shape mismatch."""
+    from gswm_torch.models import clip, loader
+
+    if "params" in params and len(params) == 1:
+        params = params["params"]
+    bare, rest = {}, {}
+    for path, value in _flatten(params):
+        if path in _CLIP_BARE_LEAVES:
+            bare[_CLIP_BARE_LEAVES[path]] = torch.from_numpy(
+                np.array(value, dtype=np.float32))
+            continue
+        node = rest
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = value
+    cfg = config if isinstance(config, clip.ClipConfig) else clip.config_from_dict(config)
+    with torch.device("meta"):
+        model = clip.ClipModel(cfg)
+    loader.load_state_(model, {**convert_tree(rest), **bare}, "CLIP")
+    return model.eval().requires_grad_(False)

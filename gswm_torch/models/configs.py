@@ -9,7 +9,7 @@ structurally identical miniature for closed-loop tests and CI (SURVEY.md §4
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +64,13 @@ class TextConfig:
     hidden_act: str = "quick_gelu"
     # SD2.x reads the penultimate layer ("clip skip" fixed at final for 1.x)
     penultimate: bool = False
+    layer_norm_eps: float = 1e-5
+    # the MLP's width (None: 4 x hidden_size)
+    intermediate_size: Optional[int] = None
+    # the token ``pooled`` reads: None = CLIP's <|endoftext|> (49407, the
+    # last id of a smaller vocabulary), transformers' legacy 2 = the largest
+    # id of each row, else the first position holding this id
+    eos_token_id: Optional[int] = None
 
 
 @dataclasses.dataclass(frozen=True)

@@ -24,6 +24,10 @@ does not:
 ``load_state_`` takes a state into a module (built on the meta device:
 nothing is allocated that the checkpoint overwrites) and raises, naming the
 missing, extra and misshapen keys, where the two do not match exactly.
+
+``load_clip`` reads a transformers CLIP directory the same way
+(``config.json`` and ``model.safetensors``) into ``models.clip.ClipModel``;
+``write_safetensors`` writes the format, also by hand.
 """
 
 from __future__ import annotations
@@ -75,6 +79,28 @@ def read_safetensors(path: str) -> dict[str, torch.Tensor]:
             raw = raw.clone()
         out[name] = raw.view(dtype).reshape(shape)
     return out
+
+
+def write_safetensors(path: str, state: dict) -> None:
+    """{name: tensor} -> a safetensors file ``read_safetensors`` (and the
+    safetensors package) reads: the header padded with spaces to a multiple
+    of 8 bytes, the buffers in the header's order, little-endian."""
+    tags = {dtype: tag for tag, dtype in _DTYPES.items()}
+    header, offset, tensors = {}, 0, []
+    for name, t in state.items():
+        t = t.detach().to("cpu").contiguous()
+        nbytes = t.numel() * t.element_size()
+        header[name] = {"dtype": tags[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + nbytes]}
+        offset += nbytes
+        tensors.append(t)
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for t in tensors:
+            f.write(t.reshape(-1).view(torch.uint8).numpy().data)
 
 
 def load_unet_state(model_dir: str) -> dict[str, torch.Tensor]:
@@ -135,3 +161,19 @@ def load_state_(module: nn.Module, state: dict, what: str) -> nn.Module:
         {k: v.to(torch.float32) if v.is_floating_point() else v for k, v in state.items()},
         strict=True, assign=True)
     return module
+
+
+def load_clip(model_dir: str):
+    """A transformers CLIP checkpoint directory (``config.json``,
+    ``model.safetensors``) -> a float32 ``models.clip.ClipModel`` on the CPU,
+    the ``position_ids`` buffers dropped."""
+    from gswm_torch.models import clip
+
+    with open(os.path.join(model_dir, "config.json")) as f:
+        cfg = clip.config_from_dict(json.load(f))
+    state = {k: v for k, v in read_safetensors(
+        os.path.join(model_dir, "model.safetensors")).items()
+        if not k.endswith("position_ids")}
+    with torch.device("meta"):
+        model = clip.ClipModel(cfg)
+    return load_state_(model, state, "CLIP").eval().requires_grad_(False)

@@ -5,12 +5,17 @@ module because transformers is not a dependency of the port.  Same
 architecture and the same parameter names as transformers' CLIPTextModel
 state dict (``text_model.encoder.layers.0.self_attn.q_proj.weight``):
 token + position embeddings, pre-LN blocks with causal self-attention,
-``gelu`` (exact erf) or ``quick_gelu`` MLPs, final LayerNorm.  The inversion
+``gelu`` (exact erf) or ``quick_gelu`` MLPs, final LayerNorm.  The blocks
+take any config with ``hidden_size``, ``num_heads``, ``hidden_act``,
+``layer_norm_eps`` and ``intermediate_size``: CLIP's vision tower
+(``models.clip``) runs them without the causal mask.  The inversion
 path only needs the empty prompt, whose ids are synthesized without a
 tokenizer.  Runs in float32, as the JAX package's encoder does.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -21,6 +26,12 @@ from gswm_torch.models.configs import TextConfig
 
 BOS_ID = 49406
 EOS_ID = 49407
+
+
+def _eps(cfg) -> float:
+    """The LayerNorms' epsilon; 1e-5 for a config without the field (the
+    JAX package's TextConfig, which the parity tests hand over)."""
+    return getattr(cfg, "layer_norm_eps", 1e-5)
 
 
 def _quick_gelu(x):
@@ -39,7 +50,9 @@ class CLIPAttention(nn.Module):
         self.v_proj = nn.Linear(hidden, hidden)
         self.out_proj = nn.Linear(hidden, hidden)
 
-    def forward(self, x, bias):
+    def forward(self, x, bias=None):
+        """``bias`` (S, S) is added to the logits (the causal mask), or
+        nothing where it is None."""
         b, s, c = x.shape
         d = c // self.heads
 
@@ -47,17 +60,20 @@ class CLIPAttention(nn.Module):
             return t.reshape(b, s, self.heads, d).transpose(1, 2)
 
         q, k, v = split(self.q_proj(x)), split(self.k_proj(x)), split(self.v_proj(x))
-        logits = torch.matmul(q * d**-0.5, k.transpose(-1, -2)) + bias
+        logits = torch.matmul(q * d**-0.5, k.transpose(-1, -2))
+        if bias is not None:
+            logits = logits + bias
         out = torch.matmul(torch.softmax(logits, dim=-1), v)
         return self.out_proj(out.transpose(1, 2).reshape(b, s, c))
 
 
 class CLIPMLP(nn.Module):
-    def __init__(self, hidden: int, act: str):
+    def __init__(self, hidden: int, act: str, inner: Optional[int] = None):
         super().__init__()
+        inner = inner or hidden * 4
         self.act = _ACTIVATIONS[act]
-        self.fc1 = nn.Linear(hidden, hidden * 4)
-        self.fc2 = nn.Linear(hidden * 4, hidden)
+        self.fc1 = nn.Linear(hidden, inner)
+        self.fc2 = nn.Linear(inner, hidden)
 
     def forward(self, x):
         return self.fc2(self.act(self.fc1(x)))
@@ -67,11 +83,12 @@ class CLIPEncoderLayer(nn.Module):
     def __init__(self, cfg: TextConfig):
         super().__init__()
         self.self_attn = CLIPAttention(cfg.hidden_size, cfg.num_heads)
-        self.layer_norm1 = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
-        self.mlp = CLIPMLP(cfg.hidden_size, cfg.hidden_act)
-        self.layer_norm2 = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
+        self.layer_norm1 = nn.LayerNorm(cfg.hidden_size, eps=_eps(cfg))
+        self.mlp = CLIPMLP(cfg.hidden_size, cfg.hidden_act,
+                           getattr(cfg, "intermediate_size", None))
+        self.layer_norm2 = nn.LayerNorm(cfg.hidden_size, eps=_eps(cfg))
 
-    def forward(self, x, bias):
+    def forward(self, x, bias=None):
         x = x + self.self_attn(self.layer_norm1(x), bias)
         return x + self.mlp(self.layer_norm2(x))
 
@@ -99,7 +116,7 @@ class CLIPTextTransformer(nn.Module):
         super().__init__()
         self.embeddings = CLIPEmbeddings(cfg)
         self.encoder = CLIPEncoder(cfg)
-        self.final_layer_norm = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
+        self.final_layer_norm = nn.LayerNorm(cfg.hidden_size, eps=_eps(cfg))
 
 
 class TextEncoder(nn.Module):
@@ -134,11 +151,18 @@ class TextEncoder(nn.Module):
         """(B, L) ids -> (B, hidden) pooled embedding (gswm/models/text.py:
         71-85, transformers' CLIP pooling): the LAST layer's hidden state
         after the final layer norm, even with ``penultimate``, at the first
-        EOS position (position 0 where there is none), then ``@ projection``
-        ((hidden, out), SDXL's text_projection) when one is given."""
+        EOS position (position 0 where there is none; the largest id of the
+        row under the legacy ``eos_token_id`` 2, as transformers pools), then
+        ``@ projection`` ((hidden, out), SDXL's and CLIP's text_projection)
+        when one is given."""
         ids, x = self._hidden(input_ids, last=True)
-        eos = min(EOS_ID, self.cfg.vocab_size - 1)
-        pos = (ids == eos).int().argmax(dim=-1)
+        eos = getattr(self.cfg, "eos_token_id", None)
+        if eos == 2:
+            pos = ids.argmax(dim=-1)
+        else:
+            if eos is None:
+                eos = min(EOS_ID, self.cfg.vocab_size - 1)
+            pos = (ids == eos).int().argmax(dim=-1)
         out = x[torch.arange(x.shape[0], device=x.device), pos]
         if projection is not None:
             out = out @ torch.as_tensor(projection, dtype=out.dtype, device=out.device)

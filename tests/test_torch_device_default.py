@@ -11,8 +11,11 @@ import torch
 from gswm_torch import GSConfig, embed_latents
 from gswm_torch.core import chacha, embed, multikey
 from gswm_torch.cli import gs_distort
-from gswm_torch.eval import trace
+from gswm_torch.eval import quality, trace
+from gswm_torch.integrations import a1111, comfyui
+from gswm_torch.models import clip
 from gswm_torch.tools import run_robustness_sweep
+from gswm_torch.utils import memory, profiling
 from gswm_torch.treering import core as treering
 from gswm_torch.pipelines import InversablePipeline
 
@@ -26,7 +29,10 @@ CFG = GSConfig(key_hex="22" * 32, nonce_hex="33" * 16, message="lthero",
     chacha.cached_keystream_bits, chacha.batch_keystream_bits,
     chacha.batch_keystream_bits_reference, multikey.embed_latents_multikey,
     trace.find_source_device, treering.get_watermarking_mask,
-    treering.get_watermarking_pattern, gs_distort.process_images_in_directory],
+    treering.get_watermarking_pattern, gs_distort.process_images_in_directory,
+    a1111.gs_noise_batch, quality.measure_similarity, quality.preprocess,
+    clip.build_clip, profiling.stage, profiling.trace, memory.suggest_batch,
+    memory.suggest_weights_dtype, memory.card_gib],
     ids=lambda fn: fn.__qualname__)
 def test_entry_point_defaults_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
@@ -171,3 +177,54 @@ def test_the_cpu_goes_on_running_what_the_card_refuses(monkeypatch):
     inversable._check_served_on_cuda(PRESETS["sd-2-1"], torch.bfloat16)
     inversable._check_served_on_cuda(PRESETS["sdxl-base"], torch.bfloat16)
     inversable._check_served_on_cuda(PRESETS["sd-1-4"], torch.bfloat16)
+
+
+def test_host_surfaces_default_to_the_card():
+    """The ComfyUI node embeds on ``GSLatent.device``; device_stats reads
+    the card; the artifact tool, the anchors tool and the demo take
+    ``--device`` / the card by default."""
+    from gswm_torch.examples import roundtrip_demo
+    from gswm_torch.tools import run_quality_artifact
+
+    assert comfyui.GSLatent.device == "cuda"
+    assert inspect.signature(profiling.device_stats).parameters["devices"].default == ("cuda",)
+    for tool in (run_quality_artifact, roundtrip_demo):
+        assert tool.build_parser().parse_args([]).device == "cuda"
+
+
+def test_host_surfaces_without_device_raise_without_a_card(no_card, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises((RuntimeError, AssertionError)):
+        comfyui.GSLatent().create_gs_latents(
+            key="22" * 32, nonce="33" * 16, message="x", batch_size=1, use_seed=1,
+            seed=1, width=64, height=64, message_length=32)
+    with pytest.raises((RuntimeError, AssertionError)):
+        a1111.gs_noise_batch("x", "44" * 32)
+    assert a1111.gs_noise_batch("x", "44" * 32, device="cpu").device.type == "cpu"
+    with pytest.raises((RuntimeError, AssertionError)):
+        quality.preprocess(torch.zeros((1, 3, 8, 8)), {"do_resize": False,
+                                                      "do_center_crop": False,
+                                                      "do_normalize": False})
+    with pytest.raises((RuntimeError, AssertionError)):
+        clip.build_clip({"text_config": {"hidden_size": 8, "num_hidden_layers": 1,
+                                         "num_attention_heads": 1},
+                         "vision_config": {"hidden_size": 8, "num_hidden_layers": 1,
+                                           "num_attention_heads": 1}})
+    with pytest.raises((RuntimeError, AssertionError)):
+        memory.suggest_batch(512)
+    with pytest.raises((RuntimeError, AssertionError)):
+        memory.suggest_weights_dtype(2**30)
+    assert memory.suggest_batch(512, hbm_gb=80.0) > 8
+
+
+def test_artifact_and_demo_without_device_raise_without_a_card(no_card, tmp_path):
+    from gswm_torch.examples import roundtrip_demo
+    from gswm_torch.tools import run_quality_artifact
+
+    out = tmp_path / "rows.jsonl"
+    with pytest.raises((RuntimeError, AssertionError)):
+        run_quality_artifact.main(["--preset", "tiny", "--res", "32", "--batch", "2",
+                                   "--steps", "1", "--out", str(out)])
+    assert not out.exists()
+    with pytest.raises((RuntimeError, AssertionError)):
+        roundtrip_demo.main(["--steps", "1"])

@@ -218,3 +218,71 @@ def test_fit_tokenizer_and_clis_import_and_run_without_their_reference_deps(tmp_
     assert res.returncode == 0, res.stdout + res.stderr
     assert "LOADED []" in res.stdout
     assert (tmp_path / "emb" / "info_data.jsonl").exists()
+
+
+def test_host_surfaces_quality_and_memory_import_and_run_without_reference_deps(tmp_path):
+    """The integrations and their shims, the CLIP score, the lossless
+    artifact, profiling, the memory policy, the demo and the golden oracle
+    import with jax, the JAX package, transformers, PIL, cryptography and
+    safetensors unimportable; on the CPU the nodes embed, the score runs on a
+    tiny CLIP directory the port writes itself, the artifact writes its
+    rows and the profiler its trace."""
+    code = textwrap.dedent(f"""
+        import json, os, runpy, sys
+        blocked = {FORBIDDEN!r} + ("gswm", "PIL")
+        for name in blocked:
+            sys.modules[name] = None
+        import torch
+        torch.set_num_threads(1)
+        from gswm_torch.integrations import a1111, comfyui, comfyui_node  # noqa: F401
+        from gswm_torch.eval import quality
+        from gswm_torch.models import clip, loader, tokenizer
+        from gswm_torch.utils import memory, profiling
+        from gswm_torch.tools import memory_anchors, run_quality_artifact  # noqa: F401
+        from gswm_torch.examples import roundtrip_demo  # noqa: F401
+        from gswm_torch.compat import numpy_reference  # noqa: F401
+        for name in ("GS_watermark_insert_for_webui.py",
+                     "GS_watermark_insert_for_webui_v1.6.0_and_higher.py"):
+            assert runpy.run_path("gswm_torch/integrations/scripts/" + name)["Script"] is None
+        runpy.run_path("chip_smoke.py", run_name="not_main")
+        os.chdir({str(tmp_path)!r})
+        comfyui.GSLatent.device = "cpu"
+        (latent, _) = comfyui.GSLatent().create_gs_latents(
+            key="22" * 32, nonce="33" * 16, message="x", batch_size=2, use_seed=1,
+            seed=1, width=64, height=64, message_length=32)
+        assert latent["samples"].shape == (2, 4, 8, 8)
+        assert a1111.gs_noise_batch("x", "44" * 32, device="cpu").shape == (4, 64, 64)
+        cfg = {{"text_config": {{"vocab_size": 514, "hidden_size": 16,
+                                "intermediate_size": 32, "num_hidden_layers": 1,
+                                "num_attention_heads": 2, "eos_token_id": 513}},
+               "vision_config": {{"hidden_size": 16, "intermediate_size": 32,
+                                  "num_hidden_layers": 1, "num_attention_heads": 2,
+                                  "image_size": 32, "patch_size": 8}},
+               "projection_dim": 8}}
+        from gswm_torch.tools import paths
+        paths.CLIP_VIT_L14, paths.CLIP_PROCESSOR = cfg, dict(
+            paths.CLIP_PROCESSOR, size={{"shortest_edge": 32}},
+            crop_size={{"height": 32, "width": 32}})
+        model = clip.build_clip(cfg, torch.Generator().manual_seed(0), device="cpu")
+        directory = paths.write_clip_dir("clip", model)
+        images = torch.rand((2, 3, 40, 48), generator=torch.Generator().manual_seed(1))
+        scores = quality.measure_similarity(images, ["a cat", "a dog"], directory,
+                                            device="cpu")
+        assert scores.shape == (2,) and abs(scores).max() <= 1
+        run_quality_artifact.main(["--preset", "tiny", "--res", "32", "--batch", "2",
+                                   "--steps", "1", "--device", "cpu", "--out", "q.jsonl"])
+        assert len(open("q.jsonl").read().splitlines()) == 5
+        with profiling.trace("trace", device="cpu"), profiling.stage("s", device="cpu"):
+            torch.ones(4) + 1
+        assert os.path.exists("trace/trace.json") and "s" in profiling.stage_report()
+        assert memory.suggest_batch(512, hbm_gb=80.0) > 8
+        loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
+                        and m.split(".")[0] in blocked)
+        print("LOADED", loaded)
+        assert not loaded, loaded
+    """)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         cwd=Path(__file__).resolve().parents[1])
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "LOADED []" in res.stdout
