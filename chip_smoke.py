@@ -236,7 +236,46 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
      images/s printed.  The script runs under the allocator's expandable
      segments (PYTORCH_CUDA_ALLOC_CONF, set at its top), which the policy's
      batches need.  The seconds of this PR's phases are printed.
- 12. summary  — a JSON line of the kernels, then the JSON result line.
+ 12. multi-device on one card (the sharded functions, the tp UNet, the ring
+     and the native host library; the card is one, so sharding is shown
+     in every way one card allows):
+       (a) K4 with its log-sum-exp output against its plain version at
+           paths.LSE_SHAPES (sd-2-1 768x768 level 0, SDXL level 1, SD 1.x
+           level 0 on the narrow kernel, (4, 1024, 8, 80), the SDXL VAE's
+           mid attention at d = 512), each also as a query shard against a
+           key shard of S / 4 (the wrapper's einsum branch below 512 keys):
+           out within the attention bounds head by head, lse within 1e-2;
+           ms, plain_ms, bound_ms and library_ms (aten's flash attention,
+           which returns its logsumexp too; none above d = 256);
+       (b) the ring on one card: ring_attention's per-rank step for every
+           virtual rank of sp = 2 and 4 in ring order (the rotation an
+           index), at (a)'s shapes, against one flash_attention_split call
+           within the attention bounds; the ring's wall beside the call's;
+           its K4-with-lse launches exact by head dim;
+       (c) NCCL of world 1: flash_attention_sharded, ring_attention,
+           fused_group_norm_sharded, shard_batch / gather_batch and a
+           shard_params sd-2-1-base UNet forward (512x512, batch 2) equal to
+           the single-device calls bit for bit; then
+           tools.dryrun_multichip and tools.run_config5_artifact --n 10000
+           (10,000 of 10,000 exact, 16 of 16 attributed) at world 1;
+       (d) two ranks on the one card over gloo, asked for by name (NCCL
+           refuses two ranks on one device), spawned by
+           torch.multiprocessing: dp = 2 extraction of 4 watermarked latents
+           of sd-2-1-base at 512x512, 30 + 30 steps, voted bits equal to
+           the one-process run's (max |dz_T| printed; the gathers are given
+           host tensors, moved here: gloo's all_gather is asked for on the
+           host); then tp = 2: one UNet forward at 512x512, batch 2, bf16,
+           level 0's 5 heads replicated, levels 1 and 2 sharded, within 2%
+           of max |out| of the one-process forward on the same routes
+           (split and plain), the default route's printed beside; K4
+           launches by head dim on each rank;
+       (e) the native host library (gswm_torch/hostlib) against its numpy
+           plain versions and the card: quantize, keystream, decode and
+           match count bit-exact over the 10,000-record registry (numpy on a
+           slice of it), find_source's candidates/s on the library against
+           the numpy loop, the build's seconds.
+     The phase's seconds are printed.
+ 13. summary  — a JSON line of the kernels, then the JSON result line.
 Each path's launch counts are set to 0 just before it and read just after.
 """
 
@@ -348,6 +387,15 @@ CLIP_CARD_BOUND = 1e-3
 CLIP_TIMED_CALLS = 5
 # phase 11c's profiler trace
 TRACE_DIR = os.path.join("build", "trace_phase11")
+# phase 12: lse against its fp32 plain version, absolute, natural-log units
+# (the kernels sum bf16-rounded p: ~1e-3 relative on the row sums)
+LSE_BOUND = 1e-2
+# phase 12d: the tp = 2 UNet forward against the one-process forward on the
+# same routes, relative to max |out| (bf16 sums over tp in another order)
+TP_REL_BOUND = 0.02
+# phase 12e: the records the numpy plain versions are run on (numpy's
+# decode takes milliseconds a record, its quantization tens)
+HOST_PLAIN_SLICE = 256
 # gswm/pipelines/inversable.py:330-348: VAE calls take vae_chunk images at
 # 512x512, fewer in proportion to the pixels, and 8x fewer when decoding
 VAE_CHUNK = 32
@@ -807,10 +855,17 @@ def _wrappers() -> dict:
 def _counters() -> dict:
     """Each wrapper's launches; and, of the split wrapper's, those at
     D <= 64 (the record "flash_attention_split_d64"), which another kernel,
-    csrc/flash_hopper.cu, runs."""
+    csrc/flash_hopper.cu, runs; and its launches with the log-sum-exp
+    output, by the same split ("flash_attention_split_lse_d64",
+    "flash_attention_split_lse")."""
     counts = {name: fn.launches for name, fn in _wrappers().items()}
+    split = _wrappers()["flash_attention_split"]
     counts["flash_attention_split_d64"] = sum(
-        n for d, n in _wrappers()["flash_attention_split"].launches_by_d.items() if d <= 64)
+        n for d, n in split.launches_by_d.items() if d <= 64)
+    counts["flash_attention_split_lse_d64"] = sum(
+        n for d, n in split.lse_launches_by_d.items() if d <= 64)
+    counts["flash_attention_split_lse"] = sum(
+        n for d, n in split.lse_launches_by_d.items() if d > 64)
     return counts
 
 
@@ -825,6 +880,9 @@ def _reset_counters() -> None:
         fn.launches = 0
         if name in ATTENTION_COUNTERS:
             fn.launches_by_d = {}
+    split = _wrappers()["flash_attention_split"]
+    split.lse_launches = 0
+    split.lse_launches_by_d = {}
 
 
 def _clear_keystream_caches() -> None:
@@ -2022,6 +2080,401 @@ def phase_integrations(card: str, pipe) -> dict:
     return counts
 
 
+def _lse_library(q, k, v):
+    """aten's flash attention, which returns its logsumexp beside the output,
+    on (B, H, S, D) views: the yardstick of K4 with lse (d <= 256)."""
+    return torch.ops.aten._scaled_dot_product_flash_attention(
+        *(t.transpose(1, 2) for t in (q, k, v)))
+
+
+def _ring_on_one_card(shards: tuple, sp: int, dtype) -> torch.Tensor:
+    """ring_attention's per-rank step for every virtual rank of an sp ring,
+    in ring order: at step j rank r holds k/v shard (r - j) % sp, what j
+    rotations to the right neighbour bring it.  ``shards``: the q, k and v
+    shards (lists of sp contiguous (B, S / sp, H, D) tensors)."""
+    from gswm_torch.ops.ring_attention import ring_finish, ring_step
+
+    qs, ks, vs = shards
+    outs = []
+    for r in range(sp):
+        acc = None
+        for step in range(sp):
+            src = (r - step) % sp
+            acc = ring_step(qs[r], ks[src], vs[src], acc)
+        outs.append(ring_finish(acc, dtype))
+    return torch.cat(outs, dim=1)
+
+
+def phase_lse(card: str, records: dict) -> None:
+    """12a: K4 with its log-sum-exp output against its plain version."""
+    from gswm_torch import roofline
+    from gswm_torch.ops import attention as attn
+
+    g = torch.Generator(device="cuda").manual_seed(1212)
+    for b, s, h, d in paths.LSE_SHAPES:
+        for sq in (s, s // paths.LSE_SHARDS):
+            q, k, v = (torch.randn((b, sq, h, d), generator=g, device="cuda").bfloat16()
+                       for _ in range(3))
+            label = f"12a K4 lse (B={b}, Sq={sq}, Sk={sq}, H={h}, D={d})"
+
+            def fn(q=q, k=k, v=v):
+                return attn.flash_attention_split(q, k, v, return_lse=True)
+
+            out, lse = fn()
+            want, want_lse = attn.flash_attention_split_lse_reference(q.float(), k.float(),
+                                                                      v.float())
+            err = (out.float() - want).abs().max().item()
+            top = want.abs().max().item()
+            lse_err = (lse - want_lse).abs().max().item()
+            ok = err <= ATTN_BOUND and lse_err <= LSE_BOUND
+            if sq < attn.SPLIT_MIN_KEYS:
+                # the reference's einsum path rounds the logits to bf16 (~2^-9
+                # of a logit of ~4): held to the absolute bound alone, the
+                # relative one printed
+                print(f"{label}: the wrapper's einsum branch ({sq} keys < "
+                      f"{attn.SPLIT_MIN_KEYS}): max|err| {err:.5f} (bound {ATTN_BOUND}), "
+                      f"err/max|want| {err / top:.5f}, lse max|err| {lse_err:.6f} (bound "
+                      f"{LSE_BOUND})", flush=True)
+            else:
+                _check_every_head(label, out.float(), want)
+                ok = ok and err <= ATTN_REL_BOUND * top
+                ms = _time_ms(fn, 10)
+                # the same kernel without the lse store, right after
+                no_lse = _time_ms(lambda q=q, k=k, v=v: attn.flash_attention_split(q, k, v), 10)
+                plain = _time_ms(lambda q=q, k=k, v=v: attn.flash_attention_split_lse_reference(
+                    q.float(), k.float(), v.float()), 2, warmup=1)
+                bound = roofline.attention_bound_ms(
+                    roofline.attention_cost(b, sq, sq, h, d, lse=True))
+                lib = _library_ms(lambda q=q, k=k, v=v: _lse_library(q, k, v), 10,
+                                  "aten flash with lse") if d <= 256 else None
+                print(f"{label}: max|err| {err:.5f} (bound {ATTN_BOUND}), err/max|want| "
+                      f"{err / top:.5f} (bound {ATTN_REL_BOUND}), lse max|err| {lse_err:.6f} "
+                      f"(bound {LSE_BOUND}); {ms:.4f} ms (without lse {no_lse:.4f}, plain "
+                      f"{plain:.4f}, bound {bound[0]:.4f} by {bound[1]}, library {_fmt(lib)}); "
+                      f"on {card}", flush=True)
+                name = "flash_attention_split_lse_d64" if d <= 64 else "flash_attention_split_lse"
+                _record(records, name, err, ms, plain, bound, lib)
+                records[name]["max_lse_err"] = max(records[name].get("max_lse_err", 0.0),
+                                                   lse_err)
+            if not ok:
+                raise AssertionError(f"{label}: error {err} (max|want| {top}) or lse error "
+                                     f"{lse_err} above its bound")
+            del q, k, v, out, lse, want, want_lse
+    for name in ("flash_attention_split_lse_d64", "flash_attention_split_lse"):
+        rec = records[name]
+        rec["roof"] = max(rec["roof"], key=rec["roof"].get)
+        rec["bound_by"] = "bytes" if rec["roof"] == "bytes" else "operations"
+
+
+def phase_ring_one_card(card: str) -> dict:
+    """12b: the ring's steps for every virtual rank on the one card, against
+    one flash_attention_split call."""
+    from gswm_torch.ops import attention as attn
+
+    g = torch.Generator(device="cuda").manual_seed(1213)
+    cases = []
+    for b, s, h, d in paths.LSE_SHAPES:
+        q, k, v = (torch.randn((b, s, h, d), generator=g, device="cuda").bfloat16()
+                   for _ in range(3))
+        for sp in paths.RING_SP:
+            shards = tuple([c.contiguous() for c in t.chunk(sp, dim=1)] for t in (q, k, v))
+            cases.append(((b, s, h, d), sp, (q, k, v), shards))
+    # the path: each ring once, its launches counted
+    _reset_counters()
+    rings = [_ring_on_one_card(shards, sp, torch.bfloat16) for _, sp, _, shards in cases]
+    torch.cuda.synchronize()
+    counts = _counters()
+    want_by_d = {}
+    for (b, s, h, d), sp, _, _ in cases:
+        if s // sp >= attn.SPLIT_MIN_KEYS:  # below, the einsum branch serves the shard
+            want_by_d[d] = want_by_d.get(d, 0) + sp * sp
+    got_by_d = dict(attn.flash_attention_split.lse_launches_by_d)
+    print(f"12b ring on one card: K4-with-lse launches by head dim {got_by_d} (want "
+          f"{want_by_d}); other attention launches "
+          f"{({k: counts[k] for k in ATTENTION_COUNTERS if counts[k]})}", flush=True)
+    if got_by_d != want_by_d or any(counts[k] for k in ATTENTION_COUNTERS):
+        raise AssertionError(f"ring launches {got_by_d}, other attention {counts}")
+    for ((b, s, h, d), sp, (q, k, v), shards), got in zip(cases, rings):
+        single = attn.flash_attention_split(q, k, v).float()
+        label = f"12b ring sp={sp} (B={b}, S={s}, H={h}, D={d})"
+        err = (got.float() - single).abs().max().item()
+        top = single.abs().max().item()
+        # shards below 512 keys take the einsum branch, whose bf16 logits
+        # 12a holds to the absolute bound alone
+        kernel = s // sp >= attn.SPLIT_MIN_KEYS
+        if kernel:
+            _check_every_head(label, got.float(), single)
+        ring_ms = _time_ms(lambda: _ring_on_one_card(shards, sp, torch.bfloat16), 3, warmup=1)
+        one_ms = _time_ms(lambda: attn.flash_attention_split(q, k, v), 3, warmup=1)
+        print(f"{label}: max|ring - one call| {err:.5f}, relative {err / top:.5f} (bounds "
+              f"{ATTN_BOUND}{f', {ATTN_REL_BOUND}' if kernel else ''}; shards through "
+              f"{'the kernel' if kernel else 'the einsum branch'}); ring wall {ring_ms:.4f} "
+              f"ms ({sp * sp} steps) against one call {one_ms:.4f} ms; on {card}", flush=True)
+        if not (err <= ATTN_BOUND and (err <= ATTN_REL_BOUND * top or not kernel)):
+            raise AssertionError(f"{label}: error {err} against max {top}")
+    return counts
+
+
+def _unet_forward(pipe, batch: int):
+    inputs = paths.unet_inputs(pipe, batch, res=RES)
+    with torch.inference_mode():
+        return pipe.unet(*inputs)
+
+
+def phase_nccl_world1(card: str) -> dict:
+    """12c: NCCL of world 1; the sharded functions and the tools."""
+    import torch.distributed as dist
+
+    from gswm_torch.ops import attention as attn
+    from gswm_torch.ops import groupnorm as gn
+    from gswm_torch.ops.ring_attention import ring_attention
+    from gswm_torch.sharding import gather_batch, make_mesh, shard_batch, shard_params
+    from gswm_torch.tools import dryrun_multichip, run_config5_artifact
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_mesh()
+        g = torch.Generator(device="cuda").manual_seed(1214)
+        b, s, h, d = paths.LSE_SHAPES[1]
+        q, k, v = (torch.randn((b, s, h, d), generator=g, device="cuda").bfloat16()
+                   for _ in range(3))
+        x = torch.randn((2, 320, 64, 64), generator=g, device="cuda").bfloat16()
+        w = 1 + 0.05 * torch.randn(320, generator=g, device="cuda")
+        bias = 0.05 * torch.randn(320, generator=g, device="cuda")
+        pipe = paths.build_pipeline("sd-2-1-base")
+        _reset_counters()
+        single = attn.flash_attention_split(q, k, v)
+        checks = {
+            "flash_attention_sharded": torch.equal(
+                attn.flash_attention_sharded(q, k, v, mesh), single),
+            "ring_attention": torch.equal(ring_attention(q, k, v, mesh), single),
+            "fused_group_norm_sharded": torch.equal(
+                gn.fused_group_norm_sharded(x, w, bias, mesh, groups=32, eps=1e-5, act="silu"),
+                gn.fused_group_norm(x, w, bias, 32, 1e-5, "silu")),
+            "shard_batch/gather_batch": torch.equal(gather_batch(shard_batch(x, mesh), mesh), x),
+        }
+        want = _unet_forward(pipe, paths.MULTIDEVICE_UNET_BATCH)
+        shard_params(pipe.unet, mesh)
+        checks["shard_params UNet"] = torch.equal(
+            _unet_forward(pipe, paths.MULTIDEVICE_UNET_BATCH), want)
+        del pipe
+        torch.cuda.empty_cache()
+        counts = _counters()
+        print(f"12c NCCL world 1 ({dist.get_backend()}), mesh {mesh}: equal to the "
+              f"single-device calls bit for bit: {checks}; launches "
+              f"{({k: n for k, n in counts.items() if n})}", flush=True)
+        if not all(checks.values()):
+            raise AssertionError(f"12c: sharded calls differ from single-device ones {checks}")
+        t0 = time.perf_counter()
+        dryrun = dryrun_multichip.main(["--device", "cuda"])[0]
+        print(f"12c dryrun_multichip at world 1: {dryrun}; {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        before = _counters()
+        t0 = time.perf_counter()
+        c5 = run_config5_artifact.main(["--n", "10000", "--device", "cuda"])[0]
+        total = _counters()
+        c5_counts = {name: total[name] - before[name] for name in total}
+        by_phase = {r["phase"]: r for r in c5}
+        print(f"12c run_config5_artifact --n 10000 at world 1: "
+              f"{by_phase['decode_dp_sharded']['exact_decodes']} of 10000 exact, "
+              f"{by_phase['trace_native']['correct_attributions']} of 16 attributed, "
+              f"{by_phase['trace_native']['candidates_per_sec']:.1f} candidates/s on the "
+              f"host library; {time.perf_counter() - t0:.2f} s; launches "
+              f"{({k: n for k, n in c5_counts.items() if n})}", flush=True)
+        if by_phase["decode_dp_sharded"]["exact_decodes"] != 10000 or \
+                by_phase["trace_native"]["correct_attributions"] != 16 or \
+                not by_phase["trace_device"]["correct"]:
+            raise AssertionError(f"12c config-5 run: {c5}")
+    finally:
+        dist.destroy_process_group()
+    return total
+
+
+def _phase12d_rank() -> dict:
+    """One of the two ranks of 12d on the one card (gloo): the dp = 2
+    extraction, then the tp = 2 UNet forward.  Rank 0 also runs the
+    one-process versions."""
+    import torch.distributed as dist
+
+    from gswm_torch import recover_message_bits
+    from gswm_torch.models.layers import Attention
+    from gswm_torch.ops import attention as attn
+    from gswm_torch.sharding import gather_batch, make_mesh, shard_batch, shard_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = dist.get_rank()
+    pipe = paths.build_pipeline("sd-2-1-base")
+    cfg = paths.config(RES, "gswm_torch phase 12d")
+    zt, msg = paths.embed(cfg, paths.MULTIDEVICE_DP_BATCH, paths.MULTIDEVICE_SEED)
+    out = {"rank": rank}
+
+    def extract(z):
+        x0 = pipe.generate(z, guidance_scale=1.0, num_steps=STEPS, decode=False)
+        return pipe.extract_bits(cfg, latents=x0, num_steps=STEPS)
+
+    mesh = make_mesh(dp=2, tp=1, device_type="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bits, z = extract(shard_batch(zt, mesh))
+    torch.cuda.synchronize()
+    out["dp_rank_s"] = time.perf_counter() - t0
+    # gloo's all_gather is asked for on the host: the tensors are moved here
+    bits, z = gather_batch(bits.cpu(), mesh), gather_batch(z.cpu(), mesh)
+    if rank == 0:
+        bits_1, z_1 = extract(zt)
+        out.update(dp_bits_equal=torch.equal(bits, bits_1.cpu()),
+                   dp_max_dz=(z - z_1.cpu()).abs().max().item(),
+                   dp_bit_accuracy=_bit_accuracy(recover_message_bits(z_1, cfg), msg, "cuda"))
+
+    batch = paths.MULTIDEVICE_UNET_BATCH
+    if rank == 0:
+        default = _unet_forward(pipe, batch)
+        for m in pipe.unet.modules():  # the routes a tp mesh gives (split, plain)
+            if isinstance(m, Attention):
+                m.sharded = True
+        want = _unet_forward(pipe, batch)
+    tp_mesh = make_mesh(dp=1, tp=2, device_type="cuda")
+    shard_params(pipe.unet, tp_mesh)
+    before = {name: getattr(attn, name).launches for name in ATTENTION_COUNTERS}
+    by_d = dict(attn.flash_attention_split.launches_by_d)
+    got = _unet_forward(pipe, batch)
+    torch.cuda.synchronize()
+    out["k4_by_d"] = {dd: n - by_d.get(dd, 0)
+                      for dd, n in attn.flash_attention_split.launches_by_d.items()
+                      if n - by_d.get(dd, 0)}
+    out["attention_launches"] = {name: getattr(attn, name).launches - before[name]
+                                 for name in ATTENTION_COUNTERS}
+    out["sharded_attention"] = sum(m.tp_group is not None for m in pipe.unet.modules()
+                                   if isinstance(m, Attention))
+    if rank == 0:
+        top = want.abs().max().item()
+        out.update(tp_err=(got - want).abs().max().item(), tp_top=top,
+                   tp_vs_default=(got - default).abs().max().item() / default.abs().max().item(),
+                   finite=bool(torch.isfinite(got).all()))
+    return out
+
+
+def phase_two_ranks(card: str) -> dict:
+    """12d: two ranks on the one card over gloo."""
+    from gswm_torch.sharding.launch import spawn
+
+    t0 = time.perf_counter()
+    ranks = spawn(_phase12d_rank, 2, device_type="cuda", backend="gloo")
+    r0 = ranks[0]
+    print(f"12d two ranks on {card} over gloo: {time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"   dp = 2, {paths.MULTIDEVICE_DP_BATCH} watermarked latents of sd-2-1-base at "
+          f"{RES}x{RES}, {STEPS} + {STEPS} steps: voted bits equal to one process "
+          f"{r0['dp_bits_equal']}, max |dz_T| {r0['dp_max_dz']:.3e}, bit accuracy "
+          f"{r0['dp_bit_accuracy']}; a rank's extraction {[r['dp_rank_s'] for r in ranks]} s",
+          flush=True)
+    print(f"   tp = 2, sd-2-1-base UNet forward at {RES}x{RES}, batch "
+          f"{paths.MULTIDEVICE_UNET_BATCH}, bf16: max|tp - one process| {r0['tp_err']:.5f}, "
+          f"relative {r0['tp_err'] / r0['tp_top']:.5f} (bound {TP_REL_BOUND}; one-process "
+          f"forward on the split and plain routes), against the default route "
+          f"{r0['tp_vs_default']:.5f}; sharded attention layers "
+          f"{[r['sharded_attention'] for r in ranks]}; K4 launches by head dim "
+          f"{[r['k4_by_d'] for r in ranks]}; attention launches "
+          f"{[r['attention_launches'] for r in ranks]}", flush=True)
+    if not r0["dp_bits_equal"]:
+        raise AssertionError("12d: the dp = 2 extraction's bits differ from one process's")
+    if r0["tp_err"] > TP_REL_BOUND * r0["tp_top"] or not r0["finite"]:
+        raise AssertionError(f"12d: the tp = 2 forward is {r0['tp_err']} off, max {r0['tp_top']}")
+    # level 0: 2 down + 3 up self-attentions of 4096 tokens (5 heads, kept
+    # whole), level 1: 5 of 1024 (10 heads, 5 a rank), each the split kernel
+    # at d = 64 (GSWM_FLASH_MIN_SEQ 1024); level 2 and the mid block plain
+    for r in ranks:
+        others = {k: n for k, n in r["attention_launches"].items()
+                  if k != "flash_attention_split" and n}
+        if r["k4_by_d"] != {64: 10} or others or r["sharded_attention"] != 2 * (5 + 1 + 5):
+            raise AssertionError(f"12d rank {r['rank']}: K4 {r['k4_by_d']}, other attention "
+                                 f"{others}, sharded layers {r['sharded_attention']}")
+    return r0
+
+
+def phase_hostlib(card: str) -> dict:
+    """12e: the native host library against its plain versions."""
+    import shutil
+
+    from gswm_torch import hostlib
+    from gswm_torch.core import bits as bitops
+    from gswm_torch.core import chacha
+    from gswm_torch.core.decode import quantize_latent_bits
+    from gswm_torch.core.multikey import recover_message_bits_multikey
+    from gswm_torch.eval import trace
+
+    scratch = os.path.join("build", "gswm_torch_host_check")
+    shutil.rmtree(scratch, ignore_errors=True)
+    _, build_s = hostlib.build(hostlib.SOURCE, scratch)
+    shutil.rmtree(scratch, ignore_errors=True)
+    n = paths.MULTIKEY_RECORDS
+    m = HOST_PLAIN_SLICE
+    cfg = paths.multikey_config()
+    keys, nonces, messages, records = paths.multikey_material()
+    lat = paths.multikey_embed_all(cfg, keys, nonces, messages)
+    host = lat.cpu().numpy().reshape(n, -1)
+    device_q = quantize_latent_bits(lat, 1).cpu().numpy()
+    qbits = np.stack([hostlib.quantize_bits(row) for row in host])
+    if not np.array_equal(qbits, device_q):
+        raise AssertionError("hostlib.quantize_bits differs from the card's quantization")
+    for i in range(m):
+        if not np.array_equal(qbits[i], trace.quantize_bits_host(host[i])):
+            raise AssertionError(f"hostlib.quantize_bits differs from numpy at record {i}")
+    n_bits = qbits.shape[1]
+    ks_bits = chacha.batch_keystream_bits(keys, nonces, n_bits, "cuda").cpu().numpy()
+    device_votes = recover_message_bits_multikey(lat, cfg, keys, nonces).cpu().numpy()
+    want = np.unpackbits(np.frombuffer(b"".join(messages), np.uint8)).reshape(n, 256)
+    for i in range(n):
+        ks = hostlib.chacha20_keystream(keys[i], nonces[i], n_bits // 8)
+        if not np.array_equal(np.unpackbits(np.frombuffer(ks, np.uint8)), ks_bits[i]):
+            raise AssertionError(f"hostlib keystream differs from the card's at record {i}")
+        voted = hostlib.decode(qbits[i], keys[i], nonces[i], 256)
+        if not np.array_equal(voted, device_votes[i]) or \
+                hostlib.match_accuracy(voted, want[i]) != trace.match_accuracy(voted, want[i]):
+            raise AssertionError(f"hostlib decode or match count differs at record {i}")
+        if i < m and (ks != chacha.keystream_bytes_host(keys[i], nonces[i], n_bits // 8) or
+                      not np.array_equal(voted, trace.decode_host(qbits[i], keys[i],
+                                                                  nonces[i], 256))):
+            raise AssertionError(f"hostlib keystream or decode differs from numpy at {i}")
+
+    def numpy_loop(latent, cands):
+        q = trace.quantize_bits_host(latent)
+        return [trace.match_accuracy(trace.decode_host(
+            q, bytes.fromhex(r["key_hex"]), bytes.fromhex(r["nonce_hex"]), 256),
+            bitops.hex_to_bits(r["message_hex"])[:256]) for r in cands]
+
+    probes = (7, 4242)
+    t0 = time.perf_counter()
+    found = [trace.find_source(host[i], records) for i in probes]
+    lib_rate = len(probes) * n / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    plain = numpy_loop(host[probes[0]], records[:m])
+    plain_rate = m / (time.perf_counter() - t0)
+    if [f[:2] for f in found] != [(i, 1.0) for i in probes] or plain != found[0][2][:m]:
+        raise AssertionError(f"find_source on the library: {[f[:2] for f in found]}")
+    print(f"12e host library: build {build_s:.2f} s (g++ -O3, {hostlib.library().path.name}); "
+          f"quantize ({n} latents), keystream, decode and match count bit-exact over the "
+          f"{n}-record registry against the card, and against numpy on {m} records; "
+          f"find_source {lib_rate:.1f} candidates/s on the library ({len(probes)} probes x "
+          f"{n}) against {plain_rate:.1f} for the numpy loop ({m} records), "
+          f"{lib_rate / plain_rate:.1f}x; on {card}", flush=True)
+    return dict(build_s=build_s, lib_rate=lib_rate, plain_rate=plain_rate)
+
+
+def phase_multidevice(card: str, records: dict) -> dict:
+    """Phase 12; returns the launch counts of its paths (12b, 12c)."""
+    t0 = time.perf_counter()
+    print("12. multi-device on one card", flush=True)
+    phase_lse(card, records)
+    counts = phase_ring_one_card(card)
+    counts_c = phase_nccl_world1(card)
+    phase_two_ranks(card)
+    phase_hostlib(card)
+    print(f"phase 12: {time.perf_counter() - t0:.2f} s", flush=True)
+    return {name: counts[name] + counts_c[name] for name in counts}
+
+
 def main() -> None:
     card = phase_card()
     phase_build()
@@ -2059,12 +2512,13 @@ def main() -> None:
     t_new = time.perf_counter()
     counts_new.append(phase_suggested_batch(card))
     seconds_new += time.perf_counter() - t_new
-    print(f"this PR's phases (memory sweeps, suggested batch, phase 11): {seconds_new:.2f} s",
+    print(f"the memory sweeps, the suggested batch and phase 11: {seconds_new:.2f} s",
           flush=True)
+    counts_12 = phase_multidevice(card, records)
     counts = {name: counts_512[name] + counts_768[name] + counts_tiers[name]
               + counts_gn[name] + counts_mk[name] + counts_fit[name] + counts_cli[name]
               + counts_bench[name]
-              + counts_sdxl[name] + counts_sd14[name]
+              + counts_sdxl[name] + counts_sd14[name] + counts_12[name]
               + sum(c[name] for c in counts_new) for name in counts_512}
     # the split wrapper's count, less what flash_hopper.cu ran of it
     counts["flash_attention_split"] -= counts["flash_attention_split_d64"]
@@ -2089,6 +2543,13 @@ def main() -> None:
                                        "gswm/ops/attention.py:1428"),
         "fused_group_norm": ("gswm_torch/csrc/group_norm.cu",
                              "gswm/ops/groupnorm.py:185"),
+        # K4 with its log-sum-exp output: the ring's per-step kernel, where
+        # the JAX package's ring runs plain XLA (ring_attention.py:39); its
+        # no-mesh fallback reaches the Pallas K4
+        "flash_attention_split_lse_d64": ("gswm_torch/csrc/flash_hopper.cu",
+                                          "gswm/ops/attention.py:414"),
+        "flash_attention_split_lse": ("gswm_torch/csrc/flash_split.cu",
+                                      "gswm/ops/attention.py:414"),
     }
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=counts[name], **records[name])

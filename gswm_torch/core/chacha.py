@@ -12,8 +12,9 @@ Implementations, bit-identical:
   * the CUDA kernels of ``csrc/chacha20.cu`` — one thread per 64-byte block:
     ``keystream_words`` for one key, ``batch_keystream_bits`` for a table of
     (key, nonce) rows in ONE launch, written as bits.
-  * ``keystream_bytes_host`` — numpy on uint32, for the host loop of
-    ``eval.trace.find_source``.
+  * ``keystream_bytes_host`` — numpy on uint32: the plain version of the
+    host loop's keystream (``eval.trace.decode_host``), which
+    ``eval.trace.find_source`` runs in ``hostlib``'s C++.
 
 ``keystream_words`` and ``batch_keystream_bits`` pick by device: the plain
 version for the CPU, the kernel for a CUDA device.
@@ -234,8 +235,9 @@ def _rotl_host(x: np.ndarray, n: int) -> np.ndarray:
 
 def keystream_bytes_host(key: bytes, nonce16: bytes, n_bytes: int) -> bytes:
     """First ``n_bytes`` keystream bytes on the host, numpy uint32 arithmetic
-    (which wraps as ChaCha20 wants).  The trace search's host loop uses it
-    where the JAX package calls its C++ library or `cryptography`."""
+    (which wraps as ChaCha20 wants): the plain version of
+    ``hostlib.chacha20_keystream``, where the JAX package's fallback calls
+    `cryptography`."""
     n_blocks = -(-n_bytes // 64)
     row = key_table([key], [nonce16])[0]
     counter = (int(row[9]) << 32 | int(row[8])) + np.arange(n_blocks, dtype=np.uint64)

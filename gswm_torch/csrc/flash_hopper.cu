@@ -101,6 +101,12 @@
 // memory: 2x slower).
 // Its output differs from the kernel above's in the row sums' summation
 // order alone.
+//
+// Both kernels take an LSE template flag (gswm_flash_split_lse, the ring's
+// per-step kernel): after the output tile, each row's log-sum-exp of the
+// true logits goes to an fp32 (B, H, Sq) array (hopper.cuh store_lse; c the
+// exponent's scale, 2^-3 log2(e) at d = 64, else log2(e)).  Off, the kernels
+// compile as they did.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -135,14 +141,16 @@ struct Smem {
 
 // Grid (query blocks, H, B).  SCALE_Q: q is scaled by q_scale = d^-0.5 in
 // shared memory and exp_scale = log2(e); else (d = 64) exp_scale = 2^-3 *
-// log2(e) and q_scale is not read.
-template <int NWG, bool SCALE_Q>
+// log2(e) and q_scale is not read.  LSE: each row's log-sum-exp of the true
+// logits goes to lse (B, H, Sq) fp32 (hopper.cuh store_lse); else lse and Sq
+// are not read.
+template <int NWG, bool SCALE_Q, bool LSE>
 __global__ void __launch_bounds__((NWG + 1) * 128, NWG == 1 ? 2 : 1)
 flash_hopper_kernel(const __grid_constant__ CUtensorMap map_q,
                     const __grid_constant__ CUtensorMap map_k,
                     const __grid_constant__ CUtensorMap map_v,
                     const __grid_constant__ CUtensorMap map_o, int Sk, float exp_scale,
-                    float q_scale) {
+                    float q_scale, float* lse, int Sq) {
   extern __shared__ unsigned char smem_raw[];
   Smem<NWG>& sm = *reinterpret_cast<Smem<NWG>*>(align_smem(smem_raw));
 
@@ -245,7 +253,12 @@ flash_hopper_kernel(const __grid_constant__ CUtensorMap map_q,
 
     // normalised and rounded, through the warpgroup's own q tile
     bf16* tile = sm.q[cw];
-    store_tile_sw128(tile, o, 1.0f / quad_sum(l_lo), 1.0f / quad_sum(l_hi), warp, g, t4);
+    const float sum_lo = quad_sum(l_lo);
+    const float sum_hi = quad_sum(l_hi);
+    store_tile_sw128(tile, o, 1.0f / sum_lo, 1.0f / sum_hi, warp, g, t4);
+    if constexpr (LSE)
+      store_lse(lse, Sq, row0 + cw * BM + warp * 16 + g, m_lo, m_hi, sum_lo, sum_hi,
+                exp_scale, t4);
     fence_async_smem();
     named_barrier(1 + cw, 128);
     if ((threadIdx.x & 127) == 0) {
@@ -277,12 +290,14 @@ struct SmemNarrow {
 
 // Grid (query blocks, H, B); KS = ceil(d / 16) k16 steps of logits.  q is
 // scaled by q_scale = d^-0.5 in shared memory; the exponent folds log2(e).
-template <int NWG, int KS>
+// LSE as flash_hopper_kernel's.
+template <int NWG, int KS, bool LSE>
 __global__ void __launch_bounds__((NWG + 1) * 128, NWG == 1 ? 2 : 1)
 flash_narrow_kernel(const __grid_constant__ CUtensorMap map_q,
                     const __grid_constant__ CUtensorMap map_k,
                     const __grid_constant__ CUtensorMap map_v,
-                    const __grid_constant__ CUtensorMap map_o, int Sk, float q_scale) {
+                    const __grid_constant__ CUtensorMap map_o, int Sk, float q_scale,
+                    float* lse, int Sq) {
   static_assert(KS >= 1 && 16 * KS <= NARROW_D, "at most 3 k16 steps");
   constexpr int STAGES = SmemNarrow<NWG>::STAGES;
   extern __shared__ unsigned char smem_raw[];
@@ -447,6 +462,9 @@ flash_narrow_kernel(const __grid_constant__ CUtensorMap map_q,
   // and up keep q and are dropped by the store with the rest past d
   bf16* tile = sm.q[cw];
   store_tile_sw128(tile, o, 1.0f / l[0], 1.0f / l[2], warp, g, t4);
+  if constexpr (LSE)  // l[0], l[2]: the tensor cores' whole-row sums
+    store_lse(lse, Sq, row0 + cw * BM + warp * 16 + g, m_lo, m_hi, l[0], l[2], exp_scale,
+              t4);
   fence_async_smem();
   named_barrier(1 + cw, 128);
   if ((threadIdx.x & 127) == 0) {
@@ -455,59 +473,74 @@ flash_narrow_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-template <int NWG, int KS>
-cudaError_t launch_narrow(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
-                          const CUtensorMap& mo, int B, int Sq, int Sk, int H, int d,
-                          cudaStream_t stream) {
+// The launches share their arguments: the four tensor maps, the shape, the
+// lse output (nullptr: none, the kernels without its store) and the stream.
+struct Args {
+  CUtensorMap mq, mk, mv, mo;
+  int B, Sq, Sk, H, d;
+  float* lse;
+  cudaStream_t stream;
+};
+
+template <int NWG, int KS, bool LSE>
+cudaError_t start_narrow(const Args& a) {
   constexpr int smem = (int)sizeof(SmemNarrow<NWG>) + SWIZZLE_SPAN;
-  cudaError_t e = cudaFuncSetAttribute(flash_narrow_kernel<NWG, KS>,
+  cudaError_t e = cudaFuncSetAttribute(flash_narrow_kernel<NWG, KS, LSE>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  dim3 grid((Sq + NWG * BM - 1) / (NWG * BM), H, B);
-  flash_narrow_kernel<NWG, KS><<<grid, (NWG + 1) * 128, smem, stream>>>(
-      mq, mk, mv, mo, Sk, 1.0f / sqrtf((float)d));
+  dim3 grid((a.Sq + NWG * BM - 1) / (NWG * BM), a.H, a.B);
+  flash_narrow_kernel<NWG, KS, LSE><<<grid, (NWG + 1) * 128, smem, a.stream>>>(
+      a.mq, a.mk, a.mv, a.mo, a.Sk, 1.0f / sqrtf((float)a.d), a.lse, a.Sq);
   return cudaGetLastError();
+}
+
+template <int NWG, int KS>
+cudaError_t launch_narrow(const Args& a) {
+  return a.lse ? start_narrow<NWG, KS, true>(a) : start_narrow<NWG, KS, false>(a);
 }
 
 template <int NWG>
-cudaError_t launch_narrow_ks(const CUtensorMap& mq, const CUtensorMap& mk,
-                             const CUtensorMap& mv, const CUtensorMap& mo, int B, int Sq,
-                             int Sk, int H, int d, cudaStream_t stream) {
-  switch ((d + 15) / 16) {
-    case 1: return launch_narrow<NWG, 1>(mq, mk, mv, mo, B, Sq, Sk, H, d, stream);
-    case 2: return launch_narrow<NWG, 2>(mq, mk, mv, mo, B, Sq, Sk, H, d, stream);
-    default: return launch_narrow<NWG, 3>(mq, mk, mv, mo, B, Sq, Sk, H, d, stream);
+cudaError_t launch_narrow_ks(const Args& a) {
+  switch ((a.d + 15) / 16) {
+    case 1: return launch_narrow<NWG, 1>(a);
+    case 2: return launch_narrow<NWG, 2>(a);
+    default: return launch_narrow<NWG, 3>(a);
   }
 }
 
-template <int NWG, bool SCALE_Q>
-cudaError_t launch(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
-                   const CUtensorMap& mo, int B, int Sq, int Sk, int H, int d,
-                   cudaStream_t stream) {
+template <int NWG, bool SCALE_Q, bool LSE>
+cudaError_t start(const Args& a) {
   constexpr int smem = (int)sizeof(Smem<NWG>) + SWIZZLE_SPAN;
-  cudaError_t e = cudaFuncSetAttribute(flash_hopper_kernel<NWG, SCALE_Q>,
+  cudaError_t e = cudaFuncSetAttribute(flash_hopper_kernel<NWG, SCALE_Q, LSE>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  dim3 grid((Sq + NWG * BM - 1) / (NWG * BM), H, B);
+  dim3 grid((a.Sq + NWG * BM - 1) / (NWG * BM), a.H, a.B);
   const float log2e = 1.4426950408889634f;
-  flash_hopper_kernel<NWG, SCALE_Q><<<grid, (NWG + 1) * 128, smem, stream>>>(
-      mq, mk, mv, mo, Sk, SCALE_Q ? log2e : 0.125f * log2e, 1.0f / sqrtf((float)d));
+  flash_hopper_kernel<NWG, SCALE_Q, LSE><<<grid, (NWG + 1) * 128, smem, a.stream>>>(
+      a.mq, a.mk, a.mv, a.mo, a.Sk, SCALE_Q ? log2e : 0.125f * log2e,
+      1.0f / sqrtf((float)a.d), a.lse, a.Sq);
   return cudaGetLastError();
+}
+
+template <int NWG, bool SCALE_Q>
+cudaError_t launch(const Args& a) {
+  return a.lse ? start<NWG, SCALE_Q, true>(a) : start<NWG, SCALE_Q, false>(a);
 }
 
 }  // namespace
 
 cudaError_t gswm_launch_flash_hopper(const bf16* q, const bf16* k, const bf16* v, bf16* out,
                                      int B, int Sq, int Sk, int H, int d, int ld_q,
-                                     int ld_kv, int ld_o, cudaStream_t stream) {
+                                     int ld_kv, int ld_o, cudaStream_t stream, float* lse) {
   if (B < 1 || Sq < 1 || Sk < 1 || H < 1 || B > 65535 || H > 65535 || d < 8 || d % 8 ||
       d > D)
     return cudaErrorInvalidValue;
-  CUtensorMap mq, mk, mv, mo;
-  cudaError_t e = head_map(&mq, q, B, Sq, H, d, ld_q, BM);
-  if (e == cudaSuccess) e = head_map(&mk, k, B, Sk, H, d, ld_kv, BN);
-  if (e == cudaSuccess) e = head_map(&mv, v, B, Sk, H, d, ld_kv, BN);
-  if (e == cudaSuccess) e = head_map(&mo, out, B, Sq, H, d, ld_o, BM);
+  Args a;
+  a.B = B, a.Sq = Sq, a.Sk = Sk, a.H = H, a.d = d, a.lse = lse, a.stream = stream;
+  cudaError_t e = head_map(&a.mq, q, B, Sq, H, d, ld_q, BM);
+  if (e == cudaSuccess) e = head_map(&a.mk, k, B, Sk, H, d, ld_kv, BN);
+  if (e == cudaSuccess) e = head_map(&a.mv, v, B, Sk, H, d, ld_kv, BN);
+  if (e == cudaSuccess) e = head_map(&a.mo, out, B, Sq, H, d, ld_o, BM);
   if (e != cudaSuccess) return e;
   // 128-row blocks unless they would leave SMs of this card without one
   int dev = 0, sm_count = 0;
@@ -518,16 +551,14 @@ cudaError_t gswm_launch_flash_hopper(const bf16* q, const bf16* k, const bf16* v
   if (d <= NARROW_D) {  // NARROW_WGS warpgroups a block where that fills the card
     const int rows = NARROW_WGS * BM;
     return (long)((Sq + rows - 1) / rows) * H * B >= sm_count
-               ? launch_narrow_ks<NARROW_WGS>(mq, mk, mv, mo, B, Sq, Sk, H, d, stream)
-               : launch_narrow_ks<1>(mq, mk, mv, mo, B, Sq, Sk, H, d, stream);
+               ? launch_narrow_ks<NARROW_WGS>(a)
+               : launch_narrow_ks<1>(a);
   }
   const long blocks128 = (long)((Sq + 2 * BM - 1) / (2 * BM)) * H * B;
   const bool wide = blocks128 >= sm_count;
   if (d == D)  // the 2^-3 scale folded into the exponent, exact
-    return wide ? launch<2, false>(mq, mk, mv, mo, B, Sq, Sk, H, d, stream)
-                : launch<1, false>(mq, mk, mv, mo, B, Sq, Sk, H, d, stream);
-  return wide ? launch<2, true>(mq, mk, mv, mo, B, Sq, Sk, H, d, stream)
-              : launch<1, true>(mq, mk, mv, mo, B, Sq, Sk, H, d, stream);
+    return wide ? launch<2, false>(a) : launch<1, false>(a);
+  return wide ? launch<2, true>(a) : launch<1, true>(a);
 }
 
 // Pair-packed self-attention: qkv (B, S, 3 * P * 128) with q, k and v at

@@ -69,6 +69,13 @@
 //     t + 1 under the logits of tile t + 1.
 //   * The output goes, normalised and rounded, through the q tile's panels
 //     and one TMA store per panel, which drops rows at or past Sq.
+// The log-sum-exp variant (gswm_flash_split_lse, every d this file and
+// flash_hopper.cu take): a template flag adds, after the output tile is
+// written, the store of each row's lse = m * c * ln 2 + ln l (hopper.cuh
+// store_lse) into an fp32 (B, H, Sq) array, masked past Sq by hand since no
+// TMA store drops those rows.  Sequence-parallel ring attention
+// (ops/ring_attention.py) merges its per-shard partials by it; with the flag
+// off the kernels are what they were.
 // Not done here: a cluster of two blocks along the query axis sharing each k
 // and v tile by multicast (halves the L2 traffic), and a split of the keys
 // across blocks for the second wave's tail at batch 1.
@@ -123,10 +130,12 @@ struct Smem {
 };
 
 // One consumer warpgroup: the logits and softmax of the block's 64 rows, and
-// the output columns of panels [P0, P0 + PN).
-template <int D, int P0, int PN>
+// the output columns of panels [P0, P0 + PN).  LSE: consumer 0 also stores
+// the rows' log-sum-exp (both hold the same m and l).
+template <int D, int P0, int PN, bool LSE>
 __device__ __forceinline__ void consume(Smem<D>& sm, const CUtensorMap* map_o, int Sk,
-                                        int row0, int h, int b, float scale) {
+                                        int row0, int h, int b, float scale, float* lse,
+                                        int Sq) {
   constexpr int NP = Tile<D>::NP;
   constexpr int STAGES = Tile<D>::STAGES;
   const int warp = (threadIdx.x >> 5) & 3;
@@ -201,11 +210,15 @@ __device__ __forceinline__ void consume(Smem<D>& sm, const CUtensorMap* map_o, i
   // the other consumer may still read q for its last logits: wait for it,
   // then the owned panels of the q tile take the output
   named_barrier(1, CONSUMERS * 128);
-  const float inv_lo = 1.0f / quad_sum(l_lo);
-  const float inv_hi = 1.0f / quad_sum(l_hi);
+  const float sum_lo = quad_sum(l_lo);
+  const float sum_hi = quad_sum(l_hi);
+  const float inv_lo = 1.0f / sum_lo;
+  const float inv_hi = 1.0f / sum_hi;
 #pragma unroll
   for (int j = 0; j < PN; ++j)
     store_tile_sw128(sm.q + (P0 + j) * PANEL, o[j], inv_lo, inv_hi, warp, g, t4);
+  if constexpr (LSE && P0 == 0)
+    store_lse(lse, Sq, row0 + warp * 16 + g, m_lo, m_hi, sum_lo, sum_hi, log2e, t4);
   fence_async_smem();
   named_barrier(2 + (P0 > 0), 128);
   if ((threadIdx.x & 127) == 0) {
@@ -217,12 +230,15 @@ __device__ __forceinline__ void consume(Smem<D>& sm, const CUtensorMap* map_o, i
 }
 
 // Grid (query blocks of 64 rows, H, B).  scale = d^-0.5 of the true d <= D.
-template <int D>
+// LSE: each row's log-sum-exp into lse (B, H, Sq) fp32; else lse and Sq are
+// not read.
+template <int D, bool LSE>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_split_kernel(const __grid_constant__ CUtensorMap map_q,
                    const __grid_constant__ CUtensorMap map_k,
                    const __grid_constant__ CUtensorMap map_v,
-                   const __grid_constant__ CUtensorMap map_o, int Sk, float scale) {
+                   const __grid_constant__ CUtensorMap map_o, int Sk, float scale,
+                   float* lse, int Sq) {
   constexpr int NP = Tile<D>::NP;
   constexpr int NP0 = Tile<D>::NP0;
   constexpr int STAGES = Tile<D>::STAGES;
@@ -275,16 +291,16 @@ flash_split_kernel(const __grid_constant__ CUtensorMap map_q,
   } else {
     reg_inc<232>();
     if (group == 1)
-      consume<D, 0, NP0>(sm, &map_o, Sk, row0, h, b, scale);
+      consume<D, 0, NP0, LSE>(sm, &map_o, Sk, row0, h, b, scale, lse, Sq);
     else
-      consume<D, NP0, NP - NP0>(sm, &map_o, Sk, row0, h, b, scale);
+      consume<D, NP0, NP - NP0, LSE>(sm, &map_o, Sk, row0, h, b, scale, lse, Sq);
   }
 }
 
 // d, the true head dim: D - 64 < d <= D, d % 8 == 0.
-template <int D>
-cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* out, int B, int Sq,
-                   int Sk, int H, int d, cudaStream_t stream) {
+template <int D, bool LSE>
+cudaError_t start(const bf16* q, const bf16* k, const bf16* v, bf16* out, int B, int Sq,
+                  int Sk, int H, int d, cudaStream_t stream, float* lse) {
   constexpr int smem = (int)sizeof(Smem<D>) + SWIZZLE_SPAN;
   static_assert(smem <= SMEM_LIMIT, "above the 227 KB a block may opt into");
   static_assert(PANEL_BYTES % SWIZZLE_SPAN == 0, "panels keep the tiles' alignment");
@@ -296,35 +312,43 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* out, int B
   if (e == cudaSuccess) e = head_map(&mv, v, B, Sk, H, d, ld, BN);
   if (e == cudaSuccess) e = head_map(&mo, out, B, Sq, H, d, ld, BM);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(flash_split_kernel<D>,
+    e = cudaFuncSetAttribute(flash_split_kernel<D, LSE>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   dim3 grid((Sq + BM - 1) / BM, H, B);
-  flash_split_kernel<D><<<grid, THREADS, smem, stream>>>(mq, mk, mv, mo, Sk,
-                                                         1.0f / sqrtf((float)d));
+  flash_split_kernel<D, LSE><<<grid, THREADS, smem, stream>>>(
+      mq, mk, mv, mo, Sk, 1.0f / sqrtf((float)d), lse, Sq);
   return cudaGetLastError();
+}
+
+// lse nullptr: the kernel without the lse store
+template <int D>
+cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* out, int B, int Sq,
+                   int Sk, int H, int d, cudaStream_t stream, float* lse) {
+  return lse ? start<D, true>(q, k, v, out, B, Sq, Sk, H, d, stream, lse)
+             : start<D, false>(q, k, v, out, B, Sq, Sk, H, d, stream, lse);
 }
 
 }  // namespace
 
 cudaError_t gswm_launch_flash_split(const bf16* q, const bf16* k, const bf16* v,
                                     bf16* out, int B, int Sq, int Sk, int H, int D,
-                                    cudaStream_t stream) {
+                                    cudaStream_t stream, float* lse) {
   if (B < 1 || Sq < 1 || Sk < 1 || H < 1 || B > 65535 || H > 65535 || D < 8 || D % 8 ||
       D > 512)
     return cudaErrorInvalidValue;
   if (D <= ROW_ELEMS)
     return gswm_launch_flash_hopper(q, k, v, out, B, Sq, Sk, H, D, H * D, H * D, H * D,
-                                    stream);
+                                    stream, lse);
   // the panel width: D rounded up to a multiple of 64
   switch ((D + ROW_ELEMS - 1) / ROW_ELEMS * ROW_ELEMS) {
-    case 128: return launch<128>(q, k, v, out, B, Sq, Sk, H, D, stream);
-    case 192: return launch<192>(q, k, v, out, B, Sq, Sk, H, D, stream);
-    case 256: return launch<256>(q, k, v, out, B, Sq, Sk, H, D, stream);
-    case 320: return launch<320>(q, k, v, out, B, Sq, Sk, H, D, stream);
-    case 384: return launch<384>(q, k, v, out, B, Sq, Sk, H, D, stream);
-    case 448: return launch<448>(q, k, v, out, B, Sq, Sk, H, D, stream);
-    case 512: return launch<512>(q, k, v, out, B, Sq, Sk, H, D, stream);
+    case 128: return launch<128>(q, k, v, out, B, Sq, Sk, H, D, stream, lse);
+    case 192: return launch<192>(q, k, v, out, B, Sq, Sk, H, D, stream, lse);
+    case 256: return launch<256>(q, k, v, out, B, Sq, Sk, H, D, stream, lse);
+    case 320: return launch<320>(q, k, v, out, B, Sq, Sk, H, D, stream, lse);
+    case 384: return launch<384>(q, k, v, out, B, Sq, Sk, H, D, stream, lse);
+    case 448: return launch<448>(q, k, v, out, B, Sq, Sk, H, D, stream, lse);
+    case 512: return launch<512>(q, k, v, out, B, Sq, Sk, H, D, stream, lse);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -338,4 +362,18 @@ extern "C" int gswm_flash_split(const void* q, const void* k, const void* v, voi
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), B, Sq, Sk, H, D,
       static_cast<cudaStream_t>(stream)));
+}
+
+// The same, and lse: fp32 (B, H, Sq), each row's log-sum-exp of the true
+// logits q k^T / sqrt(D) in natural-log units, so that partial outputs over
+// disjoint key sets merge exactly (ops.ring_attention).  The kernels are the
+// ones above, instantiated with the store of lse in their epilogue.
+extern "C" int gswm_flash_split_lse(const void* q, const void* k, const void* v, void* out,
+                                    void* lse, int B, int Sq, int Sk, int H, int D,
+                                    void* stream) {
+  if (lse == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(gswm_launch_flash_split(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), B, Sq, Sk, H, D,
+      static_cast<cudaStream_t>(stream), static_cast<float*>(lse)));
 }

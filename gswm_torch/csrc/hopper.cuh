@@ -612,4 +612,20 @@ static __device__ __forceinline__ void store_tile_sw128(void* tile_base, const f
   }
 }
 
+// The log-sum-exp of a consumer's two rows of true logits into lse (B, H, Sq)
+// fp32, natural log, at block (h, b) = (blockIdx.y, blockIdx.z): the kernels
+// keep the running max m in the units of their raw logits and the row sums l
+// of p = exp2(s * c - m * c), so sum_j exp(true logit j) = 2^(m * c) * l and
+// lse = m * c * ln 2 + ln l.  One thread a quad writes (t4 == 0); rows at or
+// past Sq are padding the TMA store drops, and so is their lse.
+static __device__ __forceinline__ void store_lse(float* lse, int Sq, int r_lo, float m_lo,
+                                                 float m_hi, float l_lo, float l_hi, float c,
+                                                 int t4) {
+  if (t4 != 0) return;
+  constexpr float LN2 = 0.6931471805599453f;
+  float* row = lse + ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * Sq;
+  if (r_lo < Sq) row[r_lo] = m_lo * c * LN2 + logf(l_lo);
+  if (r_lo + 8 < Sq) row[r_lo + 8] = m_hi * c * LN2 + logf(l_hi);
+}
+
 }  // namespace gswm_hopper

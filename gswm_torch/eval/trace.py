@@ -7,8 +7,11 @@ once and, per chunk of candidates, ONE ``batch_keystream_bits`` call (one
 launch of the batch ChaCha20 kernel on the card) makes every candidate's
 keystream; XOR, majority vote and score are whole-chunk tensor code.
 ``find_source`` is the host loop, for registries of mixed message lengths:
-numpy with the semantics of the JAX package's host fallbacks
-(gswm/native/__init__.py:80-122).
+as gswm/eval/trace.py:17-46 it runs on the native host library
+(``gswm_torch.hostlib``, C++ through ctypes), the latent quantized once.
+``quantize_bits_host``, ``decode_host`` and ``match_accuracy`` are that
+library's plain versions: numpy with the semantics of the JAX package's
+host fallbacks (gswm/native/__init__.py:80-122).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from typing import Iterable
 import numpy as np
 import torch
 
+from gswm_torch import hostlib
 from gswm_torch.core import bits as bitops
 from gswm_torch.core import chacha
 from gswm_torch.core.decode import majority_vote, quantize_latent_bits
@@ -65,7 +69,9 @@ def find_source(
     message_bits: int | None = None,
     l: int = 1,
 ) -> tuple[int, float, list[float]]:
-    """Score every candidate record against one latent, on the host.
+    """Score every candidate record against one latent, on the host, in
+    the native host library (``hostlib``: quantize once, then per candidate
+    keystream, XOR, vote and match count in C++).
 
     candidates: dicts with key_hex / nonce_hex / message_hex (the
     info_data.jsonl schema; message_length optional per record).
@@ -73,15 +79,16 @@ def find_source(
     """
     if isinstance(latents, torch.Tensor):
         latents = latents.detach().cpu().numpy()
-    qbits = quantize_bits_host(np.asarray(latents, np.float32), l)
+    qbits = hostlib.quantize_bits(np.asarray(latents, np.float32), l)
     accs = []
     for rec in candidates:
         mb = _message_bits(rec, message_bits)
         if mb <= 0:
             mb = len(rec["message_hex"]) * 4
-        voted = decode_host(qbits, bytes.fromhex(rec["key_hex"]),
-                            bytes.fromhex(rec["nonce_hex"]), mb)
-        accs.append(match_accuracy(voted, bitops.hex_to_bits(rec["message_hex"])[:mb]))
+        voted = hostlib.decode(qbits, bytes.fromhex(rec["key_hex"]),
+                               bytes.fromhex(rec["nonce_hex"]), mb)
+        accs.append(hostlib.match_accuracy(
+            voted, bitops.hex_to_bits(rec["message_hex"])[:mb]))
     best = int(np.argmax(accs))
     return best, accs[best], accs
 

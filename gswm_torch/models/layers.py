@@ -30,12 +30,14 @@ import os
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from gswm_torch.ops.attention import (
     flash_attention,
     flash_attention_packed,
+    flash_attention_sharded,
     flash_attention_split,
     flash_attention_transposed,
     fused_qkv_attention,
@@ -161,43 +163,62 @@ def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.transpose(1, 2).reshape(b, sq, inner)
 
 
+def row_parallel(linear: nn.Linear, x: torch.Tensor, group) -> torch.Tensor:
+    """``linear(x)``; under a tp ``group`` (``sharding.shard_params``) the
+    layer holds this rank's columns of the weight: x @ w_r^T is summed over
+    the group and the whole bias added once, after the sum."""
+    if group is None:
+        return linear(x)
+    y = F.linear(x, linear.weight)
+    dist.all_reduce(y, group=group)
+    return y + linear.bias
+
+
 class Attention(nn.Module):
     """Multi-head attention (self when context is None, cross otherwise) with
-    bias-free q/k/v projections."""
+    bias-free q/k/v projections.  ``sharding.shard_params`` may leave it
+    ``local_heads`` of its heads (to_out.0 summed over ``tp_group``), mark it
+    ``sharded`` (self-attention takes the split or plain route, as the JAX
+    package's mesh gates do) and give it the ``sp_mesh`` its self-attention
+    rings over."""
 
     def __init__(self, query_dim: int, context_dim: int, heads: int, head_dim: int):
         super().__init__()
         inner = heads * head_dim
-        self.heads = heads
+        self.heads = self.local_heads = heads
         self.head_dim = head_dim
         self.to_q = nn.Linear(query_dim, inner, bias=False)
         self.to_k = nn.Linear(context_dim, inner, bias=False)
         self.to_v = nn.Linear(context_dim, inner, bias=False)
         self.to_out = nn.Sequential(nn.Linear(inner, inner))  # diffusers' to_out.0
+        self.sharded = False
+        self.tp_group = None
+        self.sp_mesh = None
 
     def forward(self, x, context=None):
+        heads = self.local_heads
         if context is not None:
-            return self.to_out(plain_attention(self.to_q(x), self.to_k(context),
-                                               self.to_v(context), self.heads))
-        route = route_self_attention(x.shape[1], self.head_dim)
+            out = plain_attention(self.to_q(x), self.to_k(context), self.to_v(context), heads)
+            return row_parallel(self.to_out[0], out, self.tp_group)
+        route = route_self_attention(x.shape[1], self.head_dim, self.sharded)
         wq, wk, wv = self.to_q.weight, self.to_k.weight, self.to_v.weight
         if route == "packed":
             return self._packed(x, wq, wk, wv)
         if route == "transposed":
             return self._transposed(x, wq, wk, wv)
         if route == "fused_qkv":
-            return self.to_out(fused_qkv_attention(x, wq, wk, wv, self.heads))
+            return self.to_out(fused_qkv_attention(x, wq, wk, wv, heads))
         q, k, v = F.linear(x, wq), F.linear(x, wk), F.linear(x, wv)
         if route in ("xf", "cres"):
-            out = flash_attention(q, k, v, self.heads)
+            out = flash_attention(q, k, v, heads)
         elif route == "split":
             b, s, inner = q.shape
-            out = flash_attention_split(
-                *(t.view(b, s, self.heads, self.head_dim) for t in (q, k, v))
-            ).reshape(b, s, inner)
+            q, k, v = (t.view(b, s, heads, self.head_dim) for t in (q, k, v))
+            out = (flash_attention_sharded(q, k, v, self.sp_mesh) if self.sp_mesh is not None
+                   else flash_attention_split(q, k, v)).reshape(b, s, inner)
         else:
-            out = plain_attention(q, k, v, self.heads)
-        return self.to_out(out)
+            out = plain_attention(q, k, v, heads)
+        return row_parallel(self.to_out[0], out, self.tp_group)
 
     def _packed(self, x, wq, wk, wv):
         """gswm/models/layers.py:437-464: one matmul into the pair-packed
@@ -239,14 +260,19 @@ class GEGLU(nn.Module):
 
 
 class FeedForward(nn.Module):
+    """GEGLU and the down projection; under a ``tp_group``
+    (``sharding.shard_params``) this rank's block of both GEGLU halves, and
+    net.2 summed over the group."""
+
     def __init__(self, dim: int):
         super().__init__()
         # indices 0 and 2 match diffusers' net.0.proj / net.2 (1 is dropout)
         self.net = nn.Sequential(GEGLU(dim, dim * 4), nn.Identity(),
                                  nn.Linear(dim * 4, dim))
+        self.tp_group = None
 
     def forward(self, x):
-        return self.net(x)
+        return row_parallel(self.net[2], self.net[0](x), self.tp_group)
 
 
 class BasicTransformerBlock(nn.Module):

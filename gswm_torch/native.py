@@ -39,6 +39,8 @@ _SIGNATURES = {
     "gswm_fused_qkv_attn": [_VP] * 8 + [_I, _I, _I, _I, _I, _VP],
     # q, k, v, out, B, Sq, Sk, H, D, stream
     "gswm_flash_split": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
+    # q, k, v, out, lse (fp32 (B, H, Sq)), B, Sq, Sk, H, D, stream
+    "gswm_flash_split_lse": [_VP] * 5 + [_I] * 5 + [_VP],
     # qkv, out, B, S, P (head pairs), stream
     "gswm_flash_packed": [_VP, _VP, _I, _I, _I, _VP],
     # qkv_t, out_t, B, S, H, D (head dim), stream

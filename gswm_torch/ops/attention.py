@@ -17,7 +17,10 @@ tensor maps zero-fill the columns (transposed: rows) past d (SD 1.x: 40, 80,
     Port of the
     Pallas ``gswm.ops.attention.flash_attention``; serves the VAE mid-block
     attention above 4096 tokens (one head, D = 512) and the UNet's
-    ``split`` route.
+    ``split`` route.  With ``return_lse`` the same kernels also write each
+    row's log-sum-exp (``gswm_flash_split_lse``): the per-step kernel of
+    ``ops.ring_attention``.  ``flash_attention_sharded`` partitions it over
+    a mesh (``gswm_torch.sharding``): the ring under sp, heads under tp.
   * ``flash_attention`` — the same kernels on natural-layout (B, S, H*D)
     q/k/v, which is (B, S, H, D) memory.  Serves the UNet's ``xf`` and
     ``cres`` routes (level 0: 4096 tokens at 512x512, 9216 at 768x768),
@@ -111,12 +114,18 @@ def _count(wrapper, d: int) -> None:
     wrapper.launches_by_d[d] = wrapper.launches_by_d.get(d, 0) + 1
 
 
-def route_self_attention(seq: int, head_dim: int = HEAD_DIM) -> str:
+def route_self_attention(seq: int, head_dim: int = HEAD_DIM, sharded: bool = False) -> str:
     """The self-attention tier for ``seq`` tokens of ``head_dim``-wide heads,
     in the JAX package's order (``gswm.models.layers.Attention``,
     layers.py:388-535): xf -> cres -> packed -> transposed -> fused_qkv ->
-    split -> plain.  Switches are read from the environment at call time,
-    under the JAX names and defaults:
+    split -> plain.  ``sharded``: the layer runs under a mesh whose tp or sp
+    axis is larger than 1 (``sharding.shard_params`` sets it), where the JAX
+    package's mesh gates (``_use_fused_qkv`` layers.py:251-257, ``_use_xf``
+    :280-286, ``_use_cres`` :309-315, ``_use_packed`` :340-346,
+    ``_use_transposed`` :374-380) refuse every tier but split and plain:
+    heads or the sequence are sharded, which only the split layout serves.
+    Switches are read from the environment at call time, under the JAX names
+    and defaults:
 
       xf          GSWM_XF_ATTN (on), S >= GSWM_XF_ATTN_MIN_SEQ (2305)
       cres        GSWM_CRES_ATTN (on), S >= GSWM_CRES_ATTN_MIN_SEQ (2305)
@@ -150,13 +159,16 @@ def route_self_attention(seq: int, head_dim: int = HEAD_DIM) -> str:
         the port K1.
 
     The JAX package's other gates have no counterpart: ``on_device`` (the
-    port's wrappers pick kernel or plain version by the tensor's device),
-    the tp/sp mesh checks (no mesh) and the bias check (the port's q/k/v
-    projections are bias-free).  Ignored, because they change only the TPU
+    port's wrappers pick kernel or plain version by the tensor's device)
+    and the bias check (the port's q/k/v projections are bias-free).  The
+    mesh gates read the layer's own record (``sharded``) instead of an
+    ambient mesh.  Ignored, because they change only the TPU
     tiling or pick a variant that is no parity target: GSWM_FUSED_QKV_MODE
     (all-heads K1 or seqhead K5, one function, which K1 serves),
     GSWM_PACKED_TIER, GSWM_SELF_PROJ, GSWM_ATTN_USE_MAX, GSWM_XF_BF16_EXP,
     GSWM_ATTN_EXP2 and GSWM_ATTN_PV_CHUNKS."""
+    if sharded:
+        return "split" if seq >= _seq_switch("GSWM_FLASH_MIN_SEQ", FLASH_MIN_SEQ) else "plain"
     if os.environ.get("GSWM_XF_ATTN", "1") == "1" and \
             seq >= _seq_switch("GSWM_XF_ATTN_MIN_SEQ", TIER_MIN_SEQ):
         return "xf"
@@ -351,17 +363,36 @@ def flash_attention_split_reference(q: torch.Tensor, k: torch.Tensor,
     return out.transpose(1, 2).contiguous().to(q.dtype)
 
 
-def flash_attention_split(q: torch.Tensor, k: torch.Tensor,
-                          v: torch.Tensor) -> torch.Tensor:
-    """(B, Sq, H, D) q, (B, Sk, H, D) k/v -> (B, Sq, H, D) attention output.
+def flash_attention_split_lse_reference(q: torch.Tensor, k: torch.Tensor,
+                                        v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the log-sum-exp variant: (B, Sq, H, D) q, (B, Sk, H, D)
+    k/v -> (out (B, Sq, H, D) in q's dtype, lse (B, H, Sq) fp32); fp32
+    matmul, ``torch.logsumexp`` of the logits q k^T d^-0.5 (natural log),
+    softmax and matmul."""
+    d = q.shape[-1]
+    qf, kf, vf = (t.to(torch.float32).transpose(1, 2) for t in (q, k, v))
+    logits = torch.matmul(qf, kf.transpose(-1, -2)) * (d**-0.5)
+    lse = torch.logsumexp(logits, dim=-1)
+    out = torch.matmul(torch.softmax(logits, dim=-1), vf)
+    return out.transpose(1, 2).contiguous().to(q.dtype), lse
+
+
+def flash_attention_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          return_lse: bool = False):
+    """(B, Sq, H, D) q, (B, Sk, H, D) k/v -> (B, Sq, H, D) attention output;
+    with ``return_lse`` also each row's log-sum-exp of the logits q k^T
+    d^-0.5, fp32 (B, H, Sq), natural log: what merges partial outputs over
+    disjoint key sets (``ops.ring_attention``).
 
     The counterpart of ``gswm.ops.attention.flash_attention`` (this module's
     ``flash_attention`` is the natural-layout wrapper).  Below
     ``SPLIT_MIN_KEYS`` keys: the reference's einsum path (matmul in the input dtype, softmax in
-    fp32, probabilities cast back).  Otherwise CPU: the plain version; CUDA:
-    the kernel of csrc/flash_hopper.cu up to D = 64 and of
-    csrc/flash_split.cu above (bf16, D as ``kernel_head_dim`` takes it, any
-    Sq and Sk)."""
+    fp32, probabilities cast back; lse of the same fp32 logits).  Otherwise
+    CPU: the plain versions; CUDA: the kernel of csrc/flash_hopper.cu up to
+    D = 64 and of csrc/flash_split.cu above (bf16, D as ``kernel_head_dim``
+    takes it, any Sq and Sk), ``gswm_flash_split_lse`` with ``return_lse``.
+    Launches with lse count in ``flash_attention_split.lse_launches`` (and
+    ``lse_launches_by_d``), the others in ``launches``."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape or \
             q.shape[0] != k.shape[0] or q.shape[2:] != k.shape[2:]:
         raise ValueError(f"flash_attention_split: q {tuple(q.shape)}, k "
@@ -371,9 +402,12 @@ def flash_attention_split(q: torch.Tensor, k: torch.Tensor,
     sk = k.shape[1]
     if sk < SPLIT_MIN_KEYS:
         logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * (d**-0.5)
-        probs = torch.softmax(logits.to(torch.float32), dim=-1)
-        return torch.einsum("bhqk,bkhd->bqhd", probs.to(q.dtype), v)
+        logits = logits.to(torch.float32)
+        out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(logits, dim=-1).to(q.dtype), v)
+        return (out, torch.logsumexp(logits, dim=-1)) if return_lse else out
     if q.device.type == "cpu":
+        if return_lse:
+            return flash_attention_split_lse_reference(q, k, v)
         return flash_attention_split_reference(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_split: unsupported device {q.device}")
@@ -383,14 +417,62 @@ def flash_attention_split(q: torch.Tensor, k: torch.Tensor,
     out = torch.empty_like(q)
     lib = native.library()
     with torch.cuda.device(q.device):
-        lib.call("gswm_flash_split", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 out.data_ptr(), b, sq, sk, h, d, native.stream_handle(q.device))
+        if return_lse:
+            lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+            lib.call("gswm_flash_split_lse", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     out.data_ptr(), lse.data_ptr(), b, sq, sk, h, d,
+                     native.stream_handle(q.device))
+        else:
+            lib.call("gswm_flash_split", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     out.data_ptr(), b, sq, sk, h, d, native.stream_handle(q.device))
+    if return_lse:
+        flash_attention_split.lse_launches += 1
+        by_d = flash_attention_split.lse_launches_by_d
+        by_d[d] = by_d.get(d, 0) + 1
+        return out, lse
     _count(flash_attention_split, d)
     return out
 
 
 flash_attention_split.launches = 0
 flash_attention_split.launches_by_d = {}
+flash_attention_split.lse_launches = 0
+flash_attention_split.lse_launches_by_d = {}
+
+
+def flash_attention_sharded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            mesh=None) -> torch.Tensor:
+    """``flash_attention_split`` partitioned over a mesh
+    (``sharding.make_mesh``): the counterpart of
+    ``gswm.ops.attention.flash_attention_sharded`` (attention.py:1491).
+    q, k, v are the whole (B, S, H, D) tensors, the same on every rank;
+    every rank returns the whole output.
+
+      * sp > 1 dividing both sequences: ``ops.ring_attention`` (the
+        sequence is the axis worth sharding once a latent outgrows a card);
+      * else tp > 1 dividing the heads: this rank's heads (and, where dp
+        divides the batch, its batch rows) through the kernel, no collective
+        inside, then an all_gather over tp (and dp) assembles the output;
+      * else, and without a mesh: ``flash_attention_split`` on the whole
+        tensors, where the JAX function falls back (attention.py:1508-1523)."""
+    from gswm_torch.sharding import mesh as meshes
+
+    if mesh is None:
+        return flash_attention_split(q, k, v)
+    sp = meshes.axis_size(mesh, "sp")
+    if sp > 1 and q.shape[1] % sp == 0 and k.shape[1] % sp == 0:
+        from gswm_torch.ops.ring_attention import ring_attention
+
+        return ring_attention(q, k, v, mesh)
+    tp = meshes.axis_size(mesh, "tp")
+    if tp == 1 or q.shape[2] % tp:
+        return flash_attention_split(q, k, v)
+    by_dp = meshes.batch_divisible(mesh, q.shape[0])
+    q, k, v = (meshes.shard_dim(t, mesh, "tp", 2) for t in (q, k, v))
+    if by_dp:
+        q, k, v = (meshes.shard_batch(t, mesh) for t in (q, k, v))
+    out = meshes.gather_dim(flash_attention_split(q, k, v), mesh, "tp", 2)
+    return meshes.gather_batch(out, mesh) if by_dp else out
 
 
 def flash_attention_packed_reference(qkv: torch.Tensor) -> torch.Tensor:

@@ -17,6 +17,8 @@ launches the kernel or raises, and it raises under a gradient
 ``fused_group_norm.launches`` counts the launches: one kernel a call, which
 reads x once (a thread block cluster a group keeps it in shared memory
 between the sums and the normalisation) and needs no scratch memory.
+``fused_group_norm_sharded`` runs it on each rank's rows of a batch sharded
+over a mesh's dp axis.
 """
 
 from __future__ import annotations
@@ -91,3 +93,21 @@ def fused_group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 
 fused_group_norm.launches = 0
+
+
+def fused_group_norm_sharded(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                             mesh=None, **kw) -> torch.Tensor:
+    """``fused_group_norm`` partitioned over a mesh's dp axis: the
+    counterpart of ``gswm.ops.groupnorm.fused_group_norm_sharded``
+    (groupnorm.py:156).  GroupNorm is independent image by image, so each
+    rank normalises its rows of the whole ``x`` (the same on every rank) with
+    the kernel, and an all_gather over dp returns the whole output on every
+    rank.  Falls back to ``fused_group_norm`` on the whole ``x`` where the
+    JAX function does (groupnorm.py:165-171): no mesh, no dp axis or dp = 1,
+    or a batch dp does not divide."""
+    from gswm_torch.sharding import mesh as meshes
+
+    if not meshes.batch_divisible(mesh, x.shape[0]):
+        return fused_group_norm(x, weight, bias, **kw)
+    y = fused_group_norm(meshes.shard_batch(x, mesh), weight, bias, **kw)
+    return meshes.gather_batch(y, mesh)

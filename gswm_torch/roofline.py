@@ -42,11 +42,14 @@ def bound_ms(ops: float, nbytes: float, peak_ops: float,
     return 1e3 * times[roof], roof
 
 
-def attention_cost(b: int, sq: int, sk: int, h: int, d: int) -> tuple[int, int, int]:
+def attention_cost(b: int, sq: int, sk: int, h: int, d: int,
+                   lse: bool = False) -> tuple[int, int, int]:
     """(FLOP, bytes, exponentials) of softmax(q k^T) v on bf16 (B, Sq, H, D)
     q and (B, Sk, H, D) k/v: two products of 2 * Sq * Sk * D each per head,
-    q and out of Sq rows, k and v of Sk, one exponential a logit."""
-    return (4 * b * h * sq * sk * d, BF16 * b * h * d * (2 * sq + 2 * sk),
+    q and out of Sq rows, k and v of Sk, one exponential a logit; with
+    ``lse``, the fp32 (B, H, Sq) log-sum-exp written too."""
+    return (4 * b * h * sq * sk * d,
+            BF16 * b * h * d * (2 * sq + 2 * sk) + (4 * b * h * sq if lse else 0),
             b * h * sq * sk)
 
 

@@ -34,6 +34,8 @@ entry points on the same tensors, so nothing but the kernels differs:
 
 ``--match`` keeps only the attention cases whose label holds TEXT (say
 ``"K2 (4, 4096, 8, "`` for K2 at SD 1.x's level 0 and the narrow widths).
+``--require-equal`` fails unless every attention case's two outputs are
+equal bit for bit (a change that must leave the kernels' results alone).
 Prints a line per case and, last, one JSON object; ``--out`` also writes it.
 """
 
@@ -276,6 +278,8 @@ def main() -> None:
                     help="which of attention, k8, k3 to time (comma-separated)")
     ap.add_argument("--match", default="",
                     help="time only the attention cases whose label holds this")
+    ap.add_argument("--require-equal", action="store_true",
+                    help="fail unless every attention output equals the parent's")
     args = ap.parse_args()
     cases = set(args.cases.split(","))
     if not cases or cases - {"attention", "k8", "k3"}:
@@ -306,6 +310,13 @@ def main() -> None:
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(result, indent=1))
+    if args.require_equal:
+        differ = [case for key in ("flash", "packed", "transposed", "fused_qkv")
+                  for case in result.get(key, []) if case["max_abs_diff"] != 0.0]
+        if differ:
+            raise SystemExit(f"compare_kernels: {len(differ)} attention cases differ from "
+                             f"the parent's: {[c.get('label', c['shape']) for c in differ]}")
+        print("every attention output equals the parent's, bit for bit", flush=True)
 
 
 def compare_attention(libs: dict, rand, stream: int, iters: int, match: str = "") -> dict:

@@ -118,6 +118,21 @@ MULTIKEY_MODEL_BATCH = 4
 MULTIKEY_ROWS_PER_CALL = 2500
 MULTIKEY_SEED = 505
 
+# phase 12 (multi-device on one card): K4 with its log-sum-exp output at the
+# ring's full-width shapes (B, S, H, D): sd-2-1 768x768 level 0, SDXL level
+# 1, SD 1.x level 0 (the narrow kernel), SD 1.x level 1's width, the SDXL
+# VAE's mid attention; each also as a query shard against a key shard of
+# S / LSE_SHARDS; and the ring's sizes on one card
+LSE_SHAPES = ((2, 9216, 5, 64), (2, 4096, 10, 64), (4, 4096, 8, 40), (4, 1024, 8, 80),
+              (1, 16384, 1, 512))
+LSE_SHARDS = 4
+RING_SP = (2, 4)
+# phase 12c/d: sd-2-1-base's UNet at 512x512, batch 2 (the tp forward), and
+# the dp leg's extraction of 4 watermarked latents
+MULTIDEVICE_UNET_BATCH = 2
+MULTIDEVICE_DP_BATCH = 4
+MULTIDEVICE_SEED = 1313
+
 # K8 (NCHW shape, activation): the largest GroupNorm of the 768x768 path (VAE)
 # and the UNet's level-0 one, the two whose times the records quote
 K8_PROBE_CASES = (((1, 128, 768, 768), "silu"), ((2, 320, 96, 96), "silu"))

@@ -1133,3 +1133,57 @@ def test_kernel_wrappers_refuse_a_gradient(cuda):
         torch.cuda.synchronize()
         assert fn.launches == before + 1, name
         assert leaf.requires_grad
+
+
+# The log-sum-exp variant at its three epilogues: flash_hopper.cu's d <= 64
+# kernel (64; 56 scales q in shared memory), its narrow kernel (40, 24) and
+# flash_split.cu (80, 160, 512); query lengths off every block size, so the
+# lse store's mask past Sq is read; bound: lse within 1e-2 of the fp32 plain
+# version (the kernel sums bf16-rounded p, ~1e-3 relative)
+LSE_BOUND = 1e-2
+
+
+@pytest.mark.parametrize("b,sq,sk,h,d", [
+    (2, 1000, 1300, 3, 64), (1, 4096, 4096, 5, 64), (1, 130, 577, 2, 56),
+    (2, 700, 513, 2, 40), (4, 1024, 1024, 8, 40), (1, 65, 600, 3, 24),
+    (1, 333, 900, 2, 80), (2, 100, 600, 2, 160), (1, 2048, 2048, 1, 512),
+    (1, 1, 512, 1, 512)])
+def test_flash_split_lse_kernel_matches_plain(cuda, b, sq, sk, h, d):
+    g = torch.Generator(device=cuda).manual_seed(sq + d)
+    q = torch.randn((b, sq, h, d), generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn((b, sk, h, d), generator=g, device=cuda).bfloat16() for _ in range(2))
+    before = attn.flash_attention_split.lse_launches
+    plain_before = attn.flash_attention_split.launches
+    out, lse = attn.flash_attention_split(q, k, v, return_lse=True)
+    assert attn.flash_attention_split.lse_launches == before + 1
+    assert attn.flash_attention_split.launches == plain_before
+    want, want_lse = attn.flash_attention_split_lse_reference(q.float(), k.float(), v.float())
+    assert lse.shape == (b, h, sq) and lse.dtype == torch.float32
+    assert_attention_close(out, want)
+    assert (lse - want_lse).abs().max().item() <= LSE_BOUND
+    # the output is the kernel's without lse, bit for bit
+    assert torch.equal(out, attn.flash_attention_split(q, k, v))
+
+
+@pytest.mark.parametrize("sp", [2, 4])
+@pytest.mark.parametrize("b,s,h,d", [(2, 4096, 5, 64), (1, 2048, 8, 40), (1, 2048, 1, 512)])
+def test_ring_steps_on_one_card_match_one_call(cuda, sp, b, s, h, d):
+    """ring_attention's per-rank step for every virtual rank of an sp ring,
+    in ring order (rank r holds k/v shard (r - step) % sp at a step): the
+    folded output against one flash_attention_split call."""
+    from gswm_torch.ops.ring_attention import ring_finish, ring_step
+
+    g = torch.Generator(device=cuda).manual_seed(s + sp)
+    q, k, v = (torch.randn((b, s, h, d), generator=g, device=cuda).bfloat16()
+               for _ in range(3))
+    qs, ks, vs = (t.chunk(sp, dim=1) for t in (q, k, v))
+    outs = []
+    for r in range(sp):
+        acc = None
+        for step in range(sp):
+            src = (r - step) % sp
+            acc = ring_step(qs[r].contiguous(), ks[src].contiguous(), vs[src].contiguous(), acc)
+        outs.append(ring_finish(acc, q.dtype))
+    got = torch.cat(outs, dim=1)
+    want = attn.flash_attention_split_reference(q.float(), k.float(), v.float())
+    assert_attention_close(got, want)

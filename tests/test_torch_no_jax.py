@@ -286,3 +286,56 @@ def test_host_surfaces_quality_and_memory_import_and_run_without_reference_deps(
                          cwd=Path(__file__).resolve().parents[1])
     assert res.returncode == 0, res.stdout + res.stderr
     assert "LOADED []" in res.stdout
+
+
+def test_multi_device_set_imports_and_runs_without_jax():
+    """The sharding package, ring attention, the host library and both
+    multi-rank tools import with jax, the JAX package and the other
+    reference dependencies unimportable; one gloo world-2 ring runs (its
+    ranks load none of them either) and one find_source runs on the host
+    library."""
+    code = textwrap.dedent(f"""
+        import sys
+        blocked = {FORBIDDEN!r} + ("gswm",)
+        for name in blocked:
+            sys.modules[name] = None
+        sys.path.insert(0, "tests")
+        import numpy as np
+        import torch
+        torch.set_num_threads(1)
+        import gswm_torch.sharding, gswm_torch.sharding.launch  # noqa: F401
+        from gswm_torch import hostlib
+        from gswm_torch.ops import ring_attention
+        from gswm_torch.tools import dryrun_multichip, run_config5_artifact  # noqa: F401
+        from gswm_torch.eval import trace
+        import _torch_dist_workers as workers
+        if __name__ == "__main__":
+            rng = np.random.default_rng(0)
+            q, k, v = (rng.standard_normal((1, 128, 2, 16)).astype(np.float32)
+                       for _ in range(3))
+            ranks = gswm_torch.sharding.launch.spawn(workers.ring_loading, 2,
+                                                     (q, k, v, blocked), "cpu")
+            want = ring_attention.flash_attention_split(*map(torch.from_numpy, (q, k, v)))
+            for r in ranks:
+                assert r["calls"] == 1 and not r["loaded"], r
+                assert np.abs(r["ring"] - want.numpy()).max() < 2e-5
+            recs = [dict(key_hex=(bytes([i]) * 32).hex(), nonce_hex=bytes(16).hex(),
+                         message_hex=bytes([i, i]).hex(), message_length=16) for i in (1, 2)]
+            from gswm_torch.core.multikey import embed_latents_multikey
+            from gswm_torch import GSConfig
+            lat, _ = embed_latents_multikey(
+                GSConfig(width=64, height=64, message_bits=16), [bytes([1]) * 32, bytes([2]) * 32],
+                [bytes(16)] * 2, [bytes([1, 1]), bytes([2, 2])],
+                generator=torch.Generator().manual_seed(2), device="cpu")
+            assert trace.find_source(lat[1], recs)[:2] == (1, 1.0)
+            assert hostlib.library().path.exists()
+            loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
+                            and m.split(".")[0] in blocked)
+            print("LOADED", loaded)
+            assert not loaded, loaded
+    """)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         cwd=Path(__file__).resolve().parents[1])
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "LOADED []" in res.stdout
