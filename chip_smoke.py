@@ -28,15 +28,23 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
                 3, 40), beside it K2 at d = 8, 24 and 48 (flash_hopper.cu's
                 narrow kernel) and 56 (its d <= 64 kernel), K1 at (4 and 8,
                 1024, 640, 8 heads of 80) and (4 and
-                8, 256, 1280, 8 of 160), K4 at (4, 1024, 8, 80), (1, 1000,
-                2, 160) and a width no SD model uses, (2, 1000, 3, 72); K1,
-                K2 and K4 are held to the bounds head by head, and their
+                8, 256, 1280, 8 of 160), K4 at (4 and 8, 1024, 8, 80), (4
+                and 8, 256, 8, 160: below the split wrapper's 512 keys, so
+                through the natural-layout wrapper, the same kernel), (1,
+                1000, 2, 160) and widths no SD model uses, (2, 1000, 3, 72, 96
+                and 144), and K4 with its log-sum-exp output at
+                paths.K4_LSE_SHAPES (below 512 keys through its C entry, the
+                wrapper's arguments); 64 < d <= 160 is csrc/flash_mid.cu's
+                (the records "fused_qkv_attention_mid",
+                "flash_attention_split_mid", "flash_attention_split_lse_mid");
+                K1, K2 and K4 are held to the bounds head by head, and their
                 bounds count the true head dim.  K1's projection GEMM
                 also alone,
                 against x @ W^T in fp32.  The JSON line's ms, plain_ms,
                 bound_ms and library_ms sum a kernel's shapes; its
-                max_abs_err is their maximum.  K4 (csrc/flash_split.cu)
-                also at D = 128 and 192 beside the VAE's 512.  K7 at the
+                max_abs_err is their maximum.  K4 also at D = 128
+                (csrc/flash_mid.cu) and 192 (csrc/flash_split.cu) beside the
+                VAE's 512.  K7 at the
                 level-0 shapes at D = 64, at SD 1.x's (4 and 8, 4096, 8
                 heads of 40) of switch set (c), at (4, 1024, 8, 80), (4,
                 256, 8, 160), (2, 1000, 3, 72) and (1, 1024, 1, 512) (its
@@ -56,10 +64,13 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
                 one-kernel checks stand at the head of the phase and read
                 one profiler trace of 8 calls: 8 launch records on the
                 host's side, and no kernel but the wrapper's on the
-                device's.)  K1 at d = 80 also against F.linear + the
-                library's attention in turns (5 rounds of library, kernel,
-                kernel, library; medians and ranges), because the library's
-                time there spreads with its host launches.
+                device's.)  K1 at d = 80 and 160 (batch 4 and 8) also
+                against F.linear + the library's attention in turns (5
+                rounds of library, kernel, kernel, library; medians and
+                ranges), because the library's time there spreads with its
+                host launches; beside them each side's device time a call
+                (torch.profiler), the kernel's GEMM and core apart, the
+                library's F.linear and attention apart.
   3. extraction path, sd-2-1-base at 512x512, batch 4 (full batch; the time
      limit does not need a smaller one), random weights from a seed:
        (a) latent closed loop: embed -> 30-step DDIM generate -> 30-step
@@ -316,8 +327,8 @@ MIN_FIDELITY_64 = 0.95
 MIN_FITTED_NONE = 0.9
 # calls in the profiler window of a one-kernel check
 ONE_KERNEL_CALLS = 8
-# K1 at d = 80 against F.linear + the library's attention in turns: the
-# order of a round, and the rounds
+# K1 at SD 1.x's widths against F.linear + the library's attention in
+# turns: the order of a round, and the rounds
 K1_TURNS = ("library", "kernel", "kernel", "library")
 K1_TURN_ROUNDS = 5
 # bf16 kernel vs fp32 plain version at unit-scale inputs: tightened from the
@@ -629,21 +640,37 @@ def _fmt(ms) -> str:
     return "none" if ms is None else f"{ms:.4f}"
 
 
-def _time_in_turns(label: str, kernel, library) -> None:
+def _time_in_turns(label: str, kernel, library, x, ws, h: int) -> None:
     """``kernel`` and ``library`` timed in K1_TURNS order, K1_TURN_ROUNDS
-    times: the library's time at SD 1.x's level 1 spreads with its host
-    launches from one call to the next, so the two are read side by side."""
+    times: the library's time at SD 1.x's levels 1 and 2 spreads with its
+    host launches from one call to the next, so the two are read side by
+    side; then each side's device time a call, split: the kernel's GEMM
+    (qkv_proj_kernel) and its core, the library's F.linear and its
+    attention (``x``, ``ws``, ``h``: the case's input, weights and heads)."""
+    from gswm_torch.tools.compare_kernels import device_ms, device_times
+
     t = {"library": [], "kernel": []}
     fns = {"library": library, "kernel": kernel}
     for _ in range(K1_TURN_ROUNDS):
         for side in K1_TURNS:
             t[side].append(_time_ms(fns[side], 20))
     med = {side: statistics.median(v) for side, v in t.items()}
+    times = device_times(kernel, 20)
+    gemm = sum(ms for name, ms in times.items() if "qkv_proj_kernel" in name)
+    b, s, _ = x.shape
+    n = ws[0].shape[0]
+    w_cat = torch.cat(ws)
+    views = [_heads_view(t_, b, s, h, n // h) for t_ in F.linear(x, w_cat).split(n, dim=-1)]
+    lib = dict(linear_device_ms=device_ms(lambda: F.linear(x, w_cat), 20),
+               attention_device_ms=device_ms(lambda: _sdpa_fused(*views), 20))
     print(f"{label} in turns against F.linear + sdpa ({K1_TURN_ROUNDS} rounds of "
           f"{', '.join(K1_TURNS)}): kernel median {med['kernel']:.4f} ms "
           f"({min(t['kernel']):.4f}-{max(t['kernel']):.4f}), library median "
           f"{med['library']:.4f} ({min(t['library']):.4f}-{max(t['library']):.4f}), "
-          f"library / kernel {med['library'] / med['kernel']:.2f}x", flush=True)
+          f"library / kernel {med['library'] / med['kernel']:.2f}x; device a call: "
+          f"kernel GEMM {gemm:.4f} + core {sum(times.values()) - gemm:.4f} ms, library "
+          f"F.linear {lib['linear_device_ms']:.4f} + attention "
+          f"{lib['attention_device_ms']:.4f} ms", flush=True)
 
 
 def phase_kernels(gn_cases) -> dict:
@@ -708,6 +735,7 @@ def phase_kernels(gn_cases) -> dict:
     # (B, S, H, D) view or None) at the shapes of gswm_torch/tools/paths.py.
     # Costs count the true head dim, not the panels the kernels pad it to
     cases = []
+    k1_inputs = {}  # label -> (x, weights, heads): K1 in turns below
     for b, s, c, h, d in paths.K1_SHAPES:
         x = rand(b, s, c)
         ws = [rand(h * d, c, scale=c**-0.5) for _ in range(3)]
@@ -718,12 +746,13 @@ def phase_kernels(gn_cases) -> dict:
             return sdpa(*(_heads_view(t, b, s, h, d) for t in (q, k, v)))
 
         cases.append((f"K1 fused_qkv (B={b}, S={s}, C={c}, H={h}, D={d})",
-                      "fused_qkv_attention",
+                      _kernel_record("fused_qkv_attention", d),
                       lambda x=x, ws=ws, h=h: attn.fused_qkv_attention(x, *ws, h),
                       lambda x=x, ws=ws, h=h: attn.fused_qkv_attention_reference(
                           x.float(), *(w.float() for w in ws), h),
                       k1_library, roofline.fused_qkv_cost(b, s, c, h, d), 20,
                       lambda t, b=b, s=s, h=h, d=d: t.view(b, s, h, d)))
+        k1_inputs[cases[-1][0]] = (x, ws, h)
     for b, s, h, d in paths.K2_SHAPES:
         q, k, v = (rand(b, s, h * d) for _ in range(3))
         cases.append((f"K2 flash (B={b}, S={s}, H={h}, D={d})", "flash_attention",
@@ -734,15 +763,24 @@ def phase_kernels(gn_cases) -> dict:
                           *(_heads_view(t, b, s, h, d) for t in (q, k, v))),
                       roofline.attention_cost(b, s, s, h, d), 10,
                       lambda t, b=b, s=s, h=h, d=d: t.view(b, s, h, d)))
-    # K4: the split wrapper runs csrc/flash_split.cu above D = 64 (512 in the
-    # VAE; 128 and 192, an odd panel count, beside it; SD 1.x's 80 and 160
-    # and 72 on padded panels) and csrc/flash_hopper.cu up to 64: a record
-    # for each
+    # K4: the split wrapper runs csrc/flash_hopper.cu up to D = 64,
+    # csrc/flash_mid.cu to 160 (SD 1.x's 80 and 160, 72, 96, 128 and 144
+    # beside them) and csrc/flash_split.cu above (512 in the VAE; 192, an odd
+    # panel count, beside it): a record for each.  Below its 512 keys the
+    # split wrapper takes the einsum branch: those shapes (SD 1.x's level 2)
+    # reach the kernel through the natural-layout wrapper, the same memory
     for b, s, h, d in paths.K4_SHAPES:
         q, k, v = (rand(b, s, h, d) for _ in range(3))
-        cases.append((f"K4 flash_split (B={b}, S={s}, H={h}, D={d})",
-                      "flash_attention_split_d64" if d <= 64 else "flash_attention_split",
-                      lambda q=q, k=k, v=v: attn.flash_attention_split(q, k, v),
+
+        def k4(q=q, k=k, v=v, b=b, s=s, h=h, d=d):
+            if s >= attn.SPLIT_MIN_KEYS:
+                return attn.flash_attention_split(q, k, v)
+            return attn.flash_attention(*(t.view(b, s, h * d) for t in (q, k, v)),
+                                        h).view(b, s, h, d)
+
+        cases.append((f"K4 flash_split (B={b}, S={s}, H={h}, D={d})"
+                      + ("" if s >= attn.SPLIT_MIN_KEYS else " through flash_attention"),
+                      _kernel_record("flash_attention_split", d), k4,
                       lambda q=q, k=k, v=v: attn.flash_attention_split_reference(
                           q.float(), k.float(), v.float()),
                       lambda sdpa, q=q, k=k, v=v: sdpa(
@@ -801,8 +839,10 @@ def phase_kernels(gn_cases) -> dict:
         _record(records, name, err, ms, plain, bound, lib)
         del got, want
     for label, _, kernel, _, library_fn, *_ in cases:
-        if label.startswith("K1") and label.endswith("D=80)"):
-            _time_in_turns(label, kernel, lambda fn=library_fn: fn(_sdpa_fused))
+        if label.startswith("K1") and label.endswith(("D=80)", "D=160)")):
+            _time_in_turns(label, kernel, lambda fn=library_fn: fn(_sdpa_fused),
+                           *k1_inputs[label])
+    _check_lse_kernels(records, rand)
     # K8: unit-scale inputs with an offset, near-unit affine; the library
     # call is F.group_norm (+ F.silu) in bf16
     for shape, eps, act in gn_cases:
@@ -835,10 +875,84 @@ def phase_kernels(gn_cases) -> dict:
     print(f"K8 group_norm: 50-shape sums above: "
           f"{records['fused_group_norm']['ms']:.4f} ms against a bound of "
           f"{records['fused_group_norm']['bound_ms']:.4f} ms", flush=True)
-    for rec in records.values():  # the roof behind most of the summed bound
+    return records
+
+
+def _finish_records(records: dict) -> None:
+    """Each record's roof: the one behind most of its summed bound."""
+    for rec in records.values():
         rec["roof"] = max(rec["roof"], key=rec["roof"].get)
         rec["bound_by"] = "bytes" if rec["roof"] == "bytes" else "operations"
-    return records
+
+
+def _kernel_record(name: str, d: int) -> str:
+    """The record of wrapper ``name``'s kernel at head dim ``d``: ``name``
+    with "_mid" where csrc/flash_mid.cu runs it (64 < d <= 160) and, for the
+    split wrapper's records, "_d64" where csrc/flash_hopper.cu does."""
+    from gswm_torch.ops import attention as attn
+
+    if attn.HEAD_DIM < d <= attn.MID_MAX_HEAD_DIM:
+        return name + "_mid"
+    if d <= attn.HEAD_DIM and name.startswith("flash_attention_split"):
+        return name + "_d64"
+    return name
+
+
+def _split_lse(q, k, v):
+    """K4 with its log-sum-exp output at any key count: the split wrapper
+    from its SPLIT_MIN_KEYS keys up; below, where the wrapper takes its
+    einsum branch, the kernel's C entry with the arguments the wrapper
+    passes (no count: phase 2's calls count nowhere)."""
+    from gswm_torch import native
+    from gswm_torch.ops import attention as attn
+
+    b, s, h, d = q.shape
+    if k.shape[1] >= attn.SPLIT_MIN_KEYS:
+        return attn.flash_attention_split(q, k, v, return_lse=True)
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    native.library().call("gswm_flash_split_lse", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          out.data_ptr(), lse.data_ptr(), b, s, k.shape[1], h, d,
+                          native.stream_handle(q.device))
+    return out, lse
+
+
+def _check_lse_kernels(records: dict, rand) -> None:
+    """K4 with its log-sum-exp output at paths.K4_LSE_SHAPES against its
+    plain version: the output head by head to the attention bounds, lse
+    within LSE_BOUND; beside it aten's flash attention (which returns its
+    logsumexp) and the bound."""
+    from gswm_torch import roofline
+    from gswm_torch.ops import attention as attn
+
+    for b, s, h, d in paths.K4_LSE_SHAPES:
+        q, k, v = (rand(b, s, h, d) for _ in range(3))
+        label = f"K4 lse (B={b}, S={s}, H={h}, D={d})" + (
+            "" if s >= attn.SPLIT_MIN_KEYS else " through its C entry")
+        out, lse = _split_lse(q, k, v)
+        want, want_lse = attn.flash_attention_split_lse_reference(q.float(), k.float(),
+                                                                  v.float())
+        err = (out.float() - want).abs().max().item()
+        top = want.abs().max().item()
+        lse_err = (lse - want_lse).abs().max().item()
+        _check_every_head(label, out.float(), want)
+        ms = _time_ms(lambda q=q, k=k, v=v: _split_lse(q, k, v), 10)
+        plain = _time_ms(lambda q=q, k=k, v=v: attn.flash_attention_split_lse_reference(
+            q.float(), k.float(), v.float()), 3)
+        bound = roofline.attention_bound_ms(roofline.attention_cost(b, s, s, h, d, lse=True))
+        lib = _library_ms(lambda q=q, k=k, v=v: _lse_library(q, k, v), 10,
+                          "aten flash with lse")
+        print(f"{label}: max|err| {err:.5f} (bound {ATTN_BOUND}), err/max|want| "
+              f"{err / top:.5f} (bound {ATTN_REL_BOUND}), lse max|err| {lse_err:.6f} "
+              f"(bound {LSE_BOUND}); {ms:.4f} ms (plain {plain:.4f}, bound "
+              f"{bound[0]:.4f} by {bound[1]}, library {_fmt(lib)})", flush=True)
+        if not (err <= ATTN_BOUND and err <= ATTN_REL_BOUND * top and lse_err <= LSE_BOUND):
+            raise AssertionError(f"{label}: error {err} (max|want| {top}) or lse error "
+                                 f"{lse_err} above its bound")
+        name = _kernel_record("flash_attention_split_lse", d)
+        _record(records, name, err, ms, plain, bound, lib)
+        records[name]["max_lse_err"] = max(records[name].get("max_lse_err", 0.0), lse_err)
+        del q, k, v, out, lse, want, want_lse
 
 
 def _wrappers() -> dict:
@@ -854,18 +968,29 @@ def _wrappers() -> dict:
 
 def _counters() -> dict:
     """Each wrapper's launches; and, of the split wrapper's, those at
-    D <= 64 (the record "flash_attention_split_d64"), which another kernel,
-    csrc/flash_hopper.cu, runs; and its launches with the log-sum-exp
-    output, by the same split ("flash_attention_split_lse_d64",
-    "flash_attention_split_lse")."""
+    D <= 64 (the record "flash_attention_split_d64") and at 64 < D <= 160
+    ("flash_attention_split_mid"), which other kernels, csrc/flash_hopper.cu
+    and csrc/flash_mid.cu, run; its launches with the log-sum-exp output, by
+    the same split ("flash_attention_split_lse_d64", "..._lse_mid",
+    "flash_attention_split_lse"); and K1's at 64 < D <= 160, whose core is
+    csrc/flash_mid.cu's ("fused_qkv_attention_mid")."""
+    from gswm_torch.ops import attention as attn
+
+    def within(by_d, lo, hi):  # the launches at lo < d <= hi
+        return sum(n for d, n in by_d.items() if lo < d <= hi)
+
     counts = {name: fn.launches for name, fn in _wrappers().items()}
     split = _wrappers()["flash_attention_split"]
-    counts["flash_attention_split_d64"] = sum(
-        n for d, n in split.launches_by_d.items() if d <= 64)
-    counts["flash_attention_split_lse_d64"] = sum(
-        n for d, n in split.lse_launches_by_d.items() if d <= 64)
-    counts["flash_attention_split_lse"] = sum(
-        n for d, n in split.lse_launches_by_d.items() if d > 64)
+    mid, top = attn.MID_MAX_HEAD_DIM, attn.KERNEL_MAX_HEAD_DIM
+    counts["flash_attention_split_d64"] = within(split.launches_by_d, 0, attn.HEAD_DIM)
+    counts["flash_attention_split_mid"] = within(split.launches_by_d, attn.HEAD_DIM, mid)
+    counts["flash_attention_split_lse_d64"] = within(split.lse_launches_by_d, 0,
+                                                     attn.HEAD_DIM)
+    counts["flash_attention_split_lse_mid"] = within(split.lse_launches_by_d,
+                                                     attn.HEAD_DIM, mid)
+    counts["flash_attention_split_lse"] = within(split.lse_launches_by_d, mid, top)
+    counts["fused_qkv_attention_mid"] = within(
+        _wrappers()["fused_qkv_attention"].launches_by_d, attn.HEAD_DIM, mid)
     return counts
 
 
@@ -2152,7 +2277,7 @@ def phase_lse(card: str, records: dict) -> None:
                       f"(bound {LSE_BOUND}); {ms:.4f} ms (without lse {no_lse:.4f}, plain "
                       f"{plain:.4f}, bound {bound[0]:.4f} by {bound[1]}, library {_fmt(lib)}); "
                       f"on {card}", flush=True)
-                name = "flash_attention_split_lse_d64" if d <= 64 else "flash_attention_split_lse"
+                name = _kernel_record("flash_attention_split_lse", d)
                 _record(records, name, err, ms, plain, bound, lib)
                 records[name]["max_lse_err"] = max(records[name].get("max_lse_err", 0.0),
                                                    lse_err)
@@ -2160,10 +2285,6 @@ def phase_lse(card: str, records: dict) -> None:
                 raise AssertionError(f"{label}: error {err} (max|want| {top}) or lse error "
                                      f"{lse_err} above its bound")
             del q, k, v, out, lse, want, want_lse
-    for name in ("flash_attention_split_lse_d64", "flash_attention_split_lse"):
-        rec = records[name]
-        rec["roof"] = max(rec["roof"], key=rec["roof"].get)
-        rec["bound_by"] = "bytes" if rec["roof"] == "bytes" else "operations"
 
 
 def phase_ring_one_card(card: str) -> dict:
@@ -2520,8 +2641,12 @@ def main() -> None:
               + counts_bench[name]
               + counts_sdxl[name] + counts_sd14[name] + counts_12[name]
               + sum(c[name] for c in counts_new) for name in counts_512}
-    # the split wrapper's count, less what flash_hopper.cu ran of it
-    counts["flash_attention_split"] -= counts["flash_attention_split_d64"]
+    # the split wrapper's count, less what flash_hopper.cu and flash_mid.cu
+    # ran of it; K1's, less what ran on flash_mid.cu's core
+    counts["flash_attention_split"] -= counts["flash_attention_split_d64"] + \
+        counts["flash_attention_split_mid"]
+    counts["fused_qkv_attention"] -= counts["fused_qkv_attention_mid"]
+    _finish_records(records)
     sources = {
         "chacha20": ("gswm_torch/csrc/chacha20.cu",
                      "gswm/core/chacha.py:158"),
@@ -2550,10 +2675,21 @@ def main() -> None:
                                           "gswm/ops/attention.py:414"),
         "flash_attention_split_lse": ("gswm_torch/csrc/flash_split.cu",
                                       "gswm/ops/attention.py:414"),
+        # 64 < d <= 160: K1's core (after fused_qkv.cu's GEMM), K4 and K4
+        # with lse
+        "fused_qkv_attention_mid": ("gswm_torch/csrc/flash_mid.cu",
+                                    "gswm/ops/attention.py:689"),
+        "flash_attention_split_mid": ("gswm_torch/csrc/flash_mid.cu",
+                                      "gswm/ops/attention.py:414"),
+        "flash_attention_split_lse_mid": ("gswm_torch/csrc/flash_mid.cu",
+                                          "gswm/ops/attention.py:414"),
     }
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=counts[name], **records[name])
                for name, (src, rep) in sources.items()]
+    idle = [k["name"] for k in kernels if k["launches"] < 1]
+    if idle:
+        raise AssertionError(f"kernels no path launched: {idle}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,7 @@
 // The launchers the flash-attention sources call across files: the split
 // launcher (flash_split.cu), which the fused-qkv kernel (fused_qkv.cu)
-// launches after its projections, and the d <= 64 launcher (flash_hopper.cu)
-// it dispatches to.
+// launches after its projections, and the launchers it dispatches to:
+// d <= 64 (flash_hopper.cu) and 64 < d <= 160 (flash_mid.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -26,3 +26,10 @@ cudaError_t gswm_launch_flash_hopper(const __nv_bfloat16* q, const __nv_bfloat16
                                      int B, int Sq, int Sk, int H, int d, int ld_q,
                                      int ld_kv, int ld_o, cudaStream_t stream,
                                      float* lse = nullptr);
+
+// The same function at head dim d with 64 < d <= 160 (d % 8 == 0), the
+// arguments as gswm_launch_flash_hopper's.
+cudaError_t gswm_launch_flash_mid(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                                  const __nv_bfloat16* v, __nv_bfloat16* out, int B,
+                                  int Sq, int Sk, int H, int d, int ld_q, int ld_kv,
+                                  int ld_o, cudaStream_t stream, float* lse = nullptr);

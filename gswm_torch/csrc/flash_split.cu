@@ -1,9 +1,9 @@
 // Split flash attention on (B, S, H, d) bf16 q/k/v, any head dim d with
-// d % 8 == 0 up to 512, any Sq and Sk.  d <= 64 goes to the kernel of
-// flash_hopper.cu; the kernel in this file runs 64 < d <= 512 on wgmma, TMA
-// and mbarriers, instantiated at the panel widths D = 128 ... 512 (D = d
-// rounded up to a multiple of 64: d = 80 runs the 128-wide kernel, 160 the
-// 192-wide one).
+// d % 8 == 0 up to 512, any Sq and Sk.  d <= 64 goes to the kernels of
+// flash_hopper.cu, 64 < d <= 160 (SD 1.x's 80 and 160) to flash_mid.cu's;
+// the kernel in this file runs 160 < d <= 512 on wgmma, TMA and mbarriers,
+// instantiated at the panel widths D = 192 ... 512 (D = d rounded up to a
+// multiple of 64).
 //
 // Replaces gswm/ops/attention.py:414 flash_attention -> _flash_bhsd (:250),
 // whose three Pallas tiers (_flash_kernel :212 head-resident,
@@ -11,8 +11,7 @@
 // streaming K/V) are VMEM-fit choices of one computation.  Its user on the
 // port's path is the VAE mid-block attention above 4096 tokens: one head with
 // D = C = 512 over 9216 tokens at 768x768, in the encoder and the decoder
-// (gswm/models/layers.py:692-725), and the core of SD 1.x's fused-qkv
-// self-attention (fused_qkv.cu) at d = 80 and 160.  The JAX wrapper transposes to
+// (gswm/models/layers.py:692-725).  The JAX wrapper transposes to
 // (B*H, S, D) and pads to its blocks; here q/k/v are read strided in their
 // natural layout, ragged keys are masked and ragged query rows dropped.
 //
@@ -45,7 +44,7 @@
 //     maps are (d, H, S, B) over the true head width and panel j is the box
 //     at x = 64 j, so a tile never crosses into the next batch or head, rows
 //     past S arrive as zeros, and so do the columns from d to D (the last
-//     panel of d = 80 holds 16 real columns, of d = 160 32).  Zero columns
+//     panel of d = 168 holds 40 real columns).  Zero columns
 //     add nothing to the logits and give zero output columns, which the
 //     store drops.  A transaction still counts the whole box.
 //   * The scale d^-0.5 (the true d, not the panel width) is no power of two
@@ -69,8 +68,8 @@
 //     t + 1 under the logits of tile t + 1.
 //   * The output goes, normalised and rounded, through the q tile's panels
 //     and one TMA store per panel, which drops rows at or past Sq.
-// The log-sum-exp variant (gswm_flash_split_lse, every d this file and
-// flash_hopper.cu take): a template flag adds, after the output tile is
+// The log-sum-exp variant (gswm_flash_split_lse, every d this file,
+// flash_hopper.cu and flash_mid.cu take): a template flag adds, after the output tile is
 // written, the store of each row's lse = m * c * ln 2 + ln l (hopper.cuh
 // store_lse) into an fp32 (B, H, Sq) array, masked past Sq by hand since no
 // TMA store drops those rows.  Sequence-parallel ring attention
@@ -100,11 +99,12 @@ constexpr int CONSUMERS = 2;
 constexpr int THREADS = (1 + CONSUMERS) * 128;
 constexpr int SMEM_LIMIT = 232448;  // the 227 KB a block may opt into
 constexpr int MAX_STAGES = 4;
+constexpr int MID_MAX_D = 160;  // the widest head flash_mid.cu takes
 
 template <int D>
 struct Tile {
-  static_assert(D % 64 == 0 && D >= 128 && D <= 512,
-                "the panel width D is a multiple of 64, 128 to 512");
+  static_assert(D % 64 == 0 && D >= 192 && D <= 512,
+                "the panel width D is a multiple of 64, 192 to 512");
   static constexpr int NP = D / 64;          // panels of a row
   static constexpr int NP0 = (NP + 1) / 2;   // consumer 0's; consumer 1 takes the rest
   static constexpr int ELEMS = NP * PANEL;   // a 64-row tile of q, k or v
@@ -340,9 +340,11 @@ cudaError_t gswm_launch_flash_split(const bf16* q, const bf16* k, const bf16* v,
   if (D <= ROW_ELEMS)
     return gswm_launch_flash_hopper(q, k, v, out, B, Sq, Sk, H, D, H * D, H * D, H * D,
                                     stream, lse);
+  if (D <= MID_MAX_D)
+    return gswm_launch_flash_mid(q, k, v, out, B, Sq, Sk, H, D, H * D, H * D, H * D,
+                                 stream, lse);
   // the panel width: D rounded up to a multiple of 64
   switch ((D + ROW_ELEMS - 1) / ROW_ELEMS * ROW_ELEMS) {
-    case 128: return launch<128>(q, k, v, out, B, Sq, Sk, H, D, stream, lse);
     case 192: return launch<192>(q, k, v, out, B, Sq, Sk, H, D, stream, lse);
     case 256: return launch<256>(q, k, v, out, B, Sq, Sk, H, D, stream, lse);
     case 320: return launch<320>(q, k, v, out, B, Sq, Sk, H, D, stream, lse);

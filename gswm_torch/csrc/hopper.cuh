@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the projection GEMM
 // (fused_qkv.cu) and the flash attention kernels (flash_hopper.cu at d <= 64,
-// flash_split.cu from 72 to 512, flash_transposed.cu on the transposed
+// flash_mid.cu from 72 to 160, flash_split.cu from 168 to 512,
+// flash_transposed.cu on the transposed
 // layout): the TMA tensor-map encoder on the host; mbarrier, TMA load/store,
 // wgmma and setmaxnreg wrappers on the device; and the flash kernels' common
 // steps on a warpgroup's accumulator fragment (online softmax, rescale,
@@ -407,6 +408,47 @@ static __device__ __forceinline__ void wgmma_m64n48k16_rs(float (&d)[24],
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d (64 x 32 fp32) += a (64 x 16 bf16, registers) * b (16 x 32 bf16, shared,
+// MN-major: the first 32 columns of each 128-byte swizzled row), one
+// warpgroup; the accumulator layout above with 4 column groups.
+static __device__ __forceinline__ void wgmma_m64n32k16_rs(float (&d)[16],
+                                                          const uint32_t (&a)[4],
+                                                          uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d (64 x 16 fp32) += a (64 x 16 bf16, registers) * b (16 x 16 bf16, shared,
+// MN-major: the first 16 columns of each 128-byte swizzled row), one
+// warpgroup; the accumulator layout above with 2 column groups.
+static __device__ __forceinline__ void wgmma_m64n16k16_rs(float (&d)[8],
+                                                          const uint32_t (&a)[4],
+                                                          uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 

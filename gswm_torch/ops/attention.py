@@ -1,19 +1,22 @@
 """Self-attention kernels of the PyTorch port, with their plain versions.
 
-Four kernels, hand-written CUDA for Hopper (``gswm_torch/csrc``), all on
+Five kernels, hand-written CUDA for Hopper (``gswm_torch/csrc``), all on
 wgmma + TMA, behind six wrappers; ``route_self_attention`` picks the UNet's
 tier as the JAX package does.  Every layout but the pair-packed one takes
-any head dim d with d % 8 == 0 up to 512 (``kernel_head_dim``): in the
+any head dim d with d % 8 == 0 up to 512 (``kernel_takes_head_dim``): in the
 natural, split and fused-qkv layouts every d <= 64 runs the kernels of
-csrc/flash_hopper.cu (its narrow one at d <= 48), every wider d the kernel
-of csrc/flash_split.cu at d rounded up to a multiple of 64; the transposed
-layout has the same split at 64 in csrc/flash_transposed.cu; the kernels'
-tensor maps zero-fill the columns (transposed: rows) past d (SD 1.x: 40, 80,
-160):
+csrc/flash_hopper.cu (its narrow one at d <= 48), 64 < d <= 160 the kernel
+of csrc/flash_mid.cu (whole 64-column panels and a tail of the last panel's
+columns rounded up to 16), every wider d the kernel of csrc/flash_split.cu
+at d rounded up to a multiple of 64 (``head_dim_kernel``); the transposed
+layout splits at 64 alone, in csrc/flash_transposed.cu
+(``kernel_head_dim``); the kernels' tensor maps zero-fill the columns
+(transposed: rows) past d (SD 1.x: 40, 80, 160):
 
   * ``flash_attention_split`` — split-layout flash attention on
     (B, S, H, D) q/k/v: csrc/flash_hopper.cu up to D = 64,
-    csrc/flash_split.cu (D split across two consumer warpgroups) above.
+    csrc/flash_mid.cu to 160, csrc/flash_split.cu (D split across two
+    consumer warpgroups) above.
     Port of the
     Pallas ``gswm.ops.attention.flash_attention``; serves the VAE mid-block
     attention above 4096 tokens (one head, D = 512) and the UNet's
@@ -97,16 +100,54 @@ def kernel_takes_head_dim(d: int) -> bool:
 
 
 def kernel_head_dim(d: int) -> int:
-    """The panel width the CUDA kernels compute head dim ``d`` at: 64 for
+    """The panel width the transposed layout's kernels compute head dim
+    ``d`` at, and the widest a natural-layout kernel reads it as: 64 for
     d <= 64 (csrc/flash_hopper.cu; the transposed layout's first kernel),
     else d rounded up to a multiple of 64 (the templates of
     csrc/flash_split.cu and of the transposed layout's split kernel, 128
-    ... 512).  Raises ValueError for a d the kernels do not take
+    ... 512; ``head_dim_kernel`` says what the natural, split and fused-qkv
+    layouts run).  Raises ValueError for a d the kernels do not take
     (``kernel_takes_head_dim``)."""
     if not kernel_takes_head_dim(d):
         raise ValueError(f"head dim {d}: the attention kernels take d % 8 == 0, "
                          f"8 <= d <= {KERNEL_MAX_HEAD_DIM}")
     return max(HEAD_DIM, -(-d // 64) * 64)
+
+
+# the widest head of csrc/flash_hopper.cu's narrow kernel, and of
+# csrc/flash_mid.cu's
+NARROW_MAX_HEAD_DIM = 48
+MID_MAX_HEAD_DIM = 160
+
+
+def head_dim_kernel(d: int) -> tuple[str, int, int]:
+    """(kernel, full panels, tail N): the kernel the natural, split and
+    fused-qkv layouts run head dim ``d`` on (``gswm_flash_split``'s dispatch,
+    csrc/flash_split.cu), the 64-column panels whose p v it computes at
+    N = 64, and the width N of its p v on the last panel (0: none past the
+    full ones).  The logits take ceil(d / 16) k16 steps in all, but for
+    flash_split_kernel, which computes whole panels.
+
+      d <= 48        flash_narrow_kernel (csrc/flash_hopper.cu), p v at N = 48
+      48 < d <= 64   flash_hopper_kernel, one panel
+      64 < d <= 160  flash_mid_kernel (csrc/flash_mid.cu): the last panel's
+                     columns rounded up to 16 are its tail, a tail of 64 a
+                     full panel: 72 and 80 one panel and 16, 128 two and 0,
+                     160 two and 32
+      d > 160        flash_split_kernel (csrc/flash_split.cu), whole panels of
+                     ``kernel_head_dim``
+
+    Raises ValueError for a d the kernels do not take."""
+    width = kernel_head_dim(d)
+    if d <= NARROW_MAX_HEAD_DIM:
+        return "flash_narrow_kernel", 0, NARROW_MAX_HEAD_DIM
+    if d <= HEAD_DIM:
+        return "flash_hopper_kernel", 1, 0
+    if d <= MID_MAX_HEAD_DIM:
+        before = (d - 1) // 64  # the panels before the last
+        tail = -(-(d - 64 * before) // 16) * 16 % 64
+        return "flash_mid_kernel", before + (tail == 0), tail
+    return "flash_split_kernel", width // 64, 0
 
 
 def _count(wrapper, d: int) -> None:
@@ -235,9 +276,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     heads: int) -> torch.Tensor:
     """(B, S, H*D) q/k/v -> (B, S, H*D) self-attention output.
 
-    CPU: ``flash_attention_reference``.  CUDA: the kernel of
-    csrc/flash_hopper.cu (D <= 64) or csrc/flash_split.cu on the (B, S, H, D)
-    view (bf16, any S, D as ``kernel_head_dim`` takes it)."""
+    CPU: ``flash_attention_reference``.  CUDA: the kernel
+    ``head_dim_kernel`` names (csrc/flash_hopper.cu, flash_mid.cu or
+    flash_split.cu) on the (B, S, H, D) view (bf16, any S, any D
+    ``kernel_takes_head_dim`` takes)."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, heads)
     if q.device.type != "cuda":
@@ -323,9 +365,9 @@ def fused_qkv_attention(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
     """(B, S, C) x and bias-free (H*D, C) q/k/v weights -> (B, S, H*D).
 
     CPU: ``fused_qkv_attention_reference``.  CUDA: the projection GEMM of
-    csrc/fused_qkv.cu, then the kernel of csrc/flash_hopper.cu (D <= 64) or
-    csrc/flash_split.cu (bf16, C and H*D multiples of 64, D as
-    ``kernel_head_dim`` takes it)."""
+    csrc/fused_qkv.cu, then the kernel ``head_dim_kernel`` names
+    (csrc/flash_hopper.cu, flash_mid.cu or flash_split.cu; bf16, C and H*D
+    multiples of 64, any D ``kernel_takes_head_dim`` takes)."""
     if x.device.type == "cpu":
         return fused_qkv_attention_reference(x, wq, wk, wv, heads)
     inner = wq.shape[0]
@@ -388,9 +430,10 @@ def flash_attention_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``flash_attention`` is the natural-layout wrapper).  Below
     ``SPLIT_MIN_KEYS`` keys: the reference's einsum path (matmul in the input dtype, softmax in
     fp32, probabilities cast back; lse of the same fp32 logits).  Otherwise
-    CPU: the plain versions; CUDA: the kernel of csrc/flash_hopper.cu up to
-    D = 64 and of csrc/flash_split.cu above (bf16, D as ``kernel_head_dim``
-    takes it, any Sq and Sk), ``gswm_flash_split_lse`` with ``return_lse``.
+    CPU: the plain versions; CUDA: the kernel ``head_dim_kernel`` names
+    (csrc/flash_hopper.cu up to D = 64, flash_mid.cu to 160, flash_split.cu
+    above; bf16, any D ``kernel_takes_head_dim`` takes, any Sq and Sk),
+    ``gswm_flash_split_lse`` with ``return_lse``.
     Launches with lse count in ``flash_attention_split.lse_launches`` (and
     ``lse_launches_by_d``), the others in ``launches``."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape or \

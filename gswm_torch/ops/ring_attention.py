@@ -9,8 +9,8 @@ every query shard has seen every key.
 The JAX package runs each step's attention as plain XLA (an einsum with the
 online-softmax recurrence, ``_ring_attend_local``); the port runs it through
 the split flash kernel with its log-sum-exp output (``flash_attention_split``
-with ``return_lse``: csrc/flash_hopper.cu at d <= 64, csrc/flash_split.cu
-above) and folds each step's normalised partial into a running fp32
+with ``return_lse``: csrc/flash_hopper.cu at d <= 64, csrc/flash_mid.cu to
+160, csrc/flash_split.cu above) and folds each step's normalised partial into a running fp32
 ``(out, lse)``:
 
     lse' = logaddexp(lse, lse_i)

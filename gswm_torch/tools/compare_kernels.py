@@ -35,7 +35,27 @@ entry points on the same tensors, so nothing but the kernels differs:
 ``--match`` keeps only the attention cases whose label holds TEXT (say
 ``"K2 (4, 4096, 8, "`` for K2 at SD 1.x's level 0 and the narrow widths).
 ``--require-equal`` fails unless every attention case's two outputs are
-equal bit for bit (a change that must leave the kernels' results alone).
+equal bit for bit (a change that must leave the kernels' results alone);
+``--except-head-dims LO-HI`` exempts the cases whose head dim lies in
+[LO, HI] (the widths a change hands to a new kernel), whose difference is
+printed all the same.
+
+Where the device time goes, apart from the walls above (``torch.profiler``,
+the kernels of one call by name):
+
+  * fused-qkv at every K1 shape: each side's GEMM (``qkv_proj_kernel``) and
+    attention core (``chip_smoke.py`` phase 2 puts the library's pair beside
+    them: this package times no library attention);
+  * the split kernel with its log-sum-exp output (``--cases lse``) at
+    ``LSE_SHAPES``: both sides in turns, each side's device time with lse
+    and without, this checkout's wrapper with ``return_lse`` and without in
+    turns, and the host time of the lse's ``torch.empty``;
+  * the sd-1-4 UNet forward (``--cases sd14``; 512x512, batch 4 and 8, the
+    random weights of ``paths``' seed, 8 heads of 40, 80 and 160): one
+    pipeline, each side's kernel library swapped in under the same modules,
+    in turns; the device time a forward (the sum of its kernels' times) and
+    its CUDA-event time.
+
 Prints a line per case and, last, one JSON object; ``--out`` also writes it.
 """
 
@@ -56,15 +76,20 @@ from gswm_torch.tools import paths
 
 ROUNDS = ("parent", "change", "change", "parent")
 # the shapes of chip_smoke.py's phase 2 (gswm_torch/tools/paths.py)
-FLASH_SHAPES = tuple(case for case in (  # (label, B, Sq, Sk, H, D)
+FLASH_SHAPES = (  # (label, B, Sq, Sk, H, D)
     *((f"K2 ({b}, {s}, {h}, {d})", b, s, s, h, d) for b, s, h, d in paths.K2_SHAPES),
     *((f"K4 ({b}, {s}, {h}, {d})", b, s, s, h, d) for b, s, h, d in paths.K4_SHAPES),
     *((f"K1 core ({b}, {s}, {h}, {d})", b, s, s, h, d)
-      for b, s, _, h, d in paths.K1_SHAPES)) if case[-1] <= 64 or case[-1] % 64 == 0)
+      for b, s, _, h, d in paths.K1_SHAPES))
 PACKED_SHAPES = tuple((b, s, paths.pairs_of(h))  # (B, S, P)
                       for b, s, h in paths.LEVEL0_SHAPES)
 TRANSPOSED_SHAPES = paths.K7_SHAPES  # (B, S, H, D)
-K1_SHAPES = tuple(shape for shape in paths.K1_SHAPES if shape[-1] == 64)  # (B, S, C, H, D)
+K1_SHAPES = paths.K1_SHAPES  # (B, S, C, H, D)
+# K4 with its log-sum-exp output (B, S, H, D): phase 12a's full-width shapes
+# and their S / LSE_SHARDS query shards, and phase 2's
+LSE_SHAPES = (*paths.LSE_SHAPES,
+              *((b, s // paths.LSE_SHARDS, h, d) for b, s, h, d in paths.LSE_SHAPES),
+              *paths.K4_LSE_SHAPES)
 
 
 def load_parent(root: Path):
@@ -112,10 +137,10 @@ def in_turns(fns: dict, iters: int) -> dict:
     return out
 
 
-def device_ms(fn, iters: int, name_part: str) -> float:
-    """Device time per call of the kernels whose name holds ``name_part``.
-    The calls stand well inside the profiler's window, which drops a device
-    event that its clock mapping puts a moment outside."""
+def device_times(fn, iters: int) -> dict:
+    """Device time per call of each kernel ``fn`` launches, by kernel name,
+    in ms.  The calls stand well inside the profiler's window, which drops
+    a device event that its clock mapping puts a moment outside."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -129,13 +154,18 @@ def device_ms(fn, iters: int, name_part: str) -> float:
     # per kernel name, its mean time by the events that were kept, times its
     # launches a call: the profiler drops some events, so their count, not
     # iters, divides the sum
-    events = [e for e in prof.key_averages()
-              if e.device_type.name == "CUDA" and name_part in e.key
-              and e.self_device_time_total > 0]
-    if not events:
-        raise RuntimeError(f"the profiler saw no device time for {name_part}")
-    return sum(e.self_device_time_total / e.count * max(1, round(e.count / iters))
-               for e in events) / 1e3
+    return {e.key: e.self_device_time_total / e.count * max(1, round(e.count / iters)) / 1e3
+            for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and e.self_device_time_total > 0}
+
+
+def device_ms(fn, iters: int, name_part: str = "") -> float:
+    """Device time per call of the kernels whose name holds ``name_part``
+    (every kernel of ``fn`` by default), in ms."""
+    times = [ms for name, ms in device_times(fn, iters).items() if name_part in name]
+    if not times:
+        raise RuntimeError(f"the profiler saw no device time for {name_part!r}")
+    return sum(times)
 
 
 def host_us(fn, calls: int = 2000) -> float:
@@ -274,15 +304,19 @@ def main() -> None:
     ap.add_argument("--parent", required=True, type=Path)
     ap.add_argument("--out", type=Path)
     ap.add_argument("--iters", type=int, default=20)
-    ap.add_argument("--cases", default="attention,k8,k3",
-                    help="which of attention, k8, k3 to time (comma-separated)")
+    ap.add_argument("--cases", default="attention,lse,k8,k3",
+                    help="which of attention, lse, k8, k3, sd14 to time (comma-separated)")
     ap.add_argument("--match", default="",
                     help="time only the attention cases whose label holds this")
     ap.add_argument("--require-equal", action="store_true",
                     help="fail unless every attention output equals the parent's")
+    ap.add_argument("--except-head-dims", default="",
+                    help="LO-HI: --require-equal skips the cases at these head dims")
     args = ap.parse_args()
     cases = set(args.cases.split(","))
-    if not cases or cases - {"attention", "k8", "k3"}:
+    lo, hi = map(int, args.except_head_dims.split("-")) if args.except_head_dims \
+        else (1, 0)
+    if not cases or cases - {"attention", "lse", "k8", "k3", "sd14"}:
         raise SystemExit(f"compare_kernels: unknown cases {args.cases!r}")
     if not torch.cuda.is_available():
         raise SystemExit("compare_kernels: no CUDA device")
@@ -300,23 +334,30 @@ def main() -> None:
         return (torch.randn(shape, generator=g, device=dev) * scale).bfloat16()
 
     result = {"card": card, "rounds": list(ROUNDS)}
+    if "sd14" in cases:  # first, while the process and its profiler are young
+        result["sd14"] = compare_sd14(libs, args.iters)
     if "k8" in cases:
         result["group_norm"] = compare_group_norm(parent_gn, args.iters)
     if "k3" in cases:
         result["chacha"] = compare_chacha(parent_chacha, args.iters)
     if "attention" in cases:
         result.update(compare_attention(libs, rand, stream, args.iters, args.match))
+    if "lse" in cases:
+        result["lse"] = compare_lse(libs, rand, stream, args.iters, args.match)
     print(json.dumps(result))
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(result, indent=1))
     if args.require_equal:
-        differ = [case for key in ("flash", "packed", "transposed", "fused_qkv")
-                  for case in result.get(key, []) if case["max_abs_diff"] != 0.0]
+        held = [case for key in ("flash", "packed", "transposed", "fused_qkv", "lse")
+                for case in result.get(key, []) if not lo <= case["head_dim"] <= hi]
+        differ = [case for case in held
+                  if case["max_abs_diff"] != 0.0 or case.get("lse_max_abs_diff", 0.0) != 0.0]
         if differ:
             raise SystemExit(f"compare_kernels: {len(differ)} attention cases differ from "
                              f"the parent's: {[c.get('label', c['shape']) for c in differ]}")
-        print("every attention output equals the parent's, bit for bit", flush=True)
+        print(f"all {len(held)} attention outputs held equal the parent's, bit for bit"
+              + (f" (head dims {lo}-{hi} exempt)" if lo <= hi else ""), flush=True)
 
 
 def compare_attention(libs: dict, rand, stream: int, iters: int, match: str = "") -> dict:
@@ -339,7 +380,7 @@ def compare_attention(libs: dict, rand, stream: int, iters: int, match: str = ""
         print(f"flash {label}: parent {t['parent']} change {t['change']} ms, "
               f"{ratio:.2f}x, bound {bound:.4f} ms by {roof}, max|parent - change| "
               f"{diff:.5f}", flush=True)
-        result["flash"].append(dict(label=label, shape=[b, sq, sk, h, d], **t,
+        result["flash"].append(dict(label=label, shape=[b, sq, sk, h, d], head_dim=d, **t,
                                     ratio=ratio, bound_ms=bound, roof=roof,
                                     max_abs_diff=diff))
     for b, s, pairs in PACKED_SHAPES:
@@ -356,7 +397,7 @@ def compare_attention(libs: dict, rand, stream: int, iters: int, match: str = ""
         print(f"packed (B={b}, S={s}, P={pairs}): parent {t['parent']} change "
               f"{t['change']} ms, {ratio:.2f}x, max|parent - change| {diff:.5f}",
               flush=True)
-        result["packed"].append(dict(shape=[b, s, pairs], **t, ratio=ratio,
+        result["packed"].append(dict(shape=[b, s, pairs], head_dim=64, **t, ratio=ratio,
                                      max_abs_diff=diff))
     # (B, S, H[, D]): a library built before K7 took the head dim declares
     # one int fewer and takes D = 64 alone
@@ -381,10 +422,11 @@ def compare_attention(libs: dict, rand, stream: int, iters: int, match: str = ""
         print(f"transposed (B={b}, S={s}, H={h}, D={d}): parent {t['parent']} change "
               f"{t['change']} ms, {ratio:.2f}x, bound {bound:.4f} ms by {roof}, "
               f"max|parent - change| {diff:.5f}", flush=True)
-        result["transposed"].append(dict(shape=[b, s, h, d], **t, ratio=ratio,
+        result["transposed"].append(dict(shape=[b, s, h, d], head_dim=d, **t, ratio=ratio,
                                          bound_ms=bound, roof=roof, max_abs_diff=diff))
     for b, s, c, h, d in K1_SHAPES:
-        if match not in f"fused_qkv (B={b}, S={s}, C={c}, H={h})":
+        label = f"fused_qkv (B={b}, S={s}, C={c}, H={h}, D={d})"
+        if match not in label:
             continue
         n = h * d
         x = rand(b, s, c)
@@ -394,22 +436,34 @@ def compare_attention(libs: dict, rand, stream: int, iters: int, match: str = ""
         # argument declares one int fewer
         dims = {side: (b, s, c, h, d)[:len(libs[side].lib.gswm_fused_qkv_attn.argtypes) - 9]
                 for side in libs}
+        if d != 64 and any(len(dm) < 5 for dm in dims.values()):
+            print(f"{label}: skipped, a side takes D = 64 alone", flush=True)
+            continue
         fns = {side: (lambda side=side: libs[side].call(
             "gswm_fused_qkv_attn", x.data_ptr(), *(w.data_ptr() for w in ws),
             *(t.data_ptr() for t in bufs[side]), *dims[side], stream)) for side in libs}
         t = in_turns(fns, iters)
+        # device time a call: the GEMM, and the rest (the attention core)
         gemm = {side: [] for side in libs}
+        core = {side: [] for side in libs}
         for side in ROUNDS:
-            gemm[side].append(device_ms(fns[side], iters, "qkv_proj_kernel"))
+            times = device_times(fns[side], iters)
+            g = sum(ms for name, ms in times.items() if "qkv_proj_kernel" in name)
+            gemm[side].append(g)
+            core[side].append(sum(times.values()) - g)
         diff = (bufs["parent"][3].float() - bufs["change"][3].float()).abs().max().item()
         bound, _ = roofline.bound_ms(*roofline.projection_cost(b * s, c, n),
                                      roofline.PEAK_BF16)
-        print(f"fused_qkv (B={b}, S={s}, C={c}, H={h}): parent {t['parent']} change "
-              f"{t['change']} ms; GEMM alone, device: parent {gemm['parent']} change "
-              f"{gemm['change']} ms, bound {bound:.4f} ms; max|parent - change| "
+        core_bound, core_roof = roofline.attention_bound_ms(
+            roofline.attention_cost(b, s, s, h, d))
+        print(f"{label}: parent {t['parent']} change {t['change']} ms; device a call: "
+              f"GEMM parent {gemm['parent']} change {gemm['change']} ms (bound "
+              f"{bound:.4f}), core parent {core['parent']} change {core['change']} ms "
+              f"(bound {core_bound:.4f} by {core_roof}); max|parent - change| "
               f"{diff:.5f}", flush=True)
         result["fused_qkv"].append(dict(
-            shape=[b, s, c, h], **t, gemm_device_ms=gemm, gemm_bound_ms=bound,
+            label=label, shape=[b, s, c, h, d], head_dim=d, **t, gemm_device_ms=gemm,
+            gemm_bound_ms=bound, core_device_ms=core, core_bound_ms=core_bound,
             max_abs_diff=diff))
     # one 64-row, one 128-key tile: the launcher's host time
     q, k, v = (rand(1, 64, 1, 64) for _ in range(3))
@@ -421,6 +475,86 @@ def compare_attention(libs: dict, rand, stream: int, iters: int, match: str = ""
         result["host_us"].setdefault(side, []).append(us)
     print(f"host time per flash launcher call, us: {result['host_us']}", flush=True)
     return result
+
+
+def compare_sd14(libs: dict, iters: int) -> list:
+    """The sd-1-4 UNet forward at batch 4 and 8 (guidance), each side's
+    kernel library swapped in as the one the wrappers call."""
+    pipe = paths.build_pipeline("sd-1-4")
+    out = []
+    for batch in (paths.BATCH_SD14, 2 * paths.BATCH_SD14):
+        inputs = paths.unet_inputs(pipe, batch, res=paths.RES_512)
+
+        def forward():
+            with torch.inference_mode():
+                return pipe.unet(*inputs)
+
+        wall = {side: [] for side in libs}
+        device = {side: [] for side in libs}
+        for side in ROUNDS:
+            native._LIBRARY = libs[side]
+            wall[side].append(time_ms(forward, iters))
+            device[side].append(sum(device_times(forward, iters).values()))
+        native._LIBRARY = libs["change"]
+        print(f"sd-1-4 UNet forward, batch {batch}, 512x512: device parent {device['parent']} "
+              f"change {device['change']} ms; CUDA events parent {wall['parent']} change "
+              f"{wall['change']} ms", flush=True)
+        out.append(dict(batch=batch, device_ms=device, ms=wall))
+    del pipe
+    torch.cuda.empty_cache()
+    return out
+
+
+def compare_lse(libs: dict, rand, stream: int, iters: int, match: str = "") -> list:
+    """The split kernel with its log-sum-exp output at ``LSE_SHAPES``, only
+    the cases whose label holds ``match``."""
+    from gswm_torch.ops import attention as attn
+
+    out_cases = []
+    for b, s, h, d in LSE_SHAPES:
+        label = f"K4 lse ({b}, {s}, {h}, {d})"
+        if match not in label:
+            continue
+        q, k, v = (rand(b, s, h, d) for _ in range(3))
+        outs = {side: torch.empty_like(q) for side in libs}
+        lses = {side: torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+                for side in libs}
+        with_lse = {side: (lambda side=side: libs[side].call(
+            "gswm_flash_split_lse", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            outs[side].data_ptr(), lses[side].data_ptr(), b, s, s, h, d, stream))
+            for side in libs}
+        without = {side: (lambda side=side: libs[side].call(
+            "gswm_flash_split", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            outs[side].data_ptr(), b, s, s, h, d, stream)) for side in libs}
+        t = in_turns(with_lse, iters)
+        device = {side: dict(lse=device_ms(with_lse[side], iters),
+                             no_lse=device_ms(without[side], iters)) for side in libs}
+        for side in libs:
+            with_lse[side]()
+        diff = (outs["parent"].float() - outs["change"].float()).abs().max().item()
+        lse_diff = (lses["parent"] - lses["change"]).abs().max().item()
+        case = dict(label=label, shape=[b, s, h, d], head_dim=d, **t, device_ms=device,
+                    max_abs_diff=diff, lse_max_abs_diff=lse_diff)
+        if s >= attn.SPLIT_MIN_KEYS:  # below, the wrapper takes its einsum branch
+            wrap = {True: [], False: []}
+            for on in (True, False, False, True):
+                wrap[on].append(time_ms(
+                    lambda on=on: attn.flash_attention_split(q, k, v, return_lse=on), iters))
+            case["wrapper_ms"] = dict(lse=wrap[True], no_lse=wrap[False])
+        case["lse_empty_us"] = host_us(
+            lambda: torch.empty((b, h, s), dtype=torch.float32, device=q.device))
+        bound, roof = roofline.attention_bound_ms(
+            roofline.attention_cost(b, s, s, h, d, lse=True))
+        case.update(bound_ms=bound, roof=roof)
+        print(f"{label}: parent {t['parent']} change {t['change']} ms; device, lse / "
+              f"without: parent {device['parent']['lse']:.4f} / "
+              f"{device['parent']['no_lse']:.4f}, change {device['change']['lse']:.4f} / "
+              f"{device['change']['no_lse']:.4f} ms; wrapper lse / without "
+              f"{case.get('wrapper_ms')}; torch.empty of the lse "
+              f"{case['lse_empty_us']:.2f} us; bound {bound:.4f} ms by {roof}; "
+              f"max|parent - change| {diff:.5f}, lse {lse_diff:.6f}", flush=True)
+        out_cases.append(case)
+    return out_cases
 
 
 if __name__ == "__main__":

@@ -83,12 +83,23 @@ K2_SHAPES = ((2, 4096, 5, 64), (2, 9216, 5, 64), (4, 9216, 5, 64), (2, 4096, 10,
 # multi-head D = 64 shape, two ragged multi-head shapes of the widths
 # between: D = 128, and 192 whose three 64-column panels split 2 + 1; the
 # VAE mid attention at 1024x1024 (16,384 tokens); SD 1.x's level 1 under
-# GSWM_FUSED_QKV=0 (8 heads of 80), a ragged 160 (the 192-wide kernel, its
-# third panel half zeros) and a width no SD model uses, 72
+# GSWM_FUSED_QKV=0 (8 heads of 80, batch 4 and 8), a ragged 160, and
+# widths no SD model uses, 72, 96 and 144 (csrc/flash_mid.cu at
+# 64 < D <= 160: one full panel and a tail of 16 or 32 columns, two and
+# 16); SD 1.x's levels 1 and 2 as K1's core sees them: 256 tokens of 160,
+# batch 4 and 8 (below the split wrapper's 512 keys, so phase 2 reaches
+# the kernel through the natural-layout wrapper)
 K4_SHAPES = ((1, 9216, 1, 512), (2, 9216, 1, 512), (2, 1000, 10, 64),
              (2, 1000, 3, 128), (1, 1000, 2, 192),
              (1, 16384, 1, 512), (2, 16384, 1, 512),
-             (4, 1024, 8, 80), (1, 1000, 2, 160), (2, 1000, 3, 72))
+             (4, 1024, 8, 80), (8, 1024, 8, 80), (1, 1000, 2, 160),
+             (4, 256, 8, 160), (8, 256, 8, 160),
+             (2, 1000, 3, 72), (2, 1000, 3, 96), (2, 1000, 3, 144))
+# K4 with its log-sum-exp output in phase 2 (phase 12a has its own,
+# LSE_SHAPES below): csrc/flash_mid.cu's widths at SD 1.x's shapes and the
+# ragged ones above
+K4_LSE_SHAPES = ((8, 1024, 8, 80), (4, 256, 8, 160), (8, 256, 8, 160),
+                 (2, 1000, 3, 72), (2, 1000, 3, 96), (2, 1000, 3, 144))
 # K3 (ChaCha20 blocks of one key): one 64x64x4, 96x96x4 and 128x128x4
 # latent of bits (512x512, 768x768, 1024x1024), and 2^20 blocks
 K3_BLOCKS = (32, 72, 128, 2**20)

@@ -55,10 +55,13 @@ def test_fused_qkv_reference_matches_jax_kernel(b, s, c, h, d):
     np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
 
 
-@pytest.mark.parametrize("c,d", [(640, 80), (1280, 160)])
+@pytest.mark.parametrize("c,d", [(640, 80), (1280, 160),
+                                 # csrc/flash_mid.cu's other tails: 32, 48, 0, 16
+                                 (768, 96), (896, 112), (1024, 128), (1152, 144)])
 def test_fused_qkv_reference_matches_jax_kernel_at_sd14_head_dims(c, d):
     """SD 1.x's levels 1 and 2 (256 tokens of 640 channels, 8 heads of 80;
-    of 1280, 8 heads of 160) in bf16, where the Pallas kernel's VMEM gate
+    of 1280, 8 heads of 160), and 8 heads of the other widths of the
+    64 < d <= 160 kernel, in bf16, where the Pallas kernel's VMEM gate
     admits them (fused_qkv_attention_fits), in interpret mode.  C^-0.5-scale
     weights keep q, k and v ~N(0, 1) and the logits far below the TPU
     path's clamp at 60; the kernel rounds q, k, v and p to bf16, the plain
@@ -109,8 +112,9 @@ def test_flash_reference_matches_xla_flash_at_sd14_head_dims(b, s, h, d):
                                      (72, 128), (80, 128), (128, 128), (136, 192),
                                      (160, 192), (320, 320), (504, 512), (512, 512)])
 def test_kernel_head_dim_takes_multiples_of_8_up_to_512(d, width):
-    """The panel width the kernels compute a head dim at: one 64-column
-    panel up to 64 (flash_hopper.cu), whole panels above (flash_split.cu)."""
+    """The panel width the transposed layout's kernels compute a head dim
+    at: one 64-column panel up to 64, whole panels above (flash_transposed.cu
+    as flash_split.cu; ``head_dim_kernel`` below for the other layouts)."""
     assert attn.kernel_head_dim(d) == width
 
 
@@ -118,6 +122,35 @@ def test_kernel_head_dim_takes_multiples_of_8_up_to_512(d, width):
 def test_kernel_head_dim_refuses_the_rest(d):
     with pytest.raises(ValueError, match="d % 8 == 0"):
         attn.kernel_head_dim(d)
+    with pytest.raises(ValueError, match="d % 8 == 0"):
+        attn.head_dim_kernel(d)
+
+
+# csrc/flash_mid.cu's widths: (full 64-column panels, tail N of the p v on
+# the last panel)
+MID_PANELS = {72: (1, 16), 80: (1, 16), 88: (1, 32), 96: (1, 32), 104: (1, 48),
+              112: (1, 48), 120: (2, 0), 128: (2, 0), 136: (2, 16), 144: (2, 16),
+              152: (2, 32), 160: (2, 32)}
+
+
+@pytest.mark.parametrize("d", range(8, 513, 8))
+def test_head_dim_kernel_rule(d):
+    """The kernel the natural, split and fused-qkv layouts run a head dim on
+    (csrc/flash_split.cu's dispatch), its full panels and its p v's tail N:
+    flash_hopper.cu's narrow kernel (N = 48) and its d <= 64 one, as before;
+    flash_mid.cu at 64 < d <= 160, whose tail is the last panel's columns
+    rounded up to 16, so it computes fewer than 16 columns past d; and
+    flash_split.cu's whole panels above, as before."""
+    kernel, full, tail = attn.head_dim_kernel(d)
+    if d <= 48:
+        assert (kernel, full, tail) == ("flash_narrow_kernel", 0, 48)
+    elif d <= 64:
+        assert (kernel, full, tail) == ("flash_hopper_kernel", 1, 0)
+    elif d <= 160:
+        assert (kernel, (full, tail)) == ("flash_mid_kernel", MID_PANELS[d])
+        assert 0 <= 64 * full + tail - d < 16 and tail < 64
+    else:
+        assert (kernel, full, tail) == ("flash_split_kernel", attn.kernel_head_dim(d) // 64, 0)
 
 
 def test_exact_softmax_differs_from_clamped_xla_flash_above_60():
@@ -186,6 +219,11 @@ def test_wrappers_reject_other_devices():
     (2, 130, 577, 2, 80),
     (1, 70, 512, 2, 160),
     (1, 100, 600, 3, 72),
+    # csrc/flash_mid.cu's other tails (32, 48, 0, 16) at 8 heads
+    (1, 70, 530, 8, 96),
+    (1, 65, 520, 8, 112),
+    (1, 100, 512, 8, 128),
+    (1, 33, 515, 8, 144),
 ])
 def test_split_matches_jax_flash_attention(b, sq, sk, h, d):
     """fp32, atol/rtol 3e-5 (the bound of tests/test_ops_attention.py:87)."""
@@ -202,6 +240,30 @@ def test_split_matches_jax_flash_attention(b, sq, sk, h, d):
         torch.testing.assert_close(
             got, attn.flash_attention_split_reference(
                 *(torch.from_numpy(t) for t in (q, k, v))), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("d", [80, 96, 112, 128, 144, 160])
+def test_split_lse_matches_jax_flash_attention(d):
+    """``return_lse`` at csrc/flash_mid.cu's widths, 8 heads, Sq != Sk: the
+    output is the JAX flash kernel's (interpret mode; fp32, the bound of
+    ``test_split_matches_jax_flash_attention``), and lse is the JAX
+    package's logits' logsumexp (fp32, atol 1e-5)."""
+    import jax
+
+    b, sq, sk, h = 1, 70, 530, 8
+    q = _rand((b, sq, h, d), 40 + d)
+    k, v = _rand((b, sk, h, d), 41 + d), _rand((b, sk, h, d), 42 + d)
+    jq, jk, jv = (jnp.asarray(t) for t in (q, k, v))
+    want = np.asarray(j_flash_attention(jq, jk, jv, interpret=True))
+    want_lse = np.asarray(jax.nn.logsumexp(
+        jnp.einsum("bqhd,bkhd->bhqk", jq, jk) * d**-0.5, axis=-1))
+    before = attn.flash_attention_split.lse_launches
+    got, lse = attn.flash_attention_split(*(torch.from_numpy(t) for t in (q, k, v)),
+                                          return_lse=True)
+    assert attn.flash_attention_split.lse_launches == before  # CPU: plain version
+    assert lse.shape == (b, h, sq) and lse.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=3e-5, rtol=3e-5)
+    np.testing.assert_allclose(lse.numpy(), want_lse, atol=1e-5, rtol=0)
 
 
 def test_split_exact_softmax_differs_from_clamped_jax_flash_above_60():

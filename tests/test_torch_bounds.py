@@ -169,8 +169,9 @@ def _code(name: str) -> str:
 
 
 def test_split_kernel_is_a_wgmma_and_tma_kernel():
-    """flash_split.cu (K4 from D = 128 up) runs both products on wgmma (the
-    logits from shared memory, p v with p from registers) and moves every tile
+    """flash_split.cu (K4 from D = 192 up; 64 < D <= 160 goes to
+    flash_mid.cu's launcher first) runs both products on wgmma (the logits
+    from shared memory, p v with p from registers) and moves every tile
     through TMA; it holds no mma.sync, ldmatrix or cp.async code."""
     split = _code("flash_split.cu")
     for used in ("wgmma_m64n64k16_ss<0, 0>", "wgmma_m64n64k16_rs(", "tma_load_4d(",
@@ -179,8 +180,35 @@ def test_split_kernel_is_a_wgmma_and_tma_kernel():
     for gone in ("mma_bf16", "mma.sync", "ldmatrix", "cp_async", "cp.async.cg",
                  "__syncthreads();\n    load_tile"):
         assert gone not in split, gone
-    for d in (128, 192, 256, 320, 384, 448, 512):  # every width stays instantiated
+    for d in (192, 256, 320, 384, 448, 512):  # every width above 160 stays instantiated
         assert f"case {d}: return launch<{d}>(" in split
+    assert "case 128:" not in split
+    assert split.index("if (D <= MID_MAX_D)\n    return gswm_launch_flash_mid(") < \
+        split.index("switch ((D + ROW_ELEMS - 1)")
+
+
+def test_mid_kernel_overlaps_its_exponentials_and_pads_no_whole_panel():
+    """flash_mid.cu (64 < d <= 160): the narrow kernel's loop (tile t + 1's
+    logits issued with tile t's p v and retired alone, the exponentials
+    between the two waits, rounded into p after the second, consumer
+    warpgroups in turns, the row sums on the tensor cores), one warpgroup
+    owning a row's every panel (no logits computed twice), ceil(d / 16) k16
+    steps of logits and p v at N = 64 on full panels and at the tail's 16,
+    32 or 48 on the last; every (full panels, tail) of 72 ... 160 has its
+    launch, and nothing in it is mma.sync or cp.async."""
+    mid = _code("flash_mid.cu")
+    kernel = mid.split("flash_mid_kernel(")[1].split("struct Args")[0]
+    for used in ("wgmma_wait<1>()", "named_barrier_arrive(", "wgmma_m64n8k16_rs(l,",
+                 "sm.ones", "kk < M::KS", "pv_tail<TAIL>(", "fence_regs(p)", "softmax_exp<",
+                 "softmax_pack<", "scale_tile(", "store_lse("):
+        assert used in kernel, used
+    assert kernel.index("wgmma_wait<1>()") < kernel.index("softmax_exp<BN / 8>(s, m_lo, m_hi, "
+                                                         "a_lo, a_hi, Sk - (t + 1)")
+    assert "softmax_tile<" not in kernel and "CONSUMERS" not in kernel
+    for n in (16, 32):
+        assert f"wgmma_m64n{n}k16_rs(o, a, dv)" in mid
+    for full, tail in ((1, 16), (1, 32), (1, 48), (2, 0), (2, 16), (2, 32)):
+        assert f"case {100 * full + tail}: return launch<{full}, {tail}>(a, wide);" in mid
 
 
 def test_transposed_kernel_keeps_mma_sync_only_for_unaligned_rows():

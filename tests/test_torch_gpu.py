@@ -93,9 +93,10 @@ def test_fused_qkv_kernel_matches_plain(cuda, b, s, c, h):
                                    (1000, 1000), (9216, 9216)])
 @pytest.mark.parametrize("h,d", [(3, 64), (1, 512), (2, 128), (2, 192)])
 def test_split_kernel_matches_plain(cuda, sq, sk, h, d):
-    """K4 at D = 64, 128, 192 (an odd panel count: the consumers own 2 + 1)
-    and 512: short query lengths, ragged key tails (577 and 1000 keys are not
-    multiples of the 64-key tile) and the VAE's 9216."""
+    """K4 at D = 64, 128 (csrc/flash_mid.cu, two full panels), 192 (an odd
+    panel count: flash_split.cu's consumers own 2 + 1) and 512: short query
+    lengths, ragged key tails (577 and 1000 keys are not multiples of the
+    64-key tile) and the VAE's 9216."""
     assert sk >= attn.SPLIT_MIN_KEYS  # the wrapper's kernel route
     b = 2
     g = torch.Generator(device=cuda).manual_seed(sq + sk + d)
@@ -129,10 +130,11 @@ def test_flash_kernel_tiles_do_not_cross_the_batch(cuda):
 
 @pytest.mark.parametrize("d", [128, 192, 256, 320, 384, 448, 512])
 def test_split_kernel_every_width(cuda, d):
-    """K4 at every width its launcher instantiates: the ring is 4 stages deep
-    at D <= 192, 3 at 256, 2 at 320 and a single k and v buffer from 384 up,
-    and the consumers own equal panel counts or one more and one fewer; 700
-    keys are 11 tiles, so every ring wraps, and the last tile is ragged."""
+    """K4 at every width flash_split.cu's launcher instantiates, and at 128
+    (csrc/flash_mid.cu): the ring is 4 stages deep at D <= 192, 3 at 256, 2
+    at 320 and a single k and v buffer from 384 up, and the consumers own
+    equal panel counts or one more and one fewer; 700 keys are 11 tiles, so
+    every ring wraps, and the last tile is ragged."""
     g = torch.Generator(device=cuda).manual_seed(d)
     q = torch.randn((2, 130, 2, d), generator=g, device=cuda).bfloat16()
     k, v = (torch.randn((2, 700, 2, d), generator=g, device=cuda).bfloat16()
@@ -353,9 +355,9 @@ def test_kernel_wrappers_reject_what_they_do_not_take(cuda):
         attn.flash_attention_split(odd, odd, odd)
 
 
-# Head dims other than 64: flash_hopper.cu below (8, 40), flash_split.cu's
-# 128-wide kernel (72, 80: one whole panel and one of 8 or 16 real columns),
-# its 192-wide one (160: 2 + 1 panels, the third half zeros)
+# Head dims other than 64: flash_hopper.cu below (8, 40), flash_mid.cu above
+# (72, 80: one whole panel and a tail of 16 columns, 8 or 16 of them real;
+# 160: two and a tail of 32)
 HEAD_DIMS = (8, 40, 72, 80, 160)
 
 
@@ -720,6 +722,137 @@ def test_split_kernel_narrow_head_dims(cuda, d, sq, sk):
         q.float(), k.float(), v.float()))
     ones = attn.flash_attention_split(q, k, torch.ones_like(v)).float()
     torch.testing.assert_close(ones, torch.ones_like(ones), rtol=0, atol=2**-7)
+
+
+# csrc/flash_mid.cu: every head dim it takes, 64 < d <= 160: one or two full
+# 64-column panels and a tail of 0, 16, 32 or 48 columns
+# (ops.attention.head_dim_kernel)
+MID_HEAD_DIMS = tuple(range(72, 161, 8))
+
+
+@pytest.mark.parametrize("sq,sk", [(1001, 1000), (1000, 1001), (65, 577), (1024, 1024)])
+@pytest.mark.parametrize("d", MID_HEAD_DIMS)
+def test_mid_kernel_matches_plain(cuda, d, sq, sk):
+    """flash_mid_kernel through the split wrapper: ragged query and key
+    tiles (1001 and 1000 rows are no multiple of the 64-row query tiles or
+    of the 64- and 128-key tiles), Sq != Sk, every head against the plain
+    version; v = 1 shows the keys TMA zero-fills past Sk are masked.  At
+    batch 2 and 3 heads the grid takes one warpgroup a block; 8 heads at
+    1024 take two (the natural-layout case below)."""
+    b, h = 2, 3
+    g = torch.Generator(device=cuda).manual_seed(sq + sk + d)
+    q = torch.randn((b, sq, h, d), generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn((b, sk, h, d), generator=g, device=cuda).bfloat16()
+            for _ in range(2))
+    before = attn.flash_attention_split.launches_by_d.get(d, 0)
+    got = attn.flash_attention_split(q, k, v)
+    assert attn.flash_attention_split.launches_by_d[d] == before + 1
+    assert_every_head_close(got, attn.flash_attention_split_reference(
+        q.float(), k.float(), v.float()))
+    ones = attn.flash_attention_split(q, k, torch.ones_like(v)).float()
+    torch.testing.assert_close(ones, torch.ones_like(ones), rtol=0, atol=2**-7)
+
+
+@pytest.mark.parametrize("s", [1001, 4096])
+@pytest.mark.parametrize("d", MID_HEAD_DIMS)
+def test_mid_kernel_natural_layout_two_warpgroups(cuda, d, s):
+    """The natural-layout wrapper at 8 heads, batch 2: grids that fill the
+    card, so blocks of two consumer warpgroups taking turns (and 128-key
+    tiles where a row is two panels); 1001 tokens leave ragged tiles."""
+    b, h = 2, 8
+    g = torch.Generator(device=cuda).manual_seed(s + d)
+    q, k, v = (torch.randn((b, s, h * d), generator=g, device=cuda).bfloat16()
+               for _ in range(3))
+    got = attn.flash_attention(q, k, v, h)
+    want = attn.flash_attention_reference(q.float(), k.float(), v.float(), h)
+    assert_every_head_close(got.view(b, s, h, d), want.view(b, s, h, d))
+
+
+@pytest.mark.parametrize("sq,sk", [(1001, 1000), (1024, 1024)])
+@pytest.mark.parametrize("d", MID_HEAD_DIMS)
+def test_mid_kernel_lse_matches_plain(cuda, d, sq, sk):
+    """flash_mid_kernel with its log-sum-exp output: lse within LSE_BOUND of
+    the fp32 plain version, rows past Sq unwritten by the masked store, the
+    output bit-equal to the kernel's without lse."""
+    b, h = 2, 3
+    g = torch.Generator(device=cuda).manual_seed(sq + sk + d + 1)
+    q = torch.randn((b, sq, h, d), generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn((b, sk, h, d), generator=g, device=cuda).bfloat16()
+            for _ in range(2))
+    before = attn.flash_attention_split.lse_launches_by_d.get(d, 0)
+    out, lse = attn.flash_attention_split(q, k, v, return_lse=True)
+    assert attn.flash_attention_split.lse_launches_by_d[d] == before + 1
+    want, want_lse = attn.flash_attention_split_lse_reference(q.float(), k.float(), v.float())
+    assert lse.shape == (b, h, sq) and lse.dtype == torch.float32
+    assert_every_head_close(out, want)
+    assert (lse - want_lse).abs().max().item() <= LSE_BOUND
+    assert torch.equal(out, attn.flash_attention_split(q, k, v))
+
+
+@pytest.mark.parametrize("d", [72, 80, 128, 160])
+def test_mid_kernel_is_exact_softmax_above_60(cuda, d):
+    """Logits 80 and 70 in one row at widths of flash_mid_kernel, where
+    d^-0.5 is no power of two and q is scaled in shared memory: exact
+    softmax (weight ~1 on the 80 key), where the TPU no-max path would clamp
+    both to 60; 640 keys are several tiles."""
+    s = 640
+    g = torch.Generator(device=cuda).manual_seed(d)
+    q = torch.randn((1, s, 1, d), generator=g, device=cuda)
+    k = torch.randn((1, s, 1, d), generator=g, device=cuda) * 0.1
+    v = torch.randn((1, s, 1, d), generator=g, device=cuda)
+    q[0, 0, 0] = 0.0
+    q[0, 0, 0, 0], q[0, 0, 0, 1] = 80.0, 70.0
+    k[0, 5, 0], k[0, 9, 0] = 0.0, 0.0
+    k[0, 5, 0, 0], k[0, 9, 0, 1] = d**0.5, d**0.5  # logits ~80 and ~70
+    v[0, 5, 0], v[0, 9, 0] = 1.0, -1.0
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    got = attn.flash_attention_split(q, k, v).float()
+    want = attn.flash_attention_split_reference(q.float(), k.float(), v.float())
+    torch.testing.assert_close(got, want, rtol=0, atol=BOUND)
+    torch.testing.assert_close(got[0, 0, 0], torch.ones(d, device=cuda), rtol=0,
+                               atol=1e-2)
+
+
+@pytest.mark.parametrize("d", [40, 64, 80, 128, 160, 192, 512])
+def test_split_wrapper_reaches_the_kernel_of_its_head_dim(cuda, d):
+    """One split call is one launch of the kernel ``head_dim_kernel`` names:
+    flash_mid_kernel at 64 < d <= 160 and nothing else; d <= 64 and
+    d > 160 reach their kernels as before (flash_hopper.cu's, and
+    flash_split.cu's 192- and 512-wide templates)."""
+    g = torch.Generator(device=cuda).manual_seed(d)
+    q, k, v = (torch.randn((1, 600, 2, d), generator=g, device=cuda).bfloat16()
+               for _ in range(3))
+    kernel = attn.head_dim_kernel(d)[0]
+    _assert_one_kernel_a_call(lambda: attn.flash_attention_split(q, k, v), kernel)
+    _assert_one_kernel_a_call(lambda: attn.flash_attention_split(q, k, v, return_lse=True),
+                              kernel)
+
+
+@pytest.mark.parametrize("b,s,d", [(4, 1024, 80), (8, 1024, 80), (4, 256, 160),
+                                   (8, 256, 160)])
+def test_fused_qkv_core_is_the_mid_kernel_at_sd14_widths(cuda, b, s, d):
+    """K1 at SD 1.x's levels 1 and 2: the GEMM, then flash_mid_kernel, and
+    no other kernel (the profiler's device records of a window of calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    h = 8
+    c = h * d
+    g = torch.Generator(device=cuda).manual_seed(b + s + d)
+    x = torch.randn((b, s, c), generator=g, device=cuda).bfloat16()
+    ws = [(torch.randn((h * d, c), generator=g, device=cuda) * c**-0.5).bfloat16()
+          for _ in range(3)]
+    attn.fused_qkv_attention(x, *ws, h)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.3)
+        for _ in range(8):
+            attn.fused_qkv_attention(x, *ws, h)
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+    kernels = {e.name for e in prof.events() if e.device_type.name == "CUDA"
+               and "memcpy" not in e.name.lower() and "memset" not in e.name.lower()}
+    assert kernels and all("qkv_proj_kernel" in k or "flash_mid_kernel" in k
+                           for k in kernels), kernels
 
 
 @pytest.mark.parametrize("shape,eps,act", [
