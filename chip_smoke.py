@@ -46,11 +46,16 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
                 (csrc/flash_mid.cu) and 192 (csrc/flash_split.cu) beside the
                 VAE's 512.  K7 at the
                 level-0 shapes at D = 64, at SD 1.x's (4 and 8, 4096, 8
-                heads of 40) of switch set (c), at (4, 1024, 8, 80), (4,
-                256, 8, 160), (2, 1000, 3, 72) and (1, 1024, 1, 512) (its
+                heads of 40) of switch set (c) (flash_hopper.cu's narrow
+                kernel in the transposed layout, the record
+                "flash_attention_transposed_narrow"), at (4 and 8, 1024, 8,
+                80), (4 and 8, 256, 8, 160) of phase 10's set (t) and (2,
+                1000, 3, 72) (flash_mid.cu's kernel in the transposed layout,
+                "flash_attention_transposed_mid"), at (1, 1024, 1, 512) (its
                 split kernel), and at S % 8 != 0 shapes, which its masked
                 kernel serves: (1, 1001, 3, 64), (1, 1001, 3, 40) and (1,
-                1001, 2, 160); held head by head.  K8
+                1001, 2, 160); held head by head; beside each the natural
+                layout's kernel on the same q, k and v, in turns.  K8
                 (fused GroupNorm) at every distinct (shape, eps, act) of the
                 768x768 path's GroupNorms, collected by forward hooks during
                 one UNet forward at batch 2 and at 4, one VAE decode of one
@@ -210,15 +215,20 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
            pass) beside sd-2-1-base's phase 3b rate;
        (c) one UNet forward under switch sets (a) cres (K2 at d = 40), (c)
            transposed (K7 at d = 40, 5 launches, the split kernel none: the
-           reference's own route at the guided batch of 8) and (e)
+           reference's own route at the guided batch of 8), (e)
            GSWM_FUSED_QKV=0 (the split kernel at d = 80 at level 1, plain at
-           level 2), within TIER_REL_BOUND of the default route's; (c)'s
-           difference from (a) printed beside;
-       (d) one UNet forward at batch 4 and at 8, ms (CUDA events).
+           level 2) and (t) (paths.SD14_SWITCHES: (c) with
+           GSWM_TRANSPOSED_ATTN_MIN_SEQ=256, the transposed tier at every
+           level: K7 5 at each of 40, 80 and 160, no K1), within
+           TIER_REL_BOUND of the default route's; (c)'s difference from (a)
+           and (t)'s from (e) printed beside;
+       (d) one UNet forward at batch 4 and at 8 on the default route and
+           under each set of (c), the sets in turns, 3 rounds: ms (CUDA
+           events), medians and ranges.
      Launches by head dim, exact: K1 5 at d = 80 and 5 at 160 a forward, K2
      5 at 40; K4 on the default route, K6, K7, K8 and the batch kernel
-     never (K7 5 at d = 40 in (c)); K3 once after the keystream caches are
-     cleared.
+     never (K7 5 at d = 40 in (c), 5 at each width in (t)); K3 once after
+     the keystream caches are cleared.
  11. the host surfaces and the lossless check, on sd-2-1-base at 512x512
      (run after phase 7, on its pipeline):
        (a) the lossless artifact (gswm_torch/tools/run_quality_artifact.py)
@@ -257,7 +267,9 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
            key shard of S / 4 (the wrapper's einsum branch below 512 keys):
            out within the attention bounds head by head, lse within 1e-2;
            ms, plain_ms, bound_ms and library_ms (aten's flash attention,
-           which returns its logsumexp too; none above d = 256);
+           which returns its logsumexp too; above d = 256, where its flash
+           kernels stop, aten's memory-efficient attention asked for its
+           logsumexp);
        (b) the ring on one card: ring_attention's per-rank step for every
            virtual rank of sp = 2 and 4 in ring order (the rotation an
            index), at (a)'s shapes, against one flash_attention_split call
@@ -386,7 +398,14 @@ SD14_TIER_LAUNCHES = {
     "a": {"flash_attention": {40: 5}, "fused_qkv_attention": {80: 5, 160: 5}},
     "c": {"flash_attention_transposed": {40: 5}, "fused_qkv_attention": {80: 5, 160: 5}},
     "e": {"flash_attention": {40: 5}, "flash_attention_split": {80: 5}},
+    # paths.SD14_SWITCHES' (t): the transposed tier at every level, K7 at all
+    # three widths (flash_hopper.cu's narrow kernel at 40, flash_mid.cu's at
+    # 80 and 160), no K1
+    "t": {"flash_attention_transposed": {40: 5, 80: 5, 160: 5}},
 }
+# (d): the forward's time on the default route and under each set above,
+# the sets in turns, this many rounds
+SD14_TIMED_ROUNDS = 3
 # the memory model (gswm_torch/utils/memory.py) against the measured peak at
 # every swept batch, relative; the peak at 30 inversion steps against 2
 MEMORY_REL_BOUND = 0.10
@@ -806,11 +825,18 @@ def phase_kernels(gn_cases) -> dict:
                             for t in qkv.split(pairs * 128, dim=-1))),
                       roofline.attention_cost(b, s, s, h, 64), 10, None))
     # K7: S % 8 != 0 takes its masked kernel, the rest a wgmma + TMA one
-    # (d > 64: the split one); every head on its own scale
+    # (d <= 48: flash_hopper.cu's narrow kernel, 64 < d <= 160: flash_mid.cu's,
+    # both in the transposed layout; d > 160 the split one); every head on its
+    # own scale.  Beside each, the natural layout's kernel on the same q, k
+    # and v (laid out (B, S, H * D)), in turns
+    natural = {}  # label -> the natural-layout call
     for b, s, h, d in paths.K7_SHAPES:
         qkv_t = rand(3 * h * d, b, s)
-        cases.append((f"K7 flash_transposed (B={b}, S={s}, H={h}, D={d})",
-                      "flash_attention_transposed",
+        label = f"K7 flash_transposed (B={b}, S={s}, H={h}, D={d})"
+        q, k, v = (t_.permute(2, 3, 0, 1).reshape(b, s, h * d).contiguous()
+                   for t_ in qkv_t.view(3, h, d, b, s))
+        natural[label] = lambda q=q, k=k, v=v, h=h: attn.flash_attention(q, k, v, h)
+        cases.append((label, _transposed_record(d, s),
                       lambda qkv_t=qkv_t, h=h: attn.flash_attention_transposed(qkv_t, h),
                       lambda qkv_t=qkv_t, h=h: attn.flash_attention_transposed_reference(
                           qkv_t.float(), h),
@@ -837,6 +863,8 @@ def phase_kernels(gn_cases) -> dict:
             raise AssertionError(f"{label}: error {err} above {ATTN_BOUND} or "
                                  f"{ATTN_REL_BOUND} x {top}")
         _record(records, name, err, ms, plain, bound, lib)
+        if label in natural:
+            _beside_natural(label, kernel, natural[label], iters, bound[0])
         del got, want
     for label, _, kernel, _, library_fn, *_ in cases:
         if label.startswith("K1") and label.endswith(("D=80)", "D=160)")):
@@ -876,6 +904,37 @@ def phase_kernels(gn_cases) -> dict:
           f"{records['fused_group_norm']['ms']:.4f} ms against a bound of "
           f"{records['fused_group_norm']['bound_ms']:.4f} ms", flush=True)
     return records
+
+
+def _beside_natural(label: str, kernel, natural, iters: int, bound: float) -> None:
+    """A K7 case's kernel and the natural layout's kernel on the same q, k
+    and v, timed in K1_TURNS' order (the transposed call in the library's
+    place), K1_TURN_ROUNDS rounds: medians and ranges."""
+    t = {"transposed": [], "natural": []}
+    order = ["transposed" if side == "library" else "natural" for side in K1_TURNS]
+    fns = {"transposed": kernel, "natural": natural}
+    for _ in range(K1_TURN_ROUNDS):
+        for side in order:
+            t[side].append(_time_ms(fns[side], iters))
+    med = {side: statistics.median(v) for side, v in t.items()}
+    print(f"   {label} beside the natural layout's kernel in turns: K7 median "
+          f"{med['transposed']:.4f} ms ({min(t['transposed']):.4f}-{max(t['transposed']):.4f}), "
+          f"natural {med['natural']:.4f} ({min(t['natural']):.4f}-{max(t['natural']):.4f}), "
+          f"K7 / natural {med['transposed'] / med['natural']:.2f}x, bound {bound:.4f}",
+          flush=True)
+
+
+def _transposed_record(d: int, s: int) -> str:
+    """The record of K7's kernel at head dim ``d`` over ``s`` tokens:
+    "flash_attention_transposed_narrow" and "..._mid" where flash_hopper.cu's
+    narrow kernel and flash_mid.cu's run it (S % 8 == 0 at d <= 48 and at
+    64 < d <= 160), "flash_attention_transposed" for flash_transposed.cu's
+    own kernels."""
+    from gswm_torch.ops import attention as attn
+
+    return {"flash_narrow_kernel": "flash_attention_transposed_narrow",
+            "flash_mid_kernel": "flash_attention_transposed_mid"}.get(
+                attn.transposed_kernel(d, s), "flash_attention_transposed")
 
 
 def _finish_records(records: dict) -> None:
@@ -972,8 +1031,10 @@ def _counters() -> dict:
     ("flash_attention_split_mid"), which other kernels, csrc/flash_hopper.cu
     and csrc/flash_mid.cu, run; its launches with the log-sum-exp output, by
     the same split ("flash_attention_split_lse_d64", "..._lse_mid",
-    "flash_attention_split_lse"); and K1's at 64 < D <= 160, whose core is
-    csrc/flash_mid.cu's ("fused_qkv_attention_mid")."""
+    "flash_attention_split_lse"); K1's at 64 < D <= 160, whose core is
+    csrc/flash_mid.cu's ("fused_qkv_attention_mid"); and K7's by kernel:
+    flash_hopper.cu's narrow and flash_mid.cu's in the transposed layout
+    ("flash_attention_transposed_narrow", "..._mid")."""
     from gswm_torch.ops import attention as attn
 
     def within(by_d, lo, hi):  # the launches at lo < d <= hi
@@ -991,6 +1052,9 @@ def _counters() -> dict:
     counts["flash_attention_split_lse"] = within(split.lse_launches_by_d, mid, top)
     counts["fused_qkv_attention_mid"] = within(
         _wrappers()["fused_qkv_attention"].launches_by_d, attn.HEAD_DIM, mid)
+    by_kernel = attn.flash_attention_transposed.launches_by_kernel
+    counts["flash_attention_transposed_narrow"] = by_kernel.get("flash_narrow_kernel", 0)
+    counts["flash_attention_transposed_mid"] = by_kernel.get("flash_mid_kernel", 0)
     return counts
 
 
@@ -1008,6 +1072,7 @@ def _reset_counters() -> None:
     split = _wrappers()["flash_attention_split"]
     split.lse_launches = 0
     split.lse_launches_by_d = {}
+    _wrappers()["flash_attention_transposed"].launches_by_kernel = {}
 
 
 def _clear_keystream_caches() -> None:
@@ -1890,7 +1955,7 @@ def phase_sd14(card: str, rate_3b: float) -> dict:
                              "not finite")
     outs = {}
     for label, per_forward in SD14_TIER_LAUNCHES.items():
-        switches = paths.TIER_SWITCHES[label]
+        switches = {**paths.TIER_SWITCHES, **paths.SD14_SWITCHES}[label]
         with paths.route_switches(switches):
             before = _counters_by_d()
             out = outs[label] = forward()
@@ -1909,15 +1974,29 @@ def phase_sd14(card: str, rate_3b: float) -> dict:
     diff = (outs["c"] - outs["a"]).abs().max().item()
     print(f"(c) against (a): max|out_c - out_a| {diff:.5f}, relative {diff / top:.5f} "
           f"(K7 against K2 at d = 40)", flush=True)
+    diff = (outs["t"] - outs["e"]).abs().max().item()
+    print(f"(t) against (e): max|out_t - out_e| {diff:.5f}, relative {diff / top:.5f} "
+          f"(K7 against K4 at d = 80, plain attention at 160)", flush=True)
     del outs
     counts = _counters()
 
-    # (d) one UNet forward, batch 4 and 8 (guidance), outside the counted run
+    # (d) one UNet forward, batch 4 and 8 (guidance), on the default route and
+    # under each switch set of (c) in turns, outside the counted run
     for batch in (b, 2 * b):
         inputs = paths.unet_inputs(pipe, batch, res=res)
-        ms = _time_ms(forward, 10)
-        print(f"(d) SD 1.x UNet forward, batch {batch}, {res}x{res}: {ms:.4f} ms; on "
-              f"{card}", flush=True)
+        times = {"default": []}
+        times.update({label: [] for label in SD14_TIER_LAUNCHES})
+        for _ in range(SD14_TIMED_ROUNDS):
+            for label in times:
+                switches = {} if label == "default" else \
+                    {**paths.TIER_SWITCHES, **paths.SD14_SWITCHES}[label]
+                with paths.route_switches(switches):
+                    times[label].append(_time_ms(forward, 10))
+        print(f"(d) SD 1.x UNet forward, batch {batch}, {res}x{res}, ms, "
+              f"{SD14_TIMED_ROUNDS} rounds of the sets in turns: "
+              + "; ".join(f"{label} {statistics.median(v):.4f} ({min(v):.4f}-{max(v):.4f})"
+                          for label, v in times.items())
+              + f"; on {card}", flush=True)
     del pipe
     return counts
 
@@ -2207,9 +2286,13 @@ def phase_integrations(card: str, pipe) -> dict:
 
 def _lse_library(q, k, v):
     """aten's flash attention, which returns its logsumexp beside the output,
-    on (B, H, S, D) views: the yardstick of K4 with lse (d <= 256)."""
-    return torch.ops.aten._scaled_dot_product_flash_attention(
-        *(t.transpose(1, 2) for t in (q, k, v)))
+    on (B, H, S, D) views: the yardstick of K4 with lse up to d = 256, where
+    aten's flash kernels stop; above, aten's memory-efficient attention with
+    its logsumexp asked for (compute_log_sumexp)."""
+    views = [t.transpose(1, 2) for t in (q, k, v)]
+    if q.shape[-1] <= 256:
+        return torch.ops.aten._scaled_dot_product_flash_attention(*views)
+    return torch.ops.aten._scaled_dot_product_efficient_attention(*views, None, True)
 
 
 def _ring_on_one_card(shards: tuple, sp: int, dtype) -> torch.Tensor:
@@ -2271,7 +2354,7 @@ def phase_lse(card: str, records: dict) -> None:
                 bound = roofline.attention_bound_ms(
                     roofline.attention_cost(b, sq, sq, h, d, lse=True))
                 lib = _library_ms(lambda q=q, k=k, v=v: _lse_library(q, k, v), 10,
-                                  "aten flash with lse") if d <= 256 else None
+                                  "aten flash (d > 256: memory-efficient) with lse")
                 print(f"{label}: max|err| {err:.5f} (bound {ATTN_BOUND}), err/max|want| "
                       f"{err / top:.5f} (bound {ATTN_REL_BOUND}), lse max|err| {lse_err:.6f} "
                       f"(bound {LSE_BOUND}); {ms:.4f} ms (without lse {no_lse:.4f}, plain "
@@ -2646,6 +2729,9 @@ def main() -> None:
     counts["flash_attention_split"] -= counts["flash_attention_split_d64"] + \
         counts["flash_attention_split_mid"]
     counts["fused_qkv_attention"] -= counts["fused_qkv_attention_mid"]
+    # K7's, less what flash_hopper.cu's narrow and flash_mid.cu's kernels ran
+    counts["flash_attention_transposed"] -= counts["flash_attention_transposed_narrow"] + \
+        counts["flash_attention_transposed_mid"]
     _finish_records(records)
     sources = {
         "chacha20": ("gswm_torch/csrc/chacha20.cu",
@@ -2683,6 +2769,12 @@ def main() -> None:
                                       "gswm/ops/attention.py:414"),
         "flash_attention_split_lse_mid": ("gswm_torch/csrc/flash_mid.cu",
                                           "gswm/ops/attention.py:414"),
+        # K7 where S % 8 == 0: d <= 48 and 64 < d <= 160 on the natural
+        # layout's designs, the layout a template parameter
+        "flash_attention_transposed_narrow": ("gswm_torch/csrc/flash_hopper.cu",
+                                              "gswm/ops/attention.py:1428"),
+        "flash_attention_transposed_mid": ("gswm_torch/csrc/flash_mid.cu",
+                                           "gswm/ops/attention.py:1428"),
     }
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=counts[name], **records[name])

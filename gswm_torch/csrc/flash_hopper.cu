@@ -102,6 +102,21 @@
 // Its output differs from the kernel above's in the row sums' summation
 // order alone.
 //
+// The narrow kernel also serves the transposed layout at d <= 48 (K7,
+// gswm/ops/attention.py:1428 flash_attention_transposed, pallas_call :1470;
+// gswm_launch_flash_narrow_transposed, which flash_transposed.cu's launcher
+// calls where S % 8 == 0): one body, the layout a template parameter
+// (hopper.cuh Layout), so both layouts get the overlap, the turns, the row
+// sums on the tensor cores and p v at N = 48.  There q, k and v are read in
+// place as bands of the stacked (3 H d, B, S) projection output: a head is
+// one 64-row panel of d (rows past d zero-filled by the tensor map), a
+// 128-key tile two 64-token boxes side by side; the logits reduce down the
+// rows of MN-major q and k (ceil(d / 16) k16 steps, one wgmma m64n64k16 a
+// box and step, one commit group a tile), p v reads the first 48 rows of
+// each K-major v box, and the output goes transposed into the q tile and
+// out by one 4-D TMA store.  Both layouts compute the same products in the
+// same order: on the same q, k and v their outputs are equal bit for bit.
+//
 // Both kernels take an LSE template flag (gswm_flash_split_lse, the ring's
 // per-step kernel): after the output tile, each row's log-sum-exp of the
 // true logits goes to an fp32 (B, H, Sq) array (hopper.cuh store_lse; c the
@@ -290,8 +305,13 @@ struct SmemNarrow {
 
 // Grid (query blocks, H, B); KS = ceil(d / 16) k16 steps of logits.  q is
 // scaled by q_scale = d^-0.5 in shared memory; the exponent folds log2(e).
-// LSE as flash_hopper_kernel's.
-template <int NWG, int KS, bool LSE>
+// LSE as flash_hopper_kernel's.  L (hopper.cuh Layout): natural, head_map's
+// (B, S, H, d) maps; transposed, band_map's over flash_transposed.cu's
+// stacked (3 H d, B, S) bands (q, k and v each their band's map, Sq = Sk =
+// S), where a k or v tile is two 64-token boxes, the logits reduce down the
+// rows of MN-major q and k, one wgmma a box and k16 step, and p v reads the
+// first 48 rows of each K-major v box.  The layout changes no arithmetic.
+template <Layout L, int NWG, int KS, bool LSE>
 __global__ void __launch_bounds__((NWG + 1) * 128, NWG == 1 ? 2 : 1)
 flash_narrow_kernel(const __grid_constant__ CUtensorMap map_q,
                     const __grid_constant__ CUtensorMap map_k,
@@ -299,7 +319,12 @@ flash_narrow_kernel(const __grid_constant__ CUtensorMap map_q,
                     const __grid_constant__ CUtensorMap map_o, int Sk, float q_scale,
                     float* lse, int Sq) {
   static_assert(KS >= 1 && 16 * KS <= NARROW_D, "at most 3 k16 steps");
+  static_assert(L == Layout::natural || !LSE, "the transposed layout has no lse output");
   constexpr int STAGES = SmemNarrow<NWG>::STAGES;
+  constexpr bool T = L == Layout::transposed;
+  constexpr int BOXES = T ? BN / ROW_ELEMS : 1;  // TMA boxes a k or v tile
+  constexpr int BOX = BN * D / BOXES;            // elements of one
+  constexpr int BOX_DESC = BOX * (int)sizeof(bf16) >> 4;
   extern __shared__ unsigned char smem_raw[];
   SmemNarrow<NWG>& sm = *reinterpret_cast<SmemNarrow<NWG>*>(align_smem(smem_raw));
 
@@ -332,16 +357,20 @@ flash_narrow_kernel(const __grid_constant__ CUtensorMap map_q,
     if (threadIdx.x == 0) {
       mbar_expect_tx(&sm.full_q, NWG * Q_BYTES);
       for (int w = 0; w < NWG; ++w)
-        tma_load_4d(sm.q[w], &map_q, &sm.full_q, 0, h, row0 + w * BM, b);
+        tma_load_panel<L>(sm.q[w], &map_q, &sm.full_q, 0, h, row0 + w * BM, b);
       int stage = 0;
       uint32_t phase = 0;
       for (int t = 0; t < tiles; ++t) {
         mbar_wait(&sm.empty_k[stage], phase ^ 1);
         mbar_expect_tx(&sm.full_k[stage], KV_BYTES);
-        tma_load_4d(sm.k[stage], &map_k, &sm.full_k[stage], 0, h, t * BN, b);
+        for (int i = 0; i < BOXES; ++i)
+          tma_load_panel<L>(sm.k[stage] + i * BOX, &map_k, &sm.full_k[stage], 0, h,
+                            t * BN + i * ROW_ELEMS, b);
         mbar_wait(&sm.empty_v[stage], phase ^ 1);
         mbar_expect_tx(&sm.full_v[stage], KV_BYTES);
-        tma_load_4d(sm.v[stage], &map_v, &sm.full_v[stage], 0, h, t * BN, b);
+        for (int i = 0; i < BOXES; ++i)
+          tma_load_panel<L>(sm.v[stage] + i * BOX, &map_v, &sm.full_v[stage], 0, h,
+                            t * BN + i * ROW_ELEMS, b);
         if (++stage == STAGES) {
           stage = 0;
           phase ^= 1;
@@ -376,19 +405,35 @@ flash_narrow_kernel(const __grid_constant__ CUtensorMap map_q,
   fence_async_smem();
   named_barrier(1 + cw, 128);
 
+  // the logits of a tile, one commit group (the transposed layout's two
+  // boxes too: wgmma_wait counts groups)
   auto logits = [&](int stage) {
     const uint64_t dk = smem_desc_sw128(sm.k[stage]);
 #pragma unroll
-    for (int kk = 0; kk < KS; ++kk)
-      wgmma_m64n128k16_ss(s, dq + kk * DESC_K_STEP, dk + kk * DESC_K_STEP, kk > 0);
+    for (int kk = 0; kk < KS; ++kk) {
+      if constexpr (T) {  // 16 rows of d a step; box i's keys into s[32 i ...]
+#pragma unroll
+        for (int i = 0; i < BOXES; ++i)
+          wgmma_m64n64k16_ss<1, 1>(*reinterpret_cast<float(*)[32]>(&s[32 * i]),
+                                   dq + kk * DESC_MN_STEP,
+                                   dk + i * BOX_DESC + kk * DESC_MN_STEP, kk > 0);
+      } else {
+        wgmma_m64n128k16_ss(s, dq + kk * DESC_K_STEP, dk + kk * DESC_K_STEP, kk > 0);
+      }
+    }
     wgmma_commit();
   };
-  // p v, and p times a column of ones: the fp32 row sums of the rounded p
+  // p v, and p times a column of ones: the fp32 row sums of the rounded p.
+  // v's key step kk: 16 rows down an MN-major tile (natural), 16 keys along
+  // the rows of box kk / 4 of a K-major one (transposed)
   auto pv = [&](int stage) {
     const uint64_t dv = smem_desc_sw128(sm.v[stage]);
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) {
-      wgmma_m64n48k16_rs(o, p[kk], dv + kk * DESC_MN_STEP);
+      if constexpr (T)
+        wgmma_m64n48k16_rs<0>(o, p[kk], dv + (kk / 4) * BOX_DESC + (kk % 4) * DESC_K_STEP);
+      else
+        wgmma_m64n48k16_rs(o, p[kk], dv + kk * DESC_MN_STEP);
       wgmma_m64n8k16_rs(l, p[kk], d1 + kk * DESC_MN_STEP);
     }
     wgmma_commit();
@@ -458,17 +503,18 @@ flash_narrow_kernel(const __grid_constant__ CUtensorMap map_q,
   // the last warpgroup's last turn is over: its final arrival is taken
   if (TURNS && cw == 0) named_barrier(TURN_BAR, 2 * 128);
 
-  // normalised and rounded, through the warpgroup's own q tile; columns 48
-  // and up keep q and are dropped by the store with the rest past d
+  // normalised and rounded, through the warpgroup's own q tile (transposed:
+  // d rows of 64 tokens); columns (rows) 48 and up keep q and are dropped by
+  // the store with the rest past d
   bf16* tile = sm.q[cw];
-  store_tile_sw128(tile, o, 1.0f / l[0], 1.0f / l[2], warp, g, t4);
+  store_tile_out<L>(tile, o, 1.0f / l[0], 1.0f / l[2], warp, g, t4);
   if constexpr (LSE)  // l[0], l[2]: the tensor cores' whole-row sums
     store_lse(lse, Sq, row0 + cw * BM + warp * 16 + g, m_lo, m_hi, l[0], l[2], exp_scale,
               t4);
   fence_async_smem();
   named_barrier(1 + cw, 128);
   if ((threadIdx.x & 127) == 0) {
-    tma_store_4d(&map_o, tile, 0, h, row0 + cw * BM, b);
+    tma_store_panel<L>(&map_o, tile, 0, h, row0 + cw * BM, b);
     tma_store_wait();
   }
 }
@@ -482,30 +528,45 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int NWG, int KS, bool LSE>
+template <Layout L, int NWG, int KS, bool LSE>
 cudaError_t start_narrow(const Args& a) {
   constexpr int smem = (int)sizeof(SmemNarrow<NWG>) + SWIZZLE_SPAN;
-  cudaError_t e = cudaFuncSetAttribute(flash_narrow_kernel<NWG, KS, LSE>,
+  cudaError_t e = cudaFuncSetAttribute(flash_narrow_kernel<L, NWG, KS, LSE>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   dim3 grid((a.Sq + NWG * BM - 1) / (NWG * BM), a.H, a.B);
-  flash_narrow_kernel<NWG, KS, LSE><<<grid, (NWG + 1) * 128, smem, a.stream>>>(
+  flash_narrow_kernel<L, NWG, KS, LSE><<<grid, (NWG + 1) * 128, smem, a.stream>>>(
       a.mq, a.mk, a.mv, a.mo, a.Sk, 1.0f / sqrtf((float)a.d), a.lse, a.Sq);
   return cudaGetLastError();
 }
 
-template <int NWG, int KS>
+template <Layout L, int NWG, int KS>
 cudaError_t launch_narrow(const Args& a) {
-  return a.lse ? start_narrow<NWG, KS, true>(a) : start_narrow<NWG, KS, false>(a);
+  if constexpr (L == Layout::transposed)
+    return start_narrow<L, NWG, KS, false>(a);
+  else
+    return a.lse ? start_narrow<L, NWG, KS, true>(a) : start_narrow<L, NWG, KS, false>(a);
 }
 
-template <int NWG>
+template <Layout L, int NWG>
 cudaError_t launch_narrow_ks(const Args& a) {
   switch ((a.d + 15) / 16) {
-    case 1: return launch_narrow<NWG, 1>(a);
-    case 2: return launch_narrow<NWG, 2>(a);
-    default: return launch_narrow<NWG, 3>(a);
+    case 1: return launch_narrow<L, NWG, 1>(a);
+    case 2: return launch_narrow<L, NWG, 2>(a);
+    default: return launch_narrow<L, NWG, 3>(a);
   }
+}
+
+// NARROW_WGS warpgroups a block where that fills this card's SMs, else one
+template <Layout L>
+cudaError_t launch_narrow_filling(const Args& a) {
+  int sm_count = 0;
+  const cudaError_t e = multiprocessors(&sm_count);
+  if (e != cudaSuccess) return e;
+  const int rows = NARROW_WGS * BM;
+  return (long)((a.Sq + rows - 1) / rows) * a.H * a.B >= sm_count
+             ? launch_narrow_ks<L, NARROW_WGS>(a)
+             : launch_narrow_ks<L, 1>(a);
 }
 
 template <int NWG, bool SCALE_Q, bool LSE>
@@ -542,23 +603,32 @@ cudaError_t gswm_launch_flash_hopper(const bf16* q, const bf16* k, const bf16* v
   if (e == cudaSuccess) e = head_map(&a.mv, v, B, Sk, H, d, ld_kv, BN);
   if (e == cudaSuccess) e = head_map(&a.mo, out, B, Sq, H, d, ld_o, BM);
   if (e != cudaSuccess) return e;
+  if (d <= NARROW_D) return launch_narrow_filling<Layout::natural>(a);
   // 128-row blocks unless they would leave SMs of this card without one
-  int dev = 0, sm_count = 0;
-  e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sm_count, cudaDevAttrMultiProcessorCount, dev);
+  int sm_count = 0;
+  e = multiprocessors(&sm_count);
   if (e != cudaSuccess) return e;
-  if (d <= NARROW_D) {  // NARROW_WGS warpgroups a block where that fills the card
-    const int rows = NARROW_WGS * BM;
-    return (long)((Sq + rows - 1) / rows) * H * B >= sm_count
-               ? launch_narrow_ks<NARROW_WGS>(a)
-               : launch_narrow_ks<1>(a);
-  }
   const long blocks128 = (long)((Sq + 2 * BM - 1) / (2 * BM)) * H * B;
   const bool wide = blocks128 >= sm_count;
   if (d == D)  // the 2^-3 scale folded into the exponent, exact
     return wide ? launch<2, false>(a) : launch<1, false>(a);
   return wide ? launch<2, true>(a) : launch<1, true>(a);
+}
+
+cudaError_t gswm_launch_flash_narrow_transposed(const bf16* qkv_t, bf16* out_t, int B, int S,
+                                                int H, int d, cudaStream_t stream) {
+  if (B < 1 || S < 1 || H < 1 || B > 65535 || H > 65535 || d < 8 || d % 8 || d > NARROW_D ||
+      S % 8)
+    return cudaErrorInvalidValue;
+  Args a;
+  a.B = B, a.Sq = S, a.Sk = S, a.H = H, a.d = d, a.lse = nullptr, a.stream = stream;
+  const size_t band = (size_t)H * d * B * S;  // elements: q's rows, then k's, then v's
+  cudaError_t e = band_map(&a.mq, qkv_t, H, d, B, S);
+  if (e == cudaSuccess) e = band_map(&a.mk, qkv_t + band, H, d, B, S);
+  if (e == cudaSuccess) e = band_map(&a.mv, qkv_t + 2 * band, H, d, B, S);
+  if (e == cudaSuccess) e = band_map(&a.mo, out_t, H, d, B, S);
+  if (e != cudaSuccess) return e;
+  return launch_narrow_filling<Layout::transposed>(a);
 }
 
 // Pair-packed self-attention: qkv (B, S, 3 * P * 128) with q, k and v at

@@ -59,6 +59,22 @@
 // slower).
 // q is scaled in shared memory once it has landed (hopper.cuh scale_tile), as
 // flash_split.cu does: d^-0.5 is no power of two at these widths.
+//
+// The same kernel serves the transposed layout at 64 < d <= 160 (K7,
+// gswm/ops/attention.py:1428 flash_attention_transposed, pallas_call :1470;
+// gswm_launch_flash_mid_transposed, which flash_transposed.cu's launcher
+// calls where S % 8 == 0): one body, the layout a template parameter
+// (hopper.cuh Layout).  q, k and v are read in place as bands of
+// the stacked (3 H d, B, S) projection output: panel j of a tile is rows
+// 64 j ... of d (rows past d zero-filled by the tensor map), a 128-key tile
+// two 64-token boxes a panel; the logits take the same ceil(d / 16) k16
+// steps down the rows of MN-major q and k (one wgmma m64n64k16 a box and
+// step, one commit group a tile), p v reads K-major v, N = 64 on full
+// panels and the tail's first TAIL rows (no in-place read of partial
+// swizzled rows arises), and each panel of the output goes transposed into
+// the q tile and out by a 4-D TMA store.  Both layouts compute the same
+// products in the same order: on the same q, k and v their outputs are equal
+// bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -127,32 +143,44 @@ __device__ __forceinline__ void logits_step(float (&s)[BN / 2], uint64_t dq, uin
     wgmma_m64n64k16_ss<0, 0>(s, dq, dk, accumulate);
 }
 
-// One k16 step of p v on the tail panel: the first N columns of v.
-template <int N>
+// One k16 step of p v on the tail panel: the first N columns (TRANS_B = 1,
+// MN-major v) or rows (0, K-major v) of v.
+template <int N, int TRANS_B>
 __device__ __forceinline__ void pv_tail(float (&o)[N / 2], const uint32_t (&a)[4],
                                         uint64_t dv) {
   if constexpr (N == 16)
-    wgmma_m64n16k16_rs(o, a, dv);
+    wgmma_m64n16k16_rs<TRANS_B>(o, a, dv);
   else if constexpr (N == 32)
-    wgmma_m64n32k16_rs(o, a, dv);
+    wgmma_m64n32k16_rs<TRANS_B>(o, a, dv);
   else
-    wgmma_m64n48k16_rs(o, a, dv);
+    wgmma_m64n48k16_rs<TRANS_B>(o, a, dv);
 }
 
 // Grid (query blocks of NWG * 64 rows, H, B).  q_scale = d^-0.5 of the true
 // d; the exponent folds log2(e).  LSE: each row's log-sum-exp into lse
-// (B, H, Sq) fp32; else lse and Sq are not read.
-template <int FULL, int TAIL, int NWG, bool LSE>
+// (B, H, Sq) fp32; else lse and Sq are not read.  L (hopper.cuh Layout):
+// natural, head_map's (B, S, H, d) maps; transposed, band_map's over
+// flash_transposed.cu's stacked bands (Sq = Sk = S, no LSE), where panel j
+// of a tile is rows 64 j ... of d, a 128-key tile two 64-token boxes a
+// panel, the logits reduce down the rows of MN-major q and k (one wgmma a
+// box and k16 step) and p v reads K-major v, the tail its first TAIL rows.
+// The layout changes no arithmetic.
+template <Layout L, int FULL, int TAIL, int NWG, bool LSE>
 __global__ void __launch_bounds__((NWG + 1) * 128, NWG == 1 ? 2 : 1)
 flash_mid_kernel(const __grid_constant__ CUtensorMap map_q,
                  const __grid_constant__ CUtensorMap map_k,
                  const __grid_constant__ CUtensorMap map_v,
                  const __grid_constant__ CUtensorMap map_o, int Sk, float q_scale,
                  float* lse, int Sq) {
+  static_assert(L == Layout::natural || !LSE, "the transposed layout has no lse output");
   using M = Mid<FULL, TAIL, NWG>;
   constexpr int NP = M::NP;
   constexpr int BN = M::BN;
   constexpr int STAGES = M::STAGES;
+  constexpr bool T = L == Layout::transposed;
+  constexpr int BOXES = T ? BN / ROW_ELEMS : 1;  // TMA boxes a panel of a k or v tile
+  constexpr int BOX = M::KV_PANEL / BOXES;       // elements of one
+  constexpr int VT = T ? 0 : 1;                  // v's transpose bit: K- or MN-major
   extern __shared__ unsigned char smem_raw[];
   SmemMid<FULL, TAIL, NWG>& sm =
       *reinterpret_cast<SmemMid<FULL, TAIL, NWG>*>(align_smem(smem_raw));
@@ -187,21 +215,23 @@ flash_mid_kernel(const __grid_constant__ CUtensorMap map_q,
       mbar_expect_tx(&sm.full_q, NWG * M::Q_BYTES);
       for (int w = 0; w < NWG; ++w)
         for (int j = 0; j < NP; ++j)
-          tma_load_4d(sm.q[w] + j * M::Q_PANEL, &map_q, &sm.full_q, j * ROW_ELEMS, h,
-                      row0 + w * BM, b);
+          tma_load_panel<L>(sm.q[w] + j * M::Q_PANEL, &map_q, &sm.full_q, j, h,
+                            row0 + w * BM, b);
       int stage = 0;
       uint32_t phase = 0;
       for (int t = 0; t < tiles; ++t) {
         mbar_wait(&sm.empty_k[stage], phase ^ 1);
         mbar_expect_tx(&sm.full_k[stage], M::KV_BYTES);
         for (int j = 0; j < NP; ++j)
-          tma_load_4d(sm.k[stage] + j * M::KV_PANEL, &map_k, &sm.full_k[stage],
-                      j * ROW_ELEMS, h, t * BN, b);
+          for (int i = 0; i < BOXES; ++i)
+            tma_load_panel<L>(sm.k[stage] + j * M::KV_PANEL + i * BOX, &map_k,
+                              &sm.full_k[stage], j, h, t * BN + i * ROW_ELEMS, b);
         mbar_wait(&sm.empty_v[stage], phase ^ 1);
         mbar_expect_tx(&sm.full_v[stage], M::KV_BYTES);
         for (int j = 0; j < NP; ++j)
-          tma_load_4d(sm.v[stage] + j * M::KV_PANEL, &map_v, &sm.full_v[stage],
-                      j * ROW_ELEMS, h, t * BN, b);
+          for (int i = 0; i < BOXES; ++i)
+            tma_load_panel<L>(sm.v[stage] + j * M::KV_PANEL + i * BOX, &map_v,
+                              &sm.full_v[stage], j, h, t * BN + i * ROW_ELEMS, b);
         if (++stage == STAGES) {
           stage = 0;
           phase ^= 1;
@@ -248,13 +278,35 @@ flash_mid_kernel(const __grid_constant__ CUtensorMap map_q,
   // a panel's offset in a descriptor's start address (16-byte units)
   constexpr int Q_PANEL_DESC = M::Q_PANEL * (int)sizeof(bf16) >> 4;
   constexpr int KV_PANEL_DESC = M::KV_PANEL * (int)sizeof(bf16) >> 4;
+  constexpr int BOX_DESC = BOX * (int)sizeof(bf16) >> 4;
+  // the logits of a tile, one commit group (the transposed layout's two
+  // boxes too: wgmma_wait counts groups)
   auto logits = [&](int stage) {
     const uint64_t dk = smem_desc_sw128(sm.k[stage]);
 #pragma unroll
-    for (int kk = 0; kk < M::KS; ++kk)  // panel kk / 4, its step kk % 4
-      logits_step<BN>(s, dq + (kk / 4) * Q_PANEL_DESC + (kk % 4) * DESC_K_STEP,
-                      dk + (kk / 4) * KV_PANEL_DESC + (kk % 4) * DESC_K_STEP, kk > 0);
+    for (int kk = 0; kk < M::KS; ++kk) {  // panel kk / 4, its step kk % 4
+      if constexpr (T) {  // 16 rows of d a step; box i's keys into s[32 i ...]
+#pragma unroll
+        for (int i = 0; i < BOXES; ++i)
+          wgmma_m64n64k16_ss<1, 1>(
+              *reinterpret_cast<float(*)[32]>(&s[32 * i]),
+              dq + (kk / 4) * Q_PANEL_DESC + (kk % 4) * DESC_MN_STEP,
+              dk + (kk / 4) * KV_PANEL_DESC + i * BOX_DESC + (kk % 4) * DESC_MN_STEP, kk > 0);
+      } else {
+        logits_step<BN>(s, dq + (kk / 4) * Q_PANEL_DESC + (kk % 4) * DESC_K_STEP,
+                        dk + (kk / 4) * KV_PANEL_DESC + (kk % 4) * DESC_K_STEP, kk > 0);
+      }
+    }
     wgmma_commit();
+  };
+  // panel j's B operand of p v at key step kk: 16 keys down the rows of an
+  // MN-major panel (natural), along the rows of box kk / 4 of a K-major one
+  // (transposed)
+  auto v_step = [&](uint64_t dv, int j, int kk) -> uint64_t {
+    if constexpr (T)
+      return dv + j * KV_PANEL_DESC + (kk / 4) * BOX_DESC + (kk % 4) * DESC_K_STEP;
+    else
+      return dv + j * KV_PANEL_DESC + kk * DESC_MN_STEP;
   };
   // p v on every panel, and p times a column of ones: the fp32 row sums of
   // the rounded p
@@ -263,10 +315,8 @@ flash_mid_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) {
 #pragma unroll
-      for (int j = 0; j < FULL; ++j)
-        wgmma_m64n64k16_rs(o[j], p[kk], dv + j * KV_PANEL_DESC + kk * DESC_MN_STEP);
-      if constexpr (TAIL > 0)
-        pv_tail<TAIL>(ot, p[kk], dv + FULL * KV_PANEL_DESC + kk * DESC_MN_STEP);
+      for (int j = 0; j < FULL; ++j) wgmma_m64n64k16_rs<VT>(o[j], p[kk], v_step(dv, j, kk));
+      if constexpr (TAIL > 0) pv_tail<TAIL, VT>(ot, p[kk], v_step(dv, FULL, kk));
       wgmma_m64n8k16_rs(l, p[kk], d1);
     }
     wgmma_commit();
@@ -345,16 +395,16 @@ flash_mid_kernel(const __grid_constant__ CUtensorMap map_q,
   // the last warpgroup's last turn is over: its final arrival is taken
   if (TURNS && cw == 0) named_barrier(TURN_BAR, 2 * 128);
 
-  // normalised and rounded, through the warpgroup's own q tile; the tail
-  // panel's columns past TAIL keep q and are dropped by the store with the
-  // rest past d
+  // normalised and rounded, through the warpgroup's own q tile (transposed:
+  // rows of d, 64 tokens); the tail panel's columns (rows) past TAIL keep q
+  // and are dropped by the store with the rest past d
   const float inv_lo = 1.0f / l[0];
   const float inv_hi = 1.0f / l[2];
 #pragma unroll
   for (int j = 0; j < FULL; ++j)
-    store_tile_sw128(qt + j * M::Q_PANEL, o[j], inv_lo, inv_hi, warp, g, t4);
+    store_tile_out<L>(qt + j * M::Q_PANEL, o[j], inv_lo, inv_hi, warp, g, t4);
   if constexpr (TAIL > 0)
-    store_tile_sw128(qt + FULL * M::Q_PANEL, ot, inv_lo, inv_hi, warp, g, t4);
+    store_tile_out<L>(qt + FULL * M::Q_PANEL, ot, inv_lo, inv_hi, warp, g, t4);
   if constexpr (LSE)  // l[0], l[2]: the tensor cores' whole-row sums
     store_lse(lse, Sq, row0 + cw * BM + warp * 16 + g, m_lo, m_hi, l[0], l[2], exp_scale,
               t4);
@@ -363,11 +413,14 @@ flash_mid_kernel(const __grid_constant__ CUtensorMap map_q,
   if ((threadIdx.x & 127) == 0) {
 #pragma unroll
     for (int j = 0; j < NP; ++j)
-      tma_store_4d(&map_o, qt + j * M::Q_PANEL, j * ROW_ELEMS, h, row0 + cw * BM, b);
+      tma_store_panel<L>(&map_o, qt + j * M::Q_PANEL, j, h, row0 + cw * BM, b);
     tma_store_wait();
   }
 }
 
+// The operands: natural, a base pointer and a row pitch each (ld_*); the
+// transposed layout's q, k and v are the three bands of the stacked
+// projection output, out its (H d, B, S) output, and the pitches unused.
 struct Args {
   const bf16 *q, *k, *v;
   bf16* out;
@@ -376,30 +429,75 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int FULL, int TAIL, int NWG, bool LSE>
+template <Layout L, int FULL, int TAIL, int NWG, bool LSE>
 cudaError_t start(const Args& a) {
   using M = Mid<FULL, TAIL, NWG>;
   constexpr int smem = (int)sizeof(SmemMid<FULL, TAIL, NWG>) + SWIZZLE_SPAN;
   static_assert(smem <= M::BUDGET, "above the shared memory the block was sized for");
   CUtensorMap mq, mk, mv, mo;
-  cudaError_t e = head_map(&mq, a.q, a.B, a.Sq, a.H, a.d, a.ld_q, BM);
-  if (e == cudaSuccess) e = head_map(&mk, a.k, a.B, a.Sk, a.H, a.d, a.ld_kv, M::BN);
-  if (e == cudaSuccess) e = head_map(&mv, a.v, a.B, a.Sk, a.H, a.d, a.ld_kv, M::BN);
-  if (e == cudaSuccess) e = head_map(&mo, a.out, a.B, a.Sq, a.H, a.d, a.ld_o, BM);
+  cudaError_t e;
+  if constexpr (L == Layout::natural) {
+    e = head_map(&mq, a.q, a.B, a.Sq, a.H, a.d, a.ld_q, BM);
+    if (e == cudaSuccess) e = head_map(&mk, a.k, a.B, a.Sk, a.H, a.d, a.ld_kv, M::BN);
+    if (e == cudaSuccess) e = head_map(&mv, a.v, a.B, a.Sk, a.H, a.d, a.ld_kv, M::BN);
+    if (e == cudaSuccess) e = head_map(&mo, a.out, a.B, a.Sq, a.H, a.d, a.ld_o, BM);
+  } else {
+    e = band_map(&mq, a.q, a.H, a.d, a.B, a.Sq);
+    if (e == cudaSuccess) e = band_map(&mk, a.k, a.H, a.d, a.B, a.Sk);
+    if (e == cudaSuccess) e = band_map(&mv, a.v, a.H, a.d, a.B, a.Sk);
+    if (e == cudaSuccess) e = band_map(&mo, a.out, a.H, a.d, a.B, a.Sq);
+  }
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(flash_mid_kernel<FULL, TAIL, NWG, LSE>,
+    e = cudaFuncSetAttribute(flash_mid_kernel<L, FULL, TAIL, NWG, LSE>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   dim3 grid((a.Sq + NWG * BM - 1) / (NWG * BM), a.H, a.B);
-  flash_mid_kernel<FULL, TAIL, NWG, LSE><<<grid, (NWG + 1) * 128, smem, a.stream>>>(
+  flash_mid_kernel<L, FULL, TAIL, NWG, LSE><<<grid, (NWG + 1) * 128, smem, a.stream>>>(
       mq, mk, mv, mo, a.Sk, 1.0f / sqrtf((float)a.d), a.lse, a.Sq);
   return cudaGetLastError();
 }
 
-template <int FULL, int TAIL>
+template <Layout L, int FULL, int TAIL, int NWG>
+cudaError_t start_any(const Args& a) {
+  if constexpr (L == Layout::transposed)
+    return start<L, FULL, TAIL, NWG, false>(a);
+  else
+    return a.lse ? start<L, FULL, TAIL, NWG, true>(a) : start<L, FULL, TAIL, NWG, false>(a);
+}
+
+template <Layout L, int FULL, int TAIL>
 cudaError_t launch(const Args& a, bool wide) {
-  if (wide) return a.lse ? start<FULL, TAIL, 2, true>(a) : start<FULL, TAIL, 2, false>(a);
-  return a.lse ? start<FULL, TAIL, 1, true>(a) : start<FULL, TAIL, 1, false>(a);
+  return wide ? start_any<L, FULL, TAIL, 2>(a) : start_any<L, FULL, TAIL, 1>(a);
+}
+
+template <Layout L>
+cudaError_t dispatch(const Args& a) {
+  // two warpgroups (128 rows) a block where the grid then fills 7/8 of this
+  // card's SMs
+  int sm_count = 0;
+  const cudaError_t e = multiprocessors(&sm_count);
+  if (e != cudaSuccess) return e;
+  const bool wide = 8L * ((a.Sq + 2 * BM - 1) / (2 * BM)) * a.H * a.B >= 7L * sm_count;
+  // whole panels, and the last panel's columns rounded up to 16 (a last
+  // panel of 64 is a whole one)
+  const int d = a.d;
+  const int last = d - ROW_ELEMS * ((d - 1) / ROW_ELEMS);
+  const int tail = (last + 15) / 16 * 16 % ROW_ELEMS;
+  const int full = (d - 1) / ROW_ELEMS + (tail == 0);
+  switch (full * 100 + tail) {
+    case 116: return launch<L, 1, 16>(a, wide);  // d = 72, 80
+    case 132: return launch<L, 1, 32>(a, wide);  // 88, 96
+    case 148: return launch<L, 1, 48>(a, wide);  // 104, 112
+    case 200: return launch<L, 2, 0>(a, wide);   // 120, 128
+    case 216: return launch<L, 2, 16>(a, wide);  // 136, 144
+    case 232: return launch<L, 2, 32>(a, wide);  // 152, 160
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+bool takes(int B, int Sq, int Sk, int H, int d) {
+  return B >= 1 && Sq >= 1 && Sk >= 1 && H >= 1 && B <= 65535 && H <= 65535 && d % 8 == 0 &&
+         d > ROW_ELEMS && d <= 160;
 }
 
 }  // namespace
@@ -407,30 +505,15 @@ cudaError_t launch(const Args& a, bool wide) {
 cudaError_t gswm_launch_flash_mid(const bf16* q, const bf16* k, const bf16* v, bf16* out,
                                   int B, int Sq, int Sk, int H, int d, int ld_q, int ld_kv,
                                   int ld_o, cudaStream_t stream, float* lse) {
-  if (B < 1 || Sq < 1 || Sk < 1 || H < 1 || B > 65535 || H > 65535 || d % 8 ||
-      d <= ROW_ELEMS || d > 160)
-    return cudaErrorInvalidValue;
-  const Args a{q, k, v, out, B, Sq, Sk, H, d, ld_q, ld_kv, ld_o, lse, stream};
-  // two warpgroups (128 rows) a block where the grid then fills 7/8 of this
-  // card's SMs
-  int dev = 0, sm_count = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sm_count, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return e;
-  const bool wide = 8L * ((Sq + 2 * BM - 1) / (2 * BM)) * H * B >= 7L * sm_count;
-  // whole panels, and the last panel's columns rounded up to 16 (a last
-  // panel of 64 is a whole one)
-  const int last = d - ROW_ELEMS * ((d - 1) / ROW_ELEMS);
-  const int tail = (last + 15) / 16 * 16 % ROW_ELEMS;
-  const int full = (d - 1) / ROW_ELEMS + (tail == 0);
-  switch (full * 100 + tail) {
-    case 116: return launch<1, 16>(a, wide);  // d = 72, 80
-    case 132: return launch<1, 32>(a, wide);  // 88, 96
-    case 148: return launch<1, 48>(a, wide);  // 104, 112
-    case 200: return launch<2, 0>(a, wide);   // 120, 128
-    case 216: return launch<2, 16>(a, wide);  // 136, 144
-    case 232: return launch<2, 32>(a, wide);  // 152, 160
-    default: return cudaErrorInvalidValue;
-  }
+  if (!takes(B, Sq, Sk, H, d)) return cudaErrorInvalidValue;
+  return dispatch<Layout::natural>(
+      Args{q, k, v, out, B, Sq, Sk, H, d, ld_q, ld_kv, ld_o, lse, stream});
+}
+
+cudaError_t gswm_launch_flash_mid_transposed(const bf16* qkv_t, bf16* out_t, int B, int S,
+                                             int H, int d, cudaStream_t stream) {
+  if (!takes(B, S, S, H, d) || S % 8) return cudaErrorInvalidValue;
+  const size_t band = (size_t)H * d * B * S;  // elements: q's rows, then k's, then v's
+  return dispatch<Layout::transposed>(Args{qkv_t, qkv_t + band, qkv_t + 2 * band, out_t, B,
+                                           S, S, H, d, 0, 0, 0, nullptr, stream});
 }

@@ -27,17 +27,30 @@
 // layout only changes how tiles arrive and which way round wgmma reads them.
 //
 // Tensor maps over the true d: (S, B, d, heads), tokens innermost, boxes of
-// (64 tokens, 1, 64 rows, 1).  Panel j of a head is the box at row 64 j:
-// rows from d to the panel's end arrive as zeros on a load and are dropped
-// on a store, and no box reaches into the next head's rows; tokens past S
-// arrive as zeros and never from batch b + 1.  A panel lands as 64 rows (d)
-// of 128 bytes (64 tokens) in hopper.cuh's one layout.
+// (64 tokens, 1, 64 rows, 1) (hopper.cuh band_map).  Panel j of a head is
+// the box at row 64 j: rows from d to the panel's end arrive as zeros on a
+// load and are dropped on a store, and no box reaches into the next head's
+// rows; tokens past S arrive as zeros and never from batch b + 1.  A panel
+// lands as 64 rows (d) of 128 bytes (64 tokens) in hopper.cuh's one layout.
 //
-// Three kernels, chosen by the shape alone.
+// Five kernels, chosen by the shape alone (launch_tma and the C entry):
 //
-// S % 8 == 0, d <= 64 (every UNet level-0 shape of a resolution that is a
-// multiple of 64; SD 2.x's 64, SD 1.x's 40): flash_transposed_kernel,
-// flash_hopper.cu's design (one producer thread, one or two consumer
+//   S % 8 != 0            flash_transposed_masked_kernel (below)
+//   d <= 48               flash_hopper.cu's flash_narrow_kernel, transposed
+//   48 < d <= 64          flash_transposed_kernel (below)
+//   64 < d <= 160         flash_mid.cu's flash_mid_kernel, transposed
+//   d > 160               flash_transposed_split_kernel (below), 192 ... 512
+//
+// S % 8 == 0, d <= 48 (SD 1.x's 40 at level 0) and 64 < d <= 160 (its 80
+// and 160 at levels 1 and 2): the natural layout's own designs, the layout a
+// template parameter of their one body (hopper.cuh Layout; launchers in
+// flash_core.cuh): the narrow kernel's three warpgroups in turns, logits of
+// tile t + 1 with p v of tile t, row sums on the tensor cores and p v at N =
+// 48; the mid kernel's one warpgroup owning 64 tokens across the whole d,
+// full 64-row panels and a tail rounded up to 16 rows.
+//
+// S % 8 == 0, 48 < d <= 64 (SD 2.x's 64): flash_transposed_kernel,
+// flash_hopper.cu's d <= 64 design (one producer thread, one or two consumer
 // warpgroups of 64 query tokens chosen from the card's SM count, 128-key
 // tiles in a 2-stage ring with separate k and v mbarriers, hopper.cuh's
 // softmax in registers) on the operands as they lie:
@@ -54,8 +67,8 @@
 //     and out by one TMA store, which drops tokens at or past S and rows at
 //     or past d.
 //
-// S % 8 == 0, 64 < d <= 512: flash_transposed_split_kernel, flash_split.cu's
-// design on the transposed maps, instantiated at the panel widths D = 128
+// S % 8 == 0, 160 < d <= 512: flash_transposed_split_kernel, flash_split.cu's
+// design on the transposed maps, instantiated at the panel widths D = 192
 // ... 512 (d rounded up to a multiple of 64).  A 64 x 512 fp32 accumulator
 // would be 256 registers a thread for one warpgroup, so two consumer
 // warpgroups share 64 query tokens: both compute the whole 64 x 64 logits
@@ -72,7 +85,7 @@
 // stored element by element, masked; mma.sync m16n8k16 on tiles read with
 // ldmatrix(.trans), logits and p through shared memory; d is walked in
 // 64-row panels (zeros written past d, only rows < d stored).  It is a
-// second hand-written kernel for shapes the first two cannot address, not a
+// second hand-written kernel for shapes the others cannot address, not a
 // fallback: no shape they take ever reaches it.
 
 #include <cuda_bf16.h>
@@ -80,6 +93,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_core.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -87,32 +101,12 @@ namespace {
 using namespace gswm_hopper;
 
 constexpr int D = 64;  // rows of a panel: one head of d <= 64, zero-padded
+constexpr int NARROW_D = 48;  // the widest head of flash_hopper.cu's narrow kernel
+constexpr int MID_D = 160;    // and of flash_mid.cu's
 constexpr int PANEL = D * ROW_ELEMS;  // elements of a (64 d, 64 tokens) panel
 constexpr int PANEL_BYTES = PANEL * (int)sizeof(bf16);
 
-// The 64 tokens x 64 rows fragment o, tokens scaled and rounded to bf16,
-// transposed into a (64 rows, 64 tokens) panel as TMA's 128-byte swizzle
-// wants it: row r, token c at 16-byte chunk (c / 8) ^ (r % 8) of the row.
-__device__ __forceinline__ void store_tile_transposed(bf16* panel, const float (&o)[32],
-                                                      float inv_lo, float inv_hi, int warp,
-                                                      int g, int t4) {
-  unsigned char* tile = reinterpret_cast<unsigned char*>(panel);
-  const int c_lo = warp * 16 + g;  // c_lo % 8 == (c_lo + 8) % 8 == g
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int r = 8 * j + 2 * t4 + e;
-      unsigned char* row = tile + r * ROW_BYTES + g * 2;
-      *reinterpret_cast<bf16*>(row + (((c_lo >> 3) ^ (r & 7)) << 4)) =
-          __float2bfloat16(o[4 * j + e] * inv_lo);
-      *reinterpret_cast<bf16*>(row + ((((c_lo >> 3) + 1) ^ (r & 7)) << 4)) =
-          __float2bfloat16(o[4 * j + 2 + e] * inv_hi);
-    }
-  }
-}
-
-// ------------------------------------- S % 8 == 0, d <= 64: wgmma + TMA ----
+// ------------------------------- S % 8 == 0, 48 < d <= 64: wgmma + TMA ----
 
 constexpr int BM = 64;    // query tokens per consumer warpgroup
 constexpr int BN = 128;   // keys per tile: two 64-key panels
@@ -265,19 +259,6 @@ flash_transposed_kernel(const __grid_constant__ CUtensorMap map_in,
   }
 }
 
-// A (S, B, d, heads) map over the (heads * d, B, S) array at `base`, tokens
-// innermost: boxes of 64 tokens of one batch by 64 rows of one head, panel j
-// at row 64 j.  S % 8 == 0.
-cudaError_t band_map(CUtensorMap* map, const bf16* base, int heads, int d, int B, int S) {
-  const cuuint64_t dims[4] = {(cuuint64_t)S, (cuuint64_t)B, (cuuint64_t)d,
-                              (cuuint64_t)heads};
-  const cuuint64_t strides[3] = {(cuuint64_t)S * sizeof(bf16),
-                                 (cuuint64_t)B * S * sizeof(bf16),
-                                 (cuuint64_t)d * B * S * sizeof(bf16)};
-  const cuuint32_t box[4] = {ROW_ELEMS, 1, D, 1};
-  return encode_map(map, base, 4, dims, strides, box);
-}
-
 template <int NWG, bool SCALE_Q>
 cudaError_t launch(const CUtensorMap& m_in, const CUtensorMap& m_out, int B, int S, int H,
                    int d, cudaStream_t stream) {
@@ -292,7 +273,7 @@ cudaError_t launch(const CUtensorMap& m_in, const CUtensorMap& m_out, int B, int
   return cudaGetLastError();
 }
 
-// ------------------------------ S % 8 == 0, 64 < d <= 512: D split in two ----
+// ----------------------------- S % 8 == 0, 160 < d <= 512: D split in two ----
 
 namespace split {
 
@@ -304,8 +285,8 @@ constexpr int MAX_STAGES = 4;
 
 template <int DP>
 struct Tile {
-  static_assert(DP % 64 == 0 && DP >= 128 && DP <= 512,
-                "the panel width is a multiple of 64, 128 to 512");
+  static_assert(DP % 64 == 0 && DP >= 192 && DP <= 512,
+                "the panel width is a multiple of 64, 192 to 512");
   static constexpr int NP = DP / 64;         // panels of a head
   static constexpr int NP0 = (NP + 1) / 2;   // consumer 0's; consumer 1 takes the rest
   static constexpr int ELEMS = NP * PANEL;   // a 64-token tile of q, k or v
@@ -503,13 +484,14 @@ cudaError_t launch(const CUtensorMap& m_in, const CUtensorMap& m_out, int B, int
 
 cudaError_t launch_tma(const bf16* in, bf16* out, int B, int S, int H, int d,
                        cudaStream_t stream) {
+  if (d <= NARROW_D) return gswm_launch_flash_narrow_transposed(in, out, B, S, H, d, stream);
+  if (d > D && d <= MID_D) return gswm_launch_flash_mid_transposed(in, out, B, S, H, d, stream);
   CUtensorMap m_in, m_out;
   cudaError_t e = band_map(&m_in, in, 3 * H, d, B, S);
   if (e == cudaSuccess) e = band_map(&m_out, out, H, d, B, S);
   if (e != cudaSuccess) return e;
   if (d > D) {  // the panel width: d rounded up to a multiple of 64
     switch ((d + D - 1) / D * D) {
-      case 128: return split::launch<128>(m_in, m_out, B, S, H, d, stream);
       case 192: return split::launch<192>(m_in, m_out, B, S, H, d, stream);
       case 256: return split::launch<256>(m_in, m_out, B, S, H, d, stream);
       case 320: return split::launch<320>(m_in, m_out, B, S, H, d, stream);
@@ -520,10 +502,8 @@ cudaError_t launch_tma(const bf16* in, bf16* out, int B, int S, int H, int d,
     }
   }
   // 128-token blocks unless they would leave SMs of this card without one
-  int dev = 0, sm_count = 0;
-  e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sm_count, cudaDevAttrMultiProcessorCount, dev);
+  int sm_count = 0;
+  e = multiprocessors(&sm_count);
   if (e != cudaSuccess) return e;
   const bool wide = (long)((S + 2 * BM - 1) / (2 * BM)) * H * B >= sm_count;
   if (d == D)  // the 2^-3 scale folded into the exponent, exact

@@ -1,11 +1,12 @@
 // Hopper (sm_90a) building blocks shared by the projection GEMM
 // (fused_qkv.cu) and the flash attention kernels (flash_hopper.cu at d <= 64,
 // flash_mid.cu from 72 to 160, flash_split.cu from 168 to 512,
-// flash_transposed.cu on the transposed
-// layout): the TMA tensor-map encoder on the host; mbarrier, TMA load/store,
-// wgmma and setmaxnreg wrappers on the device; and the flash kernels' common
-// steps on a warpgroup's accumulator fragment (online softmax, rescale,
-// store).
+// flash_transposed.cu on the transposed layout, whose d <= 48 and
+// 64 < d <= 160 run flash_hopper.cu's and flash_mid.cu's kernels): the TMA
+// tensor-map encoder on the host; mbarrier, TMA load/store, wgmma and
+// setmaxnreg wrappers on the device; the flash kernels' common steps on a
+// warpgroup's accumulator fragment (online softmax, rescale, store); and
+// the two layouts those kernels read (Layout).
 //
 // One shared-memory layout serves every tile here: rows of exactly 128 bytes
 // (64 bf16), written by TMA with the 128-byte swizzle, tile bases aligned to
@@ -104,6 +105,33 @@ static inline cudaError_t head_map(CUtensorMap* map, const bf16* base, int B, in
                                  (cuuint64_t)S * pitch * sizeof(bf16)};
   const cuuint32_t box[4] = {ROW_ELEMS, 1, (cuuint32_t)rows, 1};
   return encode_map(map, base, 4, dims, strides, box);
+}
+
+// A (S, B, d, heads) map over the transposed layout's (heads * d, B, S)
+// array at `base`, tokens innermost (S % 8 == 0, so every stride is a
+// multiple of 16 bytes): boxes of 64 tokens of one batch by 64 rows of one
+// head, panel j at row 64 j.  Rows from d to the panel's end arrive as zeros
+// on a load and are dropped on a store, so no box reaches into the next
+// head's rows; tokens past S arrive as zeros and never from batch b + 1.  A
+// box lands as 64 rows (of d) of 128 bytes (64 tokens) in the one layout.
+static inline cudaError_t band_map(CUtensorMap* map, const bf16* base, int heads, int d, int B,
+                                   int S) {
+  const cuuint64_t dims[4] = {(cuuint64_t)S, (cuuint64_t)B, (cuuint64_t)d,
+                              (cuuint64_t)heads};
+  const cuuint64_t strides[3] = {(cuuint64_t)S * sizeof(bf16),
+                                 (cuuint64_t)B * S * sizeof(bf16),
+                                 (cuuint64_t)d * B * S * sizeof(bf16)};
+  const cuuint32_t box[4] = {ROW_ELEMS, 1, ROW_ELEMS, 1};
+  return encode_map(map, base, 4, dims, strides, box);
+}
+
+// The streaming multiprocessors of the current device: the launchers size
+// their blocks so that the grid fills them.
+static inline cudaError_t multiprocessors(int* count) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(count, cudaDevAttrMultiProcessorCount, dev);
+  return e;
 }
 
 // -------------------------------------------------------------- device ----
@@ -386,9 +414,13 @@ static __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(TRANS_B));
 }
 
-// d (64 x 48 fp32) += a (64 x 16 bf16, registers) * b (16 x 48 bf16, shared,
-// MN-major: v of a (keys, 64) tile, of which the first 48 columns are read),
-// one warpgroup; the accumulator layout above with 6 column groups.
+// d (64 x 48 fp32) += a (64 x 16 bf16, registers) * b (16 x 48 bf16,
+// shared), one warpgroup; the accumulator layout above with 6 column groups.
+// TRANS_B = 1: b is MN-major, v of a (keys, 64) tile, of which the first 48
+// columns of each 128-byte swizzled row are read; 0: K-major, v of the
+// transposed layout's (64, keys) tile, of which the first 48 rows are read.
+// The N = 32 and 16 wrappers below read the first N columns or rows alike.
+template <int TRANS_B = 1>
 static __device__ __forceinline__ void wgmma_m64n48k16_rs(float (&d)[24],
                                                           const uint32_t (&a)[4],
                                                           uint64_t desc_b) {
@@ -400,7 +432,7 @@ static __device__ __forceinline__ void wgmma_m64n48k16_rs(float (&d)[24],
       "{%0, %1, %2, %3, %4, %5, %6, %7, "
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23}, "
-      "{%24, %25, %26, %27}, %28, p, 1, 1, 1;\n"
+      "{%24, %25, %26, %27}, %28, p, 1, 1, %30;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -408,12 +440,13 @@ static __device__ __forceinline__ void wgmma_m64n48k16_rs(float (&d)[24],
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(TRANS_B));
 }
 
-// d (64 x 32 fp32) += a (64 x 16 bf16, registers) * b (16 x 32 bf16, shared,
-// MN-major: the first 32 columns of each 128-byte swizzled row), one
-// warpgroup; the accumulator layout above with 4 column groups.
+// d (64 x 32 fp32) += a (64 x 16 bf16, registers) * b (16 x 32 bf16,
+// shared), one warpgroup; the accumulator layout above with 4 column groups.
+// TRANS_B as wgmma_m64n48k16_rs's.
+template <int TRANS_B = 1>
 static __device__ __forceinline__ void wgmma_m64n32k16_rs(float (&d)[16],
                                                           const uint32_t (&a)[4],
                                                           uint64_t desc_b) {
@@ -424,18 +457,19 @@ static __device__ __forceinline__ void wgmma_m64n32k16_rs(float (&d)[16],
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, "
       "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n"
+      "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(TRANS_B));
 }
 
-// d (64 x 16 fp32) += a (64 x 16 bf16, registers) * b (16 x 16 bf16, shared,
-// MN-major: the first 16 columns of each 128-byte swizzled row), one
-// warpgroup; the accumulator layout above with 2 column groups.
+// d (64 x 16 fp32) += a (64 x 16 bf16, registers) * b (16 x 16 bf16,
+// shared), one warpgroup; the accumulator layout above with 2 column groups.
+// TRANS_B as wgmma_m64n48k16_rs's.
+template <int TRANS_B = 1>
 static __device__ __forceinline__ void wgmma_m64n16k16_rs(float (&d)[8],
                                                           const uint32_t (&a)[4],
                                                           uint64_t desc_b) {
@@ -445,11 +479,11 @@ static __device__ __forceinline__ void wgmma_m64n16k16_rs(float (&d)[8],
       "setp.ne.b32 p, %13, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n"
+      "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(TRANS_B));
 }
 
 // d (64 x 8 fp32) += a (64 x 16 bf16, registers) * b (16 x 8 bf16, shared,
@@ -652,6 +686,76 @@ static __device__ __forceinline__ void store_tile_sw128(void* tile_base, const f
     *reinterpret_cast<uint32_t*>(tile + (r_lo + 8) * ROW_BYTES + at) =
         pack_bf16(o[4 * j + 2] * inv_hi, o[4 * j + 3] * inv_hi);
   }
+}
+
+// The fragment o of 64 tokens by N / 4 groups of 8 rows (of d), tokens
+// scaled and rounded to bf16, transposed into a (64 rows, 64 tokens) panel
+// as TMA's 128-byte swizzle wants it: row r, token c at 16-byte chunk
+// (c / 8) ^ (r % 8) of the row.  Rows past the fragment's keep what the
+// panel held.
+template <int N>
+static __device__ __forceinline__ void store_tile_transposed(void* panel, const float (&o)[N],
+                                                             float inv_lo, float inv_hi,
+                                                             int warp, int g, int t4) {
+  unsigned char* tile = static_cast<unsigned char*>(panel);
+  const int c_lo = warp * 16 + g;  // c_lo % 8 == (c_lo + 8) % 8 == g
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int r = 8 * j + 2 * t4 + e;
+      unsigned char* row = tile + r * ROW_BYTES + g * 2;
+      *reinterpret_cast<bf16*>(row + (((c_lo >> 3) ^ (r & 7)) << 4)) =
+          __float2bfloat16(o[4 * j + e] * inv_lo);
+      *reinterpret_cast<bf16*>(row + ((((c_lo >> 3) + 1) ^ (r & 7)) << 4)) =
+          __float2bfloat16(o[4 * j + 2 + e] * inv_hi);
+    }
+  }
+}
+
+// ----------------------------------------------------- the two layouts ----
+// The flash kernels of flash_hopper.cu (narrow) and flash_mid.cu take the
+// layout as a template parameter; it decides the tensor maps' coordinates,
+// which way round wgmma reads q, k and v, and the epilogue's store, and
+// nothing else.
+//   natural:    q, k, v, out (B, S, H, d) (hopper.cuh head_map): a tile row
+//               is a token, 64 columns of d; q and k K-major, v MN-major.
+//   transposed: the (3 H d, B, S) stacked projection output and its (H d, B,
+//               S) output (band_map): a tile row is a row of d, 64 tokens;
+//               q and k MN-major, v K-major, and a k or v tile of 128 keys
+//               is two 64-token boxes side by side.
+enum class Layout { natural, transposed };
+
+// Panel j (64 columns, or rows, of d) of `tok`'s box of head h, batch b.
+template <Layout L>
+static __device__ __forceinline__ void tma_load_panel(void* dst, const CUtensorMap* map,
+                                                      uint64_t* bar, int j, int h, int tok,
+                                                      int b) {
+  if constexpr (L == Layout::natural)
+    tma_load_4d(dst, map, bar, j * ROW_ELEMS, h, tok, b);
+  else
+    tma_load_4d(dst, map, bar, tok, b, j * ROW_ELEMS, h);
+}
+
+template <Layout L>
+static __device__ __forceinline__ void tma_store_panel(const CUtensorMap* map, const void* src,
+                                                       int j, int h, int tok, int b) {
+  if constexpr (L == Layout::natural)
+    tma_store_4d(map, src, j * ROW_ELEMS, h, tok, b);
+  else
+    tma_store_4d(map, src, tok, b, j * ROW_ELEMS, h);
+}
+
+// The output fragment of 64 rows by N / 4 column groups into a panel of the
+// warpgroup's q tile: as it lies (natural), or transposed.
+template <Layout L, int N>
+static __device__ __forceinline__ void store_tile_out(void* panel, const float (&o)[N],
+                                                      float inv_lo, float inv_hi, int warp,
+                                                      int g, int t4) {
+  if constexpr (L == Layout::natural)
+    store_tile_sw128(panel, o, inv_lo, inv_hi, warp, g, t4);
+  else
+    store_tile_transposed(panel, o, inv_lo, inv_hi, warp, g, t4);
 }
 
 // The log-sum-exp of a consumer's two rows of true logits into lse (B, H, Sq)

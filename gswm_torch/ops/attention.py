@@ -3,14 +3,15 @@
 Five kernels, hand-written CUDA for Hopper (``gswm_torch/csrc``), all on
 wgmma + TMA, behind six wrappers; ``route_self_attention`` picks the UNet's
 tier as the JAX package does.  Every layout but the pair-packed one takes
-any head dim d with d % 8 == 0 up to 512 (``kernel_takes_head_dim``): in the
-natural, split and fused-qkv layouts every d <= 64 runs the kernels of
-csrc/flash_hopper.cu (its narrow one at d <= 48), 64 < d <= 160 the kernel
-of csrc/flash_mid.cu (whole 64-column panels and a tail of the last panel's
-columns rounded up to 16), every wider d the kernel of csrc/flash_split.cu
-at d rounded up to a multiple of 64 (``head_dim_kernel``); the transposed
-layout splits at 64 alone, in csrc/flash_transposed.cu
-(``kernel_head_dim``); the kernels' tensor maps zero-fill the columns
+any head dim d with d % 8 == 0 up to 512 (``kernel_takes_head_dim``), and
+in every one of them d <= 48 runs csrc/flash_hopper.cu's narrow kernel and
+64 < d <= 160 the kernel of csrc/flash_mid.cu (whole 64-column panels and a
+tail of the last panel's columns rounded up to 16), each with the layout a
+template parameter; 48 < d <= 64 runs flash_hopper.cu's d <= 64 kernel
+(transposed: csrc/flash_transposed.cu's), every wider d a split kernel at d
+rounded up to a multiple of 64 (csrc/flash_split.cu; transposed:
+flash_transposed.cu's); ``head_dim_kernel`` names each d's kernel, panels
+and tail in either layout.  The kernels' tensor maps zero-fill the columns
 (transposed: rows) past d (SD 1.x: 40, 80, 160):
 
   * ``flash_attention_split`` — split-layout flash attention on
@@ -34,11 +35,11 @@ layout splits at 64 alone, in csrc/flash_transposed.cu
     the Pallas ``flash_attention_packed``; the ``packed`` route.
   * ``flash_attention_transposed`` (csrc/flash_transposed.cu) — flash
     attention on the (3*H*D, B, S) transposed projection output, the
-    tiles read as they lie (MN-major q and k); D split across two consumer
-    warpgroups above 64.  Port of the Pallas
+    tiles read as they lie (MN-major q and k, K-major v): the kernel
+    ``head_dim_kernel(d, "transposed")`` names.  Port of the Pallas
     ``flash_attention_transposed``; the ``transposed`` route.  Where S is
-    no multiple of 8 no tensor map can address the rows, and a third,
-    masked kernel (mma.sync) serves the shape.
+    no multiple of 8 no tensor map can address the rows, and a masked
+    kernel (mma.sync) serves the shape (``transposed_kernel``).
   * ``fused_qkv_attention`` (csrc/fused_qkv.cu, then the kernel of the
     head dim) — the bias-free q/k/v projections in a hand-written wgmma +
     TMA GEMM, then attention.  Port of the Pallas ``flash_attention_fused_qkv`` in
@@ -100,13 +101,12 @@ def kernel_takes_head_dim(d: int) -> bool:
 
 
 def kernel_head_dim(d: int) -> int:
-    """The panel width the transposed layout's kernels compute head dim
-    ``d`` at, and the widest a natural-layout kernel reads it as: 64 for
-    d <= 64 (csrc/flash_hopper.cu; the transposed layout's first kernel),
-    else d rounded up to a multiple of 64 (the templates of
-    csrc/flash_split.cu and of the transposed layout's split kernel, 128
-    ... 512; ``head_dim_kernel`` says what the natural, split and fused-qkv
-    layouts run).  Raises ValueError for a d the kernels do not take
+    """The width of the 64-column (transposed: 64-row) panels a head of dim
+    ``d`` lands in, in every layout: 64 for d <= 64, else d rounded up to a
+    multiple of 64 (the tensor maps zero-fill past d); the split kernels
+    of csrc/flash_split.cu and csrc/flash_transposed.cu compute on all of it
+    (192 ... 512), ``head_dim_kernel`` says what each kernel computes.
+    Raises ValueError for a d the kernels do not take
     (``kernel_takes_head_dim``)."""
     if not kernel_takes_head_dim(d):
         raise ValueError(f"head dim {d}: the attention kernels take d % 8 == 0, "
@@ -120,34 +120,55 @@ NARROW_MAX_HEAD_DIM = 48
 MID_MAX_HEAD_DIM = 160
 
 
-def head_dim_kernel(d: int) -> tuple[str, int, int]:
-    """(kernel, full panels, tail N): the kernel the natural, split and
-    fused-qkv layouts run head dim ``d`` on (``gswm_flash_split``'s dispatch,
-    csrc/flash_split.cu), the 64-column panels whose p v it computes at
-    N = 64, and the width N of its p v on the last panel (0: none past the
-    full ones).  The logits take ceil(d / 16) k16 steps in all, but for
-    flash_split_kernel, which computes whole panels.
+LAYOUTS = ("natural", "transposed")
+
+
+def head_dim_kernel(d: int, layout: str = "natural") -> tuple[str, int, int]:
+    """(kernel, full panels, tail N): the kernel that runs head dim ``d`` in
+    ``layout``, the 64-wide panels whose p v it computes at N = 64, and the
+    width N of its p v on the last panel (0: none past the full ones).  The
+    natural layout is that of the natural, split and fused-qkv wrappers
+    (``gswm_flash_split``'s dispatch, csrc/flash_split.cu); the transposed
+    one that of ``flash_attention_transposed`` where S % 8 == 0
+    (csrc/flash_transposed.cu's launch_tma).  The logits take ceil(d / 16)
+    k16 steps in all, but in the split kernels, which compute whole panels.
 
       d <= 48        flash_narrow_kernel (csrc/flash_hopper.cu), p v at N = 48
-      48 < d <= 64   flash_hopper_kernel, one panel
+      48 < d <= 64   one panel: flash_hopper_kernel (transposed:
+                     flash_transposed_kernel, csrc/flash_transposed.cu)
       64 < d <= 160  flash_mid_kernel (csrc/flash_mid.cu): the last panel's
-                     columns rounded up to 16 are its tail, a tail of 64 a
-                     full panel: 72 and 80 one panel and 16, 128 two and 0,
-                     160 two and 32
-      d > 160        flash_split_kernel (csrc/flash_split.cu), whole panels of
+                     columns (transposed: rows) rounded up to 16 are its
+                     tail, a tail of 64 a full panel: 72 and 80 one panel
+                     and 16, 128 two and 0, 160 two and 32
+      d > 160        flash_split_kernel (csrc/flash_split.cu; transposed:
+                     flash_transposed_split_kernel), whole panels of
                      ``kernel_head_dim``
 
-    Raises ValueError for a d the kernels do not take."""
+    Raises ValueError for a d the kernels do not take, or another layout."""
     width = kernel_head_dim(d)
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout {layout!r}: one of {LAYOUTS}")
+    transposed = layout == "transposed"
     if d <= NARROW_MAX_HEAD_DIM:
         return "flash_narrow_kernel", 0, NARROW_MAX_HEAD_DIM
     if d <= HEAD_DIM:
-        return "flash_hopper_kernel", 1, 0
+        return "flash_transposed_kernel" if transposed else "flash_hopper_kernel", 1, 0
     if d <= MID_MAX_HEAD_DIM:
         before = (d - 1) // 64  # the panels before the last
         tail = -(-(d - 64 * before) // 16) * 16 % 64
         return "flash_mid_kernel", before + (tail == 0), tail
-    return "flash_split_kernel", width // 64, 0
+    return ("flash_transposed_split_kernel" if transposed else "flash_split_kernel",
+            width // 64, 0)
+
+
+def transposed_kernel(d: int, s: int) -> str:
+    """The kernel ``flash_attention_transposed`` runs head dim ``d`` over
+    ``s`` tokens on: the masked one where S % 8 != 0 (no tensor map can
+    address the rows), else ``head_dim_kernel(d, "transposed")``'s."""
+    if s % 8:
+        kernel_head_dim(d)
+        return "flash_transposed_masked_kernel"
+    return head_dim_kernel(d, "transposed")[0]
 
 
 def _count(wrapper, d: int) -> None:
@@ -580,10 +601,13 @@ def flash_attention_transposed(qkv_t: torch.Tensor, heads: int) -> torch.Tensor:
     -> (H*D, B, S), which ``to_out`` contracts over dim 0: the counterpart of
     ``gswm.ops.attention.flash_attention_transposed``.
 
-    CPU: ``flash_attention_transposed_reference`` (any D).  CUDA: the kernels
-    of csrc/flash_transposed.cu (bf16, D as ``kernel_head_dim`` takes it, any
-    B and S: wgmma + TMA where S % 8 == 0, D split across two warpgroups
-    above 64; the masked kernel elsewhere)."""
+    CPU: ``flash_attention_transposed_reference`` (any D).  CUDA:
+    csrc/flash_transposed.cu's launcher (bf16, D as ``kernel_head_dim``
+    takes it, any B and S) and the kernel ``transposed_kernel`` names:
+    wgmma + TMA where S % 8 == 0 (flash_hopper.cu's narrow kernel at
+    D <= 48 and flash_mid.cu's at 64 < D <= 160, both with the transposed
+    layout), the masked kernel elsewhere.  Launches also count by kernel,
+    in ``flash_attention_transposed.launches_by_kernel``."""
     if qkv_t.dim() != 3 or qkv_t.shape[0] % (3 * heads):
         raise ValueError(f"flash_attention_transposed: qkv_t {tuple(qkv_t.shape)} "
                          f"is not (3 * {heads} * D, B, S)")
@@ -595,15 +619,18 @@ def flash_attention_transposed(qkv_t: torch.Tensor, heads: int) -> torch.Tensor:
     _check_cuda_bf16("flash_attention_transposed", qkv_t)
     n3, b, s = qkv_t.shape
     d = n3 // (3 * heads)
-    kernel_head_dim(d)
+    kernel = transposed_kernel(d, s)
     out = qkv_t.new_empty((heads * d, b, s))
     lib = native.library()
     with torch.cuda.device(qkv_t.device):
         lib.call("gswm_flash_transposed", qkv_t.data_ptr(), out.data_ptr(), b, s,
                  heads, d, native.stream_handle(qkv_t.device))
     _count(flash_attention_transposed, d)
+    by_kernel = flash_attention_transposed.launches_by_kernel
+    by_kernel[kernel] = by_kernel.get(kernel, 0) + 1
     return out
 
 
 flash_attention_transposed.launches = 0
 flash_attention_transposed.launches_by_d = {}
+flash_attention_transposed.launches_by_kernel = {}

@@ -2,7 +2,8 @@
 card.
 
     python -m gswm_torch.tools.compare_kernels --parent DIR [--out FILE.json]
-        [--cases attention,k8,k3] [--match TEXT]
+        [--cases attention,k8,k3] [--match TEXT] [--require-equal
+        [--except-head-dims LO-HI] [--except-transposed LO-HI[,LO-HI]]]
 
 DIR is a second checkout of the repository (for example ``git archive`` of
 the parent commit unpacked into a git-ignored directory).  Both kernel
@@ -16,7 +17,10 @@ entry points on the same tensors, so nothing but the kernels differs:
     (K4), and the transposed layout (K7), whose ``gswm_flash_transposed``
     each side is called with the arguments its library declares (the head
     dim since K7 takes any, none before: such a side is timed at D = 64
-    alone); CUDA-event times in the order parent, change, change, parent;
+    alone); CUDA-event times in the order parent, change, change, parent,
+    and for K7 the natural layout's kernel of this checkout on the same q, k
+    and v (``gswm_flash_split`` on them laid out (B, S, H, D)) in the middle
+    of that round, with its output's difference from K7's;
   * fused-qkv self-attention (GEMM + core) at K1's shapes of those widths,
     likewise, and the device time of each side's ``qkv_proj_kernel`` alone
     from ``torch.profiler``; each side's ``gswm_fused_qkv_attn`` is called
@@ -38,7 +42,9 @@ entry points on the same tensors, so nothing but the kernels differs:
 equal bit for bit (a change that must leave the kernels' results alone);
 ``--except-head-dims LO-HI`` exempts the cases whose head dim lies in
 [LO, HI] (the widths a change hands to a new kernel), whose difference is
-printed all the same.
+printed all the same; ``--except-transposed`` does so for K7's cases alone
+where S % 8 == 0 (the wgmma + TMA kernels; the masked one stays held), at
+each range of a comma-separated list.
 
 Where the device time goes, apart from the walls above (``torch.profiler``,
 the kernels of one call by name):
@@ -51,7 +57,9 @@ the kernels of one call by name):
     and without, this checkout's wrapper with ``return_lse`` and without in
     turns, and the host time of the lse's ``torch.empty``;
   * the sd-1-4 UNet forward (``--cases sd14``; 512x512, batch 4 and 8, the
-    random weights of ``paths``' seed, 8 heads of 40, 80 and 160): one
+    random weights of ``paths``' seed, 8 heads of 40, 80 and 160) on the
+    default route and under switch sets (c) (``paths.TIER_SWITCHES``: K7 at
+    level 0) and (t) (``paths.SD14_SWITCHES``: K7 at every level): one
     pipeline, each side's kernel library swapped in under the same modules,
     in turns; the device time a forward (the sum of its kernels' times) and
     its CUDA-event time.
@@ -75,6 +83,8 @@ from gswm_torch import native, roofline
 from gswm_torch.tools import paths
 
 ROUNDS = ("parent", "change", "change", "parent")
+# K7's cases: the natural layout's kernel on the same q, k and v between
+TRANSPOSED_ROUNDS = ("parent", "change", "natural", "natural", "change", "parent")
 # the shapes of chip_smoke.py's phase 2 (gswm_torch/tools/paths.py)
 FLASH_SHAPES = (  # (label, B, Sq, Sk, H, D)
     *((f"K2 ({b}, {s}, {h}, {d})", b, s, s, h, d) for b, s, h, d in paths.K2_SHAPES),
@@ -129,12 +139,17 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def in_turns(fns: dict, iters: int) -> dict:
-    """{"parent": [ms, ms], "change": [ms, ms]} in the order of ROUNDS."""
-    out = {"parent": [], "change": []}
-    for side in ROUNDS:
+def in_turns(fns: dict, iters: int, rounds: tuple = ROUNDS) -> dict:
+    """{"parent": [ms, ms], "change": [ms, ms]} in the order of ``rounds``."""
+    out = {side: [] for side in dict.fromkeys(rounds)}
+    for side in rounds:
         out[side].append(time_ms(fns[side], iters))
     return out
+
+
+def _ranges(text: str) -> list:
+    """"LO-HI,LO-HI" -> [(LO, HI), ...]; "" -> []."""
+    return [tuple(map(int, part.split("-"))) for part in text.split(",") if part]
 
 
 def device_times(fn, iters: int) -> dict:
@@ -312,6 +327,9 @@ def main() -> None:
                     help="fail unless every attention output equals the parent's")
     ap.add_argument("--except-head-dims", default="",
                     help="LO-HI: --require-equal skips the cases at these head dims")
+    ap.add_argument("--except-transposed", default="",
+                    help="LO-HI[,LO-HI]: --require-equal skips K7's S %% 8 == 0 cases "
+                         "at these head dims")
     args = ap.parse_args()
     cases = set(args.cases.split(","))
     lo, hi = map(int, args.except_head_dims.split("-")) if args.except_head_dims \
@@ -349,15 +367,20 @@ def main() -> None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(result, indent=1))
     if args.require_equal:
+        exempt_t = _ranges(args.except_transposed)
         held = [case for key in ("flash", "packed", "transposed", "fused_qkv", "lse")
-                for case in result.get(key, []) if not lo <= case["head_dim"] <= hi]
+                for case in result.get(key, []) if not lo <= case["head_dim"] <= hi
+                and not (key == "transposed" and case["shape"][1] % 8 == 0
+                         and any(a <= case["head_dim"] <= b for a, b in exempt_t))]
         differ = [case for case in held
                   if case["max_abs_diff"] != 0.0 or case.get("lse_max_abs_diff", 0.0) != 0.0]
         if differ:
             raise SystemExit(f"compare_kernels: {len(differ)} attention cases differ from "
                              f"the parent's: {[c.get('label', c['shape']) for c in differ]}")
         print(f"all {len(held)} attention outputs held equal the parent's, bit for bit"
-              + (f" (head dims {lo}-{hi} exempt)" if lo <= hi else ""), flush=True)
+              + (f" (head dims {lo}-{hi} exempt)" if lo <= hi else "")
+              + (f" (K7 at S % 8 == 0 and head dims {args.except_transposed} exempt)"
+                 if exempt_t else ""), flush=True)
 
 
 def compare_attention(libs: dict, rand, stream: int, iters: int, match: str = "") -> dict:
@@ -415,15 +438,26 @@ def compare_attention(libs: dict, rand, stream: int, iters: int, match: str = ""
         fns = {side: (lambda side=side: libs[side].call(
             "gswm_flash_transposed", qkv_t.data_ptr(), outs[side].data_ptr(), b, s, h,
             *((d,) if takes_d[side] else ()), stream)) for side in libs}
-        t = in_turns(fns, iters)
+        # the same q, k and v laid out (B, S, H, D), through this checkout's
+        # natural-layout launcher
+        q, k, v = (t_.permute(2, 3, 0, 1).contiguous() for t_ in qkv_t.view(3, h, d, b, s))
+        nat = torch.empty_like(q)
+        fns["natural"] = lambda: libs["change"].call(
+            "gswm_flash_split", q.data_ptr(), k.data_ptr(), v.data_ptr(), nat.data_ptr(), b,
+            s, s, h, d, stream)
+        t = in_turns(fns, iters, TRANSPOSED_ROUNDS)
         diff = (outs["parent"].float() - outs["change"].float()).abs().max().item()
+        nat_diff = (nat.permute(2, 3, 0, 1).reshape(h * d, b, s).float()
+                    - outs["change"].float()).abs().max().item()
         bound, roof = roofline.attention_bound_ms(roofline.attention_cost(b, s, s, h, d))
         ratio = sum(t["parent"]) / sum(t["change"])
         print(f"transposed (B={b}, S={s}, H={h}, D={d}): parent {t['parent']} change "
-              f"{t['change']} ms, {ratio:.2f}x, bound {bound:.4f} ms by {roof}, "
-              f"max|parent - change| {diff:.5f}", flush=True)
+              f"{t['change']} ms, {ratio:.2f}x, natural layout {t['natural']} ms, bound "
+              f"{bound:.4f} ms by {roof}, max|parent - change| {diff:.5f}, "
+              f"max|natural - change| {nat_diff:.5f}", flush=True)
         result["transposed"].append(dict(shape=[b, s, h, d], head_dim=d, **t, ratio=ratio,
-                                         bound_ms=bound, roof=roof, max_abs_diff=diff))
+                                         bound_ms=bound, roof=roof, max_abs_diff=diff,
+                                         natural_max_abs_diff=nat_diff))
     for b, s, c, h, d in K1_SHAPES:
         label = f"fused_qkv (B={b}, S={s}, C={c}, H={h}, D={d})"
         if match not in label:
@@ -477,9 +511,13 @@ def compare_attention(libs: dict, rand, stream: int, iters: int, match: str = ""
     return result
 
 
+SD14_SETS = {"default": {}, "c": paths.TIER_SWITCHES["c"], "t": paths.SD14_SWITCHES["t"]}
+
+
 def compare_sd14(libs: dict, iters: int) -> list:
-    """The sd-1-4 UNet forward at batch 4 and 8 (guidance), each side's
-    kernel library swapped in as the one the wrappers call."""
+    """The sd-1-4 UNet forward at batch 4 and 8 (guidance) on the default
+    route and under ``SD14_SETS``' switch sets, each side's kernel library
+    swapped in as the one the wrappers call."""
     pipe = paths.build_pipeline("sd-1-4")
     out = []
     for batch in (paths.BATCH_SD14, 2 * paths.BATCH_SD14):
@@ -489,17 +527,19 @@ def compare_sd14(libs: dict, iters: int) -> list:
             with torch.inference_mode():
                 return pipe.unet(*inputs)
 
-        wall = {side: [] for side in libs}
-        device = {side: [] for side in libs}
-        for side in ROUNDS:
-            native._LIBRARY = libs[side]
-            wall[side].append(time_ms(forward, iters))
-            device[side].append(sum(device_times(forward, iters).values()))
-        native._LIBRARY = libs["change"]
-        print(f"sd-1-4 UNet forward, batch {batch}, 512x512: device parent {device['parent']} "
-              f"change {device['change']} ms; CUDA events parent {wall['parent']} change "
-              f"{wall['change']} ms", flush=True)
-        out.append(dict(batch=batch, device_ms=device, ms=wall))
+        for label, switches in SD14_SETS.items():
+            wall = {side: [] for side in libs}
+            device = {side: [] for side in libs}
+            with paths.route_switches(switches):
+                for side in ROUNDS:
+                    native._LIBRARY = libs[side]
+                    wall[side].append(time_ms(forward, iters))
+                    device[side].append(sum(device_times(forward, iters).values()))
+            native._LIBRARY = libs["change"]
+            print(f"sd-1-4 UNet forward ({label}), batch {batch}, 512x512: device parent "
+                  f"{device['parent']} change {device['change']} ms; CUDA events parent "
+                  f"{wall['parent']} change {wall['change']} ms", flush=True)
+            out.append(dict(batch=batch, switches=label, device_ms=device, ms=wall))
     del pipe
     torch.cuda.empty_cache()
     return out

@@ -107,13 +107,16 @@ K3_BLOCKS = (32, 72, 128, 2**20)
 # 2, and 4 under guidance) and 512x512, and a ragged shape
 LEVEL0_SHAPES = ((2, 9216, 5), (4, 9216, 5), (2, 4096, 5), (1, 1000, 3))
 # K7 (B, S, H, D): those at D = 64; SD 1.x's level 0 at 512x512 under switch
-# set (c) (8 heads of 40, batch 4 and 8 under guidance) and its levels 1 and
-# 2's widths (80: 64 + 16 rows, 160: 2 + 1 panels), a width no SD model
-# uses (72) and the widest (512: 4 + 4 panels); where S is no multiple of 8
-# (rows not 16-byte aligned) the masked kernel, at 64, 40 and 160
+# set (c) (8 heads of 40, batch 4 and 8 under guidance: flash_hopper.cu's
+# narrow kernel) and its levels 1 and 2 under phase 10's switch set (t)
+# (80: a 64-row panel and a 16-row tail, 160: two and 32; batch 4 and 8:
+# flash_mid.cu's kernel), a width no SD model uses (72) and the widest (512:
+# the split kernel, 4 + 4 panels); where S is no multiple of 8 (rows not
+# 16-byte aligned) the masked kernel, at 64, 40 and 160
 K7_SHAPES = (*((b, s, h, 64) for b, s, h in LEVEL0_SHAPES), (1, 1001, 3, 64),
-             (4, 4096, 8, 40), (8, 4096, 8, 40), (4, 1024, 8, 80), (4, 256, 8, 160),
-             (2, 1000, 3, 72), (1, 1024, 1, 512), (1, 1001, 3, 40), (1, 1001, 2, 160))
+             (4, 4096, 8, 40), (8, 4096, 8, 40), (4, 1024, 8, 80), (8, 1024, 8, 80),
+             (4, 256, 8, 160), (8, 256, 8, 160), (2, 1000, 3, 72), (1, 1024, 1, 512),
+             (1, 1001, 3, 40), (1, 1001, 2, 160))
 
 # K3 over a key table (rows, ChaCha20 blocks a row): 32 blocks are the 16,384
 # bits of a 512x512 latent; 4 rows are phase 7d's batch, 4096 one chunk of the
@@ -157,6 +160,18 @@ TIER_SWITCHES = {
     "c": {"GSWM_XF_ATTN": "0", "GSWM_CRES_ATTN": "0", "GSWM_TRANSPOSED_ATTN": "1"},
     "d": {"GSWM_FUSED_QKV_MODE": "seqhead"},
     "e": {"GSWM_FUSED_QKV": "0"},
+}
+
+# Phase 10's own switch set, beside TIER_SWITCHES' (a), (c) and (e) (phase 5
+# walks TIER_SWITCHES at 768x768, where the transposed tier's window stays the
+# default): (t) the transposed tier at every level of sd-1-4 at 512x512,
+# its window opened to 256 tokens by the reference's own
+# GSWM_TRANSPOSED_ATTN_MIN_SEQ (gswm/models/layers.py:370-372): K7 at d = 40
+# (4096 tokens), 80 (1024) and 160 (256), no K1; the mid block's 64 tokens
+# stay plain
+SD14_SWITCHES = {
+    "t": {"GSWM_XF_ATTN": "0", "GSWM_CRES_ATTN": "0", "GSWM_TRANSPOSED_ATTN": "1",
+          "GSWM_TRANSPOSED_ATTN_MIN_SEQ": "256"},
 }
 
 

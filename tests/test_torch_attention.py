@@ -12,6 +12,9 @@ running max; the two agree while |logit| < 60 and differ above it, which
 ``test_exact_softmax_differs_from_clamped_xla_flash_above_60`` pins.
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -124,6 +127,8 @@ def test_kernel_head_dim_refuses_the_rest(d):
         attn.kernel_head_dim(d)
     with pytest.raises(ValueError, match="d % 8 == 0"):
         attn.head_dim_kernel(d)
+    with pytest.raises(ValueError, match="d % 8 == 0"):
+        attn.head_dim_kernel(d, "transposed")
 
 
 # csrc/flash_mid.cu's widths: (full 64-column panels, tail N of the p v on
@@ -151,6 +156,60 @@ def test_head_dim_kernel_rule(d):
         assert 0 <= 64 * full + tail - d < 16 and tail < 64
     else:
         assert (kernel, full, tail) == ("flash_split_kernel", attn.kernel_head_dim(d) // 64, 0)
+
+
+CSRC = Path(attn.__file__).resolve().parent.parent / "csrc"
+
+
+def _c_code(name: str) -> str:
+    """A CUDA source without its // comments."""
+    return "\n".join(line.split("//")[0] for line in (CSRC / name).read_text().splitlines())
+
+
+def _transposed_launcher_rule(d: int) -> tuple:
+    """(kernel, full panels, tail N) that csrc/flash_transposed.cu's
+    launch_tma dispatches head dim ``d`` to where S % 8 == 0, read from the
+    sources: its constants and branches, flash_mid.cu's panel arithmetic
+    (evaluated as C integer arithmetic) and case table, and its split
+    kernel's instantiated widths."""
+    text = _c_code("flash_transposed.cu")
+    const = {name: int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+             for name in ("D", "NARROW_D", "MID_D")}
+    launcher = text.split("cudaError_t launch_tma(")[1].split("\n}\n")[0]
+    narrow = "if (d <= NARROW_D) return gswm_launch_flash_narrow_transposed("
+    mid = "if (d > D && d <= MID_D) return gswm_launch_flash_mid_transposed("
+    assert launcher.index(narrow) < launcher.index(mid) < launcher.index("switch (")
+    widths = {int(w) for w in re.findall(r"case (\d+): return split::launch<\1>\(", launcher)}
+    if d <= const["NARROW_D"]:
+        return "flash_narrow_kernel", 0, 48
+    if d <= const["D"]:
+        return "flash_transposed_kernel", 1, 0
+    if d <= const["MID_D"]:
+        mid_code = _c_code("flash_mid.cu").split("cudaError_t dispatch(")[1]
+        env = {"d": d, "ROW_ELEMS": 64}
+        for name in ("last", "tail", "full"):
+            expr = re.search(rf"const int {name} = (.+?);", mid_code).group(1)
+            env[name] = int(eval(expr.replace("/", "//"), {}, env))
+        cases = {int(c): (int(f), int(t)) for c, f, t in re.findall(
+            r"case (\d+): return launch<L, (\d+), (\d+)>\(a, wide\);", mid_code)}
+        assert cases[100 * env["full"] + env["tail"]] == (env["full"], env["tail"])
+        return "flash_mid_kernel", env["full"], env["tail"]
+    width = (d + const["D"] - 1) // const["D"] * const["D"]
+    assert width in widths
+    return "flash_transposed_split_kernel", width // 64, 0
+
+
+@pytest.mark.parametrize("d", range(8, 513, 8))
+def test_transposed_launcher_runs_the_kernel_head_dim_kernel_names(d):
+    """K7's launcher (csrc/flash_transposed.cu launch_tma, S % 8 == 0) sends
+    every head dim to the kernel, full panels and tail that
+    ``head_dim_kernel(d, "transposed")`` names: flash_hopper.cu's narrow
+    kernel at d <= 48, flash_transposed_kernel to 64, flash_mid.cu's kernel
+    to 160 at its panel arithmetic, the split kernel's whole panels above;
+    the masked kernel wherever S % 8 != 0 (``transposed_kernel``)."""
+    assert attn.head_dim_kernel(d, "transposed") == _transposed_launcher_rule(d)
+    assert attn.transposed_kernel(d, 4096) == attn.head_dim_kernel(d, "transposed")[0]
+    assert attn.transposed_kernel(d, 1001) == "flash_transposed_masked_kernel"
 
 
 def test_exact_softmax_differs_from_clamped_xla_flash_above_60():

@@ -199,38 +199,100 @@ def test_mid_kernel_overlaps_its_exponentials_and_pads_no_whole_panel():
     mid = _code("flash_mid.cu")
     kernel = mid.split("flash_mid_kernel(")[1].split("struct Args")[0]
     for used in ("wgmma_wait<1>()", "named_barrier_arrive(", "wgmma_m64n8k16_rs(l,",
-                 "sm.ones", "kk < M::KS", "pv_tail<TAIL>(", "fence_regs(p)", "softmax_exp<",
-                 "softmax_pack<", "scale_tile(", "store_lse("):
+                 "sm.ones", "kk < M::KS", "pv_tail<TAIL, VT>(", "fence_regs(p)",
+                 "softmax_exp<", "softmax_pack<", "scale_tile(", "store_lse("):
         assert used in kernel, used
     assert kernel.index("wgmma_wait<1>()") < kernel.index("softmax_exp<BN / 8>(s, m_lo, m_hi, "
                                                          "a_lo, a_hi, Sk - (t + 1)")
     assert "softmax_tile<" not in kernel and "CONSUMERS" not in kernel
     for n in (16, 32):
-        assert f"wgmma_m64n{n}k16_rs(o, a, dv)" in mid
+        assert f"wgmma_m64n{n}k16_rs<TRANS_B>(o, a, dv)" in mid
     for full, tail in ((1, 16), (1, 32), (1, 48), (2, 0), (2, 16), (2, 32)):
-        assert f"case {100 * full + tail}: return launch<{full}, {tail}>(a, wide);" in mid
+        assert f"case {100 * full + tail}: return launch<L, {full}, {tail}>(a, wide);" in mid
 
 
 def test_transposed_kernel_keeps_mma_sync_only_for_unaligned_rows():
     """flash_transposed.cu: the wgmma + TMA kernels (both operands of the
     logits MN-major, v K-major; 4-D maps over the true d; d split over two
-    warpgroups above 64, every panel width instantiated) for S % 8 == 0, and
-    one mma.sync kernel, the masked one, which the launcher takes only where
-    S % 8 != 0; no cp.async code."""
+    warpgroups above 160, every panel width from 192 instantiated, none at
+    128, which no d above 160 rounds to) for S % 8 == 0, and one mma.sync
+    kernel, the masked one, which the launcher takes only where S % 8 != 0;
+    no cp.async code."""
     text = _code("flash_transposed.cu")
     tma, masked = text.split("namespace masked {")
     for used in ("wgmma_m64n64k16_ss<1, 1>", "wgmma_m64n64k16_rs<0>", "tma_load_4d(",
                  "tma_store_4d(", "softmax_tile<", "flash_transposed_split_kernel",
                  "scale_tile("):
         assert used in tma, used
-    for d in (128, 192, 256, 320, 384, 448, 512):
+    for d in (192, 256, 320, 384, 448, 512):
         assert f"case {d}: return split::launch<{d}>(" in tma
+    assert "case 128:" not in tma
     assert "mma_bf16" not in tma and "ldmatrix" not in tma
     assert "mma_bf16(" in masked and "flash_transposed_masked_kernel" in masked
     assert "cp_async" not in text and "cp.async.cg" not in text
     launcher = masked.split('extern "C"')[1]
     assert "if (S % 8 == 0) return" in launcher
     assert launcher.index("S % 8 == 0") < launcher.index("flash_transposed_masked_kernel")
+
+
+# the transposed layout's instantiations: (source, the kernel's body from,
+# to, the launcher's dispatch, what the transposed branches of the body use)
+TRANSPOSED_DESIGNS = {
+    "narrow": ("flash_hopper.cu", "flash_narrow_kernel(", "launch_narrow(",
+               "launch_narrow_filling<Layout::transposed>(a)",
+               ("wgmma_m64n48k16_rs<0>(o, p[kk], dv + (kk / 4) * BOX_DESC + (kk % 4) * "
+                "DESC_K_STEP)", "dq + kk * DESC_MN_STEP", "kk < KS")),
+    "mid": ("flash_mid.cu", "flash_mid_kernel(", "struct Args",
+            "dispatch<Layout::transposed>(",
+            ("pv_tail<TAIL, VT>(ot, p[kk], v_step(dv, FULL, kk))",
+             "constexpr int VT = T ? 0 : 1;", "wgmma_m64n64k16_rs<VT>(",
+             "(kk % 4) * DESC_K_STEP", "dq + (kk / 4) * Q_PANEL_DESC + (kk % 4) * DESC_MN_STEP",
+             "kk < M::KS")),
+}
+
+
+@pytest.mark.parametrize("design", sorted(TRANSPOSED_DESIGNS))
+def test_transposed_layout_runs_the_natural_layouts_designs(design):
+    """K7 at d <= 48 and 64 < d <= 160 (S % 8 == 0) is flash_hopper.cu's
+    narrow kernel and flash_mid.cu's kernel with the layout a template
+    parameter, one body each: the same overlap (tile t + 1's logits with
+    tile t's p v, retired alone by wgmma_wait<1>), the same turns on named
+    barriers, the row sums on m64n8k16 and q scaled in shared memory
+    (scale_tile), for both layouts; the transposed branches read MN-major q
+    and k (one m64n64k16 a 64-token box), K-major v (transpose bit 0, the
+    tail's first rows), take boxes by the transposed coordinates, store the
+    output transposed, and have no lse; flash_transposed.cu's launcher
+    sends those widths there before its own kernels."""
+    src, start, end, dispatch, used = TRANSPOSED_DESIGNS[design]
+    code = _code(src)
+    body = code.split(start)[1].split(end)[0]
+    for common in ("template <Layout L,", "wgmma_wait<1>()", "named_barrier(",
+                   "named_barrier_arrive(", "wgmma_m64n8k16_rs(l,", "scale_tile(",
+                   "softmax_exp<", "softmax_pack<"):
+        assert common in code.split(start)[0][-400:] + body, common
+    for branch in ("constexpr bool T = L == Layout::transposed;", "if constexpr (T)",
+                   "wgmma_m64n64k16_ss<1, 1>(", "BOX_DESC",
+                   "tma_load_panel<L>(", "tma_store_panel<L>(", "store_tile_out<L>(",
+                   "static_assert(L == Layout::natural || !LSE", *used):
+        assert branch in body, branch
+    assert body.count("wgmma_commit();") == 2  # the logits, and p v: one group each
+    assert dispatch in code.split(f"gswm_launch_flash_{design}_transposed(")[1]
+    launcher = _code("flash_transposed.cu").split("cudaError_t launch_tma(")[1]
+    assert launcher.index(f"gswm_launch_flash_{design}_transposed(") < \
+        launcher.index("split::launch<")
+    header = _code("flash_core.cuh")
+    assert f"cudaError_t gswm_launch_flash_{design}_transposed(" in header
+
+
+def test_rs_wrappers_take_the_transpose_bit():
+    """hopper.cuh's register-A wgmma wrappers at N = 64, 48, 32 and 16 take
+    v's transpose bit as a template argument (1, MN-major, by default), so
+    the transposed layout's K-major v reads the first N rows of a panel."""
+    code = _code("hopper.cuh")
+    for n in (64, 48, 32, 16):
+        head = code.split(f"void wgmma_m64n{n}k16_rs(")[0][-80:]
+        assert "template <int TRANS_B = 1>" in head, n
+    assert code.count('"n"(TRANS_B)') == 5  # the four above and the ss wrapper
 
 
 def test_narrow_kernel_overlaps_its_exponentials_with_the_tensor_cores():
@@ -251,11 +313,12 @@ def test_narrow_kernel_overlaps_its_exponentials_with_the_tensor_cores():
                                                          "a_lo, a_hi, Sk - (t + 1)")
     assert "softmax_tile<" not in narrow and "packed_sum" not in narrow
     for ks in (1, 2, 3):
-        assert f"launch_narrow<NWG, {ks}>(" in hopper
+        assert f"launch_narrow<L, NWG, {ks}>(" in hopper
     wide = hopper.split("flash_hopper_kernel(")[1].split("flash_narrow_kernel")[0]
     assert "softmax_tile<BN / 8>(" in wide and "wgmma_wait<1>" not in wide
     launcher = hopper.split("cudaError_t gswm_launch_flash_hopper(")[1]
     assert launcher.index("d <= NARROW_D") < launcher.index("if (d == D)")
+    assert "launch_narrow_filling<Layout::natural>(a)" in launcher
 
 
 def test_mma_sync_survives_in_one_kernel_only():

@@ -572,10 +572,15 @@ def test_transposed_kernel_is_exact_softmax_above_60(cuda):
                                atol=1e-2)
 
 
-# K7's head dims off 64: below (8, 40: rows past d zero-filled by the tensor
-# map), the split kernel's 128-wide (72, 80), 192-wide (160: 2 + 1 panels)
-# and 512-wide (4 + 4 panels) templates
-K7_HEAD_DIMS = (8, 40, 72, 80, 160, 512)
+# K7's head dims off 64: every width of flash_hopper.cu's narrow kernel in
+# the transposed layout (8 ... 48: rows past d zero-filled by the tensor map,
+# p v at N = 48) and of flash_mid.cu's (72 ... 160: one or two full 64-row
+# panels and a tail of 16, 32 or 48 rows), and the split kernel's 512-wide
+# template (4 + 4 panels)
+K7_HEAD_DIMS = (*range(8, 49, 8), *range(72, 161, 8), 512)
+# the chosen key's logit stands sqrt(d) standard deviations of the others'
+# above them, which over a thousand keys wins the softmax from d = 32 up
+K7_CHOSEN_DIMS = tuple(d for d in K7_HEAD_DIMS if d >= 32)
 
 
 def _to_transposed(*ts):
@@ -590,20 +595,26 @@ def _heads(out_t, h):
     return out_t.view(h, n // h, b, s).permute(2, 3, 0, 1)
 
 
-@pytest.mark.parametrize("s", [136, 1001, 4096])
+@pytest.mark.parametrize("s", [136, 1001, 1024, 4096])
 @pytest.mark.parametrize("d", K7_HEAD_DIMS)
 def test_transposed_kernel_any_head_dim(cuda, d, s):
-    """K7 at every kernel family: 136 and 4096 tokens through the wgmma +
-    TMA kernels (d <= 64 one, the split one above; 136 leaves a ragged key
-    and query tile), 1001 through the masked one, which walks d in 64-row
-    panels; every head against the plain version, launches counted at the
-    true d, and v = 1 shows the keys past S are masked."""
+    """K7 at every kernel family: 136, 1024 and 4096 tokens through the
+    wgmma + TMA kernels (the narrow one at d <= 48, the mid one at 64 < d <=
+    160, the split one above; 136 leaves a ragged key and query tile; 1024
+    and 4096 tokens take one and several consumer warpgroups a block), 1001
+    through the masked one, which walks d in 64-row panels; every head
+    against the plain version, launches counted at the true d and by the
+    kernel ``transposed_kernel`` names, and v = 1 shows the keys past S are
+    masked."""
     b, h = 2, 3
     g = torch.Generator(device=cuda).manual_seed(s + d)
     qkv_t = torch.randn((3 * h * d, b, s), generator=g, device=cuda).bfloat16()
-    before = attn.flash_attention_transposed.launches_by_d.get(d, 0)
+    kernel = attn.transposed_kernel(d, s)
+    by_kernel = attn.flash_attention_transposed.launches_by_kernel
+    before = attn.flash_attention_transposed.launches_by_d.get(d, 0), by_kernel.get(kernel, 0)
     got = attn.flash_attention_transposed(qkv_t, h)
-    assert attn.flash_attention_transposed.launches_by_d[d] == before + 1
+    assert (attn.flash_attention_transposed.launches_by_d[d], by_kernel[kernel]) == \
+        (before[0] + 1, before[1] + 1)
     assert got.shape == (h * d, b, s)
     want = attn.flash_attention_transposed_reference(qkv_t.float(), h)
     assert_every_head_close(_heads(got, h), _heads(want, h))
@@ -612,7 +623,7 @@ def test_transposed_kernel_any_head_dim(cuda, d, s):
     torch.testing.assert_close(ones, torch.ones_like(ones), rtol=0, atol=2**-7)
 
 
-@pytest.mark.parametrize("d", [40, 160, 512])
+@pytest.mark.parametrize("d", K7_HEAD_DIMS)
 def test_transposed_kernel_any_head_dim_tiles_do_not_cross_the_batch(cuda, d):
     """K7 off d = 64 at 1000 tokens (wgmma + TMA; ragged key and token
     tiles): batch 1's v is 100x batch 0's and follows batch 0's tokens in
@@ -632,8 +643,8 @@ def test_transposed_kernel_any_head_dim_tiles_do_not_cross_the_batch(cuda, d):
     assert err <= REL_BOUND * want[1].abs().max().item()
 
 
-@pytest.mark.parametrize("s", [136, 1001])
-@pytest.mark.parametrize("d", [40, 80, 160, 512])
+@pytest.mark.parametrize("s", [136, 1001, 1024])
+@pytest.mark.parametrize("d", K7_CHOSEN_DIMS)
 def test_transposed_kernel_any_head_dim_attends_to_the_chosen_key(cuda, d, s):
     """Query i is 4x the key (37 i + 5) % S at d rows: a wrong row panel or
     a head read from its neighbour's rows would pick other keys without any
@@ -656,7 +667,7 @@ def test_transposed_kernel_any_head_dim_attends_to_the_chosen_key(cuda, d, s):
 
 
 @pytest.mark.parametrize("s", [300, 1001])
-@pytest.mark.parametrize("d", [40, 160])
+@pytest.mark.parametrize("d", K7_HEAD_DIMS)
 def test_transposed_kernel_is_exact_softmax_above_60_at_any_head_dim(cuda, d, s):
     """Logits 80 and 70 in one row at d != 64, where q is scaled by d^-0.5
     in shared memory (300 tokens: wgmma + TMA) or by the masked kernel

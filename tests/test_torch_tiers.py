@@ -343,6 +343,34 @@ def test_attention_layer_matches_jax_under_transposed_switch_at_head_dim_40(monk
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=5e-5)
 
 
+@pytest.mark.parametrize("d,c", [(80, 640), (160, 1280)])
+def test_attention_layer_matches_jax_under_transposed_switch_at_sd14_mid_head_dims(
+        d, c, monkeypatch):
+    """sd-1-4's level-1 and level-2 head layouts (8 heads of 80 over 640
+    channels, 8 of 160 over 1280) at the JAX transposed tier's batch of 8,
+    the transposed switch with its window lowered to 256 tokens (phase 10's
+    set (t)): both packages take the transposed tier, the JAX one its Pallas
+    kernel in interpret mode, the port the widths flash_mid.cu's kernel
+    serves on the card; fp32, atol 5e-5 and rtol 1e-4 as at d = 40."""
+    _set_switches(monkeypatch, {**SWITCH_SETS["transposed"],
+                                "GSWM_TRANSPOSED_ATTN_MIN_SEQ": "256"})
+    monkeypatch.setenv("GSWM_FORCE_FLASH", "1")
+    b, s, h = 8, 256, 8
+    assert h * d == c
+    x = _rand((b, s, c), 32 + d)
+    jmod = JAttention(heads=h, head_dim=d, dtype=jnp.float32)
+    params = jmod.init(jax.random.key(6), jnp.asarray(x))
+    assert _jax_route(jmod.bind(params), jnp.asarray(x)) == "transposed"
+    want = np.asarray(jmod.apply(params, jnp.asarray(x)))
+    assert attn.route_self_attention(s, d) == "transposed"
+    assert attn.head_dim_kernel(d, "transposed")[0] == "flash_mid_kernel"
+    mod = Attention(c, c, h, d)
+    bridge.load_tree_(mod, params)
+    with torch.no_grad():
+        got = mod(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=5e-5)
+
+
 def test_new_wrappers_reject_other_devices_and_shapes():
     with pytest.raises(ValueError):
         attn.flash_attention_packed(torch.zeros((1, 8, 3 * 100)))  # not 3 * P * 128
