@@ -52,10 +52,16 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
                 80), (4 and 8, 256, 8, 160) of phase 10's set (t) and (2,
                 1000, 3, 72) (flash_mid.cu's kernel in the transposed layout,
                 "flash_attention_transposed_mid"), at (1, 1024, 1, 512) (its
-                split kernel), and at S % 8 != 0 shapes, which its masked
-                kernel serves: (1, 1001, 3, 64), (1, 1001, 3, 40) and (1,
-                1001, 2, 160); held head by head; beside each the natural
-                layout's kernel on the same q, k and v, in turns.  K8
+                split kernel), and at S % 8 != 0, where each design runs with
+                its boxes loaded and stored by hand: (1, 1001, 3, 64), (1,
+                1001, 3, 40), (1, 1001, 2, 160) and (1, 1001, 1, 512), and the
+                level-2 shapes of users' resolutions (S % 8 == 4): (8, 324,
+                8, 160) and (8, 484, 8, 160) (sd-1-4 at 576x576 and
+                704x704), (8, 324, 20, 64) (SD 2.x at 576x576) and (2, 988,
+                20, 64) (SDXL at 832x1216); held head by head, and at the
+                narrow and mid designs where S % 8 != 0 equal bit for bit to
+                the natural layout's kernel on the same q, k and v, which is
+                timed beside each, in turns.  K8
                 (fused GroupNorm) at every distinct (shape, eps, act) of the
                 768x768 path's GroupNorms, collected by forward hooks during
                 one UNet forward at batch 2 and at 4, one VAE decode of one
@@ -197,7 +203,14 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
            encoders -> 30-step DDIM at guidance 7.5 (UNet batch 4) -> VAE
            decode -> VAE encode -> 30-step inversion -> decode; finite images
            in [0, 1], generation and extraction images/s (second pass);
-       (c) one UNet forward at batch 2 and at 4, ms (CUDA events).
+       (c) one UNet forward at batch 2 and at 4, ms (CUDA events);
+       (d) one forward at its 832x1216 bucket (832 wide, 1216 high), batch
+           2, on the default route and under phase 10's set (t): K7 at
+           d = 64 70 times, 10 by tensor maps at level 1's 3952 tokens and 60
+           with its boxes by hand at level 2's and the mid block's 988
+           (S % 8 == 4), within TIER_REL_BOUND of the default route's (K2 at
+           level 1, K1 at level 2); the launches as paths.predicted_launches
+           derives them from the route.
      K1 60 and K2 10 launches per UNet forward (level 2 and the mid block at
      1024 tokens, depth 10; level 1 at 4096 tokens, depth 2; level 0 has no
      attention), K6, K7, K8 and K4 at D = 64 never; K4 once a VAE encode of 2
@@ -224,7 +237,13 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
            and (t)'s from (e) printed beside;
        (d) one UNet forward at batch 4 and at 8 on the default route and
            under each set of (c), the sets in turns, 3 rounds: ms (CUDA
-           events), medians and ranges.
+           events), medians and ranges;
+       (e) one forward at 576x576, batch 4, on the default route and under
+           (t): K7 5 at each of 40, 80 and 160, the 160 (level 2's 18 x 18 =
+           324 tokens, S % 8 == 4) through flash_mid.cu's kernel with its
+           boxes by hand (``launches_by_kernel``), within TIER_REL_BOUND of
+           the default route's; then at batch 8 the default route and (t)
+           in turns, 3 rounds.
      Launches by head dim, exact: K1 5 at d = 80 and 5 at 160 a forward, K2
      5 at 40; K4 on the default route, K6, K7, K8 and the batch kernel
      never (K7 5 at d = 40 in (c), 5 at each width in (t)); K3 once after
@@ -383,6 +402,12 @@ ATTENTION_COUNTERS = ("fused_qkv_attention", "flash_attention", "flash_attention
 # (2 down + 3 up), depth 2, at 4096 tokens
 SDXL_K1 = (2 + 1 + 3) * 10
 SDXL_K2 = (2 + 3) * 2
+# phase 9d: one SDXL forward at its 832x1216 bucket under phase 10's set (t):
+# K7 at d = 64, 10 by tensor maps at level 1 (3952 tokens), 60 by hand at
+# level 2 and the mid block (988 tokens)
+SDXL_BUCKET_LAUNCHES = ({"flash_attention_transposed": {64: SDXL_K1 + SDXL_K2}},
+                        {"flash_transposed_kernel": SDXL_K2,
+                         "flash_transposed_kernel/rows": SDXL_K1})
 # K1 and K2 launches per sd-1-4 UNet forward at 512x512, by head dim: 8 heads
 # of 80 at level 1 (1024 tokens) and of 160 at level 2 (256 tokens), of 40 at
 # level 0 (4096 tokens), 2 down + 3 up transformers each; the mid block's 64
@@ -403,6 +428,12 @@ SD14_TIER_LAUNCHES = {
     # 80 and 160), no K1
     "t": {"flash_attention_transposed": {40: 5, 80: 5, 160: 5}},
 }
+# (e): one forward at 576x576 under (t), level 2's 324 tokens by hand
+# (paths.predicted_launches must say so): (launches by wrapper and head dim,
+# K7's launches by kernel)
+SD14_RAGGED_LAUNCHES = ({"flash_attention_transposed": {40: 5, 80: 5, 160: 5}},
+                        {"flash_narrow_kernel": 5, "flash_mid_kernel": 5,
+                         "flash_mid_kernel/rows": 5})
 # (d): the forward's time on the default route and under each set above,
 # the sets in turns, this many rounds
 SD14_TIMED_ROUNDS = 3
@@ -824,18 +855,23 @@ def phase_kernels(gn_cases) -> dict:
                           *(t.unflatten(-1, (2 * pairs, 64)).transpose(1, 2)
                             for t in qkv.split(pairs * 128, dim=-1))),
                       roofline.attention_cost(b, s, s, h, 64), 10, None))
-    # K7: S % 8 != 0 takes its masked kernel, the rest a wgmma + TMA one
-    # (d <= 48: flash_hopper.cu's narrow kernel, 64 < d <= 160: flash_mid.cu's,
-    # both in the transposed layout; d > 160 the split one); every head on its
-    # own scale.  Beside each, the natural layout's kernel on the same q, k
-    # and v (laid out (B, S, H * D)), in turns
+    # K7: each head dim's design (d <= 48: flash_hopper.cu's narrow kernel,
+    # 64 < d <= 160: flash_mid.cu's, both in the transposed layout; 64 and
+    # d > 160 flash_transposed.cu's own), its boxes by tensor maps where S % 8
+    # == 0 and by hand elsewhere; every head on its own scale.  Beside each,
+    # the natural layout's kernel on the same q, k and v (laid out (B, S, H *
+    # D)), in turns; at S % 8 != 0 on the narrow and mid designs K7's output
+    # must equal that kernel's bit for bit
     natural = {}  # label -> the natural-layout call
+    exact = set()  # the labels held bit-equal to it
     for b, s, h, d in paths.K7_SHAPES:
         qkv_t = rand(3 * h * d, b, s)
         label = f"K7 flash_transposed (B={b}, S={s}, H={h}, D={d})"
         q, k, v = (t_.permute(2, 3, 0, 1).reshape(b, s, h * d).contiguous()
                    for t_ in qkv_t.view(3, h, d, b, s))
         natural[label] = lambda q=q, k=k, v=v, h=h: attn.flash_attention(q, k, v, h)
+        if s % 8 and _transposed_design(d, s) in K7_NATURAL_DESIGNS:
+            exact.add(label)
         cases.append((label, _transposed_record(d, s),
                       lambda qkv_t=qkv_t, h=h: attn.flash_attention_transposed(qkv_t, h),
                       lambda qkv_t=qkv_t, h=h: attn.flash_attention_transposed_reference(
@@ -851,6 +887,14 @@ def phase_kernels(gn_cases) -> dict:
         top = want.abs().max().item()
         if heads is not None:  # every head on its own scale
             _check_every_head(label, heads(got), heads(want))
+        if label in exact:
+            nat = natural[label]().float()
+            if not torch.equal(heads(got), nat.view(heads(got).shape)):
+                diff = (heads(got) - nat.view(heads(got).shape)).abs().max().item()
+                raise AssertionError(f"{label}: K7 by hand differs from the natural layout's "
+                                     f"kernel on the same q, k and v by {diff}")
+            print(f"   {label}: equal to the natural layout's kernel bit for bit", flush=True)
+            del nat
         ms = _time_ms(kernel, iters)
         plain = _time_ms(plain_fn, 3)
         bound = roofline.attention_bound_ms(cost)
@@ -924,17 +968,28 @@ def _beside_natural(label: str, kernel, natural, iters: int, bound: float) -> No
           flush=True)
 
 
-def _transposed_record(d: int, s: int) -> str:
-    """The record of K7's kernel at head dim ``d`` over ``s`` tokens:
-    "flash_attention_transposed_narrow" and "..._mid" where flash_hopper.cu's
-    narrow kernel and flash_mid.cu's run it (S % 8 == 0 at d <= 48 and at
-    64 < d <= 160), "flash_attention_transposed" for flash_transposed.cu's
-    own kernels."""
+# K7's designs that are the natural layout's (flash_hopper.cu's narrow kernel,
+# flash_mid.cu's kernel): their records, and where their output equals the
+# natural layout's kernel's on the same q, k and v bit for bit
+K7_NATURAL_DESIGNS = {"flash_narrow_kernel": "flash_attention_transposed_narrow",
+                      "flash_mid_kernel": "flash_attention_transposed_mid"}
+
+
+def _transposed_design(d: int, s: int) -> str:
+    """K7's design at head dim ``d`` over ``s`` tokens, either form (its
+    boxes by tensor maps, or by hand where S % 8 != 0)."""
     from gswm_torch.ops import attention as attn
 
-    return {"flash_narrow_kernel": "flash_attention_transposed_narrow",
-            "flash_mid_kernel": "flash_attention_transposed_mid"}.get(
-                attn.transposed_kernel(d, s), "flash_attention_transposed")
+    return attn.transposed_kernel(d, s).split(attn.ROWS_FORM)[0]
+
+
+def _transposed_record(d: int, s: int) -> str:
+    """The record of K7's design at head dim ``d`` over ``s`` tokens, both
+    forms: "flash_attention_transposed_narrow" and "..._mid" where
+    flash_hopper.cu's narrow kernel and flash_mid.cu's run it (d <= 48 and
+    64 < d <= 160), "flash_attention_transposed" for flash_transposed.cu's
+    own kernels."""
+    return K7_NATURAL_DESIGNS.get(_transposed_design(d, s), "flash_attention_transposed")
 
 
 def _finish_records(records: dict) -> None:
@@ -1053,8 +1108,8 @@ def _counters() -> dict:
     counts["fused_qkv_attention_mid"] = within(
         _wrappers()["fused_qkv_attention"].launches_by_d, attn.HEAD_DIM, mid)
     by_kernel = attn.flash_attention_transposed.launches_by_kernel
-    counts["flash_attention_transposed_narrow"] = by_kernel.get("flash_narrow_kernel", 0)
-    counts["flash_attention_transposed_mid"] = by_kernel.get("flash_mid_kernel", 0)
+    for design, record in K7_NATURAL_DESIGNS.items():  # boxes by tensor maps and by hand
+        counts[record] = by_kernel.get(design, 0) + by_kernel.get(design + attn.ROWS_FORM, 0)
     return counts
 
 
@@ -1849,10 +1904,76 @@ def phase_sdxl(card: str) -> tuple:
         ms = _time_ms(forward, 5)
         print(f"(c) SDXL UNet forward, batch {batch}, {res}x{res}: {ms:.4f} ms; on {card}",
               flush=True)
+
+    # (d) one forward at SDXL's 832x1216 bucket, batch 2, under phase 10's set
+    # (t): K7 at d = 64, by tensor maps at level 1's 3952 tokens and by hand
+    # at level 2's and the mid block's 988 (S % 8 == 4), against the default
+    # route (K2 at level 1, K1 at level 2)
+    size = paths.SDXL_BUCKET
+    inputs = paths.unet_inputs(pipe, b, size=size)
+
+    def forward_bucket():
+        with torch.inference_mode():
+            return pipe.unet(*inputs)
+
+    with paths.route_switches({}):
+        default = forward_bucket()
+        torch.cuda.synchronize()
+    top = default.abs().max().item()
+    t_set = paths.SD14_SWITCHES["t"]
+    want = paths.predicted_launches("sdxl-base", *size, t_set)
+    if want != SDXL_BUCKET_LAUNCHES:
+        raise AssertionError(f"paths predicts {want} at SDXL's bucket, not {SDXL_BUCKET_LAUNCHES}")
+    _forward_under(f"(d) SDXL UNet forward, batch {b}, {size[1]}x{size[0]} (w x h)",
+                   forward_bucket, {}, paths.predicted_launches("sdxl-base", *size, {}), top,
+                   default)
+    bucket = _forward_under(f"(d) SDXL UNet forward, batch {b}, {size[1]}x{size[0]} (w x h), "
+                            "(t)", forward_bucket, t_set, want, top, default)
+    counts = {name: counts[name] + bucket[name] for name in counts}
+    del default, inputs
     t0 = time.perf_counter()
     sweep = phase_memory_sweep(card, pipe, "sdxl-base", arch="sdxl")
     del pipe
     return {name: counts[name] + sweep[name] for name in counts}, time.perf_counter() - t0
+
+
+def _by_kernel_since(before: dict) -> dict:
+    """K7's launches by kernel since ``before`` (a copy of
+    ``launches_by_kernel``), the kernels that launched none left out."""
+    from gswm_torch.ops import attention as attn
+
+    now = attn.flash_attention_transposed.launches_by_kernel
+    return {k: n - before.get(k, 0) for k, n in now.items() if n != before.get(k, 0)}
+
+
+def _forward_under(label: str, forward, switches: dict, want: tuple, top: float,
+                   default) -> dict:
+    """One UNet forward under ``switches``: its launches by head dim and K7's
+    by kernel must be ``want`` (paths.predicted_launches), its output within
+    TIER_REL_BOUND of ``default``'s largest entry.  Returns the launch counts
+    of the forward."""
+    from gswm_torch.ops import attention as attn
+
+    _reset_counters()
+    with paths.route_switches(switches):
+        before = _counters_by_d()
+        out = forward()
+        torch.cuda.synchronize()
+        made = _by_d_since(before), _by_kernel_since({})
+    counts = _counters()
+    diff = (out - default).abs().max().item()
+    env = " ".join(f"{k}={v}" for k, v in switches.items()) or "the default route"
+    print(f"{label} {env}: max|out - default| {diff:.5f}, relative {diff / top:.5f} (bound "
+          f"{TIER_REL_BOUND}); launches by head dim {made[0]}, K7's by kernel {made[1]}",
+          flush=True)
+    if made != want or not torch.isfinite(out).all():
+        raise AssertionError(f"{label}: launches {made}, want {want}, or a non-finite output")
+    if not diff <= TIER_REL_BOUND * top:
+        raise AssertionError(f"{label}: output {diff} from the default route's, above "
+                             f"{TIER_REL_BOUND} x {top}")
+    del out
+    attn.flash_attention_transposed.launches_by_kernel = {}
+    return counts
 
 
 def _by_d_since(before: dict) -> dict:
@@ -1979,6 +2100,45 @@ def phase_sd14(card: str, rate_3b: float) -> dict:
           f"(K7 against K4 at d = 80, plain attention at 160)", flush=True)
     del outs
     counts = _counters()
+
+    # (e) one forward at 576x576, batch 4, under (t): level 2's 18 x 18 = 324
+    # tokens (S % 8 == 4) take K7's mid kernel with its boxes by hand, levels
+    # 0 and 1 its narrow and mid kernels by tensor maps; against the default
+    # route at 576x576
+    size = (paths.RES_SD14_RAGGED, paths.RES_SD14_RAGGED)
+    inputs_576 = paths.unet_inputs(pipe, b, size=size)
+
+    def forward_576():
+        with torch.inference_mode():
+            return pipe.unet(*inputs_576)
+
+    with paths.route_switches({}):
+        default_576 = forward_576()
+        torch.cuda.synchronize()
+    top_576 = default_576.abs().max().item()
+    t_set = paths.SD14_SWITCHES["t"]
+    want = paths.predicted_launches("sd-1-4", *size, t_set)
+    if want != SD14_RAGGED_LAUNCHES:
+        raise AssertionError(f"paths predicts {want} at 576x576 under (t), not "
+                             f"{SD14_RAGGED_LAUNCHES}")
+    _forward_under(f"(e) SD 1.x UNet forward, batch {b}, 576x576", forward_576, {},
+                   paths.predicted_launches("sd-1-4", *size, {}), top_576, default_576)
+    ragged = _forward_under(f"(e) SD 1.x UNet forward, batch {b}, 576x576, (t)", forward_576,
+                            t_set, want, top_576, default_576)
+    counts = {name: counts[name] + ragged[name] for name in counts}
+    del default_576, inputs_576
+    # and at batch 8 (guidance), the default route and (t) in turns
+    inputs_576 = paths.unet_inputs(pipe, 2 * b, size=size)
+    times = {"default": [], "t": []}
+    for _ in range(SD14_TIMED_ROUNDS):
+        for label in times:
+            with paths.route_switches({} if label == "default" else t_set):
+                times[label].append(_time_ms(forward_576, 10))
+    print(f"(e) SD 1.x UNet forward, batch {2 * b}, 576x576, ms, {SD14_TIMED_ROUNDS} rounds "
+          "in turns: " + "; ".join(f"{label} {statistics.median(v):.4f} ({min(v):.4f}-"
+                                   f"{max(v):.4f})" for label, v in times.items())
+          + f"; on {card}", flush=True)
+    del inputs_576
 
     # (d) one UNet forward, batch 4 and 8 (guidance), on the default route and
     # under each switch set of (c) in turns, outside the counted run

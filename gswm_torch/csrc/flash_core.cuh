@@ -3,7 +3,8 @@
 // launches after its projections, and the launchers it dispatches to:
 // d <= 64 (flash_hopper.cu) and 64 < d <= 160 (flash_mid.cu); and the
 // transposed layout's launchers of those two kernels, which
-// flash_transposed.cu dispatches to at d <= 48 and 64 < d <= 160.
+// flash_transposed.cu dispatches to at d <= 48 and 64 < d <= 160, by tensor
+// maps or with the boxes by hand.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -38,14 +39,15 @@ cudaError_t gswm_launch_flash_mid(const __nv_bfloat16* q, const __nv_bfloat16* k
 
 // The transposed layout (flash_transposed.cu): qkv_t (3 H d, B, S) bf16,
 // q, k and v its row bands [0, H d), [H d, 2 H d) and [2 H d, 3 H d), head
-// h at rows h d ... of its band; out_t (H d, B, S); 16-byte aligned,
-// S % 8 == 0.  out = softmax(q k^T / sqrt(d)) v per (batch, head), no lse.
-// flash_hopper.cu's narrow kernel at 8 <= d <= 48 ...
+// h at rows h d ... of its band; out_t (H d, B, S); 16-byte aligned.
+// out = softmax(q k^T / sqrt(d)) v per (batch, head), no lse.  rows: the
+// boxes loaded and stored by hand (hopper.cuh Layout::rows), any S; else by
+// tensor maps, S % 8 == 0.  flash_hopper.cu's narrow kernel at 8 <= d <= 48 ...
 cudaError_t gswm_launch_flash_narrow_transposed(const __nv_bfloat16* qkv_t,
                                                 __nv_bfloat16* out_t, int B, int S, int H,
-                                                int d, cudaStream_t stream);
+                                                int d, bool rows, cudaStream_t stream);
 
 // ... and flash_mid.cu's kernel at 64 < d <= 160.
 cudaError_t gswm_launch_flash_mid_transposed(const __nv_bfloat16* qkv_t, __nv_bfloat16* out_t,
-                                             int B, int S, int H, int d,
+                                             int B, int S, int H, int d, bool rows,
                                              cudaStream_t stream);

@@ -105,8 +105,9 @@
 // The narrow kernel also serves the transposed layout at d <= 48 (K7,
 // gswm/ops/attention.py:1428 flash_attention_transposed, pallas_call :1470;
 // gswm_launch_flash_narrow_transposed, which flash_transposed.cu's launcher
-// calls where S % 8 == 0): one body, the layout a template parameter
-// (hopper.cuh Layout), so both layouts get the overlap, the turns, the row
+// calls at every S): one body, the layout a template parameter (hopper.cuh
+// Layout; Layout::rows where S % 8 != 0, the boxes loaded and stored by hand
+// into and out of the same tiles), so both layouts get the overlap, the turns, the row
 // sums on the tensor cores and p v at N = 48.  There q, k and v are read in
 // place as bands of the stacked (3 H d, B, S) projection output: a head is
 // one 64-row panel of d (rows past d zero-filled by the tensor map), a
@@ -313,15 +314,16 @@ struct SmemNarrow {
 // first 48 rows of each K-major v box.  The layout changes no arithmetic.
 template <Layout L, int NWG, int KS, bool LSE>
 __global__ void __launch_bounds__((NWG + 1) * 128, NWG == 1 ? 2 : 1)
-flash_narrow_kernel(const __grid_constant__ CUtensorMap map_q,
-                    const __grid_constant__ CUtensorMap map_k,
-                    const __grid_constant__ CUtensorMap map_v,
-                    const __grid_constant__ CUtensorMap map_o, int Sk, float q_scale,
+flash_narrow_kernel(const __grid_constant__ Operand<L> map_q,
+                    const __grid_constant__ Operand<L> map_k,
+                    const __grid_constant__ Operand<L> map_v,
+                    const __grid_constant__ Operand<L> map_o, int Sk, float q_scale,
                     float* lse, int Sq) {
   static_assert(KS >= 1 && 16 * KS <= NARROW_D, "at most 3 k16 steps");
   static_assert(L == Layout::natural || !LSE, "the transposed layout has no lse output");
   constexpr int STAGES = SmemNarrow<NWG>::STAGES;
-  constexpr bool T = L == Layout::transposed;
+  constexpr bool T = L != Layout::natural;  // transposed tiles, by TMA or by hand
+  constexpr bool ROWS = L == Layout::rows;
   constexpr int BOXES = T ? BN / ROW_ELEMS : 1;  // TMA boxes a k or v tile
   constexpr int BOX = BN * D / BOXES;            // elements of one
   constexpr int BOX_DESC = BOX * (int)sizeof(bf16) >> 4;
@@ -334,11 +336,11 @@ flash_narrow_kernel(const __grid_constant__ CUtensorMap map_q,
   const int b = blockIdx.z;
   const int tiles = (Sk + BN - 1) / BN;
 
-  if (threadIdx.x == 0) {
-    mbar_init(&sm.full_q, 1);
+  if (threadIdx.x == 0) {  // by hand, each producer thread arrives on a full barrier
+    mbar_init(&sm.full_q, ROWS ? 128 : 1);
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&sm.full_k[s], 1);
-      mbar_init(&sm.full_v[s], 1);
+      mbar_init(&sm.full_k[s], ROWS ? 128 : 1);
+      mbar_init(&sm.full_v[s], ROWS ? 128 : 1);
       mbar_init(&sm.empty_k[s], NWG * 4);
       mbar_init(&sm.empty_v[s], NWG * 4);
     }
@@ -353,8 +355,26 @@ flash_narrow_kernel(const __grid_constant__ CUtensorMap map_q,
   __syncthreads();
 
   if (group == 0) {
-    reg_dec<NWG == 2 ? 40 : 24>();
-    if (threadIdx.x == 0) {
+    reg_dec<ROWS ? ROWS_PRODUCER_REGS<NWG> : NWG == 2 ? 40 : 24>();
+    if constexpr (ROWS) {  // the warpgroup's 128 threads (hopper.cuh produce_rows)
+      unsigned char* room = reinterpret_cast<unsigned char*>(&sm) + (sizeof(sm) + 15) / 16 * 16;
+      auto kv_box = [&](int kv) {  // box i of tile t's k (kv = 0) or v (1)
+        return [=, &sm](int t, int i) {
+          return RowsBox{(kv ? sm.v[t % STAGES] : sm.k[t % STAGES]) + i * BOX,
+                         rows_side<NWG, BOXES>(room, t % STAGES, kv, i), h, 0,
+                         t * BN + i * ROW_ELEMS};
+        };
+      };
+      produce_rows<NWG, BOXES, STAGES>(
+          map_q, map_k, map_v, b, tiles,
+          [&](int w) {
+            return RowsBox{sm.q[w], room + w * ROWS_SIDE_BYTES, h, 0, row0 + w * BM};
+          },
+          kv_box(0), kv_box(1),
+          [&](int t) { mbar_wait(&sm.empty_k[t % STAGES], ((t / STAGES) & 1) ^ 1); },
+          [&](int t) { mbar_wait(&sm.empty_v[t % STAGES], ((t / STAGES) & 1) ^ 1); },
+          &sm.full_q, sm.full_k, sm.full_v);
+    } else if (threadIdx.x == 0) {
       mbar_expect_tx(&sm.full_q, NWG * Q_BYTES);
       for (int w = 0; w < NWG; ++w)
         tma_load_panel<L>(sm.q[w], &map_q, &sm.full_q, 0, h, row0 + w * BM, b);
@@ -379,7 +399,7 @@ flash_narrow_kernel(const __grid_constant__ CUtensorMap map_q,
     }
     return;
   }
-  reg_inc<NWG == 3 ? 160 : 232>();
+  reg_inc<ROWS ? ROWS_CONSUMER_REGS<NWG> : NWG == 3 ? 160 : 232>();
   const int cw = group - 1;
   const int warp = (threadIdx.x >> 5) & 3;
   const int lane = threadIdx.x & 31;
@@ -400,7 +420,7 @@ flash_narrow_kernel(const __grid_constant__ CUtensorMap map_q,
 
   const uint64_t dq = smem_desc_sw128(sm.q[cw]);
   const uint64_t d1 = smem_desc_sw128(sm.ones);
-  mbar_wait(&sm.full_q, 0);
+  wait_full<ROWS>(&sm.full_q, 0);
   scale_tile(sm.q[cw], BM * D, q_scale, threadIdx.x & 127, 128);
   fence_async_smem();
   named_barrier(1 + cw, 128);
@@ -449,7 +469,7 @@ flash_narrow_kernel(const __grid_constant__ CUtensorMap map_q,
   if (TURNS && cw == NWG - 1) named_barrier_arrive(TURN_BAR, 2 * 128);  // 0 goes first
 
   // tile 0's logits and softmax (the accumulators are still zero: no rescale)
-  mbar_wait(&sm.full_k[0], 0);
+  wait_full<ROWS>(&sm.full_k[0], 0);
   my_turn();
   wgmma_fence();
   logits(0);
@@ -469,8 +489,8 @@ flash_narrow_kernel(const __grid_constant__ CUtensorMap map_q,
   for (int t = 0; t + 1 < tiles; ++t) {
     const int next = stage + 1 == STAGES ? 0 : stage + 1;
     const uint32_t next_phase = next == 0 ? phase ^ 1 : phase;
-    mbar_wait(&sm.full_k[next], next_phase);
-    mbar_wait(&sm.full_v[stage], phase);
+    wait_full<ROWS>(&sm.full_k[next], next_phase);
+    wait_full<ROWS>(&sm.full_v[stage], phase);
     my_turn();
     wgmma_fence();
     logits(next);
@@ -492,7 +512,7 @@ flash_narrow_kernel(const __grid_constant__ CUtensorMap map_q,
     phase = next_phase;
   }
   // the last tile's p v
-  mbar_wait(&sm.full_v[stage], phase);
+  wait_full<ROWS>(&sm.full_v[stage], phase);
   my_turn();
   wgmma_fence();
   pv(stage);
@@ -513,24 +533,31 @@ flash_narrow_kernel(const __grid_constant__ CUtensorMap map_q,
               t4);
   fence_async_smem();
   named_barrier(1 + cw, 128);
-  if ((threadIdx.x & 127) == 0) {
+  if constexpr (ROWS) {  // by hand: every thread of the warpgroup
+    tma_store_panel<L>(&map_o, tile, 0, h, row0 + cw * BM, b);
+  } else if ((threadIdx.x & 127) == 0) {
     tma_store_panel<L>(&map_o, tile, 0, h, row0 + cw * BM, b);
     tma_store_wait();
   }
 }
 
-// The launches share their arguments: the four tensor maps, the shape, the
-// lse output (nullptr: none, the kernels without its store) and the stream.
+// The launches share their arguments: the four tensor maps (by hand: the
+// four bands), the shape, the lse output (nullptr: none, the kernels without
+// its store) and the stream.
+template <Layout L = Layout::natural>
 struct Args {
-  CUtensorMap mq, mk, mv, mo;
+  Operand<L> mq, mk, mv, mo;
   int B, Sq, Sk, H, d;
   float* lse;
   cudaStream_t stream;
 };
 
 template <Layout L, int NWG, int KS, bool LSE>
-cudaError_t start_narrow(const Args& a) {
-  constexpr int smem = (int)sizeof(SmemNarrow<NWG>) + SWIZZLE_SPAN;
+cudaError_t start_narrow(const Args<L>& a) {
+  // by hand (rows), the side buffers of the boxes' ninth words after the struct
+  constexpr int side =
+      L == Layout::rows ? ROWS_SIDE<NWG, BN / ROW_ELEMS, SmemNarrow<NWG>::STAGES> + 16 : 0;
+  constexpr int smem = (int)sizeof(SmemNarrow<NWG>) + SWIZZLE_SPAN + side;
   cudaError_t e = cudaFuncSetAttribute(flash_narrow_kernel<L, NWG, KS, LSE>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
@@ -541,15 +568,15 @@ cudaError_t start_narrow(const Args& a) {
 }
 
 template <Layout L, int NWG, int KS>
-cudaError_t launch_narrow(const Args& a) {
-  if constexpr (L == Layout::transposed)
+cudaError_t launch_narrow(const Args<L>& a) {
+  if constexpr (L != Layout::natural)
     return start_narrow<L, NWG, KS, false>(a);
   else
     return a.lse ? start_narrow<L, NWG, KS, true>(a) : start_narrow<L, NWG, KS, false>(a);
 }
 
 template <Layout L, int NWG>
-cudaError_t launch_narrow_ks(const Args& a) {
+cudaError_t launch_narrow_ks(const Args<L>& a) {
   switch ((a.d + 15) / 16) {
     case 1: return launch_narrow<L, NWG, 1>(a);
     case 2: return launch_narrow<L, NWG, 2>(a);
@@ -559,7 +586,7 @@ cudaError_t launch_narrow_ks(const Args& a) {
 
 // NARROW_WGS warpgroups a block where that fills this card's SMs, else one
 template <Layout L>
-cudaError_t launch_narrow_filling(const Args& a) {
+cudaError_t launch_narrow_filling(const Args<L>& a) {
   int sm_count = 0;
   const cudaError_t e = multiprocessors(&sm_count);
   if (e != cudaSuccess) return e;
@@ -570,7 +597,7 @@ cudaError_t launch_narrow_filling(const Args& a) {
 }
 
 template <int NWG, bool SCALE_Q, bool LSE>
-cudaError_t start(const Args& a) {
+cudaError_t start(const Args<>& a) {
   constexpr int smem = (int)sizeof(Smem<NWG>) + SWIZZLE_SPAN;
   cudaError_t e = cudaFuncSetAttribute(flash_hopper_kernel<NWG, SCALE_Q, LSE>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -584,7 +611,7 @@ cudaError_t start(const Args& a) {
 }
 
 template <int NWG, bool SCALE_Q>
-cudaError_t launch(const Args& a) {
+cudaError_t launch(const Args<>& a) {
   return a.lse ? start<NWG, SCALE_Q, true>(a) : start<NWG, SCALE_Q, false>(a);
 }
 
@@ -596,7 +623,7 @@ cudaError_t gswm_launch_flash_hopper(const bf16* q, const bf16* k, const bf16* v
   if (B < 1 || Sq < 1 || Sk < 1 || H < 1 || B > 65535 || H > 65535 || d < 8 || d % 8 ||
       d > D)
     return cudaErrorInvalidValue;
-  Args a;
+  Args<> a;
   a.B = B, a.Sq = Sq, a.Sk = Sk, a.H = H, a.d = d, a.lse = lse, a.stream = stream;
   cudaError_t e = head_map(&a.mq, q, B, Sq, H, d, ld_q, BM);
   if (e == cudaSuccess) e = head_map(&a.mk, k, B, Sk, H, d, ld_kv, BN);
@@ -616,13 +643,23 @@ cudaError_t gswm_launch_flash_hopper(const bf16* q, const bf16* k, const bf16* v
 }
 
 cudaError_t gswm_launch_flash_narrow_transposed(const bf16* qkv_t, bf16* out_t, int B, int S,
-                                                int H, int d, cudaStream_t stream) {
+                                                int H, int d, bool rows, cudaStream_t stream) {
   if (B < 1 || S < 1 || H < 1 || B > 65535 || H > 65535 || d < 8 || d % 8 || d > NARROW_D ||
-      S % 8)
+      (!rows && S % 8))
     return cudaErrorInvalidValue;
-  Args a;
-  a.B = B, a.Sq = S, a.Sk = S, a.H = H, a.d = d, a.lse = nullptr, a.stream = stream;
   const size_t band = (size_t)H * d * B * S;  // elements: q's rows, then k's, then v's
+  if (rows) {  // the bands addressed by hand
+    bf16* in = const_cast<bf16*>(qkv_t);
+    Args<Layout::rows> r;
+    r.mq = BandRows{in, B, S, d};
+    r.mk = BandRows{in + band, B, S, d};
+    r.mv = BandRows{in + 2 * band, B, S, d};
+    r.mo = BandRows{out_t, B, S, d};
+    r.B = B, r.Sq = S, r.Sk = S, r.H = H, r.d = d, r.lse = nullptr, r.stream = stream;
+    return launch_narrow_filling<Layout::rows>(r);
+  }
+  Args<Layout::transposed> a;
+  a.B = B, a.Sq = S, a.Sk = S, a.H = H, a.d = d, a.lse = nullptr, a.stream = stream;
   cudaError_t e = band_map(&a.mq, qkv_t, H, d, B, S);
   if (e == cudaSuccess) e = band_map(&a.mk, qkv_t + band, H, d, B, S);
   if (e == cudaSuccess) e = band_map(&a.mv, qkv_t + 2 * band, H, d, B, S);

@@ -63,8 +63,12 @@
 // The same kernel serves the transposed layout at 64 < d <= 160 (K7,
 // gswm/ops/attention.py:1428 flash_attention_transposed, pallas_call :1470;
 // gswm_launch_flash_mid_transposed, which flash_transposed.cu's launcher
-// calls where S % 8 == 0): one body, the layout a template parameter
-// (hopper.cuh Layout).  q, k and v are read in place as bands of
+// calls at every S): one body, the layout a template parameter (hopper.cuh
+// Layout; Layout::rows where S % 8 != 0: the boxes loaded and stored by hand
+// by hopper.cuh's produce_rows and store_box_rows into and out of the same
+// tiles, with 32 registers more for the producer and 32 (one warpgroup) or
+// 16 (two) fewer for each consumer, and side buffers of 16 bytes a row after
+// the ring, which can take a stage).  q, k and v are read in place as bands of
 // the stacked (3 H d, B, S) projection output: panel j of a tile is rows
 // 64 j ... of d (rows past d zero-filled by the tensor map), a 128-key tile
 // two 64-token boxes a panel; the logits take the same ceil(d / 16) k16
@@ -96,7 +100,7 @@ constexpr int TURN_BAR = 4;            // named barriers 4, 5: the turns (1, 2: 
                                        // warpgroup's own)
 constexpr int ONES_ELEMS = 16 * ROW_ELEMS;  // the row sums' B operand: 16 rows of 1.0
 
-template <int FULL, int TAIL, int NWG>
+template <int FULL, int TAIL, int NWG, bool ROWS = false>
 struct Mid {
   static_assert(FULL >= 1 && TAIL % 16 == 0 && TAIL < ROW_ELEMS && FULL * 64 + TAIL <= 160,
                 "FULL whole panels and a tail of TAIL < 64 columns, at most 160 in all");
@@ -108,20 +112,26 @@ struct Mid {
   static constexpr int KV_PANEL = BN * ROW_ELEMS;
   static constexpr int Q_BYTES = NP * Q_PANEL * (int)sizeof(bf16);   // a warpgroup's q
   static constexpr int KV_BYTES = NP * KV_PANEL * (int)sizeof(bf16);  // a k or v tile
+  // boxes by hand (ROWS): the side buffers of q's boxes and of a k or v
+  // tile's (hopper.cuh ROWS_SIDE), and 16 bytes to align them
+  static constexpr int KV_BOXES = NP * (BN / ROW_ELEMS);  // of a k or v tile
+  static constexpr int SIDE_Q = ROWS ? NWG * NP * ROWS_SIDE_BYTES + 16 : 0;
+  static constexpr int SIDE_KV = ROWS ? KV_BOXES * ROWS_SIDE_BYTES : 0;
   // q, the ones, the barriers and the room to align, then the stages:
   // within half an SM for one warpgroup where two stages fit there
   static constexpr int FIXED = NWG * Q_BYTES + ONES_ELEMS * (int)sizeof(bf16) + 256 +
-                               SWIZZLE_SPAN;
+                               SWIZZLE_SPAN + SIDE_Q;
+  static constexpr int STAGE_BYTES = 2 * (KV_BYTES + SIDE_KV);
   static constexpr int BUDGET =
-      NWG == 1 && (SMEM_HALF - FIXED) / (2 * KV_BYTES) >= 2 ? SMEM_HALF : SMEM_LIMIT;
-  static constexpr int FIT = (BUDGET - FIXED) / (2 * KV_BYTES);
+      NWG == 1 && (SMEM_HALF - FIXED) / STAGE_BYTES >= 2 ? SMEM_HALF : SMEM_LIMIT;
+  static constexpr int FIT = (BUDGET - FIXED) / STAGE_BYTES;
   static constexpr int STAGES = FIT > MAX_STAGES ? MAX_STAGES : FIT;
   static_assert(STAGES >= 2, "two stages of k and v must fit");
 };
 
-template <int FULL, int TAIL, int NWG>
+template <int FULL, int TAIL, int NWG, bool ROWS = false>
 struct SmemMid {
-  using M = Mid<FULL, TAIL, NWG>;
+  using M = Mid<FULL, TAIL, NWG, ROWS>;
   bf16 q[NWG][M::NP * M::Q_PANEL];  // scaled in place; later the output tile
   bf16 k[M::STAGES][M::NP * M::KV_PANEL];
   bf16 v[M::STAGES][M::NP * M::KV_PANEL];
@@ -167,23 +177,24 @@ __device__ __forceinline__ void pv_tail(float (&o)[N / 2], const uint32_t (&a)[4
 // The layout changes no arithmetic.
 template <Layout L, int FULL, int TAIL, int NWG, bool LSE>
 __global__ void __launch_bounds__((NWG + 1) * 128, NWG == 1 ? 2 : 1)
-flash_mid_kernel(const __grid_constant__ CUtensorMap map_q,
-                 const __grid_constant__ CUtensorMap map_k,
-                 const __grid_constant__ CUtensorMap map_v,
-                 const __grid_constant__ CUtensorMap map_o, int Sk, float q_scale,
+flash_mid_kernel(const __grid_constant__ Operand<L> map_q,
+                 const __grid_constant__ Operand<L> map_k,
+                 const __grid_constant__ Operand<L> map_v,
+                 const __grid_constant__ Operand<L> map_o, int Sk, float q_scale,
                  float* lse, int Sq) {
   static_assert(L == Layout::natural || !LSE, "the transposed layout has no lse output");
-  using M = Mid<FULL, TAIL, NWG>;
+  constexpr bool T = L != Layout::natural;  // transposed tiles, by TMA or by hand
+  constexpr bool ROWS = L == Layout::rows;
+  using M = Mid<FULL, TAIL, NWG, ROWS>;
   constexpr int NP = M::NP;
   constexpr int BN = M::BN;
   constexpr int STAGES = M::STAGES;
-  constexpr bool T = L == Layout::transposed;
   constexpr int BOXES = T ? BN / ROW_ELEMS : 1;  // TMA boxes a panel of a k or v tile
   constexpr int BOX = M::KV_PANEL / BOXES;       // elements of one
   constexpr int VT = T ? 0 : 1;                  // v's transpose bit: K- or MN-major
   extern __shared__ unsigned char smem_raw[];
-  SmemMid<FULL, TAIL, NWG>& sm =
-      *reinterpret_cast<SmemMid<FULL, TAIL, NWG>*>(align_smem(smem_raw));
+  SmemMid<FULL, TAIL, NWG, ROWS>& sm =
+      *reinterpret_cast<SmemMid<FULL, TAIL, NWG, ROWS>*>(align_smem(smem_raw));
 
   const int group = threadIdx.x >> 7;  // 0: producer, 1..NWG: consumers
   const int row0 = blockIdx.x * (NWG * BM);
@@ -191,11 +202,11 @@ flash_mid_kernel(const __grid_constant__ CUtensorMap map_q,
   const int b = blockIdx.z;
   const int tiles = (Sk + BN - 1) / BN;
 
-  if (threadIdx.x == 0) {
-    mbar_init(&sm.full_q, 1);
+  if (threadIdx.x == 0) {  // by hand, each producer thread arrives on a full barrier
+    mbar_init(&sm.full_q, ROWS ? 128 : 1);
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&sm.full_k[s], 1);
-      mbar_init(&sm.full_v[s], 1);
+      mbar_init(&sm.full_k[s], ROWS ? 128 : 1);
+      mbar_init(&sm.full_v[s], ROWS ? 128 : 1);
       mbar_init(&sm.empty_k[s], NWG * 4);
       mbar_init(&sm.empty_v[s], NWG * 4);
     }
@@ -210,8 +221,30 @@ flash_mid_kernel(const __grid_constant__ CUtensorMap map_q,
   __syncthreads();
 
   if (group == 0) {
-    reg_dec<NWG == 2 ? 40 : 24>();
-    if (threadIdx.x == 0) {
+    reg_dec<ROWS ? ROWS_PRODUCER_REGS<NWG> : NWG == 2 ? 40 : 24>();
+    if constexpr (ROWS) {  // the warpgroup's 128 threads (hopper.cuh produce_rows)
+      constexpr int NQ = NWG * NP, NKV = M::KV_BOXES;
+      unsigned char* room = reinterpret_cast<unsigned char*>(&sm) + (sizeof(sm) + 15) / 16 * 16;
+      // box i of tile t's k (kv = 0) or v (1): panel i / BOXES, its box i % BOXES
+      auto kv_box = [&](int kv) {
+        return [=, &sm](int t, int i) {
+          return RowsBox{(kv ? sm.v[t % STAGES] : sm.k[t % STAGES]) +
+                             (i / BOXES) * M::KV_PANEL + (i % BOXES) * BOX,
+                         rows_side<NQ, NKV>(room, t % STAGES, kv, i), h,
+                         (i / BOXES) * ROW_ELEMS, t * BN + (i % BOXES) * ROW_ELEMS};
+        };
+      };
+      produce_rows<NQ, NKV, STAGES>(
+          map_q, map_k, map_v, b, tiles,
+          [&](int i) {  // warpgroup i / NP's q, panel i % NP
+            return RowsBox{sm.q[i / NP] + (i % NP) * M::Q_PANEL, room + i * ROWS_SIDE_BYTES, h,
+                           (i % NP) * ROW_ELEMS, row0 + (i / NP) * BM};
+          },
+          kv_box(0), kv_box(1),
+          [&](int t) { mbar_wait(&sm.empty_k[t % STAGES], ((t / STAGES) & 1) ^ 1); },
+          [&](int t) { mbar_wait(&sm.empty_v[t % STAGES], ((t / STAGES) & 1) ^ 1); },
+          &sm.full_q, sm.full_k, sm.full_v);
+    } else if (threadIdx.x == 0) {
       mbar_expect_tx(&sm.full_q, NWG * M::Q_BYTES);
       for (int w = 0; w < NWG; ++w)
         for (int j = 0; j < NP; ++j)
@@ -240,7 +273,7 @@ flash_mid_kernel(const __grid_constant__ CUtensorMap map_q,
     }
     return;
   }
-  reg_inc<232>();
+  reg_inc<ROWS ? ROWS_CONSUMER_REGS<NWG> : 232>();
   const int cw = group - 1;
   const int warp = (threadIdx.x >> 5) & 3;
   const int lane = threadIdx.x & 31;
@@ -270,7 +303,7 @@ flash_mid_kernel(const __grid_constant__ CUtensorMap map_q,
   bf16* qt = sm.q[cw];
   const uint64_t dq = smem_desc_sw128(qt);
   const uint64_t d1 = smem_desc_sw128(sm.ones);
-  mbar_wait(&sm.full_q, 0);
+  wait_full<ROWS>(&sm.full_q, 0);
   scale_tile(qt, NP * M::Q_PANEL, q_scale, threadIdx.x & 127, 128);
   fence_async_smem();
   named_barrier(1 + cw, 128);
@@ -344,7 +377,7 @@ flash_mid_kernel(const __grid_constant__ CUtensorMap map_q,
   if (TURNS && cw == NWG - 1) named_barrier_arrive(TURN_BAR, 2 * 128);  // 0 goes first
 
   // tile 0's logits and softmax (the accumulators are still zero: no rescale)
-  mbar_wait(&sm.full_k[0], 0);
+  wait_full<ROWS>(&sm.full_k[0], 0);
   my_turn();
   wgmma_fence();
   logits(0);
@@ -364,8 +397,8 @@ flash_mid_kernel(const __grid_constant__ CUtensorMap map_q,
   for (int t = 0; t + 1 < tiles; ++t) {
     const int next = stage + 1 == STAGES ? 0 : stage + 1;
     const uint32_t next_phase = next == 0 ? phase ^ 1 : phase;
-    mbar_wait(&sm.full_k[next], next_phase);
-    mbar_wait(&sm.full_v[stage], phase);
+    wait_full<ROWS>(&sm.full_k[next], next_phase);
+    wait_full<ROWS>(&sm.full_v[stage], phase);
     my_turn();
     wgmma_fence();
     logits(next);
@@ -385,7 +418,7 @@ flash_mid_kernel(const __grid_constant__ CUtensorMap map_q,
     phase = next_phase;
   }
   // the last tile's p v
-  mbar_wait(&sm.full_v[stage], phase);
+  wait_full<ROWS>(&sm.full_v[stage], phase);
   my_turn();
   wgmma_fence();
   pv(stage);
@@ -410,7 +443,11 @@ flash_mid_kernel(const __grid_constant__ CUtensorMap map_q,
               t4);
   fence_async_smem();
   named_barrier(1 + cw, 128);
-  if ((threadIdx.x & 127) == 0) {
+  if constexpr (ROWS) {  // by hand: every thread of the warpgroup
+#pragma unroll
+    for (int j = 0; j < NP; ++j)
+      tma_store_panel<L>(&map_o, qt + j * M::Q_PANEL, j, h, row0 + cw * BM, b);
+  } else if ((threadIdx.x & 127) == 0) {
 #pragma unroll
     for (int j = 0; j < NP; ++j)
       tma_store_panel<L>(&map_o, qt + j * M::Q_PANEL, j, h, row0 + cw * BM, b);
@@ -431,16 +468,23 @@ struct Args {
 
 template <Layout L, int FULL, int TAIL, int NWG, bool LSE>
 cudaError_t start(const Args& a) {
-  using M = Mid<FULL, TAIL, NWG>;
-  constexpr int smem = (int)sizeof(SmemMid<FULL, TAIL, NWG>) + SWIZZLE_SPAN;
+  constexpr bool ROWS = L == Layout::rows;
+  using M = Mid<FULL, TAIL, NWG, ROWS>;
+  constexpr int smem = (int)sizeof(SmemMid<FULL, TAIL, NWG, ROWS>) + SWIZZLE_SPAN +
+                       M::SIDE_Q + M::STAGES * 2 * M::SIDE_KV;
   static_assert(smem <= M::BUDGET, "above the shared memory the block was sized for");
-  CUtensorMap mq, mk, mv, mo;
-  cudaError_t e;
+  Operand<L> mq, mk, mv, mo;
+  cudaError_t e = cudaSuccess;
   if constexpr (L == Layout::natural) {
     e = head_map(&mq, a.q, a.B, a.Sq, a.H, a.d, a.ld_q, BM);
     if (e == cudaSuccess) e = head_map(&mk, a.k, a.B, a.Sk, a.H, a.d, a.ld_kv, M::BN);
     if (e == cudaSuccess) e = head_map(&mv, a.v, a.B, a.Sk, a.H, a.d, a.ld_kv, M::BN);
     if (e == cudaSuccess) e = head_map(&mo, a.out, a.B, a.Sq, a.H, a.d, a.ld_o, BM);
+  } else if constexpr (L == Layout::rows) {  // the bands addressed by hand
+    mq = BandRows{const_cast<bf16*>(a.q), a.B, a.Sq, a.d};
+    mk = BandRows{const_cast<bf16*>(a.k), a.B, a.Sk, a.d};
+    mv = BandRows{const_cast<bf16*>(a.v), a.B, a.Sk, a.d};
+    mo = BandRows{a.out, a.B, a.Sq, a.d};
   } else {
     e = band_map(&mq, a.q, a.H, a.d, a.B, a.Sq);
     if (e == cudaSuccess) e = band_map(&mk, a.k, a.H, a.d, a.B, a.Sk);
@@ -459,7 +503,7 @@ cudaError_t start(const Args& a) {
 
 template <Layout L, int FULL, int TAIL, int NWG>
 cudaError_t start_any(const Args& a) {
-  if constexpr (L == Layout::transposed)
+  if constexpr (L != Layout::natural)
     return start<L, FULL, TAIL, NWG, false>(a);
   else
     return a.lse ? start<L, FULL, TAIL, NWG, true>(a) : start<L, FULL, TAIL, NWG, false>(a);
@@ -511,9 +555,10 @@ cudaError_t gswm_launch_flash_mid(const bf16* q, const bf16* k, const bf16* v, b
 }
 
 cudaError_t gswm_launch_flash_mid_transposed(const bf16* qkv_t, bf16* out_t, int B, int S,
-                                             int H, int d, cudaStream_t stream) {
-  if (!takes(B, S, S, H, d) || S % 8) return cudaErrorInvalidValue;
+                                             int H, int d, bool rows, cudaStream_t stream) {
+  if (!takes(B, S, S, H, d) || (!rows && S % 8)) return cudaErrorInvalidValue;
   const size_t band = (size_t)H * d * B * S;  // elements: q's rows, then k's, then v's
-  return dispatch<Layout::transposed>(Args{qkv_t, qkv_t + band, qkv_t + 2 * band, out_t, B,
-                                           S, S, H, d, 0, 0, 0, nullptr, stream});
+  const Args a{qkv_t, qkv_t + band, qkv_t + 2 * band, out_t, B, S, S, H, d, 0, 0, 0, nullptr,
+               stream};
+  return rows ? dispatch<Layout::rows>(a) : dispatch<Layout::transposed>(a);
 }

@@ -5,8 +5,10 @@
 // 64 < d <= 160 run flash_hopper.cu's and flash_mid.cu's kernels): the TMA
 // tensor-map encoder on the host; mbarrier, TMA load/store, wgmma and
 // setmaxnreg wrappers on the device; the flash kernels' common steps on a
-// warpgroup's accumulator fragment (online softmax, rescale, store); and
-// the two layouts those kernels read (Layout).
+// warpgroup's accumulator fragment (online softmax, rescale, store); the
+// transposed layout's boxes loaded and stored by hand where no tensor map
+// reaches its rows (S % 8 != 0: cp.async, produce_rows, store_box_rows); and
+// the three layouts those kernels read (Layout).
 //
 // One shared-memory layout serves every tile here: rows of exactly 128 bytes
 // (64 bf16), written by TMA with the 128-byte swizzle, tile bases aligned to
@@ -27,6 +29,8 @@
 #include <math.h>
 #include <stdint.h>
 #include <stdio.h>
+
+#include <type_traits>
 
 namespace gswm_hopper {
 
@@ -241,6 +245,15 @@ static __device__ __forceinline__ void tma_store_wait() {
 // Shared-memory writes of ordinary stores made visible to TMA and wgmma.
 static __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A consumer's wait for a full barrier.  By hand (ROWS), the tiles were
+// written by cp.async and plain stores, which wgmma (the async proxy) sees
+// only after a proxy fence on the reading side.
+template <bool ROWS>
+static __device__ __forceinline__ void wait_full(uint64_t* bar, uint32_t parity) {
+  mbar_wait(bar, parity);
+  if constexpr (ROWS) fence_async_smem();
 }
 
 // Barrier `id` (1..15; 0 is __syncthreads) over `threads` threads.
@@ -713,7 +726,418 @@ static __device__ __forceinline__ void store_tile_transposed(void* panel, const 
   }
 }
 
-// ----------------------------------------------------- the two layouts ----
+// ------------------------------------------------------ boxes by hand ----
+// Where S % 8 != 0 the transposed layout's rows start at any even byte
+// address and its strides (S * 2 and B * S * 2 bytes) are no multiples of
+// 16, so no tensor map can address them.  There a box (64 rows of d by 64
+// tokens, the transposed layout's TMA box) is loaded by the 128 threads of
+// the producer warpgroup and a consumer's output panel stored by the 128
+// threads of its warpgroup, through the one layout above (token c of row r
+// at 16-byte chunk (c / 8) ^ (r % 8) of the row), so the consumers' wgmma
+// loops do not change:
+//   * thread t of the warpgroup takes chunk c = t % 8 (tokens 8c ... 8c + 7
+//     of the box) of rows 16 p + t / 8, p = 0 ... 3.  Its four rows lie
+//     16 B S elements apart, so they start the same a elements into an
+//     aligned 16-byte word (0 or 4 at SD's level 2, where S % 8 == 4);
+//   * even a: the chunk goes by cp.async (no register holds it in flight)
+//     straight to its place in pieces of 16, 8 or 4 bytes (a = 0, a % 4 ==
+//     0, else), each piece reading the tokens of the box below S alone and
+//     zero-filling the rest, rows at or past d zero-filled whole.  A box
+//     wholly below S (all but a row's last) takes whole pieces with no
+//     check a piece, and none a row where the box lies below d too: the
+//     producer's instructions a copy are what the copies' rate is bound by;
+//   * odd a: whole aligned 16-byte words, each only where it holds a token
+//     of the box below S in a row below d (never a word without an element
+//     of the array), are copied into the tile row as they lie (word k at
+//     byte 16 k; the ninth, which the row's thread c = 7 copies, to a side
+//     buffer of 16 bytes a row); once they landed each row is shifted into
+//     place: chunk c is words c and c + 1 (the next thread's, by a shuffle,
+//     or the ninth) moved by a elements (selects and a byte permute), written
+//     to chunk c ^ (r % 8) once the row's eight threads have read their
+//     words; tokens at or past S and rows at or past d become zeros, as a
+//     tensor map's out-of-bounds fill gives them;
+//   * each producer thread arrives once on a set's full barrier (an init
+//     count of 128): at an even a its copies arrive as they land
+//     (cp.async.mbarrier.arrive), so it never waits for them and runs ahead
+//     as far as the ring's empty barriers let it; at an odd a it arrives
+//     after shifting the set into place, the next sets' copies in flight
+//     meanwhile (produce_rows);
+//   * the consumers make the tiles visible to wgmma after each wait on a
+//     full barrier (wait_full: a proxy fence on the reading side, where the
+//     writes were cp.async copies and plain stores);
+//   * the store writes tokens below S of rows below d alone, in 2-byte
+//     stores and 4-byte stores of aligned pairs: the chunks at a row's ends
+//     hold neighbouring query blocks' and the next batch's tokens, which no
+//     wider store or read-modify-write may touch.
+
+// A (heads * d, B, S) array of the transposed layout, addressed by hand:
+// row r of head hh, batch b starts at base + ((hh * d + r) * B + b) * S
+// elements.  A kernel's inputs are only read through it.
+struct BandRows {
+  bf16* base;
+  int B, S, d;
+};
+
+static __device__ __forceinline__ bf16* band_row(const BandRows& a, int hh, int r, int b) {
+  return a.base + ((size_t)(hh * a.d + r) * a.B + b) * a.S;
+}
+
+// cp.async of 16 (L2 only), 8 or 4 bytes (through L1): whole, or the first
+// `bytes` read from src and the rest zero-filled.
+static __device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+static __device__ __forceinline__ void cp_async_16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+static __device__ __forceinline__ void cp_async_8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+static __device__ __forceinline__ void cp_async_8(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+static __device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+static __device__ __forceinline__ void cp_async_4(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+static __device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// this thread's copies of all but the N most recent groups have landed
+template <int N>
+static __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One arrival on `bar` once every cp.async this thread has issued landed
+// (one of the arrivals its init count expects).
+static __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+constexpr int ROWS_SIDE_BYTES = ROW_ELEMS * 16;  // a box's ninth words, 16 bytes a row
+
+// A box: its tile (64 rows of 128 bytes in the one layout), the side
+// buffer of its ninth words, and rows [r0, r0 + 64) of head hh, tokens
+// [tok0, tok0 + 64) it holds.
+struct RowsBox {
+  void* tile;
+  void* side;
+  int hh, r0, tok0;
+};
+
+// This thread's first row of box x (row t / 8), and how many elements it
+// (and so each of the thread's rows) starts into an aligned 16-byte word.
+static __device__ __forceinline__ const bf16* rows_first(const RowsBox& x, const BandRows& src,
+                                                         int b, int& a) {
+  const bf16* row = band_row(src, x.hh, x.r0 + ((threadIdx.x & 127) >> 3), b) + x.tok0;
+  a = (int)(reinterpret_cast<uintptr_t>(row) >> 1) & 7;
+  return row;
+}
+
+// This thread's copies of box x.
+static __device__ __forceinline__ void rows_copy(const RowsBox& x, const BandRows& src, int b) {
+  const int t = threadIdx.x & 127;
+  const int c = t & 7;
+  const int n = min(src.S - x.tok0, ROW_ELEMS);  // tokens of the box below S
+  const size_t step = (size_t)16 * src.B * src.S;  // elements between the thread's rows
+  int a;
+  const bf16* first = rows_first(x, src, b, a);
+  unsigned char* tile = static_cast<unsigned char*>(x.tile);
+  unsigned char* side = static_cast<unsigned char*>(x.side);
+  if (!(a & 1) && n == ROW_ELEMS) {
+    // a box below S: a row below d takes whole pieces, one past d a
+    // zero-filled chunk (nothing read); the chunk's place is the same in
+    // each of the thread's rows (16 rows apart, so r % 8 alike)
+    const bf16* from = first + 8 * c;
+    unsigned char* dst = tile + (t >> 3) * ROW_BYTES + ((c ^ ((t >> 3) & 7)) << 4);
+    auto whole = [&](unsigned char* to, const bf16* at) {
+      if (a == 0) {
+        cp_async_16(to, at);
+      } else if (a == 4) {
+        cp_async_8(to, at);
+        cp_async_8(to + 8, at + 4);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) cp_async_4(to + 4 * i, at + 2 * i);
+      }
+    };
+    if (x.r0 + ROW_ELEMS <= src.d) {  // every row below d: no check a row
+#pragma unroll
+      for (int p = 0; p < 4; ++p) whole(dst + p * 16 * ROW_BYTES, from + p * step);
+    } else {
+      const void* none =
+          reinterpret_cast<const void*>(reinterpret_cast<uintptr_t>(first) & ~15ull);
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        if (x.r0 + 16 * p + (t >> 3) < src.d)
+          whole(dst + p * 16 * ROW_BYTES, from + p * step);
+        else
+          cp_async_16(dst + p * 16 * ROW_BYTES, none, 0);
+      }
+    }
+    return;
+  }
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    const int row = 16 * p + (t >> 3);
+    const bool live = n > 0 && x.r0 + row < src.d;
+    const bf16* rp = first + p * step;
+    if (a & 1) {  // whole words as they lie; rows_place shifts them
+      if (!live) continue;
+      const uint4* w = reinterpret_cast<const uint4*>(reinterpret_cast<uintptr_t>(rp) & ~15ull);
+      if (8 * c - a < n) cp_async_16(tile + row * ROW_BYTES + 16 * c, w + c);
+      if (c == 7 && ROW_ELEMS - a < n) cp_async_16(side + row * 16, w + 8);
+    } else {  // the chunk in place; tokens past S and rows past d zero-filled
+      unsigned char* dst = tile + row * ROW_BYTES + ((c ^ (row & 7)) << 4);
+      const int m = live ? min(max(n - 8 * c, 0), 8) : 0;  // tokens to read
+      const bf16* from = m > 0 ? rp + 8 * c : src.base;    // nothing read where m == 0
+      if (a == 0) {
+        cp_async_16(dst, from, 2 * m);
+      } else if (a == 4) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          cp_async_8(dst + 8 * i, m > 4 * i ? from + 4 * i : from, 2 * min(max(m - 4 * i, 0), 4));
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          cp_async_4(dst + 4 * i, m > 2 * i ? from + 2 * i : from, 2 * min(max(m - 2 * i, 0), 2));
+      }
+    }
+  }
+}
+
+// Box x, once this thread's copies of it landed: an odd a's rows shifted
+// into place (an even a's are there).  The shuffles and the warp barrier
+// span the eight threads of the row.
+static __device__ __forceinline__ void rows_place(const RowsBox& x, const BandRows& src, int b) {
+  const int t = threadIdx.x & 127;
+  const int c = t & 7;
+  int a;
+  rows_first(x, src, b, a);
+  if (!(a & 1)) return;
+  const unsigned group = 0xffu << (threadIdx.x & 24);  // the row's eight lanes
+  const int m = min(src.S - x.tok0, ROW_ELEMS) - 8 * c;  // tokens of the chunk below S
+  unsigned char* tile = static_cast<unsigned char*>(x.tile);
+  const unsigned char* side = static_cast<const unsigned char*>(x.side);
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    const int row = 16 * p + (t >> 3);
+    const uint4 raw = *reinterpret_cast<const uint4*>(tile + row * ROW_BYTES + 16 * c);
+    uint4 ninth = make_uint4(0u, 0u, 0u, 0u);
+    if (c == 7) ninth = *reinterpret_cast<const uint4*>(side + row * 16);
+    // word c + 1: the next thread's word c, or the ninth
+    const uint32_t lw[4] = {raw.x, raw.y, raw.z, raw.w};
+    const uint32_t nw[4] = {ninth.x, ninth.y, ninth.z, ninth.w};
+    uint32_t wd[8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t next = __shfl_down_sync(group, lw[i], 1, 8);
+      wd[i] = lw[i];
+      wd[4 + i] = c < 7 ? next : nw[i];
+    }
+    uint4 out = make_uint4(0u, 0u, 0u, 0u);
+    if (x.r0 + row < src.d && m > 0) {
+      // elements a ... a + 7 of the 16 in wd: by 4, by 2, then by 1
+      uint32_t v4[6], v2[5], o[4];
+#pragma unroll
+      for (int i = 0; i < 6; ++i) v4[i] = (a & 4) ? wd[i + 2] : wd[i];
+#pragma unroll
+      for (int i = 0; i < 5; ++i) v2[i] = (a & 2) ? v4[i + 1] : v4[i];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        o[i] = __byte_perm(v2[i], v2[i + 1], 0x5432u);  // a is odd
+        // tokens at or past S are zeros
+        o[i] &= 2 * i + 1 < m ? 0xffffffffu : 2 * i < m ? 0x0000ffffu : 0u;
+      }
+      out = make_uint4(o[0], o[1], o[2], o[3]);
+    }
+    __syncwarp(group);  // the row's eight threads have read their words
+    *reinterpret_cast<uint4*>(tile + row * ROW_BYTES + ((c ^ (row & 7)) << 4)) = out;
+  }
+}
+
+// The N boxes of one set, box(i) the i-th: copied, then one commit group;
+// where the thread's rows start at an even a its copies are the boxes'
+// last word, and their landing is its arrival on the set's full barrier.
+template <int N, typename BoxFn>
+static __device__ __forceinline__ void rows_copy_set(const BandRows& src, int b, BoxFn box,
+                                                     bool odd, uint64_t* full) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) rows_copy(box(i), src, b);
+  if (!odd) cp_async_arrive(full);
+  cp_async_commit();
+}
+
+// An odd a's set, once its copies landed: shifted into place, made visible
+// to wgmma, and the thread's arrival on the set's full barrier.
+template <int N, typename BoxFn>
+static __device__ __forceinline__ void rows_place_set(const BandRows& src, int b, BoxFn box,
+                                                      bool odd, uint64_t* full) {
+  if (!odd) return;
+#pragma unroll
+  for (int i = 0; i < N; ++i) rows_place(box(i), src, b);
+  fence_async_smem();
+  mbar_arrive(full);
+}
+
+// setmaxnreg budgets of a hand-loaded instantiation with NWG consumer
+// warpgroups: its producer's 128 threads compute every copy's addresses and
+// shift odd rows, so it takes registers from the consumers, the block staying
+// within its share of the SM's 64K (one consumer warpgroup, two blocks an
+// SM: 56 + 200 = 2 x 128; two: 72 + 2 x 216 = 3 x 168; three: 32 + 3 x 160 =
+// 4 x 128).  The tensor maps' instantiations keep 24 or 40 and 232 (160 at
+// three).
+template <int NWG>
+constexpr int ROWS_PRODUCER_REGS = NWG == 1 ? 56 : NWG == 2 ? 72 : 32;
+template <int NWG>
+constexpr int ROWS_CONSUMER_REGS = NWG == 1 ? 200 : NWG == 2 ? 216 : 160;
+
+// The shared memory a hand-loaded instantiation takes beyond its tiles: the
+// side buffers of NQ boxes of q and of NKV boxes of k and of v a stage.
+template <int NQ, int NKV, int STAGES>
+constexpr int ROWS_SIDE = (NQ + 2 * STAGES * NKV) * ROWS_SIDE_BYTES;
+
+// Side buffer i of that room: q's NQ boxes first (box i at i *
+// ROWS_SIDE_BYTES), then stage s's k boxes and its v boxes (kv = 0, 1).
+template <int NQ, int NKV>
+static __device__ __forceinline__ void* rows_side(unsigned char* room, int s, int kv, int i) {
+  return room + (NQ + (2 * s + kv) * NKV + i) * ROWS_SIDE_BYTES;
+}
+
+// The producer warpgroup of a hand-loaded instantiation, all 128 threads:
+// NQ boxes of q, then for each of `tiles` key tiles NKV boxes of k and of v
+// through a ring of STAGES stages.  q_box(i), k_box(t, i) and v_box(t, i)
+// place box i of a set (tile t's in stage t % STAGES); wait_k(t) and
+// wait_v(t) wait until the consumers have released stage t % STAGES's k and
+// v for tile t.  A thread whose rows start at an even a never waits for its
+// copies: each set's copies arrive on its full barrier as they land.  An odd
+// a's thread shifts a set into place once its copies landed, with the next
+// sets' copies in flight: from two stages on, tile t + 1's k (v) is copied
+// before tile t's k (v) is placed, an empty group standing for it after the
+// last tile, so the wait always leaves two groups in flight.  The consumers
+// release a stage's k before they need the next tile's v, and its v before
+// they need the tile after, so no wait here stands on a hand-off that comes
+// after it.
+template <int NQ, int NKV, int STAGES, typename QBox, typename KBox, typename VBox,
+          typename WaitK, typename WaitV>
+static __device__ __forceinline__ void produce_rows(const BandRows& qs, const BandRows& ks,
+                                                    const BandRows& vs, int b, int tiles,
+                                                    QBox q_box, KBox k_box, VBox v_box,
+                                                    WaitK wait_k, WaitV wait_v,
+                                                    uint64_t* full_q, uint64_t* full_k,
+                                                    uint64_t* full_v) {
+  // the same for every box: the bands and the boxes' rows and tokens start
+  // at multiples of 8 elements from each other
+  int a;
+  rows_first(q_box(0), qs, b, a);
+  const bool odd = a & 1;
+  rows_copy_set<NQ>(qs, b, q_box, odd, full_q);
+  wait_k(0);
+  rows_copy_set<NKV>(ks, b, [&](int i) { return k_box(0, i); }, odd, full_k);
+  if (odd) cp_async_wait<1>();
+  rows_place_set<NQ>(qs, b, q_box, odd, full_q);
+  wait_v(0);
+  rows_copy_set<NKV>(vs, b, [&](int i) { return v_box(0, i); }, odd, full_v);
+  for (int t = 0; t < tiles; ++t) {
+    const int s = t % STAGES;
+    const int s1 = (t + 1) % STAGES;
+    auto kt = [&](int i) { return k_box(t, i); };
+    auto vt = [&](int i) { return v_box(t, i); };
+    if constexpr (STAGES > 1) {
+      if (t + 1 < tiles) {
+        wait_k(t + 1);
+        rows_copy_set<NKV>(ks, b, [&](int i) { return k_box(t + 1, i); }, odd, full_k + s1);
+      } else {
+        cp_async_commit();
+      }
+      if (odd) cp_async_wait<2>();
+      rows_place_set<NKV>(ks, b, kt, odd, full_k + s);
+      if (t + 1 < tiles) {
+        wait_v(t + 1);
+        rows_copy_set<NKV>(vs, b, [&](int i) { return v_box(t + 1, i); }, odd, full_v + s1);
+      } else {
+        cp_async_commit();
+      }
+      if (odd) cp_async_wait<2>();
+      rows_place_set<NKV>(vs, b, vt, odd, full_v + s);
+    } else {  // one stage: tile t + 1 lands where tile t is read
+      if (odd) cp_async_wait<1>();
+      rows_place_set<NKV>(ks, b, kt, odd, full_k);
+      if (odd) cp_async_wait<0>();
+      rows_place_set<NKV>(vs, b, vt, odd, full_v);
+      if (t + 1 < tiles) {
+        wait_k(t + 1);
+        rows_copy_set<NKV>(ks, b, [&](int i) { return k_box(t + 1, i); }, odd, full_k);
+        wait_v(t + 1);
+        rows_copy_set<NKV>(vs, b, [&](int i) { return v_box(t + 1, i); }, odd, full_v);
+      }
+    }
+  }
+  cp_async_wait<0>();  // nothing of this thread's left in flight when it leaves
+}
+
+// A consumer's output panel at src (64 rows of d by 64 tokens, transposed as
+// store_tile_transposed leaves it) into rows [r0, r0 + 64) of head hh,
+// tokens [tok0, tok0 + 64) of batch b: rows below d and tokens below S
+// alone, by the warpgroup's 128 threads, after the panel is complete.
+static __device__ __forceinline__ void store_box_rows(const void* src, const BandRows& dst,
+                                                      int hh, int r0, int tok0, int b) {
+  const int t = threadIdx.x & 127;
+  const int c = t & 7;
+  const int m = min(dst.S - tok0 - 8 * c, 8);  // tokens of the chunk below S
+  const unsigned char* tile = static_cast<const unsigned char*>(src);
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    const int row = 16 * p + (t >> 3);
+    if (m <= 0 || r0 + row >= dst.d) continue;
+    const uint4 v =
+        *reinterpret_cast<const uint4*>(tile + row * ROW_BYTES + ((c ^ (row & 7)) << 4));
+    const uint32_t wd[4] = {v.x, v.y, v.z, v.w};
+    bf16* out = band_row(dst, hh, r0 + row, b) + tok0 + 8 * c;
+    unsigned short* out16 = reinterpret_cast<unsigned short*>(out);
+    if ((reinterpret_cast<uintptr_t>(out) & 3) == 0) {  // pairs 2i, 2i + 1 aligned
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (2 * i + 1 < m)
+          *reinterpret_cast<uint32_t*>(out + 2 * i) = wd[i];
+        else if (2 * i < m)
+          out16[2 * i] = (unsigned short)(wd[i] & 0xffffu);
+      }
+    } else {  // element 0 alone, then pairs 2i + 1, 2i + 2 aligned
+      out16[0] = (unsigned short)(wd[0] & 0xffffu);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        if (2 * i + 2 < m)
+          *reinterpret_cast<uint32_t*>(out + 2 * i + 1) = __byte_perm(wd[i], wd[i + 1], 0x5432u);
+        else if (2 * i + 1 < m)
+          out16[2 * i + 1] = (unsigned short)(wd[i] >> 16);
+      }
+      if (7 < m) out16[7] = (unsigned short)(wd[3] >> 16);
+    }
+  }
+}
+
+// ----------------------------------------------------- the three layouts ----
 // The flash kernels of flash_hopper.cu (narrow) and flash_mid.cu take the
 // layout as a template parameter; it decides the tensor maps' coordinates,
 // which way round wgmma reads q, k and v, and the epilogue's store, and
@@ -724,26 +1148,40 @@ static __device__ __forceinline__ void store_tile_transposed(void* panel, const 
 //               S) output (band_map): a tile row is a row of d, 64 tokens;
 //               q and k MN-major, v K-major, and a k or v tile of 128 keys
 //               is two 64-token boxes side by side.
-enum class Layout { natural, transposed };
+//   rows:       the transposed layout at any S (S % 8 != 0 among them), its
+//               boxes loaded and stored by hand (BandRows, above): the same
+//               tiles in shared memory, the same products in the same order.
+enum class Layout { natural, transposed, rows };
 
-// Panel j (64 columns, or rows, of d) of `tok`'s box of head h, batch b.
+// What a kernel's operand is: a tensor map, or the array addressed by hand.
+template <Layout L>
+using Operand = typename std::conditional<L == Layout::rows, BandRows, CUtensorMap>::type;
+
+// Panel j (64 columns, or rows, of d) of `tok`'s box of head h, batch b:
+// one TMA copy by one thread whose bytes complete on `bar` (by hand, the
+// producer warpgroup runs produce_rows instead).
 template <Layout L>
 static __device__ __forceinline__ void tma_load_panel(void* dst, const CUtensorMap* map,
                                                       uint64_t* bar, int j, int h, int tok,
                                                       int b) {
+  static_assert(L != Layout::rows, "boxes by hand: produce_rows");
   if constexpr (L == Layout::natural)
     tma_load_4d(dst, map, bar, j * ROW_ELEMS, h, tok, b);
   else
     tma_load_4d(dst, map, bar, tok, b, j * ROW_ELEMS, h);
 }
 
-template <Layout L>
-static __device__ __forceinline__ void tma_store_panel(const CUtensorMap* map, const void* src,
-                                                       int j, int h, int tok, int b) {
+// One thread stores the panel by TMA; by hand (rows), every thread of the
+// consumer warpgroup calls this after the panel is complete.
+template <Layout L, typename Map>
+static __device__ __forceinline__ void tma_store_panel(const Map* map, const void* src, int j,
+                                                       int h, int tok, int b) {
   if constexpr (L == Layout::natural)
     tma_store_4d(map, src, j * ROW_ELEMS, h, tok, b);
-  else
+  else if constexpr (L == Layout::transposed)
     tma_store_4d(map, src, tok, b, j * ROW_ELEMS, h);
+  else
+    store_box_rows(src, *map, h, j * ROW_ELEMS, tok, b);
 }
 
 // The output fragment of 64 rows by N / 4 column groups into a panel of the

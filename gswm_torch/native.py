@@ -45,6 +45,8 @@ _SIGNATURES = {
     "gswm_flash_packed": [_VP, _VP, _I, _I, _I, _VP],
     # qkv_t, out_t, B, S, H, D (head dim), stream
     "gswm_flash_transposed": [_VP, _VP, _I, _I, _I, _I, _VP],
+    # the same, every box loaded and stored by hand at any S (tests)
+    "gswm_flash_transposed_rows": [_VP, _VP, _I, _I, _I, _I, _VP],
     # x, weight, bias, out, B, C, HW, G, eps, act, stream
     "gswm_group_norm": [_VP] * 4 + [_I] * 4 + [_F, _I, _VP],
 }

@@ -36,10 +36,11 @@ and tail in either layout.  The kernels' tensor maps zero-fill the columns
   * ``flash_attention_transposed`` (csrc/flash_transposed.cu) — flash
     attention on the (3*H*D, B, S) transposed projection output, the
     tiles read as they lie (MN-major q and k, K-major v): the kernel
-    ``head_dim_kernel(d, "transposed")`` names.  Port of the Pallas
-    ``flash_attention_transposed``; the ``transposed`` route.  Where S is
-    no multiple of 8 no tensor map can address the rows, and a masked
-    kernel (mma.sync) serves the shape (``transposed_kernel``).
+    ``head_dim_kernel(d, "transposed")`` names, at every S.  Port of the
+    Pallas ``flash_attention_transposed``; the ``transposed`` route.  Where
+    S is no multiple of 8 no tensor map can address the rows, and the same
+    design runs with its boxes loaded and stored by hand
+    (``transposed_kernel`` names that form with ``ROWS_FORM``).
   * ``fused_qkv_attention`` (csrc/fused_qkv.cu, then the kernel of the
     head dim) — the bias-free q/k/v projections in a hand-written wgmma +
     TMA GEMM, then attention.  Port of the Pallas ``flash_attention_fused_qkv`` in
@@ -129,8 +130,8 @@ def head_dim_kernel(d: int, layout: str = "natural") -> tuple[str, int, int]:
     width N of its p v on the last panel (0: none past the full ones).  The
     natural layout is that of the natural, split and fused-qkv wrappers
     (``gswm_flash_split``'s dispatch, csrc/flash_split.cu); the transposed
-    one that of ``flash_attention_transposed`` where S % 8 == 0
-    (csrc/flash_transposed.cu's launch_tma).  The logits take ceil(d / 16)
+    one that of ``flash_attention_transposed`` at every S
+    (csrc/flash_transposed.cu's launch_form).  The logits take ceil(d / 16)
     k16 steps in all, but in the split kernels, which compute whole panels.
 
       d <= 48        flash_narrow_kernel (csrc/flash_hopper.cu), p v at N = 48
@@ -161,14 +162,21 @@ def head_dim_kernel(d: int, layout: str = "natural") -> tuple[str, int, int]:
             width // 64, 0)
 
 
+# What ``transposed_kernel`` appends to a design's name in its hand-loaded
+# form (csrc/hopper.cuh Layout::rows): where S % 8 != 0 the transposed
+# layout's rows start at any even address and no tensor map can address
+# them, so the producer warpgroup loads the boxes and the consumers store
+# their output by hand, into and out of the same tiles.
+ROWS_FORM = "/rows"
+
+
 def transposed_kernel(d: int, s: int) -> str:
     """The kernel ``flash_attention_transposed`` runs head dim ``d`` over
-    ``s`` tokens on: the masked one where S % 8 != 0 (no tensor map can
-    address the rows), else ``head_dim_kernel(d, "transposed")``'s."""
-    if s % 8:
-        kernel_head_dim(d)
-        return "flash_transposed_masked_kernel"
-    return head_dim_kernel(d, "transposed")[0]
+    ``s`` tokens on: ``head_dim_kernel(d, "transposed")``'s design at every
+    S, its boxes by tensor maps where S % 8 == 0 and by hand elsewhere (the
+    name followed by ``ROWS_FORM``)."""
+    kernel = head_dim_kernel(d, "transposed")[0]
+    return kernel + ROWS_FORM if s % 8 else kernel
 
 
 def _count(wrapper, d: int) -> None:
@@ -604,10 +612,12 @@ def flash_attention_transposed(qkv_t: torch.Tensor, heads: int) -> torch.Tensor:
     CPU: ``flash_attention_transposed_reference`` (any D).  CUDA:
     csrc/flash_transposed.cu's launcher (bf16, D as ``kernel_head_dim``
     takes it, any B and S) and the kernel ``transposed_kernel`` names:
-    wgmma + TMA where S % 8 == 0 (flash_hopper.cu's narrow kernel at
-    D <= 48 and flash_mid.cu's at 64 < D <= 160, both with the transposed
-    layout), the masked kernel elsewhere.  Launches also count by kernel,
-    in ``flash_attention_transposed.launches_by_kernel``."""
+    the design of D (flash_hopper.cu's narrow kernel at D <= 48 and
+    flash_mid.cu's at 64 < D <= 160, both with the transposed layout,
+    flash_transposed.cu's own at 64 and above 160), all on wgmma, its
+    boxes moved by TMA where S % 8 == 0 and by hand elsewhere.  Launches
+    also count by kernel, in
+    ``flash_attention_transposed.launches_by_kernel``."""
     if qkv_t.dim() != 3 or qkv_t.shape[0] % (3 * heads):
         raise ValueError(f"flash_attention_transposed: qkv_t {tuple(qkv_t.shape)} "
                          f"is not (3 * {heads} * D, B, S)")

@@ -3,7 +3,7 @@ card.
 
     python -m gswm_torch.tools.compare_kernels --parent DIR [--out FILE.json]
         [--cases attention,k8,k3] [--match TEXT] [--require-equal
-        [--except-head-dims LO-HI] [--except-transposed LO-HI[,LO-HI]]]
+        [--except-head-dims LO-HI] [--except-transposed LO-HI[:unaligned][,...]]]
 
 DIR is a second checkout of the repository (for example ``git archive`` of
 the parent commit unpacked into a git-ignored directory).  Both kernel
@@ -17,10 +17,12 @@ entry points on the same tensors, so nothing but the kernels differs:
     (K4), and the transposed layout (K7), whose ``gswm_flash_transposed``
     each side is called with the arguments its library declares (the head
     dim since K7 takes any, none before: such a side is timed at D = 64
-    alone); CUDA-event times in the order parent, change, change, parent,
-    and for K7 the natural layout's kernel of this checkout on the same q, k
-    and v (``gswm_flash_split`` on them laid out (B, S, H, D)) in the middle
-    of that round, with its output's difference from K7's;
+    alone), at S % 8 != 0 too (whatever kernel each side runs there: a
+    parent before the hand-loaded boxes runs its masked mma.sync kernel);
+    CUDA-event times in the order parent, change, change, parent, and for K7
+    the natural layout's kernel of this checkout on the same q, k and v
+    (``gswm_flash_split`` on them laid out (B, S, H, D)) in the middle of
+    that round, with its output's difference from K7's;
   * fused-qkv self-attention (GEMM + core) at K1's shapes of those widths,
     likewise, and the device time of each side's ``qkv_proj_kernel`` alone
     from ``torch.profiler``; each side's ``gswm_fused_qkv_attn`` is called
@@ -43,8 +45,11 @@ equal bit for bit (a change that must leave the kernels' results alone);
 ``--except-head-dims LO-HI`` exempts the cases whose head dim lies in
 [LO, HI] (the widths a change hands to a new kernel), whose difference is
 printed all the same; ``--except-transposed`` does so for K7's cases alone
-where S % 8 == 0 (the wgmma + TMA kernels; the masked one stays held), at
-each range of a comma-separated list.
+where S % 8 == 0, at each range of a comma-separated list, and a range
+written ``LO-HI:unaligned`` for K7's cases where S % 8 != 0 (a parent that
+ran another kernel there): those at the natural layout's designs (d <= 48,
+64 < d <= 160) are then held equal, bit for bit, to the natural layout's
+kernel on the same q, k and v instead.
 
 Where the device time goes, apart from the walls above (``torch.profiler``,
 the kernels of one call by name):
@@ -328,8 +333,9 @@ def main() -> None:
     ap.add_argument("--except-head-dims", default="",
                     help="LO-HI: --require-equal skips the cases at these head dims")
     ap.add_argument("--except-transposed", default="",
-                    help="LO-HI[,LO-HI]: --require-equal skips K7's S %% 8 == 0 cases "
-                         "at these head dims")
+                    help="LO-HI[:unaligned][,...]: --require-equal skips K7's S %% 8 == 0 "
+                         "cases (S %% 8 != 0 with :unaligned, held to the natural layout's "
+                         "kernel at its designs instead) at these head dims")
     args = ap.parse_args()
     cases = set(args.cases.split(","))
     lo, hi = map(int, args.except_head_dims.split("-")) if args.except_head_dims \
@@ -367,20 +373,33 @@ def main() -> None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(result, indent=1))
     if args.require_equal:
-        exempt_t = _ranges(args.except_transposed)
+        parts = [part for part in args.except_transposed.split(",") if part]
+        exempt_t = _ranges(",".join(p_ for p_ in parts if not p_.endswith(":unaligned")))
+        exempt_u = _ranges(",".join(p_[:-len(":unaligned")] for p_ in parts
+                                    if p_.endswith(":unaligned")))
+
+        def exempt(key, case):
+            d, aligned = case["head_dim"], case["shape"][1] % 8 == 0
+            return key == "transposed" and any(
+                a <= d <= b for a, b in (exempt_t if aligned else exempt_u))
+
         held = [case for key in ("flash", "packed", "transposed", "fused_qkv", "lse")
                 for case in result.get(key, []) if not lo <= case["head_dim"] <= hi
-                and not (key == "transposed" and case["shape"][1] % 8 == 0
-                         and any(a <= case["head_dim"] <= b for a, b in exempt_t))]
+                and not exempt(key, case)]
         differ = [case for case in held
                   if case["max_abs_diff"] != 0.0 or case.get("lse_max_abs_diff", 0.0) != 0.0]
+        # K7 at S % 8 != 0 on the natural layout's designs: bit-equal to them
+        differ += [case for case in result.get("transposed", []) if exempt("transposed", case)
+                   and case["shape"][1] % 8 and case["natural_max_abs_diff"] != 0.0
+                   and (case["head_dim"] <= 48 or 64 < case["head_dim"] <= 160)]
         if differ:
             raise SystemExit(f"compare_kernels: {len(differ)} attention cases differ from "
                              f"the parent's: {[c.get('label', c['shape']) for c in differ]}")
         print(f"all {len(held)} attention outputs held equal the parent's, bit for bit"
               + (f" (head dims {lo}-{hi} exempt)" if lo <= hi else "")
-              + (f" (K7 at S % 8 == 0 and head dims {args.except_transposed} exempt)"
-                 if exempt_t else ""), flush=True)
+              + (f" (K7 at head dims {args.except_transposed} exempt; at S % 8 != 0 on "
+                 "the natural layout's designs held to its kernel instead)"
+                 if exempt_t or exempt_u else ""), flush=True)
 
 
 def compare_attention(libs: dict, rand, stream: int, iters: int, match: str = "") -> dict:

@@ -56,6 +56,13 @@ BATCH_512, RES_512 = 4, 512
 BATCH_768, RES_768 = 2, 768
 BATCH_1024, RES_1024 = 2, 1024
 BATCH_SD14 = 4  # at RES_512
+# phase 10's second resolution: sd-1-4 at 576x576, whose level 2 holds 18 x 18
+# = 324 tokens (S % 8 == 4: under (t), K7 at d = 160 with its boxes by hand)
+RES_SD14_RAGGED = 576
+# phase 9's second size: SDXL at one of its own aspect buckets, 832 wide and
+# 1216 high, (height, width): level 1 holds 52 x 76 = 3952 tokens, level 2 and
+# the mid block 26 x 38 = 988 (S % 8 == 4)
+SDXL_BUCKET = (1216, 832)
 # seeds of the random weights
 PIPELINE_SEEDS = {"sd-2-1-base": 0, "sd-2-1": 1, "sdxl-base": 2, "sd-1-4": 3}
 
@@ -112,11 +119,19 @@ LEVEL0_SHAPES = ((2, 9216, 5), (4, 9216, 5), (2, 4096, 5), (1, 1000, 3))
 # (80: a 64-row panel and a 16-row tail, 160: two and 32; batch 4 and 8:
 # flash_mid.cu's kernel), a width no SD model uses (72) and the widest (512:
 # the split kernel, 4 + 4 panels); where S is no multiple of 8 (rows not
-# 16-byte aligned) the masked kernel, at 64, 40 and 160
+# 16-byte aligned: each design with its boxes loaded and stored by hand) at
+# 64, 40 and 160 (odd S), and the level-2 sites of users' resolutions, where
+# S % 8 == 4: sd-1-4 at 576x576 (18 x 18 = 324 tokens, 8 heads of 160, batch
+# 8 = 4 images under guidance) and 704x704 (22 x 22 = 484), SD 2.x at
+# 576x576 (324 tokens, 20 heads of 64), SDXL at 832x1216 (26 x 38 = 988, 20
+# heads of 64, batch 2 = 1 image under guidance); and the split design at an
+# odd S
 K7_SHAPES = (*((b, s, h, 64) for b, s, h in LEVEL0_SHAPES), (1, 1001, 3, 64),
              (4, 4096, 8, 40), (8, 4096, 8, 40), (4, 1024, 8, 80), (8, 1024, 8, 80),
              (4, 256, 8, 160), (8, 256, 8, 160), (2, 1000, 3, 72), (1, 1024, 1, 512),
-             (1, 1001, 3, 40), (1, 1001, 2, 160))
+             (1, 1001, 3, 40), (1, 1001, 2, 160),
+             (8, 324, 8, 160), (8, 484, 8, 160), (8, 324, 20, 64), (2, 988, 20, 64),
+             (1, 1001, 1, 512))
 
 # K3 over a key table (rows, ChaCha20 blocks a row): 32 blocks are the 16,384
 # bits of a 512x512 latent; 4 rows are phase 7d's batch, 4096 one chunk of the
@@ -191,6 +206,57 @@ def route_switches(switches: dict):
         os.environ.update(saved)
 
 
+# the wrapper each route of ``ops.attention.route_self_attention`` launches
+# (models/layers.py Attention.forward); "plain" launches none
+ROUTE_WRAPPERS = {"xf": "flash_attention", "cres": "flash_attention",
+                  "packed": "flash_attention_packed", "transposed": "flash_attention_transposed",
+                  "fused_qkv": "fused_qkv_attention", "split": "flash_attention_split"}
+
+
+def attention_sites(preset: str, height: int, width: int) -> list:
+    """(tokens, head dim) of every self-attention site of one UNet forward of
+    ``preset`` on height x width images (models/unet.py): at each level with
+    cross-attention, layers_per_block transformers down and one more up,
+    ``depth_for(level)`` blocks each, and the mid block's transformer at the
+    last level; each level halves the latent's sides (rounding up, as the
+    stride-2 convolutions do)."""
+    from gswm_torch.models.configs import PRESETS
+
+    cfg = PRESETS[preset].unet
+    h, w = height // 8, width // 8
+    sites = []
+    for level, ch in enumerate(cfg.block_out_channels):
+        site = (h * w, ch // cfg.heads_for(ch))
+        if cfg.cross_attn_levels[level]:
+            sites += [site] * ((2 * cfg.layers_per_block + 1) * cfg.depth_for(level))
+        last = site
+        h, w = -(-h // 2), -(-w // 2)
+    return sites + [last] * cfg.depth_for(len(cfg.block_out_channels) - 1)
+
+
+def predicted_launches(preset: str, height: int, width: int, switches: dict) -> tuple:
+    """What one UNet forward of ``preset`` on height x width images launches
+    under ``switches`` (``route_switches``), from the route of every site
+    (``attention_sites``): ({wrapper: {head dim: launches}}, {K7's kernel, as
+    ``ops.attention.transposed_kernel`` names it: launches}).  Plain attention
+    and the split wrapper's einsum branch (below ``SPLIT_MIN_KEYS`` keys)
+    launch nothing."""
+    from gswm_torch.ops import attention as attn
+
+    by_d, by_kernel = {}, {}
+    with route_switches(switches):
+        for s, d in attention_sites(preset, height, width):
+            route = attn.route_self_attention(s, d)
+            if route == "plain" or (route == "split" and s < attn.SPLIT_MIN_KEYS):
+                continue
+            per = by_d.setdefault(ROUTE_WRAPPERS[route], {})
+            per[d] = per.get(d, 0) + 1
+            if route == "transposed":
+                kernel = attn.transposed_kernel(d, s)
+                by_kernel[kernel] = by_kernel.get(kernel, 0) + 1
+    return by_d, by_kernel
+
+
 def pairs_of(heads: int) -> int:
     """Head pairs of the pair-packed layout: the last half pair of an odd
     head count is a zero pad head."""
@@ -226,14 +292,16 @@ def prompt_ids(pipe, batch: int, seed: int = 2024) -> np.ndarray:
         0, pipe.preset.text.vocab_size - 2, (batch, pipe.preset.text.max_length))
 
 
-def unet_inputs(pipe, batch: int, dev="cuda", res: int = RES_768):
-    """Seeded latents (B, 4, res/8, res/8), timestep 500 and a seeded
-    prompt's context: one UNet input at res x res; and SDXL's added_cond."""
+def unet_inputs(pipe, batch: int, dev="cuda", res: int = RES_768, size=None):
+    """Seeded latents (B, 4, height/8, width/8), timestep 500 and a seeded
+    prompt's context: one UNet input at ``size`` = (height, width), res x res
+    by default; and SDXL's added_cond, whose time_ids carry the size."""
+    height, width = size or (res, res)
     g = torch.Generator(device=dev).manual_seed(77)
-    lat = torch.randn((batch, 4, res // 8, res // 8), generator=g, device=dev)
+    lat = torch.randn((batch, 4, height // 8, width // 8), generator=g, device=dev)
     inputs = (lat, torch.full((batch,), 500, device=dev),
               pipe.encode_prompt_ids(prompt_ids(pipe, batch, seed=7)))
-    added = pipe.default_added_cond(batch, res, res)
+    added = pipe.default_added_cond(batch, height, width)
     return inputs if added is None else (*inputs, added)
 
 

@@ -212,27 +212,95 @@ def test_mid_kernel_overlaps_its_exponentials_and_pads_no_whole_panel():
 
 
 def test_transposed_kernel_keeps_mma_sync_only_for_unaligned_rows():
-    """flash_transposed.cu: the wgmma + TMA kernels (both operands of the
-    logits MN-major, v K-major; 4-D maps over the true d; d split over two
-    warpgroups above 160, every panel width from 192 instantiated, none at
-    128, which no d above 160 rounds to) for S % 8 == 0, and one mma.sync
-    kernel, the masked one, which the launcher takes only where S % 8 != 0;
-    no cp.async code."""
+    """flash_transposed.cu holds no mma.sync kernel any more: its own
+    designs (both operands of the logits MN-major, v K-major; d split over
+    two warpgroups above 160, every panel width from 192 instantiated, none
+    at 128, which no d above 160 rounds to) run wgmma at every S, and where
+    S % 8 != 0 the C entry takes the same design with its boxes loaded and
+    stored by hand (hopper.cuh Layout::rows), not another kernel."""
     text = _code("flash_transposed.cu")
-    tma, masked = text.split("namespace masked {")
+    for gone in ("namespace masked", "mma_bf16", "ldmatrix", "mma.sync",
+                 "flash_transposed_masked_kernel"):
+        assert gone not in text, gone
     for used in ("wgmma_m64n64k16_ss<1, 1>", "wgmma_m64n64k16_rs<0>", "tma_load_4d(",
                  "tma_store_4d(", "softmax_tile<", "flash_transposed_split_kernel",
-                 "scale_tile("):
-        assert used in tma, used
+                 "scale_tile(", "produce_rows<", "store_box_rows("):
+        assert used in text, used
     for d in (192, 256, 320, 384, 448, 512):
-        assert f"case {d}: return split::launch<{d}>(" in tma
-    assert "case 128:" not in tma
-    assert "mma_bf16" not in tma and "ldmatrix" not in tma
-    assert "mma_bf16(" in masked and "flash_transposed_masked_kernel" in masked
-    assert "cp_async" not in text and "cp.async.cg" not in text
-    launcher = masked.split('extern "C"')[1]
-    assert "if (S % 8 == 0) return" in launcher
-    assert launcher.index("S % 8 == 0") < launcher.index("flash_transposed_masked_kernel")
+        assert f"case {d}: return split::launch<{d}, ROWS>(" in text
+    assert "case 128:" not in text
+    entry = text.split('extern "C" int gswm_flash_transposed(')[1].split("\n}\n")[0]
+    # one launcher, the form chosen by S % 8 alone: no kernel of its own
+    assert "launch_design(" in entry and "S % 8 != 0" in entry
+    assert "<<<" not in entry and "kernel" not in entry
+    rows_entry = text.split('extern "C" int gswm_flash_transposed_rows(')[1].split("\n}\n")[0]
+    assert "launch_design(" in rows_entry and ", true," in rows_entry
+    design = text.split("cudaError_t launch_design(")[1].split("\n}\n")[0]
+    assert "launch_form<true>(" in design and "launch_form<false>(" in design
+
+
+# the hand-loaded form of each transposed design: (source, what instantiates
+# it, what its producer and epilogue use)
+ROWS_FORMS = {
+    "narrow": ("flash_hopper.cu", "launch_narrow_filling<Layout::rows>(",
+               ("produce_rows<NWG, BOXES, STAGES>(", "tma_store_panel<L>(",
+                "wait_full<ROWS>(")),
+    "mid": ("flash_mid.cu", "dispatch<Layout::rows>(",
+            ("produce_rows<NQ, NKV, STAGES>(", "tma_store_panel<L>(", "wait_full<ROWS>(")),
+    "d64": ("flash_transposed.cu", "launch<2, false, ROWS>(",
+            ("produce_rows<NWG, KV_PANELS, STAGES>(", "store_box_rows(sm.q[cw]",
+             "wait_full<ROWS>(")),
+    "split": ("flash_transposed.cu", "split::launch<512, ROWS>(",
+              ("produce_rows<NP, NP, STAGES>(", "store_box_rows(sm.q + (P0 + j) * PANEL",
+               "wait_full<ROWS>(")),
+}
+
+
+@pytest.mark.parametrize("design", sorted(ROWS_FORMS))
+def test_every_transposed_design_has_its_hand_loaded_form(design):
+    """Each of K7's four designs (flash_hopper.cu's narrow kernel,
+    flash_transposed.cu's d = 64 and split kernels, flash_mid.cu's kernel)
+    is instantiated with its boxes loaded and stored by hand, which the
+    launcher takes where S % 8 != 0: the producer warpgroup runs
+    hopper.cuh's produce_rows, the epilogue stores by hand, and the
+    consumers wait through wait_full, whose proxy fence makes the copies
+    visible to wgmma.  In produce_rows a set's copies arrive on the full
+    barrier (cp.async.mbarrier.arrive) or, for rows shifted by hand,
+    fence_async_smem comes before the thread's arrive."""
+    src, instance, used = ROWS_FORMS[design]
+    code = _code(src)
+    assert instance in code, instance
+    for u in used:
+        assert u in code, u
+    if design in ("d64", "split"):
+        assert "launch_form<true>(" in code
+    hopper = _code("hopper.cuh")
+    place = hopper.split("void rows_place_set(")[1].split("\n}\n")[0]
+    assert place.index("fence_async_smem();") < place.index("mbar_arrive(full);")
+    copy = hopper.split("void rows_copy_set(")[1].split("\n}\n")[0]
+    assert "cp_async_arrive(full)" in copy
+    wait = hopper.split("void wait_full(")[1].split("\n}\n")[0]
+    assert wait.index("mbar_wait(") < wait.index("fence_async_smem();")
+    assert '"cp.async.mbarrier.arrive.noinc.shared::cta.b64' in hopper
+
+
+def test_hand_loaded_boxes_read_aligned_words_and_store_no_wider_than_pairs():
+    """hopper.cuh's hand loads read whole aligned words (16-byte cp.async of
+    aligned words, or 8- and 4-byte pieces at even misalignments, which zero-
+    fill what lies past S) and shift odd rows by byte permutes; the hand
+    store writes 2-byte elements and 4-byte aligned pairs, never a wider
+    store and never a read of global memory."""
+    hopper = _code("hopper.cuh")
+    copy = hopper.split("void rows_copy(")[1].split("\n}\n")[0]
+    assert "& ~15ull" in copy and "8 * c - a < n" in copy
+    for piece in ("cp_async_16(", "cp_async_8(", "cp_async_4("):
+        assert piece in copy, piece
+    place = hopper.split("void rows_place(")[1].split("\n}\n")[0]
+    assert "__byte_perm(" in place and "__shfl_down_sync(" in place and "__syncwarp(" in place
+    store = hopper.split("void store_box_rows(")[1].split("\n}\n")[0]
+    assert "uint4*>(out" not in store and "uint2" not in store
+    assert "reinterpret_cast<uint32_t*>(out" in store and "out16[" in store
+    assert "__ldg" not in store
 
 
 # the transposed layout's instantiations: (source, the kernel's body from,
@@ -270,14 +338,14 @@ def test_transposed_layout_runs_the_natural_layouts_designs(design):
                    "named_barrier_arrive(", "wgmma_m64n8k16_rs(l,", "scale_tile(",
                    "softmax_exp<", "softmax_pack<"):
         assert common in code.split(start)[0][-400:] + body, common
-    for branch in ("constexpr bool T = L == Layout::transposed;", "if constexpr (T)",
+    for branch in ("constexpr bool T = L != Layout::natural;", "if constexpr (T)",
                    "wgmma_m64n64k16_ss<1, 1>(", "BOX_DESC",
                    "tma_load_panel<L>(", "tma_store_panel<L>(", "store_tile_out<L>(",
                    "static_assert(L == Layout::natural || !LSE", *used):
         assert branch in body, branch
     assert body.count("wgmma_commit();") == 2  # the logits, and p v: one group each
     assert dispatch in code.split(f"gswm_launch_flash_{design}_transposed(")[1]
-    launcher = _code("flash_transposed.cu").split("cudaError_t launch_tma(")[1]
+    launcher = _code("flash_transposed.cu").split("cudaError_t launch_form(")[1]
     assert launcher.index(f"gswm_launch_flash_{design}_transposed(") < \
         launcher.index("split::launch<")
     header = _code("flash_core.cuh")
@@ -322,15 +390,19 @@ def test_narrow_kernel_overlaps_its_exponentials_with_the_tensor_cores():
 
 
 def test_mma_sync_survives_in_one_kernel_only():
-    """mma.sync, ldmatrix and cp.async are gone from csrc/ except in
-    flash_transposed.cu's masked kernel; the three flash kernels share one
-    softmax (hopper.cuh)."""
+    """mma.sync and ldmatrix are gone from csrc/, flash_transposed.cu's
+    masked kernel with them; cp.async survives in hopper.cuh's hand-loaded
+    boxes alone (the transposed layout where S % 8 != 0); the three flash
+    kernels share one softmax (hopper.cuh)."""
     for src in sorted((PORT / "csrc").glob("*.cu*")):
         code = _code(src.name)
-        if src.name != "flash_transposed.cu":
-            for gone in ("mma.sync", "mma_bf16", "ldmatrix", "cp.async.cg"):
+        for gone in ("mma.sync", "mma_bf16", "ldmatrix"):
+            assert gone not in code, (src.name, gone)
+        if src.name != "hopper.cuh":  # (cp.async.bulk is TMA's, and stays)
+            for gone in ("cp.async.cg", "cp.async.ca", "cp.async.wait"):
                 assert gone not in code, (src.name, gone)
         assert "getenv" not in code, src.name
+    assert "cp.async.cg.shared.global" in _code("hopper.cuh")
     for name in ("flash_hopper.cu", "flash_split.cu", "flash_transposed.cu"):
         assert "softmax_tile<" in _code(name), name
     assert _code("hopper.cuh").count("void softmax_tile(") == 1

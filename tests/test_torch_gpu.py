@@ -498,8 +498,8 @@ def test_packed_kernel_matches_plain(cuda, b, pairs, s):
 def test_transposed_kernel_matches_plain(cuda, b, h, s):
     """K7 at ragged lengths: S = 1, 65, 300 and 1001 are not multiples of 8,
     so their rows are not 16-byte aligned and no tensor map can address them
-    (the masked element-wise kernel); the others go through the wgmma + TMA
-    kernel, with ragged last tiles of keys and of queries.  At (2, 5) and
+    (the same wgmma design, its boxes loaded and stored by hand); the others
+    go through its tensor maps, with ragged last tiles of keys and of queries.  At (2, 5) and
     2056 or 2120 tokens an H100 takes 128-token blocks, whose second
     warpgroup's last tile lies wholly (2056) or partly (2120) past S."""
     g = torch.Generator(device=cuda).manual_seed(s + h)
@@ -602,7 +602,7 @@ def test_transposed_kernel_any_head_dim(cuda, d, s):
     wgmma + TMA kernels (the narrow one at d <= 48, the mid one at 64 < d <=
     160, the split one above; 136 leaves a ragged key and query tile; 1024
     and 4096 tokens take one and several consumer warpgroups a block), 1001
-    through the masked one, which walks d in 64-row panels; every head
+    through the same designs with their boxes loaded by hand; every head
     against the plain version, launches counted at the true d and by the
     kernel ``transposed_kernel`` names, and v = 1 shows the keys past S are
     masked."""
@@ -670,9 +670,9 @@ def test_transposed_kernel_any_head_dim_attends_to_the_chosen_key(cuda, d, s):
 @pytest.mark.parametrize("d", K7_HEAD_DIMS)
 def test_transposed_kernel_is_exact_softmax_above_60_at_any_head_dim(cuda, d, s):
     """Logits 80 and 70 in one row at d != 64, where q is scaled by d^-0.5
-    in shared memory (300 tokens: wgmma + TMA) or by the masked kernel
-    (1001): exact softmax, where the TPU transposed kernel clamps both to 60
-    on every dtype."""
+    in shared memory (300 tokens: boxes by tensor maps; 1001: by hand):
+    exact softmax, where the TPU transposed kernel clamps both to 60 on every
+    dtype."""
     g = torch.Generator(device=cuda).manual_seed(d + s)
     q = torch.randn((1, s, 1, d), generator=g, device=cuda)
     k = torch.randn((1, s, 1, d), generator=g, device=cuda) * 0.1
@@ -688,6 +688,90 @@ def test_transposed_kernel_is_exact_softmax_above_60_at_any_head_dim(cuda, d, s)
     torch.testing.assert_close(got, want, rtol=0, atol=BOUND)
     torch.testing.assert_close(got[:, 0, 0], torch.ones(d, device=cuda), rtol=0,
                                atol=1e-2)
+
+
+# K7's designs at a width each of their families: the narrow kernel's (8, 40,
+# 48), the d = 64 kernel's (56, 64), flash_mid.cu's (72, 80, 160) and the
+# split kernel's (192, 512)
+K7_DESIGN_DIMS = (8, 40, 48, 56, 64, 72, 80, 160, 192, 512)
+
+
+def _transposed_call(entry, qkv_t, out, h):
+    """A K7 C entry on the card: ``gswm_flash_transposed`` or, every box by
+    hand at any S, ``gswm_flash_transposed_rows``; out may be any view."""
+    from gswm_torch import native
+
+    n3, b, s = qkv_t.shape
+    native.library().call(entry, qkv_t.data_ptr(), out.data_ptr(), b, s, h, n3 // (3 * h),
+                          native.stream_handle(qkv_t.device))
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("b,s,h", [(2, 1024, 3), (1, 136, 2), (2, 4096, 5), (8, 256, 2)])
+@pytest.mark.parametrize("d", K7_DESIGN_DIMS)
+def test_hand_loaded_form_equals_the_tensor_maps_form(cuda, d, b, s, h):
+    """Where S % 8 == 0 both forms of a design run: the boxes by tensor maps
+    (gswm_flash_transposed) and by hand (gswm_flash_transposed_rows: cp.async
+    copies into the same swizzled tiles, the output stored by hand).  The
+    same tiles reach the same products, so the outputs are equal bit for
+    bit: this holds the loads and stores apart from the arithmetic."""
+    g = torch.Generator(device=cuda).manual_seed(d + s + b)
+    qkv_t = torch.randn((3 * h * d, b, s), generator=g, device=cuda).bfloat16()
+    out = qkv_t.new_empty((h * d, b, s))
+    tma = _transposed_call("gswm_flash_transposed", qkv_t, out.clone(), h)
+    rows = _transposed_call("gswm_flash_transposed_rows", qkv_t, out.clone(), h)
+    assert torch.equal(rows, tma)
+    assert torch.isfinite(rows.float()).all()
+
+
+# K7's designs that are the natural layout's: flash_hopper.cu's narrow kernel
+# and flash_mid.cu's kernel, at every width they take
+NATURAL_DESIGN_DIMS = (*range(8, 49, 8), *range(72, 161, 8))
+
+
+@pytest.mark.parametrize("s", [1, 65, 324, 988, 1001])
+@pytest.mark.parametrize("d", NATURAL_DESIGN_DIMS)
+def test_transposed_kernel_at_unaligned_s_equals_the_natural_kernel(cuda, d, s):
+    """At S % 8 != 0 (1, 65 and 1001 odd; 324 and 988 the level-2 tokens of
+    SD at 576x576 and of SDXL at 832x1216) K7 runs the narrow and mid designs
+    with their boxes by hand: the same products in the same order as the
+    natural layout's kernel on the same q, k and v, whose output it equals
+    bit for bit; launches counted under the hand-loaded form's name."""
+    b, h = 2, 3
+    g = torch.Generator(device=cuda).manual_seed(d + s)
+    qkv_t = torch.randn((3 * h * d, b, s), generator=g, device=cuda).bfloat16()
+    kernel = attn.transposed_kernel(d, s)
+    assert kernel == attn.head_dim_kernel(d, "transposed")[0] + attn.ROWS_FORM
+    by_kernel = attn.flash_attention_transposed.launches_by_kernel
+    before = by_kernel.get(kernel, 0)
+    got = attn.flash_attention_transposed(qkv_t, h)
+    assert by_kernel[kernel] == before + 1
+    q, k, v = (t.permute(2, 3, 0, 1).reshape(b, s, h * d).contiguous()
+               for t in qkv_t.view(3, h, d, b, s))
+    natural = attn.flash_attention(q, k, v, h)
+    assert torch.equal(_heads(got, h), natural.view(b, s, h, d))
+
+
+@pytest.mark.parametrize("s", [1, 65, 324, 1001, 1024])
+@pytest.mark.parametrize("d", K7_DESIGN_DIMS)
+def test_transposed_kernel_writes_nothing_past_its_output(cuda, d, s):
+    """The output as a view between two guard regions filled with a
+    sentinel: the hand store writes tokens below S of rows below d alone (at
+    S % 8 != 0 the chunks at a row's ends hold the next batch's tokens, and
+    the last row's end the guard), so the guards come back intact and the
+    output equals the wrapper's.  The view starts 16 bytes in, as the tensor
+    maps at S % 8 == 0 need."""
+    b, h = 3, 2
+    g = torch.Generator(device=cuda).manual_seed(d * s)
+    qkv_t = torch.randn((3 * h * d, b, s), generator=g, device=cuda).bfloat16()
+    n, guard = h * d * b * s, 8 * 37
+    sentinel = -12345.0  # exactly a bf16
+    buf = torch.full((guard + n + guard,), sentinel, device=cuda, dtype=torch.bfloat16)
+    out = buf[guard:guard + n].view(h * d, b, s)
+    _transposed_call("gswm_flash_transposed", qkv_t, out, h)
+    assert (buf[:guard] == sentinel).all() and (buf[guard + n:] == sentinel).all()
+    assert torch.equal(out, attn.flash_attention_transposed(qkv_t, h))
 
 
 # flash_hopper.cu's narrow kernel (d <= 48) at every width it takes, and 56,

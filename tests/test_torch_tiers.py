@@ -87,7 +87,11 @@ def test_packed_reference_matches_jax_kernel(b, s, h):
     (2, 256, 2, 64), (1, 640, 3, 64), (1, 2304, 2, 64),
     # SD 1.x's widths (40 at level 0 under switch set (c), at the JAX tier's
     # batch of 8; 80, 160) and one no SD model uses
-    (8, 256, 2, 40), (2, 200, 1, 80), (1, 136, 1, 160), (1, 256, 2, 72)])
+    (8, 256, 2, 40), (2, 200, 1, 80), (1, 136, 1, 160), (1, 256, 2, 72),
+    # S % 8 != 0, where the port's kernels load their boxes by hand: SD 1.x's
+    # level 2 at 576x576 (324 tokens of 160), a ragged d = 64, an odd S at
+    # 40, and the split design's width 192 at CLIP's 77 tokens
+    (1, 324, 1, 160), (2, 100, 2, 64), (1, 1001, 1, 40), (1, 77, 1, 192)])
 def test_transposed_reference_matches_jax_kernel(b, s, h, d):
     q, k, v = (_rand((b, s, h, d), 10 + i) for i in range(3))
     qkv_t = _to_t(q, k, v)
@@ -364,6 +368,32 @@ def test_attention_layer_matches_jax_under_transposed_switch_at_sd14_mid_head_di
     want = np.asarray(jmod.apply(params, jnp.asarray(x)))
     assert attn.route_self_attention(s, d) == "transposed"
     assert attn.head_dim_kernel(d, "transposed")[0] == "flash_mid_kernel"
+    mod = Attention(c, c, h, d)
+    bridge.load_tree_(mod, params)
+    with torch.no_grad():
+        got = mod(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=5e-5)
+
+
+def test_attention_layer_matches_jax_under_transposed_switch_at_sd14_level2_576(monkeypatch):
+    """sd-1-4's level 2 at 576x576: 18 x 18 = 324 tokens (S % 8 == 4, where
+    the port's K7 loads its boxes by hand), 8 heads of 160 over 1280
+    channels, at the JAX transposed tier's batch of 8 under phase 10's set
+    (t): both packages take the transposed tier, the JAX one its Pallas
+    kernel in interpret mode; fp32, atol 5e-5 and rtol 1e-4 as at the other
+    SD 1.x widths."""
+    _set_switches(monkeypatch, {**SWITCH_SETS["transposed"],
+                                "GSWM_TRANSPOSED_ATTN_MIN_SEQ": "256"})
+    monkeypatch.setenv("GSWM_FORCE_FLASH", "1")
+    b, s, h, d = 8, 324, 8, 160
+    c = h * d
+    x = _rand((b, s, c), 33)
+    jmod = JAttention(heads=h, head_dim=d, dtype=jnp.float32)
+    params = jmod.init(jax.random.key(7), jnp.asarray(x))
+    assert _jax_route(jmod.bind(params), jnp.asarray(x)) == "transposed"
+    want = np.asarray(jmod.apply(params, jnp.asarray(x)))
+    assert attn.route_self_attention(s, d) == "transposed"
+    assert attn.transposed_kernel(d, s) == "flash_mid_kernel" + attn.ROWS_FORM
     mod = Attention(c, c, h, d)
     bridge.load_tree_(mod, params)
     with torch.no_grad():
