@@ -317,7 +317,34 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
            slice of it), find_source's candidates/s on the library against
            the numpy loop, the build's seconds.
      The phase's seconds are printed.
- 13. summary  — a JSON line of the kernels, then the JSON result line.
+ 13. float32 on the card, sd-2-1-base at 512x512, batch 4 (run after phase
+     3's memory sweep; the pipeline from the same seed, in float32):
+       (a) each float32 kernel against its plain version on the card, TF32
+           off: csrc/qkv_proj_f32.cu's GEMM at paths.F32_PROJ_SHAPES ((B *
+           1024, 640, 640), (B * 256, 1280, 1280)) and csrc/flash_f32.cu's
+           core at paths.F32_FLASH_SHAPES ((B, 4096, 5, 64), (B, 1024, 10,
+           64), (B, 256, 20, 64)), N(0, 1) inputs, each within 1e-5 of max
+           |want|; beside each the plain version with TF32 allowed, which
+           must miss that bound, and the library call (F.linear; sdpa on
+           the fp32 tensors, its backend) with its time and its own error;
+       (b) one fp32 UNet forward at batch 1 on the card against the same
+           forward on the CPU (the weights moved with .to, the same inputs),
+           within 1e-4 of max |out|; the card's forward with TF32 allowed
+           printed beside, with no limit;
+       (c) the fp32 closed loop (embed -> 30-step DDIM at guidance 1.0 ->
+           30-step inversion -> decode) with both TF32 flags on around it:
+           bit accuracy >= 0.99 on every image, the flags off in every UNet
+           call (a forward pre-hook reads them) and on again after; the RMS
+           of the recovered z_T against the embedded one beside phase 3a's
+           bf16 RMS;
+       (d) the extraction chain in fp32, timed as in phase 3b, images/s
+           beside phase 3b's bf16 rate.
+     Launches over (b)-(d) (122 forwards): the fp32 K1 10 and the fp32 K2 5
+     a forward (``launches_f32``), no bf16 attention kernel, no K4 in either
+     dtype, no log-sum-exp.  The kernels line lists both fp32 kernels
+     ("qkv_proj_f32", "flash_f32") with bound_ms at 3xTF32 (PEAK_TF32 / 3,
+     gswm_torch/roofline.py).
+ 14. summary  — a JSON line of the kernels, then the JSON result line.
 Each path's launch counts are set to 0 just before it and read just after.
 """
 
@@ -457,6 +484,16 @@ TP_REL_BOUND = 0.02
 # phase 12e: the records the numpy plain versions are run on (numpy's
 # decode takes milliseconds a record, its quantization tens)
 HOST_PLAIN_SLICE = 256
+# phase 13: a float32 kernel against its plain version on the card, both in
+# fp32 with TF32 off, relative to max |want|.  On the CPU against float64 at
+# these widths and N(0, 1) inputs fp32 reads ~1e-6, TF32-rounded operands
+# 3e-4 (GEMM) to 7e-4 (attention), bf16 inputs 5e-3: the bound tells fp32
+# from TF32, which the plain version with TF32 allowed must fail
+F32_REL_BOUND = 1e-5
+# phase 13b: the float32 UNet forward on the card against the same forward
+# on the CPU, relative to max |out|: two fp32 computations that sum in
+# other orders through ~60 layers
+F32_UNET_REL_BOUND = 1e-4
 # gswm/pipelines/inversable.py:330-348: VAE calls take vae_chunk images at
 # 512x512, fewer in proportion to the pixels, and 8x fewer when decoding
 VAE_CHUNK = 32
@@ -1080,6 +1117,11 @@ def _wrappers() -> dict:
             "fused_group_norm": gn.fused_group_norm}
 
 
+# the wrappers that launch the float32 kernels
+F32_WRAPPERS = ("fused_qkv_attention", "qkv_projection", "flash_attention",
+                "flash_attention_split")
+
+
 def _counters() -> dict:
     """Each wrapper's launches; and, of the split wrapper's, those at
     D <= 64 (the record "flash_attention_split_d64") and at 64 < D <= 160
@@ -1110,6 +1152,14 @@ def _counters() -> dict:
     by_kernel = attn.flash_attention_transposed.launches_by_kernel
     for design, record in K7_NATURAL_DESIGNS.items():  # boxes by tensor maps and by hand
         counts[record] = by_kernel.get(design, 0) + by_kernel.get(design + attn.ROWS_FORM, 0)
+    # the float32 launches by wrapper, and by kernel: csrc/qkv_proj_f32.cu's
+    # GEMM (fused-qkv and the projection alone) and csrc/flash_f32.cu's core
+    # (fused-qkv, natural and split layouts)
+    for name in F32_WRAPPERS:
+        counts[name + "_f32"] = getattr(attn, name).launches_f32
+    counts["qkv_proj_f32"] = counts["fused_qkv_attention_f32"] + counts["qkv_projection_f32"]
+    counts["flash_f32"] = counts["fused_qkv_attention_f32"] + counts["flash_attention_f32"] \
+        + counts["flash_attention_split_f32"]
     return counts
 
 
@@ -1128,6 +1178,10 @@ def _reset_counters() -> None:
     split.lse_launches = 0
     split.lse_launches_by_d = {}
     _wrappers()["flash_attention_transposed"].launches_by_kernel = {}
+    from gswm_torch.ops import attention as attn
+
+    for name in F32_WRAPPERS:
+        getattr(attn, name).launches_f32 = 0
 
 
 def _clear_keystream_caches() -> None:
@@ -1178,8 +1232,10 @@ def phase_extraction_512(card: str) -> dict:
     bits = recover_message_bits(z_back, cfg)
     acc = _bit_accuracy(bits, msg, dev)
     sign = ((z_back > 0) == (zt > 0)).float().mean().item()
+    rms = (z_back - zt).square().mean().sqrt().item()
     print(f"(a) closed loop, batch {BATCH}, {STEPS}+{STEPS} steps: bit accuracy "
-          f"{acc}, element sign agreement {sign:.4f}", flush=True)
+          f"{acc}, element sign agreement {sign:.4f}, RMS of z_T back - z_T "
+          f"{rms:.6f}", flush=True)
     if min(acc) < MIN_BIT_ACC:
         raise AssertionError(f"closed-loop bit accuracy {acc} below {MIN_BIT_ACC}")
     if c_embed["chacha20"] != 1:
@@ -1216,7 +1272,7 @@ def phase_extraction_512(card: str) -> dict:
                              "keeps the plain path")
     # (a) generate + invert, (b) two inversions: 4 x STEPS UNet forwards
     _check_unet_launches(counts, 4 * STEPS)
-    return counts, pipe, BATCH / walls[1]
+    return counts, pipe, BATCH / walls[1], rms
 
 
 def build_pipeline_768():
@@ -2839,15 +2895,207 @@ def phase_multidevice(card: str, records: dict) -> dict:
     return {name: counts[name] + counts_c[name] for name in counts}
 
 
+def _allow_tf32(on: bool) -> None:
+    """PyTorch's float32 matrix products and cuDNN convolutions in TF32 or
+    not (phase_card turns both off for the whole run)."""
+    torch.backends.cuda.matmul.allow_tf32 = on
+    torch.backends.cudnn.allow_tf32 = on
+
+
+def _one_tensor(out) -> torch.Tensor:
+    """A wrapper's output as one tensor: q, k and v side by side."""
+    return torch.cat(out, dim=-1) if isinstance(out, tuple) else out
+
+
+def _check_f32_kernel(records: dict, name: str, label: str, kernel, plain, library,
+                      lib_ms, backend: str, bound: tuple, iters: int) -> None:
+    """A float32 kernel against its plain version on the card, TF32 off:
+    within F32_REL_BOUND of max |want|; the plain version with TF32 allowed
+    must miss that bound (so the bound tells fp32 from TF32).  Beside it the
+    library call's time ``lib_ms`` and, from ``library`` (None where it was
+    refused), its own error."""
+    got, want = _one_tensor(kernel()), _one_tensor(plain())
+    top = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    del got
+    _allow_tf32(True)
+    try:
+        tf32_err = (_one_tensor(plain()) - want).abs().max().item()
+    finally:
+        _allow_tf32(False)
+    lib_err = None if library is None else (library() - want).abs().max().item()
+    ms = _time_ms(kernel, iters)
+    plain_ms = _time_ms(plain, 3)
+    print(f"{label}: err/max|want| {err / top:.3e} (bound {F32_REL_BOUND:.0e}), max|want| "
+          f"{top:.4f}; the plain version with TF32 allowed {tf32_err / top:.3e} (must "
+          f"exceed the bound); {ms:.4f} ms (plain {plain_ms:.4f}, bound {bound[0]:.4f} by "
+          f"{bound[1]}, library {_fmt(lib_ms)}, {backend}, its err/max|want| "
+          f"{'none' if lib_err is None else f'{lib_err / top:.3e}'})", flush=True)
+    if not err <= F32_REL_BOUND * top:
+        raise AssertionError(f"{label}: error {err} above {F32_REL_BOUND} x {top}")
+    if not tf32_err > F32_REL_BOUND * top:
+        raise AssertionError(f"{label}: the plain version in TF32 is within the float32 "
+                             f"bound ({tf32_err} against {top}): the bound proves nothing")
+    _record(records, name, err, ms, plain_ms, bound, lib_ms)
+
+
+def _check_f32_launches(counts: dict, forwards: int) -> None:
+    """Float32 sd-2-1-base at 512x512: per UNet forward the fp32 K1 10
+    times (levels 1 and 2) and the fp32 K2 5 times (level 0); no bf16
+    attention kernel, no K4 in either dtype, no log-sum-exp."""
+    want = {"fused_qkv_attention_f32": 10 * forwards, "flash_attention_f32": 5 * forwards,
+            "flash_attention_split_f32": 0, "qkv_projection_f32": 0,
+            "flash_attention_split_lse_d64": 0, "flash_attention_split_lse_mid": 0,
+            "flash_attention_split_lse": 0,
+            **{name: 0 for name in ATTENTION_COUNTERS}}
+    got = {name: counts[name] for name in want}
+    if got != want:
+        raise AssertionError(f"float32 launches {got} for {forwards} UNet forwards, "
+                             f"not {want}")
+
+
+def phase_float32(card: str, records: dict, rate_3b: float, rms_3a: float) -> dict:
+    """13. float32 on the card, sd-2-1-base at 512x512, batch 4."""
+    import copy
+
+    from gswm_torch import recover_message_bits, roofline
+    from gswm_torch.ops import attention as attn
+
+    print("13. float32 on the card, sd-2-1-base at 512x512", flush=True)
+    t0 = time.perf_counter()
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(1813)
+
+    # (a) each float32 kernel against its plain version, at the path's shapes
+    for m, c, n in paths.F32_PROJ_SHAPES:
+        x = torch.randn((BATCH, m // BATCH, c), generator=g, device=dev)
+        ws = [torch.randn((n, c), generator=g, device=dev) for _ in range(3)]
+        w_cat = torch.cat(ws)
+        _check_f32_kernel(
+            records, "qkv_proj_f32", f"(a) fp32 projection GEMM (M={m}, C={c}, N={n})",
+            lambda x=x, ws=ws: attn.qkv_projection(x, *ws),
+            lambda x=x, ws=ws: attn.qkv_projection_reference(x, *ws),
+            lambda x=x, w_cat=w_cat: F.linear(x, w_cat),
+            _library_ms(lambda x=x, w_cat=w_cat: F.linear(x, w_cat), 10), "F.linear",
+            roofline.bound_ms(*roofline.projection_cost(m, c, n, roofline.F32),
+                              roofline.PEAK_F32_PRODUCTS), 10)
+        del x, ws, w_cat
+    for b, s, h, d in paths.F32_FLASH_SHAPES:
+        q, k, v = (torch.randn((b, s, h * d), generator=g, device=dev) for _ in range(3))
+        views = [_heads_view(t, b, s, h, d) for t in (q, k, v)]
+        lib_ms, backend = _attention_library_ms(lambda sdpa, views=views: sdpa(*views), 5)
+        sdpa = _sdpa_fused if backend == "fused" else F.scaled_dot_product_attention
+        _check_f32_kernel(
+            records, "flash_f32",
+            f"(a) fp32 flash core, {attn.dtype_kernel(torch.float32, d)} (B={b}, S={s}, "
+            f"H={h}, D={d})",
+            lambda q=q, k=k, v=v, h=h: attn.flash_attention(q, k, v, h),
+            lambda q=q, k=k, v=v, h=h: attn.flash_attention_reference(q, k, v, h),
+            None if lib_ms is None else
+            (lambda views=views, sdpa=sdpa, b=b, s=s: sdpa(*views).transpose(1, 2)
+             .reshape(b, s, -1)),
+            lib_ms, f"sdpa on fp32 tensors, backend {backend}",
+            roofline.attention_bound_ms(roofline.attention_cost(b, s, s, h, d,
+                                                                elem=roofline.F32),
+                                        roofline.PEAK_F32_PRODUCTS), 5)
+        del q, k, v, views
+    torch.cuda.empty_cache()
+
+    t_build = time.perf_counter()
+    pipe = paths.build_pipeline("sd-2-1-base", dtype=torch.float32)
+    torch.cuda.synchronize()
+    print(f"pipeline: sd-2-1-base in float32, built in {time.perf_counter() - t_build:.2f} s",
+          flush=True)
+    cfg = paths.config(RES, "gswm_torch")
+    _reset_counters()
+
+    # (b) one UNet forward at batch 1, card against CPU on the same weights
+    inputs = paths.unet_inputs(pipe, 1, res=RES)
+    with torch.inference_mode():
+        out = pipe.unet(*inputs)
+        _allow_tf32(True)
+        try:
+            out_tf32 = pipe.unet(*inputs)
+        finally:
+            _allow_tf32(False)
+        cpu_unet = copy.deepcopy(pipe.unet).to("cpu")
+        t_cpu = time.perf_counter()
+        want = cpu_unet(*(t.to("cpu") for t in inputs))
+        t_cpu = time.perf_counter() - t_cpu
+    del cpu_unet
+    top = want.abs().max().item()
+    err = (out.cpu() - want).abs().max().item()
+    err_tf32 = (out_tf32.cpu() - want).abs().max().item()
+    print(f"(b) fp32 UNet forward, batch 1: card against CPU err/max|out| {err / top:.3e} "
+          f"(bound {F32_UNET_REL_BOUND:.0e}); with TF32 allowed {err_tf32 / top:.3e} (no "
+          f"limit); max|out| {top:.4f}; the CPU forward {t_cpu:.2f} s", flush=True)
+    if out.shape != want.shape or not err <= F32_UNET_REL_BOUND * top:
+        raise AssertionError(f"fp32 UNet forward: card {tuple(out.shape)} against CPU "
+                             f"{tuple(want.shape)}, error {err} against max|out| {top}")
+    del out, out_tf32, want
+
+    # (c) the closed loop, TF32 allowed around it: the pipeline turns it off
+    # for its own calls and restores it after
+    seen = set()
+    hook = pipe.unet.register_forward_pre_hook(lambda *_: seen.add(
+        (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)))
+    _allow_tf32(True)
+    try:
+        zt, msg = paths.embed(cfg, BATCH, 5)
+        x0 = pipe.generate(zt, guidance_scale=1.0, num_steps=STEPS, decode=False)
+        z_back = pipe.invert(latents=x0, num_steps=STEPS)
+        after = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    finally:
+        _allow_tf32(False)
+        hook.remove()
+    if seen != {(False, False)} or after != (True, True):
+        raise AssertionError(f"TF32 flags (matmul, cudnn) inside the fp32 pipeline's calls "
+                             f"{seen}, after them {after}: not off within, restored after")
+    acc = _bit_accuracy(recover_message_bits(z_back, cfg), msg, dev)
+    rms = (z_back - zt).square().mean().sqrt().item()
+    print(f"(c) fp32 closed loop, batch {BATCH}, {STEPS}+{STEPS} steps: bit accuracy {acc}; "
+          f"RMS of z_T back - z_T {rms:.6f} in float32, {rms_3a:.6f} in bfloat16 (phase "
+          f"3a); TF32 off inside every UNet call, restored after", flush=True)
+    if min(acc) < MIN_BIT_ACC:
+        raise AssertionError(f"fp32 closed-loop bit accuracy {acc} below {MIN_BIT_ACC}")
+
+    # (d) the extraction chain in float32, once to warm up, once timed
+    images = paths.random_images_512()
+    walls = []
+    for seed in (1, 2):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out_bits, z_b, zt_b = paths.extraction_chain_512(pipe, cfg, images, seed)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+    if tuple(out_bits.shape) != (BATCH, 256) or not (
+            torch.isfinite(z_b).all() and torch.isfinite(zt_b).all()):
+        raise AssertionError(f"fp32 extraction chain: bits {tuple(out_bits.shape)}, "
+                             "or non-finite latents")
+    print(f"(d) fp32 extraction chain, batch {BATCH}, {RES}x{RES}, {STEPS} steps: wall "
+          f"{walls[1]:.4f} s ({BATCH / walls[1]:.4f} images/s; bfloat16, phase 3b: "
+          f"{rate_3b:.4f}; first pass {walls[0]:.4f} s) on {card}", flush=True)
+
+    counts = _counters()
+    # (b) two forwards, (c) generate + invert, (d) two inversions
+    _check_f32_launches(counts, 2 + 4 * STEPS)
+    print(f"launches of phase 13: {({k: v for k, v in counts.items() if v})}; "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    del pipe, z_back, x0, z_b, zt_b, images
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> None:
     card = phase_card()
     phase_build()
     pipe_768 = build_pipeline_768()
     records = phase_kernels(paths.groupnorm_cases(pipe_768))
-    counts_512, pipe_512, rate_3b = phase_extraction_512(card)
+    counts_512, pipe_512, rate_3b, rms_3a = phase_extraction_512(card)
     t_new = time.perf_counter()
     counts_new = [phase_memory_sweep(card, pipe_512, "sd-2-1-base", check_steps=STEPS)]
     seconds_new = time.perf_counter() - t_new
+    counts_new.append(phase_float32(card, records, rate_3b, rms_3a))
     counts_768 = phase_generation_768(card, pipe_768)
     t_new = time.perf_counter()
     counts_new.append(phase_memory_sweep(card, pipe_768, "sd-2-1"))
@@ -2935,6 +3183,10 @@ def main() -> None:
                                               "gswm/ops/attention.py:1428"),
         "flash_attention_transposed_mid": ("gswm_torch/csrc/flash_mid.cu",
                                            "gswm/ops/attention.py:1428"),
+        # float32 (phase 13): K1's projection GEMM, and the d = 64 core of K1,
+        # K2 (which serves flash_attention_cres) and K4
+        "qkv_proj_f32": ("gswm_torch/csrc/qkv_proj_f32.cu", "gswm/ops/attention.py:689"),
+        "flash_f32": ("gswm_torch/csrc/flash_f32.cu", "gswm/ops/attention.py:1211"),
     }
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=counts[name], **records[name])

@@ -53,6 +53,18 @@ TPU bf16 paths (and the transposed kernel on every dtype) drop the running
 max and clamp logits at 60 (``_NOMAX_CLAMP``); the two agree within
 rounding while |logit| < 60.
 
+The kernels above take bfloat16.  Two more take float32, every product and
+sum in fp32 on the CUDA cores (FFMA), as the TPU kernels take fp32 and then
+keep the running max (gswm/ops/attention.py:720-721):
+csrc/qkv_proj_f32.cu, the projection GEMM at the widths the bf16 GEMM
+takes, and csrc/flash_f32.cu, the flash core at head dim 64
+(``F32_HEAD_DIM``) alone, natural layout, no log-sum-exp.  So in float32
+``flash_attention``, ``qkv_projection``, ``fused_qkv_attention`` and
+``flash_attention_split`` without ``return_lse`` launch them at d = 64,
+and every other wrapper, dtype or head dim raises a TypeError that names
+the dtype (``dtype_kernel`` states the rule).  Their launches count in
+``<wrapper>.launches_f32``; the bf16 counters do not move.
+
 On a CPU tensor each wrapper runs its plain PyTorch version; on a CUDA
 tensor it launches its kernel or raises, and it raises under a gradient
 (``native.refuse_grad``): no kernel has a backward.  Each wrapper counts
@@ -179,7 +191,41 @@ def transposed_kernel(d: int, s: int) -> str:
     return kernel + ROWS_FORM if s % 8 else kernel
 
 
-def _count(wrapper, d: int) -> None:
+# The float32 flash kernel, csrc/flash_f32.cu, and the one head dim it
+# takes (natural and split layouts, no log-sum-exp)
+F32_HEAD_DIM = 64
+F32_FLASH_KERNEL = "flash_f32_kernel"
+# the dtypes of the flash, split and fused-qkv wrappers' kernels; the
+# packed and transposed kernels and the log-sum-exp output take bf16 alone
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+BF16_ONLY = (torch.bfloat16,)
+
+
+def dtype_kernel(dtype: torch.dtype, d: int, layout: str = "natural") -> str:
+    """The attention kernel that runs head dim ``d`` on ``dtype`` tensors in
+    ``layout`` (as ``head_dim_kernel``'s): in bfloat16 the kernel
+    ``head_dim_kernel`` names, in float32 ``F32_FLASH_KERNEL``
+    (csrc/flash_f32.cu) at d = ``F32_HEAD_DIM`` in the natural layout
+    alone.  Raises TypeError, naming the dtype, where no kernel takes it
+    (float32 at another d or in the transposed layout, float16 and every
+    other dtype), ValueError for a d no kernel takes or another layout."""
+    kernel = head_dim_kernel(d, layout)[0]
+    if dtype == torch.bfloat16:
+        return kernel
+    if dtype == torch.float32:
+        if d == F32_HEAD_DIM and layout == "natural":
+            return F32_FLASH_KERNEL
+        raise TypeError(f"torch.float32 attention on the card runs csrc/flash_f32.cu at "
+                        f"head dim {F32_HEAD_DIM} in the natural layout alone, not at "
+                        f"d = {d} in the {layout} layout; use torch.bfloat16")
+    raise TypeError(f"the attention kernels take torch.bfloat16, and torch.float32 at "
+                    f"head dim {F32_HEAD_DIM}; got {dtype}")
+
+
+def _count(wrapper, d: int, dtype: torch.dtype = torch.bfloat16) -> None:
+    if dtype == torch.float32:
+        wrapper.launches_f32 += 1
+        return
     wrapper.launches += 1
     wrapper.launches_by_d[d] = wrapper.launches_by_d.get(d, 0) + 1
 
@@ -288,33 +334,47 @@ def fused_qkv_attention_reference(x: torch.Tensor, wq: torch.Tensor,
     return out.to(x.dtype)
 
 
-def _check_cuda_bf16(name: str, *tensors: torch.Tensor) -> None:
-    dev = tensors[0].device
+def _check_cuda(name: str, dtypes: tuple, *tensors: torch.Tensor) -> torch.dtype:
+    """What a CUDA kernel takes: tensors on one device, all of one dtype
+    among ``dtypes`` (the kernel's), contiguous and 16-byte aligned.
+    Returns the dtype."""
+    dev, dtype = tensors[0].device, tensors[0].dtype
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name}: the CUDA kernel takes bfloat16, got {t.dtype}")
+        if t.dtype not in dtypes or t.dtype != dtype:
+            raise TypeError(f"{name}: the CUDA kernel takes "
+                            f"{' or '.join(map(str, dtypes))}, one for all tensors; got "
+                            f"{t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: the CUDA kernel takes contiguous tensors")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: the CUDA kernel needs 16-byte aligned data")
+    return dtype
+
+
+def _flash_entry(dtype: torch.dtype, d: int) -> str:
+    """The C entry of the flash kernel ``dtype_kernel`` names (which raises
+    where there is none): ``gswm_flash_f32`` in float32, else
+    ``gswm_flash_split``, which dispatches on d."""
+    return "gswm_flash_f32" if dtype_kernel(dtype, d) == F32_FLASH_KERNEL \
+        else "gswm_flash_split"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     heads: int) -> torch.Tensor:
     """(B, S, H*D) q/k/v -> (B, S, H*D) self-attention output.
 
-    CPU: ``flash_attention_reference``.  CUDA: the kernel
-    ``head_dim_kernel`` names (csrc/flash_hopper.cu, flash_mid.cu or
-    flash_split.cu) on the (B, S, H, D) view (bf16, any S, any D
-    ``kernel_takes_head_dim`` takes)."""
+    CPU: ``flash_attention_reference``.  CUDA: the kernel ``dtype_kernel``
+    names on the (B, S, H, D) view, any S: in bf16 csrc/flash_hopper.cu,
+    flash_mid.cu or flash_split.cu at any D ``kernel_takes_head_dim``
+    takes, in float32 csrc/flash_f32.cu at D = 64."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, heads)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     native.refuse_grad("flash_attention", q, k, v)
-    _check_cuda_bf16("flash_attention", q, k, v)
+    dtype = _check_cuda("flash_attention", KERNEL_DTYPES, q, k, v)
     if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"flash_attention: q/k/v shapes {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)} must be equal (B, S, H*D)")
@@ -322,28 +382,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if inner % heads:
         raise ValueError(f"flash_attention: inner {inner} is not heads {heads} x D")
     d = inner // heads
-    kernel_head_dim(d)
+    entry = _flash_entry(dtype, d)
     out = torch.empty_like(q)
     lib = native.library()
     with torch.cuda.device(q.device):
-        lib.call("gswm_flash_split", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 out.data_ptr(), b, s, s, heads, d, native.stream_handle(q.device))
-    _count(flash_attention, d)
+        lib.call(entry, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, s,
+                 heads, d, native.stream_handle(q.device))
+    _count(flash_attention, d, dtype)
     return out
 
 
 flash_attention.launches = 0
 flash_attention.launches_by_d = {}
+flash_attention.launches_f32 = 0
 
 
 def _check_projection(name: str, x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
-                      wv: torch.Tensor, inner: int) -> tuple[int, int, int]:
-    """What the projection GEMM takes: CUDA bf16 (B, S, C) x and (inner, C)
-    weights, C and inner multiples of 64.  Returns (B, S, C)."""
+                      wv: torch.Tensor, inner: int) -> tuple[int, int, int, torch.dtype]:
+    """What the projection GEMMs take: CUDA (B, S, C) x and (inner, C)
+    weights, all bf16 (csrc/fused_qkv.cu) or all float32
+    (csrc/qkv_proj_f32.cu), C and inner multiples of 64.  Returns (B, S, C,
+    dtype)."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     native.refuse_grad(name, x, wq, wk, wv)
-    _check_cuda_bf16(name, x, wq, wk, wv)
+    dtype = _check_cuda(name, KERNEL_DTYPES, x, wq, wk, wv)
     if x.dim() != 3:
         raise ValueError(f"{name}: x must be (B, S, C), got {tuple(x.shape)}")
     b, s, c = x.shape
@@ -353,7 +416,7 @@ def _check_projection(name: str, x: torch.Tensor, wq: torch.Tensor, wk: torch.Te
     if c % 64 or inner % 64:
         raise ValueError(f"{name}: channels {c} and width {inner} must be "
                          "multiples of 64")
-    return b, s, c
+    return b, s, c, dtype
 
 
 def qkv_projection_reference(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
@@ -370,53 +433,67 @@ def qkv_projection(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
     """(B, S, C) x and bias-free (N, C) q/k/v weights -> q, k, v (B, S, N):
     the projection step of ``fused_qkv_attention`` on its own.
 
-    CPU: ``qkv_projection_reference``.  CUDA: the GEMM of csrc/fused_qkv.cu
-    (bf16, C % 64 == 0, N % 64 == 0, fp32 accumulation, any B * S)."""
+    CPU: ``qkv_projection_reference``.  CUDA (C % 64 == 0, N % 64 == 0, any
+    B * S): in bf16 the GEMM of csrc/fused_qkv.cu (fp32 accumulation), in
+    float32 that of csrc/qkv_proj_f32.cu."""
     if x.device.type == "cpu":
         return qkv_projection_reference(x, wq, wk, wv)
     inner = wq.shape[0]
-    b, s, c = _check_projection("qkv_projection", x, wq, wk, wv, inner)
+    b, s, c, dtype = _check_projection("qkv_projection", x, wq, wk, wv, inner)
     q, k, v = (x.new_empty((b, s, inner)) for _ in range(3))
     lib = native.library()
+    f32 = dtype == torch.float32
     with torch.cuda.device(x.device):
-        lib.call("gswm_qkv_proj", x.data_ptr(), wq.data_ptr(), wk.data_ptr(),
-                 wv.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), b * s, c,
-                 inner, native.stream_handle(x.device))
-    qkv_projection.launches += 1
+        lib.call("gswm_qkv_proj_f32" if f32 else "gswm_qkv_proj", x.data_ptr(),
+                 wq.data_ptr(), wk.data_ptr(), wv.data_ptr(), q.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), b * s, c, inner, native.stream_handle(x.device))
+    if f32:
+        qkv_projection.launches_f32 += 1
+    else:
+        qkv_projection.launches += 1
     return q, k, v
 
 
 qkv_projection.launches = 0
+qkv_projection.launches_f32 = 0
 
 
 def fused_qkv_attention(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
                         wv: torch.Tensor, heads: int) -> torch.Tensor:
     """(B, S, C) x and bias-free (H*D, C) q/k/v weights -> (B, S, H*D).
 
-    CPU: ``fused_qkv_attention_reference``.  CUDA: the projection GEMM of
-    csrc/fused_qkv.cu, then the kernel ``head_dim_kernel`` names
-    (csrc/flash_hopper.cu, flash_mid.cu or flash_split.cu; bf16, C and H*D
-    multiples of 64, any D ``kernel_takes_head_dim`` takes)."""
+    CPU: ``fused_qkv_attention_reference``.  CUDA (C and H*D multiples of
+    64): in bf16 the projection GEMM of csrc/fused_qkv.cu, then the kernel
+    ``head_dim_kernel`` names (csrc/flash_hopper.cu, flash_mid.cu or
+    flash_split.cu; any D ``kernel_takes_head_dim`` takes), one C call; in
+    float32 the GEMM of csrc/qkv_proj_f32.cu, then csrc/flash_f32.cu at
+    D = 64."""
     if x.device.type == "cpu":
         return fused_qkv_attention_reference(x, wq, wk, wv, heads)
     inner = wq.shape[0]
     if inner % heads:
         raise ValueError(f"fused_qkv_attention: width {inner} is not heads {heads} x D")
     d = inner // heads
-    kernel_head_dim(d)
-    b, s, c = _check_projection("fused_qkv_attention", x, wq, wk, wv, inner)
+    b, s, c, dtype = _check_projection("fused_qkv_attention", x, wq, wk, wv, inner)
+    entry = _flash_entry(dtype, d)
     q, k, v, out = (x.new_empty((b, s, inner)) for _ in range(4))
     lib = native.library()
+    ptrs = [t.data_ptr() for t in (x, wq, wk, wv, q, k, v)]
     with torch.cuda.device(x.device):
-        lib.call("gswm_fused_qkv_attn", x.data_ptr(), wq.data_ptr(), wk.data_ptr(),
-                 wv.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 out.data_ptr(), b, s, c, heads, d, native.stream_handle(x.device))
-    _count(fused_qkv_attention, d)
+        stream = native.stream_handle(x.device)
+        if entry == "gswm_flash_f32":
+            lib.call("gswm_qkv_proj_f32", *ptrs, b * s, c, inner, stream)
+            lib.call(entry, *ptrs[4:], out.data_ptr(), b, s, s, heads, d, stream)
+        else:
+            lib.call("gswm_fused_qkv_attn", *ptrs, out.data_ptr(), b, s, c, heads, d,
+                     stream)
+    _count(fused_qkv_attention, d, dtype)
     return out
 
 
 fused_qkv_attention.launches = 0
 fused_qkv_attention.launches_by_d = {}
+fused_qkv_attention.launches_f32 = 0
 
 # gswm/ops/attention.py:443: fewer keys than this (cross-attention's 77) take
 # the einsum path; the blockwise kernel starts here.
@@ -459,12 +536,14 @@ def flash_attention_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``flash_attention`` is the natural-layout wrapper).  Below
     ``SPLIT_MIN_KEYS`` keys: the reference's einsum path (matmul in the input dtype, softmax in
     fp32, probabilities cast back; lse of the same fp32 logits).  Otherwise
-    CPU: the plain versions; CUDA: the kernel ``head_dim_kernel`` names
-    (csrc/flash_hopper.cu up to D = 64, flash_mid.cu to 160, flash_split.cu
-    above; bf16, any D ``kernel_takes_head_dim`` takes, any Sq and Sk),
-    ``gswm_flash_split_lse`` with ``return_lse``.
+    CPU: the plain versions; CUDA: the kernel ``dtype_kernel`` names, any Sq
+    and Sk: in bf16 csrc/flash_hopper.cu up to D = 64, flash_mid.cu to 160,
+    flash_split.cu above, any D ``kernel_takes_head_dim`` takes
+    (``gswm_flash_split_lse`` with ``return_lse``); in float32
+    csrc/flash_f32.cu at D = 64 without ``return_lse``.
     Launches with lse count in ``flash_attention_split.lse_launches`` (and
-    ``lse_launches_by_d``), the others in ``launches``."""
+    ``lse_launches_by_d``), the float32 ones in ``launches_f32``, the
+    others in ``launches``."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape or \
             q.shape[0] != k.shape[0] or q.shape[2:] != k.shape[2:]:
         raise ValueError(f"flash_attention_split: q {tuple(q.shape)}, k "
@@ -484,8 +563,9 @@ def flash_attention_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_split: unsupported device {q.device}")
     native.refuse_grad("flash_attention_split", q, k, v)
-    _check_cuda_bf16("flash_attention_split", q, k, v)
-    kernel_head_dim(d)
+    dtype = _check_cuda("flash_attention_split", BF16_ONLY if return_lse else KERNEL_DTYPES,
+                        q, k, v)
+    entry = _flash_entry(dtype, d)
     out = torch.empty_like(q)
     lib = native.library()
     with torch.cuda.device(q.device):
@@ -495,19 +575,20 @@ def flash_attention_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      out.data_ptr(), lse.data_ptr(), b, sq, sk, h, d,
                      native.stream_handle(q.device))
         else:
-            lib.call("gswm_flash_split", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                     out.data_ptr(), b, sq, sk, h, d, native.stream_handle(q.device))
+            lib.call(entry, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
+                     sk, h, d, native.stream_handle(q.device))
     if return_lse:
         flash_attention_split.lse_launches += 1
         by_d = flash_attention_split.lse_launches_by_d
         by_d[d] = by_d.get(d, 0) + 1
         return out, lse
-    _count(flash_attention_split, d)
+    _count(flash_attention_split, d, dtype)
     return out
 
 
 flash_attention_split.launches = 0
 flash_attention_split.launches_by_d = {}
+flash_attention_split.launches_f32 = 0
 flash_attention_split.lse_launches = 0
 flash_attention_split.lse_launches_by_d = {}
 
@@ -575,7 +656,7 @@ def flash_attention_packed(qkv: torch.Tensor) -> torch.Tensor:
     if qkv.device.type != "cuda":
         raise ValueError(f"flash_attention_packed: unsupported device {qkv.device}")
     native.refuse_grad("flash_attention_packed", qkv)
-    _check_cuda_bf16("flash_attention_packed", qkv)
+    _check_cuda("flash_attention_packed", BF16_ONLY, qkv)
     b, s, c3 = qkv.shape
     pairs = c3 // (3 * 128)
     out = qkv.new_empty((b, s, pairs * 128))
@@ -626,7 +707,7 @@ def flash_attention_transposed(qkv_t: torch.Tensor, heads: int) -> torch.Tensor:
     if qkv_t.device.type != "cuda":
         raise ValueError(f"flash_attention_transposed: unsupported device {qkv_t.device}")
     native.refuse_grad("flash_attention_transposed", qkv_t)
-    _check_cuda_bf16("flash_attention_transposed", qkv_t)
+    _check_cuda("flash_attention_transposed", BF16_ONLY, qkv_t)
     n3, b, s = qkv_t.shape
     d = n3 // (3 * heads)
     kernel = transposed_kernel(d, s)

@@ -20,7 +20,9 @@ dtype.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -30,14 +32,14 @@ from gswm_torch.config import GSConfig
 from gswm_torch.core.decode import recover_message_bits
 from gswm_torch.models import loader
 from gswm_torch.models.configs import PRESETS, ModelPreset
-from gswm_torch.models.layers import init_random_, to_compute_dtype_
+from gswm_torch.models.layers import VAE_FLASH_MIN_TOKENS, init_random_, to_compute_dtype_
 from gswm_torch.models.text import TextEncoder
 from gswm_torch.models.unet import UNet2DCondition
 from gswm_torch.models.vae import AutoencoderKL
 from gswm_torch.schedulers import SCHEDULERS
 from gswm_torch.schedulers.ddim import ddim_step, to_eps
 from gswm_torch.schedulers.dpm import dpm_init_carry, dpm_step
-from gswm_torch.ops.attention import (FUSED_QKV_MAX_SEQ, FUSED_QKV_MIN_SEQ,
+from gswm_torch.ops.attention import (F32_HEAD_DIM, FUSED_QKV_MAX_SEQ, FUSED_QKV_MIN_SEQ,
                                       kernel_takes_head_dim)
 from gswm_torch.schedulers.schedule import sd_schedule
 
@@ -61,15 +63,25 @@ def _load(cls, cfg, state: dict, what: str):
     return loader.load_state_(module, state, what).eval().requires_grad_(False)
 
 
+def _and_list(items) -> str:
+    items = [str(i) for i in items]
+    return items[0] if len(items) == 1 else ", ".join(items[:-1]) + " and " + items[-1]
+
+
 def _check_served_on_cuda(preset: ModelPreset, dtype: torch.dtype) -> None:
     """Refuse, before anything is built, what the CUDA kernels do not serve.
     At the preset's default resolution every UNet self-attention of
-    ``FUSED_QKV_MIN_SEQ`` tokens or more runs a kernel, which takes bfloat16
-    and the head dims ``kernel_takes_head_dim`` (d % 8 == 0, 8 <= d <= 512:
-    SD 1.x's 40, 80 and 160, SD 2.x's and SDXL's 64), and at the fused-qkv
-    sites' token counts a width the projection GEMM takes (a multiple of
-    64); a preset that stays below (``tiny``) runs plain attention in any
-    dtype."""
+    ``FUSED_QKV_MIN_SEQ`` tokens or more runs a kernel, which takes the
+    head dims ``kernel_takes_head_dim`` (d % 8 == 0, 8 <= d <= 512: SD 1.x's
+    40, 80 and 160, SD 2.x's and SDXL's 64), and at the fused-qkv sites'
+    token counts a width the projection GEMM takes (a multiple of 64); the
+    VAE's mid attention runs the split kernel at d = 512 above
+    ``VAE_FLASH_MIN_TOKENS``.  In bfloat16 every kernel serves them; in
+    float32 only heads of ``F32_HEAD_DIM`` have kernels and the VAE's
+    attention none (sd-2-1-base and sd-2-0-base pass at 512x512; sd-2-1 at
+    768x768, sd-1-4 and sdxl-base do not); no other dtype has any.  A
+    preset that stays below every kernel (``tiny``) runs plain attention in
+    any dtype."""
     unet = preset.unet
     latent = preset.default_resolution // 8
     channels = unet.block_out_channels
@@ -78,7 +90,8 @@ def _check_served_on_cuda(preset: ModelPreset, dtype: torch.dtype) -> None:
     sites.append((len(channels) - 1, channels[-1]))  # the mid block
     reached = [((latent >> level) ** 2, ch, ch // unet.heads_for(ch))
                for level, ch in sites if (latent >> level) ** 2 >= FUSED_QKV_MIN_SEQ]
-    if not reached:
+    vae_tokens = latent ** 2  # the VAE's mid block runs at the latent's size
+    if not reached and vae_tokens <= VAE_FLASH_MIN_TOKENS:
         return
     refused = []
     for tokens, ch, d in reached:
@@ -92,10 +105,54 @@ def _check_served_on_cuda(preset: ModelPreset, dtype: torch.dtype) -> None:
             f"{', '.join(sorted(set(refused)))}, and the attention kernels take head "
             "dims d % 8 == 0 up to 512 and fused-qkv widths that are multiples of 64; "
             'run it with device="cpu"')
-    if dtype != torch.bfloat16:
+    if dtype == torch.bfloat16:
+        return
+    if dtype != torch.float32:
         raise NotImplementedError(
             f"{preset.name} in {dtype} on a CUDA device: the attention kernels take "
-            'bfloat16 only; use dtype=torch.bfloat16, or device="cpu" for float32')
+            "torch.bfloat16, and torch.float32 for sd-2-1-base; use dtype=torch.bfloat16, "
+            'or device="cpu"')
+    widths = sorted({d for _, _, d in reached if d != F32_HEAD_DIM})
+    if widths:
+        refused.append(f"heads of {_and_list(widths)}")
+    if vae_tokens > VAE_FLASH_MIN_TOKENS:
+        refused.append(f"the VAE's mid attention at d = {preset.vae.block_out_channels[-1]} "
+                       f"over {vae_tokens} tokens")
+    if refused:
+        res = preset.default_resolution
+        raise NotImplementedError(
+            f"{preset.name} in {dtype} on a CUDA device: at {res}x{res} it runs "
+            f"{' and '.join(refused)}, and the float32 kernels serve self-attention "
+            f"heads of {F32_HEAD_DIM} alone; use dtype=torch.bfloat16, or "
+            'device="cpu" for float32')
+
+
+@contextlib.contextmanager
+def exact_float32(device, dtype: torch.dtype):
+    """Within it, ``dtype`` float32 on a CUDA ``device`` computes in full
+    float32: PyTorch's float32 matrix products may run in TF32 where
+    ``torch.backends.cuda.matmul.allow_tf32`` allows it, and its cuDNN
+    convolutions do by default (``torch.backends.cudnn.allow_tf32`` is
+    True), keeping ~10 bits of mantissa.  Both are set False for the
+    block's duration and restored after it; elsewhere it changes nothing."""
+    if torch.device(device).type != "cuda" or dtype != torch.float32:
+        yield
+        return
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def _exact_float32(method):
+    """Run a pipeline method under ``exact_float32`` of its device and dtype."""
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        with exact_float32(self.device, self.dtype):
+            return method(self, *args, **kwargs)
+    return run
 
 
 @dataclasses.dataclass
@@ -132,9 +189,12 @@ class InversablePipeline:
         float32.  ``weights_dtype`` rounds every floating parameter of the
         UNet and the VAE through that dtype, norms too, each held in its
         compute dtype after (the JAX package's ``_cast_floating``).  On a
-        CUDA device only what the kernels serve is built: bfloat16, and head
-        dims d % 8 == 0 up to 512 (SD 1.x's 40, 80, 160; SD 2.x's and SDXL's
-        64)."""
+        CUDA device only what the kernels serve is built
+        (``_check_served_on_cuda``): bfloat16 at head dims d % 8 == 0 up to
+        512 (SD 1.x's 40, 80, 160; SD 2.x's and SDXL's 64), and float32
+        where the preset's default resolution reaches heads of 64 alone and
+        no VAE attention kernel (sd-2-1-base at 512x512); its float32 calls
+        there run with TF32 off (``exact_float32``)."""
         if isinstance(preset, str):
             preset = PRESETS[preset]
         self.preset = preset
@@ -183,6 +243,7 @@ class InversablePipeline:
 
     # -- conditioning --------------------------------------------------------
 
+    @_exact_float32
     def encode_prompt_ids(self, input_ids, input_ids2=None) -> torch.Tensor:
         """(B, 77) token ids -> (B, 77, dim) float32 context; with a second
         encoder (SDXL) both contexts concatenated on the feature axis, the
@@ -202,6 +263,7 @@ class InversablePipeline:
         c = self._empty_ctx
         return c.expand((batch,) + c.shape[1:])
 
+    @_exact_float32
     def pooled_empty_text(self, batch: int = 1) -> torch.Tensor:
         """SDXL's pooled conditioning of the empty prompt: the second
         encoder's pooled output of "" (through ``text2_projection`` when a
@@ -238,6 +300,7 @@ class InversablePipeline:
 
     # -- the step loop -------------------------------------------------------
 
+    @_exact_float32
     @torch.inference_mode()
     def _run(self, latents, context, num_steps: int, invert: bool,
              scheduler: str = "DDIM", uncond_context=None,
@@ -316,6 +379,7 @@ class InversablePipeline:
                               nsfw_content_detected=[False] * images.shape[0],
                               init_latents=torch.as_tensor(latents))
 
+    @_exact_float32
     @torch.inference_mode()
     def decode_image(self, latents) -> torch.Tensor:
         """Scaled latents -> float32 images in [0, 1], one VAE call."""
@@ -333,6 +397,7 @@ class InversablePipeline:
             scale *= 8.0
         return max(1, int(self.vae_chunk / scale))
 
+    @_exact_float32
     @torch.inference_mode()
     def _vae_chunked(self, x, method) -> torch.Tensor:
         return torch.cat([method(ch) for ch in x.split(self._vae_chunk_for(x))])
@@ -386,6 +451,7 @@ class InversablePipeline:
     def get_text_embedding(self, prompt_ids) -> torch.Tensor:
         return self.encode_prompt_ids(prompt_ids)
 
+    @_exact_float32
     @torch.inference_mode()
     def get_image_latents(self, image, sample: bool = False,
                           generator: Optional[torch.Generator] = None) -> torch.Tensor:

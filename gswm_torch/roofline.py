@@ -16,6 +16,14 @@ instruction throughput), at the 1.83 GHz that the bf16 peak implies
 (989e12 FLOP/s over 132 SMs x 4096 FLOP a clock): 132 x 16 x 1.83e9 =
 3.865e12 a second.  Per logit the tensor cores need 4 * d FLOP, so the two
 roofs are equal at d = 64 and the exponentials bind below it.
+
+Float32 kernels (csrc/qkv_proj_f32.cu, csrc/flash_f32.cu) move 4 bytes an
+element, and their products must have fp32 accuracy: the least time the
+card gives such products in is 3xTF32 on the tensor cores (each operand
+split into a big and a small TF32 part, three products), a third of the
+dense TF32 rate, ``PEAK_F32_PRODUCTS``.  TF32 alone keeps a 10-bit
+mantissa and is no float32.  ``PEAK_FP32``, the CUDA cores' FFMA rate, is
+the ceiling of those kernels' own design, not the card's bound.
 """
 
 from __future__ import annotations
@@ -24,12 +32,15 @@ import math
 
 PEAK_BYTES = 3.35e12      # HBM3, bytes/s
 PEAK_BF16 = 989e12        # tensor cores, bf16 in, fp32 accumulate, FLOP/s
+PEAK_TF32 = 494.5e12      # tensor cores, TF32 dense, FLOP/s
+PEAK_F32_PRODUCTS = PEAK_TF32 / 3  # products of fp32 accuracy: 3xTF32
 PEAK_FP32 = 67e12         # outside the tensor cores, FLOP/s (an FMA is 2)
 # 32-bit integer adds, xors and rotates issue at most as fast as fp32
 # instructions (half the FLOP rate, since an FMA counts twice)
 PEAK_INT32 = PEAK_FP32 / 2
 PEAK_EXP2 = 132 * 16 * 1.83e9  # ex2.approx on the SFUs, a second
 BF16 = 2                  # bytes
+F32 = 4
 
 
 def bound_ms(ops: float, nbytes: float, peak_ops: float,
@@ -43,27 +54,30 @@ def bound_ms(ops: float, nbytes: float, peak_ops: float,
 
 
 def attention_cost(b: int, sq: int, sk: int, h: int, d: int,
-                   lse: bool = False) -> tuple[int, int, int]:
-    """(FLOP, bytes, exponentials) of softmax(q k^T) v on bf16 (B, Sq, H, D)
-    q and (B, Sk, H, D) k/v: two products of 2 * Sq * Sk * D each per head,
-    q and out of Sq rows, k and v of Sk, one exponential a logit; with
-    ``lse``, the fp32 (B, H, Sq) log-sum-exp written too."""
+                   lse: bool = False, elem: int = BF16) -> tuple[int, int, int]:
+    """(FLOP, bytes, exponentials) of softmax(q k^T) v on (B, Sq, H, D) q and
+    (B, Sk, H, D) k/v of ``elem`` bytes an element (bf16 by default): two
+    products of 2 * Sq * Sk * D each per head, q and out of Sq rows, k and v
+    of Sk, one exponential a logit; with ``lse``, the fp32 (B, H, Sq)
+    log-sum-exp written too."""
     return (4 * b * h * sq * sk * d,
-            BF16 * b * h * d * (2 * sq + 2 * sk) + (4 * b * h * sq if lse else 0),
+            elem * b * h * d * (2 * sq + 2 * sk) + (4 * b * h * sq if lse else 0),
             b * h * sq * sk)
 
 
-def attention_bound_ms(cost: tuple[int, int, int]) -> tuple[float, str]:
+def attention_bound_ms(cost: tuple[int, int, int],
+                       peak_ops: float = PEAK_BF16) -> tuple[float, str]:
     """``bound_ms`` of an ``attention_cost`` or ``fused_qkv_cost``: the
-    products on the tensor cores (bf16), the exponentials on the SFUs."""
+    products at ``peak_ops`` (the tensor cores' bf16 rate; a float32
+    kernel's ``PEAK_F32_PRODUCTS``), the exponentials on the SFUs."""
     flops, nbytes, exps = cost
-    return bound_ms(flops, nbytes, PEAK_BF16, exps)
+    return bound_ms(flops, nbytes, peak_ops, exps)
 
 
-def projection_cost(m: int, c: int, n: int) -> tuple[int, int]:
-    """(FLOP, bytes) of the three bf16 projections q, k, v (M, N) = x (M, C)
-    @ w (N, C)^T."""
-    return 2 * m * c * 3 * n, BF16 * (m * c + 3 * n * c + 3 * m * n)
+def projection_cost(m: int, c: int, n: int, elem: int = BF16) -> tuple[int, int]:
+    """(FLOP, bytes) of the three projections q, k, v (M, N) = x (M, C) @ w
+    (N, C)^T, ``elem`` bytes an element (bf16 by default)."""
+    return 2 * m * c * 3 * n, elem * (m * c + 3 * n * c + 3 * m * n)
 
 
 def fused_qkv_cost(b: int, s: int, c: int, h: int,

@@ -107,6 +107,13 @@ K4_SHAPES = ((1, 9216, 1, 512), (2, 9216, 1, 512), (2, 1000, 10, 64),
 # ragged ones above
 K4_LSE_SHAPES = ((8, 1024, 8, 80), (4, 256, 8, 160), (8, 256, 8, 160),
                  (2, 1000, 3, 72), (2, 1000, 3, 96), (2, 1000, 3, 144))
+# Phase 13, float32 on the card: sd-2-1-base at 512x512, batch 4.  The fp32
+# projection GEMM (M, C, N) at levels 1 and 2 (B * 1024 rows of 640
+# channels, B * 256 of 1280), and the fp32 flash core (B, S, H, D) at
+# levels 0 (4096 tokens, 5 heads), 1 and 2
+F32_PROJ_SHAPES = ((BATCH_512 * 1024, 640, 640), (BATCH_512 * 256, 1280, 1280))
+F32_FLASH_SHAPES = ((BATCH_512, 4096, 5, 64), (BATCH_512, 1024, 10, 64),
+                    (BATCH_512, 256, 20, 64))
 # K3 (ChaCha20 blocks of one key): one 64x64x4, 96x96x4 and 128x128x4
 # latent of bits (512x512, 768x768, 1024x1024), and 2^20 blocks
 K3_BLOCKS = (32, 72, 128, 2**20)
@@ -270,11 +277,13 @@ def config(res: int, message: str):
                     width=res, height=res, message_bits=256)
 
 
-def build_pipeline(preset: str, dev="cuda"):
+def build_pipeline(preset: str, dev="cuda", dtype: torch.dtype = torch.bfloat16):
+    """``preset``'s pipeline on ``dev`` in ``dtype``, random weights from its
+    seed (the same weights in every dtype)."""
     from gswm_torch.pipelines import InversablePipeline
 
     return InversablePipeline(
-        preset, device=dev, dtype=torch.bfloat16,
+        preset, device=dev, dtype=dtype,
         generator=torch.Generator(device=dev).manual_seed(PIPELINE_SEEDS[preset]))
 
 

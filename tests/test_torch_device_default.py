@@ -132,16 +132,21 @@ def _heads_of(width: int):
     # d % 8 != 0: rows of no tensor map; d > 512: no kernel template
     (36, torch.bfloat16, "heads 36 wide"),
     (520, torch.bfloat16, "heads 520 wide"),
-    ("sd-1-4", torch.float32, "bfloat16 only"),
-    ("sd-2-1-base", torch.float32, "bfloat16 only"),
-    ("sd-2-1", torch.float16, "bfloat16 only"),
-    ("sdxl-base", torch.float32, "bfloat16 only")])
+    # float32 kernels: heads of 64 alone, no VAE attention kernel
+    ("sd-1-4", torch.float32, "heads of 40, 80 and 160"),
+    ("sd-2-1", torch.float32, "VAE's mid attention at d = 512 over 9216 tokens"),
+    ("sd-2-1", torch.float16, "torch.float16"),
+    ("sd-2-1-base", torch.float16, "torch.float16"),
+    ("sdxl-base", torch.float32, "VAE's mid attention at d = 512 over 16384 tokens")])
 def test_pipeline_refuses_at_construction_what_the_card_does_not_serve(
         monkeypatch, preset, dtype, why):
-    """Head dims outside the kernels' domain (d % 8 != 0 or d > 512) and any
-    dtype but bfloat16 have no kernel: on a CUDA device the constructor says
-    so, before it allocates anything there (so also on a machine without a
-    card); SD 1.x and SDXL likewise."""
+    """Head dims outside the kernels' domain (d % 8 != 0 or d > 512), float32
+    where the preset's default resolution reaches what no float32 kernel
+    serves (SD 1.x's heads of 40, 80 and 160; the VAE's attention at d = 512
+    above 4096 tokens, sd-2-1 at 768x768 and SDXL at 1024x1024), and float16
+    anywhere have no kernel: on a CUDA device the constructor says so,
+    before it allocates anything there (so also on a machine without a
+    card)."""
     from gswm_torch.pipelines import inversable
 
     if isinstance(preset, int):
@@ -152,6 +157,23 @@ def test_pipeline_refuses_at_construction_what_the_card_does_not_serve(
                            generator=torch.Generator())
     with pytest.raises(NotImplementedError, match=why):
         InversablePipeline(preset, device="cuda:0", dtype=dtype)
+
+
+@pytest.mark.parametrize("preset,dtype", [
+    ("sd-2-1-base", torch.float32), ("sd-2-0-base", torch.float32),
+    ("sd-2-1-base", torch.bfloat16)])
+def test_pipeline_accepts_on_the_card_what_the_kernels_serve(monkeypatch, preset, dtype):
+    """sd-2-1-base in float32 (and sd-2-0-base, the same architecture) at
+    512x512 reaches heads of 64 alone, which the float32 kernels serve, and
+    keeps the VAE's attention (4096 tokens) plain: on a CUDA device the
+    constructor passes the check and goes on to build its modules, which is
+    stopped here before anything is allocated."""
+    from gswm_torch.pipelines import inversable
+
+    monkeypatch.setattr(inversable, "_build", _NoAllocation())
+    with pytest.raises(AssertionError, match="built a module"):
+        InversablePipeline(preset, device=torch.device("cuda"), dtype=dtype,
+                           generator=torch.Generator())
 
 
 def test_the_cpu_goes_on_running_what_the_card_refuses(monkeypatch):

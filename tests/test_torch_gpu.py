@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from gswm_torch.core import chacha
 from gswm_torch.distortions import device as attacks
 from gswm_torch.distortions import relative_strength_to_absolute
+from gswm_torch.models import layers
 from gswm_torch.ops import attention as attn
 from gswm_torch.ops import groupnorm as gn
 from gswm_torch.tools import paths
@@ -325,7 +326,9 @@ def test_kernel_wrappers_reject_what_they_do_not_take(cuda):
     x = torch.randn((1, 256, 128), device=cuda)
     w = torch.randn((128, 128), device=cuda)
     with pytest.raises(TypeError):
-        attn.fused_qkv_attention(x, w, w, w, 2)  # fp32
+        attn.fused_qkv_attention(x, w, w, w, 1)  # fp32 at D = 128: no fp32 kernel
+    with pytest.raises(TypeError):
+        attn.fused_qkv_attention(x.half(), w.half(), w.half(), w.half(), 2)  # fp16
     xb, wb = x.bfloat16(), w.bfloat16()
     with pytest.raises(ValueError):
         attn.fused_qkv_attention(xb[:, :, :96], wb[:, :96], wb[:, :96],
@@ -353,6 +356,164 @@ def test_kernel_wrappers_reject_what_they_do_not_take(cuda):
     odd = flat[1:].view(1, 600, 1, 128)  # 2-byte offset: not 16-byte aligned
     with pytest.raises(ValueError):
         attn.flash_attention_split(odd, odd, odd)
+
+
+# The float32 kernels (csrc/qkv_proj_f32.cu, csrc/flash_f32.cu) against their
+# fp32 plain versions, TF32 off (the fixture): within this share of max
+# |want|.  Against float64 fp32 reads ~1e-6 at these widths and N(0, 1)
+# inputs; TF32-rounded operands 3e-4 to 7e-4.
+F32_BOUND = 1e-5
+
+
+def assert_f32_close(got, want):
+    assert got.dtype == want.dtype == torch.float32 and got.shape == want.shape
+    err = (got - want).abs().max().item()
+    assert err <= F32_BOUND * want.abs().max().item(), err
+
+
+def _launches(*wrappers):
+    """Each wrapper's bf16 launches (by head dim too) and fp32 launches."""
+    return [(w.launches, dict(getattr(w, "launches_by_d", {})), w.launches_f32)
+            for w in wrappers]
+
+
+def _one_more_f32(before, after):
+    """One fp32 launch more on each wrapper, no bf16 launch."""
+    return all(a == (n, by_d, f32 + 1) for (n, by_d, f32), a in zip(before, after))
+
+
+@pytest.mark.parametrize("m,c,n", [(1, 64, 64), (77, 640, 640), (1001, 1280, 1280),
+                                   (300, 128, 192), (4 * 1024, 640, 640),
+                                   (4 * 256, 1280, 1280)])
+def test_f32_projection_kernel_matches_plain(cuda, m, c, n):
+    """The fp32 GEMM at ragged M (1, 77, 1001, 300: no multiple of the
+    128-row tile), N = 192 (half a column tile past N) and the 512x512
+    path's (B * 1024, 640, 640) and (B * 256, 1280, 1280)."""
+    g = torch.Generator(device=cuda).manual_seed(m + c)
+    x = torch.randn((1, m, c), generator=g, device=cuda)
+    ws = [torch.randn((n, c), generator=g, device=cuda) for _ in range(3)]
+    before = _launches(attn.qkv_projection)
+    got = attn.qkv_projection(x, *ws)
+    after = _launches(attn.qkv_projection)
+    assert after == [(before[0][0], {}, before[0][2] + 1)]
+    for a, w in zip(got, attn.qkv_projection_reference(x, *ws)):
+        assert_f32_close(a, w)
+
+
+@pytest.mark.parametrize("b,s,h", [(1, 1, 1), (1, 77, 3), (2, 1001, 2), (3, 65, 2),
+                                   (4, 256, 20), (4, 1024, 10), (2, 4096, 5)])
+def test_f32_flash_kernel_matches_plain(cuda, b, s, h):
+    """The fp32 flash core through the natural-layout wrapper (K2) at
+    ragged S (1, 77, 1001, 65: B * S no multiple of the 64-row tile) and
+    the 512x512 path's levels 2, 1 and 0; every head on its own scale."""
+    g = torch.Generator(device=cuda).manual_seed(s + h)
+    q, k, v = (torch.randn((b, s, h * 64), generator=g, device=cuda) for _ in range(3))
+    before = _launches(attn.flash_attention)
+    got = attn.flash_attention(q, k, v, h)
+    assert _one_more_f32(before, _launches(attn.flash_attention))
+    want = attn.flash_attention_reference(q, k, v, h)
+    for i in range(h):
+        assert_f32_close(got.view(b, s, h, 64)[:, :, i], want.view(b, s, h, 64)[:, :, i])
+
+
+@pytest.mark.parametrize("b,s,c,h", [(1, 77, 128, 2), (1, 256, 1280, 20),
+                                     (2, 1001, 640, 10), (1, 1024, 640, 10)])
+def test_f32_fused_qkv_kernels_match_plain(cuda, b, s, c, h):
+    """K1 in fp32: the fp32 GEMM, then the fp32 core, one wrapper launch."""
+    g = torch.Generator(device=cuda).manual_seed(s + c)
+    x = torch.randn((b, s, c), generator=g, device=cuda)
+    ws = [torch.randn((h * 64, c), generator=g, device=cuda) * c**-0.5 for _ in range(3)]
+    before = _launches(attn.fused_qkv_attention, attn.qkv_projection, attn.flash_attention)
+    got = attn.fused_qkv_attention(x, *ws, h)
+    after = _launches(attn.fused_qkv_attention, attn.qkv_projection, attn.flash_attention)
+    assert _one_more_f32(before[:1], after[:1]) and before[1:] == after[1:]
+    assert_f32_close(got, attn.fused_qkv_attention_reference(x, *ws, h))
+
+
+@pytest.mark.parametrize("b,sq,sk,h", [(1, 77, 1001, 3), (2, 1001, 512, 2),
+                                       (1, 1, 577, 1), (1, 4096, 4096, 1)])
+def test_f32_split_kernel_matches_plain(cuda, b, sq, sk, h):
+    """K4 at d = 64 in fp32 without the log-sum-exp: the fp32 core at
+    Sq != Sk, ragged key tails masked."""
+    g = torch.Generator(device=cuda).manual_seed(sq + sk)
+    q = torch.randn((b, sq, h, 64), generator=g, device=cuda)
+    k, v = (torch.randn((b, sk, h, 64), generator=g, device=cuda) for _ in range(2))
+    before = _launches(attn.flash_attention_split)
+    got = attn.flash_attention_split(q, k, v)
+    assert _one_more_f32(before, _launches(attn.flash_attention_split))
+    assert_f32_close(got, attn.flash_attention_split_reference(q, k, v))
+
+
+def _f32_refusals(cuda):
+    """(label, call, the dtype its message must name) where no fp32 kernel,
+    or no kernel at all, takes the tensors."""
+    f32 = dict(device=cuda, dtype=torch.float32)
+    half = dict(device=cuda, dtype=torch.float16)
+    x640, w80 = torch.zeros((1, 256, 640), **f32), torch.zeros((640, 640), **f32)
+    q80 = torch.zeros((1, 64, 2 * 80), **f32)
+    q128 = torch.zeros((1, 600, 2, 128), **f32)
+    q64 = torch.zeros((1, 600, 2, 64), **f32)
+    h64 = torch.zeros((1, 64, 128), **half)
+    return [
+        ("K2 at d = 80", lambda: attn.flash_attention(q80, q80, q80, 2), "float32"),
+        ("K1 at d = 80", lambda: attn.fused_qkv_attention(x640, w80, w80, w80, 8),
+         "float32"),
+        ("K4 at d = 128", lambda: attn.flash_attention_split(q128, q128, q128), "float32"),
+        ("K4 with lse", lambda: attn.flash_attention_split(q64, q64, q64, return_lse=True),
+         "float32"),
+        ("K6", lambda: attn.flash_attention_packed(torch.zeros((1, 64, 384), **f32)),
+         "float32"),
+        ("K7", lambda: attn.flash_attention_transposed(torch.zeros((384, 1, 64), **f32), 2),
+         "float32"),
+        ("K2 in float16", lambda: attn.flash_attention(h64, h64, h64, 2), "float16"),
+        ("K1's GEMM in float16",
+         lambda: attn.qkv_projection(h64, *(torch.zeros((128, 128), **half),) * 3),
+         "float16"),
+        # an fp32 pipeline's image_to_latents above 512x512: the VAE's mid
+        # attention over 65 x 65 tokens takes K4 at d = 512
+        ("the VAE's attention above 4096 tokens",
+         lambda: layers.VAEAttention(512).to(cuda).requires_grad_(False)(
+             torch.zeros((1, 512, 65, 65), **f32)), "float32"),
+    ]
+
+
+@pytest.mark.parametrize("case", range(9))
+def test_f32_wrappers_raise_where_no_kernel_takes_it(cuda, case):
+    """fp32 at d != 64, K4 with lse, K6 and K7 in fp32, the VAE's attention
+    in fp32 above 4096 tokens, and float16: a TypeError naming the dtype,
+    and no launch (no plain version either)."""
+    label, call, dtype = _f32_refusals(cuda)[case]
+    wrappers = (attn.flash_attention, attn.fused_qkv_attention, attn.flash_attention_split,
+                attn.flash_attention_packed, attn.flash_attention_transposed)
+    before = [(w.launches, getattr(w, "launches_f32", 0)) for w in wrappers]
+    with pytest.raises(TypeError, match=dtype):
+        call()
+    assert [(w.launches, getattr(w, "launches_f32", 0)) for w in wrappers] == before, label
+
+
+def test_f32_unet_forward_on_card(cuda):
+    """sd-2-1-base's UNet at 512x512 in float32, batch 1, random weights: the
+    fp32 K1 10 and the fp32 K2 5 times, no bf16 attention kernel, a finite
+    output; sd-2-1 (the VAE's attention at d = 512) and sd-1-4 (heads of 40,
+    80, 160) are refused in float32 at construction."""
+    from gswm_torch.pipelines import InversablePipeline
+
+    with pytest.raises(NotImplementedError, match="VAE's mid attention at d = 512"):
+        InversablePipeline("sd-2-1", device=cuda, dtype=torch.float32)
+    with pytest.raises(NotImplementedError, match="heads of 40, 80 and 160"):
+        InversablePipeline("sd-1-4", device=cuda, dtype=torch.float32)
+    pipe = paths.build_pipeline("sd-2-1-base", dtype=torch.float32)
+    inputs = paths.unet_inputs(pipe, 1, res=paths.RES_512)
+    wrappers = (attn.fused_qkv_attention, attn.flash_attention, attn.flash_attention_split,
+                attn.flash_attention_packed, attn.flash_attention_transposed)
+    before = [(w.launches, getattr(w, "launches_f32", 0)) for w in wrappers]
+    with torch.inference_mode():
+        out = pipe.unet(*inputs)
+    made = [(w.launches - n, getattr(w, "launches_f32", 0) - f)
+            for w, (n, f) in zip(wrappers, before)]
+    assert made == [(0, 10), (0, 5), (0, 0), (0, 0), (0, 0)]
+    assert out.dtype == torch.float32 and out.shape == (1, 4, 64, 64)
+    assert torch.isfinite(out).all()
 
 
 # Head dims other than 64: flash_hopper.cu below (8, 40), flash_mid.cu above
@@ -460,7 +621,7 @@ def test_sd14_unet_forward_on_card(cuda):
     output; fp32 is refused at construction."""
     from gswm_torch.pipelines import InversablePipeline
 
-    with pytest.raises(NotImplementedError, match="bfloat16 only"):
+    with pytest.raises(NotImplementedError, match="heads of 40, 80 and 160"):
         InversablePipeline("sd-1-4", device=cuda, dtype=torch.float32)
     pipe = paths.build_pipeline("sd-1-4")
     inputs = paths.unet_inputs(pipe, 1, res=paths.RES_512)
@@ -1239,7 +1400,7 @@ def test_sdxl_unet_forward_on_card(cuda):
     is refused at construction."""
     from gswm_torch.pipelines import InversablePipeline
 
-    with pytest.raises(NotImplementedError, match="bfloat16 only"):
+    with pytest.raises(NotImplementedError, match="VAE's mid attention at d = 512"):
         InversablePipeline("sdxl-base", device=cuda, dtype=torch.float32)
     pipe = paths.build_pipeline("sdxl-base")
     inputs = paths.unet_inputs(pipe, 1, res=paths.RES_1024)
