@@ -320,13 +320,28 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
  13. float32 on the card, sd-2-1-base at 512x512, batch 4 (run after phase
      3's memory sweep; the pipeline from the same seed, in float32):
        (a) each float32 kernel against its plain version on the card, TF32
-           off: csrc/qkv_proj_f32.cu's GEMM at paths.F32_PROJ_SHAPES ((B *
-           1024, 640, 640), (B * 256, 1280, 1280)) and csrc/flash_f32.cu's
-           core at paths.F32_FLASH_SHAPES ((B, 4096, 5, 64), (B, 1024, 10,
-           64), (B, 256, 20, 64)), N(0, 1) inputs, each within 1e-5 of max
-           |want|; beside each the plain version with TF32 allowed, which
-           must miss that bound, and the library call (F.linear; sdpa on
-           the fp32 tensors, its backend) with its time and its own error;
+           off, at every fp32 shape of phase 13's paths:
+           csrc/qkv_proj_f32.cu's GEMM at paths.F32_PROJ_SHAPES (the
+           fused-qkv levels of sd-2-1-base at 512x512, of sd-2-1 at 768x768
+           at UNet batch 2 and 4, of sdxl-base at batch 1 and 2);
+           csrc/flash_f32.cu's core through the natural-layout wrapper at
+           paths.F32_FLASH_SHAPES (K2's and K1's self-attention of those
+           paths: (B, 4096, 5, 64), (B, 1024, 10, 64), (B, 256, 20, 64);
+           SD 1.x's (4, 4096, 8, 40), (4, 1024, 8, 80), (4, 256, 8, 160);
+           768x768's (2 and 4, 9216, 5, 64), (2 and 4, 2304, 10, 64), (2
+           and 4, 576, 20, 64); sdxl-base's (1 and 2, 4096, 10, 64), (1
+           and 2, 1024, 20, 64)) and through the split wrapper at
+           paths.F32_SPLIT_SHAPES (the VAE's (1 and 2, 9216, 1, 512), (1,
+           16384, 1, 512), ragged (1, 1001 / 577, 1, 512), and d = 72, 128,
+           192, 256 at ragged Sq != Sk): record "flash_f32" up to d = 64
+           (one 64-column panel), "flash_f32_wide" above; N(0, 1) inputs,
+           each within 1e-5 of max |want| (from 9216 keys want is the plain
+           version in float64: both fp32 sides sum that many terms in other
+           orders, and the fp32 plain version's own error is printed
+           beside); beside each the plain version with TF32 allowed, which
+           must miss that bound, bound_ms at 3xTF32, and the library call
+           (F.linear; sdpa on the fp32 tensors, its backend, or none with
+           the message where it refuses) with its time and its own error;
        (b) one fp32 UNet forward at batch 1 on the card against the same
            forward on the CPU (the weights moved with .to, the same inputs),
            within 1e-4 of max |out|; the card's forward with TF32 allowed
@@ -341,9 +356,30 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
            beside phase 3b's bf16 rate.
      Launches over (b)-(d) (122 forwards): the fp32 K1 10 and the fp32 K2 5
      a forward (``launches_f32``), no bf16 attention kernel, no K4 in either
-     dtype, no log-sum-exp.  The kernels line lists both fp32 kernels
-     ("qkv_proj_f32", "flash_f32") with bound_ms at 3xTF32 (PEAK_TF32 / 3,
-     gswm_torch/roofline.py).
+     dtype, no log-sum-exp.  Then, right after phase 4 (each pipeline from
+     its phase's seed, in float32, freed before the next is built; the
+     fp32 launches checked by wrapper and head dim, ``launches_f32_by_d``,
+     and no bf16 attention kernel on any of them):
+       (e) sd-2-1 at 768x768, batch 2: the DDIM closed loop (30 + 30 steps,
+           >= 0.99 on every image); phase 4c's watermark chain in fp32
+           (guidance 7.5 -> decode -> image_to_latents -> inversion ->
+           bits), twice as phase 4c, the second pass's images/s beside
+           phase 4c's bf16 rates (also a second pass); fp32 K1
+           10 and K2 5 at d = 64 a forward, fp32 K4 at d = 512 one a VAE
+           encode of 2 images and two a decode of 2 (the chunk rule);
+       (f) sd-1-4 at 512x512, batch 4: the closed loop (30 + 30, >= 0.99);
+           one UNet forward at batch 1 on the card against the CPU's within
+           1e-4 of max |out|; fp32 K2 5 at d = 40, K1 5 at 80 and 5 at 160
+           a forward;
+       (g) sdxl-base at 1024x1024, batch 1: the closed loop at phase 5's
+           depth (10 + 10, >= 0.99), then 2 steps at guidance 7.5 (UNet
+           batch 2) -> decode -> image_to_latents: fp32 K1 60 and K2 10 a
+           forward, fp32 K4 at 16,384 tokens once a decode and once an
+           encode.
+     Each sub-phase prints its seconds.  The kernels line lists the fp32
+     kernels ("qkv_proj_f32"; "flash_f32" and "flash_f32_wide", one kernel
+     of csrc/flash_f32.cu at one panel and at more) with bound_ms
+     at 3xTF32 (PEAK_TF32 / 3, gswm_torch/roofline.py).
  14. summary  — a JSON line of the kernels, then the JSON result line.
 Each path's launch counts are set to 0 just before it and read just after.
 """
@@ -494,6 +530,15 @@ F32_REL_BOUND = 1e-5
 # on the CPU, relative to max |out|: two fp32 computations that sum in
 # other orders through ~60 layers
 F32_UNET_REL_BOUND = 1e-4
+# phase 13a: from this many keys want is the plain version in float64
+# (768x768's 9216 tokens and more: two fp32 sums of that many terms in
+# other orders differ by their own rounding)
+F32_EXACT_MIN_KEYS = 9216
+# the split wrapper's launches with the log-sum-exp, by the kernel that ran
+LSE_RECORDS = ("flash_attention_split_lse_d64", "flash_attention_split_lse_mid",
+               "flash_attention_split_lse")
+# phase 13g: the guided steps (UNet batch 2) before sdxl-base's VAE round trip
+F32_SDXL_GUIDED_STEPS = 2
 # gswm/pipelines/inversable.py:330-348: VAE calls take vae_chunk images at
 # 512x512, fewer in proportion to the pixels, and 8x fewer when decoding
 VAE_CHUNK = 32
@@ -1117,9 +1162,11 @@ def _wrappers() -> dict:
             "fused_group_norm": gn.fused_group_norm}
 
 
-# the wrappers that launch the float32 kernels
+# the wrappers that launch the float32 kernels, and those of them that run
+# a flash core
 F32_WRAPPERS = ("fused_qkv_attention", "qkv_projection", "flash_attention",
                 "flash_attention_split")
+F32_CORE_WRAPPERS = ("fused_qkv_attention", "flash_attention", "flash_attention_split")
 
 
 def _counters() -> dict:
@@ -1153,14 +1200,26 @@ def _counters() -> dict:
     for design, record in K7_NATURAL_DESIGNS.items():  # boxes by tensor maps and by hand
         counts[record] = by_kernel.get(design, 0) + by_kernel.get(design + attn.ROWS_FORM, 0)
     # the float32 launches by wrapper, and by kernel: csrc/qkv_proj_f32.cu's
-    # GEMM (fused-qkv and the projection alone) and csrc/flash_f32.cu's core
-    # (fused-qkv, natural and split layouts)
+    # GEMM (fused-qkv and the projection alone), and the cores of the
+    # fused-qkv, natural and split wrappers by head dim: csrc/flash_f32.cu's
+    # at one 64-column panel, and at more
     for name in F32_WRAPPERS:
         counts[name + "_f32"] = getattr(attn, name).launches_f32
     counts["qkv_proj_f32"] = counts["fused_qkv_attention_f32"] + counts["qkv_projection_f32"]
-    counts["flash_f32"] = counts["fused_qkv_attention_f32"] + counts["flash_attention_f32"] \
-        + counts["flash_attention_split_f32"]
+    cores = [getattr(attn, name).launches_f32_by_d for name in F32_CORE_WRAPPERS]
+    panel = attn.F32_PANEL
+    counts["flash_f32"] = sum(within(by_d, 0, panel) for by_d in cores)
+    counts["flash_f32_wide"] = sum(within(by_d, panel, top) for by_d in cores)
     return counts
+
+
+def _f32_by_d() -> dict:
+    """The float32 launches of the flash cores' wrappers by head dim, the
+    wrappers that launched none left out."""
+    from gswm_torch.ops import attention as attn
+
+    return {name: dict(getattr(attn, name).launches_f32_by_d) for name in F32_CORE_WRAPPERS
+            if getattr(attn, name).launches_f32_by_d}
 
 
 def _counters_by_d() -> dict:
@@ -1182,6 +1241,8 @@ def _reset_counters() -> None:
 
     for name in F32_WRAPPERS:
         getattr(attn, name).launches_f32 = 0
+    for name in F32_CORE_WRAPPERS:
+        getattr(attn, name).launches_f32_by_d = {}
 
 
 def _clear_keystream_caches() -> None:
@@ -1201,6 +1262,14 @@ def _check_unet_launches(counts: dict, forwards: int, k1: int = 10, k2: int = 5)
             counts["flash_attention_packed"] or counts["flash_attention_transposed"]:
         raise AssertionError(f"unexpected attention launch counts {counts} "
                              f"for {forwards} UNet forwards")
+
+
+def _vae_calls(res: int, b: int) -> tuple:
+    """(decoder calls, encoder calls) of ``b`` images at res x res: the
+    reference's chunk rule (gswm/pipelines/inversable.py:330-348)."""
+    pixels = max(1.0, res * res / (512 * 512))
+    return (-(-b // max(1, int(VAE_CHUNK / (8 * pixels)))),
+            -(-b // max(1, int(VAE_CHUNK / pixels))))
 
 
 def _bit_accuracy(bits, msg: bytes, dev) -> list:
@@ -1286,7 +1355,9 @@ def build_pipeline_768():
     return pipe
 
 
-def phase_generation_768(card: str, pipe) -> dict:
+def phase_generation_768(card: str, pipe) -> tuple:
+    """4. sd-2-1 at 768x768, batch 2.  Returns (launch counts, (phase 4c's
+    generation images/s, its extraction images/s))."""
     from gswm_torch import recover_message_bits
 
     dev = "cuda"
@@ -1316,9 +1387,7 @@ def phase_generation_768(card: str, pipe) -> dict:
     # (c): the watermark chain, twice (the second pass is timed).  One K4
     # launch per VAE chunk: at 768x768 the decoder takes 1 image a call and
     # the encoder 14
-    pixels = max(1.0, RES_768 * RES_768 / (512 * 512))
-    dec_want = -(-b // max(1, int(VAE_CHUNK / (8 * pixels))))
-    enc_want = -(-b // max(1, int(VAE_CHUNK / pixels)))
+    dec_want, enc_want = _vae_calls(RES_768, b)
     for attempt in (1, 2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1367,7 +1436,7 @@ def phase_generation_768(card: str, pipe) -> dict:
         raise AssertionError(f"K3 launched {counts['chacha20']} times on the 768 path; "
                              "the cached keystream makes it 1")
     _check_unet_launches(counts, forwards)
-    return counts
+    return counts, (b / (t1 - t0), b / (t2 - t1))
 
 
 def phase_tiers(card: str, pipe) -> dict:
@@ -1770,9 +1839,7 @@ def phase_bench(card: str, pipe) -> dict:
     regen = max(int(relative_strength_to_absolute(strength, "reversed")), 1)
     rows_want = len(sweep.DEFAULT_ATTACKS)
     forwards = STEPS + rows_want * STEPS + 2 * regen
-    pixels = max(1.0, RES_768 * RES_768 / (512 * 512))
-    enc_chunks = -(-b // max(1, int(VAE_CHUNK / pixels)))
-    dec_chunks = -(-b // max(1, int(VAE_CHUNK / (8 * pixels))))
+    dec_chunks, enc_chunks = _vae_calls(RES_768, b)
     k4_want = (rows_want + 1) * enc_chunks + 2 * dec_chunks
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "sweep.jsonl")
@@ -1893,9 +1960,7 @@ def phase_sdxl(card: str) -> tuple:
     forwards = 2 * STEPS
 
     # (b) the watermark chain, twice (the second pass is timed)
-    pixels = max(1.0, res * res / (512 * 512))
-    dec_want = -(-b // max(1, int(VAE_CHUNK / (8 * pixels))))
-    enc_want = -(-b // max(1, int(VAE_CHUNK / pixels)))
+    dec_want, enc_want = _vae_calls(res, b)
     for attempt in (1, 2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2908,15 +2973,21 @@ def _one_tensor(out) -> torch.Tensor:
 
 
 def _check_f32_kernel(records: dict, name: str, label: str, kernel, plain, library,
-                      lib_ms, backend: str, bound: tuple, iters: int) -> None:
+                      lib_ms, backend: str, bound: tuple, iters: int, exact=None) -> None:
     """A float32 kernel against its plain version on the card, TF32 off:
     within F32_REL_BOUND of max |want|; the plain version with TF32 allowed
     must miss that bound (so the bound tells fp32 from TF32).  Beside it the
     library call's time ``lib_ms`` and, from ``library`` (None where it was
-    refused), its own error."""
-    got, want = _one_tensor(kernel()), _one_tensor(plain())
+    refused), its own error.  ``exact``: want is that float64 computation
+    instead (where two fp32 sums in other orders differ by their own
+    rounding), and the fp32 plain version's error against it is printed."""
+    got, want = _one_tensor(kernel()), _one_tensor(plain() if exact is None else exact())
     top = want.abs().max().item()
     err = (got - want).abs().max().item()
+    if exact is not None:
+        plain_err = (_one_tensor(plain()) - want).abs().max().item()
+        print(f"{label}: want in float64; the fp32 plain version's own err/max|want| "
+              f"{plain_err / top:.3e}", flush=True)
     del got
     _allow_tf32(True)
     try:
@@ -2939,19 +3010,25 @@ def _check_f32_kernel(records: dict, name: str, label: str, kernel, plain, libra
     _record(records, name, err, ms, plain_ms, bound, lib_ms)
 
 
-def _check_f32_launches(counts: dict, forwards: int) -> None:
-    """Float32 sd-2-1-base at 512x512: per UNet forward the fp32 K1 10
-    times (levels 1 and 2) and the fp32 K2 5 times (level 0); no bf16
-    attention kernel, no K4 in either dtype, no log-sum-exp."""
-    want = {"fused_qkv_attention_f32": 10 * forwards, "flash_attention_f32": 5 * forwards,
-            "flash_attention_split_f32": 0, "qkv_projection_f32": 0,
-            "flash_attention_split_lse_d64": 0, "flash_attention_split_lse_mid": 0,
-            "flash_attention_split_lse": 0,
-            **{name: 0 for name in ATTENTION_COUNTERS}}
-    got = {name: counts[name] for name in want}
-    if got != want:
-        raise AssertionError(f"float32 launches {got} for {forwards} UNet forwards, "
-                             f"not {want}")
+def _f32_record(d: int) -> str:
+    """The kernels line's record of the fp32 core at head dim d: one
+    64-column panel, or more."""
+    from gswm_torch.ops import attention as attn
+
+    return "flash_f32" if d <= attn.F32_PANEL else "flash_f32_wide"
+
+
+def _attention_f64(q, k, v) -> torch.Tensor:
+    """softmax(q k^T d^-0.5) v of (B, Sq, H, D) q and (B, Sk, H, D) k, v in
+    float64 (exact softmax), as (B, Sq, H, D) float64; one batch index at a
+    time (the logits of (4, 9216, 5) are 14 GB in float64)."""
+    out = []
+    for qb, kb, vb in zip(q, k, v):
+        qd, kd, vd = (t.double().transpose(0, 1) for t in (qb, kb, vb))
+        logits = torch.matmul(qd, kd.transpose(-1, -2)) * q.shape[-1] ** -0.5
+        out.append(torch.matmul(torch.softmax(logits, dim=-1), vd).transpose(0, 1))
+        del logits
+    return torch.stack(out)
 
 
 def phase_float32(card: str, records: dict, rate_3b: float, rms_3a: float) -> dict:
@@ -2986,7 +3063,7 @@ def phase_float32(card: str, records: dict, rate_3b: float, rms_3a: float) -> di
         lib_ms, backend = _attention_library_ms(lambda sdpa, views=views: sdpa(*views), 5)
         sdpa = _sdpa_fused if backend == "fused" else F.scaled_dot_product_attention
         _check_f32_kernel(
-            records, "flash_f32",
+            records, _f32_record(d),
             f"(a) fp32 flash core, {attn.dtype_kernel(torch.float32, d)} (B={b}, S={s}, "
             f"H={h}, D={d})",
             lambda q=q, k=k, v=v, h=h: attn.flash_attention(q, k, v, h),
@@ -2997,9 +3074,37 @@ def phase_float32(card: str, records: dict, rate_3b: float, rms_3a: float) -> di
             lib_ms, f"sdpa on fp32 tensors, backend {backend}",
             roofline.attention_bound_ms(roofline.attention_cost(b, s, s, h, d,
                                                                 elem=roofline.F32),
-                                        roofline.PEAK_F32_PRODUCTS), 5)
+                                        roofline.PEAK_F32_PRODUCTS), 5,
+            exact=(lambda views=views, b=b, s=s: _attention_f64(
+                *(t.transpose(1, 2) for t in views)).reshape(b, s, -1))
+            if s >= F32_EXACT_MIN_KEYS else None)
         del q, k, v, views
+        torch.cuda.empty_cache()
+    for b, sq, sk, h, d in paths.F32_SPLIT_SHAPES:
+        q = torch.randn((b, sq, h, d), generator=g, device=dev)
+        k, v = (torch.randn((b, sk, h, d), generator=g, device=dev) for _ in range(2))
+        views = [t.transpose(1, 2) for t in (q, k, v)]
+        iters = 3 if sk * d >= 9216 * 512 else 10
+        lib_ms, backend = _attention_library_ms(lambda sdpa, views=views: sdpa(*views), iters)
+        sdpa = _sdpa_fused if backend == "fused" else F.scaled_dot_product_attention
+        _check_f32_kernel(
+            records, _f32_record(d),
+            f"(a) fp32 split, {attn.dtype_kernel(torch.float32, d)} (B={b}, Sq={sq}, "
+            f"Sk={sk}, H={h}, D={d})",
+            lambda q=q, k=k, v=v: attn.flash_attention_split(q, k, v),
+            lambda q=q, k=k, v=v: attn.flash_attention_split_reference(q, k, v),
+            None if lib_ms is None else
+            (lambda views=views, sdpa=sdpa: sdpa(*views).transpose(1, 2)),
+            lib_ms, f"sdpa on fp32 tensors, backend {backend}",
+            roofline.attention_bound_ms(roofline.attention_cost(b, sq, sk, h, d,
+                                                                elem=roofline.F32),
+                                        roofline.PEAK_F32_PRODUCTS), iters,
+            exact=(lambda q=q, k=k, v=v: _attention_f64(q, k, v))
+            if sk >= F32_EXACT_MIN_KEYS else None)
+        del q, k, v, views
+        torch.cuda.empty_cache()
     torch.cuda.empty_cache()
+    print(f"(a) {time.perf_counter() - t0:.2f} s", flush=True)
 
     t_build = time.perf_counter()
     pipe = paths.build_pipeline("sd-2-1-base", dtype=torch.float32)
@@ -3076,14 +3181,163 @@ def phase_float32(card: str, records: dict, rate_3b: float, rms_3a: float) -> di
           f"{walls[1]:.4f} s ({BATCH / walls[1]:.4f} images/s; bfloat16, phase 3b: "
           f"{rate_3b:.4f}; first pass {walls[0]:.4f} s) on {card}", flush=True)
 
-    counts = _counters()
     # (b) two forwards, (c) generate + invert, (d) two inversions
-    _check_f32_launches(counts, 2 + 4 * STEPS)
-    print(f"launches of phase 13: {({k: v for k, v in counts.items() if v})}; "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    forwards = 2 + 4 * STEPS
+    counts = _check_f32_path("(b)-(d) sd-2-1-base 512x512", {
+        "fused_qkv_attention": {64: 10 * forwards}, "flash_attention": {64: 5 * forwards}},
+        t0)
     del pipe, z_back, x0, z_b, zt_b, images
     torch.cuda.empty_cache()
     return counts
+
+
+def _check_f32_path(label: str, want: dict, t0: float) -> dict:
+    """The float32 launches since the counters were reset: the flash cores'
+    by wrapper and head dim exactly ``want`` (``_f32_by_d``; the GEMM runs
+    inside K1's), and no bf16 attention kernel, no log-sum-exp and no
+    projection alone.  Prints them and the sub-phase's seconds; returns the
+    counts."""
+    counts = _counters()
+    got = _f32_by_d()
+    stray = {name: counts[name] for name in (*ATTENTION_COUNTERS, *LSE_RECORDS,
+                                             "qkv_projection_f32") if counts[name]}
+    print(f"{label}: fp32 launches by wrapper and head dim {got}; "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    if got != want or stray:
+        raise AssertionError(f"{label}: fp32 launches {got}, want {want}; and {stray}")
+    return counts
+
+
+def _f32_closed_loop(label: str, pipe, cfg, b: int, steps: int, seed: int) -> None:
+    """embed -> DDIM at guidance 1.0 -> inversion -> decode: >= MIN_BIT_ACC
+    on every image."""
+    from gswm_torch import recover_message_bits
+
+    zt, msg = paths.embed(cfg, b, seed)
+    x0 = pipe.generate(zt, guidance_scale=1.0, num_steps=steps, decode=False)
+    z_back = pipe.invert(latents=x0, num_steps=steps)
+    acc = _bit_accuracy(recover_message_bits(z_back, cfg), msg, "cuda")
+    rms = (z_back - zt).square().mean().sqrt().item()
+    print(f"{label} fp32 closed loop, batch {b}, {steps}+{steps} steps: bit accuracy "
+          f"{acc}; RMS of z_T back - z_T {rms:.6f}", flush=True)
+    if min(acc) < MIN_BIT_ACC:
+        raise AssertionError(f"{label} fp32 closed-loop bit accuracy {acc} below "
+                             f"{MIN_BIT_ACC}")
+
+
+def _build_f32(preset: str):
+    t0 = time.perf_counter()
+    pipe = paths.build_pipeline(preset, dtype=torch.float32)
+    torch.cuda.synchronize()
+    print(f"pipeline: {preset} in float32, built in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    return pipe
+
+
+def phase_float32_presets(card: str, rates_4c: tuple) -> dict:
+    """13e-g. float32 on the card for the other presets' default routes."""
+    import copy
+
+    dev = "cuda"
+    t_phase = time.perf_counter()
+    print("13. (e)-(g): float32 on the card, sd-2-1, sd-1-4 and sdxl-base", flush=True)
+    totals = []
+
+    # (e) sd-2-1 at 768x768, batch 2
+    t0 = time.perf_counter()
+    b, res = BATCH_768, RES_768
+    pipe = _build_f32("sd-2-1")
+    cfg = paths.config(res, "gswm_torch 768 f32")
+    ids = paths.prompt_ids(pipe, b)
+    _clear_keystream_caches()
+    _reset_counters()
+    _f32_closed_loop("(e) 768", pipe, cfg, b, STEPS, 11)
+    passes = []
+    for seed in (21, 22):  # the second pass timed, as phase 4c's
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        images, msg = paths.generate_watermarked(pipe, cfg, ids, seed)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        bits, z_t = pipe.extract_bits(cfg, images=images, num_steps=STEPS)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        passes.append((t2 - t1, t3 - t2))
+    if tuple(images.shape) != (b, 3, res, res) or not torch.isfinite(images).all() or \
+            tuple(bits.shape) != (b, 256) or not torch.isfinite(z_t).all():
+        raise AssertionError(f"(e) fp32 watermark chain: images {tuple(images.shape)}, "
+                             f"bits {tuple(bits.shape)}, or non-finite values")
+    (gen, ext), first = passes[1], passes[0]
+    print(f"(e) fp32 watermark chain, batch {b}, second pass: generation {gen:.4f} s = "
+          f"{b / gen:.4f} images/s (bfloat16, phase 4c's second pass: {rates_4c[0]:.4f}); "
+          f"extraction {ext:.4f} s = {b / ext:.4f} images/s (bfloat16: {rates_4c[1]:.4f}); "
+          f"first pass {first[0]:.4f} + {first[1]:.4f} s; bit accuracy "
+          f"{_bit_accuracy(bits, msg, dev)} (no limit: random weights); on {card}",
+          flush=True)
+    dec, enc = _vae_calls(res, b)
+    forwards = 2 * STEPS + len(passes) * 2 * STEPS
+    totals.append(_check_f32_path("(e) sd-2-1 768x768", {
+        "fused_qkv_attention": {64: 10 * forwards}, "flash_attention": {64: 5 * forwards},
+        "flash_attention_split": {512: len(passes) * (dec + enc)}}, t0))
+    del pipe, images, bits, z_t
+    torch.cuda.empty_cache()
+
+    # (f) sd-1-4 at 512x512, batch 4
+    t0 = time.perf_counter()
+    b, res = paths.BATCH_SD14, paths.RES_512
+    pipe = _build_f32("sd-1-4")
+    cfg = paths.config(res, "gswm_torch sd14 f32")
+    _reset_counters()
+    _f32_closed_loop("(f) sd-1-4", pipe, cfg, b, STEPS, 31)
+    inputs = paths.unet_inputs(pipe, 1, res=res)
+    with torch.inference_mode():
+        out = pipe.unet(*inputs)
+        cpu_unet = copy.deepcopy(pipe.unet).to("cpu")
+        t_cpu = time.perf_counter()
+        want = cpu_unet(*(t.to("cpu") for t in inputs))
+        t_cpu = time.perf_counter() - t_cpu
+    del cpu_unet
+    top = want.abs().max().item()
+    err = (out.cpu() - want).abs().max().item()
+    print(f"(f) fp32 sd-1-4 UNet forward, batch 1: card against CPU err/max|out| "
+          f"{err / top:.3e} (bound {F32_UNET_REL_BOUND:.0e}); max|out| {top:.4f}; the CPU "
+          f"forward {t_cpu:.2f} s", flush=True)
+    if out.shape != want.shape or not err <= F32_UNET_REL_BOUND * top:
+        raise AssertionError(f"(f) fp32 sd-1-4 UNet forward: card {tuple(out.shape)} "
+                             f"against CPU {tuple(want.shape)}, error {err} against {top}")
+    forwards = 2 * STEPS + 1
+    totals.append(_check_f32_path("(f) sd-1-4 512x512", {
+        "fused_qkv_attention": {80: 5 * forwards, 160: 5 * forwards},
+        "flash_attention": {40: 5 * forwards}}, t0))
+    del pipe, out, want
+    torch.cuda.empty_cache()
+
+    # (g) sdxl-base at 1024x1024, batch 1
+    t0 = time.perf_counter()
+    b, res, steps = 1, paths.RES_1024, paths.F32_SDXL_STEPS
+    pipe = _build_f32("sdxl-base")
+    cfg = paths.config(res, "gswm_torch sdxl f32")
+    ids = paths.prompt_ids(pipe, b)
+    _reset_counters()
+    _f32_closed_loop("(g) sdxl-base", pipe, cfg, b, steps, 51)
+    zt, _ = paths.embed(cfg, b, 52)
+    images = pipe.generate(zt, prompt_ids=ids, guidance_scale=7.5,
+                           num_steps=F32_SDXL_GUIDED_STEPS)
+    latents = pipe.image_to_latents(images)
+    torch.cuda.synchronize()
+    if tuple(images.shape) != (b, 3, res, res) or not torch.isfinite(latents).all():
+        raise AssertionError(f"(g) fp32 sdxl-base: images {tuple(images.shape)} or "
+                             "non-finite latents")
+    dec, enc = _vae_calls(res, b)
+    forwards = 2 * steps + F32_SDXL_GUIDED_STEPS
+    totals.append(_check_f32_path("(g) sdxl-base 1024x1024", {
+        "fused_qkv_attention": {64: SDXL_K1 * forwards},
+        "flash_attention": {64: SDXL_K2 * forwards},
+        "flash_attention_split": {512: dec + enc}}, t0))
+    del pipe, images, latents
+    torch.cuda.empty_cache()
+    print(f"13. (e)-(g): {time.perf_counter() - t_phase:.2f} s", flush=True)
+    return {name: sum(c[name] for c in totals) for name in totals[0]}
 
 
 def main() -> None:
@@ -3096,7 +3350,8 @@ def main() -> None:
     counts_new = [phase_memory_sweep(card, pipe_512, "sd-2-1-base", check_steps=STEPS)]
     seconds_new = time.perf_counter() - t_new
     counts_new.append(phase_float32(card, records, rate_3b, rms_3a))
-    counts_768 = phase_generation_768(card, pipe_768)
+    counts_768, rates_4c = phase_generation_768(card, pipe_768)
+    counts_new.append(phase_float32_presets(card, rates_4c))
     t_new = time.perf_counter()
     counts_new.append(phase_memory_sweep(card, pipe_768, "sd-2-1"))
     seconds_new += time.perf_counter() - t_new
@@ -3187,6 +3442,9 @@ def main() -> None:
         # K2 (which serves flash_attention_cres) and K4
         "qkv_proj_f32": ("gswm_torch/csrc/qkv_proj_f32.cu", "gswm/ops/attention.py:689"),
         "flash_f32": ("gswm_torch/csrc/flash_f32.cu", "gswm/ops/attention.py:1211"),
+        # the same kernel at 64 < d <= 512 (more than one 64-column panel):
+        # K4 (the VAE's d = 512), and K1's core and K2 at SD 1.x's 80 and 160
+        "flash_f32_wide": ("gswm_torch/csrc/flash_f32.cu", "gswm/ops/attention.py:414"),
     }
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=counts[name], **records[name])

@@ -49,7 +49,8 @@ _SIGNATURES = {
     "gswm_flash_transposed_rows": [_VP, _VP, _I, _I, _I, _I, _VP],
     # float32 (csrc/qkv_proj_f32.cu): x, wq, wk, wv, q, k, v, M, C, N, stream
     "gswm_qkv_proj_f32": [_VP] * 7 + [_I, _I, _I, _VP],
-    # float32 (csrc/flash_f32.cu): q, k, v, out, B, Sq, Sk, H, D (64), stream
+    # float32 (csrc/flash_f32.cu): q, k, v, out, B, Sq, Sk, H, D (head dim,
+    # 8 <= D <= 512), stream
     "gswm_flash_f32": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
     # x, weight, bias, out, B, C, HW, G, eps, act, stream
     "gswm_group_norm": [_VP] * 4 + [_I] * 4 + [_F, _I, _VP],

@@ -53,17 +53,20 @@ TPU bf16 paths (and the transposed kernel on every dtype) drop the running
 max and clamp logits at 60 (``_NOMAX_CLAMP``); the two agree within
 rounding while |logit| < 60.
 
-The kernels above take bfloat16.  Two more take float32, every product and
-sum in fp32 on the CUDA cores (FFMA), as the TPU kernels take fp32 and then
-keep the running max (gswm/ops/attention.py:720-721):
+The kernels above take bfloat16.  Two more take float32, every product
+and sum in fp32 on the CUDA cores (FFMA), as the TPU kernels take fp32 and
+then keep the running max (gswm/ops/attention.py:720-721):
 csrc/qkv_proj_f32.cu, the projection GEMM at the widths the bf16 GEMM
-takes, and csrc/flash_f32.cu, the flash core at head dim 64
-(``F32_HEAD_DIM``) alone, natural layout, no log-sum-exp.  So in float32
+takes; and csrc/flash_f32.cu, the flash core at 8 <= d <= 512 (SD 2.x's
+64, SD 1.x's 40, 80 and 160, the VAE's 512; a template on the number of
+64-column panels), in the natural layout, no log-sum-exp, at every d
+``kernel_takes_head_dim`` takes.  So in float32
 ``flash_attention``, ``qkv_projection``, ``fused_qkv_attention`` and
-``flash_attention_split`` without ``return_lse`` launch them at d = 64,
-and every other wrapper, dtype or head dim raises a TypeError that names
-the dtype (``dtype_kernel`` states the rule).  Their launches count in
-``<wrapper>.launches_f32``; the bf16 counters do not move.
+``flash_attention_split`` without ``return_lse`` launch them, and the
+packed and transposed wrappers, the log-sum-exp and every other dtype
+raise a TypeError that names the dtype (``dtype_kernel`` states the rule).
+Their launches count in ``<wrapper>.launches_f32``, and by head dim in
+``<wrapper>.launches_f32_by_d``; the bf16 counters do not move.
 
 On a CPU tensor each wrapper runs its plain PyTorch version; on a CUDA
 tensor it launches its kernel or raises, and it raises under a gradient
@@ -191,9 +194,11 @@ def transposed_kernel(d: int, s: int) -> str:
     return kernel + ROWS_FORM if s % 8 else kernel
 
 
-# The float32 flash kernel, csrc/flash_f32.cu, and the one head dim it
-# takes (natural and split layouts, no log-sum-exp)
-F32_HEAD_DIM = 64
+# The float32 flash kernel (natural and split layouts, no log-sum-exp):
+# csrc/flash_f32.cu's, a template on P = ceil(d / F32_PANEL) panels of
+# F32_PANEL columns, to KERNEL_MAX_HEAD_DIM; P = 1 (d <= F32_PANEL) keeps two
+# blocks an SM, so does P <= 3, and P >= 4 one
+F32_PANEL = 64
 F32_FLASH_KERNEL = "flash_f32_kernel"
 # the dtypes of the flash, split and fused-qkv wrappers' kernels; the
 # packed and transposed kernels and the log-sum-exp output take bf16 alone
@@ -204,27 +209,29 @@ BF16_ONLY = (torch.bfloat16,)
 def dtype_kernel(dtype: torch.dtype, d: int, layout: str = "natural") -> str:
     """The attention kernel that runs head dim ``d`` on ``dtype`` tensors in
     ``layout`` (as ``head_dim_kernel``'s): in bfloat16 the kernel
-    ``head_dim_kernel`` names, in float32 ``F32_FLASH_KERNEL``
-    (csrc/flash_f32.cu) at d = ``F32_HEAD_DIM`` in the natural layout
-    alone.  Raises TypeError, naming the dtype, where no kernel takes it
-    (float32 at another d or in the transposed layout, float16 and every
-    other dtype), ValueError for a d no kernel takes or another layout."""
+    ``head_dim_kernel`` names; in float32, in the natural layout alone,
+    ``F32_FLASH_KERNEL`` (csrc/flash_f32.cu) with its panel count,
+    ``flash_f32_kernel<P>``, P = ceil(d / F32_PANEL).  Raises TypeError,
+    naming the dtype, where no kernel takes it (float32 in the transposed
+    layout, float16 and every other dtype), ValueError for a d no kernel
+    takes or another layout."""
     kernel = head_dim_kernel(d, layout)[0]
     if dtype == torch.bfloat16:
         return kernel
     if dtype == torch.float32:
-        if d == F32_HEAD_DIM and layout == "natural":
-            return F32_FLASH_KERNEL
-        raise TypeError(f"torch.float32 attention on the card runs csrc/flash_f32.cu at "
-                        f"head dim {F32_HEAD_DIM} in the natural layout alone, not at "
-                        f"d = {d} in the {layout} layout; use torch.bfloat16")
-    raise TypeError(f"the attention kernels take torch.bfloat16, and torch.float32 at "
-                    f"head dim {F32_HEAD_DIM}; got {dtype}")
+        if layout == "natural":
+            return f"{F32_FLASH_KERNEL}<{-(-d // F32_PANEL)}>"
+        raise TypeError(f"torch.float32 attention on the card runs csrc/flash_f32.cu in "
+                        f"the natural layout alone, not at d = {d} in the {layout} "
+                        f"layout; use torch.bfloat16")
+    raise TypeError(f"the attention kernels take torch.bfloat16 and torch.float32; "
+                    f"got {dtype}")
 
 
 def _count(wrapper, d: int, dtype: torch.dtype = torch.bfloat16) -> None:
     if dtype == torch.float32:
         wrapper.launches_f32 += 1
+        wrapper.launches_f32_by_d[d] = wrapper.launches_f32_by_d.get(d, 0) + 1
         return
     wrapper.launches += 1
     wrapper.launches_by_d[d] = wrapper.launches_by_d.get(d, 0) + 1
@@ -356,9 +363,9 @@ def _check_cuda(name: str, dtypes: tuple, *tensors: torch.Tensor) -> torch.dtype
 def _flash_entry(dtype: torch.dtype, d: int) -> str:
     """The C entry of the flash kernel ``dtype_kernel`` names (which raises
     where there is none): ``gswm_flash_f32`` in float32, else
-    ``gswm_flash_split``, which dispatches on d."""
-    return "gswm_flash_f32" if dtype_kernel(dtype, d) == F32_FLASH_KERNEL \
-        else "gswm_flash_split"
+    ``gswm_flash_split``; each dispatches on d."""
+    dtype_kernel(dtype, d)
+    return "gswm_flash_f32" if dtype == torch.float32 else "gswm_flash_split"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -368,7 +375,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CPU: ``flash_attention_reference``.  CUDA: the kernel ``dtype_kernel``
     names on the (B, S, H, D) view, any S: in bf16 csrc/flash_hopper.cu,
     flash_mid.cu or flash_split.cu at any D ``kernel_takes_head_dim``
-    takes, in float32 csrc/flash_f32.cu at D = 64."""
+    takes, in float32 csrc/flash_f32.cu at the same D."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, heads)
     if q.device.type != "cuda":
@@ -395,6 +402,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention.launches = 0
 flash_attention.launches_by_d = {}
 flash_attention.launches_f32 = 0
+flash_attention.launches_f32_by_d = {}
 
 
 def _check_projection(name: str, x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
@@ -466,8 +474,8 @@ def fused_qkv_attention(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
     64): in bf16 the projection GEMM of csrc/fused_qkv.cu, then the kernel
     ``head_dim_kernel`` names (csrc/flash_hopper.cu, flash_mid.cu or
     flash_split.cu; any D ``kernel_takes_head_dim`` takes), one C call; in
-    float32 the GEMM of csrc/qkv_proj_f32.cu, then csrc/flash_f32.cu at
-    D = 64."""
+    float32 the GEMM of csrc/qkv_proj_f32.cu, then csrc/flash_f32.cu's
+    core."""
     if x.device.type == "cpu":
         return fused_qkv_attention_reference(x, wq, wk, wv, heads)
     inner = wq.shape[0]
@@ -494,6 +502,7 @@ def fused_qkv_attention(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
 fused_qkv_attention.launches = 0
 fused_qkv_attention.launches_by_d = {}
 fused_qkv_attention.launches_f32 = 0
+fused_qkv_attention.launches_f32_by_d = {}
 
 # gswm/ops/attention.py:443: fewer keys than this (cross-attention's 77) take
 # the einsum path; the blockwise kernel starts here.
@@ -539,11 +548,11 @@ def flash_attention_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CPU: the plain versions; CUDA: the kernel ``dtype_kernel`` names, any Sq
     and Sk: in bf16 csrc/flash_hopper.cu up to D = 64, flash_mid.cu to 160,
     flash_split.cu above, any D ``kernel_takes_head_dim`` takes
-    (``gswm_flash_split_lse`` with ``return_lse``); in float32
-    csrc/flash_f32.cu at D = 64 without ``return_lse``.
+    (``gswm_flash_split_lse`` with ``return_lse``); in float32 without
+    ``return_lse`` csrc/flash_f32.cu, at the same D.
     Launches with lse count in ``flash_attention_split.lse_launches`` (and
-    ``lse_launches_by_d``), the float32 ones in ``launches_f32``, the
-    others in ``launches``."""
+    ``lse_launches_by_d``), the float32 ones in ``launches_f32`` (and
+    ``launches_f32_by_d``), the others in ``launches``."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape or \
             q.shape[0] != k.shape[0] or q.shape[2:] != k.shape[2:]:
         raise ValueError(f"flash_attention_split: q {tuple(q.shape)}, k "
@@ -589,6 +598,7 @@ def flash_attention_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention_split.launches = 0
 flash_attention_split.launches_by_d = {}
 flash_attention_split.launches_f32 = 0
+flash_attention_split.launches_f32_by_d = {}
 flash_attention_split.lse_launches = 0
 flash_attention_split.lse_launches_by_d = {}
 

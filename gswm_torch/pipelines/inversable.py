@@ -39,7 +39,7 @@ from gswm_torch.models.vae import AutoencoderKL
 from gswm_torch.schedulers import SCHEDULERS
 from gswm_torch.schedulers.ddim import ddim_step, to_eps
 from gswm_torch.schedulers.dpm import dpm_init_carry, dpm_step
-from gswm_torch.ops.attention import (F32_HEAD_DIM, FUSED_QKV_MAX_SEQ, FUSED_QKV_MIN_SEQ,
+from gswm_torch.ops.attention import (FUSED_QKV_MAX_SEQ, FUSED_QKV_MIN_SEQ, KERNEL_DTYPES,
                                       kernel_takes_head_dim)
 from gswm_torch.schedulers.schedule import sd_schedule
 
@@ -63,11 +63,6 @@ def _load(cls, cfg, state: dict, what: str):
     return loader.load_state_(module, state, what).eval().requires_grad_(False)
 
 
-def _and_list(items) -> str:
-    items = [str(i) for i in items]
-    return items[0] if len(items) == 1 else ", ".join(items[:-1]) + " and " + items[-1]
-
-
 def _check_served_on_cuda(preset: ModelPreset, dtype: torch.dtype) -> None:
     """Refuse, before anything is built, what the CUDA kernels do not serve.
     At the preset's default resolution every UNet self-attention of
@@ -76,12 +71,11 @@ def _check_served_on_cuda(preset: ModelPreset, dtype: torch.dtype) -> None:
     40, 80 and 160, SD 2.x's and SDXL's 64), and at the fused-qkv sites'
     token counts a width the projection GEMM takes (a multiple of 64); the
     VAE's mid attention runs the split kernel at d = 512 above
-    ``VAE_FLASH_MIN_TOKENS``.  In bfloat16 every kernel serves them; in
-    float32 only heads of ``F32_HEAD_DIM`` have kernels and the VAE's
-    attention none (sd-2-1-base and sd-2-0-base pass at 512x512; sd-2-1 at
-    768x768, sd-1-4 and sdxl-base do not); no other dtype has any.  A
-    preset that stays below every kernel (``tiny``) runs plain attention in
-    any dtype."""
+    ``VAE_FLASH_MIN_TOKENS``.  In bfloat16 and in float32 the kernels of
+    the default route serve all of them (float32: csrc/qkv_proj_f32.cu's
+    GEMM and csrc/flash_f32.cu's core, in the natural layout: sd-2-1, sd-2-0, sd-1-4 and sdxl-base and
+    their base presets); no other dtype has a kernel.  A preset that stays
+    below every kernel (``tiny``) runs plain attention in any dtype."""
     unet = preset.unet
     latent = preset.default_resolution // 8
     channels = unet.block_out_channels
@@ -105,26 +99,10 @@ def _check_served_on_cuda(preset: ModelPreset, dtype: torch.dtype) -> None:
             f"{', '.join(sorted(set(refused)))}, and the attention kernels take head "
             "dims d % 8 == 0 up to 512 and fused-qkv widths that are multiples of 64; "
             'run it with device="cpu"')
-    if dtype == torch.bfloat16:
-        return
-    if dtype != torch.float32:
+    if dtype not in KERNEL_DTYPES:
         raise NotImplementedError(
             f"{preset.name} in {dtype} on a CUDA device: the attention kernels take "
-            "torch.bfloat16, and torch.float32 for sd-2-1-base; use dtype=torch.bfloat16, "
-            'or device="cpu"')
-    widths = sorted({d for _, _, d in reached if d != F32_HEAD_DIM})
-    if widths:
-        refused.append(f"heads of {_and_list(widths)}")
-    if vae_tokens > VAE_FLASH_MIN_TOKENS:
-        refused.append(f"the VAE's mid attention at d = {preset.vae.block_out_channels[-1]} "
-                       f"over {vae_tokens} tokens")
-    if refused:
-        res = preset.default_resolution
-        raise NotImplementedError(
-            f"{preset.name} in {dtype} on a CUDA device: at {res}x{res} it runs "
-            f"{' and '.join(refused)}, and the float32 kernels serve self-attention "
-            f"heads of {F32_HEAD_DIM} alone; use dtype=torch.bfloat16, or "
-            'device="cpu" for float32')
+            "torch.bfloat16 and torch.float32; use one of them, or device=\"cpu\"")
 
 
 @contextlib.contextmanager
@@ -190,11 +168,10 @@ class InversablePipeline:
         UNet and the VAE through that dtype, norms too, each held in its
         compute dtype after (the JAX package's ``_cast_floating``).  On a
         CUDA device only what the kernels serve is built
-        (``_check_served_on_cuda``): bfloat16 at head dims d % 8 == 0 up to
-        512 (SD 1.x's 40, 80, 160; SD 2.x's and SDXL's 64), and float32
-        where the preset's default resolution reaches heads of 64 alone and
-        no VAE attention kernel (sd-2-1-base at 512x512); its float32 calls
-        there run with TF32 off (``exact_float32``)."""
+        (``_check_served_on_cuda``): bfloat16 and float32 at head dims
+        d % 8 == 0 up to 512 (SD 1.x's 40, 80, 160; SD 2.x's and SDXL's 64;
+        the VAE's 512), so every preset in either; a float32 pipeline's
+        calls there run with TF32 off (``exact_float32``)."""
         if isinstance(preset, str):
             preset = PRESETS[preset]
         self.preset = preset

@@ -2,7 +2,7 @@
 card.
 
     python -m gswm_torch.tools.compare_kernels --parent DIR [--out FILE.json]
-        [--cases attention,k8,k3] [--match TEXT] [--require-equal
+        [--cases attention,lse,k8,k3,f32] [--match TEXT] [--require-equal
         [--except-head-dims LO-HI] [--except-transposed LO-HI[:unaligned][,...]]]
 
 DIR is a second checkout of the repository (for example ``git archive`` of
@@ -30,6 +30,11 @@ entry points on the same tensors, so nothing but the kernels differs:
     kernels, none before: 64);
   * the host time of one launcher call (tensor-map encoding included) on a
     one-tile shape, where the device never holds the host back;
+  * float32 flash attention (``--cases f32``) through each side's
+    ``gswm_flash_f32`` at ``paths.F32_FLASH_SHAPES`` (natural layout, Sq =
+    Sk) and ``paths.F32_SPLIT_SHAPES`` (Sq != Sk too), N(0, 1) fp32 q, k
+    and v (both sides must take every width of the shapes chosen: against
+    a checkout whose entry takes d = 64 alone, ``--match ", 64)"``);
   * GroupNorm (K8) and ChaCha20 (K3) through each side's own wrappers, host
     side included (their C signatures may differ between the checkouts): K8
     at every GroupNorm shape of the 768x768 path, summed, and at
@@ -324,8 +329,9 @@ def main() -> None:
     ap.add_argument("--parent", required=True, type=Path)
     ap.add_argument("--out", type=Path)
     ap.add_argument("--iters", type=int, default=20)
-    ap.add_argument("--cases", default="attention,lse,k8,k3",
-                    help="which of attention, lse, k8, k3, sd14 to time (comma-separated)")
+    ap.add_argument("--cases", default="attention,lse,k8,k3,f32",
+                    help="which of attention, lse, k8, k3, f32, sd14 to time "
+                         "(comma-separated)")
     ap.add_argument("--match", default="",
                     help="time only the attention cases whose label holds this")
     ap.add_argument("--require-equal", action="store_true",
@@ -340,7 +346,7 @@ def main() -> None:
     cases = set(args.cases.split(","))
     lo, hi = map(int, args.except_head_dims.split("-")) if args.except_head_dims \
         else (1, 0)
-    if not cases or cases - {"attention", "lse", "k8", "k3", "sd14"}:
+    if not cases or cases - {"attention", "lse", "k8", "k3", "f32", "sd14"}:
         raise SystemExit(f"compare_kernels: unknown cases {args.cases!r}")
     if not torch.cuda.is_available():
         raise SystemExit("compare_kernels: no CUDA device")
@@ -368,6 +374,8 @@ def main() -> None:
         result.update(compare_attention(libs, rand, stream, args.iters, args.match))
     if "lse" in cases:
         result["lse"] = compare_lse(libs, rand, stream, args.iters, args.match)
+    if "f32" in cases:
+        result["f32"] = compare_f32(libs, stream, args.iters, args.match)
     print(json.dumps(result))
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
@@ -383,7 +391,7 @@ def main() -> None:
             return key == "transposed" and any(
                 a <= d <= b for a, b in (exempt_t if aligned else exempt_u))
 
-        held = [case for key in ("flash", "packed", "transposed", "fused_qkv", "lse")
+        held = [case for key in ("flash", "packed", "transposed", "fused_qkv", "lse", "f32")
                 for case in result.get(key, []) if not lo <= case["head_dim"] <= hi
                 and not exempt(key, case)]
         differ = [case for case in held
@@ -528,6 +536,40 @@ def compare_attention(libs: dict, rand, stream: int, iters: int, match: str = ""
         result["host_us"].setdefault(side, []).append(us)
     print(f"host time per flash launcher call, us: {result['host_us']}", flush=True)
     return result
+
+
+def compare_f32(libs: dict, stream: int, iters: int, match: str = "") -> list:
+    """The float32 flash core through each side's ``gswm_flash_f32``; only
+    the cases whose label holds ``match``."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(19)
+    shapes = [(f"f32 ({b}, {s}, {h}, {d})", b, s, s, h, d)
+              for b, s, h, d in paths.F32_FLASH_SHAPES]
+    shapes += [(f"f32 split ({b}, {sq}, {sk}, {h}, {d})", b, sq, sk, h, d)
+               for b, sq, sk, h, d in paths.F32_SPLIT_SHAPES]
+    out_cases = []
+    for label, b, sq, sk, h, d in shapes:
+        if match not in label:
+            continue
+        q = torch.randn((b, sq, h, d), generator=g, device=dev)
+        k, v = (torch.randn((b, sk, h, d), generator=g, device=dev) for _ in range(2))
+        outs = {side: torch.empty_like(q) for side in libs}
+        fns = {side: (lambda side=side: libs[side].call(
+            "gswm_flash_f32", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            outs[side].data_ptr(), b, sq, sk, h, d, stream)) for side in libs}
+        n = 3 if sk * d >= 9216 * 512 else iters
+        t = in_turns(fns, n)
+        diff = (outs["parent"] - outs["change"]).abs().max().item()
+        bound, roof = roofline.attention_bound_ms(
+            roofline.attention_cost(b, sq, sk, h, d, elem=roofline.F32),
+            roofline.PEAK_F32_PRODUCTS)
+        print(f"{label}: {' '.join(f'{side} {t[side]}' for side in t)} ms, bound "
+              f"{bound:.4f} ms by {roof} (3xTF32), max|parent - change| "
+              f"{diff}", flush=True)
+        out_cases.append(dict(label=label, shape=[b, sq, sk, h, d], head_dim=d, **t,
+                              bound_ms=bound, roof=roof, max_abs_diff=diff))
+        del q, k, v, outs
+    return out_cases
 
 
 SD14_SETS = {"default": {}, "c": paths.TIER_SWITCHES["c"], "t": paths.SD14_SWITCHES["t"]}

@@ -107,13 +107,40 @@ K4_SHAPES = ((1, 9216, 1, 512), (2, 9216, 1, 512), (2, 1000, 10, 64),
 # ragged ones above
 K4_LSE_SHAPES = ((8, 1024, 8, 80), (4, 256, 8, 160), (8, 256, 8, 160),
                  (2, 1000, 3, 72), (2, 1000, 3, 96), (2, 1000, 3, 144))
-# Phase 13, float32 on the card: sd-2-1-base at 512x512, batch 4.  The fp32
-# projection GEMM (M, C, N) at levels 1 and 2 (B * 1024 rows of 640
-# channels, B * 256 of 1280), and the fp32 flash core (B, S, H, D) at
-# levels 0 (4096 tokens, 5 heads), 1 and 2
-F32_PROJ_SHAPES = ((BATCH_512 * 1024, 640, 640), (BATCH_512 * 256, 1280, 1280))
+# Phase 13, float32 on the card: sd-2-1-base at 512x512, batch 4, then
+# sd-2-1 at 768x768 (batch 2: UNet batch 2 at guidance 1.0, 4 under
+# guidance), sd-1-4 at 512x512 and sdxl-base at 1024x1024 (batch 1: UNet
+# batch 1, 2 under guidance).  The fp32 projection GEMM (M, C, N) at the
+# fused-qkv levels: sd-2-1-base's 1 and 2 (B * 1024 rows of 640 channels, B
+# * 256 of 1280), sd-2-1 768x768's (UNet batch x 2304 rows of 640, x 576 of
+# 1280) and sdxl-base's level 2 (UNet batch x 1024 of 1280, of which the
+# batch-1 M is sd-2-1-base's); the fp32 flash core through the
+# natural-layout wrapper (B, S, H, D): sd-2-1-base's levels 0 (4096 tokens,
+# 5 heads), 1 and 2, SD 1.x's K2 at level 0 (8 heads of 40) and K1's core
+# at levels 1 and 2 (8 of 80, 8 of 160), sd-2-1 768x768's K2 at level 0
+# (9216 tokens, 5 heads) and K1's core at levels 1 and 2 (2304 of 10 heads,
+# 576 of 20), and sdxl-base's K2 at level 1 (4096 of 10) and K1's core at
+# level 2 (1024 of 20); through the split wrapper (B, Sq, Sk, H, D): the
+# VAE's mid attention, one head of 512 over 9216 tokens (768x768: the
+# decoder's one image a call, the encoder's two) and 16,384 (1024x1024), a
+# ragged 512 at Sq != Sk, and widths no SD model uses at ragged Sq != Sk:
+# 72 (two panels, the last of 8 columns), 128, 192 and 256
+F32_PROJ_SHAPES = ((BATCH_512 * 1024, 640, 640), (BATCH_512 * 256, 1280, 1280),
+                   *((u * 2304, 640, 640) for u in (BATCH_768, 2 * BATCH_768)),
+                   *((u * 576, 1280, 1280) for u in (BATCH_768, 2 * BATCH_768)),
+                   (2 * 1024, 1280, 1280))
 F32_FLASH_SHAPES = ((BATCH_512, 4096, 5, 64), (BATCH_512, 1024, 10, 64),
-                    (BATCH_512, 256, 20, 64))
+                    (BATCH_512, 256, 20, 64), (BATCH_SD14, 4096, 8, 40),
+                    (BATCH_SD14, 1024, 8, 80), (BATCH_SD14, 256, 8, 160),
+                    *((u, s, h, 64) for s, h in ((9216, 5), (2304, 10), (576, 20))
+                      for u in (BATCH_768, 2 * BATCH_768)),
+                    *((u, s, h, 64) for s, h in ((4096, 10), (1024, 20)) for u in (1, 2)))
+F32_SPLIT_SHAPES = ((1, 9216, 9216, 1, 512), (2, 9216, 9216, 1, 512),
+                    (1, 16384, 16384, 1, 512), (1, 1001, 577, 1, 512),
+                    (2, 1001, 577, 2, 72), (2, 577, 1001, 2, 128),
+                    (1, 1001, 700, 2, 192), (1, 700, 1001, 2, 256))
+# phase 13's sdxl-base closed loop, at phase 5's reduced depth
+F32_SDXL_STEPS = TIER_LOOP_STEPS
 # K3 (ChaCha20 blocks of one key): one 64x64x4, 96x96x4 and 128x128x4
 # latent of bits (512x512, 768x768, 1024x1024), and 2^20 blocks
 K3_BLOCKS = (32, 72, 128, 2**20)

@@ -137,11 +137,10 @@ def suggest_weights_dtype(param_bytes: int, hbm_gb: Optional[float] = None,
     once the fp32 parameters pass 6/16 of ``hbm_gb`` GiB (default: the
     card's memory).  The port's pipeline does not call it, as the
     reference's does on the TPU (gswm/pipelines/inversable.py:110-122): on a
-    CUDA device it computes in float32 only where its fp32 kernels serve the
-    preset (sd-2-1-base at 512x512, ~5.2 GB of fp32 weights, which the rule
-    keeps fp32 on an 80 GB card) and in bfloat16 elsewhere, so no fp32
-    residency is left to decide; ``weights_dtype`` stays the caller's
-    choice."""
+    CUDA device it computes in the caller's dtype, bfloat16 or float32,
+    whose kernels serve every preset (sdxl-base's UNet, the largest, holds
+    ~10.3 GB of fp32 weights, which the rule keeps fp32 on an 80 GB card),
+    so ``weights_dtype`` stays the caller's choice."""
     if hbm_gb is None:
         hbm_gb = card_gib(device)
     limit = _FP32_RESIDENCY_SHARE * hbm_gb * GiB

@@ -132,21 +132,17 @@ def _heads_of(width: int):
     # d % 8 != 0: rows of no tensor map; d > 512: no kernel template
     (36, torch.bfloat16, "heads 36 wide"),
     (520, torch.bfloat16, "heads 520 wide"),
-    # float32 kernels: heads of 64 alone, no VAE attention kernel
-    ("sd-1-4", torch.float32, "heads of 40, 80 and 160"),
-    ("sd-2-1", torch.float32, "VAE's mid attention at d = 512 over 9216 tokens"),
+    (36, torch.float32, "heads 36 wide"),
+    ("sd-1-4", torch.float16, "torch.float16"),
     ("sd-2-1", torch.float16, "torch.float16"),
     ("sd-2-1-base", torch.float16, "torch.float16"),
-    ("sdxl-base", torch.float32, "VAE's mid attention at d = 512 over 16384 tokens")])
+    ("sdxl-base", torch.float16, "torch.float16")])
 def test_pipeline_refuses_at_construction_what_the_card_does_not_serve(
         monkeypatch, preset, dtype, why):
-    """Head dims outside the kernels' domain (d % 8 != 0 or d > 512), float32
-    where the preset's default resolution reaches what no float32 kernel
-    serves (SD 1.x's heads of 40, 80 and 160; the VAE's attention at d = 512
-    above 4096 tokens, sd-2-1 at 768x768 and SDXL at 1024x1024), and float16
-    anywhere have no kernel: on a CUDA device the constructor says so,
-    before it allocates anything there (so also on a machine without a
-    card)."""
+    """Head dims outside the kernels' domain (d % 8 != 0 or d > 512), in
+    either dtype, and float16 anywhere have no kernel: on a CUDA device the
+    constructor says so, before it allocates anything there (so also on a
+    machine without a card)."""
     from gswm_torch.pipelines import inversable
 
     if isinstance(preset, int):
@@ -161,13 +157,15 @@ def test_pipeline_refuses_at_construction_what_the_card_does_not_serve(
 
 @pytest.mark.parametrize("preset,dtype", [
     ("sd-2-1-base", torch.float32), ("sd-2-0-base", torch.float32),
-    ("sd-2-1-base", torch.bfloat16)])
+    ("sd-2-1-base", torch.bfloat16), ("sd-1-4", torch.float32),
+    ("sd-2-1", torch.float32), ("sd-2-0", torch.float32), ("sdxl-base", torch.float32)])
 def test_pipeline_accepts_on_the_card_what_the_kernels_serve(monkeypatch, preset, dtype):
-    """sd-2-1-base in float32 (and sd-2-0-base, the same architecture) at
-    512x512 reaches heads of 64 alone, which the float32 kernels serve, and
-    keeps the VAE's attention (4096 tokens) plain: on a CUDA device the
-    constructor passes the check and goes on to build its modules, which is
-    stopped here before anything is allocated."""
+    """Every preset in float32 as in bfloat16: the float32 kernels take SD
+    1.x's heads of 40, 80 and 160 and SD 2.x's and SDXL's 64, and the VAE's
+    attention at d = 512 above 4096 tokens (sd-2-1 and sd-2-0 at 768x768,
+    sdxl-base at 1024x1024): on a CUDA device the constructor passes the
+    check and goes on to build its modules, which is stopped here before
+    anything is allocated."""
     from gswm_torch.pipelines import inversable
 
     monkeypatch.setattr(inversable, "_build", _NoAllocation())
@@ -177,18 +175,18 @@ def test_pipeline_accepts_on_the_card_what_the_kernels_serve(monkeypatch, preset
 
 
 def test_the_cpu_goes_on_running_what_the_card_refuses(monkeypatch):
-    """sd-1-4 in float32 is not refused on the CPU (the constructor goes on
-    to build its modules), nor are heads 36 wide; the tiny preset, whose
-    attention stays below the kernels' window, passes the check for a CUDA
-    device in any dtype; sd-1-4's heads of 40, 80 and 160 pass it in
-    bfloat16."""
+    """float16 is not refused on the CPU (the constructor goes on to build
+    its modules), nor are heads 36 wide; the tiny preset, whose attention
+    stays below the kernels' window, passes the check for a CUDA device in
+    any dtype; sd-1-4's heads of 40, 80 and 160 pass it in bfloat16 and
+    float32."""
     from gswm_torch.models.configs import PRESETS
     from gswm_torch.models.unet import UNet2DCondition
     from gswm_torch.pipelines import inversable
 
     monkeypatch.setattr(inversable, "_build", _NoAllocation())
     with pytest.raises(AssertionError, match="built a module"):
-        InversablePipeline("sd-1-4", device="cpu", dtype=torch.float32)
+        InversablePipeline("sd-1-4", device="cpu", dtype=torch.float16)
     with pytest.raises(AssertionError, match="built a module"):
         InversablePipeline(_heads_of(36), device="cpu", dtype=torch.float32)
     with torch.device("meta"):
@@ -196,6 +194,8 @@ def test_the_cpu_goes_on_running_what_the_card_refuses(monkeypatch):
     assert [blk.attentions[0].transformer_blocks[0].attn1.head_dim
             for blk in unet.down_blocks[:3]] == [40, 80, 160]
     inversable._check_served_on_cuda(PRESETS["tiny"], torch.float32)
+    inversable._check_served_on_cuda(PRESETS["tiny"], torch.float16)
+    inversable._check_served_on_cuda(PRESETS["sd-1-4"], torch.float32)
     inversable._check_served_on_cuda(PRESETS["sd-2-1"], torch.bfloat16)
     inversable._check_served_on_cuda(PRESETS["sdxl-base"], torch.bfloat16)
     inversable._check_served_on_cuda(PRESETS["sd-1-4"], torch.bfloat16)

@@ -2,20 +2,24 @@
 
 On a CUDA device the port runs float32 through two kernels of its own,
 csrc/qkv_proj_f32.cu (the q/k/v projection GEMM) and csrc/flash_f32.cu (the
-flash core at head dim 64): sd-2-1-base at 512x512 reaches nothing else.  On
-the CPU each wrapper runs its plain version, which is the function those
-kernels compute (fp32 products and sums, exact softmax with a running max);
-the kernels are held to it on the card (tests/test_torch_gpu.py,
-chip_smoke.py phase 13).  Here:
+flash core at 8 <= d <= 512): every preset's default route reaches nothing
+else.  On the CPU
+each wrapper runs its plain version, which is the function those kernels
+compute (fp32 products and sums, exact softmax with a running max); the
+kernels are held to it on the card (tests/test_torch_gpu.py, chip_smoke.py
+phase 13).  Here:
 
   * the plain versions against the JAX package's float32 kernels: the Pallas
     ``flash_attention_fused_qkv`` in interpret mode at SD 2.x's levels 1 and
     2 (its TPU VMEM gate, which float32 at these widths exceeds, lifted: the
     gate holds a TPU's 16 MB, not what the kernel computes), and
     ``xla_flash_attention`` at level 0's heads with logits far below its
-    clamp at 60.  Within 1e-5 of max |want|: two fp32 computations of one
-    function that sum in other orders (measured 0.6e-6 to 1.8e-6); TF32
-    operands read ~5e-4 and bf16 5e-3;
+    clamp at 60, and the Pallas ``flash_attention`` (K4, interpret mode) at
+    the head dims of SD 1.x (40, 80, 160) and the VAE (512), at Sq != Sk
+    with ragged tails past 512 keys, and in the VAE's mid attention layer
+    above ``VAE_FLASH_MIN_TOKENS``.  Within 1e-5 of max |want|: two fp32
+    computations of one function that sum in other orders (measured 0.6e-6
+    to 1.8e-6); TF32 operands read ~5e-4 and bf16 5e-3;
   * the slice as a whole: sd-2-1-base narrowed to 64-wide heads (1, 2 and 4
     heads; channels 64, 128, 256, 256), a 32-wide text encoder and the tiny
     VAE, at 32x32 latents, so that levels 0 and 1 (1024 and 256 tokens) take
@@ -24,14 +28,23 @@ chip_smoke.py phase 13).  Here:
     kernels forced on (``GSWM_FORCE_FLASH=1``, interpret mode); the latent
     closed loop (8 + 8 steps) with equal voted bits and recovered z_T within
     1e-4 (measured 3.6e-6, against an RMS of 0.18 from the embedded z_T);
+    and sd-1-4 narrowed to one head of 40, 80 and 160 (channels 40, 80, 160,
+    160, GroupNorm of 8 groups), at 32x32 latents with the xf tier from 1024
+    tokens (``GSWM_XF_ATTN_MIN_SEQ``, both packages' switch): level 0 takes
+    K2 at d = 40, level 1 K1 at d = 80 (the JAX package's Pallas fused-qkv
+    kernel); level 2's 64 tokens stay below every kernel in both packages,
+    so d = 160 meets the fp32 core in the K4 cases above.  The same bounds;
   * the rule that names the float32 kernel (``dtype_kernel``), over dtype x
     head dim x layout; the costs and bounds of the float32 kernels
-    (``roofline``); and the TF32 scope of a float32 pipeline on a CUDA
-    device (``exact_float32``), whose flags exist on a CPU build too.
+    (``roofline``); the pipeline's check for a CUDA device, which passes
+    every preset in float32 and refuses float16 before building anything;
+    and the TF32 scope of a float32 pipeline on a CUDA device
+    (``exact_float32``), whose flags exist on a CPU build too.
 """
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -42,13 +55,14 @@ from gswm.config import GSConfig as JGSConfig
 from gswm.core.decode import recover_message_bits as j_recover
 from gswm.core.embed import embed_latents as j_embed
 from gswm.models import configs as jconfigs
+from gswm.models import layers as jlayers
 from gswm.pipelines import InversablePipeline as JPipeline
 from gswm_torch import roofline
 from gswm_torch.config import GSConfig
 from gswm_torch.core.decode import recover_message_bits
 from gswm_torch.core.embed import embed_latents
 from gswm_torch.models import configs, layers
-from gswm_torch.models.bridge import load_pipeline_params_
+from gswm_torch.models.bridge import load_pipeline_params_, load_tree_
 from gswm_torch.ops import attention as attn
 from gswm_torch.pipelines import InversablePipeline, inversable
 
@@ -98,6 +112,61 @@ def test_flash_matches_jax_xla_flash_in_fp32():
     want = np.asarray(jattn.xla_flash_attention(*(jnp.asarray(t) for t in (q, k, v)), 5, 64))
     got = attn.flash_attention(*(torch.from_numpy(t) for t in (q, k, v)), 5)
     assert got.dtype == torch.float32 and got.shape == (1, 1024, 320)
+    assert _rel(got.numpy(), want) <= REL
+
+
+@pytest.mark.parametrize("b,sq,sk,h,d", [
+    (2, 300, 577, 3, 40), (1, 577, 1001, 2, 80), (2, 130, 600, 2, 160),
+    (1, 300, 577, 1, 512)], ids=["d40", "d80", "d160", "d512"])
+def test_split_matches_jax_flash_attention_in_fp32(b, sq, sk, h, d):
+    """K4 in fp32 at SD 1.x's head dims and the VAE's: the port's
+    ``flash_attention_split`` (the function of flash_f32.cu) against the Pallas ``flash_attention`` in
+    interpret mode, Sq != Sk, both past 512 keys with ragged tails (no
+    multiple of 64 or 128), N(0, 1) q, k and v."""
+    q = _rand((b, sq, h, d), 90 + d)
+    k, v = (_rand((b, sk, h, d), i + d) for i in (91, 92))
+    want = np.asarray(jattn.flash_attention(*(jnp.asarray(t) for t in (q, k, v)),
+                                            interpret=True))
+    before = attn.flash_attention_split.launches_f32
+    got = attn.flash_attention_split(*(torch.from_numpy(t) for t in (q, k, v)))
+    assert attn.flash_attention_split.launches_f32 == before  # CPU: plain version
+    assert want.dtype == np.float32 and got.dtype == torch.float32
+    assert got.shape == (b, sq, h, d)
+    assert _rel(got.numpy(), want) <= REL
+
+
+def test_vae_attention_matches_jax_in_fp32(monkeypatch):
+    """The VAE's mid attention layer in fp32 above ``VAE_FLASH_MIN_TOKENS``
+    (65 x 65 = 4225 tokens, one head of d = 512): the port's split wrapper
+    (flash_f32.cu's function) against the JAX module's Pallas K4
+    (``GSWM_FORCE_FLASH=1``, interpret mode), both above the same token
+    threshold."""
+    x = _rand((1, 65, 65, 512), 95)
+    jmod = jlayers.VAEAttention(dtype=jnp.float32)
+    params = jmod.init(jax.random.key(96), x)
+    monkeypatch.setenv("GSWM_FORCE_FLASH", "1")
+    kernel, jcalls = jattn.flash_attention, []
+
+    def jflash(q, *args, **kwargs):
+        jcalls.append(q.shape)
+        return kernel(q, *args, **kwargs)
+
+    monkeypatch.setattr(jattn, "flash_attention", jflash)
+    want = np.asarray(jmod.apply(params, x)).transpose(0, 3, 1, 2)
+    assert jcalls == [(1, 4225, 1, 512)]
+    calls = []
+
+    def split(q, k, v):
+        calls.append(tuple(q.shape))
+        return attn.flash_attention_split(q, k, v)
+
+    monkeypatch.setattr(layers, "flash_attention_split", split)
+    mod = layers.VAEAttention(512)
+    load_tree_(mod, params)
+    with torch.inference_mode():
+        got = mod(torch.from_numpy(x.transpose(0, 3, 1, 2).copy()))
+    assert calls == [(1, 4225, 1, 512)] and layers.VAE_FLASH_MIN_TOKENS < 4225
+    assert got.dtype == torch.float32 and got.shape == (1, 512, 65, 65)
     assert _rel(got.numpy(), want) <= REL
 
 
@@ -179,19 +248,112 @@ def test_narrowed_sd21_base_closed_loop_bits_equal_jax_in_fp32(pipes):
     assert (bits == np.unpackbits(np.frombuffer(msg, np.uint8))).all()
 
 
+def _narrowed_sd14(c):
+    """sd-1-4 cut in width alone where the route is concerned: one head of
+    40, 80 and 160 (channels 40, 80, 160, 160; GroupNorm of 8 groups, which
+    40 channels take), a 32-wide text encoder of two layers and the tiny
+    VAE; 256x256 images, 32x32 latents."""
+    base = c.SD_1_4
+    unet = dataclasses.replace(base.unet, block_out_channels=(40, 80, 160, 160),
+                               num_heads=1, norm_groups=8, cross_attn_dim=32)
+    text = dataclasses.replace(base.text, vocab_size=1000, hidden_size=32, num_layers=2,
+                               num_heads=2)
+    return dataclasses.replace(base, name="sd-1-4, narrowed", unet=unet, vae=c.TINY.vae,
+                               text=text, default_resolution=256)
+
+
+@pytest.fixture(scope="module")
+def sd14_pipes():
+    """Both packages' narrowed sd-1-4 on the same weights, the xf tier from
+    1024 tokens (level 0) for every test of the pair: a switch the JAX
+    package reads while it traces, so it holds from the first trace on."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("GSWM_XF_ATTN_MIN_SEQ", "1024")
+        jpipe = JPipeline(_narrowed_sd14(jconfigs), dtype=jnp.float32)
+        pipe = InversablePipeline(_narrowed_sd14(configs), device="cpu",
+                                  dtype=torch.float32)
+        load_pipeline_params_(pipe, jpipe.unet_params, jpipe.vae_params, jpipe.text_params)
+        yield jpipe, pipe
+
+
+def test_narrowed_sd14_unet_matches_jax_in_fp32(sd14_pipes, monkeypatch):
+    """One UNet forward at batch 2, 32x32 latents: the port's route takes
+    K2 at d = 40 (level 0's 5 sites, 1024 tokens) and K1 at d = 80 (level
+    1's 5, 256 tokens); the JAX package its xf tier and its Pallas
+    fused-qkv kernel there (interpret mode, GSWM_FORCE_FLASH=1)."""
+    import jax
+
+    jpipe, pipe = sd14_pipes
+    rng = np.random.default_rng(82)
+    lat = rng.standard_normal((2, 4, 32, 32)).astype(np.float32)
+    t = np.array([10, 501], np.int32)
+    ctx = rng.standard_normal((2, 77, 32)).astype(np.float32)
+    monkeypatch.setenv("GSWM_FORCE_FLASH", "1")
+    kernel, jcalls = jattn.flash_attention_fused_qkv, []
+
+    def jfused(x, *args, **kwargs):
+        jcalls.append((x.shape[1], args[-1] if len(args) > 4 else kwargs.get("head_dim")))
+        return kernel(x, *args, **kwargs)
+
+    monkeypatch.setattr(jattn, "flash_attention_fused_qkv", jfused)
+    want = np.asarray(jax.jit(lambda *a: jpipe.unet.apply(*a))(jpipe.unet_params, lat, t, ctx))
+    assert sorted(jcalls) == [(256, 80)] * 5  # traced once a site
+    calls = []
+
+    def record(name):
+        real = getattr(layers, name)
+
+        def call(x, *args):
+            calls.append((name, x.shape[1], x.shape[2] // args[-1]))
+            return real(x, *args)
+        monkeypatch.setattr(layers, name, call)
+
+    record("fused_qkv_attention")
+    record("flash_attention")
+    with torch.inference_mode():
+        got = pipe.unet(*(torch.from_numpy(a) for a in (lat, t, ctx)))
+    assert sorted(calls) == [("flash_attention", 1024, 40)] * 5 + \
+        [("fused_qkv_attention", 256, 80)] * 5
+    assert got.dtype == torch.float32 and got.shape == (2, 4, 32, 32)
+    assert _rel(got.numpy(), want) <= UNET_REL
+
+
+def test_narrowed_sd14_closed_loop_bits_equal_jax_in_fp32(sd14_pipes, monkeypatch):
+    """embed(u) -> 8-step generate -> 8-step inversion -> decode, both in
+    fp32: equal voted bits, which are the message."""
+    jpipe, pipe = sd14_pipes
+    monkeypatch.setenv("GSWM_XF_ATTN_MIN_SEQ", "1024")
+    kw = dict(key_hex="22" * 32, nonce_hex="33" * 16, message="lthero", width=256,
+              height=256, message_bits=32)
+    cfg, jcfg = GSConfig(**kw), JGSConfig(**kw)
+    u = np.random.default_rng(83).random((2, cfg.total_elements), dtype=np.float32)
+    zt, msg = embed_latents(cfg, batch=2, u=u, device="cpu")
+    jzt, _ = j_embed(jcfg, batch=2, u=jnp.asarray(u))
+    z = pipe.invert(latents=pipe.generate(zt, guidance_scale=1.0, num_steps=STEPS,
+                                          decode=False), num_steps=STEPS)
+    jz = jpipe.invert(latents=jpipe.generate(jzt, guidance_scale=1.0, num_steps=STEPS,
+                                             decode=False), num_steps=STEPS)
+    assert z.dtype == torch.float32
+    assert np.abs(z.numpy() - np.asarray(jz)).max() <= ZT_ABS
+    bits = recover_message_bits(z, cfg).numpy()
+    np.testing.assert_array_equal(bits, np.asarray(j_recover(jz, jcfg)))
+    assert (bits == np.unpackbits(np.frombuffer(msg, np.uint8))).all()
+
+
 @pytest.mark.parametrize("layout", attn.LAYOUTS)
-@pytest.mark.parametrize("d", [40, 64, 80, 160, 512])
+@pytest.mark.parametrize("d", [40, 64, 80, 160, 512, 8, 56, 72, 128, 192, 256])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16],
                          ids=str)
 def test_dtype_kernel_names_the_float32_kernel(dtype, d, layout):
-    """bf16: the kernel ``head_dim_kernel`` names; fp32: csrc/flash_f32.cu
-    at d = 64 in the natural layout, a TypeError naming float32 at any other
-    d or in the transposed layout; float16: a TypeError naming it."""
+    """bf16: the kernel ``head_dim_kernel`` names; fp32 in the natural
+    layout: csrc/flash_f32.cu's kernel at d's count of 64-column panels; a
+    TypeError naming float32 in the transposed layout; float16: a TypeError
+    naming it."""
     if dtype == torch.bfloat16:
         assert attn.dtype_kernel(dtype, d, layout) == attn.head_dim_kernel(d, layout)[0]
-    elif dtype == torch.float32 and d == attn.F32_HEAD_DIM and layout == "natural":
-        assert attn.dtype_kernel(dtype, d, layout) == attn.F32_FLASH_KERNEL == \
-            "flash_f32_kernel"
+    elif dtype == torch.float32 and layout == "natural":
+        assert attn.dtype_kernel(dtype, d, layout) == f"flash_f32_kernel<{(d + 63) // 64}>"
+        assert attn._flash_entry(dtype, d) == "gswm_flash_f32"
     else:
         with pytest.raises(TypeError, match=str(dtype)):
             attn.dtype_kernel(dtype, d, layout)
@@ -222,6 +384,41 @@ def test_float32_costs_and_bounds():
     # the bf16 bound of the same work stays the tensor cores' and exponentials'
     assert roofline.attention_bound_ms(roofline.attention_cost(4, 4096, 4096, 5, 64)) == \
         roofline.bound_ms(cost[0], cost[1] / 2, roofline.PEAK_BF16, cost[2])
+
+
+@pytest.mark.parametrize("shape,gflop,ms", [
+    ((1, 9216, 1, 512), 173.9, 1.055), ((1, 16384, 1, 512), 549.8, 3.336),
+    ((4, 4096, 8, 40), 85.9, 0.5212), ((4, 1024, 8, 80), 10.74, 0.06515),
+    ((4, 256, 8, 160), 1.342, 0.008144)], ids=["vae768", "vae1024", "d40", "d80", "d160"])
+def test_float32_bounds_of_the_new_widths(shape, gflop, ms):
+    """The fp32 core at the VAE's d = 512 (768x768 and 1024x1024) and SD
+    1.x's 40, 80 and 160, by hand: 4 B H Sq Sk d FLOP at 3xTF32; the
+    products bind every one (the exponentials, B H S^2 at 16 a clock an
+    SM, and the bytes stay below)."""
+    b, s, h, d = shape
+    cost = roofline.attention_cost(b, s, s, h, d, elem=roofline.F32)
+    assert cost == (4 * b * h * s * s * d, 4 * b * h * d * 4 * s, b * h * s * s)
+    assert cost[0] / 1e9 == pytest.approx(gflop, rel=1e-3)
+    got, by = roofline.attention_bound_ms(cost, roofline.PEAK_F32_PRODUCTS)
+    assert by == "operations" and got == pytest.approx(ms, rel=1e-3)
+    assert cost[0] / roofline.PEAK_F32_PRODUCTS > max(cost[2] / roofline.PEAK_EXP2,
+                                                      cost[1] / roofline.PEAK_BYTES)
+
+
+@pytest.mark.parametrize("preset", ["sd-2-1", "sd-2-0", "sd-1-4", "sdxl-base",
+                                    "sd-2-1-base", "sd-2-0-base"])
+def test_check_served_passes_every_preset_in_float32(preset):
+    """On a CUDA device every preset's default route reaches only kernels
+    that take float32 (heads of 40 ... 160 and 64 on the fp32 core, and
+    the VAE's d = 512 on it above 4096 tokens), so the check passes
+    float32, as bfloat16; float16 is refused, naming it.  The check builds
+    nothing: it reads the preset's configuration alone."""
+    from gswm_torch.models.configs import PRESETS
+
+    for dtype in (torch.float32, torch.bfloat16):
+        assert inversable._check_served_on_cuda(PRESETS[preset], dtype) is None
+    with pytest.raises(NotImplementedError, match="torch.float16"):
+        inversable._check_served_on_cuda(PRESETS[preset], torch.float16)
 
 
 def _flags():

@@ -326,7 +326,7 @@ def test_kernel_wrappers_reject_what_they_do_not_take(cuda):
     x = torch.randn((1, 256, 128), device=cuda)
     w = torch.randn((128, 128), device=cuda)
     with pytest.raises(TypeError):
-        attn.fused_qkv_attention(x, w, w, w, 1)  # fp32 at D = 128: no fp32 kernel
+        attn.fused_qkv_attention(x.double(), w.double(), w.double(), w.double(), 1)  # fp64
     with pytest.raises(TypeError):
         attn.fused_qkv_attention(x.half(), w.half(), w.half(), w.half(), 2)  # fp16
     xb, wb = x.bfloat16(), w.bfloat16()
@@ -341,7 +341,7 @@ def test_kernel_wrappers_reject_what_they_do_not_take(cuda):
         attn.flash_attention(xb, xb, xb, 3)  # 128 != 3 x 64
     q4 = torch.randn((1, 600, 1, 128), device=cuda)
     with pytest.raises(TypeError):
-        attn.flash_attention_split(q4, q4, q4)  # fp32
+        attn.flash_attention_split(q4, q4, q4, return_lse=True)  # fp32 with lse
     qb = q4.bfloat16()
     with pytest.raises(ValueError):
         attn.flash_attention_split(qb[..., :96], qb[..., :96], qb[..., :96])  # strided
@@ -358,8 +358,8 @@ def test_kernel_wrappers_reject_what_they_do_not_take(cuda):
         attn.flash_attention_split(odd, odd, odd)
 
 
-# The float32 kernels (csrc/qkv_proj_f32.cu, csrc/flash_f32.cu) against their
-# fp32 plain versions, TF32 off (the fixture): within this share of max
+# The float32 kernels (csrc/qkv_proj_f32.cu, csrc/flash_f32.cu) against
+# their fp32 plain versions, TF32 off (the fixture): within this share of max
 # |want|.  Against float64 fp32 reads ~1e-6 at these widths and N(0, 1)
 # inputs; TF32-rounded operands 3e-4 to 7e-4.
 F32_BOUND = 1e-5
@@ -375,6 +375,10 @@ def _launches(*wrappers):
     """Each wrapper's bf16 launches (by head dim too) and fp32 launches."""
     return [(w.launches, dict(getattr(w, "launches_by_d", {})), w.launches_f32)
             for w in wrappers]
+
+
+def _f32_by_d(*wrappers):
+    return [dict(w.launches_f32_by_d) for w in wrappers]
 
 
 def _one_more_f32(before, after):
@@ -449,39 +453,38 @@ def _f32_refusals(cuda):
     or no kernel at all, takes the tensors."""
     f32 = dict(device=cuda, dtype=torch.float32)
     half = dict(device=cuda, dtype=torch.float16)
-    x640, w80 = torch.zeros((1, 256, 640), **f32), torch.zeros((640, 640), **f32)
-    q80 = torch.zeros((1, 64, 2 * 80), **f32)
-    q128 = torch.zeros((1, 600, 2, 128), **f32)
     q64 = torch.zeros((1, 600, 2, 64), **f32)
+    q512 = torch.zeros((1, 600, 1, 512), **f32)
     h64 = torch.zeros((1, 64, 128), **half)
+    h512 = torch.zeros((1, 600, 1, 512), **half)
     return [
-        ("K2 at d = 80", lambda: attn.flash_attention(q80, q80, q80, 2), "float32"),
-        ("K1 at d = 80", lambda: attn.fused_qkv_attention(x640, w80, w80, w80, 8),
-         "float32"),
-        ("K4 at d = 128", lambda: attn.flash_attention_split(q128, q128, q128), "float32"),
         ("K4 with lse", lambda: attn.flash_attention_split(q64, q64, q64, return_lse=True),
          "float32"),
+        ("K4 with lse at d = 512",
+         lambda: attn.flash_attention_split(q512, q512, q512, return_lse=True), "float32"),
         ("K6", lambda: attn.flash_attention_packed(torch.zeros((1, 64, 384), **f32)),
          "float32"),
         ("K7", lambda: attn.flash_attention_transposed(torch.zeros((384, 1, 64), **f32), 2),
+         "float32"),
+        ("K7 at d = 80",
+         lambda: attn.flash_attention_transposed(torch.zeros((480, 1, 64), **f32), 2),
          "float32"),
         ("K2 in float16", lambda: attn.flash_attention(h64, h64, h64, 2), "float16"),
         ("K1's GEMM in float16",
          lambda: attn.qkv_projection(h64, *(torch.zeros((128, 128), **half),) * 3),
          "float16"),
-        # an fp32 pipeline's image_to_latents above 512x512: the VAE's mid
-        # attention over 65 x 65 tokens takes K4 at d = 512
-        ("the VAE's attention above 4096 tokens",
-         lambda: layers.VAEAttention(512).to(cuda).requires_grad_(False)(
-             torch.zeros((1, 512, 65, 65), **f32)), "float32"),
+        ("K1 in float16",
+         lambda: attn.fused_qkv_attention(h64, *(torch.zeros((128, 128), **half),) * 3, 2),
+         "float16"),
+        ("K4 in float16 at d = 512", lambda: attn.flash_attention_split(h512, h512, h512),
+         "float16"),
     ]
 
 
 @pytest.mark.parametrize("case", range(9))
 def test_f32_wrappers_raise_where_no_kernel_takes_it(cuda, case):
-    """fp32 at d != 64, K4 with lse, K6 and K7 in fp32, the VAE's attention
-    in fp32 above 4096 tokens, and float16: a TypeError naming the dtype,
-    and no launch (no plain version either)."""
+    """K4 with lse, K6 and K7 in fp32, and float16: a TypeError naming the
+    dtype, and no launch (no plain version either)."""
     label, call, dtype = _f32_refusals(cuda)[case]
     wrappers = (attn.flash_attention, attn.fused_qkv_attention, attn.flash_attention_split,
                 attn.flash_attention_packed, attn.flash_attention_transposed)
@@ -491,17 +494,123 @@ def test_f32_wrappers_raise_where_no_kernel_takes_it(cuda, case):
     assert [(w.launches, getattr(w, "launches_f32", 0)) for w in wrappers] == before, label
 
 
+def _f32_served(cuda):
+    """(label, wrapper, call, plain version, head dim): fp32 calls that
+    raised before the kernels took every natural-layout head dim."""
+    g = torch.Generator(device=cuda).manual_seed(1919)
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=cuda) * scale
+
+    q80 = [rand(1, 64, 2 * 80) for _ in range(3)]
+    x640, w80 = rand(1, 256, 640), [rand(640, 640, scale=640**-0.5) for _ in range(3)]
+    q128 = [rand(1, 600, 2, 128) for _ in range(3)]
+    vae = layers.VAEAttention(512).to(cuda).requires_grad_(False)
+    x65 = rand(1, 512, 65, 65)
+    with torch.no_grad():
+        for p_ in vae.parameters():
+            p_.copy_(torch.randn(p_.shape, generator=g, device=cuda) * 0.02)
+    return [
+        ("K2 at d = 80", attn.flash_attention, lambda: attn.flash_attention(*q80, 2),
+         lambda: attn.flash_attention_reference(*q80, 2), 80),
+        ("K1 at d = 80", attn.fused_qkv_attention,
+         lambda: attn.fused_qkv_attention(x640, *w80, 8),
+         lambda: attn.fused_qkv_attention_reference(x640, *w80, 8), 80),
+        ("K4 at d = 128", attn.flash_attention_split,
+         lambda: attn.flash_attention_split(*q128),
+         lambda: attn.flash_attention_split_reference(*q128), 128),
+        # an fp32 pipeline's image_to_latents above 512x512: the VAE's mid
+        # attention over 65 x 65 tokens takes K4 at d = 512
+        ("the VAE's attention above 4096 tokens", attn.flash_attention_split,
+         lambda: vae(x65), lambda: _plain_split(lambda: vae(x65)), 512),
+    ]
+
+
+def _plain_split(call):
+    """``call`` with the split wrapper's plain version in place of the kernel."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(layers, "flash_attention_split", attn.flash_attention_split_reference)
+        return call()
+
+
+@pytest.mark.parametrize("case", range(4))
+def test_f32_wrappers_serve_what_they_refused_before(cuda, case):
+    """fp32 at d = 80 (K2, K1) and 128 (K4), and the VAE's attention in fp32
+    above 4096 tokens (K4 at d = 512): one fp32 launch, counted at its head
+    dim, no bf16 launch, within F32_BOUND of the plain version."""
+    label, wrapper, call, plain, d = _f32_served(cuda)[case]
+    before, by_d = _launches(wrapper), _f32_by_d(wrapper)[0]
+    with torch.inference_mode():
+        got = call()
+    assert _one_more_f32(before, _launches(wrapper)), label
+    assert _f32_by_d(wrapper)[0] == {**by_d, d: by_d.get(d, 0) + 1}, label
+    with torch.inference_mode():
+        assert_f32_close(got, plain())
+
+
+# Head dims of the float32 core, flash_f32.cu, by its 64-column panels: one
+# (8, 40, 56, 64), two (72 and 80: the last of 8 and 16 columns; 128), three
+# (160, 192), four (256), eight (512)
+F32_HEAD_DIMS = (8, 40, 56, 64, 72, 80, 128, 160, 192, 256, 512)
+# (Sq, Sk), Sq != Sk: one row and one key, a ragged 64-row tile, several
+F32_LENGTHS = ((1, 577), (65, 1001), (577, 65), (1001, 1))
+
+
+def _f32_call(q, k, v) -> torch.Tensor:
+    """The fp32 core through its C entry, at any Sq and Sk (the split
+    wrapper takes its einsum branch below 512 keys)."""
+    from gswm_torch import native
+
+    b, sq, h, d = q.shape
+    out = torch.empty_like(q)
+    native.library().call("gswm_flash_f32", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          out.data_ptr(), b, sq, k.shape[1], h, d,
+                          native.stream_handle(q.device))
+    return out
+
+
+@pytest.mark.parametrize("sq,sk", F32_LENGTHS)
+@pytest.mark.parametrize("d", F32_HEAD_DIMS)
+def test_f32_flash_kernels_any_head_dim(cuda, d, sq, sk):
+    """The fp32 core at every panel count, Sq != Sk, two batches and
+    three heads, each head against the plain version on its own scale; v =
+    1 shows that no key past Sk (the zeros of a ragged tile) and no key of
+    the other batch is weighed: every output is 1 within float32 rounding."""
+    b, h = 2, 3
+    g = torch.Generator(device=cuda).manual_seed(d * 7 + sq + sk)
+    q = torch.randn((b, sq, h, d), generator=g, device=cuda)
+    k, v = (torch.randn((b, sk, h, d), generator=g, device=cuda) for _ in range(2))
+    got = _f32_call(q, k, v)
+    want = attn.flash_attention_split_reference(q, k, v)
+    for i in range(h):
+        assert_f32_close(got[:, :, i], want[:, :, i])
+    ones = _f32_call(q, k, torch.ones_like(v))
+    assert (ones - 1).abs().max().item() <= 1e-5
+
+
+def test_f32_launches_count_by_head_dim(cuda):
+    """``launches_f32_by_d`` of the natural, split and fused-qkv wrappers:
+    one at each call's head dim, and the bf16 counters still."""
+    f32 = dict(device=cuda, dtype=torch.float32)
+    wrappers = (attn.flash_attention, attn.flash_attention_split, attn.fused_qkv_attention)
+    before, by_d = _launches(*wrappers), _f32_by_d(*wrappers)
+    attn.flash_attention(*(torch.ones((1, 100, 8 * 40), **f32),) * 3, 8)
+    attn.flash_attention(*(torch.ones((1, 100, 2 * 80), **f32),) * 3, 2)
+    attn.flash_attention_split(*(torch.ones((1, 600, 1, 512), **f32),) * 3)
+    attn.fused_qkv_attention(torch.ones((1, 256, 1280), **f32),
+                             *(torch.ones((1280, 1280), **f32) * 1e-3,) * 3, 8)
+    after, by_d_after = _launches(*wrappers), _f32_by_d(*wrappers)
+    assert [a[:2] for a in after] == [b_[:2] for b_ in before]
+    assert [a[2] - b_[2] for a, b_ in zip(after, before)] == [2, 1, 1]
+    want = [{40: 1, 80: 1}, {512: 1}, {160: 1}]
+    assert [{d: n - old.get(d, 0) for d, n in new.items() if n != old.get(d, 0)}
+            for new, old in zip(by_d_after, by_d)] == want
+
+
 def test_f32_unet_forward_on_card(cuda):
     """sd-2-1-base's UNet at 512x512 in float32, batch 1, random weights: the
     fp32 K1 10 and the fp32 K2 5 times, no bf16 attention kernel, a finite
-    output; sd-2-1 (the VAE's attention at d = 512) and sd-1-4 (heads of 40,
-    80, 160) are refused in float32 at construction."""
-    from gswm_torch.pipelines import InversablePipeline
-
-    with pytest.raises(NotImplementedError, match="VAE's mid attention at d = 512"):
-        InversablePipeline("sd-2-1", device=cuda, dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="heads of 40, 80 and 160"):
-        InversablePipeline("sd-1-4", device=cuda, dtype=torch.float32)
+    output."""
     pipe = paths.build_pipeline("sd-2-1-base", dtype=torch.float32)
     inputs = paths.unet_inputs(pipe, 1, res=paths.RES_512)
     wrappers = (attn.fused_qkv_attention, attn.flash_attention, attn.flash_attention_split,
@@ -512,6 +621,31 @@ def test_f32_unet_forward_on_card(cuda):
     made = [(w.launches - n, getattr(w, "launches_f32", 0) - f)
             for w, (n, f) in zip(wrappers, before)]
     assert made == [(0, 10), (0, 5), (0, 0), (0, 0), (0, 0)]
+    assert out.dtype == torch.float32 and out.shape == (1, 4, 64, 64)
+    assert torch.isfinite(out).all()
+
+
+def test_f32_sd14_unet_forward_on_card(cuda):
+    """sd-1-4's UNet at 512x512 in float32, batch 1, random weights: per
+    forward the fp32 K2 5 times at d = 40 and the fp32 K1 5 times at 80 and
+    5 at 160, no bf16 attention kernel, a finite output; float16 is refused
+    at construction."""
+    from gswm_torch.pipelines import InversablePipeline
+
+    with pytest.raises(NotImplementedError, match="torch.float16"):
+        InversablePipeline("sd-1-4", device=cuda, dtype=torch.float16)
+    pipe = paths.build_pipeline("sd-1-4", dtype=torch.float32)
+    inputs = paths.unet_inputs(pipe, 1, res=paths.RES_512)
+    wrappers = (attn.fused_qkv_attention, attn.flash_attention, attn.flash_attention_split,
+                attn.flash_attention_packed, attn.flash_attention_transposed)
+    before = [w.launches for w in wrappers]
+    by_d = _f32_by_d(*wrappers[:3])
+    with torch.inference_mode():
+        out = pipe.unet(*inputs)
+    assert [w.launches for w in wrappers] == before
+    assert [{d: n - old.get(d, 0) for d, n in new.items() if n != old.get(d, 0)}
+            for new, old in zip(_f32_by_d(*wrappers[:3]), by_d)] == \
+        [{80: 5, 160: 5}, {40: 5}, {}]
     assert out.dtype == torch.float32 and out.shape == (1, 4, 64, 64)
     assert torch.isfinite(out).all()
 
@@ -618,11 +752,11 @@ def test_kernels_are_exact_softmax_above_60_at_head_dim_40(cuda, layout):
 def test_sd14_unet_forward_on_card(cuda):
     """sd-1-4's UNet at 512x512, batch 1, random weights: K1 5 launches at
     D = 80 and 5 at 160, K2 5 at 40, no other attention kernel, a finite
-    output; fp32 is refused at construction."""
+    output; float16 is refused at construction."""
     from gswm_torch.pipelines import InversablePipeline
 
-    with pytest.raises(NotImplementedError, match="heads of 40, 80 and 160"):
-        InversablePipeline("sd-1-4", device=cuda, dtype=torch.float32)
+    with pytest.raises(NotImplementedError, match="torch.float16"):
+        InversablePipeline("sd-1-4", device=cuda, dtype=torch.float16)
     pipe = paths.build_pipeline("sd-1-4")
     inputs = paths.unet_inputs(pipe, 1, res=paths.RES_512)
     counters = ("fused_qkv_attention", "flash_attention", "flash_attention_split",
@@ -1396,12 +1530,12 @@ def test_tiny_xl_pipeline_closed_loop_on_card(cuda):
 
 def test_sdxl_unet_forward_on_card(cuda):
     """sdxl-base's UNet at 1024x1024, batch 1, random weights: 60 K1 and 10
-    K2 launches a forward, no other attention kernel, a finite output; fp32
-    is refused at construction."""
+    K2 launches a forward, no other attention kernel, a finite output;
+    float16 is refused at construction."""
     from gswm_torch.pipelines import InversablePipeline
 
-    with pytest.raises(NotImplementedError, match="VAE's mid attention at d = 512"):
-        InversablePipeline("sdxl-base", device=cuda, dtype=torch.float32)
+    with pytest.raises(NotImplementedError, match="torch.float16"):
+        InversablePipeline("sdxl-base", device=cuda, dtype=torch.float16)
     pipe = paths.build_pipeline("sdxl-base")
     inputs = paths.unet_inputs(pipe, 1, res=paths.RES_1024)
     counters = ("fused_qkv_attention", "flash_attention", "flash_attention_split",

@@ -108,10 +108,9 @@ def test_extract_bits_is_invert_plus_decode(pipes):
 def test_unported_options_raise():
     """SDXL is ported: sdxl-base builds on the meta device (nothing
     allocated) with both text encoders at full size; SD 1.x passes the CUDA
-    check in bfloat16 and builds on the meta device; what is still refused
-    (float32 off heads of 64 or with the VAE's attention kernel, float16,
-    head dims off the kernels' domain) is refused on a CUDA device
-    (tests/test_torch_device_default.py)."""
+    check in bfloat16 and float32 and builds on the meta device; what is
+    still refused (float16, head dims off the kernels' domain) is refused on
+    a CUDA device (tests/test_torch_device_default.py)."""
     pipe = InversablePipeline("sdxl-base", device="meta")
     assert pipe.text2 is not None and pipe.text2_projection is None
     assert sum(p.numel() for p in pipe.unet.parameters()) == 2_567_463_684
@@ -119,8 +118,10 @@ def test_unported_options_raise():
     assert pipe.text2.text_model.final_layer_norm.weight.device.type == "meta"
     sd14 = InversablePipeline("sd-1-4", device="meta")
     assert sd14.unet.conv_in.weight.dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="heads of 40, 80 and 160"):
-        InversablePipeline("sd-1-4", device="cuda", dtype=torch.float32)
+    assert InversablePipeline("sd-1-4", device="meta", dtype=torch.float32) \
+        .unet.conv_in.weight.dtype == torch.float32
+    with pytest.raises(NotImplementedError, match="torch.float16"):
+        InversablePipeline("sd-1-4", device="cuda", dtype=torch.float16)
 
 
 def _embedded(seed=5):
