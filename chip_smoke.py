@@ -376,10 +376,47 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
            batch 2) -> decode -> image_to_latents: fp32 K1 60 and K2 10 a
            forward, fp32 K4 at 16,384 tokens once a decode and once an
            encode.
+     (a) also holds the float32 forms off the default route to their plain
+     versions in float64, within 1e-5 of max |want| (the fp32 plain
+     version's own error printed, the TF32 one held to miss the bound; for
+     K8, where no product runs in TF32, the plain version on bf16-rounded
+     x), with the 3xTF32 bound and the library call: K6 at
+     paths.F32_PACKED_SHAPES (sdpa on strided fp32 views), K7 at
+     paths.F32_TRANSPOSED_SHAPES and, with 4-byte copies,
+     F32_TRANSPOSED_WORD_SHAPES (sdpa's math backend), K4 + lse at
+     paths.F32_LSE_SHAPES (the lse within 1e-5 of max(1, max |lse|) of
+     float64 logsumexp; aten's memory-efficient attention with its
+     logsumexp), K8 at phase 2's GroupNorm cases (F.group_norm + F.silu in
+     fp32) and paths.K8_PROBE_CASES beside a copy of x; raising unless
+     K6 equals the natural form (csrc/flash_f32.cu's gswm_flash_f32) on
+     its heads made contiguous, K7 equals it on the same q, k and v, K7's
+     4-byte copies equal its 16-byte ones where S % 4 == 0, and K4 + lse's
+     output the call without lse, bit for bit.  After (g):
+       (h) sd-2-1 768x768 batch 2 in fp32 ((e)'s pipeline, TF32 off) under
+           every set of paths.TIER_SWITCHES: one UNet forward within 1e-4
+           of max |out| of the fp32 default route's, its time beside, the
+           fp32 launches by wrapper and head dim (and K7's by kernel) as
+           paths.predicted_launches derives them, no bf16 attention kernel;
+           under (b) (K6) and (c) (K7) the closed loop at phase 5's depth
+           (10 + 10, >= 0.99);
+       (k) K8 in fp32 on every GroupNorm input of (e)'s pipeline
+           (paths.drive_groupnorm_sites), within 1e-5 of max |want| of each
+           module's fp32 output; one fp32 launch a site;
+       (i) sd-1-4 512x512 batch 4 in fp32 ((f)'s pipeline): one forward
+           under (c) (K7 at d = 40) and under paths.SD14_SWITCHES' (t) (K7
+           at 40, 80, 160), one at 576x576 under (t) (level 2's 324
+           tokens), each within 1e-4 of the fp32 default route's, the
+           closed loop under (t) (10 + 10, >= 0.99);
+       (j) the ring in fp32 on one card: every virtual rank's steps at
+           paths.LSE_SHAPES and sp = 2, 4 within 1e-5 of max |one fp32
+           call| (shards below 512 keys through the einsum branch, TF32
+           off), the fp32 lse launches exact by head dim.
      Each sub-phase prints its seconds.  The kernels line lists the fp32
      kernels ("qkv_proj_f32"; "flash_f32" and "flash_f32_wide", one kernel
-     of csrc/flash_f32.cu at one panel and at more) with bound_ms
-     at 3xTF32 (PEAK_TF32 / 3, gswm_torch/roofline.py).
+     of csrc/flash_f32.cu at one panel and at more; its forms
+     "flash_f32_packed", "flash_f32_transposed", "flash_f32_lse"; and
+     "group_norm_f32", csrc/group_norm.cu on float32) with bound_ms at
+     3xTF32 (PEAK_TF32 / 3, gswm_torch/roofline.py), K8's by bytes.
  14. summary  — a JSON line of the kernels, then the JSON result line.
 Each path's launch counts are set to 0 just before it and read just after.
 """
@@ -1162,11 +1199,13 @@ def _wrappers() -> dict:
             "fused_group_norm": gn.fused_group_norm}
 
 
-# the wrappers that launch the float32 kernels, and those of them that run
-# a flash core
+# the wrappers that launch the float32 kernels, those of them that run the
+# flash core in the natural layout, and those that run its pair-packed and
+# transposed forms
 F32_WRAPPERS = ("fused_qkv_attention", "qkv_projection", "flash_attention",
-                "flash_attention_split")
+                "flash_attention_split", "flash_attention_packed", "flash_attention_transposed")
 F32_CORE_WRAPPERS = ("fused_qkv_attention", "flash_attention", "flash_attention_split")
+F32_FORM_WRAPPERS = ("flash_attention_packed", "flash_attention_transposed")
 
 
 def _counters() -> dict:
@@ -1210,16 +1249,26 @@ def _counters() -> dict:
     panel = attn.F32_PANEL
     counts["flash_f32"] = sum(within(by_d, 0, panel) for by_d in cores)
     counts["flash_f32_wide"] = sum(within(by_d, panel, top) for by_d in cores)
+    # the float32 forms of csrc/flash_f32.cu and csrc/group_norm.cu (phase 13)
+    counts["flash_f32_packed"] = attn.flash_attention_packed.launches_f32
+    counts["flash_f32_transposed"] = attn.flash_attention_transposed.launches_f32
+    counts["flash_f32_lse"] = split.lse_launches_f32
+    counts["group_norm_f32"] = _wrappers()["fused_group_norm"].launches_f32
     return counts
 
 
 def _f32_by_d() -> dict:
-    """The float32 launches of the flash cores' wrappers by head dim, the
-    wrappers that launched none left out."""
+    """The float32 launches of the flash cores' wrappers by head dim (with
+    the log-sum-exp as "flash_attention_split_lse"), the wrappers that
+    launched none left out."""
     from gswm_torch.ops import attention as attn
 
-    return {name: dict(getattr(attn, name).launches_f32_by_d) for name in F32_CORE_WRAPPERS
-            if getattr(attn, name).launches_f32_by_d}
+    got = {name: dict(getattr(attn, name).launches_f32_by_d)
+           for name in (*F32_CORE_WRAPPERS, *F32_FORM_WRAPPERS)
+           if getattr(attn, name).launches_f32_by_d}
+    if attn.flash_attention_split.lse_launches_f32_by_d:
+        got["flash_attention_split_lse"] = dict(attn.flash_attention_split.lse_launches_f32_by_d)
+    return got
 
 
 def _counters_by_d() -> dict:
@@ -1241,8 +1290,11 @@ def _reset_counters() -> None:
 
     for name in F32_WRAPPERS:
         getattr(attn, name).launches_f32 = 0
-    for name in F32_CORE_WRAPPERS:
+    for name in (*F32_CORE_WRAPPERS, *F32_FORM_WRAPPERS):
         getattr(attn, name).launches_f32_by_d = {}
+    split.lse_launches_f32 = 0
+    split.lse_launches_f32_by_d = {}
+    _wrappers()["fused_group_norm"].launches_f32 = 0
 
 
 def _clear_keystream_caches() -> None:
@@ -2973,14 +3025,17 @@ def _one_tensor(out) -> torch.Tensor:
 
 
 def _check_f32_kernel(records: dict, name: str, label: str, kernel, plain, library,
-                      lib_ms, backend: str, bound: tuple, iters: int, exact=None) -> None:
+                      lib_ms, backend: str, bound: tuple, iters: int, exact=None,
+                      narrow=None) -> None:
     """A float32 kernel against its plain version on the card, TF32 off:
     within F32_REL_BOUND of max |want|; the plain version with TF32 allowed
     must miss that bound (so the bound tells fp32 from TF32).  Beside it the
     library call's time ``lib_ms`` and, from ``library`` (None where it was
     refused), its own error.  ``exact``: want is that float64 computation
     instead (where two fp32 sums in other orders differ by their own
-    rounding), and the fp32 plain version's error against it is printed."""
+    rounding), and the fp32 plain version's error against it is printed.
+    ``narrow``: where no product of the function runs in TF32 (GroupNorm),
+    the computation that must miss the bound in its place."""
     got, want = _one_tensor(kernel()), _one_tensor(plain() if exact is None else exact())
     top = want.abs().max().item()
     err = (got - want).abs().max().item()
@@ -2989,24 +3044,29 @@ def _check_f32_kernel(records: dict, name: str, label: str, kernel, plain, libra
         print(f"{label}: want in float64; the fp32 plain version's own err/max|want| "
               f"{plain_err / top:.3e}", flush=True)
     del got
-    _allow_tf32(True)
-    try:
-        tf32_err = (_one_tensor(plain()) - want).abs().max().item()
-    finally:
-        _allow_tf32(False)
+    if narrow is not None:
+        tf32_err = (_one_tensor(narrow()) - want).abs().max().item()
+    else:
+        _allow_tf32(True)
+        try:
+            tf32_err = (_one_tensor(plain()) - want).abs().max().item()
+        finally:
+            _allow_tf32(False)
     lib_err = None if library is None else (library() - want).abs().max().item()
     ms = _time_ms(kernel, iters)
     plain_ms = _time_ms(plain, 3)
+    what = "the plain version on bf16-rounded x" if narrow is not None else \
+        "the plain version with TF32 allowed"
     print(f"{label}: err/max|want| {err / top:.3e} (bound {F32_REL_BOUND:.0e}), max|want| "
-          f"{top:.4f}; the plain version with TF32 allowed {tf32_err / top:.3e} (must "
+          f"{top:.4f}; {what} {tf32_err / top:.3e} (must "
           f"exceed the bound); {ms:.4f} ms (plain {plain_ms:.4f}, bound {bound[0]:.4f} by "
           f"{bound[1]}, library {_fmt(lib_ms)}, {backend}, its err/max|want| "
           f"{'none' if lib_err is None else f'{lib_err / top:.3e}'})", flush=True)
     if not err <= F32_REL_BOUND * top:
         raise AssertionError(f"{label}: error {err} above {F32_REL_BOUND} x {top}")
     if not tf32_err > F32_REL_BOUND * top:
-        raise AssertionError(f"{label}: the plain version in TF32 is within the float32 "
-                             f"bound ({tf32_err} against {top}): the bound proves nothing")
+        raise AssertionError(f"{label}: {what} is within the float32 bound ({tf32_err} "
+                             f"against {top}): the bound proves nothing")
     _record(records, name, err, ms, plain_ms, bound, lib_ms)
 
 
@@ -3031,8 +3091,10 @@ def _attention_f64(q, k, v) -> torch.Tensor:
     return torch.stack(out)
 
 
-def phase_float32(card: str, records: dict, rate_3b: float, rms_3a: float) -> dict:
-    """13. float32 on the card, sd-2-1-base at 512x512, batch 4."""
+def phase_float32(card: str, records: dict, rate_3b: float, rms_3a: float,
+                  gn_cases) -> dict:
+    """13. float32 on the card, sd-2-1-base at 512x512, batch 4; (a) with
+    the float32 forms off the default route (``_check_f32_forms``)."""
     import copy
 
     from gswm_torch import recover_message_bits, roofline
@@ -3104,6 +3166,7 @@ def phase_float32(card: str, records: dict, rate_3b: float, rms_3a: float) -> di
         del q, k, v, views
         torch.cuda.empty_cache()
     torch.cuda.empty_cache()
+    _check_f32_forms(records, gn_cases)
     print(f"(a) {time.perf_counter() - t0:.2f} s", flush=True)
 
     t_build = time.perf_counter()
@@ -3235,12 +3298,13 @@ def _build_f32(preset: str):
 
 
 def phase_float32_presets(card: str, rates_4c: tuple) -> dict:
-    """13e-g. float32 on the card for the other presets' default routes."""
+    """13e-k. float32 on the card for the other presets' default routes,
+    the switch sets' tiers (h, i), the GroupNorm op (k) and the ring (j)."""
     import copy
 
     dev = "cuda"
     t_phase = time.perf_counter()
-    print("13. (e)-(g): float32 on the card, sd-2-1, sd-1-4 and sdxl-base", flush=True)
+    print("13. (e)-(k): float32 on the card, sd-2-1, sd-1-4 and sdxl-base", flush=True)
     totals = []
 
     # (e) sd-2-1 at 768x768, batch 2
@@ -3279,7 +3343,10 @@ def phase_float32_presets(card: str, rates_4c: tuple) -> dict:
     totals.append(_check_f32_path("(e) sd-2-1 768x768", {
         "fused_qkv_attention": {64: 10 * forwards}, "flash_attention": {64: 5 * forwards},
         "flash_attention_split": {512: len(passes) * (dec + enc)}}, t0))
-    del pipe, images, bits, z_t
+    del images, bits, z_t
+    totals += _f32_tiers_768(card, pipe, cfg)
+    totals.append(_f32_groupnorm_sites(pipe))
+    del pipe
     torch.cuda.empty_cache()
 
     # (f) sd-1-4 at 512x512, batch 4
@@ -3309,7 +3376,9 @@ def phase_float32_presets(card: str, rates_4c: tuple) -> dict:
     totals.append(_check_f32_path("(f) sd-1-4 512x512", {
         "fused_qkv_attention": {80: 5 * forwards, 160: 5 * forwards},
         "flash_attention": {40: 5 * forwards}}, t0))
-    del pipe, out, want
+    del out, want
+    totals += _f32_sd14_tiers(card, pipe, cfg)
+    del pipe
     torch.cuda.empty_cache()
 
     # (g) sdxl-base at 1024x1024, batch 1
@@ -3336,20 +3405,403 @@ def phase_float32_presets(card: str, rates_4c: tuple) -> dict:
         "flash_attention_split": {512: dec + enc}}, t0))
     del pipe, images, latents
     torch.cuda.empty_cache()
-    print(f"13. (e)-(g): {time.perf_counter() - t_phase:.2f} s", flush=True)
+    totals.append(_f32_ring(card))
+    print(f"13. (e)-(k): {time.perf_counter() - t_phase:.2f} s", flush=True)
     return {name: sum(c[name] for c in totals) for name in totals[0]}
+
+
+def _group_norm_f64(x, w, b, eps: float, act) -> torch.Tensor:
+    """GroupNorm of 32 groups (+ SiLU) over (B, C, ...) x in float64, the
+    JAX op's formulas (var = E[x^2] - E[x]^2): what the float32 kernel and
+    its fp32 plain version are held to."""
+    bsz, c = x.shape[:2]
+    xd = x.double().reshape(bsz, 32, -1)
+    mean = xd.mean(dim=-1, keepdim=True)
+    var = (xd.square().mean(dim=-1, keepdim=True) - mean.square()).clamp(min=0.0)
+    y = ((xd - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
+    bcast = (1, c) + (1,) * (x.dim() - 2)
+    y = y * w.double().reshape(bcast) + b.double().reshape(bcast)
+    return y * torch.sigmoid(y) if act == "silu" else y
+
+
+def _f32_forms_library(q, k, v):
+    """The library's attention on fp32 (B, H, S, D) views with its
+    logsumexp: aten's memory-efficient attention (its flash kernels take no
+    fp32)."""
+    return torch.ops.aten._scaled_dot_product_efficient_attention(q, k, v, None, True)
+
+
+def _check_f32_forms(records: dict, gn_cases) -> None:
+    """13a, the float32 forms off the default route, each against its plain
+    version in float64 within F32_REL_BOUND (the fp32 plain version's own
+    error printed, the TF32 one held to miss it), with the 3xTF32 bound and
+    the library call's time: K6 at paths.F32_PACKED_SHAPES, K7 at
+    paths.F32_TRANSPOSED_SHAPES (16-byte copies) and
+    F32_TRANSPOSED_WORD_SHAPES (4-byte), K4 + lse at paths.F32_LSE_SHAPES
+    (the lse within F32_REL_BOUND of max(1, max |lse|) of float64
+    logsumexp), K8 at phase 2's GroupNorm cases.  Raises unless K6 and K7
+    equal the natural form on the same heads, K7's 4-byte copies its
+    16-byte ones where S % 4 == 0, and K4 + lse's output the call without
+    lse, bit for bit."""
+    from gswm_torch import native, roofline
+    from gswm_torch.ops import attention as attn
+    from gswm_torch.ops import groupnorm as gn
+
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(2020)
+    lib = native.library()
+
+    def natural(q, k, v):  # the natural form on (B, S, H, D) q, k and v
+        out = torch.empty_like(q)
+        b, s, h, d = q.shape
+        lib.call("gswm_flash_f32", q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 b, s, k.shape[1], h, d, native.stream_handle(q.device))
+        return out
+
+    def same(label: str, a, b_) -> None:
+        if not torch.equal(a, b_):
+            raise AssertionError(f"{label}: differs by {(a - b_).abs().max().item()}")
+        print(f"   {label}: equal bit for bit", flush=True)
+
+    def attention_bound(b, s, h, d, lse=False):
+        return roofline.attention_bound_ms(
+            roofline.attention_cost(b, s, s, h, d, lse=lse, elem=roofline.F32),
+            roofline.PEAK_F32_PRODUCTS)
+
+    t0 = time.perf_counter()
+    for b, s, h in paths.F32_PACKED_SHAPES:
+        pairs = paths.pairs_of(h)
+        qkv = torch.randn((b, s, 3 * pairs * 128), generator=g, device=dev)
+        for i in range(3):  # the pad head of an odd count: zero weights, zero q, k, v
+            qkv[..., i * pairs * 128 + h * 64:(i + 1) * pairs * 128] = 0
+        q, k, v = (t.reshape(b, s, 2 * pairs, 64).contiguous()
+                   for t in qkv.split(pairs * 128, dim=-1))
+        label = f"(a) fp32 K6 packed, {attn.dtype_kernel(torch.float32, 64, attn.PACKED)} " \
+                f"(B={b}, S={s}, H={h}, P={pairs})"
+
+        def views(qkv=qkv, pairs=pairs):
+            return [t.unflatten(-1, (2 * pairs, 64)).transpose(1, 2)
+                    for t in qkv.split(pairs * 128, dim=-1)]
+        lib_ms, backend = _attention_library_ms(lambda sdpa, views=views: sdpa(*views()), 5)
+        _check_f32_kernel(
+            records, "flash_f32_packed", label,
+            lambda qkv=qkv: attn.flash_attention_packed(qkv),
+            lambda qkv=qkv: attn.flash_attention_packed_reference(qkv), None, lib_ms,
+            f"sdpa on strided fp32 views, backend {backend}", attention_bound(b, s, h, 64), 5,
+            exact=lambda q=q, k=k, v=v, b=b, s=s: _attention_f64(q, k, v).reshape(b, s, -1))
+        same(f"{label} against the natural form on its heads",
+             attn.flash_attention_packed(qkv), natural(q, k, v).reshape(b, s, -1))
+        del qkv, q, k, v
+        torch.cuda.empty_cache()
+    for b, s, h, d in (*paths.F32_TRANSPOSED_SHAPES, *paths.F32_TRANSPOSED_WORD_SHAPES):
+        qkv_t = torch.randn((3 * h * d, b, s), generator=g, device=dev)
+        q, k, v = (t.permute(2, 3, 0, 1).contiguous() for t in qkv_t.view(3, h, d, b, s))
+        label = f"(a) fp32 K7 transposed, {attn.transposed_kernel(d, s, torch.float32)} " \
+                f"(B={b}, S={s}, H={h}, D={d})"
+
+        def back(out, b=b, s=s, h=h, d=d):  # (B, S, H, D) -> (H * D, B, S)
+            return out.permute(2, 3, 0, 1).reshape(h * d, b, s)
+        lib_ms, backend = _attention_library_ms(
+            lambda sdpa, qkv_t=qkv_t, b=b, s=s, h=h, d=d: sdpa(
+                *qkv_t.view(3, h, d, b, s).permute(0, 3, 1, 4, 2)), 3)
+        _check_f32_kernel(
+            records, "flash_f32_transposed", label,
+            lambda qkv_t=qkv_t, h=h: attn.flash_attention_transposed(qkv_t, h),
+            lambda qkv_t=qkv_t, h=h: attn.flash_attention_transposed_reference(qkv_t, h),
+            None, lib_ms, f"sdpa, backend {backend}", attention_bound(b, s, h, d), 3,
+            exact=lambda q=q, k=k, v=v, back=back: back(_attention_f64(q, k, v)))
+        got = attn.flash_attention_transposed(qkv_t, h)
+        same(f"{label} against the natural form on the same q, k, v", got,
+             back(natural(q, k, v)))
+        if s % 4 == 0:
+            words = torch.empty_like(got)
+            lib.call("gswm_flash_f32_transposed_4byte", qkv_t.data_ptr(), words.data_ptr(),
+                     b, s, h, d, native.stream_handle(qkv_t.device))
+            same(f"{label} with 4-byte copies against its 16-byte ones", words, got)
+            del words
+        del qkv_t, q, k, v, got
+        torch.cuda.empty_cache()
+    for b, s, h, d in paths.F32_LSE_SHAPES:
+        q, k, v = (torch.randn((b, s, h, d), generator=g, device=dev) for _ in range(3))
+        label = f"(a) fp32 K4 + lse, {attn.dtype_kernel(torch.float32, d)} (B={b}, S={s}, " \
+                f"H={h}, D={d})"
+        out, lse = attn.flash_attention_split(q, k, v, return_lse=True)
+        want_lse = torch.cat([torch.logsumexp(
+            torch.einsum("qhd,khd->hqk", qb.double(), kb.double()) * d**-0.5, -1)[None]
+            for qb, kb in zip(q, k)])
+        lse_top = max(1.0, want_lse.abs().max().item())
+        lse_err = (lse.double() - want_lse).abs().max().item()
+        plain_lse = attn.flash_attention_split_lse_reference(q, k, v)[1]
+        print(f"{label}: lse err {lse_err:.3e} (bound {F32_REL_BOUND:.0e} x {lse_top:.4f}); "
+              f"the fp32 plain version's {(plain_lse.double() - want_lse).abs().max().item():.3e}",
+              flush=True)
+        if not lse_err <= F32_REL_BOUND * lse_top:
+            raise AssertionError(f"{label}: lse error {lse_err} above {F32_REL_BOUND} x "
+                                 f"{lse_top}")
+        same(f"{label}: its output against the call without lse", out,
+             attn.flash_attention_split(q, k, v))
+        views = [t.transpose(1, 2) for t in (q, k, v)]
+        lib_ms = _library_ms(lambda views=views: _f32_forms_library(*views), 3,
+                             "aten memory-efficient attention with lse")
+        _check_f32_kernel(
+            records, "flash_f32_lse", label,
+            lambda q=q, k=k, v=v: attn.flash_attention_split(q, k, v, return_lse=True)[0],
+            lambda q=q, k=k, v=v: attn.flash_attention_split_lse_reference(q, k, v)[0],
+            None if lib_ms is None else
+            (lambda views=views: _f32_forms_library(*views)[0].transpose(1, 2)), lib_ms,
+            "aten memory-efficient attention with its logsumexp",
+            attention_bound(b, s, h, d, lse=True), 3,
+            exact=lambda q=q, k=k, v=v: _attention_f64(q, k, v))
+        records["flash_f32_lse"]["max_lse_err"] = max(
+            records["flash_f32_lse"].get("max_lse_err", 0.0), lse_err)
+        del q, k, v, out, lse, want_lse, plain_lse, views
+        torch.cuda.empty_cache()
+    print(f"(a) the float32 attention forms: {time.perf_counter() - t0:.2f} s", flush=True)
+
+    # K8 in float32 at every GroupNorm shape of the 768x768 path; where no
+    # product runs in TF32, bf16-rounded x (the bf16 kernel's input) must
+    # miss the bound instead
+    t0 = time.perf_counter()
+    for shape, eps, act in gn_cases:
+        x = torch.randn(shape, generator=g, device=dev) * 2 + 0.5
+        w = 1 + 0.05 * torch.randn(shape[1], generator=g, device=dev)
+        bias = 0.05 * torch.randn(shape[1], generator=g, device=dev)
+
+        def gn_library(x=x, w=w, bias=bias, eps=eps, act=act):
+            y = F.group_norm(x, 32, w, bias, eps)
+            return F.silu(y) if act == "silu" else y
+        _check_f32_kernel(
+            records, "group_norm_f32", f"(a) fp32 K8 group_norm {shape} eps {eps} act {act}",
+            lambda x=x, w=w, bias=bias, eps=eps, act=act: gn.fused_group_norm(
+                x, w, bias, 32, eps, act),
+            lambda x=x, w=w, bias=bias, eps=eps, act=act: gn.fused_group_norm_reference(
+                x, w, bias, 32, eps, act),
+            gn_library, _library_ms(gn_library, 10), "F.group_norm (+ F.silu) in fp32",
+            roofline.bound_ms(*roofline.group_norm_cost(shape, roofline.F32),
+                              roofline.PEAK_FP32), 10,
+            exact=lambda x=x, w=w, bias=bias, eps=eps, act=act: _group_norm_f64(
+                x, w, bias, eps, act),
+            narrow=lambda x=x, w=w, bias=bias, eps=eps, act=act: gn.fused_group_norm_reference(
+                x.bfloat16().float(), w, bias, 32, eps, act))
+        del x
+    rec, bf16 = records["group_norm_f32"], records.get("fused_group_norm")
+    print(f"(a) fp32 K8: {len(gn_cases)}-shape sums {rec['ms']:.4f} ms against a bound of "
+          f"{rec['bound_ms']:.4f} ms"
+          + (f" (bf16, phase 2: {bf16['ms']:.4f} against {bf16['bound_ms']:.4f})" if bf16
+             else "") + f"; {time.perf_counter() - t0:.2f} s", flush=True)
+    for shape, act in paths.K8_PROBE_CASES:
+        x = torch.randn(shape, generator=g, device=dev)
+        w, bias = torch.ones(shape[1], device=dev), torch.zeros(shape[1], device=dev)
+        ms = _time_ms(lambda x=x: gn.fused_group_norm(x, w, bias, 32, 1e-6, act), 10)
+        ms_bf16 = _time_ms(lambda xb=x.bfloat16(): gn.fused_group_norm(xb, w, bias, 32, 1e-6,
+                                                                      act), 10)
+        bound = roofline.bound_ms(*roofline.group_norm_cost(shape, roofline.F32),
+                                  roofline.PEAK_FP32)[0]
+        y = torch.empty_like(x)  # the same bytes read and written by a copy
+        copy = _time_ms(lambda x=x, y=y: y.copy_(x), 10)
+        print(f"(a) fp32 K8 probe {shape} {act}: {ms:.4f} ms, {bound / ms:.1%} of its bound "
+              f"{bound:.4f}; Tensor.copy_ of x {copy:.4f} ms; bf16 on the same x "
+              f"{ms_bf16:.4f} ms", flush=True)
+        del x, y
+
+
+def _f32_forward_under(label: str, forward, switches: dict, want: tuple, default,
+                       t0: float) -> dict:
+    """One fp32 UNet forward under ``switches``: its fp32 launches by wrapper
+    and head dim and K7's by kernel exactly ``want``
+    (paths.predicted_launches; ``_check_f32_path``: no bf16 attention
+    kernel), its output within F32_UNET_REL_BOUND of ``default``'s largest
+    entry, its time beside.  Returns the forward's launch counts."""
+    from gswm_torch.ops import attention as attn
+
+    _reset_counters()
+    with paths.route_switches(switches):
+        out = forward()
+        torch.cuda.synchronize()
+        counts = _check_f32_path(label, want[0], t0)
+        by_kernel = dict(attn.flash_attention_transposed.launches_by_kernel)
+        if by_kernel != want[1]:
+            raise AssertionError(f"{label}: K7 by kernel {by_kernel}, want {want[1]}")
+        ms = _time_ms(forward, 3, warmup=1)
+    top = default.abs().max().item()
+    diff = (out - default).abs().max().item()
+    env = " ".join(f"{k}={v}" for k, v in switches.items()) or "the default route"
+    print(f"{label} {env}: max|out - default| / max|default| {diff / top:.3e} (bound "
+          f"{F32_UNET_REL_BOUND:.0e}); forward {ms:.4f} ms; K7 by kernel {by_kernel}",
+          flush=True)
+    if not (torch.isfinite(out).all() and diff <= F32_UNET_REL_BOUND * top):
+        raise AssertionError(f"{label}: output {diff} from the default route's, above "
+                             f"{F32_UNET_REL_BOUND} x {top}, or not finite")
+    return counts
+
+
+def _f32_tiers_768(card: str, pipe, cfg) -> list:
+    """13h: sd-2-1 at 768x768, batch 2, fp32 (phase 13e's pipeline), under
+    every switch set of paths.TIER_SWITCHES: one forward each against the
+    fp32 default route's, the launches paths.predicted_launches derives;
+    under (b) and (c), K6 and K7, the closed loop at phase 5's depth."""
+    b = BATCH_768
+    t0 = time.perf_counter()
+    inputs = paths.unet_inputs(pipe, b)
+
+    def forward():
+        with torch.inference_mode():
+            return pipe.unet(*inputs)
+
+    with paths.route_switches({}):
+        default = forward()
+        default_ms = _time_ms(forward, 3, warmup=1)
+    print(f"(h) fp32 UNet forward on the default route, batch {b}: {default_ms:.4f} ms; on "
+          f"{card}", flush=True)
+    totals = []
+    steps = paths.TIER_LOOP_STEPS
+    for label, switches in paths.TIER_SWITCHES.items():
+        want = paths.predicted_launches("sd-2-1", RES_768, RES_768, switches, torch.float32)
+        totals.append(_f32_forward_under(f"(h) ({label})", forward, switches, want, default,
+                                         t0))
+        if label in ("b", "c"):
+            _reset_counters()
+            with paths.route_switches(switches):
+                _f32_closed_loop(f"(h) ({label})", pipe, cfg, b, steps, 40 + len(totals))
+            totals.append(_check_f32_path(
+                f"(h) ({label}) closed loop",
+                {name: {d: n * 2 * steps for d, n in per.items()}
+                 for name, per in want[0].items()}, t0))
+    del default
+    print(f"(h): {time.perf_counter() - t0:.2f} s", flush=True)
+    return totals
+
+
+def _f32_groupnorm_sites(pipe) -> dict:
+    """13k: K8 in fp32 on the inputs of every GroupNorm of one UNet forward
+    at batch 2 and at 4, one decode and one encode of the fp32 768x768
+    pipeline, each against the module's own fp32 output within
+    F32_REL_BOUND of its largest entry; one fp32 launch a site."""
+    from gswm_torch.ops import groupnorm as gn
+
+    t0 = time.perf_counter()
+    worst = [0.0, 0]
+
+    def hook(name, m, x, y):
+        got = gn.fused_group_norm(x.contiguous(), m.weight, m.bias, m.num_groups, m.eps)
+        err = (got - y).abs().max().item()
+        top = y.abs().max().item()
+        if got.dtype != torch.float32 or not err <= F32_REL_BOUND * top:
+            raise AssertionError(f"(k) fp32 K8 at {name} {tuple(x.shape)}: {got.dtype}, "
+                                 f"error {err} above {F32_REL_BOUND} x {top}")
+        worst[0] = max(worst[0], err / top)
+        worst[1] += 1
+
+    _reset_counters()
+    with paths.groupnorm_hooks(pipe, hook):
+        paths.drive_groupnorm_sites(pipe)
+    counts = _counters()
+    print(f"(k) fp32 K8 on {worst[1]} GroupNorm inputs of the 768x768 fp32 path: max "
+          f"|err| / max|want| {worst[0]:.3e} (bound {F32_REL_BOUND:.0e}); fp32 launches "
+          f"{counts['group_norm_f32']}; {time.perf_counter() - t0:.2f} s", flush=True)
+    if counts["group_norm_f32"] != worst[1] or worst[1] < 1 or counts["fused_group_norm"]:
+        raise AssertionError(f"(k) fp32 K8 launched {counts['group_norm_f32']} times (bf16 "
+                             f"{counts['fused_group_norm']}) for {worst[1]} GroupNorms")
+    return counts
+
+
+def _f32_sd14_tiers(card: str, pipe, cfg) -> list:
+    """13i: sd-1-4 at 512x512, batch 4, fp32 (phase 13f's pipeline): one
+    forward under (c) (K7 at d = 40) and under phase 10's (t) (K7 at 40, 80,
+    160) against the fp32 default route, the closed loop under (t) at phase
+    5's depth, and one forward at 576x576 under (t), where level 2 has 324
+    tokens, against the default route there; K7's launches by kernel as
+    paths.predicted_launches names them in fp32."""
+    b = paths.BATCH_SD14
+    t0 = time.perf_counter()
+    totals = []
+    sets = {"c": paths.TIER_SWITCHES["c"], "t": paths.SD14_SWITCHES["t"]}
+    for res in (RES, paths.RES_SD14_RAGGED):
+        inputs = paths.unet_inputs(pipe, b, res=res)
+
+        def forward(inputs=inputs):
+            with torch.inference_mode():
+                return pipe.unet(*inputs)
+
+        with paths.route_switches({}):
+            default = forward()
+        for label, switches in sets.items():
+            if res != RES and label != "t":
+                continue
+            want = paths.predicted_launches("sd-1-4", res, res, switches, torch.float32)
+            totals.append(_f32_forward_under(f"(i) {res}x{res} ({label})", forward, switches,
+                                             want, default, t0))
+        del default
+    steps = paths.TIER_LOOP_STEPS
+    want = paths.predicted_launches("sd-1-4", RES, RES, sets["t"], torch.float32)[0]
+    _reset_counters()
+    with paths.route_switches(sets["t"]):
+        _f32_closed_loop("(i) (t)", pipe, cfg, b, steps, 61)
+    totals.append(_check_f32_path(
+        "(i) (t) closed loop",
+        {name: {d: n * 2 * steps for d, n in per.items()} for name, per in want.items()}, t0))
+    print(f"(i): {time.perf_counter() - t0:.2f} s on {card}", flush=True)
+    return totals
+
+
+def _f32_ring(card: str) -> dict:
+    """13j: the ring in fp32 on one card, phase 12b's cases at
+    paths.LSE_SHAPES and sp = 2, 4: every virtual rank's steps in ring order
+    against one fp32 flash_attention_split call, within F32_REL_BOUND of its
+    largest entry; shards below SPLIT_MIN_KEYS take the einsum branch (TF32
+    off); the fp32 lse launches exact by head dim."""
+    from gswm_torch.ops import attention as attn
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(1313)
+    cases = []
+    for b, s, h, d in paths.LSE_SHAPES:
+        q, k, v = (torch.randn((b, s, h, d), generator=g, device="cuda") for _ in range(3))
+        for sp in paths.RING_SP:
+            shards = tuple([c.contiguous() for c in t.chunk(sp, dim=1)] for t in (q, k, v))
+            cases.append(((b, s, h, d), sp, (q, k, v), shards))
+    want = {}
+    for (b, s, h, d), sp, _, _ in cases:
+        if s // sp >= attn.SPLIT_MIN_KEYS:
+            want[d] = want.get(d, 0) + sp * sp
+    _reset_counters()
+    rings = [_ring_on_one_card(shards, sp, torch.float32) for _, sp, _, shards in cases]
+    torch.cuda.synchronize()
+    counts = _check_f32_path("(j) fp32 ring on one card", {"flash_attention_split_lse": want},
+                             t0)
+    for ((b, s, h, d), sp, (q, k, v), shards), got in zip(cases, rings):
+        single = attn.flash_attention_split(q, k, v)
+        err = (got - single).abs().max().item()
+        top = single.abs().max().item()
+        kernel = s // sp >= attn.SPLIT_MIN_KEYS
+        ring_ms = _time_ms(lambda shards=shards, sp=sp: _ring_on_one_card(
+            shards, sp, torch.float32), 2, warmup=1)
+        one_ms = _time_ms(lambda q=q, k=k, v=v: attn.flash_attention_split(q, k, v), 2,
+                          warmup=1)
+        print(f"(j) fp32 ring sp={sp} (B={b}, S={s}, H={h}, D={d}): max|ring - one call| / "
+              f"max|one call| {err / top:.3e} (bound {F32_REL_BOUND:.0e}; shards through "
+              f"{'the kernel' if kernel else 'the einsum branch'}); ring wall {ring_ms:.4f} "
+              f"ms ({sp * sp} steps) against one call {one_ms:.4f} ms", flush=True)
+        if not err <= F32_REL_BOUND * top:
+            raise AssertionError(f"(j) fp32 ring sp={sp} at {(b, s, h, d)}: error {err} "
+                                 f"against max {top}")
+    del cases, rings
+    torch.cuda.empty_cache()
+    print(f"(j): {time.perf_counter() - t0:.2f} s on {card}", flush=True)
+    return counts
 
 
 def main() -> None:
     card = phase_card()
     phase_build()
     pipe_768 = build_pipeline_768()
-    records = phase_kernels(paths.groupnorm_cases(pipe_768))
+    gn_cases = paths.groupnorm_cases(pipe_768)
+    records = phase_kernels(gn_cases)
     counts_512, pipe_512, rate_3b, rms_3a = phase_extraction_512(card)
     t_new = time.perf_counter()
     counts_new = [phase_memory_sweep(card, pipe_512, "sd-2-1-base", check_steps=STEPS)]
     seconds_new = time.perf_counter() - t_new
-    counts_new.append(phase_float32(card, records, rate_3b, rms_3a))
+    counts_new.append(phase_float32(card, records, rate_3b, rms_3a, gn_cases))
     counts_768, rates_4c = phase_generation_768(card, pipe_768)
     counts_new.append(phase_float32_presets(card, rates_4c))
     t_new = time.perf_counter()
@@ -3445,6 +3897,15 @@ def main() -> None:
         # the same kernel at 64 < d <= 512 (more than one 64-column panel):
         # K4 (the VAE's d = 512), and K1's core and K2 at SD 1.x's 80 and 160
         "flash_f32_wide": ("gswm_torch/csrc/flash_f32.cu", "gswm/ops/attention.py:414"),
+        # its other forms: the pair-packed layout (K6, switch set (b)), the
+        # transposed one (K7, sets (c) and (t); the 4-byte copies where S % 4
+        # != 0 among its shapes), the log-sum-exp (K4, the ring's step); and
+        # K8 on float32
+        "flash_f32_packed": ("gswm_torch/csrc/flash_f32.cu", "gswm/ops/attention.py:959"),
+        "flash_f32_transposed": ("gswm_torch/csrc/flash_f32.cu",
+                                 "gswm/ops/attention.py:1428"),
+        "flash_f32_lse": ("gswm_torch/csrc/flash_f32.cu", "gswm/ops/attention.py:414"),
+        "group_norm_f32": ("gswm_torch/csrc/group_norm.cu", "gswm/ops/groupnorm.py:185"),
     }
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=counts[name], **records[name])

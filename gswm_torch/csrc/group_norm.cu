@@ -1,5 +1,7 @@
-// GroupNorm (+ optional SiLU) on NCHW bf16, fp32 statistics: one launch, x
-// read once from device memory.
+// GroupNorm (+ optional SiLU) on NCHW bf16 or float32 (the element type a
+// template parameter), fp32 statistics and arithmetic: one launch, x read
+// once from device memory.  Output in x's type: bf16 rounded once, float32
+// not rounded at all.
 //
 // Replaces gswm/ops/groupnorm.py:185 fused_group_norm (_resident_kernel
 // :112, _stats_kernel :138, _apply_kernel :150; pallas_calls :210, :229,
@@ -14,8 +16,8 @@
 // read from device memory a second time.  The statistics of a group need all
 // of it before any of it can be normalised, so the group has to wait on chip
 // in between.  In NCHW a group is one contiguous run of n = (C / G) * H * W
-// elements: 11.5 KB to 553 KB in the UNet at 768x768, 295 KB to 9.44 MB in
-// the VAE.
+// elements: in bf16 11.5 KB to 553 KB in the UNet at 768x768, 295 KB to 9.44
+// MB in the VAE; twice that in float32.
 //
 // Design.  One thread block CLUSTER a group (cudaLaunchKernelEx with the
 // cluster dimension attribute; 1 to 16 blocks, above 8 with the non-portable
@@ -44,12 +46,16 @@
 // shared memory and read the tail twice: once for the sums, and again right
 // after the barrier, tail first, while it is still in L2 (the clusters in
 // flight hold 8 x 4.72 MB of the 50 MB).  The head's copies and all stores are
-// streaming (evict-first), so they do not push the tails out of L2.
+// streaming (evict-first), so they do not push the tails out of L2.  Blocks
+// are sized in bytes, so in float32 they keep half as many elements and more
+// groups take this route; at (1, 128, 768, 768) a group is 9.44 MB in
+// float32, and 8 clusters in flight no longer fit the L2 (first design: the
+// cost is measured, not designed away).
 //
-// When H * W is a multiple of 8, 8 consecutive elements share a channel and
-// move as one 16-byte load and store, and every group starts on a 16-byte
-// boundary, as the bulk copies need; otherwise an element-wise instance with
-// plain loads.
+// When H * W is a multiple of the elements 16 bytes hold (8 bf16, 4 float),
+// those consecutive elements share a channel and move as one 16-byte load
+// and store, and every group starts on a 16-byte boundary, as the bulk
+// copies need; otherwise an element-wise instance with plain loads.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -67,9 +73,27 @@ using namespace gswm_hopper;  // bf16, smem_u32, the mbarrier helpers
 
 // chunks, each with its own mbarrier, the kept part of a slice arrives in
 constexpr int CHUNKS = 8;
-// do not cut a group into slices smaller than this to fill the card
-constexpr int MIN_SLICE = 8192;
+// do not cut a group into slices smaller than this (16 KB) to fill the card
+constexpr int MIN_SLICE_BYTES = 16384;
 constexpr int MAX_CLUSTER = 16;
+
+// An element type's conversions and its 16-byte vectors of VEC elements.
+template <typename E>
+struct Elem;
+
+template <>
+struct Elem<bf16> {
+  static constexpr int VEC = 8;
+  static __device__ __forceinline__ float to_float(bf16 v) { return __bfloat162float(v); }
+  static __device__ __forceinline__ bf16 from_float(float f) { return __float2bfloat16(f); }
+};
+
+template <>
+struct Elem<float> {
+  static constexpr int VEC = 4;
+  static __device__ __forceinline__ float to_float(float v) { return v; }
+  static __device__ __forceinline__ float from_float(float f) { return f; }
+};
 
 // How a block is sized.  More, smaller blocks an SM overlap one block's
 // loads with another's arithmetic and stores (a block's own phases follow one
@@ -88,11 +112,11 @@ constexpr int MAX_CLUSTER = 16;
 //   * beyond that one 220 KB block an SM (of the 227 KB a block may have).
 struct Sizing {
   int threads;
-  int keep;  // bf16 elements of its slice a block keeps in shared memory
+  int keep;  // bytes of its slice a block keeps in shared memory
 };
-constexpr Sizing SMALL = {256, 28160};
-constexpr Sizing MEDIUM = {512, 56320};
-constexpr Sizing LARGE = {1024, 112640};
+constexpr Sizing SMALL = {256, 56320};
+constexpr Sizing MEDIUM = {512, 112640};
+constexpr Sizing LARGE = {1024, 225280};
 
 // (a, b) summed over the block; every thread gets the result.
 template <int THREADS>
@@ -120,7 +144,8 @@ __device__ __forceinline__ float2 block_sum2(float a, float b) {
   return red[0];
 }
 
-__device__ __forceinline__ void add_moments(const uint4& raw, float& s, float& ss) {
+// The moments of 16 bytes of elements, a pair at a time.
+__device__ __forceinline__ void add_moments(const uint4& raw, float& s, float& ss, bf16) {
   const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
@@ -130,9 +155,19 @@ __device__ __forceinline__ void add_moments(const uint4& raw, float& s, float& s
   }
 }
 
+__device__ __forceinline__ void add_moments(const uint4& raw, float& s, float& ss, float) {
+  const float2* p = reinterpret_cast<const float2*>(&raw);
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    s += p[j].x + p[j].y;
+    ss += p[j].x * p[j].x + p[j].y * p[j].y;
+  }
+}
+
 // y, or y * sigmoid(y) with the fast exponential and division: their error
-// (a few ulp of fp32) is far below the bf16 rounding of the result, and the
-// exact ones would make the kernel instruction-bound.
+// (a few ulp of fp32) is far below the bf16 rounding of the result and, in
+// float32, a few millionths of max |y| at most, and the exact ones would make
+// the kernel instruction-bound.
 template <bool SILU>
 __device__ __forceinline__ float activate(float y) {
   return SILU ? __fdividef(y, 1.0f + __expf(-y)) : y;
@@ -166,8 +201,9 @@ struct ChannelWalk {
   }
 };
 
+// 16 bytes of elements normalised (x * a + b, then the activation)
 template <bool SILU>
-__device__ __forceinline__ uint4 normalise8(const uint4& raw, float a, float b) {
+__device__ __forceinline__ uint4 normalise_vec(const uint4& raw, float a, float b, bf16) {
   const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
   uint4 res;
   __nv_bfloat162* r = reinterpret_cast<__nv_bfloat162*>(&res);
@@ -176,6 +212,16 @@ __device__ __forceinline__ uint4 normalise8(const uint4& raw, float a, float b) 
     const float2 f = __bfloat1622float2(p[j]);
     r[j] = __floats2bfloat162_rn(activate<SILU>(f.x * a + b), activate<SILU>(f.y * a + b));
   }
+  return res;
+}
+
+template <bool SILU>
+__device__ __forceinline__ uint4 normalise_vec(const uint4& raw, float a, float b, float) {
+  const float* p = reinterpret_cast<const float*>(&raw);
+  uint4 res;
+  float* r = reinterpret_cast<float*>(&res);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) r[j] = activate<SILU>(p[j] * a + b);
   return res;
 }
 
@@ -202,15 +248,17 @@ __device__ __forceinline__ void cluster_wait() {
 }
 
 // Grid: (B * G) clusters of gridDim.x / (B * G) blocks along x.  n elements a
-// group (below 2^31), slice elements a block (a multiple of 8 when VEC), of
-// which the first keep lie in dynamic shared memory between the passes.
-template <bool VEC, int THREADS, bool SILU>
+// group (below 2^31), slice elements a block (a multiple of W, the elements
+// of 16 bytes, when VEC), of which the first keep lie in dynamic shared
+// memory between the passes.
+template <typename E, bool VEC, int THREADS, bool SILU>
 __global__ void __launch_bounds__(THREADS)
-gn_cluster_kernel(const bf16* __restrict__ x, const float* __restrict__ weight,
-                  const float* __restrict__ bias, bf16* __restrict__ out, int n, int hw,
+gn_cluster_kernel(const E* __restrict__ x, const float* __restrict__ weight,
+                  const float* __restrict__ bias, E* __restrict__ out, int n, int hw,
                   int cpg, int groups, int slice, int keep, float eps) {
+  constexpr int W = Elem<E>::VEC;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* kept = reinterpret_cast<bf16*>(smem_raw);
+  E* kept = reinterpret_cast<E*>(smem_raw);
   __shared__ float2 part;   // this block's sums, read by the whole cluster
   __shared__ float2 total;  // the group's sums
   __shared__ __align__(8) uint64_t landed[CHUNKS];
@@ -220,8 +268,8 @@ gn_cluster_kernel(const bf16* __restrict__ x, const float* __restrict__ weight,
   const int rank = (int)cluster.block_rank();
   const int bg = blockIdx.x / cl;
   const int tid = threadIdx.x;
-  const bf16* xg = x + (size_t)bg * n;
-  bf16* og = out + (size_t)bg * n;
+  const E* xg = x + (size_t)bg * n;
+  E* og = out + (size_t)bg * n;
   // this block's slice [lo, hi): [lo, mid) stays in shared memory, [mid, hi)
   // is read again; a trailing block of a small group may have none
   const long long lo64 = (long long)rank * slice;
@@ -231,15 +279,16 @@ gn_cluster_kernel(const bf16* __restrict__ x, const float* __restrict__ weight,
 
   float s = 0.0f, ss = 0.0f;
   if (VEC) {
-    // [lo, mid) in CHUNKS pieces of `piece` elements, a multiple of 8
-    const int piece = ((mid - lo + CHUNKS - 1) / CHUNKS + 7) / 8 * 8;
+    // [lo, mid) in CHUNKS pieces of `piece` elements, a multiple of W
+    const int piece = ((mid - lo + CHUNKS - 1) / CHUNKS + W - 1) / W * W;
     if (tid == 0) {
       for (int c = 0; c < CHUNKS; ++c) mbar_init(&landed[c], 1);
       fence_mbar_init();
       for (int c = 0; c < CHUNKS; ++c) {
         const int from = lo + c * piece;
         if (from >= mid) break;
-        const uint32_t bytes = (uint32_t)((from + piece < mid ? piece : mid - from) * 2);
+        const uint32_t bytes =
+            (uint32_t)((from + piece < mid ? piece : mid - from) * sizeof(E));
         mbar_expect_tx(&landed[c], bytes);
         bulk_load_streaming(kept + (from - lo), xg + from, bytes, &landed[c]);
       }
@@ -247,29 +296,29 @@ gn_cluster_kernel(const bf16* __restrict__ x, const float* __restrict__ weight,
     __syncthreads();  // the barriers are initialised before anyone waits
     // the tail, which stays in device memory and L2: plain loads, four in
     // flight a thread, while the copies land
-    for (int i = mid + tid * 8; i < hi; i += THREADS * 8 * 4) {
+    for (int i = mid + tid * W; i < hi; i += THREADS * W * 4) {
       uint4 raw[4];
 #pragma unroll
       for (int k = 0; k < 4; ++k)
-        if (i + k * THREADS * 8 < hi)
-          raw[k] = *reinterpret_cast<const uint4*>(xg + i + k * THREADS * 8);
+        if (i + k * THREADS * W < hi)
+          raw[k] = *reinterpret_cast<const uint4*>(xg + i + k * THREADS * W);
 #pragma unroll
       for (int k = 0; k < 4; ++k)
-        if (i + k * THREADS * 8 < hi) add_moments(raw[k], s, ss);
+        if (i + k * THREADS * W < hi) add_moments(raw[k], s, ss, E());
     }
     for (int c = 0; c < CHUNKS; ++c) {
       const int from = lo + c * piece;
       if (from >= mid) break;
       const int to = from + piece < mid ? from + piece : mid;
       mbar_wait(&landed[c], 0);
-      for (int i = from + tid * 8; i < to; i += THREADS * 8)
-        add_moments(*reinterpret_cast<const uint4*>(kept + (i - lo)), s, ss);
+      for (int i = from + tid * W; i < to; i += THREADS * W)
+        add_moments(*reinterpret_cast<const uint4*>(kept + (i - lo)), s, ss, E());
     }
   } else {
     for (int i = lo + tid; i < hi; i += THREADS) {
-      const bf16 v = xg[i];
+      const E v = xg[i];
       if (i < mid) kept[i - lo] = v;
-      const float f = __bfloat162float(v);
+      const float f = Elem<E>::to_float(v);
       s += f;
       ss += f * f;
     }
@@ -300,28 +349,30 @@ gn_cluster_kernel(const bf16* __restrict__ x, const float* __restrict__ weight,
   const int c0 = (bg % groups) * cpg;  // first channel of the group
   if (VEC) {
     // the tail first: it was read last and is the likeliest to be in L2
-    ChannelWalk tail(mid + tid * 8, THREADS * 8, hw);
+    ChannelWalk tail(mid + tid * W, THREADS * W, hw);
 #pragma unroll 4
-    for (int i = mid + tid * 8; i < hi; i += THREADS * 8) {
+    for (int i = mid + tid * W; i < hi; i += THREADS * W) {
       tail.affine(weight + c0, bias + c0, inv, mean);
       const uint4 raw = __ldcs(reinterpret_cast<const uint4*>(xg + i));
-      __stcs(reinterpret_cast<uint4*>(og + i), normalise8<SILU>(raw, tail.a, tail.b));
+      __stcs(reinterpret_cast<uint4*>(og + i),
+             normalise_vec<SILU>(raw, tail.a, tail.b, E()));
       tail.step(hw);
     }
-    ChannelWalk head(lo + tid * 8, THREADS * 8, hw);
+    ChannelWalk head(lo + tid * W, THREADS * W, hw);
 #pragma unroll 2
-    for (int i = lo + tid * 8; i < mid; i += THREADS * 8) {
+    for (int i = lo + tid * W; i < mid; i += THREADS * W) {
       head.affine(weight + c0, bias + c0, inv, mean);
       const uint4 raw = *reinterpret_cast<const uint4*>(kept + (i - lo));
-      __stcs(reinterpret_cast<uint4*>(og + i), normalise8<SILU>(raw, head.a, head.b));
+      __stcs(reinterpret_cast<uint4*>(og + i),
+             normalise_vec<SILU>(raw, head.a, head.b, E()));
       head.step(hw);
     }
   } else {
     for (int i = lo + tid; i < hi; i += THREADS) {
       const int c = c0 + i / hw;
       const float a = inv * weight[c];
-      const float f = __bfloat162float(i < mid ? kept[i - lo] : xg[i]);
-      og[i] = __float2bfloat16(activate<SILU>(f * a + (bias[c] - mean * a)));
+      const float f = Elem<E>::to_float(i < mid ? kept[i - lo] : xg[i]);
+      og[i] = Elem<E>::from_float(activate<SILU>(f * a + (bias[c] - mean * a)));
     }
   }
   cluster_wait();
@@ -329,12 +380,14 @@ gn_cluster_kernel(const bf16* __restrict__ x, const float* __restrict__ weight,
 
 // The cluster size for groups of n elements, bg of them, in blocks that keep
 // `keep` elements: the smallest that lets a slice fit in shared memory, then
-// more while the grid is smaller than the card and the slices stay large.
-int pick_cluster(long long n, long long bg, int keep, int max_cluster, int sms, int unit) {
+// more while the grid is smaller than the card and the slices stay above
+// `min_slice` elements.
+int pick_cluster(long long n, long long bg, int keep, int max_cluster, int sms, int unit,
+                 int min_slice) {
   auto slice_of = [&](int cl) { return ((n + cl - 1) / cl + unit - 1) / unit * unit; };
   int cl = 1;
   while (cl < max_cluster && slice_of(cl) > keep) cl *= 2;
-  while (cl < max_cluster && bg * cl < sms && slice_of(2 * cl) >= MIN_SLICE) cl *= 2;
+  while (cl < max_cluster && bg * cl < sms && slice_of(2 * cl) >= min_slice) cl *= 2;
   return cl;
 }
 
@@ -357,12 +410,14 @@ struct Device {
   int max_cluster = 0;  // 0: not asked yet
 };
 
-template <bool VEC, int THREADS, bool SILU>
-cudaError_t launch(int keep_elems, int cluster, const bf16* x, const float* w, const float* b,
-                   bf16* out, int B, int C, int HW, int G, float eps, cudaStream_t st) {
+// keep_bytes: shared memory a block keeps its slice's head in
+template <typename E, bool VEC, int THREADS, bool SILU>
+cudaError_t launch(int keep_bytes, int cluster, const E* x, const float* w, const float* b,
+                   E* out, int B, int C, int HW, int G, float eps, cudaStream_t st) {
   static Device dev;  // one card a process: this instance's attributes are set once
-  auto kernel = gn_cluster_kernel<VEC, THREADS, SILU>;
-  const size_t max_smem = (size_t)keep_elems * sizeof(bf16);
+  auto kernel = gn_cluster_kernel<E, VEC, THREADS, SILU>;
+  const int keep_elems = keep_bytes / (int)sizeof(E);
+  const size_t max_smem = (size_t)keep_bytes;
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -397,43 +452,43 @@ cudaError_t launch(int keep_elems, int cluster, const bf16* x, const float* w, c
   const int cpg = C / G;
   const long long n = (long long)cpg * HW;
   const long long bg = (long long)B * G;
-  const int unit = VEC ? 8 : 1;
+  const int unit = VEC ? Elem<E>::VEC : 1;
   const int cl = cluster ? cluster
-                         : pick_cluster(n, bg, keep_elems, dev.max_cluster, dev.sms, unit);
+                         : pick_cluster(n, bg, keep_elems, dev.max_cluster, dev.sms, unit,
+                                        MIN_SLICE_BYTES / (int)sizeof(E));
   if (n >= (1ll << 31) || bg * cl >= (1ll << 31)) return cudaErrorInvalidValue;
   const int slice = (int)(((n + cl - 1) / cl + unit - 1) / unit * unit);
   const int keep = slice < keep_elems ? slice : keep_elems;
   attr[0].val.clusterDim.x = cl;
   cfg.gridDim = dim3((unsigned)(bg * cl));
-  cfg.dynamicSmemBytes = ((size_t)keep * sizeof(bf16) + 15) / 16 * 16;
+  cfg.dynamicSmemBytes = ((size_t)keep * sizeof(E) + 15) / 16 * 16;
   return cudaLaunchKernelEx(&cfg, kernel, x, w, b, out, (int)n, HW, cpg, G, slice, keep,
                             eps);
 }
 
-template <bool VEC, int THREADS>
-cudaError_t launch_act(bool silu, int keep_elems, int cluster, const bf16* x, const float* w,
-                       const float* b, bf16* out, int B, int C, int HW, int G, float eps,
+template <typename E, bool VEC, int THREADS>
+cudaError_t launch_act(bool silu, int keep_bytes, int cluster, const E* x, const float* w,
+                       const float* b, E* out, int B, int C, int HW, int G, float eps,
                        cudaStream_t st) {
-  return silu ? launch<VEC, THREADS, true>(keep_elems, cluster, x, w, b, out, B, C, HW, G, eps, st)
-              : launch<VEC, THREADS, false>(keep_elems, cluster, x, w, b, out, B, C, HW, G, eps,
-                                            st);
+  return silu ? launch<E, VEC, THREADS, true>(keep_bytes, cluster, x, w, b, out, B, C, HW, G,
+                                              eps, st)
+              : launch<E, VEC, THREADS, false>(keep_bytes, cluster, x, w, b, out, B, C, HW, G,
+                                               eps, st);
 }
 
-}  // namespace
-
-// x, out: (B, C, HW) bf16, 16-byte aligned; weight, bias: (C,) fp32; act 0 =
-// none, 1 = SiLU.  One launch; no scratch memory.
-extern "C" int gswm_group_norm(const void* x, const void* weight, const void* bias,
-                               void* out, int B, int C, int HW, int G, float eps, int act,
-                               void* stream) {
+// The sizing of gswm_group_norm below, in bytes, for either element type.
+template <typename E>
+int group_norm(const void* x, const void* weight, const void* bias, void* out, int B, int C,
+               int HW, int G, float eps, int act, void* stream) {
   if (B < 1 || C < 1 || HW < 1 || G < 1 || C % G)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bf16* xin = static_cast<const bf16*>(x);
-  bf16* y = static_cast<bf16*>(out);
+  const E* xin = static_cast<const E*>(x);
+  E* y = static_cast<E*>(out);
   const float* w = static_cast<const float*>(weight);
   const float* bb = static_cast<const float*>(bias);
   const long long n = (long long)(C / G) * HW;
+  const long long bytes = n * (long long)sizeof(E);  // a group's
   const long long bg = (long long)B * G;
   const bool silu = act == 1;
   int sms = 0;
@@ -444,16 +499,38 @@ extern "C" int gswm_group_norm(const void* x, const void* weight, const void* bi
   // are cheap to place (a cluster of 4 or more 220 KB blocks is not), and
   // whatever they cannot keep comes back from L2
   const int few = 2 * bg <= sms ? 2 : 1;
-  if (HW % 8)  // rare (odd image sizes): one element-wise instance
-    err = launch_act<false, SMALL.threads>(silu, LARGE.keep, 0, xin, w, bb, y, B, C, HW, G, eps, st);
-  else if (bg >= 64 && bg <= sms && n >= 40960 && n <= 3ll * few * LARGE.keep)
-    err = launch_act<true, LARGE.threads>(silu, LARGE.keep, few, xin, w, bb, y, B, C, HW, G, eps, st);
-  else if (n <= (long long)MAX_CLUSTER * SMALL.keep)
-    err = launch_act<true, SMALL.threads>(silu, SMALL.keep, 0, xin, w, bb, y, B, C, HW, G, eps, st);
-  else if (n <= 3ll * MAX_CLUSTER * MEDIUM.keep)
-    err = launch_act<true, MEDIUM.threads>(silu, MEDIUM.keep, 0, xin, w, bb, y, B, C, HW, G, eps, st);
+  if (HW % Elem<E>::VEC)  // rare (odd image sizes): one element-wise instance
+    err = launch_act<E, false, SMALL.threads>(silu, LARGE.keep, 0, xin, w, bb, y, B, C, HW, G,
+                                              eps, st);
+  else if (bg >= 64 && bg <= sms && bytes >= 81920 && bytes <= 3ll * few * LARGE.keep)
+    err = launch_act<E, true, LARGE.threads>(silu, LARGE.keep, few, xin, w, bb, y, B, C, HW, G,
+                                             eps, st);
+  else if (bytes <= (long long)MAX_CLUSTER * SMALL.keep)
+    err = launch_act<E, true, SMALL.threads>(silu, SMALL.keep, 0, xin, w, bb, y, B, C, HW, G,
+                                             eps, st);
+  else if (bytes <= 3ll * MAX_CLUSTER * MEDIUM.keep)
+    err = launch_act<E, true, MEDIUM.threads>(silu, MEDIUM.keep, 0, xin, w, bb, y, B, C, HW, G,
+                                              eps, st);
   else
-    err = launch_act<true, LARGE.threads>(silu, LARGE.keep, 0, xin, w, bb, y, B, C, HW, G, eps, st);
+    err = launch_act<E, true, LARGE.threads>(silu, LARGE.keep, 0, xin, w, bb, y, B, C, HW, G,
+                                             eps, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// x, out: (B, C, HW) bf16, 16-byte aligned; weight, bias: (C,) fp32; act 0 =
+// none, 1 = SiLU.  One launch; no scratch memory.
+extern "C" int gswm_group_norm(const void* x, const void* weight, const void* bias,
+                               void* out, int B, int C, int HW, int G, float eps, int act,
+                               void* stream) {
+  return group_norm<bf16>(x, weight, bias, out, B, C, HW, G, eps, act, stream);
+}
+
+// The same on float32 x and out.
+extern "C" int gswm_group_norm_f32(const void* x, const void* weight, const void* bias,
+                                   void* out, int B, int C, int HW, int G, float eps, int act,
+                                   void* stream) {
+  return group_norm<float>(x, weight, bias, out, B, C, HW, G, eps, act, stream);
 }

@@ -52,8 +52,20 @@ _SIGNATURES = {
     # float32 (csrc/flash_f32.cu): q, k, v, out, B, Sq, Sk, H, D (head dim,
     # 8 <= D <= 512), stream
     "gswm_flash_f32": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
+    # the same and lse (fp32 (B, H, Sq)): q, k, v, out, lse, B, Sq, Sk, H, D,
+    # stream
+    "gswm_flash_f32_lse": [_VP] * 5 + [_I] * 5 + [_VP],
+    # qkv, out, B, S, P (head pairs), stream
+    "gswm_flash_f32_packed": [_VP, _VP, _I, _I, _I, _VP],
+    # qkv_t, out_t, B, S, H, D (head dim), stream; 16-byte copies where
+    # S % 4 == 0
+    "gswm_flash_f32_transposed": [_VP, _VP, _I, _I, _I, _I, _VP],
+    # the same with 4-byte copies at any S (tests)
+    "gswm_flash_f32_transposed_4byte": [_VP, _VP, _I, _I, _I, _I, _VP],
     # x, weight, bias, out, B, C, HW, G, eps, act, stream
     "gswm_group_norm": [_VP] * 4 + [_I] * 4 + [_F, _I, _VP],
+    # the same on float32 x and out
+    "gswm_group_norm_f32": [_VP] * 4 + [_I] * 4 + [_F, _I, _VP],
 }
 
 

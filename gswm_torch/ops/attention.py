@@ -54,19 +54,21 @@ max and clamp logits at 60 (``_NOMAX_CLAMP``); the two agree within
 rounding while |logit| < 60.
 
 The kernels above take bfloat16.  Two more take float32, every product
-and sum in fp32 on the CUDA cores (FFMA), as the TPU kernels take fp32 and
-then keep the running max (gswm/ops/attention.py:720-721):
-csrc/qkv_proj_f32.cu, the projection GEMM at the widths the bf16 GEMM
-takes; and csrc/flash_f32.cu, the flash core at 8 <= d <= 512 (SD 2.x's
-64, SD 1.x's 40, 80 and 160, the VAE's 512; a template on the number of
-64-column panels), in the natural layout, no log-sum-exp, at every d
-``kernel_takes_head_dim`` takes.  So in float32
-``flash_attention``, ``qkv_projection``, ``fused_qkv_attention`` and
-``flash_attention_split`` without ``return_lse`` launch them, and the
-packed and transposed wrappers, the log-sum-exp and every other dtype
-raise a TypeError that names the dtype (``dtype_kernel`` states the rule).
-Their launches count in ``<wrapper>.launches_f32``, and by head dim in
-``<wrapper>.launches_f32_by_d``; the bf16 counters do not move.
+and sum in fp32 on the CUDA cores (FFMA), as the TPU kernels take fp32
+(those that keep a running max do so outside bf16:
+gswm/ops/attention.py:261, :720, :982, :1231): csrc/qkv_proj_f32.cu, the
+projection GEMM at the widths the bf16 GEMM takes; and csrc/flash_f32.cu,
+the flash core at 8 <= d <= 512 (SD 2.x's 64, SD 1.x's 40, 80 and 160, the
+VAE's 512; a template on the number of 64-column panels and on the layout),
+in four forms: the natural layout, with or without the log-sum-exp; the
+pair-packed one (the natural layout with pitches of its own); and the
+transposed one (16-byte copies where S % 4 == 0, 4-byte ones elsewhere).
+So in float32 every wrapper launches them, and every other dtype raises a
+TypeError that names it (``dtype_kernel`` states the rule).  Their
+launches count in ``<wrapper>.launches_f32``, and by head dim in
+``<wrapper>.launches_f32_by_d`` (with the log-sum-exp in
+``flash_attention_split.lse_launches_f32[_by_d]``); the bf16 counters do
+not move.
 
 On a CPU tensor each wrapper runs its plain PyTorch version; on a CUDA
 tensor it launches its kernel or raises, and it raises under a gradient
@@ -185,56 +187,71 @@ def head_dim_kernel(d: int, layout: str = "natural") -> tuple[str, int, int]:
 ROWS_FORM = "/rows"
 
 
-def transposed_kernel(d: int, s: int) -> str:
-    """The kernel ``flash_attention_transposed`` runs head dim ``d`` over
-    ``s`` tokens on: ``head_dim_kernel(d, "transposed")``'s design at every
-    S, its boxes by tensor maps where S % 8 == 0 and by hand elsewhere (the
-    name followed by ``ROWS_FORM``)."""
-    kernel = head_dim_kernel(d, "transposed")[0]
-    return kernel + ROWS_FORM if s % 8 else kernel
-
-
-# The float32 flash kernel (natural and split layouts, no log-sum-exp):
-# csrc/flash_f32.cu's, a template on P = ceil(d / F32_PANEL) panels of
-# F32_PANEL columns, to KERNEL_MAX_HEAD_DIM; P = 1 (d <= F32_PANEL) keeps two
-# blocks an SM, so does P <= 3, and P >= 4 one
+# The float32 flash kernel: csrc/flash_f32.cu's, a template on P = ceil(d /
+# F32_PANEL) panels of F32_PANEL columns, to KERNEL_MAX_HEAD_DIM (P = 1, d <=
+# F32_PANEL, keeps two blocks an SM, so does P <= 3, and P >= 4 one), and on
+# the layout: the natural layout's kernel also serves the log-sum-exp (a
+# pointer, null for none) and the pair-packed layout (pitches of its own)
 F32_PANEL = 64
 F32_FLASH_KERNEL = "flash_f32_kernel"
-# the dtypes of the flash, split and fused-qkv wrappers' kernels; the
-# packed and transposed kernels and the log-sum-exp output take bf16 alone
+# What ``transposed_kernel`` appends to the float32 kernel's name where S %
+# 4 != 0: the transposed layout's rows then start at any 4-byte address, and
+# its tiles come by 4-byte cp.async instead of 16-byte ones
+F32_WORD_FORM = "/4-byte"
+# the dtypes every attention wrapper's kernels take
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
-BF16_ONLY = (torch.bfloat16,)
+# ``dtype_kernel``'s layouts: ``LAYOUTS`` and the pair-packed one (d = 64)
+PACKED = "packed"
 
 
 def dtype_kernel(dtype: torch.dtype, d: int, layout: str = "natural") -> str:
     """The attention kernel that runs head dim ``d`` on ``dtype`` tensors in
-    ``layout`` (as ``head_dim_kernel``'s): in bfloat16 the kernel
-    ``head_dim_kernel`` names; in float32, in the natural layout alone,
-    ``F32_FLASH_KERNEL`` (csrc/flash_f32.cu) with its panel count,
-    ``flash_f32_kernel<P>``, P = ceil(d / F32_PANEL).  Raises TypeError,
-    naming the dtype, where no kernel takes it (float32 in the transposed
-    layout, float16 and every other dtype), ValueError for a d no kernel
-    takes or another layout."""
-    kernel = head_dim_kernel(d, layout)[0]
+    ``layout`` (one of ``LAYOUTS``, or ``PACKED`` at d = 64): in bfloat16
+    the kernel ``head_dim_kernel`` names (packed: flash_hopper.cu's d = 64
+    kernel); in float32 ``F32_FLASH_KERNEL`` (csrc/flash_f32.cu) with its
+    panel count, ``flash_f32_kernel<P>``, P = ceil(d / F32_PANEL), in the
+    natural and packed layouts and with the log-sum-exp, and
+    ``flash_f32_kernel<P, transposed>`` in the transposed one.  Raises
+    TypeError, naming the dtype, where no kernel takes it (float16 and every
+    other dtype), ValueError for a d no kernel takes or another layout."""
+    if layout == PACKED:
+        if d != HEAD_DIM:
+            raise ValueError(f"head dim {d}: the pair-packed layout holds heads of "
+                             f"{HEAD_DIM}")
+        kernel = head_dim_kernel(d)[0]
+    else:
+        kernel = head_dim_kernel(d, layout)[0]
     if dtype == torch.bfloat16:
         return kernel
     if dtype == torch.float32:
-        if layout == "natural":
-            return f"{F32_FLASH_KERNEL}<{-(-d // F32_PANEL)}>"
-        raise TypeError(f"torch.float32 attention on the card runs csrc/flash_f32.cu in "
-                        f"the natural layout alone, not at d = {d} in the {layout} "
-                        f"layout; use torch.bfloat16")
+        panels = -(-d // F32_PANEL)
+        return f"{F32_FLASH_KERNEL}<{panels}{', transposed' if layout == 'transposed' else ''}>"
     raise TypeError(f"the attention kernels take torch.bfloat16 and torch.float32; "
                     f"got {dtype}")
 
 
-def _count(wrapper, d: int, dtype: torch.dtype = torch.bfloat16) -> None:
+def transposed_kernel(d: int, s: int, dtype: torch.dtype = torch.bfloat16) -> str:
+    """The kernel ``flash_attention_transposed`` runs head dim ``d`` over
+    ``s`` tokens of ``dtype`` on.  bfloat16: ``head_dim_kernel(d,
+    "transposed")``'s design at every S, its boxes by tensor maps where S %
+    8 == 0 and by hand elsewhere (the name followed by ``ROWS_FORM``).
+    float32: ``dtype_kernel``'s, its tiles by 16-byte copies where S % 4 ==
+    0 and by 4-byte ones elsewhere (followed by ``F32_WORD_FORM``)."""
+    kernel = dtype_kernel(dtype, d, "transposed")
     if dtype == torch.float32:
-        wrapper.launches_f32 += 1
-        wrapper.launches_f32_by_d[d] = wrapper.launches_f32_by_d.get(d, 0) + 1
-        return
-    wrapper.launches += 1
-    wrapper.launches_by_d[d] = wrapper.launches_by_d.get(d, 0) + 1
+        return kernel + F32_WORD_FORM if s % 4 else kernel
+    return kernel + ROWS_FORM if s % 8 else kernel
+
+
+def _count(wrapper, d: int, dtype: torch.dtype = torch.bfloat16,
+           name: str = "launches") -> None:
+    """One launch at head dim d on ``wrapper.<name>`` and ``<name>_by_d``,
+    in float32 on ``<name>_f32`` and ``<name>_f32_by_d``."""
+    if dtype == torch.float32:
+        name += "_f32"
+    setattr(wrapper, name, getattr(wrapper, name) + 1)
+    by_d = getattr(wrapper, name + "_by_d")
+    by_d[d] = by_d.get(d, 0) + 1
 
 
 def route_self_attention(seq: int, head_dim: int = HEAD_DIM, sharded: bool = False) -> str:
@@ -360,12 +377,14 @@ def _check_cuda(name: str, dtypes: tuple, *tensors: torch.Tensor) -> torch.dtype
     return dtype
 
 
-def _flash_entry(dtype: torch.dtype, d: int) -> str:
+def _flash_entry(dtype: torch.dtype, d: int, lse: bool = False) -> str:
     """The C entry of the flash kernel ``dtype_kernel`` names (which raises
     where there is none): ``gswm_flash_f32`` in float32, else
-    ``gswm_flash_split``; each dispatches on d."""
+    ``gswm_flash_split``; with ``lse`` each one's ``_lse`` entry.  Each
+    dispatches on d."""
     dtype_kernel(dtype, d)
-    return "gswm_flash_f32" if dtype == torch.float32 else "gswm_flash_split"
+    entry = "gswm_flash_f32" if dtype == torch.float32 else "gswm_flash_split"
+    return entry + "_lse" if lse else entry
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -548,11 +567,13 @@ def flash_attention_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CPU: the plain versions; CUDA: the kernel ``dtype_kernel`` names, any Sq
     and Sk: in bf16 csrc/flash_hopper.cu up to D = 64, flash_mid.cu to 160,
     flash_split.cu above, any D ``kernel_takes_head_dim`` takes
-    (``gswm_flash_split_lse`` with ``return_lse``); in float32 without
-    ``return_lse`` csrc/flash_f32.cu, at the same D.
+    (``gswm_flash_split_lse`` with ``return_lse``); in float32
+    csrc/flash_f32.cu, at the same D (``gswm_flash_f32_lse`` with
+    ``return_lse``).
     Launches with lse count in ``flash_attention_split.lse_launches`` (and
-    ``lse_launches_by_d``), the float32 ones in ``launches_f32`` (and
-    ``launches_f32_by_d``), the others in ``launches``."""
+    ``lse_launches_by_d``; float32: ``lse_launches_f32[_by_d]``), the
+    others in float32 in ``launches_f32`` (and ``launches_f32_by_d``), in
+    bf16 in ``launches``."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape or \
             q.shape[0] != k.shape[0] or q.shape[2:] != k.shape[2:]:
         raise ValueError(f"flash_attention_split: q {tuple(q.shape)}, k "
@@ -572,24 +593,20 @@ def flash_attention_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_split: unsupported device {q.device}")
     native.refuse_grad("flash_attention_split", q, k, v)
-    dtype = _check_cuda("flash_attention_split", BF16_ONLY if return_lse else KERNEL_DTYPES,
-                        q, k, v)
-    entry = _flash_entry(dtype, d)
+    dtype = _check_cuda("flash_attention_split", KERNEL_DTYPES, q, k, v)
+    entry = _flash_entry(dtype, d, return_lse)
     out = torch.empty_like(q)
     lib = native.library()
     with torch.cuda.device(q.device):
         if return_lse:
             lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-            lib.call("gswm_flash_split_lse", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                     out.data_ptr(), lse.data_ptr(), b, sq, sk, h, d,
-                     native.stream_handle(q.device))
+            lib.call(entry, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                     lse.data_ptr(), b, sq, sk, h, d, native.stream_handle(q.device))
         else:
             lib.call(entry, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
                      sk, h, d, native.stream_handle(q.device))
     if return_lse:
-        flash_attention_split.lse_launches += 1
-        by_d = flash_attention_split.lse_launches_by_d
-        by_d[d] = by_d.get(d, 0) + 1
+        _count(flash_attention_split, d, dtype, "lse_launches")
         return out, lse
     _count(flash_attention_split, d, dtype)
     return out
@@ -601,6 +618,8 @@ flash_attention_split.launches_f32 = 0
 flash_attention_split.launches_f32_by_d = {}
 flash_attention_split.lse_launches = 0
 flash_attention_split.lse_launches_by_d = {}
+flash_attention_split.lse_launches_f32 = 0
+flash_attention_split.lse_launches_f32_by_d = {}
 
 
 def flash_attention_sharded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -655,9 +674,11 @@ def flash_attention_packed(qkv: torch.Tensor) -> torch.Tensor:
     head_dim 64, whose lane layout is two d = 64 heads per 128 columns (odd
     head counts zero-pad the projection weights).
 
-    CPU: ``flash_attention_packed_reference``.  CUDA: the kernel of
-    csrc/flash_hopper.cu reading q, k and v as strided (B, S, 2P, 64) views
-    of the one array (bf16, any S)."""
+    CPU: ``flash_attention_packed_reference``.  CUDA, any S: in bf16 the
+    kernel of csrc/flash_hopper.cu reading q, k and v as strided (B, S, 2P,
+    64) views of the one array; in float32 csrc/flash_f32.cu's natural-layout
+    kernel on the same views (``gswm_flash_f32_packed``: row pitches of its
+    own)."""
     if qkv.dim() != 3 or qkv.shape[-1] % (3 * 128):
         raise ValueError(f"flash_attention_packed: qkv {tuple(qkv.shape)} is not "
                          "(B, S, 3 * P * 128)")
@@ -666,20 +687,23 @@ def flash_attention_packed(qkv: torch.Tensor) -> torch.Tensor:
     if qkv.device.type != "cuda":
         raise ValueError(f"flash_attention_packed: unsupported device {qkv.device}")
     native.refuse_grad("flash_attention_packed", qkv)
-    _check_cuda("flash_attention_packed", BF16_ONLY, qkv)
+    dtype = _check_cuda("flash_attention_packed", KERNEL_DTYPES, qkv)
     b, s, c3 = qkv.shape
     pairs = c3 // (3 * 128)
     out = qkv.new_empty((b, s, pairs * 128))
     lib = native.library()
     with torch.cuda.device(qkv.device):
-        lib.call("gswm_flash_packed", qkv.data_ptr(), out.data_ptr(), b, s, pairs,
+        lib.call("gswm_flash_f32_packed" if dtype == torch.float32 else "gswm_flash_packed",
+                 qkv.data_ptr(), out.data_ptr(), b, s, pairs,
                  native.stream_handle(qkv.device))
-    _count(flash_attention_packed, HEAD_DIM)
+    _count(flash_attention_packed, HEAD_DIM, dtype)
     return out
 
 
 flash_attention_packed.launches = 0
 flash_attention_packed.launches_by_d = {}
+flash_attention_packed.launches_f32 = 0
+flash_attention_packed.launches_f32_by_d = {}
 
 
 def flash_attention_transposed_reference(qkv_t: torch.Tensor,
@@ -700,14 +724,16 @@ def flash_attention_transposed(qkv_t: torch.Tensor, heads: int) -> torch.Tensor:
     -> (H*D, B, S), which ``to_out`` contracts over dim 0: the counterpart of
     ``gswm.ops.attention.flash_attention_transposed``.
 
-    CPU: ``flash_attention_transposed_reference`` (any D).  CUDA:
-    csrc/flash_transposed.cu's launcher (bf16, D as ``kernel_head_dim``
-    takes it, any B and S) and the kernel ``transposed_kernel`` names:
-    the design of D (flash_hopper.cu's narrow kernel at D <= 48 and
-    flash_mid.cu's at 64 < D <= 160, both with the transposed layout,
+    CPU: ``flash_attention_transposed_reference`` (any D).  CUDA, D as
+    ``kernel_head_dim`` takes it, any B and S, the kernel
+    ``transposed_kernel`` names: in bf16 csrc/flash_transposed.cu's
+    launcher and the design of D (flash_hopper.cu's narrow kernel at D <=
+    48 and flash_mid.cu's at 64 < D <= 160, both with the transposed layout,
     flash_transposed.cu's own at 64 and above 160), all on wgmma, its
-    boxes moved by TMA where S % 8 == 0 and by hand elsewhere.  Launches
-    also count by kernel, in
+    boxes moved by TMA where S % 8 == 0 and by hand elsewhere; in float32
+    csrc/flash_f32.cu's kernel with the transposed layout
+    (``gswm_flash_f32_transposed``: 16-byte copies where S % 4 == 0,
+    4-byte ones elsewhere).  Launches also count by kernel, in
     ``flash_attention_transposed.launches_by_kernel``."""
     if qkv_t.dim() != 3 or qkv_t.shape[0] % (3 * heads):
         raise ValueError(f"flash_attention_transposed: qkv_t {tuple(qkv_t.shape)} "
@@ -717,16 +743,17 @@ def flash_attention_transposed(qkv_t: torch.Tensor, heads: int) -> torch.Tensor:
     if qkv_t.device.type != "cuda":
         raise ValueError(f"flash_attention_transposed: unsupported device {qkv_t.device}")
     native.refuse_grad("flash_attention_transposed", qkv_t)
-    _check_cuda("flash_attention_transposed", BF16_ONLY, qkv_t)
+    dtype = _check_cuda("flash_attention_transposed", KERNEL_DTYPES, qkv_t)
     n3, b, s = qkv_t.shape
     d = n3 // (3 * heads)
-    kernel = transposed_kernel(d, s)
+    kernel = transposed_kernel(d, s, dtype)
     out = qkv_t.new_empty((heads * d, b, s))
     lib = native.library()
     with torch.cuda.device(qkv_t.device):
-        lib.call("gswm_flash_transposed", qkv_t.data_ptr(), out.data_ptr(), b, s,
+        lib.call("gswm_flash_f32_transposed" if dtype == torch.float32
+                 else "gswm_flash_transposed", qkv_t.data_ptr(), out.data_ptr(), b, s,
                  heads, d, native.stream_handle(qkv_t.device))
-    _count(flash_attention_transposed, d)
+    _count(flash_attention_transposed, d, dtype)
     by_kernel = flash_attention_transposed.launches_by_kernel
     by_kernel[kernel] = by_kernel.get(kernel, 0) + 1
     return out
@@ -734,4 +761,6 @@ def flash_attention_transposed(qkv_t: torch.Tensor, heads: int) -> torch.Tensor:
 
 flash_attention_transposed.launches = 0
 flash_attention_transposed.launches_by_d = {}
+flash_attention_transposed.launches_f32 = 0
+flash_attention_transposed.launches_f32_by_d = {}
 flash_attention_transposed.launches_by_kernel = {}

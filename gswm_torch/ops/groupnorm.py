@@ -13,10 +13,14 @@ optional SiLU, cast back to x's dtype.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises, and it raises under a gradient
-(``native.refuse_grad``): the kernel has no backward.
-``fused_group_norm.launches`` counts the launches: one kernel a call, which
-reads x once (a thread block cluster a group keeps it in shared memory
-between the sums and the normalisation) and needs no scratch memory.
+(``native.refuse_grad``): the kernel has no backward.  The kernel takes x in
+bfloat16 or float32 (the element type a template parameter; the output in
+x's dtype, float32 unrounded), as the JAX op's output takes its input's
+dtype (groupnorm.py:185).  ``fused_group_norm.launches`` counts the bf16
+launches, ``fused_group_norm.launches_f32`` the float32 ones: one kernel a
+call, which reads x once (a thread block cluster a group keeps it in shared
+memory between the sums and the normalisation) and needs no scratch
+memory.
 ``fused_group_norm_sharded`` runs it on each rank's rows of a batch sharded
 over a mesh's dp axis.
 """
@@ -62,16 +66,17 @@ def fused_group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                      act: str | None = None) -> torch.Tensor:
     """GroupNorm (+ optional SiLU) over (B, C, ...) ``x``; weight and bias
     (C,).  CPU: ``fused_group_norm_reference``.  CUDA: the kernel of
-    csrc/group_norm.cu (bf16 x, contiguous and 16-byte aligned; any C
-    divisible by ``groups``, any spatial size)."""
+    csrc/group_norm.cu (bf16 or float32 x, contiguous and 16-byte aligned;
+    any C divisible by ``groups``, any spatial size)."""
     _check_args(x, groups, act)
     if x.device.type == "cpu":
         return fused_group_norm_reference(x, weight, bias, groups, eps, act)
     if x.device.type != "cuda":
         raise ValueError(f"fused_group_norm: unsupported device {x.device}")
     native.refuse_grad("fused_group_norm", x, weight, bias)
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"fused_group_norm: the CUDA kernel takes bfloat16, got {x.dtype}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"fused_group_norm: the CUDA kernel takes torch.bfloat16 or "
+                        f"torch.float32, got {x.dtype}")
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("fused_group_norm: the CUDA kernel takes contiguous, "
                          "16-byte aligned x")
@@ -84,15 +89,20 @@ def fused_group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     w, bb = (p if p.dtype == torch.float32 and p.device == x.device and p.is_contiguous()
              else p.to(device=x.device, dtype=torch.float32).contiguous()
              for p in (weight, bias))
+    f32 = x.dtype == torch.float32
     out = torch.empty_like(x)
-    native.launch(x.device, "gswm_group_norm", x.data_ptr(), w.data_ptr(),
-                  bb.data_ptr(), out.data_ptr(), b, c, math.prod(x.shape[2:]), groups,
-                  float(eps), 1 if act == "silu" else 0)
-    fused_group_norm.launches += 1
+    native.launch(x.device, "gswm_group_norm_f32" if f32 else "gswm_group_norm", x.data_ptr(),
+                  w.data_ptr(), bb.data_ptr(), out.data_ptr(), b, c, math.prod(x.shape[2:]),
+                  groups, float(eps), 1 if act == "silu" else 0)
+    if f32:
+        fused_group_norm.launches_f32 += 1
+    else:
+        fused_group_norm.launches += 1
     return out
 
 
 fused_group_norm.launches = 0
+fused_group_norm.launches_f32 = 0
 
 
 def fused_group_norm_sharded(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,

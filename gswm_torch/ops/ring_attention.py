@@ -9,9 +9,10 @@ every query shard has seen every key.
 The JAX package runs each step's attention as plain XLA (an einsum with the
 online-softmax recurrence, ``_ring_attend_local``); the port runs it through
 the split flash kernel with its log-sum-exp output (``flash_attention_split``
-with ``return_lse``: csrc/flash_hopper.cu at d <= 64, csrc/flash_mid.cu to
-160, csrc/flash_split.cu above) and folds each step's normalised partial into a running fp32
-``(out, lse)``:
+with ``return_lse``: in bf16 csrc/flash_hopper.cu at d <= 64,
+csrc/flash_mid.cu to 160, csrc/flash_split.cu above; in float32
+csrc/flash_f32.cu's kernel at every d, ``gswm_flash_f32_lse``) and folds
+each step's normalised partial into a running fp32 ``(out, lse)``:
 
     lse' = logaddexp(lse, lse_i)
     out' = out * exp(lse - lse') + out_i * exp(lse_i - lse')

@@ -71,11 +71,14 @@ def _check_served_on_cuda(preset: ModelPreset, dtype: torch.dtype) -> None:
     40, 80 and 160, SD 2.x's and SDXL's 64), and at the fused-qkv sites'
     token counts a width the projection GEMM takes (a multiple of 64); the
     VAE's mid attention runs the split kernel at d = 512 above
-    ``VAE_FLASH_MIN_TOKENS``.  In bfloat16 and in float32 the kernels of
-    the default route serve all of them (float32: csrc/qkv_proj_f32.cu's
-    GEMM and csrc/flash_f32.cu's core, in the natural layout: sd-2-1, sd-2-0, sd-1-4 and sdxl-base and
-    their base presets); no other dtype has a kernel.  A preset that stays
-    below every kernel (``tiny``) runs plain attention in any dtype."""
+    ``VAE_FLASH_MIN_TOKENS``.  In bfloat16 and in float32 the kernels serve
+    all of them on every route the reference's switches pick (float32:
+    csrc/qkv_proj_f32.cu's GEMM and csrc/flash_f32.cu's core in the natural,
+    pair-packed and transposed layouts and with the log-sum-exp: sd-2-1,
+    sd-2-0, sd-1-4 and sdxl-base and their base presets, under every switch
+    set, the ring and the GroupNorm op too); no other dtype has a kernel.  A
+    preset that stays below every kernel (``tiny``) runs plain attention in
+    any dtype."""
     unet = preset.unet
     latent = preset.default_resolution // 8
     channels = unet.block_out_channels
@@ -170,8 +173,9 @@ class InversablePipeline:
         CUDA device only what the kernels serve is built
         (``_check_served_on_cuda``): bfloat16 and float32 at head dims
         d % 8 == 0 up to 512 (SD 1.x's 40, 80, 160; SD 2.x's and SDXL's 64;
-        the VAE's 512), so every preset in either; a float32 pipeline's
-        calls there run with TF32 off (``exact_float32``)."""
+        the VAE's 512), so every preset in either, under every attention
+        switch set (``ops.attention.route_self_attention``); a float32
+        pipeline's calls there run with TF32 off (``exact_float32``)."""
         if isinstance(preset, str):
             preset = PRESETS[preset]
         self.preset = preset

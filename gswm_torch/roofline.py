@@ -17,8 +17,9 @@ instruction throughput), at the 1.83 GHz that the bf16 peak implies
 3.865e12 a second.  Per logit the tensor cores need 4 * d FLOP, so the two
 roofs are equal at d = 64 and the exponentials bind below it.
 
-Float32 kernels (csrc/qkv_proj_f32.cu, csrc/flash_f32.cu) move 4 bytes an
-element, and their products must have fp32 accuracy: the least time the
+Float32 kernels (csrc/qkv_proj_f32.cu, csrc/flash_f32.cu in each of its
+forms, csrc/group_norm.cu on float32) move 4 bytes an element, and their
+products must have fp32 accuracy: the least time the
 card gives such products in is 3xTF32 on the tensor cores (each operand
 split into a big and a small TF32 part, three products), a third of the
 dense TF32 rate, ``PEAK_F32_PRODUCTS``.  TF32 alone keeps a 10-bit
@@ -91,12 +92,13 @@ def fused_qkv_cost(b: int, s: int, c: int, h: int,
     return proj + attn, BF16 * (b * s * c + 3 * n * c + b * s * n), exps
 
 
-def group_norm_cost(shape: tuple[int, ...]) -> tuple[int, int]:
-    """(FLOP, bytes) of GroupNorm (+ SiLU) on a bf16 NCHW tensor: one read
-    and one write, and some 8 fp32 operations an element (two moments,
-    normalise, affine, activation)."""
+def group_norm_cost(shape: tuple[int, ...], elem: int = BF16) -> tuple[int, int]:
+    """(FLOP, bytes) of GroupNorm (+ SiLU) on an NCHW tensor of ``elem``
+    bytes an element (bf16 by default; float32: 4): one read and one write,
+    and some 8 fp32 operations an element (two moments, normalise, affine,
+    activation)."""
     n = math.prod(shape)
-    return 8 * n, 2 * BF16 * n
+    return 8 * n, 2 * elem * n
 
 
 def chacha_cost(n_blocks: int) -> tuple[int, int]:

@@ -34,7 +34,13 @@ entry points on the same tensors, so nothing but the kernels differs:
     ``gswm_flash_f32`` at ``paths.F32_FLASH_SHAPES`` (natural layout, Sq =
     Sk) and ``paths.F32_SPLIT_SHAPES`` (Sq != Sk too), N(0, 1) fp32 q, k
     and v (both sides must take every width of the shapes chosen: against
-    a checkout whose entry takes d = 64 alone, ``--match ", 64)"``);
+    a checkout whose entry takes d = 64 alone, ``--match ", 64)"``); then
+    this checkout's other forms of csrc/flash_f32.cu against its natural
+    one on the same q, k and v, in turns (natural, form, form, natural):
+    the pair-packed form at ``paths.F32_PACKED_SHAPES``, the transposed one
+    at ``paths.F32_TRANSPOSED_SHAPES`` and ``F32_TRANSPOSED_WORD_SHAPES``
+    (and its forced 4-byte copies beside, where S % 4 == 0), the
+    log-sum-exp one at ``paths.F32_LSE_SHAPES``;
   * GroupNorm (K8) and ChaCha20 (K3) through each side's own wrappers, host
     side included (their C signatures may differ between the checkouts): K8
     at every GroupNorm shape of the 768x768 path, summed, and at
@@ -46,7 +52,9 @@ entry points on the same tensors, so nothing but the kernels differs:
 ``--match`` keeps only the attention cases whose label holds TEXT (say
 ``"K2 (4, 4096, 8, "`` for K2 at SD 1.x's level 0 and the narrow widths).
 ``--require-equal`` fails unless every attention case's two outputs are
-equal bit for bit (a change that must leave the kernels' results alone);
+equal bit for bit (a change that must leave the kernels' results alone),
+every float32 form's output equals the natural form's, and, with ``k8``
+among the cases, every K8 output equals the parent's;
 ``--except-head-dims LO-HI`` exempts the cases whose head dim lies in
 [LO, HI] (the widths a change hands to a new kernel), whose difference is
 printed all the same; ``--except-transposed`` does so for K7's cases alone
@@ -376,6 +384,8 @@ def main() -> None:
         result["lse"] = compare_lse(libs, rand, stream, args.iters, args.match)
     if "f32" in cases:
         result["f32"] = compare_f32(libs, stream, args.iters, args.match)
+        result["f32_forms"] = compare_f32_forms(libs["change"], stream, args.iters,
+                                                args.match)
     print(json.dumps(result))
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
@@ -400,10 +410,17 @@ def main() -> None:
         differ += [case for case in result.get("transposed", []) if exempt("transposed", case)
                    and case["shape"][1] % 8 and case["natural_max_abs_diff"] != 0.0
                    and (case["head_dim"] <= 48 or 64 < case["head_dim"] <= 160)]
+        # the float32 forms: bit-equal to this checkout's natural form
+        forms = result.get("f32_forms", [])
+        differ += [case for case in forms if case["natural_max_abs_diff"] != 0.0]
+        gn_cases = result.get("group_norm", {}).get("cases", [])
+        differ += [case for case in gn_cases if case["max_abs_diff"] != 0.0]
         if differ:
             raise SystemExit(f"compare_kernels: {len(differ)} attention cases differ from "
                              f"the parent's: {[c.get('label', c['shape']) for c in differ]}")
         print(f"all {len(held)} attention outputs held equal the parent's, bit for bit"
+              + (f"; {len(forms)} float32 forms equal the natural form's" if forms else "")
+              + (f"; {len(gn_cases)} K8 outputs equal the parent's" if gn_cases else "")
               + (f" (head dims {lo}-{hi} exempt)" if lo <= hi else "")
               + (f" (K7 at head dims {args.except_transposed} exempt; at S % 8 != 0 on "
                  "the natural layout's designs held to its kernel instead)"
@@ -569,6 +586,96 @@ def compare_f32(libs: dict, stream: int, iters: int, match: str = "") -> list:
         out_cases.append(dict(label=label, shape=[b, sq, sk, h, d], head_dim=d, **t,
                               bound_ms=bound, roof=roof, max_abs_diff=diff))
         del q, k, v, outs
+    return out_cases
+
+
+F32_FORM_ROUNDS = ("natural", "form", "form", "natural")
+
+
+def compare_f32_forms(lib, stream: int, iters: int, match: str = "") -> list:
+    """This checkout's pair-packed, transposed and log-sum-exp forms of the
+    float32 core against its natural form (``gswm_flash_f32``) on the same
+    q, k and v, in turns; each case's ``natural_max_abs_diff`` is the
+    largest difference of the form's output from the natural form's (0:
+    bit-equal), and the transposed form's 4-byte copies are held to its
+    16-byte ones where S % 4 == 0.  Only the cases whose label holds
+    ``match``."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(20)
+
+    def natural(q, k, v, out):
+        b, sq, h, d = q.shape
+        lib.call("gswm_flash_f32", q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 b, sq, k.shape[1], h, d, stream)
+
+    cases = []
+    for b, s, h in paths.F32_PACKED_SHAPES:
+        pairs = paths.pairs_of(h)
+        cases.append((f"f32 packed ({b}, {s}, {h})", "packed", (b, s, 2 * pairs, 64), pairs))
+    for b, s, h, d in (*paths.F32_TRANSPOSED_SHAPES, *paths.F32_TRANSPOSED_WORD_SHAPES):
+        cases.append((f"f32 transposed ({b}, {s}, {h}, {d})", "transposed", (b, s, h, d), 0))
+    for b, s, h, d in paths.F32_LSE_SHAPES:
+        cases.append((f"f32 lse ({b}, {s}, {h}, {d})", "lse", (b, s, h, d), 0))
+    out_cases = []
+    for label, form, (b, s, h, d), pairs in cases:
+        if match not in label:
+            continue
+        extra = {}
+        if form == "packed":
+            qkv = torch.randn((b, s, 3 * pairs * 128), generator=g, device=dev)
+            q, k, v = (t.reshape(b, s, h, d).contiguous() for t in qkv.split(pairs * 128, -1))
+            got = qkv.new_empty((b, s, pairs * 128))
+
+            def run(qkv=qkv, got=got, b=b, s=s, pairs=pairs):
+                lib.call("gswm_flash_f32_packed", qkv.data_ptr(), got.data_ptr(), b, s,
+                         pairs, stream)
+
+            def as_natural(out, b=b, s=s):
+                return out.reshape(b, s, -1)
+        elif form == "transposed":
+            qkv = torch.randn((3 * h * d, b, s), generator=g, device=dev)
+            q, k, v = (t.permute(2, 3, 0, 1).contiguous() for t in qkv.view(3, h, d, b, s))
+            got = qkv.new_empty((h * d, b, s))
+
+            def run(qkv=qkv, got=got, b=b, s=s, h=h, d=d,
+                    entry="gswm_flash_f32_transposed"):
+                lib.call(entry, qkv.data_ptr(), got.data_ptr(), b, s, h, d, stream)
+
+            def as_natural(out, b=b, s=s, h=h, d=d):
+                return out.permute(2, 3, 0, 1).reshape(h * d, b, s)
+        else:
+            q, k, v = (torch.randn((b, s, h, d), generator=g, device=dev) for _ in range(3))
+            got = torch.empty_like(q)
+            lse = torch.empty((b, h, s), device=dev)
+
+            def run(q=q, k=k, v=v, got=got, lse=lse, b=b, s=s, h=h, d=d):
+                lib.call("gswm_flash_f32_lse", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         got.data_ptr(), lse.data_ptr(), b, s, s, h, d, stream)
+
+            def as_natural(out):
+                return out
+        nat = torch.empty_like(q)
+        n = 3 if s * d >= 9216 * 512 else iters
+        t = in_turns({"natural": lambda q=q, k=k, v=v, nat=nat: natural(q, k, v, nat),
+                      "form": run}, n, F32_FORM_ROUNDS)
+        diff = (as_natural(nat) - got).abs().max().item()
+        if form == "transposed" and s % 4 == 0:  # the forced 4-byte copies beside
+            words = torch.empty_like(got)
+            extra = dict(word_copies_ms=time_ms(lambda words=words: run(
+                got=words, entry="gswm_flash_f32_transposed_4byte"), n))
+            extra["word_max_abs_diff"] = (words - got).abs().max().item()
+            diff = max(diff, extra["word_max_abs_diff"])
+        bound, roof = roofline.attention_bound_ms(
+            roofline.attention_cost(b, s, s, h, d, lse=form == "lse", elem=roofline.F32),
+            roofline.PEAK_F32_PRODUCTS)
+        print(f"{label}: natural {t['natural']} {form} {t['form']} ms, bound {bound:.4f} ms "
+              f"by {roof} (3xTF32), max|natural - {form}| {diff}"
+              + (f"; 4-byte copies {extra['word_copies_ms']:.4f} ms, max|16-byte - 4-byte| "
+                 f"{extra['word_max_abs_diff']}" if extra else ""), flush=True)
+        out_cases.append(dict(label=label, kind=form, shape=[b, s, h, d], head_dim=d, **t,
+                              bound_ms=bound, roof=roof, natural_max_abs_diff=diff, **extra))
+        del q, k, v, got, nat
+        torch.cuda.empty_cache()
     return out_cases
 
 

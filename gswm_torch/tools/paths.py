@@ -200,6 +200,23 @@ MULTIDEVICE_SEED = 1313
 # and the UNet's level-0 one, the two whose times the records quote
 K8_PROBE_CASES = (((1, 128, 768, 768), "silu"), ((2, 320, 96, 96), "silu"))
 
+# Phase 13 (a), the float32 forms of the kernels off the default route:
+# K6 (B, S, H), the pair-packed layout at level 0 (LEVEL0_SHAPES: 768x768
+# at batch 2 and 4, 512x512, a ragged one); K7 (B, S, H, D), the
+# transposed layout at SD 2.x's level 0 (768x768, batch 2 and 4), SD 1.x's
+# three widths at 512x512 and its level 2 at 576x576 (324 tokens), SDXL's
+# level 2 at 832x1216 (988 tokens) and the widest head, all with 16-byte
+# copies (S % 4 == 0), and at an odd S, where its tiles come by 4-byte ones;
+# K4 with its log-sum-exp (B, S, H, D) at the ring's shapes (LSE_SHAPES:
+# d = 64, 40, 80, and 512 at 16,384 tokens); K8 in float32 at every
+# GroupNorm shape of the 768x768 path and K8_PROBE_CASES
+F32_PACKED_SHAPES = LEVEL0_SHAPES
+F32_TRANSPOSED_SHAPES = ((2, 9216, 5, 64), (4, 9216, 5, 64), (4, 4096, 8, 40),
+                         (4, 1024, 8, 80), (4, 256, 8, 160), (8, 324, 8, 160),
+                         (2, 988, 20, 64), (1, 1024, 1, 512))
+F32_TRANSPOSED_WORD_SHAPES = ((1, 1001, 3, 64), (1, 1001, 2, 160))
+F32_LSE_SHAPES = LSE_SHAPES
+
 # The JAX package's switch sets that move the UNet's level-0 and level-1/2
 # self-attention off the default route: (a) cres -> K2, (b) packed K6, (c)
 # transposed K7, (d) seqhead -> K1, (e) no fused qkv -> K4 at level 1
@@ -268,13 +285,14 @@ def attention_sites(preset: str, height: int, width: int) -> list:
     return sites + [last] * cfg.depth_for(len(cfg.block_out_channels) - 1)
 
 
-def predicted_launches(preset: str, height: int, width: int, switches: dict) -> tuple:
-    """What one UNet forward of ``preset`` on height x width images launches
-    under ``switches`` (``route_switches``), from the route of every site
-    (``attention_sites``): ({wrapper: {head dim: launches}}, {K7's kernel, as
-    ``ops.attention.transposed_kernel`` names it: launches}).  Plain attention
-    and the split wrapper's einsum branch (below ``SPLIT_MIN_KEYS`` keys)
-    launch nothing."""
+def predicted_launches(preset: str, height: int, width: int, switches: dict,
+                       dtype: torch.dtype = torch.bfloat16) -> tuple:
+    """What one UNet forward of ``preset`` on height x width images in
+    ``dtype`` launches under ``switches`` (``route_switches``), from the
+    route of every site (``attention_sites``): ({wrapper: {head dim:
+    launches}}, {K7's kernel, as ``ops.attention.transposed_kernel`` names it
+    in that dtype: launches}).  Plain attention and the split wrapper's
+    einsum branch (below ``SPLIT_MIN_KEYS`` keys) launch nothing."""
     from gswm_torch.ops import attention as attn
 
     by_d, by_kernel = {}, {}
@@ -286,7 +304,7 @@ def predicted_launches(preset: str, height: int, width: int, switches: dict) -> 
             per = by_d.setdefault(ROUTE_WRAPPERS[route], {})
             per[d] = per.get(d, 0) + 1
             if route == "transposed":
-                kernel = attn.transposed_kernel(d, s)
+                kernel = attn.transposed_kernel(d, s, dtype)
                 by_kernel[kernel] = by_kernel.get(kernel, 0) + 1
     return by_d, by_kernel
 
@@ -397,15 +415,15 @@ def groupnorm_hooks(pipe, hook):
 
 def drive_groupnorm_sites(pipe) -> None:
     """One UNet forward at batch 2 and at 4 (guidance), one VAE decode of
-    one image and one encode of two, at 768x768."""
+    one image and one encode of two, at 768x768, in the pipeline's dtype."""
     with torch.inference_mode():
         for b in (BATCH_768, 2 * BATCH_768):
             pipe.unet(*unet_inputs(pipe, b))
         g = torch.Generator(device="cuda").manual_seed(3)
         pipe.vae.decode(torch.randn((1, 4, RES_768 // 8, RES_768 // 8), generator=g,
-                                    device="cuda", dtype=torch.bfloat16))
+                                    device="cuda", dtype=pipe.dtype))
         pipe.vae.encode(torch.rand((BATCH_768, 3, RES_768, RES_768), generator=g,
-                                   device="cuda", dtype=torch.bfloat16) * 2 - 1)
+                                   device="cuda", dtype=pipe.dtype) * 2 - 1)
     torch.cuda.synchronize()
 
 

@@ -135,6 +135,30 @@ def test_split_matches_jax_flash_attention_in_fp32(b, sq, sk, h, d):
     assert _rel(got.numpy(), want) <= REL
 
 
+@pytest.mark.parametrize("b,sq,sk,h,d", [
+    (2, 300, 577, 3, 64), (1, 577, 1001, 2, 40), (2, 130, 600, 2, 80),
+    (1, 64, 1024, 1, 512)], ids=["d64", "d40", "d80", "d512"])
+def test_split_lse_matches_jax_logsumexp_in_fp32(b, sq, sk, h, d):
+    """K4 with its log-sum-exp in fp32 (the ring's per-step kernel, whose
+    function ``flash_attention_split_lse_reference`` is): the lse against
+    ``jax.nn.logsumexp`` of the JAX logits q k^T d^-0.5 within 1e-5 of
+    max(1, max |lse|), the output against the Pallas ``flash_attention`` in
+    interpret mode within REL, past 512 keys with ragged tails."""
+    q = _rand((b, sq, h, d), 110 + d)
+    k, v = (_rand((b, sk, h, d), i + d) for i in (111, 112))
+    jq, jk, jv = (jnp.asarray(t) for t in (q, k, v))
+    jlogits = jnp.einsum("bqhd,bkhd->bhqk", jq, jk) * d**-0.5
+    want_lse = np.asarray(jax.nn.logsumexp(jlogits, axis=-1))
+    want = np.asarray(jattn.flash_attention(jq, jk, jv, interpret=True))
+    before = attn.flash_attention_split.lse_launches_f32
+    out, lse = attn.flash_attention_split(*(torch.from_numpy(t) for t in (q, k, v)),
+                                          return_lse=True)
+    assert attn.flash_attention_split.lse_launches_f32 == before  # CPU: plain version
+    assert out.dtype == lse.dtype == torch.float32 and lse.shape == (b, h, sq)
+    assert np.abs(lse.numpy() - want_lse).max() <= 1e-5 * max(1.0, np.abs(want_lse).max())
+    assert _rel(out.numpy(), want) <= REL
+
+
 def test_vae_attention_matches_jax_in_fp32(monkeypatch):
     """The VAE's mid attention layer in fp32 above ``VAE_FLASH_MIN_TOKENS``
     (65 x 65 = 4225 tokens, one head of d = 512): the port's split wrapper
@@ -345,26 +369,32 @@ def test_narrowed_sd14_closed_loop_bits_equal_jax_in_fp32(sd14_pipes, monkeypatc
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16],
                          ids=str)
 def test_dtype_kernel_names_the_float32_kernel(dtype, d, layout):
-    """bf16: the kernel ``head_dim_kernel`` names; fp32 in the natural
-    layout: csrc/flash_f32.cu's kernel at d's count of 64-column panels; a
-    TypeError naming float32 in the transposed layout; float16: a TypeError
-    naming it."""
+    """bf16: the kernel ``head_dim_kernel`` names; fp32: csrc/flash_f32.cu's
+    kernel at d's count of 64-column panels, in the transposed layout its
+    transposed instance; float16: a TypeError naming it."""
     if dtype == torch.bfloat16:
         assert attn.dtype_kernel(dtype, d, layout) == attn.head_dim_kernel(d, layout)[0]
     elif dtype == torch.float32 and layout == "natural":
         assert attn.dtype_kernel(dtype, d, layout) == f"flash_f32_kernel<{(d + 63) // 64}>"
         assert attn._flash_entry(dtype, d) == "gswm_flash_f32"
+    elif dtype == torch.float32:
+        assert attn.dtype_kernel(dtype, d, layout) == \
+            f"flash_f32_kernel<{(d + 63) // 64}, transposed>"
     else:
         with pytest.raises(TypeError, match=str(dtype)):
             attn.dtype_kernel(dtype, d, layout)
 
 
 def test_dtype_kernel_keeps_the_head_dim_and_layout_checks():
+    """A head dim no kernel takes, a layout that does not exist, and the
+    pair-packed layout (d = 64 alone) at another d: ValueError."""
     for dtype in (torch.bfloat16, torch.float32):
         with pytest.raises(ValueError):
             attn.dtype_kernel(dtype, 36)
         with pytest.raises(ValueError):
-            attn.dtype_kernel(dtype, 64, "packed")
+            attn.dtype_kernel(dtype, 64, "diagonal")
+        with pytest.raises(ValueError):
+            attn.dtype_kernel(dtype, 80, "packed")
 
 
 def test_float32_costs_and_bounds():

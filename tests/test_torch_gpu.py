@@ -341,7 +341,7 @@ def test_kernel_wrappers_reject_what_they_do_not_take(cuda):
         attn.flash_attention(xb, xb, xb, 3)  # 128 != 3 x 64
     q4 = torch.randn((1, 600, 1, 128), device=cuda)
     with pytest.raises(TypeError):
-        attn.flash_attention_split(q4, q4, q4, return_lse=True)  # fp32 with lse
+        attn.flash_attention_split(*(q4.half(),) * 3, return_lse=True)  # fp16 with lse
     qb = q4.bfloat16()
     with pytest.raises(ValueError):
         attn.flash_attention_split(qb[..., :96], qb[..., :96], qb[..., :96])  # strided
@@ -449,26 +449,27 @@ def test_f32_split_kernel_matches_plain(cuda, b, sq, sk, h):
 
 
 def _f32_refusals(cuda):
-    """(label, call, the dtype its message must name) where no fp32 kernel,
-    or no kernel at all, takes the tensors."""
-    f32 = dict(device=cuda, dtype=torch.float32)
+    """(label, call, the dtype its message must name) where no kernel takes
+    the tensors: float16 in every wrapper (float32 runs everywhere since the
+    packed, transposed and log-sum-exp forms of flash_f32.cu), float64."""
     half = dict(device=cuda, dtype=torch.float16)
-    q64 = torch.zeros((1, 600, 2, 64), **f32)
-    q512 = torch.zeros((1, 600, 1, 512), **f32)
+    q64 = torch.zeros((1, 600, 2, 64), **half)
+    q512 = torch.zeros((1, 600, 1, 512), dtype=torch.float64, device=cuda)
     h64 = torch.zeros((1, 64, 128), **half)
     h512 = torch.zeros((1, 600, 1, 512), **half)
     return [
-        ("K4 with lse", lambda: attn.flash_attention_split(q64, q64, q64, return_lse=True),
-         "float32"),
-        ("K4 with lse at d = 512",
-         lambda: attn.flash_attention_split(q512, q512, q512, return_lse=True), "float32"),
-        ("K6", lambda: attn.flash_attention_packed(torch.zeros((1, 64, 384), **f32)),
-         "float32"),
-        ("K7", lambda: attn.flash_attention_transposed(torch.zeros((384, 1, 64), **f32), 2),
-         "float32"),
-        ("K7 at d = 80",
-         lambda: attn.flash_attention_transposed(torch.zeros((480, 1, 64), **f32), 2),
-         "float32"),
+        ("K4 with lse in float16",
+         lambda: attn.flash_attention_split(q64, q64, q64, return_lse=True), "float16"),
+        ("K4 with lse at d = 512 in float64",
+         lambda: attn.flash_attention_split(q512, q512, q512, return_lse=True), "float64"),
+        ("K6 in float16", lambda: attn.flash_attention_packed(torch.zeros((1, 64, 384), **half)),
+         "float16"),
+        ("K7 in float16",
+         lambda: attn.flash_attention_transposed(torch.zeros((384, 1, 64), **half), 2),
+         "float16"),
+        ("K7 at d = 80 in float16",
+         lambda: attn.flash_attention_transposed(torch.zeros((480, 1, 64), **half), 2),
+         "float16"),
         ("K2 in float16", lambda: attn.flash_attention(h64, h64, h64, 2), "float16"),
         ("K1's GEMM in float16",
          lambda: attn.qkv_projection(h64, *(torch.zeros((128, 128), **half),) * 3),
@@ -483,8 +484,8 @@ def _f32_refusals(cuda):
 
 @pytest.mark.parametrize("case", range(9))
 def test_f32_wrappers_raise_where_no_kernel_takes_it(cuda, case):
-    """K4 with lse, K6 and K7 in fp32, and float16: a TypeError naming the
-    dtype, and no launch (no plain version either)."""
+    """float16 (and float64) in every wrapper: a TypeError naming the dtype,
+    and no launch (no plain version either)."""
     label, call, dtype = _f32_refusals(cuda)[case]
     wrappers = (attn.flash_attention, attn.fused_qkv_attention, attn.flash_attention_split,
                 attn.flash_attention_packed, attn.flash_attention_transposed)
@@ -505,6 +506,8 @@ def _f32_served(cuda):
     q80 = [rand(1, 64, 2 * 80) for _ in range(3)]
     x640, w80 = rand(1, 256, 640), [rand(640, 640, scale=640**-0.5) for _ in range(3)]
     q128 = [rand(1, 600, 2, 128) for _ in range(3)]
+    qkv = rand(2, 577, 3 * 2 * 128)
+    qkv_t = rand(3 * 3 * 80, 2, 1001)
     vae = layers.VAEAttention(512).to(cuda).requires_grad_(False)
     x65 = rand(1, 512, 65, 65)
     with torch.no_grad():
@@ -523,6 +526,11 @@ def _f32_served(cuda):
         # attention over 65 x 65 tokens takes K4 at d = 512
         ("the VAE's attention above 4096 tokens", attn.flash_attention_split,
          lambda: vae(x65), lambda: _plain_split(lambda: vae(x65)), 512),
+        ("K6", attn.flash_attention_packed, lambda: attn.flash_attention_packed(qkv),
+         lambda: attn.flash_attention_packed_reference(qkv), 64),
+        ("K7 at d = 80, S = 1001", attn.flash_attention_transposed,
+         lambda: attn.flash_attention_transposed(qkv_t, 3),
+         lambda: attn.flash_attention_transposed_reference(qkv_t, 3), 80),
     ]
 
 
@@ -533,11 +541,12 @@ def _plain_split(call):
         return call()
 
 
-@pytest.mark.parametrize("case", range(4))
+@pytest.mark.parametrize("case", range(6))
 def test_f32_wrappers_serve_what_they_refused_before(cuda, case):
-    """fp32 at d = 80 (K2, K1) and 128 (K4), and the VAE's attention in fp32
-    above 4096 tokens (K4 at d = 512): one fp32 launch, counted at its head
-    dim, no bf16 launch, within F32_BOUND of the plain version."""
+    """fp32 at d = 80 (K2, K1) and 128 (K4), the VAE's attention in fp32
+    above 4096 tokens (K4 at d = 512), K6 and K7: one fp32 launch, counted
+    at its head dim, no bf16 launch, within F32_BOUND of the plain
+    version."""
     label, wrapper, call, plain, d = _f32_served(cuda)[case]
     before, by_d = _launches(wrapper), _f32_by_d(wrapper)[0]
     with torch.inference_mode():
@@ -586,6 +595,166 @@ def test_f32_flash_kernels_any_head_dim(cuda, d, sq, sk):
         assert_f32_close(got[:, :, i], want[:, :, i])
     ones = _f32_call(q, k, torch.ones_like(v))
     assert (ones - 1).abs().max().item() <= 1e-5
+
+
+def _f32_lse_call(q, k, v):
+    """The fp32 core with its log-sum-exp through its C entry, at any Sq and
+    Sk (the split wrapper takes its einsum branch below 512 keys)."""
+    from gswm_torch import native
+
+    b, sq, h, d = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), device=q.device)
+    native.library().call("gswm_flash_f32_lse", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          out.data_ptr(), lse.data_ptr(), b, sq, k.shape[1], h, d,
+                          native.stream_handle(q.device))
+    return out, lse
+
+
+@pytest.mark.parametrize("sq,sk", F32_LENGTHS)
+@pytest.mark.parametrize("d", F32_HEAD_DIMS)
+def test_f32_lse_kernel_any_head_dim(cuda, d, sq, sk):
+    """K4 + lse in fp32 at every panel count, Sq != Sk: the output bit-equal
+    to the call without lse, the lse within 1e-5 of max(1, max |lse|) of
+    float64 logsumexp of the logits, rows past Sq unwritten."""
+    b, h = 2, 3
+    g = torch.Generator(device=cuda).manual_seed(d * 11 + sq + sk)
+    q = torch.randn((b, sq, h, d), generator=g, device=cuda)
+    k, v = (torch.randn((b, sk, h, d), generator=g, device=cuda) for _ in range(2))
+    out, lse = _f32_lse_call(q, k, v)
+    assert torch.equal(out, _f32_call(q, k, v))
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double()) * d**-0.5
+    want = torch.logsumexp(logits, -1)
+    assert lse.shape == want.shape
+    assert (lse.double() - want).abs().max().item() <= 1e-5 * max(1.0, want.abs().max().item())
+
+
+def test_f32_lse_wrapper_counts_apart(cuda):
+    """``flash_attention_split(..., return_lse=True)`` in fp32 launches the
+    fp32 kernel with its lse, counted on ``lse_launches_f32[_by_d]`` alone."""
+    split = attn.flash_attention_split
+    g = torch.Generator(device=cuda).manual_seed(2020)
+    q = torch.randn((2, 600, 2, 40), generator=g, device=cuda)
+    k, v = (torch.randn((2, 1001, 2, 40), generator=g, device=cuda) for _ in range(2))
+    before = (split.launches, split.launches_f32, split.lse_launches,
+              split.lse_launches_f32, dict(split.lse_launches_f32_by_d))
+    out, lse = split(q, k, v, return_lse=True)
+    assert (split.launches, split.launches_f32, split.lse_launches,
+            split.lse_launches_f32) == (*before[:3], before[3] + 1)
+    assert split.lse_launches_f32_by_d[40] == before[4].get(40, 0) + 1
+    want, want_lse = attn.flash_attention_split_lse_reference(q, k, v)
+    assert_f32_close(out, want)
+    assert (lse - want_lse).abs().max().item() <= 1e-5 * max(1.0, want_lse.abs().max().item())
+
+
+@pytest.mark.parametrize("b,s,h", [(1, 1, 1), (2, 577, 3), (1, 1001, 2), (2, 4096, 5),
+                                   (4, 256, 20)])
+def test_f32_packed_kernel_matches_plain_and_the_natural_kernel(cuda, b, s, h):
+    """K6 in fp32 at ragged S and odd head counts (a zero pad head): within
+    F32_BOUND of the plain version, each head on its own scale, and bit-equal
+    to the natural form on the same heads made contiguous."""
+    pairs = -(-h // 2)
+    g = torch.Generator(device=cuda).manual_seed(s * 3 + h)
+    qkv = torch.randn((b, s, 3 * pairs * 128), generator=g, device=cuda)
+    before = _launches(attn.flash_attention_packed)
+    got = attn.flash_attention_packed(qkv)
+    assert _one_more_f32(before, _launches(attn.flash_attention_packed))
+    want = attn.flash_attention_packed_reference(qkv)
+    for i in range(h):
+        assert_f32_close(got[..., 64 * i:64 * i + 64], want[..., 64 * i:64 * i + 64])
+    q, k, v = (t.reshape(b, s, 2 * pairs, 64).contiguous() for t in qkv.split(pairs * 128, -1))
+    assert torch.equal(got, _f32_call(q, k, v).reshape(b, s, pairs * 128))
+
+
+def _f32_transposed(qkv_t, h, entry="gswm_flash_f32_transposed"):
+    from gswm_torch import native
+
+    n3, b, s = qkv_t.shape
+    out = qkv_t.new_empty((n3 // 3, b, s))
+    native.library().call(entry, qkv_t.data_ptr(), out.data_ptr(), b, s, h, n3 // (3 * h),
+                          native.stream_handle(qkv_t.device))
+    return out
+
+
+@pytest.mark.parametrize("s", [1, 64, 577, 1001, 1024, 324])
+@pytest.mark.parametrize("d", F32_HEAD_DIMS)
+def test_f32_transposed_kernel_any_head_dim(cuda, d, s):
+    """K7 in fp32 at every panel count, at S = 1, 577 and 1001 (4-byte
+    copies) and 64, 1024, 324 (16-byte ones): two batches, three heads,
+    each head within F32_BOUND of the plain version; bit-equal to the
+    natural form on the same q, k and v, and the 4-byte form bit-equal to
+    the 16-byte one; counted by the kernel ``transposed_kernel`` names."""
+    b, h = 2, 3
+    g = torch.Generator(device=cuda).manual_seed(d * 5 + s)
+    qkv_t = torch.randn((3 * h * d, b, s), generator=g, device=cuda)
+    kernel = attn.transposed_kernel(d, s, torch.float32)
+    by_kernel = attn.flash_attention_transposed.launches_by_kernel
+    before = (by_kernel.get(kernel, 0), _launches(attn.flash_attention_transposed))
+    got = attn.flash_attention_transposed(qkv_t, h)
+    assert by_kernel[kernel] == before[0] + 1
+    assert _one_more_f32(before[1], _launches(attn.flash_attention_transposed))
+    want = attn.flash_attention_transposed_reference(qkv_t, h)
+    for i in range(h):
+        assert_f32_close(got[i * d:(i + 1) * d], want[i * d:(i + 1) * d])
+    q, k, v = (t.permute(2, 3, 0, 1).contiguous() for t in qkv_t.view(3, h, d, b, s))
+    assert torch.equal(got, _f32_call(q, k, v).permute(2, 3, 0, 1).reshape(h * d, b, s))
+    assert torch.equal(got, _f32_transposed(qkv_t, h, "gswm_flash_f32_transposed_4byte"))
+    ones = qkv_t.clone()
+    ones[2 * h * d:] = 1.0  # v = 1: no key of the other batch or past S is weighed
+    assert (_f32_transposed(ones, h) - 1).abs().max().item() <= 1e-5
+
+
+def test_f32_transposed_output_stays_in_place(cuda):
+    """The (H D, B, S) output between guard regions: nothing written past
+    it at an odd S (4-byte copies) or in another head's rows."""
+    b, s, h, d = 2, 1001, 2, 80
+    g = torch.Generator(device=cuda).manual_seed(7)
+    qkv_t = torch.randn((3 * h * d, b, s), generator=g, device=cuda)
+    from gswm_torch import native
+
+    guard = torch.full((h * d * b * s + 2 * 4096,), 7.0, device=cuda)
+    out = guard[4096:4096 + h * d * b * s]
+    native.library().call("gswm_flash_f32_transposed", qkv_t.data_ptr(), out.data_ptr(), b, s,
+                          h, d, native.stream_handle(qkv_t.device))
+    torch.cuda.synchronize()
+    assert (guard[:4096] == 7.0).all() and (guard[-4096:] == 7.0).all()
+    assert torch.equal(out.view(h * d, b, s), attn.flash_attention_transposed(qkv_t, h))
+
+
+@pytest.mark.parametrize("shape,eps,act", [
+    ((2, 64, 1, 1), 1e-5, None), ((1, 320, 300, 1), 1e-5, "silu"),
+    ((2, 1280, 12, 12), 1e-5, "silu"), ((2, 320, 96, 96), 1e-5, "silu"),
+    ((1, 960, 96, 96), 1e-5, None), ((1, 512, 192, 192), 1e-6, "silu"),
+    ((1, 128, 768, 768), 1e-6, "silu"), ((1, 256, 768, 768), 1e-6, None),
+    ((1, 32768, 24, 24), 1e-5, "silu"), ((3, 64, 512, 512), 1e-5, None),
+    # H * W no multiple of 4: the element-wise instance
+    ((1, 128, 385, 385), 1e-6, "silu"), ((3, 96, 7, 9), 1e-5, "silu")])
+def test_f32_group_norm_kernel_matches_plain(cuda, shape, eps, act):
+    """K8 in fp32 against the JAX op's formulas in float64: within 1e-5 of
+    max |want| (fp32 sums in another order; the fast exponential of the SiLU
+    a few ulp) or, where the formula itself is ill-conditioned in fp32
+    (var = E[x^2] - E[x]^2 of a group of two elements, (2, 64, 1, 1)), within
+    four times the fp32 plain version's own error; an fp32 output, one
+    launch on ``launches_f32``."""
+    g = torch.Generator(device=cuda).manual_seed(shape[1] + shape[2] + 1)
+    x = torch.randn(shape, generator=g, device=cuda) * 2 + 0.5
+    w = 1 + 0.05 * torch.randn(shape[1], generator=g, device=cuda)
+    b = 0.05 * torch.randn(shape[1], generator=g, device=cuda)
+    before = (gn.fused_group_norm.launches, gn.fused_group_norm.launches_f32)
+    got = gn.fused_group_norm(x, w, b, 32, eps, act)
+    assert (gn.fused_group_norm.launches, gn.fused_group_norm.launches_f32) == \
+        (before[0], before[1] + 1)
+    xd = x.double().reshape(shape[0], 32, -1)
+    mean = xd.mean(dim=-1, keepdim=True)
+    var = (xd.square().mean(dim=-1, keepdim=True) - mean.square()).clamp(min=0.0)
+    want = ((xd - mean) * torch.rsqrt(var + eps)).reshape(shape) * \
+        w.double().reshape(1, -1, 1, 1) + b.double().reshape(1, -1, 1, 1)
+    if act == "silu":
+        want = want * torch.sigmoid(want)
+    plain_err = (gn.fused_group_norm_reference(x, w, b, 32, eps, act).double() - want).abs().max()
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    err = (got.double() - want).abs().max().item()
+    assert err <= max(1e-5 * want.abs().max().item(), 4 * plain_err.item()), (err, plain_err)
 
 
 def test_f32_launches_count_by_head_dim(cuda):
@@ -1418,14 +1587,14 @@ def test_keystream_cache_launches_once_on_card(cuda):
 
 
 def test_new_kernel_wrappers_reject_what_they_do_not_take(cuda):
-    with pytest.raises(TypeError):
-        attn.flash_attention_packed(torch.zeros((1, 8, 384), device=cuda))  # fp32
+    with pytest.raises(TypeError):  # fp16
+        attn.flash_attention_packed(torch.zeros((1, 8, 384), device=cuda).half())
     for d in (36, 520):  # D % 8 != 0, D > 512: K7 takes what the others take
         with pytest.raises(ValueError):
             attn.flash_attention_transposed(
                 torch.zeros((3 * 2 * d, 1, 8), device=cuda, dtype=torch.bfloat16), 2)
     with pytest.raises(TypeError):
-        gn.fused_group_norm(torch.zeros((1, 64, 4, 4), device=cuda),
+        gn.fused_group_norm(torch.zeros((1, 64, 4, 4), device=cuda).half(),
                             torch.ones(64, device=cuda), torch.zeros(64, device=cuda))
     xb = torch.zeros((1, 64, 4, 8), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):  # not contiguous

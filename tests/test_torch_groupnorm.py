@@ -47,6 +47,27 @@ def test_reference_matches_jax_kernel(mode, act, eps):
     np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
 
 
+@pytest.mark.parametrize("mode", ["resident", "twopass"])
+@pytest.mark.parametrize("act", [None, "silu"])
+def test_reference_matches_jax_kernel_in_fp32_at_unet_widths(mode, act):
+    """K8's plain version in fp32 (the function csrc/group_norm.cu computes
+    on float32 x) against the Pallas op in fp32 in both its modes, at a
+    UNet level's width (320 channels, 32 groups, 12 x 12): an fp32 output
+    in both, within 1e-5 of max |want| (fp32 sums in other orders)."""
+    x = _rand((2, 12, 12, 320), 10, 1.5, 0.3)  # NHWC
+    scale = _rand((320,), 11, 0.2, 1.0)
+    bias = _rand((320,), 12, 0.2)
+    want = np.asarray(j_fused_group_norm(
+        jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias), groups=32, eps=1e-5,
+        act=act, force_mode=mode, interpret=True))
+    assert want.dtype == np.float32
+    got = gn.fused_group_norm(_nchw(x), torch.from_numpy(scale), torch.from_numpy(bias),
+                              32, 1e-5, act)
+    assert got.dtype == torch.float32
+    want = want.transpose(0, 3, 1, 2)
+    assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+
+
 @pytest.mark.parametrize("shape,groups", [((2, 64, 5, 7), 32), ((1, 96, 3, 3), 8)])
 def test_reference_matches_the_model_group_norm(shape, groups):
     """The op's plain version is the model's GroupNorm32 (F.group_norm in
@@ -178,7 +199,7 @@ def test_wrapper_allocates_only_the_output_and_converts_nothing(monkeypatch):
     assert calls[-1][2][-1] == 0
     # what the kernel does not take is refused before any launch
     with pytest.raises(TypeError):
-        gn.fused_group_norm(_OnCard((2, 64, 6, 8), torch.float32, 0x1000), w, b)
+        gn.fused_group_norm(_OnCard((2, 64, 6, 8), torch.float16, 0x1000), w, b)
     with pytest.raises(ValueError):
         gn.fused_group_norm(_OnCard((2, 64, 6, 8), torch.bfloat16, 0x1008), w, b)
     with pytest.raises(ValueError):

@@ -99,6 +99,32 @@ def test_ring_falls_back(world2, name):
         np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5)
 
 
+@pytest.mark.parametrize("name,world,dims", [("sp2", 2, dict(dp=1, sp=2)),
+                                             ("sp4", 4, dict(dp=1, sp=4)),
+                                             ("dp2_sp2", 4, dict(dp=2, sp=2))])
+def test_ring_matches_jax_ring_attention_in_fp32(world2, world4, name, world, dims):
+    """The port's ring in fp32 on gloo ranks (its per-step kernel's plain
+    version here: ``flash_attention_split(..., return_lse=True)``, whose
+    fp32 kernel is csrc/flash_f32.cu's on the card) against the JAX
+    package's ``ring_attention`` on a mesh of the same axes over the
+    virtual CPU devices (as many as the ranks), on the same numpy inputs:
+    fp32 atol 2e-5 (the reference's ring bound)."""
+    import jax
+
+    from gswm.ops.ring_attention import ring_attention as j_ring
+    from gswm.sharding import make_mesh as j_make_mesh
+
+    cases = CASES2 if world == 2 else CASES4
+    q, k, v = cases[name][1]
+    mesh = j_make_mesh(**dims, devices=jax.devices()[:dims["dp"] * dims["sp"]])
+    with jax.sharding.set_mesh(mesh):
+        want = np.asarray(jax.jit(j_ring)(*(jnp.asarray(a) for a in (q, k, v))))
+    for r in (world2 if world == 2 else world4):
+        got, calls = r[name]
+        assert calls == 1 and got.dtype == np.float32
+        np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5)
+
+
 @pytest.mark.parametrize("world", [2, 4])
 def test_unet_attention_reaches_the_ring_under_sp(world2, world4, world):
     """The tiny UNet's level-0 self-attention (64 tokens) takes the ring
