@@ -331,17 +331,25 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
            768x768's (2 and 4, 9216, 5, 64), (2 and 4, 2304, 10, 64), (2
            and 4, 576, 20, 64); sdxl-base's (1 and 2, 4096, 10, 64), (1
            and 2, 1024, 20, 64)) and through the split wrapper at
-           paths.F32_SPLIT_SHAPES (the VAE's (1 and 2, 9216, 1, 512), (1,
-           16384, 1, 512), ragged (1, 1001 / 577, 1, 512), and d = 72, 128,
-           192, 256 at ragged Sq != Sk): record "flash_f32" up to d = 64
-           (one 64-column panel), "flash_f32_wide" above; N(0, 1) inputs,
-           each within 1e-5 of max |want| (from 9216 keys want is the plain
-           version in float64: both fp32 sides sum that many terms in other
-           orders, and the fp32 plain version's own error is printed
-           beside); beside each the plain version with TF32 allowed, which
-           must miss that bound, bound_ms at 3xTF32, and the library call
+           paths.F32_SPLIT_SHAPES (the VAE's (1 and 2, 9216, 1, 512), (1
+           and 2, 16384, 1, 512), ragged (1, 1001 / 577, 1, 512), and d =
+           72, 128, 192, 256 at ragged Sq != Sk): record "flash_f32" up to
+           d = 64 (one 64-column panel), "flash_f32_wide" above; N(0, 1)
+           inputs, each within 1e-5 of max |want| of its plain version in
+           float64, the fp32 plain version's own error and the 3xTF32
+           model's prediction (ops.attention.flash_attention_3xtf32_reference
+           on the core's key split; the GEMM's split_tf32 products) printed
+           beside; beside each the plain version with TF32 allowed, which
+           must miss that bound, bound_ms at 3xTF32, the library call
            (F.linear; sdpa on the fp32 tensors, its backend, or none with
-           the message where it refuses) with its time and its own error;
+           the message where it refuses) with its time and its own error,
+           and the first design's time (paths.F32_PARENT_MS); at each core
+           shape the key split s and the grid, and where s > 1 the split
+           route within 1e-5 of max |out| of the unsplit entry
+           (gswm_flash_f32); the split pre-pass alone (bit-equal to
+           f32_prepass_reference) and the combine alone where s > 1
+           (within 1e-5 of f32_combine_reference), records
+           "flash_f32_prepass" and "flash_f32_combine", bound by bytes;
        (b) one fp32 UNet forward at batch 1 on the card against the same
            forward on the CPU (the weights moved with .to, the same inputs),
            within 1e-4 of max |out|; the card's forward with TF32 allowed
@@ -388,10 +396,11 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
      float64 logsumexp; aten's memory-efficient attention with its
      logsumexp), K8 at phase 2's GroupNorm cases (F.group_norm + F.silu in
      fp32) and paths.K8_PROBE_CASES beside a copy of x; raising unless
-     K6 equals the natural form (csrc/flash_f32.cu's gswm_flash_f32) on
-     its heads made contiguous, K7 equals it on the same q, k and v, K7's
-     4-byte copies equal its 16-byte ones where S % 4 == 0, and K4 + lse's
-     output the call without lse, bit for bit.  After (g):
+     K6 equals the natural form (the natural wrapper, on the same key
+     split) on its heads made contiguous, K7 equals it on the same q, k
+     and v, K7's unsplit 4-byte copies equal its 16-byte ones where S % 4
+     == 0, and K4 + lse's output the call without lse, bit for bit.  After
+     (g):
        (h) sd-2-1 768x768 batch 2 in fp32 ((e)'s pipeline, TF32 off) under
            every set of paths.TIER_SWITCHES: one UNet forward within 1e-4
            of max |out| of the fp32 default route's, its time beside, the
@@ -414,9 +423,11 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
      Each sub-phase prints its seconds.  The kernels line lists the fp32
      kernels ("qkv_proj_f32"; "flash_f32" and "flash_f32_wide", one kernel
      of csrc/flash_f32.cu at one panel and at more; its forms
-     "flash_f32_packed", "flash_f32_transposed", "flash_f32_lse"; and
-     "group_norm_f32", csrc/group_norm.cu on float32) with bound_ms at
-     3xTF32 (PEAK_TF32 / 3, gswm_torch/roofline.py), K8's by bytes.
+     "flash_f32_packed", "flash_f32_transposed", "flash_f32_lse"; the
+     steps around the core, "flash_f32_prepass" and "flash_f32_combine";
+     and "group_norm_f32", csrc/group_norm.cu on float32) with bound_ms at
+     3xTF32 (PEAK_TF32 / 3, gswm_torch/roofline.py), K8's, the pre-pass's
+     and the combine's by bytes.
  14. summary  — a JSON line of the kernels, then the JSON result line.
 Each path's launch counts are set to 0 just before it and read just after.
 """
@@ -602,7 +613,10 @@ def phase_build() -> None:
              if "registers" in ln or "Compiling entry" in ln]
     for ln in ptxas:
         print(f"ptxas: {ln}")
-    print(f"build: {lib.build_seconds:.2f} s -> {lib.path.name}", flush=True)
+    entries = [ln for ln in ptxas if "Compiling entry" in ln]
+    f32_core = sum("flash_f32_kernel" in ln for ln in entries)
+    print(f"build: {lib.build_seconds:.2f} s -> {lib.path.name}; {len(entries)} kernel "
+          f"instances, {f32_core} of them flash_f32.cu's core", flush=True)
 
 
 def _time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -1254,6 +1268,10 @@ def _counters() -> dict:
     counts["flash_f32_transposed"] = attn.flash_attention_transposed.launches_f32
     counts["flash_f32_lse"] = split.lse_launches_f32
     counts["group_norm_f32"] = _wrappers()["fused_group_norm"].launches_f32
+    # the steps around the float32 core: its split pre-pass, one a call,
+    # and the combine of its key chunks where it splits them
+    counts["flash_f32_prepass"] = attn.f32_core.prepass_launches
+    counts["flash_f32_combine"] = attn.f32_core.combine_launches
     return counts
 
 
@@ -1295,6 +1313,8 @@ def _reset_counters() -> None:
     split.lse_launches_f32 = 0
     split.lse_launches_f32_by_d = {}
     _wrappers()["fused_group_norm"].launches_f32 = 0
+    attn.f32_core.prepass_launches = 0
+    attn.f32_core.combine_launches = 0
 
 
 def _clear_keystream_caches() -> None:
@@ -3026,7 +3046,7 @@ def _one_tensor(out) -> torch.Tensor:
 
 def _check_f32_kernel(records: dict, name: str, label: str, kernel, plain, library,
                       lib_ms, backend: str, bound: tuple, iters: int, exact=None,
-                      narrow=None) -> None:
+                      narrow=None, model=None, parent_ms=None) -> None:
     """A float32 kernel against its plain version on the card, TF32 off:
     within F32_REL_BOUND of max |want|; the plain version with TF32 allowed
     must miss that bound (so the bound tells fp32 from TF32).  Beside it the
@@ -3035,7 +3055,10 @@ def _check_f32_kernel(records: dict, name: str, label: str, kernel, plain, libra
     instead (where two fp32 sums in other orders differ by their own
     rounding), and the fp32 plain version's error against it is printed.
     ``narrow``: where no product of the function runs in TF32 (GroupNorm),
-    the computation that must miss the bound in its place."""
+    the computation that must miss the bound in its place.  ``model``: the
+    3xTF32 model of the kernel's arithmetic, whose error is the prediction
+    printed beside the kernel's; ``parent_ms``: the first design's time at
+    the shape (paths.F32_PARENT_MS), printed beside this one's."""
     got, want = _one_tensor(kernel()), _one_tensor(plain() if exact is None else exact())
     top = want.abs().max().item()
     err = (got - want).abs().max().item()
@@ -3043,6 +3066,10 @@ def _check_f32_kernel(records: dict, name: str, label: str, kernel, plain, libra
         plain_err = (_one_tensor(plain()) - want).abs().max().item()
         print(f"{label}: want in float64; the fp32 plain version's own err/max|want| "
               f"{plain_err / top:.3e}", flush=True)
+    if model is not None:
+        model_err = (_one_tensor(model()) - want).abs().max().item()
+        print(f"{label}: the 3xTF32 model predicts err/max|want| {model_err / top:.3e}",
+              flush=True)
     del got
     if narrow is not None:
         tf32_err = (_one_tensor(narrow()) - want).abs().max().item()
@@ -3061,7 +3088,9 @@ def _check_f32_kernel(records: dict, name: str, label: str, kernel, plain, libra
           f"{top:.4f}; {what} {tf32_err / top:.3e} (must "
           f"exceed the bound); {ms:.4f} ms (plain {plain_ms:.4f}, bound {bound[0]:.4f} by "
           f"{bound[1]}, library {_fmt(lib_ms)}, {backend}, its err/max|want| "
-          f"{'none' if lib_err is None else f'{lib_err / top:.3e}'})", flush=True)
+          f"{'none' if lib_err is None else f'{lib_err / top:.3e}'}"
+          + ("" if parent_ms is None else f"; the first design {parent_ms:.4f}") + ")",
+          flush=True)
     if not err <= F32_REL_BOUND * top:
         raise AssertionError(f"{label}: error {err} above {F32_REL_BOUND} x {top}")
     if not tf32_err > F32_REL_BOUND * top:
@@ -3070,12 +3099,138 @@ def _check_f32_kernel(records: dict, name: str, label: str, kernel, plain, libra
     _record(records, name, err, ms, plain_ms, bound, lib_ms)
 
 
+def _gemm_f64(x, w):
+    """x (B, S, C) @ w (N, C)^T in float64."""
+    return x.double() @ w.double().t()
+
+
+def _gemm_3xtf32(x, w):
+    """The 3xTF32 model of the projection GEMM (ops.attention.split_tf32's
+    parts, fp32 sums), x (B, S, C) @ w (N, C)^T."""
+    from gswm_torch.ops import attention as attn
+
+    return attn._products_3xtf32(attn.split_tf32(x), [t.t() for t in attn.split_tf32(w)], 3)
+
+
+def _key_split(label: str, b: int, sq: int, sk: int, h: int, d: int, split_out,
+               unsplit) -> None:
+    """Print the float32 core's key split at a shape, s and the grid; where
+    s > 1, hold the split route's output within F32_REL_BOUND of max |out|
+    of the unsplit entry's (``unsplit()``, gswm_flash_f32) on the same
+    inputs."""
+    from gswm_torch.ops import attention as attn
+
+    splits = attn.f32_key_splits(b, sq, sk, h, d, torch.cuda.get_device_properties(0)
+                                 .multi_processor_count)
+    rows = attn.F32_WIDE_ROWS if -(-d // attn.F32_PANEL) > attn.F32_ROW_PANELS \
+        else attn.F32_BLOCK_ROWS
+    grid = (-(-sq // rows) * splits, h, b)
+    if splits == 1:
+        print(f"{label}: key split s = 1, grid {grid}", flush=True)
+        return
+    one = unsplit()
+    top = one.abs().max().item()
+    diff = (split_out - one).abs().max().item()
+    print(f"{label}: key split s = {splits} ({-(-sk // attn.F32_KEY_TILE)} key tiles), grid "
+          f"{grid}; against the unsplit entry {diff / top:.3e} of max|out| (bound "
+          f"{F32_REL_BOUND:.0e})", flush=True)
+    if not diff <= F32_REL_BOUND * top:
+        raise AssertionError(f"{label}: the key split is {diff} off the unsplit entry")
+
+
 def _f32_record(d: int) -> str:
     """The kernels line's record of the fp32 core at head dim d: one
     64-column panel, or more."""
     from gswm_torch.ops import attention as attn
 
     return "flash_f32" if d <= attn.F32_PANEL else "flash_f32_wide"
+
+
+def _f32_unsplit(lib, q, k, v) -> torch.Tensor:
+    """The float32 core's unsplit entry (gswm_flash_f32: the pre-pass and
+    the core at s = 1) on (B, Sq, H, D) q and (B, Sk, H, D) k, v."""
+    from gswm_torch import native
+
+    out = torch.empty_like(q)
+    b, sq, h, d = q.shape
+    lib.call("gswm_flash_f32", q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
+             sq, k.shape[1], h, d, native.stream_handle(q.device))
+    return out
+
+
+def _check_f32_steps(records: dict, g) -> None:
+    """13a, the steps around the float32 core on their own at path shapes:
+    the split pre-pass (gswm_flash_f32_prepass) against its plain version
+    (ops.attention.f32_prepass_reference: the scratch, bit for bit), and
+    the combine (gswm_flash_f32_combine) of the core's partials where s > 1
+    against its plain version (f32_combine_reference, within F32_REL_BOUND
+    of max |want|, lse too); each timed beside its plain version and its
+    bound (bytes); no library call computes either."""
+    from gswm_torch import native, roofline
+    from gswm_torch.ops import attention as attn
+
+    lib = native.library()
+    dev = "cuda"
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for b, sq, sk, h, d in ((4, 4096, 4096, 5, 64), (4, 1024, 1024, 10, 64),
+                            (4, 4096, 4096, 8, 40), (4, 1024, 1024, 8, 80),
+                            (1, 9216, 9216, 1, 512), (2, 9216, 9216, 1, 512)):
+        q = torch.randn((b, sq, h, d), generator=g, device=dev)
+        k, v = (torch.randn((b, sk, h, d), generator=g, device=dev) for _ in range(2))
+        stream = native.stream_handle(q.device)
+        scratch = torch.empty(attn.f32_scratch_numel(b, sk, h, d), device=dev)
+
+        def prepass(scratch=scratch, k=k, v=v, b=b, sk=sk, h=h, d=d, stream=stream):
+            lib.call("gswm_flash_f32_prepass", k.data_ptr(), v.data_ptr(), scratch.data_ptr(),
+                     b, sk, h, d, h * d, 0, stream)
+            return scratch
+        want = attn.f32_prepass_reference(k, v)
+        err = (prepass() - want).abs().max().item()
+        ms = _time_ms(prepass, 10)
+        plain_ms = _time_ms(lambda k=k, v=v: attn.f32_prepass_reference(k, v), 3)
+        bound = roofline.bound_ms(*roofline.f32_prepass_cost(b, sk, h, d), roofline.PEAK_FP32)
+        print(f"(a) fp32 split pre-pass (B={b}, Sk={sk}, H={h}, D={d}): max|scratch - plain| "
+              f"{err} (must be 0); {ms:.4f} ms (plain {plain_ms:.4f}, bound {bound[0]:.4f} by "
+              f"{bound[1]}, library none)", flush=True)
+        if err != 0:
+            raise AssertionError(f"the pre-pass's scratch differs from its plain version by "
+                                 f"{err}")
+        _record(records, "flash_f32_prepass", err, ms, plain_ms, bound, None)
+        splits = attn.f32_key_splits(b, sq, sk, h, d, sms)
+        if splits > 1:
+            ws = torch.empty(attn.f32_workspace_numel(splits, b, sq, h, d), device=dev)
+            out, lse = torch.empty_like(q), torch.empty((b, h, sq), device=dev)
+            lib.call("gswm_flash_f32_core", q.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+                     lse.data_ptr(), ws.data_ptr(), b, sq, sk, h, d, h * d, h * d, 0, 1,
+                     splits, stream)
+
+            def combine(ws=ws, out=out, lse=lse, b=b, sq=sq, h=h, d=d, splits=splits,
+                        stream=stream):
+                lib.call("gswm_flash_f32_combine", ws.data_ptr(), out.data_ptr(),
+                         lse.data_ptr(), b, sq, h, d, h * d, 0, splits, stream)
+                return out
+            want, want_lse = attn.f32_combine_reference(ws, splits, b, sq, h, d)
+            got = combine()
+            top = want.abs().max().item()
+            err = (got - want).abs().max().item()
+            lse_err = (lse - want_lse).abs().max().item()
+            ms = _time_ms(combine, 10)
+            plain_ms = _time_ms(lambda ws=ws, splits=splits, b=b, sq=sq, h=h, d=d:
+                                attn.f32_combine_reference(ws, splits, b, sq, h, d), 3)
+            bound = roofline.bound_ms(*roofline.f32_combine_cost(splits, b, sq, h, d, lse=True),
+                                      roofline.PEAK_FP32)
+            print(f"(a) fp32 combine of s = {splits} (B={b}, Sq={sq}, H={h}, D={d}): "
+                  f"err/max|want| {err / top:.3e}, lse err {lse_err:.3e} (bound "
+                  f"{F32_REL_BOUND:.0e}); {ms:.4f} ms (plain {plain_ms:.4f}, bound "
+                  f"{bound[0]:.4f} by {bound[1]}, library none)", flush=True)
+            if not (err <= F32_REL_BOUND * top and lse_err <= F32_REL_BOUND * max(
+                    1.0, want_lse.abs().max().item())):
+                raise AssertionError(f"the combine is {err} off its plain version (lse "
+                                     f"{lse_err})")
+            _record(records, "flash_f32_combine", err, ms, plain_ms, bound, None)
+            del ws, out, lse
+        del q, k, v, scratch, want
+        torch.cuda.empty_cache()
 
 
 def _attention_f64(q, k, v) -> torch.Tensor:
@@ -3105,7 +3260,12 @@ def phase_float32(card: str, records: dict, rate_3b: float, rms_3a: float,
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(1813)
 
-    # (a) each float32 kernel against its plain version, at the path's shapes
+    # (a) each float32 kernel against its plain version in float64, at the
+    # path's shapes, the 3xTF32 model's prediction and the first design's
+    # time beside
+    from gswm_torch import native
+
+    lib = native.library()
     for m, c, n in paths.F32_PROJ_SHAPES:
         x = torch.randn((BATCH, m // BATCH, c), generator=g, device=dev)
         ws = [torch.randn((n, c), generator=g, device=dev) for _ in range(3)]
@@ -3117,17 +3277,23 @@ def phase_float32(card: str, records: dict, rate_3b: float, rms_3a: float,
             lambda x=x, w_cat=w_cat: F.linear(x, w_cat),
             _library_ms(lambda x=x, w_cat=w_cat: F.linear(x, w_cat), 10), "F.linear",
             roofline.bound_ms(*roofline.projection_cost(m, c, n, roofline.F32),
-                              roofline.PEAK_F32_PRODUCTS), 10)
+                              roofline.PEAK_F32_PRODUCTS), 10,
+            exact=lambda x=x, w_cat=w_cat: _gemm_f64(x, w_cat).float(),
+            model=lambda x=x, w_cat=w_cat: _gemm_3xtf32(x, w_cat),
+            parent_ms=paths.F32_PARENT_MS["proj"].get((m, c, n)))
         del x, ws, w_cat
     for b, s, h, d in paths.F32_FLASH_SHAPES:
         q, k, v = (torch.randn((b, s, h * d), generator=g, device=dev) for _ in range(3))
         views = [_heads_view(t, b, s, h, d) for t in (q, k, v)]
         lib_ms, backend = _attention_library_ms(lambda sdpa, views=views: sdpa(*views), 5)
         sdpa = _sdpa_fused if backend == "fused" else F.scaled_dot_product_attention
+        label = (f"(a) fp32 flash core, {attn.dtype_kernel(torch.float32, d)} (B={b}, S={s}, "
+                 f"H={h}, D={d})")
+        splits = attn.f32_key_splits(b, s, s, h, d, torch.cuda.get_device_properties(0)
+                                     .multi_processor_count)
+        natural = [t.view(b, s, h, d) for t in (q, k, v)]
         _check_f32_kernel(
-            records, _f32_record(d),
-            f"(a) fp32 flash core, {attn.dtype_kernel(torch.float32, d)} (B={b}, S={s}, "
-            f"H={h}, D={d})",
+            records, _f32_record(d), label,
             lambda q=q, k=k, v=v, h=h: attn.flash_attention(q, k, v, h),
             lambda q=q, k=k, v=v, h=h: attn.flash_attention_reference(q, k, v, h),
             None if lib_ms is None else
@@ -3137,10 +3303,14 @@ def phase_float32(card: str, records: dict, rate_3b: float, rms_3a: float,
             roofline.attention_bound_ms(roofline.attention_cost(b, s, s, h, d,
                                                                 elem=roofline.F32),
                                         roofline.PEAK_F32_PRODUCTS), 5,
-            exact=(lambda views=views, b=b, s=s: _attention_f64(
-                *(t.transpose(1, 2) for t in views)).reshape(b, s, -1))
-            if s >= F32_EXACT_MIN_KEYS else None)
-        del q, k, v, views
+            exact=lambda views=views, b=b, s=s: _attention_f64(
+                *(t.transpose(1, 2) for t in views)).reshape(b, s, -1),
+            model=lambda natural=natural, splits=splits, b=b, s=s: (
+                attn.flash_attention_3xtf32_reference(*natural, splits).reshape(b, s, -1)),
+            parent_ms=paths.F32_PARENT_MS["flash"].get((b, s, h, d)))
+        _key_split(label, b, s, s, h, d, attn.flash_attention(q, k, v, h).view(b, s, h, d),
+                   lambda natural=natural: _f32_unsplit(lib, *natural))
+        del q, k, v, views, natural
         torch.cuda.empty_cache()
     for b, sq, sk, h, d in paths.F32_SPLIT_SHAPES:
         q = torch.randn((b, sq, h, d), generator=g, device=dev)
@@ -3149,10 +3319,12 @@ def phase_float32(card: str, records: dict, rate_3b: float, rms_3a: float,
         iters = 3 if sk * d >= 9216 * 512 else 10
         lib_ms, backend = _attention_library_ms(lambda sdpa, views=views: sdpa(*views), iters)
         sdpa = _sdpa_fused if backend == "fused" else F.scaled_dot_product_attention
+        label = (f"(a) fp32 split, {attn.dtype_kernel(torch.float32, d)} (B={b}, Sq={sq}, "
+                 f"Sk={sk}, H={h}, D={d})")
+        splits = attn.f32_key_splits(b, sq, sk, h, d, torch.cuda.get_device_properties(0)
+                                     .multi_processor_count)
         _check_f32_kernel(
-            records, _f32_record(d),
-            f"(a) fp32 split, {attn.dtype_kernel(torch.float32, d)} (B={b}, Sq={sq}, "
-            f"Sk={sk}, H={h}, D={d})",
+            records, _f32_record(d), label,
             lambda q=q, k=k, v=v: attn.flash_attention_split(q, k, v),
             lambda q=q, k=k, v=v: attn.flash_attention_split_reference(q, k, v),
             None if lib_ms is None else
@@ -3161,10 +3333,15 @@ def phase_float32(card: str, records: dict, rate_3b: float, rms_3a: float,
             roofline.attention_bound_ms(roofline.attention_cost(b, sq, sk, h, d,
                                                                 elem=roofline.F32),
                                         roofline.PEAK_F32_PRODUCTS), iters,
-            exact=(lambda q=q, k=k, v=v: _attention_f64(q, k, v))
-            if sk >= F32_EXACT_MIN_KEYS else None)
+            exact=lambda q=q, k=k, v=v: _attention_f64(q, k, v),
+            model=lambda q=q, k=k, v=v, splits=splits: (
+                attn.flash_attention_3xtf32_reference(q, k, v, splits)),
+            parent_ms=paths.F32_PARENT_MS["split"].get((b, sq, sk, h, d)))
+        _key_split(label, b, sq, sk, h, d, attn.flash_attention_split(q, k, v),
+                   lambda q=q, k=k, v=v: _f32_unsplit(lib, q, k, v))
         del q, k, v, views
         torch.cuda.empty_cache()
+    _check_f32_steps(records, g)
     torch.cuda.empty_cache()
     _check_f32_forms(records, gn_cases)
     print(f"(a) {time.perf_counter() - t0:.2f} s", flush=True)
@@ -3442,7 +3619,8 @@ def _check_f32_forms(records: dict, gn_cases) -> None:
     logsumexp), K8 at phase 2's GroupNorm cases.  Raises unless K6 and K7
     equal the natural form on the same heads, K7's 4-byte copies its
     16-byte ones where S % 4 == 0, and K4 + lse's output the call without
-    lse, bit for bit."""
+    lse, bit for bit, each form on the key split of its shape; and K7's
+    unsplit entries with 4-byte copies its 16-byte ones."""
     from gswm_torch import native, roofline
     from gswm_torch.ops import attention as attn
     from gswm_torch.ops import groupnorm as gn
@@ -3451,12 +3629,14 @@ def _check_f32_forms(records: dict, gn_cases) -> None:
     g = torch.Generator(device=dev).manual_seed(2020)
     lib = native.library()
 
-    def natural(q, k, v):  # the natural form on (B, S, H, D) q, k and v
-        out = torch.empty_like(q)
+    def natural(q, k, v):  # the natural form's route on (B, S, H, D) q, k and v
         b, s, h, d = q.shape
-        lib.call("gswm_flash_f32", q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 b, s, k.shape[1], h, d, native.stream_handle(q.device))
-        return out
+        return attn.flash_attention(*(t.reshape(b, s, h * d) for t in (q, k, v)), h).view(
+            b, s, h, d)
+
+    def splits(b, s, h, d):
+        return attn.f32_key_splits(b, s, s, h, d,
+                                   torch.cuda.get_device_properties(0).multi_processor_count)
 
     def same(label: str, a, b_) -> None:
         if not torch.equal(a, b_):
@@ -3488,8 +3668,13 @@ def _check_f32_forms(records: dict, gn_cases) -> None:
             lambda qkv=qkv: attn.flash_attention_packed(qkv),
             lambda qkv=qkv: attn.flash_attention_packed_reference(qkv), None, lib_ms,
             f"sdpa on strided fp32 views, backend {backend}", attention_bound(b, s, h, 64), 5,
-            exact=lambda q=q, k=k, v=v, b=b, s=s: _attention_f64(q, k, v).reshape(b, s, -1))
-        same(f"{label} against the natural form on its heads",
+            exact=lambda q=q, k=k, v=v, b=b, s=s: _attention_f64(q, k, v).reshape(b, s, -1),
+            model=lambda q=q, k=k, v=v, b=b, s=s, pairs=pairs: (
+                attn.flash_attention_3xtf32_reference(q, k, v, splits(b, s, 2 * pairs, 64))
+                .reshape(b, s, -1)),
+            parent_ms=paths.F32_PARENT_MS["packed"].get((b, s, h)))
+        same(f"{label} against the natural form on its heads (s = "
+             f"{splits(b, s, 2 * pairs, 64)})",
              attn.flash_attention_packed(qkv), natural(q, k, v).reshape(b, s, -1))
         del qkv, q, k, v
         torch.cuda.empty_cache()
@@ -3509,16 +3694,21 @@ def _check_f32_forms(records: dict, gn_cases) -> None:
             lambda qkv_t=qkv_t, h=h: attn.flash_attention_transposed(qkv_t, h),
             lambda qkv_t=qkv_t, h=h: attn.flash_attention_transposed_reference(qkv_t, h),
             None, lib_ms, f"sdpa, backend {backend}", attention_bound(b, s, h, d), 3,
-            exact=lambda q=q, k=k, v=v, back=back: back(_attention_f64(q, k, v)))
+            exact=lambda q=q, k=k, v=v, back=back: back(_attention_f64(q, k, v)),
+            model=lambda q=q, k=k, v=v, back=back, b=b, s=s, h=h, d=d: back(
+                attn.flash_attention_3xtf32_reference(q, k, v, splits(b, s, h, d))),
+            parent_ms=paths.F32_PARENT_MS["transposed"].get((b, s, h, d)))
         got = attn.flash_attention_transposed(qkv_t, h)
-        same(f"{label} against the natural form on the same q, k, v", got,
-             back(natural(q, k, v)))
-        if s % 4 == 0:
-            words = torch.empty_like(got)
-            lib.call("gswm_flash_f32_transposed_4byte", qkv_t.data_ptr(), words.data_ptr(),
-                     b, s, h, d, native.stream_handle(qkv_t.device))
-            same(f"{label} with 4-byte copies against its 16-byte ones", words, got)
-            del words
+        same(f"{label} against the natural form on the same q, k, v (s = "
+             f"{splits(b, s, h, d)})", got, back(natural(q, k, v)))
+        if s % 4 == 0:  # the unsplit entries, q by 4-byte and by 16-byte copies
+            words, sixteen = torch.empty_like(got), torch.empty_like(got)
+            for entry, out in (("gswm_flash_f32_transposed_4byte", words),
+                               ("gswm_flash_f32_transposed", sixteen)):
+                lib.call(entry, qkv_t.data_ptr(), out.data_ptr(), b, s, h, d,
+                         native.stream_handle(qkv_t.device))
+            same(f"{label} with 4-byte copies against its 16-byte ones", words, sixteen)
+            del words, sixteen
         del qkv_t, q, k, v, got
         torch.cuda.empty_cache()
     for b, s, h, d in paths.F32_LSE_SHAPES:
@@ -3551,7 +3741,10 @@ def _check_f32_forms(records: dict, gn_cases) -> None:
             (lambda views=views: _f32_forms_library(*views)[0].transpose(1, 2)), lib_ms,
             "aten memory-efficient attention with its logsumexp",
             attention_bound(b, s, h, d, lse=True), 3,
-            exact=lambda q=q, k=k, v=v: _attention_f64(q, k, v))
+            exact=lambda q=q, k=k, v=v: _attention_f64(q, k, v),
+            model=lambda q=q, k=k, v=v, b=b, s=s, h=h, d=d: (
+                attn.flash_attention_3xtf32_reference(q, k, v, splits(b, s, h, d))),
+            parent_ms=paths.F32_PARENT_MS["lse"].get((b, s, h, d)))
         records["flash_f32_lse"]["max_lse_err"] = max(
             records["flash_f32_lse"].get("max_lse_err", 0.0), lse_err)
         del q, k, v, out, lse, want_lse, plain_lse, views
@@ -3906,6 +4099,10 @@ def main() -> None:
                                  "gswm/ops/attention.py:1428"),
         "flash_f32_lse": ("gswm_torch/csrc/flash_f32.cu", "gswm/ops/attention.py:414"),
         "group_norm_f32": ("gswm_torch/csrc/group_norm.cu", "gswm/ops/groupnorm.py:185"),
+        # the steps of every float32 attention call around the core: k and v
+        # split into TF32 parts, and the merge of the core's key chunks
+        "flash_f32_prepass": ("gswm_torch/csrc/flash_f32.cu", "gswm/ops/attention.py:414"),
+        "flash_f32_combine": ("gswm_torch/csrc/flash_f32.cu", "gswm/ops/attention.py:414"),
     }
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=counts[name], **records[name])

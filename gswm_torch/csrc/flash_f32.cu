@@ -1,7 +1,8 @@
 // Flash attention in float32 at head dims d % 8 == 0, 8 <= d <= 512, any Sq
-// and Sk: out = softmax(q k^T d^-0.5) v, every product, sum and exponential
-// in fp32, the softmax with a running max; nothing is rounded to a narrower
-// type.  One kernel body in two layouts (a template parameter) and four
+// and Sk: out = softmax(q k^T d^-0.5) v, every product of float32 accuracy
+// on the tensor cores (3xTF32 wgmma, hopper.cuh), every sum and exponential
+// in fp32, the softmax with a running max.  One kernel body in two layouts
+// (a template parameter of q's loads and of the output's stores) and four
 // forms, each a C entry below:
 //   * natural (gswm_flash_f32): (B, Sq, H, d) q and out, (B, Sk, H, d) k and
 //     v, a row pitch of H * d floats;
@@ -13,6 +14,11 @@
 //   * transposed (gswm_flash_f32_transposed): q, k and v the row bands of one
 //     (3 * H * d, B, S) array, head h's column c at row h * d + c of its
 //     band, the output (H * d, B, S).
+// Those entries keep the first design's signatures and run unsplit, their
+// scratch from the stream's own pool.  The wrappers (ops.attention) call the
+// three steps themselves, scratch and workspace from PyTorch: the split
+// pre-pass (gswm_flash_f32_prepass), the core (gswm_flash_f32_core, over s
+// key chunks) and, where s > 1, the combine (gswm_flash_f32_combine).
 //
 // Replaces, in float32, the attention of the Pallas TPU kernels that take
 // fp32 (gswm/ops/attention.py; those that keep a running max do so when the
@@ -38,83 +44,87 @@
 // What bounds it on an H100: (B, S, H, d) = (4, 4096, 5, 64) is 4 * B * H *
 // S^2 * d = 85.9 GFLOP over 84 MB of q, k, v and out, ~1,000 FLOP a byte;
 // (1, 9216, 1, 512) is 173.9 GFLOP over 75 MB, ~2,300: the products bound
-// both.  Products of fp32 accuracy on the tensor cores are 3xTF32 (each
-// operand split into a big and a small TF32 part, three products), a third
-// of the dense TF32 rate, 165 TFLOP/s: 0.52 and 1.055 ms there,
-// gswm_torch/roofline.py's bound.  This design runs on the CUDA cores (FFMA;
-// wgmma has no fp32 form and TF32 misses float32 by 30-90x), whose 67
-// TFLOP/s peak (1.28 and 2.6 ms) is its own ceiling.  The B * H * S^2
-// exponentials (ex2.approx, relative error ~2^-22) take a sixth of the FFMA
-// time at d = 64, more below it and less above.
+// both.  A product of fp32 accuracy on the tensor cores is three TF32 ones
+// (3xTF32), a third of the dense TF32 rate, 165 TFLOP/s: 0.52 and 1.055 ms
+// there, gswm_torch/roofline.py's bound.  The first design ran on the CUDA
+// cores' FFMA, whose 67 TFLOP/s (1.28 and 2.6 ms) was its ceiling.
 //
-// Design: right and simple first.  P = ceil(d / 64) panels of 64 columns is
-// a template parameter (1 up to d = 64, 8 at 512); at P = 1 so is d itself
-// (every loop over it unrolls, and the zero-fill tests fold), above it d is
-// an argument.
-//   * A block owns 64 query rows of one (b, h) and walks the keys 64 at a
-//     time; 256 threads, thread (ty, tx) = (thread / 16, thread % 16)
-//     owning rows ty + 16 i (i < 4).  q's 64 rows stay in shared memory
-//     across the whole d (128 KB at d = 512, 48 KB at 160).
-//   * k and v stream in panels of 64 keys x 64 columns (16 KB) through a
-//     ring of cp.async stages: a key tile's P k panels, then its P v panels,
-//     then the next tile's; the copies of the panels ahead are in flight
-//     while one is computed, one barrier a panel.  Rows past Sq and Sk and
-//     columns at or past d arrive as zeros (a copy of source size 0).
-//     Where a 64 x 512 tile of k or v (128 KB) and a 64 x 512 accumulator
-//     spread over 256 threads (128 registers each) would not fit, panels do.
-//   * Logits: a thread's 4 x 4 logits (keys tx + 16 j) are summed over the
-//     P k panels, four d at a time, the last panel over its true columns
-//     alone: 64 FFMA per 8 loads (16-byte loads of q and k rows).  Keys at
-//     or past Sk are masked to -inf.
-//   * Online softmax in registers: a row's tile max is a shuffle reduction
-//     over the 16 threads that share the row; its running max m, the
-//     rescale exp2((m_old - m) c) and p = exp2((s - m) c), c = d^-0.5
-//     log2(e) (computed by the host in double), are computed alike by all
-//     16; each keeps its own share of the row sum, rescaled with the row,
-//     and the shares are summed once at the end.  p goes to a 64 x 64 tile
-//     in shared memory.
-//   * p v: the output accumulator in registers, split into column groups: a
-//     thread owns columns 64 p + 4 tx .. + 3 of its four rows in every panel
-//     p, 16 P floats (128 at d = 512), and adds p times each v panel as it
-//     arrives, four keys at a time: 64 FFMA per 8 loads.  Columns past d in
-//     the last panel are v's zeros, computed and not stored (at d = 40 p v
-//     does 64 columns' work for 40, at 80 128, at 160 192: first design).
-//   * The log-sum-exp, where asked for (a pointer, null: none): one thread
-//     of a row's 16 stores m c ln 2 + ln l, the kernels' convention
-//     (hopper.cuh store_lse), for rows below Sq.
-// Rows of k and v panels hold 64 floats and 4 of padding (272 bytes), q's
-// 64 P and 4, p's 64 and 16 (320): each 16-byte load of eight neighbouring
-// threads falls in eight distinct bank groups, and p's stores of a warp's
-// two rows miss each other's banks.  P = 1 keeps 4 stages (two key tiles of
-// k and v, 105 KB), P = 2 three (104 KB), P = 3 two (103 KB): two blocks an
-// SM; P >= 4 keeps 4 stages, one block an SM (217 KB at d = 512).
-//
-// The transposed layout runs the same loops on the same threads, rows and
-// keys, every sum in the same order; only the addresses differ.  Its tiles
-// lie in shared memory as they lie in device memory, [column][token]: a
-// column's 64 tokens are one run of 256 bytes there (B * S floats between a
-// head's columns, S between batches), copied by 16-byte cp.async where S %
-// 4 == 0 (every row and band then starts 16-byte aligned: every SD and SDXL
-// token count) and by 4-byte cp.async elsewhere (gswm_flash_f32_transposed_4byte
-// forces that form at any S), into rows of 68 floats, no second buffer (at d
-// = 512 q^T, the ring and p take 224 KB of the 227 KB).  The reads:
-//   * q^T[c][row]: a float a row, the same for the row's 16 threads;
-//   * k^T[c][tx + 16 j]: 16 neighbouring floats;
-//   * v^T[4 tx + e][j .. j + 3]: a 16-byte load of four keys of each of a
-//     thread's four columns, transposed in registers into the natural
-//     layout's four key rows.  At a pitch of 68, columns 4 tx + e of eight
-//     neighbouring threads would share two bank groups; so a k or v panel's
-//     column cc is stored at row (cc % 4) * 16 + cc / 4 (`panel_row`), which
-//     puts them in eight distinct ones, and k^T's reads, of one column at a
-//     time, do not care.
-// The output is stored to (h * d + col, b * S + row), a float at a time.  So
-// the transposed form's output is, bit for bit, the natural form's on the
-// same q, k and v; its logits read a float a load where the natural form
-// reads 16 bytes (32 loads per 64 FFMA against 8), so it is the slower.
-//
-// Tails: 64-row blocks leave waves part full.  (1, 9216, 1, 512) is 144
-// blocks on 132 SMs, a second wave of 12; (1, 16384, 1, 512) 256, a second
-// of 124.  A key split with a combine pass would fill them: later work.
+// Design.
+//   * The pre-pass (split_kv_kernel) reads k and v once, in either layout
+//     at any pitch, and writes four scratch arrays, each (b, h) a block of
+//     them, rows padded with zeros to Skp = 64 ceil(Sk / 64) keys and Dp =
+//     64 P columns (P = ceil(d / 64) panels): k's big and small parts
+//     K-major ([key][column]) and v's big and small parts K-major for p v
+//     ([column][key], v transposed).  tf32 wgmma has no transpose bit, so
+//     one of the two needs a transpose in either layout (v in the natural
+//     one, k in the transposed one): it is done here once a call, not once
+//     a block, and the core reads one layout of k and v whatever the form.
+//   * The core: a block of two consumer warpgroups (256 threads) owns a key
+//     chunk of one (b, h) and 128 query rows, 64 a warpgroup, where P <= 4
+//     (d <= 256).  Above ("WIDE"), the accumulator of 64 rows by 512
+//     columns would be 256 registers a thread, twice what a thread has: the
+//     block owns 64 rows that both warpgroups share, and every product's B
+//     rows are split between them, the keys of a k panel (each warpgroup
+//     the logits of 32 of a tile's 64 keys) and the columns of a v panel
+//     (each 32 of its 64).  The row maxima and p are traded through shared
+//     memory, p in A-fragment order (a thread's 16 bytes a step, where the
+//     warpgroup that reads them wants them), the row sums once at the end.
+//     No product is computed twice.  q's rows stay in shared memory across
+//     the whole d as floats, as they lie in the form's layout: natural rows
+//     padded by 4 floats, transposed 4-token runs swizzled, so that the A
+//     fragment's loads hit 32 banks from one base address a thread.
+//   * k and v stream from the scratch in panels of 64 keys by 64 columns
+//     (big and small, 32 KB) through a ring of stages (2 to 5, as many as
+//     fit beside q), a key tile's P k panels, then its P v panels, each
+//     four TMA boxes in the 128-byte swizzle wgmma reads.  A third
+//     warpgroup produces them (one thread, tensor maps over the scratch), a
+//     full and an empty mbarrier a stage; the consumers never meet at a
+//     block-wide barrier, so one runs its products while the other splits
+//     fragments or runs its softmax (copies by every thread and a barrier
+//     a panel kept the two in step, the tensor cores idle through both's
+//     gaps).
+//   * Logits: each k panel, 8 steps of 8 columns (the last panel to the
+//     true d), q's A fragment loaded from shared memory and split in
+//     registers, three wgmma.m64n64k8 (WIDE: m64n32k8) a step into a panel
+//     accumulator,
+//     which is added to the tile's logits once the panel retires: the
+//     tensor core's own sums run over 64 columns at most.  The steps go in
+//     batches (a panel's 8; 4 or 2 where the accumulators leave fewer
+//     registers): the batch's fragments loaded and split first, its
+//     products issued back to back behind one fence and retired by one
+//     wait, while the other warpgroup's batch fills the tensor cores' gaps.
+//   * Online softmax in registers (hopper.cuh softmax_exp, keys at or past
+//     Sk masked to -inf), p kept in fp32.
+//   * p v: p is the A operand from registers (WIDE: from the traded
+//     fragments), split per step.  The
+//     accumulator holds keys 2t and 2t + 1 of each group of 8 where the tf32
+//     A fragment wants keys t and t + 4, so the pre-pass stores v's keys in
+//     each group of 8 in the order 0, 2, 4, 6, 1, 3, 5, 7: p needs no
+//     shuffle.  Each v panel's products go to a fresh accumulator that is
+//     added to the running output once it retires (the tensor core's sums
+//     run over one key tile; the long sum over the keys is fp32 FADD).
+//   * Widths: P a template parameter, and N, the last panel's width in p v:
+//     exact at the widths users run (d = 40: N 40; 80: 16; 160: 32; 64 and
+//     512 whole panels), 64 at every other width, which computes v's zero
+//     columns.  Logits run to the true d at every width.
+//   * Key split: the host splits the keys into s chunks of whole tiles
+//     (ops.attention.f32_key_splits picks s from the shape and the SM
+//     count, so that waves fill); each (row block, chunk) writes its
+//     unnormalised output, running max and row sum to a workspace, and
+//     combine_kernel merges them (each chunk weighted by exp2((m_i - M) c)),
+//     writing the output in the form's layout and, where asked, the
+//     log-sum-exp.  At s = 1 the core normalises and stores itself.
+//   * The log-sum-exp, where asked for (a pointer, null: none): m c ln 2 +
+//     ln l, the kernels' convention (hopper.cuh store_lse), for rows below
+//     Sq.
+// So every form runs the same instance on the same q values, k and v
+// scratch and sums in the same order: the packed and transposed forms and
+// the form with the log-sum-exp are, bit for bit, the natural form's on the
+// same q, k and v, split or not (s depends on the shape alone).
+// Shared memory, one block an SM: the ring (stages of 32 KB), q (128 rows of
+// 64 P + 4 floats; WIDE 64), the mbarriers and, WIDE, p (16 KB) and the row
+// maxima: 5 stages at P = 1, 2 at P = 4 and at P = 8.  Registers:
+// setmaxnreg gives the consumers 232 a thread, the producer 40.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -124,61 +134,98 @@
 
 namespace {
 
+using gswm_hopper::align_smem;
 using gswm_hopper::cp_async_16;
 using gswm_hopper::cp_async_4;
 using gswm_hopper::cp_async_commit;
 using gswm_hopper::cp_async_wait;
+using gswm_hopper::DESC_K_STEP;
+using gswm_hopper::encode_map;
 using gswm_hopper::exp2_approx;
+using gswm_hopper::fence_mbar_init;
+using gswm_hopper::fence_regs;
+using gswm_hopper::mbar_arrive;
+using gswm_hopper::mbar_expect_tx;
+using gswm_hopper::mbar_init;
+using gswm_hopper::mbar_wait;
+using gswm_hopper::named_barrier;
+using gswm_hopper::quad_max;
+using gswm_hopper::quad_sum;
+using gswm_hopper::reg_dec;
+using gswm_hopper::reg_inc;
+using gswm_hopper::scale_rows;
+using gswm_hopper::smem_desc_sw128;
+using gswm_hopper::softmax_exp;
+using gswm_hopper::split_fragment;
+using gswm_hopper::tma_load_2d;
+using gswm_hopper::wgmma_3xtf32_rs;
+using gswm_hopper::wgmma_commit;
+using gswm_hopper::wgmma_fence;
+using gswm_hopper::wgmma_wait;
 
-constexpr int BM = 64;            // query rows a block
-constexpr int BN = 64;            // keys a tile
-constexpr int PW = 64;            // columns of a panel
-constexpr int PITCH = PW + 4;     // floats a staged k or v panel row
-constexpr int P_PITCH = BN + 16;  // floats a row of p
-constexpr int THREADS = 256;
-constexpr int ROWS = BM / 16;     // rows a thread owns
-constexpr int KEYS = BN / 16;     // logits of a row a thread computes
-constexpr int PANEL_FLOATS = BN * PITCH;
-constexpr int PANEL_CHUNKS = BN * PW / 4;  // 16-byte pieces of a panel
-constexpr int MAX_P = 8;          // d <= 512
+constexpr int BM = 64;                        // query rows a warpgroup
+constexpr int BN = 64;                        // keys a tile
+constexpr int PW = 64;                        // columns a panel
+constexpr int CONSUMERS = 256;                // two consumer warpgroups
+constexpr int THREADS = 128 + CONSUMERS;      // and the producer's
+constexpr int STEP_THREADS = 256;             // the pre-pass's and the combine's blocks
+constexpr int PRODUCER_REGS = 40;             // setmaxnreg: 128 x 40 + 256 x 232 <= 65536
+constexpr int CONSUMER_REGS = 232;
+constexpr int ATOM_BYTES = 64 * 128;          // 64 rows of one 128-byte row (32 floats)
+constexpr int PART_BYTES = 2 * ATOM_BYTES;    // a 64 x 64 panel's big (or small) part
+constexpr int PANEL_BYTES = 2 * PART_BYTES;   // both parts
+constexpr int MAX_P = 8;                      // d <= 512
+constexpr int SMEM_LIMIT = 232448;
+constexpr int MAX_STAGES = 6;
+constexpr int BAR_BYTES = 2 * MAX_STAGES * 8;  // a full and an empty mbarrier a stage
 
 enum class Layout { natural, transposed };
 
 // P panels of 64 columns: d in (64 (P - 1), 64 P]
-template <int P, Layout L>
+template <int P>
 struct Cfg {
-  static constexpr bool T = L == Layout::transposed;
-  // floats a staged q row: natural, a token's P * 64 columns; transposed, a
-  // column's 64 tokens (P * 64 such rows)
-  static constexpr int QPITCH = T ? BM + 4 : P * PW + 4;
-  static constexpr int Q_FLOATS = T ? P * PW * QPITCH : BM * QPITCH;
-  static constexpr int STAGES = P == 2 ? 3 : P == 3 ? 2 : 4;
-  static constexpr int BLOCKS = P <= 3 ? 2 : 1;  // blocks an SM
+  // above 4 panels the warpgroups share 64 rows and split every product's
+  // B rows (keys of a k panel, columns of a v panel) between them
+  static constexpr bool WIDE = P > 4;
+  static constexpr int ROWS = WIDE ? BM : 2 * BM;     // query rows a block
+  static constexpr int NK = WIDE ? BN / 2 : BN;       // keys of a tile a warpgroup's logits hold
+  static constexpr int OW = WIDE ? PW / 2 : PW;       // a panel's columns a warpgroup's output holds
+  // steps of 8 whose A fragments (8 registers each) are live at once: a
+  // whole panel's where the accumulators leave room, half of one where they
+  // take 128 registers a thread
+  static constexpr int KB = P <= 2 ? 8 : P == 4 ? 2 : 4;
+  static constexpr int QP = P * PW + 4;               // floats a natural q row
+  static constexpr int Q_BYTES = ROWS * QP * 4;       // (transposed: P 64 rows of ROWS, less)
+  // WIDE: p of a key tile in A-fragment order (8 steps x 4 warps x 32
+  // lanes x 4 floats), and each warpgroup's row maxima (later its row sums)
+  static constexpr int P_BYTES = WIDE ? (BN / 8) * 128 * 4 * 4 : 0;
+  static constexpr int RED_BYTES = WIDE ? 2 * BM * 4 : 0;
+  static constexpr int FIT =
+      (SMEM_LIMIT - 1024 - Q_BYTES - P_BYTES - RED_BYTES - BAR_BYTES) / PANEL_BYTES;
+  static constexpr int STAGES = FIT < MAX_STAGES ? FIT : MAX_STAGES;
   static constexpr int SMEM_BYTES =
-      (Q_FLOATS + STAGES * PANEL_FLOATS + BM * P_PITCH) * (int)sizeof(float);
+      1024 + STAGES * PANEL_BYTES + Q_BYTES + P_BYTES + RED_BYTES + BAR_BYTES;
 };
+static_assert(Cfg<1>::STAGES >= 4 && Cfg<4>::STAGES >= 2 && Cfg<MAX_P>::STAGES >= 2,
+              "d = 512 must keep two stages beside q");
 
-template <Layout L>
-constexpr bool fits() {
-  return Cfg<MAX_P, L>::SMEM_BYTES <= 232448 && Cfg<1, L>::SMEM_BYTES <= 232448 / 2 - 1024 &&
-         Cfg<2, L>::SMEM_BYTES <= 232448 / 2 - 1024 && Cfg<3, L>::SMEM_BYTES <= 232448 / 2 - 1024;
-}
-static_assert(fits<Layout::natural>() && fits<Layout::transposed>(),
-              "d = 512 must fit one block's shared memory, P <= 3 two blocks an SM");
-
-// Where a launch's tensors lie.  Natural: element (token r, column c) of
-// head h of batch b at base + (b * S + r) * pitch + h * d + c; transposed: at
-// base + (h * d + c) * pitch + b * S + r, pitch = B * S.
+// Where a launch's tensors lie.  q and out in the form's layout: natural,
+// element (token r, column c) of head h of batch b at base + (b * S + r) *
+// pitch + h * d + c; transposed, at base + (h * d + c) * pitch + b * S + r,
+// pitch = B * S.  k and v as the pre-pass wrote them, read through tensor
+// maps (flash_f32_kernel's map_k and map_v).
 struct Args {
   const float* q;
-  const float* k;
-  const float* v;
   float* out;
-  float* lse;  // (B, H, Sq) fp32, natural log; null: no store
-  size_t q_pitch, kv_pitch, out_pitch;
-  int Sq, Sk, H, d;
-  float c;   // d^-0.5 log2(e)
-  bool vec;  // transposed: 16-byte copies (S % 4 == 0), else 4-byte ones
+  float* lse;   // (B, H, Sq) fp32, natural log; null: no store
+  float* ws_o;  // [s][B H][Sq][d] partial outputs; null: unsplit
+  float* ws_m;  // [s][B H][Sq] running maxima of the raw logits
+  float* ws_l;  // [s][B H][Sq] row sums
+  size_t q_pitch, out_pitch;
+  int Sq, Sk, H, d, Skp, Dp;
+  int splits, chunk_tiles;  // key chunks, key tiles a chunk
+  float c;                  // d^-0.5 log2(e)
+  bool vec;                 // transposed q: 16-byte copies (S % 4 == 0), else 4-byte ones
 };
 
 // head h's column 0 at batch b's token 0, its tokens S a batch
@@ -188,373 +235,655 @@ __device__ __forceinline__ F* head_base(F* t, size_t pitch, int b, int S, int h,
   return t + (size_t)h * d * pitch + (size_t)b * S;
 }
 
-// The row of a transposed k or v panel that column cc (< 64) is kept in
-__device__ __forceinline__ int panel_row(int cc) { return (cc % 4) * 16 + cc / 4; }
-
-// Transposed layout: columns col0 .. col0 + COLS - 1 of one head (`src` its
-// column 0 at the batch's token 0, `pitch` floats between columns) at tokens
-// t0 .. t0 + 63, each column a row of PITCH floats (at panel_row(cc) where
-// SWIZZLE); tokens at or past S and columns at or past d as zeros.
-template <int COLS, bool SWIZZLE>
-__device__ __forceinline__ void stage_columns(float* dst, const float* __restrict__ src, int t0,
-                                              int S, int col0, int d, size_t pitch, bool vec) {
-  static_assert(Cfg<1, Layout::transposed>::QPITCH == PITCH, "one row pitch for q, k and v");
-  if (vec) {
-#pragma unroll
-    for (int it = 0; it < COLS * (BN / 4) / THREADS; ++it) {
-      const int i = threadIdx.x + it * THREADS;
-      const int cc = i / (BN / 4);
-      const int t = (i % (BN / 4)) * 4;
-      const bool in = col0 + cc < d && t0 + t < S;  // S % 4 == 0: all four or none
-      cp_async_16(dst + (SWIZZLE ? panel_row(cc) : cc) * PITCH + t,
-                  src + (in ? (col0 + cc) * pitch + t0 + t : 0), in ? 16 : 0);
-    }
-  } else {
-#pragma unroll 4
-    for (int it = 0; it < COLS * BN / THREADS; ++it) {
-      const int i = threadIdx.x + it * THREADS;
-      const int cc = i / BN;
-      const int t = i % BN;
-      const bool in = col0 + cc < d && t0 + t < S;
-      cp_async_4(dst + (SWIZZLE ? panel_row(cc) : cc) * PITCH + t,
-                 src + (in ? (col0 + cc) * pitch + t0 + t : 0), in ? 4 : 0);
-    }
-  }
+// q's element (row r, column c) in shared memory: natural, rows of 64 P + 4
+// floats; transposed, a row of ROWS tokens a column, each 4-token run moved
+// by 8 (c % 4).  The A fragment's 32 loads of a warp then hit 32 banks, and
+// a thread's addresses are one base plus constants (c's part of them is the
+// step's), which the loads take as immediates.
+template <int P, Layout L>
+__device__ __forceinline__ int q_index(int r, int c) {
+  if (L == Layout::natural) return r * Cfg<P>::QP + c;
+  return c * Cfg<P>::ROWS + (r ^ ((c & 3) << 3));
 }
 
-// q's rows [q0, q0 + 64) of one head (`qb` from head_base) across the whole
-// d; rows at or past Sq and columns at or past d as zeros (the source then
-// is the head's first element, which a copy of size 0 never reads).
+// q's rows [q0, q0 + ROWS) of one head (`qb` from head_base) across the
+// whole 64 P columns; rows at or past Sq and columns at or past d as zeros
+// (the source then is the head's first element, which a copy of size 0
+// never reads).
 template <int P, Layout L>
 __device__ __forceinline__ void stage_q(float* dst, const float* __restrict__ qb, int q0,
-                                        int Sq, int d, size_t pitch, bool vec) {
+                                        int Sq, int d, size_t pitch, bool vec, int tid) {
+  constexpr int ROWS = Cfg<P>::ROWS;
   if (L == Layout::transposed) {
-    stage_columns<P * PW, false>(dst, qb, q0, Sq, 0, d, pitch, vec);
+    if (vec) {
+      for (int i = tid; i < P * PW * ROWS / 4; i += CONSUMERS) {
+        const int c = i / (ROWS / 4);
+        const int t = (i % (ROWS / 4)) * 4;
+        const bool in = c < d && q0 + t < Sq;  // S % 4 == 0: all four or none
+        cp_async_16(dst + q_index<P, L>(t, c), qb + (in ? c * pitch + q0 + t : 0), in ? 16 : 0);
+      }
+    } else {
+      for (int i = tid; i < P * PW * ROWS; i += CONSUMERS) {
+        const int c = i / ROWS;
+        const int t = i % ROWS;
+        const bool in = c < d && q0 + t < Sq;
+        cp_async_4(dst + q_index<P, L>(t, c), qb + (in ? c * pitch + q0 + t : 0), in ? 4 : 0);
+      }
+    }
     return;
   }
-  constexpr int PER_ROW = P * PW / 4;
-#pragma unroll
-  for (int it = 0; it < BM * PER_ROW / THREADS; ++it) {
-    const int c = threadIdx.x + it * THREADS;
-    const int r = c / PER_ROW;
-    const int col = (c % PER_ROW) * 4;
-    const bool in = q0 + r < Sq && col < d;
-    cp_async_16(dst + r * Cfg<P, L>::QPITCH + col, qb + (in ? (q0 + r) * pitch + col : 0),
-                in ? 16 : 0);
+  for (int i = tid; i < ROWS * P * PW / 4; i += CONSUMERS) {
+    const int r = i / (P * PW / 4);
+    const int c = (i % (P * PW / 4)) * 4;
+    const bool in = q0 + r < Sq && c < d;
+    cp_async_16(dst + q_index<P, L>(r, c), qb + (in ? (q0 + r) * pitch + c : 0), in ? 16 : 0);
   }
 }
 
-// Panel n of the block's sequence into a stage: key tile n / (2 P), whose
-// k panels 0 .. P - 1 come first, then its v panels 0 .. P - 1; rows at or
-// past Sk and columns at or past d as zeros.
-template <int P, Layout L>
-__device__ __forceinline__ void stage_panel(float* dst, const float* __restrict__ kb,
-                                            const float* __restrict__ vb, int n, int Sk,
-                                            int d, size_t pitch, bool vec) {
+// The producer's copies of the block's panel n into its stage: key tile t0
+// + n / (2 P), whose k panels 0 .. P - 1 come first, then its v panels 0 ..
+// P - 1; a panel four TMA boxes of 64 rows by 32 floats (big, small; two
+// atoms each) in the 128-byte swizzle wgmma reads.  map_k is over k's
+// parts, 2 B H Skp rows of Dp floats (the small part's rows from B H Skp
+// on); map_v over v's, 2 B H Dp rows of Skp.
+template <int P>
+__device__ __forceinline__ void produce_panel(unsigned char* dst, uint64_t* full,
+                                              const CUtensorMap* map_k,
+                                              const CUtensorMap* map_v, int n, int t0,
+                                              const Args& a, int bh, int BH) {
   const int r = n % (2 * P);
-  const float* base = r < P ? kb : vb;
-  const int col0 = (r < P ? r : r - P) * PW;
-  const int row0 = n / (2 * P) * BN;
-  if (L == Layout::transposed) {
-    stage_columns<PW, true>(dst, base, row0, Sk, col0, d, pitch, vec);
-    return;
+  const int t = t0 + n / (2 * P);
+  mbar_expect_tx(full, PANEL_BYTES);
+  const CUtensorMap* map = r < P ? map_k : map_v;
+  // k: rows the tile's keys, columns the panel's; v: rows the panel's
+  // columns, columns the tile's keys
+  const int row = r < P ? bh * a.Skp + t * BN : bh * a.Dp + (r - P) * PW;
+  const int col = r < P ? r * PW : t * BN;
+  const int small = r < P ? BH * a.Skp : BH * a.Dp;
+#pragma unroll
+  for (int part = 0; part < 2; ++part)
+#pragma unroll
+    for (int atom = 0; atom < 2; ++atom)
+      tma_load_2d(dst + part * PART_BYTES + atom * ATOM_BYTES, map, full, col + atom * 32,
+                  row + part * small);
+}
+
+// The wgmma descriptors of step ks (8 columns or keys) of a staged panel's
+// big and small parts.
+__device__ __forceinline__ uint64_t step_desc(const unsigned char* stage, int part, int ks) {
+  return smem_desc_sw128(stage + part * PART_BYTES + (ks / 4) * ATOM_BYTES) +
+         (ks % 4) * DESC_K_STEP;
+}
+
+// The logits of this warpgroup's 64 rows against NK keys of k panel j (the
+// staged panel's rows from `stage` on), over its `steps` steps of 8 columns,
+// into s: added to it past the first panel, so the tensor cores' own sums
+// run over 64 columns.  Rows r_lo and r_lo + 8 of the block are this
+// thread's.  The steps go in batches of KB: the batch's A fragments loaded
+// and split first, then all its products issued behind one fence and
+// retired by one wait, so the tensor cores take them back to back.
+template <int P, Layout L, int NK, int KB>
+__device__ __forceinline__ void logits_panel(float (&s)[NK / 2], const float* qs,
+                                             const unsigned char* stage, int j, int steps,
+                                             int r_lo, int t4) {
+  float acc[NK / 2];
+#pragma unroll
+  for (int k0 = 0; k0 < PW / 8; k0 += KB) {
+    if (k0 < steps) {
+      uint32_t fb[KB][4], fs[KB][4];
+#pragma unroll
+      for (int kk = 0; kk < KB; ++kk) {
+        const int c = j * PW + (k0 + kk) * 8 + t4;
+        if (k0 + kk < steps)
+          split_fragment(qs[q_index<P, L>(r_lo, c)], qs[q_index<P, L>(r_lo + 8, c)],
+                         qs[q_index<P, L>(r_lo, c + 4)], qs[q_index<P, L>(r_lo + 8, c + 4)],
+                         fb[kk], fs[kk]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KB; ++kk)
+        if (k0 + kk < steps)
+          wgmma_3xtf32_rs<NK>(acc, fb[kk], fs[kk], step_desc(stage, 0, k0 + kk),
+                              step_desc(stage, 1, k0 + kk), k0 + kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(fb);
+      fence_regs(fs);
+    }
   }
+  fence_regs(acc);
 #pragma unroll
-  for (int it = 0; it < PANEL_CHUNKS / THREADS; ++it) {
-    const int c = threadIdx.x + it * THREADS;
-    const int row = c / (PW / 4);
-    const int col = col0 + (c % (PW / 4)) * 4;
-    const bool in = row0 + row < Sk && col < d;
-    cp_async_16(dst + row * PITCH + col - col0, base + (in ? (row0 + row) * pitch + col : 0),
-                in ? 16 : 0);
+  for (int i = 0; i < NK / 2; ++i) s[i] = j == 0 ? acc[i] : s[i] + acc[i];
+}
+
+// o (its first N / 2) += p (64 rows x 64 keys) times N columns of a v
+// panel (the staged panel's rows from `stage` on), summed apart and then
+// added.  p's A fragment of step ks comes from `frag` (four floats: row lo
+// and hi of key 2 t, row lo and hi of key 2 t + 1 of the step's group of 8,
+// the slots t and t + 4 where the pre-pass put those keys in v); the steps
+// in batches of KB, as the logits'.
+template <int N, int OW, int KB, typename Frag>
+__device__ __forceinline__ void pv_panel(float (&o)[OW / 2], Frag frag,
+                                         const unsigned char* stage) {
+  float acc[N / 2];
+#pragma unroll
+  for (int k0 = 0; k0 < BN / 8; k0 += KB) {
+    uint32_t fb[KB][4], fs[KB][4];
+#pragma unroll
+    for (int kk = 0; kk < KB; ++kk) {
+      const float4 f = frag(k0 + kk);
+      split_fragment(f.x, f.y, f.z, f.w, fb[kk], fs[kk]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KB; ++kk)
+      wgmma_3xtf32_rs<N>(acc, fb[kk], fs[kk], step_desc(stage, 0, k0 + kk),
+                         step_desc(stage, 1, k0 + kk), k0 + kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(fb);
+    fence_regs(fs);
   }
-}
-
-// Panel n's stage once every thread's copies of it have landed; the panel
-// STAGES - 1 ahead is put in flight into the stage that panel n - 1 used,
-// which every thread is done with (the barrier).  One commit group a call,
-// empty past the last panel, so the wait counts stay as they are.
-template <int P, Layout L>
-__device__ __forceinline__ const float* next_panel(float* ring, int n, int total,
-                                                   const float* __restrict__ kb,
-                                                   const float* __restrict__ vb, int Sk,
-                                                   int d, size_t pitch, bool vec) {
-  constexpr int STAGES = Cfg<P, L>::STAGES;
-  cp_async_wait<STAGES - 2>();
-  __syncthreads();
-  const int ahead = n + STAGES - 1;
-  if (ahead < total)
-    stage_panel<P, L>(ring + (ahead % STAGES) * PANEL_FLOATS, kb, vb, ahead, Sk, d, pitch,
-                      vec);
-  cp_async_commit();
-  return ring + (n % STAGES) * PANEL_FLOATS;
-}
-
-// the largest / the sum over the 16 threads that share a row
-__device__ __forceinline__ float row_max(float x) {
+  fence_regs(acc);
 #pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+  for (int i = 0; i < N / 2; ++i) o[i] += acc[i];
 }
 
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// DC: d where it is a template parameter (P = 1), else 0 and a.d is d
-template <int P, int DC, Layout L>
-__global__ void __launch_bounds__(THREADS, Cfg<P, L>::BLOCKS)
-flash_f32_kernel(const Args a) {
-  constexpr bool T = L == Layout::transposed;
-  const int d = DC > 0 ? DC : a.d;
-  const int Sq = a.Sq, Sk = a.Sk;
-  const float c = a.c;
-  constexpr int QPITCH = Cfg<P, L>::QPITCH;
-  constexpr int STAGES = Cfg<P, L>::STAGES;
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                             // Q_FLOATS
-  float* ring = qs + Cfg<P, L>::Q_FLOATS;       // STAGES x PANEL_FLOATS
-  float* ps = ring + STAGES * PANEL_FLOATS;     // BM x P_PITCH
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const int q0 = blockIdx.x * BM;
+// N: p v's width of the last panel (the others 64); WIDE: each warpgroup
+// takes half of every panel's B rows.  Warpgroup 0 produces (one thread's
+// TMA copies, a full and an empty mbarrier a stage), 1 and 2 consume.
+template <int P, int N, Layout L>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_f32_kernel(const __grid_constant__ CUtensorMap map_k,
+                 const __grid_constant__ CUtensorMap map_v, const Args a) {
+  using C = Cfg<P>;
+  constexpr bool WIDE = C::WIDE;
+  constexpr int STAGES = C::STAGES;
+  static_assert(!WIDE || N == PW, "WIDE instances take whole panels");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = align_smem(smem_raw);  // STAGES panels
+  float* qs = reinterpret_cast<float*>(ring + STAGES * PANEL_BYTES);
+  float4* pf = reinterpret_cast<float4*>(ring + STAGES * PANEL_BYTES + C::Q_BYTES);
+  float* red = reinterpret_cast<float*>(ring + STAGES * PANEL_BYTES + C::Q_BYTES +
+                                        C::P_BYTES);  // [2][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * PANEL_BYTES + C::Q_BYTES +
+                                               C::P_BYTES + C::RED_BYTES);
+  uint64_t* empty = full + MAX_STAGES;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const float* qb = head_base<L>(a.q, a.q_pitch, b, Sq, h, d);
-  const float* kb = head_base<L>(a.k, a.kv_pitch, b, Sk, h, d);
-  const float* vb = head_base<L>(a.v, a.kv_pitch, b, Sk, h, d);
-  const int tiles = (Sk + BN - 1) / BN;
-  const int total = tiles * 2 * P;        // panels the block stages
-  const int last = d - (P - 1) * PW;      // true columns of the last panel
+  const int chunk = blockIdx.x % a.splits;
+  const int q0 = blockIdx.x / a.splits * C::ROWS;
+  const size_t bh = (size_t)b * a.H + h;
+  const int tiles = (a.Sk + BN - 1) / BN;
+  const int t0 = chunk * a.chunk_tiles;
+  const int t1 = min(tiles, t0 + a.chunk_tiles);
+  const int total = (t1 - t0) * 2 * P;  // panels the block stages
 
-  float o[P][ROWS][4], m[ROWS], l[ROWS];
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int p = 0; p < P; ++p)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[p][i][e] = 0.0f;
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], CONSUMERS / 32);  // each consumer warp once it is done
+    }
+    fence_mbar_init();
   }
+  __syncthreads();
+  if (threadIdx.x < 128) {
+    reg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0)
+      for (int n = 0; n < total; ++n) {
+        mbar_wait(&empty[n % STAGES], ((n / STAGES) & 1) ^ 1);
+        produce_panel<P>(ring + (n % STAGES) * PANEL_BYTES, &full[n % STAGES], &map_k,
+                         &map_v, n, t0, a, (int)bh, gridDim.z * a.H);
+      }
+    return;
+  }
+  reg_inc<CONSUMER_REGS>();
+  const int ctid = threadIdx.x - 128;
+  const int wg = ctid / 128;
+  const int warp = (ctid / 32) % 4;
+  const int lane = ctid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int rw = warp * 16 + g;         // this thread's rows of its warpgroup: rw, rw + 8
+  const int r_lo = (WIDE ? 0 : wg * BM) + rw;  // and of the block
+  const int boff = WIDE ? wg * (BN / 2) * 128 : 0;  // this warpgroup's B rows of a panel
+  const float c = a.c;
 
-  stage_q<P, L>(qs, qb, q0, Sq, d, a.q_pitch, a.vec);  // in the first group, with panel 0
+  float o[P][C::OW / 2];
+  float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.0f, l_hi = 0.0f;
 #pragma unroll
-  for (int n = 0; n < STAGES - 1; ++n) {
-    if (n < total)
-      stage_panel<P, L>(ring + n * PANEL_FLOATS, kb, vb, n, Sk, d, a.kv_pitch, a.vec);
-    cp_async_commit();
-  }
+  for (int j = 0; j < P; ++j)
+#pragma unroll
+    for (int i = 0; i < C::OW / 2; ++i) o[j][i] = 0.0f;
+
+  stage_q<P, L>(qs, head_base<L>(a.q, a.q_pitch, b, a.Sq, h, a.d), q0, a.Sq, a.d, a.q_pitch,
+                a.vec, ctid);
+  cp_async_commit();
+  cp_async_wait<0>();
+  named_barrier(2, CONSUMERS);  // q whole
+
+  // panel n's stage once its copies landed; its release once this
+  // warpgroup's products reading it retired (lane 0 of each warp)
+  auto acquire = [&](int n) {
+    mbar_wait(&full[n % STAGES], (n / STAGES) & 1);
+    return ring + (n % STAGES) * PANEL_BYTES;
+  };
+  auto release = [&](int n) {
+    if (lane == 0) mbar_arrive(&empty[n % STAGES]);
+  };
 
   int n = 0;  // the next panel of the sequence
-  for (int t = 0; t < tiles; ++t) {
-    // logits s[i][j] of row ty + 16 i, key tx + 16 j, over the k panels
-    float s[ROWS][KEYS];
+  for (int t = t0; t < t1; ++t) {
+    float s[C::NK / 2];
 #pragma unroll
-    for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-      for (int j = 0; j < KEYS; ++j) s[i][j] = 0.0f;
-#pragma unroll
-    for (int p = 0; p < P; ++p, ++n) {
-      const float* ks = next_panel<P, L>(ring, n, total, kb, vb, Sk, d, a.kv_pitch, a.vec);
-      const float* qp = qs + p * PW * (T ? QPITCH : 1);
-      const int width = p < P - 1 ? PW : last;
-#pragma unroll 4
-      for (int dd = 0; dd < width; dd += 4) {
-        // columns dd .. dd + 3 of q's rows and of k's keys
-        float4 a4[ROWS], bk[KEYS];
-        if (T) {
-#pragma unroll
-          for (int i = 0; i < ROWS; ++i) {
-            const float* col = qp + dd * QPITCH + ty + 16 * i;
-            a4[i] = make_float4(col[0], col[QPITCH], col[2 * QPITCH], col[3 * QPITCH]);
-          }
-#pragma unroll
-          for (int j = 0; j < KEYS; ++j) {
-            // panel_row(dd + e) = 16 e + dd / 4
-            const float* col = ks + panel_row(dd) * PITCH + tx + 16 * j;
-            bk[j] = make_float4(col[0], col[16 * PITCH], col[32 * PITCH], col[48 * PITCH]);
-          }
-        } else {
-#pragma unroll
-          for (int i = 0; i < ROWS; ++i)
-            a4[i] = *reinterpret_cast<const float4*>(qp + (ty + 16 * i) * QPITCH + dd);
-#pragma unroll
-          for (int j = 0; j < KEYS; ++j)
-            bk[j] = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * PITCH + dd);
-        }
-#pragma unroll
-        for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-          for (int j = 0; j < KEYS; ++j) {
-            s[i][j] = fmaf(a4[i].x, bk[j].x, s[i][j]);
-            s[i][j] = fmaf(a4[i].y, bk[j].y, s[i][j]);
-            s[i][j] = fmaf(a4[i].z, bk[j].z, s[i][j]);
-            s[i][j] = fmaf(a4[i].w, bk[j].w, s[i][j]);
-          }
-      }
+    for (int j = 0; j < P; ++j, ++n) {
+      const unsigned char* stage = acquire(n);
+      const int steps = min(PW / 8, (a.d - j * PW) / 8);
+      logits_panel<P, L, C::NK, C::KB>(s, qs, stage + boff, j, steps, r_lo, t4);
+      release(n);
     }
-
-    // online softmax; every tile holds a key below Sk, so each row's tile
-    // max, and with it m, is finite from the first tile on.  The barrier of
-    // the last k panel parted these writes of p from the reads of the tile
-    // before
+    float a_lo, a_hi;
+    const int valid = min(BN, a.Sk - t * BN);  // keys of the tile below Sk
+    if constexpr (WIDE) {
+      // this warpgroup's keys 32 wg + ..; the row maxima traded through
+      // shared memory (both sides then hold the same), p in A-fragment
+      // order for both
+      const int mine = valid - wg * (BN / 2);
 #pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      float tmax = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < KEYS; ++j) {
-        if (t * BN + tx + 16 * j >= Sk) s[i][j] = -INFINITY;
-        tmax = fmaxf(tmax, s[i][j]);
+      for (int j = 0; j < C::NK / 8; ++j) {
+        const int col = j * 8 + 2 * t4;
+        if (col >= mine) s[4 * j] = s[4 * j + 2] = -INFINITY;
+        if (col + 1 >= mine) s[4 * j + 1] = s[4 * j + 3] = -INFINITY;
       }
-      const float mn = fmaxf(m[i], row_max(tmax));
-      const float alpha = exp2_approx((m[i] - mn) * c);  // 0 on the first tile
-      m[i] = mn;
-      l[i] *= alpha;
+      float mx_lo = -INFINITY, mx_hi = -INFINITY;
 #pragma unroll
-      for (int p = 0; p < P; ++p)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[p][i][e] *= alpha;
-      float* prow = ps + (ty + 16 * i) * P_PITCH;
-#pragma unroll
-      for (int j = 0; j < KEYS; ++j) {
-        const float pj = exp2_approx((s[i][j] - mn) * c);
-        l[i] += pj;
-        prow[tx + 16 * j] = pj;
+      for (int j = 0; j < C::NK / 8; ++j) {
+        mx_lo = fmaxf(mx_lo, fmaxf(s[4 * j], s[4 * j + 1]));
+        mx_hi = fmaxf(mx_hi, fmaxf(s[4 * j + 2], s[4 * j + 3]));
       }
+      mx_lo = quad_max(mx_lo);
+      mx_hi = quad_max(mx_hi);
+      if (t4 == 0) {
+        red[wg * BM + rw] = mx_lo;
+        red[wg * BM + rw + 8] = mx_hi;
+      }
+      named_barrier(1, CONSUMERS);
+      const float n_lo = fmaxf(m_lo, fmaxf(red[rw], red[BM + rw]));
+      const float n_hi = fmaxf(m_hi, fmaxf(red[rw + 8], red[BM + rw + 8]));
+      a_lo = exp2_approx((m_lo - n_lo) * c);
+      a_hi = exp2_approx((m_hi - n_hi) * c);
+      m_lo = n_lo;
+      m_hi = n_hi;
+#pragma unroll
+      for (int j = 0; j < C::NK / 8; ++j) {
+        s[4 * j] = exp2_approx(fmaf(s[4 * j], c, -m_lo * c));
+        s[4 * j + 1] = exp2_approx(fmaf(s[4 * j + 1], c, -m_lo * c));
+        s[4 * j + 2] = exp2_approx(fmaf(s[4 * j + 2], c, -m_hi * c));
+        s[4 * j + 3] = exp2_approx(fmaf(s[4 * j + 3], c, -m_hi * c));
+        pf[((wg * (C::NK / 8) + j) * 4 + warp) * 32 + lane] =
+            make_float4(s[4 * j], s[4 * j + 2], s[4 * j + 1], s[4 * j + 3]);
+      }
+      named_barrier(1, CONSUMERS);  // p whole
+    } else {
+      softmax_exp<BN / 8>(s, m_lo, m_hi, a_lo, a_hi, valid, c, t4);
     }
-
-    // p v, a v panel at a time; the first panel's barrier makes p visible
+    float sum_lo = 0.0f, sum_hi = 0.0f;
 #pragma unroll
-    for (int p = 0; p < P; ++p, ++n) {
-      const float* vs = next_panel<P, L>(ring, n, total, kb, vb, Sk, d, a.kv_pitch, a.vec);
-#pragma unroll 4
-      for (int j = 0; j < BN; j += 4) {
-        // vv[e]: key j + e's columns 4 tx .. 4 tx + 3
-        float4 pa[ROWS], vv[4];
+    for (int j = 0; j < C::NK / 8; ++j) {
+      sum_lo += s[4 * j] + s[4 * j + 1];
+      sum_hi += s[4 * j + 2] + s[4 * j + 3];
+    }
+    l_lo = l_lo * a_lo + sum_lo;
+    l_hi = l_hi * a_hi + sum_hi;
 #pragma unroll
-        for (int i = 0; i < ROWS; ++i)
-          pa[i] = *reinterpret_cast<const float4*>(ps + (ty + 16 * i) * P_PITCH + j);
-        if (T) {
-          float4 vt[4];  // column 4 tx + e's keys j .. j + 3 (at panel_row 16 e + tx)
+    for (int j = 0; j < P; ++j) scale_rows<C::OW / 2>(o[j], a_lo, a_hi);
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            vt[e] = *reinterpret_cast<const float4*>(vs + (16 * e + tx) * PITCH + j);
-          vv[0] = make_float4(vt[0].x, vt[1].x, vt[2].x, vt[3].x);
-          vv[1] = make_float4(vt[0].y, vt[1].y, vt[2].y, vt[3].y);
-          vv[2] = make_float4(vt[0].z, vt[1].z, vt[2].z, vt[3].z);
-          vv[3] = make_float4(vt[0].w, vt[1].w, vt[2].w, vt[3].w);
-        } else {
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            vv[e] = *reinterpret_cast<const float4*>(vs + (j + e) * PITCH + 4 * tx);
-        }
-#pragma unroll
-        for (int i = 0; i < ROWS; ++i) {
-          const float pe[4] = {pa[i].x, pa[i].y, pa[i].z, pa[i].w};
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            o[p][i][0] = fmaf(pe[e], vv[e].x, o[p][i][0]);
-            o[p][i][1] = fmaf(pe[e], vv[e].y, o[p][i][1]);
-            o[p][i][2] = fmaf(pe[e], vv[e].z, o[p][i][2]);
-            o[p][i][3] = fmaf(pe[e], vv[e].w, o[p][i][3]);
-          }
-        }
+    for (int j = 0; j < P; ++j, ++n) {
+      const unsigned char* stage = acquire(n) + boff;
+      if constexpr (WIDE) {
+        pv_panel<PW / 2, C::OW, C::KB>(
+            o[j], [&](int ks) { return pf[(ks * 4 + warp) * 32 + lane]; }, stage);
+      } else {
+        auto frag = [&](int ks) {
+          return make_float4(s[4 * ks], s[4 * ks + 2], s[4 * ks + 1], s[4 * ks + 3]);
+        };
+        if (j == P - 1)
+          pv_panel<N, C::OW, C::KB>(o[j], frag, stage);
+        else
+          pv_panel<PW, C::OW, C::KB>(o[j], frag, stage);
       }
+      release(n);
     }
   }
 
-  constexpr float LN2 = 0.6931471805599453f;
-  float* ob = head_base<L>(a.out, a.out_pitch, b, Sq, h, d);
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    const float sum = row_sum(l[i]);
-    const float inv = 1.0f / sum;
-    const int row = q0 + ty + 16 * i;
-    if (row >= Sq) continue;
-    if (a.lse != nullptr && tx == 0)
-      a.lse[((size_t)b * a.H + h) * Sq + row] = m[i] * c * LN2 + logf(sum);
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-      const int col = p * PW + 4 * tx;
-      if (col >= d) continue;
-      const float4 y = make_float4(o[p][i][0] * inv, o[p][i][1] * inv, o[p][i][2] * inv,
-                                   o[p][i][3] * inv);
-      if (T) {
-        float* at = ob + (size_t)col * a.out_pitch + row;
-        at[0] = y.x;
-        at[a.out_pitch] = y.y;
-        at[2 * a.out_pitch] = y.z;
-        at[3 * a.out_pitch] = y.w;
-      } else {
-        *reinterpret_cast<float4*>(ob + row * a.out_pitch + col) = y;
-      }
+  // the row sums over the quad's four threads (WIDE: and both warpgroups'
+  // keys, added in one order); the rows of this thread
+  float l[2] = {quad_sum(l_lo), quad_sum(l_hi)};
+  if constexpr (WIDE) {
+    if (t4 == 0) {
+      red[wg * BM + rw] = l[0];
+      red[wg * BM + rw + 8] = l[1];
     }
+    named_barrier(1, CONSUMERS);
+    l[0] = red[rw] + red[BM + rw];
+    l[1] = red[rw + 8] + red[BM + rw + 8];
+  }
+  const float m[2] = {m_lo, m_hi};
+  const bool row_owner = t4 == 0 && (!WIDE || wg == 0);
+  const int col0 = WIDE ? wg * (PW / 2) : 0;  // this warpgroup's first column of a panel
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = q0 + r_lo + 8 * half;
+    if (row >= a.Sq) continue;
+    const float inv = 1.0f / l[half];
+    if (a.ws_o != nullptr) {  // a key chunk's partial output
+      const size_t at = ((size_t)chunk * gridDim.z * a.H + bh) * a.Sq + row;
+      if (row_owner) {
+        a.ws_m[at] = m[half];
+        a.ws_l[at] = l[half];
+      }
+#pragma unroll
+      for (int j = 0; j < P; ++j)
+#pragma unroll
+        for (int grp = 0; grp < C::OW / 8; ++grp) {
+          const int col = j * PW + col0 + 8 * grp + 2 * t4;
+          if (col < a.d)
+            *reinterpret_cast<float2*>(a.ws_o + at * a.d + col) =
+                make_float2(o[j][4 * grp + 2 * half], o[j][4 * grp + 2 * half + 1]);
+        }
+      continue;
+    }
+    if (a.lse != nullptr && row_owner) {
+      constexpr float LN2 = 0.6931471805599453f;
+      a.lse[bh * a.Sq + row] = m[half] * c * LN2 + logf(l[half]);
+    }
+    float* ob = head_base<L>(a.out, a.out_pitch, b, a.Sq, h, a.d);
+#pragma unroll
+    for (int j = 0; j < P; ++j)
+#pragma unroll
+      for (int grp = 0; grp < C::OW / 8; ++grp) {
+        const int col = j * PW + col0 + 8 * grp + 2 * t4;
+        if (col >= a.d) continue;
+        const float y0 = o[j][4 * grp + 2 * half] * inv;
+        const float y1 = o[j][4 * grp + 2 * half + 1] * inv;
+        if (L == Layout::transposed) {
+          ob[(size_t)col * a.out_pitch + row] = y0;
+          ob[(size_t)(col + 1) * a.out_pitch + row] = y1;
+        } else {
+          *reinterpret_cast<float2*>(ob + (size_t)row * a.out_pitch + col) = make_float2(y0, y1);
+        }
+      }
   }
 }
 
-template <int P, int DC, Layout L>
-cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(flash_f32_kernel<P, DC, L>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       Cfg<P, L>::SMEM_BYTES);
+// The pre-pass: one 64-key by 64-column tile of k and of v of one head a
+// block, read in the layout L (zeros at or past Sk and d), written split
+// into the scratch: k's parts as [key][column] rows, v's as [column][key]
+// rows, keys in each group of 8 in the order 0, 2, 4, 6, 1, 3, 5, 7.
+template <Layout L>
+__global__ void __launch_bounds__(STEP_THREADS)
+split_kv_kernel(const float* __restrict__ k, const float* __restrict__ v, size_t pitch,
+                int Sk, int H, int d, int Skp, int Dp, float* __restrict__ kb,
+                float* __restrict__ ks, float* __restrict__ vb, float* __restrict__ vs) {
+  __shared__ float kt[BN][PW + 1], vt[BN][PW + 1];
+  const int key0 = blockIdx.x * BN;
+  const int col0 = blockIdx.y * PW;
+  const int bh = blockIdx.z;
+  const int b = bh / H, h = bh % H;
+  const float* kh = head_base<L>(k, pitch, b, Sk, h, d);
+  const float* vh = head_base<L>(v, pitch, b, Sk, h, d);
+  if (L == Layout::natural) {
+    for (int i = threadIdx.x; i < BN * PW / 4; i += STEP_THREADS) {
+      const int r = i / (PW / 4);
+      const int c = (i % (PW / 4)) * 4;
+      const bool in = key0 + r < Sk && col0 + c < d;  // d % 8 == 0: four columns or none
+      const size_t at = (size_t)(key0 + r) * pitch + col0 + c;
+      const float4 x = in ? *reinterpret_cast<const float4*>(kh + at) : make_float4(0, 0, 0, 0);
+      const float4 y = in ? *reinterpret_cast<const float4*>(vh + at) : make_float4(0, 0, 0, 0);
+      kt[r][c] = x.x, kt[r][c + 1] = x.y, kt[r][c + 2] = x.z, kt[r][c + 3] = x.w;
+      vt[r][c] = y.x, vt[r][c + 1] = y.y, vt[r][c + 2] = y.z, vt[r][c + 3] = y.w;
+    }
+  } else {
+    for (int i = threadIdx.x; i < BN * PW; i += STEP_THREADS) {
+      const int c = i / BN;
+      const int r = i % BN;
+      const bool in = key0 + r < Sk && col0 + c < d;
+      const size_t at = (size_t)(col0 + c) * pitch + key0 + r;
+      kt[r][c] = in ? kh[at] : 0.0f;
+      vt[r][c] = in ? vh[at] : 0.0f;
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < BN * PW / 4; i += STEP_THREADS) {
+    const int r = i / (PW / 4);
+    const int c = (i % (PW / 4)) * 4;
+    uint32_t big[4], small[4];
+    split_fragment(kt[r][c], kt[r][c + 1], kt[r][c + 2], kt[r][c + 3], big, small);
+    const size_t at = ((size_t)bh * Skp + key0 + r) * Dp + col0 + c;
+    *reinterpret_cast<uint4*>(kb + at) = make_uint4(big[0], big[1], big[2], big[3]);
+    *reinterpret_cast<uint4*>(ks + at) = make_uint4(small[0], small[1], small[2], small[3]);
+    // v's row `r` of this tile is column col0 + r; its slots c .. c + 3
+    // hold keys perm(c % 8 + e) of the group
+    float x[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int slot = (c + e) % 8;
+      x[e] = vt[(c + e) - slot + (slot < 4 ? 2 * slot : 2 * (slot - 4) + 1)][r];
+    }
+    split_fragment(x[0], x[1], x[2], x[3], big, small);
+    const size_t vt_at = ((size_t)bh * Dp + col0 + r) * Skp + key0 + c;
+    *reinterpret_cast<uint4*>(vb + vt_at) = make_uint4(big[0], big[1], big[2], big[3]);
+    *reinterpret_cast<uint4*>(vs + vt_at) = make_uint4(small[0], small[1], small[2], small[3]);
+  }
+}
+
+// The combine: a (row, 4 columns) a thread; the s partial outputs of the
+// row weighted by exp2((m_i - M) c), M the largest m_i, over the weighted
+// row sums; the log-sum-exp M c ln 2 + ln L where asked for.  Threads run
+// along the columns in the natural layout and along the rows in the
+// transposed one, where the output's columns are rows.
+template <Layout L>
+__global__ void __launch_bounds__(STEP_THREADS)
+combine_kernel(const float* __restrict__ ws_o, const float* __restrict__ ws_m,
+               const float* __restrict__ ws_l, float* __restrict__ out, float* __restrict__ lse,
+               size_t out_pitch, int B, int Sq, int H, int d, int splits, float c) {
+  const size_t quads = (size_t)d / 4;
+  const size_t total = (size_t)B * H * Sq * quads;
+  const size_t i = (size_t)blockIdx.x * STEP_THREADS + threadIdx.x;
+  if (i >= total) return;
+  size_t row, cq, bh;
+  if (L == Layout::natural) {
+    cq = i % quads;
+    row = (i / quads) % Sq;
+    bh = i / quads / Sq;
+  } else {
+    row = i % Sq;
+    cq = (i / Sq) % quads;
+    bh = i / Sq / quads;
+  }
+  const size_t rows = (size_t)B * H * Sq;
+  const size_t at = bh * Sq + row;
+  float mx = -INFINITY;
+  for (int s = 0; s < splits; ++s) mx = fmaxf(mx, ws_m[s * rows + at]);
+  float sum = 0.0f;
+  float4 acc = make_float4(0, 0, 0, 0);
+  for (int s = 0; s < splits; ++s) {
+    const float w = exp2_approx((ws_m[s * rows + at] - mx) * c);
+    sum += ws_l[s * rows + at] * w;
+    const float4 x = *reinterpret_cast<const float4*>(ws_o + (s * rows + at) * d + 4 * cq);
+    acc.x += x.x * w, acc.y += x.y * w, acc.z += x.z * w, acc.w += x.w * w;
+  }
+  const float inv = 1.0f / sum;
+  const int b = (int)(bh / H), h = (int)(bh % H);
+  float* ob = head_base<L>(out, out_pitch, b, Sq, h, d);
+  const size_t col = 4 * cq;
+  if (L == Layout::natural) {
+    *reinterpret_cast<float4*>(ob + row * out_pitch + col) =
+        make_float4(acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv);
+  } else {
+    ob[col * out_pitch + row] = acc.x * inv;
+    ob[(col + 1) * out_pitch + row] = acc.y * inv;
+    ob[(col + 2) * out_pitch + row] = acc.z * inv;
+    ob[(col + 3) * out_pitch + row] = acc.w * inv;
+  }
+  if (lse != nullptr && cq == 0) {
+    constexpr float LN2 = 0.6931471805599453f;
+    lse[at] = mx * c * LN2 + logf(sum);
+  }
+}
+
+// d^-0.5 log2(e), rounded once; at d = 64 the float of 0.125 log2(e)
+float scale_log2(int d) {
+  return static_cast<float>(1.4426950408889634 / sqrt(static_cast<double>(d)));
+}
+
+bool takes(int B, int S, int H, int d) {
+  return d >= 8 && d % 8 == 0 && d <= MAX_P * PW && B >= 1 && S >= 1 && H >= 1 &&
+         B <= 65535 && H <= 65535;
+}
+
+int panels(int d) { return (d + PW - 1) / PW; }
+int padded_keys(int Sk) { return (Sk + BN - 1) / BN * BN; }
+
+// The kernel's two tensor maps over the scratch (prepass's layout): k's
+// parts as 2 B H Skp rows of Dp floats, v's as 2 B H Dp rows of Skp; boxes of
+// 32 floats (one 128-byte swizzled row) by 64 rows.
+struct Maps {
+  CUtensorMap k, v;
+};
+
+template <int P, int N, Layout L>
+cudaError_t launch(const Maps& m, const Args& a, int B, cudaStream_t stream) {
+  // once an instance (and a process: the attribute holds on every device)
+  static const cudaError_t e = cudaFuncSetAttribute(
+      flash_f32_kernel<P, N, L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Cfg<P>::SMEM_BYTES);
   if (e != cudaSuccess) return e;
-  const dim3 grid((a.Sq + BM - 1) / BM, a.H, B);
-  flash_f32_kernel<P, DC, L><<<grid, THREADS, Cfg<P, L>::SMEM_BYTES, stream>>>(a);
+  const int row_blocks = (a.Sq + Cfg<P>::ROWS - 1) / Cfg<P>::ROWS;
+  const dim3 grid(row_blocks * a.splits, a.H, B);
+  flash_f32_kernel<P, N, L><<<grid, THREADS, Cfg<P>::SMEM_BYTES, stream>>>(m.k, m.v, a);
   return cudaGetLastError();
 }
 
-// The kernel of head dim a.d in layout L: at P = 1 d a template parameter.
+// The instance of head dim a.d in layout L: exact widths at the d users run
+// (40, 80, 160; 64 and 512 are whole panels), 64-column panels elsewhere.
 template <Layout L>
-int run(Args a, int B, void* stream) {
-  const int D = a.d;
-  if (D < 8 || D % 8 || D > MAX_P * PW || B < 1 || a.Sq < 1 || a.Sk < 1 || a.H < 1 ||
-      B > 65535 || a.H > 65535)
+cudaError_t run(const Maps& m, const Args& a, int B, cudaStream_t st) {
+  switch (a.d) {
+    case 40: return launch<1, 40, L>(m, a, B, st);
+    case 80: return launch<2, 16, L>(m, a, B, st);
+    case 160: return launch<3, 32, L>(m, a, B, st);
+  }
+  switch (panels(a.d)) {
+    case 1: return launch<1, 64, L>(m, a, B, st);
+    case 2: return launch<2, 64, L>(m, a, B, st);
+    case 3: return launch<3, 64, L>(m, a, B, st);
+    case 4: return launch<4, 64, L>(m, a, B, st);
+    case 5: return launch<5, 64, L>(m, a, B, st);
+    case 6: return launch<6, 64, L>(m, a, B, st);
+    case 7: return launch<7, 64, L>(m, a, B, st);
+    default: return launch<8, 64, L>(m, a, B, st);
+  }
+}
+
+// Scratch: four arrays of B H Skp Dp floats (k big, k small, v big, v small).
+size_t scratch_floats(int B, int Sk, int H, int d) {
+  return (size_t)B * H * padded_keys(Sk) * panels(d) * PW;
+}
+
+int prepass(const float* k, const float* v, float* scratch, int B, int Sk, int H, int d,
+            size_t pitch, bool transposed, cudaStream_t st) {
+  if (!takes(B, Sk, H, d) || scratch == nullptr || (size_t)B * H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  // d^-0.5 log2(e), rounded once; at d = 64 the float of 0.125 log2(e)
-  a.c = static_cast<float>(1.4426950408889634 / sqrt(static_cast<double>(D)));
+  const size_t n = scratch_floats(B, Sk, H, d);
+  const int Skp = padded_keys(Sk), Dp = panels(d) * PW;
+  const dim3 grid(Skp / BN, Dp / PW, B * H);
+  if (transposed)
+    split_kv_kernel<Layout::transposed><<<grid, STEP_THREADS, 0, st>>>(
+        k, v, pitch, Sk, H, d, Skp, Dp, scratch, scratch + n, scratch + 2 * n, scratch + 3 * n);
+  else
+    split_kv_kernel<Layout::natural><<<grid, STEP_THREADS, 0, st>>>(
+        k, v, pitch, Sk, H, d, Skp, Dp, scratch, scratch + n, scratch + 2 * n, scratch + 3 * n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int core(const float* q, const float* scratch, float* out, float* lse, float* ws, int B, int Sq,
+         int Sk, int H, int d, size_t q_pitch, size_t out_pitch, bool transposed, bool vec,
+         int splits, cudaStream_t st) {
+  const int tiles = padded_keys(Sk) / BN;
+  if (!takes(B, Sq, H, d) || Sk < 1 || scratch == nullptr || splits < 1 || splits > tiles ||
+      (splits > 1 && ws == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t n = scratch_floats(B, Sk, H, d);
+  const size_t rows = (size_t)splits * B * H * Sq;
+  const int Skp = padded_keys(Sk), Dp = panels(d) * PW;
+  Args a = {q, out, lse, splits > 1 ? ws : nullptr, splits > 1 ? ws + rows * d : nullptr,
+            splits > 1 ? ws + rows * (d + 1) : nullptr, q_pitch, out_pitch, Sq, Sk, H, d,
+            Skp, Dp, splits, (tiles + splits - 1) / splits, scale_log2(d), vec};
+  if ((tiles + a.chunk_tiles - 1) / a.chunk_tiles != splits)  // no chunk may be empty
+    return static_cast<int>(cudaErrorInvalidValue);
+  Maps m;
+  const cuuint32_t box[2] = {32, 64};
+  const cuuint64_t dims_k[2] = {(cuuint64_t)Dp, 2 * (cuuint64_t)B * H * Skp};
+  const cuuint64_t dims_v[2] = {(cuuint64_t)Skp, 2 * (cuuint64_t)B * H * Dp};
+  const cuuint64_t stride_k[1] = {(cuuint64_t)Dp * sizeof(float)};
+  const cuuint64_t stride_v[1] = {(cuuint64_t)Skp * sizeof(float)};
+  cudaError_t e = encode_map(&m.k, scratch, 2, dims_k, stride_k, box,
+                             CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+  if (e == cudaSuccess)
+    e = encode_map(&m.v, scratch + 2 * n, 2, dims_v, stride_v, box,
+                   CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(transposed ? run<Layout::transposed>(m, a, B, st)
+                                     : run<Layout::natural>(m, a, B, st));
+}
+
+int combine(const float* ws, float* out, float* lse, int B, int Sq, int H, int d,
+            size_t out_pitch, bool transposed, int splits, cudaStream_t st) {
+  if (!takes(B, Sq, H, d) || ws == nullptr || splits < 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t rows = (size_t)splits * B * H * Sq;
+  const size_t threads = (size_t)B * H * Sq * (d / 4);
+  const unsigned blocks = (unsigned)((threads + STEP_THREADS - 1) / STEP_THREADS);
+  const float* m = ws + rows * d;
+  const float* l = m + rows;
+  if (transposed)
+    combine_kernel<Layout::transposed><<<blocks, STEP_THREADS, 0, st>>>(
+        ws, m, l, out, lse, out_pitch, B, Sq, H, d, splits, scale_log2(d));
+  else
+    combine_kernel<Layout::natural><<<blocks, STEP_THREADS, 0, st>>>(
+        ws, m, l, out, lse, out_pitch, B, Sq, H, d, splits, scale_log2(d));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The first design's entries: the pre-pass and the unsplit core on scratch
+// from the stream's pool, freed in stream order after the core.
+int unsplit(const float* q, const float* k, const float* v, float* out, float* lse, int B,
+            int Sq, int Sk, int H, int d, size_t q_pitch, size_t kv_pitch, size_t out_pitch,
+            bool transposed, bool vec, void* stream) {
+  if (!takes(B, Sq, H, d) || Sk < 1) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 8: return static_cast<int>(launch<1, 8, L>(a, B, st));
-    case 16: return static_cast<int>(launch<1, 16, L>(a, B, st));
-    case 24: return static_cast<int>(launch<1, 24, L>(a, B, st));
-    case 32: return static_cast<int>(launch<1, 32, L>(a, B, st));
-    case 40: return static_cast<int>(launch<1, 40, L>(a, B, st));
-    case 48: return static_cast<int>(launch<1, 48, L>(a, B, st));
-    case 56: return static_cast<int>(launch<1, 56, L>(a, B, st));
-    case 64: return static_cast<int>(launch<1, 64, L>(a, B, st));
-  }
-  switch ((D + PW - 1) / PW) {
-    case 2: return static_cast<int>(launch<2, 0, L>(a, B, st));
-    case 3: return static_cast<int>(launch<3, 0, L>(a, B, st));
-    case 4: return static_cast<int>(launch<4, 0, L>(a, B, st));
-    case 5: return static_cast<int>(launch<5, 0, L>(a, B, st));
-    case 6: return static_cast<int>(launch<6, 0, L>(a, B, st));
-    case 7: return static_cast<int>(launch<7, 0, L>(a, B, st));
-    default: return static_cast<int>(launch<8, 0, L>(a, B, st));
-  }
-}
-
-int natural_form(const void* q, const void* k, const void* v, void* out, void* lse, int B, int Sq,
-            int Sk, int H, int D, void* stream) {
-  const size_t pitch = (size_t)H * D;
-  const Args a = {static_cast<const float*>(q), static_cast<const float*>(k),
-                  static_cast<const float*>(v), static_cast<float*>(out),
-                  static_cast<float*>(lse), pitch, pitch, pitch, Sq, Sk, H, D, 0.0f, true};
-  return run<Layout::natural>(a, B, stream);
-}
-
-int transposed_form(const void* qkv_t, void* out_t, int B, int S, int H, int D, bool vec,
-               void* stream) {
-  if (B < 1 || S < 1 || H < 1 || D < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bs = (size_t)B * S;
-  const float* q = static_cast<const float*>(qkv_t);
-  const size_t band = (size_t)H * D * bs;  // q's, k's and v's rows
-  const Args a = {q, q + band, q + 2 * band, static_cast<float*>(out_t), nullptr, bs, bs, bs,
-                  S, S, H, D, 0.0f, vec};
-  return run<Layout::transposed>(a, B, stream);
+  // the pool keeps what it was given (its default hands memory back at
+  // every synchronisation, and each call would map it anew)
+  static const cudaError_t kept = [] {
+    int dev = 0;
+    cudaMemPool_t pool;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetDefaultMemPool(&pool, dev);
+    uint64_t all = UINT64_MAX;
+    if (e == cudaSuccess) e = cudaMemPoolSetAttribute(pool, cudaMemPoolAttrReleaseThreshold, &all);
+    return e;
+  }();
+  if (kept != cudaSuccess) return static_cast<int>(kept);
+  void* scratch = nullptr;
+  cudaError_t e = cudaMallocAsync(&scratch, 4 * scratch_floats(B, Sk, H, d) * sizeof(float), st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  float* sc = static_cast<float*>(scratch);
+  int r = prepass(k, v, sc, B, Sk, H, d, kv_pitch, transposed, st);
+  if (r == 0)
+    r = core(q, sc, out, lse, nullptr, B, Sq, Sk, H, d, q_pitch, out_pitch, transposed, vec, 1,
+             st);
+  e = cudaFreeAsync(scratch, st);
+  return r != 0 ? r : static_cast<int>(e);
 }
 
 }  // namespace
@@ -563,7 +892,10 @@ int transposed_form(const void* qkv_t, void* out_t, int B, int S, int H, int D, 
 // 16-byte aligned; D % 8 == 0, 8 <= D <= 512; Sq, Sk >= 1.
 extern "C" int gswm_flash_f32(const void* q, const void* k, const void* v, void* out, int B,
                               int Sq, int Sk, int H, int D, void* stream) {
-  return natural_form(q, k, v, out, nullptr, B, Sq, Sk, H, D, stream);
+  const size_t pitch = (size_t)H * D;
+  return unsplit(static_cast<const float*>(q), static_cast<const float*>(k),
+                 static_cast<const float*>(v), static_cast<float*>(out), nullptr, B, Sq, Sk, H,
+                 D, pitch, pitch, pitch, false, true, stream);
 }
 
 // The same, and lse (B, H, Sq) float32: each row's log-sum-exp of its
@@ -572,7 +904,11 @@ extern "C" int gswm_flash_f32_lse(const void* q, const void* k, const void* v, v
                                   void* lse, int B, int Sq, int Sk, int H, int D,
                                   void* stream) {
   if (lse == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return natural_form(q, k, v, out, lse, B, Sq, Sk, H, D, stream);
+  const size_t pitch = (size_t)H * D;
+  return unsplit(static_cast<const float*>(q), static_cast<const float*>(k),
+                 static_cast<const float*>(v), static_cast<float*>(out),
+                 static_cast<float*>(lse), B, Sq, Sk, H, D, pitch, pitch, pitch, false, true,
+                 stream);
 }
 
 // qkv: (B, S, 3 * P * 128) float32, q, k and v its column bands [0, P * 128),
@@ -583,22 +919,68 @@ extern "C" int gswm_flash_f32_packed(const void* qkv, void* out, int B, int S, i
   if (pairs < 1) return static_cast<int>(cudaErrorInvalidValue);
   const size_t width = (size_t)pairs * 128;
   const float* q = static_cast<const float*>(qkv);
-  const Args a = {q, q + width, q + 2 * width, static_cast<float*>(out), nullptr, 3 * width,
-                  3 * width, width, S, S, 2 * pairs, 64, 0.0f, true};
-  return run<Layout::natural>(a, B, stream);
+  return unsplit(q, q + width, q + 2 * width, static_cast<float*>(out), nullptr, B, S, S,
+                 2 * pairs, 64, 3 * width, 3 * width, width, false, true, stream);
 }
 
 // qkv_t: (3 * H * D, B, S) float32, q, k and v its row bands, head h's
 // column c at row h * D + c of its band; out_t: (H * D, B, S); 16-byte
-// aligned; D % 8 == 0, 8 <= D <= 512; any S (16-byte copies where S % 4 ==
-// 0, 4-byte ones elsewhere).
+// aligned; D % 8 == 0, 8 <= D <= 512; any S (q by 16-byte copies where S %
+// 4 == 0, 4-byte ones elsewhere).
 extern "C" int gswm_flash_f32_transposed(const void* qkv_t, void* out_t, int B, int S, int H,
                                          int D, void* stream) {
-  return transposed_form(qkv_t, out_t, B, S, H, D, S % 4 == 0, stream);
+  const size_t bs = (size_t)B * S;
+  const size_t band = (size_t)H * D * bs;  // q's, k's and v's rows
+  const float* q = static_cast<const float*>(qkv_t);
+  return unsplit(q, q + band, q + 2 * band, static_cast<float*>(out_t), nullptr, B, S, S, H, D,
+                 bs, bs, bs, true, S % 4 == 0, stream);
 }
 
-// The same with 4-byte copies at any S (the tests hold it to the 16-byte form).
+// The same with q's 4-byte copies at any S (the tests hold it to the 16-byte
+// form).
 extern "C" int gswm_flash_f32_transposed_4byte(const void* qkv_t, void* out_t, int B, int S,
                                                int H, int D, void* stream) {
-  return transposed_form(qkv_t, out_t, B, S, H, D, false, stream);
+  const size_t bs = (size_t)B * S;
+  const size_t band = (size_t)H * D * bs;
+  const float* q = static_cast<const float*>(qkv_t);
+  return unsplit(q, q + band, q + 2 * band, static_cast<float*>(out_t), nullptr, B, S, S, H, D,
+                 bs, bs, bs, true, false, stream);
+}
+
+// The split pre-pass: k and v of (B, Sk, H, D) heads in the natural layout
+// (row pitch `pitch` floats) or of the transposed one (`transposed`, pitch
+// B * S), into `scratch`, 4 B H Skp Dp floats (Skp = 64 ceil(Sk / 64), Dp =
+// 64 ceil(D / 64)): k's big and small parts [key][column], then v's
+// [column][key].
+extern "C" int gswm_flash_f32_prepass(const void* k, const void* v, void* scratch, int B,
+                                      int Sk, int H, int D, long long pitch, int transposed,
+                                      void* stream) {
+  return prepass(static_cast<const float*>(k), static_cast<const float*>(v),
+                 static_cast<float*>(scratch), B, Sk, H, D, (size_t)pitch, transposed != 0,
+                 static_cast<cudaStream_t>(stream));
+}
+
+// The core over `splits` key chunks of whole 64-key tiles (every chunk
+// non-empty): q in the form's layout (`q_pitch`; transposed: `vec` 16-byte
+// copies), k and v from the pre-pass's scratch.  splits == 1: the output
+// (and lse, null: none) in q's layout at `out_pitch`; splits > 1: the
+// partials into `ws`, splits B H Sq (D + 2) floats, for the combine.
+extern "C" int gswm_flash_f32_core(const void* q, const void* scratch, void* out, void* lse,
+                                   void* ws, int B, int Sq, int Sk, int H, int D,
+                                   long long q_pitch, long long out_pitch, int transposed,
+                                   int vec, int splits, void* stream) {
+  return core(static_cast<const float*>(q), static_cast<const float*>(scratch),
+              static_cast<float*>(out), static_cast<float*>(lse), static_cast<float*>(ws), B,
+              Sq, Sk, H, D, (size_t)q_pitch, (size_t)out_pitch, transposed != 0, vec != 0,
+              splits, static_cast<cudaStream_t>(stream));
+}
+
+// The combine of the core's `splits` > 1 partials in `ws` into out (and
+// lse, null: none) in the form's layout at `out_pitch`.
+extern "C" int gswm_flash_f32_combine(const void* ws, void* out, void* lse, int B, int Sq,
+                                      int H, int D, long long out_pitch, int transposed,
+                                      int splits, void* stream) {
+  return combine(static_cast<const float*>(ws), static_cast<float*>(out),
+                 static_cast<float*>(lse), B, Sq, H, D, (size_t)out_pitch, transposed != 0,
+                 splits, static_cast<cudaStream_t>(stream));
 }

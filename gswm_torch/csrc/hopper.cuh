@@ -7,8 +7,10 @@
 // setmaxnreg wrappers on the device; the flash kernels' common steps on a
 // warpgroup's accumulator fragment (online softmax, rescale, store); the
 // transposed layout's boxes loaded and stored by hand where no tensor map
-// reaches its rows (S % 8 != 0: cp.async, produce_rows, store_box_rows); and
-// the three layouts those kernels read (Layout).
+// reaches its rows (S % 8 != 0: cp.async, produce_rows, store_box_rows); the
+// three layouts those kernels read (Layout); and the float32 kernels'
+// products on the tensor cores (tf32 wgmma, the split of an operand into
+// big and small parts: 3xTF32, flash_f32.cu and qkv_proj_f32.cu).
 //
 // One shared-memory layout serves every tile here: rows of exactly 128 bytes
 // (64 bf16), written by TMA with the 128-byte swizzle, tile bases aligned to
@@ -70,18 +72,20 @@ static inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A tensor map over bf16 data of `rank` dimensions, innermost first:
-// dims[0] contiguous elements, strides[i] BYTES between steps of dimension
-// i + 1 (each a multiple of 16), box the tile one copy moves (box[0] = 64:
-// one 128-byte swizzled row).  What a box reads past a dimension arrives as
-// zeros; what it would write there is dropped.
-static inline cudaError_t encode_map(CUtensorMap* map, const void* base, int rank,
-                                     const cuuint64_t* dims, const cuuint64_t* strides,
-                                     const cuuint32_t* box) {
+// A tensor map over bf16 data (or `type`'s) of `rank` dimensions,
+// innermost first: dims[0] contiguous elements, strides[i] BYTES between
+// steps of dimension i + 1 (each a multiple of 16), box the tile one copy
+// moves (box[0] elements: one 128-byte swizzled row, 64 bf16 or 32 floats).
+// What a box reads past a dimension arrives as zeros; what it would write
+// there is dropped.
+static inline cudaError_t encode_map(
+    CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+    const cuuint64_t* strides, const cuuint32_t* box,
+    CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint32_t ones[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
+  const CUresult r = fn(map, type, (cuuint32_t)rank,
                         const_cast<void*>(base), dims, strides, box, ones,
                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
@@ -1210,6 +1214,201 @@ static __device__ __forceinline__ void store_lse(float* lse, int Sq, int r_lo, f
   float* row = lse + ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * Sq;
   if (r_lo < Sq) row[r_lo] = m_lo * c * LN2 + logf(l_lo);
   if (r_lo + 8 < Sq) row[r_lo + 8] = m_hi * c * LN2 + logf(l_hi);
+}
+
+// ------------------------------- float32 products on the tensor cores ----
+// wgmma has no fp32 form; its tf32 one reads 19 bits of each 32-bit operand
+// (sign, 8 of exponent, 10 of mantissa), 8 deep a step: 32 bytes of a row,
+// as a bf16 step's 16, so smem_desc_sw128 and DESC_K_STEP serve a tile of
+// floats as they stand (a 128-byte swizzled row holds 32 floats).  PTX gives
+// tf32 no transpose bit: every operand read from shared memory lies K-major.
+// A product of float32 accuracy is three of them ("3xTF32"): each operand x
+// split into big = tf32(x) and small = tf32(x - big), both rounded to
+// nearest (ties away) by cvt.rna, so no low bits are left for the tensor
+// core to treat as it likes; then small * big + big * small + big * big
+// into one fp32 accumulator, small terms first (CUTLASS's order).  That
+// keeps about 21 of fp32's 24 bits of each product; the split itself leaves
+// |x - big - small| <= 2^-22 |x| (ops.attention.split_tf32 is its plain
+// model).
+
+static __device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
+  return y;
+}
+
+static __device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+// d (64 x N fp32) (+)= a (64 x 8 tf32, registers) * b (8 x N tf32, shared,
+// K-major: N rows of which each 32-byte step reads 8 floats), one
+// warpgroup; the accumulator layout of the bf16 wrappers above.  The A
+// fragment, per warp: a[0] = A[g][t], a[1] = A[g + 8][t], a[2] = A[g][t + 4],
+// a[3] = A[g + 8][t + 4] (g = lane / 4, t = lane % 4).
+static __device__ __forceinline__ void wgmma_tf32_m64n128k8_rs(float (&d)[64],
+                                                              const uint32_t (&a)[4],
+                                                              uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+static __device__ __forceinline__ void wgmma_tf32_m64n64k8_rs(float (&d)[32],
+                                                              const uint32_t (&a)[4],
+                                                              uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+static __device__ __forceinline__ void wgmma_tf32_m64n40k8_rs(float (&d)[20],
+                                                              const uint32_t (&a)[4],
+                                                              uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %25, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19"
+      "}, "
+      "{%20, %21, %22, %23}, %24, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+static __device__ __forceinline__ void wgmma_tf32_m64n32k8_rs(float (&d)[16],
+                                                              const uint32_t (&a)[4],
+                                                              uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+static __device__ __forceinline__ void wgmma_tf32_m64n16k8_rs(float (&d)[8],
+                                                              const uint32_t (&a)[4],
+                                                              uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+template <int N>
+static __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                                     uint64_t desc_b, int accumulate) {
+  if constexpr (N == 128) wgmma_tf32_m64n128k8_rs(d, a, desc_b, accumulate);
+  else if constexpr (N == 64) wgmma_tf32_m64n64k8_rs(d, a, desc_b, accumulate);
+  else if constexpr (N == 40) wgmma_tf32_m64n40k8_rs(d, a, desc_b, accumulate);
+  else if constexpr (N == 32) wgmma_tf32_m64n32k8_rs(d, a, desc_b, accumulate);
+  else {
+    static_assert(N == 16, "tf32 wgmma wrappers: N = 16, 32, 40, 64, 128");
+    wgmma_tf32_m64n16k8_rs(d, a, desc_b, accumulate);
+  }
+}
+
+// One 8-deep step of d (+)= a * b in 3xTF32: a's parts in registers
+// (split_tf32 of its A fragment), b's big and small parts as two K-major
+// tiles of one shape; small * big, big * small, big * big.
+template <int N>
+static __device__ __forceinline__ void wgmma_3xtf32_rs(float (&d)[N / 2],
+                                                       const uint32_t (&a_big)[4],
+                                                       const uint32_t (&a_small)[4],
+                                                       uint64_t b_big, uint64_t b_small,
+                                                       int accumulate) {
+  wgmma_tf32_rs<N>(d, a_small, b_big, accumulate);
+  wgmma_tf32_rs<N>(d, a_big, b_small, 1);
+  wgmma_tf32_rs<N>(d, a_big, b_big, 1);
+}
+
+// The A fragment of four floats split into its big and small parts.
+static __device__ __forceinline__ void split_fragment(float x0, float x1, float x2, float x3,
+                                                      uint32_t (&big)[4], uint32_t (&small)[4]) {
+  split_tf32(x0, big[0], small[0]);
+  split_tf32(x1, big[1], small[1]);
+  split_tf32(x2, big[2], small[2]);
+  split_tf32(x3, big[3], small[3]);
 }
 
 }  // namespace gswm_hopper

@@ -27,6 +27,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_LL = ctypes.c_longlong
 # name -> argtypes; every entry returns the cudaError_t of its launches.
 _SIGNATURES = {
     # words12 (host uint32[12]), out, n_blocks, stream
@@ -62,6 +63,14 @@ _SIGNATURES = {
     "gswm_flash_f32_transposed": [_VP, _VP, _I, _I, _I, _I, _VP],
     # the same with 4-byte copies at any S (tests)
     "gswm_flash_f32_transposed_4byte": [_VP, _VP, _I, _I, _I, _I, _VP],
+    # the wrappers' three steps of the float32 core: the split pre-pass (k,
+    # v, scratch, B, Sk, H, D, pitch, transposed, stream); the core (q,
+    # scratch, out, lse, ws, B, Sq, Sk, H, D, q_pitch, out_pitch,
+    # transposed, vec, splits, stream); the combine of its key chunks (ws,
+    # out, lse, B, Sq, H, D, out_pitch, transposed, splits, stream)
+    "gswm_flash_f32_prepass": [_VP, _VP, _VP, _I, _I, _I, _I, _LL, _I, _VP],
+    "gswm_flash_f32_core": [_VP] * 5 + [_I] * 5 + [_LL, _LL, _I, _I, _I, _VP],
+    "gswm_flash_f32_combine": [_VP, _VP, _VP, _I, _I, _I, _I, _LL, _I, _I, _VP],
     # x, weight, bias, out, B, C, HW, G, eps, act, stream
     "gswm_group_norm": [_VP] * 4 + [_I] * 4 + [_F, _I, _VP],
     # the same on float32 x and out

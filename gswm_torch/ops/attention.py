@@ -54,21 +54,29 @@ max and clamp logits at 60 (``_NOMAX_CLAMP``); the two agree within
 rounding while |logit| < 60.
 
 The kernels above take bfloat16.  Two more take float32, every product
-and sum in fp32 on the CUDA cores (FFMA), as the TPU kernels take fp32
-(those that keep a running max do so outside bf16:
-gswm/ops/attention.py:261, :720, :982, :1231): csrc/qkv_proj_f32.cu, the
-projection GEMM at the widths the bf16 GEMM takes; and csrc/flash_f32.cu,
-the flash core at 8 <= d <= 512 (SD 2.x's 64, SD 1.x's 40, 80 and 160, the
-VAE's 512; a template on the number of 64-column panels and on the layout),
+of float32 accuracy on the tensor cores (3xTF32 wgmma: each operand split
+into a big and a small TF32 part, ``split_tf32``, three products a term)
+and every sum in fp32, as the TPU kernels take fp32 (those that keep a
+running max do so outside bf16: gswm/ops/attention.py:261, :720, :982,
+:1231): csrc/qkv_proj_f32.cu, the projection GEMM at the widths the bf16
+GEMM takes; and csrc/flash_f32.cu, the flash core at 8 <= d <= 512 (SD
+2.x's 64, SD 1.x's 40, 80 and 160, the VAE's 512; a template on the
+number of 64-column panels, p v's width of the last one and the layout),
 in four forms: the natural layout, with or without the log-sum-exp; the
 pair-packed one (the natural layout with pitches of its own); and the
-transposed one (16-byte copies where S % 4 == 0, 4-byte ones elsewhere).
-So in float32 every wrapper launches them, and every other dtype raises a
-TypeError that names it (``dtype_kernel`` states the rule).  Their
-launches count in ``<wrapper>.launches_f32``, and by head dim in
-``<wrapper>.launches_f32_by_d`` (with the log-sum-exp in
-``flash_attention_split.lse_launches_f32[_by_d]``); the bf16 counters do
-not move.
+transposed one (q by 16-byte copies where S % 4 == 0, 4-byte ones
+elsewhere).  Each float32 attention call is three steps, its scratch and
+workspace from PyTorch (``f32_core``): the split pre-pass (k and v into
+big and small parts, K-major), the core over s key chunks
+(``f32_key_splits`` picks s from the shape and the SM count) and, where s
+> 1, the combine.  So in float32 every wrapper launches them, and every
+other dtype raises a TypeError that names it (``dtype_kernel`` states the
+rule).  Their launches count in ``<wrapper>.launches_f32``, one a call,
+and by head dim in ``<wrapper>.launches_f32_by_d`` (with the log-sum-exp
+in ``flash_attention_split.lse_launches_f32[_by_d]``); the bf16 counters
+do not move.  ``flash_attention_3xtf32_reference`` models the core's
+arithmetic, key split included, from ``split_tf32``: the tests predict the
+kernel's error with it; nothing on the card's path calls it.
 
 On a CPU tensor each wrapper runs its plain PyTorch version; on a CUDA
 tensor it launches its kernel or raises, and it raises under a gradient
@@ -81,6 +89,8 @@ Weights are in ``torch.nn.Linear``'s (out, in) layout: q = x @ wq.T.
 
 from __future__ import annotations
 
+import functools
+import math
 import os
 
 import torch
@@ -188,15 +198,26 @@ ROWS_FORM = "/rows"
 
 
 # The float32 flash kernel: csrc/flash_f32.cu's, a template on P = ceil(d /
-# F32_PANEL) panels of F32_PANEL columns, to KERNEL_MAX_HEAD_DIM (P = 1, d <=
-# F32_PANEL, keeps two blocks an SM, so does P <= 3, and P >= 4 one), and on
-# the layout: the natural layout's kernel also serves the log-sum-exp (a
-# pointer, null for none) and the pair-packed layout (pitches of its own)
+# F32_PANEL) panels of F32_PANEL columns, to KERNEL_MAX_HEAD_DIM, on the
+# width of p v's last panel (exact at the widths users run,
+# ``F32_EXACT_TAILS``; F32_PANEL, v's zero columns computed, elsewhere) and
+# on the layout: the natural layout's kernel also serves the log-sum-exp (a
+# pointer, null for none) and the pair-packed layout (pitches of its own).
+# A block is one key chunk of F32_BLOCK_ROWS query rows, F32_WIDE_ROWS above
+# F32_ROW_PANELS panels (both warpgroups on the same rows), one block an SM.
 F32_PANEL = 64
 F32_FLASH_KERNEL = "flash_f32_kernel"
+F32_EXACT_TAILS = {40: 40, 80: 16, 160: 32}
+F32_ROW_PANELS = 4
+F32_BLOCK_ROWS = 128
+F32_WIDE_ROWS = 64
+F32_KEY_TILE = 64
+F32_MAX_SPLITS = 16
+F32_MIN_CHUNK_TILES = 4
+F32_BLOCK_TILES = 1
 # What ``transposed_kernel`` appends to the float32 kernel's name where S %
 # 4 != 0: the transposed layout's rows then start at any 4-byte address, and
-# its tiles come by 4-byte cp.async instead of 16-byte ones
+# q comes by 4-byte cp.async instead of 16-byte ones
 F32_WORD_FORM = "/4-byte"
 # the dtypes every attention wrapper's kernels take
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
@@ -208,10 +229,13 @@ def dtype_kernel(dtype: torch.dtype, d: int, layout: str = "natural") -> str:
     """The attention kernel that runs head dim ``d`` on ``dtype`` tensors in
     ``layout`` (one of ``LAYOUTS``, or ``PACKED`` at d = 64): in bfloat16
     the kernel ``head_dim_kernel`` names (packed: flash_hopper.cu's d = 64
-    kernel); in float32 ``F32_FLASH_KERNEL`` (csrc/flash_f32.cu) with its
-    panel count, ``flash_f32_kernel<P>``, P = ceil(d / F32_PANEL), in the
-    natural and packed layouts and with the log-sum-exp, and
-    ``flash_f32_kernel<P, transposed>`` in the transposed one.  Raises
+    kernel); in float32 ``F32_FLASH_KERNEL`` (csrc/flash_f32.cu, 3xTF32
+    wgmma) with its panel count and the width of p v's last panel,
+    ``flash_f32_kernel<P, N>``, P = ceil(d / F32_PANEL), N =
+    ``F32_EXACT_TAILS.get(d, F32_PANEL)``, in the natural and packed layouts
+    and with the log-sum-exp, and ``flash_f32_kernel<P, N, transposed>`` in
+    the transposed one (each call also runs the pre-pass ``split_kv_kernel``
+    and, where ``f32_key_splits`` gives s > 1, ``combine_kernel``).  Raises
     TypeError, naming the dtype, where no kernel takes it (float16 and every
     other dtype), ValueError for a d no kernel takes or another layout."""
     if layout == PACKED:
@@ -225,7 +249,9 @@ def dtype_kernel(dtype: torch.dtype, d: int, layout: str = "natural") -> str:
         return kernel
     if dtype == torch.float32:
         panels = -(-d // F32_PANEL)
-        return f"{F32_FLASH_KERNEL}<{panels}{', transposed' if layout == 'transposed' else ''}>"
+        tail = F32_EXACT_TAILS.get(d, F32_PANEL)
+        return (f"{F32_FLASH_KERNEL}<{panels}, {tail}"
+                f"{', transposed' if layout == 'transposed' else ''}>")
     raise TypeError(f"the attention kernels take torch.bfloat16 and torch.float32; "
                     f"got {dtype}")
 
@@ -235,8 +261,8 @@ def transposed_kernel(d: int, s: int, dtype: torch.dtype = torch.bfloat16) -> st
     ``s`` tokens of ``dtype`` on.  bfloat16: ``head_dim_kernel(d,
     "transposed")``'s design at every S, its boxes by tensor maps where S %
     8 == 0 and by hand elsewhere (the name followed by ``ROWS_FORM``).
-    float32: ``dtype_kernel``'s, its tiles by 16-byte copies where S % 4 ==
-    0 and by 4-byte ones elsewhere (followed by ``F32_WORD_FORM``)."""
+    float32: ``dtype_kernel``'s, q by 16-byte copies where S % 4 == 0 and
+    by 4-byte ones elsewhere (followed by ``F32_WORD_FORM``)."""
     kernel = dtype_kernel(dtype, d, "transposed")
     if dtype == torch.float32:
         return kernel + F32_WORD_FORM if s % 4 else kernel
@@ -252,6 +278,92 @@ def _count(wrapper, d: int, dtype: torch.dtype = torch.bfloat16,
     setattr(wrapper, name, getattr(wrapper, name) + 1)
     by_d = getattr(wrapper, name + "_by_d")
     by_d[d] = by_d.get(d, 0) + 1
+
+
+@functools.lru_cache(maxsize=4096)
+def f32_key_splits(b: int, sq: int, sk: int, h: int, d: int, sms: int) -> int:
+    """The number of key chunks s the float32 core splits the keys of a (B,
+    Sq, Sk, H, d) call into on a card of ``sms`` SMs, from the shape alone
+    (every form of one shape takes the same s, so the forms stay bit-equal).
+    A block is one chunk of ``F32_BLOCK_ROWS`` query rows of one (b, h)
+    (``F32_WIDE_ROWS`` above ``F32_ROW_PANELS`` panels), one block an SM.
+    s = 1 where no wave of blocks is under half full; else the s whose
+    waves are none under half full with the least cost, waves times (key
+    tiles a chunk + ``F32_BLOCK_TILES``, a block's own start and end in
+    tiles), the least s on a tie, every chunk whole tiles, none empty and
+    none under ``F32_MIN_CHUNK_TILES`` tiles, s at most ``F32_MAX_SPLITS``."""
+    rows = F32_WIDE_ROWS if -(-d // F32_PANEL) > F32_ROW_PANELS else F32_BLOCK_ROWS
+    blocks = -(-sq // rows) * h * b
+    tiles = -(-sk // F32_KEY_TILE)
+
+    def filled(n):  # no wave under half full
+        return n % sms == 0 or 2 * (n % sms) >= sms
+
+    if filled(blocks):
+        return 1
+    best = None
+    for s in range(1, min(tiles, F32_MAX_SPLITS) + 1):
+        per = -(-tiles // s)
+        if -(-tiles // per) != s or (s > 1 and per < F32_MIN_CHUNK_TILES):
+            continue
+        key = (not filled(blocks * s), -(-blocks * s // sms) * (per + F32_BLOCK_TILES), s)
+        best = key if best is None else min(best, key)
+    return best[2]
+
+
+def f32_scratch_numel(b: int, sk: int, h: int, d: int) -> int:
+    """Floats of the float32 core's scratch: k's and v's big and small
+    parts, each B H Skp Dp (keys padded to whole 64-key tiles, columns to
+    whole panels)."""
+    keys = -(-sk // F32_KEY_TILE) * F32_KEY_TILE
+    return 4 * b * h * keys * -(-d // F32_PANEL) * F32_PANEL
+
+
+def f32_workspace_numel(splits: int, b: int, sq: int, h: int, d: int) -> int:
+    """Floats of the float32 core's workspace at s = ``splits`` > 1: each
+    chunk's unnormalised output, running max and row sum of every row."""
+    return splits * b * h * sq * (d + 2)
+
+
+@functools.lru_cache(maxsize=None)
+def _multiprocessors(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def f32_core(q: int, k: int, v: int, out: int, lse, b: int, sq: int, sk: int, h: int,
+              d: int, q_pitch: int, kv_pitch: int, out_pitch: int, transposed: bool,
+              vec: bool, device) -> int:
+    """One float32 attention call of csrc/flash_f32.cu on data pointers (the
+    form's layout: natural, pitches in floats; transposed, pitch B * S):
+    the split pre-pass into scratch, the core over ``f32_key_splits`` key
+    chunks and, where there are more than one, the combine, on PyTorch's
+    current stream; the scratch and the workspace from PyTorch.  ``lse``: a
+    pointer or None.  Counts the pre-pass and the combine in
+    ``f32_core.prepass_launches`` and ``combine_launches``.  Returns s."""
+    splits = f32_key_splits(b, sq, sk, h, d, _multiprocessors(device))
+    scratch = torch.empty((f32_scratch_numel(b, sk, h, d),), dtype=torch.float32,
+                          device=device)
+    ws = torch.empty((f32_workspace_numel(splits, b, sq, h, d),), dtype=torch.float32,
+                     device=device) if splits > 1 else None
+    lib = native.library()
+    stream = native.stream_handle(device)
+    lib.call("gswm_flash_f32_prepass", k, v, scratch.data_ptr(), b, sk, h, d, kv_pitch,
+             int(transposed), stream)
+    f32_core.prepass_launches += 1
+    lib.call("gswm_flash_f32_core", q, scratch.data_ptr(), out, lse,
+             None if ws is None else ws.data_ptr(), b, sq, sk, h, d, q_pitch, out_pitch,
+             int(transposed), int(vec), splits, stream)
+    if ws is not None:
+        lib.call("gswm_flash_f32_combine", ws.data_ptr(), out, lse, b, sq, h, d, out_pitch,
+                 int(transposed), splits, stream)
+        f32_core.combine_launches += 1
+    return splits
+
+
+# the launches of the steps around the core (the core's own count on the
+# wrappers' float32 counters)
+f32_core.prepass_launches = 0
+f32_core.combine_launches = 0
 
 
 def route_self_attention(seq: int, head_dim: int = HEAD_DIM, sharded: bool = False) -> str:
@@ -379,12 +491,14 @@ def _check_cuda(name: str, dtypes: tuple, *tensors: torch.Tensor) -> torch.dtype
 
 def _flash_entry(dtype: torch.dtype, d: int, lse: bool = False) -> str:
     """The C entry of the flash kernel ``dtype_kernel`` names (which raises
-    where there is none): ``gswm_flash_f32`` in float32, else
-    ``gswm_flash_split``; with ``lse`` each one's ``_lse`` entry.  Each
-    dispatches on d."""
+    where there is none): ``gswm_flash_f32_core`` in float32 (with the
+    log-sum-exp or without: a pointer; ``f32_core`` runs it between the
+    pre-pass and the combine), else ``gswm_flash_split``, with ``lse`` its
+    ``_lse`` entry.  Each dispatches on d."""
     dtype_kernel(dtype, d)
-    entry = "gswm_flash_f32" if dtype == torch.float32 else "gswm_flash_split"
-    return entry + "_lse" if lse else entry
+    if dtype == torch.float32:
+        return "gswm_flash_f32_core"
+    return "gswm_flash_split_lse" if lse else "gswm_flash_split"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -394,7 +508,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CPU: ``flash_attention_reference``.  CUDA: the kernel ``dtype_kernel``
     names on the (B, S, H, D) view, any S: in bf16 csrc/flash_hopper.cu,
     flash_mid.cu or flash_split.cu at any D ``kernel_takes_head_dim``
-    takes, in float32 csrc/flash_f32.cu at the same D."""
+    takes, in float32 csrc/flash_f32.cu's three steps at the same D
+    (``f32_core``)."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, heads)
     if q.device.type != "cuda":
@@ -410,10 +525,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     d = inner // heads
     entry = _flash_entry(dtype, d)
     out = torch.empty_like(q)
-    lib = native.library()
     with torch.cuda.device(q.device):
-        lib.call(entry, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, s,
-                 heads, d, native.stream_handle(q.device))
+        if dtype == torch.float32:
+            f32_core(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, b, s, s,
+                      heads, d, inner, inner, inner, False, True, q.device)
+        else:
+            native.library().call(entry, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                  out.data_ptr(), b, s, s, heads, d,
+                                  native.stream_handle(q.device))
     _count(flash_attention, d, dtype)
     return out
 
@@ -494,7 +613,7 @@ def fused_qkv_attention(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
     ``head_dim_kernel`` names (csrc/flash_hopper.cu, flash_mid.cu or
     flash_split.cu; any D ``kernel_takes_head_dim`` takes), one C call; in
     float32 the GEMM of csrc/qkv_proj_f32.cu, then csrc/flash_f32.cu's
-    core."""
+    three steps (``f32_core``)."""
     if x.device.type == "cpu":
         return fused_qkv_attention_reference(x, wq, wk, wv, heads)
     inner = wq.shape[0]
@@ -502,15 +621,16 @@ def fused_qkv_attention(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
         raise ValueError(f"fused_qkv_attention: width {inner} is not heads {heads} x D")
     d = inner // heads
     b, s, c, dtype = _check_projection("fused_qkv_attention", x, wq, wk, wv, inner)
-    entry = _flash_entry(dtype, d)
+    _flash_entry(dtype, d)  # raises where no kernel takes the dtype or d
     q, k, v, out = (x.new_empty((b, s, inner)) for _ in range(4))
     lib = native.library()
     ptrs = [t.data_ptr() for t in (x, wq, wk, wv, q, k, v)]
     with torch.cuda.device(x.device):
         stream = native.stream_handle(x.device)
-        if entry == "gswm_flash_f32":
+        if dtype == torch.float32:
             lib.call("gswm_qkv_proj_f32", *ptrs, b * s, c, inner, stream)
-            lib.call(entry, *ptrs[4:], out.data_ptr(), b, s, s, heads, d, stream)
+            f32_core(*ptrs[4:], out.data_ptr(), None, b, s, s, heads, d, inner, inner, inner,
+                      False, True, x.device)
         else:
             lib.call("gswm_fused_qkv_attn", *ptrs, out.data_ptr(), b, s, c, heads, d,
                      stream)
@@ -553,6 +673,131 @@ def flash_attention_split_lse_reference(q: torch.Tensor, k: torch.Tensor,
     return out.transpose(1, 2).contiguous().to(q.dtype), lse
 
 
+def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain model of the kernels' operand split (csrc/hopper.cuh
+    split_tf32): float32 x -> (big, small), big = x rounded to TF32 (10
+    explicit mantissa bits, to nearest, ties away from zero: cvt.rna),
+    small = x - big rounded the same way; both float32 tensors."""
+
+    def rna(t):
+        bits = t.contiguous().view(torch.int32)
+        sign = bits & -0x80000000
+        mag = ((bits & 0x7FFFFFFF) + 0x1000) & ~0x1FFF
+        return (sign | mag).view(torch.float32)
+
+    x = x.to(torch.float32)
+    big = rna(x)
+    return big, rna(x - big)
+
+
+def _products_3xtf32(a, b, passes: int) -> torch.Tensor:
+    """a @ b of split operands ((big, small) pairs), the float32 sums of
+    small * big, big * small and big * big (``passes`` = 3) or big * big
+    alone (1: one TF32 product; 0, where the pairs hold the unsplit
+    operands: the plain fp32 product)."""
+    terms = [(a[1], b[0]), (a[0], b[1])] if passes == 3 else []
+    out = None
+    for x, y in terms + [(a[0], b[0])]:
+        prod = torch.matmul(x, y)
+        out = prod if out is None else out + prod
+    return out
+
+
+def flash_attention_3xtf32_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                     splits: int = 1, passes: int = 3,
+                                     return_lse: bool = False):
+    """Model of csrc/flash_f32.cu's arithmetic on (B, Sq, H, D) q and (B, Sk,
+    H, D) k, v: every product from ``split_tf32``'s parts
+    (``_products_3xtf32``; ``passes`` = 1: one-pass TF32; 0: plain fp32
+    products, the key split's algebra alone), each key tile's
+    logits summed a 64-column panel at a time and the panels added in fp32,
+    the online softmax tile by tile in fp32, each tile's p v summed apart
+    and added, the keys in ``splits`` chunks of whole tiles merged as the
+    combine merges them.  Returns (B, Sq, H, D) float32 (and, with
+    ``return_lse``, lse (B, H, Sq)).  The tests predict the kernel's error
+    with it; the card's path never calls it."""
+    d = q.shape[-1]
+    c = torch.tensor(1.4426950408889634 / d**0.5, dtype=torch.float32).item()
+    qf, kf, vf = (t.to(torch.float32).transpose(1, 2) for t in (q, k, v))
+    sk = kf.shape[2]
+    tiles = -(-sk // F32_KEY_TILE)
+    per = -(-tiles // splits)
+    split = split_tf32 if passes else (lambda t: (t, None))
+    qs = split(qf)
+    partials = []
+    for t0 in range(0, tiles, per):
+        shape = qf.shape[:3]
+        m = torch.full(shape, -torch.inf, device=qf.device)
+        l = torch.zeros(shape, device=qf.device)
+        o = torch.zeros(qf.shape, device=qf.device)
+        for t in range(t0, min(tiles, t0 + per)):
+            keys = slice(t * F32_KEY_TILE, (t + 1) * F32_KEY_TILE)
+            kt = split(kf[:, :, keys])
+            s = None
+            for j in range(0, d, F32_PANEL):
+                cols = slice(j, j + F32_PANEL)
+                part = _products_3xtf32(
+                    [x if x is None else x[..., cols] for x in qs],
+                    [x if x is None else x[..., cols].transpose(-1, -2) for x in kt], passes)
+                s = part if s is None else s + part
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp2((m - m_new) * c)
+            p = torch.exp2(s * c - (m_new * c)[..., None])
+            l = l * alpha + p.sum(dim=-1)
+            o = o * alpha[..., None] + _products_3xtf32(split(p), split(vf[:, :, keys]),
+                                                        passes)
+            m = m_new
+        partials.append((o, m, l))
+    top = torch.stack([m for _, m, _ in partials]).amax(dim=0)
+    weights = [torch.exp2((m - top) * c) for _, m, _ in partials]
+    total = sum(l * w for (_, _, l), w in zip(partials, weights))
+    out = sum(o * w[..., None] for (o, _, _), w in zip(partials, weights)) / total[..., None]
+    out = out.transpose(1, 2).contiguous()
+    if return_lse:
+        return out, top * c * math.log(2.0) + torch.log(total)
+    return out
+
+
+def f32_prepass_reference(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Plain version of the float32 core's split pre-pass on (B, Sk, H, D) k
+    and v: the scratch it writes, flat, ``f32_scratch_numel`` floats: k's big
+    and small parts as (B, H, Skp, Dp) [key][column] rows, then v's as (B,
+    H, Dp, Skp) [column][key] rows with the keys of each group of 8 in the
+    order 0, 2, 4, 6, 1, 3, 5, 7; zeros past Sk and D."""
+    b, sk, h, d = k.shape
+    keys = -(-sk // F32_KEY_TILE) * F32_KEY_TILE
+    cols = -(-d // F32_PANEL) * F32_PANEL
+
+    def padded(t):  # (B, H, Skp, Dp), zeros past Sk and D
+        out = t.new_zeros((b, h, keys, cols), dtype=torch.float32)
+        out[:, :, :sk, :d] = t.transpose(1, 2)
+        return out
+
+    order = torch.tensor([0, 2, 4, 6, 1, 3, 5, 7])
+    perm = (torch.arange(keys) // 8 * 8).view(-1, 8) + order
+    kp, vp = padded(k), padded(v)[:, :, perm.reshape(-1)].transpose(-1, -2)
+    parts = [*split_tf32(kp), *split_tf32(vp)]
+    return torch.cat([t.reshape(-1) for t in parts])
+
+
+def f32_combine_reference(ws: torch.Tensor, splits: int, b: int, sq: int, h: int,
+                          d: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the combine on the core's workspace (``splits``
+    chunks: partial outputs [s][B H][Sq][D], then the running maxima and the
+    row sums [s][B H][Sq]): (out (B, Sq, H, D), lse (B, H, Sq)), each chunk
+    weighted by exp2((m_i - M) c), c = d^-0.5 log2(e), M the largest m_i."""
+    rows = b * h * sq
+    o = ws[:splits * rows * d].view(splits, b, h, sq, d)
+    m = ws[splits * rows * d:splits * rows * (d + 1)].view(splits, b, h, sq)
+    l = ws[splits * rows * (d + 1):splits * rows * (d + 2)].view(splits, b, h, sq)
+    c = torch.tensor(1.4426950408889634 / d**0.5, dtype=torch.float32).item()
+    top = m.amax(dim=0)
+    w = torch.exp2((m - top) * c)
+    total = (l * w).sum(dim=0)
+    out = (o * w[..., None]).sum(dim=0) / total[..., None]
+    return out.transpose(1, 2).contiguous(), top * c * math.log(2.0) + torch.log(total)
+
+
 def flash_attention_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           return_lse: bool = False):
     """(B, Sq, H, D) q, (B, Sk, H, D) k/v -> (B, Sq, H, D) attention output;
@@ -568,8 +813,8 @@ def flash_attention_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and Sk: in bf16 csrc/flash_hopper.cu up to D = 64, flash_mid.cu to 160,
     flash_split.cu above, any D ``kernel_takes_head_dim`` takes
     (``gswm_flash_split_lse`` with ``return_lse``); in float32
-    csrc/flash_f32.cu, at the same D (``gswm_flash_f32_lse`` with
-    ``return_lse``).
+    csrc/flash_f32.cu's three steps at the same D (``f32_core``, the core
+    and the combine writing the lse with ``return_lse``).
     Launches with lse count in ``flash_attention_split.lse_launches`` (and
     ``lse_launches_by_d``; float32: ``lse_launches_f32[_by_d]``), the
     others in float32 in ``launches_f32`` (and ``launches_f32_by_d``), in
@@ -598,8 +843,13 @@ def flash_attention_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     lib = native.library()
     with torch.cuda.device(q.device):
-        if return_lse:
-            lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+        lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) \
+            if return_lse else None
+        if dtype == torch.float32:
+            f32_core(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                      None if lse is None else lse.data_ptr(), b, sq, sk, h, d, h * d, h * d,
+                      h * d, False, True, q.device)
+        elif return_lse:
             lib.call(entry, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                      lse.data_ptr(), b, sq, sk, h, d, native.stream_handle(q.device))
         else:
@@ -677,8 +927,7 @@ def flash_attention_packed(qkv: torch.Tensor) -> torch.Tensor:
     CPU: ``flash_attention_packed_reference``.  CUDA, any S: in bf16 the
     kernel of csrc/flash_hopper.cu reading q, k and v as strided (B, S, 2P,
     64) views of the one array; in float32 csrc/flash_f32.cu's natural-layout
-    kernel on the same views (``gswm_flash_f32_packed``: row pitches of its
-    own)."""
+    steps on the same views (``f32_core`` with the array's row pitches)."""
     if qkv.dim() != 3 or qkv.shape[-1] % (3 * 128):
         raise ValueError(f"flash_attention_packed: qkv {tuple(qkv.shape)} is not "
                          "(B, S, 3 * P * 128)")
@@ -691,11 +940,15 @@ def flash_attention_packed(qkv: torch.Tensor) -> torch.Tensor:
     b, s, c3 = qkv.shape
     pairs = c3 // (3 * 128)
     out = qkv.new_empty((b, s, pairs * 128))
-    lib = native.library()
     with torch.cuda.device(qkv.device):
-        lib.call("gswm_flash_f32_packed" if dtype == torch.float32 else "gswm_flash_packed",
-                 qkv.data_ptr(), out.data_ptr(), b, s, pairs,
-                 native.stream_handle(qkv.device))
+        if dtype == torch.float32:  # q, k, v: the column bands, 2 P heads of 64 each
+            base, width = qkv.data_ptr(), pairs * 128
+            f32_core(base, base + 4 * width, base + 8 * width, out.data_ptr(), None, b, s, s,
+                      2 * pairs, HEAD_DIM, 3 * width, 3 * width, width, False, True,
+                      qkv.device)
+        else:
+            native.library().call("gswm_flash_packed", qkv.data_ptr(), out.data_ptr(), b, s,
+                                  pairs, native.stream_handle(qkv.device))
     _count(flash_attention_packed, HEAD_DIM, dtype)
     return out
 
@@ -731,9 +984,8 @@ def flash_attention_transposed(qkv_t: torch.Tensor, heads: int) -> torch.Tensor:
     48 and flash_mid.cu's at 64 < D <= 160, both with the transposed layout,
     flash_transposed.cu's own at 64 and above 160), all on wgmma, its
     boxes moved by TMA where S % 8 == 0 and by hand elsewhere; in float32
-    csrc/flash_f32.cu's kernel with the transposed layout
-    (``gswm_flash_f32_transposed``: 16-byte copies where S % 4 == 0,
-    4-byte ones elsewhere).  Launches also count by kernel, in
+    csrc/flash_f32.cu's steps with the transposed layout (``f32_core``:
+    q by 16-byte copies where S % 4 == 0, 4-byte ones elsewhere).  Launches also count by kernel, in
     ``flash_attention_transposed.launches_by_kernel``."""
     if qkv_t.dim() != 3 or qkv_t.shape[0] % (3 * heads):
         raise ValueError(f"flash_attention_transposed: qkv_t {tuple(qkv_t.shape)} "
@@ -748,11 +1000,14 @@ def flash_attention_transposed(qkv_t: torch.Tensor, heads: int) -> torch.Tensor:
     d = n3 // (3 * heads)
     kernel = transposed_kernel(d, s, dtype)
     out = qkv_t.new_empty((heads * d, b, s))
-    lib = native.library()
     with torch.cuda.device(qkv_t.device):
-        lib.call("gswm_flash_f32_transposed" if dtype == torch.float32
-                 else "gswm_flash_transposed", qkv_t.data_ptr(), out.data_ptr(), b, s,
-                 heads, d, native.stream_handle(qkv_t.device))
+        if dtype == torch.float32:  # q, k, v: the row bands, B * S floats between columns
+            base, band = qkv_t.data_ptr(), heads * d * b * s
+            f32_core(base, base + 4 * band, base + 8 * band, out.data_ptr(), None, b, s, s,
+                      heads, d, b * s, b * s, b * s, True, s % 4 == 0, qkv_t.device)
+        else:
+            native.library().call("gswm_flash_transposed", qkv_t.data_ptr(), out.data_ptr(),
+                                  b, s, heads, d, native.stream_handle(qkv_t.device))
     _count(flash_attention_transposed, d, dtype)
     by_kernel = flash_attention_transposed.launches_by_kernel
     by_kernel[kernel] = by_kernel.get(kernel, 0) + 1

@@ -22,9 +22,13 @@ forms, csrc/group_norm.cu on float32) move 4 bytes an element, and their
 products must have fp32 accuracy: the least time the
 card gives such products in is 3xTF32 on the tensor cores (each operand
 split into a big and a small TF32 part, three products), a third of the
-dense TF32 rate, ``PEAK_F32_PRODUCTS``.  TF32 alone keeps a 10-bit
-mantissa and is no float32.  ``PEAK_FP32``, the CUDA cores' FFMA rate, is
-the ceiling of those kernels' own design, not the card's bound.
+dense TF32 rate, ``PEAK_F32_PRODUCTS``: the attention core and the
+projection GEMM run on just that (3xTF32 wgmma; their first design ran on
+the CUDA cores' FFMA, ``PEAK_FP32``, which is still the rate of GroupNorm's
+fp32 arithmetic).  TF32 alone keeps a 10-bit mantissa and is
+no float32.  The steps around the float32 core, the split pre-pass and the
+combine of its key chunks, move bytes and do a few operations an element:
+their bound is bytes (``f32_prepass_cost``, ``f32_combine_cost``).
 """
 
 from __future__ import annotations
@@ -116,3 +120,22 @@ def chacha_batch_cost(rows: int, n_bits: int) -> tuple[int, int]:
     counted; the bytes, 8 for each byte of keystream, are the larger roof."""
     ops, _ = chacha_cost(rows * -(-n_bits // 512))
     return ops, rows * n_bits + rows * 48
+
+
+def f32_prepass_cost(b: int, sk: int, h: int, d: int) -> tuple[int, int]:
+    """(FLOP, bytes) of the float32 core's split pre-pass: k and v read once
+    (4 bytes an element), their big and small parts written, each B H Skp
+    Dp floats (keys padded to 64-key tiles, columns to 64-column panels);
+    three operations an element (two roundings, a subtraction)."""
+    keys, cols = -(-sk // 64) * 64, -(-d // 64) * 64
+    return 3 * 2 * b * h * sk * d, F32 * (2 * b * h * sk * d + 4 * b * h * keys * cols)
+
+
+def f32_combine_cost(splits: int, b: int, sq: int, h: int, d: int,
+                     lse: bool = False) -> tuple[int, int]:
+    """(FLOP, bytes) of the combine of ``splits`` key chunks: each chunk's
+    partial output, running max and row sum read, the output (and, with
+    ``lse``, the log-sum-exp) written; two operations a partial element."""
+    rows = b * h * sq
+    return 2 * splits * rows * d, F32 * (splits * rows * (d + 2) + rows * d
+                                         + (rows if lse else 0))

@@ -30,11 +30,19 @@ entry points on the same tensors, so nothing but the kernels differs:
     kernels, none before: 64);
   * the host time of one launcher call (tensor-map encoding included) on a
     one-tile shape, where the device never holds the host back;
-  * float32 flash attention (``--cases f32``) through each side's
-    ``gswm_flash_f32`` at ``paths.F32_FLASH_SHAPES`` (natural layout, Sq =
-    Sk) and ``paths.F32_SPLIT_SHAPES`` (Sq != Sk too), N(0, 1) fp32 q, k
-    and v (both sides must take every width of the shapes chosen: against
-    a checkout whose entry takes d = 64 alone, ``--match ", 64)"``); then
+  * the float32 kernels (``--cases f32``): the projection GEMM at
+    ``paths.F32_PROJ_SHAPES`` through each side's ``gswm_qkv_proj_f32`` and
+    ``qkv_projection``, then flash attention through each side's
+    ``gswm_flash_f32`` (the first design's entry, which this checkout runs
+    unsplit) and its wrapper (``flash_attention`` at Sq == Sk,
+    ``flash_attention_split`` else: where this checkout's core takes its
+    key split) at ``paths.F32_FLASH_SHAPES`` and ``paths.F32_SPLIT_SHAPES``,
+    N(0, 1) fp32 inputs (both sides must take every width of the shapes
+    chosen: against a checkout whose entry takes d = 64 alone, ``--match ",
+    64)"``), the entries in turns and then the wrappers, each side's error
+    against float64 printed beside (new arithmetic is not bit-equal to the
+    parent's: ``--require-equal`` holds this checkout's within the float32
+    bound, 1e-5 of max |want|, instead); then
     this checkout's other forms of csrc/flash_f32.cu against its natural
     one on the same q, k and v, in turns (natural, form, form, natural):
     the pair-packed form at ``paths.F32_PACKED_SHAPES``, the transposed one
@@ -51,10 +59,11 @@ entry points on the same tensors, so nothing but the kernels differs:
 
 ``--match`` keeps only the attention cases whose label holds TEXT (say
 ``"K2 (4, 4096, 8, "`` for K2 at SD 1.x's level 0 and the narrow widths).
-``--require-equal`` fails unless every attention case's two outputs are
-equal bit for bit (a change that must leave the kernels' results alone),
-every float32 form's output equals the natural form's, and, with ``k8``
-among the cases, every K8 output equals the parent's;
+``--require-equal`` fails unless every bf16 attention case's two outputs
+are equal bit for bit (a change that must leave the kernels' results
+alone), every float32 form's output equals the natural form's, this
+checkout's float32 GEMM and core are within the float32 bound of float64,
+and, with ``k8`` among the cases, every K8 output equals the parent's;
 ``--except-head-dims LO-HI`` exempts the cases whose head dim lies in
 [LO, HI] (the widths a change hands to a new kernel), whose difference is
 printed all the same; ``--except-transposed`` does so for K7's cases alone
@@ -122,7 +131,7 @@ LSE_SHAPES = (*paths.LSE_SHAPES,
 
 def load_parent(root: Path):
     """The other checkout's kernel library, through its own native.py, and
-    its ``ops.groupnorm`` and ``core.chacha`` modules: its package is
+    its ``ops.groupnorm``, ``core.chacha`` and ``ops.attention`` modules: its package is
     imported under the package's own name while this checkout's modules are
     set aside, then the two are swapped back."""
     def ours():
@@ -134,6 +143,7 @@ def load_parent(root: Path):
         native_mod = importlib.import_module("gswm_torch.native")
         gn = importlib.import_module("gswm_torch.ops.groupnorm")
         chacha = importlib.import_module("gswm_torch.core.chacha")
+        attn = importlib.import_module("gswm_torch.ops.attention")
         if Path(native_mod.__file__).resolve().parent.parent != root:
             raise RuntimeError(f"{root} holds no gswm_torch package")
     finally:
@@ -141,7 +151,7 @@ def load_parent(root: Path):
         for k in ours():
             del sys.modules[k]
         sys.modules.update(mine)
-    return native_mod.library(), gn, chacha
+    return native_mod.library(), gn, chacha, attn
 
 
 def time_ms(fn, iters: int) -> float:
@@ -362,7 +372,7 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(card, flush=True)
-    parent_lib, parent_gn, parent_chacha = load_parent(args.parent.resolve())
+    parent_lib, parent_gn, parent_chacha, parent_attn = load_parent(args.parent.resolve())
     libs = {"parent": parent_lib, "change": native.library()}
     dev = torch.device("cuda")
     stream = native.stream_handle(dev)
@@ -383,7 +393,9 @@ def main() -> None:
     if "lse" in cases:
         result["lse"] = compare_lse(libs, rand, stream, args.iters, args.match)
     if "f32" in cases:
-        result["f32"] = compare_f32(libs, stream, args.iters, args.match)
+        result["f32_proj"] = compare_f32_proj(libs, parent_attn, stream, args.iters,
+                                              args.match)
+        result["f32"] = compare_f32(libs, parent_attn, stream, args.iters, args.match)
         result["f32_forms"] = compare_f32_forms(libs["change"], stream, args.iters,
                                                 args.match)
     print(json.dumps(result))
@@ -401,7 +413,7 @@ def main() -> None:
             return key == "transposed" and any(
                 a <= d <= b for a, b in (exempt_t if aligned else exempt_u))
 
-        held = [case for key in ("flash", "packed", "transposed", "fused_qkv", "lse", "f32")
+        held = [case for key in ("flash", "packed", "transposed", "fused_qkv", "lse")
                 for case in result.get(key, []) if not lo <= case["head_dim"] <= hi
                 and not exempt(key, case)]
         differ = [case for case in held
@@ -415,12 +427,19 @@ def main() -> None:
         differ += [case for case in forms if case["natural_max_abs_diff"] != 0.0]
         gn_cases = result.get("group_norm", {}).get("cases", [])
         differ += [case for case in gn_cases if case["max_abs_diff"] != 0.0]
+        # the float32 GEMM and core: new arithmetic, so no bit-equality with
+        # the parent; this checkout's outputs within the float32 bound of
+        # float64 instead
+        f32 = result.get("f32_proj", []) + result.get("f32", [])
+        differ += [case for case in f32 if not case["change_rel_err"] <= F32_REL_BOUND]
         if differ:
             raise SystemExit(f"compare_kernels: {len(differ)} attention cases differ from "
                              f"the parent's: {[c.get('label', c['shape']) for c in differ]}")
         print(f"all {len(held)} attention outputs held equal the parent's, bit for bit"
               + (f"; {len(forms)} float32 forms equal the natural form's" if forms else "")
               + (f"; {len(gn_cases)} K8 outputs equal the parent's" if gn_cases else "")
+              + (f"; {len(f32)} float32 GEMM and core outputs within {F32_REL_BOUND:g} of "
+                 "max |want| against float64" if f32 else "")
               + (f" (head dims {lo}-{hi} exempt)" if lo <= hi else "")
               + (f" (K7 at head dims {args.except_transposed} exempt; at S % 8 != 0 on "
                  "the natural layout's designs held to its kernel instead)"
@@ -555,15 +574,85 @@ def compare_attention(libs: dict, rand, stream: int, iters: int, match: str = ""
     return result
 
 
-def compare_f32(libs: dict, stream: int, iters: int, match: str = "") -> list:
-    """The float32 flash core through each side's ``gswm_flash_f32``; only
-    the cases whose label holds ``match``."""
+# the float32 bound: a float32 kernel's largest error against float64, over
+# the largest |want| (chip_smoke.py F32_REL_BOUND)
+F32_REL_BOUND = 1e-5
+# the float32 cases' rounds: each side's C entry in turns, then each side's
+# wrapper (where this checkout's core takes its key split) in turns
+F32_ROUNDS = ("parent", "change", "change", "parent")
+
+
+def _rel_err(got, want) -> float:
+    return ((got.double() - want).abs().max() / want.abs().max()).item()
+
+
+def _f32_sides(label: str, entries: dict, wrappers: dict, outs: dict, want, iters: int,
+               bound: tuple) -> dict:
+    """Time both sides' C entries (writing ``outs``: a tensor, or q, k and v
+    to be joined) and both sides' wrappers in turns, each side's error
+    against float64 ``want``; print and return the case."""
+    t = in_turns(entries, iters, F32_ROUNDS)
+    errs = {side: _rel_err(torch.cat(out, -1) if isinstance(out, list) else out, want)
+            for side, out in outs.items()}
+    w = in_turns(wrappers, iters, F32_ROUNDS)
+    werrs = {side: _rel_err(wrappers[side](), want) for side in wrappers}
+    print(f"{label}: C entry {' '.join(f'{side} {t[side]}' for side in t)} ms, wrapper "
+          f"{' '.join(f'{side} {w[side]}' for side in w)} ms, bound {bound[0]:.4f} ms by "
+          f"{bound[1]} (3xTF32); err/max|want| against float64: entry parent "
+          f"{errs['parent']:.3e} change {errs['change']:.3e}, wrapper parent "
+          f"{werrs['parent']:.3e} change {werrs['change']:.3e}", flush=True)
+    return dict(label=label, **t, wrapper=w, bound_ms=bound[0], roof=bound[1],
+                parent_rel_err=errs["parent"], change_rel_err=max(errs["change"],
+                                                                  werrs["change"]),
+                parent_wrapper_rel_err=werrs["parent"])
+
+
+def compare_f32_proj(libs: dict, parent_attn, stream: int, iters: int,
+                     match: str = "") -> list:
+    """The float32 projection GEMM at ``paths.F32_PROJ_SHAPES``: both sides'
+    ``gswm_qkv_proj_f32`` and ``qkv_projection`` wrappers in turns, each
+    side's error against the float64 product; only the cases whose label
+    holds ``match``."""
+    from gswm_torch.ops import attention as attn
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(18)
+    out_cases = []
+    for m, c, n in paths.F32_PROJ_SHAPES:
+        label = f"f32 proj ({m}, {c}, {n})"
+        if match not in label:
+            continue
+        x = torch.randn((1, m, c), generator=g, device=dev)
+        ws = [torch.randn((n, c), generator=g, device=dev) for _ in range(3)]
+        outs = {side: [x.new_empty((1, m, n)) for _ in range(3)] for side in libs}
+        entries = {side: (lambda side=side: libs[side].call(
+            "gswm_qkv_proj_f32", *(t.data_ptr() for t in (x, *ws, *outs[side])), m, c, n,
+            stream)) for side in libs}
+        wrappers = {"parent": lambda: torch.cat(parent_attn.qkv_projection(x, *ws), -1),
+                    "change": lambda: torch.cat(attn.qkv_projection(x, *ws), -1)}
+        want = x.double() @ torch.cat(ws).double().t()
+        case = _f32_sides(label, entries, wrappers, outs, want, iters, roofline.bound_ms(
+            *roofline.projection_cost(m, c, n, roofline.F32), roofline.PEAK_F32_PRODUCTS))
+        out_cases.append(dict(case, shape=[m, c, n], head_dim=0))
+        del x, ws, outs, want
+    return out_cases
+
+
+def compare_f32(libs: dict, parent_attn, stream: int, iters: int, match: str = "") -> list:
+    """The float32 flash core through each side's ``gswm_flash_f32`` (the
+    first design's entry; this checkout's runs its pre-pass and the core
+    unsplit) and each side's ``flash_attention_split`` wrapper (this
+    checkout's takes its key split), in turns, each side's error against
+    float64; only the cases whose label holds ``match``."""
+    from gswm_torch.ops import attention as attn
+
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(19)
     shapes = [(f"f32 ({b}, {s}, {h}, {d})", b, s, s, h, d)
               for b, s, h, d in paths.F32_FLASH_SHAPES]
     shapes += [(f"f32 split ({b}, {sq}, {sk}, {h}, {d})", b, sq, sk, h, d)
                for b, sq, sk, h, d in paths.F32_SPLIT_SHAPES]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     out_cases = []
     for label, b, sq, sk, h, d in shapes:
         if match not in label:
@@ -571,22 +660,38 @@ def compare_f32(libs: dict, stream: int, iters: int, match: str = "") -> list:
         q = torch.randn((b, sq, h, d), generator=g, device=dev)
         k, v = (torch.randn((b, sk, h, d), generator=g, device=dev) for _ in range(2))
         outs = {side: torch.empty_like(q) for side in libs}
-        fns = {side: (lambda side=side: libs[side].call(
+        entries = {side: (lambda side=side: libs[side].call(
             "gswm_flash_f32", q.data_ptr(), k.data_ptr(), v.data_ptr(),
             outs[side].data_ptr(), b, sq, sk, h, d, stream)) for side in libs}
+        # the natural wrapper at Sq == Sk (the split one takes its einsum
+        # branch below 512 keys), the split one at Sq != Sk
+        mods = {"parent": parent_attn, "change": attn}
+        wrappers = {side: ((lambda mod=mod: mod.flash_attention(
+                               *(t.reshape(b, -1, h * d) for t in (q, k, v)), h)
+                               .view(b, sq, h, d)) if sq == sk
+                           else (lambda mod=mod: mod.flash_attention_split(q, k, v)))
+                    for side, mod in mods.items()}
+        want = torch.cat([_attention_f64(q[i:i + 1], k[i:i + 1], v[i:i + 1])
+                          for i in range(b)])
         n = 3 if sk * d >= 9216 * 512 else iters
-        t = in_turns(fns, n)
-        diff = (outs["parent"] - outs["change"]).abs().max().item()
-        bound, roof = roofline.attention_bound_ms(
-            roofline.attention_cost(b, sq, sk, h, d, elem=roofline.F32),
-            roofline.PEAK_F32_PRODUCTS)
-        print(f"{label}: {' '.join(f'{side} {t[side]}' for side in t)} ms, bound "
-              f"{bound:.4f} ms by {roof} (3xTF32), max|parent - change| "
-              f"{diff}", flush=True)
-        out_cases.append(dict(label=label, shape=[b, sq, sk, h, d], head_dim=d, **t,
-                              bound_ms=bound, roof=roof, max_abs_diff=diff))
-        del q, k, v, outs
+        case = _f32_sides(label + f" s={attn.f32_key_splits(b, sq, sk, h, d, sms)}", entries,
+                          wrappers, outs, want, n, roofline.attention_bound_ms(
+                              roofline.attention_cost(b, sq, sk, h, d, elem=roofline.F32),
+                              roofline.PEAK_F32_PRODUCTS))
+        case["max_abs_diff"] = (outs["parent"] - outs["change"]).abs().max().item()
+        out_cases.append(dict(case, shape=[b, sq, sk, h, d], head_dim=d))
+        del q, k, v, outs, want
+        torch.cuda.empty_cache()
     return out_cases
+
+
+def _attention_f64(q, k, v) -> torch.Tensor:
+    """softmax(q k^T d^-0.5) v of (B, Sq, H, D) q and (B, Sk, H, D) k, v in
+    float64."""
+    d = q.shape[-1]
+    qd, kd, vd = (t.double().transpose(1, 2) for t in (q, k, v))
+    logits = qd @ kd.transpose(-1, -2) * d**-0.5
+    return (torch.softmax(logits, -1) @ vd).transpose(1, 2)
 
 
 F32_FORM_ROUNDS = ("natural", "form", "form", "natural")

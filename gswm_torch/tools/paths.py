@@ -122,9 +122,9 @@ K4_LSE_SHAPES = ((8, 1024, 8, 80), (4, 256, 8, 160), (8, 256, 8, 160),
 # 576 of 20), and sdxl-base's K2 at level 1 (4096 of 10) and K1's core at
 # level 2 (1024 of 20); through the split wrapper (B, Sq, Sk, H, D): the
 # VAE's mid attention, one head of 512 over 9216 tokens (768x768: the
-# decoder's one image a call, the encoder's two) and 16,384 (1024x1024), a
-# ragged 512 at Sq != Sk, and widths no SD model uses at ragged Sq != Sk:
-# 72 (two panels, the last of 8 columns), 128, 192 and 256
+# decoder's one image a call, the encoder's two) and 16,384 (1024x1024: one
+# image and two), a ragged 512 at Sq != Sk, and widths no SD model uses at
+# ragged Sq != Sk: 72 (two panels, the last of 8 columns), 128, 192 and 256
 F32_PROJ_SHAPES = ((BATCH_512 * 1024, 640, 640), (BATCH_512 * 256, 1280, 1280),
                    *((u * 2304, 640, 640) for u in (BATCH_768, 2 * BATCH_768)),
                    *((u * 576, 1280, 1280) for u in (BATCH_768, 2 * BATCH_768)),
@@ -136,7 +136,8 @@ F32_FLASH_SHAPES = ((BATCH_512, 4096, 5, 64), (BATCH_512, 1024, 10, 64),
                       for u in (BATCH_768, 2 * BATCH_768)),
                     *((u, s, h, 64) for s, h in ((4096, 10), (1024, 20)) for u in (1, 2)))
 F32_SPLIT_SHAPES = ((1, 9216, 9216, 1, 512), (2, 9216, 9216, 1, 512),
-                    (1, 16384, 16384, 1, 512), (1, 1001, 577, 1, 512),
+                    (1, 16384, 16384, 1, 512), (2, 16384, 16384, 1, 512),
+                    (1, 1001, 577, 1, 512),
                     (2, 1001, 577, 2, 72), (2, 577, 1001, 2, 128),
                     (1, 1001, 700, 2, 192), (1, 700, 1001, 2, 256))
 # phase 13's sdxl-base closed loop, at phase 5's reduced depth
@@ -216,6 +217,36 @@ F32_TRANSPOSED_SHAPES = ((2, 9216, 5, 64), (4, 9216, 5, 64), (4, 4096, 8, 40),
                          (2, 988, 20, 64), (1, 1024, 1, 512))
 F32_TRANSPOSED_WORD_SHAPES = ((1, 1001, 3, 64), (1, 1001, 2, 160))
 F32_LSE_SHAPES = LSE_SHAPES
+# The first design's times of the float32 kernels at those shapes (ms, FFMA;
+# PERF.md section 6, its chip runs on an NVIDIA H100 80GB HBM3 at 700 W),
+# which phase 13a prints beside this checkout's: "proj" (M, C, N),
+# "flash" (B, S, H, D) through the natural wrapper, "split" (B, Sq, Sk, H,
+# D), "packed" (B, S, H), "transposed" and "lse" (B, S, H, D)
+F32_PARENT_MS = {
+    "proj": {(4096, 640, 640): 0.3046, (1024, 1280, 1280): 0.3000, (4608, 640, 640): 0.3784,
+             (9216, 640, 640): 0.6763, (1152, 1280, 1280): 0.4475,
+             (2304, 1280, 1280): 0.7433, (2048, 1280, 1280): 0.5966},
+    "flash": {(4, 4096, 5, 64): 2.5959, (4, 1024, 10, 64): 0.3375, (4, 256, 20, 64): 0.0650,
+              (4, 4096, 8, 40): 3.3411, (4, 1024, 8, 80): 0.4321, (4, 256, 8, 160): 0.0645,
+              (2, 9216, 5, 64): 6.3551, (4, 9216, 5, 64): 12.6623,
+              (2, 2304, 10, 64): 0.8773, (4, 2304, 10, 64): 1.6001,
+              (2, 576, 20, 64): 0.1178, (4, 576, 20, 64): 0.2266,
+              (1, 4096, 10, 64): 1.3090, (2, 4096, 10, 64): 2.5753,
+              (1, 1024, 20, 64): 0.2048, (2, 1024, 20, 64): 0.3335},
+    "split": {(1, 9216, 9216, 1, 512): 9.7278, (2, 9216, 9216, 1, 512): 15.0271,
+              (1, 16384, 16384, 1, 512): 17.5352, (1, 1001, 577, 1, 512): 0.3524,
+              (2, 1001, 577, 2, 72): 0.0772, (2, 577, 1001, 2, 128): 0.1479,
+              (1, 1001, 700, 2, 192): 0.1481, (1, 700, 1001, 2, 256): 0.2844},
+    "packed": {(2, 9216, 5): 8.0720, (4, 9216, 5): 15.5717, (2, 4096, 5): 1.5588,
+               (1, 1000, 3): 0.0878},
+    "transposed": {(2, 9216, 5, 64): 7.1547, (4, 9216, 5, 64): 14.2463,
+                   (4, 4096, 8, 40): 3.7478, (4, 1024, 8, 80): 0.4798,
+                   (4, 256, 8, 160): 0.0874, (8, 324, 8, 160): 0.2465,
+                   (2, 988, 20, 64): 0.3833, (1, 1024, 1, 512): 0.7158,
+                   (1, 1001, 3, 64): 0.1129, (1, 1001, 2, 160): 0.2929},
+    "lse": {(2, 9216, 5, 64): 6.2923, (2, 4096, 10, 64): 2.5872, (4, 4096, 8, 40): 3.3629,
+            (4, 1024, 8, 80): 0.4347, (1, 16384, 1, 512): 17.8855},
+}
 
 # The JAX package's switch sets that move the UNet's level-0 and level-1/2
 # self-attention off the default route: (a) cres -> K2, (b) packed K6, (c)

@@ -1,6 +1,7 @@
 """Where the device time of the port's paths goes, from ``torch.profiler``.
 
     python -m gswm_torch.tools.profile_paths [--out FILE.json] [--top 25]
+        [--only float32]
 
 On one card, random weights from a seed, bf16:
 
@@ -27,6 +28,14 @@ On one card, random weights from a seed, bf16:
     watermark chain of
     ``chip_smoke.py`` phase 10b, likewise; its extraction half beside the
     512x512 chain of sd-2-1-base above.
+  * float32 (``--only float32`` runs this section alone): sd-2-1-base at
+    512x512 and sd-2-1 at 768x768 built with ``dtype=torch.float32``, one
+    UNet forward of the extraction chain's inversion step (batch 4) and
+    one of the generation chain's guided step (768x768: batch 2 under
+    guidance, 4), under ``inversable.exact_float32``: device time by kernel
+    family (``FAMILIES``: the attention core, its pre-pass and combine, the
+    projection GEMM, cuDNN's convolutions, cuBLAS's GEMMs, GroupNorm,
+    softmax, elementwise, copies, reductions, other), shares and launches.
   * the GroupNorm kernel (K8) at ``paths.K8_PROBE_CASES``: device time a call
     beside the wrapper's CUDA-event time a call, which holds its host side,
     and its bound.
@@ -96,6 +105,78 @@ def report(title: str, res: dict) -> None:
               f"{k['name']}", flush=True)
 
 
+# kernel families of the float32 forwards: (family, substrings of a kernel's
+# name, lower case), the first match wins
+FAMILIES = (
+    ("attention core (flash_f32.cu)", ("flash_f32_kernel",)),
+    ("attention pre-pass and combine (flash_f32.cu)", ("split_kv_kernel", "combine_kernel")),
+    ("projection GEMM (qkv_proj_f32.cu)", ("qkv_proj_f32",)),
+    ("convolutions (cuDNN)", ("conv", "fprop", "dgrad", "implicit", "winograd", "cudnn")),
+    ("GEMMs (cuBLAS)", ("gemm", "cutlass", "cublas")),
+    ("GroupNorm", ("groupnorm", "group_norm", "rowwisemoments", "computefusedparams")),
+    ("softmax", ("softmax",)),
+    ("elementwise", ("elementwise",)),
+    ("copies and layout", ("copy", "cat", "transpose", "permute", "memcpy", "memset")),
+    ("reductions", ("reduce",)),
+)
+
+
+def by_family(fn) -> dict:
+    """Run ``fn`` under the profiler: device ms and launches by FAMILIES
+    (every kernel counted, "other" for the rest), and the busy total."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    fams = {}
+    for e in prof.key_averages():
+        if e.device_type.name != "CUDA" or e.self_device_time_total <= 0:
+            continue
+        name = e.key.lower()
+        fam = next((f for f, keys in FAMILIES if any(k in name for k in keys)), "other")
+        ms, n = fams.get(fam, (0.0, 0))
+        fams[fam] = (ms + e.self_device_time_total / 1e3, n + e.count)
+    busy = sum(ms for ms, _ in fams.values())
+    if busy <= 0:
+        raise RuntimeError("the profiler saw no device time")
+    return dict(busy_ms=busy, families={f: dict(ms=ms, share=ms / busy, launches=n)
+                                        for f, (ms, n) in sorted(fams.items(),
+                                                                 key=lambda kv: -kv[1][0])})
+
+
+def float32_section(forwards: int = 3) -> dict:
+    """The float32 forwards of the extraction and generation steps, by
+    kernel family (see the module's docstring)."""
+    from gswm_torch.pipelines import inversable
+
+    out = {}
+    for preset, res, batch, label in (("sd-2-1-base", paths.RES_512, paths.BATCH_512,
+                                       "512x512 extraction step (inversion), batch 4"),
+                                      ("sd-2-1", paths.RES_768, 2 * paths.BATCH_768,
+                                       "768x768 generation step (guided), batch 4")):
+        pipe = paths.build_pipeline(preset, dtype=torch.float32)
+        unet_in = paths.unet_inputs(pipe, batch, res=res)
+
+        def forward():
+            with torch.inference_mode(), inversable.exact_float32("cuda", torch.float32):
+                for _ in range(forwards):
+                    pipe.unet(*unet_in)
+
+        forward()
+        res_f = by_family(forward)
+        print(f"float32 {label}: device time per forward {res_f['busy_ms'] / forwards:.3f} "
+              f"ms", flush=True)
+        for fam, row in res_f["families"].items():
+            print(f"  {row['share'] * 100:6.2f}%  {row['ms'] / forwards:10.3f} ms a forward  "
+                  f"x{row['launches'] // forwards:<5d} {fam}", flush=True)
+        out[label] = dict(forwards=forwards, **res_f)
+        del pipe, unet_in
+        torch.cuda.empty_cache()
+    return out
+
+
 def tracer_records(calls: int, windows: int = 5) -> list:
     """``windows`` profiler windows of ``calls`` K8 calls each.  A window:
     launch records on the host's side, kernel records on the device's."""
@@ -146,6 +227,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", type=Path)
     ap.add_argument("--top", type=int, default=25)
+    ap.add_argument("--only", choices=("float32",),
+                    help="run this section alone")
     args = ap.parse_args()
     started = time.perf_counter()
     if not torch.cuda.is_available():
@@ -156,6 +239,13 @@ def main() -> None:
     print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.only == "float32":
+        result = {"card": card, "float32": float32_section()}
+        print(json.dumps(result))
+        if args.out:
+            args.out.parent.mkdir(parents=True, exist_ok=True)
+            args.out.write_text(json.dumps(result, indent=1))
+        return
     result = {"card": card, "tracer_young": report_tracer("young", started)}
 
     # ---- sd-2-1, 768x768, batch 2
@@ -336,6 +426,7 @@ def main() -> None:
         result["group_norm"].append(dict(shape=list(shape), act=act, wrapper_ms=wrapper,
                                          device_ms=device, bound_ms=bound))
         del x
+    result["float32"] = float32_section()
     result["tracer_old"] = report_tracer("old", started)
     print(json.dumps(result))
     if args.out:

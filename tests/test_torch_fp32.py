@@ -370,16 +370,20 @@ def test_narrowed_sd14_closed_loop_bits_equal_jax_in_fp32(sd14_pipes, monkeypatc
                          ids=str)
 def test_dtype_kernel_names_the_float32_kernel(dtype, d, layout):
     """bf16: the kernel ``head_dim_kernel`` names; fp32: csrc/flash_f32.cu's
-    kernel at d's count of 64-column panels, in the transposed layout its
-    transposed instance; float16: a TypeError naming it."""
+    kernel at d's count of 64-column panels and p v's last width (exact at
+    40, 80, 160), in the transposed layout its transposed instance;
+    float16: a TypeError naming it."""
     if dtype == torch.bfloat16:
         assert attn.dtype_kernel(dtype, d, layout) == attn.head_dim_kernel(d, layout)[0]
     elif dtype == torch.float32 and layout == "natural":
-        assert attn.dtype_kernel(dtype, d, layout) == f"flash_f32_kernel<{(d + 63) // 64}>"
-        assert attn._flash_entry(dtype, d) == "gswm_flash_f32"
-    elif dtype == torch.float32:
+        tail = attn.F32_EXACT_TAILS.get(d, 64)
         assert attn.dtype_kernel(dtype, d, layout) == \
-            f"flash_f32_kernel<{(d + 63) // 64}, transposed>"
+            f"flash_f32_kernel<{(d + 63) // 64}, {tail}>"
+        assert attn._flash_entry(dtype, d) == "gswm_flash_f32_core"
+    elif dtype == torch.float32:
+        tail = attn.F32_EXACT_TAILS.get(d, 64)
+        assert attn.dtype_kernel(dtype, d, layout) == \
+            f"flash_f32_kernel<{(d + 63) // 64}, {tail}, transposed>"
     else:
         with pytest.raises(TypeError, match=str(dtype)):
             attn.dtype_kernel(dtype, d, layout)

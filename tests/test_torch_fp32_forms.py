@@ -29,6 +29,7 @@ from gswm_torch.ops import groupnorm as gn
 
 CSRC = Path(attn.__file__).resolve().parents[1] / "csrc"
 STREAM = 0x5EED
+SMS = 132  # an H100's SMs, what the float32 core's key split is sized by
 
 
 class _OnCard:
@@ -59,8 +60,13 @@ class _OnCard:
 _ADDRESSES = iter(range(0x100000, 1 << 40, 0x100000))
 
 
+_MADE = {}  # address -> what the wrappers allocated on the card
+
+
 def _made(shape, dtype):
-    return _OnCard(shape, dtype, next(_ADDRESSES))
+    t = _OnCard(shape, dtype, next(_ADDRESSES))
+    _MADE[t.address] = t
+    return t
 
 
 class _Recorder:
@@ -81,6 +87,7 @@ def card(monkeypatch):
     lib = _Recorder()
     monkeypatch.setattr(native, "library", lambda: lib)
     monkeypatch.setattr(native, "stream_handle", lambda device: STREAM)
+    monkeypatch.setattr(attn, "_multiprocessors", lambda device: SMS)
     monkeypatch.setattr(native, "launch", lambda device, name, *args: lib.call(
         name, *args, STREAM))
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
@@ -119,24 +126,58 @@ def _moved(before, after):
     return out
 
 
+def _f32_steps(calls, q, k, v, out, lse, b, sq, sk, h, d, q_pitch, kv_pitch, out_pitch,
+               transposed, vec):
+    """The C calls of one float32 attention call (``ops.attention.f32_core``):
+    the split pre-pass into a scratch of ``f32_scratch_numel`` floats, the
+    core over ``f32_key_splits`` chunks and, where there are more than one,
+    the combine of a workspace of ``f32_workspace_numel`` floats, each with
+    the form's pointers and pitches; both buffers fp32 on the card."""
+    splits = attn.f32_key_splits(b, sq, sk, h, d, SMS)
+    assert [name for name, _ in calls] == ["gswm_flash_f32_prepass", "gswm_flash_f32_core"] + \
+        (["gswm_flash_f32_combine"] if splits > 1 else [])
+    scratch = calls[0][1][2]
+    assert _MADE[scratch].shape == (attn.f32_scratch_numel(b, sk, h, d),)
+    assert _MADE[scratch].dtype == torch.float32
+    assert calls[0] == ("gswm_flash_f32_prepass", (k, v, scratch, b, sk, h, d, kv_pitch,
+                                                   int(transposed), STREAM))
+    ws = calls[1][1][4]
+    if splits > 1:
+        assert _MADE[ws].shape == (attn.f32_workspace_numel(splits, b, sq, h, d),)
+        assert calls[2] == ("gswm_flash_f32_combine", (ws, out, lse, b, sq, h, d, out_pitch,
+                                                       int(transposed), splits, STREAM))
+    else:
+        assert ws is None
+    assert calls[1] == ("gswm_flash_f32_core", (q, scratch, out, lse, ws, b, sq, sk, h, d,
+                                                q_pitch, out_pitch, int(transposed), int(vec),
+                                                splits, STREAM))
+    return splits
+
+
 PACKED_COUNTERS = ("launches", "launches_by_d", "launches_f32", "launches_f32_by_d")
 TRANSPOSED_COUNTERS = (*PACKED_COUNTERS, "launches_by_kernel")
 SPLIT_COUNTERS = (*PACKED_COUNTERS, "lse_launches", "lse_launches_by_d",
                   "lse_launches_f32", "lse_launches_f32_by_d")
 
 
-@pytest.mark.parametrize("dtype,entry", [(torch.float32, "gswm_flash_f32_packed"),
+@pytest.mark.parametrize("dtype,entry", [(torch.float32, "gswm_flash_f32_core"),
                                          (torch.bfloat16, "gswm_flash_packed")], ids=str)
 @pytest.mark.parametrize("b,s,pairs", [(2, 9216, 3), (1, 1000, 2), (4, 1, 1)])
 def test_packed_reaches_its_entry(card, dtype, entry, b, s, pairs):
-    """K6: (B, S, 3 P 128) qkv -> the entry of its dtype with (qkv, out, B,
-    S, P), an output of (B, S, P 128) in qkv's dtype; one launch at d = 64
-    on the counter of that dtype."""
+    """K6: (B, S, 3 P 128) qkv -> in bf16 its entry with (qkv, out, B, S,
+    P), in float32 the three steps on the column bands with the array's
+    pitches; an output of (B, S, P 128) in qkv's dtype; one launch at d =
+    64 on the counter of that dtype."""
     qkv = _OnCard((b, s, 3 * pairs * 128), dtype, 0x1000)
     before = _counts(attn.flash_attention_packed, PACKED_COUNTERS)
     out = attn.flash_attention_packed(qkv)
     assert out.shape == (b, s, pairs * 128) and out.dtype == dtype
-    assert card.calls == [(entry, (0x1000, out.address, b, s, pairs, STREAM))]
+    if dtype == torch.float32:  # q, k, v: the column bands of rows of 3 P 128 floats
+        width = pairs * 128
+        _f32_steps(card.calls, 0x1000, 0x1000 + 4 * width, 0x1000 + 8 * width, out.address,
+                   None, b, s, s, 2 * pairs, 64, 3 * width, 3 * width, width, False, True)
+    else:
+        assert card.calls == [(entry, (0x1000, out.address, b, s, pairs, STREAM))]
     f32 = "_f32" if dtype == torch.float32 else ""
     assert _moved(before, _counts(attn.flash_attention_packed, PACKED_COUNTERS)) == {
         f"launches{f32}": 1, f"launches{f32}_by_d": {64: 1}}
@@ -147,8 +188,9 @@ def test_packed_reaches_its_entry(card, dtype, entry, b, s, pairs):
                                      (1, 1001, 2, 160), (2, 577, 1, 8)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 def test_transposed_reaches_its_entry(card, dtype, b, s, h, d):
-    """K7: (3 H D, B, S) qkv_t -> the entry of its dtype with (qkv_t, out_t,
-    B, S, H, D), an output of (H D, B, S); counted by head dim on the
+    """K7: (3 H D, B, S) qkv_t -> in bf16 its entry with (qkv_t, out_t, B,
+    S, H, D), in float32 the three steps on the row bands (q by 16-byte
+    copies where S % 4 == 0), an output of (H D, B, S); counted by head dim on the
     counter of its dtype and by the kernel ``transposed_kernel`` names: in
     float32 the 4-byte form where S % 4 != 0, in bf16 the hand-loaded one
     where S % 8 != 0."""
@@ -157,12 +199,18 @@ def test_transposed_reaches_its_entry(card, dtype, b, s, h, d):
     out = attn.flash_attention_transposed(qkv_t, h)
     assert out.shape == (h * d, b, s) and out.dtype == dtype
     f32 = dtype == torch.float32
-    entry = "gswm_flash_f32_transposed" if f32 else "gswm_flash_transposed"
-    assert card.calls == [(entry, (0x2000, out.address, b, s, h, d, STREAM))]
+    if f32:  # q, k, v: the row bands, B S floats between a head's columns
+        band = h * d * b * s
+        _f32_steps(card.calls, 0x2000, 0x2000 + 4 * band, 0x2000 + 8 * band, out.address,
+                   None, b, s, s, h, d, b * s, b * s, b * s, True, s % 4 == 0)
+    else:
+        assert card.calls == [("gswm_flash_transposed", (0x2000, out.address, b, s, h, d,
+                                                         STREAM))]
     kernel = attn.transposed_kernel(d, s, dtype)
     if f32:
         panels = -(-d // 64)
-        assert kernel == f"flash_f32_kernel<{panels}, transposed>" + \
+        tail = {40: 40, 80: 16, 160: 32}.get(d, 64)
+        assert kernel == f"flash_f32_kernel<{panels}, {tail}, transposed>" + \
             ("/4-byte" if s % 4 else "")
     else:
         assert kernel == attn.transposed_kernel(d, s)
@@ -176,9 +224,11 @@ def test_transposed_reaches_its_entry(card, dtype, b, s, h, d):
                                          (2, 1001, 577, 3, 72)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 def test_split_with_lse_reaches_its_entry(card, dtype, b, sq, sk, h, d):
-    """K4 with its log-sum-exp: the ``_lse`` entry of its dtype with (q, k, v,
-    out, lse, B, Sq, Sk, H, D), lse fp32 (B, H, Sq) in either dtype; counted
-    on the lse counters of its dtype alone.  Without lse: the plain entry."""
+    """K4 with its log-sum-exp: in bf16 the ``_lse`` entry with (q, k, v,
+    out, lse, B, Sq, Sk, H, D), in float32 the three steps with the lse
+    pointer (the core's, or the combine's where the keys split); lse fp32
+    (B, H, Sq) in either dtype; counted on the lse counters of its dtype
+    alone.  Without lse: the plain entry, or the steps with a null lse."""
     q = _OnCard((b, sq, h, d), dtype, 0x3000)
     k, v = _OnCard((b, sk, h, d), dtype, 0x4000), _OnCard((b, sk, h, d), dtype, 0x5000)
     before = _counts(attn.flash_attention_split, SPLIT_COUNTERS)
@@ -186,15 +236,23 @@ def test_split_with_lse_reaches_its_entry(card, dtype, b, sq, sk, h, d):
     assert out.shape == (b, sq, h, d) and out.dtype == dtype
     assert lse.shape == (b, h, sq) and lse.dtype == torch.float32
     f32 = dtype == torch.float32
-    entry = "gswm_flash_f32" if f32 else "gswm_flash_split"
-    assert card.calls == [(entry + "_lse", (0x3000, 0x4000, 0x5000, out.address, lse.address,
-                                            b, sq, sk, h, d, STREAM))]
+    if f32:
+        _f32_steps(card.calls, 0x3000, 0x4000, 0x5000, out.address, lse.address, b, sq, sk,
+                   h, d, h * d, h * d, h * d, False, True)
+    else:
+        assert card.calls == [("gswm_flash_split_lse", (0x3000, 0x4000, 0x5000, out.address,
+                                                        lse.address, b, sq, sk, h, d, STREAM))]
     tag = "_f32" if f32 else ""
     assert _moved(before, _counts(attn.flash_attention_split, SPLIT_COUNTERS)) == {
         f"lse_launches{tag}": 1, f"lse_launches{tag}_by_d": {d: 1}}
+    card.calls.clear()
     out = attn.flash_attention_split(q, k, v)
-    assert card.calls[-1] == (entry, (0x3000, 0x4000, 0x5000, out.address, b, sq, sk, h, d,
-                                      STREAM))
+    if f32:
+        _f32_steps(card.calls, 0x3000, 0x4000, 0x5000, out.address, None, b, sq, sk, h, d,
+                   h * d, h * d, h * d, False, True)
+    else:
+        assert card.calls == [("gswm_flash_split", (0x3000, 0x4000, 0x5000, out.address, b,
+                                                    sq, sk, h, d, STREAM))]
 
 
 def test_split_with_lse_below_512_keys_takes_the_einsum_branch(card):
@@ -255,19 +313,21 @@ D_ALL = tuple(range(8, 513, 8))
 
 @pytest.mark.parametrize("d", D_ALL)
 def test_dtype_kernel_names_flash_f32_at_every_head_dim(d):
-    """float32 at every d % 8 == 0 from 8 to 512: ``flash_f32_kernel<P>`` in
-    the natural layout (with the log-sum-exp: the same kernel, its ``_lse``
-    entry), ``flash_f32_kernel<P, transposed>`` in the transposed one, P =
-    ceil(d / 64); the pair-packed layout at d = 64 alone; float16 a
+    """float32 at every d % 8 == 0 from 8 to 512: ``flash_f32_kernel<P, N>``
+    in the natural layout (with the log-sum-exp: the same kernel, its core
+    entry), ``flash_f32_kernel<P, N, transposed>`` in the transposed one, P
+    = ceil(d / 64), N p v's width of the last panel (exact at 40, 80, 160;
+    64 elsewhere); the pair-packed layout at d = 64 alone; float16 a
     TypeError in every layout."""
     panels = -(-d // 64)
-    assert attn.dtype_kernel(torch.float32, d) == f"flash_f32_kernel<{panels}>"
+    tail = {40: 40, 80: 16, 160: 32}.get(d, 64)
+    assert attn.dtype_kernel(torch.float32, d) == f"flash_f32_kernel<{panels}, {tail}>"
     assert attn.dtype_kernel(torch.float32, d, "transposed") == \
-        f"flash_f32_kernel<{panels}, transposed>"
-    assert attn._flash_entry(torch.float32, d, lse=True) == "gswm_flash_f32_lse"
+        f"flash_f32_kernel<{panels}, {tail}, transposed>"
+    assert attn._flash_entry(torch.float32, d, lse=True) == "gswm_flash_f32_core"
     assert attn._flash_entry(torch.bfloat16, d, lse=True) == "gswm_flash_split_lse"
     if d == 64:
-        assert attn.dtype_kernel(torch.float32, d, attn.PACKED) == "flash_f32_kernel<1>"
+        assert attn.dtype_kernel(torch.float32, d, attn.PACKED) == "flash_f32_kernel<1, 64>"
         assert attn.dtype_kernel(torch.bfloat16, d, attn.PACKED) == "flash_hopper_kernel"
     else:
         with pytest.raises(ValueError):
@@ -304,39 +364,70 @@ def _code(name: str) -> str:
 
 
 def test_flash_f32_is_one_kernel_body_with_the_layout_a_template_parameter():
-    """csrc/flash_f32.cu: one __global__ kernel, templated on the panel
-    count, d and the layout, every form one of its instances; one shared
-    memory carve (q, the ring, p) and no second staging buffer; the
-    log-sum-exp a runtime pointer, not a template flag; the natural entry's
-    signature as before; the 4-byte copies a runtime argument."""
+    """csrc/flash_f32.cu: one attention kernel body, templated on the panel
+    count, p v's last width and the layout, every form one of its
+    instances; the layout a parameter of q's loads and the output's stores
+    alone (k and v come from the pre-pass's one layout, by TMA); products on 3xTF32
+    wgmma, no FFMA loop; the log-sum-exp a runtime pointer, not a template
+    flag; the natural entry's signature as before; the 4-byte copies a
+    runtime argument; beside it only the pre-pass and the combine, and no
+    try, no switch to another kernel."""
     code = _code("flash_f32.cu")
-    assert code.count("__global__") == 1
+    assert code.count("__global__") == 3
     assert "enum class Layout { natural, transposed };" in code
-    assert "template <int P, int DC, Layout L>\n__global__" in code
-    assert code.count("__shared__") == 1 and code.count("extern __shared__") == 1
-    for region in ("float* qs = smem;", "float* ring = qs + Cfg<P, L>::Q_FLOATS;",
-                   "float* ps = ring + STAGES * PANEL_FLOATS;"):
-        assert region in code, region
+    assert "template <int P, int N, Layout L>\n__global__" in code
+    assert "template <Layout L>\n__global__ void __launch_bounds__(STEP_THREADS)\nsplit_kv_kernel(" in code
+    assert "template <Layout L>\n__global__ void __launch_bounds__(STEP_THREADS)\ncombine_kernel(" in code
+    assert code.count("extern __shared__") == 1 and code.count("__shared__") == 2
+    # q's loads and the output's stores read L; k and v do not
+    assert "q_index<P, L>(" in code and "stage_q<P, L>(" in code
+    assert "produce_panel<P>(" in code and "produce_panel<P, L>" not in code
+    assert "__grid_constant__ CUtensorMap map_k" in code and "tma_load_2d(" in code
+    assert "wgmma_3xtf32_rs<NK>(" in code and "wgmma_3xtf32_rs<N>(" in code
+    # fmaf only on a logit scaled into the exponent, no product on FFMA
+    assert set(re.findall(r"fmaf\((\w+)\[", code)) == {"s"} and "try" not in code
+    assert ".f32.tf32.tf32" in _code("hopper.cuh") and "cvt.rna.tf32.f32" in _code("hopper.cuh")
     assert re.search(r"float\* lse;", code) and "a.lse != nullptr" in code
     assert "LSE" not in code.replace("LN2", "")
     assert 'extern "C" int gswm_flash_f32(const void* q, const void* k, const void* v, ' \
            'void* out, int B,\n                              int Sq, int Sk, int H, int D, ' \
            'void* stream)' in code
-    for entry, layout in (("gswm_flash_f32", "natural"), ("gswm_flash_f32_lse", "natural"),
-                          ("gswm_flash_f32_packed", "natural"),
-                          ("gswm_flash_f32_transposed", "transposed"),
-                          ("gswm_flash_f32_transposed_4byte", "transposed")):
+    for entry in ("gswm_flash_f32", "gswm_flash_f32_lse", "gswm_flash_f32_packed",
+                  "gswm_flash_f32_transposed", "gswm_flash_f32_transposed_4byte",
+                  "gswm_flash_f32_prepass", "gswm_flash_f32_core", "gswm_flash_f32_combine"):
         assert f'extern "C" int {entry}(' in code, entry
         assert entry in native._SIGNATURES, entry
-    assert code.count("run<Layout::natural>") == 2 and code.count("run<Layout::transposed>") == 1
+    assert code.count("run<Layout::natural>(") == 1 and code.count("run<Layout::transposed>(") == 1
     # the packed entry: q, k, v the column bands of one row of 3 P 128
     # floats, 2 P heads of 64; the transposed one: the row bands of (3 H D,
     # B, S), B * S floats between a head's columns
-    assert "q, q + width, q + 2 * width, static_cast<float*>(out), nullptr, 3 * width,\n" \
-           "                  3 * width, width, S, S, 2 * pairs, 64" in code
+    assert "unsplit(q, q + width, q + 2 * width, static_cast<float*>(out), nullptr, B, S, S,\n" \
+           "                 2 * pairs, 64, 3 * width, 3 * width, width, false, true, stream)" in code
     assert "const size_t band = (size_t)H * D * bs;" in code
-    assert "q, q + band, q + 2 * band, static_cast<float*>(out_t), nullptr, bs, bs, bs," in code
-    assert "S % 4 == 0, stream" in code
+    assert "bs, bs, bs, true, S % 4 == 0, stream" in code and "bs, bs, bs, true, false, stream" in code
+    # the instances: exact widths where users run them, 64-column panels elsewhere
+    for inst in ("launch<1, 40, L>", "launch<2, 16, L>", "launch<3, 32, L>",
+                 *(f"launch<{p}, 64, L>" for p in range(1, 9))):
+        assert inst in code, inst
+    assert code.count("launch<") == 11
+
+
+def test_qkv_proj_f32_runs_its_products_on_3xtf32_wgmma():
+    """csrc/qkv_proj_f32.cu: one kernel, both operands K-major in 128-byte
+    swizzled slices, w split in shared memory and x's fragments in
+    registers, three m64n128k8 tf32 products a step (3xTF32), no FFMA; the
+    entry's signature and limits as before."""
+    code = _code("qkv_proj_f32.cu")
+    assert code.count("__global__") == 1
+    assert "wgmma_3xtf32_rs<TILE>(" in code and "constexpr int TILE = 128;" in code
+    assert "split_tf32(wbig[i], big, small);" in code and "split_fragment(" in code
+    assert "fmaf(" not in code and "try" not in code
+    assert "wgmma_tf32_m64n128k8_rs" in _code("hopper.cuh")
+    assert 'extern "C" int gswm_qkv_proj_f32(const void* x, const void* wq, const void* wk,\n' \
+           '                                 const void* wv, void* q, void* k, void* v, int M, ' \
+           'int C,\n                                 int N, void* stream)' in code
+    assert "if (M < 1 || C < 64 || C % 64 || N < 64 || N % 64)" in code
+    assert native._SIGNATURES["gswm_qkv_proj_f32"] == native._SIGNATURES["gswm_qkv_proj"]
 
 
 def test_group_norm_takes_the_element_type_as_a_template_parameter():

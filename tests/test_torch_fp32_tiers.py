@@ -143,4 +143,4 @@ def test_switch_sets_route_the_narrowed_levels_to_their_tier(monkeypatch, switch
         [tier, tier, "plain", "plain"]
     layout = attn.PACKED if tier == "packed" else "transposed"
     assert attn.dtype_kernel(torch.float32, 64, layout) == (
-        "flash_f32_kernel<1>" if tier == "packed" else "flash_f32_kernel<1, transposed>")
+        "flash_f32_kernel<1, 64>" if tier == "packed" else "flash_f32_kernel<1, 64, transposed>")

@@ -597,6 +597,102 @@ def test_f32_flash_kernels_any_head_dim(cuda, d, sq, sk):
     assert (ones - 1).abs().max().item() <= 1e-5
 
 
+def _f32_natural(q, k, v) -> torch.Tensor:
+    """The fp32 core through the natural-layout wrapper (Sq == Sk), on the
+    key split ``f32_key_splits`` gives the shape."""
+    b, s, h, d = q.shape
+    return attn.flash_attention(*(t.reshape(b, s, h * d) for t in (q, k, v)), h).view(
+        b, s, h, d)
+
+
+def _f64_attention(q, k, v):
+    """softmax(q k^T d^-0.5) v and its log-sum-exp in float64."""
+    d = q.shape[-1]
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double()) * d**-0.5
+    return (torch.einsum("bhqk,bkhd->bqhd", torch.softmax(logits, -1), v.double()),
+            torch.logsumexp(logits, -1))
+
+
+def assert_f64_close(got, want):
+    """Within F32_BOUND of max |want| against a float64 want."""
+    err = (got.double() - want).abs().max().item()
+    assert err <= F32_BOUND * want.abs().max().item(), err
+
+
+@pytest.mark.parametrize("d", range(8, 513, 8))
+def test_f32_core_every_head_dim_split_and_against_float64(cuda, d):
+    """The 3xTF32 core at every d % 8 == 0 from 8 to 512 (the exact-width
+    instances at 40, 80, 160 among the 64-column ones), ragged Sq != Sk =
+    (1001, 577): the split wrapper, on its key split (s > 1: 577 keys are 10
+    tiles, 16 blocks on the card's SMs), within F32_BOUND of float64, lse
+    included and its output bit-equal to the call without; the unsplit
+    entry within F32_BOUND of float64 too; the transposed and natural
+    routes bit-equal at Sq == Sk = 1001, split as well."""
+    b, h = 1, 2
+    g = torch.Generator(device=cuda).manual_seed(d)
+    q = torch.randn((b, 1001, h, d), generator=g, device=cuda)
+    k, v = (torch.randn((b, 577, h, d), generator=g, device=cuda) for _ in range(2))
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert attn.f32_key_splits(b, 1001, 577, h, d, sms) > 1
+    out, lse = attn.flash_attention_split(q, k, v, return_lse=True)
+    want, want_lse = _f64_attention(q, k, v)
+    assert_f64_close(out, want)
+    assert (lse.double() - want_lse).abs().max().item() <= F32_BOUND * max(
+        1.0, want_lse.abs().max().item())
+    assert torch.equal(out, attn.flash_attention_split(q, k, v))
+    assert_f64_close(_f32_call(q, k, v), want)
+    qkv_t = torch.randn((3 * h * d, b, 1001), generator=g, device=cuda)
+    qn, kn, vn = (t.permute(2, 3, 0, 1).contiguous() for t in qkv_t.view(3, h, d, b, 1001))
+    assert attn.f32_key_splits(b, 1001, 1001, h, d, sms) > 1
+    assert torch.equal(attn.flash_attention_transposed(qkv_t, h),
+                       _f32_natural(qn, kn, vn).permute(2, 3, 0, 1).reshape(h * d, b, 1001))
+
+
+@pytest.mark.parametrize("d", [40, 64, 160, 512])
+def test_f32_key_split_steps_agree_at_every_split(cuda, d):
+    """The three C steps by hand (pre-pass, core over s chunks, combine) at
+    s = 1 ... 5 over 577 keys (10 tiles: chunks of 10, 5, 4, 3 and 2 tiles,
+    the last ragged), the output and lse each within F32_BOUND of float64;
+    the pre-pass's scratch bit-equal to its plain version."""
+    from gswm_torch import native
+
+    b, sq, sk, h = 2, 300, 577, 3
+    g = torch.Generator(device=cuda).manual_seed(d + 1)
+    q = torch.randn((b, sq, h, d), generator=g, device=cuda)
+    k, v = (torch.randn((b, sk, h, d), generator=g, device=cuda) for _ in range(2))
+    lib, stream = native.library(), native.stream_handle(cuda)
+    scratch = torch.empty(attn.f32_scratch_numel(b, sk, h, d), device=cuda)
+    lib.call("gswm_flash_f32_prepass", k.data_ptr(), v.data_ptr(), scratch.data_ptr(), b, sk,
+             h, d, h * d, 0, stream)
+    assert torch.equal(scratch, attn.f32_prepass_reference(k, v))
+    want, want_lse = _f64_attention(q, k, v)
+    for splits in range(1, 6):
+        out, lse = torch.empty_like(q), torch.empty((b, h, sq), device=cuda)
+        ws = torch.empty(attn.f32_workspace_numel(splits, b, sq, h, d), device=cuda)
+        lib.call("gswm_flash_f32_core", q.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+                 lse.data_ptr(), ws.data_ptr() if splits > 1 else None, b, sq, sk, h, d,
+                 h * d, h * d, 0, 1, splits, stream)
+        if splits > 1:
+            lib.call("gswm_flash_f32_combine", ws.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                     b, sq, h, d, h * d, 0, splits, stream)
+        assert_f64_close(out, want)
+        assert (lse.double() - want_lse).abs().max().item() <= F32_BOUND * max(
+            1.0, want_lse.abs().max().item()), splits
+
+
+@pytest.mark.parametrize("m,c,n", [(4096, 640, 640), (1024, 1280, 1280), (2304, 1280, 1280),
+                                   (77, 2560, 192)])
+def test_f32_projection_against_float64(cuda, m, c, n):
+    """The 3xTF32 GEMM against the float64 product within F32_BOUND of max
+    |want|, C up to 2560 (each 32-deep slice summed apart, the slices added
+    in fp32)."""
+    g = torch.Generator(device=cuda).manual_seed(m + n)
+    x = torch.randn((1, m, c), generator=g, device=cuda)
+    ws = [torch.randn((n, c), generator=g, device=cuda) for _ in range(3)]
+    for got, w in zip(attn.qkv_projection(x, *ws), ws):
+        assert_f64_close(got, x.double() @ w.double().t())
+
+
 def _f32_lse_call(q, k, v):
     """The fp32 core with its log-sum-exp through its C entry, at any Sq and
     Sk (the split wrapper takes its einsum branch below 512 keys)."""
@@ -652,7 +748,8 @@ def test_f32_lse_wrapper_counts_apart(cuda):
 def test_f32_packed_kernel_matches_plain_and_the_natural_kernel(cuda, b, s, h):
     """K6 in fp32 at ragged S and odd head counts (a zero pad head): within
     F32_BOUND of the plain version, each head on its own scale, and bit-equal
-    to the natural form on the same heads made contiguous."""
+    to the natural form on the same heads made contiguous (both on the key
+    split of the shape); the unsplit entries likewise."""
     pairs = -(-h // 2)
     g = torch.Generator(device=cuda).manual_seed(s * 3 + h)
     qkv = torch.randn((b, s, 3 * pairs * 128), generator=g, device=cuda)
@@ -663,7 +760,13 @@ def test_f32_packed_kernel_matches_plain_and_the_natural_kernel(cuda, b, s, h):
     for i in range(h):
         assert_f32_close(got[..., 64 * i:64 * i + 64], want[..., 64 * i:64 * i + 64])
     q, k, v = (t.reshape(b, s, 2 * pairs, 64).contiguous() for t in qkv.split(pairs * 128, -1))
-    assert torch.equal(got, _f32_call(q, k, v).reshape(b, s, pairs * 128))
+    assert torch.equal(got, _f32_natural(q, k, v).reshape(b, s, pairs * 128))
+    from gswm_torch import native
+
+    unsplit = qkv.new_empty((b, s, pairs * 128))
+    native.library().call("gswm_flash_f32_packed", qkv.data_ptr(), unsplit.data_ptr(), b, s,
+                          pairs, native.stream_handle(qkv.device))
+    assert torch.equal(unsplit, _f32_call(q, k, v).reshape(b, s, pairs * 128))
 
 
 def _f32_transposed(qkv_t, h, entry="gswm_flash_f32_transposed"):
@@ -682,7 +785,8 @@ def test_f32_transposed_kernel_any_head_dim(cuda, d, s):
     """K7 in fp32 at every panel count, at S = 1, 577 and 1001 (4-byte
     copies) and 64, 1024, 324 (16-byte ones): two batches, three heads,
     each head within F32_BOUND of the plain version; bit-equal to the
-    natural form on the same q, k and v, and the 4-byte form bit-equal to
+    natural form on the same q, k and v (both on the key split of the
+    shape; the unsplit entries likewise), and the 4-byte form bit-equal to
     the 16-byte one; counted by the kernel ``transposed_kernel`` names."""
     b, h = 2, 3
     g = torch.Generator(device=cuda).manual_seed(d * 5 + s)
@@ -697,8 +801,10 @@ def test_f32_transposed_kernel_any_head_dim(cuda, d, s):
     for i in range(h):
         assert_f32_close(got[i * d:(i + 1) * d], want[i * d:(i + 1) * d])
     q, k, v = (t.permute(2, 3, 0, 1).contiguous() for t in qkv_t.view(3, h, d, b, s))
-    assert torch.equal(got, _f32_call(q, k, v).permute(2, 3, 0, 1).reshape(h * d, b, s))
-    assert torch.equal(got, _f32_transposed(qkv_t, h, "gswm_flash_f32_transposed_4byte"))
+    assert torch.equal(got, _f32_natural(q, k, v).permute(2, 3, 0, 1).reshape(h * d, b, s))
+    unsplit = _f32_transposed(qkv_t, h)
+    assert torch.equal(unsplit, _f32_call(q, k, v).permute(2, 3, 0, 1).reshape(h * d, b, s))
+    assert torch.equal(unsplit, _f32_transposed(qkv_t, h, "gswm_flash_f32_transposed_4byte"))
     ones = qkv_t.clone()
     ones[2 * h * d:] = 1.0  # v = 1: no key of the other batch or past S is weighed
     assert (_f32_transposed(ones, h) - 1).abs().max().item() <= 1e-5
@@ -706,7 +812,8 @@ def test_f32_transposed_kernel_any_head_dim(cuda, d, s):
 
 def test_f32_transposed_output_stays_in_place(cuda):
     """The (H D, B, S) output between guard regions: nothing written past
-    it at an odd S (4-byte copies) or in another head's rows."""
+    it at an odd S (4-byte copies) or in another head's rows; the output
+    the unsplit natural entry's on the same q, k and v, bit for bit."""
     b, s, h, d = 2, 1001, 2, 80
     g = torch.Generator(device=cuda).manual_seed(7)
     qkv_t = torch.randn((3 * h * d, b, s), generator=g, device=cuda)
@@ -718,7 +825,9 @@ def test_f32_transposed_output_stays_in_place(cuda):
                           h, d, native.stream_handle(qkv_t.device))
     torch.cuda.synchronize()
     assert (guard[:4096] == 7.0).all() and (guard[-4096:] == 7.0).all()
-    assert torch.equal(out.view(h * d, b, s), attn.flash_attention_transposed(qkv_t, h))
+    q, k, v = (t.permute(2, 3, 0, 1).contiguous() for t in qkv_t.view(3, h, d, b, s))
+    assert torch.equal(out.view(h * d, b, s),
+                       _f32_call(q, k, v).permute(2, 3, 0, 1).reshape(h * d, b, s))
 
 
 @pytest.mark.parametrize("shape,eps,act", [
