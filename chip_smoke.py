@@ -71,11 +71,23 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
                 plain version at (rows, blocks) = (4, 32), (4096, 32) and
                 (10000, 32), against the single-key kernel row by row, one
                 row's counter carrying into the high word; one
-                batch_keystream_bits call must be one kernel.  (Both
-                one-kernel checks stand at the head of the phase and read
-                one profiler trace of 8 calls: 8 launch records on the
-                host's side, and no kernel but the wrapper's on the
-                device's.)  K1 at d = 80 and 160 (batch 4 and 8) also
+                batch_keystream_bits call must be one kernel.  The vote
+                kernel (K3's table ending in the vote, record
+                "chacha20_vote") bit-exact against its plain version, scores
+                equal as float32 and voted bits equal, at paths.VOTE_SHAPES
+                (one latent for every row: 512x512 at 4, 4096 and 10,000
+                rows, 10,000 at 100 message bits, 520x520, 768x768,
+                1024x1024, l = 2 with 48 bits) and VOTE_ROW_SHAPES (a latent
+                row a key, 2500 rows), the rows that carry their message at
+                1.0; one kernel a call at 4096 rows; beside each the
+                wrapper's ms, the device ms (torch.profiler), the bound
+                (roofline.chacha_vote_cost) and its share, and the parent's
+                path for the same function (batch_keystream_bits, XOR,
+                majority_vote, mean), timed in the same process and equal
+                to it.  (The one-kernel checks stand at the head of the
+                phase and read one profiler trace of 8 calls: 8 launch
+                records on the host's side, and no kernel but the wrapper's
+                on the device's.)  K1 at d = 80 and 160 (batch 4 and 8) also
                 against F.linear + the library's attention in turns (5
                 rounds of library, kernel, kernel, library; medians and
                 ranges), because the library's time there spreads with its
@@ -130,17 +142,23 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
   7. per-user keys at config-5 scale (gswm_torch/tools/paths.py): 10,000
      (key, nonce, message) records from a numpy seed, 512x512 geometry —
        (a) every record embedded under its own key (2,500 rows a call) and
-           decoded back: 10,000 exact decodes; rows decoded under another
-           row's key near 0.5;
-       (b) find_source_device for 16 probes against the whole registry: 16
-           correct attributions at accuracy 1.0, three batch launches a probe;
+           decoded back through the vote kernel (one launch a call): 10,000
+           exact decodes; rows decoded under another row's key near 0.5;
+       (b) find_source_device for 16 probes against the whole registry,
+           through the records and through a table packed once
+           (trace.pack_candidates), each timed (s a probe, candidates/s):
+           16 correct attributions at accuracy 1.0, the same indices and
+           accuracies both ways, three vote launches a probe and no
+           keystream kernel; the plain version on the CPU equal on two
+           probes;
        (c) find_source (host loop) on a 256-record slice: the same accuracies
            as (b) on that slice, exactly;
        (d) per-user keys through the model: 4 images under 4 keys, sd-2-1-base
            at 512x512, embed -> 30-step generate -> 30-step inversion ->
            multikey decode >= 0.99 each, each recovered latent attributed to
-           its own record among the 10,000.
-     The batch kernel launches exactly once per batch_keystream_bits call.
+           its own record among the 10,000 (the packed table).
+     The batch kernel launches exactly once per embed call, the vote kernel
+     once per decode call and chunk of a probe.
   fit. the VAE fit: sd-2-1-base's VAE (sd-2-1 shares it) from a seed, in
      float32 master parameters; sign fidelity at 16x16 and 64x64 before; two
      of gswm_torch/tools/fit_vae.py's stages through fit_vae_roundtrip
@@ -165,7 +183,8 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
      path the card does not run (no PIL there): the images pass as tensors.
      Limits: mean bit accuracy >= 0.99; every image attributed to its own
      record; K3 once a key (4, the caches cleared first; extraction takes
-     the cached keystream); the batch kernel once a probe (4); K1 10 and K2
+     the cached keystream); the vote kernel once a probe (4: the registry
+     packed once), the batch kernel never; K1 10 and K2
      5 launches a UNet forward.  Walls and images/s beside phase 3b's rate,
      extract_arrays's first key (the pipeline's first batch-1 inversion)
      apart from the other three.
@@ -245,8 +264,8 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
            the default route's; then at batch 8 the default route and (t)
            in turns, 3 rounds.
      Launches by head dim, exact: K1 5 at d = 80 and 5 at 160 a forward, K2
-     5 at 40; K4 on the default route, K6, K7, K8 and the batch kernel
-     never (K7 5 at d = 40 in (c), 5 at each width in (t)); K3 once after
+     5 at 40; K4 on the default route, K6, K7, K8 and the batch and vote
+     kernels never (K7 5 at d = 40 in (c), 5 at each width in (t)); K3 once after
      the keystream caches are cleared.
  11. the host surfaces and the lossless check, on sd-2-1-base at 512x512
      (run after phase 7, on its pipeline):
@@ -730,6 +749,70 @@ def _check_batch_keystream(records: dict) -> None:
         del got
 
 
+def _check_vote(records: dict) -> None:
+    """The vote kernel (K3's table ending in the vote) bit-exact against its
+    plain version, scores equal as float32 and voted bits equal, at
+    paths.VOTE_SHAPES (one latent for every row: attribution's scores) and
+    VOTE_ROW_SHAPES (a latent row a key: the decode's voted bits); the rows
+    that carry their message at 1.0; one kernel a call.  Beside each, the
+    parent's path for the same function (batch_keystream_bits, XOR,
+    majority_vote and the mean), timed in the same process and equal to it:
+    the voted bits, and the scores as float32."""
+    from gswm_torch import roofline
+    from gswm_torch.core import chacha
+    from gswm_torch.core.decode import majority_vote
+    from gswm_torch.tools.compare_kernels import device_ms
+
+    cases = [(*shape, True) for shape in paths.VOTE_SHAPES] + \
+        [(*shape, False) for shape in paths.VOTE_ROW_SHAPES]
+    for rows, n_bits, mb, shared in cases:
+        case = paths.vote_material(rows, n_bits, mb, shared)
+        exp = case.expected if shared else None  # scores, or the decode's bits
+
+        def kernel(exp=exp):
+            return chacha.batch_vote(case.table, case.words, n_bits, mb, exp)
+
+        def plain(exp=exp):
+            return chacha.batch_vote_reference(case.table, case.words, n_bits, mb, exp)
+
+        def parent(scores=shared):
+            ks = chacha.batch_keystream_bits(case.keys, case.nonces, n_bits, "cuda")
+            voted = majority_vote(ks.bitwise_xor_(case.bits), mb)
+            return (voted == case.message).to(torch.float32).mean(dim=-1) if scores else voted
+
+        label = f"({rows}, {n_bits}, {mb}, {'one latent' if shared else 'a latent a row'})"
+        got, want, old = kernel(), plain(), parent()
+        other, other_want = kernel(None if shared else case.expected), \
+            plain(None if shared else case.expected)
+        voted_parent = parent(False)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want) or not torch.equal(other, other_want):
+            raise AssertionError(f"K3 vote {label} differs from its plain version")
+        voted = other if shared else got
+        if not torch.equal(voted, voted_parent) or not torch.equal(got, old):
+            raise AssertionError(f"K3 vote {label} differs from the parent's path")
+        scores = got if shared else other
+        if not (scores[case.carriers] == 1.0).all():
+            raise AssertionError(f"K3 vote {label}: a carrier row scores below 1.0")
+        del want, old, other_want, voted_parent
+        if rows == 4096:
+            _check_one_kernel(f"batch_vote at {rows} rows", kernel, "chacha20_vote_kernel")
+        ms = _time_ms(kernel, 20)
+        device = device_ms(kernel, 20, "chacha20_vote")
+        plain_ms = _time_ms(plain, 2, warmup=1)
+        parent_ms = _time_ms(parent, 5)
+        bound = roofline.bound_ms(*roofline.chacha_vote_cost(rows, n_bits, mb, shared, shared),
+                                  roofline.PEAK_INT32)
+        print(f"K3 vote {label}: bit-exact vs plain (scores and voted bits), equal to the "
+              f"parent's path; {ms:.4f} ms, device {device:.4f} ms, bound "
+              f"{bound[0]:.6f} by {bound[1]} ({bound[0] / device:.1%} of the device time), "
+              f"plain {plain_ms:.4f}, the parent's path (batch_keystream_bits + XOR + "
+              f"majority_vote{' + mean' if shared else ''}) {parent_ms:.4f} ms, library none",
+              flush=True)
+        _record(records, "chacha20_vote", 0.0, ms, plain_ms, bound, None)
+        del got, other, case
+
+
 def _check_group_norm_call(shape, act) -> None:
     """One K8 call: one kernel, and one allocation, its output (no scratch,
     no converted parameters)."""
@@ -885,6 +968,7 @@ def phase_kernels(gn_cases) -> dict:
         _record(records, "chacha20", 0.0, ms, plain, bound, None)
 
     _check_batch_keystream(records)
+    _check_vote(records)
 
     g = torch.Generator(device=dev).manual_seed(1234)
 
@@ -1209,6 +1293,7 @@ def _wrappers() -> dict:
 
     return {"chacha20": chacha.keystream_words,
             "chacha20_batch": chacha.batch_keystream_bits,
+            "chacha20_vote": chacha.batch_vote,
             **{name: getattr(attn, name) for name in ATTENTION_COUNTERS},
             "fused_group_norm": gn.fused_group_norm}
 
@@ -1635,11 +1720,11 @@ def phase_multikey(card: str, pipe) -> dict:
     m = paths.MULTIKEY_HOST_SLICE
     wrong = recover_message_bits_multikey(lat[:m], cfg, keys[1:m + 1], nonces[1:m + 1])
     wrong_acc = (wrong == want[:m]).float().mean(dim=1)
-    calls = 2 * -(-n // per_call) + 1
+    calls = -(-n // per_call)  # embed calls, and decode calls
     print(f"7. (a) {n} images under their own keys: embed {t1 - t0:.4f} s "
           f"({n / (t1 - t0):.1f} images/s), decode {t2 - t1:.4f} s "
-          f"({n / (t2 - t1):.1f} images/s), {exact} of {n} exact; {m} rows under "
-          f"the next row's key: accuracy {wrong_acc.min().item():.4f} ... "
+          f"({n / (t2 - t1):.1f} images/s, {calls} vote launches), {exact} of {n} exact; "
+          f"{m} rows under the next row's key: accuracy {wrong_acc.min().item():.4f} ... "
           f"{wrong_acc.max().item():.4f}; latents {lat.numel() * 4 / 1e6:.0f} MB; "
           f"on {card}", flush=True)
     if tuple(lat.shape) != (n, 4, RES // 8, RES // 8) or not torch.isfinite(lat).all():
@@ -1648,32 +1733,58 @@ def phase_multikey(card: str, pipe) -> dict:
         raise AssertionError(f"only {exact} of {n} multikey decodes are exact")
     if wrong_acc.min() < 0.3 or wrong_acc.max() > 0.7:
         raise AssertionError("a row decoded under another row's key is not near 0.5")
-    if _counters()["chacha20_batch"] != calls:
-        raise AssertionError(f"batch kernel launched {_counters()['chacha20_batch']} "
-                             f"times for {calls} batch_keystream_bits calls")
+    got = (_counters()["chacha20_batch"], _counters()["chacha20_vote"])
+    if got != (calls, calls + 1):
+        raise AssertionError(f"batch kernel and vote kernel launched {got} times for "
+                             f"{calls} embed calls and {calls + 1} decode calls")
 
-    # (b) trace probes against the whole registry
+    # (b) trace probes against the whole registry: through the records, then
+    # through a table packed once
     probes = [int(i) for i in np.random.default_rng(7).choice(n, paths.MULTIKEY_PROBES,
                                                               replace=False)]
     probes[:2] = [5, m - 3]  # two inside the slice the host loop also scores
     chunks = -(-n // 4096)
-    found = {}
+
+    def probe_all(candidates) -> tuple:
+        found = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in probes:
+            c0 = _counters()["chacha20_vote"]
+            found[i] = trace.find_source_device(lat[i], candidates)
+            if _counters()["chacha20_vote"] - c0 != chunks:
+                raise AssertionError(f"probe {i}: {_counters()['chacha20_vote'] - c0} "
+                                     f"vote launches, not {chunks}")
+        return found, (time.perf_counter() - t0) / len(probes)
+
+    c_batch = _counters()["chacha20_batch"]
+    found, t_records = probe_all(records)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for i in probes:
-        c0 = _counters()["chacha20_batch"]
-        found[i] = trace.find_source_device(lat[i], records)
-        if _counters()["chacha20_batch"] - c0 != chunks:
-            raise AssertionError(f"probe {i}: {_counters()['chacha20_batch'] - c0} "
-                                 f"batch launches, not {chunks}")
-    t_probe = (time.perf_counter() - t0) / len(probes)
+    packed = trace.pack_candidates(records)
+    torch.cuda.synchronize()
+    t_pack = time.perf_counter() - t0
+    found_packed, t_packed = probe_all(packed)
+    if found_packed != found:
+        raise AssertionError("the packed table and the records give other attributions "
+                             "or accuracies")
+    if _counters()["chacha20_batch"] != c_batch:
+        raise AssertionError("a probe launched the keystream kernel")
     right = sum(found[i][:2] == (i, 1.0) for i in probes)
     runner_up = max(max(a for j, a in enumerate(found[i][2]) if j != i) for i in probes)
+    t0 = time.perf_counter()
+    for i in probes[:2]:  # the plain version on the CPU
+        if trace.find_source_device(lat[i].cpu(), records, device="cpu") != found[i]:
+            raise AssertionError(f"probe {i}: the plain version on the CPU disagrees")
+    t_cpu = (time.perf_counter() - t0) / 2
     print(f"   (b) find_source_device, {len(probes)} probes x {n} records: {right} of "
           f"{len(probes)} attributed at accuracy 1.0, best wrong record "
-          f"{runner_up:.4f}; {t_probe:.4f} s a probe "
-          f"({n / t_probe:.0f} candidates/s), {chunks} batch launches a probe",
-          flush=True)
+          f"{runner_up:.4f}; through the records {t_records:.4f} s a probe "
+          f"({n / t_records:.0f} candidates/s), through a table packed once "
+          f"({t_pack:.4f} s to pack) {t_packed:.4f} s a probe ({n / t_packed:.0f} "
+          f"candidates/s), the same indices and accuracies; {chunks} vote launches a "
+          f"probe, no keystream kernel; the plain version on the CPU equal on 2 probes "
+          f"({t_cpu:.2f} s a probe)", flush=True)
     if right != len(probes):
         raise AssertionError(f"only {right} of {len(probes)} probes attributed")
 
@@ -1700,7 +1811,7 @@ def phase_multikey(card: str, pipe) -> dict:
     z_back = pipe.invert(latents=x0, num_steps=STEPS)
     bits = recover_message_bits_multikey(z_back, cfg, pick(keys), pick(nonces))
     acc = (bits == want[users]).float().mean(dim=1).tolist()
-    owners = [trace.find_source_device(z_back[j], records)[0] for j in range(len(users))]
+    owners = [trace.find_source_device(z_back[j], packed)[0] for j in range(len(users))]
     torch.cuda.synchronize()
     t_model = time.perf_counter() - t0
     print(f"   (d) {len(users)} images under {len(users)} keys through sd-2-1-base, "
@@ -1711,10 +1822,11 @@ def phase_multikey(card: str, pipe) -> dict:
     if owners != users:
         raise AssertionError(f"recovered latents attributed to {owners}, not {users}")
     counts = _counters()
-    want_calls = calls + chunks * (len(probes) + len(users)) + 2
-    if counts["chacha20_batch"] != want_calls:
-        raise AssertionError(f"batch kernel launched {counts['chacha20_batch']} times "
-                             f"in phase 7; its calls make it {want_calls}")
+    want_calls = (calls + 1, calls + 1 + chunks * (2 * len(probes) + len(users)) + 1)
+    if (counts["chacha20_batch"], counts["chacha20_vote"]) != want_calls:
+        raise AssertionError(f"batch kernel and vote kernel launched "
+                             f"{(counts['chacha20_batch'], counts['chacha20_vote'])} times "
+                             f"in phase 7; their calls make it {want_calls}")
     _check_unet_launches(counts, 2 * STEPS)
     return counts
 
@@ -1847,9 +1959,10 @@ def phase_cli(card: str, fitted: dict, rate_3b: float) -> dict:
     if k3_embed != n or counts["chacha20"] != n:
         raise AssertionError(f"K3 launched {k3_embed} times in {n} embeds and "
                              f"{counts['chacha20']} in the phase; once a key makes it {n}")
-    if counts["chacha20_batch"] != n:
-        raise AssertionError(f"the batch kernel launched {counts['chacha20_batch']} "
-                             f"times; one a probe against {n} records makes it {n}")
+    if counts["chacha20_vote"] != n or counts["chacha20_batch"]:
+        raise AssertionError(f"the vote kernel launched {counts['chacha20_vote']} times and "
+                             f"the batch kernel {counts['chacha20_batch']}; one vote a "
+                             f"probe against {n} records makes it {n} and 0")
     # generation of the batch, one inversion a key, one inversion of the batch
     _check_unet_launches(counts, STEPS * (1 + n + 1))
     return counts
@@ -1954,9 +2067,9 @@ def phase_bench(card: str, pipe) -> dict:
     _check_unet_launches(counts, forwards)
     if counts["flash_attention_split"] != k4_want or counts["flash_attention_split_d64"] \
             or counts["chacha20"] > 1 or counts["chacha20_batch"] \
-            or counts["fused_group_norm"]:
+            or counts["chacha20_vote"] or counts["fused_group_norm"]:
         raise AssertionError(f"sweep launches {counts}; K4 should be {k4_want}, K3 at "
-                             "most 1, the batch kernel and K8 0")
+                             "most 1, the batch and vote kernels and K8 0")
     # the control row is the pipeline's own extraction of the same images
     zt, msg = paths.embed(cfg, b, paths.SWEEP_SEED)
     images = pipe.generate(zt, guidance_scale=1.0, num_steps=STEPS)
@@ -2074,9 +2187,9 @@ def phase_sdxl(card: str) -> tuple:
                              "new capacity makes it exactly 1")
     if counts["flash_attention_split"] != 2 * (dec_want + enc_want) \
             or counts["flash_attention_split_d64"] or counts["chacha20_batch"] \
-            or counts["fused_group_norm"]:
+            or counts["chacha20_vote"] or counts["fused_group_norm"]:
         raise AssertionError(f"SDXL launches {counts}: K4 {2 * (dec_want + enc_want)}, "
-                             "K4 at D = 64, the batch kernel and K8 never")
+                             "K4 at D = 64, the batch and vote kernels and K8 never")
 
     # (c) one UNet forward, batch 2 and 4 (guidance), outside the counted run
     for batch in (b, 2 * b):
@@ -2247,9 +2360,10 @@ def phase_sd14(card: str, rate_3b: float) -> dict:
     if {name: per for name, per in by_d.items() if per} != want:
         raise AssertionError(f"SD 1.x launches by head dim {by_d} for {forwards} UNet "
                              f"forwards, want {want}")
-    if counts["chacha20"] != 1 or counts["chacha20_batch"] or counts["fused_group_norm"]:
+    if counts["chacha20"] != 1 or counts["chacha20_batch"] or counts["chacha20_vote"] \
+            or counts["fused_group_norm"]:
         raise AssertionError(f"SD 1.x launches {counts}: K3 once after the caches were "
-                             "cleared, the batch kernel and K8 never")
+                             "cleared, the batch and vote kernels and K8 never")
 
     # (c) one forward under three switch sets against the default route's
     inputs = paths.unet_inputs(pipe, b, res=res)
@@ -4048,6 +4162,11 @@ def main() -> None:
         # block function (gswm/core/multikey.py:29); the port gives it to K3
         "chacha20_batch": ("gswm_torch/csrc/chacha20.cu",
                            "gswm/core/chacha.py:158"),
+        # the same block function ending in the vote: the vmapped keystream
+        # (gswm/core/multikey.py:30) and the jitted score of
+        # gswm/eval/trace.py:88-92 that XLA fuses with it, in one kernel
+        "chacha20_vote": ("gswm_torch/csrc/chacha20.cu",
+                          "gswm/core/chacha.py:158"),
         "fused_qkv_attention": ("gswm_torch/csrc/fused_qkv.cu",
                                 "gswm/ops/attention.py:689"),
         "flash_attention": ("gswm_torch/csrc/flash_hopper.cu",

@@ -5,9 +5,10 @@
 Inverts each image once, then ranks every registry record (info_data.jsonl
 from gs-embed-torch and the other front ends, or a parsed reference
 info_data.txt) by decode accuracy.  Where every record has one message
-length the records are scored together on the device
-(``eval.trace.find_source_device``: one ChaCha20 table launch for a chunk
-of keys); a registry of mixed lengths takes the host loop
+length the registry is packed once (``eval.trace.pack_candidates``) and
+each image's latent is scored against it on the device
+(``eval.trace.find_source_device``: one launch of the vote kernel for a
+chunk of keys); a registry of mixed lengths takes the host loop
 (``find_source``), which is what the reference runs.  The host side
 (``gs_extract.load_images``, PIL) and the device side
 (``attribute_arrays``) are two functions.
@@ -68,12 +69,13 @@ def attribute_arrays(pipe, records, args, images) -> list[tuple[int, float]]:
     z = pipe.invert(images=images, num_steps=args.num_inference_steps,
                     scheduler=args.scheduler)
     lengths = {trace._message_bits(r, args.message_length) for r in records}
+    packed = trace.pack_candidates(records, args.message_length, device=pipe.device) \
+        if len(lengths) == 1 else None
     out = []
     for row in z:
-        if len(lengths) == 1:
-            best, acc, _ = trace.find_source_device(row, records,
-                                                    message_bits=args.message_length,
-                                                    l=args.l, device=pipe.device)
+        if packed is not None:
+            best, acc, _ = trace.find_source_device(row, packed, l=args.l,
+                                                    device=pipe.device)
         else:
             best, acc, _ = trace.find_source(row, records, message_bits=args.message_length,
                                              l=args.l)

@@ -12,12 +12,16 @@ Implementations, bit-identical:
   * the CUDA kernels of ``csrc/chacha20.cu`` — one thread per 64-byte block:
     ``keystream_words`` for one key, ``batch_keystream_bits`` for a table of
     (key, nonce) rows in ONE launch, written as bits.
+  * ``batch_vote`` / ``batch_vote_reference`` — a table of keys against
+    packed latent bits (``pack_bits``): XOR, majority vote and, given the
+    expected message, the score, in ONE launch of the vote kernel that
+    writes no keystream (attribution and the per-row decode).
   * ``keystream_bytes_host`` — numpy on uint32: the plain version of the
     host loop's keystream (``eval.trace.decode_host``), which
     ``eval.trace.find_source`` runs in ``hostlib``'s C++.
 
-``keystream_words`` and ``batch_keystream_bits`` pick by device: the plain
-version for the CPU, the kernel for a CUDA device.
+``keystream_words``, ``batch_keystream_bits`` and ``batch_vote`` pick by
+device: the plain version for the CPU, the kernel for a CUDA device.
 ``cached_keystream_bits`` keeps the single-key keystream per (key, nonce,
 length, device), as the JAX package's ``_cached_keystream`` does, so a
 serving loop under one key launches the kernel once.
@@ -227,6 +231,132 @@ def batch_keystream_bits(keys: Sequence[bytes], nonces: Sequence[bytes],
 
 
 batch_keystream_bits.launches = 0
+
+# rows of at most this many ChaCha20 blocks (1,835,008 bits): the vote
+# kernel keeps a row's payload words in shared memory, 224 KB
+VOTE_MAX_BLOCKS = 3584
+
+
+def _byte_shifts(device) -> torch.Tensor:
+    """A packed byte's bit positions, most significant first (stream
+    order), made on ``device`` (no host-to-device copy)."""
+    return torch.arange(7, -1, -1, dtype=torch.uint8, device=device)
+
+
+def block_words(n_bits: int) -> int:
+    """Words of a latent row packed for ``batch_vote``: whole 512-bit
+    blocks."""
+    return -(-n_bits // BLOCK_BITS) * 16
+
+
+def pack_bits(bits: torch.Tensor, n_words: int) -> torch.Tensor:
+    """(..., n) 0/1 bits in stream order -> (..., n_words) int32 words on
+    the bits' device, zero-filled past n: stream bit i is bit (i % 32) ^ 7
+    of word i // 32 (bytes little-endian in a word, bits MSB-first in a
+    byte), the order of the keystream's own words, so one XOR decrypts 32
+    bits.  The words are the bytes of ``np.packbits`` viewed as int32 on a
+    little-endian host, which every platform of PyTorch is."""
+    n = bits.shape[-1]
+    if n > 32 * n_words:
+        raise ValueError(f"pack_bits: {n} bits do not fit {n_words} words")
+    b = bits.to(torch.uint8)
+    if n < 32 * n_words:  # a pad of nothing would still copy
+        b = torch.nn.functional.pad(b, (0, 32 * n_words - n))
+    packed = (b.reshape(b.shape[:-1] + (4 * n_words, 8)) << _byte_shifts(b.device)).sum(
+        -1, dtype=torch.uint8)
+    return packed.view(torch.int32)
+
+
+def unpack_bits(words: torch.Tensor, n_bits: int) -> torch.Tensor:
+    """``pack_bits``'s inverse: (..., W) int32 words -> (..., n_bits) uint8."""
+    bits = (words.contiguous().view(torch.uint8)[..., None] >> _byte_shifts(words.device)) & 1
+    return bits.reshape(words.shape[:-1] + (-1,))[..., :n_bits]
+
+
+def _inverse(mb: int) -> float:
+    """fl(1 / mb) in float32: the JAX package's jitted mean of mb values is
+    their sum times it (XLA folds the division by a constant into a
+    multiplication by its reciprocal)."""
+    return float(np.float32(1) / np.float32(mb))
+
+
+def batch_vote_reference(table: torch.Tensor, latent_words: torch.Tensor, n_bits: int,
+                         message_bits: int, expected: torch.Tensor | None = None
+                         ) -> torch.Tensor:
+    """Plain version of ``batch_vote``: the int64 emulation's keystream
+    words, XOR, unpacked to bits, ``majority_vote`` and, with ``expected``,
+    the share of voted bits equal to it as the JAX package's mean computes
+    it."""
+    from gswm_torch.core.decode import majority_vote
+
+    n_blocks = -(-n_bits // BLOCK_BITS)
+    ks = _table_words_reference(table.to(torch.int64) & _MASK, n_blocks)
+    payload = unpack_bits(ks.reshape(ks.shape[0], -1) ^ latent_words, n_bits)
+    voted = majority_vote(payload, message_bits)
+    if expected is None:
+        return voted
+    matches = (voted == unpack_bits(expected, message_bits)).sum(-1).to(torch.float32)
+    return matches * torch.full_like(matches, _inverse(message_bits))
+
+
+def batch_vote(table: torch.Tensor, latent_words: torch.Tensor, n_bits: int,
+               message_bits: int, expected: torch.Tensor | None = None) -> torch.Tensor:
+    """R keystreams against packed latent bits, voted: ``table`` (R, 12)
+    int32 rows of key[8], counter lo, counter hi, nonce[2] (``key_table``'s
+    words); ``latent_words`` (1 or R, ``block_words(n_bits)``) int32 from
+    ``pack_bits``, one latent for every row or one a row; with ``expected``
+    (R, ceil(message_bits / 32)) int32 packed the same way, the (R,)
+    float32 share of voted bits equal to it, else the (R, message_bits)
+    uint8 voted bits.  ``(quantized ^ keystream)`` majority-voted over the
+    complete segments, a tie giving 0, as ``gswm.eval.trace.
+    find_source_device``'s score and ``gswm.core.multikey.
+    recover_message_bits_multikey`` compute it.  CPU: the plain version.
+    CUDA: ONE launch of the vote kernel, which writes no keystream."""
+    device = table.device
+    rows = table.shape[0]
+    ew = -(-message_bits // 32)
+    if table.dtype != torch.int32 or table.shape != (rows, 12) or rows < 1:
+        raise ValueError(f"batch_vote: table {tuple(table.shape)} {table.dtype}, "
+                         "want (R, 12) int32")
+    if latent_words.dtype != torch.int32 or latent_words.shape[0] not in (1, rows) \
+            or latent_words.shape[1:] != (block_words(n_bits),):
+        raise ValueError(f"batch_vote: latent words {tuple(latent_words.shape)} "
+                         f"{latent_words.dtype}, want (1 or {rows}, "
+                         f"{block_words(n_bits)}) int32")
+    if expected is not None and (expected.dtype != torch.int32
+                                 or expected.shape != (rows, ew)):
+        raise ValueError(f"batch_vote: expected {tuple(expected.shape)} {expected.dtype}, "
+                         f"want ({rows}, {ew}) int32")
+    if n_bits < 1 or not 1 <= message_bits < 2**24:
+        raise ValueError(f"batch_vote: {n_bits} bits, {message_bits} message bits")
+    if any(t.device != device for t in (latent_words, expected) if t is not None):
+        raise ValueError("batch_vote: the tensors lie on different devices")
+    if device.type == "cpu":
+        return batch_vote_reference(table, latent_words, n_bits, message_bits, expected)
+    if device.type != "cuda":
+        raise ValueError(f"batch_vote: unsupported device {device}")
+    if -(-n_bits // BLOCK_BITS) > VOTE_MAX_BLOCKS:
+        raise ValueError(f"batch_vote: {n_bits} bits a row, at most "
+                         f"{VOTE_MAX_BLOCKS * BLOCK_BITS} on the card")
+    if not all(t.is_contiguous() for t in (table, latent_words, expected) if t is not None) \
+            or latent_words.data_ptr() % 16:
+        raise ValueError("batch_vote: the tensors must be contiguous, the latent words "
+                         "16-byte aligned")
+    if expected is None:
+        scores = None
+        out = voted = torch.empty((rows, message_bits), dtype=torch.uint8, device=device)
+    else:
+        voted = None
+        out = scores = torch.empty(rows, dtype=torch.float32, device=device)
+    native.launch(device, "gswm_chacha20_vote", table.data_ptr(), latent_words.data_ptr(),
+                  latent_words.shape[0], None if expected is None else expected.data_ptr(),
+                  None if scores is None else scores.data_ptr(),
+                  None if voted is None else voted.data_ptr(), rows, n_bits, message_bits)
+    batch_vote.launches += 1
+    return out
+
+
+batch_vote.launches = 0
 
 
 def _rotl_host(x: np.ndarray, n: int) -> np.ndarray:

@@ -1,10 +1,12 @@
 """Multi-key / multi-message batching: PyTorch port of ``gswm.core.multikey``.
 
 Serving scenario: every image of a batch carries its OWN key, nonce and
-message (per-user traceability, 10,000 images and more).  The keystreams of
-all rows come from one call (``chacha.batch_keystream_bits``: on the card ONE
-launch of the batch ChaCha20 kernel over a table of keys, on the CPU its
-plain version), and embed and decode stay whole-batch tensor code.
+message (per-user traceability, 10,000 images and more).  Embed takes the
+keystreams of all rows from one call (``chacha.batch_keystream_bits``: on
+the card ONE launch of the batch ChaCha20 kernel over a table of keys, on
+the CPU its plain version); decode is one ``chacha.batch_vote`` call (ONE
+launch of the vote kernel: keystream, XOR and majority vote, a latent row a
+key, no keystream in device memory).
 
 Geometry (width, height, l, message_bits) is shared across the batch; mixed
 geometries are separate calls.
@@ -20,8 +22,9 @@ import torch
 
 from gswm_torch.config import GSConfig, prepare_message_bytes
 from gswm_torch.core import bits as bitops
+from gswm_torch.core import chacha
 from gswm_torch.core.chacha import batch_keystream_bits
-from gswm_torch.core.decode import majority_vote, quantize_latent_bits
+from gswm_torch.core.decode import quantize_latent_bits
 from gswm_torch.core.embed import _bits_to_latent
 
 __all__ = ["batch_keystream_bits", "embed_latents_multikey",
@@ -79,9 +82,17 @@ def recover_message_bits_multikey(
     nonces: Sequence[bytes],
 ) -> torch.Tensor:
     """(B, C, h, w) latents decoded under per-image keys -> (B, message_bits)
-    uint8 on the latents' device."""
+    uint8 on the latents' device; one (C, h, w) latent (or B = 1) is decoded
+    under every key.  The bits packed once, then one ``chacha.batch_vote``
+    call."""
     cfg = cfg.resolved()
     latents = torch.as_tensor(latents)
-    ks = batch_keystream_bits(keys, nonces, cfg.capacity_bits, latents.device)
-    payload = quantize_latent_bits(latents, cfg.l) ^ ks
-    return majority_vote(payload, cfg.resolved_message_bits)
+    bits = quantize_latent_bits(latents, cfg.l)
+    n_bits = cfg.capacity_bits
+    if bits.shape[-1] != n_bits:
+        raise ValueError(f"latents of {bits.shape[-1]} bits for a capacity of {n_bits}")
+    table = torch.from_numpy(chacha.key_table(keys, nonces).view(np.int32)).to(latents.device)
+    words = chacha.pack_bits(bits.reshape(-1, n_bits), chacha.block_words(n_bits))
+    if words.shape[0] not in (1, table.shape[0]):
+        raise ValueError(f"{words.shape[0]} latents for {table.shape[0]} keys")
+    return chacha.batch_vote(table, words, n_bits, cfg.resolved_message_bits)

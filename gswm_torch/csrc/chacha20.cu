@@ -35,6 +35,34 @@
 // against bank conflicts) and expands them on the way out, neighbouring
 // threads writing neighbouring 16 bytes: 16 KB a block of 256 threads, so
 // enough warps are resident to hide the rounds behind the stores.
+//
+// A third kernel, chacha20_vote_kernel, serves the two consumers of a key
+// table that never need the keystream itself: attribution
+// (gswm/eval/trace.py:51 find_source_device, whose jitted score at :88-92
+// XLA fuses with the vmapped keystream of gswm/core/multikey.py:30) and the
+// per-row decode (gswm/core/multikey.py:103 recover_message_bits_multikey).
+// It computes quantized bits ^ keystream -> majority vote -> (== expected)
+// .mean in one launch, from the latent's bits packed 32 to a word in stream
+// order (bit i of the stream is bit i ^ 7 of word i / 32, so one XOR with a
+// keystream word decrypts 32 bits).  What bounds it is ChaCha20's integer
+// arithmetic: at 10,000 rows of 16,384 bits it reads 0.84 MB and writes 40 KB
+// against 3.1e8 integer operations.  Design: a warp takes a row (a thread
+// block of 256 threads where a row's payload outgrows a warp's 16 KB share);
+// its lanes make the row's 64-byte blocks in registers, XOR them with the
+// latent's words (staged in shared memory once a thread block where every
+// row shares one latent) and store the payload in the warp's slice of shared
+// memory, byte-swapped so that the stream reads as one big-endian bit string,
+// so no keystream or payload reaches device memory.  The vote counts from
+// there, 32 positions at a time: a segment's word q is the 32 stream bits
+// from segment start + 32 q (one funnel shift of two payload words where the
+// segment does not start on a word), added into bit-sliced counters (plane i
+// holds bit i of 32 positions' counts; two words added by one full adder and
+// a ripple of the carry); the segments are split among the lanes and the
+// partial counts added across them by shuffles.  A popcount of the voted
+// bits against the expected ones gives the matches, and the score is
+// matches * fl(1 / message_bits) in float32, which is what the JAX package's
+// jitted mean computes (XLA folds the division by a constant into a
+// multiplication by its reciprocal).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -160,6 +188,208 @@ chacha20_batch_kernel(const uint32_t* __restrict__ table, uint8_t* __restrict__ 
   }
 }
 
+// ---- the table kernel that ends in the vote ---------------------------------
+
+constexpr int VOTE_THREADS = 128;      // warp mode: a row a warp, four a thread block
+constexpr int VOTE_ROW_THREADS = 256;  // block mode: a row a thread block
+constexpr int VOTE_WARP_BLOCKS = 256;  // ChaCha20 blocks a row in warp mode (16 KB)
+constexpr int VOTE_MAX_BLOCKS = 3584;  // block mode: 224 KB of payload a row
+
+__device__ __forceinline__ uint32_t maj3(uint32_t a, uint32_t b, uint32_t c) {
+  return (a & b) | (c & (a ^ b));
+}
+
+// a packed word (stream bit i at bit i ^ 7) with stream bit i at bit 31 - i
+__device__ __forceinline__ uint32_t big_endian(uint32_t w) { return __byte_perm(w, 0, 0x0123); }
+
+// c: D bit planes, plane i bit j = bit i of position j's count; adds x1 + x2
+template <int D>
+__device__ __forceinline__ void add_two(uint32_t (&c)[D], uint32_t x1, uint32_t x2) {
+  uint32_t carry = maj3(c[0], x1, x2);
+  c[0] ^= x1 ^ x2;
+#pragma unroll
+  for (int i = 1; i < D; ++i) {
+    const uint32_t t = c[i] & carry;
+    c[i] ^= carry;
+    carry = t;
+  }
+}
+
+// the positions whose count exceeds k (k < 2^D)
+template <int D>
+__device__ __forceinline__ uint32_t greater_than(const uint32_t (&c)[D], uint32_t k) {
+  uint32_t gt = 0, eq = ~0u;
+#pragma unroll
+  for (int i = D - 1; i >= 0; --i) {
+    if ((k >> i) & 1u) {
+      eq &= c[i];
+    } else {
+      gt |= eq & c[i];
+      eq &= ~c[i];
+    }
+  }
+  return gt;
+}
+
+// A voted word v (message bit 32 q + i at bit 31 - i) at word position q of
+// the message: its valid bits written as bytes in stream order, and its
+// matches with the expected word returned.
+__device__ __forceinline__ int finish_word(uint32_t v, int q, int mb, const uint32_t* exp_row,
+                                           uint8_t* out_row) {
+  const int valid = min(32, mb - 32 * q);
+  if (out_row) {
+    uint8_t* dst = out_row + 32 * q;
+    if (valid == 32 && (mb & 15) == 0) {  // 16-byte aligned
+      uint32_t w[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) w[j] = nibble_bits((v >> (28 - 4 * j)) & 15u);
+      reinterpret_cast<uint4*>(dst)[0] = make_uint4(w[0], w[1], w[2], w[3]);
+      reinterpret_cast<uint4*>(dst)[1] = make_uint4(w[4], w[5], w[6], w[7]);
+    } else {
+      for (int i = 0; i < valid; ++i) dst[i] = static_cast<uint8_t>((v >> (31 - i)) & 1u);
+    }
+  }
+  if (!exp_row) return 0;
+  const uint32_t mask = valid == 32 ? ~0u : ~(~0u >> valid);  // the top `valid` bits
+  return __popc(~(v ^ big_endian(exp_row[q])) & mask);
+}
+
+// table: rows x 12 words.  latent: one row (shared_latent) or one a table
+// row, each n_blocks * 16 words (the packed bits, zero-filled).  expected:
+// rows x ceil(mb / 32) words, or null; with it, scores[row] = matches / mb.
+// voted: rows x mb bytes, or null.  GROUP threads take a row; D bit planes
+// count a position's votes (segments < 2^D).  A payload slice holds
+// n_blocks * 16 words and 4 more, which a window past the last segment may
+// read (its bits beyond the message are masked).
+template <int GROUP, int D>
+__global__ void __launch_bounds__(GROUP == 32 ? VOTE_THREADS : VOTE_ROW_THREADS)
+chacha20_vote_kernel(const uint32_t* __restrict__ table, const uint32_t* __restrict__ latent,
+                     int shared_latent, const uint32_t* __restrict__ expected,
+                     float* __restrict__ scores, uint8_t* __restrict__ voted, int rows,
+                     int n_bits, int mb) {
+  constexpr int THREADS = GROUP == 32 ? VOTE_THREADS : VOTE_ROW_THREADS;
+  constexpr int GROUPS = THREADS / GROUP;
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int n_blocks = (n_bits + 511) >> 9;
+  const int slice = n_blocks * 16;  // words a latent row
+  const int segs = n_bits / mb;     // only complete segments vote
+  const int vote_words = (int)(((long long)segs * mb + 31) >> 5);
+  const bool stage = GROUPS > 1 && shared_latent;
+  int* sums = reinterpret_cast<int*>(smem + (stage ? slice : 0));  // 4 words
+  const int grp = threadIdx.x / GROUP, t = threadIdx.x % GROUP;
+  uint32_t* pay = smem + (stage ? slice : 0) + 4 + grp * (slice + 4);
+  const int row = blockIdx.x * GROUPS + grp;
+  if (stage) {
+    const uint4* src = reinterpret_cast<const uint4*>(latent);
+    uint4* dst = reinterpret_cast<uint4*>(smem);
+    for (int i = threadIdx.x; i < slice / 4; i += THREADS) dst[i] = src[i];
+  }
+  if (threadIdx.x < GROUPS) sums[threadIdx.x] = 0;
+  __syncthreads();
+  if (row >= rows) return;  // a whole warp (warp mode); no block barrier follows
+
+  const uint32_t* p = table + (size_t)row * 12;
+  uint32_t key[12];
+#pragma unroll
+  for (int i = 0; i < 12; ++i) key[i] = __ldg(p + i);
+  const uint4* lat = stage ? reinterpret_cast<const uint4*>(smem)
+                           : reinterpret_cast<const uint4*>(
+                                 latent + (shared_latent ? 0 : (size_t)row * slice));
+  // the blocks that hold voting bits, a block a thread at a time
+  for (int b = t; 16 * b < vote_words; b += GROUP) {
+    const uint32_t idx = static_cast<uint32_t>(b);
+    const uint32_t lo = key[8] + idx;
+    const uint32_t hi = key[9] + (lo < idx ? 1u : 0u);  // carry
+    uint32_t x[16] = {0x61707865u, 0x3320646Eu, 0x79622D32u, 0x6B206574u,
+                      key[0], key[1], key[2], key[3], key[4], key[5], key[6], key[7],
+                      lo, hi, key[10], key[11]};
+    chacha20_block(x);
+    uint4* dst = reinterpret_cast<uint4*>(pay) + 4 * b;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const uint4 l = lat[4 * b + q];
+      dst[q] = make_uint4(big_endian(x[4 * q] ^ l.x), big_endian(x[4 * q + 1] ^ l.y),
+                          big_endian(x[4 * q + 2] ^ l.z), big_endian(x[4 * q + 3] ^ l.w));
+    }
+  }
+  if (GROUP == 32) __syncwarp(); else __syncthreads();
+
+  const uint32_t* exp_row = expected ? expected + (size_t)row * ((mb + 31) >> 5) : nullptr;
+  uint8_t* out_row = voted ? voted + (size_t)row * mb : nullptr;
+  const uint32_t half = (uint32_t)segs >> 1;  // a 1 needs a count above segs / 2
+  const int mbw = (mb + 31) >> 5;             // words a segment
+  // word q of segment s: the 32 stream bits from s * mb + 32 q
+  auto window = [&](int s, int q) -> uint32_t {
+    const int o = s * mb + 32 * q, k = o >> 5, sh = o & 31;
+    return sh ? __funnelshift_l(pay[k + 1], pay[k], sh) : pay[k];
+  };
+  int matches = 0;
+  if (mbw <= 32) {
+    if (t < 32) {
+      // the group's first warp: lane (g, q) counts word q of segments g,
+      // g + gs, g + 2 gs, ... and the gs partial counts meet by shuffles
+      const int gs = 32 / mbw, q = t % mbw, g = t / mbw;
+      uint32_t c[D];
+#pragma unroll
+      for (int i = 0; i < D; ++i) c[i] = 0;
+      if (g < gs) {
+        for (int s = g; s < segs; s += 2 * gs)
+          add_two(c, window(s, q), s + gs < segs ? window(s + gs, q) : 0u);
+      }
+      for (int st = 1; st < gs; st <<= 1) {
+        const bool take = g % (2 * st) == 0 && g + st < gs;
+        uint32_t carry = 0;
+#pragma unroll
+        for (int i = 0; i < D; ++i) {
+          const uint32_t o = __shfl_down_sync(0xffffffffu, c[i], st * mbw);
+          if (take) {
+            const uint32_t a = c[i];
+            c[i] = a ^ o ^ carry;
+            carry = maj3(a, o, carry);
+          }
+        }
+      }
+      if (g == 0) matches += finish_word(greater_than(c, half), q, mb, exp_row, out_row);
+    }
+  } else {
+    for (int q = t; q < mbw; q += GROUP) {
+      uint32_t c[D];
+#pragma unroll
+      for (int i = 0; i < D; ++i) c[i] = 0;
+      for (int s = 0; s < segs; s += 2)
+        add_two(c, window(s, q), s + 1 < segs ? window(s + 1, q) : 0u);
+      matches += finish_word(greater_than(c, half), q, mb, exp_row, out_row);
+    }
+  }
+  if (exp_row) {
+    // matches * fl(1 / mb): the JAX package's jitted mean, bit for bit
+    const float inv = __frcp_rn(static_cast<float>(mb));
+    matches = __reduce_add_sync(0xffffffffu, matches);
+    if (GROUP == 32) {
+      if (t == 0) scores[row] = __fmul_rn(static_cast<float>(matches), inv);
+    } else {
+      if ((t & 31) == 0) atomicAdd(&sums[grp], matches);
+      __syncthreads();
+      if (t == 0) scores[row] = __fmul_rn(static_cast<float>(sums[grp]), inv);
+    }
+  }
+}
+
+template <int GROUP, int D>
+cudaError_t launch_vote(unsigned grid, size_t smem, cudaStream_t st, const uint32_t* table,
+                        const uint32_t* latent, int shared_latent, const uint32_t* expected,
+                        float* scores, uint8_t* voted, int rows, int n_bits, int mb) {
+  auto kernel = chacha20_vote_kernel<GROUP, D>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  kernel<<<grid, GROUP == 32 ? VOTE_THREADS : VOTE_ROW_THREADS, smem, st>>>(
+      table, latent, shared_latent, expected, scores, voted, rows, n_bits, mb);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // words12: host array of key[8], counter_lo, counter_hi, nonce[2].
@@ -198,4 +428,52 @@ extern "C" int gswm_chacha20_batch(const void* table, void* out, int rows, int n
   else
     chacha20_batch_kernel<false><<<grid, BATCH_THREADS, 0, st>>>(tab, o, rows, n_blocks, n_bits);
   return static_cast<int>(cudaGetLastError());
+}
+
+// table: device array of rows * 12 32-bit words.  latent: device words of the
+// quantized bits packed in stream order, latent_rows (1: every row shares it;
+// or rows) rows of ceil(n_bits / 512) * 16 words, zero-filled, 16-byte
+// aligned.  expected (or null): rows * ceil(mb / 32) words packed the same
+// way; with it, scores (float32, rows) gets matches / mb.  voted (or null):
+// rows * mb bytes of 0 or 1, 16-byte aligned where mb % 32 == 0.  At least
+// one output; 1 <= mb < 2^24; n_bits up to 3584 blocks (1,835,008 bits).
+extern "C" int gswm_chacha20_vote(const void* table, const void* latent, int latent_rows,
+                                  const void* expected, void* scores, void* voted, int rows,
+                                  int n_bits, int mb, void* stream) {
+  if (rows < 1 || n_bits < 1 || mb < 1 || mb >= (1 << 24) ||
+      (latent_rows != 1 && latent_rows != rows) || (expected == nullptr) != (scores == nullptr) ||
+      (scores == nullptr && voted == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_blocks = (n_bits + 511) / 512;
+  if (n_blocks > VOTE_MAX_BLOCKS) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t slice = (size_t)n_blocks * 16;
+  const int segs = n_bits / mb;  // bit planes: 8 below 256 segments, 16, or 24
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint32_t* tab = static_cast<const uint32_t*>(table);
+  const uint32_t* lat = static_cast<const uint32_t*>(latent);
+  const uint32_t* want = static_cast<const uint32_t*>(expected);
+  float* sc = static_cast<float*>(scores);
+  uint8_t* out = static_cast<uint8_t*>(voted);
+  const int sh = latent_rows == 1 ? 1 : 0;
+  cudaError_t e;
+  if (n_blocks <= VOTE_WARP_BLOCKS) {
+    const int groups = VOTE_THREADS / 32;
+    const size_t smem = 4 * ((sh ? slice : 0) + 4 + groups * (slice + 4));
+    const unsigned grid = (unsigned)((rows + groups - 1) / groups);
+    e = segs < 256     ? launch_vote<32, 8>(grid, smem, st, tab, lat, sh, want, sc, out, rows,
+                                            n_bits, mb)
+        : segs < 65536 ? launch_vote<32, 16>(grid, smem, st, tab, lat, sh, want, sc, out, rows,
+                                             n_bits, mb)
+                       : launch_vote<32, 24>(grid, smem, st, tab, lat, sh, want, sc, out, rows,
+                                             n_bits, mb);
+  } else {
+    const size_t smem = 4 * (4 + slice + 4);
+    e = segs < 256     ? launch_vote<256, 8>(rows, smem, st, tab, lat, sh, want, sc, out, rows,
+                                             n_bits, mb)
+        : segs < 65536 ? launch_vote<256, 16>(rows, smem, st, tab, lat, sh, want, sc, out, rows,
+                                              n_bits, mb)
+                       : launch_vote<256, 24>(rows, smem, st, tab, lat, sh, want, sc, out, rows,
+                                              n_bits, mb);
+  }
+  return static_cast<int>(e);
 }

@@ -34,6 +34,10 @@ _SIGNATURES = {
     "gswm_chacha20_words": [_VP, _VP, _I, _VP],
     # table (device uint32[rows][12]), out (device bytes), rows, n_bits, stream
     "gswm_chacha20_batch": [_VP, _VP, _I, _I, _VP],
+    # table, latent words, latent rows (1 or rows), expected words (or
+    # null), scores (or null), voted bits (or null), rows, n_bits,
+    # message bits, stream
+    "gswm_chacha20_vote": [_VP, _VP, _I, _VP, _VP, _VP, _I, _I, _I, _VP],
     # x, wq, wk, wv, q, k, v, M, C, N, stream
     "gswm_qkv_proj": [_VP] * 7 + [_I, _I, _I, _VP],
     # x, wq, wk, wv, q, k, v, out, B, S, C, H, D (head dim), stream

@@ -29,6 +29,23 @@ fp32 arithmetic).  TF32 alone keeps a 10-bit mantissa and is
 no float32.  The steps around the float32 core, the split pre-pass and the
 combine of its key chunks, move bytes and do a few operations an element:
 their bound is bytes (``f32_prepass_cost``, ``f32_combine_cost``).
+
+``PEAK_INT32``: ChaCha20 is 32-bit integer adds, XORs and rotations
+(funnel shifts, or byte permutes for 16 and 8 bits), and the vote's
+counters are bitwise operations.  The CUDA C Programming Guide's arithmetic
+instruction throughput table gives compute capability 9.0 64 results a
+clock an SM for 32-bit integer add, for 32-bit bitwise AND, OR and XOR and
+for funnel shifts (the integer ALU), against 128 for fp32 add, multiply and
+FMA; and 64 for 32-bit integer multiply-add, which issues on the FMA pipe,
+where the compiler also puts adds (a multiply-add by 1).  So XORs and
+rotations run at 64 a clock, adds beside them on the other pipe, and the
+least time of a mix is its XORs and rotations (plus any adds beyond them,
+halved) at 64 a clock: ``chacha_cost`` counts those.  At ``PEAK_FP32``'s
+clock (67e12 FLOP/s over 132 SMs x 128 FMA x 2 FLOP: 1.98 GHz) 64 a clock
+is 132 x 64 x 1.98e9 = 16.75e12 a second.  The single-key kernel at 2^20
+blocks (0.0492 ms on the card) retires ChaCha20's 976 operations a block
+at 20.8e12 a second, above 64 a clock for all of them: the adds do take
+the second pipe.
 """
 
 from __future__ import annotations
@@ -40,9 +57,9 @@ PEAK_BF16 = 989e12        # tensor cores, bf16 in, fp32 accumulate, FLOP/s
 PEAK_TF32 = 494.5e12      # tensor cores, TF32 dense, FLOP/s
 PEAK_F32_PRODUCTS = PEAK_TF32 / 3  # products of fp32 accuracy: 3xTF32
 PEAK_FP32 = 67e12         # outside the tensor cores, FLOP/s (an FMA is 2)
-# 32-bit integer adds, xors and rotates issue at most as fast as fp32
-# instructions (half the FLOP rate, since an FMA counts twice)
-PEAK_INT32 = PEAK_FP32 / 2
+# 32-bit bitwise ops and funnel shifts on the integer ALU: 64 a clock an SM,
+# half the fp32 FMAs, each of which PEAK_FP32 counts as 2 FLOP
+PEAK_INT32 = PEAK_FP32 / 4
 PEAK_EXP2 = 132 * 16 * 1.83e9  # ex2.approx on the SFUs, a second
 BF16 = 2                  # bytes
 F32 = 4
@@ -106,9 +123,12 @@ def group_norm_cost(shape: tuple[int, ...], elem: int = BF16) -> tuple[int, int]
 
 
 def chacha_cost(n_blocks: int) -> tuple[int, int]:
-    """(32-bit integer operations, bytes) of ``n_blocks`` ChaCha20 blocks:
-    80 quarter-rounds of 12 operations plus 16 final adds, 64 bytes out."""
-    return n_blocks * (80 * 12 + 16), 64 * n_blocks
+    """(32-bit integer operations on the integer ALU, bytes) of ``n_blocks``
+    ChaCha20 blocks, 64 bytes out: a block is 80 quarter-rounds of 4 adds,
+    4 XORs and 4 rotations and 16 final adds, 976 operations, of which the
+    640 XORs and rotations have only the ALU; the 336 adds fit beside them
+    on the FMA pipe (``PEAK_INT32``), so the 640 set the least time."""
+    return n_blocks * 80 * 8, 64 * n_blocks
 
 
 def chacha_batch_cost(rows: int, n_bits: int) -> tuple[int, int]:
@@ -120,6 +140,29 @@ def chacha_batch_cost(rows: int, n_bits: int) -> tuple[int, int]:
     counted; the bytes, 8 for each byte of keystream, are the larger roof."""
     ops, _ = chacha_cost(rows * -(-n_bits // 512))
     return ops, rows * n_bits + rows * 48
+
+
+def chacha_vote_cost(rows: int, n_bits: int, mb: int, shared_latent: bool,
+                     scores: bool = True) -> tuple[int, int]:
+    """(32-bit integer operations on the integer ALU, bytes) of
+    ``chacha.batch_vote``: the blocks that hold the complete segments' bits
+    at ``chacha_cost``'s count, an XOR and a full adder's two bitwise
+    operations into the bit-sliced counts for each of their words, and for
+    each message word the comparison with the count and, with ``scores``,
+    an XOR and a popcount.  Bytes: each row's
+    48 of key, counter and nonce; the latent's packed words
+    (``chacha.block_words``), once (``shared_latent``) or once a row; with
+    ``scores`` the expected words, ceil(mb / 32) a row, and a float32 a row
+    written, else mb bytes a row of voted bits.  Arithmetic binds."""
+    segs = n_bits // mb
+    vote_words = -(-segs * mb // 32)
+    blocks = -(-vote_words // 16)
+    ew = -(-mb // 32)
+    ops, _ = chacha_cost(rows * blocks)
+    ops += rows * (3 * vote_words + ew * (3 if scores else 1))
+    latent = 64 * -(-n_bits // 512) * (1 if shared_latent else rows)
+    out = rows * (4 * ew + 4) if scores else rows * mb
+    return ops, rows * 48 + latent + out
 
 
 def f32_prepass_cost(b: int, sk: int, h: int, d: int) -> tuple[int, int]:

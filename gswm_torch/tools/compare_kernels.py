@@ -55,7 +55,14 @@ entry points on the same tensors, so nothing but the kernels differs:
     ``paths.K8_PROBE_CASES`` with the device time beside; K3's single-key
     keystream at 32 blocks and 2^20, and the many-key keystream bits at
     ``paths.K3_BATCH_SHAPES``, where a side without ``batch_keystream_bits``
-    takes what its callers had: ``keystream_bits`` row by row.
+    takes what its callers had: ``keystream_bits`` row by row; then this
+    checkout's vote kernel (``batch_vote``, ``gswm_chacha20_vote``) against
+    the parent's bits-out path for the same function (its
+    ``batch_keystream_bits``, or its ``gswm_chacha20_batch`` into a buffer,
+    then XOR, ``majority_vote`` and the mean) at ``paths.VOTE_SHAPES`` (the
+    scores) and ``paths.VOTE_ROW_SHAPES`` (the voted bits), in turns,
+    through the wrappers and through the C entries, with both outputs
+    compared (scores as float32, voted bits).
 
 ``--match`` keeps only the attention cases whose label holds TEXT (say
 ``"K2 (4, 4096, 8, "`` for K2 at SD 1.x's level 0 and the narrow widths).
@@ -63,7 +70,9 @@ entry points on the same tensors, so nothing but the kernels differs:
 are equal bit for bit (a change that must leave the kernels' results
 alone), every float32 form's output equals the natural form's, this
 checkout's float32 GEMM and core are within the float32 bound of float64,
-and, with ``k8`` among the cases, every K8 output equals the parent's;
+with ``k8`` among the cases every K8 output equals the parent's, and with
+``k3`` K3's single-key words and table bits equal the parent's and the vote
+path's scores and voted bits equal the parent's bits-out path's;
 ``--except-head-dims LO-HI`` exempts the cases whose head dim lies in
 [LO, HI] (the widths a change hands to a new kernel), whose difference is
 printed all the same; ``--except-transposed`` does so for K7's cases alone
@@ -293,8 +302,9 @@ def compare_group_norm(parent_gn, iters: int) -> dict:
     return out
 
 
-def compare_chacha(parent_chacha, iters: int) -> dict:
-    """K3 through each side's wrappers: one key, and a table of keys."""
+def compare_chacha(libs: dict, parent_chacha, stream: int, iters: int) -> dict:
+    """K3 through each side's wrappers: one key, and a table of keys; then
+    the vote path against the parent's bits-out path."""
     from gswm_torch.core import chacha
 
     sides = {"parent": parent_chacha, "change": chacha}
@@ -303,11 +313,13 @@ def compare_chacha(parent_chacha, iters: int) -> dict:
     for n_blocks in (32, 2**20):
         fns = {side: (lambda m=m: m.keystream_words(key, nonce, n_blocks, "cuda"))
                for side, m in sides.items()}
+        same = torch.equal(fns["parent"](), fns["change"]())
         t = _sides_ms(fns, iters)
         bound, _ = roofline.bound_ms(*roofline.chacha_cost(n_blocks), roofline.PEAK_INT32)
         print(f"K3 one key, {n_blocks} blocks: parent {t['parent']} change {t['change']} "
-              f"ms, {t['ratio']:.2f}x, bound {bound:.6f} ms", flush=True)
-        out["single"].append(dict(n_blocks=n_blocks, **t, bound_ms=bound))
+              f"ms, {t['ratio']:.2f}x, bound {bound:.6f} ms, equal words {same}", flush=True)
+        out["single"].append(dict(label=f"K3 one key, {n_blocks} blocks", n_blocks=n_blocks,
+                                  **t, bound_ms=bound, equal=same))
     for rows, n_blocks in paths.K3_BATCH_SHAPES:
         n_bits = n_blocks * chacha.BLOCK_BITS
         keys, nonces, _, _ = paths.multikey_material(rows, seed=rows)
@@ -336,9 +348,83 @@ def compare_chacha(parent_chacha, iters: int) -> dict:
               f"Tensor.fill_ of the output {fill:.4f} ms, equal bits {same}", flush=True)
         if not same:
             raise AssertionError(f"K3 over {rows} keys: the two sides' bits differ")
-        out["batch"].append(dict(rows=rows, n_blocks=n_blocks, how=how, **t,
-                                 device_ms=device, bound_ms=bound, fill_ms=fill))
+        out["batch"].append(dict(label=f"K3 {rows} keys x {n_blocks} blocks", rows=rows,
+                                 n_blocks=n_blocks, how=how, **t, device_ms=device,
+                                 bound_ms=bound, fill_ms=fill, equal=same))
         del bits
+    out["vote"] = compare_vote(libs, parent_chacha, stream, iters)
+    return out
+
+
+def compare_vote(libs: dict, parent_chacha, stream: int, iters: int) -> list:
+    """This checkout's vote kernel against the parent's bits-out path for the
+    same function, in turns, through the wrappers and the C entries; the
+    scores (``paths.VOTE_SHAPES``, one latent for every row) or the voted
+    bits (``VOTE_ROW_SHAPES``, a latent row a key) are timed, and both
+    outputs compared."""
+    from gswm_torch.core import chacha
+    from gswm_torch.core.decode import majority_vote
+
+    cases = [(*shape, True) for shape in paths.VOTE_SHAPES] + \
+        [(*shape, False) for shape in paths.VOTE_ROW_SHAPES]
+    out = []
+    for rows, n_bits, mb, shared in cases:
+        case = paths.vote_material(rows, n_bits, mb, shared)
+        bits_buf = torch.empty((rows, n_bits), dtype=torch.uint8, device="cuda")
+
+        def finish(ks, scores):
+            voted = majority_vote(ks.bitwise_xor_(case.bits), mb)
+            return (voted == case.message).to(torch.float32).mean(dim=-1) if scores else voted
+
+        def parent_wrapper(scores=shared):
+            return finish(parent_chacha.batch_keystream_bits(case.keys, case.nonces, n_bits,
+                                                             "cuda"), scores)
+
+        def parent_entry(scores=shared):
+            libs["parent"].call("gswm_chacha20_batch", case.table.data_ptr(),
+                                bits_buf.data_ptr(), rows, n_bits, stream)
+            return finish(bits_buf, scores)
+
+        def change_wrapper(scores=shared):
+            return chacha.batch_vote(case.table, case.words, n_bits, mb,
+                                     case.expected if scores else None)
+
+        outs = {True: torch.empty(rows, dtype=torch.float32, device="cuda"),
+                False: torch.empty((rows, mb), dtype=torch.uint8, device="cuda")}
+
+        def change_entry(scores=shared):
+            libs["change"].call("gswm_chacha20_vote", case.table.data_ptr(),
+                                case.words.data_ptr(), case.words.shape[0],
+                                case.expected.data_ptr() if scores else None,
+                                outs[True].data_ptr() if scores else None,
+                                None if scores else outs[False].data_ptr(),
+                                rows, n_bits, mb, stream)
+            return outs[scores]
+
+        equal = {}
+        for what, scores in (("scores", True), ("voted bits", False)):
+            want = parent_wrapper(scores).clone()
+            equal[what] = all(torch.equal(fn(scores), want) for fn in
+                              (parent_entry, change_wrapper, change_entry))
+        t_wrap = _sides_ms({"parent": parent_wrapper, "change": change_wrapper}, iters)
+        t_entry = _sides_ms({"parent": parent_entry, "change": change_entry}, iters)
+        device = {"parent": sum(device_times(parent_entry, 10).values()),
+                  "change": device_ms(change_entry, 10, "chacha20_vote")}
+        bound, roof = roofline.bound_ms(*roofline.chacha_vote_cost(rows, n_bits, mb, shared,
+                                                                   shared),
+                                        roofline.PEAK_INT32)
+        label = (f"K3 vote ({rows}, {n_bits}, {mb}, "
+                 f"{'one latent' if shared else 'a latent a row'})")
+        print(f"{label}, {'scores' if shared else 'voted bits'} timed: wrapper parent "
+              f"{t_wrap['parent']} change {t_wrap['change']} ms, {t_wrap['ratio']:.1f}x; C "
+              f"entry parent {t_entry['parent']} change {t_entry['change']} ms, "
+              f"{t_entry['ratio']:.1f}x; device parent {device['parent']:.4f} change "
+              f"{device['change']:.4f} ms; bound {bound:.6f} ms by {roof}; equal to the "
+              f"parent's {equal}", flush=True)
+        out.append(dict(label=label, shape=[rows, n_bits, mb], shared=shared,
+                        wrapper=t_wrap, entry=t_entry, device_ms=device, bound_ms=bound,
+                        equal=all(equal.values()), equal_by_output=equal))
+        del bits_buf, case
     return out
 
 
@@ -387,7 +473,7 @@ def main() -> None:
     if "k8" in cases:
         result["group_norm"] = compare_group_norm(parent_gn, args.iters)
     if "k3" in cases:
-        result["chacha"] = compare_chacha(parent_chacha, args.iters)
+        result["chacha"] = compare_chacha(libs, parent_chacha, stream, args.iters)
     if "attention" in cases:
         result.update(compare_attention(libs, rand, stream, args.iters, args.match))
     if "lse" in cases:
@@ -427,6 +513,11 @@ def main() -> None:
         differ += [case for case in forms if case["natural_max_abs_diff"] != 0.0]
         gn_cases = result.get("group_norm", {}).get("cases", [])
         differ += [case for case in gn_cases if case["max_abs_diff"] != 0.0]
+        # K3: the single-key words and the table's bits equal the parent's;
+        # the vote path's scores and voted bits equal its bits-out path's
+        k3 = [case for key in ("single", "batch", "vote")
+              for case in result.get("chacha", {}).get(key, [])]
+        differ += [case for case in k3 if not case["equal"]]
         # the float32 GEMM and core: new arithmetic, so no bit-equality with
         # the parent; this checkout's outputs within the float32 bound of
         # float64 instead
@@ -438,6 +529,8 @@ def main() -> None:
         print(f"all {len(held)} attention outputs held equal the parent's, bit for bit"
               + (f"; {len(forms)} float32 forms equal the natural form's" if forms else "")
               + (f"; {len(gn_cases)} K8 outputs equal the parent's" if gn_cases else "")
+              + (f"; {len(k3)} K3 cases equal the parent's (the vote path its bits-out "
+                 "path's)" if k3 else "")
               + (f"; {len(f32)} float32 GEMM and core outputs within {F32_REL_BOUND:g} of "
                  "max |want| against float64" if f32 else "")
               + (f" (head dims {lo}-{hi} exempt)" if lo <= hi else "")

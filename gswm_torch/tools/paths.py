@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -172,6 +173,16 @@ K7_SHAPES = (*((b, s, h, 64) for b, s, h in LEVEL0_SHAPES), (1, 1001, 3, 64),
 # bits of a 512x512 latent; 4 rows are phase 7d's batch, 4096 one chunk of the
 # trace search, 10,000 the whole registry
 K3_BATCH_SHAPES = ((4, 32), (4096, 32), (10000, 32))
+# the vote kernel (K3's table ending in the vote) at (rows, n_bits, message
+# bits), one latent shared by the rows: 512x512's 16,384 bits at 4 rows, at
+# 4096 (a chunk of the trace search) and at 10,000 (the registry, also at 100
+# message bits), 520x520's 16,900 (no multiple of 32), 768x768's 36,864,
+# 1024x1024's 65,536 and 512x512 at l = 2 with 48 bits; and a latent row a
+# key at 2500 rows (a decode call of phase 7a)
+VOTE_SHAPES = ((4, 16384, 256), (4096, 16384, 256), (10000, 16384, 256),
+               (10000, 16384, 100), (64, 16900, 256), (1000, 36864, 256),
+               (1000, 65536, 256), (1000, 32768, 48))
+VOTE_ROW_SHAPES = ((2500, 16384, 256),)
 # per-user keys (config 5): the registry, the probes traced against it, the
 # records the host loop also scores, the images sent through the model, and
 # the rows embedded or decoded a call (164 MB of fp32 latents)
@@ -492,6 +503,48 @@ def multikey_material(n: int = MULTIKEY_RECORDS, seed: int = MULTIKEY_SEED):
     records = [{"key_hex": k.hex(), "nonce_hex": m.hex(), "message_hex": g.hex(),
                 "message_length": 256} for k, m, g in zip(keys, nonces, messages)]
     return keys, nonces, messages, records
+
+
+class VoteCase(NamedTuple):
+    """Inputs of one ``chacha.batch_vote`` case (``vote_material``)."""
+
+    keys: list
+    nonces: list
+    table: torch.Tensor     # (rows, 12) int32
+    bits: torch.Tensor      # (1 or rows, n_bits) uint8, the quantized latent bits
+    words: torch.Tensor     # the same packed, (1 or rows, block_words) int32
+    message: torch.Tensor   # (rows, mb) uint8, the expected bits
+    expected: torch.Tensor  # the same packed, (rows, ceil(mb / 32)) int32
+    carriers: list          # the rows whose latent carries their message
+
+
+def vote_material(rows: int, n_bits: int, mb: int, shared: bool, dev="cuda",
+                  seed: int = 0) -> VoteCase:
+    """Keys of ``multikey_material`` (row 0's counter carrying into the high
+    word at block 5) and random messages from a numpy seed; the latent bits
+    carry row 1's message under its key (``shared``: one latent for every
+    row) or, a latent row a key, every even row's, the odd rows' random."""
+    from gswm_torch.core import chacha
+
+    keys, nonces, _, _ = multikey_material(rows, seed=seed + rows)
+    nonces[0] = (2**32 - 5).to_bytes(8, "little") + nonces[0][8:]
+    rng = np.random.default_rng(seed + n_bits + mb)
+    message = torch.from_numpy(rng.integers(0, 2, (rows, mb), dtype=np.uint8)).to(dev)
+    segs = n_bits // mb
+    payload = torch.zeros((rows, n_bits), dtype=torch.uint8, device=dev)
+    payload[:, :segs * mb] = message.repeat(1, segs)
+    if shared:
+        carriers = [1]
+        bits = (chacha.keystream_bits(keys[1], nonces[1], n_bits, dev) ^ payload[1])[None]
+    else:
+        carriers = list(range(0, rows, 2))
+        bits = chacha.batch_keystream_bits(keys, nonces, n_bits, dev) ^ payload
+        noise = torch.from_numpy(rng.integers(0, 2, (rows, n_bits), dtype=np.uint8))
+        bits[1::2] = noise[1::2].to(dev)
+    table = torch.from_numpy(chacha.key_table(keys, nonces).view(np.int32)).to(dev)
+    return VoteCase(keys, nonces, table, bits,
+                    chacha.pack_bits(bits, chacha.block_words(n_bits)), message,
+                    chacha.pack_bits(message, -(-mb // 32)), carriers)
 
 
 def multikey_embed_all(cfg, keys, nonces, messages, dev="cuda", seed: int = 41):

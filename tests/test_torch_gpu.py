@@ -1674,11 +1674,77 @@ def test_multikey_and_trace_on_card(cuda):
     assert torch.equal(voted, want)
     records = [{"key_hex": k.hex(), "nonce_hex": m.hex(), "message_hex": g.hex(),
                 "message_length": 256} for k, m, g in zip(keys, nonces, msg)]
-    before = chacha.batch_keystream_bits.launches
+    before = chacha.batch_vote.launches, chacha.batch_keystream_bits.launches
     best, acc, accs = trace.find_source_device(lat[123], records, chunk=128)
-    assert chacha.batch_keystream_bits.launches == before + 3
+    assert (chacha.batch_vote.launches, chacha.batch_keystream_bits.launches) == \
+        (before[0] + 3, before[1])  # one vote launch a chunk, no keystream
     assert (best, acc) == (123, 1.0)
     assert trace.find_source(lat[123], records) == (best, acc, accs)
+    packed = trace.pack_candidates(records)
+    assert trace.find_source_device(lat[123], packed, chunk=128) == (best, acc, accs)
+    assert trace.find_source_device(lat[123].cpu(), records, device="cpu") == (best, acc, accs)
+
+
+VOTE_CASES = ([(*shape, True) for shape in paths.VOTE_SHAPES]
+              + [(*shape, False) for shape in paths.VOTE_ROW_SHAPES]
+              # odd lengths, a segment of more than 32 words, more message
+              # bits than the latent has (no segment votes), 16 and 24 bit
+              # planes of counts at few message bits, and rows that outgrow a
+              # warp (a thread block a row)
+              + [(3, 700, 96, True), (5, 513, 7, False), (3, 2048, 2048, True),
+                 (3, 1024, 4096, True), (2, 70000, 3, False), (2, 131072, 1, True),
+                 (2, 131072, 256, True), (3, 262144, 256, True), (3, 262144, 100, False),
+                 (2, 262144, 8192, True)])
+
+
+@pytest.mark.parametrize("rows,n_bits,mb,shared", VOTE_CASES)
+def test_vote_kernel_bit_exact(cuda, rows, n_bits, mb, shared):
+    """The vote kernel against its plain version on the card: scores equal
+    as float32, voted bits equal; the rows that carry their message score
+    1.0."""
+    case = paths.vote_material(rows, n_bits, mb, shared, cuda)
+    before = chacha.batch_vote.launches
+    got = chacha.batch_vote(case.table, case.words, n_bits, mb, case.expected)
+    bits = chacha.batch_vote(case.table, case.words, n_bits, mb)
+    assert chacha.batch_vote.launches == before + 2
+    assert got.dtype == torch.float32 and got.shape == (rows,)
+    assert bits.dtype == torch.uint8 and bits.shape == (rows, mb)
+    assert torch.equal(got, chacha.batch_vote_reference(case.table, case.words, n_bits, mb,
+                                                        case.expected))
+    assert torch.equal(bits, chacha.batch_vote_reference(case.table, case.words, n_bits, mb))
+    if mb <= n_bits:
+        assert (got[case.carriers] == 1.0).all()
+        assert torch.equal(bits[case.carriers], case.message[case.carriers])
+
+
+def test_vote_kernel_is_one_kernel_and_writes_no_keystream(cuda):
+    """One kernel a call; device memory grows by the scores alone; material
+    out of range raises before anything is launched."""
+    n_bits, mb = 16384, 256
+    case = paths.vote_material(4096, n_bits, mb, True, cuda)
+    chacha.batch_vote(case.table, case.words, n_bits, mb, case.expected)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    chacha.batch_vote(case.table, case.words, n_bits, mb, case.expected)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base <= 4096 * 4 + 512
+    _assert_one_kernel_a_call(
+        lambda: chacha.batch_vote(case.table, case.words, n_bits, mb, case.expected),
+        "chacha20_vote_kernel")
+    before = chacha.batch_vote.launches
+    big = chacha.VOTE_MAX_BLOCKS * chacha.BLOCK_BITS + 1
+    with pytest.raises(ValueError, match="at most"):
+        chacha.batch_vote(case.table, torch.zeros((1, chacha.block_words(big)),
+                                                  dtype=torch.int32, device=cuda), big, mb)
+    with pytest.raises(ValueError, match="message bits"):
+        chacha.batch_vote(case.table, case.words, n_bits, 2**24)
+    offset = torch.zeros(case.words.numel() + 1, dtype=torch.int32, device=cuda)[1:]
+    with pytest.raises(ValueError, match="aligned"):
+        chacha.batch_vote(case.table, offset.view(1, -1), n_bits, mb)
+    with pytest.raises(ValueError, match="devices"):
+        chacha.batch_vote(case.table, case.words.cpu(), n_bits, mb)
+    assert chacha.batch_vote.launches == before
 
 
 def test_keystream_cache_launches_once_on_card(cuda):
