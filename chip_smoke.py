@@ -51,17 +51,24 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
                 "flash_attention_transposed_narrow"), at (4 and 8, 1024, 8,
                 80), (4 and 8, 256, 8, 160) of phase 10's set (t) and (2,
                 1000, 3, 72) (flash_mid.cu's kernel in the transposed layout,
-                "flash_attention_transposed_mid"), at (1, 1024, 1, 512) (its
-                split kernel), and at S % 8 != 0, where each design runs with
-                its boxes loaded and stored by hand: (1, 1001, 3, 64), (1,
-                1001, 3, 40), (1, 1001, 2, 160) and (1, 1001, 1, 512), and the
-                level-2 shapes of users' resolutions (S % 8 == 4): (8, 324,
-                8, 160) and (8, 484, 8, 160) (sd-1-4 at 576x576 and
-                704x704), (8, 324, 20, 64) (SD 2.x at 576x576) and (2, 988,
-                20, 64) (SDXL at 832x1216); held head by head, and at the
-                narrow and mid designs where S % 8 != 0 equal bit for bit to
-                the natural layout's kernel on the same q, k and v, which is
-                timed beside each, in turns.  K8
+                "flash_attention_transposed_mid"), at (1, 1024, 1, 512)
+                (flash_split.cu's kernel in the transposed layout,
+                "flash_attention_transposed_split"), and at S % 8 != 0,
+                where the designs to d = 160 run with their boxes loaded and
+                stored by hand and the split one over the aligning
+                pre-pass's scratch: (1, 1001, 3, 64), (1, 1001, 3, 40), (1,
+                1001, 2, 160), (1, 1001, 1, 512), (1, 1001, 2, 192) and (2,
+                324, 2, 256), and the level-2 shapes of users' resolutions
+                (S % 8 == 4): (8, 324, 8, 160) and (8, 484, 8, 160) (sd-1-4
+                at 576x576 and 704x704), (8, 324, 20, 64) (SD 2.x at
+                576x576) and (2, 988, 20, 64) (SDXL at 832x1216); held head
+                by head, and at the narrow and mid designs where S % 8 != 0
+                and the split design at every S equal bit for bit to the
+                natural layout's kernel on the same q, k and v, which is
+                timed beside each, in turns.  K7's pre-pass
+                (align_tokens_kernel, "flash_transposed_align") alone at
+                the split design's S % 8 != 0 shapes against its plain
+                version (one F.pad, also its library call).  K8
                 (fused GroupNorm) at every distinct (shape, eps, act) of the
                 768x768 path's GroupNorms, collected by forward hooks during
                 one UNet forward at batch 2 and at 4, one VAE decode of one
@@ -78,13 +85,27 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
                 (one latent for every row: 512x512 at 4, 4096 and 10,000
                 rows, 10,000 at 100 message bits, 520x520, 768x768,
                 1024x1024, l = 2 with 48 bits) and VOTE_ROW_SHAPES (a latent
-                row a key, 2500 rows), the rows that carry their message at
-                1.0; one kernel a call at 4096 rows; beside each the
+                row a key, 2500 rows), and in its stream mode past 3584
+                blocks (record "chacha20_vote_stream") at
+                paths.VOTE_STREAM_SHAPES and VOTE_STREAM_ROW_SHAPES (a
+                2048x2048 image at l = 8, 2,097,152 bits), the rows that
+                carry their message at 1.0, its C entry at 1, 2, 4 and 8
+                thread blocks a row (a cluster a row) equal and timed in
+                turns; one kernel a call at 4096 rows
+                (512 in the stream mode); beside each the
                 wrapper's ms, the device ms (torch.profiler), the bound
                 (roofline.chacha_vote_cost) and its share, and the parent's
                 path for the same function (batch_keystream_bits, XOR,
                 majority_vote, mean), timed in the same process and equal
-                to it.  (The one-kernel checks stand at the head of the
+                to it.  The embed kernel (K3's table ending in the multikey
+                embed, record "chacha20_embed") against its plain version at
+                paths.EMBED_SHAPES: every quantized bit equal, z within 4
+                float32 ulps or 1e-6 relative of torch.special.ndtri's; one
+                kernel a call at 4096 rows; in turns with the parent's path
+                (batch_keystream_bits, XOR, _bits_to_latent, equal to the
+                plain version bit for bit), the device ms and the bound
+                (roofline.chacha_embed_cost), and end to end from the
+                messages against the parent's embed_latents_multikey.  (The one-kernel checks stand at the head of the
                 phase and read one profiler trace of 8 calls: 8 launch
                 records on the host's side, and no kernel but the wrapper's
                 on the device's.)  K1 at d = 80 and 160 (batch 4 and 8) also
@@ -156,9 +177,15 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
        (d) per-user keys through the model: 4 images under 4 keys, sd-2-1-base
            at 512x512, embed -> 30-step generate -> 30-step inversion ->
            multikey decode >= 0.99 each, each recovered latent attributed to
-           its own record among the 10,000 (the packed table).
-     The batch kernel launches exactly once per embed call, the vote kernel
-     once per decode call and chunk of a probe.
+           its own record among the 10,000 (the packed table);
+       (e) a 2048x2048 image at l = 8 (2,097,152 bits a row, past the 3584
+           blocks the vote kernel holds in shared memory): 4 latents
+           embedded under their own keys, decoded and one probed against
+           their records, through the vote's stream mode, equal to the
+           plain version and to the messages.
+     The embed kernel launches exactly once per embed call (the table
+     kernel never), the vote kernel once per decode call and chunk of a
+     probe (2 of them in its stream mode).
   fit. the VAE fit: sd-2-1-base's VAE (sd-2-1 shares it) from a seed, in
      float32 master parameters; sign fidelity at 16x16 and 64x64 before; two
      of gswm_torch/tools/fit_vae.py's stages through fit_vae_roundtrip
@@ -488,6 +515,15 @@ MIN_FIDELITY_64 = 0.95
 MIN_FITTED_NONE = 0.9
 # calls in the profiler window of a one-kernel check
 ONE_KERNEL_CALLS = 8
+# kernels that no path of this script launches, listed with phase 2's
+# numbers: K3's table writing bits (the JAX package's public
+# batch_keystream_bits; the multikey embed runs the embed kernel), and K7
+# above d = 160 with its pre-pass (no model has such heads on K7's route)
+OFF_PATH = ("chacha20_batch", "flash_attention_transposed_split", "flash_transposed_align")
+# the embed kernel's z against its plain version's (torch.special.ndtri on
+# the card): within this many float32 ulps, or this relative error
+EMBED_ULPS = 4
+EMBED_REL = 1e-6
 # K1 at SD 1.x's widths against F.linear + the library's attention in
 # turns: the order of a round, and the rounds
 K1_TURNS = ("library", "kernel", "kernel", "library")
@@ -763,9 +799,10 @@ def _check_vote(records: dict) -> None:
     from gswm_torch.core.decode import majority_vote
     from gswm_torch.tools.compare_kernels import device_ms
 
-    cases = [(*shape, True) for shape in paths.VOTE_SHAPES] + \
-        [(*shape, False) for shape in paths.VOTE_ROW_SHAPES]
+    cases = [(*shape, True) for shape in (*paths.VOTE_SHAPES, *paths.VOTE_STREAM_SHAPES)] + \
+        [(*shape, False) for shape in (*paths.VOTE_ROW_SHAPES, *paths.VOTE_STREAM_ROW_SHAPES)]
     for rows, n_bits, mb, shared in cases:
+        stream = chacha.vote_entry(n_bits) == chacha.VOTE_STREAM_ENTRY
         case = paths.vote_material(rows, n_bits, mb, shared)
         exp = case.expected if shared else None  # scores, or the decode's bits
 
@@ -795,22 +832,189 @@ def _check_vote(records: dict) -> None:
         if not (scores[case.carriers] == 1.0).all():
             raise AssertionError(f"K3 vote {label}: a carrier row scores below 1.0")
         del want, old, other_want, voted_parent
-        if rows == 4096:
-            _check_one_kernel(f"batch_vote at {rows} rows", kernel, "chacha20_vote_kernel")
+        if rows == 4096 or (stream and rows == 512):
+            _check_one_kernel(f"batch_vote at {rows} rows of {n_bits} bits", kernel,
+                              "chacha20_vote_stream_kernel" if stream else "chacha20_vote_kernel")
         ms = _time_ms(kernel, 20)
         device = device_ms(kernel, 20, "chacha20_vote")
         plain_ms = _time_ms(plain, 2, warmup=1)
         parent_ms = _time_ms(parent, 5)
         bound = roofline.bound_ms(*roofline.chacha_vote_cost(rows, n_bits, mb, shared, shared),
                                   roofline.PEAK_INT32)
-        print(f"K3 vote {label}: bit-exact vs plain (scores and voted bits), equal to the "
+        if stream:
+            _vote_splits_in_turns(case, label, rows, n_bits, mb, exp, got)
+        print(f"K3 vote{' (stream mode)' if stream else ''} {label}: bit-exact vs plain "
+              f"(scores and voted bits), equal to the "
               f"parent's path; {ms:.4f} ms, device {device:.4f} ms, bound "
               f"{bound[0]:.6f} by {bound[1]} ({bound[0] / device:.1%} of the device time), "
               f"plain {plain_ms:.4f}, the parent's path (batch_keystream_bits + XOR + "
               f"majority_vote{' + mean' if shared else ''}) {parent_ms:.4f} ms, library none",
               flush=True)
-        _record(records, "chacha20_vote", 0.0, ms, plain_ms, bound, None)
+        _record(records, "chacha20_vote_stream" if stream else "chacha20_vote", 0.0, ms,
+                plain_ms, bound, None)
         del got, other, case
+
+
+# the stream mode's thread blocks a row timed in turns: 1 (the first design, a
+# block a row) against the splits over a cluster
+VOTE_SPLITS_TIMED = (1, 2, 4, 8)
+
+
+def _vote_splits_in_turns(case, label: str, rows: int, n_bits: int, mb: int, exp,
+                          want) -> None:
+    """The stream mode's C entry at each of ``VOTE_SPLITS_TIMED`` thread
+    blocks a row on the same inputs, each output equal to the wrapper's
+    (``want``), timed in turns (1, 2, 4, 8, 8, 4, 2, 1, three rounds, the
+    medians); ``chacha.vote_splits`` names the wrapper's choice."""
+    from gswm_torch import native
+    from gswm_torch.core import chacha
+
+    out = torch.empty_like(want)
+    lib, stream = native.library(), native.stream_handle(torch.device("cuda"))
+
+    def entry(splits):
+        lib.call(chacha.VOTE_STREAM_ENTRY, case.table.data_ptr(), case.words.data_ptr(),
+                 case.words.shape[0], None if exp is None else exp.data_ptr(),
+                 None if exp is None else out.data_ptr(),
+                 out.data_ptr() if exp is None else None, rows, n_bits, mb, splits, stream)
+
+    for splits in VOTE_SPLITS_TIMED:
+        out.zero_()
+        entry(splits)
+        torch.cuda.synchronize()
+        if not torch.equal(out, want):
+            raise AssertionError(f"K3 vote {label} at {splits} blocks a row differs from "
+                                 "the wrapper's")
+    t = {splits: [] for splits in VOTE_SPLITS_TIMED}
+    for _ in range(3):
+        for splits in (*VOTE_SPLITS_TIMED, *reversed(VOTE_SPLITS_TIMED)):
+            t[splits].append(_time_ms(lambda: entry(splits), 20))
+    med = {splits: statistics.median(v) for splits, v in t.items()}
+    print(f"K3 vote (stream mode) {label}, blocks a row in turns (C entry, CUDA events): "
+          + ", ".join(f"{splits}: {ms:.4f} ms" for splits, ms in med.items())
+          + f"; equal outputs; the wrapper takes "
+          f"{chacha.vote_splits(rows, torch.cuda.get_device_properties(0).multi_processor_count)}",
+          flush=True)
+
+
+def _turns(fns: dict, iters: int, rounds: int = 3) -> dict:
+    """Each of two callables timed in turns (a, b, b, a), ``rounds``
+    rounds of ``iters`` calls: the medians in ms."""
+    a, b = fns
+    t = {a: [], b: []}
+    for _ in range(rounds):
+        for side in (a, b, b, a):
+            t[side].append(_time_ms(fns[side], iters))
+    return {side: statistics.median(v) for side, v in t.items()}
+
+
+def _parent_multikey_embed(cfg, keys, nonces, messages, u, dev="cuda"):
+    """The parent's multikey embed, as gswm_torch/core/multikey.py ran it
+    before the embed kernel: the payload's bits copied to the card a byte a
+    bit, K3's table kernel's keystream bits, XOR, then _bits_to_latent."""
+    import numpy as np
+
+    from gswm_torch.config import prepare_message_bytes
+    from gswm_torch.core import bits as bitops
+    from gswm_torch.core import chacha
+    from gswm_torch.core.embed import _bits_to_latent
+
+    msg = [prepare_message_bytes(m, cfg.message_bytes_len, cfg.repeat4) for m in messages]
+    payload = np.stack([bitops.diffuse_payload(bitops.bytes_to_bits(m), cfg.capacity_bits)
+                        for m in msg])
+    cipher = torch.from_numpy(payload).to(dev) ^ \
+        chacha.batch_keystream_bits(keys, nonces, cfg.capacity_bits, dev)
+    h, w = cfg.latent_hw
+    return _bits_to_latent(cipher.reshape(-1), u.reshape(-1), cfg.l,
+                           (len(keys), cfg.channels, h, w))
+
+
+def _check_embed(records: dict) -> None:
+    """K3's table ending in the multikey embed (chacha.batch_embed) against
+    its plain version at paths.EMBED_SHAPES: every quantized bit equal, z
+    within EMBED_ULPS float32 ulps or EMBED_REL relative of the plain
+    version's (whose ndtri is torch.special.ndtri on the card); one kernel
+    a call.  Beside it, in turns: the parent's path on the card for the same
+    latents (batch_keystream_bits, XOR with the payload bits on the card,
+    _bits_to_latent), equal to the plain version bit for bit; and end to end
+    from the messages and u, embed_latents_multikey against the parent's."""
+    import numpy as np
+
+    from gswm_torch import GSConfig, roofline
+    from gswm_torch.config import prepare_message_bytes
+    from gswm_torch.core import bits as bitops
+    from gswm_torch.core import chacha, multikey
+    from gswm_torch.core.decode import quantize_latent_bits
+    from gswm_torch.core.embed import _bits_to_latent
+    from gswm_torch.tools.compare_kernels import device_ms
+
+    dev = "cuda"
+    for rows, elements, l in paths.EMBED_SHAPES:
+        cfg = GSConfig(width=paths.RES_512, height=paths.RES_512, l=l,
+                       message_bits=256).resolved()
+        assert cfg.total_elements == elements
+        n_bits = cfg.capacity_bits
+        keys, nonces, messages, _ = paths.multikey_material(rows, seed=rows + l)
+        nonces[1] = bytes.fromhex(CARRY_NONCE_HEX)
+        msg = [prepare_message_bytes(m, cfg.message_bytes_len, cfg.repeat4) for m in messages]
+        payload = np.stack([bitops.diffuse_payload(bitops.bytes_to_bits(m), n_bits)
+                            for m in msg])
+        u = torch.rand((rows, elements), generator=torch.Generator(device=dev).manual_seed(
+            rows + l), device=dev)
+        table, words = multikey._table_and_payload(keys, nonces, msg, n_bits, dev)
+        payload_dev = torch.from_numpy(payload).to(dev)
+
+        def kernel():
+            return chacha.batch_embed(table, words, u, l)
+
+        def plain():
+            return chacha.batch_embed_reference(table, words, u, l)
+
+        def parent():
+            cipher = chacha.batch_keystream_bits(keys, nonces, n_bits, dev) ^ payload_dev
+            return _bits_to_latent(cipher.reshape(-1), u.reshape(-1), l, (rows, elements))
+
+        label = f"({rows} rows x {elements} elements, l = {l})"
+        got, want, old = kernel(), plain(), parent()
+        torch.cuda.synchronize()
+        q4 = (rows, 1, 1, elements)
+        if not torch.equal(quantize_latent_bits(got.view(q4), l),
+                           quantize_latent_bits(want.view(q4), l)):
+            raise AssertionError(f"K3 embed {label}: a quantized bit differs from the plain "
+                                 "version's")
+        ulps = (got.view(torch.int32).long() - want.view(torch.int32).long()).abs()
+        err = (got - want).abs()
+        if not ((ulps <= EMBED_ULPS) | (err <= EMBED_REL * want.abs())).all():
+            raise AssertionError(f"K3 embed {label}: z beyond {EMBED_ULPS} ulps and "
+                                 f"{EMBED_REL} relative of the plain version's")
+        if not torch.equal(old, want):
+            raise AssertionError(f"K3 embed {label}: the parent's path differs from the "
+                                 "plain version")
+        max_ulps, same = int(ulps.max()), (ulps == 0).float().mean().item()
+        max_err = err.max().item()
+        del old, want, ulps, err
+        if rows == 4096 and l == 1:
+            _check_one_kernel(f"batch_embed at {rows} rows", kernel, "chacha20_embed_kernel")
+        med = _turns({"parent": parent, "kernel": kernel}, 5)
+        device = device_ms(kernel, 10, "chacha20_embed")
+        plain_ms = _time_ms(plain, 2, warmup=1)
+        e2e = _turns({"parent": lambda: _parent_multikey_embed(cfg, keys, nonces, messages, u),
+                      "this": lambda: multikey.embed_latents_multikey(
+                          cfg, keys, nonces, messages, u=u, device=dev)}, 2)
+        bound = roofline.bound_ms(*roofline.chacha_embed_cost(rows, elements, l),
+                                  roofline.PEAK_INT32)
+        print(f"K3 embed {label}: quantized bits equal on every element, z within "
+              f"{max_ulps} ulps of the plain version's ({same:.1%} bit-equal, max|err| "
+              f"{max_err:.3g}), the parent's path equal to it bit for bit; one kernel a "
+              f"call; in turns: wrapper {med['kernel']:.4f} ms, the parent's path "
+              f"(batch_keystream_bits + XOR + _bits_to_latent) {med['parent']:.4f} ms "
+              f"({med['kernel'] / med['parent']:.3f} of it); device {device:.4f} ms, bound "
+              f"{bound[0]:.6f} by {bound[1]} ({bound[0] / device:.1%} of the device time); "
+              f"plain {plain_ms:.4f}; embed_latents_multikey from the messages "
+              f"{e2e['this']:.4f} ms, the parent's {e2e['parent']:.4f} ms; library none",
+              flush=True)
+        _record(records, "chacha20_embed", max_err, med["kernel"], plain_ms, bound, None)
+        del got, table, words, u, payload_dev
 
 
 def _check_group_norm_call(shape, act) -> None:
@@ -968,6 +1172,7 @@ def phase_kernels(gn_cases) -> dict:
         _record(records, "chacha20", 0.0, ms, plain, bound, None)
 
     _check_batch_keystream(records)
+    _check_embed(records)
     _check_vote(records)
 
     g = torch.Generator(device=dev).manual_seed(1234)
@@ -1087,7 +1292,8 @@ def phase_kernels(gn_cases) -> dict:
         q, k, v = (t_.permute(2, 3, 0, 1).reshape(b, s, h * d).contiguous()
                    for t_ in qkv_t.view(3, h, d, b, s))
         natural[label] = lambda q=q, k=k, v=v, h=h: attn.flash_attention(q, k, v, h)
-        if s % 8 and _transposed_design(d, s) in K7_NATURAL_DESIGNS:
+        if (s % 8 and _transposed_design(d, s) in K7_NATURAL_DESIGNS) or \
+                _transposed_design(d, s) == K7_SPLIT_DESIGN:
             exact.add(label)
         cases.append((label, _transposed_record(d, s),
                       lambda qkv_t=qkv_t, h=h: attn.flash_attention_transposed(qkv_t, h),
@@ -1108,7 +1314,7 @@ def phase_kernels(gn_cases) -> dict:
             nat = natural[label]().float()
             if not torch.equal(heads(got), nat.view(heads(got).shape)):
                 diff = (heads(got) - nat.view(heads(got).shape)).abs().max().item()
-                raise AssertionError(f"{label}: K7 by hand differs from the natural layout's "
+                raise AssertionError(f"{label}: K7 differs from the natural layout's "
                                      f"kernel on the same q, k and v by {diff}")
             print(f"   {label}: equal to the natural layout's kernel bit for bit", flush=True)
             del nat
@@ -1132,6 +1338,7 @@ def phase_kernels(gn_cases) -> dict:
             _time_in_turns(label, kernel, lambda fn=library_fn: fn(_sdpa_fused),
                            *k1_inputs[label])
     _check_lse_kernels(records, rand)
+    _check_k7_aligned(records, rand)
     # K8: unit-scale inputs with an offset, near-unit affine; the library
     # call is F.group_norm (+ F.silu) in bf16
     for shape, eps, act in gn_cases:
@@ -1186,27 +1393,67 @@ def _beside_natural(label: str, kernel, natural, iters: int, bound: float) -> No
 
 
 # K7's designs that are the natural layout's (flash_hopper.cu's narrow kernel,
-# flash_mid.cu's kernel): their records, and where their output equals the
-# natural layout's kernel's on the same q, k and v bit for bit
+# flash_mid.cu's kernel, flash_split.cu's kernel): their records, and where
+# their output equals the natural layout's kernel's on the same q, k and v
+# bit for bit (the split design's at every S)
+K7_SPLIT_DESIGN = "flash_split_kernel"
 K7_NATURAL_DESIGNS = {"flash_narrow_kernel": "flash_attention_transposed_narrow",
-                      "flash_mid_kernel": "flash_attention_transposed_mid"}
+                      "flash_mid_kernel": "flash_attention_transposed_mid",
+                      K7_SPLIT_DESIGN: "flash_attention_transposed_split"}
 
 
 def _transposed_design(d: int, s: int) -> str:
-    """K7's design at head dim ``d`` over ``s`` tokens, either form (its
-    boxes by tensor maps, or by hand where S % 8 != 0)."""
+    """K7's design at head dim ``d`` over ``s`` tokens, every form (its
+    boxes by tensor maps, by hand, or over the aligning pre-pass)."""
     from gswm_torch.ops import attention as attn
 
-    return attn.transposed_kernel(d, s).split(attn.ROWS_FORM)[0]
+    return attn.transposed_kernel(d, s).split("/")[0]
 
 
 def _transposed_record(d: int, s: int) -> str:
-    """The record of K7's design at head dim ``d`` over ``s`` tokens, both
-    forms: "flash_attention_transposed_narrow" and "..._mid" where
-    flash_hopper.cu's narrow kernel and flash_mid.cu's run it (d <= 48 and
-    64 < d <= 160), "flash_attention_transposed" for flash_transposed.cu's
-    own kernels."""
+    """The record of K7's design at head dim ``d`` over ``s`` tokens, every
+    form: "flash_attention_transposed_narrow", "..._mid" and "..._split"
+    where flash_hopper.cu's narrow kernel, flash_mid.cu's and flash_split.cu's
+    run it (d <= 48, 64 < d <= 160, d > 160), "flash_attention_transposed"
+    for flash_transposed.cu's own d = 64 kernel."""
     return K7_NATURAL_DESIGNS.get(_transposed_design(d, s), "flash_attention_transposed")
+
+
+def _check_k7_aligned(records: dict, rand) -> None:
+    """K7 above d = 160 where S % 8 != 0 (paths.K7_SHAPES): the aligning
+    pre-pass alone (``gswm_flash_transposed_align``) equal to its plain
+    version (``align_tokens_reference``, one F.pad: also the library call)
+    and timed against its bound (its bytes), its device time beside."""
+    from gswm_torch import native, roofline
+    from gswm_torch.ops import attention as attn
+    from gswm_torch.tools.compare_kernels import device_ms
+
+    lib = native.library()
+    stream = native.stream_handle(torch.device("cuda"))
+    for b, s, h, d in paths.K7_SHAPES:
+        if d <= attn.MID_MAX_HEAD_DIM or not s % 8:
+            continue
+        qkv_t = rand(3 * h * d, b, s)
+        pitch, rows = attn.aligned_pitch(s), 3 * h * d * b
+        padded = torch.full((3 * h * d, b, pitch), 7.0, device="cuda", dtype=torch.bfloat16)
+
+        def align():
+            lib.call("gswm_flash_transposed_align", qkv_t.data_ptr(), padded.data_ptr(), rows, s,
+                     pitch, stream)
+
+        align()
+        torch.cuda.synchronize()
+        if not torch.equal(padded, attn.align_tokens_reference(qkv_t, pitch)):
+            raise AssertionError(f"K7 pre-pass at {(b, s, h, d)} differs from its plain version")
+        ms = _time_ms(align, 20)
+        device = device_ms(align, 20, "align_tokens")
+        plain = _time_ms(lambda: attn.align_tokens_reference(qkv_t, pitch), 20)
+        bound = roofline.bound_ms(0, roofline.BF16 * rows * (s + pitch), roofline.PEAK_INT32)
+        print(f"K7 pre-pass align_tokens_kernel (B={b}, S={s}, H={h}, D={d}): equal to its "
+              f"plain version; {ms:.4f} ms, device {device:.4f} ms (plain = library F.pad "
+              f"{plain:.4f}, bound {bound[0]:.6f} by {bound[1]})", flush=True)
+        _record(records, "flash_transposed_align", 0.0, ms, plain, bound, plain)
+        del qkv_t, padded
 
 
 def _finish_records(records: dict) -> None:
@@ -1294,6 +1541,7 @@ def _wrappers() -> dict:
     return {"chacha20": chacha.keystream_words,
             "chacha20_batch": chacha.batch_keystream_bits,
             "chacha20_vote": chacha.batch_vote,
+            "chacha20_embed": chacha.batch_embed,
             **{name: getattr(attn, name) for name in ATTENTION_COUNTERS},
             "fused_group_norm": gn.fused_group_norm}
 
@@ -1335,8 +1583,13 @@ def _counters() -> dict:
     counts["fused_qkv_attention_mid"] = within(
         _wrappers()["fused_qkv_attention"].launches_by_d, attn.HEAD_DIM, mid)
     by_kernel = attn.flash_attention_transposed.launches_by_kernel
-    for design, record in K7_NATURAL_DESIGNS.items():  # boxes by tensor maps and by hand
-        counts[record] = by_kernel.get(design, 0) + by_kernel.get(design + attn.ROWS_FORM, 0)
+    for design, record in K7_NATURAL_DESIGNS.items():  # every form of the design
+        counts[record] = sum(n for kernel, n in by_kernel.items()
+                             if kernel.split("/")[0] == design)
+    # K7's aligning pre-pass (d > 160 where S % 8 != 0), and the vote's
+    # stream mode (rows past 3584 blocks) of the vote wrapper's launches
+    counts["flash_transposed_align"] = attn.flash_attention_transposed.align_launches
+    counts["chacha20_vote_stream"] = _wrappers()["chacha20_vote"].stream_launches
     # the float32 launches by wrapper, and by kernel: csrc/qkv_proj_f32.cu's
     # GEMM (fused-qkv and the projection alone), and the cores of the
     # fused-qkv, natural and split wrappers by head dim: csrc/flash_f32.cu's
@@ -1389,6 +1642,8 @@ def _reset_counters() -> None:
     split.lse_launches = 0
     split.lse_launches_by_d = {}
     _wrappers()["flash_attention_transposed"].launches_by_kernel = {}
+    _wrappers()["flash_attention_transposed"].align_launches = 0
+    _wrappers()["chacha20_vote"].stream_launches = 0
     from gswm_torch.ops import attention as attn
 
     for name in F32_WRAPPERS:
@@ -1722,7 +1977,7 @@ def phase_multikey(card: str, pipe) -> dict:
     wrong_acc = (wrong == want[:m]).float().mean(dim=1)
     calls = -(-n // per_call)  # embed calls, and decode calls
     print(f"7. (a) {n} images under their own keys: embed {t1 - t0:.4f} s "
-          f"({n / (t1 - t0):.1f} images/s), decode {t2 - t1:.4f} s "
+          f"({n / (t1 - t0):.1f} images/s, {calls} embed launches), decode {t2 - t1:.4f} s "
           f"({n / (t2 - t1):.1f} images/s, {calls} vote launches), {exact} of {n} exact; "
           f"{m} rows under the next row's key: accuracy {wrong_acc.min().item():.4f} ... "
           f"{wrong_acc.max().item():.4f}; latents {lat.numel() * 4 / 1e6:.0f} MB; "
@@ -1733,9 +1988,9 @@ def phase_multikey(card: str, pipe) -> dict:
         raise AssertionError(f"only {exact} of {n} multikey decodes are exact")
     if wrong_acc.min() < 0.3 or wrong_acc.max() > 0.7:
         raise AssertionError("a row decoded under another row's key is not near 0.5")
-    got = (_counters()["chacha20_batch"], _counters()["chacha20_vote"])
-    if got != (calls, calls + 1):
-        raise AssertionError(f"batch kernel and vote kernel launched {got} times for "
+    got = tuple(_counters()[k] for k in ("chacha20_embed", "chacha20_vote", "chacha20_batch"))
+    if got != (calls, calls + 1, 0):
+        raise AssertionError(f"embed, vote and table kernels launched {got} times for "
                              f"{calls} embed calls and {calls + 1} decode calls")
 
     # (b) trace probes against the whole registry: through the records, then
@@ -1821,14 +2076,70 @@ def phase_multikey(card: str, pipe) -> dict:
         raise AssertionError(f"multikey closed-loop bit accuracy {acc} below {MIN_BIT_ACC}")
     if owners != users:
         raise AssertionError(f"recovered latents attributed to {owners}, not {users}")
+    _check_big_rows(card)
     counts = _counters()
-    want_calls = (calls + 1, calls + 1 + chunks * (2 * len(probes) + len(users)) + 1)
-    if (counts["chacha20_batch"], counts["chacha20_vote"]) != want_calls:
-        raise AssertionError(f"batch kernel and vote kernel launched "
-                             f"{(counts['chacha20_batch'], counts['chacha20_vote'])} times "
-                             f"in phase 7; their calls make it {want_calls}")
+    # (e) adds an embed call, a decode call and a probe of one chunk, both in
+    # the vote's stream mode
+    want_calls = (calls + 2, calls + 1 + chunks * (2 * len(probes) + len(users)) + 1 + 2, 2, 0)
+    got = tuple(counts[k] for k in ("chacha20_embed", "chacha20_vote", "chacha20_vote_stream",
+                                    "chacha20_batch"))
+    if got != want_calls:
+        raise AssertionError(f"embed, vote, the vote's stream mode and table kernels "
+                             f"launched {got} times in phase 7; their calls make it "
+                             f"{want_calls}")
     _check_unet_launches(counts, 2 * STEPS)
     return counts
+
+
+def _check_big_rows(card: str) -> None:
+    """7e: a 2048x2048 image at l = 8, 2,097,152 bits a row, past the 3584
+    blocks the vote kernel holds in shared memory: MULTIKEY_MODEL_BATCH
+    latents embedded under their own keys (one embed launch), decoded (one
+    launch of the vote's stream mode) and one probed against their records
+    (one more), each against the plain version on the card."""
+    import numpy as np
+
+    from gswm_torch import GSConfig
+    from gswm_torch.core import chacha
+    from gswm_torch.core.decode import quantize_latent_bits
+    from gswm_torch.core.multikey import (embed_latents_multikey,
+                                          recover_message_bits_multikey)
+    from gswm_torch.eval import trace
+
+    dev = "cuda"
+    cfg = GSConfig(width=paths.BIG_RES, height=paths.BIG_RES, l=paths.BIG_L,
+                   message_bits=256).resolved()
+    n_bits = cfg.capacity_bits
+    rows = paths.MULTIKEY_MODEL_BATCH
+    keys, nonces, messages, records = paths.multikey_material(rows, seed=2048)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lat, _ = embed_latents_multikey(cfg, keys, nonces, messages,
+                                    generator=torch.Generator(device=dev).manual_seed(48))
+    voted = recover_message_bits_multikey(lat, cfg, keys, nonces)
+    best, acc, accs = trace.find_source_device(lat[2], records, l=cfg.l)
+    torch.cuda.synchronize()
+    t = time.perf_counter() - t0
+    want = torch.from_numpy(np.unpackbits(np.frombuffer(b"".join(messages), np.uint8))
+                            .reshape(rows, 256)).to(dev)
+    table = torch.from_numpy(chacha.key_table(keys, nonces).view(np.int32)).to(dev)
+    bits = chacha.pack_bits(quantize_latent_bits(lat, cfg.l), chacha.block_words(n_bits))
+    plain_voted = chacha.batch_vote_reference(table, bits, n_bits, 256)
+    plain_accs = chacha.batch_vote_reference(table, bits[2:3], n_bits, 256,
+                                             chacha.pack_bits(want, 8)).tolist()
+    print(f"   (e) {rows} images of {paths.BIG_RES}x{paths.BIG_RES} at l = {cfg.l} "
+          f"({n_bits} bits a row, past the vote's {chacha.VOTE_MAX_BLOCKS * 512} in shared "
+          f"memory): embedded, decoded and one probed in {t:.4f} s; voted bits equal to the "
+          f"plain version's and to the messages: "
+          f"{torch.equal(voted, plain_voted)}, {torch.equal(voted, want)}; probe 2 -> "
+          f"({best}, {acc}), scores equal to the plain version's: {accs == plain_accs}; "
+          f"on {card}", flush=True)
+    if not torch.equal(voted, plain_voted) or not torch.equal(voted, want):
+        raise AssertionError("7e: the decode at 2,097,152 bits differs from the plain "
+                             "version or the messages")
+    if (best, acc) != (2, 1.0) or accs != plain_accs:
+        raise AssertionError(f"7e: the probe gives {(best, acc)}, scores {accs}, the plain "
+                             f"version {plain_accs}")
 
 
 def phase_fit(card: str) -> dict:
@@ -4153,7 +4464,9 @@ def main() -> None:
     counts["fused_qkv_attention"] -= counts["fused_qkv_attention_mid"]
     # K7's, less what flash_hopper.cu's narrow and flash_mid.cu's kernels ran
     counts["flash_attention_transposed"] -= counts["flash_attention_transposed_narrow"] + \
-        counts["flash_attention_transposed_mid"]
+        counts["flash_attention_transposed_mid"] + counts["flash_attention_transposed_split"]
+    # the vote wrapper's, less what its stream mode ran
+    counts["chacha20_vote"] -= counts["chacha20_vote_stream"]
     _finish_records(records)
     sources = {
         "chacha20": ("gswm_torch/csrc/chacha20.cu",
@@ -4167,6 +4480,14 @@ def main() -> None:
         # gswm/eval/trace.py:88-92 that XLA fuses with it, in one kernel
         "chacha20_vote": ("gswm_torch/csrc/chacha20.cu",
                           "gswm/core/chacha.py:158"),
+        # its stream mode: rows past the 3584 blocks of payload shared memory
+        # holds (a 2048x2048 image at l = 8), the payload a chunk at a time
+        "chacha20_vote_stream": ("gswm_torch/csrc/chacha20.cu",
+                                 "gswm/core/chacha.py:158"),
+        # the block function ending in the multikey embed: the vmapped
+        # keystream, XOR and inverse-CDF map of gswm/core/multikey.py:65-100
+        "chacha20_embed": ("gswm_torch/csrc/chacha20.cu",
+                           "gswm/core/chacha.py:158"),
         "fused_qkv_attention": ("gswm_torch/csrc/fused_qkv.cu",
                                 "gswm/ops/attention.py:689"),
         "flash_attention": ("gswm_torch/csrc/flash_hopper.cu",
@@ -4202,6 +4523,12 @@ def main() -> None:
                                               "gswm/ops/attention.py:1428"),
         "flash_attention_transposed_mid": ("gswm_torch/csrc/flash_mid.cu",
                                            "gswm/ops/attention.py:1428"),
+        # K7 at 160 < d <= 512: flash_split.cu's kernel in the transposed
+        # layout, and where S % 8 != 0 the pre-pass that aligns its rows
+        "flash_attention_transposed_split": ("gswm_torch/csrc/flash_split.cu",
+                                             "gswm/ops/attention.py:1428"),
+        "flash_transposed_align": ("gswm_torch/csrc/flash_transposed.cu",
+                                   "gswm/ops/attention.py:1428"),
         # float32 (phase 13): K1's projection GEMM, and the d = 64 core of K1,
         # K2 (which serves flash_attention_cres) and K4
         "qkv_proj_f32": ("gswm_torch/csrc/qkv_proj_f32.cu", "gswm/ops/attention.py:689"),
@@ -4226,7 +4553,7 @@ def main() -> None:
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=counts[name], **records[name])
                for name, (src, rep) in sources.items()]
-    idle = [k["name"] for k in kernels if k["launches"] < 1]
+    idle = [k["name"] for k in kernels if k["launches"] < 1 and k["name"] not in OFF_PATH]
     if idle:
         raise AssertionError(f"kernels no path launched: {idle}")
     print(json.dumps({"kernels": kernels}))

@@ -15,13 +15,18 @@ Implementations, bit-identical:
   * ``batch_vote`` / ``batch_vote_reference`` — a table of keys against
     packed latent bits (``pack_bits``): XOR, majority vote and, given the
     expected message, the score, in ONE launch of the vote kernel that
-    writes no keystream (attribution and the per-row decode).
+    writes no keystream (attribution and the per-row decode); rows past
+    ``VOTE_MAX_BLOCKS`` blocks in its stream mode (``vote_entry``).
+  * ``batch_embed`` / ``batch_embed_reference`` — a table of keys, each
+    row's diffused payload packed the same way and its uniforms: keystream,
+    XOR, the l-bit windows and the inverse-CDF map to the latent in ONE
+    launch of the embed kernel (the multikey embed).
   * ``keystream_bytes_host`` — numpy on uint32: the plain version of the
     host loop's keystream (``eval.trace.decode_host``), which
     ``eval.trace.find_source`` runs in ``hostlib``'s C++.
 
-``keystream_words``, ``batch_keystream_bits`` and ``batch_vote`` pick by
-device: the plain version for the CPU, the kernel for a CUDA device.
+``keystream_words``, ``batch_keystream_bits``, ``batch_vote`` and
+``batch_embed`` pick by device: the plain version for the CPU, the kernel for a CUDA device.
 ``cached_keystream_bits`` keeps the single-key keystream per (key, nonce,
 length, device), as the JAX package's ``_cached_keystream`` does, so a
 serving loop under one key launches the kernel once.
@@ -233,8 +238,41 @@ def batch_keystream_bits(keys: Sequence[bytes], nonces: Sequence[bytes],
 batch_keystream_bits.launches = 0
 
 # rows of at most this many ChaCha20 blocks (1,835,008 bits): the vote
-# kernel keeps a row's payload words in shared memory, 224 KB
+# kernel keeps a row's payload words in shared memory, 224 KB; longer rows
+# go to its stream mode, which makes them a chunk at a time
 VOTE_MAX_BLOCKS = 3584
+VOTE_ENTRY = "gswm_chacha20_vote"
+VOTE_STREAM_ENTRY = "gswm_chacha20_vote_stream"
+
+
+# the stream mode's split: a row over a cluster of at most this many thread
+# blocks, each counting the windows of an equal share of the row's stream
+# (csrc/chacha20.cu STREAM_MAX_SPLITS)
+VOTE_MAX_SPLITS = 8
+
+
+def vote_entry(n_bits: int) -> str:
+    """The C entry ``batch_vote`` calls for rows of ``n_bits`` bits: the
+    vote kernel's warp and block modes to ``VOTE_MAX_BLOCKS`` blocks, its
+    stream mode past them (csrc/chacha20.cu chacha20_vote_stream_kernel)."""
+    return VOTE_ENTRY if -(-n_bits // BLOCK_BITS) <= VOTE_MAX_BLOCKS else VOTE_STREAM_ENTRY
+
+
+def vote_splits(rows: int, sms: int) -> int:
+    """Thread blocks a row of the stream mode for ``rows`` rows on a card of
+    ``sms`` SMs: the largest power of two to ``VOTE_MAX_SPLITS`` that keeps
+    rows * splits within the SM count, 1 (a block a row) past ``sms / 2``
+    rows.  A block makes its ChaCha20 blocks in turn, so a second block
+    on an SM adds little; the card timed that rule best (PERF.md)."""
+    splits = 1
+    while splits < VOTE_MAX_SPLITS and rows * splits * 2 <= sms:
+        splits *= 2
+    return splits
+
+
+@functools.lru_cache(maxsize=None)
+def _multiprocessors(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _byte_shifts(device) -> torch.Tensor:
@@ -311,7 +349,9 @@ def batch_vote(table: torch.Tensor, latent_words: torch.Tensor, n_bits: int,
     complete segments, a tie giving 0, as ``gswm.eval.trace.
     find_source_device``'s score and ``gswm.core.multikey.
     recover_message_bits_multikey`` compute it.  CPU: the plain version.
-    CUDA: ONE launch of the vote kernel, which writes no keystream."""
+    CUDA: ONE launch of the vote kernel, which writes no keystream, at any
+    row length with rows * blocks < 2^31 (``vote_entry``'s mode; in the
+    stream mode ``vote_splits`` blocks a row)."""
     device = table.device
     rows = table.shape[0]
     ew = -(-message_bits // 32)
@@ -335,9 +375,8 @@ def batch_vote(table: torch.Tensor, latent_words: torch.Tensor, n_bits: int,
         return batch_vote_reference(table, latent_words, n_bits, message_bits, expected)
     if device.type != "cuda":
         raise ValueError(f"batch_vote: unsupported device {device}")
-    if -(-n_bits // BLOCK_BITS) > VOTE_MAX_BLOCKS:
-        raise ValueError(f"batch_vote: {n_bits} bits a row, at most "
-                         f"{VOTE_MAX_BLOCKS * BLOCK_BITS} on the card")
+    if rows * -(-n_bits // BLOCK_BITS) >= 2**31:
+        raise ValueError(f"batch_vote: {rows} rows of {n_bits} bits out of range")
     if not all(t.is_contiguous() for t in (table, latent_words, expected) if t is not None) \
             or latent_words.data_ptr() % 16:
         raise ValueError("batch_vote: the tensors must be contiguous, the latent words "
@@ -348,15 +387,82 @@ def batch_vote(table: torch.Tensor, latent_words: torch.Tensor, n_bits: int,
     else:
         voted = None
         out = scores = torch.empty(rows, dtype=torch.float32, device=device)
-    native.launch(device, "gswm_chacha20_vote", table.data_ptr(), latent_words.data_ptr(),
+    entry = vote_entry(n_bits)
+    split = (vote_splits(rows, _multiprocessors(device)),) if entry == VOTE_STREAM_ENTRY \
+        else ()
+    native.launch(device, entry, table.data_ptr(), latent_words.data_ptr(),
                   latent_words.shape[0], None if expected is None else expected.data_ptr(),
                   None if scores is None else scores.data_ptr(),
-                  None if voted is None else voted.data_ptr(), rows, n_bits, message_bits)
+                  None if voted is None else voted.data_ptr(), rows, n_bits, message_bits,
+                  *split)
     batch_vote.launches += 1
+    batch_vote.stream_launches += entry == VOTE_STREAM_ENTRY
     return out
 
 
 batch_vote.launches = 0
+batch_vote.stream_launches = 0  # of them, the stream mode's (rows past VOTE_MAX_BLOCKS)
+
+
+def batch_embed_reference(table: torch.Tensor, payload_words: torch.Tensor, u: torch.Tensor,
+                          l: int) -> torch.Tensor:
+    """Plain version of ``batch_embed``: the int64 emulation's keystream
+    words XOR the payload words, unpacked to bits, then the l-bit windows,
+    the clamp and ndtri as ``embed._bits_to_latent`` rounds them."""
+    from gswm_torch.core.embed import _bits_to_latent
+
+    elements = u.shape[-1]
+    n_blocks = -(-elements * l // BLOCK_BITS)
+    ks = _table_words_reference(table.to(torch.int64) & _MASK, n_blocks)
+    bits = unpack_bits(ks.reshape(ks.shape[0], -1) ^ payload_words, elements * l)
+    return _bits_to_latent(bits.reshape(-1), u.reshape(-1), l, tuple(u.shape))
+
+
+def batch_embed(table: torch.Tensor, payload_words: torch.Tensor, u: torch.Tensor,
+                l: int) -> torch.Tensor:
+    """R rows of (key, nonce) and payload -> (R, elements) float32 latents:
+    ``table`` (R, 12) int32 rows of ``key_table``'s words; ``payload_words``
+    (R, ``block_words(elements * l)``) int32, each row's diffused payload
+    bits packed by ``pack_bits``; ``u`` (R, elements) float32 uniforms.
+    z = ndtri(clamp((u + y) 2^-l, 1e-7, 1 - 1e-7)) with y the l-bit
+    big-endian windows of payload XOR keystream, as
+    ``gswm.core.multikey.embed_latents_multikey`` maps its cipher bits.  CPU:
+    the plain version.  CUDA: ONE launch of the embed kernel, which writes
+    no keystream and no cipher bits; ``table`` and ``payload_words`` may be
+    views of one buffer (one host-to-device copy)."""
+    device = u.device
+    rows = table.shape[0]
+    if table.dtype != torch.int32 or table.shape != (rows, 12) or rows < 1:
+        raise ValueError(f"batch_embed: table {tuple(table.shape)} {table.dtype}, "
+                         "want (R, 12) int32")
+    if not 1 <= l <= 8 or u.dtype != torch.float32 or u.dim() != 2 or u.shape[0] != rows:
+        raise ValueError(f"batch_embed: u {tuple(u.shape)} {u.dtype} at l = {l}, want "
+                         f"({rows}, elements) float32 and 1 <= l <= 8")
+    elements = u.shape[1]
+    words = block_words(elements * l)
+    if payload_words.dtype != torch.int32 or payload_words.shape != (rows, words):
+        raise ValueError(f"batch_embed: payload words {tuple(payload_words.shape)} "
+                         f"{payload_words.dtype}, want ({rows}, {words}) int32")
+    if table.device != device or payload_words.device != device:
+        raise ValueError("batch_embed: the tensors lie on different devices")
+    if device.type == "cpu":
+        return batch_embed_reference(table, payload_words, u, l)
+    if device.type != "cuda":
+        raise ValueError(f"batch_embed: unsupported device {device}")
+    if rows * (words // 16) >= 2**31:
+        raise ValueError(f"batch_embed: {rows} rows of {elements * l} bits out of range")
+    if not all(t.is_contiguous() for t in (table, payload_words, u)) \
+            or payload_words.data_ptr() % 16 or u.data_ptr() % 16:
+        raise ValueError("batch_embed: the tensors must be contiguous, the payload words "
+                         "and u 16-byte aligned")
+    z = torch.empty_like(u)
+    native.launch(device, "gswm_chacha20_embed", table.data_ptr(), payload_words.data_ptr(),
+                  u.data_ptr(), z.data_ptr(), rows, elements, l)
+    batch_embed.launches += 1
+    return z
+
+
+batch_embed.launches = 0
 
 
 def _rotl_host(x: np.ndarray, n: int) -> np.ndarray:

@@ -1,12 +1,13 @@
 """Multi-key / multi-message batching: PyTorch port of ``gswm.core.multikey``.
 
 Serving scenario: every image of a batch carries its OWN key, nonce and
-message (per-user traceability, 10,000 images and more).  Embed takes the
-keystreams of all rows from one call (``chacha.batch_keystream_bits``: on
-the card ONE launch of the batch ChaCha20 kernel over a table of keys, on
-the CPU its plain version); decode is one ``chacha.batch_vote`` call (ONE
-launch of the vote kernel: keystream, XOR and majority vote, a latent row a
-key, no keystream in device memory).
+message (per-user traceability, 10,000 images and more).  Embed is one
+``chacha.batch_embed`` call (on the card ONE launch of the embed kernel
+from the table of keys and the packed payloads, copied in one
+host-to-device copy, to the latents: no keystream and no cipher bits in
+device memory; on the CPU its plain version); decode is one
+``chacha.batch_vote`` call (ONE launch of the vote kernel: keystream, XOR
+and majority vote, a latent row a key, no keystream in device memory).
 
 Geometry (width, height, l, message_bits) is shared across the batch; mixed
 geometries are separate calls.
@@ -21,11 +22,9 @@ import numpy as np
 import torch
 
 from gswm_torch.config import GSConfig, prepare_message_bytes
-from gswm_torch.core import bits as bitops
 from gswm_torch.core import chacha
 from gswm_torch.core.chacha import batch_keystream_bits
 from gswm_torch.core.decode import quantize_latent_bits
-from gswm_torch.core.embed import _bits_to_latent
 
 __all__ = ["batch_keystream_bits", "embed_latents_multikey",
            "recover_message_bits_multikey"]
@@ -54,11 +53,7 @@ def embed_latents_multikey(
         raise ValueError(f"{b} keys, {len(nonces)} nonces, {len(messages)} messages")
     msg_bytes = [prepare_message_bytes(m, cfg.message_bytes_len, cfg.repeat4)
                  for m in messages]
-    payload = np.stack([
-        bitops.diffuse_payload(bitops.bytes_to_bits(m), cfg.capacity_bits)
-        for m in msg_bytes])
-    ks = batch_keystream_bits(keys, nonces, cfg.capacity_bits, device)
-    cipher = torch.from_numpy(payload).to(device) ^ ks
+    table, words = _table_and_payload(keys, nonces, msg_bytes, cfg.capacity_bits, device)
     if u is None:
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(
@@ -69,10 +64,29 @@ def embed_latents_multikey(
         u = torch.as_tensor(u, dtype=torch.float32).to(device).reshape(
             b, cfg.total_elements)
     h, w = cfg.latent_hw
-    # the rows share l and the shape, so the single-key map takes the batch
-    lat = _bits_to_latent(cipher.reshape(-1), u.reshape(-1), cfg.l,
-                          (b, cfg.channels, h, w))
-    return lat, msg_bytes
+    lat = chacha.batch_embed(table, words, u, cfg.l)
+    return lat.reshape(b, cfg.channels, h, w), msg_bytes
+
+
+def _table_and_payload(keys, nonces, msg_bytes: Sequence[bytes], capacity_bits: int,
+                       device):
+    """(rows, 12) key table and (rows, ``chacha.block_words``) payload words,
+    both views of ONE buffer on ``device``: one host-to-device copy.  A
+    row's words are ``bitops.diffuse_payload`` of its message packed as
+    ``chacha.pack_bits`` packs bits; a message is whole bytes, so its copies
+    tile whole bytes, and the packing is the message bytes repeated, zeros
+    after (np.packbits' bytes, viewed as int32 on a little-endian host).  48
+    bytes a table row keep the payload 16-byte aligned."""
+    rows = len(msg_bytes)
+    n_words = chacha.block_words(capacity_bits)
+    msgs = np.frombuffer(b"".join(msg_bytes), np.uint8).reshape(rows, -1)
+    copies = capacity_bits // (8 * msgs.shape[1])
+    packed = np.zeros((rows, 4 * n_words), np.uint8)
+    packed[:, :copies * msgs.shape[1]] = np.tile(msgs, (1, copies))
+    flat = np.concatenate([chacha.key_table(keys, nonces).view(np.int32).ravel(),
+                           packed.view("<i4").ravel()])
+    buf = torch.from_numpy(flat).to(device)
+    return buf[:12 * rows].view(rows, 12), buf[12 * rows:].view(rows, n_words)
 
 
 def recover_message_bits_multikey(

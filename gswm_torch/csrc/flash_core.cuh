@@ -2,9 +2,10 @@
 // launcher (flash_split.cu), which the fused-qkv kernel (fused_qkv.cu)
 // launches after its projections, and the launchers it dispatches to:
 // d <= 64 (flash_hopper.cu) and 64 < d <= 160 (flash_mid.cu); and the
-// transposed layout's launchers of those two kernels, which
-// flash_transposed.cu dispatches to at d <= 48 and 64 < d <= 160, by tensor
-// maps or with the boxes by hand.
+// transposed layout's launchers of those three kernels, which
+// flash_transposed.cu dispatches to at d <= 48 and 64 < d <= 160 (by tensor
+// maps or with the boxes by hand) and at d > 160 (by tensor maps, over
+// scratch of an aligned token pitch where S % 8 != 0).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -51,3 +52,11 @@ cudaError_t gswm_launch_flash_narrow_transposed(const __nv_bfloat16* qkv_t,
 cudaError_t gswm_launch_flash_mid_transposed(const __nv_bfloat16* qkv_t, __nv_bfloat16* out_t,
                                              int B, int S, int H, int d, bool rows,
                                              cudaStream_t stream);
+
+// ... and flash_split.cu's kernel at 160 < d <= 512 by tensor maps: qkv the
+// (3 H d, B, pitch) stacked bands, pitch % 8 == 0 and pitch >= S (tokens
+// from S to the pitch are never read); the (H d, B, S) output stored by
+// hand (any S) or by TMA (S % 8 == 0).
+cudaError_t gswm_launch_flash_split_transposed(const __nv_bfloat16* qkv, int pitch,
+                                               __nv_bfloat16* out, bool out_by_hand, int B,
+                                               int S, int H, int d, cudaStream_t stream);

@@ -856,24 +856,13 @@ int combine(const float* ws, float* out, float* lse, int B, int Sq, int H, int d
 }
 
 // The first design's entries: the pre-pass and the unsplit core on scratch
-// from the stream's pool, freed in stream order after the core.
+// from the stream's pool (its policy left as it is), freed in stream order
+// after the core.
 int unsplit(const float* q, const float* k, const float* v, float* out, float* lse, int B,
             int Sq, int Sk, int H, int d, size_t q_pitch, size_t kv_pitch, size_t out_pitch,
             bool transposed, bool vec, void* stream) {
   if (!takes(B, Sq, H, d) || Sk < 1) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // the pool keeps what it was given (its default hands memory back at
-  // every synchronisation, and each call would map it anew)
-  static const cudaError_t kept = [] {
-    int dev = 0;
-    cudaMemPool_t pool;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) e = cudaDeviceGetDefaultMemPool(&pool, dev);
-    uint64_t all = UINT64_MAX;
-    if (e == cudaSuccess) e = cudaMemPoolSetAttribute(pool, cudaMemPoolAttrReleaseThreshold, &all);
-    return e;
-  }();
-  if (kept != cudaSuccess) return static_cast<int>(kept);
   void* scratch = nullptr;
   cudaError_t e = cudaMallocAsync(&scratch, 4 * scratch_floats(B, Sk, H, d) * sizeof(float), st);
   if (e != cudaSuccess) return static_cast<int>(e);

@@ -1,5 +1,6 @@
 // Split flash attention on (B, S, H, d) bf16 q/k/v, any head dim d with
-// d % 8 == 0 up to 512, any Sq and Sk.  d <= 64 goes to the kernels of
+// d % 8 == 0 up to 512, any Sq and Sk; and on the transposed layout's
+// stacked (3 H d, B, S) projection output at 160 < d <= 512 (K7, below).  d <= 64 goes to the kernels of
 // flash_hopper.cu, 64 < d <= 160 (SD 1.x's 80 and 160) to flash_mid.cu's;
 // the kernel in this file runs 160 < d <= 512 on wgmma, TMA and mbarriers,
 // instantiated at the panel widths D = 192 ... 512 (D = d rounded up to a
@@ -75,6 +76,22 @@
 // TMA store drops those rows.  Sequence-parallel ring attention
 // (ops/ring_attention.py) merges its per-shard partials by it; with the flag
 // off the kernels are what they were.
+// The transposed layout (K7 at 160 < d <= 512, gswm/ops/attention.py:1428
+// flash_attention_transposed -> _flash_kernel_T): the same kernel with the
+// layout a template parameter (hopper.cuh Layout), as flash_hopper.cu's
+// narrow kernel and flash_mid.cu's take it.  The tiles arrive by the
+// (S, B, d, 3 H) tensor map of the stacked projection output, a panel 64
+// rows of d by 64 tokens: q and k are MN-major operands of the logits, v a
+// K-major operand of p v, and the output goes transposed into the q tile's
+// panels (hopper.cuh store_tile_out) and out by TMA; the products, the
+// softmax and their order are the natural layout's, so K7's output equals
+// K4's on the same q, k and v bit for bit.  Where S % 8 != 0 no tensor map
+// reaches the rows: the launcher's caller copies the input into scratch
+// whose token pitch is rounded up to 8 (flash_transposed.cu's pre-pass,
+// align_tokens_kernel) and the tensor maps read the scratch at the true S;
+// the output is then stored by hand (Layout::rows, hopper.cuh
+// store_box_rows) into the true array, or by TMA into padded scratch that
+// the caller copies back.  The natural instances are the ones they were.
 // Not done here: a cluster of two blocks along the query axis sharing each k
 // and v tile by multicast (halves the L2 traffic), and a split of the keys
 // across blocks for the second wave's tail at batch 1.
@@ -131,13 +148,19 @@ struct Smem {
 
 // One consumer warpgroup: the logits and softmax of the block's 64 rows, and
 // the output columns of panels [P0, P0 + PN).  LSE: consumer 0 also stores
-// the rows' log-sum-exp (both hold the same m and l).
-template <int D, int P0, int PN, bool LSE>
-__device__ __forceinline__ void consume(Smem<D>& sm, const CUtensorMap* map_o, int Sk,
+// the rows' log-sum-exp (both hold the same m and l).  L: the layout of the
+// tiles; LO: the output's (the transposed layout's by hand, Layout::rows, or
+// L itself by TMA).
+template <int D, Layout L, Layout LO, int P0, int PN, bool LSE>
+__device__ __forceinline__ void consume(Smem<D>& sm, const Operand<LO>* map_o, int Sk,
                                         int row0, int h, int b, float scale, float* lse,
                                         int Sq) {
   constexpr int NP = Tile<D>::NP;
   constexpr int STAGES = Tile<D>::STAGES;
+  constexpr bool T = L == Layout::transposed;  // q and k MN-major, v K-major
+  static_assert(L != Layout::rows && (LO == L || (T && LO == Layout::rows)),
+                "tiles by TMA; the output by TMA in their layout, or transposed by hand");
+  static_assert(!(T && LSE), "the transposed layout has no lse output");
   const int warp = (threadIdx.x >> 5) & 3;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
@@ -171,9 +194,14 @@ __device__ __forceinline__ void consume(Smem<D>& sm, const CUtensorMap* map_o, i
       const uint64_t dq = smem_desc_sw128(sm.q + j * PANEL);
       const uint64_t dk = smem_desc_sw128(sm.k[stage] + j * PANEL);
 #pragma unroll
-      for (int kk = 0; kk < ROW_ELEMS / 16; ++kk)
-        wgmma_m64n64k16_ss<0, 0>(s, dq + kk * DESC_K_STEP, dk + kk * DESC_K_STEP,
-                                 j + kk > 0);
+      for (int kk = 0; kk < ROW_ELEMS / 16; ++kk) {
+        if constexpr (T)  // d runs down the rows of both panels
+          wgmma_m64n64k16_ss<1, 1>(s, dq + kk * DESC_MN_STEP, dk + kk * DESC_MN_STEP,
+                                   j + kk > 0);
+        else
+          wgmma_m64n64k16_ss<0, 0>(s, dq + kk * DESC_K_STEP, dk + kk * DESC_K_STEP,
+                                   j + kk > 0);
+      }
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -193,8 +221,12 @@ __device__ __forceinline__ void consume(Smem<D>& sm, const CUtensorMap* map_o, i
     for (int j = 0; j < PN; ++j) {
       const uint64_t dv = smem_desc_sw128(sm.v[stage] + (P0 + j) * PANEL);
 #pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk)
-        wgmma_m64n64k16_rs(o[j], p[kk], dv + kk * DESC_MN_STEP);
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        if constexpr (T)  // the keys run along v's rows
+          wgmma_m64n64k16_rs<0>(o[j], p[kk], dv + kk * DESC_K_STEP);
+        else
+          wgmma_m64n64k16_rs(o[j], p[kk], dv + kk * DESC_MN_STEP);
+      }
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -216,28 +248,35 @@ __device__ __forceinline__ void consume(Smem<D>& sm, const CUtensorMap* map_o, i
   const float inv_hi = 1.0f / sum_hi;
 #pragma unroll
   for (int j = 0; j < PN; ++j)
-    store_tile_sw128(sm.q + (P0 + j) * PANEL, o[j], inv_lo, inv_hi, warp, g, t4);
+    store_tile_out<L>(sm.q + (P0 + j) * PANEL, o[j], inv_lo, inv_hi, warp, g, t4);
   if constexpr (LSE && P0 == 0)
     store_lse(lse, Sq, row0 + warp * 16 + g, m_lo, m_hi, sum_lo, sum_hi, log2e, t4);
   fence_async_smem();
   named_barrier(2 + (P0 > 0), 128);
-  if ((threadIdx.x & 127) == 0) {
+  if constexpr (LO == Layout::rows) {  // by hand: every thread of the warpgroup
 #pragma unroll
     for (int j = 0; j < PN; ++j)
-      tma_store_4d(map_o, sm.q + (P0 + j) * PANEL, (P0 + j) * ROW_ELEMS, h, row0, b);
+      tma_store_panel<LO>(map_o, sm.q + (P0 + j) * PANEL, P0 + j, h, row0, b);
+  } else if ((threadIdx.x & 127) == 0) {
+#pragma unroll
+    for (int j = 0; j < PN; ++j)
+      tma_store_panel<LO>(map_o, sm.q + (P0 + j) * PANEL, P0 + j, h, row0, b);
     tma_store_wait();
   }
 }
 
 // Grid (query blocks of 64 rows, H, B).  scale = d^-0.5 of the true d <= D.
 // LSE: each row's log-sum-exp into lse (B, H, Sq) fp32; else lse and Sq are
-// not read.
-template <int D, bool LSE>
+// not read.  L natural: q, k, v and out by their own maps; transposed: q, k
+// and v are heads h, H + h and 2 H + h (H = gridDim.y) of the one map of the
+// stacked bands, Sk = S, and the output goes to map_o (LO: by TMA, or by
+// hand).
+template <int D, Layout L, Layout LO, bool LSE>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_split_kernel(const __grid_constant__ CUtensorMap map_q,
                    const __grid_constant__ CUtensorMap map_k,
                    const __grid_constant__ CUtensorMap map_v,
-                   const __grid_constant__ CUtensorMap map_o, int Sk, float scale,
+                   const __grid_constant__ Operand<LO> map_o, int Sk, float scale,
                    float* lse, int Sq) {
   constexpr int NP = Tile<D>::NP;
   constexpr int NP0 = Tile<D>::NP0;
@@ -265,23 +304,26 @@ flash_split_kernel(const __grid_constant__ CUtensorMap map_q,
   if (group == 0) {
     reg_dec<40>();
     if (threadIdx.x == 0) {
+      // the heads of k and v: their own maps' h, or the bands' H + h, 2 H + h
+      const int hk = L == Layout::transposed ? (int)gridDim.y + h : h;
+      const int hv = L == Layout::transposed ? 2 * (int)gridDim.y + h : h;
       const int tiles = (Sk + BN - 1) / BN;
       mbar_expect_tx(&sm.full_q, Tile<D>::BYTES);
       for (int j = 0; j < NP; ++j)
-        tma_load_4d(sm.q + j * PANEL, &map_q, &sm.full_q, j * ROW_ELEMS, h, row0, b);
+        tma_load_panel<L>(sm.q + j * PANEL, &map_q, &sm.full_q, j, h, row0, b);
       int stage = 0;
       uint32_t phase = 0;
       for (int t = 0; t < tiles; ++t) {
         mbar_wait(&sm.empty_k[stage], phase ^ 1);
         mbar_expect_tx(&sm.full_k[stage], Tile<D>::BYTES);
         for (int j = 0; j < NP; ++j)
-          tma_load_4d(sm.k[stage] + j * PANEL, &map_k, &sm.full_k[stage], j * ROW_ELEMS, h,
-                      t * BN, b);
+          tma_load_panel<L>(sm.k[stage] + j * PANEL, &map_k, &sm.full_k[stage], j, hk, t * BN,
+                            b);
         mbar_wait(&sm.empty_v[stage], phase ^ 1);
         mbar_expect_tx(&sm.full_v[stage], Tile<D>::BYTES);
         for (int j = 0; j < NP; ++j)
-          tma_load_4d(sm.v[stage] + j * PANEL, &map_v, &sm.full_v[stage], j * ROW_ELEMS, h,
-                      t * BN, b);
+          tma_load_panel<L>(sm.v[stage] + j * PANEL, &map_v, &sm.full_v[stage], j, hv, t * BN,
+                            b);
         if (++stage == STAGES) {
           stage = 0;
           phase ^= 1;
@@ -291,9 +333,9 @@ flash_split_kernel(const __grid_constant__ CUtensorMap map_q,
   } else {
     reg_inc<232>();
     if (group == 1)
-      consume<D, 0, NP0, LSE>(sm, &map_o, Sk, row0, h, b, scale, lse, Sq);
+      consume<D, L, LO, 0, NP0, LSE>(sm, &map_o, Sk, row0, h, b, scale, lse, Sq);
     else
-      consume<D, NP0, NP - NP0, LSE>(sm, &map_o, Sk, row0, h, b, scale, lse, Sq);
+      consume<D, L, LO, NP0, NP - NP0, LSE>(sm, &map_o, Sk, row0, h, b, scale, lse, Sq);
   }
 }
 
@@ -311,14 +353,46 @@ cudaError_t start(const bf16* q, const bf16* k, const bf16* v, bf16* out, int B,
   if (e == cudaSuccess) e = head_map(&mk, k, B, Sk, H, d, ld, BN);
   if (e == cudaSuccess) e = head_map(&mv, v, B, Sk, H, d, ld, BN);
   if (e == cudaSuccess) e = head_map(&mo, out, B, Sq, H, d, ld, BM);
+  auto kernel = flash_split_kernel<D, Layout::natural, Layout::natural, LSE>;
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(flash_split_kernel<D, LSE>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   dim3 grid((Sq + BM - 1) / BM, H, B);
-  flash_split_kernel<D, LSE><<<grid, THREADS, smem, stream>>>(
-      mq, mk, mv, mo, Sk, 1.0f / sqrtf((float)d), lse, Sq);
+  kernel<<<grid, THREADS, smem, stream>>>(mq, mk, mv, mo, Sk, 1.0f / sqrtf((float)d), lse, Sq);
   return cudaGetLastError();
+}
+
+// The transposed layout: m_in the (S, B, d, 3 H) map of the stacked bands,
+// m_out the output's map (LO transposed) or the output addressed by hand
+// (LO rows); no lse.
+template <int D, Layout LO>
+cudaError_t start_transposed(const CUtensorMap& m_in, const Operand<LO>& m_out, int B, int S,
+                             int H, int d, cudaStream_t stream) {
+  constexpr int smem = (int)sizeof(Smem<D>) + SWIZZLE_SPAN;
+  static_assert(smem <= SMEM_LIMIT, "above the 227 KB a block may opt into");
+  auto kernel = flash_split_kernel<D, Layout::transposed, LO, false>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((S + BM - 1) / BM, H, B);
+  kernel<<<grid, THREADS, smem, stream>>>(m_in, m_in, m_in, m_out, S, 1.0f / sqrtf((float)d),
+                                          nullptr, S);
+  return cudaGetLastError();
+}
+
+template <Layout LO>
+cudaError_t launch_transposed(const CUtensorMap& m_in, const Operand<LO>& m_out, int B, int S,
+                              int H, int d, cudaStream_t stream) {
+  // the panel width: d rounded up to a multiple of 64
+  switch ((d + ROW_ELEMS - 1) / ROW_ELEMS * ROW_ELEMS) {
+    case 192: return start_transposed<192, LO>(m_in, m_out, B, S, H, d, stream);
+    case 256: return start_transposed<256, LO>(m_in, m_out, B, S, H, d, stream);
+    case 320: return start_transposed<320, LO>(m_in, m_out, B, S, H, d, stream);
+    case 384: return start_transposed<384, LO>(m_in, m_out, B, S, H, d, stream);
+    case 448: return start_transposed<448, LO>(m_in, m_out, B, S, H, d, stream);
+    case 512: return start_transposed<512, LO>(m_in, m_out, B, S, H, d, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // lse nullptr: the kernel without the lse store
@@ -353,6 +427,23 @@ cudaError_t gswm_launch_flash_split(const bf16* q, const bf16* k, const bf16* v,
     case 512: return launch<512>(q, k, v, out, B, Sq, Sk, H, D, stream, lse);
     default: return cudaErrorInvalidValue;
   }
+}
+
+cudaError_t gswm_launch_flash_split_transposed(const bf16* qkv, int pitch, bf16* out,
+                                               bool out_by_hand, int B, int S, int H, int d,
+                                               cudaStream_t stream) {
+  if (B < 1 || S < 1 || H < 1 || B > 65535 || H > 65535 || d <= MID_MAX_D || d > 512 ||
+      d % 8 || pitch < S || pitch % 8)
+    return cudaErrorInvalidValue;
+  CUtensorMap m_in;
+  cudaError_t e = band_map(&m_in, qkv, 3 * H, d, B, S, pitch);
+  if (e != cudaSuccess) return e;
+  if (out_by_hand)  // into the (H d, B, S) output at any S
+    return launch_transposed<Layout::rows>(m_in, BandRows{out, B, S, d}, B, S, H, d, stream);
+  CUtensorMap m_out;
+  e = band_map(&m_out, out, H, d, B, S);
+  if (e != cudaSuccess) return e;
+  return launch_transposed<Layout::transposed>(m_in, m_out, B, S, H, d, stream);
 }
 
 // q, out: (B, Sq, H, D); k, v: (B, Sk, H, D); bf16 device pointers, rows

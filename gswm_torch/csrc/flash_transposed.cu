@@ -34,25 +34,31 @@
 // batch b + 1.  A panel lands as 64 rows (d) of 128 bytes (64 tokens) in
 // hopper.cuh's one layout.  Where S % 8 != 0 (324 tokens at SD 1.x's and
 // SD 2.x's level 2 at 576x576, 988 at SDXL's 832x1216 level 2) the rows
-// start at any even byte address and no tensor map can address them: the
-// same boxes are loaded and stored by hand (hopper.cuh Layout::rows, "boxes
-// by hand"), into the same tiles, and every design's wgmma loop runs as it
-// is.  Four designs, chosen by d alone (launch_design), each in both forms:
+// start at any even byte address and no tensor map can address them: at d
+// <= 160 the same boxes are loaded and stored by hand (hopper.cuh
+// Layout::rows, "boxes by hand"), into the same tiles, and every design's
+// wgmma loop runs as it is; above 160 a pre-pass copies the input into
+// scratch whose token pitch is rounded up to 8 (align_tokens_kernel, below)
+// and the tensor maps read that.  Four designs, chosen by d alone
+// (launch_design):
 //
 //   d <= 48               flash_hopper.cu's flash_narrow_kernel, transposed
 //   48 < d <= 64          flash_transposed_kernel (below)
 //   64 < d <= 160         flash_mid.cu's flash_mid_kernel, transposed
-//   d > 160               flash_transposed_split_kernel (below), 192 ... 512
+//   d > 160               flash_split.cu's flash_split_kernel, transposed,
+//                         by tensor maps at every S (the pre-pass first
+//                         where S % 8 != 0)
 //
-// d <= 48 (SD 1.x's 40 at level 0) and 64 < d <= 160 (its 80 and 160 at
-// levels 1 and 2): the natural layout's own designs, the layout a template
-// parameter of their one body (hopper.cuh Layout; launchers in
+// d <= 48 (SD 1.x's 40 at level 0), 64 < d <= 160 (its 80 and 160 at
+// levels 1 and 2) and d > 160: the natural layout's own designs, the layout
+// a template parameter of their one body (hopper.cuh Layout; launchers in
 // flash_core.cuh): the narrow kernel's three warpgroups in turns, logits of
 // tile t + 1 with p v of tile t, row sums on the tensor cores and p v at N =
 // 48; the mid kernel's one warpgroup owning 64 tokens across the whole d,
-// full 64-row panels and a tail rounded up to 16 rows.  Their output equals
-// the natural layout's kernel's on the same q, k and v bit for bit, in both
-// forms.
+// full 64-row panels and a tail rounded up to 16 rows; the split kernel's
+// two consumer warpgroups sharing 64 query tokens, each owning half of d's
+// panels.  Their output equals the natural layout's kernel's on the same q,
+// k and v bit for bit, in every form.
 //
 // 48 < d <= 64 (SD 2.x's and SDXL's 64): flash_transposed_kernel,
 // flash_hopper.cu's d <= 64 design (one producer warpgroup, one or two
@@ -72,21 +78,23 @@
 //     and out by one TMA store (or by hand), which drops tokens at or past S
 //     and rows at or past d.
 //
-// 160 < d <= 512: flash_transposed_split_kernel, flash_split.cu's design on
-// the transposed boxes, instantiated at the panel widths D = 192 ... 512 (d
-// rounded up to a multiple of 64).  A 64 x 512 fp32 accumulator would be 256
-// registers a thread for one warpgroup, so two consumer warpgroups share 64
-// query tokens: both compute the whole 64 x 64 logits tile, reducing over
-// all D / 64 panels of d (each panel as above), and each owns half of the
-// output's panels (consumer 0 the first ceil(D / 128)), adding p v for its
-// panels and storing them.  64-key tiles of k and v go through a ring whose
-// depth follows from D, as in flash_split.cu (4 stages at D <= 192, 1 from
-// D = 384 up).
-
+// d > 160 where S % 8 != 0 (boxes copied by hand, the earlier form, ran 16x
+// the natural kernel's time at (1, 1001, 1, 512): the copies, not the
+// products): align_tokens_kernel copies the (3 H d, B, S) input into
+// scratch from the stream's pool (cudaMallocAsync, the pool's policy left
+// as it is) with a token pitch of S rounded up to 8, 16 bytes a thread on
+// the scratch's side, and the split kernel's tensor maps read it at the
+// true S (tokens past S arrive as zeros whatever the pitch holds); the
+// output is stored by hand into the true array (a TMA store into scratch
+// copied back timed slower at d = 192 and 256).  What bounds the pre-pass
+// is its bytes: the input read once and written once, 3 / 4 of K7's own
+// bytes twice over, microseconds against the products' tens.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 #include "flash_core.cuh"
 #include "hopper.cuh"
@@ -295,253 +303,84 @@ cudaError_t launch(const Band<ROWS>& m_in, const Band<ROWS>& m_out, int B, int S
   return cudaGetLastError();
 }
 
-// ------------------------------------------- 160 < d <= 512: D split in two ----
+// ------------------------------------- 160 < d <= 512: the aligning pre-pass ----
 
-namespace split {
+constexpr int MOVE_THREADS = 256;
 
-constexpr int BN = 64;  // keys per tile: one panel wide
-constexpr int CONSUMERS = 2;
-constexpr int THREADS = (1 + CONSUMERS) * 128;
-constexpr int SMEM_LIMIT = 232448;  // the 227 KB a block may opt into
-constexpr int MAX_STAGES = 4;
-
-template <int DP, bool ROWS = false>
-struct Tile {
-  static_assert(DP % 64 == 0 && DP >= 192 && DP <= 512,
-                "the panel width is a multiple of 64, 192 to 512");
-  static constexpr int NP = DP / 64;         // panels of a head
-  static constexpr int NP0 = (NP + 1) / 2;   // consumer 0's; consumer 1 takes the rest
-  static constexpr int ELEMS = NP * PANEL;   // a 64-token tile of q, k or v
-  static constexpr int BYTES = ELEMS * (int)sizeof(bf16);
-  // boxes by hand (ROWS): the side buffers of a tile's boxes (hopper.cuh
-  // ROWS_SIDE), q's with 16 bytes to align them
-  static constexpr int SIDE = ROWS ? NP * ROWS_SIDE_BYTES : 0;
-  static constexpr int SIDE_Q = ROWS ? SIDE + 16 : 0;
-  static constexpr int FIT =
-      (SMEM_LIMIT - SWIZZLE_SPAN - 256 - BYTES - SIDE_Q) / (2 * (BYTES + SIDE));
-  static constexpr int STAGES = FIT > MAX_STAGES ? MAX_STAGES : FIT;
-  static_assert(STAGES >= 1, "q, one k and one v tile must fit");
-};
-
-template <int DP, bool ROWS = false>
-struct Smem {
-  static constexpr int STAGES = Tile<DP, ROWS>::STAGES;
-  bf16 q[Tile<DP, ROWS>::ELEMS];  // scaled in place; later the output tile
-  bf16 k[STAGES][Tile<DP, ROWS>::ELEMS];
-  bf16 v[STAGES][Tile<DP, ROWS>::ELEMS];
-  uint64_t full_q;
-  uint64_t full_k[STAGES];
-  uint64_t full_v[STAGES];
-  uint64_t empty_k[STAGES];  // every consumer warp has its logits of the stage's k
-  uint64_t empty_v[STAGES];  // every consumer warp has added the stage's p v
-};
-
-// One consumer warpgroup: the logits and softmax of the block's 64 tokens,
-// and the output rows of d in panels [P0, P0 + PN).
-template <int DP, int P0, int PN, bool ROWS>
-__device__ __forceinline__ void consume(Smem<DP, ROWS>& sm, const Band<ROWS>* map_out, int S,
-                                        int tok0, int h, int b, float scale) {
-  constexpr int NP = Tile<DP, ROWS>::NP;
-  constexpr int STAGES = Tile<DP, ROWS>::STAGES;
-  const int warp = (threadIdx.x >> 5) & 3;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  const int tiles = (S + BN - 1) / BN;
-
-  float o[PN][32];  // tokens 16 * warp + g (lo) and + 8 (hi), 64 rows of d a panel
+// rows of S bf16 tokens at any even address (src) into rows of `pitch`
+// (pitch % 8 == 0, pitch >= S), tokens S ... pitch - 1 zero: a thread a
+// 16-byte chunk of the destination, read as 4-byte pairs where S is even
+// and as elements where it is odd.
+__global__ void __launch_bounds__(MOVE_THREADS)
+align_tokens_kernel(const bf16* __restrict__ src, bf16* __restrict__ dst, long long rows, int S,
+                    int pitch) {
+  const int chunks = pitch / 8;
+  const long long n = rows * chunks;
+  const unsigned short* in = reinterpret_cast<const unsigned short*>(src);
+  for (long long i = blockIdx.x * (long long)MOVE_THREADS + threadIdx.x; i < n;
+       i += (long long)gridDim.x * MOVE_THREADS) {
+    const long long r = i / chunks;
+    const int t0 = (int)(i - r * chunks) * 8;
+    const long long at = r * S + t0;
+    uint32_t w[4];
+    if ((S & 1) == 0 && t0 + 8 <= S) {  // four aligned pairs
+      const uint32_t* pairs = reinterpret_cast<const uint32_t*>(in + at);
 #pragma unroll
-  for (int j = 0; j < PN; ++j)
+      for (int k = 0; k < 4; ++k) w[k] = __ldg(pairs + k);
+    } else {
 #pragma unroll
-    for (int i = 0; i < 32; ++i) o[j][i] = 0.0f;
-  float s[32];
-  float m_lo = -INFINITY, m_hi = -INFINITY;
-  float l_lo = 0.0f, l_hi = 0.0f;
-
-  // q scaled by d^-0.5 in fp32 and rounded to bf16, by both consumers
-  wait_full<ROWS>(&sm.full_q, 0);
-  scale_tile(sm.q, Tile<DP, ROWS>::ELEMS, scale, threadIdx.x - 128, CONSUMERS * 128);
-  fence_async_smem();
-  named_barrier(1, CONSUMERS * 128);
-
-  const float log2e = 1.4426950408889634f;
-  int stage = 0;
-  uint32_t phase = 0;
-  for (int t = 0; t < tiles; ++t) {
-    wait_full<ROWS>(&sm.full_k[stage], phase);
-    wgmma_fence();
-#pragma unroll
-    for (int j = 0; j < NP; ++j) {
-      const uint64_t dq = smem_desc_sw128(sm.q + j * PANEL);
-      const uint64_t dk = smem_desc_sw128(sm.k[stage] + j * PANEL);
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_m64n64k16_ss<1, 1>(s, dq + kk * DESC_MN_STEP, dk + kk * DESC_MN_STEP,
-                                 j + kk > 0);
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(s);
-    if (lane == 0) mbar_arrive(&sm.empty_k[stage]);
-
-    // p rounded to bf16, in wgmma's A layout; keys past S masked
-    uint32_t p[BN / 16][4];
-    float a_lo, a_hi;
-    softmax_tile<BN / 8>(s, p, m_lo, m_hi, l_lo, l_hi, a_lo, a_hi, S - t * BN, log2e, t4);
-#pragma unroll
-    for (int j = 0; j < PN; ++j) scale_rows(o[j], a_lo, a_hi);
-
-    wait_full<ROWS>(&sm.full_v[stage], phase);
-    wgmma_fence();
-#pragma unroll
-    for (int j = 0; j < PN; ++j) {
-      const uint64_t dv = smem_desc_sw128(sm.v[stage] + (P0 + j) * PANEL);
-#pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk)
-        wgmma_m64n64k16_rs<0>(o[j], p[kk], dv + kk * DESC_K_STEP);
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-#pragma unroll
-    for (int j = 0; j < PN; ++j) fence_regs(o[j]);
-    if (lane == 0) mbar_arrive(&sm.empty_v[stage]);
-    if (++stage == STAGES) {
-      stage = 0;
-      phase ^= 1;
-    }
-  }
-
-  // the other consumer may still read q for its last logits: wait for it,
-  // then the owned panels of the q tile take the output
-  named_barrier(1, CONSUMERS * 128);
-  const float inv_lo = 1.0f / quad_sum(l_lo);
-  const float inv_hi = 1.0f / quad_sum(l_hi);
-#pragma unroll
-  for (int j = 0; j < PN; ++j)
-    store_tile_transposed(sm.q + (P0 + j) * PANEL, o[j], inv_lo, inv_hi, warp, g, t4);
-  fence_async_smem();
-  named_barrier(2 + (P0 > 0), 128);
-  if constexpr (ROWS) {  // by hand: every thread of the warpgroup
-#pragma unroll
-    for (int j = 0; j < PN; ++j)
-      store_box_rows(sm.q + (P0 + j) * PANEL, *map_out, h, (P0 + j) * D, tok0, b);
-  } else if ((threadIdx.x & 127) == 0) {
-#pragma unroll
-    for (int j = 0; j < PN; ++j)
-      tma_store_4d(map_out, sm.q + (P0 + j) * PANEL, tok0, b, (P0 + j) * D, h);
-    tma_store_wait();
-  }
-}
-
-// Grid (query blocks of 64 tokens, H, B).  scale = d^-0.5 of the true d.
-// ROWS: the arrays addressed by hand, as flash_transposed_kernel's.
-template <int DP, bool ROWS>
-__global__ void __launch_bounds__(THREADS, 1)
-flash_transposed_split_kernel(const __grid_constant__ Band<ROWS> map_in,
-                              const __grid_constant__ Band<ROWS> map_out, int S, int H,
-                              float scale) {
-  constexpr int NP = Tile<DP, ROWS>::NP;
-  constexpr int NP0 = Tile<DP, ROWS>::NP0;
-  constexpr int STAGES = Tile<DP, ROWS>::STAGES;
-  extern __shared__ unsigned char smem_raw[];
-  Smem<DP, ROWS>& sm = *reinterpret_cast<Smem<DP, ROWS>*>(align_smem(smem_raw));
-
-  const int group = threadIdx.x >> 7;  // 0: producer, 1, 2: consumers
-  const int tok0 = blockIdx.x * BM;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-
-  if (threadIdx.x == 0) {  // by hand, each producer thread arrives on a full barrier
-    mbar_init(&sm.full_q, ROWS ? 128 : 1);
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&sm.full_k[s], ROWS ? 128 : 1);
-      mbar_init(&sm.full_v[s], ROWS ? 128 : 1);
-      mbar_init(&sm.empty_k[s], CONSUMERS * 4);
-      mbar_init(&sm.empty_v[s], CONSUMERS * 4);
-    }
-    fence_mbar_init();
-  }
-  __syncthreads();
-
-  if (group == 0) {
-    reg_dec<ROWS ? ROWS_PRODUCER_REGS<CONSUMERS> : 40>();
-    if constexpr (ROWS) {  // the warpgroup's 128 threads (hopper.cuh produce_rows)
-      unsigned char* room = reinterpret_cast<unsigned char*>(&sm) + (sizeof(sm) + 15) / 16 * 16;
-      auto kv_box = [&](int kv) {  // panel j of tile t's k (kv = 0, head H + h) or v (1, 2 H + h)
-        return [=, &sm](int t, int j) {
-          return RowsBox{(kv ? sm.v[t % STAGES] : sm.k[t % STAGES]) + j * PANEL,
-                         rows_side<NP, NP>(room, t % STAGES, kv, j), (1 + kv) * H + h, j * D,
-                         t * BN};
-        };
-      };
-      produce_rows<NP, NP, STAGES>(
-          map_in, map_in, map_in, b, (S + BN - 1) / BN,
-          [&](int j) {
-            return RowsBox{sm.q + j * PANEL, room + j * ROWS_SIDE_BYTES, h, j * D, tok0};
-          },
-          kv_box(0), kv_box(1),
-          [&](int t) { mbar_wait(&sm.empty_k[t % STAGES], ((t / STAGES) & 1) ^ 1); },
-          [&](int t) { mbar_wait(&sm.empty_v[t % STAGES], ((t / STAGES) & 1) ^ 1); },
-          &sm.full_q, sm.full_k, sm.full_v);
-    } else if (threadIdx.x == 0) {
-      const int tiles = (S + BN - 1) / BN;
-      mbar_expect_tx(&sm.full_q, Tile<DP, ROWS>::BYTES);
-      for (int j = 0; j < NP; ++j)
-        tma_load_4d(sm.q + j * PANEL, &map_in, &sm.full_q, tok0, b, j * D, h);
-      int stage = 0;
-      uint32_t phase = 0;
-      for (int t = 0; t < tiles; ++t) {
-        mbar_wait(&sm.empty_k[stage], phase ^ 1);
-        mbar_expect_tx(&sm.full_k[stage], Tile<DP, ROWS>::BYTES);
-        for (int j = 0; j < NP; ++j)
-          tma_load_4d(sm.k[stage] + j * PANEL, &map_in, &sm.full_k[stage], t * BN, b, j * D,
-                      H + h);
-        mbar_wait(&sm.empty_v[stage], phase ^ 1);
-        mbar_expect_tx(&sm.full_v[stage], Tile<DP, ROWS>::BYTES);
-        for (int j = 0; j < NP; ++j)
-          tma_load_4d(sm.v[stage] + j * PANEL, &map_in, &sm.full_v[stage], t * BN, b, j * D,
-                      2 * H + h);
-        if (++stage == STAGES) {
-          stage = 0;
-          phase ^= 1;
-        }
+      for (int k = 0; k < 4; ++k) {
+        const uint32_t lo = t0 + 2 * k < S ? __ldg(in + at + 2 * k) : 0u;
+        const uint32_t hi = t0 + 2 * k + 1 < S ? __ldg(in + at + 2 * k + 1) : 0u;
+        w[k] = lo | hi << 16;
       }
     }
-  } else {
-    reg_inc<ROWS ? ROWS_CONSUMER_REGS<CONSUMERS> : 232>();
-    if (group == 1)
-      consume<DP, 0, NP0, ROWS>(sm, &map_out, S, tok0, h, b, scale);
-    else
-      consume<DP, NP0, NP - NP0, ROWS>(sm, &map_out, S, tok0, h, b, scale);
+    *reinterpret_cast<uint4*>(dst + r * pitch + t0) = make_uint4(w[0], w[1], w[2], w[3]);
   }
 }
 
-template <int DP, bool ROWS>
-cudaError_t launch(const Band<ROWS>& m_in, const Band<ROWS>& m_out, int B, int S, int H,
-                   int d, cudaStream_t stream) {
-  using Tl = Tile<DP, ROWS>;
-  constexpr int smem =
-      (int)sizeof(Smem<DP, ROWS>) + SWIZZLE_SPAN + Tl::SIDE_Q + 2 * Tl::STAGES * Tl::SIDE;
-  static_assert(smem <= SMEM_LIMIT, "above the 227 KB a block may opt into");
-  cudaError_t e = cudaFuncSetAttribute(flash_transposed_split_kernel<DP, ROWS>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((S + BM - 1) / BM, H, B);
-  flash_transposed_split_kernel<DP, ROWS><<<grid, THREADS, smem, stream>>>(
-      m_in, m_out, S, H, 1.0f / sqrtf((float)d));
+static inline unsigned move_grid(long long chunks) {
+  return (unsigned)std::min<long long>((chunks + MOVE_THREADS - 1) / MOVE_THREADS, 1 << 20);
+}
+
+cudaError_t align_tokens(const bf16* src, bf16* dst, long long rows, int S, int pitch,
+                         cudaStream_t stream) {
+  if (rows < 1 || S < 1 || pitch < S || pitch % 8) return cudaErrorInvalidValue;
+  align_tokens_kernel<<<move_grid(rows * (pitch / 8)), MOVE_THREADS, 0, stream>>>(src, dst, rows,
+                                                                                  S, pitch);
   return cudaGetLastError();
 }
 
-}  // namespace split
+// K7 at d > 160 over a token pitch rounded up to 8: the pre-pass into
+// scratch from the stream's pool, the split kernel by tensor maps, the
+// output by hand
+cudaError_t launch_split_aligned(const bf16* in, bf16* out, int B, int S, int H, int d,
+                                 cudaStream_t stream) {
+  const int pitch = (S + 7) / 8 * 8;
+  const long long rows = 3ll * H * d * B;  // the stacked bands' rows
+  void* scratch = nullptr;
+  cudaError_t e = cudaMallocAsync(&scratch, (size_t)rows * pitch * sizeof(bf16), stream);
+  if (e != cudaSuccess) return e;
+  bf16* padded = static_cast<bf16*>(scratch);
+  e = align_tokens(in, padded, rows, S, pitch, stream);
+  if (e == cudaSuccess)
+    e = gswm_launch_flash_split_transposed(padded, pitch, out, true, B, S, H, d, stream);
+  const cudaError_t f = cudaFreeAsync(scratch, stream);
+  return e != cudaSuccess ? e : f;
+}
 
 // The design of head dim d, whatever S: its boxes by tensor maps, or by hand
-// (ROWS) where S % 8 != 0 leaves the rows where no tensor map reaches.
+// (ROWS) where S % 8 != 0 leaves the rows where no tensor map reaches; above
+// d = 160 (ROWS: the pre-pass, then tensor maps) the split kernel.
 template <bool ROWS>
 cudaError_t launch_form(const bf16* in, bf16* out, int B, int S, int H, int d,
                         cudaStream_t stream) {
   if (d <= NARROW_D) return gswm_launch_flash_narrow_transposed(in, out, B, S, H, d, ROWS, stream);
   if (d > D && d <= MID_D)
     return gswm_launch_flash_mid_transposed(in, out, B, S, H, d, ROWS, stream);
+  if (d > MID_D)
+    return ROWS ? launch_split_aligned(in, out, B, S, H, d, stream)
+                : gswm_launch_flash_split_transposed(in, S, out, false, B, S, H, d, stream);
   Band<ROWS> m_in, m_out;
   cudaError_t e = cudaSuccess;
   if constexpr (ROWS) {  // the stacked bands (3 H heads) and the output, by hand
@@ -551,17 +390,6 @@ cudaError_t launch_form(const bf16* in, bf16* out, int B, int S, int H, int d,
     e = band_map(&m_in, in, 3 * H, d, B, S);
     if (e == cudaSuccess) e = band_map(&m_out, out, H, d, B, S);
     if (e != cudaSuccess) return e;
-  }
-  if (d > D) {  // the panel width: d rounded up to a multiple of 64
-    switch ((d + D - 1) / D * D) {
-      case 192: return split::launch<192, ROWS>(m_in, m_out, B, S, H, d, stream);
-      case 256: return split::launch<256, ROWS>(m_in, m_out, B, S, H, d, stream);
-      case 320: return split::launch<320, ROWS>(m_in, m_out, B, S, H, d, stream);
-      case 384: return split::launch<384, ROWS>(m_in, m_out, B, S, H, d, stream);
-      case 448: return split::launch<448, ROWS>(m_in, m_out, B, S, H, d, stream);
-      case 512: return split::launch<512, ROWS>(m_in, m_out, B, S, H, d, stream);
-      default: return cudaErrorInvalidValue;
-    }
   }
   // 128-token blocks unless they would leave SMs of this card without one
   int sm_count = 0;
@@ -596,9 +424,10 @@ extern "C" int gswm_flash_transposed(const void* qkv_t, void* out_t, int B, int 
                                         static_cast<cudaStream_t>(stream)));
 }
 
-// The same function with every box loaded and stored by hand at any S: the
-// tests hold it against the tensor maps' form at S % 8 == 0, which separates
-// the loads and stores from the arithmetic.
+// The same function with every box loaded and stored by hand at any S (at d
+// > 160: the pre-pass into scratch of an aligned pitch, then the tensor
+// maps, at any S): the tests hold it against the tensor maps' form at S % 8
+// == 0, which separates the loads and stores from the arithmetic.
 extern "C" int gswm_flash_transposed_rows(const void* qkv_t, void* out_t, int B, int S, int H,
                                           int d, void* stream) {
   if (B < 1 || S < 1 || H < 1 || B > 65535 || H > 65535 || d < 8 || d % 8 || d > 512)
@@ -606,4 +435,13 @@ extern "C" int gswm_flash_transposed_rows(const void* qkv_t, void* out_t, int B,
   return static_cast<int>(launch_design(static_cast<const bf16*>(qkv_t),
                                         static_cast<bf16*>(out_t), B, S, H, d, true,
                                         static_cast<cudaStream_t>(stream)));
+}
+
+// The pre-pass alone, which chip_smoke.py times and holds to its plain
+// version: `rows` rows of S bf16 tokens (the stacked bands' 3 H d B) into
+// rows of `pitch` (pitch % 8 == 0, pitch >= S), the tokens from S zero.
+extern "C" int gswm_flash_transposed_align(const void* src, void* dst, long long rows, int S,
+                                           int pitch, void* stream) {
+  return static_cast<int>(align_tokens(static_cast<const bf16*>(src), static_cast<bf16*>(dst),
+                                       rows, S, pitch, static_cast<cudaStream_t>(stream)));
 }

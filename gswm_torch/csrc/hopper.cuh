@@ -115,20 +115,21 @@ static inline cudaError_t head_map(CUtensorMap* map, const bf16* base, int B, in
   return encode_map(map, base, 4, dims, strides, box);
 }
 
-// A (S, B, d, heads) map over the transposed layout's (heads * d, B, S)
-// array at `base`, tokens innermost (S % 8 == 0, so every stride is a
-// multiple of 16 bytes): boxes of 64 tokens of one batch by 64 rows of one
-// head, panel j at row 64 j.  Rows from d to the panel's end arrive as zeros
-// on a load and are dropped on a store, so no box reaches into the next
-// head's rows; tokens past S arrive as zeros and never from batch b + 1.  A
-// box lands as 64 rows (of d) of 128 bytes (64 tokens) in the one layout.
+// A (S, B, d, heads) map over the transposed layout's (heads * d, B, pitch)
+// array at `base` (pitch 0: S), tokens innermost (pitch % 8 == 0, so every
+// stride is a multiple of 16 bytes): boxes of 64 tokens of one batch by 64
+// rows of one head, panel j at row 64 j.  Rows from d to the panel's end
+// arrive as zeros on a load and are dropped on a store, so no box reaches
+// into the next head's rows; tokens past S arrive as zeros (whatever a pitch
+// wider than S holds there) and never from batch b + 1.  A box lands as 64
+// rows (of d) of 128 bytes (64 tokens) in the one layout.
 static inline cudaError_t band_map(CUtensorMap* map, const bf16* base, int heads, int d, int B,
-                                   int S) {
+                                   int S, int pitch = 0) {
+  const cuuint64_t ld = pitch ? pitch : S;
   const cuuint64_t dims[4] = {(cuuint64_t)S, (cuuint64_t)B, (cuuint64_t)d,
                               (cuuint64_t)heads};
-  const cuuint64_t strides[3] = {(cuuint64_t)S * sizeof(bf16),
-                                 (cuuint64_t)B * S * sizeof(bf16),
-                                 (cuuint64_t)d * B * S * sizeof(bf16)};
+  const cuuint64_t strides[3] = {ld * sizeof(bf16), (cuuint64_t)B * ld * sizeof(bf16),
+                                 (cuuint64_t)d * B * ld * sizeof(bf16)};
   const cuuint32_t box[4] = {ROW_ELEMS, 1, ROW_ELEMS, 1};
   return encode_map(map, base, 4, dims, strides, box);
 }
@@ -1142,8 +1143,8 @@ static __device__ __forceinline__ void store_box_rows(const void* src, const Ban
 }
 
 // ----------------------------------------------------- the three layouts ----
-// The flash kernels of flash_hopper.cu (narrow) and flash_mid.cu take the
-// layout as a template parameter; it decides the tensor maps' coordinates,
+// The flash kernels of flash_hopper.cu (narrow), flash_mid.cu and
+// flash_split.cu take the layout as a template parameter; it decides the tensor maps' coordinates,
 // which way round wgmma reads q, k and v, and the epilogue's store, and
 // nothing else.
 //   natural:    q, k, v, out (B, S, H, d) (hopper.cuh head_map): a tile row

@@ -38,6 +38,12 @@ _SIGNATURES = {
     # null), scores (or null), voted bits (or null), rows, n_bits,
     # message bits, stream
     "gswm_chacha20_vote": [_VP, _VP, _I, _VP, _VP, _VP, _I, _I, _I, _VP],
+    # the same arguments and thread blocks a row (1 to 8) before the stream,
+    # rows past 3584 blocks: the payload a chunk at a time
+    "gswm_chacha20_vote_stream": [_VP, _VP, _I, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
+    # table (rows x 12) then the packed payload words, u, z, rows, elements,
+    # l, stream
+    "gswm_chacha20_embed": [_VP, _VP, _VP, _VP, _I, _I, _I, _VP],
     # x, wq, wk, wv, q, k, v, M, C, N, stream
     "gswm_qkv_proj": [_VP] * 7 + [_I, _I, _I, _VP],
     # x, wq, wk, wv, q, k, v, out, B, S, C, H, D (head dim), stream
@@ -50,8 +56,12 @@ _SIGNATURES = {
     "gswm_flash_packed": [_VP, _VP, _I, _I, _I, _VP],
     # qkv_t, out_t, B, S, H, D (head dim), stream
     "gswm_flash_transposed": [_VP, _VP, _I, _I, _I, _I, _VP],
-    # the same, every box loaded and stored by hand at any S (tests)
+    # the same, every box loaded and stored by hand at any S (at d > 160:
+    # the aligning pre-pass, then tensor maps; tests)
     "gswm_flash_transposed_rows": [_VP, _VP, _I, _I, _I, _I, _VP],
+    # K7's pre-pass alone at d > 160 where S % 8 != 0 (src, dst, rows, S,
+    # pitch, stream; the smoke's check)
+    "gswm_flash_transposed_align": [_VP, _VP, _LL, _I, _I, _VP],
     # float32 (csrc/qkv_proj_f32.cu): x, wq, wk, wv, q, k, v, M, C, N, stream
     "gswm_qkv_proj_f32": [_VP] * 7 + [_I, _I, _I, _VP],
     # float32 (csrc/flash_f32.cu): q, k, v, out, B, Sq, Sk, H, D (head dim,

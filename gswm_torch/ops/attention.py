@@ -38,9 +38,11 @@ and tail in either layout.  The kernels' tensor maps zero-fill the columns
     tiles read as they lie (MN-major q and k, K-major v): the kernel
     ``head_dim_kernel(d, "transposed")`` names, at every S.  Port of the
     Pallas ``flash_attention_transposed``; the ``transposed`` route.  Where
-    S is no multiple of 8 no tensor map can address the rows, and the same
-    design runs with its boxes loaded and stored by hand
-    (``transposed_kernel`` names that form with ``ROWS_FORM``).
+    S is no multiple of 8 no tensor map can address the rows: to d = 160
+    the same design runs with its boxes loaded and stored by hand
+    (``transposed_kernel`` names that form with ``ROWS_FORM``); above, a
+    pre-pass copies the input into scratch of a token pitch rounded up to
+    8 and the design reads that by tensor maps (``ALIGNED_FORM``).
   * ``fused_qkv_attention`` (csrc/fused_qkv.cu, then the kernel of the
     head dim) — the bias-free q/k/v projections in a hand-written wgmma +
     TMA GEMM, then attention.  Port of the Pallas ``flash_attention_fused_qkv`` in
@@ -168,8 +170,8 @@ def head_dim_kernel(d: int, layout: str = "natural") -> tuple[str, int, int]:
                      columns (transposed: rows) rounded up to 16 are its
                      tail, a tail of 64 a full panel: 72 and 80 one panel
                      and 16, 128 two and 0, 160 two and 32
-      d > 160        flash_split_kernel (csrc/flash_split.cu; transposed:
-                     flash_transposed_split_kernel), whole panels of
+      d > 160        flash_split_kernel (csrc/flash_split.cu, the layout a
+                     template parameter), whole panels of
                      ``kernel_head_dim``
 
     Raises ValueError for a d the kernels do not take, or another layout."""
@@ -185,8 +187,7 @@ def head_dim_kernel(d: int, layout: str = "natural") -> tuple[str, int, int]:
         before = (d - 1) // 64  # the panels before the last
         tail = -(-(d - 64 * before) // 16) * 16 % 64
         return "flash_mid_kernel", before + (tail == 0), tail
-    return ("flash_transposed_split_kernel" if transposed else "flash_split_kernel",
-            width // 64, 0)
+    return "flash_split_kernel", width // 64, 0
 
 
 # What ``transposed_kernel`` appends to a design's name in its hand-loaded
@@ -195,6 +196,11 @@ def head_dim_kernel(d: int, layout: str = "natural") -> tuple[str, int, int]:
 # them, so the producer warpgroup loads the boxes and the consumers store
 # their output by hand, into and out of the same tiles.
 ROWS_FORM = "/rows"
+# What it appends above d = 160 instead: the split kernel takes tensor maps
+# alone, so where S % 8 != 0 a pre-pass (csrc/flash_transposed.cu
+# align_tokens_kernel) copies the input into scratch of a token pitch
+# rounded up to 8, and the output is stored by hand into the true array
+ALIGNED_FORM = "/aligned"
 
 
 # The float32 flash kernel: csrc/flash_f32.cu's, a template on P = ceil(d /
@@ -260,13 +266,40 @@ def transposed_kernel(d: int, s: int, dtype: torch.dtype = torch.bfloat16) -> st
     """The kernel ``flash_attention_transposed`` runs head dim ``d`` over
     ``s`` tokens of ``dtype`` on.  bfloat16: ``head_dim_kernel(d,
     "transposed")``'s design at every S, its boxes by tensor maps where S %
-    8 == 0 and by hand elsewhere (the name followed by ``ROWS_FORM``).
-    float32: ``dtype_kernel``'s, q by 16-byte copies where S % 4 == 0 and
-    by 4-byte ones elsewhere (followed by ``F32_WORD_FORM``)."""
+    8 == 0; elsewhere by hand to d = 160 (the name followed by
+    ``ROWS_FORM``) and above it by tensor maps over the aligning pre-pass's
+    scratch (followed by ``ALIGNED_FORM``).  float32: ``dtype_kernel``'s, q
+    by 16-byte copies where S % 4 == 0 and by 4-byte ones elsewhere
+    (followed by ``F32_WORD_FORM``)."""
     kernel = dtype_kernel(dtype, d, "transposed")
     if dtype == torch.float32:
         return kernel + F32_WORD_FORM if s % 4 else kernel
-    return kernel + ROWS_FORM if s % 8 else kernel
+    if not s % 8:
+        return kernel
+    return kernel + (ALIGNED_FORM if d > MID_MAX_HEAD_DIM else ROWS_FORM)
+
+
+def aligned_pitch(s: int) -> int:
+    """The token pitch of K7's pre-pass scratch: S rounded up to 8."""
+    return -(-s // 8) * 8
+
+
+def align_tokens_reference(x: torch.Tensor, pitch: int) -> torch.Tensor:
+    """Plain version of K7's pre-pass (csrc/flash_transposed.cu
+    align_tokens_kernel): (..., S) rows -> (..., pitch), the tokens from S
+    zero."""
+    return torch.nn.functional.pad(x, (0, pitch - x.shape[-1]))
+
+
+def flash_attention_transposed_aligned_reference(qkv_t: torch.Tensor,
+                                                 heads: int) -> torch.Tensor:
+    """Plain K7 over its pre-pass: the (3*H*D, B, S) input copied to
+    ``aligned_pitch(S)`` tokens a row, read back at the true S as the
+    tensor maps read the scratch (the tokens past S never reach the
+    products), then ``flash_attention_transposed_reference``."""
+    s = qkv_t.shape[-1]
+    padded = align_tokens_reference(qkv_t, aligned_pitch(s))
+    return flash_attention_transposed_reference(padded[..., :s], heads)
 
 
 def _count(wrapper, d: int, dtype: torch.dtype = torch.bfloat16,
@@ -981,9 +1014,12 @@ def flash_attention_transposed(qkv_t: torch.Tensor, heads: int) -> torch.Tensor:
     ``kernel_head_dim`` takes it, any B and S, the kernel
     ``transposed_kernel`` names: in bf16 csrc/flash_transposed.cu's
     launcher and the design of D (flash_hopper.cu's narrow kernel at D <=
-    48 and flash_mid.cu's at 64 < D <= 160, both with the transposed layout,
-    flash_transposed.cu's own at 64 and above 160), all on wgmma, its
-    boxes moved by TMA where S % 8 == 0 and by hand elsewhere; in float32
+    48, flash_mid.cu's at 64 < D <= 160 and flash_split.cu's above, with
+    the transposed layout, flash_transposed.cu's own at 64), all on wgmma,
+    its boxes moved by TMA where S % 8 == 0 and, elsewhere, by hand to D =
+    160 and above it by TMA over scratch of an aligned token pitch (the C
+    entry's pre-pass, the output by hand; the pre-pass counts in
+    ``flash_attention_transposed.align_launches``); in float32
     csrc/flash_f32.cu's steps with the transposed layout (``f32_core``:
     q by 16-byte copies where S % 4 == 0, 4-byte ones elsewhere).  Launches also count by kernel, in
     ``flash_attention_transposed.launches_by_kernel``."""
@@ -1006,8 +1042,9 @@ def flash_attention_transposed(qkv_t: torch.Tensor, heads: int) -> torch.Tensor:
             f32_core(base, base + 4 * band, base + 8 * band, out.data_ptr(), None, b, s, s,
                       heads, d, b * s, b * s, b * s, True, s % 4 == 0, qkv_t.device)
         else:
-            native.library().call("gswm_flash_transposed", qkv_t.data_ptr(), out.data_ptr(),
-                                  b, s, heads, d, native.stream_handle(qkv_t.device))
+            native.launch(qkv_t.device, "gswm_flash_transposed", qkv_t.data_ptr(),
+                          out.data_ptr(), b, s, heads, d)
+            flash_attention_transposed.align_launches += kernel.endswith(ALIGNED_FORM)
     _count(flash_attention_transposed, d, dtype)
     by_kernel = flash_attention_transposed.launches_by_kernel
     by_kernel[kernel] = by_kernel.get(kernel, 0) + 1
@@ -1019,3 +1056,5 @@ flash_attention_transposed.launches_by_d = {}
 flash_attention_transposed.launches_f32 = 0
 flash_attention_transposed.launches_f32_by_d = {}
 flash_attention_transposed.launches_by_kernel = {}
+flash_attention_transposed.align_launches = 0
+

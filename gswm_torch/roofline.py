@@ -165,6 +165,19 @@ def chacha_vote_cost(rows: int, n_bits: int, mb: int, shared_latent: bool,
     return ops, rows * 48 + latent + out
 
 
+def chacha_embed_cost(rows: int, elements: int, l: int) -> tuple[int, int]:
+    """(32-bit integer operations on the integer ALU, bytes) of
+    ``chacha.batch_embed``: every row's ceil(elements * l / 512) blocks at
+    ``chacha_cost``'s count of XORs and rotations, against the bytes: u read
+    and z written, 4 each an element, the payload's packed words
+    (``chacha.block_words``, 64 bytes a block) and 48 bytes of key, counter
+    and nonce a row.  The keystream and the cipher bits are no input or
+    output.  The bytes bind at every l."""
+    blocks = -(-elements * l // 512)
+    ops, _ = chacha_cost(rows * blocks)
+    return ops, rows * (8 * elements + 64 * blocks + 48)
+
+
 def f32_prepass_cost(b: int, sk: int, h: int, d: int) -> tuple[int, int]:
     """(FLOP, bytes) of the float32 core's split pre-pass: k and v read once
     (4 bytes an element), their big and small parts written, each B H Skp

@@ -62,7 +62,15 @@ entry points on the same tensors, so nothing but the kernels differs:
     then XOR, ``majority_vote`` and the mean) at ``paths.VOTE_SHAPES`` (the
     scores) and ``paths.VOTE_ROW_SHAPES`` (the voted bits), in turns,
     through the wrappers and through the C entries, with both outputs
-    compared (scores as float32, voted bits).
+    compared (scores as float32, voted bits); and this checkout's embed
+    kernel (``batch_embed``, ``gswm_chacha20_embed``) against the parent's
+    path for the same latents (its table's bits, XOR with the payload bits,
+    ``_bits_to_latent``) at ``paths.EMBED_SHAPES``, likewise, the quantized
+    bits equal and z within 4 float32 ulps or 1e-6 relative;
+  * K7 above d = 160 through both sides' wrappers as well
+    (``flash_attention_transposed``: this checkout's one C call, whose
+    pre-pass takes its scratch from the stream's pool where S % 8 != 0), in
+    turns, outputs compared.
 
 ``--match`` keeps only the attention cases whose label holds TEXT (say
 ``"K2 (4, 4096, 8, "`` for K2 at SD 1.x's level 0 and the narrow widths).
@@ -71,15 +79,16 @@ are equal bit for bit (a change that must leave the kernels' results
 alone), every float32 form's output equals the natural form's, this
 checkout's float32 GEMM and core are within the float32 bound of float64,
 with ``k8`` among the cases every K8 output equals the parent's, and with
-``k3`` K3's single-key words and table bits equal the parent's and the vote
-path's scores and voted bits equal the parent's bits-out path's;
+``k3`` K3's single-key words and table bits equal the parent's, the vote
+path's scores and voted bits equal the parent's bits-out path's and the
+embed's quantized bits the parent's path's (z within 4 ulps);
 ``--except-head-dims LO-HI`` exempts the cases whose head dim lies in
 [LO, HI] (the widths a change hands to a new kernel), whose difference is
 printed all the same; ``--except-transposed`` does so for K7's cases alone
 where S % 8 == 0, at each range of a comma-separated list, and a range
 written ``LO-HI:unaligned`` for K7's cases where S % 8 != 0 (a parent that
 ran another kernel there): those at the natural layout's designs (d <= 48,
-64 < d <= 160) are then held equal, bit for bit, to the natural layout's
+64 < d <= 512) are then held equal, bit for bit, to the natural layout's
 kernel on the same q, k and v instead.
 
 Where the device time goes, apart from the walls above (``torch.profiler``,
@@ -353,6 +362,90 @@ def compare_chacha(libs: dict, parent_chacha, stream: int, iters: int) -> dict:
                                  bound_ms=bound, fill_ms=fill, equal=same))
         del bits
     out["vote"] = compare_vote(libs, parent_chacha, stream, iters)
+    out["embed"] = compare_embed(libs, parent_chacha, stream, iters)
+    return out
+
+
+EMBED_ULPS, EMBED_REL = 4, 1e-6  # the embed kernel's z against the plain version's
+
+
+def compare_embed(libs: dict, parent_chacha, stream: int, iters: int) -> list:
+    """This checkout's embed kernel (``batch_embed``, ``gswm_chacha20_embed``)
+    against the parent's path for the same latents (its
+    ``batch_keystream_bits``, or its ``gswm_chacha20_batch`` into a buffer,
+    then XOR with the payload bits on the card and ``_bits_to_latent``) at
+    ``paths.EMBED_SHAPES``, in turns, through the wrappers and the C
+    entries: every quantized bit equal, z within EMBED_ULPS float32 ulps or
+    EMBED_REL relative of the parent's (whose ndtri is
+    torch.special.ndtri's)."""
+    import numpy as np
+
+    from gswm_torch.core import bits as bitops
+    from gswm_torch.core import chacha, multikey
+    from gswm_torch.core.decode import quantize_latent_bits
+    from gswm_torch.core.embed import _bits_to_latent
+
+    out = []
+    for rows, elements, l in paths.EMBED_SHAPES:
+        n_bits = elements * l
+        keys, nonces, msgs, _ = paths.multikey_material(rows, seed=rows + l)
+        payload = np.stack([bitops.diffuse_payload(bitops.bytes_to_bits(m), n_bits)
+                            for m in msgs])
+        u = torch.rand((rows, elements), generator=torch.Generator(device="cuda").manual_seed(
+            rows + l), device="cuda")
+        table, words = multikey._table_and_payload(keys, nonces, msgs, n_bits, "cuda")
+        payload_dev = torch.from_numpy(payload).to("cuda")
+        bits_buf = torch.empty((rows, n_bits), dtype=torch.uint8, device="cuda")
+        z = torch.empty_like(u)
+
+        def finish(ks):
+            return _bits_to_latent(ks.bitwise_xor_(payload_dev).reshape(-1), u.reshape(-1), l,
+                                   (rows, elements))
+
+        fns = {"wrapper": {
+            "parent": lambda: finish(parent_chacha.batch_keystream_bits(keys, nonces, n_bits,
+                                                                        "cuda")),
+            "change": lambda: chacha.batch_embed(table, words, u, l)}}
+
+        def parent_entry():
+            libs["parent"].call("gswm_chacha20_batch", table.data_ptr(), bits_buf.data_ptr(),
+                                rows, n_bits, stream)
+            return finish(bits_buf)
+
+        def change_entry():
+            libs["change"].call("gswm_chacha20_embed", table.data_ptr(), words.data_ptr(),
+                                u.data_ptr(), z.data_ptr(), rows, elements, l, stream)
+            return z
+
+        fns["entry"] = {"parent": parent_entry, "change": change_entry}
+        want = fns["wrapper"]["parent"]()
+        q4 = (rows, 1, 1, elements)
+        bits_want = quantize_latent_bits(want.view(q4), l)
+        equal, ulps = True, 0
+        for fn in (fns["entry"]["parent"], fns["wrapper"]["change"], change_entry):
+            got = fn()
+            ulp = (got.view(torch.int32).long() - want.view(torch.int32).long()).abs()
+            close = (ulp <= EMBED_ULPS) | ((got - want).abs() <= EMBED_REL * want.abs())
+            equal &= bool(close.all()) and torch.equal(quantize_latent_bits(got.view(q4), l),
+                                                       bits_want)
+            ulps = max(ulps, int(ulp.max()))
+        t_wrap = _sides_ms(fns["wrapper"], iters)
+        t_entry = _sides_ms(fns["entry"], iters)
+        device = {"parent": sum(device_times(parent_entry, 10).values()),
+                  "change": device_ms(change_entry, 10, "chacha20_embed")}
+        bound, roof = roofline.bound_ms(*roofline.chacha_embed_cost(rows, elements, l),
+                                        roofline.PEAK_INT32)
+        label = f"K3 embed ({rows}, {elements}, l = {l})"
+        print(f"{label}: wrapper parent {t_wrap['parent']} change {t_wrap['change']} ms, "
+              f"{t_wrap['ratio']:.1f}x; C entry parent {t_entry['parent']} change "
+              f"{t_entry['change']} ms, {t_entry['ratio']:.1f}x; device parent "
+              f"{device['parent']:.4f} change {device['change']:.4f} ms; bound {bound:.6f} ms "
+              f"by {roof} ({bound / device['change']:.1%} of the change's device time); "
+              f"quantized bits equal and z within {ulps} ulps of the parent's: {equal}",
+              flush=True)
+        out.append(dict(label=label, shape=[rows, elements, l], wrapper=t_wrap, entry=t_entry,
+                        device_ms=device, bound_ms=bound, max_ulps=ulps, equal=equal))
+        del table, words, u, payload_dev, bits_buf, z, want, bits_want
     return out
 
 
@@ -475,7 +568,8 @@ def main() -> None:
     if "k3" in cases:
         result["chacha"] = compare_chacha(libs, parent_chacha, stream, args.iters)
     if "attention" in cases:
-        result.update(compare_attention(libs, rand, stream, args.iters, args.match))
+        result.update(compare_attention(libs, rand, stream, args.iters, args.match,
+                                        parent_attn))
     if "lse" in cases:
         result["lse"] = compare_lse(libs, rand, stream, args.iters, args.match)
     if "f32" in cases:
@@ -507,7 +601,9 @@ def main() -> None:
         # K7 at S % 8 != 0 on the natural layout's designs: bit-equal to them
         differ += [case for case in result.get("transposed", []) if exempt("transposed", case)
                    and case["shape"][1] % 8 and case["natural_max_abs_diff"] != 0.0
-                   and (case["head_dim"] <= 48 or 64 < case["head_dim"] <= 160)]
+                   and (case["head_dim"] <= 48 or 64 < case["head_dim"])]
+        differ += [case for case in result.get("transposed_wrapper", []) if not case["equal"]
+                   and not exempt("transposed", case)]
         # the float32 forms: bit-equal to this checkout's natural form
         forms = result.get("f32_forms", [])
         differ += [case for case in forms if case["natural_max_abs_diff"] != 0.0]
@@ -515,7 +611,7 @@ def main() -> None:
         differ += [case for case in gn_cases if case["max_abs_diff"] != 0.0]
         # K3: the single-key words and the table's bits equal the parent's;
         # the vote path's scores and voted bits equal its bits-out path's
-        k3 = [case for key in ("single", "batch", "vote")
+        k3 = [case for key in ("single", "batch", "vote", "embed")
               for case in result.get("chacha", {}).get(key, [])]
         differ += [case for case in k3 if not case["equal"]]
         # the float32 GEMM and core: new arithmetic, so no bit-equality with
@@ -530,7 +626,7 @@ def main() -> None:
               + (f"; {len(forms)} float32 forms equal the natural form's" if forms else "")
               + (f"; {len(gn_cases)} K8 outputs equal the parent's" if gn_cases else "")
               + (f"; {len(k3)} K3 cases equal the parent's (the vote path its bits-out "
-                 "path's)" if k3 else "")
+                 "path's, the embed's quantized bits and z within 4 ulps)" if k3 else "")
               + (f"; {len(f32)} float32 GEMM and core outputs within {F32_REL_BOUND:g} of "
                  "max |want| against float64" if f32 else "")
               + (f" (head dims {lo}-{hi} exempt)" if lo <= hi else "")
@@ -539,10 +635,13 @@ def main() -> None:
                  if exempt_t or exempt_u else ""), flush=True)
 
 
-def compare_attention(libs: dict, rand, stream: int, iters: int, match: str = "") -> dict:
+def compare_attention(libs: dict, rand, stream: int, iters: int, match: str = "",
+                      parent_attn=None) -> dict:
     """The flash kernels and K1's GEMM through their C entry points; only
-    the cases whose label holds ``match``."""
-    result = {"flash": [], "packed": [], "transposed": [], "fused_qkv": [],
+    the cases whose label holds ``match``; with ``parent_attn``, K7 above d
+    = 160 through both sides' wrappers too."""
+    result = {"flash": [], "packed": [], "transposed": [], "transposed_wrapper": [],
+              "fused_qkv": [],
               "host_us": {}}
     for label, b, sq, sk, h, d in FLASH_SHAPES:
         if match not in label:
@@ -614,6 +713,20 @@ def compare_attention(libs: dict, rand, stream: int, iters: int, match: str = ""
         result["transposed"].append(dict(shape=[b, s, h, d], head_dim=d, **t, ratio=ratio,
                                          bound_ms=bound, roof=roof, max_abs_diff=diff,
                                          natural_max_abs_diff=nat_diff))
+        if parent_attn is not None and d > 160:
+            # the wrappers: this checkout's one C call (the pre-pass's scratch
+            # from the stream's pool where S % 8 != 0)
+            from gswm_torch.ops import attention as attn
+
+            wrappers = {"parent": lambda: parent_attn.flash_attention_transposed(qkv_t, h),
+                        "change": lambda: attn.flash_attention_transposed(qkv_t, h)}
+            same = torch.equal(wrappers["parent"](), wrappers["change"]())
+            tw = in_turns(wrappers, iters)
+            print(f"transposed wrapper (B={b}, S={s}, H={h}, D={d}): parent {tw['parent']} "
+                  f"change {tw['change']} ms, {sum(tw['parent']) / sum(tw['change']):.2f}x, "
+                  f"equal {same}", flush=True)
+            result["transposed_wrapper"].append(dict(shape=[b, s, h, d], head_dim=d, **tw,
+                                                     equal=same))
     for b, s, c, h, d in K1_SHAPES:
         label = f"fused_qkv (B={b}, S={s}, C={c}, H={h}, D={d})"
         if match not in label:

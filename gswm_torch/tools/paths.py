@@ -160,14 +160,15 @@ LEVEL0_SHAPES = ((2, 9216, 5), (4, 9216, 5), (2, 4096, 5), (1, 1000, 3))
 # S % 8 == 4: sd-1-4 at 576x576 (18 x 18 = 324 tokens, 8 heads of 160, batch
 # 8 = 4 images under guidance) and 704x704 (22 x 22 = 484), SD 2.x at
 # 576x576 (324 tokens, 20 heads of 64), SDXL at 832x1216 (26 x 38 = 988, 20
-# heads of 64, batch 2 = 1 image under guidance); and the split design at an
-# odd S
+# heads of 64, batch 2 = 1 image under guidance); and the split design
+# (flash_split.cu's kernel over the aligning pre-pass) at an odd S at 512, 192
+# (three panels, an odd count) and 256 at S % 8 == 4
 K7_SHAPES = (*((b, s, h, 64) for b, s, h in LEVEL0_SHAPES), (1, 1001, 3, 64),
              (4, 4096, 8, 40), (8, 4096, 8, 40), (4, 1024, 8, 80), (8, 1024, 8, 80),
              (4, 256, 8, 160), (8, 256, 8, 160), (2, 1000, 3, 72), (1, 1024, 1, 512),
              (1, 1001, 3, 40), (1, 1001, 2, 160),
              (8, 324, 8, 160), (8, 484, 8, 160), (8, 324, 20, 64), (2, 988, 20, 64),
-             (1, 1001, 1, 512))
+             (1, 1001, 1, 512), (1, 1001, 2, 192), (2, 324, 2, 256))
 
 # K3 over a key table (rows, ChaCha20 blocks a row): 32 blocks are the 16,384
 # bits of a 512x512 latent; 4 rows are phase 7d's batch, 4096 one chunk of the
@@ -183,6 +184,21 @@ VOTE_SHAPES = ((4, 16384, 256), (4096, 16384, 256), (10000, 16384, 256),
                (10000, 16384, 100), (64, 16900, 256), (1000, 36864, 256),
                (1000, 65536, 256), (1000, 32768, 48))
 VOTE_ROW_SHAPES = ((2500, 16384, 256),)
+# the vote's stream mode, rows past 1,835,008 bits: a 2048x2048 image at l =
+# 8 (2,097,152 bits) probed against 2 records, 64 and 512, and decoded a
+# latent a row at 16 rows
+VOTE_STREAM_SHAPES = ((2, 2_097_152, 256), (64, 2_097_152, 256), (512, 2_097_152, 256))
+VOTE_STREAM_ROW_SHAPES = ((16, 2_097_152, 256),)
+# the multikey embed (K3's table ending in the latents) at (rows, elements,
+# l): a 512x512 latent's 16,384 elements at l = 1 at 4 rows (phase 7d's
+# batch), 64, 4096 and 10,000 (the registry), and at l = 8 (131,072 bits a
+# row) at 4096 rows
+EMBED_SHAPES = ((4, 16384, 1), (64, 16384, 1), (4096, 16384, 1), (10000, 16384, 1),
+                (4096, 16384, 8))
+# a 2048x2048 image at l = 8: 2,097,152 bits a row, past the vote's shared
+# memory (phase 7e: one decode and one probe)
+BIG_RES = 2048
+BIG_L = 8
 # per-user keys (config 5): the registry, the probes traced against it, the
 # records the host loop also scores, the images sent through the model, and
 # the rows embedded or decoded a call (164 MB of fp32 latents)

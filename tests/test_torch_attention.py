@@ -171,16 +171,20 @@ def _transposed_launcher_rule(d: int) -> tuple:
     launch_form dispatches head dim ``d`` to, at every S (by tensor maps or
     by hand), read from the sources: its constants and branches,
     flash_mid.cu's panel arithmetic (evaluated as C integer arithmetic) and
-    case table, and its split kernel's instantiated widths."""
+    case table, and flash_split.cu's instantiated widths of the transposed
+    layout."""
     text = _c_code("flash_transposed.cu")
     const = {name: int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
              for name in ("D", "NARROW_D", "MID_D")}
     launcher = text.split("cudaError_t launch_form(")[1].split("\n}\n")[0]
     narrow = "if (d <= NARROW_D) return gswm_launch_flash_narrow_transposed("
     mid = "if (d > D && d <= MID_D)\n    return gswm_launch_flash_mid_transposed("
-    assert launcher.index(narrow) < launcher.index(mid) < launcher.index("switch (")
-    widths = {int(w) for w in re.findall(r"case (\d+): return split::launch<\1, ROWS>\(",
-                                         launcher)}
+    split = "if (d > MID_D)\n    return ROWS ? launch_split_aligned("
+    assert launcher.index(narrow) < launcher.index(mid) < launcher.index(split)
+    assert ": gswm_launch_flash_split_transposed(" in launcher
+    widths = {int(w) for w in re.findall(
+        r"case (\d+): return start_transposed<\1, LO>\(",
+        _c_code("flash_split.cu").split("cudaError_t launch_transposed(")[1])}
     if d <= const["NARROW_D"]:
         return "flash_narrow_kernel", 0, 48
     if d <= const["D"]:
@@ -197,7 +201,13 @@ def _transposed_launcher_rule(d: int) -> tuple:
         return "flash_mid_kernel", env["full"], env["tail"]
     width = (d + const["D"] - 1) // const["D"] * const["D"]
     assert width in widths
-    return "flash_transposed_split_kernel", width // 64, 0
+    return "flash_split_kernel", width // 64, 0
+
+
+def _unaligned_form(d: int) -> str:
+    """What ``transposed_kernel`` appends at S % 8 != 0: the boxes by hand
+    to d = 160, the aligning pre-pass above."""
+    return attn.ALIGNED_FORM if d > attn.MID_MAX_HEAD_DIM else attn.ROWS_FORM
 
 
 @pytest.mark.parametrize("d", range(8, 513, 8))
@@ -206,12 +216,13 @@ def test_transposed_launcher_runs_the_kernel_head_dim_kernel_names(d):
     dim to the kernel, full panels and tail that ``head_dim_kernel(d,
     "transposed")`` names: flash_hopper.cu's narrow kernel at d <= 48,
     flash_transposed_kernel to 64, flash_mid.cu's kernel to 160 at its panel
-    arithmetic, the split kernel's whole panels above; where S % 8 != 0 the
-    same design with its boxes by hand (``transposed_kernel``)."""
+    arithmetic, flash_split.cu's split kernel's whole panels above; where S %
+    8 != 0 the same design with its boxes by hand, above d = 160 over the
+    aligning pre-pass (``transposed_kernel``)."""
     assert attn.head_dim_kernel(d, "transposed") == _transposed_launcher_rule(d)
     assert attn.transposed_kernel(d, 4096) == attn.head_dim_kernel(d, "transposed")[0]
     assert attn.transposed_kernel(d, 1001) == \
-        attn.head_dim_kernel(d, "transposed")[0] + attn.ROWS_FORM
+        attn.head_dim_kernel(d, "transposed")[0] + _unaligned_form(d)
 
 
 @pytest.mark.parametrize("s", [1, 65, 324, 988, 1001])
@@ -220,11 +231,12 @@ def test_transposed_kernel_names_the_head_dims_design_at_every_token_count(d, s)
     """K7 at token counts no tensor map can address (S % 8 != 0: 1, 65 and
     1001 odd, 324 and 988 the level-2 tokens of SD at 576x576 and SDXL at
     832x1216) runs the design ``head_dim_kernel(d, "transposed")`` names,
-    in its hand-loaded form: the design's name and ``ROWS_FORM``, nothing
-    of another kernel; at S % 8 == 0 (one more token) the name alone."""
+    in its hand-loaded form to d = 160 (the design's name and ``ROWS_FORM``)
+    and above over the aligning pre-pass (``ALIGNED_FORM``), nothing of
+    another kernel; at S % 8 == 0 (one more token) the name alone."""
     design = attn.head_dim_kernel(d, "transposed")[0]
     name = attn.transposed_kernel(d, s)
-    assert name == design + attn.ROWS_FORM
+    assert name == design + _unaligned_form(d)
     assert name.split("/")[0] == design and "masked" not in name
     assert attn.transposed_kernel(d, s + 8 - s % 8) == design
 

@@ -174,10 +174,12 @@ def test_split_kernel_is_a_wgmma_and_tma_kernel():
     """flash_split.cu (K4 from D = 192 up; 64 < D <= 160 goes to
     flash_mid.cu's launcher first) runs both products on wgmma (the logits
     from shared memory, p v with p from registers) and moves every tile
-    through TMA; it holds no mma.sync, ldmatrix or cp.async code."""
+    through TMA (hopper.cuh's tma_load_panel and tma_store_panel, the layout
+    a template parameter); it holds no mma.sync, ldmatrix or cp.async
+    code."""
     split = _code("flash_split.cu")
-    for used in ("wgmma_m64n64k16_ss<0, 0>", "wgmma_m64n64k16_rs(", "tma_load_4d(",
-                 "tma_store_4d(", "mbar_wait(", "reg_inc<", "softmax_tile<"):
+    for used in ("wgmma_m64n64k16_ss<0, 0>", "wgmma_m64n64k16_rs(", "tma_load_panel<L>(",
+                 "tma_store_panel<LO>(", "mbar_wait(", "reg_inc<", "softmax_tile<"):
         assert used in split, used
     for gone in ("mma_bf16", "mma.sync", "ldmatrix", "cp_async", "cp.async.cg",
                  "__syncthreads();\n    load_tile"):
@@ -214,23 +216,31 @@ def test_mid_kernel_overlaps_its_exponentials_and_pads_no_whole_panel():
 
 
 def test_transposed_kernel_keeps_mma_sync_only_for_unaligned_rows():
-    """flash_transposed.cu holds no mma.sync kernel any more: its own
-    designs (both operands of the logits MN-major, v K-major; d split over
-    two warpgroups above 160, every panel width from 192 instantiated, none
-    at 128, which no d above 160 rounds to) run wgmma at every S, and where
-    S % 8 != 0 the C entry takes the same design with its boxes loaded and
-    stored by hand (hopper.cuh Layout::rows), not another kernel."""
+    """flash_transposed.cu holds no mma.sync kernel any more: its own d =
+    64 design (both operands of the logits MN-major, v K-major) and, above
+    d = 160, flash_split.cu's kernel with the layout a template parameter
+    (every panel width from 192 instantiated, none at 128, which no d above
+    160 rounds to) run wgmma at every S; where S % 8 != 0 the C entry takes
+    the same design with its boxes loaded and stored by hand (hopper.cuh
+    Layout::rows) or, above 160, over the aligning pre-pass, not another
+    kernel.  flash_transposed_split_kernel, the hand-copied split design, is
+    gone."""
     text = _code("flash_transposed.cu")
     for gone in ("namespace masked", "mma_bf16", "ldmatrix", "mma.sync",
-                 "flash_transposed_masked_kernel"):
+                 "flash_transposed_masked_kernel", "flash_transposed_split_kernel",
+                 "namespace split"):
         assert gone not in text, gone
     for used in ("wgmma_m64n64k16_ss<1, 1>", "wgmma_m64n64k16_rs<0>", "tma_load_4d(",
-                 "tma_store_4d(", "softmax_tile<", "flash_transposed_split_kernel",
+                 "tma_store_4d(", "softmax_tile<", "align_tokens_kernel",
                  "scale_tile(", "produce_rows<", "store_box_rows("):
         assert used in text, used
+    split = _code("flash_split.cu")
     for d in (192, 256, 320, 384, 448, 512):
-        assert f"case {d}: return split::launch<{d}, ROWS>(" in text
-    assert "case 128:" not in text
+        assert f"case {d}: return start_transposed<{d}, LO>(" in split
+    assert "case 128:" not in split
+    for used in ("wgmma_m64n64k16_ss<1, 1>", "wgmma_m64n64k16_rs<0>",
+                 "store_tile_out<L>(", "tma_store_panel<LO>(", "tma_load_panel<L>("):
+        assert used in split, used
     entry = text.split('extern "C" int gswm_flash_transposed(')[1].split("\n}\n")[0]
     # one launcher, the form chosen by S % 8 alone: no kernel of its own
     assert "launch_design(" in entry and "S % 8 != 0" in entry
@@ -239,6 +249,8 @@ def test_transposed_kernel_keeps_mma_sync_only_for_unaligned_rows():
     assert "launch_design(" in rows_entry and ", true," in rows_entry
     design = text.split("cudaError_t launch_design(")[1].split("\n}\n")[0]
     assert "launch_form<true>(" in design and "launch_form<false>(" in design
+    form = text.split("cudaError_t launch_form(")[1].split("\n}\n")[0]
+    assert "ROWS ? launch_split_aligned(" in form
 
 
 # the hand-loaded form of each transposed design: (source, what instantiates
@@ -252,23 +264,27 @@ ROWS_FORMS = {
     "d64": ("flash_transposed.cu", "launch<2, false, ROWS>(",
             ("produce_rows<NWG, KV_PANELS, STAGES>(", "store_box_rows(sm.q[cw]",
              "wait_full<ROWS>(")),
-    "split": ("flash_transposed.cu", "split::launch<512, ROWS>(",
-              ("produce_rows<NP, NP, STAGES>(", "store_box_rows(sm.q + (P0 + j) * PANEL",
-               "wait_full<ROWS>(")),
+    # above d = 160 the boxes come by tensor maps over the aligning
+    # pre-pass's scratch, and the output goes out by hand
+    "split": ("flash_transposed.cu", "launch_split_aligned(",
+              ("align_tokens(in, padded,", "gswm_launch_flash_split_transposed(padded, pitch, "
+               "out, true,")),
 }
 
 
 @pytest.mark.parametrize("design", sorted(ROWS_FORMS))
 def test_every_transposed_design_has_its_hand_loaded_form(design):
     """Each of K7's four designs (flash_hopper.cu's narrow kernel,
-    flash_transposed.cu's d = 64 and split kernels, flash_mid.cu's kernel)
-    is instantiated with its boxes loaded and stored by hand, which the
-    launcher takes where S % 8 != 0: the producer warpgroup runs
-    hopper.cuh's produce_rows, the epilogue stores by hand, and the
+    flash_transposed.cu's d = 64 kernel, flash_mid.cu's and flash_split.cu's
+    kernels) has its form for S % 8 != 0, which the launcher takes there:
+    to d = 160 its boxes loaded and stored by hand (the producer warpgroup
+    runs hopper.cuh's produce_rows, the epilogue stores by hand, and the
     consumers wait through wait_full, whose proxy fence makes the copies
-    visible to wgmma.  In produce_rows a set's copies arrive on the full
+    visible to wgmma; in produce_rows a set's copies arrive on the full
     barrier (cp.async.mbarrier.arrive) or, for rows shifted by hand,
-    fence_async_smem comes before the thread's arrive."""
+    fence_async_smem comes before the thread's arrive); above it the
+    aligning pre-pass, the tensor maps over its scratch and the output by
+    hand (flash_split.cu's Layout::rows output, hopper.cuh store_box_rows)."""
     src, instance, used = ROWS_FORMS[design]
     code = _code(src)
     assert instance in code, instance
@@ -276,6 +292,10 @@ def test_every_transposed_design_has_its_hand_loaded_form(design):
         assert u in code, u
     if design in ("d64", "split"):
         assert "launch_form<true>(" in code
+    if design == "split":
+        split = _code("flash_split.cu")
+        assert "launch_transposed<Layout::rows>(m_in, BandRows{out, B, S, d}" in split
+        assert "store_box_rows(src, *map, h, j * ROW_ELEMS, tok, b)" in _code("hopper.cuh")
     hopper = _code("hopper.cuh")
     place = hopper.split("void rows_place_set(")[1].split("\n}\n")[0]
     assert place.index("fence_async_smem();") < place.index("mbar_arrive(full);")
@@ -349,7 +369,7 @@ def test_transposed_layout_runs_the_natural_layouts_designs(design):
     assert dispatch in code.split(f"gswm_launch_flash_{design}_transposed(")[1]
     launcher = _code("flash_transposed.cu").split("cudaError_t launch_form(")[1]
     assert launcher.index(f"gswm_launch_flash_{design}_transposed(") < \
-        launcher.index("split::launch<")
+        launcher.index("launch<2, false, ROWS>(")
     header = _code("flash_core.cuh")
     assert f"cudaError_t gswm_launch_flash_{design}_transposed(" in header
 

@@ -1288,7 +1288,9 @@ def test_hand_loaded_form_equals_the_tensor_maps_form(cuda, d, b, s, h):
     (gswm_flash_transposed) and by hand (gswm_flash_transposed_rows: cp.async
     copies into the same swizzled tiles, the output stored by hand).  The
     same tiles reach the same products, so the outputs are equal bit for
-    bit: this holds the loads and stores apart from the arithmetic."""
+    bit: this holds the loads and stores apart from the arithmetic.  Above
+    d = 160 the second form is the aligning pre-pass into scratch, then the
+    tensor maps over it, the output by hand."""
     g = torch.Generator(device=cuda).manual_seed(d + s + b)
     qkv_t = torch.randn((3 * h * d, b, s), generator=g, device=cuda).bfloat16()
     out = qkv_t.new_empty((h * d, b, s))
@@ -1719,7 +1721,8 @@ def test_vote_kernel_bit_exact(cuda, rows, n_bits, mb, shared):
 
 def test_vote_kernel_is_one_kernel_and_writes_no_keystream(cuda):
     """One kernel a call; device memory grows by the scores alone; material
-    out of range raises before anything is launched."""
+    out of range raises before anything is launched; a row past the shared
+    memory's 3584 blocks runs (the stream mode) and raises nothing."""
     n_bits, mb = 16384, 256
     case = paths.vote_material(4096, n_bits, mb, True, cuda)
     chacha.batch_vote(case.table, case.words, n_bits, mb, case.expected)
@@ -1734,9 +1737,10 @@ def test_vote_kernel_is_one_kernel_and_writes_no_keystream(cuda):
         "chacha20_vote_kernel")
     before = chacha.batch_vote.launches
     big = chacha.VOTE_MAX_BLOCKS * chacha.BLOCK_BITS + 1
-    with pytest.raises(ValueError, match="at most"):
-        chacha.batch_vote(case.table, torch.zeros((1, chacha.block_words(big)),
-                                                  dtype=torch.int32, device=cuda), big, mb)
+    zeros = torch.zeros((1, chacha.block_words(big)), dtype=torch.int32, device=cuda)
+    assert chacha.batch_vote(case.table[:2], zeros, big, mb).shape == (2, mb)
+    assert chacha.batch_vote.launches == before + 1
+    before += 1
     with pytest.raises(ValueError, match="message bits"):
         chacha.batch_vote(case.table, case.words, n_bits, 2**24)
     offset = torch.zeros(case.words.numel() + 1, dtype=torch.int32, device=cuda)[1:]
@@ -2054,3 +2058,201 @@ def test_ring_steps_on_one_card_match_one_call(cuda, sp, b, s, h, d):
     got = torch.cat(outs, dim=1)
     want = attn.flash_attention_split_reference(q.float(), k.float(), v.float())
     assert_attention_close(got, want)
+
+
+# ---- K7 above d = 160: flash_split.cu's kernel over the aligning pre-pass ----
+
+SPLIT_K7_DIMS = (168, 192, 256, 512)
+
+
+@pytest.mark.parametrize("s", [1, 13, 77, 324, 1001, 1024])
+@pytest.mark.parametrize("d", SPLIT_K7_DIMS)
+def test_split_k7_equals_the_natural_kernel_at_every_s(cuda, d, s):
+    """K7 at d > 160 is flash_split.cu's kernel in the transposed layout, by
+    tensor maps at S % 8 == 0 and over the pre-pass's scratch elsewhere: the
+    same products in the same order as K4 on the same q, k and v, whose
+    output it equals bit for bit; launches counted under the form's name,
+    the pre-pass's on its own counter."""
+    b, h = 2, 2
+    g = torch.Generator(device=cuda).manual_seed(d + s)
+    qkv_t = torch.randn((3 * h * d, b, s), generator=g, device=cuda).bfloat16()
+    kernel = attn.transposed_kernel(d, s)
+    assert kernel == "flash_split_kernel" + (attn.ALIGNED_FORM if s % 8 else "")
+    by_kernel = attn.flash_attention_transposed.launches_by_kernel
+    before = (by_kernel.get(kernel, 0), attn.flash_attention_transposed.align_launches)
+    got = attn.flash_attention_transposed(qkv_t, h)
+    assert (by_kernel[kernel], attn.flash_attention_transposed.align_launches) == \
+        (before[0] + 1, before[1] + (s % 8 != 0))
+    q, k, v = (t.permute(2, 3, 0, 1).reshape(b, s, h * d).contiguous()
+               for t in qkv_t.view(3, h, d, b, s))
+    natural = attn.flash_attention(q, k, v, h)
+    assert torch.equal(_heads(got, h), natural.view(b, s, h, d))
+
+
+@pytest.mark.parametrize("b,s,h,d", [(1, 1001, 1, 512), (2, 324, 2, 256), (1, 13, 3, 192),
+                                     (2, 1024, 1, 512)])
+def test_split_k7_prepass_and_entries_agree(cuda, b, s, h, d):
+    """The pre-pass alone (``gswm_flash_transposed_align``) writes the input
+    and zeros past S into scratch of the aligned pitch; K7 through its C
+    entry (the pre-pass and the core from one call where S % 8 != 0),
+    through ``gswm_flash_transposed_rows`` (the pre-pass form at any S) and
+    through the wrapper, which makes that one C call and counts the
+    pre-pass, equal bit for bit."""
+    from gswm_torch import native
+
+    lib, stream = native.library(), native.stream_handle(cuda)
+    g = torch.Generator(device=cuda).manual_seed(b * s + d)
+    qkv_t = torch.randn((3 * h * d, b, s), generator=g, device=cuda).bfloat16()
+    pitch = attn.aligned_pitch(s)
+    padded = torch.full((3 * h * d, b, pitch), 7.0, device=cuda, dtype=torch.bfloat16)
+    lib.call("gswm_flash_transposed_align", qkv_t.data_ptr(), padded.data_ptr(),
+             3 * h * d * b, s, pitch, stream)
+    torch.cuda.synchronize()
+    assert torch.equal(padded, attn.align_tokens_reference(qkv_t, pitch))
+    out = torch.empty((h * d, b, s), device=cuda, dtype=torch.bfloat16)
+    entry = _transposed_call("gswm_flash_transposed", qkv_t, out.clone(), h)
+    rows = _transposed_call("gswm_flash_transposed_rows", qkv_t, out.clone(), h)
+    before = attn.flash_attention_transposed.align_launches
+    wrapper = attn.flash_attention_transposed(qkv_t, h)
+    assert attn.flash_attention_transposed.align_launches == before + (s % 8 != 0)
+    assert torch.equal(entry, rows) and torch.equal(entry, wrapper)
+    assert torch.isfinite(entry.float()).all()
+
+
+@pytest.mark.parametrize("s", [1001, 1024])
+def test_split_k4_keeps_its_instance(cuda, s):
+    """K4 and K4 with lse at d > 160 after the layout became a template
+    parameter: each still equals the plain version within the attention
+    bound, and K4 equals K4 + lse's output bit for bit (one kernel body,
+    the lse store in its epilogue alone)."""
+    b, h, d = 1, 2, 512
+    g = torch.Generator(device=cuda).manual_seed(s)
+    q, k, v = (torch.randn((b, s, h, d), generator=g, device=cuda).bfloat16() for _ in range(3))
+    got = attn.flash_attention_split(q, k, v)
+    with_lse, lse = attn.flash_attention_split(q, k, v, return_lse=True)
+    assert torch.equal(got, with_lse)
+    assert_attention_close(got, attn.flash_attention_split_reference(q.float(), k.float(),
+                                                                     v.float()))
+    assert torch.isfinite(lse).all()
+
+
+# ---- K3: the vote past 1,835,008 bits and the embed --------------------------
+
+VOTE_STREAM_CASES = [
+    (2, 2_097_152, 256, True), (3, 2_097_152, 256, False), (2, 1_835_009, 100, True),
+    (2, 2_097_152, 9000, True), (2, 2_097_152, 1, False), (2, 4_194_304, 48, True),
+    (2, 1_900_000, 2_000_000, True), (2, 2_000_003, 1_000_001, False)]
+
+
+@pytest.mark.parametrize("rows,n_bits,mb,shared", VOTE_STREAM_CASES)
+def test_vote_stream_mode_bit_exact(cuda, rows, n_bits, mb, shared):
+    """Rows past 3584 blocks (a 2048x2048 latent at l = 8 is 2,097,152
+    bits): the vote's stream mode against its plain version, scores equal as
+    float32 and voted bits equal, at one latent for every row and a latent a
+    row; message words past 256 (counted 256 at a time), one message bit
+    (2M segments, 24 bit planes), more message bits than the row has (no
+    segment votes) and one segment; carriers score 1.0."""
+    assert chacha.vote_entry(n_bits) == chacha.VOTE_STREAM_ENTRY
+    case = paths.vote_material(rows, n_bits, mb, shared, cuda)
+    before = chacha.batch_vote.launches
+    got = chacha.batch_vote(case.table, case.words, n_bits, mb, case.expected)
+    bits = chacha.batch_vote(case.table, case.words, n_bits, mb)
+    assert chacha.batch_vote.launches == before + 2
+    assert torch.equal(got, chacha.batch_vote_reference(case.table, case.words, n_bits, mb,
+                                                        case.expected))
+    assert torch.equal(bits, chacha.batch_vote_reference(case.table, case.words, n_bits, mb))
+    if mb <= n_bits:
+        assert (got[case.carriers] == 1.0).all()
+        assert torch.equal(bits[case.carriers], case.message[case.carriers])
+
+
+def test_vote_stream_mode_is_one_kernel(cuda):
+    n_bits, mb = 2_097_152, 256
+    case = paths.vote_material(4, n_bits, mb, True, cuda)
+    _assert_one_kernel_a_call(
+        lambda: chacha.batch_vote(case.table, case.words, n_bits, mb, case.expected),
+        "chacha20_vote_stream_kernel")
+
+
+@pytest.mark.parametrize("splits", range(1, 9))
+@pytest.mark.parametrize("rows,n_bits,mb,shared", [
+    (2, 2_097_152, 256, True), (3, 2_097_152, 9000, False), (2, 2_000_003, 1, True),
+    (2, 4_194_304, 48, False)])
+def test_vote_stream_split_bit_exact(cuda, splits, rows, n_bits, mb, shared):
+    """The stream mode's C entry at every cluster of 1 to 8 thread blocks a
+    row (shares of the stream that end mid-segment, an odd share count, a
+    message of 282 words counted 256 at a time, 24 bit planes): scores and
+    voted bits equal the plain version's."""
+    from gswm_torch import native
+
+    case = paths.vote_material(rows, n_bits, mb, shared, cuda)
+    scores = torch.empty(rows, dtype=torch.float32, device=cuda)
+    voted = torch.empty((rows, mb), dtype=torch.uint8, device=cuda)
+    for out, want in ((scores, case.expected), (voted, None)):
+        native.library().call(chacha.VOTE_STREAM_ENTRY, case.table.data_ptr(),
+                              case.words.data_ptr(), case.words.shape[0],
+                              None if want is None else want.data_ptr(),
+                              out.data_ptr() if want is not None else None,
+                              out.data_ptr() if want is None else None, rows, n_bits, mb,
+                              splits, native.stream_handle(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(scores, chacha.batch_vote_reference(case.table, case.words, n_bits, mb,
+                                                           case.expected))
+    assert torch.equal(voted, chacha.batch_vote_reference(case.table, case.words, n_bits, mb))
+
+
+def _ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The float32 ulps between a and b (same sign)."""
+    ia, ib = a.view(torch.int32).long(), b.view(torch.int32).long()
+    return (ia - ib).abs()
+
+
+@pytest.mark.parametrize("l", [1, 2, 3, 7, 8])
+@pytest.mark.parametrize("rows,elements", [(1, 16384), (5, 16384), (64, 4096), (3, 333)])
+def test_embed_kernel_matches_plain(cuda, rows, elements, l):
+    """The embed kernel against its plain version on the card, whose ndtri
+    is torch.special.ndtri's: every quantized bit equal and z within 4
+    float32 ulps or 1e-6 relative; one launch a call, counted."""
+    from gswm_torch.core import decode
+
+    rng = torch.Generator(device=cuda).manual_seed(rows + elements + l)
+    keys, nonces, _, _ = paths.multikey_material(rows, seed=l)
+    nonces[0] = (2**32 - 2).to_bytes(8, "little") + nonces[0][8:]
+    table = torch.from_numpy(chacha.key_table(keys, nonces).view("int32")).to(cuda)
+    n_bits = elements * l
+    bits = torch.randint(0, 2, (rows, n_bits), generator=rng, device=cuda, dtype=torch.uint8)
+    words = chacha.pack_bits(bits, chacha.block_words(n_bits))
+    u = torch.rand((rows, elements), generator=rng, device=cuda)
+    before = chacha.batch_embed.launches
+    got = chacha.batch_embed(table, words, u, l)
+    assert chacha.batch_embed.launches == before + 1
+    want = chacha.batch_embed_reference(table, words, u, l)
+    assert got.shape == want.shape == (rows, elements) and got.dtype == torch.float32
+    assert torch.equal(decode.quantize_latent_bits(got.view(rows, 1, 1, elements), l),
+                       decode.quantize_latent_bits(want.view(rows, 1, 1, elements), l))
+    close = (_ulps(got, want) <= 4) | ((got - want).abs() <= 1e-6 * want.abs())
+    assert close.all(), (got - want).abs().max().item()
+
+
+def test_multikey_embed_is_one_embed_launch(cuda):
+    """``embed_latents_multikey`` on the card: one launch of the embed
+    kernel a call and none of the table kernel; its rows decode to their
+    messages at 1.0."""
+    from gswm_torch import GSConfig
+    from gswm_torch.core import multikey
+
+    cfg = GSConfig(width=512, height=512, message_bits=256)
+    keys, nonces, msgs, _ = paths.multikey_material(64, seed=3)
+    before = (chacha.batch_embed.launches, chacha.batch_keystream_bits.launches)
+    lat, msg = multikey.embed_latents_multikey(cfg, keys, nonces, msgs, device=cuda,
+                                               generator=torch.Generator(cuda).manual_seed(0))
+    assert (chacha.batch_embed.launches, chacha.batch_keystream_bits.launches) == \
+        (before[0] + 1, before[1])
+    voted = multikey.recover_message_bits_multikey(lat, cfg, keys, nonces)
+    want = torch.tensor([list(map(int, "".join(f"{x:08b}" for x in m))) for m in msg],
+                        dtype=torch.uint8)
+    assert torch.equal(voted.cpu(), want[:, :256])
+    u = torch.rand((64, cfg.total_elements), device=cuda)
+    _assert_one_kernel_a_call(
+        lambda: multikey.embed_latents_multikey(cfg, keys, nonces, msgs, u=u, device=cuda),
+        "chacha20_embed_kernel", calls=4)
