@@ -72,8 +72,14 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
                 (fused GroupNorm) at every distinct (shape, eps, act) of the
                 768x768 path's GroupNorms, collected by forward hooks during
                 one UNet forward at batch 2 and at 4, one VAE decode of one
-                image and one encode of two; one call under the profiler
-                must be one kernel and allocate the output alone.  The batch
+                image and one encode of two, on NCHW x (the record
+                "fused_group_norm", the cluster kernel) and then on
+                channels-last x ("fused_group_norm_nhwc", the persistent
+                grid; its output channels-last), the library call
+                F.group_norm (+ F.silu) on x in the same layout, and the
+                probe cases paths.K8_PROBE_CASES channels-last too; one call
+                under the profiler must be one kernel and allocate the
+                output alone, in either layout.  The batch
                 ChaCha20 kernel (K3 over a key table) bit-exact against its
                 plain version at (rows, blocks) = (4, 32), (4096, 32) and
                 (10000, 32), against the single-key kernel row by row, one
@@ -158,8 +164,10 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
      at bit accuracy >= 0.99 on every image;
      K3 does not launch (phase 4 left the keystream of this key cached).
   6. GroupNorm op — K8 on the inputs of every GroupNorm of one UNet forward
-     (batch 2), one decode and one encode at 768x768, each against the
-     model's own GroupNorm output; one launch per GroupNorm.
+     (batch 2), one decode and one encode at 768x768, each as it comes
+     (NCHW) and as x.contiguous(memory_format=torch.channels_last), each
+     against the model's own GroupNorm output, the output in x's layout;
+     one launch per GroupNorm on each layout's counter.
   7. per-user keys at config-5 scale (gswm_torch/tools/paths.py): 10,000
      (key, nonce, message) records from a numpy seed, 512x512 geometry —
        (a) every record embedded under its own key (2,500 rows a call) and
@@ -440,8 +448,9 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
      F32_TRANSPOSED_WORD_SHAPES (sdpa's math backend), K4 + lse at
      paths.F32_LSE_SHAPES (the lse within 1e-5 of max(1, max |lse|) of
      float64 logsumexp; aten's memory-efficient attention with its
-     logsumexp), K8 at phase 2's GroupNorm cases (F.group_norm + F.silu in
-     fp32) and paths.K8_PROBE_CASES beside a copy of x; raising unless
+     logsumexp), K8 at phase 2's GroupNorm cases, NCHW and channels-last
+     (F.group_norm + F.silu in fp32 on x in the same layout) and
+     paths.K8_PROBE_CASES in both layouts beside a copy of x; raising unless
      K6 equals the natural form (the natural wrapper, on the same key
      split) on its heads made contiguous, K7 equals it on the same q, k
      and v, K7's unsplit 4-byte copies equal its 16-byte ones where S % 4
@@ -455,8 +464,9 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
            under (b) (K6) and (c) (K7) the closed loop at phase 5's depth
            (10 + 10, >= 0.99);
        (k) K8 in fp32 on every GroupNorm input of (e)'s pipeline
-           (paths.drive_groupnorm_sites), within 1e-5 of max |want| of each
-           module's fp32 output; one fp32 launch a site;
+           (paths.drive_groupnorm_sites), NCHW and channels-last, within
+           1e-5 of max |want| of each module's fp32 output; one fp32 launch
+           a site on each layout's counter;
        (i) sd-1-4 512x512 batch 4 in fp32 ((f)'s pipeline): one forward
            under (c) (K7 at d = 40) and under paths.SD14_SWITCHES' (t) (K7
            at 40, 80, 160), one at 576x576 under (t) (level 2's 324
@@ -471,7 +481,8 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
      of csrc/flash_f32.cu at one panel and at more; its forms
      "flash_f32_packed", "flash_f32_transposed", "flash_f32_lse"; the
      steps around the core, "flash_f32_prepass" and "flash_f32_combine";
-     and "group_norm_f32", csrc/group_norm.cu on float32) with bound_ms at
+     and "group_norm_f32" and "group_norm_nhwc_f32", csrc/group_norm.cu on
+     float32 NCHW and channels-last x) with bound_ms at
      3xTF32 (PEAK_TF32 / 3, gswm_torch/roofline.py), K8's, the pre-pass's
      and the combine's by bytes.
  14. summary  — a JSON line of the kernels, then the JSON result line.
@@ -1017,21 +1028,26 @@ def _check_embed(records: dict) -> None:
         del got, table, words, u, payload_dev
 
 
-def _check_group_norm_call(shape, act) -> None:
+def _check_group_norm_call(shape, act, channels_last: bool = False) -> None:
     """One K8 call: one kernel, and one allocation, its output (no scratch,
-    no converted parameters)."""
+    no converted parameters); NCHW x runs the cluster kernel, channels-last
+    x the persistent grid, its output channels-last."""
     from gswm_torch.ops import groupnorm as gn
 
     x = torch.randn(shape, device="cuda").bfloat16()
+    if channels_last:
+        x = x.contiguous(memory_format=torch.channels_last)
     w, b = torch.ones(shape[1], device="cuda"), torch.zeros(shape[1], device="cuda")
-    _check_one_kernel(f"fused_group_norm at {shape}",
+    _check_one_kernel(f"fused_group_norm at {shape}{' channels-last' * channels_last}",
                       lambda: gn.fused_group_norm(x, w, b, 32, 1e-5, act),
-                      "gn_cluster_kernel")
+                      "gn_grid_kernel" if channels_last else "gn_cluster_kernel")
     before = torch.cuda.memory_stats()["allocation.all.allocated"]
     out = gn.fused_group_norm(x, w, b, 32, 1e-5, act)
     made = torch.cuda.memory_stats()["allocation.all.allocated"] - before
     if made != 1:
         raise AssertionError(f"fused_group_norm at {shape} made {made} allocations")
+    if channels_last and not out.is_contiguous(memory_format=torch.channels_last):
+        raise AssertionError(f"fused_group_norm at {shape}: channels-last x, output not")
     del out
 
 
@@ -1157,8 +1173,9 @@ def phase_kernels(gn_cases) -> dict:
     carry = bytes.fromhex(CARRY_NONCE_HEX)
     for shape, act in paths.K8_PROBE_CASES:
         _check_group_norm_call(shape, act)
+        _check_group_norm_call(shape, act, channels_last=True)
     print(f"K8 group_norm: one kernel and one allocation a call at "
-          f"{[c[0] for c in paths.K8_PROBE_CASES]}", flush=True)
+          f"{[c[0] for c in paths.K8_PROBE_CASES]}, NCHW and channels-last", flush=True)
     for n_blocks in paths.K3_BLOCKS:
         for nn in (nonce, carry):
             _check_keystream(key, nn, n_blocks)
@@ -1340,12 +1357,24 @@ def phase_kernels(gn_cases) -> dict:
     _check_lse_kernels(records, rand)
     _check_k7_aligned(records, rand)
     # K8: unit-scale inputs with an offset, near-unit affine; the library
-    # call is F.group_norm (+ F.silu) in bf16
-    for shape, eps, act in gn_cases:
+    # call is F.group_norm (+ F.silu) in bf16 on x in the same layout; each
+    # GroupNorm shape of the 768x768 path on NCHW x, then on channels-last x
+    # (and the probe cases), the grid kernel's output channels-last
+    layouts = (("fused_group_norm", False), ("fused_group_norm_nhwc", True))
+    cases = [(shape, eps, act, name, last) for name, last in layouts
+             for shape, eps, act in gn_cases]
+    # the probe cases are printed, not summed into the record
+    cases += [(shape, 1e-6, act, None, True) for shape, act in paths.K8_PROBE_CASES]
+    for shape, eps, act, name, last in cases:
         x = (torch.randn(shape, generator=g, device=dev) * 2 + 0.5).bfloat16()
+        if last:
+            x = x.contiguous(memory_format=torch.channels_last)
         w = 1 + 0.05 * torch.randn(shape[1], generator=g, device=dev)
         bias = 0.05 * torch.randn(shape[1], generator=g, device=dev)
-        got = gn.fused_group_norm(x, w, bias, 32, eps, act).float()
+        out = gn.fused_group_norm(x, w, bias, 32, eps, act)
+        if last and not out.is_contiguous(memory_format=torch.channels_last):
+            raise AssertionError(f"K8 at {shape}: channels-last x, the output not")
+        got = out.float()
         want = gn.fused_group_norm_reference(x.float(), w, bias, 32, eps, act)
         err = (got - want).abs().max().item()
         top = want.abs().max().item()
@@ -1359,18 +1388,21 @@ def phase_kernels(gn_cases) -> dict:
             return F.silu(y) if act == "silu" else y
 
         lib = _library_ms(gn_library, 10)
-        print(f"K8 group_norm {shape} eps {eps} act {act}: max|err| {err:.5f} (bound "
-              f"{GN_BOUND}), err/max|want| {err / top:.5f} (bound {GN_REL_BOUND}); "
-              f"{ms:.4f} ms (plain {plain:.4f}, bound {bound[0]:.4f} by {bound[1]}, "
-              f"library {_fmt(lib)})", flush=True)
+        print(f"K8 group_norm {shape}{' channels-last' * last} eps {eps} act {act}: max|err| "
+              f"{err:.5f} (bound {GN_BOUND}), err/max|want| {err / top:.5f} (bound "
+              f"{GN_REL_BOUND}); {ms:.4f} ms (plain {plain:.4f}, bound {bound[0]:.4f} by "
+              f"{bound[1]}, library {_fmt(lib)})", flush=True)
         if not (err <= GN_BOUND and err <= GN_REL_BOUND * top):
             raise AssertionError(f"K8 at {shape}: error {err} above {GN_BOUND} or "
                                  f"{GN_REL_BOUND} x {top}")
-        _record(records, "fused_group_norm", err, ms, plain, bound, lib)
-        del x, got, want
-    print(f"K8 group_norm: 50-shape sums above: "
-          f"{records['fused_group_norm']['ms']:.4f} ms against a bound of "
-          f"{records['fused_group_norm']['bound_ms']:.4f} ms", flush=True)
+        if name:
+            _record(records, name, err, ms, plain, bound, lib)
+        del x, out, got, want
+    for name, _ in layouts:
+        print(f"K8 group_norm, {name}: the {len(gn_cases)}-shape sums above: "
+              f"{records[name]['ms']:.4f} ms against a bound of "
+              f"{records[name]['bound_ms']:.4f} ms, library {_fmt(records[name]['library_ms'])}",
+              flush=True)
     return records
 
 
@@ -1606,6 +1638,9 @@ def _counters() -> dict:
     counts["flash_f32_transposed"] = attn.flash_attention_transposed.launches_f32
     counts["flash_f32_lse"] = split.lse_launches_f32
     counts["group_norm_f32"] = _wrappers()["fused_group_norm"].launches_f32
+    # K8 on channels-last x, the persistent grid's, bf16 and float32
+    counts["fused_group_norm_nhwc"] = _wrappers()["fused_group_norm"].launches_nhwc
+    counts["group_norm_nhwc_f32"] = _wrappers()["fused_group_norm"].launches_nhwc_f32
     # the steps around the float32 core: its split pre-pass, one a call,
     # and the combine of its key chunks where it splits them
     counts["flash_f32_prepass"] = attn.f32_core.prepass_launches
@@ -1653,6 +1688,8 @@ def _reset_counters() -> None:
     split.lse_launches_f32 = 0
     split.lse_launches_f32_by_d = {}
     _wrappers()["fused_group_norm"].launches_f32 = 0
+    _wrappers()["fused_group_norm"].launches_nhwc = 0
+    _wrappers()["fused_group_norm"].launches_nhwc_f32 = 0
     attn.f32_core.prepass_launches = 0
     attn.f32_core.combine_launches = 0
 
@@ -1911,36 +1948,54 @@ def phase_tiers(card: str, pipe) -> dict:
     return total
 
 
-def phase_groupnorm_op(pipe) -> dict:
-    """K8 on the real inputs of the 768x768 path's GroupNorms, held against
-    each module's own output (F.group_norm in fp32, rounded to bf16): within
-    GN_REL_BOUND of max |want| — two bf16 roundings of fp32 values that
-    differ in the last places may land one bf16 step apart, at most 2^-7 of
-    the entry; the absolute bound of phase 2 assumes outputs below 8, which
-    real activations need not keep."""
+def _groupnorm_sites(pipe, label: str, bound: float) -> list:
+    """K8 on the input of every GroupNorm of ``paths.drive_groupnorm_sites``
+    as it comes (NCHW) and as ``x.contiguous(memory_format=
+    torch.channels_last)``, each output in x's dtype and layout and within
+    ``bound`` of max |want| of the module's own output.  Returns [the worst
+    err / max|want|, the sites]."""
     from gswm_torch.ops import groupnorm as gn
 
     worst = [0.0, 0]
 
     def hook(name, m, x, y):
-        got = gn.fused_group_norm(x.contiguous(), m.weight, m.bias, m.num_groups, m.eps)
-        err = (got.float() - y.float()).abs().max().item()
-        top = y.float().abs().max().item()
-        if not err <= GN_REL_BOUND * top:
-            raise AssertionError(f"K8 at {name} {tuple(x.shape)}: error {err} above "
-                                 f"{GN_REL_BOUND} x {top}")
-        worst[0] = max(worst[0], err / top)
+        want = y.float()
+        top = want.abs().max().item()
+        for last in (False, True):
+            xin = x.contiguous(memory_format=torch.channels_last) if last else x.contiguous()
+            got = gn.fused_group_norm(xin, m.weight, m.bias, m.num_groups, m.eps)
+            err = (got.float() - want).abs().max().item()
+            if got.dtype != x.dtype or got.is_contiguous(memory_format=torch.channels_last) \
+                    != last or not err <= bound * top:
+                raise AssertionError(f"{label} at {name} {tuple(x.shape)}"
+                                     f"{' channels-last' * last}: {got.dtype}, error {err} "
+                                     f"above {bound} x {top}, or not in x's layout")
+            worst[0] = max(worst[0], err / top)
         worst[1] += 1
 
-    _reset_counters()
     with paths.groupnorm_hooks(pipe, hook):
         paths.drive_groupnorm_sites(pipe)
+    return worst
+
+
+def phase_groupnorm_op(pipe) -> dict:
+    """K8 on the real inputs of the 768x768 path's GroupNorms, NCHW and
+    channels-last, held against each module's own output (F.group_norm in
+    fp32, rounded to bf16): within GN_REL_BOUND of max |want| — two bf16
+    roundings of fp32 values that differ in the last places may land one
+    bf16 step apart, at most 2^-7 of the entry; the absolute bound of phase
+    2 assumes outputs below 8, which real activations need not keep."""
+    _reset_counters()
+    worst = _groupnorm_sites(pipe, "K8", GN_REL_BOUND)
     counts = _counters()
-    print(f"6. K8 on {worst[1]} GroupNorm inputs of the 768x768 path: max "
-          f"|err| / max|want| {worst[0]:.5f} (bound {GN_REL_BOUND}); launches "
-          f"{counts['fused_group_norm']}", flush=True)
-    if counts["fused_group_norm"] != worst[1] or worst[1] < 1:
-        raise AssertionError(f"K8 launched {counts['fused_group_norm']} times for "
+    print(f"6. K8 on {worst[1]} GroupNorm inputs of the 768x768 path, NCHW and "
+          f"channels-last: max |err| / max|want| {worst[0]:.5f} (bound {GN_REL_BOUND}); "
+          f"launches {counts['fused_group_norm']} NCHW, {counts['fused_group_norm_nhwc']} "
+          f"channels-last", flush=True)
+    if counts["fused_group_norm"] != worst[1] or counts["fused_group_norm_nhwc"] != worst[1] \
+            or worst[1] < 1:
+        raise AssertionError(f"K8 launched {counts['fused_group_norm']} (NCHW) and "
+                             f"{counts['fused_group_norm_nhwc']} (channels-last) times for "
                              f"{worst[1]} GroupNorms")
     return counts
 
@@ -4176,20 +4231,29 @@ def _check_f32_forms(records: dict, gn_cases) -> None:
         torch.cuda.empty_cache()
     print(f"(a) the float32 attention forms: {time.perf_counter() - t0:.2f} s", flush=True)
 
-    # K8 in float32 at every GroupNorm shape of the 768x768 path; where no
-    # product runs in TF32, bf16-rounded x (the bf16 kernel's input) must
-    # miss the bound instead
+    # K8 in float32 at every GroupNorm shape of the 768x768 path, NCHW and
+    # then channels-last; where no product runs in TF32, bf16-rounded x (the
+    # bf16 kernel's input) must miss the bound instead
     t0 = time.perf_counter()
-    for shape, eps, act in gn_cases:
+    for (shape, eps, act), (name, last) in [
+            (case, layout) for layout in (("group_norm_f32", False),
+                                          ("group_norm_nhwc_f32", True))
+            for case in gn_cases]:
         x = torch.randn(shape, generator=g, device=dev) * 2 + 0.5
+        if last:
+            x = x.contiguous(memory_format=torch.channels_last)
         w = 1 + 0.05 * torch.randn(shape[1], generator=g, device=dev)
         bias = 0.05 * torch.randn(shape[1], generator=g, device=dev)
 
         def gn_library(x=x, w=w, bias=bias, eps=eps, act=act):
             y = F.group_norm(x, 32, w, bias, eps)
             return F.silu(y) if act == "silu" else y
+        if last and not gn.fused_group_norm(x, w, bias, 32, eps, act).is_contiguous(
+                memory_format=torch.channels_last):
+            raise AssertionError(f"(a) fp32 K8 at {shape}: channels-last x, the output not")
         _check_f32_kernel(
-            records, "group_norm_f32", f"(a) fp32 K8 group_norm {shape} eps {eps} act {act}",
+            records, name, f"(a) fp32 K8 group_norm {shape}{' channels-last' * last} eps "
+            f"{eps} act {act}",
             lambda x=x, w=w, bias=bias, eps=eps, act=act: gn.fused_group_norm(
                 x, w, bias, 32, eps, act),
             lambda x=x, w=w, bias=bias, eps=eps, act=act: gn.fused_group_norm_reference(
@@ -4202,15 +4266,19 @@ def _check_f32_forms(records: dict, gn_cases) -> None:
             narrow=lambda x=x, w=w, bias=bias, eps=eps, act=act: gn.fused_group_norm_reference(
                 x.bfloat16().float(), w, bias, 32, eps, act))
         del x
-    rec, bf16 = records["group_norm_f32"], records.get("fused_group_norm")
-    print(f"(a) fp32 K8: {len(gn_cases)}-shape sums {rec['ms']:.4f} ms against a bound of "
-          f"{rec['bound_ms']:.4f} ms"
-          + (f" (bf16, phase 2: {bf16['ms']:.4f} against {bf16['bound_ms']:.4f})" if bf16
-             else "") + f"; {time.perf_counter() - t0:.2f} s", flush=True)
+    for name, bf16 in (("group_norm_f32", "fused_group_norm"),
+                       ("group_norm_nhwc_f32", "fused_group_norm_nhwc")):
+        rec, bf16 = records[name], records.get(bf16)
+        print(f"(a) fp32 K8, {name}: {len(gn_cases)}-shape sums {rec['ms']:.4f} ms against a "
+              f"bound of {rec['bound_ms']:.4f} ms"
+              + (f" (bf16, phase 2: {bf16['ms']:.4f} against {bf16['bound_ms']:.4f})" if bf16
+                 else "") + f"; {time.perf_counter() - t0:.2f} s", flush=True)
     for shape, act in paths.K8_PROBE_CASES:
         x = torch.randn(shape, generator=g, device=dev)
+        xl = x.contiguous(memory_format=torch.channels_last)
         w, bias = torch.ones(shape[1], device=dev), torch.zeros(shape[1], device=dev)
         ms = _time_ms(lambda x=x: gn.fused_group_norm(x, w, bias, 32, 1e-6, act), 10)
+        ms_last = _time_ms(lambda xl=xl: gn.fused_group_norm(xl, w, bias, 32, 1e-6, act), 10)
         ms_bf16 = _time_ms(lambda xb=x.bfloat16(): gn.fused_group_norm(xb, w, bias, 32, 1e-6,
                                                                       act), 10)
         bound = roofline.bound_ms(*roofline.group_norm_cost(shape, roofline.F32),
@@ -4218,9 +4286,10 @@ def _check_f32_forms(records: dict, gn_cases) -> None:
         y = torch.empty_like(x)  # the same bytes read and written by a copy
         copy = _time_ms(lambda x=x, y=y: y.copy_(x), 10)
         print(f"(a) fp32 K8 probe {shape} {act}: {ms:.4f} ms, {bound / ms:.1%} of its bound "
-              f"{bound:.4f}; Tensor.copy_ of x {copy:.4f} ms; bf16 on the same x "
-              f"{ms_bf16:.4f} ms", flush=True)
-        del x, y
+              f"{bound:.4f}; channels-last {ms_last:.4f} ms, {bound / ms_last:.1%}; "
+              f"Tensor.copy_ of x {copy:.4f} ms; bf16 on the same x {ms_bf16:.4f} ms",
+              flush=True)
+        del x, xl, y
 
 
 def _f32_forward_under(label: str, forward, switches: dict, want: tuple, default,
@@ -4293,33 +4362,24 @@ def _f32_tiers_768(card: str, pipe, cfg) -> list:
 def _f32_groupnorm_sites(pipe) -> dict:
     """13k: K8 in fp32 on the inputs of every GroupNorm of one UNet forward
     at batch 2 and at 4, one decode and one encode of the fp32 768x768
-    pipeline, each against the module's own fp32 output within
-    F32_REL_BOUND of its largest entry; one fp32 launch a site."""
-    from gswm_torch.ops import groupnorm as gn
-
+    pipeline, NCHW and channels-last, each against the module's own fp32
+    output within F32_REL_BOUND of its largest entry; one fp32 launch a site
+    in each layout."""
     t0 = time.perf_counter()
-    worst = [0.0, 0]
-
-    def hook(name, m, x, y):
-        got = gn.fused_group_norm(x.contiguous(), m.weight, m.bias, m.num_groups, m.eps)
-        err = (got - y).abs().max().item()
-        top = y.abs().max().item()
-        if got.dtype != torch.float32 or not err <= F32_REL_BOUND * top:
-            raise AssertionError(f"(k) fp32 K8 at {name} {tuple(x.shape)}: {got.dtype}, "
-                                 f"error {err} above {F32_REL_BOUND} x {top}")
-        worst[0] = max(worst[0], err / top)
-        worst[1] += 1
-
     _reset_counters()
-    with paths.groupnorm_hooks(pipe, hook):
-        paths.drive_groupnorm_sites(pipe)
+    worst = _groupnorm_sites(pipe, "(k) fp32 K8", F32_REL_BOUND)
     counts = _counters()
-    print(f"(k) fp32 K8 on {worst[1]} GroupNorm inputs of the 768x768 fp32 path: max "
-          f"|err| / max|want| {worst[0]:.3e} (bound {F32_REL_BOUND:.0e}); fp32 launches "
-          f"{counts['group_norm_f32']}; {time.perf_counter() - t0:.2f} s", flush=True)
-    if counts["group_norm_f32"] != worst[1] or worst[1] < 1 or counts["fused_group_norm"]:
-        raise AssertionError(f"(k) fp32 K8 launched {counts['group_norm_f32']} times (bf16 "
-                             f"{counts['fused_group_norm']}) for {worst[1]} GroupNorms")
+    print(f"(k) fp32 K8 on {worst[1]} GroupNorm inputs of the 768x768 fp32 path, NCHW and "
+          f"channels-last: max |err| / max|want| {worst[0]:.3e} (bound "
+          f"{F32_REL_BOUND:.0e}); fp32 launches {counts['group_norm_f32']} NCHW, "
+          f"{counts['group_norm_nhwc_f32']} channels-last; {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    if counts["group_norm_f32"] != worst[1] or counts["group_norm_nhwc_f32"] != worst[1] \
+            or worst[1] < 1 or counts["fused_group_norm"] or counts["fused_group_norm_nhwc"]:
+        raise AssertionError(f"(k) fp32 K8 launched {counts['group_norm_f32']} (NCHW) and "
+                             f"{counts['group_norm_nhwc_f32']} (channels-last) times (bf16 "
+                             f"{counts['fused_group_norm']}, "
+                             f"{counts['fused_group_norm_nhwc']}) for {worst[1]} GroupNorms")
     return counts
 
 
@@ -4545,6 +4605,11 @@ def main() -> None:
                                  "gswm/ops/attention.py:1428"),
         "flash_f32_lse": ("gswm_torch/csrc/flash_f32.cu", "gswm/ops/attention.py:414"),
         "group_norm_f32": ("gswm_torch/csrc/group_norm.cu", "gswm/ops/groupnorm.py:185"),
+        # K8 in the JAX op's own layout: channels-last x (NHWC memory), on
+        # the persistent grid, bf16 (phase 6) and float32 (phase 13k)
+        "fused_group_norm_nhwc": ("gswm_torch/csrc/group_norm.cu",
+                                  "gswm/ops/groupnorm.py:185"),
+        "group_norm_nhwc_f32": ("gswm_torch/csrc/group_norm.cu", "gswm/ops/groupnorm.py:185"),
         # the steps of every float32 attention call around the core: k and v
         # split into TF32 parts, and the merge of the core's key chunks
         "flash_f32_prepass": ("gswm_torch/csrc/flash_f32.cu", "gswm/ops/attention.py:414"),

@@ -1,7 +1,8 @@
-// GroupNorm (+ optional SiLU) on NCHW bf16 or float32 (the element type a
-// template parameter), fp32 statistics and arithmetic: one launch, x read
-// once from device memory.  Output in x's type: bf16 rounded once, float32
-// not rounded at all.
+// GroupNorm (+ optional SiLU) on NCHW or channels-minor (NHWC) x, bf16 or
+// float32 (the element type a template parameter), fp32 statistics and
+// arithmetic: one launch, x read once from device memory while it fits on
+// chip.  Output in x's type and layout: bf16 rounded once, float32 not
+// rounded at all.
 //
 // Replaces gswm/ops/groupnorm.py:185 fused_group_norm (_resident_kernel
 // :112, _stats_kernel :138, _apply_kernel :150; pallas_calls :210, :229,
@@ -42,15 +43,21 @@
 // B * G = 32 ... 128).
 //
 // A group above 16 slices of 220 KB (3.6 MB: the VAE's 4.72 and 9.44 MB
-// groups) does not fit on chip, and a block sized smaller keeps less.  Its blocks keep the head of their slice in
-// shared memory and read the tail twice: once for the sums, and again right
-// after the barrier, tail first, while it is still in L2 (the clusters in
-// flight hold 8 x 4.72 MB of the 50 MB).  The head's copies and all stores are
-// streaming (evict-first), so they do not push the tails out of L2.  Blocks
-// are sized in bytes, so in float32 they keep half as many elements and more
-// groups take this route; at (1, 128, 768, 768) a group is 9.44 MB in
-// float32, and 8 clusters in flight no longer fit the L2 (first design: the
-// cost is measured, not designed away).
+// groups) does not fit in a cluster, and a block sized smaller keeps less.
+// In bf16 its blocks keep the head of their slice in shared memory and read
+// the tail twice: once for the sums, and again right after the barrier, tail
+// first, while it is still in L2 (the clusters in flight hold 8 x 4.72 MB of
+// the 50 MB).  The head's copies and all stores are streaming (evict-first),
+// so they do not push the tails out of L2.  In float32 those groups are
+// twice the bytes (9.44 MB at (1, 128, 768, 768)) and 8 clusters' tails no
+// longer fit the L2: they take the persistent grid below instead, whose
+// blocks, one an SM, keep three or four such groups whole in the card's
+// shared memory at once.
+//
+// Channels-minor x (the JAX op's own NHWC memory, torch.channels_last) takes
+// the persistent grid at every size: there a group is cpg channels of every
+// pixel, no contiguous run, and the unit a set of blocks shares is a whole
+// image.
 //
 // When H * W is a multiple of the elements 16 bytes hold (8 bf16, 4 float),
 // those consecutive elements share a channel and move as one 16-byte load
@@ -171,6 +178,12 @@ __device__ __forceinline__ void add_moments(const uint4& raw, float& s, float& s
 template <bool SILU>
 __device__ __forceinline__ float activate(float y) {
   return SILU ? __fdividef(y, 1.0f + __expf(-y)) : y;
+}
+
+// y or y * sigmoid(y) as `silu` says at run time (the persistent grid
+// takes the activation as an argument: one instance fewer a layout and type)
+__device__ __forceinline__ float act(bool silu, float y) {
+  return silu ? activate<true>(y) : y;
 }
 
 // The channel (within its group) of the element a thread is at, and a, b of
@@ -476,6 +489,604 @@ cudaError_t launch_act(bool silu, int keep_bytes, int cluster, const E* x, const
                                                eps, st);
 }
 
+// ---------------------------------------------------------------------------
+// The persistent grid: channels-minor (NHWC) x, and float32 NCHW groups
+// larger than a cluster keeps.
+//
+// A unit is what one set of statistics covers as a contiguous run of
+// memory: in NCHW a group (cpg * HW elements, one pair of sums), in NHWC a
+// whole image (HW * C elements, a pair of sums for each of its G groups:
+// a group's elements are cpg channels of every pixel, 20 to 80 bytes
+// apart from the next pixel's in bf16, so no run of memory holds a group
+// alone).  A unit is split into slices over P blocks, K units at a time
+// (the slots), one block an SM: K * P blocks, launched cooperatively so that
+// they are co-resident, walk the units in rounds.  A round, per block:
+//   1. the kept head of the slice is already landing in shared memory
+//      (bulk copies started during the previous round's stores); a tail the
+//      head could not take is read from device memory with an L2 evict-last
+//      policy, so that the second read finds it in L2;
+//   2. the block's sums (NHWC: per channel, a thread's vector column has
+//      fixed channels, then per group in channel order) go to this block's
+//      fixed place in the launch's scratch; the unit's P blocks meet at an
+//      integer arrival counter; every block adds the P sums in rank order,
+//      so every block has the same totals and the result is the same on
+//      every run;
+//   3. it normalises the tail (read again, evict-first) and then the head
+//      from shared memory, chunk by chunk, and each chunk, once read, takes
+//      the next round's bulk copy.
+// K and P follow from what fits: every unit of a round kept whole in the
+// card's shared memory where it can be; more units a round where their
+// tails together stay within L2_TAIL_BYTES; a unit beyond the card's shared
+// memory (the 768x768 VAE's images in NHWC, 151 MB in bf16) takes all
+// blocks alone, and its tail, most of it, is read twice: two reads and one
+// write, the JAX op's twopass mode (groupnorm.py:223-259) in one launch.
+// The sums and the counters are each launch's own, scratch from the
+// stream's pool (cudaMallocAsync), the counters zeroed on the stream before
+// the launch: grids on two streams at once share nothing.
+
+// threads a block; float32 NHWC rows of more than GRID_THREADS 16-byte
+// columns (C above 2048: the UNet's 2560-channel skip concatenations) take
+// blocks of GRID_THREADS_WIDE
+constexpr int GRID_THREADS = 512;
+constexpr int GRID_THREADS_WIDE = 1024;
+// the most bytes a block keeps: the 227 KB a block may have, less a margin
+// for static shared memory
+constexpr int GRID_SMEM = 232448 - 1024;
+// a unit is not cut into slices smaller than this to spread it over the card
+constexpr int GRID_MIN_SLICE_BYTES = 32768;
+// the tails of a round's units, read twice, stay within this much of L2
+constexpr long long L2_TAIL_BYTES = 16ll << 20;
+// slices start on this many bytes (NHWC: whole pixels, the least common
+// multiple); chunks are whole block steps from there
+constexpr int GRID_ALIGN = 128;
+
+#ifdef GN_PHASE_STAMPS
+// A measurement build only (gswm_torch/tools/gn_phases.py compiles this
+// file with -DGN_PHASE_STAMPS): thread 0 of each block adds the clock64
+// cycles of each phase of each round (load, reduce, meet, combine, store;
+// a __syncthreads before each stamp), then the block's total and rounds.
+constexpr int GN_PHASES = 5;
+constexpr int GN_STAMP_BLOCKS = 1024;
+__device__ long long gn_phase_cycles[GN_STAMP_BLOCKS][GN_PHASES + 2];
+#define GN_STAMP(k)                                                   \
+  do {                                                                \
+    __syncthreads();                                                  \
+    if (tid == 0) {                                                   \
+      const long long now = clock64();                                \
+      gn_phase_cycles[blockIdx.x][k] += now - stamp_mark;             \
+      stamp_mark = now;                                               \
+    }                                                                 \
+  } while (0)
+#else
+#define GN_STAMP(k) \
+  do {              \
+  } while (0)
+#endif
+
+struct GridPlan {
+  long long unit;  // elements of a unit
+  int units;       // B * G (NCHW) or B (NHWC)
+  int slots;       // units a round, K
+  int blocks;      // blocks a unit, P
+  int slice;       // elements of a block's slice of a unit
+  int keep;        // of which at most this many stay in shared memory
+  int granule;     // chunks are whole granules: block steps
+  int hw, c, cpg, groups;
+  float eps;
+  // the launch's scratch: the blocks' sums, float2 per (slot, block, group)
+  // in two halves that alternate by round (a block may write round r + 1's
+  // sums while another block of its unit still reads round r's), and each
+  // slot's meeting point, its arrivals and its passes (zeroed)
+  float2* sums;
+  unsigned int* arrived;
+  unsigned int* passed;
+};
+
+// 16 bytes of x as W floats, and back
+__device__ __forceinline__ void unpack(const uint4& raw, float (&f)[8], bf16) {
+  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 v = __bfloat1622float2(p[j]);
+    f[2 * j] = v.x;
+    f[2 * j + 1] = v.y;
+  }
+}
+__device__ __forceinline__ void unpack(const uint4& raw, float (&f)[4], float) {
+  f[0] = __uint_as_float(raw.x);
+  f[1] = __uint_as_float(raw.y);
+  f[2] = __uint_as_float(raw.z);
+  f[3] = __uint_as_float(raw.w);
+}
+__device__ __forceinline__ uint4 pack(const float (&f)[8], bf16) {
+  uint4 res;
+  __nv_bfloat162* r = reinterpret_cast<__nv_bfloat162*>(&res);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) r[j] = __floats2bfloat162_rn(f[2 * j], f[2 * j + 1]);
+  return res;
+}
+__device__ __forceinline__ uint4 pack(const float (&f)[4], float) {
+  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
+                    __float_as_uint(f[3]));
+}
+
+// 16 bytes from device memory, kept in L2 ahead of streamed data: a tail's
+// first read, whose second follows after the unit's blocks have met
+__device__ __forceinline__ uint4 load_evict_last(const void* p, uint64_t policy) {
+  uint4 v;
+  asm volatile("ld.global.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, [%4], %5;\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p), "l"(policy));
+  return v;
+}
+
+__device__ __forceinline__ unsigned int load_acquire(const unsigned int* p) {
+  unsigned int v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// The `blocks` blocks of a unit meet (one thread of each): each arrives on
+// the slot's counter once; the last resets it and lets the others pass by
+// advancing the slot's pass count, which every block read before arriving.
+// Blocks are co-resident (a cooperative launch), so no block waits on one
+// that cannot run.
+__device__ __forceinline__ void meet(unsigned int* arrived, unsigned int* passed,
+                                     unsigned int blocks) {
+  const unsigned int seen = load_acquire(passed);
+  __threadfence();
+  if (atomicAdd(arrived, 1u) == blocks - 1) {
+    atomicExch(arrived, 0u);
+    __threadfence();
+    atomicAdd(passed, 1u);
+  } else {
+    while (load_acquire(passed) == seen) __nanosleep(64);
+  }
+  __threadfence();
+}
+
+// A thread's running sums: NCHW one pair (its elements are of one group);
+// NHWC a pair for each of the W channels of its vector column.
+template <typename E, bool NHWC, int W>
+struct Moments {
+  float s[NHWC ? W : 1], ss[NHWC ? W : 1];
+  __device__ __forceinline__ Moments() {
+#pragma unroll
+    for (int k = 0; k < (NHWC ? W : 1); ++k) s[k] = ss[k] = 0.0f;
+  }
+  __device__ __forceinline__ void add(const uint4& raw) {
+    if constexpr (NHWC) {
+      float f[W];
+      unpack(raw, f, E());
+#pragma unroll
+      for (int k = 0; k < W; ++k) {
+        s[k] += f[k];
+        ss[k] += f[k] * f[k];
+      }
+    } else {
+      add_moments(raw, s[0], ss[0], E());
+    }
+  }
+  __device__ __forceinline__ void add(float f) {
+    s[0] += f;
+    ss[0] += f * f;
+  }
+};
+
+// Grid: K * P blocks of THREADS, block slot * P + rank.  Dynamic shared
+// memory: the kept part (at most p.keep elements), `used` chunks of `piece`
+// elements in a row, each landing on its own mbarrier once a round, then
+// NHWC the threads' channel sums (the statistics of the unit's groups once
+// the sums are out), NCHW the statistics alone.
+template <typename E, bool NHWC, bool VEC, int THREADS>
+__global__ void __launch_bounds__(THREADS, 1)
+gn_grid_kernel(const E* __restrict__ x, const float* __restrict__ weight,
+               const float* __restrict__ bias, E* __restrict__ out, GridPlan p, bool silu) {
+  constexpr int W = VEC ? Elem<E>::VEC : 1;  // elements a load
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  E* kept = reinterpret_cast<E*>(smem_raw);
+  float* red = reinterpret_cast<float*>(smem_raw + ((size_t)p.keep * sizeof(E) + 15) / 16 * 16);
+  float2* stats = reinterpret_cast<float2*>(red);  // (mean, 1 / std) a group
+  __shared__ __align__(8) uint64_t landed[CHUNKS];
+
+  const int slot = blockIdx.x / p.blocks;
+  const int rank = blockIdx.x - slot * p.blocks;
+  const int tid = threadIdx.x;
+  // NHWC: a thread keeps one column of W channels; a step of the block is
+  // `step` loads, whole pixels
+  const int cols = NHWC ? p.c / W : 1;
+  const int step = NHWC ? THREADS / cols * cols : THREADS;
+  const bool active = tid < step;
+  const int col = NHWC ? tid % cols : 0;
+  const int stat = NHWC ? p.groups : 1;  // groups a unit
+  const float n = (float)p.cpg * (float)p.hw;
+#ifdef GN_PHASE_STAMPS
+  const long long stamp_start = clock64();
+  long long stamp_mark = stamp_start;
+#endif
+
+  // this block's slice of a unit, [lo, hi), the first `kept_n` elements kept
+  const long long lo = (long long)rank * p.slice < p.unit ? (long long)rank * p.slice : p.unit;
+  const long long hi = lo + p.slice < p.unit ? lo + p.slice : p.unit;
+  const int len = (int)(hi - lo);
+  const int kept_n = len < p.keep ? len : p.keep;
+  // the kept part in `used` chunks of `piece` elements, whole granules
+  const int piece = ((kept_n + CHUNKS - 1) / CHUNKS + p.granule - 1) / p.granule * p.granule;
+  const int used = piece ? (kept_n + piece - 1) / piece : 0;
+
+  // chunk c of the round that takes unit u (one thread), if there is one
+  auto copy_in = [&](long long u, int c) {
+    if (u >= p.units) return;
+    const int from = c * piece;
+    const uint32_t bytes = (uint32_t)((from + piece < kept_n ? piece : kept_n - from) * sizeof(E));
+    mbar_expect_tx(&landed[c], bytes);
+    bulk_load_streaming(kept + from, x + u * p.unit + lo + from, bytes, &landed[c]);
+  };
+  if (VEC && tid == 0) {
+    for (int c = 0; c < used; ++c) mbar_init(&landed[c], 1);
+    fence_mbar_init();
+    for (int c = 0; c < used; ++c) copy_in(slot, c);
+  }
+  __syncthreads();
+
+  uint64_t keep_l2;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n" : "=l"(keep_l2));
+
+  for (int round = 0;; ++round) {
+    const long long u = (long long)round * p.slots + slot;
+    if (u >= p.units) break;
+    const int par = round & 1;
+    float2* const half = p.sums + (size_t)par * p.slots * p.blocks * stat;
+    const E* xs = x + u * p.unit + lo;
+    E* os = out + u * p.unit + lo;
+
+    // 1. the sums: the tail from device memory, then the head as it lands
+    Moments<E, NHWC, W> m;
+    if constexpr (VEC) {
+      if (active) {
+        for (int q = kept_n / W + tid; q < len / W; q += 4 * step) {
+          uint4 raw[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            if (q + k * step < len / W) raw[k] = load_evict_last(xs + (q + k * step) * W, keep_l2);
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            if (q + k * step < len / W) m.add(raw[k]);
+        }
+      }
+      for (int c = 0; c < used; ++c) {
+        const int size = (c + 1) * piece < kept_n ? piece : kept_n - c * piece;
+        const E* chunk = kept + c * piece;
+        mbar_wait(&landed[c], par);
+        if (active)
+          for (int v = tid; v < size / W; v += step)
+            m.add(*reinterpret_cast<const uint4*>(chunk + v * W));
+      }
+    } else {
+      for (int i = tid; active && i < len; i += step) {
+        const E v = xs[i];
+        if (i < kept_n) kept[i] = v;
+        m.add(Elem<E>::to_float(v));
+      }
+    }
+    GN_STAMP(0);
+
+    // 2. the block's sums to its place in device memory, then the unit's
+    float2* sums = half + ((size_t)slot * p.blocks + rank) * stat;
+    if constexpr (NHWC) {
+      // the threads' channel sums by row, then each channel down its rows,
+      // then each group over its channels: a fixed order
+      const int rows = THREADS / cols;
+      const int row = tid / cols;
+      float* chan_s = red + rows * p.c;  // the channels' s; their ss lands in row 0
+      if (active)
+#pragma unroll
+        for (int k = 0; k < W; ++k) red[row * p.c + col * W + k] = m.s[k];
+      __syncthreads();
+      for (int ch = tid; ch < p.c; ch += THREADS) {
+        float v = 0.0f;
+        for (int r = 0; r < rows; ++r) v += red[r * p.c + ch];
+        chan_s[ch] = v;
+      }
+      __syncthreads();
+      if (active)
+#pragma unroll
+        for (int k = 0; k < W; ++k) red[row * p.c + col * W + k] = m.ss[k];
+      __syncthreads();
+      for (int ch = tid; ch < p.c; ch += THREADS) {
+        float v = 0.0f;
+        for (int r = 0; r < rows; ++r) v += red[r * p.c + ch];
+        red[ch] = v;  // only this thread reads column ch
+      }
+      __syncthreads();
+      for (int g = tid; g < p.groups; g += THREADS) {
+        float2 v = make_float2(0.0f, 0.0f);
+        for (int ch = g * p.cpg; ch < (g + 1) * p.cpg; ++ch) {
+          v.x += chan_s[ch];
+          v.y += red[ch];
+        }
+        sums[g] = v;
+      }
+    } else {
+      const float2 mine = block_sum2<THREADS>(m.s[0], m.ss[0]);
+      if (tid == 0) sums[0] = mine;
+    }
+    __syncthreads();
+    GN_STAMP(1);
+    if (tid == 0 && p.blocks > 1)
+      meet(p.arrived + slot, p.passed + slot, (unsigned int)p.blocks);
+    __syncthreads();
+    GN_STAMP(2);
+    {
+      // warp w adds groups w, w + THREADS / 32, ... over the unit's blocks
+      // in rank order
+      const int warp = tid >> 5, lane = tid & 31;
+      const float2* all = half + (size_t)slot * p.blocks * stat;
+      for (int g = warp; g < stat; g += THREADS / 32) {
+        float2 v = make_float2(0.0f, 0.0f);
+        for (int j = lane; j < p.blocks; j += 32) {
+          const float2 t = __ldcg(all + (size_t)j * stat + g);
+          v.x += t.x;
+          v.y += t.y;
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+          v.x += __shfl_xor_sync(0xffffffffu, v.x, o);
+          v.y += __shfl_xor_sync(0xffffffffu, v.y, o);
+        }
+        if (lane == 0) {
+          const float mean = v.x / n;
+          const float var = fmaxf(v.y / n - mean * mean, 0.0f);
+          stats[g] = make_float2(mean, rsqrtf(var + p.eps));
+        }
+      }
+    }
+    __syncthreads();
+    GN_STAMP(3);
+
+    // 3. normalise: the tail, then the head chunk by chunk, each chunk
+    // handed to the next round's copy once every thread has read it
+    if constexpr (NHWC) {
+      float a[W], b[W];
+#pragma unroll
+      for (int k = 0; k < W; ++k) {
+        const int ch = col * W + k;
+        const float2 st = stats[ch / p.cpg];
+        a[k] = st.y * weight[ch];
+        b[k] = bias[ch] - st.x * a[k];
+      }
+      if constexpr (VEC) {
+        if (active) {
+#pragma unroll 2
+          for (int q = kept_n / W + tid; q < len / W; q += step) {
+            float f[W];
+            unpack(__ldcs(reinterpret_cast<const uint4*>(xs + q * W)), f, E());
+#pragma unroll
+            for (int k = 0; k < W; ++k) f[k] = act(silu, f[k] * a[k] + b[k]);
+            __stcs(reinterpret_cast<uint4*>(os + q * W), pack(f, E()));
+          }
+        }
+        for (int c = 0; c < used; ++c) {
+          const int size = (c + 1) * piece < kept_n ? piece : kept_n - c * piece;
+          const E* chunk = kept + c * piece;
+          E* dst = os + c * piece;
+          if (active) {
+#pragma unroll 2
+            for (int v = tid; v < size / W; v += step) {
+              float f[W];
+              unpack(*reinterpret_cast<const uint4*>(chunk + v * W), f, E());
+#pragma unroll
+              for (int k = 0; k < W; ++k) f[k] = act(silu, f[k] * a[k] + b[k]);
+              __stcs(reinterpret_cast<uint4*>(dst + v * W), pack(f, E()));
+            }
+          }
+          __syncthreads();
+          if (tid == 0) {
+            fence_async_smem();
+            copy_in(u + p.slots, c);
+          }
+        }
+      } else {
+        for (int i = tid; active && i < len; i += step) {
+          const float f = Elem<E>::to_float(i < kept_n ? kept[i] : xs[i]);
+          os[i] = Elem<E>::from_float(act(silu, f * a[0] + b[0]));
+        }
+      }
+    } else {
+      const float mean = stats[0].x, inv = stats[0].y;
+      const int c0 = (int)(u % p.groups) * p.cpg;  // the group's first channel
+      ChannelWalk tail((int)(lo + kept_n) + tid * W, THREADS * W, p.hw);
+#pragma unroll 2
+      for (int i = kept_n + tid * W; i < len; i += THREADS * W) {
+        tail.affine(weight + c0, bias + c0, inv, mean);
+        const uint4 raw = __ldcs(reinterpret_cast<const uint4*>(xs + i));
+        __stcs(reinterpret_cast<uint4*>(os + i),
+               silu ? normalise_vec<true>(raw, tail.a, tail.b, E())
+                    : normalise_vec<false>(raw, tail.a, tail.b, E()));
+        tail.step(p.hw);
+      }
+      for (int c = 0; c < used; ++c) {
+        const int from = c * piece;
+        const int to = from + piece < kept_n ? from + piece : kept_n;
+        const E* chunk = kept + from;
+        ChannelWalk head((int)lo + from + tid * W, THREADS * W, p.hw);
+#pragma unroll 2
+        for (int i = from + tid * W; i < to; i += THREADS * W) {
+          head.affine(weight + c0, bias + c0, inv, mean);
+          const uint4 raw = *reinterpret_cast<const uint4*>(chunk + (i - from));
+          __stcs(reinterpret_cast<uint4*>(os + i),
+                 silu ? normalise_vec<true>(raw, head.a, head.b, E())
+                      : normalise_vec<false>(raw, head.a, head.b, E()));
+          head.step(p.hw);
+        }
+        __syncthreads();
+        if (tid == 0) {
+          fence_async_smem();
+          copy_in(u + p.slots, c);
+        }
+      }
+    }
+    // the statistics and the channel sums' space are free for the next round
+    __syncthreads();
+    GN_STAMP(4);
+  }
+#ifdef GN_PHASE_STAMPS
+  if (tid == 0) {
+    gn_phase_cycles[blockIdx.x][GN_PHASES] += clock64() - stamp_start;
+    gn_phase_cycles[blockIdx.x][GN_PHASES + 1] += (p.units - slot + p.slots - 1) / p.slots;
+  }
+#endif
+}
+
+// The plan of a grid launch: units of `unit` elements, `units` of them, on
+// `sms` blocks of at most `keep_max` elements of shared memory each;
+// slices and kept parts of whole `granule`s (NHWC whole pixels, a multiple
+// of C elements), chunks of whole `chunk_granule`s (a block step, so a
+// warp's stores do not straddle more 128-byte lines than they must).
+bool plan_grid(GridPlan& p, long long unit, int units, int sms, long long keep_max,
+               int granule, int chunk_granule, int elem) {
+  const long long unit_bytes = unit * elem;
+  const long long kept = keep_max / chunk_granule * chunk_granule;
+  int k;  // units a round
+  if ((long long)units * unit_bytes <= (long long)sms * kept * elem) {
+    k = units < sms ? units : sms;
+  } else {
+    // as many units a round as keep their tails within the L2 budget
+    k = 1;
+    for (int cand = 2; cand <= units && cand <= sms; ++cand) {
+      const long long tail = unit_bytes - (long long)(sms / cand) * kept * elem;
+      if (tail > 0 && (long long)cand * tail > L2_TAIL_BYTES) break;
+      k = cand;
+    }
+  }
+  const int rounds = (units + k - 1) / k;
+  k = (units + rounds - 1) / rounds;
+  int blocks = sms / k;
+  // small units: no slice below GRID_MIN_SLICE_BYTES
+  const long long spread = unit_bytes / GRID_MIN_SLICE_BYTES;
+  if (spread < blocks) blocks = spread > 1 ? (int)spread : 1;
+  const long long slice = ((unit + blocks - 1) / blocks + granule - 1) / granule * granule;
+  const long long keep = slice < kept ? slice : kept;
+  if (slice >= (1ll << 31)) return false;
+  p.unit = unit;
+  p.units = units;
+  p.slots = k;
+  p.blocks = blocks;
+  p.slice = (int)slice;
+  p.keep = (int)keep;
+  p.granule = chunk_granule;
+  return true;
+}
+
+template <typename E, bool NHWC, bool VEC, int THREADS>
+cudaError_t launch_grid(const E* x, const float* w, const float* b, E* out, int B, int C,
+                        int HW, int G, float eps, bool silu, cudaStream_t st) {
+  static bool ready = false;  // one card a process: the attribute is set once
+  auto kernel = gn_grid_kernel<E, NHWC, VEC, THREADS>;
+  constexpr int W = VEC ? Elem<E>::VEC : 1;
+  const int cols = NHWC ? C / W : 1;
+  if (cols > THREADS) return cudaErrorInvalidValue;
+  const int step = NHWC ? THREADS / cols * cols : THREADS;
+  // NHWC: the threads' channel sums, rows x C, and the channels' s
+  const int red = NHWC ? (THREADS / cols + 1) * C : 4;
+  const int red_bytes = (red * 4 + 15) / 16 * 16;
+  // slices of whole pixels (NHWC) starting on GRID_ALIGN bytes; chunks of
+  // whole block steps
+  const int align = GRID_ALIGN / (int)sizeof(E);
+  int granule = NHWC ? C : align;
+  while (granule % align) granule += C;  // NHWC: the least common multiple
+  const int chunk_granule = step * W;
+  const long long keep_max = (long long)((GRID_SMEM - red_bytes) / (int)sizeof(E));
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  if (!ready) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, GRID_SMEM);
+    if (err != cudaSuccess) return err;
+    ready = true;
+  }
+  GridPlan p;
+  const int cpg = C / G;
+  const bool planned =
+      NHWC ? plan_grid(p, (long long)HW * C, B, sms, keep_max, granule, chunk_granule,
+                       (int)sizeof(E))
+           : plan_grid(p, (long long)cpg * HW, B * G, sms, keep_max, granule, chunk_granule,
+                       (int)sizeof(E));
+  if (!planned) return cudaErrorInvalidValue;
+  p.hw = HW;
+  p.c = C;
+  p.cpg = cpg;
+  p.groups = G;
+  p.eps = eps;
+  const size_t smem = ((size_t)p.keep * sizeof(E) + 15) / 16 * 16 + red_bytes;
+  // the launch's own scratch, in stream order: the meeting counters (zeroed)
+  // and then the sums
+  const int stat = NHWC ? G : 1;
+  const size_t count_bytes = (2 * (size_t)p.slots * sizeof(unsigned int) + 15) / 16 * 16;
+  const size_t sum_bytes = 2 * (size_t)p.slots * p.blocks * stat * sizeof(float2);
+  void* scratch = nullptr;
+  err = cudaMallocAsync(&scratch, count_bytes + sum_bytes, st);
+  if (err != cudaSuccess) return err;
+  p.arrived = static_cast<unsigned int*>(scratch);
+  p.passed = p.arrived + p.slots;
+  p.sums = reinterpret_cast<float2*>(static_cast<unsigned char*>(scratch) + count_bytes);
+  err = cudaMemsetAsync(scratch, 0, count_bytes, st);
+  // at most one block an SM (plan_grid): a cooperative launch the card
+  // cannot hold at once is refused, never run
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cfg.gridDim = dim3((unsigned)(p.slots * p.blocks));
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  if (err == cudaSuccess) err = cudaLaunchKernelEx(&cfg, kernel, x, w, b, out, p, silu);
+  const cudaError_t freed = cudaFreeAsync(scratch, st);
+  return err != cudaSuccess ? err : freed;
+}
+
+// The grid kernel for x in either layout, the activation picked.
+template <typename E, bool NHWC, bool VEC>
+int group_norm_grid(const void* x, const void* weight, const void* bias, void* out, int B,
+                    int C, int HW, int G, float eps, int act, void* stream) {
+  if (B < 1 || C < 1 || HW < 1 || G < 1 || C % G)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const E* xin = static_cast<const E*>(x);
+  E* y = static_cast<E*>(out);
+  const float* w = static_cast<const float*>(weight);
+  const float* bb = static_cast<const float*>(bias);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool silu = act == 1;
+  cudaError_t err;
+  // float32 NHWC rows of more than GRID_THREADS 16-byte columns (C > 2048)
+  // take the wide blocks; a bf16 row that wide (C > 4096) is refused
+  if constexpr (NHWC && VEC && sizeof(E) == 4) {
+    if (C / Elem<E>::VEC > GRID_THREADS)
+      err = launch_grid<E, true, true, GRID_THREADS_WIDE>(xin, w, bb, y, B, C, HW, G, eps, silu,
+                                                          st);
+    else
+      err = launch_grid<E, true, true, GRID_THREADS>(xin, w, bb, y, B, C, HW, G, eps, silu, st);
+  } else {
+    err = launch_grid<E, NHWC, VEC, GRID_THREADS>(xin, w, bb, y, B, C, HW, G, eps, silu, st);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// NHWC x: 16-byte vectors where C * sizeof(E) % 16 == 0, elements otherwise.
+template <typename E>
+int group_norm_nhwc(const void* x, const void* weight, const void* bias, void* out, int B,
+                    int C, int HW, int G, float eps, int act, void* stream) {
+  return C % Elem<E>::VEC
+             ? group_norm_grid<E, true, false>(x, weight, bias, out, B, C, HW, G, eps, act,
+                                               stream)
+             : group_norm_grid<E, true, true>(x, weight, bias, out, B, C, HW, G, eps, act,
+                                              stream);
+}
+
 // The sizing of gswm_group_norm below, in bytes, for either element type.
 template <typename E>
 int group_norm(const void* x, const void* weight, const void* bias, void* out, int B, int C,
@@ -491,6 +1102,12 @@ int group_norm(const void* x, const void* weight, const void* bias, void* out, i
   const long long bytes = n * (long long)sizeof(E);  // a group's
   const long long bg = (long long)B * G;
   const bool silu = act == 1;
+  if constexpr (sizeof(E) == 4) {
+    // float32 groups a cluster cannot keep: the persistent grid keeps them
+    if (HW % Elem<E>::VEC == 0 && bytes > (long long)MAX_CLUSTER * LARGE.keep)
+      return group_norm_grid<E, false, true>(x, weight, bias, out, B, C, HW, G, eps, act,
+                                             stream);
+  }
   int sms = 0;
   cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -528,9 +1145,41 @@ extern "C" int gswm_group_norm(const void* x, const void* weight, const void* bi
   return group_norm<bf16>(x, weight, bias, out, B, C, HW, G, eps, act, stream);
 }
 
-// The same on float32 x and out.
+// The same on float32 x and out (groups above 16 x 220 KB on the persistent
+// grid, its sums and counters scratch from the stream's pool).
 extern "C" int gswm_group_norm_f32(const void* x, const void* weight, const void* bias,
                                    void* out, int B, int C, int HW, int G, float eps, int act,
                                    void* stream) {
   return group_norm<float>(x, weight, bias, out, B, C, HW, G, eps, act, stream);
 }
+
+// x, out: channels-minor, (B, HW, C) in memory (NHWC, torch.channels_last),
+// bf16, 16-byte aligned; the rest as gswm_group_norm.  One cooperative launch
+// of the persistent grid, its sums and counters scratch from the stream's
+// pool; C * 2 bytes a multiple of 16 (16-byte vectors, at
+// most 512 of them: C <= 4096) or C <= 512 (elements).
+extern "C" int gswm_group_norm_nhwc(const void* x, const void* weight, const void* bias,
+                                    void* out, int B, int C, int HW, int G, float eps, int act,
+                                    void* stream) {
+  return group_norm_nhwc<bf16>(x, weight, bias, out, B, C, HW, G, eps, act, stream);
+}
+
+// The same on float32 x and out (at most 1024 16-byte vectors: C <= 4096).
+extern "C" int gswm_group_norm_nhwc_f32(const void* x, const void* weight, const void* bias,
+                                        void* out, int B, int C, int HW, int G, float eps,
+                                        int act, void* stream) {
+  return group_norm_nhwc<float>(x, weight, bias, out, B, C, HW, G, eps, act, stream);
+}
+
+#ifdef GN_PHASE_STAMPS
+// The measurement build's stamps: copied to `host` (GN_STAMP_BLOCKS rows of
+// GN_PHASES + 2 long longs: the phases' cycles, the block's total, its
+// rounds), then zeroed.
+extern "C" int gswm_group_norm_phases(void* host) {
+  cudaError_t e = cudaMemcpyFromSymbol(host, gn_phase_cycles, sizeof(gn_phase_cycles));
+  void* stamps = nullptr;
+  if (e == cudaSuccess) e = cudaGetSymbolAddress(&stamps, gn_phase_cycles);
+  if (e == cudaSuccess) e = cudaMemset(stamps, 0, sizeof(gn_phase_cycles));
+  return static_cast<int>(e);
+}
+#endif

@@ -89,6 +89,9 @@ _SIGNATURES = {
     "gswm_group_norm": [_VP] * 4 + [_I] * 4 + [_F, _I, _VP],
     # the same on float32 x and out
     "gswm_group_norm_f32": [_VP] * 4 + [_I] * 4 + [_F, _I, _VP],
+    # the same on channels-minor (NHWC) x, bf16 and float32
+    "gswm_group_norm_nhwc": [_VP] * 4 + [_I] * 4 + [_F, _I, _VP],
+    "gswm_group_norm_nhwc_f32": [_VP] * 4 + [_I] * 4 + [_F, _I, _VP],
 }
 
 

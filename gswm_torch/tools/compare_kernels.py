@@ -2,7 +2,8 @@
 card.
 
     python -m gswm_torch.tools.compare_kernels --parent DIR [--out FILE.json]
-        [--cases attention,lse,k8,k3,f32] [--match TEXT] [--require-equal
+        [--cases attention,lse,k8,k8f32,k8layouts,k3,f32] [--match TEXT]
+        [--require-equal
         [--except-head-dims LO-HI] [--except-transposed LO-HI[:unaligned][,...]]]
 
 DIR is a second checkout of the repository (for example ``git archive`` of
@@ -67,6 +68,12 @@ entry points on the same tensors, so nothing but the kernels differs:
     path for the same latents (its table's bits, XOR with the payload bits,
     ``_bits_to_latent``) at ``paths.EMBED_SHAPES``, likewise, the quantized
     bits equal and z within 4 float32 ulps or 1e-6 relative;
+  * GroupNorm beyond the default cases: ``k8f32``, float32 K8 through each
+    side's wrapper at the 50 shapes and the probe cases, each side's device
+    time beside, this checkout's error against float64 and a second call
+    bit-equal to the first; ``k8layouts``, this checkout's K8 on
+    channels-last x against its NCHW kernel on the same values and against
+    ``F.group_norm`` on the channels-last x, in both dtypes;
   * K7 above d = 160 through both sides' wrappers as well
     (``flash_attention_transposed``: this checkout's one C call, whose
     pre-pass takes its scratch from the stream's pool where S % 8 != 0), in
@@ -78,7 +85,9 @@ entry points on the same tensors, so nothing but the kernels differs:
 are equal bit for bit (a change that must leave the kernels' results
 alone), every float32 form's output equals the natural form's, this
 checkout's float32 GEMM and core are within the float32 bound of float64,
-with ``k8`` among the cases every K8 output equals the parent's, and with
+with ``k8`` among the cases every K8 output equals the parent's (with
+``k8f32`` this checkout's float32 K8 within the float32 bound of float64
+and bit-equal from call to call instead), and with
 ``k3`` K3's single-key words and table bits equal the parent's, the vote
 path's scores and voted bits equal the parent's bits-out path's and the
 embed's quantized bits the parent's path's (z within 4 ulps);
@@ -117,6 +126,7 @@ from __future__ import annotations
 import argparse
 import importlib
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -198,26 +208,32 @@ def _ranges(text: str) -> list:
     return [tuple(map(int, part.split("-"))) for part in text.split(",") if part]
 
 
-def device_times(fn, iters: int) -> dict:
+def device_times(fn, iters: int, windows: int = 3) -> dict:
     """Device time per call of each kernel ``fn`` launches, by kernel name,
     in ms.  The calls stand well inside the profiler's window, which drops
-    a device event that its clock mapping puts a moment outside."""
+    a device event that its clock mapping puts a moment outside; a window
+    that kept no device event at all (now and then, whatever the kernel) is
+    taken again, up to ``windows`` in all."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        time.sleep(0.05)
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        time.sleep(0.05)
-    # per kernel name, its mean time by the events that were kept, times its
-    # launches a call: the profiler drops some events, so their count, not
-    # iters, divides the sum
-    return {e.key: e.self_device_time_total / e.count * max(1, round(e.count / iters)) / 1e3
-            for e in prof.key_averages()
-            if e.device_type.name == "CUDA" and e.self_device_time_total > 0}
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.05)
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+        # per kernel name, its mean time by the events that were kept, times
+        # its launches a call: the profiler drops some events, so their
+        # count, not iters, divides the sum
+        times = {e.key: e.self_device_time_total / e.count * max(1, round(e.count / iters)) / 1e3
+                 for e in prof.key_averages()
+                 if e.device_type.name == "CUDA" and e.self_device_time_total > 0}
+        if times:
+            break
+    return times
 
 
 def device_ms(fn, iters: int, name_part: str = "") -> float:
@@ -249,17 +265,170 @@ def _sides_ms(fns: dict, iters: int) -> dict:
     return t
 
 
-def compare_group_norm(parent_gn, iters: int) -> dict:
+def groupnorm_shapes() -> list:
+    """Every (shape, eps, act) of the 768x768 path's GroupNorms, from the
+    sd-2-1 pipeline's hooks (the pipeline freed after)."""
+    pipe = paths.build_pipeline("sd-2-1")
+    gn_cases = paths.groupnorm_cases(pipe)
+    del pipe
+    torch.cuda.empty_cache()
+    return gn_cases
+
+
+def _group_norm_f64(x, w, b, eps: float, act) -> torch.Tensor:
+    """32-group GroupNorm (+ SiLU) of (B, C, ...) x in float64, the JAX op's
+    formulas, whatever x's layout."""
+    xd = x.double().reshape(x.shape[0], 32, -1)
+    mean = xd.mean(dim=-1, keepdim=True)
+    var = (xd.square().mean(dim=-1, keepdim=True) - mean.square()).clamp(min=0.0)
+    bcast = (1, x.shape[1]) + (1,) * (x.dim() - 2)
+    y = ((xd - mean) * torch.rsqrt(var + eps)).reshape(x.shape) * w.double().reshape(bcast) \
+        + b.double().reshape(bcast)
+    return y * torch.sigmoid(y) if act == "silu" else y
+
+
+def compare_group_norm_f32(parent_gn, gn_cases, iters: int) -> dict:
+    """float32 NCHW K8 through each side's wrapper in turns at every
+    GroupNorm shape of the 768x768 path and at ``paths.K8_PROBE_CASES``,
+    each side's device time (the profiler, its kernels of one call) beside,
+    this checkout's error against float64 and its second call's output
+    against its first."""
+    from gswm_torch.ops import groupnorm as gn
+
+    sides = {"parent": parent_gn.fused_group_norm, "change": gn.fused_group_norm}
+    g = torch.Generator(device="cuda").manual_seed(18)
+    out = {"cases": []}
+    sums = {"parent": [0.0, 0.0], "change": [0.0, 0.0]}
+    device_sums = {"parent": 0.0, "change": 0.0}
+    bound_sum = 0.0
+    cases = [(shape, eps, act, False) for shape, eps, act in gn_cases] + \
+        [(shape, 1e-6, act, True) for shape, act in paths.K8_PROBE_CASES]
+    for shape, eps, act, probe in cases:
+        x = torch.randn(shape, generator=g, device="cuda") * 2 + 0.5
+        w = 1 + 0.05 * torch.randn(shape[1], generator=g, device="cuda")
+        b = 0.05 * torch.randn(shape[1], generator=g, device="cuda")
+        fns = {side: (lambda fn=fn: fn(x, w, b, 32, eps, act)) for side, fn in sides.items()}
+        t = _sides_ms(fns, iters)
+        device = {side: device_ms(fns[side], iters, "gn_") for side in sides}
+        got = fns["change"]()
+        same = torch.equal(got, fns["change"]())
+        want = _group_norm_f64(x, w, b, eps, act)
+        rel = ((got.double() - want).abs().max() / want.abs().max()).item()
+        del want
+        bound, _ = roofline.bound_ms(*roofline.group_norm_cost(shape, roofline.F32),
+                                     roofline.PEAK_FP32)
+        if not probe:
+            bound_sum += bound
+            for side in sums:
+                sums[side] = [a + c for a, c in zip(sums[side], t[side])]
+                device_sums[side] += device[side]
+        print(f"K8 fp32 {'probe ' if probe else ''}{shape} {act}: wrapper parent "
+              f"{t['parent']} change {t['change']} ms, {t['ratio']:.2f}x; device parent "
+              f"{device['parent']:.4f} change {device['change']:.4f} ms; bound {bound:.4f} "
+              f"ms; err/max|want| {rel:.2e}; repeats bit for bit {same}", flush=True)
+        out["cases"].append(dict(shape=list(shape), eps=eps, act=act, probe=probe, **t,
+                                 device_ms=device, bound_ms=bound, change_rel_err=rel,
+                                 repeats=same))
+        del x, got
+    out["sum"] = dict(**sums, ratio=sum(sums["parent"]) / sum(sums["change"]),
+                      device_ms=device_sums, bound_ms=bound_sum, shapes=len(gn_cases))
+    print(f"K8 fp32 {len(gn_cases)} shapes summed: wrapper parent {sums['parent']} change "
+          f"{sums['change']} ms, {out['sum']['ratio']:.2f}x; device parent "
+          f"{device_sums['parent']:.4f} change {device_sums['change']:.4f} ms; bound "
+          f"{bound_sum:.4f} ms", flush=True)
+    return out
+
+
+def compare_group_norm_layouts(gn_cases, iters: int) -> dict:
+    """This checkout's K8 on channels-last x against its NCHW kernel on the
+    same values and against the library call on the channels-last x
+    (``F.group_norm`` + ``F.silu``, whose time holds PyTorch's own layout
+    copies), in turns (NCHW, NHWC, library, library, NHWC, NCHW), bf16 and
+    float32, at every GroupNorm shape of the 768x768 path and at
+    ``paths.K8_PROBE_CASES``; each output's error (bf16 against the fp32
+    plain version, float32 against float64) and the NHWC kernel's device
+    time."""
+    import torch.nn.functional as F
+
+    from gswm_torch.ops import groupnorm as gn
+
+    g = torch.Generator(device="cuda").manual_seed(28)
+    turns = ("nchw", "nhwc", "library", "library", "nhwc", "nchw")
+    out = {"nhwc": []}
+    cases = [(shape, eps, act, False) for shape, eps, act in gn_cases] + \
+        [(shape, 1e-6, act, True) for shape, act in paths.K8_PROBE_CASES]
+    for dtype, elem in ((torch.bfloat16, roofline.BF16), (torch.float32, roofline.F32)):
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        sums = {side: 0.0 for side in dict.fromkeys(turns)}
+        bound_sum = device_sum = 0.0
+        for shape, eps, act, probe in cases:
+            x = (torch.randn(shape, generator=g, device="cuda") * 2 + 0.5).to(dtype)
+            xl = x.contiguous(memory_format=torch.channels_last)
+            w = 1 + 0.05 * torch.randn(shape[1], generator=g, device="cuda")
+            b = 0.05 * torch.randn(shape[1], generator=g, device="cuda")
+            wl, bl = w.to(dtype), b.to(dtype)
+
+            def library(xl=xl, wl=wl, bl=bl, eps=eps, act=act):
+                y = F.group_norm(xl, 32, wl, bl, eps)
+                return F.silu(y) if act == "silu" else y
+
+            fns = {"nchw": lambda x=x, w=w, b=b, eps=eps, act=act: gn.fused_group_norm(
+                       x, w, b, 32, eps, act),
+                   "nhwc": lambda xl=xl, w=w, b=b, eps=eps, act=act: gn.fused_group_norm(
+                       xl, w, b, 32, eps, act),
+                   "library": library}
+            t = in_turns(fns, iters, turns)
+            device = device_ms(fns["nhwc"], iters, "gn_grid")
+            got = fns["nhwc"]()
+            layout_kept = got.is_contiguous(memory_format=torch.channels_last)
+            want = gn.fused_group_norm_reference(x.float(), w, b, 32, eps, act) \
+                if dtype == torch.bfloat16 else _group_norm_f64(x, w, b, eps, act)
+            top = want.abs().max().item()
+            err = (got.to(want.dtype) - want).abs().max().item()
+            nchw_err = (fns["nchw"]().to(want.dtype) - want).abs().max().item()
+            lib_err = (library().to(want.dtype) - want).abs().max().item()
+            del want
+            bound, _ = roofline.bound_ms(*roofline.group_norm_cost(shape, elem),
+                                         roofline.PEAK_FP32)
+            med = {side: statistics.median(v) for side, v in t.items()}
+            host = {side: host_us(fns[side], 200) for side in ("nchw", "nhwc")} if probe \
+                else None
+            if probe:
+                print(f"K8 {tag} probe {shape}: host time a call, NCHW {host['nchw']:.1f} us, "
+                      f"NHWC {host['nhwc']:.1f} us", flush=True)
+            if not probe:
+                bound_sum += bound
+                device_sum += device
+                for side in sums:
+                    sums[side] += med[side]
+            print(f"K8 {tag} {'probe ' if probe else ''}{shape} {act}: NHWC {t['nhwc']} "
+                  f"(device {device:.4f}), NCHW {t['nchw']}, library on channels_last "
+                  f"{t['library']} ms; bound {bound:.4f} ms; err/max|want| NHWC "
+                  f"{err / top:.2e}, NCHW {nchw_err / top:.2e}, library {lib_err / top:.2e}; "
+                  f"output channels_last {layout_kept}", flush=True)
+            out["nhwc"].append(dict(dtype=tag, shape=list(shape), eps=eps, act=act,
+                                    probe=probe, **t, device_ms=device, host_us=host,
+                                    bound_ms=bound,
+                                    err=err, nchw_err=nchw_err, library_err=lib_err,
+                                    max_want=top, channels_last=layout_kept))
+            del x, xl, got
+        out[f"{tag}_sum"] = dict(median_ms=sums, device_ms=device_sum, bound_ms=bound_sum,
+                                 shapes=len(gn_cases))
+        print(f"K8 {tag} {len(gn_cases)} shapes summed (medians): NHWC {sums['nhwc']:.4f} "
+              f"(device {device_sum:.4f}), NCHW {sums['nchw']:.4f}, library "
+              f"{sums['library']:.4f} ms; bound {bound_sum:.4f} ms", flush=True)
+    return out
+
+
+def compare_group_norm(parent_gn, iters: int, gn_cases=None) -> dict:
     """K8 through each side's wrapper, fp32 parameters on the card: every
     GroupNorm shape of the 768x768 path (the sum is per round), then the
     probe cases with each side's device time."""
     from gswm_torch.ops import groupnorm as gn
 
     sides = {"parent": parent_gn.fused_group_norm, "change": gn.fused_group_norm}
-    pipe = paths.build_pipeline("sd-2-1")
-    gn_cases = paths.groupnorm_cases(pipe)
-    del pipe
-    torch.cuda.empty_cache()
+    if gn_cases is None:
+        gn_cases = groupnorm_shapes()
     g = torch.Generator(device="cuda").manual_seed(8)
     out = {"cases": [], "probes": []}
     sums = {"parent": [0.0, 0.0], "change": [0.0, 0.0]}
@@ -527,7 +696,8 @@ def main() -> None:
     ap.add_argument("--out", type=Path)
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--cases", default="attention,lse,k8,k3,f32",
-                    help="which of attention, lse, k8, k3, f32, sd14 to time "
+                    help="which of attention, lse, k8, k8f32, k8layouts, k3, f32, "
+                         "sd14 to time "
                          "(comma-separated)")
     ap.add_argument("--match", default="",
                     help="time only the attention cases whose label holds this")
@@ -543,7 +713,8 @@ def main() -> None:
     cases = set(args.cases.split(","))
     lo, hi = map(int, args.except_head_dims.split("-")) if args.except_head_dims \
         else (1, 0)
-    if not cases or cases - {"attention", "lse", "k8", "k3", "f32", "sd14"}:
+    if not cases or cases - {"attention", "lse", "k8", "k8f32", "k8layouts", "k3",
+                             "f32", "sd14"}:
         raise SystemExit(f"compare_kernels: unknown cases {args.cases!r}")
     if not torch.cuda.is_available():
         raise SystemExit("compare_kernels: no CUDA device")
@@ -563,8 +734,14 @@ def main() -> None:
     result = {"card": card, "rounds": list(ROUNDS)}
     if "sd14" in cases:  # first, while the process and its profiler are young
         result["sd14"] = compare_sd14(libs, args.iters)
+    if cases & {"k8", "k8f32", "k8layouts"}:
+        gn_cases = groupnorm_shapes()
     if "k8" in cases:
-        result["group_norm"] = compare_group_norm(parent_gn, args.iters)
+        result["group_norm"] = compare_group_norm(parent_gn, args.iters, gn_cases)
+    if "k8f32" in cases:
+        result["group_norm_f32"] = compare_group_norm_f32(parent_gn, gn_cases, args.iters)
+    if "k8layouts" in cases:
+        result["group_norm_layouts"] = compare_group_norm_layouts(gn_cases, args.iters)
     if "k3" in cases:
         result["chacha"] = compare_chacha(libs, parent_chacha, stream, args.iters)
     if "attention" in cases:
@@ -617,8 +794,11 @@ def main() -> None:
         # the float32 GEMM and core: new arithmetic, so no bit-equality with
         # the parent; this checkout's outputs within the float32 bound of
         # float64 instead
-        f32 = result.get("f32_proj", []) + result.get("f32", [])
+        f32 = result.get("f32_proj", []) + result.get("f32", []) + \
+            result.get("group_norm_f32", {}).get("cases", [])
         differ += [case for case in f32 if not case["change_rel_err"] <= F32_REL_BOUND]
+        differ += [case for case in result.get("group_norm_f32", {}).get("cases", [])
+                   if not case["repeats"]]
         if differ:
             raise SystemExit(f"compare_kernels: {len(differ)} attention cases differ from "
                              f"the parent's: {[c.get('label', c['shape']) for c in differ]}")

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import os
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -42,6 +43,16 @@ def _roundtrip(pipe, z_t, steps: int, mesh=None):
     x0 = pipe.generate(x, guidance_scale=1.0, num_steps=steps, decode=False)
     z = pipe.invert(latents=x0, num_steps=steps)
     return gather_batch(z, mesh) if mesh is not None else z
+
+
+def gn_channels_last_inputs():
+    """An NHWC array and its scale and bias from a numpy seed, for the
+    sharded GroupNorm on channels-last x (the test hands the same array to
+    the JAX op)."""
+    rng = np.random.default_rng(31)
+    x = (rng.standard_normal((4, 6, 5, 64)) * 1.5 + 0.2).astype(np.float32)
+    return (x, (1 + 0.1 * rng.standard_normal(64)).astype(np.float32),
+            (0.1 * rng.standard_normal(64)).astype(np.float32))
 
 
 def sharding_world2(state: dict, lat, t, ctx) -> dict:
@@ -83,6 +94,15 @@ def sharding_world2(state: dict, lat, t, ctx) -> dict:
     out["gn_odd_batch_equal"] = torch.equal(
         fused_group_norm_sharded(x[:3], w, b, mesh, groups=32),
         fused_group_norm(x[:3], w, b, 32))
+    xn, wn, bn = gn_channels_last_inputs()
+    xl = torch.from_numpy(xn).permute(0, 3, 1, 2)  # the NHWC array, channels-last
+    y = fused_group_norm_sharded(xl, torch.from_numpy(wn), torch.from_numpy(bn), mesh,
+                                 groups=32, act="silu")
+    out["gn_channels_last"] = dict(
+        nhwc=y.permute(0, 2, 3, 1).numpy().copy(),
+        channels_last=y.is_contiguous(memory_format=torch.channels_last),
+        equal=torch.equal(y, fused_group_norm(xl, torch.from_numpy(wn), torch.from_numpy(bn),
+                                              32, act="silu")))
     for heads, key in ((4, "flash_tp"), (3, "flash_tp_odd_heads")):
         q, k, v = (torch.randn((2, 600, heads, 16), generator=g) for _ in range(3))
         got = flash_attention_sharded(q, k, v, tp_mesh)

@@ -1603,6 +1603,147 @@ def test_group_norm_kernel_is_one_launch_without_scratch_and_repeats(cuda):
     assert torch.equal(half, gn.fused_group_norm(x, ones, b, 32, 1e-5, "silu"))
 
 
+def _group_norm_f64(x, w, b, groups, eps, act):
+    """The JAX op's formulas in float64 over (B, C, ...) x of any layout."""
+    shape = x.shape
+    xd = x.double().reshape(shape[0], groups, -1)
+    mean = xd.mean(dim=-1, keepdim=True)
+    var = (xd.square().mean(dim=-1, keepdim=True) - mean.square()).clamp(min=0.0)
+    bcast = (1, shape[1]) + (1,) * (len(shape) - 2)
+    want = ((xd - mean) * torch.rsqrt(var + eps)).reshape(shape) * \
+        w.double().reshape(bcast) + b.double().reshape(bcast)
+    return want * torch.sigmoid(want) if act == "silu" else want
+
+
+# channels-minor K8: (shape, groups, eps, act); cpg 10, 20, 40 (the UNet's),
+# 4 (the VAE's), 3; ragged H * W; C * itemsize % 16 != 0 (the element-wise
+# instance); the 768x768 VAE's largest image, read twice (no card keeps 151
+# MB), and images a round keeps whole
+NHWC_CASES = [
+    ((2, 320, 96, 96), 32, 1e-5, "silu"), ((4, 640, 48, 48), 32, 1e-5, None),
+    ((2, 1280, 12, 12), 32, 1e-5, "silu"), ((1, 96, 33, 17), 32, 1e-6, "silu"),
+    ((3, 128, 7, 9), 32, 1e-6, None), ((2, 34, 10, 10), 2, 1e-5, "silu"),
+    ((1, 38, 5, 3), 2, 1e-6, None), ((2, 512, 96, 96), 32, 1e-6, "silu"),
+    ((1, 256, 384, 384), 32, 1e-6, None), ((1, 128, 768, 768), 32, 1e-6, "silu"),
+    ((2, 128, 768, 768), 32, 1e-6, None), ((1, 320, 300, 1), 32, 1e-5, "silu"),
+    # 2560 channels (the UNet's skip concatenations): 640 16-byte columns in
+    # float32, the grid's wide blocks
+    ((2, 2560, 12, 12), 32, 1e-5, "silu"), ((4, 2560, 24, 24), 32, 1e-5, None)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("shape,groups,eps,act", NHWC_CASES)
+def test_nhwc_group_norm_kernel_matches_plain(cuda, dtype, shape, groups, eps, act):
+    """K8 on channels-last x: bf16 within 0.02 and 1% of max |want| of the
+    fp32 plain version on the same x; float32 within 1e-5 of max |want| of
+    the JAX op's formulas in float64; the output channels-last, in x's
+    dtype, one launch on the channels-minor counter of x's dtype."""
+    g = torch.Generator(device=cuda).manual_seed(shape[1] + shape[2] + groups)
+    x = (torch.randn(shape, generator=g, device=cuda) * 2 + 0.5).to(dtype) \
+        .contiguous(memory_format=torch.channels_last)
+    w = 1 + 0.05 * torch.randn(shape[1], generator=g, device=cuda)
+    b = 0.05 * torch.randn(shape[1], generator=g, device=cuda)
+    names = ("launches", "launches_f32", "launches_nhwc", "launches_nhwc_f32")
+    before = [getattr(gn.fused_group_norm, n) for n in names]
+    got = gn.fused_group_norm(x, w, b, groups, eps, act)
+    moved = [getattr(gn.fused_group_norm, n) - v for n, v in zip(names, before)]
+    assert moved == ([0, 0, 1, 0] if dtype == torch.bfloat16 else [0, 0, 0, 1])
+    assert got.dtype == dtype and got.shape == x.shape
+    assert got.is_contiguous(memory_format=torch.channels_last) and \
+        gn.layout_of(got) == gn.NHWC
+    if dtype == torch.bfloat16:
+        want = gn.fused_group_norm_reference(x.float(), w, b, groups, eps, act)
+        err = (got.float() - want).abs().max().item()
+        assert err <= 0.02 and err <= 0.01 * want.abs().max().item(), err
+    else:
+        want = _group_norm_f64(x, w, b, groups, eps, act)
+        err = (got.double() - want).abs().max().item()
+        assert err <= 1e-5 * want.abs().max().item(), err
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("shape", [(2, 640, 96, 96), (1, 128, 768, 768), (2, 34, 10, 10)])
+def test_nhwc_group_norm_is_one_launch_one_allocation_and_repeats(cuda, dtype, shape):
+    """Channels-last K8: one kernel a call (the persistent grid), one
+    allocation (the output), and the same bits on a second call (the blocks'
+    sums added in a fixed order)."""
+    groups = 2 if shape[1] == 34 else 32
+    x = (torch.randn(shape, device=cuda) * 2 + 0.5).to(dtype) \
+        .contiguous(memory_format=torch.channels_last)
+    w, b = torch.rand(shape[1], device=cuda) + 0.5, torch.randn(shape[1], device=cuda)
+    first = gn.fused_group_norm(x, w, b, groups, 1e-5, "silu")
+    torch.cuda.synchronize()
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+    again = gn.fused_group_norm(x, w, b, groups, 1e-5, "silu")
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] == allocs + 1
+    assert torch.equal(first, again)
+    _assert_one_kernel_a_call(lambda: gn.fused_group_norm(x, w, b, groups, 1e-5, "silu"),
+                              "gn_grid_kernel")
+
+
+@pytest.mark.parametrize("shape,act", [((1, 128, 768, 768), "silu"), ((1, 256, 768, 768), None),
+                                       ((1, 512, 384, 384), "silu"), ((2, 128, 768, 768), None),
+                                       ((2, 320, 96, 96), "silu"), ((4, 1280, 24, 24), None)])
+def test_f32_group_norm_repeats_bit_for_bit(cuda, shape, act):
+    """float32 NCHW K8 at the VAE's groups (4.7 to 18.9 MB: the persistent
+    grid) and at the UNet's (the cluster kernel): the same output on a second
+    call, within 1e-5 of max |want| of float64."""
+    g = torch.Generator(device=cuda).manual_seed(shape[1] + shape[2] + 5)
+    x = torch.randn(shape, generator=g, device=cuda) * 2 + 0.5
+    w = 1 + 0.05 * torch.randn(shape[1], generator=g, device=cuda)
+    b = 0.05 * torch.randn(shape[1], generator=g, device=cuda)
+    first = gn.fused_group_norm(x, w, b, 32, 1e-6, act)
+    assert torch.equal(first, gn.fused_group_norm(x, w, b, 32, 1e-6, act))
+    want = _group_norm_f64(x, w, b, 32, 1e-6, act)
+    err = (first.double() - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item(), err
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_nhwc_group_norm_on_two_streams_at_once(cuda, dtype):
+    """Grids on two streams at once: small channels-last images whose grids
+    take a few blocks each, so both are resident together, each called many
+    times on its own stream; every output equals that input's output on the
+    default stream (each launch's sums and counters are its own)."""
+    shapes = [(1, 320, 16, 16), (2, 256, 16, 16)]
+    g = torch.Generator(device=cuda).manual_seed(24)
+    xs = [(torch.randn(s, generator=g, device=cuda) * 2 + 0.5).to(dtype)
+          .contiguous(memory_format=torch.channels_last) for s in shapes]
+    ws = [1 + 0.05 * torch.randn(s[1], generator=g, device=cuda) for s in shapes]
+    bs = [0.05 * torch.randn(s[1], generator=g, device=cuda) for s in shapes]
+    want = [gn.fused_group_norm(x, w, b, 32, 1e-5, "silu") for x, w, b in zip(xs, ws, bs)]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(device=cuda) for _ in shapes]
+    outs = [[], []]
+    for _ in range(64):
+        for k, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[k].append(gn.fused_group_norm(xs[k], ws[k], bs[k], 32, 1e-5, "silu"))
+    torch.cuda.synchronize()
+    for k in range(len(shapes)):
+        assert all(torch.equal(o, want[k]) for o in outs[k]), k
+
+
+def test_group_norm_refuses_other_strides_on_the_card(cuda):
+    """Neither contiguous nor channels-minor raises a ValueError naming the
+    two layouts; channels-minor x wider than the grid kernel takes raises too;
+    nothing is launched."""
+    names = ("launches", "launches_f32", "launches_nhwc", "launches_nhwc_f32")
+    before = [getattr(gn.fused_group_norm, n) for n in names]
+    w, b = torch.ones(64, device=cuda), torch.zeros(64, device=cuda)
+    x = torch.zeros((2, 64, 8, 8), device=cuda, dtype=torch.bfloat16)
+    for bad in (x[..., :4], x.transpose(2, 3), x[:, ::2]):
+        if bad.is_contiguous():
+            continue
+        with pytest.raises(ValueError, match="contiguous.*channels-minor"):
+            gn.fused_group_norm(bad, w, b)
+    wide = torch.zeros((1, 8320, 2, 2), device=cuda, dtype=torch.bfloat16) \
+        .contiguous(memory_format=torch.channels_last)
+    with pytest.raises(ValueError, match="wider than"):
+        gn.fused_group_norm(wide, torch.ones(8320, device=cuda), torch.zeros(8320, device=cuda))
+    assert [getattr(gn.fused_group_norm, n) for n in names] == before
+
+
 @pytest.mark.parametrize("rows,n_bits", [(1, 512), (4, 16384), (5, 2000), (3, 700),
                                          (7, 513), (300, 36864), (4096, 16384)])
 def test_batch_keystream_kernel_bit_exact(cuda, rows, n_bits):

@@ -1,10 +1,13 @@
 """PyTorch port vs the JAX package: the fused GroupNorm op (K8).
 
-The port's ``fused_group_norm`` takes NCHW, the JAX op NHWC; inputs come
-from a numpy seed and are transposed at the boundary.  On the CPU the port
-runs its plain version, which must match the Pallas kernel in interpret mode
-in both its layouts (resident, twopass), with and without the fused SiLU, at
-both epsilons the models use: fp32, atol 2e-5 (the bound of
+The port's ``fused_group_norm`` takes NCHW and channels-minor x (C the
+fastest-moving dimension, ``torch.channels_last``), the JAX op NHWC; inputs
+come from a numpy seed and are either transposed at the boundary (NCHW) or
+handed over as they are, the port seeing the same NHWC memory through
+``permute(0, 3, 1, 2)`` (channels-minor).  On the CPU the port runs its
+plain version, which must match the Pallas kernel in interpret mode in both
+its modes (resident, twopass), with and without the fused SiLU, at both
+epsilons the models use: fp32, atol 2e-5 (the bound of
 tests/test_groupnorm_kernel.py).  The CUDA kernel is held against the plain
 version on the card (tests/test_torch_gpu.py).
 """
@@ -68,6 +71,74 @@ def test_reference_matches_jax_kernel_in_fp32_at_unet_widths(mode, act):
     assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
 
 
+@pytest.mark.parametrize("eps", [1e-5, 1e-6])
+@pytest.mark.parametrize("act", [None, "silu"])
+@pytest.mark.parametrize("mode", ["resident", "twopass"])
+def test_channels_last_matches_jax_kernel_on_the_same_nhwc_memory(mode, act, eps):
+    """The JAX op's own layout: one NHWC array, passed unchanged to the
+    Pallas op and to the port as ``torch.from_numpy(x).permute(0, 3, 1, 2)``
+    (channels-last, no copy); fp32, atol 2e-5; the output channels-last."""
+    x = _rand((2, 4, 8, 64), 20, 2.0, 0.5)  # NHWC
+    scale = _rand((64,), 21, 0.2, 1.0)
+    bias = _rand((64,), 22, 0.2)
+    want = np.asarray(j_fused_group_norm(
+        jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias), groups=32, eps=eps,
+        act=act, force_mode=mode, interpret=True))
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2)
+    assert xt.is_contiguous(memory_format=torch.channels_last) and gn.layout_of(xt) == gn.NHWC
+    got = gn.fused_group_norm(xt, torch.from_numpy(scale), torch.from_numpy(bias), 32, eps, act)
+    assert got.is_contiguous(memory_format=torch.channels_last) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), want, atol=2e-5)
+
+
+@pytest.mark.parametrize("mode", ["resident", "twopass"])
+@pytest.mark.parametrize("act", [None, "silu"])
+def test_channels_last_matches_jax_kernel_in_fp32_at_unet_widths(mode, act):
+    """The same at a UNet level's width (320 channels, 32 groups, 12 x 12):
+    within 1e-5 of max |want|, the output channels-last."""
+    x = _rand((2, 12, 12, 320), 23, 1.5, 0.3)  # NHWC
+    scale = _rand((320,), 24, 0.2, 1.0)
+    bias = _rand((320,), 25, 0.2)
+    want = np.asarray(j_fused_group_norm(
+        jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias), groups=32, eps=1e-5,
+        act=act, force_mode=mode, interpret=True))
+    got = gn.fused_group_norm(torch.from_numpy(x).permute(0, 3, 1, 2), torch.from_numpy(scale),
+                              torch.from_numpy(bias), 32, 1e-5, act)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert np.abs(got.permute(0, 2, 3, 1).numpy() - want).max() <= 1e-5 * np.abs(want).max()
+
+
+def test_layout_rule_names_the_entry_of_each_layout_and_dtype():
+    """``layout_of`` tells contiguous x (NCHW) from channels-minor x (4-D
+    channels-last, and 3-D (B, C, L) with C minor) and refuses other
+    strides with a ValueError naming both; ``entry`` names one C entry a
+    (layout, dtype) pair and refuses float16 with a TypeError."""
+    x = torch.zeros((2, 64, 5, 7))
+    assert gn.layout_of(x) == gn.NCHW
+    assert gn.layout_of(x.contiguous(memory_format=torch.channels_last)) == gn.NHWC
+    assert gn.layout_of(torch.zeros((2, 7, 64)).permute(0, 2, 1)) == gn.NHWC
+    # one pixel, or one channel: both layouts hold the same memory, NCHW named
+    assert gn.layout_of(torch.zeros((2, 64, 1, 1)).contiguous(
+        memory_format=torch.channels_last)) == gn.NCHW
+    for bad in (x[..., :3], x.transpose(2, 3), x[:, ::2], x.permute(0, 2, 1, 3)):
+        with pytest.raises(ValueError, match="contiguous .NCHW.*channels-minor"):
+            gn.layout_of(bad)
+    assert {(layout, dtype): gn.entry(layout, dtype)
+            for layout in (gn.NCHW, gn.NHWC) for dtype in (torch.bfloat16, torch.float32)} == {
+        (gn.NCHW, torch.bfloat16): "gswm_group_norm",
+        (gn.NCHW, torch.float32): "gswm_group_norm_f32",
+        (gn.NHWC, torch.bfloat16): "gswm_group_norm_nhwc",
+        (gn.NHWC, torch.float32): "gswm_group_norm_nhwc_f32"}
+    with pytest.raises(TypeError, match="float16"):
+        gn.entry(gn.NHWC, torch.float16)
+    with pytest.raises(ValueError):
+        gn.entry("nchwc", torch.bfloat16)
+    from gswm_torch import native
+
+    for name, _ in gn.ENTRIES.values():
+        assert native._SIGNATURES[name] == native._SIGNATURES["gswm_group_norm"]
+
+
 @pytest.mark.parametrize("shape,groups", [((2, 64, 5, 7), 32), ((1, 96, 3, 3), 8)])
 def test_reference_matches_the_model_group_norm(shape, groups):
     """The op's plain version is the model's GroupNorm32 (F.group_norm in
@@ -118,9 +189,15 @@ def test_reference_takes_parameters_of_any_float_dtype(dtype):
 
 
 def test_kernel_source_is_one_launch_that_keeps_the_group_on_chip():
-    """csrc/group_norm.cu: one cluster kernel (no stats / apply pair), the
-    sums exchanged through distributed shared memory under cluster barriers,
-    no scratch argument, no float atomics; native.py's signature agrees."""
+    """csrc/group_norm.cu: one launch a call, of one of two kernels (no
+    stats / apply pair): the cluster kernel, its blocks' sums exchanged
+    through distributed shared memory under cluster barriers, or the
+    persistent grid, a cooperative launch whose blocks leave their sums in
+    fixed places of the launch's own scratch (from the stream's pool, the
+    counters zeroed in stream order; no static device buffer) and meet at
+    an integer counter; no scratch argument, no float atomics (the only
+    atomics count arrivals); native.py's signatures agree."""
+    import re
     from pathlib import Path
 
     from gswm_torch import native
@@ -131,11 +208,20 @@ def test_kernel_source_is_one_launch_that_keeps_the_group_on_chip():
                  "cudaFuncAttributeNonPortableClusterSizeAllowed",
                  "cudaFuncAttributeMaxDynamicSharedMemorySize", "map_shared_rank",
                  "cluster.sync()", "barrier.cluster.arrive", "barrier.cluster.wait",
-                 "cp.async.bulk.shared::cluster.global"):
+                 "cp.async.bulk.shared::cluster.global", "cudaLaunchAttributeCooperative",
+                 "cudaMallocAsync(&scratch", "cudaMemsetAsync(scratch, 0, count_bytes, st)",
+                 "cudaFreeAsync(scratch, st)"):
         assert used in code, used
-    for gone in ("gn_stats_kernel", "gn_apply_kernel", "partials", "atomicAdd", "<<<"):
+    for gone in ("gn_stats_kernel", "gn_apply_kernel", "partials", "<<<"):
         assert gone not in code, gone
-    assert code.count("cudaLaunchKernelEx(") == 1
+    # the program's build: no buffer in static device memory (the phase
+    # stamps' is in the measurement build alone)
+    program = re.sub(r"#ifdef GN_PHASE_STAMPS.*?#(else|endif)", "", code, flags=re.S)
+    assert "__device__ float" not in program and "__device__ unsigned" not in program
+    assert set(re.findall(r"atomic\w+\(([^,]+),", code)) == {"arrived", "passed"}
+    assert "unsigned int* arrived" in code and "unsigned int* passed" in code
+    # one launch site a kernel: the cluster kernel's and the grid's
+    assert code.count("cudaLaunchKernelEx(") == 2
     # x, weight, bias, out; B, C, HW, G; eps, act, stream
     sig = native._SIGNATURES["gswm_group_norm"]
     assert len(sig) == 11 and sig.count(native._VP) == 5
@@ -205,6 +291,63 @@ def test_wrapper_allocates_only_the_output_and_converts_nothing(monkeypatch):
     with pytest.raises(ValueError):
         gn.fused_group_norm(x, _OnCard((32,), torch.float32, 0x2000), b)
     assert len(calls) == 2
+
+
+class _Strided(_OnCard):
+    """A tensor on a card with the strides of ``like``, a CPU tensor: what
+    the layout rule reads (strides, a permuted view's contiguity) comes from
+    it."""
+
+    def __init__(self, like, address):
+        super().__init__(like.shape, like.dtype, address)
+        self.like = like
+
+    def is_contiguous(self, **memory_format):
+        return self.like.is_contiguous(**memory_format)
+
+    def stride(self, *dim):
+        return self.like.stride(*dim)
+
+    def permute(self, *dims):
+        return self.like.permute(*dims)
+
+    def element_size(self):
+        return self.like.element_size()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("layout", ["nchw", "nhwc"])
+def test_wrapper_routes_each_layout_to_its_entry(monkeypatch, layout, dtype):
+    """On a CUDA tensor: x of each layout and dtype reaches the C entry
+    ``entry`` names with (x, weight, bias, out, B, C, HW, G, eps, act), the
+    output allocated like x, one launch on that pair's counter alone."""
+    calls = []
+    monkeypatch.setattr(gn.native, "launch", lambda dev, name, *args: calls.append(
+        (name, args)))
+    monkeypatch.setattr(torch, "empty_like", lambda t: _OnCard(t.shape, t.dtype, 0x7000))
+    monkeypatch.setattr(gn, "fused_group_norm_reference", None)  # no fallback
+    like = torch.zeros((2, 320, 6, 8), dtype=dtype)
+    if layout == "nhwc":
+        like = like.contiguous(memory_format=torch.channels_last)
+    x = _Strided(like, 0x1000)
+    w, b = _OnCard((320,), torch.float32, 0x2000), _OnCard((320,), torch.float32, 0x3000)
+    counters = [counter for _, counter in gn.ENTRIES.values()]
+    before = {c: getattr(gn.fused_group_norm, c) for c in counters}
+    gn.fused_group_norm(x, w, b, 32, 1e-6, "silu")
+    assert calls == [(gn.entry(layout, dtype),
+                      (0x1000, 0x2000, 0x3000, 0x7000, 2, 320, 48, 32, 1e-6, 1))]
+    moved = {c: getattr(gn.fused_group_norm, c) - n for c, n in before.items()}
+    assert moved == {c: int(c == gn.ENTRIES[layout, dtype][1]) for c in counters}
+    # other strides, and channels-minor x wider than the grid kernel takes,
+    # are refused before any launch
+    with pytest.raises(ValueError, match="neither contiguous"):
+        gn.fused_group_norm(_Strided(torch.zeros((2, 320, 6, 8), dtype=dtype)[..., :4],
+                                     0x1000), w, b)
+    wide = torch.zeros((1, 8320, 2, 2), dtype=dtype).contiguous(memory_format=torch.channels_last)
+    big = _OnCard((8320,), torch.float32, 0x2000)
+    with pytest.raises(ValueError, match="wider than"):
+        gn.fused_group_norm(_Strided(wide, 0x1000), big, big)
+    assert len(calls) == 1
 
 
 def test_wrapper_refuses_a_gradient_before_any_launch(monkeypatch):

@@ -170,6 +170,23 @@ def test_sharded_ops_equal_single_device(world2):
         assert r["flash_tp_odd_heads"][0]
 
 
+@pytest.mark.parametrize("mode", ["resident", "twopass"])
+def test_sharded_group_norm_keeps_channels_last_and_matches_jax(world2, mode):
+    """fused_group_norm_sharded over dp on channels-last x (an NHWC array
+    seen through permute(0, 3, 1, 2)): the output channels-last on every
+    rank, equal to the single-device call, and within atol 2e-5 of the JAX
+    op on the same NHWC array (fp32)."""
+    from gswm.ops.groupnorm import fused_group_norm as j_fused_group_norm
+
+    x, w, b = workers.gn_channels_last_inputs()
+    want = np.asarray(j_fused_group_norm(x, w, b, groups=32, eps=1e-5, act="silu",
+                                         force_mode=mode, interpret=True))
+    for r in world2:
+        got = r["gn_channels_last"]
+        assert got["channels_last"] and got["equal"]
+        np.testing.assert_allclose(got["nhwc"], want, atol=2e-5, rtol=0)
+
+
 def test_dp_decode_bit_identical(world2):
     for r in world2:
         assert r["dp_bits_equal"]
