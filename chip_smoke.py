@@ -74,8 +74,8 @@ Phases, each printing its own line(s); any failure raises and exits nonzero:
                 one UNet forward at batch 2 and at 4, one VAE decode of one
                 image and one encode of two, on NCHW x (the record
                 "fused_group_norm", the cluster kernel) and then on
-                channels-last x ("fused_group_norm_nhwc", the persistent
-                grid; its output channels-last), the library call
+                channels-last x ("fused_group_norm_nhwc", the slab
+                kernel; its output channels-last), the library call
                 F.group_norm (+ F.silu) on x in the same layout, and the
                 probe cases paths.K8_PROBE_CASES channels-last too; one call
                 under the profiler must be one kernel and allocate the
@@ -1031,7 +1031,8 @@ def _check_embed(records: dict) -> None:
 def _check_group_norm_call(shape, act, channels_last: bool = False) -> None:
     """One K8 call: one kernel, and one allocation, its output (no scratch,
     no converted parameters); NCHW x runs the cluster kernel, channels-last
-    x the persistent grid, its output channels-last."""
+    x the slab kernel (slabs of whole groups, on clusters or a grid), its
+    output channels-last."""
     from gswm_torch.ops import groupnorm as gn
 
     x = torch.randn(shape, device="cuda").bfloat16()
@@ -1040,7 +1041,7 @@ def _check_group_norm_call(shape, act, channels_last: bool = False) -> None:
     w, b = torch.ones(shape[1], device="cuda"), torch.zeros(shape[1], device="cuda")
     _check_one_kernel(f"fused_group_norm at {shape}{' channels-last' * channels_last}",
                       lambda: gn.fused_group_norm(x, w, b, 32, 1e-5, act),
-                      "gn_grid_kernel" if channels_last else "gn_cluster_kernel")
+                      "gn_slab_kernel" if channels_last else "gn_cluster_kernel")
     before = torch.cuda.memory_stats()["allocation.all.allocated"]
     out = gn.fused_group_norm(x, w, b, 32, 1e-5, act)
     made = torch.cuda.memory_stats()["allocation.all.allocated"] - before
@@ -1359,7 +1360,7 @@ def phase_kernels(gn_cases) -> dict:
     # K8: unit-scale inputs with an offset, near-unit affine; the library
     # call is F.group_norm (+ F.silu) in bf16 on x in the same layout; each
     # GroupNorm shape of the 768x768 path on NCHW x, then on channels-last x
-    # (and the probe cases), the grid kernel's output channels-last
+    # (and the probe cases), the slab kernel's output channels-last
     layouts = (("fused_group_norm", False), ("fused_group_norm_nhwc", True))
     cases = [(shape, eps, act, name, last) for name, last in layouts
              for shape, eps, act in gn_cases]
@@ -1638,7 +1639,7 @@ def _counters() -> dict:
     counts["flash_f32_transposed"] = attn.flash_attention_transposed.launches_f32
     counts["flash_f32_lse"] = split.lse_launches_f32
     counts["group_norm_f32"] = _wrappers()["fused_group_norm"].launches_f32
-    # K8 on channels-last x, the persistent grid's, bf16 and float32
+    # K8 on channels-last x, the slab kernel's, bf16 and float32
     counts["fused_group_norm_nhwc"] = _wrappers()["fused_group_norm"].launches_nhwc
     counts["group_norm_nhwc_f32"] = _wrappers()["fused_group_norm"].launches_nhwc_f32
     # the steps around the float32 core: its split pre-pass, one a call,
@@ -4606,7 +4607,7 @@ def main() -> None:
         "flash_f32_lse": ("gswm_torch/csrc/flash_f32.cu", "gswm/ops/attention.py:414"),
         "group_norm_f32": ("gswm_torch/csrc/group_norm.cu", "gswm/ops/groupnorm.py:185"),
         # K8 in the JAX op's own layout: channels-last x (NHWC memory), on
-        # the persistent grid, bf16 (phase 6) and float32 (phase 13k)
+        # the slab kernel, bf16 (phase 6) and float32 (phase 13k)
         "fused_group_norm_nhwc": ("gswm_torch/csrc/group_norm.cu",
                                   "gswm/ops/groupnorm.py:185"),
         "group_norm_nhwc_f32": ("gswm_torch/csrc/group_norm.cu", "gswm/ops/groupnorm.py:185"),

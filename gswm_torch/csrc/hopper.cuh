@@ -800,6 +800,16 @@ static __device__ __forceinline__ void cp_async_16(void* dst, const void* src, i
                : "memory");
 }
 
+// the same under an L2 cache policy (`createpolicy`; say, evict-first for a
+// copy read once)
+static __device__ __forceinline__ void cp_async_16_hinted(void* dst, const void* src,
+                                                          uint64_t policy) {
+  asm volatile("cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "l"(policy)
+               : "memory");
+}
+
 static __device__ __forceinline__ void cp_async_8(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_u32(dst)), "l"(src)
                : "memory");

@@ -25,9 +25,12 @@ kernel a call, which reads x once while the data fits on chip and allocates
 nothing but its output here: NCHW, a thread block cluster a group keeps it
 in shared memory between the sums and the normalisation, or, for float32
 groups above 16 x 220 KB, a persistent grid of one block an SM; channels-
-minor, that grid, whose unit is a whole image.  The grid's sums and meeting
-counters are each launch's own, taken by the C entry from the stream's
-pool, so calls on several streams at once share nothing.  Its launches are counted by layout and
+minor, the slab kernel, whose unit is a slab of whole groups of one image
+(a column of 128 bytes or more of every pixel), kept by a cluster that adds
+its sums in distributed shared memory, or by a persistent grid where a
+slab outgrows 16 blocks.  The grids' sums and meeting counters are each
+launch's own, taken by the C entry from the stream's pool, so calls on
+several streams at once share nothing.  Its launches are counted by layout and
 dtype: ``fused_group_norm.launches`` (NCHW bf16), ``.launches_f32`` (NCHW
 float32), ``.launches_nhwc`` and ``.launches_nhwc_f32``.
 ``fused_group_norm_sharded`` runs it on each rank's rows of a batch sharded
@@ -50,13 +53,29 @@ ENTRIES = {(NCHW, torch.bfloat16): ("gswm_group_norm", "launches"),
            (NCHW, torch.float32): ("gswm_group_norm_f32", "launches_f32"),
            (NHWC, torch.bfloat16): ("gswm_group_norm_nhwc", "launches_nhwc"),
            (NHWC, torch.float32): ("gswm_group_norm_nhwc_f32", "launches_nhwc_f32")}
-# channels-minor x: the grid kernel's threads hold one column of a pixel's
-# channels each, 16 bytes a column where C * itemsize % 16 == 0 (at most 512
-# columns in bf16 and 1024 in float32, csrc/group_norm.cu GRID_THREADS and
-# GRID_THREADS_WIDE: 4096 channels either way), one element otherwise (at
-# most GRID_THREADS)
-NHWC_MAX_CHANNELS = 4096
-NHWC_MAX_ELEMENT_CHANNELS = 512
+# channels-minor x: the slab kernel's unit is a slab of whole groups, whose
+# column of channels a block's 512 threads hold, 16 bytes each where C *
+# itemsize % 16 == 0 (csrc/group_norm.cu SLAB_THREADS: a slab of at most 8192
+# bytes a pixel), one channel each otherwise (at most 512 channels): any C
+# whose groups are no wider
+NHWC_MAX_SLAB_BYTES = 8192
+NHWC_MAX_ELEMENT_SLAB = 512
+
+
+def nhwc_slab_fits(c: int, groups: int, itemsize: int) -> bool:
+    """Whether the slab kernel takes channels-minor x of ``c`` channels in
+    ``groups`` groups: some number of whole groups (a divisor of ``groups``)
+    makes a column of 16-byte vectors no wider than ``NHWC_MAX_SLAB_BYTES``
+    (C * itemsize % 16 == 0), or of at most ``NHWC_MAX_ELEMENT_SLAB``
+    channels (otherwise).  The fewest such groups is the narrowest, so it
+    decides (csrc/group_norm.cu pick_slab)."""
+    cpg = c // groups
+    for gs in (d for d in range(1, groups + 1) if groups % d == 0):
+        if c * itemsize % 16:
+            return gs * cpg <= NHWC_MAX_ELEMENT_SLAB
+        if gs * cpg * itemsize % 16 == 0:
+            return gs * cpg * itemsize <= NHWC_MAX_SLAB_BYTES
+    return False
 
 
 def _to_minor(dim: int) -> tuple[int, ...]:
@@ -136,9 +155,9 @@ def fused_group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     (C,); the output in x's dtype and memory layout.  CPU:
     ``fused_group_norm_reference``.  CUDA: the kernel of csrc/group_norm.cu
     (bf16 or float32 x, contiguous NCHW or channels-minor, 16-byte aligned;
-    any C divisible by ``groups``, any spatial size; channels-minor x at most
-    ``NHWC_MAX_CHANNELS`` channels, ``NHWC_MAX_ELEMENT_CHANNELS`` where C *
-    itemsize % 16 != 0)."""
+    any C divisible by ``groups``, any spatial size; channels-minor x where
+    ``nhwc_slab_fits``: groups of at most 4096 bf16 or 2048 float32
+    channels, or 512 where C * itemsize % 16 != 0)."""
     _check_args(x, groups, act)
     if x.device.type == "cpu":
         return fused_group_norm_reference(x, weight, bias, groups, eps, act)
@@ -150,11 +169,11 @@ def fused_group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     if x.data_ptr() % 16:
         raise ValueError("fused_group_norm: the CUDA kernel takes 16-byte aligned x")
     b, c = x.shape[:2]
-    if layout == NHWC and c > (NHWC_MAX_CHANNELS if c * x.element_size() % 16 == 0
-                               else NHWC_MAX_ELEMENT_CHANNELS):
-        raise ValueError(f"fused_group_norm: channels-minor x of {c} channels is wider than "
-                         f"the grid kernel takes ({NHWC_MAX_CHANNELS}, or "
-                         f"{NHWC_MAX_ELEMENT_CHANNELS} where C * itemsize % 16 != 0)")
+    if layout == NHWC and not nhwc_slab_fits(c, groups, x.element_size()):
+        raise ValueError(f"fused_group_norm: channels-minor x of {c} channels in {groups} "
+                         f"groups has groups wider than the slab kernel takes (a slab of "
+                         f"{NHWC_MAX_SLAB_BYTES} bytes a pixel, or {NHWC_MAX_ELEMENT_SLAB} "
+                         f"channels where C * itemsize % 16 != 0)")
     if weight.shape != (c,) or bias.shape != (c,):
         raise ValueError(f"fused_group_norm: weight {tuple(weight.shape)} and bias "
                          f"{tuple(bias.shape)} are not ({c},)")

@@ -70,10 +70,13 @@ entry points on the same tensors, so nothing but the kernels differs:
     bits equal and z within 4 float32 ulps or 1e-6 relative;
   * GroupNorm beyond the default cases: ``k8f32``, float32 K8 through each
     side's wrapper at the 50 shapes and the probe cases, each side's device
-    time beside, this checkout's error against float64 and a second call
-    bit-equal to the first; ``k8layouts``, this checkout's K8 on
-    channels-last x against its NCHW kernel on the same values and against
-    ``F.group_norm`` on the channels-last x, in both dtypes;
+    time beside, this checkout's error against float64, a second call
+    bit-equal to the first and the difference from the parent's output;
+    ``k8layouts``, this checkout's K8 on channels-last x against the
+    parent's on the same x, against this checkout's NCHW kernel on the same
+    values and against ``F.group_norm`` on the channels-last x, in turns, in
+    both dtypes, with the device times of this checkout's and the parent's
+    channels-last kernels and of the NCHW kernel;
   * K7 above d = 160 through both sides' wrappers as well
     (``flash_attention_transposed``: this checkout's one C call, whose
     pre-pass takes its scratch from the stream's pool where S % 8 != 0), in
@@ -86,8 +89,11 @@ are equal bit for bit (a change that must leave the kernels' results
 alone), every float32 form's output equals the natural form's, this
 checkout's float32 GEMM and core are within the float32 bound of float64,
 with ``k8`` among the cases every K8 output equals the parent's (with
-``k8f32`` this checkout's float32 K8 within the float32 bound of float64
-and bit-equal from call to call instead), and with
+``k8f32`` the float32 NCHW outputs too, and within the float32 bound of
+float64 and bit-equal from call to call; with ``k8layouts`` the
+channels-last outputs within their bounds: bf16 within ``GN_REL_BOUND`` of
+max |want| of the fp32 plain version, float32 within the float32 bound of
+float64, and bit-equal from call to call), and with
 ``k3`` K3's single-key words and table bits equal the parent's, the vote
 path's scores and voted bits equal the parent's bits-out path's and the
 embed's quantized bits the parent's path's (z within 4 ulps);
@@ -312,6 +318,7 @@ def compare_group_norm_f32(parent_gn, gn_cases, iters: int) -> dict:
         device = {side: device_ms(fns[side], iters, "gn_") for side in sides}
         got = fns["change"]()
         same = torch.equal(got, fns["change"]())
+        parent_diff = (fns["parent"]() - got).abs().max().item()
         want = _group_norm_f64(x, w, b, eps, act)
         rel = ((got.double() - want).abs().max() / want.abs().max()).item()
         del want
@@ -325,10 +332,11 @@ def compare_group_norm_f32(parent_gn, gn_cases, iters: int) -> dict:
         print(f"K8 fp32 {'probe ' if probe else ''}{shape} {act}: wrapper parent "
               f"{t['parent']} change {t['change']} ms, {t['ratio']:.2f}x; device parent "
               f"{device['parent']:.4f} change {device['change']:.4f} ms; bound {bound:.4f} "
-              f"ms; err/max|want| {rel:.2e}; repeats bit for bit {same}", flush=True)
+              f"ms; err/max|want| {rel:.2e}; repeats bit for bit {same}; max|parent - "
+              f"change| {parent_diff:.3g}", flush=True)
         out["cases"].append(dict(shape=list(shape), eps=eps, act=act, probe=probe, **t,
                                  device_ms=device, bound_ms=bound, change_rel_err=rel,
-                                 repeats=same))
+                                 repeats=same, max_abs_diff=parent_diff))
         del x, got
     out["sum"] = dict(**sums, ratio=sum(sums["parent"]) / sum(sums["change"]),
                       device_ms=device_sums, bound_ms=bound_sum, shapes=len(gn_cases))
@@ -339,28 +347,32 @@ def compare_group_norm_f32(parent_gn, gn_cases, iters: int) -> dict:
     return out
 
 
-def compare_group_norm_layouts(gn_cases, iters: int) -> dict:
-    """This checkout's K8 on channels-last x against its NCHW kernel on the
-    same values and against the library call on the channels-last x
-    (``F.group_norm`` + ``F.silu``, whose time holds PyTorch's own layout
-    copies), in turns (NCHW, NHWC, library, library, NHWC, NCHW), bf16 and
+def compare_group_norm_layouts(parent_gn, gn_cases, iters: int) -> dict:
+    """This checkout's K8 on channels-last x against the parent's on the
+    same x, against this checkout's NCHW kernel on the same values and
+    against the library call on the channels-last x (``F.group_norm`` +
+    ``F.silu``, whose time holds PyTorch's own layout copies), in turns
+    (parent, NCHW, NHWC, library, library, NHWC, NCHW, parent), bf16 and
     float32, at every GroupNorm shape of the 768x768 path and at
     ``paths.K8_PROBE_CASES``; each output's error (bf16 against the fp32
-    plain version, float32 against float64) and the NHWC kernel's device
-    time."""
+    plain version, float32 against float64), a second call's output against
+    the first, and the device times of the NHWC kernels of both sides and of
+    the NCHW kernel."""
     import torch.nn.functional as F
 
     from gswm_torch.ops import groupnorm as gn
 
     g = torch.Generator(device="cuda").manual_seed(28)
-    turns = ("nchw", "nhwc", "library", "library", "nhwc", "nchw")
+    turns = ("parent", "nchw", "nhwc", "library", "library", "nhwc", "nchw", "parent")
+    timed = ("parent", "nhwc", "nchw")
     out = {"nhwc": []}
     cases = [(shape, eps, act, False) for shape, eps, act in gn_cases] + \
         [(shape, 1e-6, act, True) for shape, act in paths.K8_PROBE_CASES]
     for dtype, elem in ((torch.bfloat16, roofline.BF16), (torch.float32, roofline.F32)):
         tag = "bf16" if dtype == torch.bfloat16 else "fp32"
         sums = {side: 0.0 for side in dict.fromkeys(turns)}
-        bound_sum = device_sum = 0.0
+        device_sums = {side: 0.0 for side in timed}
+        bound_sum = 0.0
         for shape, eps, act, probe in cases:
             x = (torch.randn(shape, generator=g, device="cuda") * 2 + 0.5).to(dtype)
             xl = x.contiguous(memory_format=torch.channels_last)
@@ -372,19 +384,23 @@ def compare_group_norm_layouts(gn_cases, iters: int) -> dict:
                 y = F.group_norm(xl, 32, wl, bl, eps)
                 return F.silu(y) if act == "silu" else y
 
-            fns = {"nchw": lambda x=x, w=w, b=b, eps=eps, act=act: gn.fused_group_norm(
+            fns = {"parent": lambda xl=xl, w=w, b=b, eps=eps, act=act:
+                       parent_gn.fused_group_norm(xl, w, b, 32, eps, act),
+                   "nchw": lambda x=x, w=w, b=b, eps=eps, act=act: gn.fused_group_norm(
                        x, w, b, 32, eps, act),
                    "nhwc": lambda xl=xl, w=w, b=b, eps=eps, act=act: gn.fused_group_norm(
                        xl, w, b, 32, eps, act),
                    "library": library}
             t = in_turns(fns, iters, turns)
-            device = device_ms(fns["nhwc"], iters, "gn_grid")
+            device = {side: device_ms(fns[side], iters, "gn_") for side in timed}
             got = fns["nhwc"]()
+            repeats = torch.equal(got, fns["nhwc"]())
             layout_kept = got.is_contiguous(memory_format=torch.channels_last)
             want = gn.fused_group_norm_reference(x.float(), w, b, 32, eps, act) \
                 if dtype == torch.bfloat16 else _group_norm_f64(x, w, b, eps, act)
             top = want.abs().max().item()
             err = (got.to(want.dtype) - want).abs().max().item()
+            parent_err = (fns["parent"]().to(want.dtype) - want).abs().max().item()
             nchw_err = (fns["nchw"]().to(want.dtype) - want).abs().max().item()
             lib_err = (library().to(want.dtype) - want).abs().max().item()
             del want
@@ -398,25 +414,30 @@ def compare_group_norm_layouts(gn_cases, iters: int) -> dict:
                       f"NHWC {host['nhwc']:.1f} us", flush=True)
             if not probe:
                 bound_sum += bound
-                device_sum += device
                 for side in sums:
                     sums[side] += med[side]
+                for side in timed:
+                    device_sums[side] += device[side]
             print(f"K8 {tag} {'probe ' if probe else ''}{shape} {act}: NHWC {t['nhwc']} "
-                  f"(device {device:.4f}), NCHW {t['nchw']}, library on channels_last "
-                  f"{t['library']} ms; bound {bound:.4f} ms; err/max|want| NHWC "
-                  f"{err / top:.2e}, NCHW {nchw_err / top:.2e}, library {lib_err / top:.2e}; "
-                  f"output channels_last {layout_kept}", flush=True)
+                  f"(device {device['nhwc']:.4f}), parent's NHWC {t['parent']} (device "
+                  f"{device['parent']:.4f}), NCHW {t['nchw']} (device {device['nchw']:.4f}), "
+                  f"library on channels_last {t['library']} ms; bound {bound:.4f} ms; "
+                  f"err/max|want| NHWC {err / top:.2e}, parent's {parent_err / top:.2e}, "
+                  f"NCHW {nchw_err / top:.2e}, library {lib_err / top:.2e}; repeats "
+                  f"{repeats}; output channels_last {layout_kept}", flush=True)
             out["nhwc"].append(dict(dtype=tag, shape=list(shape), eps=eps, act=act,
                                     probe=probe, **t, device_ms=device, host_us=host,
-                                    bound_ms=bound,
-                                    err=err, nchw_err=nchw_err, library_err=lib_err,
-                                    max_want=top, channels_last=layout_kept))
+                                    bound_ms=bound, err=err, parent_err=parent_err,
+                                    nchw_err=nchw_err, library_err=lib_err, max_want=top,
+                                    repeats=repeats, channels_last=layout_kept))
             del x, xl, got
-        out[f"{tag}_sum"] = dict(median_ms=sums, device_ms=device_sum, bound_ms=bound_sum,
+        out[f"{tag}_sum"] = dict(median_ms=sums, device_ms=device_sums, bound_ms=bound_sum,
                                  shapes=len(gn_cases))
         print(f"K8 {tag} {len(gn_cases)} shapes summed (medians): NHWC {sums['nhwc']:.4f} "
-              f"(device {device_sum:.4f}), NCHW {sums['nchw']:.4f}, library "
-              f"{sums['library']:.4f} ms; bound {bound_sum:.4f} ms", flush=True)
+              f"(device {device_sums['nhwc']:.4f}), parent's NHWC {sums['parent']:.4f} "
+              f"(device {device_sums['parent']:.4f}), NCHW {sums['nchw']:.4f} (device "
+              f"{device_sums['nchw']:.4f}), library {sums['library']:.4f} ms; bound "
+              f"{bound_sum:.4f} ms", flush=True)
     return out
 
 
@@ -741,7 +762,8 @@ def main() -> None:
     if "k8f32" in cases:
         result["group_norm_f32"] = compare_group_norm_f32(parent_gn, gn_cases, args.iters)
     if "k8layouts" in cases:
-        result["group_norm_layouts"] = compare_group_norm_layouts(gn_cases, args.iters)
+        result["group_norm_layouts"] = compare_group_norm_layouts(parent_gn, gn_cases,
+                                                                  args.iters)
     if "k3" in cases:
         result["chacha"] = compare_chacha(libs, parent_chacha, stream, args.iters)
     if "attention" in cases:
@@ -798,7 +820,12 @@ def main() -> None:
             result.get("group_norm_f32", {}).get("cases", [])
         differ += [case for case in f32 if not case["change_rel_err"] <= F32_REL_BOUND]
         differ += [case for case in result.get("group_norm_f32", {}).get("cases", [])
-                   if not case["repeats"]]
+                   if not case["repeats"] or case["max_abs_diff"] != 0.0]
+        # channels-last K8: a new design, held to its bounds and to itself
+        differ += [case for case in result.get("group_norm_layouts", {}).get("nhwc", [])
+                   if not case["repeats"] or not case["channels_last"]
+                   or case["err"] > (GN_REL_BOUND if case["dtype"] == "bf16"
+                                     else F32_REL_BOUND) * case["max_want"]]
         if differ:
             raise SystemExit(f"compare_kernels: {len(differ)} attention cases differ from "
                              f"the parent's: {[c.get('label', c['shape']) for c in differ]}")
@@ -963,6 +990,9 @@ def compare_attention(libs: dict, rand, stream: int, iters: int, match: str = ""
 # the float32 bound: a float32 kernel's largest error against float64, over
 # the largest |want| (chip_smoke.py F32_REL_BOUND)
 F32_REL_BOUND = 1e-5
+# bf16 K8 against its fp32 plain version, of the largest |want|
+# (chip_smoke.py GN_REL_BOUND)
+GN_REL_BOUND = 0.01
 # the float32 cases' rounds: each side's C entry in turns, then each side's
 # wrapper (where this checkout's core takes its key split) in turns
 F32_ROUNDS = ("parent", "change", "change", "parent")

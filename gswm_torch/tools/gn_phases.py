@@ -1,28 +1,41 @@
-"""Where a block of K8's persistent grid spends its time, phase by phase.
+"""Where a block of K8's grid and slab kernels spends its time, phase by phase.
 
-    python -m gswm_torch.tools.gn_phases [--out FILE.json] [--iters 50]
+    python -m gswm_torch.tools.gn_phases [--out FILE.json] [--iters 50] [--columns]
 
 On one card.  ``csrc/group_norm.cu`` is compiled alone with
 ``-DGN_PHASE_STAMPS`` into ``build/gn_phases/``: in that build thread 0 of
-each block of ``gn_grid_kernel`` adds the ``clock64`` cycles of each phase of
-each round (a ``__syncthreads`` before every stamp) and the C entry
+each block of ``gn_grid_kernel`` (float32 NCHW groups above 16 x 220 KB) and
+of ``gn_slab_kernel`` (channels-last x) adds the ``clock64`` cycles of each
+phase of each round (a ``__syncthreads`` before every stamp) and the bytes
+of x the block loads from global memory, and the C entry
 ``gswm_group_norm_phases`` hands them over.  The phases of a round:
 
-  * load: the tail read from device memory and the kept head landing in
+  * load: the tail read from device memory and the kept part landing in
     shared memory, both summed;
-  * reduce: the block's sums written to its place in the launch's scratch;
-  * meet: the wait at the unit's arrival counter;
+  * reduce: the block's sums (the slab kernel's per channel, then per
+    group) to its place: the cluster's shared memory or the launch's
+    scratch;
+  * meet: the cluster barrier, or the wait at the unit's counter;
   * combine: the unit's sums added in rank order, the statistics;
-  * store: the normalised tail and head written, the next round's copies
-    issued.
+  * store: the normalised tail and kept part written, the next round's
+    copies issued.
 
-For each case (the grid's shapes: float32 NCHW groups above 16 x 220 KB and
-channels-last x) it prints the program build's device time a call (CUDA
+For each case it prints the program build's device time a call (CUDA
 events over ``--iters`` launches of the C entry), the stamped build's, the
-grid's blocks and rounds, and each phase's mean and largest share of a
-block's cycles and its mean cycles a block, with the card's name and power
-limit.  The shares are of the stamped build, whose extra barriers cost what
-its time shows beside the program's.
+blocks and rounds, each phase's mean and largest share of a block's cycles
+and its mean cycles a block, and the bytes of x loaded from global memory a
+call against x's own (1.0: every byte read once; what is read twice may come
+from L2 the second time), with the card's name and power limit.  The shares
+are of the stamped build, whose extra barriers cost what its time shows
+beside the program's.
+
+``--columns`` measures instead what a column of a row costs against the
+whole row (the stamped build's ``gswm_column_probe``): the 768x768 VAE
+image's 151 MB cut into rows of 256 and 512 bytes (bf16 rows of 128 and 256
+channels), moved one column of 16, 32, 64 or 128 bytes at a time, every
+column in turn (the whole tensor once), or whole rows at once; copied to the
+same place of a second tensor, or read alone.  Times by CUDA events in
+turns (widths up, then down), and the rate in GB/s of the bytes moved.
 """
 
 from __future__ import annotations
@@ -42,15 +55,20 @@ PHASES = ("load", "reduce", "meet", "combine", "store")
 STAMP_BLOCKS = 1024  # group_norm.cu GN_STAMP_BLOCKS
 BUILD = native.BUILD_DIR.parent / "gn_phases"
 # (layout, dtype, NCHW shape, act): the 768x768 VAE's largest groups at batch
-# 1 and 2, and channels-last x from the VAE's largest image to the UNet's
+# 1 and 2, and channels-last x from the VAE's largest image (the grid, a slab
+# a round) through its 192x192 ones (the grid, slabs kept whole) to the
+# UNet's (clusters; the smallest, 12x12)
 CASES = [
     ("nchw", torch.float32, (1, 128, 768, 768), "silu"),
     ("nchw", torch.float32, (2, 256, 384, 384), "silu"),
     ("nchw", torch.float32, (2, 128, 768, 768), "silu"),
     ("nhwc", torch.bfloat16, (1, 128, 768, 768), "silu"),
+    ("nhwc", torch.bfloat16, (1, 512, 192, 192), "silu"),
     ("nhwc", torch.bfloat16, (2, 512, 96, 96), "silu"),
     ("nhwc", torch.bfloat16, (2, 320, 96, 96), "silu"),
+    ("nhwc", torch.bfloat16, (2, 1280, 12, 12), "silu"),
     ("nhwc", torch.float32, (1, 128, 768, 768), "silu"),
+    ("nhwc", torch.float32, (2, 320, 96, 96), "silu"),
 ]
 
 
@@ -72,7 +90,26 @@ def build_stamped() -> ctypes.CDLL:
             getattr(out, name).restype = ctypes.c_int
     out.gswm_group_norm_phases.argtypes = [ctypes.c_void_p]
     out.gswm_group_norm_phases.restype = ctypes.c_int
+    out.gswm_column_probe.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                                      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                      ctypes.c_void_p]
+    out.gswm_column_probe.restype = ctypes.c_int
+    out.gswm_slab_plan.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    out.gswm_slab_plan.restype = ctypes.c_int
     return out
+
+
+PLAN_FIELDS = ("cluster", "groups_a_slab", "units", "units_a_round", "blocks_a_unit",
+               "pixels_a_slice", "kept_pixels", "evict_last_steps")
+
+
+def slab_plan(stamped, shape, groups: int, dtype) -> dict:
+    """The slab kernel's plan for channels-last x of ``shape``
+    (``gswm_slab_plan``: cluster or grid, the slab, K, P, the slices)."""
+    plan = (ctypes.c_int * (len(PLAN_FIELDS) + 16))()
+    _check(stamped.gswm_slab_plan(shape[0], shape[1], shape[2] * shape[3], groups,
+                                  int(dtype == torch.float32), plan), "slab plan")
+    return dict(zip(PLAN_FIELDS, plan))
 
 
 def _events_ms(fn, iters: int) -> float:
@@ -110,17 +147,20 @@ def phases(stamped, layout, dtype, shape, act, iters: int) -> dict:
     lib = native.library()
     ms = _events_ms(lambda: lib.call(entry, *args), iters)
     stamped_ms = _events_ms(lambda: _check(getattr(stamped, entry)(*args), entry), iters)
-    stamps = torch.zeros((STAMP_BLOCKS, len(PHASES) + 2), dtype=torch.int64)
+    stamps = torch.zeros((STAMP_BLOCKS, len(PHASES) + 3), dtype=torch.int64)
     _check(stamped.gswm_group_norm_phases(ctypes.c_void_p(stamps.data_ptr())), "phases")
     _check(getattr(stamped, entry)(*args), entry)
     torch.cuda.synchronize()
     _check(stamped.gswm_group_norm_phases(ctypes.c_void_p(stamps.data_ptr())), "phases")
+    plan = slab_plan(stamped, shape, 32, dtype) if layout == "nhwc" else None
     rows = stamps[stamps[:, len(PHASES)] > 0].double()
     total = rows[:, len(PHASES)]
     share = rows[:, :len(PHASES)] / total[:, None]
+    loaded = rows[:, len(PHASES) + 2].sum().item()
     res = dict(layout=layout, dtype=str(dtype).replace("torch.", ""), shape=list(shape), act=act,
                ms=ms, stamped_ms=stamped_ms, blocks=int(rows.shape[0]),
-               rounds=[int(rows[:, -1].min()), int(rows[:, -1].max())],
+               rounds=[int(rows[:, len(PHASES) + 1].min()), int(rows[:, len(PHASES) + 1].max())],
+               bytes_loaded=loaded, reads=loaded / (x.numel() * x.element_size()), plan=plan,
                block_cycles=total.mean().item(),
                phases={name: dict(share=share[:, k].mean().item(),
                                   share_max=share[:, k].max().item(),
@@ -128,9 +168,48 @@ def phases(stamped, layout, dtype, shape, act, iters: int) -> dict:
                        for k, name in enumerate(PHASES)})
     text = ", ".join(f"{name} {v['share']:.1%} (max {v['share_max']:.1%}, "
                      f"{v['cycles']:.0f} cycles)" for name, v in res["phases"].items())
-    print(f"{layout} {res['dtype']} {tuple(shape)} {act}: {ms:.4f} ms a call (stamped "
-          f"{stamped_ms:.4f}); {res['blocks']} blocks, rounds {res['rounds']}; a block "
+    how = "" if plan is None else (
+        f"{'clusters' if plan['cluster'] else 'grid'} of {plan['blocks_a_unit']} blocks a slab "
+        f"of {plan['groups_a_slab']} groups ({plan['groups_a_slab'] * shape[1] // 32 * x.element_size()}"
+        f" bytes a pixel), {plan['units_a_round']} of {plan['units']} slabs a round; ")
+    print(f"{layout} {res['dtype']} {tuple(shape)} {act}: {how}{ms:.4f} ms a call (stamped "
+          f"{stamped_ms:.4f}); {res['blocks']} blocks, rounds {res['rounds']}; x loaded "
+          f"{res['reads']:.3f} times ({loaded / 1e6:.1f} MB); a block "
           f"{res['block_cycles']:.0f} cycles: {text}", flush=True)
+    return res
+
+
+COLUMN_TENSOR_BYTES = 768 * 768 * 128 * 2
+COLUMN_ROWS = (256, 512)
+COLUMN_WIDTHS = (16, 32, 64, 128)
+
+
+def columns(stamped, iters: int) -> list:
+    """The column probe: for each row width and mode, each column width's
+    time to move the whole tensor, in turns."""
+    x = torch.randint(0, 255, (COLUMN_TENSOR_BYTES,), dtype=torch.uint8, device="cuda")
+    out = torch.empty_like(x)
+    stream = native.stream_handle(x.device)
+    res = []
+    for row in COLUMN_ROWS:
+        rows = COLUMN_TENSOR_BYTES // row
+        widths = (*(w for w in COLUMN_WIDTHS if w < row), row)
+        for mode, name in ((0, "copy"), (1, "read")):
+            def run(w, mode=mode, row=row, rows=rows):
+                for off in range(0, row, w):
+                    _check(stamped.gswm_column_probe(x.data_ptr(), out.data_ptr(), rows, row,
+                                                     w, off, mode, stream), "column probe")
+            times = {w: [] for w in widths}
+            for w in (*widths, *reversed(widths)):
+                times[w].append(_events_ms(lambda w=w: run(w), iters))
+            moved = COLUMN_TENSOR_BYTES * (2 if mode == 0 else 1)
+            for w in widths:
+                best = min(times[w])
+                res.append(dict(row_bytes=row, column_bytes=w, mode=name, ms=times[w],
+                                gb_s=moved / best / 1e6))
+                print(f"columns: {name} {w}-byte columns of {row}-byte rows, "
+                      f"{COLUMN_TENSOR_BYTES / 1e6:.1f} MB: {times[w]} ms, "
+                      f"{moved / best / 1e6:.0f} GB/s", flush=True)
     return res
 
 
@@ -138,14 +217,20 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", help="write the cases as JSON here")
     parser.add_argument("--iters", type=int, default=50)
+    parser.add_argument("--columns", action="store_true",
+                        help="measure column reads and copies instead of the phases")
     args = parser.parse_args()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True).stdout
     print(card.strip().splitlines()[0], flush=True)
     stamped = build_stamped()
-    cases = [phases(stamped, *case, args.iters) for case in CASES]
+    if args.columns:
+        result = dict(card=card.strip(), columns=columns(stamped, args.iters))
+    else:
+        result = dict(card=card.strip(),
+                      cases=[phases(stamped, *case, args.iters) for case in CASES])
     if args.out:
-        Path(args.out).write_text(json.dumps(dict(card=card.strip(), cases=cases), indent=1))
+        Path(args.out).write_text(json.dumps(result, indent=1))
 
 
 if __name__ == "__main__":

@@ -431,14 +431,17 @@ def test_qkv_proj_f32_runs_its_products_on_3xtf32_wgmma():
 
 
 def test_group_norm_takes_the_element_type_as_a_template_parameter():
-    """csrc/group_norm.cu: the cluster kernel and the persistent grid, each
-    templated on its element type, a bf16 and a float32 entry on one sizing
-    (in bytes), the 16-byte vectors of 8 bf16 or 4 floats; the grid takes
-    the layout as a template parameter too."""
+    """csrc/group_norm.cu: the cluster kernel, the persistent grid (NCHW)
+    and the slab kernel (channels-last x, clusters or a grid, a template
+    parameter), each templated on its element type, a bf16 and a float32
+    entry on one sizing (in bytes), the 16-byte vectors of 8 bf16 or 4
+    floats; no other kernel outside the measurement build."""
     code = _code("group_norm.cu")
+    program = re.sub(r"#ifdef GN_PHASE_STAMPS.*?#(else|endif)", "", code, flags=re.S)
     assert "template <typename E, bool VEC, int THREADS, bool SILU>\n__global__" in code
-    assert "template <typename E, bool NHWC, bool VEC, int THREADS>\n__global__" in code
-    assert code.count("__global__") == 2
+    assert "template <typename E, int THREADS>\n__global__" in code
+    assert "template <typename E, bool VEC, bool CLUSTER>\n__global__" in code
+    assert program.count("__global__") == 3
     assert "return group_norm<bf16>(" in code and "return group_norm<float>(" in code
     assert "static constexpr int VEC = 8;" in code and "static constexpr int VEC = 4;" in code
     assert native._SIGNATURES["gswm_group_norm_f32"] == native._SIGNATURES["gswm_group_norm"]

@@ -12,6 +12,7 @@ the largest output entry: over thousands of keys a typical entry is ~0.02,
 so the absolute bound alone would pass an error of a few percent.
 """
 
+import math
 import time
 
 import pytest
@@ -1617,8 +1618,10 @@ def _group_norm_f64(x, w, b, groups, eps, act):
 
 # channels-minor K8: (shape, groups, eps, act); cpg 10, 20, 40 (the UNet's),
 # 4 (the VAE's), 3; ragged H * W; C * itemsize % 16 != 0 (the element-wise
-# instance); the 768x768 VAE's largest image, read twice (no card keeps 151
-# MB), and images a round keeps whole
+# instance); the 768x768 VAE's largest images, a slab a round over the whole
+# card, its tail read twice (no card keeps 75 MB), and slabs a grid round
+# keeps whole or with their tails in L2; slabs a cluster keeps, in one round
+# or several
 NHWC_CASES = [
     ((2, 320, 96, 96), 32, 1e-5, "silu"), ((4, 640, 48, 48), 32, 1e-5, None),
     ((2, 1280, 12, 12), 32, 1e-5, "silu"), ((1, 96, 33, 17), 32, 1e-6, "silu"),
@@ -1626,9 +1629,19 @@ NHWC_CASES = [
     ((1, 38, 5, 3), 2, 1e-6, None), ((2, 512, 96, 96), 32, 1e-6, "silu"),
     ((1, 256, 384, 384), 32, 1e-6, None), ((1, 128, 768, 768), 32, 1e-6, "silu"),
     ((2, 128, 768, 768), 32, 1e-6, None), ((1, 320, 300, 1), 32, 1e-5, "silu"),
-    # 2560 channels (the UNet's skip concatenations): 640 16-byte columns in
-    # float32, the grid's wide blocks
-    ((2, 2560, 12, 12), 32, 1e-5, "silu"), ((4, 2560, 24, 24), 32, 1e-5, None)]
+    # 2560 channels (the UNet's skip concatenations)
+    ((2, 2560, 12, 12), 32, 1e-5, "silu"), ((4, 2560, 24, 24), 32, 1e-5, None),
+    # a group's column no multiple of 16 bytes in bf16 (320 channels: 20
+    # bytes) across images a cluster keeps whole; cpg = 1 (C = G)
+    ((1, 320, 40, 40), 32, 1e-5, "silu"), ((2, 32, 24, 24), 32, 1e-5, "silu"),
+    ((1, 96, 96, 96), 96, 1e-6, None),
+    # the grid: slabs a round keeps whole, and more a round with their tails
+    ((1, 512, 192, 192), 32, 1e-6, "silu"), ((2, 512, 192, 192), 32, 1e-6, None),
+    # clusters over several rounds (256 slabs of 92 KB)
+    ((16, 1280, 24, 24), 32, 1e-5, "silu"),
+    # more than 4096 channels; groups of 520 bytes in bf16 (16-byte vectors
+    # only in pairs: a column wider than a warp)
+    ((2, 5120, 8, 8), 32, 1e-5, "silu"), ((1, 8320, 4, 4), 32, 1e-6, None)]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
@@ -1637,7 +1650,8 @@ def test_nhwc_group_norm_kernel_matches_plain(cuda, dtype, shape, groups, eps, a
     """K8 on channels-last x: bf16 within 0.02 and 1% of max |want| of the
     fp32 plain version on the same x; float32 within 1e-5 of max |want| of
     the JAX op's formulas in float64; the output channels-last, in x's
-    dtype, one launch on the channels-minor counter of x's dtype."""
+    dtype, one launch on the channels-minor counter of x's dtype, and the
+    same bits on a second call."""
     g = torch.Generator(device=cuda).manual_seed(shape[1] + shape[2] + groups)
     x = (torch.randn(shape, generator=g, device=cuda) * 2 + 0.5).to(dtype) \
         .contiguous(memory_format=torch.channels_last)
@@ -1651,6 +1665,7 @@ def test_nhwc_group_norm_kernel_matches_plain(cuda, dtype, shape, groups, eps, a
     assert got.dtype == dtype and got.shape == x.shape
     assert got.is_contiguous(memory_format=torch.channels_last) and \
         gn.layout_of(got) == gn.NHWC
+    assert torch.equal(got, gn.fused_group_norm(x, w, b, groups, eps, act))
     if dtype == torch.bfloat16:
         want = gn.fused_group_norm_reference(x.float(), w, b, groups, eps, act)
         err = (got.float() - want).abs().max().item()
@@ -1664,7 +1679,8 @@ def test_nhwc_group_norm_kernel_matches_plain(cuda, dtype, shape, groups, eps, a
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
 @pytest.mark.parametrize("shape", [(2, 640, 96, 96), (1, 128, 768, 768), (2, 34, 10, 10)])
 def test_nhwc_group_norm_is_one_launch_one_allocation_and_repeats(cuda, dtype, shape):
-    """Channels-last K8: one kernel a call (the persistent grid), one
+    """Channels-last K8: one kernel a call (the slab kernel: clusters at
+    (2, 640, 96, 96) and (2, 34, 10, 10), the grid at (1, 128, 768, 768)), one
     allocation (the output), and the same bits on a second call (the blocks'
     sums added in a fixed order)."""
     groups = 2 if shape[1] == 34 else 32
@@ -1678,7 +1694,7 @@ def test_nhwc_group_norm_is_one_launch_one_allocation_and_repeats(cuda, dtype, s
     assert torch.cuda.memory_stats()["allocation.all.allocated"] == allocs + 1
     assert torch.equal(first, again)
     _assert_one_kernel_a_call(lambda: gn.fused_group_norm(x, w, b, groups, 1e-5, "silu"),
-                              "gn_grid_kernel")
+                              "gn_slab_kernel")
 
 
 @pytest.mark.parametrize("shape,act", [((1, 128, 768, 768), "silu"), ((1, 256, 768, 768), None),
@@ -1699,26 +1715,46 @@ def test_f32_group_norm_repeats_bit_for_bit(cuda, shape, act):
     assert err <= 1e-5 * want.abs().max().item(), err
 
 
+# (shape, groups) pairs run on two streams at once: small images whose
+# clusters take a few blocks each, so both are resident together; the slab
+# edge cases (a 20-byte group column, cpg = 1, 2560 channels, several
+# rounds of clusters, more than 4096 channels); the grid, a round and
+# several, beside a cluster launch and beside itself
+TWO_STREAM_PAIRS = [
+    (((1, 320, 16, 16), 32), ((2, 256, 16, 16), 32)),
+    (((1, 320, 40, 40), 32), ((2, 32, 24, 24), 32)),
+    (((4, 2560, 24, 24), 32), ((16, 1280, 24, 24), 32)),
+    (((2, 5120, 8, 8), 32), ((1, 38, 5, 3), 2)),
+    (((1, 512, 192, 192), 32), ((2, 320, 96, 96), 32)),
+    (((1, 128, 768, 768), 32), ((1, 512, 192, 192), 32))]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
-def test_nhwc_group_norm_on_two_streams_at_once(cuda, dtype):
-    """Grids on two streams at once: small channels-last images whose grids
-    take a few blocks each, so both are resident together, each called many
-    times on its own stream; every output equals that input's output on the
-    default stream (each launch's sums and counters are its own)."""
-    shapes = [(1, 320, 16, 16), (2, 256, 16, 16)]
+@pytest.mark.parametrize("pair", TWO_STREAM_PAIRS,
+                         ids=lambda pair: "-".join(str(s[1]) for s, _ in pair))
+def test_nhwc_group_norm_on_two_streams_at_once(cuda, dtype, pair):
+    """Launches on two streams at once, each called many times on its own
+    stream; every output equals that input's output on the default stream
+    (a cluster's sums stay in its shared memory; each grid launch's sums and
+    counters are its own)."""
+    shapes = [s for s, _ in pair]
+    groups = [gr for _, gr in pair]
     g = torch.Generator(device=cuda).manual_seed(24)
     xs = [(torch.randn(s, generator=g, device=cuda) * 2 + 0.5).to(dtype)
           .contiguous(memory_format=torch.channels_last) for s in shapes]
     ws = [1 + 0.05 * torch.randn(s[1], generator=g, device=cuda) for s in shapes]
     bs = [0.05 * torch.randn(s[1], generator=g, device=cuda) for s in shapes]
-    want = [gn.fused_group_norm(x, w, b, 32, 1e-5, "silu") for x, w, b in zip(xs, ws, bs)]
+    want = [gn.fused_group_norm(x, w, b, gr, 1e-5, "silu")
+            for x, w, b, gr in zip(xs, ws, bs, groups)]
     torch.cuda.synchronize()
     streams = [torch.cuda.Stream(device=cuda) for _ in shapes]
+    calls = 64 if max(math.prod(s) for s in shapes) < 1 << 24 else 8
     outs = [[], []]
-    for _ in range(64):
+    for _ in range(calls):
         for k, st in enumerate(streams):
             with torch.cuda.stream(st):
-                outs[k].append(gn.fused_group_norm(xs[k], ws[k], bs[k], 32, 1e-5, "silu"))
+                outs[k].append(gn.fused_group_norm(xs[k], ws[k], bs[k], groups[k], 1e-5,
+                                                   "silu"))
     torch.cuda.synchronize()
     for k in range(len(shapes)):
         assert all(torch.equal(o, want[k]) for o in outs[k]), k
@@ -1726,8 +1762,9 @@ def test_nhwc_group_norm_on_two_streams_at_once(cuda, dtype):
 
 def test_group_norm_refuses_other_strides_on_the_card(cuda):
     """Neither contiguous nor channels-minor raises a ValueError naming the
-    two layouts; channels-minor x wider than the grid kernel takes raises too;
-    nothing is launched."""
+    two layouts; channels-minor x whose groups are wider than a slab the
+    kernel takes (8320 channels in one group) raises too; nothing is
+    launched."""
     names = ("launches", "launches_f32", "launches_nhwc", "launches_nhwc_f32")
     before = [getattr(gn.fused_group_norm, n) for n in names]
     w, b = torch.ones(64, device=cuda), torch.zeros(64, device=cuda)
@@ -1740,7 +1777,8 @@ def test_group_norm_refuses_other_strides_on_the_card(cuda):
     wide = torch.zeros((1, 8320, 2, 2), device=cuda, dtype=torch.bfloat16) \
         .contiguous(memory_format=torch.channels_last)
     with pytest.raises(ValueError, match="wider than"):
-        gn.fused_group_norm(wide, torch.ones(8320, device=cuda), torch.zeros(8320, device=cuda))
+        gn.fused_group_norm(wide, torch.ones(8320, device=cuda), torch.zeros(8320, device=cuda),
+                            groups=1)
     assert [getattr(gn.fused_group_norm, n) for n in names] == before
 
 

@@ -189,14 +189,17 @@ def test_reference_takes_parameters_of_any_float_dtype(dtype):
 
 
 def test_kernel_source_is_one_launch_that_keeps_the_group_on_chip():
-    """csrc/group_norm.cu: one launch a call, of one of two kernels (no
-    stats / apply pair): the cluster kernel, its blocks' sums exchanged
+    """csrc/group_norm.cu: one launch a call (no stats / apply pair), of one
+    of four kernels.  NCHW: the cluster kernel, its blocks' sums exchanged
     through distributed shared memory under cluster barriers, or the
-    persistent grid, a cooperative launch whose blocks leave their sums in
-    fixed places of the launch's own scratch (from the stream's pool, the
-    counters zeroed in stream order; no static device buffer) and meet at
-    an integer counter; no scratch argument, no float atomics (the only
-    atomics count arrivals); native.py's signatures agree."""
+    persistent grid.  Channels-minor x: the slab kernel, whose unit is a slab
+    of whole groups loaded by cp.async, as a cluster that reads its blocks'
+    group sums through distributed shared memory, or as a cooperative grid.
+    The grids leave their sums in fixed places of the launch's own scratch
+    (from the stream's pool, the counters zeroed in stream order; no static
+    device buffer) and meet at integer counters; no scratch argument, no
+    float atomics (the only atomics count arrivals, on unsigned integers);
+    native.py's signatures agree."""
     import re
     from pathlib import Path
 
@@ -210,21 +213,27 @@ def test_kernel_source_is_one_launch_that_keeps_the_group_on_chip():
                  "cluster.sync()", "barrier.cluster.arrive", "barrier.cluster.wait",
                  "cp.async.bulk.shared::cluster.global", "cudaLaunchAttributeCooperative",
                  "cudaMallocAsync(&scratch", "cudaMemsetAsync(scratch, 0, count_bytes, st)",
-                 "cudaFreeAsync(scratch, st)"):
+                 "cudaFreeAsync(scratch, st)", "gn_slab_kernel", "cp_async_16_hinted(",
+                 "cudaOccupancyMaxActiveClusters", "red.release.gpu.global.add.u32"):
         assert used in code, used
     for gone in ("gn_stats_kernel", "gn_apply_kernel", "partials", "<<<"):
         assert gone not in code, gone
     # the program's build: no buffer in static device memory (the phase
-    # stamps' is in the measurement build alone)
+    # stamps' and the column probe are in the measurement build alone)
     program = re.sub(r"#ifdef GN_PHASE_STAMPS.*?#(else|endif)", "", code, flags=re.S)
     assert "__device__ float" not in program and "__device__ unsigned" not in program
+    # the atomics count arrivals: the NCHW grid's `arrived` and `passed`, the
+    # slab grid's counter (a reduction), all unsigned integers
     assert set(re.findall(r"atomic\w+\(([^,]+),", code)) == {"arrived", "passed"}
     assert "unsigned int* arrived" in code and "unsigned int* passed" in code
-    # one launch site a kernel: the cluster kernel's and the grid's
-    assert code.count("cudaLaunchKernelEx(") == 2
+    assert re.findall(r"\b(?:red|atom)\.[\w.:]*", program) == ["red.release.gpu.global.add.u32"]
+    # one launch site a kernel: the cluster kernel's, the grid's and the slab
+    # kernel's two (cluster and grid)
+    assert program.count("cudaLaunchKernelEx(") == 4
     # x, weight, bias, out; B, C, HW, G; eps, act, stream
-    sig = native._SIGNATURES["gswm_group_norm"]
-    assert len(sig) == 11 and sig.count(native._VP) == 5
+    for name in ("gswm_group_norm", "gswm_group_norm_nhwc", "gswm_group_norm_nhwc_f32"):
+        sig = native._SIGNATURES[name]
+        assert len(sig) == 11 and sig.count(native._VP) == 5
 
 
 class _OnCard:
@@ -338,16 +347,40 @@ def test_wrapper_routes_each_layout_to_its_entry(monkeypatch, layout, dtype):
                       (0x1000, 0x2000, 0x3000, 0x7000, 2, 320, 48, 32, 1e-6, 1))]
     moved = {c: getattr(gn.fused_group_norm, c) - n for c, n in before.items()}
     assert moved == {c: int(c == gn.ENTRIES[layout, dtype][1]) for c in counters}
-    # other strides, and channels-minor x wider than the grid kernel takes,
-    # are refused before any launch
+    # other strides, and channels-minor x whose groups are wider than a slab
+    # the kernel takes, are refused before any launch; channels-minor x of
+    # any C above 4096 whose groups are narrow is taken
     with pytest.raises(ValueError, match="neither contiguous"):
         gn.fused_group_norm(_Strided(torch.zeros((2, 320, 6, 8), dtype=dtype)[..., :4],
                                      0x1000), w, b)
     wide = torch.zeros((1, 8320, 2, 2), dtype=dtype).contiguous(memory_format=torch.channels_last)
     big = _OnCard((8320,), torch.float32, 0x2000)
     with pytest.raises(ValueError, match="wider than"):
-        gn.fused_group_norm(_Strided(wide, 0x1000), big, big)
+        gn.fused_group_norm(_Strided(wide, 0x1000), big, big, groups=1)
     assert len(calls) == 1
+    if layout == "nhwc":
+        gn.fused_group_norm(_Strided(wide, 0x1000), big, big, groups=32)
+        assert calls[-1][0] == gn.entry(layout, dtype) and calls[-1][1][5] == 8320
+
+
+# (C, groups, itemsize, taken): any C whose groups a slab holds; the widest
+# group of 16-byte vectors (4096 bf16 or 2048 float32 channels) and one past
+# it; rows that are no 16-byte vectors, up to 512 channels a group; a group
+# of 16-byte vectors only in pairs (520 bytes: two make 1040)
+SLAB_CASES = [(320, 32, 2, True), (2560, 32, 4, True), (8320, 32, 2, True),
+              (131072, 32, 2, True), (131104, 32, 2, False), (65536, 32, 4, True),
+              (65568, 32, 4, False), (4096, 1, 2, True), (4104, 1, 2, False),
+              (8320, 1, 2, False), (38, 2, 2, True), (1024, 2, 2, True), (1026, 2, 2, False),
+              (8320, 32, 4, True), (16384, 2, 4, False)]
+
+
+@pytest.mark.parametrize("c,groups,itemsize,taken", SLAB_CASES)
+def test_nhwc_slab_rule_takes_any_c_whose_groups_a_slab_holds(c, groups, itemsize, taken):
+    """``nhwc_slab_fits`` against the slab kernel's rule (csrc/group_norm.cu
+    pick_slab): the fewest whole groups whose column is 16-byte vectors fit
+    512 threads of 16 bytes (8192 bytes a pixel), or, where C * itemsize %
+    16 != 0, a group of at most 512 channels; C itself is not capped."""
+    assert gn.nhwc_slab_fits(c, groups, itemsize) is taken
 
 
 def test_wrapper_refuses_a_gradient_before_any_launch(monkeypatch):
