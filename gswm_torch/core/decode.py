@@ -18,6 +18,7 @@ import torch
 from gswm_torch.config import GSConfig
 from gswm_torch.core import bits as bitops
 from gswm_torch.core import chacha
+from gswm_torch.utils.profiling import span
 
 
 def quantize_latent_bits(latents: torch.Tensor, l: int) -> torch.Tensor:
@@ -57,13 +58,14 @@ def recover_message_bits(latents: torch.Tensor, cfg: GSConfig,
     (C, h, w).  Returns voted message bits of shape (..., message_bits) as
     uint8.  The keystream, unless given, is the cached one of (key, nonce,
     capacity, device), shared with embed."""
-    cfg = cfg.resolved()
-    latents = torch.as_tensor(latents)
-    if keystream is None:
-        key, nonce = cfg.resolve_key_nonce()
-        keystream = chacha.cached_keystream_bits(key, nonce, cfg.capacity_bits,
-                                                 latents.device)
-    return _decode_chain(latents, keystream, cfg.l, cfg.resolved_message_bits)
+    with span("gswm.decode_bits"):
+        cfg = cfg.resolved()
+        latents = torch.as_tensor(latents)
+        if keystream is None:
+            key, nonce = cfg.resolve_key_nonce()
+            keystream = chacha.cached_keystream_bits(key, nonce, cfg.capacity_bits,
+                                                     latents.device)
+        return _decode_chain(latents, keystream, cfg.l, cfg.resolved_message_bits)
 
 
 def decode_latents(latents: torch.Tensor, cfg: GSConfig) -> str | list[str]:

@@ -21,6 +21,7 @@ import torch
 from gswm_torch.config import GSConfig, prepare_message_bytes
 from gswm_torch.core import bits as bitops
 from gswm_torch.core import chacha
+from gswm_torch.utils.profiling import span
 
 
 def _bits_to_latent(cipher_bits: torch.Tensor, u: torch.Tensor, l: int,
@@ -96,31 +97,32 @@ def embed_latents(
       the batch when seeded, independent latents otherwise (nodes.py:232-238).
       Default: replicate iff cfg.seed is not None.
     """
-    cfg = cfg.resolved()
-    if message_bytes is None:
-        message_bytes = prepare_message_bytes(
-            cfg.message, cfg.message_bytes_len, cfg.repeat4)
-    cipher_bits = encrypted_payload_bits(cfg, message_bytes, device)
+    with span("gswm.embed"):
+        cfg = cfg.resolved()
+        if message_bytes is None:
+            message_bytes = prepare_message_bytes(
+                cfg.message, cfg.message_bytes_len, cfg.repeat4)
+        cipher_bits = encrypted_payload_bits(cfg, message_bytes, device)
 
-    if replicate is None:
-        replicate = cfg.seed is not None
-    n_draws = 1 if replicate else batch
-    h, w = cfg.latent_hw
-    shape = (cfg.channels, h, w)
+        if replicate is None:
+            replicate = cfg.seed is not None
+        n_draws = 1 if replicate else batch
+        h, w = cfg.latent_hw
+        shape = (cfg.channels, h, w)
 
-    if u is None:
-        if generator is None:
-            # unseeded: fresh entropy — a fixed default would replicate u
-            # across runs and leak the watermark pattern.
-            seed = (cfg.seed if cfg.seed is not None
-                    else int.from_bytes(os.urandom(4), "little"))
-            generator = torch.Generator(device=device).manual_seed(seed)
-        u = torch.rand((n_draws, cfg.total_elements), generator=generator,
-                       dtype=torch.float32, device=device)
-    else:
-        u = torch.as_tensor(u, dtype=torch.float32).to(device)
-        u = u.reshape(n_draws, cfg.total_elements)
-    lat = _bits_to_latent(cipher_bits, u, cfg.l, shape)
-    if replicate and batch > 1:
-        lat = lat.expand((batch,) + lat.shape[1:])
-    return lat, message_bytes
+        if u is None:
+            if generator is None:
+                # unseeded: fresh entropy — a fixed default would replicate u
+                # across runs and leak the watermark pattern.
+                seed = (cfg.seed if cfg.seed is not None
+                        else int.from_bytes(os.urandom(4), "little"))
+                generator = torch.Generator(device=device).manual_seed(seed)
+            u = torch.rand((n_draws, cfg.total_elements), generator=generator,
+                           dtype=torch.float32, device=device)
+        else:
+            u = torch.as_tensor(u, dtype=torch.float32).to(device)
+            u = u.reshape(n_draws, cfg.total_elements)
+        lat = _bits_to_latent(cipher_bits, u, cfg.l, shape)
+        if replicate and batch > 1:
+            lat = lat.expand((batch,) + lat.shape[1:])
+        return lat, message_bytes

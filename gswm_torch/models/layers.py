@@ -43,6 +43,7 @@ from gswm_torch.ops.attention import (
     fused_qkv_attention,
     route_self_attention,
 )
+from gswm_torch.utils.profiling import span
 
 # gswm/models/layers.py:667: the VAE mid attention keeps the plain path up to
 # this many tokens (512x512 images) and takes the split flash kernel above
@@ -60,9 +61,10 @@ class GroupNorm32(nn.GroupNorm):
     as the JAX package's do (gswm/models/layers.py:75-100)."""
 
     def forward(self, x):
-        y = F.group_norm(x.float(), self.num_groups, self.weight.float(),
-                         self.bias.float(), self.eps)
-        return y.to(x.dtype)
+        with span("gswm.groupnorm"):
+            y = F.group_norm(x.float(), self.num_groups, self.weight.float(),
+                             self.bias.float(), self.eps)
+            return y.to(x.dtype)
 
 
 class LayerNorm32(nn.LayerNorm):
@@ -196,29 +198,32 @@ class Attention(nn.Module):
         self.sp_mesh = None
 
     def forward(self, x, context=None):
-        heads = self.local_heads
-        if context is not None:
-            out = plain_attention(self.to_q(x), self.to_k(context), self.to_v(context), heads)
+        with span("gswm.attn.self" if context is None else "gswm.attn.cross"):
+            heads = self.local_heads
+            if context is not None:
+                out = plain_attention(self.to_q(x), self.to_k(context), self.to_v(context),
+                                      heads)
+                return row_parallel(self.to_out[0], out, self.tp_group)
+            route = route_self_attention(x.shape[1], self.head_dim, self.sharded)
+            wq, wk, wv = self.to_q.weight, self.to_k.weight, self.to_v.weight
+            if route == "packed":
+                return self._packed(x, wq, wk, wv)
+            if route == "transposed":
+                return self._transposed(x, wq, wk, wv)
+            if route == "fused_qkv":
+                return self.to_out(fused_qkv_attention(x, wq, wk, wv, heads))
+            q, k, v = F.linear(x, wq), F.linear(x, wk), F.linear(x, wv)
+            if route in ("xf", "cres"):
+                out = flash_attention(q, k, v, heads)
+            elif route == "split":
+                b, s, inner = q.shape
+                q, k, v = (t.view(b, s, heads, self.head_dim) for t in (q, k, v))
+                out = (flash_attention_sharded(q, k, v, self.sp_mesh)
+                       if self.sp_mesh is not None
+                       else flash_attention_split(q, k, v)).reshape(b, s, inner)
+            else:
+                out = plain_attention(q, k, v, heads)
             return row_parallel(self.to_out[0], out, self.tp_group)
-        route = route_self_attention(x.shape[1], self.head_dim, self.sharded)
-        wq, wk, wv = self.to_q.weight, self.to_k.weight, self.to_v.weight
-        if route == "packed":
-            return self._packed(x, wq, wk, wv)
-        if route == "transposed":
-            return self._transposed(x, wq, wk, wv)
-        if route == "fused_qkv":
-            return self.to_out(fused_qkv_attention(x, wq, wk, wv, heads))
-        q, k, v = F.linear(x, wq), F.linear(x, wk), F.linear(x, wv)
-        if route in ("xf", "cres"):
-            out = flash_attention(q, k, v, heads)
-        elif route == "split":
-            b, s, inner = q.shape
-            q, k, v = (t.view(b, s, heads, self.head_dim) for t in (q, k, v))
-            out = (flash_attention_sharded(q, k, v, self.sp_mesh) if self.sp_mesh is not None
-                   else flash_attention_split(q, k, v)).reshape(b, s, inner)
-        else:
-            out = plain_attention(q, k, v, heads)
-        return row_parallel(self.to_out[0], out, self.tp_group)
 
     def _packed(self, x, wq, wk, wv):
         """gswm/models/layers.py:437-464: one matmul into the pair-packed

@@ -21,6 +21,7 @@ from gswm_torch.models.layers import (
     Upsample,
     timestep_embedding,
 )
+from gswm_torch.utils.profiling import span
 
 
 class _Block(nn.Module):
@@ -94,47 +95,48 @@ class UNet2DCondition(nn.Module):
         """latents (B, C, h, w); timesteps (B,) or scalar; context
         (B, seq, cross_attn_dim); added_cond (SDXL): ``text_embeds``
         (B, pooled) and ``time_ids`` (B, 6).  Returns float32 (B, C, h, w)."""
-        cfg = self.config
-        dtype = self.conv_in.weight.dtype
-        x = latents.to(dtype)
-        context = context.to(dtype)
-        t = torch.as_tensor(timesteps, device=x.device)
-        if t.dim() == 0:
-            t = t.expand(x.shape[0])
-        temb = timestep_embedding(t, cfg.block_out_channels[0], cfg.flip_sin_to_cos,
-                                  cfg.freq_shift).to(dtype)
-        temb = self.time_embedding(temb)
-        if self.add_embedding is not None:
-            temb = temb + self.add_embedding(self._added_features(added_cond, x.shape[0],
-                                                                  dtype))
+        with span("gswm.unet"):
+            cfg = self.config
+            dtype = self.conv_in.weight.dtype
+            x = latents.to(dtype)
+            context = context.to(dtype)
+            t = torch.as_tensor(timesteps, device=x.device)
+            if t.dim() == 0:
+                t = t.expand(x.shape[0])
+            temb = timestep_embedding(t, cfg.block_out_channels[0], cfg.flip_sin_to_cos,
+                                      cfg.freq_shift).to(dtype)
+            temb = self.time_embedding(temb)
+            if self.add_embedding is not None:
+                temb = temb + self.add_embedding(self._added_features(added_cond, x.shape[0],
+                                                                      dtype))
 
-        x = self.conv_in(x)
-        skips = [x]
-        for block in self.down_blocks:
-            for i, resnet in enumerate(block.resnets):
-                x = resnet(x, temb)
-                if len(block.attentions):
-                    x = block.attentions[i](x, context)
-                skips.append(x)
-            for down in block.downsamplers:
-                x = down(x)
-                skips.append(x)
+            x = self.conv_in(x)
+            skips = [x]
+            for block in self.down_blocks:
+                for i, resnet in enumerate(block.resnets):
+                    x = resnet(x, temb)
+                    if len(block.attentions):
+                        x = block.attentions[i](x, context)
+                    skips.append(x)
+                for down in block.downsamplers:
+                    x = down(x)
+                    skips.append(x)
 
-        mid = self.mid_block
-        x = mid.resnets[0](x, temb)
-        x = mid.attentions[0](x, context)
-        x = mid.resnets[1](x, temb)
+            mid = self.mid_block
+            x = mid.resnets[0](x, temb)
+            x = mid.attentions[0](x, context)
+            x = mid.resnets[1](x, temb)
 
-        for block in self.up_blocks:
-            for i, resnet in enumerate(block.resnets):
-                x = resnet(torch.cat([x, skips.pop()], dim=1), temb)
-                if len(block.attentions):
-                    x = block.attentions[i](x, context)
-            for up in block.upsamplers:
-                x = up(x)
+            for block in self.up_blocks:
+                for i, resnet in enumerate(block.resnets):
+                    x = resnet(torch.cat([x, skips.pop()], dim=1), temb)
+                    if len(block.attentions):
+                        x = block.attentions[i](x, context)
+                for up in block.upsamplers:
+                    x = up(x)
 
-        x = self.conv_out(F.silu(self.conv_norm_out(x)))
-        return x.to(torch.float32)
+            x = self.conv_out(F.silu(self.conv_norm_out(x)))
+            return x.to(torch.float32)
 
     def _added_features(self, added_cond, batch: int, dtype) -> torch.Tensor:
         """SDXL micro-conditioning (gswm/models/unet.py:140-156): 256

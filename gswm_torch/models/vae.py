@@ -30,6 +30,7 @@ from gswm_torch.models.layers import (
     Upsample,
     VAEAttention,
 )
+from gswm_torch.utils.profiling import span
 
 
 def _block(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
@@ -159,12 +160,14 @@ class AutoencoderKL(nn.Module):
 
     def encode(self, images: torch.Tensor) -> torch.Tensor:
         """Posterior MEAN scaled by the SD factor (extract.py:42 parity)."""
-        mean, _ = self.encode_moments(images)
-        return mean * self.config.scaling_factor
+        with span("gswm.vae.encode"):
+            mean, _ = self.encode_moments(images)
+            return mean * self.config.scaling_factor
 
     def decode(self, latents: torch.Tensor) -> torch.Tensor:
         """Scaled latents (B, latent_channels, h, w) -> float32 images
         (B, 3, f*h, f*w), f = 2 ** (levels - 1), in [-1, 1]
         (gswm/models/vae.py:169-175)."""
-        z = (latents / self.config.scaling_factor).to(self.quant_conv.weight.dtype)
-        return self.decoder(self.post_quant_conv(z)).to(torch.float32)
+        with span("gswm.vae.decode"):
+            z = (latents / self.config.scaling_factor).to(self.quant_conv.weight.dtype)
+            return self.decoder(self.post_quant_conv(z)).to(torch.float32)

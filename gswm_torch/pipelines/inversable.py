@@ -42,6 +42,7 @@ from gswm_torch.schedulers.dpm import dpm_init_carry, dpm_step
 from gswm_torch.ops.attention import (FUSED_QKV_MAX_SEQ, FUSED_QKV_MIN_SEQ, KERNEL_DTYPES,
                                       kernel_takes_head_dim)
 from gswm_torch.schedulers.schedule import sd_schedule
+from gswm_torch.utils.profiling import span
 
 
 def _build(cls, cfg, generator: Optional[torch.Generator]):
@@ -229,7 +230,7 @@ class InversablePipeline:
         """(B, 77) token ids -> (B, 77, dim) float32 context; with a second
         encoder (SDXL) both contexts concatenated on the feature axis, the
         second's ids ``input_ids2`` (default ``input_ids``)."""
-        with torch.inference_mode():
+        with span("gswm.text"), torch.inference_mode():
             h = self.text(input_ids)
             if self.text2 is not None:
                 h2 = self.text2(input_ids if input_ids2 is None else input_ids2)
@@ -251,7 +252,7 @@ class InversablePipeline:
         checkpoint gave one), encoded once and broadcast to ``batch`` rows."""
         if self._empty_pooled is None:
             enc = self.text2 if self.text2 is not None else self.text
-            with torch.inference_mode():
+            with span("gswm.text"), torch.inference_mode():
                 self._empty_pooled = enc.pooled(enc.empty_prompt_ids(1),
                                                 projection=self.text2_projection)
         p = self._empty_pooled
@@ -293,44 +294,46 @@ class InversablePipeline:
         float32 output before ``to_eps``.
         ``refine`` (inversion only) re-takes each step from the same
         pre-step state with eps re-evaluated on the current estimate."""
-        plan = SCHEDULERS[scheduler][1 if invert else 0](self.schedule, num_steps)
-        alphas = torch.from_numpy(np.stack(
-            [plan.alpha_eval, plan.alpha_from, plan.alpha_to])).to(self.device)
-        x = torch.as_tensor(latents).to(self.device, torch.float32)
-        pred_type = self.schedule.prediction_type
-        use_dpm = scheduler == "DPMs"
-        guided = uncond_context is not None
-        ctx = torch.cat([uncond_context, context]) if guided else context
-        added = added_cond
-        if guided and added is not None:
-            added = {k: torch.cat([v, v]) for k, v in added.items()}
+        with span("gswm.loop"):
+            plan = SCHEDULERS[scheduler][1 if invert else 0](self.schedule, num_steps)
+            alphas = torch.from_numpy(np.stack(
+                [plan.alpha_eval, plan.alpha_from, plan.alpha_to])).to(self.device)
+            x = torch.as_tensor(latents).to(self.device, torch.float32)
+            pred_type = self.schedule.prediction_type
+            use_dpm = scheduler == "DPMs"
+            guided = uncond_context is not None
+            ctx = torch.cat([uncond_context, context]) if guided else context
+            added = added_cond
+            if guided and added is not None:
+                added = {k: torch.cat([v, v]) for k, v in added.items()}
 
-        def eval_eps(x, t, a_eval):
-            if guided:
-                out_u, out_c = self.unet(torch.cat([x, x]), t, ctx, added).chunk(2)
-                out = out_u + guidance_scale * (out_c - out_u)
-            else:
-                out = self.unet(x, t, ctx, added)
-            return to_eps(x, out, a_eval, pred_type)
+            def eval_eps(x, t, a_eval):
+                if guided:
+                    out_u, out_c = self.unet(torch.cat([x, x]), t, ctx, added).chunk(2)
+                    out = out_u + guidance_scale * (out_c - out_u)
+                else:
+                    out = self.unet(x, t, ctx, added)
+                return to_eps(x, out, a_eval, pred_type)
 
-        def step(x, eps, a_from, a_to, carry, first):
-            if use_dpm:
-                return dpm_step(x, eps, a_from, a_to, carry, first)
-            return ddim_step(x, eps, a_from, a_to), carry
+            def step(x, eps, a_from, a_to, carry, first):
+                if use_dpm:
+                    return dpm_step(x, eps, a_from, a_to, carry, first)
+                return ddim_step(x, eps, a_from, a_to), carry
 
-        carry = dpm_init_carry(x.shape, self.device) if use_dpm else None
-        first_order = plan.extras.get("first_order")
-        for i, t in enumerate(plan.t_model.tolist()):
-            a_eval, a_from, a_to = alphas[0, i], alphas[1, i], alphas[2, i]
-            first = bool(first_order[i]) if use_dpm else False
-            ts = torch.full((), t, dtype=torch.int32, device=self.device)
-            x_next, new_carry = step(x, eval_eps(x, ts, a_eval), a_from, a_to,
-                                     carry, first)
-            for _ in range(refine if invert else 0):
-                x_next, new_carry = step(x, eval_eps(x_next, ts, a_eval), a_from,
-                                         a_to, carry, first)
-            x, carry = x_next, new_carry
-        return x
+            carry = dpm_init_carry(x.shape, self.device) if use_dpm else None
+            first_order = plan.extras.get("first_order")
+            for i, t in enumerate(plan.t_model.tolist()):
+                with span("gswm.step"):
+                    a_eval, a_from, a_to = alphas[0, i], alphas[1, i], alphas[2, i]
+                    first = bool(first_order[i]) if use_dpm else False
+                    ts = torch.full((), t, dtype=torch.int32, device=self.device)
+                    x_next, new_carry = step(x, eval_eps(x, ts, a_eval), a_from, a_to,
+                                             carry, first)
+                    for _ in range(refine if invert else 0):
+                        x_next, new_carry = step(x, eval_eps(x_next, ts, a_eval), a_from,
+                                                 a_to, carry, first)
+                    x, carry = x_next, new_carry
+            return x
 
     # -- public API ----------------------------------------------------------
 
@@ -341,17 +344,18 @@ class InversablePipeline:
         final latents with ``decode=False``.  The prompt is ``context`` or
         ``prompt_ids`` (B, 77) token ids, else the empty prompt; guidance
         1.0 (or None) runs the UNet on the prompt alone."""
-        b = latents.shape[0]
-        if context is None:
-            context = (self.encode_prompt_ids(prompt_ids) if prompt_ids is not None
-                       else self.empty_context(b))
-        guided = guidance_scale is not None and guidance_scale != 1.0
-        out = self._run(latents, context, num_steps, invert=False,
-                        scheduler=scheduler,
-                        uncond_context=self.empty_context(b) if guided else None,
-                        guidance_scale=guidance_scale if guided else 1.0,
-                        added_cond=self._added_cond_for(latents))
-        return self._vae_chunked(out, self.decode_image) if decode else out
+        with span("gswm.generate"):
+            b = latents.shape[0]
+            if context is None:
+                context = (self.encode_prompt_ids(prompt_ids) if prompt_ids is not None
+                           else self.empty_context(b))
+            guided = guidance_scale is not None and guidance_scale != 1.0
+            out = self._run(latents, context, num_steps, invert=False,
+                            scheduler=scheduler,
+                            uncond_context=self.empty_context(b) if guided else None,
+                            guidance_scale=guidance_scale if guided else 1.0,
+                            added_cond=self._added_cond_for(latents))
+            return self._vae_chunked(out, self.decode_image) if decode else out
 
     def generate_with_init(self, latents, **kw) -> PipelineOutput:
         """``generate`` that also returns the init latents."""
@@ -405,9 +409,10 @@ class InversablePipeline:
                      refine: int = 0):
         """Inversion + quantize/decrypt/vote.  Returns ``(bits, z_T)``: voted
         message bits (B, message_bits) uint8 and the recovered init noise."""
-        z_t = self.invert(images=images, latents=latents, num_steps=num_steps,
-                          scheduler=scheduler, refine=refine)
-        return recover_message_bits(z_t, cfg), z_t
+        with span("gswm.extract_bits"):
+            z_t = self.invert(images=images, latents=latents, num_steps=num_steps,
+                              scheduler=scheduler, refine=refine)
+            return recover_message_bits(z_t, cfg), z_t
 
     # -- reference-pyc API parity (gswm/pipelines/inversable.py:467-528) -----
     # Thin aliases matching InversableStableDiffusionPipeline /
